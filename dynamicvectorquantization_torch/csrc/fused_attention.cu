@@ -1,0 +1,215 @@
+// Fused attention forward, softmax(Q K^T * scale) V, on (B, T, D) inputs
+// with heads carved from D (no head transpose), causal or not.
+//
+// Replaces: dynamicvectorquantization_tpu/ops/attention_pallas.py
+// `_fwd_kernel` (reached through `_fused_fwd` / `fused_causal_attention`),
+// at dropout rate 0.
+//
+// What bounds it on an H100: operations. At the DQ-VAE decoder's shape
+// (B=8, T=1024, one head of hd=256, f32) it does 4*T*T*hd = 1.1 GFLOP per
+// image against 4 MB of input, ~250 operations per byte; f32 inputs run on
+// the FMA units (67 TFLOP/s), not TF32 tensor cores, so the f32 decoder keeps
+// its parity with the reference.
+//
+// Design: the TPU kernel keeps the whole T x T score map in VMEM; at T=1024
+// that is 4 MB and does not fit a block's 227 KB of shared memory. So each
+// block takes one (batch, head, 64-row query tile), keeps its Q tile in
+// shared memory, and streams K/V through shared memory in 64-row tiles with
+// an online softmax (running max m, denominator l and output accumulator in
+// registers). Scores never reach device memory. Shared tiles hold f32 (bf16
+// inputs are widened once on load) with rows padded by one word so that the
+// column walks of Q K^T are free of bank conflicts. 256 threads; each owns 4
+// query rows (ty + 16 i) and, for the output, hd/16 columns (tx + 16 j).
+// Causal blocks stop at their last query row.
+//
+// Known limits of this simple version: FMA only (no wgmma for bf16), one
+// block per SM at hd=256 (214 KB of shared memory), no TMA pipelining.
+#include <float.h>
+#include <math.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int BQ = 64;  // query rows per block
+constexpr int BK = 64;  // key rows per shared-memory tile
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ out, int t_len, int d_model,
+                           float scale, int causal) {
+  constexpr int QS = HD + 1;  // padded row stride of Q and K tiles
+  constexpr int PS = BK + 1;  // padded row stride of the probability tile
+  constexpr int RI = BQ / 16;  // query rows per thread
+  constexpr int CJ = BK / 16;  // key columns per thread (scores)
+  constexpr int DJ = HD / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + BQ * QS;
+  float* sV = sK + BK * QS;
+  float* sP = sV + BK * HD;
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const size_t base = (size_t)b * t_len * d_model + (size_t)h * HD;
+
+  for (int idx = tid; idx < BQ * HD; idx += kThreads) {
+    const int rr = idx / HD, d = idx % HD, t = q0 + rr;
+    sQ[rr * QS + d] = t < t_len ? dqvq::to_f32(q[base + (size_t)t * d_model + d]) : 0.f;
+  }
+
+  float o[RI][DJ];
+  float m[RI], l[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
+  }
+
+  const int k_end = causal ? min(t_len, q0 + BQ) : t_len;
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    __syncthreads();  // the previous tile's sK / sV / sP reads are done
+    for (int idx = tid; idx < BK * HD; idx += kThreads) {
+      const int rr = idx / HD, d = idx % HD, t = k0 + rr;
+      const bool in = t < t_len;
+      const size_t off = base + (size_t)t * d_model + d;
+      sK[rr * QS + d] = in ? dqvq::to_f32(k[off]) : 0.f;
+      sV[rr * HD + d] = in ? dqvq::to_f32(v[off]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[RI][CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float qv[RI], kv[CJ];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) qv[i] = sQ[(ty + 16 * i) * QS + d];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) kv[j] = sK[(tx + 16 * j) * QS + d];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int row = q0 + ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const int col = k0 + tx + 16 * j;
+        float val = s[i][j] * scale;
+        if (col >= t_len || (causal && col > row)) val = -INFINITY;
+        s[i][j] = val;
+        mx = fmaxf(mx, val);
+      }
+      // the 16 threads sharing a row are lanes tx = 0..15 of one half-warp
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // fully masked so far
+      const float alpha = expf(m[i] - m_use);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) {
+        const float p = expf(s[i][j] - m_use);
+        sP[(ty + 16 * i) * PS + tx + 16 * j] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[i] = l[i] * alpha + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) o[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) pv[i] = sP[(ty + 16 * i) * PS + kk];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) {
+        const float vv = sV[kk * HD + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row < t_len) {
+      const float inv = 1.f / l[i];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j)
+        out[base + (size_t)row * d_model + tx + 16 * j] = dqvq::from_f32<T>(o[i][j] * inv);
+    }
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, int batch,
+                      int t_len, int d_model, int n_head, float scale, int causal,
+                      cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<HD>();
+  auto kernel = fused_attention_fwd_kernel<T, HD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((t_len + BQ - 1) / BQ, n_head, batch);
+  kernel<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)out, t_len,
+                                           d_model, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch, int t_len,
+                   int d_model, int n_head, float scale, int causal, cudaStream_t stream) {
+  switch (d_model / n_head) {
+    case 16: return launch_hd<T, 16>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 32: return launch_hd<T, 32>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 128: return launch_hd<T, 128>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 256: return launch_hd<T, 256>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// q, k, v, out: (batch, t_len, d_model) contiguous in `dtype`, heads carved
+// from d_model (head h owns columns [h*hd, (h+1)*hd)). Returns a cudaError_t.
+extern "C" int dqvq_fused_attention_forward(const void* q, const void* k, const void* v,
+                                            void* out, int batch, int t_len, int d_model,
+                                            int n_head, float scale, int causal, int dtype,
+                                            void* stream) {
+  if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == dqvq::kFloat32)
+    return launch<float>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, s);
+  if (dtype == dqvq::kBFloat16)
+    return launch<__nv_bfloat16>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, s);
+  return cudaErrorInvalidValue;
+}

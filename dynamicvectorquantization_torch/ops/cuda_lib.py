@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in `../csrc/*.cu` expose plain C entry points. At first use each
+source is compiled by its own `nvcc` process (all started together) for
+`sm_90a`, the objects are linked into one shared library under the repo's
+`build/` directory, and the library is loaded with `ctypes`. The library's
+file name carries a hash of the sources and flags, so an edited source is
+rebuilt and never mixed with a stale build; a finished build is moved into
+place atomically, so concurrent first uses in several processes are safe.
+
+Nothing here runs when the module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# entry point -> argtypes; every entry returns a cudaError_t as int
+SIGNATURES = {
+    "dqvq_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "dqvq_fused_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = os.path.join(home, "bin", "nvcc")
+    found = candidate if os.path.exists(candidate) else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _fingerprint() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the sources (one nvcc per source, in parallel) and link them
+    into one shared library; returns its path."""
+    out = os.path.join(BUILD_DIR, f"libdqvq_kernels-{_fingerprint()}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, _, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode:
+                print(f"[nvcc {os.path.basename(src)}]\n{log}", flush=True)
+                failed.append(os.path.basename(src))
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}")
+        tmp_so = os.path.join(tmp, "lib.so")
+        subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp_so,
+                        *(o for _, o, _ in procs)], check=True)
+        os.replace(tmp_so, out)
+    return out
+
+
+def lib():
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
+
+
+def check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
