@@ -1,10 +1,10 @@
 """Reference `target:` strings -> this package's torch classes.
 
 Counterpart of `dynamicvectorquantization_tpu/config/registry.py`, holding
-only the targets the ported slice (unconditional stage-2 sampling + DQ-VAE
-decode) instantiates. Paths inside this package pass through; any other
-target raises, so a config that needs an unported module fails loudly
-instead of silently picking something else.
+only the targets the ported slices (unconditional stage-2 sampling, the
+DQ-VAE's dual-grain encode and decode) instantiate. Paths inside this
+package pass through; any other target raises, so a config that needs an
+unported module fails loudly instead of silently picking something else.
 """
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ TARGET_ALIASES = {
     "models.stage1_dynamic.dqvae_dual_entropy.DualGrainVQModel": f"{_PKG}.models.dqvae.DualGrainVQModel",
     "models.stage1_dynamic.dqvae_dual_feat.DualGrainVQModel": f"{_PKG}.models.dqvae.DualGrainVQModel",
     "modules.dynamic_modules.stackgpt.StackGPT": f"{_PKG}.nn.stackgpt.StackGPT",
+    "modules.dynamic_modules.EncoderDual.DualGrainEncoder": f"{_PKG}.nn.encoder_dual.DualGrainEncoder",
+    "modules.dynamic_modules.RouterDual.DualGrainFixedEntropyRouter": f"{_PKG}.nn.routers.DualGrainFixedEntropyRouter",
+    "modules.dynamic_modules.RouterDual.DualGrainFeatureRouter": f"{_PKG}.nn.routers.DualGrainFeatureRouter",
     "modules.dynamic_modules.DecoderPositional.Decoder": f"{_PKG}.nn.decoder_positional.PositionalDecoder",
     "modules.dynamic_modules.Decoder.Decoder": f"{_PKG}.nn.decoder_positional.PositionalDecoder",
     "modules.dynamic_modules.permuter.DualGrainSeperatePermuter": f"{_PKG}.models.permuter.DualGrainSeparatePermuter",

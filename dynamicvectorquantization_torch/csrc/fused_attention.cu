@@ -13,17 +13,22 @@
 //
 // Design: the TPU kernel keeps the whole T x T score map in VMEM; at T=1024
 // that is 4 MB and does not fit a block's 227 KB of shared memory. So each
-// block takes one (batch, head, 64-row query tile), keeps its Q tile in
-// shared memory, and streams K/V through shared memory in 64-row tiles with
+// block takes one (batch, head, BQ-row query tile), keeps its Q tile in
+// shared memory, and streams K/V through shared memory in BK-row tiles with
 // an online softmax (running max m, denominator l and output accumulator in
 // registers). Scores never reach device memory. Shared tiles hold f32 (bf16
 // inputs are widened once on load) with rows padded by one word so that the
-// column walks of Q K^T are free of bank conflicts. 256 threads; each owns 4
-// query rows (ty + 16 i) and, for the output, hd/16 columns (tx + 16 j).
+// column walks of Q K^T are free of bank conflicts. 256 threads; each owns
+// BQ/16 query rows (ty + 16 i) and, for the output, hd/16 columns (tx + 16 j).
 // Causal blocks stop at their last query row.
 //
+// Tiles are chosen per head dim: BQ = BK = 64 up to hd=256, BQ = BK = 32
+// at hd=512 (the DQ-VAE encoder's 16x16 AttnBlocks, one head of 512
+// channels), where 64-row tiles would need 411 KB of shared memory and 32-row
+// tiles need 201 KB.
+//
 // Known limits of this simple version: FMA only (no wgmma for bf16), one
-// block per SM at hd=256 (214 KB of shared memory), no TMA pipelining.
+// block per SM at hd>=256 (214 / 201 KB of shared memory), no TMA pipelining.
 #include <float.h>
 #include <math.h>
 
@@ -32,15 +37,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // key rows per shared-memory tile
 
-template <int HD>
+// BQ query rows per block, BK key rows per shared-memory tile
+template <int HD, int BQ, int BK>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out, int t_len, int d_model,
@@ -169,12 +173,13 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int BQ = 64, int BK = 64>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, int batch,
                       int t_len, int d_model, int n_head, float scale, int causal,
                       cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  auto kernel = fused_attention_fwd_kernel<T, HD>;
+  constexpr size_t smem = smem_bytes<HD, BQ, BK>();
+  static_assert(smem <= 232448, "tiles exceed a block's shared memory");
+  auto kernel = fused_attention_fwd_kernel<T, HD, BQ, BK>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -193,6 +198,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
     case 64: return launch_hd<T, 64>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
     case 128: return launch_hd<T, 128>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
     case 256: return launch_hd<T, 256>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 512: return launch_hd<T, 512, 32, 32>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,5 +1,6 @@
-"""Dualformer — unconditional stage-2 KV-cached sampling and decode
-(counterpart of `dynamicvectorquantization_tpu/models/dqtransformer.py`).
+"""Dualformer — image encode to code streams, unconditional stage-2
+KV-cached sampling, and decode (counterpart of
+`dynamicvectorquantization_tpu/models/dqtransformer.py`).
 
 Sampling generates coarse (position, content) pairs until every row has
 emitted the coarse EOS, then fine pairs, each AR step feeding ONE token
@@ -73,6 +74,13 @@ class Dualformer(nn.Module):
     def init_weights(self, generator: torch.Generator):
         self.transformer.init_weights(generator)
         self.first_stage_model.init_weights(generator)
+
+    @torch.no_grad()
+    def encode_to_z(self, x):
+        """Frozen stage-1 encode + permuter pack: (B, H, W, 3) NHWC images ->
+        (quant, the permuter's dict of six (B, L) streams)."""
+        quant, _, info, grain_indices, _, _ = self.first_stage_model.encode(x)
+        return quant, self.permuter.forward(info[2], grain_indices)
 
     def encode_to_c(self, batch: int, device=None):
         return self.cond_stage_model.encode(batch, device)

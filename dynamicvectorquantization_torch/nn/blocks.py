@@ -1,16 +1,20 @@
 """VQGAN conv/attention blocks, NCHW (counterpart of
-`dynamicvectorquantization_tpu/nn/blocks.py`, decode half).
+`dynamicvectorquantization_tpu/nn/blocks.py`).
 
 Swish nonlinearity; GroupNorm with 32 groups (or the largest divisor of the
 channel count, for tiny test configs), eps 1e-6; Upsample = nearest x2 +
-3x3 conv; ResnetBlock norm-swish-conv x2 with a 1x1 `nin_shortcut` (or 3x3
-`conv_shortcut`); AttnBlock = one-head attention over the H*W positions.
+3x3 conv; Downsample = (0, 1), (0, 1) zero pad + 3x3 stride-2 conv (or a
+2x2 average pool without the conv); ResnetBlock norm-swish-conv x2 with a
+1x1 `nin_shortcut` (or 3x3 `conv_shortcut`); AttnBlock = one-head attention
+over the H*W positions.
 
 `AttnBlock` always goes through `ops.attention.fused_attention_forward`:
 the CUDA kernel for CUDA tensors (any channel count the kernel takes; the
 TPU's `c % 128` gate does not carry over, and a shape the kernel cannot take
-raises), its plain version for CPU tensors. Downsample comes with the
-encode slice.
+raises), its plain version for CPU tensors. `Downsample` goes through
+`ops.downsample.strided_conv3x3_down` the same way. The JAX package's
+space-to-depth variant (`s2d`) is a measured dead end there and is not
+ported.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_attention_forward
+from ..ops.downsample import strided_conv3x3_down
 
 
 def nonlinearity(x):
@@ -48,6 +53,20 @@ class Upsample(nn.Module):
     def forward(self, x):
         x = F.interpolate(x, scale_factor=2.0, mode="nearest")
         return self.conv(x) if self.with_conv else x
+
+
+class Downsample(nn.Module):
+    def __init__(self, in_channels: int, with_conv: bool = True):
+        super().__init__()
+        self.with_conv = with_conv
+        if with_conv:
+            # the pad is the kernel's own; the Conv2d holds the parameters
+            self.conv = nn.Conv2d(in_channels, in_channels, 3, stride=2, padding=0)
+
+    def forward(self, x):
+        if self.with_conv:
+            return strided_conv3x3_down(x, self.conv.weight, self.conv.bias)
+        return F.avg_pool2d(x, 2, 2)
 
 
 class ResnetBlock(nn.Module):

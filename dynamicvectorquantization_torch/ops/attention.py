@@ -41,7 +41,7 @@ def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False
 
 def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate=0.0):
     """softmax(Q K^T * scale) V per head; q/k/v: (B, T, D), D = n_head * hd
-    with hd in {16, 32, 64, 128, 256}; f32 or bf16. Returns (B, T, D) in
+    with hd in {16, 32, 64, 128, 256, 512}; f32 or bf16. Returns (B, T, D) in
     q's dtype. `fused_attention_forward.launches` counts kernel launches."""
     if rate > 0.0:
         raise NotImplementedError(
@@ -58,7 +58,7 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
         raise ValueError(f"fused_attention_forward: q/k/v must share one (B, T, D) shape, "
                          f"got {[tuple(x.shape) for x in tensors]}")
     b, t, d = q.shape
-    if n_head <= 0 or d % n_head or d // n_head not in (16, 32, 64, 128, 256):
+    if n_head <= 0 or d % n_head or d // n_head not in (16, 32, 64, 128, 256, 512):
         raise ValueError(f"fused_attention_forward: unsupported D={d} with {n_head} heads")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("fused_attention_forward: inputs must be contiguous")

@@ -36,6 +36,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "dqvq_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "dqvq_fused_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    "dqvq_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dqvq_patch_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
+    "dqvq_strided_conv_down": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

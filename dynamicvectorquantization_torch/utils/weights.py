@@ -2,9 +2,9 @@
 state_dicts.
 
 The port's modules carry the reference torch parameter names, so these are
-the inverses of the JAX package's `convert_stackgpt_state_dict` and the
-decode half of its `export_dqvae_state_dict` (`utils/torch_ckpt.py`), written
-anew here: flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and
+the inverses of the JAX package's `convert_stackgpt_state_dict` and of its
+`export_dqvae_state_dict` (`utils/torch_ckpt.py`) for the dual-grain DQ-VAE,
+written anew here: flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and
 dense kernels (in, out) -> (out, in); `scale` -> `weight`; `embedding` ->
 `weight`; flax's `GroupNorm_0` wrapper level disappears.
 """
@@ -79,17 +79,47 @@ def stackgpt_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
 _MID = {"mid_block_1": "block_1", "mid_attn_1": "attn_1", "mid_block_2": "block_2"}
 
 
+def _encoder_key(mods, tleaf, path) -> str:
+    sub = mods[1]
+    if sub == "down" and mods[2] == "conv_in":
+        return f"encoder.conv_in.{tleaf}"
+    if sub == "down":
+        m = re.fullmatch(r"down_(\d+)_(block|attn|downsample)(?:_(\d+))?", mods[2])
+        if m is None:
+            raise KeyError(f"unmapped encoder param {'/'.join(path)}")
+        i, kind, j = m.groups()
+        rest = [*mods[3:], tleaf]
+        if kind == "downsample":
+            return ".".join([f"encoder.down.{i}.downsample", *rest])
+        return ".".join([f"encoder.down.{i}.{kind}.{j}", *rest])
+    if sub in ("head_coarse", "head_fine"):
+        grain = sub.split("_")[1]
+        inner = mods[2]
+        if inner in _MID:
+            return ".".join([f"encoder.mid_{grain}.{_MID[inner]}", *mods[3:], tleaf])
+        if inner in ("norm_out", "conv_out"):
+            return f"encoder.{inner}_{grain}.{tleaf}"
+    if sub == "router":
+        name = mods[2]
+        if name in ("gate_0", "gate_2"):
+            return f"encoder.router.gate.{name[-1]}.{tleaf}"
+        return f"encoder.router.{name}.{tleaf}"  # gate, feature_norm_{fine,coarse}
+    raise KeyError(f"unmapped encoder param {'/'.join(path)}")
+
+
 def dqvae_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
-    """DQ-VAE flax variables `{"params", "ema"}` -> the port's decode-half
-    DualGrainVQModel state_dict (`decoder.*`, `post_quant_conv.*`,
-    `quantize.codebook.weight`). Encode-half parameters are skipped."""
+    """DQ-VAE flax variables `{"params", "ema"}` -> the port's
+    DualGrainVQModel state_dict (`encoder.*`, `quant_conv.*`, `decoder.*`,
+    `post_quant_conv.*`, `quantize.codebook.weight`)."""
     sd = {}
     for path, v in _flatten(variables.get("params", {})).items():
         mods = [m for m in path[:-1] if m != "GroupNorm_0"]
         tleaf, tv = _leaf(path[-1], v)
         root = mods[0]
-        if root == "post_quant_conv":
-            key = f"post_quant_conv.{tleaf}"
+        if root in ("quant_conv", "post_quant_conv"):
+            key = f"{root}.{tleaf}"
+        elif root == "encoder":
+            key = _encoder_key(mods, tleaf, path)
         elif root == "decoder":
             sub = mods[1]
             if sub in ("conv_in", "conv_out", "norm_out"):
@@ -110,8 +140,6 @@ def dqvae_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
                     key = ".".join([f"decoder.up.{i}.upsample", *rest])
                 else:
                     key = ".".join([f"decoder.up.{i}.{kind}.{j}", *rest])
-        elif root in ("encoder", "quant_conv"):
-            continue  # encode half: not part of the decode-half model
         else:
             raise KeyError(f"unmapped DQ-VAE param {'/'.join(path)}")
         sd[key] = _tensor(tv)

@@ -59,6 +59,7 @@ def test_dropout_waits_for_training_slice():
     ((2, 300, 256), 2, True),
     ((1, 128, 64), 4, True),  # hd = 16
     ((1, 200, 512), 2, False),  # hd = 256, as in the DQ-VAE decoder
+    ((1, 200, 512), 1, False),  # hd = 512, as in the encoder's 16x16 AttnBlocks
 ])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, shape, n_head, causal):
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(2, *shape))

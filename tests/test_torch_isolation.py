@@ -41,6 +41,35 @@ def test_port_imports_nothing_of_jax():
     assert int(n) >= 20 and bad.strip() == "[]", proc.stdout
 
 
+def test_port_names_no_path_of_the_jax_package():
+    """No string in the port's code (docstrings aside) names the JAX package,
+    so no data file is read from it: the entropy thresholds resolve to the
+    port's own copies."""
+    import ast
+
+    from dynamicvectorquantization_torch.nn import routers
+
+    pkg = os.path.join(_REPO, "dynamicvectorquantization_torch")
+    found = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path, encoding="utf-8") as f:
+                tree = ast.parse(f.read())
+            docs = {id(node.body[0].value) for node in ast.walk(tree)
+                    if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                         ast.AsyncFunctionDef))
+                    and node.body and isinstance(node.body[0], ast.Expr)}
+            found += [f"{path}:{node.lineno}" for node in ast.walk(tree)
+                      if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                      and id(node) not in docs and "dynamicvectorquantization_tpu" in node.value]
+    assert found == []
+    path = routers.threshold_path("configs/missing/entropy_thresholds_imagenet_train_patch-16.json")
+    assert os.path.commonpath([path, pkg]) == pkg and os.path.exists(path)
+
+
 def test_entry_points_need_cuda_or_an_explicit_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

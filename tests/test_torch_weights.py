@@ -81,18 +81,18 @@ def test_dqvae_decode_half_roundtrip_through_jax_converter():
 
     cfg = load_config([TINY])["model"]["params"]["first_stage_config"]
     jvars = jax.eval_shape(lambda: jinst(cfg).init(jax.random.PRNGKey(0)))
-    decode_half = {k: v for k, v in jvars["params"].items()
-                   if k in ("decoder", "post_quant_conv")}
-    assert _shapes(flax_vars["params"]) == _shapes(decode_half)
+    # the whole tree: encoder (router included), quant convs and decoder
+    assert _shapes(flax_vars["params"]) == _shapes(jvars["params"])
     assert _shapes(flax_vars["ema"])[("quantize", "codebook")] == \
         tuple(jvars["ema"]["quantize"]["codebook"].shape)
 
 
 def test_load_reference_style_checkpoint(tmp_path):
     """A Lightning-style `{"state_dict": ...}` file with the reference's extra
-    keys (encoder, loss) loads; a file that lacks a key the model owns fails."""
+    keys (EMA statistics, loss) loads; a file that lacks a key the model owns
+    fails."""
     sd = _port_model().state_dict()
-    extra = {"first_stage_model.encoder.conv_in.weight": torch.zeros(3),
+    extra = {"first_stage_model.quantize.codebook.cluster_size_ema": torch.zeros(3),
              "first_stage_model.loss.logvar": torch.zeros(1)}
     path = str(tmp_path / "ref.ckpt")
     torch.save({"state_dict": {**sd, **extra}, "epoch": 3}, path)
@@ -125,4 +125,4 @@ def test_unported_target_raises():
     assert resolve_target("modules.dynamic_modules.stackgpt.StackGPT").startswith(
         "dynamicvectorquantization_torch.")
     with pytest.raises(KeyError):
-        resolve_target("modules.dynamic_modules.EncoderDual.DualGrainEncoder")
+        resolve_target("modules.dynamic_modules.EncoderTriple.TripleGrainEncoder")
