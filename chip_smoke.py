@@ -8,7 +8,7 @@ builds the kernels from `dynamicvectorquantization_torch/csrc/` at first use.
 Phases, each printed as one JSON line (any failure exits non-zero):
   1. card      name and power limit (nvidia-smi), TF32 off for f32 phases
   2. kernels   each CUDA kernel against its plain-PyTorch version at the
-               shapes of the encode and serving paths: error vs the stated
+               shapes of the encode, serving and training paths: error vs the stated
                tolerance, kernel / plain / library times (device time from a
                profiler trace, and wall time from CUDA events; inputs rotated
                through more than the 50 MB L2 cache), and the bound from bytes
@@ -27,12 +27,21 @@ Phases, each printed as one JSON line (any failure exits non-zero):
   5. serve     BatchingSampler (p6c18, int8 caches, max_batch 8) answers 3
                concurrent requests of 1, 2 and 4 images; launch counters are
                zeroed just before and read just after
-  6. kernels   one line listing every ported kernel, its launches on the
-               encode and serving runs and its measured numbers
+  6. train     full-width, full-depth p6c18 StackGPT (the shipped config with
+               attn_pdrop 0 and the training campaign's stream caps, T = 805),
+               bf16 over f32 masters, batch 8: 16 seeded images encoded by
+               `Stage2Trainer.encode_dataset`; one `train_step` through the
+               kernels against one through the plain versions from the same
+               state (losses, gradients, parameters); then timed steps with
+               the shipped embedding / residual dropout, launch counters per
+               step, a torch.profiler trace of one step, peak memory
+  7. kernels   one line listing every ported kernel, its launches on the
+               encode, serving and training runs and its measured numbers
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,6 +51,11 @@ P6C18 = "configs/stage2/uncond_imagenet_p6c18.yml"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores; bf16 dense
 L2_BYTES = 50 * 2 ** 20
+# the training campaign's stream caps at fine ratio 0.5 (160 coarse + 644 fine
+# tokens and the two SOS prefixes, less the shifted-off last token)
+TRAIN_CAPS = {"coarse_max_len": 160, "fine_max_len": 644}
+TRAIN_T = 160 + 1 + 644 + 1 - 1
+BF16_RTOL = 2.0 ** -7  # one bf16 ulp of the reference value
 
 
 def emit(obj):
@@ -308,6 +322,241 @@ def check_strided_conv(torch, dev):
     return cases
 
 
+def close(out, ref, atol, rtol=0.0):
+    """(max abs error, whether |out - ref| <= atol + rtol |ref| everywhere), in f32."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    return diff.max().item(), bool((diff <= atol + rtol * ref.abs()).all())
+
+
+def tolerances(dtype_name, atol_f32, atol_bf16=2e-2):
+    """bf16 outputs: one ulp of the reference value (a rounding that falls the
+    other way) on top of an absolute slack; f32: the absolute tolerance alone."""
+    return (atol_bf16, BF16_RTOL) if dtype_name == "bfloat16" else (atol_f32, 0.0)
+
+
+def check_layernorm(torch, dev):
+    import torch.nn.functional as F
+
+    from dynamicvectorquantization_torch.ops.layernorm import (
+        fused_layernorm_plain, layernorm_backward, layernorm_backward_plain, layernorm_forward)
+
+    b, t, d, eps = 8, TRAIN_T, 1024, 1e-5
+    rows = b * t
+    fwd_cases, bwd_cases = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        elem = torch.finfo(dtype).bits // 8
+        atol, rtol = tolerances(dname, 1e-5)
+        g = torch.Generator(device=dev).manual_seed(7)
+        gamma = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
+        beta = (0.1 * torch.randn(d, generator=g, device=dev)).to(dtype)
+        sets = [((torch.randn((b, t, d), generator=g, device=dev) * 1.5 + 0.3).to(dtype),
+                 torch.randn((b, t, d), generator=g, device=dev).to(dtype))
+                for _ in range(n_sets(2 * rows * d * elem))]
+        x, dy = sets[0]
+        y = layernorm_forward(x, gamma, beta, eps)
+        dx, dg, db = layernorm_backward(x, gamma, dy, eps)
+        y_ref = fused_layernorm_plain(x, gamma, beta, eps)
+        dx_ref, dg_ref, db_ref = layernorm_backward_plain(x, gamma, dy, eps)
+        dx2, dg2, db2 = layernorm_backward(x, gamma, dy, eps)
+        torch.cuda.synchronize()
+        err_y, ok_y = close(y, y_ref, atol, rtol)
+        err_dx, ok_dx = close(dx, dx_ref, atol, rtol)
+        # f32 sums of 6,440 terms |dy xhat| < ~20 in another order, values up to ~300
+        sum_tol = 2e-3
+        err_dg, ok_dg = close(dg, dg_ref, sum_tol)
+        err_db, ok_db = close(db, db_ref, sum_tol)
+        reproducible = bool(torch.equal(dx, dx2) and torch.equal(dg, dg2) and torch.equal(db, db2))
+
+        fb, fby = bound(2 * rows * d * elem + 2 * d * elem, 8 * rows * d, "float32")
+        fwd = dict(phase="kernels", kernel="layernorm_forward", shape=[b, t, d], dtype=dname,
+                   max_abs_err=err_y, tol=f"{atol} + {rtol} |ref|", bound_ms=fb, bound_by=fby)
+        fwd["kernel_ms"], fwd["kernel_wall_ms"] = time_ms(
+            torch, lambda x_, dy_: layernorm_forward(x_, gamma, beta, eps), sets)
+        fwd["plain_ms"], fwd["plain_wall_ms"] = time_ms(
+            torch, lambda x_, dy_: fused_layernorm_plain(x_, gamma, beta, eps), sets)
+        fwd["library_ms"], fwd["library_wall_ms"] = time_ms(
+            torch, lambda x_, dy_: F.layer_norm(x_, (d,), gamma, beta, eps), sets)
+        emit(fwd)
+
+        bb, bby = bound(3 * rows * d * elem + d * elem + 8 * d, 16 * rows * d, "float32")
+        bwd = dict(phase="kernels", kernel="layernorm_backward", shape=[b, t, d], dtype=dname,
+                   max_abs_err=max(err_dx, err_dg, err_db), dx_err=err_dx, dgamma_err=err_dg,
+                   dbeta_err=err_db, tol=f"dx {atol} + {rtol} |ref|; dgamma, dbeta {sum_tol}",
+                   bit_reproducible=reproducible, bound_ms=bb, bound_by=bby)
+        bwd["kernel_ms"], bwd["kernel_wall_ms"] = time_ms(
+            torch, lambda x_, dy_: layernorm_backward(x_, gamma, dy_, eps), sets)
+        bwd["plain_ms"], bwd["plain_wall_ms"] = time_ms(
+            torch, lambda x_, dy_: layernorm_backward_plain(x_, gamma, dy_, eps), sets)
+        gl, bl = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        lib_sets = []
+        for x_, dy_ in sets:
+            xl = x_.clone().requires_grad_()
+            lib_sets.append((F.layer_norm(xl, (d,), gl, bl, eps), xl, dy_))
+        bwd["library_ms"], bwd["library_wall_ms"] = time_ms(
+            torch, lambda y_, xl, dy_: torch.autograd.grad(y_, (xl, gl, bl), dy_,
+                                                           retain_graph=True), lib_sets)
+        del lib_sets
+        emit(bwd)
+        require(ok_y, f"layernorm_forward disagrees ({dname}): {err_y}")
+        require(ok_dx and ok_dg and ok_db,
+                f"layernorm_backward disagrees ({dname}): dx {err_dx} dgamma {err_dg} dbeta {err_db}")
+        require(reproducible, "layernorm_backward is not bit-reproducible")
+        fwd_cases.append(fwd)
+        bwd_cases.append(bwd)
+    return fwd_cases, bwd_cases
+
+
+def check_attention_backward(torch, dev):
+    import torch.nn.functional as F
+
+    from dynamicvectorquantization_torch.ops.attention import (
+        fused_attention_backward, fused_attention_backward_plain, fused_attention_forward,
+        fused_attention_forward_plain)
+
+    fwd_cases, bwd_cases = [], []
+    # the training shape in bf16; the same in f32 at batch 2; one non-causal head, ragged tiles
+    for (b, t, d), n_head, causal, dtype in (
+            ((8, TRAIN_T, 1024), 8, True, torch.bfloat16),
+            ((2, TRAIN_T, 1024), 8, True, torch.float32),
+            ((2, 300, 64), 1, False, torch.float32)):
+        hd = d // n_head
+        scale = hd ** -0.5
+        dname = str(dtype).split(".")[-1]
+        elem = torch.finfo(dtype).bits // 8
+        atol, rtol = tolerances(dname, 1e-4)
+        g = torch.Generator(device=dev).manual_seed(8)
+        sets = []
+        for _ in range(n_sets(8 * b * t * d * elem)):
+            q, k, v, dy = (torch.randn((b, t, d), generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            y, lse = fused_attention_forward(q, k, v, n_head, scale, causal, return_lse=True)
+            sets.append((q, k, v, y, lse, dy))
+        q, k, v, y, lse, dy = sets[0]
+        y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, True)
+        out = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
+        again = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
+        ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, scale, causal)
+        torch.cuda.synchronize()
+        err_y, ok_y = close(y, y_ref, atol, rtol)
+        err_lse, ok_lse = close(lse, lse_ref, 1e-4)  # f32 log of an f32 sum of T terms
+        errs, oks = zip(*(close(o, r, atol, rtol) for o, r in zip(out, ref)))
+        reproducible = all(torch.equal(a_, b_) for a_, b_ in zip(out, again))
+        pairs = t * (t + 1) // 2 if causal else t * t
+        fwd = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
+                   n_head=n_head, causal=causal, dtype=dname, with_lse=True, max_abs_err=err_y,
+                   lse_err=err_lse, tol=f"{atol} + {rtol} |ref|; lse 1e-4")
+        fwd["bound_ms"], fwd["bound_by"] = bound(
+            4 * b * t * d * elem + 4 * b * n_head * t, 4 * b * n_head * pairs * hd, dname)
+        fwd["kernel_ms"], fwd["kernel_wall_ms"] = time_ms(
+            torch, lambda q_, k_, v_, *_: fused_attention_forward(
+                q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
+        emit(fwd)
+        # five T x T x hd products over the unmasked pairs; the bound at the
+        # rate of the input type (bf16: tensor cores), and beside it at the
+        # f32 FMA rate this kernel runs on
+        flops = 10 * b * n_head * pairs * hd
+        n_bytes = 8 * b * t * d * elem + 4 * b * n_head * t
+        bwd = dict(phase="kernels", kernel="fused_attention_backward", shape=[b, t, d],
+                   n_head=n_head, causal=causal, dtype=dname, max_abs_err=max(errs),
+                   dq_err=errs[0], dk_err=errs[1], dv_err=errs[2], tol=f"{atol} + {rtol} |ref|",
+                   bit_reproducible=reproducible, gflop=flops / 1e9,
+                   bound_ms_f32_fma=bound(n_bytes, flops, "float32")[0])
+        bwd["bound_ms"], bwd["bound_by"] = bound(n_bytes, flops, dname)
+        bwd["kernel_ms"], bwd["kernel_wall_ms"] = time_ms(
+            torch, lambda *a: fused_attention_backward(*a, n_head, scale, causal), sets, iters=10)
+        bwd["plain_ms"], bwd["plain_wall_ms"] = time_ms(
+            torch, lambda *a: fused_attention_backward_plain(*a, n_head, scale, causal), sets,
+            iters=10)
+
+        def heads(z):
+            return z.view(b, t, n_head, hd).transpose(1, 2)
+
+        lib_sets = []
+        for q_, k_, v_, _, _, dy_ in sets:
+            leaves = tuple(heads(z).detach().requires_grad_() for z in (q_, k_, v_))
+            lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                            scale=scale), leaves, heads(dy_)))
+        bwd["library_ms"], bwd["library_wall_ms"] = time_ms(
+            torch, lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_,
+                                                               retain_graph=True),
+            lib_sets, iters=10)
+        del lib_sets, sets
+        emit(bwd)
+        require(ok_y and ok_lse, f"fused_attention_forward with lse disagrees at "
+                                 f"{fwd['shape']}: y {err_y} lse {err_lse}")
+        require(all(oks), f"fused_attention_backward disagrees at {bwd['shape']} {dname}: {errs}")
+        require(reproducible, "fused_attention_backward is not bit-reproducible")
+        fwd_cases.append(fwd)
+        bwd_cases.append(bwd)
+    return fwd_cases, bwd_cases
+
+
+def check_fused_adamw(torch, dev):
+    from dynamicvectorquantization_torch.ops.fused_adamw import (
+        adamw_scalars, fused_adamw_step, fused_adamw_step_plain)
+
+    tol = 1e-6  # f32 p, m, v after two updates; FMA contraction moves the last bit
+    lr = 5e-4
+    g = torch.Generator(device=dev).manual_seed(9)
+    cases = []
+    # an MLP weight of the p6c18 blocks, and an odd-length 1-D leaf (scalar tail)
+    for shape in ((4096, 1024), (1027,)):
+        for gdtype in (torch.bfloat16, torch.float32):
+            for wd in (0.0, 0.01):
+                p0 = 0.02 * torch.randn(shape, generator=g, device=dev)
+                state = [[p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0),
+                          torch.empty_like(p0, dtype=torch.bfloat16)] for _ in range(2)]
+                errs, copy_equal = [], True
+                for count in range(2):
+                    grad = (1e-3 * torch.randn(shape, generator=g, device=dev)).to(gdtype)
+                    scal = adamw_scalars(count, lr)
+                    for (p, m, v, c), fn in zip(state, (fused_adamw_step, fused_adamw_step_plain)):
+                        fn(grad, p, m, v, *scal, wd=wd, copy=c)
+                    torch.cuda.synchronize()
+                    errs += [close(a_, b_, tol)[0] for a_, b_ in zip(state[0][:3], state[1][:3])]
+                    copy_equal &= bool(torch.equal(state[0][3], state[0][0].to(torch.bfloat16)))
+                case = dict(phase="kernels", kernel="fused_adamw", shape=list(shape),
+                            grad_dtype=str(gdtype).split(".")[-1], weight_decay=wd, steps=2,
+                            max_abs_err=max(errs), tol=tol, copy_bit_equal=copy_equal)
+                cases.append(case)
+                require(max(errs) <= tol and copy_equal, f"fused_adamw disagrees: {case}")
+    emit(dict(phase="kernels", kernel="fused_adamw", cases=cases))
+
+    # time the big leaf with a bf16 gradient and the bf16 copy, as a mixed-precision step runs it
+    shape = (4096, 1024)
+    n = shape[0] * shape[1]
+    n_bytes = n * (2 + 12 + 12 + 2)
+    sets = []
+    for _ in range(n_sets(n_bytes)):
+        p = 0.02 * torch.randn(shape, generator=g, device=dev)
+        sets.append(((1e-3 * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16), p,
+                     torch.zeros_like(p), torch.zeros_like(p),
+                     torch.empty_like(p, dtype=torch.bfloat16)))
+    scal = adamw_scalars(0, lr)
+    timed = dict(phase="kernels", kernel="fused_adamw", shape=list(shape), grad_dtype="bfloat16",
+                 weight_decay=0.01, with_bf16_copy=True, bytes=n_bytes,
+                 max_abs_err=max(c["max_abs_err"] for c in cases), tol=tol)
+    timed["bound_ms"], timed["bound_by"] = bound(n_bytes, 15 * n, "float32")
+    timed["kernel_ms"], timed["kernel_wall_ms"] = time_ms(
+        torch, lambda g_, p, m, v, c: fused_adamw_step(g_, p, m, v, *scal, wd=0.01, copy=c), sets)
+    timed["plain_ms"], timed["plain_wall_ms"] = time_ms(
+        torch, lambda g_, p, m, v, c: fused_adamw_step_plain(g_, p, m, v, *scal, wd=0.01, copy=c),
+        sets)
+    # the library's fused AdamW takes f32 gradients and writes no bf16 copy
+    opts = []
+    for g_, p, _, _, _ in sets:
+        param = torch.nn.Parameter(p.clone())
+        param.grad = g_.float()
+        opts.append((torch.optim.AdamW([param], lr=lr, betas=(0.9, 0.95), eps=1e-8,
+                                       weight_decay=0.01, fused=True),))
+    timed["library_ms"], timed["library_wall_ms"] = time_ms(torch, lambda o: o.step(), opts)
+    del opts, sets
+    emit(timed)
+    return timed
+
+
 def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
     """Kernel path vs plain path on the same full-width bf16 model."""
     import dynamicvectorquantization_torch.nn.transformer as tfm
@@ -356,9 +605,9 @@ def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
     return res
 
 
-def profile_device_time(torch, fn):
+def profile_device_time(torch, fn, n_top=8):
     """Device busy time of one call of `fn` from a torch.profiler trace, and
-    the kernels that take most of it (ms summed over the call)."""
+    the `n_top` kernels that take most of it (ms summed over the call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -373,7 +622,7 @@ def profile_device_time(torch, fn):
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             launches += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
     busy = sum(by_name.values())
     return {"device_busy_ms": busy if busy > 0 else None,  # None: the trace held no device time
             "device_ops": launches, "top": [[name[:80], ms] for name, ms in top]}
@@ -381,14 +630,20 @@ def profile_device_time(torch, fn):
 
 def wrappers():
     """name -> the wrapper whose `.launches` counts that kernel's launches."""
-    from dynamicvectorquantization_torch.ops.attention import fused_attention_forward
+    from dynamicvectorquantization_torch.ops.attention import (
+        fused_attention_backward, fused_attention_forward)
     from dynamicvectorquantization_torch.ops.downsample import strided_conv3x3_down
     from dynamicvectorquantization_torch.ops.entropy import patch_entropy
+    from dynamicvectorquantization_torch.ops.fused_adamw import fused_adamw_step
     from dynamicvectorquantization_torch.ops.kv_int8 import decode_attention_int8
+    from dynamicvectorquantization_torch.ops.layernorm import layernorm_backward, layernorm_forward
     from dynamicvectorquantization_torch.ops.vq import nearest_codes
 
     return {"decode_attention_int8": decode_attention_int8,
             "fused_attention_forward": fused_attention_forward,
+            "fused_attention_backward": fused_attention_backward,
+            "layernorm_forward": layernorm_forward, "layernorm_backward": layernorm_backward,
+            "fused_adamw": fused_adamw_step,
             "vq_nearest": nearest_codes, "patch_entropy": patch_entropy,
             "strided_conv3x3_down": strided_conv3x3_down}
 
@@ -513,6 +768,187 @@ def encode(torch, model, dev, card, batch=8, reps=3):
     return res
 
 
+@contextlib.contextmanager
+def plain_train_path():
+    """The training path's kernel wrappers swapped for their plain versions
+    (differentiated by autograd), so the same step runs without the kernels."""
+    import dynamicvectorquantization_torch.nn.norm as norm
+    import dynamicvectorquantization_torch.nn.transformer as tfm
+    import dynamicvectorquantization_torch.train.stage2 as stage2
+    from dynamicvectorquantization_torch.ops.attention import fused_attention_forward_plain
+    from dynamicvectorquantization_torch.ops.fused_adamw import fused_adamw_step_plain
+
+    saved = (norm.fused_layernorm, tfm.fused_causal_attention, stage2.fused_adamw_step)
+    norm.fused_layernorm = norm.fused_layernorm_plain
+    tfm.fused_causal_attention = lambda q, k, v, n_head, causal=True, rate=0.0: \
+        fused_attention_forward_plain(q, k, v, n_head, None, causal)
+    stage2.fused_adamw_step = fused_adamw_step_plain
+    try:
+        yield
+    finally:
+        norm.fused_layernorm, tfm.fused_causal_attention, stage2.fused_adamw_step = saved
+
+
+def set_dropout(gpt, embd, resid):
+    gpt.embd_pdrop = embd
+    for mod in gpt.modules():
+        if hasattr(mod, "resid_pdrop"):
+            mod.resid_pdrop = resid
+
+
+def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
+    """Stage-2 training at full p6c18 width and depth on cached codes."""
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+    from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    config = load_config([P6C18])
+    params = config["model"]["params"]
+    tparams = params["transformer_config"]["params"]
+    tparams["attn_pdrop"] = 0.0  # in-kernel attention dropout is not ported: it would raise
+    params["permuter_config"]["params"].update(TRAIN_CAPS)
+    embd_pdrop, resid_pdrop = tparams["embd_pdrop"], tparams["resid_pdrop"]
+    lr = config["model"]["learning_rate"]
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = instantiate_from_config(config["model"])
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    model.eval()
+    trainer = Stage2Trainer(model, lr, warmup_steps=0, max_steps=10_000,
+                            compute_dtype="bfloat16", device=dev)
+    gpt = model.transformer
+    load_s = time.perf_counter() - t0
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    size = model.first_stage_model.encoder.resolution
+    images = torch.cat([smooth_and_noisy_images(torch, dev, g, b=batch, size=size)
+                        for _ in range(n_images // batch)])
+    t0 = time.perf_counter()
+    reset_launches()
+    streams = trainer.encode_dataset(images.cpu().numpy(), batch=batch)
+    encode_s = time.perf_counter() - t0
+    encode_launches = read_launches()
+    del images
+    batches = [{k: v[i:i + batch] for k, v in streams.items()}
+               for i in range(0, n_images, batch)]
+    t_len = streams["coarse_content"].shape[1] + streams["fine_content"].shape[1] + 1
+    require(t_len == TRAIN_T, f"training sequence length {t_len}, expected {TRAIN_T}")
+    pad = model.permuter.content_pad_code
+    tokens = int((streams["coarse_content"] != pad).sum() + (streams["fine_content"] != pad).sum())
+
+    # (a) one step through the kernels against one through the plain versions
+    def snapshot():
+        return ({k: v.clone() for k, v in trainer.masters.items()},
+                {k: p.detach().clone() for k, p in trainer.params.items()})
+
+    def restore(state):
+        masters, working = state
+        for k in trainer.masters:
+            trainer.masters[k].copy_(masters[k])
+            trainer.params[k].data.copy_(working[k])
+            trainer.m[k].zero_()
+            trainer.v[k].zero_()
+        trainer.count = 0
+
+    set_dropout(gpt, 0.0, 0.0)
+    start = snapshot()
+    watched = ["content_emb.weight", "position_transformer.0.attn.query.weight",
+               "position_transformer.0.ln1.weight",
+               f"content_transformer.{gpt.content_layer - 1}.mlp.2.weight",
+               f"content_transformer.{gpt.content_layer // 2}.ln2.bias", "content_head.1.weight"]
+    results = {}
+    for path, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_train_path())):
+        restore(start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx:
+            logs, grads = trainer.compute_grads(batches[0])
+            kept = {k: grads[k].float() for k in watched}
+            trainer.apply_update(grads)
+            del grads
+        torch.cuda.synchronize()
+        results[path] = dict(logs={k: float(v) for k, v in logs.items()}, grads=kept,
+                             after={k: v.clone() for k, v in trainer.masters.items()},
+                             peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    kr, pr = results["kernel"], results["plain"]
+    loss_rel = max(abs(kr["logs"][k] - pr["logs"][k]) / abs(pr["logs"][k]) for k in pr["logs"])
+    grad_rel = {k: ((kr["grads"][k] - pr["grads"][k]).norm() / pr["grads"][k].norm()).item()
+                for k in watched}
+    n_params = sum(v.numel() for v in trainer.masters.values())
+    delta_max = max((kr["after"][k] - pr["after"][k]).abs().max().item() for k in kr["after"])
+    delta_mean = sum((kr["after"][k] - pr["after"][k]).abs().sum().item()
+                     for k in kr["after"]) / n_params
+    moved = max((kr["after"][k] - start[0][k]).abs().max().item() for k in kr["after"])
+    pad_rows_frozen = all(torch.equal(kr["after"][k][row], start[0][k][row])
+                          for k, row in trainer.pad_rows.items())
+    # bf16 activations differ by ~2^-8 relative per op between the two paths and
+    # 24 layers compound it; Adam's first update is lr * g / |g|, so a parameter
+    # differs by at most 2 lr (+ decay), and only where the noise flips g's sign
+    loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 2e-2, 0.1, 2.02 * lr, 0.1 * lr
+    compare = dict(phase="train", step="kernel_vs_plain", config=P6C18, attn_pdrop=0.0,
+                   dropout="off", dtype="bfloat16 over f32 masters", batch=batch, seq_len=t_len,
+                   lr=lr, params=n_params, losses_kernel=kr["logs"], losses_plain=pr["logs"],
+                   loss_max_rel_diff=loss_rel, loss_tol=loss_tol, grad_rel_l2_diff=grad_rel,
+                   grad_tol=grad_tol, param_max_abs_diff=delta_max,
+                   param_max_tol=delta_max_tol, param_mean_abs_diff=delta_mean,
+                   param_mean_tol=delta_mean_tol, param_max_abs_update=moved,
+                   pad_rows_frozen=pad_rows_frozen, peak_memory_gb_kernel=kr["peak_gb"],
+                   peak_memory_gb_plain=pr["peak_gb"], card=card)
+    emit(compare)
+    require(all(math.isfinite(v) for v in kr["logs"].values()), "non-finite training loss")
+    require(loss_rel <= loss_tol, f"training losses kernel vs plain: {loss_rel}")
+    require(max(grad_rel.values()) <= grad_tol, f"gradients kernel vs plain: {grad_rel}")
+    require(delta_max <= delta_max_tol and delta_mean <= delta_mean_tol,
+            f"parameters after one step, kernel vs plain: max {delta_max} mean {delta_mean}")
+    require(moved > 0 and pad_rows_frozen, "parameters did not move, or a pad row did")
+    del results, kr, pr
+
+    # (b) timed steps on the kernel path with the shipped embedding / residual dropout
+    restore(start)
+    del start
+    set_dropout(gpt, embd_pdrop, resid_pdrop)
+    drop_gen = torch.Generator(device=dev).manual_seed(10)
+    losses = [float(trainer.train_step(batches[0], drop_gen)["train_loss"])]  # warm-up step
+    torch.cuda.synchronize()
+    reset_launches()
+    losses.append(float(trainer.train_step(batches[1], drop_gen)["train_loss"]))
+    step_launches = read_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = [trainer.train_step(batches[i % len(batches)], drop_gen)["train_loss"]
+               for i in range(timed_steps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed_steps
+    losses += [float(v) for v in pending]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_device_time(
+        torch, lambda: trainer.train_step(batches[0], drop_gen), n_top=12)
+    layers = gpt.position_layer + gpt.content_layer
+    expected = {"fused_attention_forward": layers, "fused_attention_backward": layers,
+                "layernorm_forward": 2 * layers + 2, "layernorm_backward": 2 * layers + 2,
+                "fused_adamw": len(trainer.params)}
+    step_ms = step_s * 1e3
+    busy_ms = prof["device_busy_ms"]
+    res = dict(phase="train", step="timed", config=P6C18, attn_pdrop=0.0, embd_pdrop=embd_pdrop,
+               resid_pdrop=resid_pdrop, dtype="bfloat16 over f32 masters", batch=batch,
+               seq_len=t_len, stream_caps=TRAIN_CAPS, images=n_images, real_tokens=tokens,
+               layers=layers, params=n_params, parameter_leaves=len(trainer.params), lr=lr,
+               load_s=load_s, encode_dataset_s=encode_s, encode_launches=encode_launches,
+               losses=losses, launches_per_step=step_launches, expected_launches=expected,
+               timed_steps=timed_steps, step_ms=step_ms, images_per_s=batch / step_s,
+               device_busy_ms=busy_ms, device_idle_share=busy_ms and 1.0 - busy_ms / step_ms,
+               device_ops=prof["device_ops"], top_kernels=prof["top"],
+               peak_memory_gb=peak_gb, card=card)
+    emit(res)
+    require(all(math.isfinite(v) for v in losses), f"non-finite training loss: {losses}")
+    require(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
+    for name, want in expected.items():
+        require(step_launches[name] == want,
+                f"{name} launched {step_launches[name]} times per train step, expected {want}")
+    return res
+
+
 def serve(torch, model, card):
     import numpy as np
 
@@ -573,6 +1009,9 @@ def main():
     vq_case = check_vq_nearest(torch, dev)
     entropy_case = check_patch_entropy(torch, dev)
     conv_cases = check_strided_conv(torch, dev)
+    ln_fwd_cases, ln_bwd_cases = check_layernorm(torch, dev)
+    attn_train_cases, attn_bwd_cases = check_attention_backward(torch, dev)
+    adamw_case = check_fused_adamw(torch, dev)
 
     t0 = time.perf_counter()
     model, _ = load_model_and_variables(P6C18, seed=0, kv_cache_dtype="int8", device=dev)
@@ -582,6 +1021,10 @@ def main():
     encoded = encode(torch, model, dev, card)
     teacher_forced_decode(torch, model, dev)
     served = serve(torch, model, card)
+    del model
+    torch.cuda.empty_cache()
+    trained = train(torch, dev, card)
+    per_step = trained["launches_per_step"]
 
     # the downsample line sums the encoder's four levels (one encode batch)
     conv = dict(conv_cases[0], shape=[c["shape"] for c in conv_cases],
@@ -591,6 +1034,8 @@ def main():
                    for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")})
     attn_hd512 = {k: attn_cases[2][k] for k in ("shape", "max_abs_err", "kernel_ms", "plain_ms",
                                                 "bound_ms", "library_ms")}
+    attn_train = {k: attn_train_cases[0][k] for k in ("shape", "dtype", "with_lse", "max_abs_err",
+                                                      "lse_err", "kernel_ms", "bound_ms")}
     kernels = []
     for name, src, replaces, main, launches, extra in (
             ("decode_attention_int8", "decode_attention_int8.cu",
@@ -599,8 +1044,24 @@ def main():
             ("fused_attention_forward", "fused_attention.cu",
              "dynamicvectorquantization_tpu/ops/attention_pallas.py:82", attn_cases[0],
              {"serve": served["launches"]["fused_attention_forward"],
-              "encode": encoded["launches"]["fused_attention_forward"]},
-             {"encoder_hd512": attn_hd512}),
+              "encode": encoded["launches"]["fused_attention_forward"],
+              "train_step": per_step["fused_attention_forward"]},
+             {"encoder_hd512": attn_hd512, "train_with_lse": attn_train}),
+            ("fused_attention_backward", "fused_attention_bwd.cu",
+             "dynamicvectorquantization_tpu/ops/attention_pallas.py:108", attn_bwd_cases[0],
+             {"train_step": per_step["fused_attention_backward"]},
+             {"bound_ms_f32_fma": attn_bwd_cases[0]["bound_ms_f32_fma"],
+              "bit_reproducible": attn_bwd_cases[0]["bit_reproducible"]}),
+            ("layernorm_forward", "layernorm.cu",
+             "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:46", ln_fwd_cases[0],
+             {"train_step": per_step["layernorm_forward"]}, {}),
+            ("layernorm_backward", "layernorm.cu",
+             "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:56", ln_bwd_cases[0],
+             {"train_step": per_step["layernorm_backward"]},
+             {"bit_reproducible": ln_bwd_cases[0]["bit_reproducible"]}),
+            ("fused_adamw", "fused_adamw.cu",
+             "dynamicvectorquantization_tpu/ops/fused_adamw.py:39", adamw_case,
+             {"train_step": per_step["fused_adamw"]}, {}),
             ("vq_nearest", "vq_nearest.cu", "dynamicvectorquantization_tpu/ops/vq_pallas.py:42",
              vq_case, {"encode": encoded["launches"]["vq_nearest"]},
              {"mismatched_rows": vq_case["mismatched_rows"]}),

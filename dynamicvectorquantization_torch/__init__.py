@@ -5,12 +5,16 @@ which it never imports). It keeps that package's subpackage names so each
 module's counterpart is easy to find:
 
   config/   YAML loader + registry (reference target strings -> torch classes)
-  nn/       LayerNorm, GELU, KV-cached transformer, StackGPT, conv blocks,
+  nn/       LayerNorm, GELU, transformer blocks (training and KV-cached
+            decode), StackGPT, conv blocks, routers, dual-grain encoder,
             position embeddings, positional decoder
-  ops/      int8 KV decode attention and fused attention (CUDA kernels with
-            plain-PyTorch versions), the VQ codebook
-  models/   Dualformer sampling + decode, DQ-VAE decode half, permuter,
-            label providers, sampling filters
+  ops/      the CUDA kernels' wrappers, each beside its plain-PyTorch version:
+            int8 KV decode attention, fused attention forward and backward,
+            LayerNorm forward and backward, fused AdamW, patch entropy,
+            strided downsample, nearest codes
+  models/   Dualformer (encode, training forward, sampling, decode), DQ-VAE,
+            permuter, label providers, sampling filters
+  train/    LR schedules and the stage-2 trainer
   serve/    dynamic-batching sampler
   utils/    instantiation, weight conversion, model loading, devices
   csrc/     CUDA C++ sources of the kernels (built at first use by nvcc)

@@ -1,8 +1,8 @@
 """Reference `target:` strings -> this package's torch classes.
 
 Counterpart of `dynamicvectorquantization_tpu/config/registry.py`, holding
-only the targets the ported slices (unconditional stage-2 sampling, the
-DQ-VAE's dual-grain encode and decode) instantiate. Paths inside this
+only the targets the ported slices (unconditional stage-2 training and
+sampling, the DQ-VAE's dual-grain encode and decode) instantiate. Paths inside this
 package pass through; any other target raises, so a config that needs an
 unported module fails loudly instead of silently picking something else.
 """

@@ -3,7 +3,10 @@
 //
 // Replaces: dynamicvectorquantization_tpu/ops/attention_pallas.py
 // `_fwd_kernel` (reached through `_fused_fwd` / `fused_causal_attention`),
-// at dropout rate 0.
+// at dropout rate 0. Training also asks for each row's log-sum-exp of the
+// scaled scores (m + log l of the online softmax), from which the backward
+// (fused_attention_bwd.cu) rebuilds the probabilities; the TPU kernel keeps
+// nothing and recomputes the softmax over its whole (T, T) block instead.
 //
 // What bounds it on an H100: operations. At the DQ-VAE decoder's shape
 // (B=8, T=1024, one head of hd=256, f32) it does 4*T*T*hd = 1.1 GFLOP per
@@ -47,8 +50,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int t_len, int d_model,
-                           float scale, int causal) {
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse, int t_len, int d_model, float scale,
+                           int causal) {
   constexpr int QS = HD + 1;  // padded row stride of Q and K tiles
   constexpr int PS = BK + 1;  // padded row stride of the probability tile
   constexpr int RI = BQ / 16;  // query rows per thread
@@ -169,13 +173,17 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         out[base + (size_t)row * d_model + tx + 16 * j] = dqvq::from_f32<T>(o[i][j] * inv);
+      // the row's log-sum-exp of the scaled scores, which the backward
+      // (fused_attention_bwd.cu) turns back into probabilities
+      if (lse != nullptr && tx == 0)
+        lse[((size_t)b * gridDim.y + h) * t_len + row] = m[i] + logf(l[i]);
     }
   }
 }
 
 template <typename T, int HD, int BQ = 64, int BK = 64>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, int batch,
-                      int t_len, int d_model, int n_head, float scale, int causal,
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int batch, int t_len, int d_model, int n_head, float scale, int causal,
                       cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, BQ, BK>();
   static_assert(smem <= 232448, "tiles exceed a block's shared memory");
@@ -184,21 +192,22 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, in
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((t_len + BQ - 1) / BQ, n_head, batch);
-  kernel<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)out, t_len,
-                                           d_model, scale, causal);
+  kernel<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)out, lse,
+                                           t_len, d_model, scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int batch, int t_len,
-                   int d_model, int n_head, float scale, int causal, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int batch,
+                   int t_len, int d_model, int n_head, float scale, int causal,
+                   cudaStream_t stream) {
   switch (d_model / n_head) {
-    case 16: return launch_hd<T, 16>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 32: return launch_hd<T, 32>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 64: return launch_hd<T, 64>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 256: return launch_hd<T, 256>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 512: return launch_hd<T, 512, 32, 32>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 16: return launch_hd<T, 16>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 32: return launch_hd<T, 32>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 128: return launch_hd<T, 128>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 256: return launch_hd<T, 256>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 512: return launch_hd<T, 512, 32, 32>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -206,16 +215,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
 }  // namespace
 
 // q, k, v, out: (batch, t_len, d_model) contiguous in `dtype`, heads carved
-// from d_model (head h owns columns [h*hd, (h+1)*hd)). Returns a cudaError_t.
+// from d_model (head h owns columns [h*hd, (h+1)*hd)). lse: null, or
+// (batch, n_head, t_len) f32 that receives each row's log-sum-exp of the
+// scaled scores (training saves it for the backward). Returns a cudaError_t.
 extern "C" int dqvq_fused_attention_forward(const void* q, const void* k, const void* v,
-                                            void* out, int batch, int t_len, int d_model,
-                                            int n_head, float scale, int causal, int dtype,
-                                            void* stream) {
+                                            void* out, void* lse, int batch, int t_len,
+                                            int d_model, int n_head, float scale, int causal,
+                                            int dtype, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == dqvq::kFloat32)
-    return launch<float>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, s);
+    return launch<float>(q, k, v, out, l, batch, t_len, d_model, n_head, scale, causal, s);
   if (dtype == dqvq::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, out, batch, t_len, d_model, n_head, scale, causal, s);
+    return launch<__nv_bfloat16>(q, k, v, out, l, batch, t_len, d_model, n_head, scale, causal, s);
   return cudaErrorInvalidValue;
 }

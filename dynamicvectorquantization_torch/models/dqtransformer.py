@@ -1,6 +1,12 @@
-"""Dualformer — image encode to code streams, unconditional stage-2
-KV-cached sampling, and decode (counterpart of
+"""Dualformer — image encode to code streams, the stage-2 training forward
+and loss, unconditional KV-cached sampling, and decode (counterpart of
 `dynamicvectorquantization_tpu/models/dqtransformer.py`).
+
+Training: `forward` encodes images with the frozen first stage and hands the
+streams to `forward_tokens`, which prefixes them with the condition tokens,
+builds the shifted targets and runs `StackGPT.forward`; `loss` weighs the
+content and position losses. A cached-codes pipeline encodes once
+(`Stage2Trainer.encode_dataset`) and calls `forward_tokens` directly.
 
 Sampling generates coarse (position, content) pairs until every row has
 emitted the coarse EOS, then fine pairs, each AR step feeding ONE token
@@ -50,6 +56,9 @@ class Dualformer(nn.Module):
         self.first_stage_model = instantiate_from_config(first_stage_config)
         self.permuter = instantiate_from_config(permuter_config)
         self.cond_stage_model = instantiate_from_config(cond_cfg)
+        self.content_loss_weight = content_loss_weight
+        self.position_loss_weight = position_loss_weight
+        self.weight_decay = weight_decay
 
         tparams = transformer_config["params"]
         pparams = permuter_config["params"]
@@ -92,6 +101,42 @@ class Dualformer(nn.Module):
             coarse_content, fine_content, coarse_position, fine_position)
         quant = self.first_stage_model.get_code_emb_with_depth(indices)
         return self.first_stage_model.decode(quant)
+
+    # ---------------------------------------------------------- training
+    def forward(self, x, train=False, generator=None):
+        """Images (B, H, W, 3) -> the training losses (frozen encode, then
+        `forward_tokens`)."""
+        _, z = self.encode_to_z(x)
+        return self.forward_tokens(z, train=train, generator=generator)
+
+    def forward_tokens(self, z, train=False, generator=None):
+        """The training losses from PRE-ENCODED permuter streams `z` (the dict
+        `encode_to_z` returns, (B, L) integer tensors on the model's device)."""
+        z = {k: v.long() for k, v in z.items()}
+        ref = z["coarse_content"]
+        c_coarse, c_fine, c_pos_coarse, c_pos_fine, c_seg_coarse, c_seg_fine = \
+            self.encode_to_c(ref.shape[0], ref.device)
+
+        def prefixed(c, key):
+            return torch.cat([c, z[key]], dim=1)
+
+        coarse_content = prefixed(c_coarse, "coarse_content")
+        coarse_position = prefixed(c_pos_coarse, "coarse_position")
+        fine_content = prefixed(c_fine, "fine_content")
+        fine_position = prefixed(c_pos_fine, "fine_position")
+        seg = self.activate_segment
+        return self.transformer(
+            coarse_content, fine_content, coarse_position, fine_position,
+            coarse_seg=prefixed(c_seg_coarse, "coarse_segment") if seg else None,
+            fine_seg=prefixed(c_seg_fine, "fine_segment") if seg else None,
+            content_target=torch.cat([coarse_content, fine_content], dim=1)[:, 1:],
+            coarse_position_target=coarse_position[:, 1:],
+            fine_position_target=fine_position,
+            train=train, generator=generator)
+
+    def loss(self, output):
+        return (self.content_loss_weight * output["content_loss"]
+                + self.position_loss_weight * output["position_loss"])
 
     # ------------------------------------------------------------- masks
     def _content_mask(self, logits, done):

@@ -1,14 +1,22 @@
-"""StackGPT — the DQ-Transformer's stacked Position- and Content-Transformer,
-decode half (counterpart of `dynamicvectorquantization_tpu/nn/stackgpt.py`).
+"""StackGPT — the DQ-Transformer's stacked Position- and Content-Transformer
+(counterpart of `dynamicvectorquantization_tpu/nn/stackgpt.py`).
 
 Reference torch names: `content_emb`, `content_coarse_pos_emb`,
 `content_fine_pos_emb`, `seg_emb`, `pos_emb`, `position_transformer.{i}`,
 `content_transformer.{i}`, `position_head.{0 LayerNorm, 1 Linear}`,
 `content_head.{0, 1}`; heads are bias-free.
 
+Training (`forward`): the position transformer sees, for token i,
+content_emb(content[i]) + pos_table(position[i]) + pos_emb[i] + seg[i] over
+the concatenated [coarse ; fine] streams with the content shifted off by
+one; the content transformer sees position_hidden[i] + pos_table(position
+[i + 1]). Losses are cross entropies that ignore the pad code; the position
+loss is the mean of its coarse and fine halves. Pad rows of the embedding
+tables are ordinary random rows: the trainer freezes them by zeroing their
+gradient (`train/stage2.py`), as the reference's `padding_idx` does.
+
 Decode: `position_step` / `content_step` run ONE token through a stack
-against its KV cache (updated in place). The training forward and losses
-come with the stage-2 training slice.
+against its KV cache (updated in place).
 """
 from __future__ import annotations
 
@@ -17,7 +25,18 @@ from torch import nn
 
 from ..ops.kv_int8 import CHUNK
 from .norm import LayerNorm
-from .transformer import KVCache, TransformerStack
+from .transformer import KVCache, TransformerStack, dropout
+
+
+def cross_entropy_ignore(logits, targets, ignore_index: int):
+    """Mean cross entropy over the positions whose target is not
+    `ignore_index`, reduced in f32 whatever the logits' dtype; 0 when every
+    target is ignored (`F.cross_entropy` gives NaN there)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ignored = targets == ignore_index
+    nll = -logp.gather(-1, targets.masked_fill(ignored, 0)[..., None])[..., 0]
+    keep = (~ignored).to(logp.dtype)
+    return (nll * keep).sum() / keep.sum().clamp(min=1.0)
 
 
 class StackGPT(nn.Module):
@@ -33,8 +52,13 @@ class StackGPT(nn.Module):
             raise NotImplementedError("mask_pad_attention is a training option; not ported")
         if kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype must be None or 'int8', got {kv_cache_dtype!r}")
-        # dropout rates, pad codes and use_flash_attention configure training
-        # only; they are accepted so the reference configs load unchanged
+        # use_flash_attention is accepted so the reference configs load
+        # unchanged: the full-sequence attention is always the fused one
+        self.embd_pdrop = embd_pdrop
+        self.content_pad_code = content_pad_code
+        self.coarse_position_pad_code = coarse_position_pad_code
+        self.fine_position_pad_code = fine_position_pad_code
+        self.activate_pad_ignore = activate_pad_ignore
         self.n_head = n_head
         self.n_embd = n_embd
         self.position_layer = position_layer
@@ -47,8 +71,10 @@ class StackGPT(nn.Module):
         self.pos_emb = nn.Parameter(torch.zeros(1, block_size, n_embd))
         if self.activate_segment:
             self.seg_emb = nn.Embedding(segment_size, n_embd)
-        self.position_transformer = TransformerStack(position_layer, n_embd, n_head)
-        self.content_transformer = TransformerStack(content_layer, n_embd, n_head)
+        self.position_transformer = TransformerStack(position_layer, n_embd, n_head,
+                                                     attn_pdrop, resid_pdrop)
+        self.content_transformer = TransformerStack(content_layer, n_embd, n_head,
+                                                    attn_pdrop, resid_pdrop)
         self.position_head = nn.Sequential(
             LayerNorm(n_embd, eps=1e-5), nn.Linear(n_embd, fine_position_size, bias=False))
         self.content_head = nn.Sequential(
@@ -68,6 +94,68 @@ class StackGPT(nn.Module):
                 mod.bias.zero_()
         self.pos_emb.zero_()
 
+    # ------------------------------------------------------------- training
+    def forward(self, coarse_content, fine_content, coarse_position, fine_position,
+                coarse_seg=None, fine_seg=None, content_target=None,
+                coarse_position_target=None, fine_position_target=None, train=False,
+                generator=None):
+        """Training forward over (B, L) integer streams. Without targets:
+        `{"position_logits", "content_logits"}`; with them the four losses of
+        `losses_from_logits`. `generator` feeds the dropouts when `train`."""
+        x, shifted = self.embed_training_inputs(
+            coarse_content, fine_content, coarse_position, fine_position, coarse_seg, fine_seg,
+            train=train, generator=generator)
+        out = self.forward_from_embeddings(x, shifted, train=train, generator=generator)
+        if content_target is None:
+            return out
+        return self.losses_from_logits(
+            out["position_logits"], out["content_logits"], content_target,
+            coarse_position_target, fine_position_target, coarse_position.shape[1])
+
+    def embed_training_inputs(self, coarse_content, fine_content, coarse_position,
+                              fine_position, coarse_seg=None, fine_seg=None, train=False,
+                              generator=None):
+        """(position-transformer input, the SHIFTED position embeddings the
+        content transformer adds), both (B, T, D) with T = Lc + Lf - 1."""
+        content = torch.cat([coarse_content, fine_content], dim=1)
+        position = torch.cat([self.content_coarse_pos_emb(coarse_position),
+                              self.content_fine_pos_emb(fine_position[:, :-1])], dim=1)
+        t = position.shape[1]
+        x = self.content_emb(content[:, :-1]) + (position + self.pos_emb[:, :t, :])
+        if self.activate_segment:
+            segment = torch.cat([coarse_seg, fine_seg], dim=1)
+            x = x + self.seg_emb(segment[:, :-1])
+        x = dropout(x, self.embd_pdrop, train, generator)
+        shifted = torch.cat([self.content_coarse_pos_emb(coarse_position[:, 1:]),
+                             self.content_fine_pos_emb(fine_position)], dim=1)
+        return x, shifted
+
+    def forward_from_embeddings(self, x, shifted_position_embeddings, train=False,
+                                generator=None):
+        position_hidden = self.position_transformer(x, train=train, generator=generator)
+        content_hidden = self.content_transformer(
+            position_hidden + shifted_position_embeddings, train=train, generator=generator)
+        return {"position_logits": self.position_head(position_hidden),
+                "content_logits": self.content_head(content_hidden)}
+
+    def losses_from_logits(self, position_logits, content_logits, content_target,
+                           coarse_position_target, fine_position_target, coarse_length: int):
+        """The training losses. With `activate_pad_ignore` the position logits
+        split at `coarse_length - 1` and every CE ignores its pad code; without
+        it they split at `coarse_length` and only the CONTENT CE drops its
+        ignore index, both position CEs keep theirs (a replicated reference
+        quirk)."""
+        split = coarse_length - 1 if self.activate_pad_ignore else coarse_length
+        content_ignore = self.content_pad_code if self.activate_pad_ignore else -1
+        cpl = cross_entropy_ignore(position_logits[:, :split], coarse_position_target,
+                                   self.coarse_position_pad_code)
+        fpl = cross_entropy_ignore(position_logits[:, split:], fine_position_target,
+                                   self.fine_position_pad_code)
+        closs = cross_entropy_ignore(content_logits, content_target, content_ignore)
+        return {"position_loss": (cpl + fpl) / 2.0, "content_loss": closs,
+                "coarse_position_loss": cpl, "fine_position_loss": fpl}
+
+    # ------------------------------------------------------------- decoding
     def make_caches(self, batch: int, max_len: int, dtype=torch.float32, device=None):
         """(position cache, content cache); capacity rounded up to the
         256-position decode chunk."""

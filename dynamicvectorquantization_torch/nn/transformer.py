@@ -1,12 +1,22 @@
-"""GPT blocks with single-token KV-cache decode (counterpart of
-`dynamicvectorquantization_tpu/nn/transformer.py`, decode half).
+"""GPT blocks with full-sequence training and single-token KV-cache decode
+(counterpart of `dynamicvectorquantization_tpu/nn/transformer.py`).
 
 Pre-LN blocks (LayerNorm eps 1e-5), causal self-attention, GELU MLP (4x),
 with the reference torch parameter names (`ln1`, `ln2`, `attn.{query,key,
-value,proj}`, `mlp.0`, `mlp.2`). Caches are updated IN PLACE (the JAX
-package returns new cache arrays; here that would copy hundreds of MB per
-step). The full-sequence training forward comes with the stage-2 training
-slice.
+value,proj}`, `mlp.0`, `mlp.2`).
+
+Full sequence (`cache is None`): the attention is
+`ops.attention.fused_causal_attention` on the (B, T, D) projection outputs,
+with no head transpose: the CUDA kernels on a CUDA tensor, forward and
+backward, their plain versions on a CPU tensor. Residual dropout
+(`resid_pdrop`, after `proj` and after the MLP) draws from an explicit
+`torch.Generator`. Attention-probability dropout lives inside the TPU
+attention kernels and is not ported: `attn_pdrop > 0` with `train=True`
+raises (ROADMAP.md). `attn_bias`, cross-attention and sequence parallelism
+are not ported either; no shipped unconditional config turns them on.
+
+Decode: caches are updated IN PLACE (the JAX package returns new cache
+arrays; here that would copy hundreds of MB per step).
 
 Caches per layer: float `(k, v)`, each (B, H, T_max, hd); or int8
 `(k_i8, v_i8, k_scale, v_scale)` with f32 scales (B, H, T_max) that start
@@ -17,9 +27,21 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.attention import fused_causal_attention
 from ..ops.kv_int8 import CHUNK, decode_attention_int8, quantize_kv
 from .activations import GELU
 from .norm import LayerNorm
+
+
+def dropout(x, rate: float, train: bool, generator):
+    """`nn.Dropout` with an explicit generator: zero with probability `rate`,
+    survivors scaled by 1 / (1 - rate); the identity unless `train`."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit torch.Generator")
+    keep = torch.rand(x.shape, device=x.device, generator=generator) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 class KVCache:
@@ -80,21 +102,26 @@ def chunked_decode_attention(q, k_cache, v_cache, cache_index: int):
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
         super().__init__()
         self.n_head = n_head
+        self.attn_pdrop = attn_pdrop
+        self.resid_pdrop = resid_pdrop
         self.query = nn.Linear(n_embd, n_embd)
         self.key = nn.Linear(n_embd, n_embd)
         self.value = nn.Linear(n_embd, n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
 
-    def forward(self, x, cache=None, cache_index=None):
-        """Decode step: x (B, 1, C) against `cache` (updated in place at
+    def forward(self, x, cache=None, cache_index=None, train=False, generator=None):
+        """Full sequence when `cache` is None: x (B, T, C), causal. Else a
+        decode step: x (B, 1, C) against `cache` (updated in place at
         `cache_index`, a host int)."""
         if cache is None:
-            raise NotImplementedError(
-                "the full-sequence attention forward comes with the stage-2 "
-                "training slice (ROADMAP.md)")
+            rate = float(self.attn_pdrop) if train else 0.0  # > 0 raises, see the module docstring
+            y = fused_causal_attention(self.query(x), self.key(x), self.value(x), self.n_head,
+                                       causal=True, rate=rate)
+            return dropout(self.proj(y), self.resid_pdrop, train, generator)
         b, t, c = x.shape
         if t != 1:
             raise ValueError(f"KV-cached decode takes one token per step, got {t}")
@@ -125,26 +152,32 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
         super().__init__()
+        self.resid_pdrop = resid_pdrop
         self.ln1 = LayerNorm(n_embd, eps=1e-5)
-        self.attn = CausalSelfAttention(n_embd, n_head)
+        self.attn = CausalSelfAttention(n_embd, n_head, attn_pdrop, resid_pdrop)
         self.ln2 = LayerNorm(n_embd, eps=1e-5)
         self.mlp = nn.Sequential(
             nn.Linear(n_embd, 4 * n_embd), GELU(), nn.Linear(4 * n_embd, n_embd))
 
-    def forward(self, x, cache=None, cache_index=None):
-        x = x + self.attn(self.ln1(x), cache, cache_index)
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x, cache=None, cache_index=None, train=False, generator=None):
+        x = x + self.attn(self.ln1(x), cache, cache_index, train, generator)
+        return x + dropout(self.mlp(self.ln2(x)), self.resid_pdrop, train, generator)
 
 
 class TransformerStack(nn.ModuleList):
     """N blocks; children are named `0..N-1` as in the reference."""
 
-    def __init__(self, num_layers: int, n_embd: int, n_head: int):
-        super().__init__(Block(n_embd, n_head) for _ in range(num_layers))
+    def __init__(self, num_layers: int, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
+        super().__init__(Block(n_embd, n_head, attn_pdrop, resid_pdrop)
+                         for _ in range(num_layers))
 
-    def forward(self, x, cache: KVCache, cache_index):
-        for block, layer_cache in zip(self, cache.layers):
-            x = block(x, layer_cache, cache_index)
+    def forward(self, x, cache: KVCache = None, cache_index=None, train=False, generator=None):
+        """Full sequence when `cache` is None, else one cached decode step."""
+        layers = cache.layers if cache is not None else [None] * len(self)
+        for block, layer_cache in zip(self, layers):
+            x = block(x, layer_cache, cache_index, train, generator)
         return x

@@ -32,10 +32,15 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # entry point -> argtypes; every entry returns a cudaError_t as int
 SIGNATURES = {
     "dqvq_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
-    "dqvq_fused_attention_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    "dqvq_fused_attention_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    "dqvq_fused_attention_backward": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _P),
+    "dqvq_layernorm_forward": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
+    "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
+    "dqvq_fused_adamw": (_P,) * 5 + (_L,) + (_F,) * 9 + (_I, _P),
     "dqvq_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dqvq_patch_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "dqvq_strided_conv_down": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

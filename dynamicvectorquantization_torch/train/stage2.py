@@ -1,0 +1,185 @@
+"""Stage-2 (DQ-Transformer) training step (counterpart of
+`dynamicvectorquantization_tpu/train/stage2.py` `Stage2Trainer`).
+
+AdamW(0.9, 0.95) with a decay / no-decay split (Linear weights decay; biases,
+LayerNorms, embedding tables and the absolute `pos_emb` do not), warmup +
+cosine LR, a frozen first stage, total = content_loss_weight * content +
+position_loss_weight * position. The pad rows of the three embedding tables
+get a zero gradient every step, as `nn.Embedding(padding_idx=...)` gives them
+in the reference.
+
+Where the JAX trainer is a pure function of a state, this one owns its state
+and updates it in place: `masters` (f32 parameters), `m`, `v` (f32 moments,
+all keyed by the transformer's parameter names) and `count`. With
+`compute_dtype="bfloat16"` the transformer module holds the bf16 working
+copy; autograd differentiates with respect to that copy (bf16 gradients), and
+the fused AdamW kernel reads them, updates the f32 masters and writes the
+next working copy in the same pass. With f32 the module's parameters are the
+masters. The first stage always encodes in f32 (its bf16 mode is not ported).
+
+Not ported: attention-probability dropout (`attn_pdrop > 0` raises, see
+ROADMAP.md), checkpoints, data loading and the parallel trainers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.fused_adamw import adamw_scalars, fused_adamw_step
+from ..utils.device import resolve_device
+from .schedules import warmup_cosine
+
+B1, B2, EPS = 0.9, 0.95, 1e-8
+_LOSS_KEYS = ("content_loss", "position_loss", "coarse_position_loss", "fine_position_loss")
+
+
+def decayed_parameter_names(module: nn.Module):
+    """Names of the parameters AdamW decays: the weights of `nn.Linear`
+    layers (heads included) and nothing else. Selected by module type, since
+    `weight` is also the leaf name of embeddings and LayerNorms."""
+    return {f"{prefix}.weight" if prefix else "weight"
+            for prefix, mod in module.named_modules() if isinstance(mod, nn.Linear)}
+
+
+class Stage2Trainer:
+    def __init__(self, model, learning_rate, min_learning_rate=0.0, warmup_steps=0,
+                 max_steps=1_000_000, accum=1, compute_dtype=None, device=None):
+        if compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.accum = int(accum)
+        if self.accum < 1:
+            raise ValueError("accum must be at least 1")
+        self.schedule = warmup_cosine(learning_rate, warmup_steps, max_steps,
+                                      min_learning_rate / max(learning_rate, 1e-20))
+        self.weight_decay = float(model.weight_decay)
+        self.mixed = compute_dtype == "bfloat16"
+
+        model.first_stage_model.eval()
+        model.first_stage_model.requires_grad_(False)
+        tf = model.transformer
+        tf.requires_grad_(True)
+        self.params = dict(tf.named_parameters())
+        self.decayed = decayed_parameter_names(tf) & set(self.params)
+        self.pad_rows = {"content_emb.weight": tf.content_pad_code,
+                         "content_coarse_pos_emb.weight": tf.coarse_position_pad_code,
+                         "content_fine_pos_emb.weight": tf.fine_position_pad_code}
+        if self.mixed:
+            self.masters = {k: p.detach().float().clone() for k, p in self.params.items()}
+            tf.to(torch.bfloat16)
+        else:
+            tf.float()
+            self.masters = {k: p.data for k, p in self.params.items()}
+        self.m = {k: torch.zeros_like(p) for k, p in self.masters.items()}
+        self.v = {k: torch.zeros_like(p) for k, p in self.masters.items()}
+        self.count = 0
+
+    # ------------------------------------------------------------- state
+    def load_optimizer_state(self, count: int, m: dict, v: dict):
+        """Continue from a (count, m, v) state keyed by parameter name, e.g.
+        `utils.weights.adamw_state_from_optax` of a JAX training state."""
+        if set(m) != set(self.masters) or set(v) != set(self.masters):
+            raise KeyError("optimizer state does not match the transformer's parameters")
+        for k in self.masters:
+            self.m[k].copy_(m[k])
+            self.v[k].copy_(v[k])
+        self.count = int(count)
+
+    # -------------------------------------------------------------- steps
+    def _to_device(self, x):
+        if isinstance(x, dict):
+            return {k: torch.as_tensor(v).to(self.device) for k, v in x.items()}
+        return torch.as_tensor(x).to(self.device)
+
+    def _losses(self, x, train, generator):
+        if isinstance(x, dict):  # cached permuter streams
+            out = self.model.forward_tokens(x, train=train, generator=generator)
+        else:
+            out = self.model(x.float(), train=train, generator=generator)
+        return self.model.loss(out), out
+
+    def compute_grads(self, x, generator=None):
+        """(logs, grads): the losses of one training forward as 0-d f32
+        tensors, and the gradient of the total with respect to every
+        transformer parameter (pad rows zeroed), keyed by name. x: a dict of
+        (B, L) streams or (B, H, W, 3) images; with `accum > 1` the same with
+        a leading (accum,) axis, gradients accumulated in f32 and averaged."""
+        x = self._to_device(x)
+        names, params = zip(*self.params.items())
+        if self.accum == 1:
+            micro = [x]
+        else:
+            n = len(next(iter(x.values()))) if isinstance(x, dict) else len(x)
+            if n != self.accum:
+                raise ValueError(f"expected {self.accum} microbatches, got {n}")
+            micro = [{k: v[i] for k, v in x.items()} if isinstance(x, dict) else x[i]
+                     for i in range(n)]
+        sums, log_sums = None, None
+        for xi in micro:
+            total, out = self._losses(xi, True, generator)
+            g = torch.autograd.grad(total, params)
+            logs = {"total": total.detach().float(),
+                    **{k: out[k].detach().float() for k in _LOSS_KEYS}}
+            if self.accum == 1:
+                sums, log_sums = list(g), logs
+            elif sums is None:
+                sums, log_sums = [t.float() for t in g], logs
+            else:
+                for s, t in zip(sums, g):
+                    s.add_(t.float())
+                log_sums = {k: log_sums[k] + logs[k] for k in logs}
+        if self.accum > 1:
+            inv = 1.0 / self.accum
+            sums = [s.mul_(inv) for s in sums]
+            log_sums = {k: t * inv for k, t in log_sums.items()}
+        grads = dict(zip(names, sums))
+        for name, pad in self.pad_rows.items():
+            grads[name][pad] = 0.0
+        return {"train_loss": log_sums["total"],
+                **{f"train_{k}": log_sums[k] for k in _LOSS_KEYS}}, grads
+
+    def apply_update(self, grads):
+        """One AdamW update of every parameter from `grads`."""
+        lr, c1, c2 = adamw_scalars(self.count, self.schedule, B1, B2)
+        for name, p in self.params.items():
+            wd = self.weight_decay if name in self.decayed else 0.0
+            fused_adamw_step(grads[name].contiguous(), self.masters[name], self.m[name],
+                             self.v[name], lr, c1, c2, B1, B2, EPS, wd,
+                             copy=p.data if self.mixed else None)
+        self.count += 1
+
+    def train_step(self, x, generator=None):
+        """One optimizer step; returns the logs (0-d tensors on the device)."""
+        logs, grads = self.compute_grads(x, generator)
+        self.apply_update(grads)
+        return logs
+
+    def train_steps(self, xs, generator=None):
+        """K full optimizer steps over xs with a leading (K,) axis; returns
+        the logs stacked per step."""
+        xs = self._to_device(xs)
+        k = len(next(iter(xs.values()))) if isinstance(xs, dict) else len(xs)
+        steps = [self.train_step({n: v[i] for n, v in xs.items()} if isinstance(xs, dict)
+                                 else xs[i], generator) for i in range(k)]
+        return {key: torch.stack([s[key] for s in steps]) for key in steps[0]}
+
+    @torch.no_grad()
+    def eval_step(self, x):
+        total, out = self._losses(self._to_device(x), False, None)
+        return {"val_loss": total.float(), **{f"val_{k}": out[k].float() for k in _LOSS_KEYS}}
+
+    @torch.no_grad()
+    def encode_dataset(self, images, batch: int = 64):
+        """Images (N, H, W, 3) -> the permuter streams as a dict of (N, L)
+        numpy int arrays, encoded once by the frozen first stage; usable as
+        the `x` of `train_step` / `eval_step`."""
+        outs = []
+        for i in range(0, len(images), batch):
+            x = torch.as_tensor(np.asarray(images[i:i + batch])).to(self.device).float()
+            _, z = self.model.encode_to_z(x)
+            outs.append(z)
+        # gather after every batch is enqueued, so the host copies do not
+        # serialise the encodes
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs], axis=0) for k in outs[0]}

@@ -76,6 +76,17 @@ def stackgpt_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def adamw_state_from_optax(opt_state):
+    """The optimizer state of the JAX package's stage-2 trainer (the optax
+    `adamw` chain, or its `ScaleByAdamState` alone) -> `(count, m, v)` with
+    the moments keyed by the port's StackGPT parameter names, for
+    `Stage2Trainer.load_optimizer_state`. Read by attribute, so optax is not
+    imported."""
+    adam = opt_state if hasattr(opt_state, "mu") else opt_state[0]
+    return (int(adam.count), stackgpt_state_dict_from_flax(adam.mu),
+            stackgpt_state_dict_from_flax(adam.nu))
+
+
 _MID = {"mid_block_1": "block_1", "mid_attn_1": "attn_1", "mid_block_2": "block_2"}
 
 
