@@ -35,7 +35,15 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                state (losses, gradients, parameters); then timed steps with
                the shipped embedding / residual dropout, launch counters per
                step, a torch.profiler trace of one step, peak memory
-  7. kernels   one line listing every ported kernel, its launches on the
+  7. train1    full-width, full-depth DQ-VAE + GAN of the shipped
+               `dqvae-entropy-dual-r05_imagenet.yml` (f32, TF32 off, seeded random
+               weights, random VGG16 backbone with the bundled LPIPS lin heads),
+               batch 8 of the encode phase's images: one `Stage1Trainer.train_step`
+               through the kernels against one through the plain versions from
+               the same state and generator seed (logs, EMA codebook, watched
+               gradients); then timed steps, launch counters per step, a
+               torch.profiler trace of one step, peak memory, one `eval_step`
+  8. kernels   one line listing every ported kernel, its launches on the
                encode, serving and training runs and its measured numbers
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -48,6 +56,7 @@ import sys
 import time
 
 P6C18 = "configs/stage2/uncond_imagenet_p6c18.yml"
+STAGE1 = "configs/stage1/dqvae-entropy-dual-r05_imagenet.yml"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores; bf16 dense
 L2_BYTES = 50 * 2 ** 20
@@ -247,6 +256,82 @@ def check_vq_nearest(torch, dev):
     return case
 
 
+def check_vq_train(torch, dev):
+    from dynamicvectorquantization_torch.ops.vq import (
+        nearest_codes_with_stats, nearest_codes_with_stats_plain)
+
+    k, d = 1024, 256
+    sum_tol = 1e-4  # relative to the largest sum: f32 additions of up to ~1,000 rows in another order
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def clustered(n):
+        """Rows scattered round 700 of the 1,024 codes with skewed weights, so
+        clusters are uneven and some stay empty, as on the encode path."""
+        cb = torch.randn((k, d), generator=g, device=dev)
+        weights = 1.0 / torch.arange(1, 701, device=dev, dtype=torch.float32)
+        assign = torch.multinomial(weights, n, replacement=True, generator=g)
+        return cb[assign] + 0.3 * torch.randn((n, d), generator=g, device=dev), cb
+
+    def compare(x, cb):
+        idx, xq, esum, csize = nearest_codes_with_stats(x, cb)
+        again = nearest_codes_with_stats(x, cb)
+        ref_idx = nearest_codes_with_stats_plain(x, cb)[0]
+        torch.cuda.synchronize()
+        scores = (cb * cb).sum(1)[None] - 2.0 * (x @ cb.t())
+        rows = torch.arange(x.shape[0], device=dev)
+        gap = (scores[rows, idx] - scores[rows, ref_idx]).abs()
+        cn = cb.norm(dim=1)
+        differ = idx != ref_idx
+        within = bool((gap[differ] <= near_tie_bound(x.norm(dim=1), cn[idx], cn[ref_idx],
+                                                     x.shape[1])[differ]).all())
+        # the plain sums over the kernel's own codes (equal to the plain codes outside near-ties)
+        ref_sum = torch.zeros_like(cb).index_add_(0, idx, x)
+        ref_size = torch.bincount(idx, minlength=cb.shape[0]).float()
+        return dict(shape=[x.shape[0], cb.shape[0], x.shape[1]], mismatched_rows=int(differ.sum()),
+                    mismatches_within_near_tie_bound=within,
+                    xq_is_codebook_row=bool(torch.equal(xq, cb[idx])),
+                    embed_sum_rel_err=float((esum - ref_sum).abs().max() / ref_sum.abs().max()),
+                    cluster_size_exact=bool(torch.equal(csize, ref_size)),
+                    largest_cluster=int(csize.max()), empty_clusters=int((csize == 0).sum()),
+                    bit_reproducible=all(torch.equal(a_, b_)
+                                         for a_, b_ in zip((idx, xq, esum, csize), again)))
+
+    n = 8 * 32 * 32  # the encoder's 32x32 latents at batch 8
+    sets = [clustered(n) for _ in range(n_sets(4 * (2 * n * d + 2 * k * d)))]
+    case = dict(phase="kernels", kernel="vq_nearest_train", dtype="float32", **compare(*sets[0]),
+                tol=f"codes: f32 near-tie bound; xq, cluster_size exact; embed_sum {sum_tol} "
+                    "of the largest sum")
+    case["max_abs_err"] = case["embed_sum_rel_err"]
+    x_small = torch.randn((100, d), generator=g, device=dev)  # fewer rows than codes
+    x_odd, cb_odd = (torch.randn((1237, 36), generator=g, device=dev),
+                     torch.randn((300, 36), generator=g, device=dev))
+    case["other_shapes"] = [compare(x_small, sets[0][1]), compare(x_odd, cb_odd)]
+    # each input read once (x, codebook, |c|^2), each output written once
+    # (idx, xq, embed_sum, cluster_size); the search's 2 N K D and the N D adds
+    case["bound_ms"], case["bound_by"] = bound(
+        4 * (2 * n * d + 2 * k * d + 2 * k + n), 2 * n * k * d + n * d, "float32")
+
+    def lib(x, cb, cb_norm):  # six PyTorch calls: scores, argmin, gather, zeros + index_add_, bincount
+        idx = torch.addmm(cb_norm, x, cb.t(), alpha=-2).argmin(1)
+        return (idx, cb.index_select(0, idx), torch.zeros_like(cb).index_add_(0, idx, x),
+                torch.bincount(idx, minlength=cb.shape[0]))
+
+    case["kernel_ms"], case["kernel_wall_ms"] = time_ms(torch, nearest_codes_with_stats, sets,
+                                                        only="vq_")
+    case["stats_kernel_ms"], _ = time_ms(torch, nearest_codes_with_stats, sets, only="vq_stats")
+    case["plain_ms"], case["plain_wall_ms"] = time_ms(torch, nearest_codes_with_stats_plain, sets)
+    case["library_ms"], case["library_wall_ms"] = time_ms(
+        torch, lib, [(x, cb, (cb * cb).sum(1)) for x, cb in sets])
+    emit(case)
+    for c in (case, *case["other_shapes"]):
+        require(c["mismatches_within_near_tie_bound"] and c["xq_is_codebook_row"]
+                and c["cluster_size_exact"] and c["embed_sum_rel_err"] <= sum_tol
+                and c["bit_reproducible"], f"vq_nearest_train disagrees: {c}")
+    require(case["empty_clusters"] > 0 and case["largest_cluster"] > 10 * n // k,
+            "the check's clusters should be uneven, with some empty")
+    return case
+
+
 def smooth_and_noisy_images(torch, dev, g, b=8, size=256):
     """Seeded NHWC images in [-1, 1]: the left half a smooth gradient with a
     little noise (low patch entropy), the right half uniform noise (high)."""
@@ -416,11 +501,15 @@ def check_attention_backward(torch, dev):
         fused_attention_forward_plain)
 
     fwd_cases, bwd_cases = [], []
-    # the training shape in bf16; the same in f32 at batch 2; one non-causal head, ragged tiles
+    # the stage-2 training shape in bf16; the same in f32 at batch 2; one non-causal head,
+    # ragged tiles; the DQ-VAE's conv AttnBlocks in stage-1 training: one non-causal f32
+    # head of 256 channels over 32 x 32 positions, and of 512 over 16 x 16
     for (b, t, d), n_head, causal, dtype in (
             ((8, TRAIN_T, 1024), 8, True, torch.bfloat16),
             ((2, TRAIN_T, 1024), 8, True, torch.float32),
-            ((2, 300, 64), 1, False, torch.float32)):
+            ((2, 300, 64), 1, False, torch.float32),
+            ((8, 1024, 256), 1, False, torch.float32),
+            ((8, 256, 512), 1, False, torch.float32)):
         hd = d // n_head
         scale = hd ** -0.5
         dname = str(dtype).split(".")[-1]
@@ -452,6 +541,16 @@ def check_attention_backward(torch, dev):
         fwd["kernel_ms"], fwd["kernel_wall_ms"] = time_ms(
             torch, lambda q_, k_, v_, *_: fused_attention_forward(
                 q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
+        fwd["plain_ms"], fwd["plain_wall_ms"] = time_ms(
+            torch, lambda q_, k_, v_, *_: fused_attention_forward_plain(
+                q_, k_, v_, n_head, scale, causal, True), sets, iters=10)
+
+        def heads(z):
+            return z.view(b, t, n_head, hd).transpose(1, 2)
+
+        fwd["library_ms"], fwd["library_wall_ms"] = time_ms(
+            torch, lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
+                heads(q_), heads(k_), heads(v_), is_causal=causal, scale=scale), sets)
         emit(fwd)
         # five T x T x hd products over the unmasked pairs; the bound at the
         # rate of the input type (bf16: tensor cores), and beside it at the
@@ -469,10 +568,6 @@ def check_attention_backward(torch, dev):
         bwd["plain_ms"], bwd["plain_wall_ms"] = time_ms(
             torch, lambda *a: fused_attention_backward_plain(*a, n_head, scale, causal), sets,
             iters=10)
-
-        def heads(z):
-            return z.view(b, t, n_head, hd).transpose(1, 2)
-
         lib_sets = []
         for q_, k_, v_, _, _, dy_ in sets:
             leaves = tuple(heads(z).detach().requires_grad_() for z in (q_, k_, v_))
@@ -605,9 +700,10 @@ def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
     return res
 
 
-def profile_device_time(torch, fn, n_top=8):
+def profile_device_time(torch, fn, n_top=8, groups=None):
     """Device busy time of one call of `fn` from a torch.profiler trace, and
-    the `n_top` kernels that take most of it (ms summed over the call)."""
+    the `n_top` kernels that take most of it (ms summed over the call); with
+    `groups` ({label: part of a kernel name}) also the ms of each group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -624,8 +720,11 @@ def profile_device_time(torch, fn, n_top=8):
             launches += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
     busy = sum(by_name.values())
+    grouped = {label: sum(ms for name, ms in by_name.items() if part in name)
+               for label, part in (groups or {}).items()}
     return {"device_busy_ms": busy if busy > 0 else None,  # None: the trace held no device time
-            "device_ops": launches, "top": [[name[:80], ms] for name, ms in top]}
+            "device_ops": launches, "top": [[name[:80], ms] for name, ms in top],
+            "groups": grouped}
 
 
 def wrappers():
@@ -637,9 +736,10 @@ def wrappers():
     from dynamicvectorquantization_torch.ops.fused_adamw import fused_adamw_step
     from dynamicvectorquantization_torch.ops.kv_int8 import decode_attention_int8
     from dynamicvectorquantization_torch.ops.layernorm import layernorm_backward, layernorm_forward
-    from dynamicvectorquantization_torch.ops.vq import nearest_codes
+    from dynamicvectorquantization_torch.ops.vq import nearest_codes, nearest_codes_with_stats
 
-    return {"decode_attention_int8": decode_attention_int8,
+    return {"vq_nearest_train": nearest_codes_with_stats,
+            "decode_attention_int8": decode_attention_int8,
             "fused_attention_forward": fused_attention_forward,
             "fused_attention_backward": fused_attention_backward,
             "layernorm_forward": layernorm_forward, "layernorm_backward": layernorm_backward,
@@ -659,8 +759,10 @@ def read_launches():
 
 @contextlib.contextmanager
 def plain_encode_path():
-    """The encode path's four kernel wrappers swapped for their plain
-    versions, so the same model runs without the kernels on the card."""
+    """The DQ-VAE's kernel wrappers (entropy, downsample, attention, both
+    nearest-code searches) swapped for their plain versions, which autograd
+    differentiates, so the same model encodes and trains without the kernels
+    on the card."""
     import dynamicvectorquantization_torch.models.dqvae as dqvae
     import dynamicvectorquantization_torch.nn.blocks as blocks
     import dynamicvectorquantization_torch.ops.vq as vq
@@ -668,17 +770,20 @@ def plain_encode_path():
     from dynamicvectorquantization_torch.ops.downsample import strided_conv3x3_down_plain
     from dynamicvectorquantization_torch.ops.entropy import patch_entropy_plain
 
-    saved = (dqvae.patch_entropy, blocks.strided_conv3x3_down, blocks.fused_attention_forward,
-             vq.nearest_codes)
+    saved = (dqvae.patch_entropy, blocks.strided_conv3x3_down, blocks.fused_causal_attention,
+             vq.nearest_codes, vq.nearest_codes_with_stats)
     dqvae.patch_entropy = patch_entropy_plain
     blocks.strided_conv3x3_down = strided_conv3x3_down_plain
-    blocks.fused_attention_forward = fused_attention_forward_plain
+    blocks.fused_causal_attention = lambda q, k, v, n_head, scale=None, causal=True: \
+        fused_attention_forward_plain(q, k, v, n_head, scale, causal)
     vq.nearest_codes = lambda x, cb, use_pallas=None: vq.nearest_codes_plain(x, cb)
+    vq.nearest_codes_with_stats = lambda x, cb, use_pallas=None: \
+        vq.nearest_codes_with_stats_plain(x, cb)
     try:
         yield
     finally:
-        (dqvae.patch_entropy, blocks.strided_conv3x3_down, blocks.fused_attention_forward,
-         vq.nearest_codes) = saved
+        (dqvae.patch_entropy, blocks.strided_conv3x3_down, blocks.fused_causal_attention,
+         vq.nearest_codes, vq.nearest_codes_with_stats) = saved
 
 
 def encode(torch, model, dev, card, batch=8, reps=3):
@@ -949,6 +1054,188 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
     return res
 
 
+def train1(torch, dev, card, batch=8, timed_steps=3):
+    """Stage-1 (DQ-VAE + GAN) training of the shipped dual-grain config at
+    full width and depth, f32."""
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+    from dynamicvectorquantization_torch.nn.blocks import AttnBlock
+    from dynamicvectorquantization_torch.train.stage1 import B1, Stage1Trainer
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    config = load_config([STAGE1])["model"]
+    lr = config["base_learning_rate"] * batch  # the reference's base_learning_rate x batch
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = instantiate_from_config(config)
+    trainer = Stage1Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev)
+    trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    load_s = time.perf_counter() - t0
+    loss = model.loss
+    n_attn = sum(isinstance(m, AttnBlock) for m in (*model.encoder.modules(),
+                                                     *model.decoder.modules()))
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = smooth_and_noisy_images(torch, dev, g, b=batch, size=model.encoder.resolution)
+    ema_names = ("weight", "cluster_size_ema", "embed_ema")
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def restore():
+        model.load_state_dict(start)
+        trainer.init_state()
+
+    # (a) one step through the kernels against one through the plain versions
+    watched = ["encoder.conv_in.weight", "encoder.down.3.attn.0.q.weight", "quant_conv.weight",
+               "decoder.conv_out.weight"]
+    results = {}
+    for path, ctx in (("kernel", contextlib.nullcontext()), ("again", contextlib.nullcontext()),
+                      ("plain", plain_encode_path())):
+        restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with ctx:
+            logs = trainer.train_step(x, torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize()
+        # the optimizers started from zero moments: m = (1 - b1) g
+        grads = {k: trainer.ae_opt.m[k] / (1.0 - B1) for k in watched}
+        grads["loss.discriminator.main.0.weight"] = trainer.disc_opt.m["main.0.weight"] / (1.0 - B1)
+        results[path] = dict(
+            logs={k: float(v) for k, v in logs.items()},
+            grads={k: v.clone() for k, v in grads.items()},
+            ema={k: getattr(model.quantize.codebook, k).clone() for k in ema_names},
+            peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    kr, pr = results["kernel"], results["plain"]
+    log_rel = {k: abs(kr["logs"][k] - v) / max(abs(v), 1e-6) for k, v in pr["logs"].items()}
+    grad_rel = {k: ((kr["grads"][k] - v).norm() / v.norm()).item() for k, v in pr["grads"].items()}
+    # the kernel path against itself: what cuDNN's own run-to-run differences come to
+    grad_noise = {k: ((results["again"]["grads"][k] - v).norm() / v.norm()).item()
+                  for k, v in kr["grads"].items()}
+    restarted = [r["ema"]["cluster_size_ema"] == 1.0 for r in (kr, pr)]
+    restart_differs = int((restarted[0] != restarted[1]).sum())
+    ema_err = {k: ((kr["ema"][k] - pr["ema"][k]).abs().max() / pr["ema"][k].abs().max()).item()
+               for k in ema_names}
+    # f32 throughout. The two paths differ in summation order inside four kernels, at
+    # 1e-6; the VGG16 max-pools, the ReLU / LeakyReLU kinks and the hinge turn that into
+    # discrete changes of the gradient's route, and the discriminator's gradient is taken
+    # after an Adam step that moves every autoencoder parameter by +-lr whatever its
+    # gradient's size, so a sign decided by noise moves the reconstruction it sees
+    log_tol, grad_tol, ema_tol = 1e-3, 5e-2, 1e-3
+    compare = dict(phase="train1", step="kernel_vs_plain", config=STAGE1, dtype="float32",
+                   batch=batch, lr=lr, logs_kernel=kr["logs"], logs_plain=pr["logs"],
+                   log_max_rel_diff=max(log_rel.values()), log_tol=log_tol,
+                   grad_rel_l2_diff=grad_rel, grad_tol=grad_tol,
+                   grad_rel_l2_diff_kernel_path_twice=grad_noise, ema_max_rel_diff=ema_err,
+                   ema_tol=ema_tol, codes_restarted=int(restarted[0].sum()),
+                   restart_decisions_differ=restart_differs,
+                   peak_memory_gb_kernel=kr["peak_gb"], peak_memory_gb_plain=pr["peak_gb"],
+                   card=card)
+    emit(compare)
+    require(all(math.isfinite(v) for v in kr["logs"].values()), "non-finite stage-1 log")
+    require(max(log_rel.values()) <= log_tol, f"stage-1 logs kernel vs plain: {log_rel}")
+    require(max(grad_rel.values()) <= grad_tol, f"stage-1 gradients kernel vs plain: {grad_rel}")
+    require(restart_differs == 0 and max(ema_err.values()) <= ema_tol,
+            f"EMA codebook kernel vs plain: {ema_err}, {restart_differs} restart decisions differ")
+    del results, kr, pr
+
+    # (b) timed steps on the kernel path, (c) launches per step, (d) what moved
+    restore()
+    updates = []
+    ema_update = model.quantize._ema_update
+    model.quantize._ema_update = lambda *a, **k: (updates.append(1), ema_update(*a, **k))[1]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    all_logs = [trainer.train_step(x, gen)]  # warm-up step
+    torch.cuda.synchronize()
+    reset_launches()
+    del updates[:]
+    all_logs.append(trainer.train_step(x, gen))
+    torch.cuda.synchronize()
+    step_launches, ema_updates_per_step = read_launches(), len(updates)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    all_logs += [trainer.train_step(x, gen) for _ in range(timed_steps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / timed_steps
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_device_time(
+        torch, lambda: trainer.train_step(x, gen), n_top=14,
+        groups={"fused_attention_forward": "fused_attention_fwd_kernel",
+                "fused_attention_backward": "attention_bwd_", "attention_delta": "attention_delta",
+                "strided_conv3x3_down": "strided_conv_down", "vq_nearest_train": "vq_",
+                "patch_entropy": "patch_entropy", "fft_convolutions": "fft",
+                "implicit_gemm_convolutions": "implicit_gemm", "xmma_gemm": "xmma_gemm",
+                "elementwise": "elementwise_kernel"})
+    steps_run = trainer.step
+    del updates[:]
+    reset_launches()
+    val = {k: float(v) for k, v in trainer.eval_step(x).items()}
+    eval_launches = read_launches()
+    model.quantize._ema_update = ema_update
+    after = model.state_dict()
+    moved = {name: max((after[k] - start[k]).abs().max().item() for k in after
+                       if k.startswith(prefix) and after[k].is_floating_point())
+             for name, prefix in (("autoencoder", ("encoder.", "decoder.", "quant_conv.",
+                                                   "post_quant_conv.")),
+                                  ("discriminator", "loss.discriminator."),
+                                  ("codebook", "quantize.codebook."))}
+    lpips_frozen = all(torch.equal(after[k], start[k]) for k in after
+                       if k.startswith("loss.perceptual_loss."))
+    logs = [{k: float(v) for k, v in step.items()} for step in all_logs]
+    expected = {"vq_nearest_train": 2, "vq_nearest": 0, "patch_entropy": 2,
+                "strided_conv3x3_down": 8, "fused_attention_forward": 2 * n_attn,
+                "fused_attention_backward": n_attn}
+    step_ms = step_s * 1e3
+    busy_ms = prof["device_busy_ms"]
+    res = dict(phase="train1", step="timed", config=STAGE1, dtype="float32", batch=batch, lr=lr,
+               image=list(x.shape[1:]), attn_blocks=n_attn,
+               params_autoencoder=sum(p.numel() for p in trainer.ae_params.values()),
+               params_discriminator=sum(p.numel() for p in trainer.disc_params.values()),
+               params_lpips=sum(p.numel() for p in loss.perceptual_loss.parameters()),
+               load_s=load_s, steps_run=steps_run, logs_first=logs[0], logs_last=logs[-1],
+               aeloss=[step["train_aeloss"] for step in logs],
+               d_weight=[step["train_d_weight"] for step in logs],
+               launches_per_step=step_launches, expected_launches=expected,
+               ema_updates_per_step=ema_updates_per_step, eval_step=val,
+               eval_launches={k: v for k, v in eval_launches.items() if v},
+               max_abs_update=moved, lpips_frozen=lpips_frozen, timed_steps=timed_steps,
+               step_ms=step_ms, images_per_s=batch / step_s, device_busy_ms=busy_ms,
+               device_idle_share=busy_ms and 1.0 - busy_ms / step_ms,
+               device_ops=prof["device_ops"], top_kernels=prof["top"],
+               device_ms_by_kernel_group=prof["groups"], peak_memory_gb=peak_gb, card=card)
+
+    # the loss side alone, forward and backward on this batch (CUDA events, 3 calls each):
+    # LPIPS to the reconstruction; the discriminator's own objective to its parameters
+    def event_ms(fn, n=3):
+        fn()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+
+    xr = (0.9 * x).requires_grad_()
+    disc_leaves = list(trainer.disc_params.values())
+    res["lpips_forward_backward_ms"] = event_ms(
+        lambda: torch.autograd.grad(loss.nll(x, xr)[0], xr))
+    res["d_loss_forward_backward_ms"] = event_ms(
+        lambda: torch.autograd.grad(loss.d_loss(x, xr, 0, train=True)[0], disc_leaves))
+    emit(res)
+    require(all(math.isfinite(v) for step in logs for v in step.values())
+            and all(math.isfinite(v) for v in val.values()), "non-finite stage-1 log")
+    require(all(step["train_d_weight"] <= loss.disc_weight_max + 1e-6 for step in logs),
+            "train_d_weight above disc_weight_max")
+    require(all(v > 0 for v in moved.values()) and lpips_frozen,
+            f"after training: largest updates {moved}, LPIPS frozen {lpips_frozen}")
+    require(ema_updates_per_step == 1,
+            f"the EMA codebook was updated {ema_updates_per_step} times in one step")
+    for name, want in expected.items():
+        require(step_launches[name] == want,
+                f"{name} launched {step_launches[name]} times per stage-1 step, expected {want}")
+    require(eval_launches["vq_nearest"] == 1 and eval_launches["vq_nearest_train"] == 0
+            and not updates, "eval_step should search without statistics or an EMA update")
+    return res
+
+
 def serve(torch, model, card):
     import numpy as np
 
@@ -1007,6 +1294,7 @@ def main():
     decode_cases = check_decode_attention(torch, dev)
     attn_cases = check_fused_attention(torch, dev)
     vq_case = check_vq_nearest(torch, dev)
+    vq_train_case = check_vq_train(torch, dev)
     entropy_case = check_patch_entropy(torch, dev)
     conv_cases = check_strided_conv(torch, dev)
     ln_fwd_cases, ln_bwd_cases = check_layernorm(torch, dev)
@@ -1025,6 +1313,8 @@ def main():
     torch.cuda.empty_cache()
     trained = train(torch, dev, card)
     per_step = trained["launches_per_step"]
+    torch.cuda.empty_cache()
+    per_step1 = train1(torch, dev, card)["launches_per_step"]
 
     # the downsample line sums the encoder's four levels (one encode batch)
     conv = dict(conv_cases[0], shape=[c["shape"] for c in conv_cases],
@@ -1034,8 +1324,9 @@ def main():
                    for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")})
     attn_hd512 = {k: attn_cases[2][k] for k in ("shape", "max_abs_err", "kernel_ms", "plain_ms",
                                                 "bound_ms", "library_ms")}
-    attn_train = {k: attn_train_cases[0][k] for k in ("shape", "dtype", "with_lse", "max_abs_err",
-                                                      "lse_err", "kernel_ms", "bound_ms")}
+    attn_train = {k: attn_train_cases[0][k] for k in (
+        "shape", "dtype", "with_lse", "max_abs_err", "lse_err", "kernel_ms", "plain_ms",
+        "library_ms", "bound_ms")}
     kernels = []
     for name, src, replaces, main, launches, extra in (
             ("decode_attention_int8", "decode_attention_int8.cu",
@@ -1045,13 +1336,19 @@ def main():
              "dynamicvectorquantization_tpu/ops/attention_pallas.py:82", attn_cases[0],
              {"serve": served["launches"]["fused_attention_forward"],
               "encode": encoded["launches"]["fused_attention_forward"],
-              "train_step": per_step["fused_attention_forward"]},
+              "train_step": per_step["fused_attention_forward"],
+              "train1_step": per_step1["fused_attention_forward"]},
              {"encoder_hd512": attn_hd512, "train_with_lse": attn_train}),
             ("fused_attention_backward", "fused_attention_bwd.cu",
              "dynamicvectorquantization_tpu/ops/attention_pallas.py:108", attn_bwd_cases[0],
-             {"train_step": per_step["fused_attention_backward"]},
+             {"train_step": per_step["fused_attention_backward"],
+              "train1_step": per_step1["fused_attention_backward"]},
              {"bound_ms_f32_fma": attn_bwd_cases[0]["bound_ms_f32_fma"],
-              "bit_reproducible": attn_bwd_cases[0]["bit_reproducible"]}),
+              "bit_reproducible": attn_bwd_cases[0]["bit_reproducible"],
+              "extra": {name: {k: c[k] for k in (
+                  "shape", "dtype", "causal", "max_abs_err", "tol", "bit_reproducible", "gflop",
+                  "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                  for name, c in (("hd256", attn_bwd_cases[3]), ("hd512", attn_bwd_cases[4]))}}),
             ("layernorm_forward", "layernorm.cu",
              "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:46", ln_fwd_cases[0],
              {"train_step": per_step["layernorm_forward"]}, {}),
@@ -1065,12 +1362,20 @@ def main():
             ("vq_nearest", "vq_nearest.cu", "dynamicvectorquantization_tpu/ops/vq_pallas.py:42",
              vq_case, {"encode": encoded["launches"]["vq_nearest"]},
              {"mismatched_rows": vq_case["mismatched_rows"]}),
+            ("vq_nearest_train", "vq_nearest.cu",
+             "dynamicvectorquantization_tpu/ops/vq_pallas.py:57", vq_train_case,
+             {"train1_step": per_step1["vq_nearest_train"]},
+             {k: vq_train_case[k] for k in ("mismatched_rows", "bit_reproducible",
+                                            "stats_kernel_ms", "largest_cluster",
+                                            "empty_clusters")}),
             ("patch_entropy", "patch_entropy.cu",
              "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy_case,
-             {"encode": encoded["launches"]["patch_entropy"]}, {}),
+             {"encode": encoded["launches"]["patch_entropy"],
+              "train1_step": per_step1["patch_entropy"]}, {}),
             ("strided_conv3x3_down", "strided_conv_down.cu",
              "dynamicvectorquantization_tpu/ops/downsample_pallas.py:45", conv,
-             {"encode": encoded["launches"]["strided_conv3x3_down"]}, {})):
+             {"encode": encoded["launches"]["strided_conv3x3_down"],
+              "train1_step": per_step1["strided_conv3x3_down"]}, {})):
         kernels.append(dict(
             name=name, route="cuda", source=f"dynamicvectorquantization_torch/csrc/{src}",
             replaces=replaces, launches=sum(launches.values()), launches_by_path=launches,

@@ -2,7 +2,7 @@
 
 Counterpart of `dynamicvectorquantization_tpu/config/registry.py`, holding
 only the targets the ported slices (unconditional stage-2 training and
-sampling, the DQ-VAE's dual-grain encode and decode) instantiate. Paths inside this
+sampling, the dual-grain DQ-VAE with its GAN loss) instantiate. Paths inside this
 package pass through; any other target raises, so a config that needs an
 unported module fails loudly instead of silently picking something else.
 """
@@ -24,6 +24,11 @@ TARGET_ALIASES = {
     "modules.dynamic_modules.label_provider.PositionAwareSOSProvider": f"{_PKG}.models.label_providers.PositionAwareSOSProvider",
     "modules.vector_quantization.quantize2_mask.VectorQuantize2": f"{_PKG}.ops.vq.VectorQuantizeEMA",
     "modules.vector_quantization.quantize2.VectorQuantize2": f"{_PKG}.ops.vq.VectorQuantizeEMA",
+    "modules.dynamic_modules.budget.BudgetConstraint_RatioMSE_DualGrain": f"{_PKG}.models.budget.BudgetConstraintRatioMSEDualGrain",
+    "modules.losses.vqperceptual_multidisc.VQLPIPSWithDiscriminator": f"{_PKG}.losses.vqperceptual.VQLPIPSWithDiscriminator",
+    "modules.losses.vqperceptual.VQLPIPSWithDiscriminator": f"{_PKG}.losses.vqperceptual.VQLPIPSWithDiscriminator",
+    "modules.losses.vqperceptual.DummyLoss": f"{_PKG}.losses.vqperceptual.DummyLoss",
+    "modules.discriminator.model.NLayerDiscriminator": f"{_PKG}.nn.discriminator.NLayerDiscriminator",
 }
 
 

@@ -16,14 +16,14 @@
 // Design: the TPU kernel keeps a whole (T, T) f32 score block in VMEM and
 // recomputes the softmax from scratch; a 227 KB thread block cannot. The
 // forward (fused_attention.cu) therefore also writes each row's log-sum-exp,
-// and P = exp(S * scale - lse) is rebuilt tile by tile, 64 x 64 at a time,
-// never touching device memory. Three kernels, launched back to back:
+// and P = exp(S * scale - lse) is rebuilt tile by tile (64 x 64 at a time up
+// to hd = 128), never touching device memory. Three kernels, launched back to back:
 //   1. delta[b, h, t] = sum_d dY * Y, which equals the TPU kernel's
 //      rowsum(dprobs * probs);
-//   2. dK / dV: one block owns a 64-row key tile of one (batch, head) and
+//   2. dK / dV: one block owns a key tile (64 rows) of one (batch, head) and
 //      walks the query tiles at or below it (causal skips the rest), with
 //      dK and dV accumulated in f32 registers;
-//   3. dQ: one block owns a 64-row query tile and walks the key tiles up to
+//   3. dQ: one block owns a query tile and walks the key tiles up to
 //      its last row, dQ accumulated in f32 registers.
 // dQ gets its own pass instead of float atomics from pass 2, so every
 // output element is summed by one thread in a fixed order: the result is
@@ -33,9 +33,18 @@
 // the accumulating products are free of bank conflicts. 256 threads as a
 // 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j.
 //
-// Limits: hd in {16, 32, 64, 128} (165 KB of shared memory at hd = 128, one
-// block per SM); FMA only (no wgmma), no TMA pipelining; the causal key
-// tiles have unequal work and no balancing.
+// Tiles are chosen per head dim, as in the forward: 64 x 64 up to hd = 128
+// (165 KB of shared memory, one block per SM), 32 x 32 at hd = 256 (137 KB)
+// and 16 x 16 at hd = 512 (131 KB): the DQ-VAE's conv AttnBlocks, one
+// non-causal f32 head of 256 channels over 32 x 32 positions or of 512 over
+// 16 x 16. Four 64-row tiles of hd = 256 would need 263 KB. The smaller tiles
+// keep the per-thread dK / dV accumulators at 64 registers (rows per thread
+// x hd / 16 columns, twice) at every head dim.
+//
+// Limits: hd in {16, 32, 64, 128, 256, 512}; FMA only (no wgmma), no TMA
+// pipelining; the small tiles of hd >= 256 load two shared words per FMA in
+// the T x T products and are bound by shared-memory bandwidth; the causal
+// key tiles have unequal work and no balancing.
 #include <math.h>
 
 #include "common.cuh"
@@ -43,20 +52,19 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;             // query rows and key rows per tile
-constexpr int kPS = kTile + 1;        // padded row stride of the P / dS tiles
-constexpr int kPer = kTile / 16;      // tile rows (or columns) per thread
 
-template <int HD>
+// TILE: query rows and key rows per tile; TILE + 1: padded row stride of the
+// P / dS tiles; TILE / 16: tile rows (or columns) per thread
+template <int HD, int TILE>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kTile * (HD + 1) + 2 * kTile * kPS + 2 * kTile);
+  return sizeof(float) * (size_t)(4 * TILE * (HD + 1) + 2 * TILE * (TILE + 1) + 2 * TILE);
 }
 
-template <int HD>
+template <int HD, int TILE>
 struct Tiles {
   float *q, *dy, *k, *v, *p, *ds, *lse, *delta;
   __device__ explicit Tiles(float* base) {
-    constexpr int QS = HD + 1;
+    constexpr int QS = HD + 1, kTile = TILE, kPS = TILE + 1;
     q = base;
     dy = q + kTile * QS;
     k = dy + kTile * QS;
@@ -68,8 +76,8 @@ struct Tiles {
   }
 };
 
-// rows [r0, r0 + 64) of head `base` of two (B, T, D) tensors into padded f32 tiles
-template <typename T, int HD>
+// rows [r0, r0 + TILE) of head `base` of two (B, T, D) tensors into padded f32 tiles
+template <typename T, int HD, int kTile>
 __device__ __forceinline__ void load_pair(const T* __restrict__ a, const T* __restrict__ b,
                                           float* sa, float* sb, size_t base, int r0, int t_len,
                                           int d_model) {
@@ -83,6 +91,7 @@ __device__ __forceinline__ void load_pair(const T* __restrict__ a, const T* __re
   }
 }
 
+template <int kTile>
 __device__ __forceinline__ void load_rows(const float* __restrict__ lse,
                                           const float* __restrict__ delta, float* s_lse,
                                           float* s_delta, size_t row_base, int r0, int t_len) {
@@ -93,12 +102,12 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ lse,
   }
 }
 
-// The 64 x 64 tile of P = exp(S * scale - lse) and dS = P * (dP - delta),
+// The TILE x TILE tile of P = exp(S * scale - lse) and dS = P * (dP - delta),
 // S = Q K^T and dP = dY V^T, masked to the sequence and the causal triangle.
-template <int HD>
-__device__ __forceinline__ void score_tile(const Tiles<HD>& s, int q0, int k0, int t_len,
+template <int HD, int TILE>
+__device__ __forceinline__ void score_tile(const Tiles<HD, TILE>& s, int q0, int k0, int t_len,
                                            float scale, int causal, int tx, int ty) {
-  constexpr int QS = HD + 1;
+  constexpr int QS = HD + 1, kPS = TILE + 1, kPer = TILE / 16;
   float sc[kPer][kPer], dp[kPer][kPer];
 #pragma unroll
   for (int i = 0; i < kPer; ++i)
@@ -154,23 +163,23 @@ attention_delta_kernel(const T* __restrict__ y, const T* __restrict__ dy,
   if (lane == 0) delta[((size_t)(bt / t_len) * n_head + h) * t_len + bt % t_len] = acc;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int TILE>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dy,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int t_len, int d_model,
                           float scale, int causal) {
-  constexpr int QS = HD + 1;
+  constexpr int QS = HD + 1, kTile = TILE, kPS = TILE + 1, kPer = TILE / 16;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
-  const Tiles<HD> s(smem);
+  const Tiles<HD, TILE> s(smem);
   const int k0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t base = (size_t)b * t_len * d_model + (size_t)h * HD;
   const size_t row_base = ((size_t)b * gridDim.y + h) * t_len;
 
-  load_pair<T, HD>(k, v, s.k, s.v, base, k0, t_len, d_model);
+  load_pair<T, HD, TILE>(k, v, s.k, s.v, base, k0, t_len, d_model);
 
   float acc_k[kPer][DJ], acc_v[kPer][DJ];
 #pragma unroll
@@ -181,10 +190,10 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // key tile k0 meets the query tiles that hold rows >= k0
   for (int q0 = causal ? k0 : 0; q0 < t_len; q0 += kTile) {
     __syncthreads();  // the previous tile's reads are done
-    load_pair<T, HD>(q, dy, s.q, s.dy, base, q0, t_len, d_model);
-    load_rows(lse, delta, s.lse, s.delta, row_base, q0, t_len);
+    load_pair<T, HD, TILE>(q, dy, s.q, s.dy, base, q0, t_len, d_model);
+    load_rows<TILE>(lse, delta, s.lse, s.delta, row_base, q0, t_len);
     __syncthreads();
-    score_tile<HD>(s, q0, k0, t_len, scale, causal, tx, ty);
+    score_tile<HD, TILE>(s, q0, k0, t_len, scale, causal, tx, ty);
     __syncthreads();
     // dV += P^T dY, dK += dS^T Q: this thread's key rows ty + 16 i, columns tx + 16 j
 #pragma unroll 2
@@ -222,23 +231,23 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int TILE>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dy,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         T* __restrict__ dq, int t_len, int d_model, float scale, int causal) {
-  constexpr int QS = HD + 1;
+  constexpr int QS = HD + 1, kTile = TILE, kPS = TILE + 1, kPer = TILE / 16;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
-  const Tiles<HD> s(smem);
+  const Tiles<HD, TILE> s(smem);
   const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const size_t base = (size_t)b * t_len * d_model + (size_t)h * HD;
   const size_t row_base = ((size_t)b * gridDim.y + h) * t_len;
 
-  load_pair<T, HD>(q, dy, s.q, s.dy, base, q0, t_len, d_model);
-  load_rows(lse, delta, s.lse, s.delta, row_base, q0, t_len);
+  load_pair<T, HD, TILE>(q, dy, s.q, s.dy, base, q0, t_len, d_model);
+  load_rows<TILE>(lse, delta, s.lse, s.delta, row_base, q0, t_len);
 
   float acc[kPer][DJ];
 #pragma unroll
@@ -249,9 +258,9 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k_end = causal ? min(t_len, q0 + kTile) : t_len;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile's reads are done
-    load_pair<T, HD>(k, v, s.k, s.v, base, k0, t_len, d_model);
+    load_pair<T, HD, TILE>(k, v, s.k, s.v, base, k0, t_len, d_model);
     __syncthreads();
-    score_tile<HD>(s, q0, k0, t_len, scale, causal, tx, ty);
+    score_tile<HD, TILE>(s, q0, k0, t_len, scale, causal, tx, ty);
     __syncthreads();
     // dQ += dS K: this thread's query rows ty + 16 i, columns tx + 16 j
 #pragma unroll 2
@@ -279,15 +288,16 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int TILE = 64>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* y, const void* dy,
                       const float* lse, float* delta, void* dq, void* dk, void* dv, int batch,
                       int t_len, int d_model, int n_head, float scale, int causal,
                       cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr int kTile = TILE;
+  constexpr size_t smem = smem_bytes<HD, TILE>();
   static_assert(smem <= 232448, "tiles exceed a block's shared memory");
-  auto dkdv = attention_bwd_dkdv_kernel<T, HD>;
-  auto dqk = attention_bwd_dq_kernel<T, HD>;
+  auto dkdv = attention_bwd_dkdv_kernel<T, HD, TILE>;
+  auto dqk = attention_bwd_dq_kernel<T, HD, TILE>;
   cudaError_t err =
       cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -316,14 +326,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* y, c
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int batch,
                    int t_len, int d_model, int n_head, float scale, int causal,
                    cudaStream_t stream) {
-#define DQVQ_BWD(HD)                                                                          \
-  return launch_hd<T, HD>(q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, \
-                          scale, causal, stream)
+#define DQVQ_BWD(...)                                                                    \
+  return launch_hd<T, __VA_ARGS__>(q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, \
+                                   n_head, scale, causal, stream)
   switch (d_model / n_head) {
     case 16: DQVQ_BWD(16);
     case 32: DQVQ_BWD(32);
     case 64: DQVQ_BWD(64);
     case 128: DQVQ_BWD(128);
+    case 256: DQVQ_BWD(256, 32);
+    case 512: DQVQ_BWD(512, 16);
     default: return cudaErrorInvalidValue;
   }
 #undef DQVQ_BWD

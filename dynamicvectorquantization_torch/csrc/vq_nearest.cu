@@ -23,6 +23,20 @@
 // smaller score, so ties resolve to the lowest index everywhere. The (N, K)
 // score matrix never reaches device memory.
 //
+// Training (`dqvq_vq_nearest_train`) replaces `_vq_kernel_train` of the same
+// file: the same search, then xq = codebook[idx] as a row gather of exact f32
+// rows, and the EMA statistics embed_sum[k] = sum of the rows of x assigned to
+// code k, cluster_size[k] = their count. The TPU kernel forms both as one-hot
+// matrix products accumulated over its sequential grid; blocks here run in
+// parallel, so the statistics are a segmented sum instead: one block per code
+// scans the (N,) index array (32 KB at N = 8192, L2-resident), compacts the
+// matching row numbers in ascending order with warp ballots, and adds those
+// rows of x, one thread per column. Every output element is summed by one
+// thread in row order: no float atomics, bit-identical from run to run. The
+// statistics pass is bound by bytes (x read once more, 8 MB); the search
+// dominates. Its known limit: a code that owns most rows serialises its adds
+// in one block.
+//
 // Known limits of this simple version: FMA only (no tensor cores: TF32 would
 // break argmin parity, a 3xTF32 split is a later option), no double-buffered
 // codebook tiles, one block per SM (128 KB of shared memory at D = 256).
@@ -124,6 +138,70 @@ vq_nearest_kernel(const float* __restrict__ x, const float* __restrict__ cb,
   }
 }
 
+// xq[r] = cb[idx[r]]: one float4 per thread
+__global__ void __launch_bounds__(kThreads)
+vq_gather_kernel(const float* __restrict__ cb, const int* __restrict__ idx,
+                 float* __restrict__ xq, int n, int d) {
+  const int d4 = d / 4;
+  const size_t total = (size_t)n * d4;
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * kThreads) {
+    const int r = (int)(e / d4), c = (int)(e % d4);
+    reinterpret_cast<float4*>(xq)[e] =
+        reinterpret_cast<const float4*>(cb)[(size_t)idx[r] * d4 + c];
+  }
+}
+
+// Block `code` sums the rows of x whose idx equals it, in ascending row order.
+constexpr int kStatCols = 2;  // columns per thread: d <= kStatCols * kThreads
+
+__global__ void __launch_bounds__(kThreads)
+vq_stats_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                float* __restrict__ embed_sum, float* __restrict__ cluster_size, int n, int d) {
+  __shared__ int s_rows[kThreads];
+  __shared__ int s_warp_count[kThreads / 32];
+  const int code = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float acc[kStatCols];
+#pragma unroll
+  for (int j = 0; j < kStatCols; ++j) acc[j] = 0.f;
+  int count = 0;
+
+  for (int base = 0; base < n; base += kThreads) {
+    const int r = base + tid;
+    const bool match = r < n && idx[r] == code;
+    const unsigned ballot = __ballot_sync(0xffffffffu, match);
+    if (lane == 0) s_warp_count[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const int c = s_warp_count[w];
+      if (w < warp) before += c;
+      total += c;
+    }
+    if (match) s_rows[before + __popc(ballot & ((1u << lane) - 1u))] = r;
+    __syncthreads();
+#pragma unroll 4
+    for (int m = 0; m < total; ++m) {
+      const float* row = x + (size_t)s_rows[m] * d;
+#pragma unroll
+      for (int j = 0; j < kStatCols; ++j) {
+        const int dd = tid + j * kThreads;
+        if (dd < d) acc[j] += row[dd];
+      }
+    }
+    count += total;
+    __syncthreads();  // s_rows and s_warp_count are rewritten by the next chunk
+  }
+
+#pragma unroll
+  for (int j = 0; j < kStatCols; ++j) {
+    const int dd = tid + j * kThreads;
+    if (dd < d) embed_sum[(size_t)code * d + dd] = acc[j];
+  }
+  if (tid == 0) cluster_size[code] = (float)count;
+}
+
 }  // namespace
 
 // x: (n, d) f32, cb: (k, d) f32, cb_norm: (k,) f32 = |c_k|^2, idx: (n,) int32,
@@ -139,5 +217,26 @@ extern "C" int dqvq_vq_nearest(const void* x, const void* cb, const void* cb_nor
   dim3 grid((n + BN - 1) / BN);
   vq_nearest_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       (const float*)x, (const float*)cb, (const float*)cb_norm, (int*)idx, n, k, d);
+  return cudaGetLastError();
+}
+
+// The training form: idx as above, plus xq: (n, d) f32 = cb[idx], embed_sum:
+// (k, d) f32 = the per-code sums of the rows of x, cluster_size: (k,) f32 =
+// the per-code row counts. Three kernels on one stream. Returns a cudaError_t.
+extern "C" int dqvq_vq_nearest_train(const void* x, const void* cb, const void* cb_norm,
+                                     void* idx, void* xq, void* embed_sum, void* cluster_size,
+                                     int n, int k, int d, void* stream) {
+  if (d > kStatCols * kThreads) return cudaErrorInvalidValue;
+  int rc = dqvq_vq_nearest(x, cb, cb_norm, idx, n, k, d, stream);
+  if (rc != cudaSuccess) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t quads = (size_t)n * (d / 4);
+  const int gather_blocks = (int)((quads + kThreads - 1) / kThreads);
+  vq_gather_kernel<<<gather_blocks, kThreads, 0, s>>>((const float*)cb, (const int*)idx,
+                                                      (float*)xq, n, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  vq_stats_kernel<<<k, kThreads, 0, s>>>((const float*)x, (const int*)idx, (float*)embed_sum,
+                                         (float*)cluster_size, n, d);
   return cudaGetLastError();
 }

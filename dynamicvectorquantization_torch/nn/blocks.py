@@ -8,11 +8,12 @@ channel count, for tiny test configs), eps 1e-6; Upsample = nearest x2 +
 1x1 `nin_shortcut` (or 3x3 `conv_shortcut`); AttnBlock = one-head attention
 over the H*W positions.
 
-`AttnBlock` always goes through `ops.attention.fused_attention_forward`:
-the CUDA kernel for CUDA tensors (any channel count the kernel takes; the
-TPU's `c % 128` gate does not carry over, and a shape the kernel cannot take
-raises), its plain version for CPU tensors. `Downsample` goes through
-`ops.downsample.strided_conv3x3_down` the same way. The JAX package's
+`AttnBlock` always goes through `ops.attention.fused_causal_attention`
+(non-causal here), the differentiable pair of CUDA kernels for CUDA tensors
+(any channel count the kernels take; the TPU's `c % 128` gate does not carry
+over, and a shape the kernels cannot take raises) and their plain versions
+for CPU tensors; under `torch.no_grad()` only the forward kernel runs.
+`Downsample` goes through `ops.downsample.strided_conv3x3_down` the same way. The JAX package's
 space-to-depth variant (`s2d`) is a measured dead end there and is not
 ported.
 """
@@ -22,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_attention_forward
+from ..ops.attention import fused_causal_attention
 from ..ops.downsample import strided_conv3x3_down
 
 
@@ -111,7 +112,7 @@ class AttnBlock(nn.Module):
         def tokens(z):  # (B, C, H, W) -> (B, H*W, C)
             return z.flatten(2).transpose(1, 2).contiguous()
 
-        y = fused_attention_forward(
+        y = fused_causal_attention(
             tokens(self.q(h_)), tokens(self.k(h_)), tokens(self.v(h_)),
             n_head=1, scale=c ** -0.5, causal=False)
         y = y.transpose(1, 2).reshape(b, c, h, w)

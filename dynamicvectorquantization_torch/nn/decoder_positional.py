@@ -6,6 +6,13 @@ Supported `position_type`: "fourier+learned" (the shipped configs) and
 `conv_in`, `mid.{block_1,attn_1,block_2}`, `up.{i}.block.{j}`,
 `up.{i}.attn.{j}`, `up.{i}.upsample.conv`, `norm_out`, `conv_out`,
 `position_bias_fourier.lff.ffm.conv`, `position_bias_learned.{row,col}_embed`.
+
+`forward(..., return_pre_out=True)` also returns the activation that feeds
+`conv_out` (`swish(norm_out(h))`): the stage-1 trainer takes the gradients of
+the reconstruction and generator losses with respect to `conv_out.weight`
+through `conv(pre_out.detach(), W)` for the adaptive discriminator weight,
+without running the decoder again. ResnetBlock dropout in training is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ class PositionalDecoder(nn.Module):
         if give_pre_end:
             raise NotImplementedError("give_pre_end is not ported")
         self.position_type = position_type
+        self.dropout = dropout
         if position_type == "fourier+learned":
             self.position_bias_fourier = FourierPositionEmbedding(latent_size, in_ch)
             self.position_bias_learned = PositionEmbedding2DLearned(latent_size, in_ch)
@@ -58,7 +66,10 @@ class PositionalDecoder(nn.Module):
         self.norm_out = Normalize(block_in)
         self.conv_out = nn.Conv2d(block_in, out_ch, 3, padding=1)
 
-    def forward(self, h):
+    def forward(self, h, train=False, return_pre_out=False):
+        if train and self.dropout > 0:
+            raise NotImplementedError("ResnetBlock dropout in training is not ported "
+                                      "(0.0 in every shipped stage-1 config)")
         if self.position_type == "fourier+learned":
             h = self.position_bias_learned(self.position_bias_fourier(h))
         h = self.conv_in(h)
@@ -70,4 +81,6 @@ class PositionalDecoder(nn.Module):
                     h = level.attn[i_block](h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return self.conv_out(nonlinearity(self.norm_out(h)))
+        h = nonlinearity(self.norm_out(h))
+        out = self.conv_out(h)
+        return (out, h) if return_pre_out else out

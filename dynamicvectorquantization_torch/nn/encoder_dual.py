@@ -1,4 +1,4 @@
-"""Dual-grain encoder, inference, NCHW (counterpart of
+"""Dual-grain encoder, NCHW (counterpart of
 `dynamicvectorquantization_tpu/nn/encoder_dual.py` `DualGrainEncoder`).
 
 A shared conv-ResNet down-stack (`down_stack`, the JAX package's
@@ -15,8 +15,11 @@ Reference state_dict names: `conv_in`, `down.{i}.{block|attn}.{j}`,
 `down.{i}.downsample.conv`, `mid_{coarse|fine}.{block_1,attn_1,block_2}`,
 `norm_out_{coarse|fine}`, `conv_out_{coarse|fine}`, `router.*`.
 
-The router's Gumbel straight-through gate (`train=True` with
-`update_router`) comes with the stage-1 training slice.
+Differentiable end to end; `train=True` is the training forward of a
+router that takes no gradient (`update_router: false`, the shipped
+fixed-entropy config). The router's Gumbel straight-through gate
+(`train=True` with `update_router`) and ResnetBlock dropout in training are
+not ported and raise (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ class DualGrainEncoder(nn.Module):
                  coarse_commit_weight=0.25, fine_commit_weight=1.0):
         super().__init__()
         self.resolution = resolution
+        self.dropout = dropout
         self.update_router = update_router
         self.coarse_commit_weight = coarse_commit_weight
         self.fine_commit_weight = fine_commit_weight
@@ -112,8 +116,11 @@ class DualGrainEncoder(nn.Module):
                              f"got {tuple(x.shape)}")
         if train and self.update_router:
             raise NotImplementedError(
-                "the Gumbel router gate (train=True, update_router) comes with the stage-1 "
-                "training slice (ROADMAP.md)")
+                "the Gumbel router gate (train=True with update_router) is not ported "
+                "(ROADMAP.md): train a config with update_router: false")
+        if train and self.dropout > 0:
+            raise NotImplementedError("ResnetBlock dropout in training is not ported "
+                                      "(0.0 in every shipped stage-1 config)")
         taps = self.down_stack(x)
         h_coarse = self.grain_head(self.mid_coarse, self.norm_out_coarse, self.conv_out_coarse,
                                    taps["final"])

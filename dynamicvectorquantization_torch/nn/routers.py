@@ -1,4 +1,4 @@
-"""Dual-grain routers, inference (counterpart of
+"""Dual-grain routers (counterpart of
 `dynamicvectorquantization_tpu/nn/routers.py`).
 
   * `DualGrainFeatureRouter`: optional GroupNorm per grain, 2x2 average pool

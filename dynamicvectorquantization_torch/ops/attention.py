@@ -24,7 +24,7 @@ from . import cuda_lib
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORWARD_HEAD_DIMS = (16, 32, 64, 128, 256, 512)
-_BACKWARD_HEAD_DIMS = (16, 32, 64, 128)
+_BACKWARD_HEAD_DIMS = _FORWARD_HEAD_DIMS
 _DROPOUT_MESSAGE = (
     "attention-probability dropout (rate > 0) is not ported: see ROADMAP.md, "
     "'Philox in-kernel dropout for TPU kernels #4/#5'; train with attn_pdrop = 0 until then")
@@ -132,7 +132,7 @@ fused_attention_forward.launches = 0
 
 def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True):
     """(dq, dk, dv) in q's dtype from the forward's inputs, its output y and
-    its log-sum-exp; hd in {16, 32, 64, 128}. `fused_attention_backward.launches`
+    its log-sum-exp; hd as in the forward. `fused_attention_backward.launches`
     counts launches (delta, dK/dV and dQ passes are one launch of the wrapper)."""
     tensors = (q, k, v, y, dy)
     if all(x.device.type == "cpu" for x in (*tensors, lse)):
@@ -181,7 +181,11 @@ class _FusedCausalAttention(torch.autograd.Function):
 def fused_causal_attention(q, k, v, n_head: int, scale=None, causal=True, rate=0.0):
     """Differentiable softmax(Q K^T * scale) V on contiguous (B, T, D)
     projection outputs (no head transpose); on CUDA both directions are
-    hand-written kernels. `rate > 0` raises (see the module docstring)."""
+    hand-written kernels. Where no gradient is asked for (`torch.no_grad()`,
+    or inputs that need none) only the forward runs and no log-sum-exp is
+    kept. `rate > 0` raises (see the module docstring)."""
     if rate > 0.0:
         raise NotImplementedError(_DROPOUT_MESSAGE)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
+        return fused_attention_forward(q, k, v, n_head, scale, causal)
     return _FusedCausalAttention.apply(q, k, v, n_head, scale, causal)

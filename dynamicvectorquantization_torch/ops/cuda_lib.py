@@ -42,6 +42,7 @@ SIGNATURES = {
     "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
     "dqvq_fused_adamw": (_P,) * 5 + (_L,) + (_F,) * 9 + (_I, _P),
     "dqvq_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dqvq_vq_nearest_train": (_P,) * 7 + (_I, _I, _I, _P),
     "dqvq_patch_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     "dqvq_strided_conv_down": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }

@@ -1,19 +1,29 @@
-"""The DQ-VAE's vector quantizer, inference half.
+"""The DQ-VAE's vector quantizer.
 
 Counterpart of `dynamicvectorquantization_tpu/ops/vq.py` `VectorQuantizeEMA`
-(forward with `train=False`) and of `ops/vq_pallas.py` `nearest_codes`: the
+and of `ops/vq_pallas.py` `nearest_codes` / `nearest_codes_with_stats`: the
 codebook buffer of shape (K + 1, D), whose extra row K is the stage-2 padding
-code and stays zero; nearest-code search; the masked commitment loss;
-`get_codebook_entry`. The EMA update and unused-code restart (TPU kernel #2)
-come with the stage-1 training slice (ROADMAP.md).
+code and stays zero; nearest-code search; the masked commitment loss with
+its gradient and the straight-through estimator; `get_codebook_entry`; and,
+with `train=True`, the EMA cluster statistics with the Laplace-smoothed
+codebook refresh and the restart of unused codes from permuted input rows.
 
-`nearest_codes` launches the CUDA kernel `csrc/vq_nearest.cu` for CUDA
-tensors and runs `nearest_codes_plain` for CPU tensors; `use_pallas=False`
-selects the plain version explicitly. Scores are |c|^2 - 2 x.c in f32 (no
-|x|^2 term, no TF32: QUIRKS #9); argmin ties go to the lowest index.
+`nearest_codes` and `nearest_codes_with_stats` launch the CUDA kernels of
+`csrc/vq_nearest.cu` for CUDA tensors and run `nearest_codes_plain` /
+`nearest_codes_with_stats_plain` for CPU tensors; `use_pallas=False` selects
+the plain version explicitly. Scores are |c|^2 - 2 x.c in f32 (no |x|^2
+term, no TF32: QUIRKS #9); argmin ties go to the lowest index. The search
+and the statistics are piecewise constant in x and the codebook, so they
+carry no gradient (the JAX package declares the same with a `custom_vjp` of
+zeros): x is detached before either.
 
-The buffer lives at `codebook.weight`, the reference's state_dict name
-(`quantize.codebook.weight` inside the DQ-VAE).
+Where the JAX module returns a new `ema` collection, this one updates its
+buffers in place: `codebook.weight` (K + 1, D), `codebook.cluster_size_ema`
+(K,) and `codebook.embed_ema` (K, D), the reference's state_dict names
+(`quantize.codebook.*` inside the DQ-VAE). `forward(train=True,
+commit=False)` runs the training search and statistics and leaves the
+buffers as they were, for the trainer's discriminator pass, whose EMA
+update the reference discards.
 """
 from __future__ import annotations
 
@@ -31,23 +41,28 @@ def nearest_codes_plain(x, codebook):
     return idx, codebook[idx]
 
 
+def _kernel_shapes(name, x, codebook):
+    """(N, K, D) of inputs the CUDA kernels take; raises on any other."""
+    if x.device != codebook.device or x.device.type != "cuda":
+        raise ValueError(f"{name}: x and the codebook must be on one CUDA device")
+    if x.dtype != torch.float32 or codebook.dtype != torch.float32:
+        raise TypeError(f"{name}: f32 inputs expected, got {x.dtype}, {codebook.dtype}")
+    if x.dim() != 2 or codebook.dim() != 2 or x.shape[1] != codebook.shape[1]:
+        raise ValueError(f"{name}: (N, D) and (K, D) expected, got "
+                         f"{tuple(x.shape)}, {tuple(codebook.shape)}")
+    n, d = x.shape
+    if d % 4 or d > 424 or n == 0:
+        raise ValueError(f"{name}: the kernel takes D % 4 == 0 and D <= 424, got D={d}")
+    return n, codebook.shape[0], d
+
+
 def nearest_codes(x, codebook, use_pallas=None):
     """Nearest codebook row per row of x: (N, D) f32, (K, D) f32 ->
     (idx (N,) int64, quantized (N, D)). `nearest_codes.launches` counts
     kernel launches."""
     if use_pallas is False or (x.device.type == "cpu" and codebook.device.type == "cpu"):
         return nearest_codes_plain(x, codebook)
-    if x.device != codebook.device or x.device.type != "cuda":
-        raise ValueError("nearest_codes: x and the codebook must be on one CUDA device")
-    if x.dtype != torch.float32 or codebook.dtype != torch.float32:
-        raise TypeError(f"nearest_codes: f32 inputs expected, got {x.dtype}, {codebook.dtype}")
-    if x.dim() != 2 or codebook.dim() != 2 or x.shape[1] != codebook.shape[1]:
-        raise ValueError(f"nearest_codes: (N, D) and (K, D) expected, got "
-                         f"{tuple(x.shape)}, {tuple(codebook.shape)}")
-    n, d = x.shape
-    k = codebook.shape[0]
-    if d % 4 or d > 424 or n == 0:
-        raise ValueError(f"nearest_codes: the kernel takes D % 4 == 0 and D <= 424, got D={d}")
+    n, k, d = _kernel_shapes("nearest_codes", x, codebook)
     x = x.contiguous()
     codebook = codebook.contiguous()
     cb_norm = (codebook * codebook).sum(dim=1)
@@ -64,10 +79,51 @@ def nearest_codes(x, codebook, use_pallas=None):
 nearest_codes.launches = 0
 
 
+def nearest_codes_with_stats_plain(x, codebook):
+    """Plain PyTorch version. x: (N, D), codebook: (K, D) -> (idx (N,) int64,
+    the codebook rows (N, D), embed_sum (K, D) = per-code sums of the rows of
+    x, cluster_size (K,) = per-code row counts as f32)."""
+    idx, xq = nearest_codes_plain(x, codebook)
+    k = codebook.shape[0]
+    embed_sum = torch.zeros_like(codebook).index_add_(0, idx, x)
+    cluster_size = torch.bincount(idx, minlength=k).to(x.dtype)
+    return idx, xq, embed_sum, cluster_size
+
+
+def nearest_codes_with_stats(x, codebook, use_pallas=None):
+    """`nearest_codes` plus the EMA statistics: (N, D) f32, (K, D) f32 ->
+    (idx (N,) int64, quantized (N, D), embed_sum (K, D), cluster_size (K,)).
+    On CUDA one call runs the search, the row gather and the segmented sum
+    (deterministic: no atomics) of `csrc/vq_nearest.cu`.
+    `nearest_codes_with_stats.launches` counts those calls."""
+    if use_pallas is False or (x.device.type == "cpu" and codebook.device.type == "cpu"):
+        return nearest_codes_with_stats_plain(x, codebook)
+    n, k, d = _kernel_shapes("nearest_codes_with_stats", x, codebook)
+    x = x.contiguous()
+    codebook = codebook.contiguous()
+    cb_norm = (codebook * codebook).sum(dim=1)
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    xq = torch.empty_like(x)
+    embed_sum = torch.empty_like(codebook)
+    cluster_size = torch.empty(k, dtype=torch.float32, device=x.device)
+    err = cuda_lib.lib().dqvq_vq_nearest_train(
+        x.data_ptr(), codebook.data_ptr(), cb_norm.data_ptr(), idx.data_ptr(), xq.data_ptr(),
+        embed_sum.data_ptr(), cluster_size.data_ptr(), n, k, d,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cuda_lib.check(err, "nearest_codes_with_stats")
+    nearest_codes_with_stats.launches += 1
+    return idx.long(), xq, embed_sum, cluster_size
+
+
+nearest_codes_with_stats.launches = 0
+
+
 class _Codebook(nn.Module):
     def __init__(self, rows: int, dim: int):
         super().__init__()
         self.register_buffer("weight", torch.zeros(rows, dim))
+        self.register_buffer("cluster_size_ema", torch.zeros(rows - 1))
+        self.register_buffer("embed_ema", torch.zeros(rows - 1, dim))
 
 
 class VectorQuantizeEMA(nn.Module):
@@ -75,41 +131,94 @@ class VectorQuantizeEMA(nn.Module):
                  commitment_beta=0.25, decay=0.99, restart_unused_codes=True,
                  channel_last=True, ema=True, eps=1e-5, use_pallas=None):
         super().__init__()
-        # EMA settings are kept for config compatibility; inference reads
-        # only the codebook
         self.codebook_size = codebook_size
         self.codebook_dim = codebook_dim
         self.commitment_beta = commitment_beta
+        self.decay = decay
+        self.restart_unused_codes = restart_unused_codes
+        self.ema = ema
+        self.eps = eps
         self.use_pallas = use_pallas
         self.codebook = _Codebook(codebook_size + 1, codebook_dim)
 
     @torch.no_grad()
     def init_codebook(self, generator: torch.Generator):
         """Reference init: uniform(-1/K, 1/K) for the K real codes; the
-        padding row K stays zero."""
+        padding row K stays zero; `embed_ema` starts as the codes and
+        `cluster_size_ema` at zero."""
         k = self.codebook_size
         w = self.codebook.weight
         w.uniform_(-1.0 / k, 1.0 / k, generator=generator)
         w[k].zero_()
+        self.codebook.embed_ema.copy_(w[:k])
+        self.codebook.cluster_size_ema.zero_()
 
-    def forward(self, x, codebook_mask=None, temp=0.0, train=False):
+    def forward(self, x, codebook_mask=None, temp=0.0, train=False, generator=None,
+                commit=True):
         """Quantize (B, H, W, D) NHWC features (or (B, N, D) with
         `accept_image_fmap=False`); `codebook_mask` weighs the commitment loss
-        per position. Returns (x_q, loss, (None, None, code)) as the
+        per position. With `train=True` (and `ema`) the search also returns
+        the cluster statistics and the EMA buffers are updated from them,
+        after this batch was quantized with the codebook from before the
+        update; `generator` draws the restart candidates; `commit=False`
+        skips the update. Returns (x_q, loss, (None, None, code)) as the
         reference does."""
-        if train:
-            raise NotImplementedError(
-                "the EMA codebook update comes with the stage-1 training slice (ROADMAP.md)")
         d = x.shape[-1]
-        idx, xq = nearest_codes(x.reshape(-1, d), self.codebook.weight[:-1], self.use_pallas)
+        flat = x.detach().reshape(-1, d)
+        codebook = self.codebook.weight[:-1]
+        if train and self.ema:
+            idx, xq, embed_sum, cluster_size = nearest_codes_with_stats(
+                flat, codebook, self.use_pallas)
+            if commit:
+                self._ema_update(flat, embed_sum, cluster_size, generator)
+        else:
+            idx, xq = nearest_codes(flat, codebook, self.use_pallas)
         xq = xq.reshape(x.shape)
         err = (xq - x) ** 2
         if codebook_mask is not None:
             err = err * codebook_mask.reshape(x.shape[:-1] + (1,)).to(x.dtype)
-        # the forward value of beta * |sg(x_q) - x|^2 + |x_q - sg(x)|^2
-        loss = self.commitment_beta * err.mean() + err.mean()
-        x_q = x + (xq - x)  # straight-through, forward value
+        # beta * |sg(x_q) - x|^2 + |x_q - sg(x)|^2: the codebook is a buffer,
+        # so the second term has a value and no gradient
+        loss = self.commitment_beta * err.mean() + err.detach().mean()
+        x_q = x + (xq - x).detach()  # straight-through
         return x_q, loss, (None, None, idx.reshape(x.shape[:-1]))
+
+    def _draw_restart(self, pool_rows: int, noise_shape, generator, device):
+        """(jitter in [0, 1) of `noise_shape`, or None; a permutation of
+        `pool_rows`) for the restart candidates, from `generator`."""
+        noise = (None if noise_shape is None
+                 else torch.rand(noise_shape, generator=generator, device=device))
+        return noise, torch.randperm(pool_rows, generator=generator, device=device)
+
+    @torch.no_grad()
+    def _ema_update(self, vectors, embed_sum, cluster_size, generator=None):
+        """Decay the cluster statistics towards this batch's, restart the
+        codes whose decayed count fell below 1 from randomly permuted input
+        rows (tiled and jittered when the batch has fewer rows than codes),
+        and refresh the K real codebook rows; the padding row is untouched."""
+        k, d, decay = self.codebook_size, self.codebook_dim, self.decay
+        cb = self.codebook
+        cluster_ema = cb.cluster_size_ema * decay + cluster_size * (1 - decay)
+        embed_ema = cb.embed_ema * decay + embed_sum * (1 - decay)
+        if self.restart_unused_codes:
+            n_vectors = vectors.shape[0]
+            pool, noise_shape = vectors, None
+            if n_vectors < k:
+                pool = vectors.repeat((k + n_vectors - 1) // n_vectors, 1)
+                noise_shape = pool.shape
+            noise, perm = self._draw_restart(pool.shape[0], noise_shape, generator,
+                                             vectors.device)
+            if noise is not None:
+                pool = pool + noise * (0.01 / d ** 0.5)
+            candidates = pool[perm[:k]]
+            usage = (cluster_ema >= 1.0).to(embed_ema.dtype)
+            embed_ema = embed_ema * usage[:, None] + candidates * (1.0 - usage[:, None])
+            cluster_ema = cluster_ema * usage + (1.0 - usage)
+        cb.cluster_size_ema.copy_(cluster_ema)
+        cb.embed_ema.copy_(embed_ema)
+        n = cluster_ema.sum()
+        normalized = n * (cluster_ema + self.eps) / (n + k * self.eps)
+        cb.weight[:k].copy_(embed_ema / normalized[:, None])
 
     def get_codebook_entry(self, indices):
         """Embed code indices (the padding code K included): (B, ...) -> (B, ..., D)."""

@@ -2,9 +2,11 @@
 state_dicts.
 
 The port's modules carry the reference torch parameter names, so these are
-the inverses of the JAX package's `convert_stackgpt_state_dict` and of its
-`export_dqvae_state_dict` (`utils/torch_ckpt.py`) for the dual-grain DQ-VAE,
-written anew here: flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and
+the inverses of the JAX package's `convert_stackgpt_state_dict`,
+`convert_dqvae_state_dict`, `convert_discriminator_state_dict` and
+`convert_lpips_weights` (`utils/torch_ckpt.py`) for the dual-grain DQ-VAE
+and its GAN loss, and `stage1_state_from_flax` for a whole stage-1 training
+state, written anew here: flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and
 dense kernels (in, out) -> (out, in); `scale` -> `weight`; `embedding` ->
 `weight`; flax's `GroupNorm_0` wrapper level disappears.
 """
@@ -121,9 +123,21 @@ def _encoder_key(mods, tleaf, path) -> str:
 def dqvae_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     """DQ-VAE flax variables `{"params", "ema"}` -> the port's
     DualGrainVQModel state_dict (`encoder.*`, `quant_conv.*`, `decoder.*`,
-    `post_quant_conv.*`, `quantize.codebook.weight`)."""
+    `post_quant_conv.*`, `quantize.codebook.{weight,cluster_size_ema,embed_ema}`)."""
+    sd = _dqvae_params_from_flax(variables.get("params", {}))
+    ema = variables.get("ema", {}).get("quantize", {})
+    for name, key in (("codebook", "weight"), ("cluster_size_ema", "cluster_size_ema"),
+                      ("embed_ema", "embed_ema")):
+        if name in ema:
+            sd[f"quantize.codebook.{key}"] = _tensor(ema[name])
+    return sd
+
+
+def _dqvae_params_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The DQ-VAE's flax `params` tree (or a tree of that shape, such as
+    Adam moments) keyed by the port's parameter names."""
     sd = {}
-    for path, v in _flatten(variables.get("params", {})).items():
+    for path, v in _flatten(params).items():
         mods = [m for m in path[:-1] if m != "GroupNorm_0"]
         tleaf, tv = _leaf(path[-1], v)
         root = mods[0]
@@ -154,7 +168,102 @@ def dqvae_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unmapped DQ-VAE param {'/'.join(path)}")
         sd[key] = _tensor(tv)
-    codebook = variables.get("ema", {}).get("quantize", {}).get("codebook")
-    if codebook is not None:
-        sd["quantize.codebook.weight"] = _tensor(codebook)
     return sd
+
+
+def _disc_index(name: str) -> int:
+    """JAX discriminator module name -> its index in the reference's `main`
+    Sequential: conv, lrelu, then (conv, norm, lrelu) per layer, then conv."""
+    kind, n = name.rsplit("_", 1)
+    if name == "conv_0":
+        return 0
+    if kind == "conv":
+        return 2 + 3 * (int(n) - 1)
+    return 3 + 3 * (int(n) - 1)
+
+
+def discriminator_params_from_flax(params) -> Dict[str, torch.Tensor]:
+    """NLayerDiscriminator flax params (or moments of that shape) ->
+    `main.{i}.{weight,bias}`."""
+    n_layers = sum(1 for k in params if k.startswith("norm_"))
+    sd = {}
+    for path, v in _flatten(params).items():
+        tleaf, tv = _leaf(path[-1], v)
+        index = 2 + 3 * n_layers if path[0] == "conv_out" else _disc_index(path[0])
+        sd[f"main.{index}.{tleaf}"] = _tensor(tv)
+    return sd
+
+
+def discriminator_state_dict_from_flax(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """Parameters plus the BatchNorm `batch_stats` (`mean`, `var`) as
+    `running_mean`, `running_var` (and a zero `num_batches_tracked`)."""
+    sd = discriminator_params_from_flax(params)
+    for name, stats in batch_stats.items():
+        prefix = f"main.{_disc_index(name)}"
+        sd[f"{prefix}.running_mean"] = _tensor(stats["mean"])
+        sd[f"{prefix}.running_var"] = _tensor(stats["var"])
+        sd[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return sd
+
+
+# JAX LPIPS conv_i -> torchvision VGG16 `features` index
+_VGG_FEATURE_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_VGG_SLICE_ENDS = (4, 9, 16, 23, 30)
+
+
+def lpips_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """LPIPS flax params (`net.conv_i`, `lin{i}`) -> the port's LPIPS
+    state_dict without its two constant `scaling_layer` buffers."""
+    sd = {}
+    for path, v in _flatten(params).items():
+        tleaf, tv = _leaf(path[-1], v)
+        if path[0] == "net":
+            fi = _VGG_FEATURE_INDEX[int(path[1].split("_")[1])]
+            s = next(i for i, end in enumerate(_VGG_SLICE_ENDS) if fi < end) + 1
+            sd[f"net.slice{s}.{fi}.{tleaf}"] = _tensor(tv)
+        else:
+            sd[f"{path[0]}.model.1.{tleaf}"] = _tensor(tv)
+    return sd
+
+
+def adam_state_from_optax(opt_state, convert):
+    """The `optax.adam` state of the JAX stage-1 trainer (the chain's state,
+    or its `ScaleByAdamState` alone) -> `(count, m, v)` with the moments
+    keyed by the port's names through `convert` (`_dqvae_params_from_flax`
+    or `discriminator_params_from_flax`). Read by attribute, so optax is not
+    imported."""
+    adam = opt_state if hasattr(opt_state, "mu") else opt_state[0]
+    return int(adam.count), convert(adam.mu), convert(adam.nu)
+
+
+def stage1_state_from_flax(state) -> dict:
+    """A JAX `Stage1State` (read by attribute: `ae_params`, `ema`,
+    `loss_params`, `loss_stats`, `ae_opt`, `disc_opt`, `step`, `epoch`) ->
+    `{"state_dict", "ae_opt", "disc_opt", "step", "epoch"}`: the state_dict
+    of a port `DualGrainVQModel` built with the same GAN lossconfig (loads
+    with `strict=True` once the model's own constant LPIPS scaling buffers are
+    added, as `load_stage1_state` does) and the two `(count, m, v)` Adam
+    states for `Stage1Trainer.load_optimizer_state`."""
+    sd = dqvae_state_dict_from_flax({"params": state.ae_params, "ema": state.ema})
+    loss_params = state.loss_params
+    for k, v in lpips_state_dict_from_flax(loss_params["perceptual_loss"]).items():
+        sd[f"loss.perceptual_loss.{k}"] = v
+    stats = (state.loss_stats or {}).get("discriminator", {})
+    for k, v in discriminator_state_dict_from_flax(loss_params["discriminator"], stats).items():
+        sd[f"loss.discriminator.{k}"] = v
+    return {"state_dict": sd,
+            "ae_opt": adam_state_from_optax(state.ae_opt, _dqvae_params_from_flax),
+            "disc_opt": adam_state_from_optax(state.disc_opt, discriminator_params_from_flax),
+            "step": int(state.step), "epoch": int(state.epoch)}
+
+
+def load_stage1_state(trainer, converted: dict):
+    """Put a `stage1_state_from_flax` result into a port `Stage1Trainer`."""
+    model = trainer.model
+    sd = dict(converted["state_dict"])
+    for k, v in model.state_dict().items():
+        if k.startswith("loss.perceptual_loss.scaling_layer."):
+            sd[k] = v
+    model.load_state_dict(sd, strict=True)
+    trainer.load_optimizer_state(converted["ae_opt"], converted["disc_opt"])
+    trainer.step, trainer.epoch = converted["step"], converted["epoch"]

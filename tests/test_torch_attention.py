@@ -104,6 +104,33 @@ def test_backward_plain_equals_autograd_of_plain_forward():
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
+def test_attn_block_is_differentiable_and_matches_autograd_of_the_plain_forward():
+    """The conv AttnBlock goes through `fused_causal_attention` (non-causal,
+    one head of all channels): on the CPU its plain backward against
+    autograd through the plain forward."""
+    from dynamicvectorquantization_torch.nn import blocks
+
+    torch.manual_seed(0)
+    block = blocks.AttnBlock(32)
+    x = torch.from_numpy(np.random.default_rng(12).normal(size=(2, 32, 6, 6)).astype(np.float32))
+    x.requires_grad_()
+    params = list(block.parameters())
+    grads = torch.autograd.grad(block(x).square().sum(), [x, *params])
+
+    def tokens(z):
+        return z.flatten(2).transpose(1, 2).contiguous()
+
+    h = block.norm(x)
+    y = fused_attention_forward_plain(tokens(block.q(h)), tokens(block.k(h)), tokens(block.v(h)),
+                                      1, 32 ** -0.5, False)
+    out = x + block.proj_out(y.transpose(1, 2).reshape(2, 32, 6, 6))
+    ref = torch.autograd.grad(out.square().sum(), [x, *params])
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    with torch.no_grad():
+        assert not block(x).requires_grad
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,n_head,causal", [
@@ -133,6 +160,10 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, shape, n_head, causal):
     ((2, 300, 64), 1, False),  # hd = 64, one non-causal head
     ((1, 128, 64), 4, True),  # hd = 16
     ((3, 70, 64), 2, True),  # hd = 32
+    ((2, 1024, 256), 1, False),  # hd = 256: the DQ-VAE's 32x32 AttnBlocks (32-row tiles)
+    ((2, 256, 512), 1, False),  # hd = 512: the encoder's 16x16 AttnBlocks (16-row tiles)
+    ((2, 200, 512), 2, True),  # hd = 256, causal, ragged last tiles
+    ((1, 77, 512), 1, True),  # hd = 512, causal, ragged last tiles
 ])
 def test_cuda_backward_kernel_matches_plain(cuda_device, dtype, shape, n_head, causal):
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(8, *shape))
@@ -165,8 +196,16 @@ def test_cuda_autograd_function_runs_both_kernels(cuda_device):
     ref = torch.autograd.grad(fused_attention_forward_plain(*leaves, 2, causal=True), leaves, dy)
     for a, b in zip(grads, ref):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=0)
-    with pytest.raises(ValueError):  # hd = 256 has no backward kernel
-        wide = [torch.zeros((1, 64, 256), device=cuda_device, requires_grad=True) for _ in range(3)]
+    # no gradient asked for: the forward alone, no log-sum-exp kept
+    before = fused_attention_forward.launches, fused_attention_backward.launches
+    with torch.no_grad():
+        y = fused_causal_attention(*leaves, 2)
+    assert not y.requires_grad
+    assert (fused_attention_forward.launches, fused_attention_backward.launches) == (
+        before[0] + 1, before[1])
+    with pytest.raises(ValueError):  # hd = 1024 has no kernel
+        wide = [torch.zeros((1, 64, 1024), device=cuda_device, requires_grad=True)
+                for _ in range(3)]
         fused_causal_attention(*wide, 1).sum().backward()
 
 

@@ -179,6 +179,14 @@ def test_encoder_gumbel_gate_waits_for_training_slice():
     enc = DualGrainEncoder(**dict(cfg["params"], update_router=True))
     with pytest.raises(NotImplementedError):
         enc(torch.zeros(1, 3, 64, 64), torch.zeros(1, 4, 4), train=True)
+    # a router that takes no gradient trains; ResnetBlock dropout in training does not
+    enc = DualGrainEncoder(**dict(cfg["params"], update_router=False))
+    x = torch.zeros(1, 3, 64, 64, requires_grad=True)
+    out = enc(x, torch.zeros(1, 4, 4), train=True)
+    assert out["h_dual"].requires_grad
+    with pytest.raises(NotImplementedError):
+        DualGrainEncoder(**dict(cfg["params"], update_router=False, dropout=0.1))(
+            x, torch.zeros(1, 4, 4), train=True)
 
 
 def test_dqvae_encode_and_forward(dqvae_pair):
@@ -189,8 +197,9 @@ def test_dqvae_encode_and_forward(dqvae_pair):
     x = _images(7)
     quant_r, loss_r, info_r, grain_r, gate_r, ent_r = jm.encode(jvars, jnp.asarray(x))
     dec_r, diff_r, _, _, _ = jm.forward(jvars, jnp.asarray(x))
-    quant, loss, info, grain, gate, ent = tm.encode(torch.from_numpy(x))
-    dec, diff, grain2, _, _ = tm(torch.from_numpy(x))
+    with torch.no_grad():
+        quant, loss, info, grain, gate, ent = tm.encode(torch.from_numpy(x))
+        dec, diff, grain2, _, _ = tm(torch.from_numpy(x))
     np.testing.assert_array_equal(info[2].numpy(), np.asarray(info_r[2]))
     np.testing.assert_array_equal(grain.numpy(), np.asarray(grain_r))
     np.testing.assert_array_equal(grain2.numpy(), np.asarray(grain_r))
@@ -278,6 +287,51 @@ def test_encode_to_z_matches_jax():
     img = model.decode_to_img(streams["coarse_content"], streams["fine_content"],
                               streams["coarse_position"], streams["fine_position"])
     assert img.shape == (3, 64, 64, 3) and bool(torch.isfinite(img).all())
+
+
+# -------------------------------------------------- Downsample's gradient
+def _downsample_case(shape, k, device="cpu"):
+    r = np.random.default_rng(12)
+    c = shape[1]
+    x = torch.from_numpy(r.normal(size=shape).astype(np.float32))
+    w = torch.from_numpy(r.uniform(-1, 1, size=(k, c, 3, 3)).astype(np.float32) / (9 * c) ** 0.5)
+    b = torch.from_numpy(r.uniform(-0.1, 0.1, size=(k,)).astype(np.float32))
+    ho, wo = (shape[2] - 2) // 2 + 1, (shape[3] - 2) // 2 + 1
+    dy = torch.from_numpy(r.normal(size=(shape[0], k, ho, wo)).astype(np.float32))
+    return [t.to(device).requires_grad_() for t in (x, w, b)], dy.to(device)
+
+
+@pytest.mark.parametrize("shape,k", [((2, 6, 9, 12), 5), ((1, 4, 8, 8), 4)])
+def test_downsample_function_backward_equals_autograd_of_the_plain_version(monkeypatch, shape, k):
+    """The autograd Function's backward (the library's conv gradients on the
+    padded input) with its CUDA forward replaced by the plain version."""
+    from dynamicvectorquantization_torch.ops import downsample
+
+    monkeypatch.setattr(downsample, "_launch", strided_conv3x3_down_plain)
+    leaves, dy = _downsample_case(shape, k)
+    out = downsample._StridedConvDown.apply(*leaves)
+    ref_out = strided_conv3x3_down_plain(*leaves)
+    torch.testing.assert_close(out, ref_out, atol=0, rtol=0)
+    grads = torch.autograd.grad(out, leaves, dy)
+    ref = torch.autograd.grad(ref_out, leaves, dy)
+    for a, b in zip(grads, ref):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+    # only the gradients asked for
+    (dx,) = torch.autograd.grad(downsample._StridedConvDown.apply(*leaves), leaves[:1], dy)
+    torch.testing.assert_close(dx, ref[0], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((2, 16, 33, 20), 24), ((2, 128, 64, 64), 128)])
+def test_cuda_downsample_gradient_matches_plain(cuda_device, shape, k):
+    leaves, dy = _downsample_case(shape, k, cuda_device)
+    before = strided_conv3x3_down.launches
+    grads = torch.autograd.grad(strided_conv3x3_down(*leaves), leaves, dy)
+    assert strided_conv3x3_down.launches == before + 1
+    ref = torch.autograd.grad(strided_conv3x3_down_plain(*leaves), leaves, dy)
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)  # f32 sums of up to 2048 terms
 
 
 # -------------------------------------------------------------------- cuda

@@ -92,8 +92,11 @@ def test_quantizer_forward_matches_jax(with_mask):
     np.testing.assert_array_equal(code.numpy(), np.asarray(code_ref))
     np.testing.assert_allclose(xq.numpy(), np.asarray(xq_ref), atol=1e-5, rtol=0)
     np.testing.assert_allclose(loss.item(), float(loss_ref), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError):
-        tvq(torch.from_numpy(x), tmask, train=True)
+    # the training search quantizes with the codebook from before its update
+    xq_t, loss_t, (_, _, code_t) = tvq(torch.from_numpy(x), tmask, train=True, commit=False)
+    np.testing.assert_array_equal(code_t.numpy(), code.numpy())
+    np.testing.assert_array_equal(xq_t.numpy(), xq.numpy())
+    np.testing.assert_array_equal(tvq.codebook.weight.numpy(), cb)
 
 
 @pytest.mark.cuda

@@ -89,10 +89,10 @@ def test_dqvae_decode_half_roundtrip_through_jax_converter():
 
 def test_load_reference_style_checkpoint(tmp_path):
     """A Lightning-style `{"state_dict": ...}` file with the reference's extra
-    keys (EMA statistics, loss) loads; a file that lacks a key the model owns
+    keys (the GAN loss) loads; a file that lacks a key the model owns
     fails."""
     sd = _port_model().state_dict()
-    extra = {"first_stage_model.quantize.codebook.cluster_size_ema": torch.zeros(3),
+    extra = {"first_stage_model.loss.discriminator.main.0.bias": torch.zeros(3),
              "first_stage_model.loss.logvar": torch.zeros(1)}
     path = str(tmp_path / "ref.ckpt")
     torch.save({"state_dict": {**sd, **extra}, "epoch": 3}, path)
@@ -103,6 +103,45 @@ def test_load_reference_style_checkpoint(tmp_path):
     torch.save(sd, path)
     with pytest.raises(KeyError):
         load_model_and_variables(TINY, model_path=path, device="cpu")
+
+
+def test_reference_named_ema_buffers_load_and_round_trip():
+    """The quantizer's EMA statistics sit beside the codebook under the
+    reference's names, so a reference-named DQ-VAE state_dict (the JAX
+    package's export) loads them, and they come back through its converter."""
+    import jax
+
+    from dynamicvectorquantization_torch.utils.model_loading import load_into
+    from dynamicvectorquantization_tpu.utils.instantiate import instantiate_from_config as jinst
+    from dynamicvectorquantization_tpu.utils.torch_ckpt import (
+        convert_dqvae_state_dict,
+        export_dqvae_state_dict,
+    )
+
+    cfg = load_config([TINY])["model"]["params"]["first_stage_config"]
+    jvars = jax.device_get(jinst(cfg).init(jax.random.PRNGKey(0)))
+    r = np.random.default_rng(0)
+    ema = dict(jvars["ema"]["quantize"])
+    ema["cluster_size_ema"] = r.uniform(0, 3, size=ema["cluster_size_ema"].shape).astype(np.float32)
+    ema["embed_ema"] = r.normal(size=ema["embed_ema"].shape).astype(np.float32)
+    jvars = {"params": jvars["params"], "ema": {"quantize": ema}}
+    ref = export_dqvae_state_dict(jvars)
+    names = {f"quantize.codebook.{k}" for k in ("weight", "cluster_size_ema", "embed_ema")}
+    assert names <= set(ref)
+
+    vq = instantiate_from_config(cfg)
+    assert names <= set(vq.state_dict())
+    load_into(vq, {k: torch.from_numpy(np.array(v)) for k, v in ref.items()})
+    np.testing.assert_array_equal(vq.quantize.codebook.cluster_size_ema.numpy(),
+                                  ema["cluster_size_ema"])
+    np.testing.assert_array_equal(vq.quantize.codebook.embed_ema.numpy(), ema["embed_ema"])
+    assert set(vq.state_dict()) == set(ref) == set(dqvae_state_dict_from_flax(jvars))
+    back = convert_dqvae_state_dict({k: v.numpy() for k, v in vq.state_dict().items()})
+    for k, v in ema.items():
+        np.testing.assert_array_equal(np.asarray(back["ema"]["quantize"][k]), np.asarray(v))
+    with pytest.raises(KeyError):  # a file without the EMA statistics lacks keys the model owns
+        load_into(vq, {k: torch.from_numpy(np.array(v)) for k, v in ref.items()
+                       if not k.endswith("_ema")})
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(_REPO, "configs/*/*.yml"))))
