@@ -27,13 +27,15 @@ Phases, each printed as one JSON line (any failure exits non-zero):
   5. serve     BatchingSampler (p6c18, int8 caches, max_batch 8) answers 3
                concurrent requests of 1, 2 and 4 images; launch counters are
                zeroed just before and read just after
-  6. train     full-width, full-depth p6c18 StackGPT (the shipped config with
-               attn_pdrop 0 and the training campaign's stream caps, T = 805),
+  6. train     full-width, full-depth p6c18 StackGPT (the shipped config, its
+               attn_pdrop 0.1 included, with the training campaign's stream
+               caps, T = 805),
                bf16 over f32 masters, batch 8: 16 seeded images encoded by
                `Stage2Trainer.encode_dataset`; one `train_step` through the
                kernels against one through the plain versions from the same
-               state (losses, gradients, parameters); then timed steps with
-               the shipped embedding / residual dropout, launch counters per
+               state and the same dropout masks (losses, gradients,
+               parameters); then timed steps with all three shipped dropouts
+               (and, for comparison, with attn_pdrop 0), launch counters per
                step, a torch.profiler trace of one step, peak memory
   7. train1    full-width, full-depth DQ-VAE + GAN of the shipped
                `dqvae-entropy-dual-r05_imagenet.yml` (f32, TF32 off, seeded random
@@ -43,8 +45,19 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                the same state and generator seed (logs, EMA codebook, watched
                gradients); then timed steps, launch counters per step, a
                torch.profiler trace of one step, peak memory, one `eval_step`
-  8. kernels   one line listing every ported kernel, its launches on the
-               encode, serving and training runs and its measured numbers
+  8. fit       the port's training command line (`train/cli.py` `main`), called
+               in-process on the shipped p6c18 config at full width and depth
+               with only data and run-length overrides (synthetic 256^2 images,
+               batch 8, 2 epochs of 4 steps, the train phase's stream caps): one
+               run of both epochs with an image grid, then epoch 1 alone and a
+               `--resume` for epoch 2; metric rows, falling loss, checkpoint
+               files, the resumed run equal to the uninterrupted one bit for bit
+               (final val_loss, a hash of the f32 masters), launch counters,
+               seconds per epoch by `loop_buckets.json`
+  9. fit1      the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
+               8, two epochs of one step, resume)
+ 10. kernels   one line listing every ported kernel, its launches on the
+               encode, serving, training and fit runs and its measured numbers
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import contextlib
@@ -65,6 +78,8 @@ L2_BYTES = 50 * 2 ** 20
 TRAIN_CAPS = {"coarse_max_len": 160, "fine_max_len": 644}
 TRAIN_T = 160 + 1 + 644 + 1 - 1
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp of the reference value
+DROPOUT_RATES = (0.1, 0.5)  # checked against the plain versions; timed at the first
+DROPOUT_SEED = 0x5EED5EED5EED
 
 
 def emit(obj):
@@ -163,7 +178,7 @@ def check_fused_attention(torch, dev):
     from dynamicvectorquantization_torch.ops.attention import (
         fused_attention_forward, fused_attention_forward_plain)
 
-    cases = []
+    cases, dropout_cases = [], []
     # DQ-VAE AttnBlock at 32x32 (decoder and encoder; f32, one head), a
     # StackGPT-like causal bf16 shape (808 tokens, 8 heads), and the encoder's
     # AttnBlock at 16x16 (one head of 512 channels)
@@ -178,9 +193,10 @@ def check_fused_attention(torch, dev):
         sets = [tuple(torch.randn((b, t, d), generator=g, device=dev).to(dtype)
                       for _ in range(3)) for _ in range(n_sets(4 * b * t * d * elem))]
 
+        def heads(z):
+            return z.view(b, t, n_head, hd).transpose(1, 2)
+
         def lib(q, k, v):
-            def heads(z):
-                return z.view(b, t, n_head, hd).transpose(1, 2)
             return F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
                                                   is_causal=causal, scale=scale)
 
@@ -202,7 +218,96 @@ def check_fused_attention(torch, dev):
         emit(case)
         require(err <= tol, f"fused_attention_forward disagrees at {case['shape']}: {err}")
         cases.append(case)
-    return cases
+
+        # the same shape with dropout on the probabilities: the same tolerance;
+        # times at rate 0.1, the library call being SDPA with dropout_p
+        q, k, v = sets[0]
+        drop = dict(case, dropout_err={})
+        for rate in DROPOUT_RATES:
+            out = fused_attention_forward(q, k, v, n_head, scale, causal, rate, seed=DROPOUT_SEED)
+            ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, False, rate,
+                                                DROPOUT_SEED)
+            torch.cuda.synchronize()
+            drop["dropout_err"][str(rate)] = (out.float() - ref.float()).abs().max().item()
+            del out, ref
+        rate = DROPOUT_RATES[0]
+        drop.update(rate=rate, max_abs_err=max(drop["dropout_err"].values()))
+        drop["kernel_ms"], drop["kernel_wall_ms"] = time_ms(
+            torch, lambda *a: fused_attention_forward(*a, n_head, scale, causal, rate,
+                                                      seed=DROPOUT_SEED), sets)
+        drop["plain_ms"], drop["plain_wall_ms"] = time_ms(
+            torch, lambda *a: fused_attention_forward_plain(*a, n_head, scale, causal, False, rate,
+                                                            DROPOUT_SEED), sets, iters=5)
+        drop["library_ms"], drop["library_wall_ms"] = time_ms(
+            torch, lambda q, k, v: F.scaled_dot_product_attention(
+                heads(q), heads(k), heads(v), dropout_p=rate, is_causal=causal, scale=scale), sets)
+        emit(drop)
+        require(drop["max_abs_err"] <= tol,
+                f"fused_attention_forward with dropout disagrees at {case['shape']}: "
+                f"{drop['dropout_err']}")
+        dropout_cases.append(drop)
+    return cases, dropout_cases
+
+
+def check_attention_dropout(torch, dev):
+    """What the dropout masks are, apart from agreeing with the plain version:
+    per tile family of the forward and backward kernels (hd 64 / 128: 64-row
+    tiles; hd 256: 64- and 32-row; hd 512: 32- and 16-row) the mask recovered
+    from the kernel equals `dropout_keep_mask` bit for bit (uniform
+    probabilities, V rows that are unit vectors: output column c of row r is
+    nonzero iff probability (r, c) was kept; dV likewise for the backward's
+    D), the kept share lies within 3 sigma of 1 - rate, one seed twice gives
+    identical outputs, two seeds differ, and rate 0 with a seed equals the
+    call without one."""
+    from dynamicvectorquantization_torch.ops.attention import (
+        dropout_keep_mask, fused_attention_backward, fused_attention_forward)
+
+    b, n_head = 2, 2
+    families = []
+    for hd, t in ((64, 300), (128, 805), (256, 300), (512, 300)):
+        for rate in DROPOUT_RATES:
+            seed = DROPOUT_SEED + hd
+            mask = dropout_keep_mask(seed, b, n_head, t, rate, dev)
+            q = torch.zeros((b, t, n_head * hd), device=dev)
+            fwd_equal = bwd_equal = True
+            for c0 in range(0, t, hd):  # hd columns of the mask per probe
+                n = min(hd, t - c0)
+                v = torch.zeros((b, t, n_head, hd), device=dev)
+                v[:, c0 + torch.arange(n), :, torch.arange(n)] = 1.0
+                v = v.reshape(b, t, -1).contiguous()
+                y, lse = fused_attention_forward(q, q, v, n_head, None, False, rate, True, seed)
+                got = y.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+                fwd_equal &= bool(torch.equal(got, mask[..., c0:c0 + n]))
+                # dV[key c] = sum_r D[r, c] dY[r]: with dY = V's unit vectors of rows
+                # c0.., dV[c, j] > 0 iff D[c0 + j, c] > 0, the mask transposed
+                _, _, dv = fused_attention_backward(q, q, v, y, lse, v, n_head, None, False,
+                                                    rate, seed)
+                got = dv.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+                bwd_equal &= bool(torch.equal(got, mask[..., c0:c0 + n, :].transpose(-1, -2)))
+            kept = mask.float().mean().item()
+            sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
+            families.append(dict(hd=hd, t=t, rate=rate, forward_mask_equal=fwd_equal,
+                                 backward_mask_equal=bwd_equal, kept_share=kept,
+                                 kept_share_sigmas=abs(kept - (1 - rate)) / sigma))
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v = (torch.randn((2, TRAIN_T, 1024), generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    def run(seed, rate=0.1):
+        return fused_attention_forward(q, k, v, 8, None, True, rate, seed=seed)
+
+    res = dict(phase="kernels", kernel="attention_dropout_mask", families=families,
+               same_seed_bit_identical=bool(torch.equal(run(5), run(5))),
+               seeds_differ=not torch.equal(run(5), run(6)),
+               rate0_ignores_seed=bool(torch.equal(run(5, 0.0), fused_attention_forward(
+                   q, k, v, 8, None, True))))
+    emit(res)
+    require(all(f["forward_mask_equal"] and f["backward_mask_equal"] for f in families),
+            f"a kernel's dropout mask differs from dropout_keep_mask: {families}")
+    require(all(f["kept_share_sigmas"] <= 3.0 for f in families),
+            f"kept share off 1 - rate by more than 3 sigma: {families}")
+    require(res["same_seed_bit_identical"] and res["seeds_differ"] and res["rate0_ignores_seed"],
+            f"dropout seeds: {res}")
+    return res
 
 
 def near_tie_bound(x_norm, c_norm_a, c_norm_b, d):
@@ -500,7 +605,7 @@ def check_attention_backward(torch, dev):
         fused_attention_backward, fused_attention_backward_plain, fused_attention_forward,
         fused_attention_forward_plain)
 
-    fwd_cases, bwd_cases = [], []
+    fwd_cases, bwd_cases, drop_fwd_cases, drop_bwd_cases = [], [], [], []
     # the stage-2 training shape in bf16; the same in f32 at batch 2; one non-causal head,
     # ragged tiles; the DQ-VAE's conv AttnBlocks in stage-1 training: one non-causal f32
     # head of 256 channels over 32 x 32 positions, and of 512 over 16 x 16
@@ -577,7 +682,7 @@ def check_attention_backward(torch, dev):
             torch, lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_,
                                                                retain_graph=True),
             lib_sets, iters=10)
-        del lib_sets, sets
+        del lib_sets
         emit(bwd)
         require(ok_y and ok_lse, f"fused_attention_forward with lse disagrees at "
                                  f"{fwd['shape']}: y {err_y} lse {err_lse}")
@@ -585,7 +690,77 @@ def check_attention_backward(torch, dev):
         require(reproducible, "fused_attention_backward is not bit-reproducible")
         fwd_cases.append(fwd)
         bwd_cases.append(bwd)
-    return fwd_cases, bwd_cases
+
+        # the same shape with dropout: forward (with lse) and backward against the plain
+        # versions at the same tolerances, the backward twice; times at rate 0.1 beside
+        # SDPA's with dropout_p (forward, and backward through autograd)
+        dfwd, dbwd = dict(fwd, dropout_err={}), dict(bwd, dropout_err={})
+        ok_all, repro_all = True, True
+        for rate in DROPOUT_RATES:
+            yd, lsed = fused_attention_forward(q, k, v, n_head, scale, causal, rate, True,
+                                               DROPOUT_SEED)
+            yd_ref, lsed_ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, True,
+                                                             rate, DROPOUT_SEED)
+            out = fused_attention_backward(q, k, v, yd, lsed, dy, n_head, scale, causal, rate,
+                                           DROPOUT_SEED)
+            again = fused_attention_backward(q, k, v, yd, lsed, dy, n_head, scale, causal, rate,
+                                             DROPOUT_SEED)
+            ref = fused_attention_backward_plain(q, k, v, yd_ref, lsed_ref, dy, n_head, scale,
+                                                 causal, rate, DROPOUT_SEED)
+            torch.cuda.synchronize()
+            e_y, o_y = close(yd, yd_ref, atol, rtol)
+            e_l, o_l = close(lsed, lsed_ref, 1e-4)
+            e_g, o_g = zip(*(close(o, r, atol, rtol) for o, r in zip(out, ref)))
+            ok_all &= o_y and o_l and all(o_g) and bool(torch.equal(lsed, lse))
+            repro_all &= all(torch.equal(a_, b_) for a_, b_ in zip(out, again))
+            dfwd["dropout_err"][str(rate)] = max(e_y, e_l)
+            dbwd["dropout_err"][str(rate)] = max(e_g)
+            del yd, lsed, yd_ref, lsed_ref, out, again, ref
+        rate = DROPOUT_RATES[0]
+        dsets = []
+        for q_, k_, v_, _, _, dy_ in sets:
+            y_, lse_ = fused_attention_forward(q_, k_, v_, n_head, scale, causal, rate, True,
+                                               DROPOUT_SEED)
+            dsets.append((q_, k_, v_, y_, lse_, dy_))
+        del sets
+        dfwd.update(rate=rate, max_abs_err=max(dfwd["dropout_err"].values()))
+        dbwd.update(rate=rate, max_abs_err=max(dbwd["dropout_err"].values()),
+                    bit_reproducible=repro_all)
+        dfwd["kernel_ms"], dfwd["kernel_wall_ms"] = time_ms(
+            torch, lambda q_, k_, v_, *_: fused_attention_forward(
+                q_, k_, v_, n_head, scale, causal, rate, True, DROPOUT_SEED), dsets)
+        dfwd["plain_ms"], dfwd["plain_wall_ms"] = time_ms(
+            torch, lambda q_, k_, v_, *_: fused_attention_forward_plain(
+                q_, k_, v_, n_head, scale, causal, True, rate, DROPOUT_SEED), dsets, iters=5)
+        dfwd["library_ms"], dfwd["library_wall_ms"] = time_ms(
+            torch, lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
+                heads(q_), heads(k_), heads(v_), dropout_p=rate, is_causal=causal, scale=scale),
+            dsets)
+        dbwd["kernel_ms"], dbwd["kernel_wall_ms"] = time_ms(
+            torch, lambda *a: fused_attention_backward(*a, n_head, scale, causal, rate,
+                                                       DROPOUT_SEED), dsets, iters=10)
+        dbwd["plain_ms"], dbwd["plain_wall_ms"] = time_ms(
+            torch, lambda *a: fused_attention_backward_plain(*a, n_head, scale, causal, rate,
+                                                             DROPOUT_SEED), dsets, iters=5)
+        lib_sets = []
+        for q_, k_, v_, _, _, dy_ in dsets:
+            leaves = tuple(heads(z).detach().requires_grad_() for z in (q_, k_, v_))
+            lib_sets.append((F.scaled_dot_product_attention(
+                *leaves, dropout_p=rate, is_causal=causal, scale=scale), leaves, heads(dy_)))
+        dbwd["library_ms"], dbwd["library_wall_ms"] = time_ms(
+            torch, lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_,
+                                                               retain_graph=True),
+            lib_sets, iters=10)
+        del lib_sets, dsets
+        emit(dfwd)
+        emit(dbwd)
+        require(ok_all, f"attention with dropout disagrees with its plain version at "
+                        f"{bwd['shape']} {dname}: forward {dfwd['dropout_err']} backward "
+                        f"{dbwd['dropout_err']}")
+        require(repro_all, "fused_attention_backward with dropout is not bit-reproducible")
+        drop_fwd_cases.append(dfwd)
+        drop_bwd_cases.append(dbwd)
+    return fwd_cases, bwd_cases, drop_fwd_cases, drop_bwd_cases
 
 
 def check_fused_adamw(torch, dev):
@@ -748,13 +923,24 @@ def wrappers():
             "strided_conv3x3_down": strided_conv3x3_down}
 
 
+DROPOUT_ROWS = {"fused_attention_forward": "fused_attention_forward_dropout",
+                "fused_attention_backward": "fused_attention_backward_dropout"}
+
+
 def reset_launches():
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "dropout_launches"):
+            fn.dropout_launches = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Launches per wrapper since `reset_launches`; the attention wrappers'
+    launches that drew a dropout mask are also listed on their own."""
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    for name, row in DROPOUT_ROWS.items():
+        counts[row] = wrappers()[name].dropout_launches
+    return counts
 
 
 @contextlib.contextmanager
@@ -885,8 +1071,8 @@ def plain_train_path():
 
     saved = (norm.fused_layernorm, tfm.fused_causal_attention, stage2.fused_adamw_step)
     norm.fused_layernorm = norm.fused_layernorm_plain
-    tfm.fused_causal_attention = lambda q, k, v, n_head, causal=True, rate=0.0: \
-        fused_attention_forward_plain(q, k, v, n_head, None, causal)
+    tfm.fused_causal_attention = lambda q, k, v, n_head, causal=True, rate=0.0, seed=None: \
+        fused_attention_forward_plain(q, k, v, n_head, None, causal, False, rate, seed)
     stage2.fused_adamw_step = fused_adamw_step_plain
     try:
         yield
@@ -894,11 +1080,13 @@ def plain_train_path():
         norm.fused_layernorm, tfm.fused_causal_attention, stage2.fused_adamw_step = saved
 
 
-def set_dropout(gpt, embd, resid):
+def set_dropout(gpt, embd, resid, attn=None):
     gpt.embd_pdrop = embd
     for mod in gpt.modules():
         if hasattr(mod, "resid_pdrop"):
             mod.resid_pdrop = resid
+        if attn is not None and hasattr(mod, "attn_pdrop"):
+            mod.attn_pdrop = attn
 
 
 def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
@@ -910,9 +1098,10 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
     config = load_config([P6C18])
     params = config["model"]["params"]
     tparams = params["transformer_config"]["params"]
-    tparams["attn_pdrop"] = 0.0  # in-kernel attention dropout is not ported: it would raise
     params["permuter_config"]["params"].update(TRAIN_CAPS)
     embd_pdrop, resid_pdrop = tparams["embd_pdrop"], tparams["resid_pdrop"]
+    attn_pdrop = tparams["attn_pdrop"]  # as shipped: 0.1, drawn inside the attention kernels
+    require(attn_pdrop > 0, "the shipped config trains with attention dropout")
     lr = config["model"]["learning_rate"]
     t0 = time.perf_counter()
     with torch.device(dev):
@@ -941,7 +1130,9 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
     pad = model.permuter.content_pad_code
     tokens = int((streams["coarse_content"] != pad).sum() + (streams["fine_content"] != pad).sum())
 
-    # (a) one step through the kernels against one through the plain versions
+    # (a) one step through the kernels against one through the plain versions, with the
+    # shipped attention dropout: both paths derive the same seeds from (base seed, step 0,
+    # microbatch 0, layer) and so draw the same masks
     def snapshot():
         return ({k: v.clone() for k, v in trainer.masters.items()},
                 {k: p.detach().clone() for k, p in trainer.params.items()})
@@ -990,8 +1181,9 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
     # 24 layers compound it; Adam's first update is lr * g / |g|, so a parameter
     # differs by at most 2 lr (+ decay), and only where the noise flips g's sign
     loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 2e-2, 0.1, 2.02 * lr, 0.1 * lr
-    compare = dict(phase="train", step="kernel_vs_plain", config=P6C18, attn_pdrop=0.0,
-                   dropout="off", dtype="bfloat16 over f32 masters", batch=batch, seq_len=t_len,
+    compare = dict(phase="train", step="kernel_vs_plain", config=P6C18, attn_pdrop=attn_pdrop,
+                   dropout="attention only (embedding and residual off)",
+                   dtype="bfloat16 over f32 masters", batch=batch, seq_len=t_len,
                    lr=lr, params=n_params, losses_kernel=kr["logs"], losses_plain=pr["logs"],
                    loss_max_rel_diff=loss_rel, loss_tol=loss_tol, grad_rel_l2_diff=grad_rel,
                    grad_tol=grad_tol, param_max_abs_diff=delta_max,
@@ -1008,34 +1200,46 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
     require(moved > 0 and pad_rows_frozen, "parameters did not move, or a pad row did")
     del results, kr, pr
 
-    # (b) timed steps on the kernel path with the shipped embedding / residual dropout
+    # (b) timed steps on the kernel path with all three shipped dropouts, the elementwise
+    # ones from the trainer's own generator (re-seeded per step, as the loop runs it);
+    # before them the same steps with attn_pdrop 0, the configuration timed before
+    # in-kernel dropout existed, from the same state
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = [trainer.train_step(batches[i % len(batches)])["train_loss"] for i in range(n)]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n, [float(v) for v in pending]
+
+    restore(start)
+    set_dropout(gpt, embd_pdrop, resid_pdrop, 0.0)
+    trainer.train_step(batches[0])  # warm-up step
+    step_s_rate0, _ = timed(timed_steps)
+    prof0 = profile_device_time(torch, lambda: trainer.train_step(batches[0]), n_top=4)
+
     restore(start)
     del start
-    set_dropout(gpt, embd_pdrop, resid_pdrop)
-    drop_gen = torch.Generator(device=dev).manual_seed(10)
-    losses = [float(trainer.train_step(batches[0], drop_gen)["train_loss"])]  # warm-up step
+    set_dropout(gpt, embd_pdrop, resid_pdrop, attn_pdrop)
+    losses = [float(trainer.train_step(batches[0])["train_loss"])]  # warm-up step
     torch.cuda.synchronize()
     reset_launches()
-    losses.append(float(trainer.train_step(batches[1], drop_gen)["train_loss"]))
+    losses.append(float(trainer.train_step(batches[1])["train_loss"]))
     step_launches = read_launches()
     torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pending = [trainer.train_step(batches[i % len(batches)], drop_gen)["train_loss"]
-               for i in range(timed_steps)]
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / timed_steps
-    losses += [float(v) for v in pending]
+    step_s, more = timed(timed_steps)
+    losses += more
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile_device_time(
-        torch, lambda: trainer.train_step(batches[0], drop_gen), n_top=12)
+        torch, lambda: trainer.train_step(batches[0]), n_top=12)
     layers = gpt.position_layer + gpt.content_layer
     expected = {"fused_attention_forward": layers, "fused_attention_backward": layers,
                 "layernorm_forward": 2 * layers + 2, "layernorm_backward": 2 * layers + 2,
                 "fused_adamw": len(trainer.params)}
     step_ms = step_s * 1e3
     busy_ms = prof["device_busy_ms"]
-    res = dict(phase="train", step="timed", config=P6C18, attn_pdrop=0.0, embd_pdrop=embd_pdrop,
+    res = dict(phase="train", step="timed", config=P6C18, attn_pdrop=attn_pdrop,
+               step_ms_attn_pdrop_0=step_s_rate0 * 1e3,
+               device_busy_ms_attn_pdrop_0=prof0["device_busy_ms"], embd_pdrop=embd_pdrop,
                resid_pdrop=resid_pdrop, dtype="bfloat16 over f32 masters", batch=batch,
                seq_len=t_len, stream_caps=TRAIN_CAPS, images=n_images, real_tokens=tokens,
                layers=layers, params=n_params, parameter_leaves=len(trainer.params), lr=lr,
@@ -1236,6 +1440,169 @@ def train1(torch, dev, card, batch=8, timed_steps=3):
     return res
 
 
+def _rows(logdir):
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _only_dir(root, prefix):
+    (name,) = [n for n in os.listdir(root) if n.startswith(prefix)]
+    return os.path.join(root, name)
+
+
+def _sha256(torch, tensors):
+    """One hash over the bytes of every tensor of a name -> tensor dict."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(tensors):
+        h.update(name.encode())
+        flat = tensors[name].detach().contiguous().cpu().reshape(-1)
+        h.update(flat.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, state_of, val_key,
+                    expect_launched, gb_needed, grids):
+    """Three runs of the port's training command line on `config` at full
+    width and depth, in-process: (A) two epochs in one run, logging image
+    grids; (B) the same stopped after epoch 1; (C) `--resume` of B for epoch
+    2. C must end where A ended, bit for bit."""
+    import shutil
+
+    from dynamicvectorquantization_torch.train import cli
+
+    root = os.path.join("build", phase)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    free_gb = shutil.disk_usage(root).free / 2 ** 30
+    require(free_gb >= gb_needed,
+            f"the {phase} phase writes up to {gb_needed} GB of checkpoints under {root}; only "
+            f"{free_gb:.1f} GB are free there")
+    common = ["--max_epochs", "2", "--max_steps_per_epoch", str(steps_per_epoch), "--save_n", "1",
+              "--log_every", "1", "--seed", "23"]
+    base = ["--base", config, "--logdir", root, *common, *overrides]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        whole = cli.main([*base, "--name", "whole", "--image_log_every", "1000000"])
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        whole_dir = _only_dir(root, "whole-")
+        whole_hash = _sha256(torch, state_of(whole))
+        del whole
+        rows = _rows(whole_dir)
+        with open(os.path.join(whole_dir, "loop_buckets.json")) as f:
+            buckets = json.load(f)
+        ckpt_dir = os.path.join(whole_dir, "checkpoints")
+        ckpts = sorted(n for n in os.listdir(ckpt_dir) if n.endswith(".pt"))
+        ckpt_gb = max(os.path.getsize(os.path.join(ckpt_dir, n)) for n in ckpts) / 2 ** 30
+        image_dir = os.path.join(whole_dir, "images", "train")
+        images = sorted(os.listdir(image_dir)) if os.path.isdir(image_dir) else []
+        shutil.rmtree(ckpt_dir)  # room for the second pair of runs
+        torch.cuda.empty_cache()
+
+        first = cli.main([*base, "--name", "parts", "--stop_epoch", "1", "--image_log_every", "0"])
+        first_steps = [first.epoch, getattr(first, "count", getattr(first, "step", None))]
+        del first
+        torch.cuda.empty_cache()
+        parts_dir = _only_dir(root, "parts-")
+        t0 = time.perf_counter()
+        resumed = cli.main(["--resume", parts_dir, *common, "--image_log_every", "0"])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        resumed_hash = _sha256(torch, state_of(resumed))
+        del resumed
+        torch.cuda.empty_cache()
+        parts_rows = _rows(parts_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    train_rows = [r for r in rows if r["split"] == "train"]
+    val_rows = [r for r in rows if r["split"] == "val"]
+    loss_key = "train_loss" if "train_loss" in train_rows[0] else "train_aeloss"
+    losses = [r[loss_key] for r in train_rows]
+    same = lambda a, b: {k: v for k, v in a.items() if k.endswith("loss")} == {  # noqa: E731
+        k: v for k, v in b.items() if k.endswith("loss")}
+    rows_equal = len(rows) == len(parts_rows) and all(same(a, b) for a, b in zip(rows, parts_rows))
+    n = 2 * steps_per_epoch
+    res = dict(phase=phase, config=config, overrides=overrides, epochs=2,
+               steps_per_epoch=steps_per_epoch, rows=[(r["step"], r["split"]) for r in rows],
+               train_loss=losses, val=[{k: v for k, v in r.items() if k.startswith("val_")}
+                                       for r in val_rows],
+               lr=[r["lr"] for r in train_rows], checkpoints_kept=ckpts, checkpoint_gb=ckpt_gb,
+               image_grids=images, launches=launches, whole_run_s=whole_s,
+               seconds_per_epoch={k: v / 2 for k, v in buckets["buckets"].items()},
+               loop_wall_s=buckets["wall_seconds"], device_wait_s=buckets["device_wait_seconds"],
+               encode_share=buckets["buckets"].get("encode", 0.0) / buckets["wall_seconds"],
+               checkpoint_s_per_save=buckets["buckets"]["checkpoint"] / 2,
+               peak_memory_gb=peak_gb, stopped_after_epoch_1_at=first_steps, resume_run_s=resume_s,
+               final_val_whole=val_rows[-1][val_key],
+               final_val_resumed=parts_rows[-1].get(val_key), state_sha256_whole=whole_hash,
+               state_sha256_resumed=resumed_hash, resumed_rows_equal=rows_equal, card=card)
+    emit(res)
+    want_rows = [(i, "train") for i in range(1, steps_per_epoch + 1)] + [(steps_per_epoch, "val")] \
+        + [(i, "train") for i in range(steps_per_epoch + 1, n + 1)] + [(n, "val")]
+    require(res["rows"] == want_rows, f"{phase}: metric rows {res['rows']}, expected {want_rows}")
+    require(all(math.isfinite(v) for r in rows for k, v in r.items() if k.endswith("loss")),
+            f"{phase}: a logged loss is not finite")
+    require(losses[-1] < losses[0], f"{phase}: {loss_key} did not fall: {losses}")
+    require(1 <= len(ckpts) <= 2 and f"step_{n}.pt" in ckpts,
+            f"{phase}: checkpoints kept {ckpts}: expected the newest and at most the best")
+    require(len(images) == grids, f"{phase}: image grids {images}")
+    require(first_steps == [1, steps_per_epoch], f"{phase}: the stopped run ended at {first_steps}")
+    require(res["final_val_whole"] == res["final_val_resumed"] and whole_hash == resumed_hash
+            and rows_equal, f"{phase}: the resumed run differs from the uninterrupted run: "
+                            f"{res['final_val_whole']} vs {res['final_val_resumed']}")
+    for name in expect_launched:
+        require(launches[name] > 0, f"{phase}: {name} was not launched")
+    return res
+
+
+def fit(torch, card):
+    """Stage 2: the shipped p6c18 config, `attn_pdrop` 0.1 untouched."""
+    data = "data.params"
+    synthetic = "dynamicvectorquantization_torch.data.datasets.SyntheticDataset"
+    overrides = [f"{data}.batch_size=8", f"{data}.num_workers=4"]
+    for split in ("train", "validation"):
+        overrides += [f"{data}.{split}.target={synthetic}", f"{data}.{split}.params.size=256",
+                      f"{data}.{split}.params.length=32"]
+    overrides += [f"model.params.permuter_config.params.{k}={v}" for k, v in TRAIN_CAPS.items()]
+    # two sampled grids (fixed and free fine positions), inputs, reconstructions: at
+    # the first step of each epoch of the whole run
+    return fit_through_cli(
+        torch, card, "fit", P6C18, overrides, 4, lambda t: t.masters, "val_loss",
+        ("vq_nearest", "patch_entropy", "fused_attention_forward", "fused_attention_backward",
+         "layernorm_forward", "layernorm_backward", "fused_adamw", "strided_conv3x3_down"),
+        gb_needed=12, grids=8)
+
+
+def fit1(torch, card):
+    """Stage 1: the shipped dual-grain DQ-VAE + GAN config. cuDNN picks
+    deterministic convolution algorithms here, so that the resumed run can be
+    held to the uninterrupted one bit for bit."""
+    data = "data.params"
+    synthetic = "dynamicvectorquantization_torch.data.synthetic.SyntheticImages"
+    overrides = [f"{data}.batch_size=8", f"{data}.num_workers=4"]
+    for split, n in (("train", 32), ("validation", 16)):
+        overrides += [f"{data}.{split}.target={synthetic}", f"{data}.{split}.params.n={n}"]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return fit_through_cli(
+            torch, card, "fit1", STAGE1, overrides, 2, lambda t: t.model.state_dict(),
+            "val_rec_loss", ("vq_nearest_train", "vq_nearest", "patch_entropy",
+                             "strided_conv3x3_down", "fused_attention_forward",
+                             "fused_attention_backward"),
+            gb_needed=4, grids=8)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 def serve(torch, model, card):
     import numpy as np
 
@@ -1292,13 +1659,15 @@ def main():
     emit(dict(phase="build", seconds=time.perf_counter() - t0, nvcc_flags=cuda_lib.NVCC_FLAGS))
 
     decode_cases = check_decode_attention(torch, dev)
-    attn_cases = check_fused_attention(torch, dev)
+    attn_cases, attn_drop_cases = check_fused_attention(torch, dev)
+    check_attention_dropout(torch, dev)
     vq_case = check_vq_nearest(torch, dev)
     vq_train_case = check_vq_train(torch, dev)
     entropy_case = check_patch_entropy(torch, dev)
     conv_cases = check_strided_conv(torch, dev)
     ln_fwd_cases, ln_bwd_cases = check_layernorm(torch, dev)
-    attn_train_cases, attn_bwd_cases = check_attention_backward(torch, dev)
+    attn_train_cases, attn_bwd_cases, attn_train_drop_cases, attn_bwd_drop_cases = \
+        check_attention_backward(torch, dev)
     adamw_case = check_fused_adamw(torch, dev)
 
     t0 = time.perf_counter()
@@ -1315,6 +1684,10 @@ def main():
     per_step = trained["launches_per_step"]
     torch.cuda.empty_cache()
     per_step1 = train1(torch, dev, card)["launches_per_step"]
+    torch.cuda.empty_cache()
+    fitted = fit(torch, card)["launches"]
+    torch.cuda.empty_cache()
+    fitted1 = fit1(torch, card)["launches"]
 
     # the downsample line sums the encoder's four levels (one encode batch)
     conv = dict(conv_cases[0], shape=[c["shape"] for c in conv_cases],
@@ -1327,61 +1700,84 @@ def main():
     attn_train = {k: attn_train_cases[0][k] for k in (
         "shape", "dtype", "with_lse", "max_abs_err", "lse_err", "kernel_ms", "plain_ms",
         "library_ms", "bound_ms")}
+    paths = {"serve": served["launches"], "encode": encoded["launches"], "train_step": per_step,
+             "train1_step": per_step1, "fit": fitted, "fit1": fitted1}
+
+    def launched(name):
+        """Launches of a row on each driven path; the attention rows count
+        their rate-0 launches, the `_dropout` rows those that drew a mask."""
+        out = {}
+        for path, counts in paths.items():
+            n = counts[name] - counts.get(DROPOUT_ROWS.get(name), 0)
+            if n:
+                out[path] = n
+        return out
+
+    def pick(case, *keys):
+        return {k: case[k] for k in keys}
+
+    drop_keys = ("shape", "dtype", "causal", "rate", "max_abs_err", "dropout_err", "tol",
+                 "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    attn_src = "dynamicvectorquantization_tpu/ops/attention_pallas.py"
     kernels = []
-    for name, src, replaces, main, launches, extra in (
+    for name, src, replaces, main, extra in (
             ("decode_attention_int8", "decode_attention_int8.cu",
-             "dynamicvectorquantization_tpu/ops/kv_int8.py:92", decode_cases[-1],
-             {"serve": served["launches"]["decode_attention_int8"]}, {}),
-            ("fused_attention_forward", "fused_attention.cu",
-             "dynamicvectorquantization_tpu/ops/attention_pallas.py:82", attn_cases[0],
-             {"serve": served["launches"]["fused_attention_forward"],
-              "encode": encoded["launches"]["fused_attention_forward"],
-              "train_step": per_step["fused_attention_forward"],
-              "train1_step": per_step1["fused_attention_forward"]},
+             "dynamicvectorquantization_tpu/ops/kv_int8.py:92", decode_cases[-1], {}),
+            ("fused_attention_forward", "fused_attention.cu", f"{attn_src}:82", attn_cases[0],
              {"encoder_hd512": attn_hd512, "train_with_lse": attn_train}),
-            ("fused_attention_backward", "fused_attention_bwd.cu",
-             "dynamicvectorquantization_tpu/ops/attention_pallas.py:108", attn_bwd_cases[0],
-             {"train_step": per_step["fused_attention_backward"],
-              "train1_step": per_step1["fused_attention_backward"]},
+            # the same kernel source at rate 0.1, at the stage-2 training shape (with lse);
+            # library_ms: scaled_dot_product_attention with dropout_p
+            ("fused_attention_forward_dropout", "fused_attention.cu", f"{attn_src}:82",
+             attn_train_drop_cases[0],
+             {"rate": attn_train_drop_cases[0]["rate"],
+              "dropout_err": attn_train_drop_cases[0]["dropout_err"],
+              "rate0_ms_same_shape": attn_train_cases[0]["kernel_ms"],
+              "extra": {n_: pick(c, *drop_keys) for n_, c in (
+                  ("hd256_f32", attn_drop_cases[0]), ("hd128_bf16_t808", attn_drop_cases[1]),
+                  ("hd512_f32", attn_drop_cases[2]))}}),
+            ("fused_attention_backward", "fused_attention_bwd.cu", f"{attn_src}:108",
+             attn_bwd_cases[0],
              {"bound_ms_f32_fma": attn_bwd_cases[0]["bound_ms_f32_fma"],
               "bit_reproducible": attn_bwd_cases[0]["bit_reproducible"],
               "extra": {name: {k: c[k] for k in (
                   "shape", "dtype", "causal", "max_abs_err", "tol", "bit_reproducible", "gflop",
                   "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                   for name, c in (("hd256", attn_bwd_cases[3]), ("hd512", attn_bwd_cases[4]))}}),
+            ("fused_attention_backward_dropout", "fused_attention_bwd.cu", f"{attn_src}:108",
+             attn_bwd_drop_cases[0],
+             {"rate": attn_bwd_drop_cases[0]["rate"],
+              "dropout_err": attn_bwd_drop_cases[0]["dropout_err"],
+              "bit_reproducible": attn_bwd_drop_cases[0]["bit_reproducible"],
+              "rate0_ms_same_shape": attn_bwd_cases[0]["kernel_ms"],
+              "extra": {n_: pick(c, *drop_keys, "bit_reproducible") for n_, c in (
+                  ("hd128_f32_b2", attn_bwd_drop_cases[1]), ("hd64_t300", attn_bwd_drop_cases[2]),
+                  ("hd256", attn_bwd_drop_cases[3]), ("hd512", attn_bwd_drop_cases[4]))}}),
             ("layernorm_forward", "layernorm.cu",
-             "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:46", ln_fwd_cases[0],
-             {"train_step": per_step["layernorm_forward"]}, {}),
+             "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:46", ln_fwd_cases[0], {}),
             ("layernorm_backward", "layernorm.cu",
              "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:56", ln_bwd_cases[0],
-             {"train_step": per_step["layernorm_backward"]},
              {"bit_reproducible": ln_bwd_cases[0]["bit_reproducible"]}),
             ("fused_adamw", "fused_adamw.cu",
-             "dynamicvectorquantization_tpu/ops/fused_adamw.py:39", adamw_case,
-             {"train_step": per_step["fused_adamw"]}, {}),
+             "dynamicvectorquantization_tpu/ops/fused_adamw.py:39", adamw_case, {}),
             ("vq_nearest", "vq_nearest.cu", "dynamicvectorquantization_tpu/ops/vq_pallas.py:42",
-             vq_case, {"encode": encoded["launches"]["vq_nearest"]},
-             {"mismatched_rows": vq_case["mismatched_rows"]}),
+             vq_case, {"mismatched_rows": vq_case["mismatched_rows"]}),
             ("vq_nearest_train", "vq_nearest.cu",
              "dynamicvectorquantization_tpu/ops/vq_pallas.py:57", vq_train_case,
-             {"train1_step": per_step1["vq_nearest_train"]},
              {k: vq_train_case[k] for k in ("mismatched_rows", "bit_reproducible",
                                             "stats_kernel_ms", "largest_cluster",
                                             "empty_clusters")}),
             ("patch_entropy", "patch_entropy.cu",
-             "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy_case,
-             {"encode": encoded["launches"]["patch_entropy"],
-              "train1_step": per_step1["patch_entropy"]}, {}),
+             "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy_case, {}),
             ("strided_conv3x3_down", "strided_conv_down.cu",
-             "dynamicvectorquantization_tpu/ops/downsample_pallas.py:45", conv,
-             {"encode": encoded["launches"]["strided_conv3x3_down"],
-              "train1_step": per_step1["strided_conv3x3_down"]}, {})):
+             "dynamicvectorquantization_tpu/ops/downsample_pallas.py:45", conv, {})):
+        launches = launched(name)
         kernels.append(dict(
             name=name, route="cuda", source=f"dynamicvectorquantization_torch/csrc/{src}",
             replaces=replaces, launches=sum(launches.values()), launches_by_path=launches,
             max_abs_err=main["max_abs_err"], tol=main["tol"], ms=main["kernel_ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"], shape=main["shape"], card=card, **extra))
+        require(kernels[-1]["launches"] > 0, f"{name} was launched on no driven path")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

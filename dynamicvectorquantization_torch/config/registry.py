@@ -2,8 +2,12 @@
 
 Counterpart of `dynamicvectorquantization_tpu/config/registry.py`, holding
 only the targets the ported slices (unconditional stage-2 training and
-sampling, the dual-grain DQ-VAE with its GAN loss) instantiate. Paths inside this
-package pass through; any other target raises, so a config that needs an
+sampling, the dual-grain DQ-VAE with its GAN loss, the data module with
+ImageNet and the synthetic datasets) instantiate. Paths inside this package
+pass through. A data target written as `<package>.data.datasets.<Name>` or
+`<package>.data.synthetic.<Name>` for ANY top-level package (the smoke
+configs name the JAX package's) resolves by its tail to this package's
+class of that name. Any other target raises, so a config that needs an
 unported module fails loudly instead of silently picking something else.
 """
 from __future__ import annotations
@@ -29,6 +33,16 @@ TARGET_ALIASES = {
     "modules.losses.vqperceptual.VQLPIPSWithDiscriminator": f"{_PKG}.losses.vqperceptual.VQLPIPSWithDiscriminator",
     "modules.losses.vqperceptual.DummyLoss": f"{_PKG}.losses.vqperceptual.DummyLoss",
     "modules.discriminator.model.NLayerDiscriminator": f"{_PKG}.nn.discriminator.NLayerDiscriminator",
+    "data.build.DataModuleFromConfig": f"{_PKG}.data.datasets.DataModuleFromConfig",
+    "data.imagenet.ImageNetTrain": f"{_PKG}.data.datasets.ImageNetTrain",
+    "data.imagenet.ImageNetValidation": f"{_PKG}.data.datasets.ImageNetValidation",
+    "data.synthetic.SyntheticImages": f"{_PKG}.data.synthetic.SyntheticImages",
+}
+# `<any package>.data.<module>.<Name>` -> this package's class, for these names
+_DATA_TAILS = {
+    "data.datasets": ("DataModuleFromConfig", "ImageNetTrain", "ImageNetValidation",
+                      "SyntheticDataset", "FileListDataset"),
+    "data.synthetic": ("SyntheticImages",),
 }
 
 
@@ -37,7 +51,10 @@ def resolve_target(target: str) -> str:
         return TARGET_ALIASES[target]
     if target.startswith(_PKG + "."):
         return target
+    parts = target.split(".")
+    if len(parts) == 4 and parts[3] in _DATA_TAILS.get(".".join(parts[1:3]), ()):
+        return ".".join([_PKG, *parts[1:]])
     raise KeyError(
         f"target {target!r} is not ported to {_PKG} yet (see ROADMAP.md, "
-        "'Modules to port')"
+        "'Slices to port, in order')"
     )

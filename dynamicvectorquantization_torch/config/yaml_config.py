@@ -1,4 +1,6 @@
-"""YAML config loading with left-to-right merging.
+"""YAML config loading with left-to-right merging, `key.path=value` dotlist
+overrides, and a writer for the same subset (the config snapshot a training
+run leaves in its logdir and reads back on resume).
 
 Counterpart of `dynamicvectorquantization_tpu/config/yaml_config.py`. The
 port depends on torch, numpy and the standard library only, so instead of
@@ -114,5 +116,66 @@ def _deep_merge(base: Mapping[str, Any], other: Mapping[str, Any]) -> dict:
     return out
 
 
-def load_config(paths: Iterable[str]) -> dict:
-    return merge_configs(*[load_yaml(p) for p in paths])
+def apply_dotlist(config: dict, dotlist: Iterable[str]) -> dict:
+    """Apply `a.b.c=value` overrides (values parsed as YAML scalars)."""
+    out = copy.deepcopy(config)
+    for item in dotlist:
+        if "=" not in item:
+            raise ValueError(f"Dotlist override must look like key=value, got {item!r}")
+        key, _, raw = item.partition("=")
+        node = out
+        parts = key.strip().split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = parse_scalar(raw)
+    return out
+
+
+def load_config(paths: Iterable[str], dotlist: Iterable[str] = ()) -> dict:
+    cfg = merge_configs(*[load_yaml(p) for p in paths])
+    if dotlist:
+        cfg = apply_dotlist(cfg, dotlist)
+    return cfg
+
+
+def _dump_scalar(value, in_list=False) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        text = repr(value)
+        if "inf" in text or "nan" in text:
+            raise ValueError(f"cannot write {value!r} in the YAML subset")
+        mantissa, e, exponent = text.partition("e")
+        if "." not in mantissa:  # YAML 1.1 floats need a dot: 1e-05 would read as a string
+            mantissa += ".0"
+        return mantissa + e + exponent
+    if isinstance(value, str):
+        quote = "'" if '"' in value else '"'
+        if quote in value or "\n" in value or (in_list and "," in value):
+            raise ValueError(f"cannot write the string {value!r} in the YAML subset")
+        return f"{quote}{value}{quote}"
+    raise ValueError(f"cannot write a {type(value).__name__} in the YAML subset")
+
+
+def dump_yaml(config: Mapping[str, Any], indent: int = 0) -> str:
+    """Write a config in the subset `parse_yaml` reads, so that
+    `parse_yaml(dump_yaml(c)) == c` (an empty mapping comes back as None)."""
+    lines = []
+    pad = " " * indent
+    for key, value in config.items():
+        name = _dump_scalar(key) if not isinstance(key, str) or parse_scalar(key) != key \
+            or ":" in key or "#" in key else key
+        if isinstance(value, Mapping):
+            lines.append(f"{pad}{name}:")
+            if value:
+                lines.append(dump_yaml(value, indent + 2))
+        elif isinstance(value, (list, tuple)):
+            items = ", ".join(_dump_scalar(v, in_list=True) for v in value)
+            lines.append(f"{pad}{name}: [{items}]")
+        else:
+            lines.append(f"{pad}{name}: {_dump_scalar(value)}")
+    return "\n".join(lines)

@@ -40,4 +40,52 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC'11): a counter-based generator, so a random word is a pure function
+// of its counter and key and any thread can regenerate it.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
+  constexpr unsigned int kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr unsigned int kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int round = 0; round < 10; ++round) {
+    const unsigned int hi0 = __umulhi(kM0, ctr.x), lo0 = kM0 * ctr.x;
+    const unsigned int hi1 = __umulhi(kM1, ctr.z), lo1 = kM1 * ctr.z;
+    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
+    key.x += kW0;
+    key.y += kW1;
+  }
+  return ctr;
+}
+
+// Attention-probability dropout: whether the probability of (query `row`,
+// key `col`) of head `bh` = batch * n_head + head survives. A function of
+// the seed and these GLOBAL coordinates only, never of a tile size, a block
+// or a thread, so the forward and both backward passes (and the plain
+// PyTorch version, `ops/attention.py` `dropout_keep_mask`) redraw the same
+// mask and nothing of it is stored. Counter (col / 4, row, bh, 0), key the
+// seed's two halves, word col % 4; kept iff the word >= threshold =
+// uint32(rate * 4294967295), the TPU kernel's rule.
+struct DropoutParams {
+  unsigned long long seed;
+  unsigned int threshold;
+  float inv_keep;  // 1 / (1 - rate)
+};
+
+__device__ __forceinline__ bool dropout_keep(const DropoutParams& dp, int bh, int row, int col) {
+  const uint4 r = philox4x32_10(
+      make_uint4((unsigned int)col >> 2, (unsigned int)row, (unsigned int)bh, 0u),
+      make_uint2((unsigned int)dp.seed, (unsigned int)(dp.seed >> 32)));
+  const int w = col & 3;
+  const unsigned int bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+  return bits >= dp.threshold;
+}
+
+inline DropoutParams make_dropout_params(double rate, unsigned long long seed) {
+  DropoutParams dp;
+  dp.seed = seed;
+  dp.threshold = (unsigned int)(rate * 4294967295.0);
+  dp.inv_keep = (float)(1.0 / (1.0 - rate));
+  return dp;
+}
+
 }  // namespace dqvq

@@ -3,7 +3,13 @@
 //
 // Replaces: dynamicvectorquantization_tpu/ops/attention_pallas.py
 // `_fwd_kernel` (reached through `_fused_fwd` / `fused_causal_attention`),
-// at dropout rate 0. Training also asks for each row's log-sum-exp of the
+// with its attention-probability dropout: Y = (P o M / keep) V, the softmax
+// denominator summed over the undropped P. The keep mask M comes from a
+// counter-based generator keyed by global (batch, head, row, column)
+// (`dqvq::dropout_keep`), not from the TPU's per-core generator seeded per
+// query block, so the backward redraws it whatever its tiles. DROP is a
+// template flag: at rate 0 the kernel is the one it was, to the bit.
+// Training also asks for each row's log-sum-exp of the
 // scaled scores (m + log l of the online softmax), from which the backward
 // (fused_attention_bwd.cu) rebuilds the probabilities; the TPU kernel keeps
 // nothing and recomputes the softmax over its whole (T, T) block instead.
@@ -47,12 +53,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
 }
 
-template <typename T, int HD, int BQ, int BK>
+template <typename T, int HD, int BQ, int BK, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            float* __restrict__ lse, int t_len, int d_model, float scale,
-                           int causal) {
+                           int causal, dqvq::DropoutParams drop) {
   constexpr int QS = HD + 1;  // padded row stride of Q and K tiles
   constexpr int PS = BK + 1;  // padded row stride of the probability tile
   constexpr int RI = BQ / 16;  // query rows per thread
@@ -139,8 +145,11 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const float p = expf(s[i][j] - m_use);
-        sP[(ty + 16 * i) * PS + tx + 16 * j] = p;
-        rs += p;
+        rs += p;  // the denominator sums the undropped probabilities
+        bool kept = true;
+        if (DROP && p != 0.f)
+          kept = dqvq::dropout_keep(drop, b * gridDim.y + h, row, k0 + tx + 16 * j);
+        sP[(ty + 16 * i) * PS + tx + 16 * j] = kept ? p : 0.f;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
@@ -169,7 +178,7 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row < t_len) {
-      const float inv = 1.f / l[i];
+      const float inv = DROP ? drop.inv_keep / l[i] : 1.f / l[i];
 #pragma unroll
       for (int j = 0; j < DJ; ++j)
         out[base + (size_t)row * d_model + tx + 16 * j] = dqvq::from_f32<T>(o[i][j] * inv);
@@ -181,33 +190,44 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int BQ = 64, int BK = 64>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, float* lse,
-                      int batch, int t_len, int d_model, int n_head, float scale, int causal,
-                      cudaStream_t stream) {
+template <typename T, int HD, int BQ, int BK, bool DROP>
+cudaError_t launch_drop(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int batch, int t_len, int d_model, int n_head, float scale, int causal,
+                        const dqvq::DropoutParams& drop, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, BQ, BK>();
   static_assert(smem <= 232448, "tiles exceed a block's shared memory");
-  auto kernel = fused_attention_fwd_kernel<T, HD, BQ, BK>;
+  auto kernel = fused_attention_fwd_kernel<T, HD, BQ, BK, DROP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((t_len + BQ - 1) / BQ, n_head, batch);
   kernel<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (T*)out, lse,
-                                           t_len, d_model, scale, causal);
+                                           t_len, d_model, scale, causal, drop);
   return cudaGetLastError();
+}
+
+template <typename T, int HD, int BQ = 64, int BK = 64>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int batch, int t_len, int d_model, int n_head, float scale, int causal,
+                      const dqvq::DropoutParams& drop, cudaStream_t stream) {
+  if (drop.threshold > 0)
+    return launch_drop<T, HD, BQ, BK, true>(q, k, v, out, lse, batch, t_len, d_model, n_head,
+                                            scale, causal, drop, stream);
+  return launch_drop<T, HD, BQ, BK, false>(q, k, v, out, lse, batch, t_len, d_model, n_head,
+                                           scale, causal, drop, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int batch,
                    int t_len, int d_model, int n_head, float scale, int causal,
-                   cudaStream_t stream) {
+                   const dqvq::DropoutParams& drop, cudaStream_t stream) {
   switch (d_model / n_head) {
-    case 16: return launch_hd<T, 16>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 32: return launch_hd<T, 32>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 64: return launch_hd<T, 64>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 128: return launch_hd<T, 128>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 256: return launch_hd<T, 256>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
-    case 512: return launch_hd<T, 512, 32, 32>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, stream);
+    case 16: return launch_hd<T, 16>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, drop, stream);
+    case 32: return launch_hd<T, 32>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, drop, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, drop, stream);
+    case 128: return launch_hd<T, 128>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, drop, stream);
+    case 256: return launch_hd<T, 256>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, drop, stream);
+    case 512: return launch_hd<T, 512, 32, 32>(q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, drop, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -217,17 +237,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 // q, k, v, out: (batch, t_len, d_model) contiguous in `dtype`, heads carved
 // from d_model (head h owns columns [h*hd, (h+1)*hd)). lse: null, or
 // (batch, n_head, t_len) f32 that receives each row's log-sum-exp of the
-// scaled scores (training saves it for the backward). Returns a cudaError_t.
+// scaled scores (training saves it for the backward). rate in [0, 1): the
+// share of probabilities dropped, drawn from `seed` (see common.cuh); at
+// rate 0 the seed is not read. Returns a cudaError_t.
 extern "C" int dqvq_fused_attention_forward(const void* q, const void* k, const void* v,
                                             void* out, void* lse, int batch, int t_len,
                                             int d_model, int n_head, float scale, int causal,
-                                            int dtype, void* stream) {
-  if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0) return cudaErrorInvalidValue;
+                                            int dtype, double rate, unsigned long long seed,
+                                            void* stream) {
+  if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || !(rate >= 0.0 && rate < 1.0))
+    return cudaErrorInvalidValue;
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == dqvq::kFloat32)
-    return launch<float>(q, k, v, out, l, batch, t_len, d_model, n_head, scale, causal, s);
+    return launch<float>(q, k, v, out, l, batch, t_len, d_model, n_head, scale, causal, drop, s);
   if (dtype == dqvq::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, out, l, batch, t_len, d_model, n_head, scale, causal, s);
+    return launch<__nv_bfloat16>(q, k, v, out, l, batch, t_len, d_model, n_head, scale, causal, drop, s);
   return cudaErrorInvalidValue;
 }

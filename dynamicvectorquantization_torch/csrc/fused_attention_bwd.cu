@@ -1,10 +1,16 @@
 // Fused attention backward: dQ, dK, dV of softmax(Q K^T * scale) V on
-// (B, T, D) tensors with heads carved from D, causal or not, at dropout
-// rate 0.
+// (B, T, D) tensors with heads carved from D, causal or not, with the
+// forward's attention-probability dropout.
 //
 // Replaces: dynamicvectorquantization_tpu/ops/attention_pallas.py
 // `_bwd_kernel` (reached through `_fused_bwd`, the VJP of
-// `fused_causal_attention`).
+// `fused_causal_attention`). With the keep mask M and keep = 1 - rate:
+// D = P o M / keep, dV = D^T dY, dP = (dY V^T) o M / keep,
+// dS = P o (dP - delta) with the UNDROPPED P in front, and delta =
+// rowsum(dY o Y) = rowsum(dP o P) still. M is redrawn per element from the
+// seed and the global (batch, head, row, column) (`dqvq::dropout_keep`), so
+// both passes see the forward's mask whatever their tiles; DROP is a
+// template flag and rate 0 runs the code it ran before.
 //
 // What bounds it on an H100: operations. Per head it forms five T x T x hd
 // products (S = Q K^T, dP = dY V^T, dV = P^T dY, dQ = dS K, dK = dS^T Q):
@@ -104,9 +110,12 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ lse,
 
 // The TILE x TILE tile of P = exp(S * scale - lse) and dS = P * (dP - delta),
 // S = Q K^T and dP = dY V^T, masked to the sequence and the causal triangle.
-template <int HD, int TILE>
+// With DROP, s.p holds D = P o M / keep (it feeds dV) and dP is masked and
+// scaled the same way before delta comes off.
+template <int HD, int TILE, bool DROP>
 __device__ __forceinline__ void score_tile(const Tiles<HD, TILE>& s, int q0, int k0, int t_len,
-                                           float scale, int causal, int tx, int ty) {
+                                           float scale, int causal, int tx, int ty, int bh,
+                                           const dqvq::DropoutParams& drop) {
   constexpr int QS = HD + 1, kPS = TILE + 1, kPer = TILE / 16;
   float sc[kPer][kPer], dp[kPer][kPer];
 #pragma unroll
@@ -143,8 +152,14 @@ __device__ __forceinline__ void score_tile(const Tiles<HD, TILE>& s, int q0, int
       const int cc = tx + 16 * j, col = k0 + cc;
       const bool on = row < t_len && col < t_len && (!causal || col <= row);
       const float p = on ? expf(sc[i][j] * scale - lse) : 0.f;
-      s.p[rr * kPS + cc] = p;
-      s.ds[rr * kPS + cc] = p * (dp[i][j] - delta);
+      if (DROP) {
+        const bool kept = p != 0.f && dqvq::dropout_keep(drop, bh, row, col);
+        s.p[rr * kPS + cc] = kept ? p * drop.inv_keep : 0.f;
+        s.ds[rr * kPS + cc] = p * ((kept ? dp[i][j] * drop.inv_keep : 0.f) - delta);
+      } else {
+        s.p[rr * kPS + cc] = p;
+        s.ds[rr * kPS + cc] = p * (dp[i][j] - delta);
+      }
     }
   }
 }
@@ -163,13 +178,13 @@ attention_delta_kernel(const T* __restrict__ y, const T* __restrict__ dy,
   if (lane == 0) delta[((size_t)(bt / t_len) * n_head + h) * t_len + bt % t_len] = acc;
 }
 
-template <typename T, int HD, int TILE>
+template <typename T, int HD, int TILE, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dy,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int t_len, int d_model,
-                          float scale, int causal) {
+                          float scale, int causal, dqvq::DropoutParams drop) {
   constexpr int QS = HD + 1, kTile = TILE, kPS = TILE + 1, kPer = TILE / 16;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -193,7 +208,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_pair<T, HD, TILE>(q, dy, s.q, s.dy, base, q0, t_len, d_model);
     load_rows<TILE>(lse, delta, s.lse, s.delta, row_base, q0, t_len);
     __syncthreads();
-    score_tile<HD, TILE>(s, q0, k0, t_len, scale, causal, tx, ty);
+    score_tile<HD, TILE, DROP>(s, q0, k0, t_len, scale, causal, tx, ty, b * gridDim.y + h, drop);
     __syncthreads();
     // dV += P^T dY, dK += dS^T Q: this thread's key rows ty + 16 i, columns tx + 16 j
 #pragma unroll 2
@@ -231,12 +246,13 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int TILE>
+template <typename T, int HD, int TILE, bool DROP>
 __global__ void __launch_bounds__(kThreads)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dy,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dq, int t_len, int d_model, float scale, int causal) {
+                        T* __restrict__ dq, int t_len, int d_model, float scale, int causal,
+                        dqvq::DropoutParams drop) {
   constexpr int QS = HD + 1, kTile = TILE, kPS = TILE + 1, kPer = TILE / 16;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -260,7 +276,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's reads are done
     load_pair<T, HD, TILE>(k, v, s.k, s.v, base, k0, t_len, d_model);
     __syncthreads();
-    score_tile<HD, TILE>(s, q0, k0, t_len, scale, causal, tx, ty);
+    score_tile<HD, TILE, DROP>(s, q0, k0, t_len, scale, causal, tx, ty, b * gridDim.y + h, drop);
     __syncthreads();
     // dQ += dS K: this thread's query rows ty + 16 i, columns tx + 16 j
 #pragma unroll 2
@@ -288,16 +304,16 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, int TILE = 64>
-cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* y, const void* dy,
-                      const float* lse, float* delta, void* dq, void* dk, void* dv, int batch,
-                      int t_len, int d_model, int n_head, float scale, int causal,
-                      cudaStream_t stream) {
+template <typename T, int HD, int TILE, bool DROP>
+cudaError_t launch_drop(const void* q, const void* k, const void* v, const void* y,
+                        const void* dy, const float* lse, float* delta, void* dq, void* dk,
+                        void* dv, int batch, int t_len, int d_model, int n_head, float scale,
+                        int causal, const dqvq::DropoutParams& drop, cudaStream_t stream) {
   constexpr int kTile = TILE;
   constexpr size_t smem = smem_bytes<HD, TILE>();
   static_assert(smem <= 232448, "tiles exceed a block's shared memory");
-  auto dkdv = attention_bwd_dkdv_kernel<T, HD, TILE>;
-  auto dqk = attention_bwd_dq_kernel<T, HD, TILE>;
+  auto dkdv = attention_bwd_dkdv_kernel<T, HD, TILE, DROP>;
+  auto dqk = attention_bwd_dq_kernel<T, HD, TILE, DROP>;
   cudaError_t err =
       cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -313,22 +329,35 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* y
 
   const dim3 grid((t_len + kTile - 1) / kTile, n_head, batch);
   dkdv<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dy, lse,
-                                         delta, (T*)dk, (T*)dv, t_len, d_model, scale, causal);
+                                         delta, (T*)dk, (T*)dv, t_len, d_model, scale, causal,
+                                         drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dqk<<<grid, kThreads, smem, stream>>>((const T*)q, (const T*)k, (const T*)v, (const T*)dy, lse,
-                                        delta, (T*)dq, t_len, d_model, scale, causal);
+                                        delta, (T*)dq, t_len, d_model, scale, causal, drop);
   return cudaGetLastError();
+}
+
+template <typename T, int HD, int TILE = 64>
+cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* y, const void* dy,
+                      const float* lse, float* delta, void* dq, void* dk, void* dv, int batch,
+                      int t_len, int d_model, int n_head, float scale, int causal,
+                      const dqvq::DropoutParams& drop, cudaStream_t stream) {
+  if (drop.threshold > 0)
+    return launch_drop<T, HD, TILE, true>(q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len,
+                                          d_model, n_head, scale, causal, drop, stream);
+  return launch_drop<T, HD, TILE, false>(q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len,
+                                         d_model, n_head, scale, causal, drop, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* y, const void* dy,
                    const float* lse, float* delta, void* dq, void* dk, void* dv, int batch,
                    int t_len, int d_model, int n_head, float scale, int causal,
-                   cudaStream_t stream) {
+                   const dqvq::DropoutParams& drop, cudaStream_t stream) {
 #define DQVQ_BWD(...)                                                                    \
   return launch_hd<T, __VA_ARGS__>(q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, \
-                                   n_head, scale, causal, stream)
+                                   n_head, scale, causal, drop, stream)
   switch (d_model / n_head) {
     case 16: DQVQ_BWD(16);
     case 32: DQVQ_BWD(32);
@@ -345,22 +374,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* y, c
 
 // q, k, v, y, dy, dq, dk, dv: (batch, t_len, d_model) contiguous in `dtype`;
 // lse: (batch, n_head, t_len) f32 from the forward; delta: f32 workspace of
-// the same shape. Returns a cudaError_t.
+// the same shape. rate and seed: the forward's (see fused_attention.cu).
+// Returns a cudaError_t.
 extern "C" int dqvq_fused_attention_backward(const void* q, const void* k, const void* v,
                                              const void* y, const void* dy, const void* lse,
                                              void* delta, void* dq, void* dk, void* dv, int batch,
                                              int t_len, int d_model, int n_head, float scale,
-                                             int causal, int dtype, void* stream) {
-  if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0)
+                                             int causal, int dtype, double rate,
+                                             unsigned long long seed, void* stream) {
+  if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
+      !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == dqvq::kFloat32)
     return launch<float>(q, k, v, y, dy, l, dl, dq, dk, dv, batch, t_len, d_model, n_head, scale,
-                         causal, s);
+                         causal, drop, s);
   if (dtype == dqvq::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, y, dy, l, dl, dq, dk, dv, batch, t_len, d_model, n_head,
-                                 scale, causal, s);
+                                 scale, causal, drop, s);
   return cudaErrorInvalidValue;
 }

@@ -59,6 +59,11 @@ class Dualformer(nn.Module):
         self.content_loss_weight = content_loss_weight
         self.position_loss_weight = position_loss_weight
         self.weight_decay = weight_decay
+        self.warmup_epochs = warmup_epochs
+        self.monitor = monitor
+        self.compute_dtype = compute_dtype
+        self.first_stage_key = "image"
+        self.cond_stage_key = "image"
 
         tparams = transformer_config["params"]
         pparams = permuter_config["params"]
@@ -78,6 +83,7 @@ class Dualformer(nn.Module):
         self.fine_position_order = pparams.get("fine_position_order", "region-first")
         self.max_coarse_position_idx = self.hw1 * self.hw1 - 1  # QUIRKS #12
         self.fine_position_size = tparams["fine_position_size"]
+        self.vocab_size = tparams["vocab_size"]
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -103,15 +109,16 @@ class Dualformer(nn.Module):
         return self.first_stage_model.decode(quant)
 
     # ---------------------------------------------------------- training
-    def forward(self, x, train=False, generator=None):
+    def forward(self, x, train=False, generator=None, seed=None):
         """Images (B, H, W, 3) -> the training losses (frozen encode, then
         `forward_tokens`)."""
         _, z = self.encode_to_z(x)
-        return self.forward_tokens(z, train=train, generator=generator)
+        return self.forward_tokens(z, train=train, generator=generator, seed=seed)
 
-    def forward_tokens(self, z, train=False, generator=None):
+    def forward_tokens(self, z, train=False, generator=None, seed=None):
         """The training losses from PRE-ENCODED permuter streams `z` (the dict
-        `encode_to_z` returns, (B, L) integer tensors on the model's device)."""
+        `encode_to_z` returns, (B, L) integer tensors on the model's device).
+        `generator` and the integer `seed` feed the dropouts when `train`."""
         z = {k: v.long() for k, v in z.items()}
         ref = z["coarse_content"]
         c_coarse, c_fine, c_pos_coarse, c_pos_fine, c_seg_coarse, c_seg_fine = \
@@ -132,11 +139,33 @@ class Dualformer(nn.Module):
             content_target=torch.cat([coarse_content, fine_content], dim=1)[:, 1:],
             coarse_position_target=coarse_position[:, 1:],
             fine_position_target=fine_position,
-            train=train, generator=generator)
+            train=train, generator=generator, seed=seed)
 
     def loss(self, output):
         return (self.content_loss_weight * output["content_loss"]
                 + self.position_loss_weight * output["position_loss"])
+
+    @torch.no_grad()
+    def log_images(self, x, generator=None, temperature=1.0, top_k=300, top_p=1.0,
+                   top_k_pos=100, top_p_pos=1.0):
+        """The training loop's image grids from up to 4 images `x` (B, H, W,
+        3): samples with the fine positions fixed to the schedule, free
+        samples, the inputs and their reconstructions through the stage-2
+        path (encode, pack, unpack, decode). numpy arrays in [-1, 1]."""
+        x = x[:4].float()
+        c = self.encode_to_c(x.shape[0], x.device)
+        knobs = dict(generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
+                     top_k_pos=top_k_pos, top_p_pos=top_p_pos)
+        log = {}
+        for name, fixed in (("samples_fixed_fine_position", True),
+                            ("samples_from_scratch", False)):
+            toks = self.sample_from_scratch(*c, fix_fine_position=fixed, **knobs)
+            log[name] = self.decode_to_img(*toks)
+        z = self.encode_to_z(x)[1]
+        log["inputs"] = x
+        log["reconstructions"] = self.decode_to_img(
+            z["coarse_content"], z["fine_content"], z["coarse_position"], z["fine_position"])
+        return {k: v.float().cpu().numpy() for k, v in log.items()}
 
     # ------------------------------------------------------------- masks
     def _content_mask(self, logits, done):

@@ -45,6 +45,8 @@ class DualGrainVQModel(nn.Module):
         if compute_dtype:
             raise NotImplementedError("compute_dtype for the DQ-VAE is not ported")
         self.ckpt_path = ckpt_path
+        self.image_key = image_key
+        self.monitor = monitor
         self.warmup_epochs = warmup_epochs
         self.loss_with_epoch = loss_with_epoch
         self.scheduler_type = scheduler_type

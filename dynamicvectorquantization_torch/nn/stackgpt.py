@@ -39,6 +39,16 @@ def cross_entropy_ignore(logits, targets, ignore_index: int):
     return (nll * keep).sum() / keep.sum().clamp(min=1.0)
 
 
+def lookup_few_rows(table: nn.Embedding, index):
+    """`table(index)` for a table of a few rows (the two segment embeddings),
+    as a one-hot product: the rows come out exactly, and the gradient, a sum
+    of thousands of rows into each table row, is one GEMM. `F.embedding`'s
+    backward at that duplication was seen to differ in the last bit between
+    otherwise identical runs on an H100, which breaks an exact resume."""
+    w = table.weight
+    return torch.nn.functional.one_hot(index, w.shape[0]).to(w.dtype) @ w
+
+
 class StackGPT(nn.Module):
     def __init__(self, vocab_size=1027, coarse_position_size=259, fine_position_size=1027,
                  segment_size=2, block_size=2048, position_layer=6, content_layer=18,
@@ -98,14 +108,16 @@ class StackGPT(nn.Module):
     def forward(self, coarse_content, fine_content, coarse_position, fine_position,
                 coarse_seg=None, fine_seg=None, content_target=None,
                 coarse_position_target=None, fine_position_target=None, train=False,
-                generator=None):
+                generator=None, seed=None):
         """Training forward over (B, L) integer streams. Without targets:
         `{"position_logits", "content_logits"}`; with them the four losses of
-        `losses_from_logits`. `generator` feeds the dropouts when `train`."""
+        `losses_from_logits`. When `train`, `generator` feeds the embedding
+        and residual dropouts and the integer `seed` the attention dropout."""
         x, shifted = self.embed_training_inputs(
             coarse_content, fine_content, coarse_position, fine_position, coarse_seg, fine_seg,
             train=train, generator=generator)
-        out = self.forward_from_embeddings(x, shifted, train=train, generator=generator)
+        out = self.forward_from_embeddings(x, shifted, train=train, generator=generator,
+                                           seed=seed)
         if content_target is None:
             return out
         return self.losses_from_logits(
@@ -124,17 +136,21 @@ class StackGPT(nn.Module):
         x = self.content_emb(content[:, :-1]) + (position + self.pos_emb[:, :t, :])
         if self.activate_segment:
             segment = torch.cat([coarse_seg, fine_seg], dim=1)
-            x = x + self.seg_emb(segment[:, :-1])
+            x = x + lookup_few_rows(self.seg_emb, segment[:, :-1])
         x = dropout(x, self.embd_pdrop, train, generator)
         shifted = torch.cat([self.content_coarse_pos_emb(coarse_position[:, 1:]),
                              self.content_fine_pos_emb(fine_position)], dim=1)
         return x, shifted
 
     def forward_from_embeddings(self, x, shifted_position_embeddings, train=False,
-                                generator=None):
-        position_hidden = self.position_transformer(x, train=train, generator=generator)
+                                generator=None, seed=None):
+        # layers count through both stacks (position 0.., then content), so
+        # no two of them share an attention-dropout seed
+        position_hidden = self.position_transformer(x, train=train, generator=generator,
+                                                    seed=seed)
         content_hidden = self.content_transformer(
-            position_hidden + shifted_position_embeddings, train=train, generator=generator)
+            position_hidden + shifted_position_embeddings, train=train, generator=generator,
+            seed=seed, first_layer=self.position_layer)
         return {"position_logits": self.position_head(position_hidden),
                 "content_logits": self.content_head(content_hidden)}
 

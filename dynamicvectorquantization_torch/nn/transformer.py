@@ -10,10 +10,13 @@ Full sequence (`cache is None`): the attention is
 with no head transpose: the CUDA kernels on a CUDA tensor, forward and
 backward, their plain versions on a CPU tensor. Residual dropout
 (`resid_pdrop`, after `proj` and after the MLP) draws from an explicit
-`torch.Generator`. Attention-probability dropout lives inside the TPU
-attention kernels and is not ported: `attn_pdrop > 0` with `train=True`
-raises (ROADMAP.md). `attn_bias`, cross-attention and sequence parallelism
-are not ported either; no shipped unconditional config turns them on.
+`torch.Generator`. Attention-probability dropout (`attn_pdrop`, with
+`train=True`) runs inside the attention kernels, forward and backward: each
+layer's mask comes from the integer `seed` of the training forward mixed with
+the layer's index in the model (`ops.attention.mix_seed`), both host
+integers, so no device sync is added and two layers never share a mask.
+`attn_bias`, cross-attention and sequence parallelism are not ported; no
+shipped unconditional config turns them on.
 
 Decode: caches are updated IN PLACE (the JAX package returns new cache
 arrays; here that would copy hundreds of MB per step).
@@ -27,7 +30,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.attention import fused_causal_attention
+from ..ops.attention import fused_causal_attention, mix_seed
 from ..ops.kv_int8 import CHUNK, decode_attention_int8, quantize_kv
 from .activations import GELU
 from .norm import LayerNorm
@@ -113,14 +116,17 @@ class CausalSelfAttention(nn.Module):
         self.value = nn.Linear(n_embd, n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
 
-    def forward(self, x, cache=None, cache_index=None, train=False, generator=None):
-        """Full sequence when `cache` is None: x (B, T, C), causal. Else a
-        decode step: x (B, 1, C) against `cache` (updated in place at
-        `cache_index`, a host int)."""
+    def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None):
+        """Full sequence when `cache` is None: x (B, T, C), causal; `seed` is
+        this layer's attention-dropout seed (needed when `train` and
+        `attn_pdrop > 0`). Else a decode step: x (B, 1, C) against `cache`
+        (updated in place at `cache_index`, a host int)."""
         if cache is None:
-            rate = float(self.attn_pdrop) if train else 0.0  # > 0 raises, see the module docstring
+            rate = float(self.attn_pdrop) if train else 0.0
+            if rate > 0.0 and seed is None:
+                raise ValueError("attn_pdrop > 0 in training needs the forward's integer seed")
             y = fused_causal_attention(self.query(x), self.key(x), self.value(x), self.n_head,
-                                       causal=True, rate=rate)
+                                       causal=True, rate=rate, seed=seed)
             return dropout(self.proj(y), self.resid_pdrop, train, generator)
         b, t, c = x.shape
         if t != 1:
@@ -162,8 +168,8 @@ class Block(nn.Module):
         self.mlp = nn.Sequential(
             nn.Linear(n_embd, 4 * n_embd), GELU(), nn.Linear(4 * n_embd, n_embd))
 
-    def forward(self, x, cache=None, cache_index=None, train=False, generator=None):
-        x = x + self.attn(self.ln1(x), cache, cache_index, train, generator)
+    def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None):
+        x = x + self.attn(self.ln1(x), cache, cache_index, train, generator, seed)
         return x + dropout(self.mlp(self.ln2(x)), self.resid_pdrop, train, generator)
 
 
@@ -175,9 +181,13 @@ class TransformerStack(nn.ModuleList):
         super().__init__(Block(n_embd, n_head, attn_pdrop, resid_pdrop)
                          for _ in range(num_layers))
 
-    def forward(self, x, cache: KVCache = None, cache_index=None, train=False, generator=None):
-        """Full sequence when `cache` is None, else one cached decode step."""
+    def forward(self, x, cache: KVCache = None, cache_index=None, train=False, generator=None,
+                seed=None, first_layer: int = 0):
+        """Full sequence when `cache` is None, else one cached decode step.
+        `seed`: the training forward's attention-dropout seed; block i mixes
+        `first_layer + i`, its index in the whole model, into it."""
         layers = cache.layers if cache is not None else [None] * len(self)
-        for block, layer_cache in zip(self, layers):
-            x = block(x, layer_cache, cache_index, train, generator)
+        for i, (block, layer_cache) in enumerate(zip(self, layers)):
+            layer_seed = None if seed is None else mix_seed(seed, first_layer + i)
+            x = block(x, layer_cache, cache_index, train, generator, layer_seed)
         return x

@@ -12,9 +12,18 @@ log-sum-exp of the scaled scores, the Function saves q, k, v, y and it, and
 the backward rebuilds the probabilities from them tile by tile. There is no
 fallback: a CUDA tensor a kernel cannot take raises.
 
-Attention-probability dropout (`rate > 0`) is not ported: it needs a
-counter-based generator inside both kernels (ROADMAP.md, "Philox in-kernel
-dropout for TPU kernels #4/#5"), and until then it raises.
+Attention-probability dropout (`rate > 0`) runs inside both kernels, as in
+the TPU kernels: Y = (P o M / keep) V with the softmax denominator summed
+over the undropped P, and the backward redraws the mask M instead of storing
+it. The keep bit of a probability is a pure function of `(seed, batch, head,
+query row, key column)`: one Philox4x32-10 call with counter `(column // 4,
+row, batch * n_head + head, 0)` and the seed's two 32-bit halves as key
+gives four words, column `c` takes word `c % 4`, and the probability is kept
+iff the word >= uint32(rate * 4294967295), the TPU kernel's rule. Tile
+sizes, blocks and threads do not enter, so the forward, both backward passes
+and the plain version (`dropout_keep_mask`, the same Philox in torch integer
+ops) agree bit for bit. `attention_seed` derives a layer's seed on the host
+from (base seed, optimizer step, microbatch, layer), with no device sync.
 """
 from __future__ import annotations
 
@@ -25,9 +34,81 @@ from . import cuda_lib
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORWARD_HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 _BACKWARD_HEAD_DIMS = _FORWARD_HEAD_DIMS
-_DROPOUT_MESSAGE = (
-    "attention-probability dropout (rate > 0) is not ported: see ROADMAP.md, "
-    "'Philox in-kernel dropout for TPU kernels #4/#5'; train with attn_pdrop = 0 until then")
+_MASK32 = 0xFFFFFFFF
+_MASK64 = 0xFFFFFFFFFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _mulhilo32(a: int, b):
+    """(high, low) 32-bit words of the 64-bit product of the constant `a` and
+    the int64 tensor `b` of values below 2^32. (2^32 - 1)^2 overflows int64,
+    so the product is assembled from 16-bit limbs, each partial below 2^33."""
+    a_lo, a_hi = a & 0xFFFF, a >> 16
+    b_lo, b_hi = b & 0xFFFF, b >> 16
+    low = a_lo * b_lo
+    mid = a_hi * b_lo + a_lo * b_hi + (low >> 16)
+    return a_hi * b_hi + (mid >> 16), ((mid & 0xFFFF) << 16) | (low & 0xFFFF)
+
+
+def philox4x32_10(counter, key):
+    """Philox4x32-10 on int64 tensors holding 32-bit words: `counter` four
+    broadcastable tensors, `key` two Python ints. Returns the four output
+    words as int64 tensors in [0, 2^32)."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = (int(k) & _MASK32 for k in key)
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_W0) & _MASK32, (k1 + _PHILOX_W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def dropout_threshold(rate: float) -> int:
+    """A probability is kept iff its 32 random bits are >= this."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must lie in [0, 1), got {rate}")
+    return int(rate * 4294967295.0)
+
+
+def dropout_keep_mask(seed: int, b: int, n_head: int, t: int, rate: float, device=None):
+    """The keep mask both kernels draw, bool (B, H, T, T) [batch, head, query
+    row, key column], from the same Philox counters in torch integer ops."""
+    groups = (t + 3) // 4
+    i64 = dict(dtype=torch.int64, device=device)
+    col4 = torch.arange(groups, **i64).view(1, 1, groups)
+    row = torch.arange(t, **i64).view(1, t, 1)
+    bh = torch.arange(b * n_head, **i64).view(b * n_head, 1, 1)
+    seed = int(seed) & _MASK64
+    words = philox4x32_10((col4, row, bh, torch.zeros((), **i64)), (seed, seed >> 32))
+    bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
+    bits = bits.reshape(b * n_head, t, 4 * groups)[..., :t]
+    return (bits >= dropout_threshold(rate)).view(b, n_head, t, t)
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def mix_seed(seed: int, *values: int) -> int:
+    """A 64-bit seed from `seed` and further integers by a fixed mix
+    (splitmix64 rounds), computed on the host."""
+    out = _splitmix64(int(seed) & _MASK64)
+    for v in values:
+        out = _splitmix64(out ^ (int(v) & _MASK64))
+    return out
+
+
+def attention_seed(base_seed: int, step: int, microbatch: int = 0) -> int:
+    """The seed of one training forward: a function of the base seed, the
+    optimizer step and the microbatch index and of nothing else, so a resumed
+    run redraws the masks of the uninterrupted one. Layers mix their index
+    into it (`mix_seed(seed, layer)`)."""
+    return mix_seed(base_seed, step, microbatch)
 
 
 def _heads(z, n_head):
@@ -45,11 +126,22 @@ def _scores(q, k, n_head, scale, causal):
     return s
 
 
+def _keep_scale(q, n_head, rate, seed):
+    """M / keep as f32 (B, H, T, T), or None at rate 0."""
+    if rate <= 0.0:
+        return None
+    if seed is None:
+        raise ValueError("attention dropout (rate > 0) needs a seed")
+    b, t, _ = q.shape
+    return dropout_keep_mask(seed, b, n_head, t, rate, q.device).float() / (1.0 - rate)
+
+
 def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False,
-                                  return_lse=False):
+                                  return_lse=False, rate=0.0, seed=None):
     """Plain PyTorch version: the same math as the TPU kernel (f32 scores,
-    max-subtracted exp, normalisation after P V), computed in f32. With
-    `return_lse` also the rows' log-sum-exp, (B, H, T) f32."""
+    max-subtracted exp, the denominator summed before the dropout mask,
+    normalisation after P V), computed in f32. With `return_lse` also the
+    rows' log-sum-exp (of the undropped scores), (B, H, T) f32."""
     b, t, d = q.shape
     if scale is None:
         scale = 1.0 / float(d // n_head) ** 0.5
@@ -57,24 +149,34 @@ def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
+    keep = _keep_scale(q, n_head, rate, seed)
+    if keep is not None:
+        p = p * keep
     y = (torch.matmul(p, _heads(v, n_head)) / l).transpose(1, 2).reshape(b, t, d).to(q.dtype)
     if return_lse:
         return y, (m + torch.log(l))[..., 0]
     return y
 
 
-def fused_attention_backward_plain(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True):
+def fused_attention_backward_plain(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True,
+                                   rate=0.0, seed=None):
     """Plain PyTorch version of the backward, in f32: P = exp(S scale - lse),
-    delta = rowsum(dY * Y), dV = P^T dY, dP = dY V^T, dS = P * (dP - delta),
-    dQ = dS K scale, dK = dS^T Q scale; outputs in q's dtype."""
+    delta = rowsum(dY * Y), D = P * M / keep, dV = D^T dY, dP = (dY V^T) * M /
+    keep, dS = P * (dP - delta), dQ = dS K scale, dK = dS^T Q scale (M = 1,
+    keep = 1 at rate 0); outputs in q's dtype."""
     b, t, d = q.shape
     if scale is None:
         scale = 1.0 / float(d // n_head) ** 0.5
     p = torch.exp(_scores(q, k, n_head, scale, causal) - lse[..., None])
     dyh = _heads(dy, n_head)
     delta = (dyh * _heads(y, n_head)).sum(dim=-1, keepdim=True)
-    dv = torch.matmul(p.transpose(-1, -2), dyh)
-    ds = p * (torch.matmul(dyh, _heads(v, n_head).transpose(-1, -2)) - delta)
+    dp = torch.matmul(dyh, _heads(v, n_head).transpose(-1, -2))
+    keep = _keep_scale(q, n_head, rate, seed)
+    dropped = p
+    if keep is not None:
+        dropped, dp = p * keep, dp * keep
+    dv = torch.matmul(dropped.transpose(-1, -2), dyh)
+    ds = p * (dp - delta)
     dq = torch.matmul(ds, _heads(k, n_head)) * scale
     dk = torch.matmul(ds.transpose(-1, -2), _heads(q, n_head)) * scale
     return tuple(z.transpose(1, 2).reshape(b, t, d).to(q.dtype) for z in (dq, dk, dv))
@@ -98,17 +200,28 @@ def _check(name, tensors, n_head, head_dims):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def _dropout_args(rate, seed):
+    rate = float(rate)
+    dropout_threshold(rate)  # validates the rate
+    if rate > 0.0 and seed is None:
+        raise ValueError("attention dropout (rate > 0) needs a seed")
+    return rate, (int(seed) & _MASK64 if rate > 0.0 else 0)
+
+
 def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate=0.0,
-                            return_lse=False):
-    """softmax(Q K^T * scale) V per head; q/k/v: (B, T, D), D = n_head * hd
-    with hd in {16, 32, 64, 128, 256, 512}; f32 or bf16. Returns (B, T, D) in
-    q's dtype, and with `return_lse` also the rows' log-sum-exp (B, H, T) f32.
-    `fused_attention_forward.launches` counts kernel launches."""
-    if rate > 0.0:
-        raise NotImplementedError(_DROPOUT_MESSAGE)
+                            return_lse=False, seed=None):
+    """softmax(Q K^T * scale) V per head, with dropout on the probabilities
+    when `rate > 0` (mask drawn from the integer `seed`, see the module
+    docstring); q/k/v: (B, T, D), D = n_head * hd with hd in {16, 32, 64, 128,
+    256, 512}; f32 or bf16. Returns (B, T, D) in q's dtype, and with
+    `return_lse` also the rows' log-sum-exp (B, H, T) f32.
+    `fused_attention_forward.launches` counts kernel launches, and
+    `.dropout_launches` those of them at `rate > 0`."""
+    rate, seed = _dropout_args(rate, seed)
     tensors = (q, k, v)
     if all(x.device.type == "cpu" for x in tensors):
-        return fused_attention_forward_plain(q, k, v, n_head, scale, causal, return_lse)
+        return fused_attention_forward_plain(q, k, v, n_head, scale, causal, return_lse,
+                                             rate, seed)
     _check("fused_attention_forward", tensors, n_head, _FORWARD_HEAD_DIMS)
     b, t, d = q.shape
     if scale is None:
@@ -119,24 +232,30 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
     err = cuda_lib.lib().dqvq_fused_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None, b, t, d, n_head,
-        float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
+        float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate, seed,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_lib.check(err, "fused_attention_forward")
     fused_attention_forward.launches += 1
+    fused_attention_forward.dropout_launches += rate > 0.0
     return (out, lse) if return_lse else out
 
 
 fused_attention_forward.launches = 0
+fused_attention_forward.dropout_launches = 0  # those of `launches` that drew a mask
 
 
-def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True):
-    """(dq, dk, dv) in q's dtype from the forward's inputs, its output y and
-    its log-sum-exp; hd as in the forward. `fused_attention_backward.launches`
-    counts launches (delta, dK/dV and dQ passes are one launch of the wrapper)."""
+def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True,
+                             rate=0.0, seed=None):
+    """(dq, dk, dv) in q's dtype from the forward's inputs, its output y, its
+    log-sum-exp and its dropout `rate` and `seed`; hd as in the forward.
+    `fused_attention_backward.launches` counts launches (delta, dK/dV and dQ
+    passes are one launch of the wrapper)."""
+    rate, seed = _dropout_args(rate, seed)
     tensors = (q, k, v, y, dy)
     if all(x.device.type == "cpu" for x in (*tensors, lse)):
-        return fused_attention_backward_plain(q, k, v, y, lse, dy, n_head, scale, causal)
+        return fused_attention_backward_plain(q, k, v, y, lse, dy, n_head, scale, causal,
+                                              rate, seed)
     _check("fused_attention_backward", tensors, n_head, _BACKWARD_HEAD_DIMS)
     b, t, d = q.shape
     if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (b, n_head, t)
@@ -150,23 +269,25 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
     err = cuda_lib.lib().dqvq_fused_attention_backward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, d, n_head,
-        float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype],
+        float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate, seed,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_lib.check(err, "fused_attention_backward")
     fused_attention_backward.launches += 1
+    fused_attention_backward.dropout_launches += rate > 0.0
     return dq, dk, dv
 
 
 fused_attention_backward.launches = 0
+fused_attention_backward.dropout_launches = 0
 
 
 class _FusedCausalAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, n_head, scale, causal):
-        y, lse = fused_attention_forward(q, k, v, n_head, scale, causal, return_lse=True)
+    def forward(ctx, q, k, v, n_head, scale, causal, rate, seed):
+        y, lse = fused_attention_forward(q, k, v, n_head, scale, causal, rate, True, seed)
         ctx.save_for_backward(q, k, v, y, lse)
-        ctx.args = (n_head, scale, causal)
+        ctx.args = (n_head, scale, causal, rate, seed)
         return y
 
     @staticmethod
@@ -175,17 +296,16 @@ class _FusedCausalAttention(torch.autograd.Function):
         # autograd often hands over a non-contiguous dy (a view of the
         # projection's input gradient): copy it, the kernel takes nothing else
         dq, dk, dv = fused_attention_backward(q, k, v, y, lse, dy.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
-def fused_causal_attention(q, k, v, n_head: int, scale=None, causal=True, rate=0.0):
+def fused_causal_attention(q, k, v, n_head: int, scale=None, causal=True, rate=0.0, seed=None):
     """Differentiable softmax(Q K^T * scale) V on contiguous (B, T, D)
     projection outputs (no head transpose); on CUDA both directions are
     hand-written kernels. Where no gradient is asked for (`torch.no_grad()`,
     or inputs that need none) only the forward runs and no log-sum-exp is
-    kept. `rate > 0` raises (see the module docstring)."""
-    if rate > 0.0:
-        raise NotImplementedError(_DROPOUT_MESSAGE)
+    kept. `rate > 0` drops attention probabilities with the mask of the
+    integer `seed` (required then); the backward redraws it."""
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
-        return fused_attention_forward(q, k, v, n_head, scale, causal)
-    return _FusedCausalAttention.apply(q, k, v, n_head, scale, causal)
+        return fused_attention_forward(q, k, v, n_head, scale, causal, rate, seed=seed)
+    return _FusedCausalAttention.apply(q, k, v, n_head, scale, causal, float(rate), seed)

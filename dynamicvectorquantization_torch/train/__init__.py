@@ -1,1 +1,1 @@
-"""Training: LR schedules and the stage-2 trainer."""
+"""Training: LR schedules, the two stage trainers, the epoch loop and its command line."""

@@ -20,14 +20,17 @@ Two alternating optimizers, as the reference's Lightning module runs them:
 Where the JAX trainer is a pure function of a `Stage1State`, this one owns
 its state and updates it in place: the model's parameters and buffers (EMA
 codebook, BatchNorm statistics), the two optimizers' moments `ae_m`, `ae_v`,
-`disc_m`, `disc_v` keyed by parameter name, their counts, `step` and `epoch`.
+`disc_m`, `disc_v` keyed by parameter name, their counts, `step` and `epoch`;
+`state_dict()` / `load_state_dict()` carry all of it and the state of the
+trainer's own generator (which draws the codebook's restart candidates when
+the caller passes none), so a resumed run continues the same stream.
 Adam is plain PyTorch (`torch._foreach_*`), with optax's arithmetic; the JAX
 trainer's `optax.adam` also runs outside any kernel. Logs keep the JAX
 names and come back as 0-d tensors on the device.
 
 Not ported (each raises where reached): `remat=True`, the Gumbel router gate
-(`update_router`), `disc_conditional`, ActNorm; the training loop, data
-loading and checkpoints.
+(`update_router`), `disc_conditional`, ActNorm. The epoch loop, checkpoints
+and data loading live in `train/loop.py`.
 """
 from __future__ import annotations
 
@@ -72,6 +75,9 @@ class _Adam:
             self.v[k].zero_()
         self.count = 0
 
+    def state_dict(self):
+        return {"count": self.count, "m": dict(self.m), "v": dict(self.v)}
+
     def load(self, count, m, v):
         if set(m) != set(self.params) or set(v) != set(self.params):
             raise KeyError("optimizer state does not match the parameters")
@@ -98,7 +104,8 @@ def _mean_of(dicts):
 
 class Stage1Trainer:
     def __init__(self, model, learning_rate, min_learning_rate=0.0, warmup_steps=0,
-                 max_steps=1_000_000, scheduler_type=None, remat=False, accum=1, device=None):
+                 max_steps=1_000_000, scheduler_type=None, remat=False, accum=1, device=None,
+                 seed=0):
         if remat:
             raise NotImplementedError(
                 "remat (activation checkpointing around a forward that updates the EMA "
@@ -128,8 +135,26 @@ class Stage1Trainer:
         self.disc_opt = _Adam(self.disc_params, schedule())
         self.step = 0
         self.epoch = 0
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
 
     # ------------------------------------------------------------- state
+    def state_dict(self):
+        """The whole training state: the model's parameters and buffers (EMA
+        codebook, BatchNorm statistics, the frozen LPIPS), both optimizers,
+        the step, the epoch and the trainer's generator state."""
+        return {"model": self.model.state_dict(), "ae_opt": self.ae_opt.state_dict(),
+                "disc_opt": self.disc_opt.state_dict(), "step": self.step, "epoch": self.epoch,
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state):
+        self.model.load_state_dict(state["model"])
+        for opt, key in ((self.ae_opt, "ae_opt"), (self.disc_opt, "disc_opt")):
+            opt.load(state[key]["count"], state[key]["m"], state[key]["v"])
+        self.step = int(state["step"])
+        self.epoch = int(state["epoch"])
+        self.generator.set_state(state["generator"].cpu())
+
     def init_state(self, generator: torch.Generator = None):
         """A fresh training state: with a generator, seeded random weights
         (`model.init_weights`: the LPIPS backbone random, its lin heads the
@@ -216,8 +241,10 @@ class Stage1Trainer:
         3) NHWC images in [-1, 1], or (accum, B, H, W, 3) with `accum > 1`:
         gradients and logs are averaged over the microbatches, the EMA and
         BatchNorm statistics evolve per microbatch, each optimizer steps
-        once. `generator` draws the codebook's restart candidates. Returns
-        the logs."""
+        once. `generator` draws the codebook's restart candidates (the
+        trainer's own when none is passed). Returns the logs."""
+        if generator is None:
+            generator = self.generator
         micro = self._microbatches(self._images(x))
         gate_step = self.epoch if self.loss_with_epoch else self.step
         logs = {}

@@ -10,15 +10,26 @@ in the reference.
 
 Where the JAX trainer is a pure function of a state, this one owns its state
 and updates it in place: `masters` (f32 parameters), `m`, `v` (f32 moments,
-all keyed by the transformer's parameter names) and `count`. With
+all keyed by the transformer's parameter names), `count` (optimizer steps
+taken) and `epoch`; `state_dict()` / `load_state_dict()` carry all of it.
+With
 `compute_dtype="bfloat16"` the transformer module holds the bf16 working
 copy; autograd differentiates with respect to that copy (bf16 gradients), and
 the fused AdamW kernel reads them, updates the f32 masters and writes the
 next working copy in the same pass. With f32 the module's parameters are the
 masters. The first stage always encodes in f32 (its bf16 mode is not ported).
 
-Not ported: attention-probability dropout (`attn_pdrop > 0` raises, see
-ROADMAP.md), checkpoints, data loading and the parallel trainers.
+Dropout is a function of (base seed, optimizer step, microbatch, layer) and
+of nothing else, as the JAX loop folds the global step into a constant base
+key: a run resumed from a checkpoint draws the masks the uninterrupted run
+would have drawn. The attention kernels get an integer seed per forward
+(`ops.attention.attention_seed`, mixed on the host: no device sync); the
+trainer's own `torch.Generator`, which feeds the embedding and residual
+dropouts, is re-seeded from the base seed at every step. A caller that
+passes its own generator keeps that generator's stream instead.
+
+The epoch loop, checkpoints and data loading live in `train/loop.py`; the
+parallel trainers are not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,12 +37,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.attention import attention_seed, mix_seed
 from ..ops.fused_adamw import adamw_scalars, fused_adamw_step
 from ..utils.device import resolve_device
 from .schedules import warmup_cosine
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 _LOSS_KEYS = ("content_loss", "position_loss", "coarse_position_loss", "fine_position_loss")
+_ELEMENTWISE = 0xE1E  # stream tag of the embedding / residual dropout generator
 
 
 def decayed_parameter_names(module: nn.Module):
@@ -44,7 +57,7 @@ def decayed_parameter_names(module: nn.Module):
 
 class Stage2Trainer:
     def __init__(self, model, learning_rate, min_learning_rate=0.0, warmup_steps=0,
-                 max_steps=1_000_000, accum=1, compute_dtype=None, device=None):
+                 max_steps=1_000_000, accum=1, compute_dtype=None, device=None, seed=0):
         if compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
         self.device = resolve_device(device)
@@ -75,8 +88,32 @@ class Stage2Trainer:
         self.m = {k: torch.zeros_like(p) for k, p in self.masters.items()}
         self.v = {k: torch.zeros_like(p) for k, p in self.masters.items()}
         self.count = 0
+        self.epoch = 0
+        self.base_seed = int(seed)
+        self.generator = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------- state
+    def state_dict(self):
+        """The whole training state: f32 masters, both moments, the step
+        count, the epoch and the base seed of the dropout streams."""
+        return {"masters": dict(self.masters), "m": dict(self.m), "v": dict(self.v),
+                "count": self.count, "epoch": self.epoch, "seed": self.base_seed}
+
+    def load_state_dict(self, state):
+        """Continue from a `state_dict()`: the masters (and from them the
+        bf16 working copy, which is their rounding), the moments, the counts
+        and the base seed."""
+        if set(state["masters"]) != set(self.masters):
+            raise KeyError("training state does not match the transformer's parameters")
+        with torch.no_grad():
+            for k, p in self.params.items():
+                self.masters[k].copy_(state["masters"][k])
+                if self.mixed:
+                    p.copy_(self.masters[k])
+        self.load_optimizer_state(state["count"], state["m"], state["v"])
+        self.epoch = int(state["epoch"])
+        self.base_seed = int(state["seed"])
+
     def load_optimizer_state(self, count: int, m: dict, v: dict):
         """Continue from a (count, m, v) state keyed by parameter name, e.g.
         `utils.weights.adamw_state_from_optax` of a JAX training state."""
@@ -93,11 +130,11 @@ class Stage2Trainer:
             return {k: torch.as_tensor(v).to(self.device) for k, v in x.items()}
         return torch.as_tensor(x).to(self.device)
 
-    def _losses(self, x, train, generator):
+    def _losses(self, x, train, generator, seed=None):
         if isinstance(x, dict):  # cached permuter streams
-            out = self.model.forward_tokens(x, train=train, generator=generator)
+            out = self.model.forward_tokens(x, train=train, generator=generator, seed=seed)
         else:
-            out = self.model(x.float(), train=train, generator=generator)
+            out = self.model(x.float(), train=train, generator=generator, seed=seed)
         return self.model.loss(out), out
 
     def compute_grads(self, x, generator=None):
@@ -105,8 +142,13 @@ class Stage2Trainer:
         tensors, and the gradient of the total with respect to every
         transformer parameter (pad rows zeroed), keyed by name. x: a dict of
         (B, L) streams or (B, H, W, 3) images; with `accum > 1` the same with
-        a leading (accum,) axis, gradients accumulated in f32 and averaged."""
+        a leading (accum,) axis, gradients accumulated in f32 and averaged.
+        Without a `generator` the trainer's own is used, re-seeded for this
+        step."""
         x = self._to_device(x)
+        if generator is None:
+            generator = self.generator
+            generator.manual_seed(mix_seed(self.base_seed, self.count, _ELEMENTWISE) >> 1)
         names, params = zip(*self.params.items())
         if self.accum == 1:
             micro = [x]
@@ -117,8 +159,9 @@ class Stage2Trainer:
             micro = [{k: v[i] for k, v in x.items()} if isinstance(x, dict) else x[i]
                      for i in range(n)]
         sums, log_sums = None, None
-        for xi in micro:
-            total, out = self._losses(xi, True, generator)
+        for i, xi in enumerate(micro):
+            total, out = self._losses(xi, True, generator,
+                                      attention_seed(self.base_seed, self.count, i))
             g = torch.autograd.grad(total, params)
             logs = {"total": total.detach().float(),
                     **{k: out[k].detach().float() for k in _LOSS_KEYS}}

@@ -133,6 +133,18 @@ def dqvae_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def dualformer_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX Dualformer's `model.init` result `{"transformer": {"params"},
+    "first_stage": {"params", "ema"}}` -> the port Dualformer's state_dict
+    (`transformer.*`, `first_stage_model.*`), so both training loops can
+    start from one state."""
+    sd = {f"transformer.{k}": v for k, v in
+          stackgpt_state_dict_from_flax(variables["transformer"]["params"]).items()}
+    sd.update({f"first_stage_model.{k}": v for k, v in
+               dqvae_state_dict_from_flax(variables["first_stage"]).items()})
+    return sd
+
+
 def _dqvae_params_from_flax(params) -> Dict[str, torch.Tensor]:
     """The DQ-VAE's flax `params` tree (or a tree of that shape, such as
     Adam moments) keyed by the port's parameter names."""

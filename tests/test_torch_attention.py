@@ -3,7 +3,12 @@ ops/attention.py`): the plain forward against the JAX package's Pallas
 kernel `fused_causal_attention(..., interpret=True)` (f32, atol 2e-5), the
 plain backward and the autograd Function against `jax.grad` of the same (dq,
 dk, dv atol 5e-5), and, on a CUDA card, the CUDA kernels against the plain
-versions.
+versions. Attention-probability dropout: the Philox4x32-10 generator against
+the published known-answer vectors and an independent Python-int
+implementation, the keep mask's statistics and layout, the plain forward and
+backward at rate 0.1 / 0.5 against `jax.grad` of the TPU kernel's own math
+written in `jnp` with the port's mask injected (atol 5e-5), and the JAX
+package's own dropout-semantics test mirrored.
 
 JAX is imported inside the tests, so the CUDA cases also run where only
 PyTorch is installed: `python -m pytest --noconftest -m cuda tests/test_torch_*.py`.
@@ -13,12 +18,36 @@ import pytest
 import torch
 
 from dynamicvectorquantization_torch.ops.attention import (
+    attention_seed,
+    dropout_keep_mask,
+    dropout_threshold,
     fused_attention_backward,
     fused_attention_backward_plain,
     fused_attention_forward,
     fused_attention_forward_plain,
     fused_causal_attention,
+    mix_seed,
+    philox4x32_10,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread, so that on a loaded
+    machine (several test processes) no small op waits at an OpenMP barrier."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# Philox4x32-10 known answers (Random123's kat_vectors): counter, key -> output
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2, (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344), (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
 
 
 @pytest.fixture
@@ -51,12 +80,161 @@ def test_plain_matches_jax_pallas_interpret(t, n_head, causal):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=0)
 
 
-def test_dropout_waits_for_training_slice():
+def _philox_ints(ctr, key):
+    """Philox4x32-10 in Python integers, written from the paper."""
+    c, k = list(ctr), list(key)
+    for _ in range(10):
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k[0], p1 & 0xFFFFFFFF, (p0 >> 32) ^ c[3] ^ k[1], p0 & 0xFFFFFFFF]
+        k = [(k[0] + 0x9E3779B9) & 0xFFFFFFFF, (k[1] + 0xBB67AE85) & 0xFFFFFFFF]
+    return tuple(c)
+
+
+@pytest.mark.parametrize("ctr,key,want", PHILOX_KAT)
+def test_philox_known_answer_vectors(ctr, key, want):
+    assert _philox_ints(ctr, key) == want
+    out = philox4x32_10(tuple(torch.tensor(c, dtype=torch.int64) for c in ctr), key)
+    assert tuple(int(w) for w in out) == want
+
+
+def test_philox_tensor_version_equals_python_ints_on_random_counters():
+    r = np.random.default_rng(0)
+    ctr = r.integers(0, 2 ** 32, size=(4, 64), dtype=np.int64)
+    ctr[:, :4] = [[0xFFFFFFFF] * 4, [0] * 4, [0xFFFF0000] * 4, [0x0000FFFF] * 4]  # limb edges
+    key = (0xDEADBEEF, 0x01234567)
+    out = philox4x32_10(tuple(torch.from_numpy(c) for c in ctr), key)
+    for i in range(64):
+        assert tuple(int(w[i]) for w in out) == _philox_ints(ctr[:, i].tolist(), key), i
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_keep_mask_statistics_and_layout(rate):
+    b, h, t = 2, 3, 301
+    mask = dropout_keep_mask(77, b, h, t, rate)
+    assert mask.shape == (b, h, t, t) and mask.dtype == torch.bool
+    n = mask.numel()
+    sigma = (rate * (1 - rate) / n) ** 0.5
+    assert abs(mask.float().mean().item() - (1 - rate)) < 3 * sigma
+    # element (b, h, row, col) is word col % 4 of counter (col // 4, row, b * H + h, 0)
+    seed = 77
+    thr = dropout_threshold(rate)
+    assert thr == int(rate * 4294967295.0)
+    for bi, hi, row, col in ((0, 0, 0, 0), (1, 2, 300, 299), (0, 1, 17, 130), (1, 0, 64, 63)):
+        words = _philox_ints((col // 4, row, bi * h + hi, 0), (seed & 0xFFFFFFFF, seed >> 32))
+        word = words[col % 4]
+        assert bool(mask[bi, hi, row, col]) == (word >= thr)
+    # a function of global coordinates: a shorter sequence is the corner of a longer one
+    assert torch.equal(dropout_keep_mask(77, b, h, 70, rate), mask[:, :, :70, :70])
+    assert not torch.equal(dropout_keep_mask(78, b, h, t, rate), mask)
+    assert dropout_keep_mask(2 ** 63 + 5, 1, 1, 9, rate).shape == (1, 1, 9, 9)  # 64-bit seeds
+
+
+def test_seed_mix_is_a_fixed_function_of_its_integers():
+    assert mix_seed(1, 2, 3) == mix_seed(1, 2, 3) and 0 <= mix_seed(1, 2, 3) < 2 ** 64
+    seeds = {attention_seed(base, step, micro) for base in (0, 1) for step in range(4)
+             for micro in range(3)}
+    seeds |= {mix_seed(attention_seed(0, 0, 0), layer) for layer in range(24)}
+    assert len(seeds) == 2 * 4 * 3 + 24
+    assert attention_seed(5, 7) == attention_seed(5, 7, 0) != attention_seed(7, 5)
+
+
+def _jnp_attention_with_mask(n_head, causal, rate, mask):
+    """The TPU kernel's math (`_fwd_kernel`) in jnp with the keep mask given."""
+    import jax
+    import jax.numpy as jnp
+
+    def fn(q, k, v):
+        b, t, d = q.shape
+        hd = d // n_head
+        heads = lambda z: z.reshape(b, t, n_head, hd).transpose(0, 2, 1, 3)  # noqa: E731
+        s = jnp.einsum("bhqd,bhkd->bhqk", heads(q), heads(k),
+                       precision=jax.lax.Precision.HIGHEST) / np.sqrt(hd)
+        if causal:
+            s = jnp.where(jnp.tril(jnp.ones((t, t), bool)), s, -jnp.inf)
+        p = jnp.exp(s - s.max(-1, keepdims=True))
+        l = p.sum(-1, keepdims=True)
+        p = jnp.where(mask, p / (1.0 - rate), 0.0)
+        y = jnp.einsum("bhqk,bhkd->bhqd", p, heads(v), precision=jax.lax.Precision.HIGHEST) / l
+        return y.transpose(0, 2, 1, 3).reshape(b, t, d)
+
+    return fn
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_dropout_forward_and_backward_match_jax_grad_of_the_kernel_math(rate, causal):
+    import jax
+    import jax.numpy as jnp
+
+    b, t, d, n_head, seed = 2, 300, 128, 2, 4242
+    q, k, v = _qkv(20, b, t, d)
+    dy = np.random.default_rng(21).normal(size=q.shape).astype(np.float32)
+    mask = dropout_keep_mask(seed, b, n_head, t, rate)
+    fn = _jnp_attention_with_mask(n_head, causal, rate, jnp.asarray(mask.numpy()))
+    y_ref, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+
+    tq, tk, tv, tdy = (torch.from_numpy(a) for a in (q, k, v, dy))
+    y, lse = fused_attention_forward(tq, tk, tv, n_head, causal=causal, rate=rate,
+                                     return_lse=True, seed=seed)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_ref), atol=5e-5, rtol=0)
+    # the log-sum-exp is of the undropped scores
+    lse0 = fused_attention_forward(tq, tk, tv, n_head, causal=causal, return_lse=True)[1]
+    assert torch.equal(lse, lse0)
+    out = fused_attention_backward(tq, tk, tv, y, lse, tdy, n_head, causal=causal, rate=rate,
+                                   seed=seed)
+    for got, want in zip(out, ref):
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=0)
+    # the autograd Function carries rate and seed to its backward
+    leaves = [a.clone().requires_grad_() for a in (tq, tk, tv)]
+    yf = fused_causal_attention(*leaves, n_head, causal=causal, rate=rate, seed=seed)
+    assert torch.equal(yf.detach(), y)
+    for got, want in zip(torch.autograd.grad(yf, leaves, tdy), ref):
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=0)
+
+
+def test_dropout_semantics_mirror_the_jax_package():
+    """The JAX package's `test_fused_attention_dropout_semantics` at its shape
+    and rate 0.5: same seed equal, seeds differ, the mean over 40 seeds within
+    0.15 (mean relative error) of the deterministic output, gradients finite."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 256, 128))
+    run = lambda seed, rate=0.5: fused_attention_forward(  # noqa: E731
+        q, k, v, 4, causal=True, rate=rate, seed=seed)
+    y1 = run(123)
+    assert torch.equal(y1, run(123))
+    assert not torch.allclose(y1, run(124))
+    det = fused_attention_forward(q, k, v, 4, causal=True)
+    assert not torch.allclose(y1, det)
+    mean = torch.stack([run(s) for s in range(40)]).mean(0)
+    err = float((mean - det).abs().mean() / det.abs().mean())
+    assert err < 0.15, err
+    leaf = q.clone().requires_grad_()
+    (g,) = torch.autograd.grad(
+        fused_causal_attention(leaf, k, v, 4, causal=True, rate=0.1, seed=7).sum(), leaf)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+def test_rate_zero_is_bit_equal_to_the_rate_free_call_and_reads_no_seed():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 2, 70, 64))
+    dy = torch.from_numpy(_qkv(4, 2, 70, 64)[0])
+    y0, lse0 = fused_attention_forward_plain(q, k, v, 4, causal=True, return_lse=True)
+    y, lse = fused_attention_forward(q, k, v, 4, causal=True, rate=0.0, return_lse=True, seed=9)
+    assert torch.equal(y, y0) and torch.equal(lse, lse0)
+    a = fused_attention_backward(q, k, v, y, lse, dy, 4, causal=True, rate=0.0, seed=9)
+    b = fused_attention_backward_plain(q, k, v, y, lse, dy, 4, causal=True)
+    assert all(torch.equal(x, z) for x, z in zip(a, b))
+
+
+def test_dropout_needs_a_seed_and_a_rate_below_one():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 16, 16))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         fused_attention_forward(q, k, v, 1, rate=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        fused_causal_attention(q, k, v, 1, rate=0.1)
+    with pytest.raises(ValueError, match="seed"):
+        fused_causal_attention(q.requires_grad_(), k, v, 1, rate=0.1)
+    with pytest.raises(ValueError):
+        fused_attention_forward(q, k, v, 1, rate=1.0, seed=0)
+    with pytest.raises(ValueError):
+        dropout_keep_mask(0, 1, 1, 4, -0.1)
 
 
 @pytest.mark.parametrize("t", [256, 300])
@@ -218,3 +396,51 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
         fused_attention_forward(q.half(), k.half(), v.half(), 2)
     with pytest.raises(ValueError):
         fused_attention_forward(q[:, ::2], k[:, ::2], v[:, ::2], 2)  # not contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+@pytest.mark.parametrize("shape,n_head,causal,dtype", [
+    ((2, 300, 64), 1, False, torch.float32),  # hd 64, partial tiles
+    ((2, 805, 1024), 8, True, torch.float32),  # hd 128, T = 805
+    ((8, 805, 1024), 8, True, torch.bfloat16),  # the p6c18 training shape
+    ((2, 300, 512), 2, True, torch.float32),  # hd 256: 64-row forward, 32-row backward tiles
+    ((2, 300, 512), 1, False, torch.float32),  # hd 512: 32-row forward, 16-row backward tiles
+    ((1, 805, 256), 1, True, torch.float32),  # hd 256 at T = 805
+])
+def test_cuda_dropout_kernels_match_plain(cuda_device, rate, shape, n_head, causal, dtype):
+    seed = 1234567890123
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(30, *shape))
+    dy = torch.from_numpy(_qkv(31, *shape)[0]).to(cuda_device, dtype)
+    y, lse = fused_attention_forward(q, k, v, n_head, None, causal, rate, True, seed)
+    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, None, causal, True, rate, seed)
+    atol, rtol = (1e-4, 0) if dtype == torch.float32 else (2e-2, 2.0 ** -7)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    out = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal, rate, seed)
+    ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, None, causal,
+                                         rate, seed)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+    again = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal, rate, seed)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    y2 = fused_attention_forward(q, k, v, n_head, None, causal, rate, seed=seed + 1)
+    assert not torch.equal(y2, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,t", [(64, 64), (128, 100), (256, 200), (512, 300)])
+def test_cuda_kernel_mask_equals_dropout_keep_mask(cuda_device, hd, t):
+    """Uniform probabilities and V rows that are unit vectors: output column
+    c of row r is nonzero iff probability (r, c) was kept."""
+    b, n_head, rate, seed = 2, 2, 0.3, 77
+    q = torch.zeros((b, t, n_head * hd), device=cuda_device)
+    mask = dropout_keep_mask(seed, b, n_head, t, rate, cuda_device)
+    for c0 in range(0, t, hd):  # hd columns of the mask per probe
+        v = torch.zeros((b, t, n_head, hd), device=cuda_device)
+        n = min(hd, t - c0)
+        v[:, c0 + torch.arange(n), :, torch.arange(n)] = 1.0
+        y = fused_attention_forward(q, q, v.reshape(b, t, -1).contiguous(), n_head, None, False,
+                                    rate, seed=seed)
+        got = y.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+        assert torch.equal(got, mask[..., c0:c0 + n])

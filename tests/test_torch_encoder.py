@@ -29,6 +29,17 @@ from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_c
 from dynamicvectorquantization_torch.utils.model_loading import load_model_and_variables
 from dynamicvectorquantization_torch.utils.weights import dqvae_state_dict_from_flax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread, so that on a loaded
+    machine (several test processes) no small op waits at an OpenMP barrier."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DQVAE_TINY = os.path.join(_REPO, "configs/smoke/dqvae-dual-entropy-tiny.yml")
 STAGE2_TINY = os.path.join(_REPO, "configs/smoke/dqtransformer-uncond-tiny.yml")

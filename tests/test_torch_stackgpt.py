@@ -15,6 +15,17 @@ from dynamicvectorquantization_torch.config.yaml_config import load_config
 from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
 from dynamicvectorquantization_torch.utils.weights import stackgpt_state_dict_from_flax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread, so that on a loaded
+    machine (several test processes) no small op waits at an OpenMP barrier."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(_REPO, "configs/smoke/dqtransformer-uncond-tiny.yml")
 STEPS = 20

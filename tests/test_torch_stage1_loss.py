@@ -21,6 +21,17 @@ from dynamicvectorquantization_torch.utils.weights import (
     lpips_state_dict_from_flax,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread, so that on a loaded
+    machine (several test processes) no small op waits at an OpenMP barrier."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(atol=1e-5, rtol=1e-5)
 LOSS_CONFIG = {
     "target": "modules.losses.vqperceptual_multidisc.VQLPIPSWithDiscriminator",

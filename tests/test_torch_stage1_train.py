@@ -36,6 +36,17 @@ from dynamicvectorquantization_torch.utils.weights import (
     stage1_state_from_flax,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread, so that on a loaded
+    machine (several test processes) no small op waits at an OpenMP barrier."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LR = 1e-3
 STEPS = 2
 

@@ -28,6 +28,17 @@ from dynamicvectorquantization_torch.utils.weights import (
     stackgpt_state_dict_from_flax,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread, so that on a loaded
+    machine (several test processes) no small op waits at an OpenMP barrier."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = os.path.join(_REPO, "configs/smoke/dqtransformer-uncond-tiny.yml")
 LR, MAX_STEPS = 1e-3, 50
@@ -375,21 +386,133 @@ def test_bf16_step_over_f32_masters(state_dict, streams):
     assert not any(p.requires_grad for p in t16.model.first_stage_model.parameters())
 
 
+ALL_DROPOUTS = {"attn_pdrop": 0.1, "embd_pdrop": 0.1, "resid_pdrop": 0.1}
+
+
 def test_attention_dropout_raises_and_other_dropouts_take_a_generator(state_dict, streams):
+    """Attention dropout no longer raises: a step at `attn_pdrop` 0.1 runs
+    and differs from the dropout-free step; eval draws no mask. The
+    elementwise dropouts take the caller's generator when one is given and
+    the trainer's own, re-seeded per step, otherwise."""
     with_attn = _trainer(state_dict, transformer_overrides={"attn_pdrop": 0.1})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        with_attn.train_step(streams[0])
-    assert with_attn.count == 0
-    assert np.isfinite(float(with_attn.eval_step(streams[0])["val_loss"]))  # no dropout in eval
+    loss = float(with_attn.train_step(streams[0])["train_loss"])
+    plain = float(_trainer(state_dict).compute_grads(streams[0])[0]["train_loss"])
+    assert with_attn.count == 1 and np.isfinite(loss) and loss != plain
+    assert abs(loss - plain) < 0.5
+    quiet = _trainer(state_dict)
+    for t in (with_attn, quiet):  # no dropout in eval
+        t.load_state_dict(_trainer(state_dict).state_dict())
+    assert float(with_attn.eval_step(streams[0])["val_loss"]) == \
+        float(quiet.eval_step(streams[0])["val_loss"])
 
     trainer = _trainer(state_dict, transformer_overrides={"embd_pdrop": 0.1, "resid_pdrop": 0.1})
-    with pytest.raises(ValueError, match="Generator"):
-        trainer.compute_grads(streams[0])
     losses = [float(trainer.compute_grads(streams[0], torch.Generator().manual_seed(s))[0]
                     ["train_loss"]) for s in (0, 0, 1)]
-    plain = float(_trainer(state_dict).compute_grads(streams[0])[0]["train_loss"])
     assert losses[0] == losses[1] != losses[2] and losses[0] != plain
     assert abs(losses[0] - plain) < 0.5
+    own = [float(trainer.compute_grads(streams[0])[0]["train_loss"]) for _ in range(2)]
+    assert own[0] == own[1] != plain  # the trainer's generator restarts from (seed, step)
+
+
+def test_two_trainers_with_one_base_seed_agree_bit_for_bit(state_dict, streams):
+    a, b, c = (_trainer(state_dict, transformer_overrides=ALL_DROPOUTS, seed=s) for s in (3, 3, 4))
+    la, lb, lc = ([float(t.train_step(streams[i % 2])["train_loss"]) for i in range(3)]
+                  for t in (a, b, c))
+    assert la == lb and la != lc
+    assert len(set(la)) == 3
+    for name in a.masters:
+        assert torch.equal(a.masters[name], b.masters[name]), name
+        assert torch.equal(a.m[name], b.m[name]) and torch.equal(a.v[name], b.v[name])
+
+
+def test_state_dict_round_trip_resumes_the_dropout_streams(state_dict, streams):
+    whole = _trainer(state_dict, transformer_overrides=ALL_DROPOUTS, seed=3)
+    want = [float(whole.train_step(streams[i % 2])["train_loss"]) for i in range(3)]
+    first = _trainer(state_dict, transformer_overrides=ALL_DROPOUTS, seed=3)
+    first.train_step(streams[0])
+    first.epoch = 1
+    saved = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v)
+             for k, v in first.state_dict().items()}
+    assert saved["count"] == 1 and saved["epoch"] == 1 and saved["seed"] == 3
+    resumed = _trainer(state_dict, transformer_overrides=ALL_DROPOUTS, seed=99,
+                       compute_dtype=None)
+    resumed.load_state_dict(saved)
+    assert (resumed.count, resumed.epoch, resumed.base_seed) == (1, 1, 3)
+    got = [float(resumed.train_step(streams[i % 2])["train_loss"]) for i in (1, 2)]
+    assert got == want[1:]
+    for name in whole.masters:
+        assert torch.equal(whole.masters[name], resumed.masters[name]), name
+    with pytest.raises(KeyError):
+        resumed.load_state_dict({**saved, "masters": {"nope": torch.zeros(1)}})
+
+
+def test_state_dict_restores_the_bf16_working_copy(state_dict, streams):
+    t16 = _trainer(state_dict, compute_dtype="bfloat16")
+    t16.train_step(streams[0])
+    saved = {k: ({n: t.clone() for n, t in v.items()} if isinstance(v, dict) else v)
+             for k, v in t16.state_dict().items()}
+    fresh = _trainer(state_dict, compute_dtype="bfloat16")
+    fresh.load_state_dict(saved)
+    for name, p in fresh.params.items():
+        assert p.dtype == torch.bfloat16 and torch.equal(p.data, t16.params[name].data), name
+    assert float(fresh.train_step(streams[1])["train_loss"]) == \
+        float(t16.train_step(streams[1])["train_loss"])
+
+
+def _attention_seeds(trainer, x):
+    """The (rate, seed) every CausalSelfAttention hands the kernel wrapper in
+    one `compute_grads`, in call order."""
+    import dynamicvectorquantization_torch.nn.transformer as tfm
+
+    seen, real = [], tfm.fused_causal_attention
+
+    def spy(q, k, v, n_head, scale=None, causal=True, rate=0.0, seed=None):
+        seen.append((rate, seed))
+        return real(q, k, v, n_head, scale, causal, rate, seed)
+
+    tfm.fused_causal_attention = spy
+    try:
+        trainer.compute_grads(x)
+    finally:
+        tfm.fused_causal_attention = real
+    return seen
+
+
+def test_layers_and_microbatches_draw_different_masks(state_dict, streams):
+    from dynamicvectorquantization_torch.ops.attention import (
+        attention_seed, dropout_keep_mask, mix_seed)
+
+    trainer = _trainer(state_dict, transformer_overrides={"attn_pdrop": 0.1}, accum=2, seed=5)
+    stacked = {k: np.stack([z[k] for z in streams]) for k in streams[0]}
+    seen = _attention_seeds(trainer, stacked)
+    layers = 4  # two position + two content layers
+    assert len(seen) == 2 * layers and all(rate == 0.1 for rate, _ in seen)
+    seeds = [s for _, s in seen]
+    assert len(set(seeds)) == 2 * layers  # no two layers, no two microbatches share a seed
+    # position stack 0..1, content stack 2..3, per microbatch
+    want = [mix_seed(attention_seed(5, 0, micro), layer)
+            for micro in range(2) for layer in range(layers)]
+    assert seeds == want
+    masks = [dropout_keep_mask(s, 1, 2, 32, 0.1) for s in seeds]
+    assert all(not torch.equal(masks[0], m) for m in masks[1:])
+    # the next optimizer step draws new seeds, the same step the same ones
+    assert _attention_seeds(trainer, stacked) == seen
+    trainer.count = 1
+    assert not set(s for _, s in _attention_seeds(trainer, stacked)) & set(seeds)
+
+
+def test_attention_dropout_in_training_needs_the_forward_seed(state_dict, streams):
+    model = _port_model(state_dict, attn_pdrop=0.1)
+    z = {k: torch.as_tensor(v) for k, v in streams[0].items()}
+    with pytest.raises(ValueError, match="seed"):
+        model.forward_tokens(z, train=True)
+    with torch.no_grad():
+        out = model.forward_tokens(z, train=True, seed=1)
+        same = model.forward_tokens(z, train=True, seed=1)
+        other = model.forward_tokens(z, train=True, seed=2)
+        quiet = model.forward_tokens(z, train=False)
+    assert float(out["content_loss"]) == float(same["content_loss"])
+    assert len({float(o["content_loss"]) for o in (out, other, quiet)}) == 3
 
 
 def test_trainer_defaults_to_cuda(state_dict):
