@@ -103,33 +103,64 @@ def bound(n_bytes, n_flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def spread(values):
+    """Repeat count and spread (min / median / max) of repeated measurements."""
+    v = sorted(values)
+    mid = len(v) // 2
+    median = v[mid] if len(v) % 2 else (v[mid - 1] + v[mid]) / 2
+    return {"n": len(v), "min": v[0], "median": median, "max": v[-1]}
+
+
 def time_ms(torch, fn, arg_sets, iters=20, only=None):
-    """(device ms, wall ms) per call over `iters` calls cycling through
+    """Per-call (device ms, wall ms) over `iters` calls cycling through
     `arg_sets` (together larger than L2, so each call finds its inputs
-    cold). Device ms: the summed durations of the CUDA kernels the calls
-    launched (only those whose name contains `only`, when given), from a
-    torch.profiler (CUPTI) trace. Wall ms: CUDA events around the
-    back-to-back calls, which include the host's launch overhead when that
-    exceeds the kernels' time, and every op the call launches."""
+    cold), each as the spread of the calls (`spread`). Device ms: the summed
+    durations of the CUDA kernels a call launched (only those whose name
+    contains `only`, when given), from a torch.profiler (CUPTI) trace whose
+    kernels are split into the calls in launch order (when every call
+    launches as many kernels; else the mean alone, n = 1). Wall ms: CUDA
+    events round each of the back-to-back calls, which include the host's
+    launch overhead when that exceeds the kernels' time, and every op the
+    call launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(*arg_sets[0])
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    marks[0].record()
     for i in range(iters):
         fn(*arg_sets[i % len(arg_sets)])
-    end.record()
-    end.synchronize()
-    wall = start.elapsed_time(end) / iters
+        marks[i + 1].record()
+    marks[-1].synchronize()
+    wall = spread([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for i in range(iters):
             fn(*arg_sets[i % len(arg_sets)])
         torch.cuda.synchronize()
-    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and (only is None or only in e.name))
-    return (device_us / 1e3 / iters if device_us > 0 else None), wall
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    if not any(only is None or only in e.name for e in kernels):
+        return None, wall  # the trace held no (matching) device time
+    per = len(kernels) // iters
+    if per * iters == len(kernels):
+        device = spread([sum(e.time_range.elapsed_us() for e in kernels[i * per:(i + 1) * per]
+                             if only is None or only in e.name) / 1e3 for i in range(iters)])
+    else:
+        device = spread([sum(e.time_range.elapsed_us() for e in kernels
+                             if only is None or only in e.name) / 1e3 / iters])
+    return device, wall
+
+
+def time_into(case, key, torch, fn, arg_sets, iters=20, only=None):
+    """`time_ms` into `case`: `<key>_ms` and `<key>_wall_ms` the medians,
+    `<key>_ms_spread` and `<key>_wall_ms_spread` the repeat counts and
+    spreads."""
+    device, wall = time_ms(torch, fn, arg_sets, iters, only)
+    case[f"{key}_ms"] = device and device["median"]
+    case[f"{key}_ms_spread"] = device
+    case[f"{key}_wall_ms"] = wall["median"]
+    case[f"{key}_wall_ms_spread"] = wall
 
 
 def n_sets(bytes_per_set):
@@ -162,14 +193,55 @@ def check_decode_attention(torch, dev):
         case = dict(phase="kernels", kernel="decode_attention_int8", shape=[b, h, t, hd],
                     dtype="bfloat16", cache_index=idx, max_abs_err=err, tol=tol,
                     library_ms=None, bound_ms=bms, bound_by=by)
-        case["kernel_ms"], case["kernel_wall_ms"] = time_ms(
-            torch, lambda *a: decode_attention_int8(*a, idx), sets)
-        case["plain_ms"], case["plain_wall_ms"] = time_ms(
-            torch, lambda *a: decode_attention_int8_plain(*a, idx), sets)
+        time_into(case, "kernel", torch, lambda *a: decode_attention_int8(*a, idx), sets)
+        time_into(case, "plain", torch, lambda *a: decode_attention_int8_plain(*a, idx), sets)
         emit(case)
         require(err <= tol, f"decode_attention_int8 disagrees at cache_index {idx}: {err}")
         cases.append(case)
     return cases
+
+
+def fma_forward(torch, q, k, v, n_head, scale, causal, rate=0.0, return_lse=False, seed=0):
+    """The FMA family's forward entry called directly, at shapes the wrapper
+    sends to the tensor cores (bf16, hd 64 / 128): the time before this
+    family was replaced there, for comparison in the same call. Launches
+    are not counted."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+
+    b, t, d = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, n_head, t), dtype=torch.float32, device=q.device) if return_lse else None
+    err = cuda_lib.lib().dqvq_fused_attention_forward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, b, t, d, n_head, float(scale), int(causal),
+        1 if q.dtype == torch.bfloat16 else 0, float(rate), int(seed) if rate else 0,
+        torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "fma_forward")
+    return (out, lse) if return_lse else out
+
+
+def fma_backward(torch, q, k, v, y, lse, dy, n_head, scale, causal, rate=0.0, seed=0):
+    """The FMA family's backward entry called directly (see `fma_forward`)."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+
+    b, t, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    delta = torch.empty_like(lse)
+    err = cuda_lib.lib().dqvq_fused_attention_backward(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, d, n_head,
+        float(scale), int(causal), 1 if q.dtype == torch.bfloat16 else 0, float(rate),
+        int(seed) if rate else 0, torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "fma_backward")
+    return dq, dk, dv
+
+
+def tensor_core_shape(torch, dtype, hd):
+    """Whether the attention wrappers send this dtype and head dim to the
+    tensor-core family."""
+    from dynamicvectorquantization_torch.ops.attention import _TC_HEAD_DIMS
+
+    return dtype == torch.bfloat16 and hd in _TC_HEAD_DIMS
 
 
 def check_fused_attention(torch, dev):
@@ -180,12 +252,15 @@ def check_fused_attention(torch, dev):
 
     cases, dropout_cases = [], []
     # DQ-VAE AttnBlock at 32x32 (decoder and encoder; f32, one head), a
-    # StackGPT-like causal bf16 shape (808 tokens, 8 heads), and the encoder's
-    # AttnBlock at 16x16 (one head of 512 channels)
+    # StackGPT-like causal bf16 shape (808 tokens, 8 heads: the tensor-core
+    # family, with the FMA family's time beside it), the encoder's AttnBlock
+    # at 16x16 (one head of 512 channels), and the first shape in bf16 (the
+    # FMA family's bf16 instantiation at hd 256)
     for (b, t, d), n_head, causal, dtype, tol in (
             ((8, 1024, 256), 1, False, torch.float32, 1e-4),
             ((8, 808, 1024), 8, True, torch.bfloat16, 2e-2),
-            ((8, 256, 512), 1, False, torch.float32, 1e-4)):
+            ((8, 256, 512), 1, False, torch.float32, 1e-4),
+            ((8, 1024, 256), 1, False, torch.bfloat16, 2e-2)):
         hd = d // n_head
         scale = hd ** -0.5
         g = torch.Generator(device=dev).manual_seed(1)
@@ -200,21 +275,31 @@ def check_fused_attention(torch, dev):
             return F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
                                                   is_causal=causal, scale=scale)
 
+        tc = tensor_core_shape(torch, dtype, hd)
+        before = fused_attention_forward.tc_launches
         out = fused_attention_forward(*sets[0], n_head, scale, causal)
         ref = fused_attention_forward_plain(*sets[0], n_head, scale, causal)
         torch.cuda.synchronize()
+        require(fused_attention_forward.tc_launches - before == int(tc),
+                f"fused_attention_forward took the wrong family at {dtype} hd {hd}")
         err = (out.float() - ref.float()).abs().max().item()
         pairs = t * (t + 1) // 2 if causal else t * t
         dname = str(dtype).split(".")[-1]
         bms, by = bound(4 * b * t * d * elem, 4 * b * n_head * pairs * hd, dname)
         case = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
-                    n_head=n_head, causal=causal, dtype=dname, max_abs_err=err, tol=tol,
+                    n_head=n_head, causal=causal, dtype=dname,
+                    family="tensor cores" if tc else "FMA", max_abs_err=err, tol=tol,
                     bound_ms=bms, bound_by=by)
-        case["kernel_ms"], case["kernel_wall_ms"] = time_ms(
-            torch, lambda *a: fused_attention_forward(*a, n_head, scale, causal), sets)
-        case["plain_ms"], case["plain_wall_ms"] = time_ms(
-            torch, lambda *a: fused_attention_forward_plain(*a, n_head, scale, causal), sets)
-        case["library_ms"], case["library_wall_ms"] = time_ms(torch, lib, sets)
+        if tc:  # the FMA family at the same shape: the time before the tensor cores took it
+            case["fma_max_abs_err"] = (fma_forward(torch, *sets[0], n_head, scale, causal).float()
+                                       - ref.float()).abs().max().item()
+            time_into(case, "fma_kernel", torch,
+                      lambda *a: fma_forward(torch, *a, n_head, scale, causal), sets)
+        time_into(case, "kernel", torch,
+                  lambda *a: fused_attention_forward(*a, n_head, scale, causal), sets)
+        time_into(case, "plain", torch,
+                  lambda *a: fused_attention_forward_plain(*a, n_head, scale, causal), sets)
+        time_into(case, "library", torch, lib, sets)
         emit(case)
         require(err <= tol, f"fused_attention_forward disagrees at {case['shape']}: {err}")
         cases.append(case)
@@ -232,15 +317,20 @@ def check_fused_attention(torch, dev):
             del out, ref
         rate = DROPOUT_RATES[0]
         drop.update(rate=rate, max_abs_err=max(drop["dropout_err"].values()))
-        drop["kernel_ms"], drop["kernel_wall_ms"] = time_ms(
-            torch, lambda *a: fused_attention_forward(*a, n_head, scale, causal, rate,
-                                                      seed=DROPOUT_SEED), sets)
-        drop["plain_ms"], drop["plain_wall_ms"] = time_ms(
-            torch, lambda *a: fused_attention_forward_plain(*a, n_head, scale, causal, False, rate,
-                                                            DROPOUT_SEED), sets, iters=5)
-        drop["library_ms"], drop["library_wall_ms"] = time_ms(
-            torch, lambda q, k, v: F.scaled_dot_product_attention(
-                heads(q), heads(k), heads(v), dropout_p=rate, is_causal=causal, scale=scale), sets)
+        time_into(drop, "kernel", torch,
+                  lambda *a: fused_attention_forward(
+                      *a, n_head, scale, causal, rate, seed=DROPOUT_SEED), sets)
+        time_into(drop, "plain", torch,
+                  lambda *a: fused_attention_forward_plain(
+                      *a, n_head, scale, causal, False, rate, DROPOUT_SEED), sets, iters=5)
+        time_into(drop, "library", torch,
+                  lambda q, k, v: F.scaled_dot_product_attention(
+                      heads(q), heads(k), heads(v), dropout_p=rate, is_causal=causal, scale=scale),
+                  sets)
+        if tc:
+            time_into(drop, "fma_kernel", torch,
+                      lambda *a: fma_forward(
+                          torch, *a, n_head, scale, causal, rate, seed=DROPOUT_SEED), sets)
         emit(drop)
         require(drop["max_abs_err"] <= tol,
                 f"fused_attention_forward with dropout disagrees at {case['shape']}: "
@@ -251,8 +341,10 @@ def check_fused_attention(torch, dev):
 
 def check_attention_dropout(torch, dev):
     """What the dropout masks are, apart from agreeing with the plain version:
-    per tile family of the forward and backward kernels (hd 64 / 128: 64-row
-    tiles; hd 256: 64- and 32-row; hd 512: 32- and 16-row) the mask recovered
+    per tile family of the forward and backward kernels (FMA family in f32:
+    hd 64 / 128: 64-row tiles; hd 256: 64- and 32-row; hd 512: 32- and
+    16-row; tensor-core family in bf16 at hd 64 / 128, where unit vectors and
+    uniform probabilities are exact) the mask recovered
     from the kernel equals `dropout_keep_mask` bit for bit (uniform
     probabilities, V rows that are unit vectors: output column c of row r is
     nonzero iff probability (r, c) was kept; dV likewise for the backward's
@@ -264,15 +356,18 @@ def check_attention_dropout(torch, dev):
 
     b, n_head = 2, 2
     families = []
-    for hd, t in ((64, 300), (128, 805), (256, 300), (512, 300)):
+    tc_before = (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches)
+    for hd, t, dtype in ((64, 300, torch.float32), (128, 805, torch.float32),
+                         (256, 300, torch.float32), (512, 300, torch.float32),
+                         (64, 300, torch.bfloat16), (128, 805, torch.bfloat16)):
         for rate in DROPOUT_RATES:
             seed = DROPOUT_SEED + hd
             mask = dropout_keep_mask(seed, b, n_head, t, rate, dev)
-            q = torch.zeros((b, t, n_head * hd), device=dev)
+            q = torch.zeros((b, t, n_head * hd), device=dev, dtype=dtype)
             fwd_equal = bwd_equal = True
             for c0 in range(0, t, hd):  # hd columns of the mask per probe
                 n = min(hd, t - c0)
-                v = torch.zeros((b, t, n_head, hd), device=dev)
+                v = torch.zeros((b, t, n_head, hd), device=dev, dtype=dtype)
                 v[:, c0 + torch.arange(n), :, torch.arange(n)] = 1.0
                 v = v.reshape(b, t, -1).contiguous()
                 y, lse = fused_attention_forward(q, q, v, n_head, None, False, rate, True, seed)
@@ -286,9 +381,13 @@ def check_attention_dropout(torch, dev):
                 bwd_equal &= bool(torch.equal(got, mask[..., c0:c0 + n, :].transpose(-1, -2)))
             kept = mask.float().mean().item()
             sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
-            families.append(dict(hd=hd, t=t, rate=rate, forward_mask_equal=fwd_equal,
+            families.append(dict(hd=hd, t=t, rate=rate, dtype=str(dtype).split(".")[-1],
+                                 family="tensor cores" if tensor_core_shape(torch, dtype, hd)
+                                 else "FMA", forward_mask_equal=fwd_equal,
                                  backward_mask_equal=bwd_equal, kept_share=kept,
                                  kept_share_sigmas=abs(kept - (1 - rate)) / sigma))
+    tc_probes = (fused_attention_forward.tc_launches - tc_before[0],
+                 fused_attention_backward.tc_launches - tc_before[1])
     g = torch.Generator(device=dev).manual_seed(14)
     q, k, v = (torch.randn((2, TRAIN_T, 1024), generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
@@ -296,6 +395,7 @@ def check_attention_dropout(torch, dev):
         return fused_attention_forward(q, k, v, 8, None, True, rate, seed=seed)
 
     res = dict(phase="kernels", kernel="attention_dropout_mask", families=families,
+               tensor_core_probe_launches=tc_probes,
                same_seed_bit_identical=bool(torch.equal(run(5), run(5))),
                seeds_differ=not torch.equal(run(5), run(6)),
                rate0_ignores_seed=bool(torch.equal(run(5, 0.0), fused_attention_forward(
@@ -303,6 +403,10 @@ def check_attention_dropout(torch, dev):
     emit(res)
     require(all(f["forward_mask_equal"] and f["backward_mask_equal"] for f in families),
             f"a kernel's dropout mask differs from dropout_keep_mask: {families}")
+    probes = 2 * sum(-(-t // hd) for hd, t in ((64, 300), (128, 805)))  # two rates
+    require(tc_probes == (probes, probes),
+            f"the bf16 probes did not all run on the tensor cores: {tc_probes}, expected "
+            f"{(probes, probes)}")
     require(all(f["kept_share_sigmas"] <= 3.0 for f in families),
             f"kept share off 1 - rate by more than 3 sigma: {families}")
     require(res["same_seed_bit_identical"] and res["seeds_differ"] and res["rate0_ignores_seed"],
@@ -350,11 +454,9 @@ def check_vq_nearest(torch, dev):
     def lib(x, cb, cb_norm):  # two PyTorch calls: the score product and its argmin
         return torch.addmm(cb_norm, x, cb.t(), alpha=-2).argmin(1)
 
-    case["kernel_ms"], case["kernel_wall_ms"] = time_ms(torch, nearest_codes, sets,
-                                                        only="vq_nearest")
-    case["plain_ms"], case["plain_wall_ms"] = time_ms(torch, nearest_codes_plain, sets)
-    case["library_ms"], case["library_wall_ms"] = time_ms(
-        torch, lib, [(x, cb, (cb * cb).sum(1)) for x, cb in sets])
+    time_into(case, "kernel", torch, nearest_codes, sets, only="vq_nearest")
+    time_into(case, "plain", torch, nearest_codes_plain, sets)
+    time_into(case, "library", torch, lib, [(x, cb, (cb * cb).sum(1)) for x, cb in sets])
     emit(case)
     require(case["mismatches_within_near_tie_bound"] and case["xq_is_codebook_row"],
             f"vq_nearest disagrees beyond f32 near-ties: {case}")
@@ -421,12 +523,10 @@ def check_vq_train(torch, dev):
         return (idx, cb.index_select(0, idx), torch.zeros_like(cb).index_add_(0, idx, x),
                 torch.bincount(idx, minlength=cb.shape[0]))
 
-    case["kernel_ms"], case["kernel_wall_ms"] = time_ms(torch, nearest_codes_with_stats, sets,
-                                                        only="vq_")
-    case["stats_kernel_ms"], _ = time_ms(torch, nearest_codes_with_stats, sets, only="vq_stats")
-    case["plain_ms"], case["plain_wall_ms"] = time_ms(torch, nearest_codes_with_stats_plain, sets)
-    case["library_ms"], case["library_wall_ms"] = time_ms(
-        torch, lib, [(x, cb, (cb * cb).sum(1)) for x, cb in sets])
+    time_into(case, "kernel", torch, nearest_codes_with_stats, sets, only="vq_")
+    time_into(case, "stats_kernel", torch, nearest_codes_with_stats, sets, only="vq_stats")
+    time_into(case, "plain", torch, nearest_codes_with_stats_plain, sets)
+    time_into(case, "library", torch, lib, [(x, cb, (cb * cb).sum(1)) for x, cb in sets])
     emit(case)
     for c in (case, *case["other_shapes"]):
         require(c["mismatches_within_near_tie_bound"] and c["xq_is_codebook_row"]
@@ -464,9 +564,8 @@ def check_patch_entropy(torch, dev):
     case = dict(phase="kernels", kernel="patch_entropy", shape=[b, size, size, 3], patch=p,
                 bins=nb, dtype="float32", max_abs_err=err, tol=tol, bound_ms=bms, bound_by=by,
                 exponentials=n_exp, library_ms=None)
-    case["kernel_ms"], case["kernel_wall_ms"] = time_ms(torch, patch_entropy, sets,
-                                                        only="patch_entropy")
-    case["plain_ms"], case["plain_wall_ms"] = time_ms(torch, patch_entropy_plain, sets)
+    time_into(case, "kernel", torch, patch_entropy, sets, only="patch_entropy")
+    time_into(case, "plain", torch, patch_entropy_plain, sets)
     emit(case)
     require(err <= tol, f"patch_entropy disagrees: {err}")
     return case
@@ -497,14 +596,13 @@ def check_strided_conv(torch, dev):
         case = dict(phase="kernels", kernel="strided_conv3x3_down", shape=[b, c, hw, hw],
                     out_channels=c, dtype="float32", max_abs_err=err, tol=tol, bound_ms=bms,
                     bound_by=by)
-        case["kernel_ms"], case["kernel_wall_ms"] = time_ms(
-            torch, strided_conv3x3_down, sets, iters=10, only="strided_conv_down")
-        case["plain_ms"], case["plain_wall_ms"] = time_ms(
-            torch, strided_conv3x3_down_plain, sets, iters=10)
+        time_into(case, "kernel", torch, strided_conv3x3_down, sets, iters=10,
+                  only="strided_conv_down")
+        time_into(case, "plain", torch, strided_conv3x3_down_plain, sets, iters=10)
         padded = [(F.pad(x, (0, 1, 0, 1)), w_, b_) for x, w_, b_ in sets]
         del sets
-        case["library_ms"], case["library_wall_ms"] = time_ms(
-            torch, lambda x, w_, b_: F.conv2d(x, w_, b_, stride=2), padded, iters=10)
+        time_into(case, "library", torch, lambda x, w_, b_: F.conv2d(x, w_, b_, stride=2), padded,
+                  iters=10)
         del padded
         emit(case)
         require(err <= tol, f"strided_conv3x3_down disagrees at {case['shape']}: {err}")
@@ -562,12 +660,12 @@ def check_layernorm(torch, dev):
         fb, fby = bound(2 * rows * d * elem + 2 * d * elem, 8 * rows * d, "float32")
         fwd = dict(phase="kernels", kernel="layernorm_forward", shape=[b, t, d], dtype=dname,
                    max_abs_err=err_y, tol=f"{atol} + {rtol} |ref|", bound_ms=fb, bound_by=fby)
-        fwd["kernel_ms"], fwd["kernel_wall_ms"] = time_ms(
-            torch, lambda x_, dy_: layernorm_forward(x_, gamma, beta, eps), sets)
-        fwd["plain_ms"], fwd["plain_wall_ms"] = time_ms(
-            torch, lambda x_, dy_: fused_layernorm_plain(x_, gamma, beta, eps), sets)
-        fwd["library_ms"], fwd["library_wall_ms"] = time_ms(
-            torch, lambda x_, dy_: F.layer_norm(x_, (d,), gamma, beta, eps), sets)
+        time_into(fwd, "kernel", torch, lambda x_, dy_: layernorm_forward(x_, gamma, beta, eps),
+                  sets)
+        time_into(fwd, "plain", torch, lambda x_, dy_: fused_layernorm_plain(x_, gamma, beta, eps),
+                  sets)
+        time_into(fwd, "library", torch, lambda x_, dy_: F.layer_norm(x_, (d,), gamma, beta, eps),
+                  sets)
         emit(fwd)
 
         bb, bby = bound(3 * rows * d * elem + d * elem + 8 * d, 16 * rows * d, "float32")
@@ -575,18 +673,18 @@ def check_layernorm(torch, dev):
                    max_abs_err=max(err_dx, err_dg, err_db), dx_err=err_dx, dgamma_err=err_dg,
                    dbeta_err=err_db, tol=f"dx {atol} + {rtol} |ref|; dgamma, dbeta {sum_tol}",
                    bit_reproducible=reproducible, bound_ms=bb, bound_by=bby)
-        bwd["kernel_ms"], bwd["kernel_wall_ms"] = time_ms(
-            torch, lambda x_, dy_: layernorm_backward(x_, gamma, dy_, eps), sets)
-        bwd["plain_ms"], bwd["plain_wall_ms"] = time_ms(
-            torch, lambda x_, dy_: layernorm_backward_plain(x_, gamma, dy_, eps), sets)
+        time_into(bwd, "kernel", torch, lambda x_, dy_: layernorm_backward(x_, gamma, dy_, eps),
+                  sets)
+        time_into(bwd, "plain", torch,
+                  lambda x_, dy_: layernorm_backward_plain(x_, gamma, dy_, eps), sets)
         gl, bl = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
         lib_sets = []
         for x_, dy_ in sets:
             xl = x_.clone().requires_grad_()
             lib_sets.append((F.layer_norm(xl, (d,), gl, bl, eps), xl, dy_))
-        bwd["library_ms"], bwd["library_wall_ms"] = time_ms(
-            torch, lambda y_, xl, dy_: torch.autograd.grad(y_, (xl, gl, bl), dy_,
-                                                           retain_graph=True), lib_sets)
+        time_into(bwd, "library", torch,
+                  lambda y_, xl, dy_: torch.autograd.grad(y_, (xl, gl, bl), dy_, retain_graph=True),
+                  lib_sets)
         del lib_sets
         emit(bwd)
         require(ok_y, f"layernorm_forward disagrees ({dname}): {err_y}")
@@ -609,12 +707,15 @@ def check_attention_backward(torch, dev):
     # the stage-2 training shape in bf16; the same in f32 at batch 2; one non-causal head,
     # ragged tiles; the DQ-VAE's conv AttnBlocks in stage-1 training: one non-causal f32
     # head of 256 channels over 32 x 32 positions, and of 512 over 16 x 16
+    # (the first on the tensor cores, with the FMA family's times beside it; the FMA
+    # family's bf16 instantiation at hd 256 last)
     for (b, t, d), n_head, causal, dtype in (
             ((8, TRAIN_T, 1024), 8, True, torch.bfloat16),
             ((2, TRAIN_T, 1024), 8, True, torch.float32),
             ((2, 300, 64), 1, False, torch.float32),
             ((8, 1024, 256), 1, False, torch.float32),
-            ((8, 256, 512), 1, False, torch.float32)):
+            ((8, 256, 512), 1, False, torch.float32),
+            ((8, 1024, 256), 1, False, torch.bfloat16)):
         hd = d // n_head
         scale = hd ** -0.5
         dname = str(dtype).split(".")[-1]
@@ -628,60 +729,71 @@ def check_attention_backward(torch, dev):
             y, lse = fused_attention_forward(q, k, v, n_head, scale, causal, return_lse=True)
             sets.append((q, k, v, y, lse, dy))
         q, k, v, y, lse, dy = sets[0]
+        tc = tensor_core_shape(torch, dtype, hd)
+        family = "tensor cores" if tc else "FMA"
+        before = fused_attention_backward.tc_launches
         y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, True)
         out = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
         again = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
         ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, scale, causal)
         torch.cuda.synchronize()
+        require(fused_attention_backward.tc_launches - before == 2 * int(tc),
+                f"fused_attention_backward took the wrong family at {dtype} hd {hd}")
         err_y, ok_y = close(y, y_ref, atol, rtol)
         err_lse, ok_lse = close(lse, lse_ref, 1e-4)  # f32 log of an f32 sum of T terms
         errs, oks = zip(*(close(o, r, atol, rtol) for o, r in zip(out, ref)))
         reproducible = all(torch.equal(a_, b_) for a_, b_ in zip(out, again))
         pairs = t * (t + 1) // 2 if causal else t * t
         fwd = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
-                   n_head=n_head, causal=causal, dtype=dname, with_lse=True, max_abs_err=err_y,
-                   lse_err=err_lse, tol=f"{atol} + {rtol} |ref|; lse 1e-4")
+                   n_head=n_head, causal=causal, dtype=dname, family=family, with_lse=True,
+                   max_abs_err=err_y, lse_err=err_lse, tol=f"{atol} + {rtol} |ref|; lse 1e-4")
         fwd["bound_ms"], fwd["bound_by"] = bound(
             4 * b * t * d * elem + 4 * b * n_head * t, 4 * b * n_head * pairs * hd, dname)
-        fwd["kernel_ms"], fwd["kernel_wall_ms"] = time_ms(
-            torch, lambda q_, k_, v_, *_: fused_attention_forward(
-                q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
-        fwd["plain_ms"], fwd["plain_wall_ms"] = time_ms(
-            torch, lambda q_, k_, v_, *_: fused_attention_forward_plain(
-                q_, k_, v_, n_head, scale, causal, True), sets, iters=10)
+        time_into(fwd, "kernel", torch,
+                  lambda q_, k_, v_, *_: fused_attention_forward(
+                      q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
+        time_into(fwd, "plain", torch,
+                  lambda q_, k_, v_, *_: fused_attention_forward_plain(
+                      q_, k_, v_, n_head, scale, causal, True), sets, iters=10)
 
         def heads(z):
             return z.view(b, t, n_head, hd).transpose(1, 2)
 
-        fwd["library_ms"], fwd["library_wall_ms"] = time_ms(
-            torch, lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
-                heads(q_), heads(k_), heads(v_), is_causal=causal, scale=scale), sets)
+        time_into(fwd, "library", torch,
+                  lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
+                      heads(q_), heads(k_), heads(v_), is_causal=causal, scale=scale), sets)
+        if tc:
+            time_into(fwd, "fma_kernel", torch,
+                      lambda q_, k_, v_, *_: fma_forward(
+                          torch, q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
         emit(fwd)
         # five T x T x hd products over the unmasked pairs; the bound at the
         # rate of the input type (bf16: tensor cores), and beside it at the
-        # f32 FMA rate this kernel runs on
+        # f32 FMA rate the FMA family runs on
         flops = 10 * b * n_head * pairs * hd
         n_bytes = 8 * b * t * d * elem + 4 * b * n_head * t
         bwd = dict(phase="kernels", kernel="fused_attention_backward", shape=[b, t, d],
-                   n_head=n_head, causal=causal, dtype=dname, max_abs_err=max(errs),
+                   n_head=n_head, causal=causal, dtype=dname, family=family, max_abs_err=max(errs),
                    dq_err=errs[0], dk_err=errs[1], dv_err=errs[2], tol=f"{atol} + {rtol} |ref|",
                    bit_reproducible=reproducible, gflop=flops / 1e9,
                    bound_ms_f32_fma=bound(n_bytes, flops, "float32")[0])
         bwd["bound_ms"], bwd["bound_by"] = bound(n_bytes, flops, dname)
-        bwd["kernel_ms"], bwd["kernel_wall_ms"] = time_ms(
-            torch, lambda *a: fused_attention_backward(*a, n_head, scale, causal), sets, iters=10)
-        bwd["plain_ms"], bwd["plain_wall_ms"] = time_ms(
-            torch, lambda *a: fused_attention_backward_plain(*a, n_head, scale, causal), sets,
-            iters=10)
+        time_into(bwd, "kernel", torch,
+                  lambda *a: fused_attention_backward(*a, n_head, scale, causal), sets, iters=10)
+        time_into(bwd, "plain", torch,
+                  lambda *a: fused_attention_backward_plain(*a, n_head, scale, causal), sets,
+                  iters=10)
         lib_sets = []
         for q_, k_, v_, _, _, dy_ in sets:
             leaves = tuple(heads(z).detach().requires_grad_() for z in (q_, k_, v_))
             lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                                             scale=scale), leaves, heads(dy_)))
-        bwd["library_ms"], bwd["library_wall_ms"] = time_ms(
-            torch, lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_,
-                                                               retain_graph=True),
-            lib_sets, iters=10)
+        time_into(bwd, "library", torch,
+                  lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_, retain_graph=True),
+                  lib_sets, iters=10)
+        if tc:
+            time_into(bwd, "fma_kernel", torch,
+                      lambda *a: fma_backward(torch, *a, n_head, scale, causal), sets, iters=10)
         del lib_sets
         emit(bwd)
         require(ok_y and ok_lse, f"fused_attention_forward with lse disagrees at "
@@ -726,31 +838,38 @@ def check_attention_backward(torch, dev):
         dfwd.update(rate=rate, max_abs_err=max(dfwd["dropout_err"].values()))
         dbwd.update(rate=rate, max_abs_err=max(dbwd["dropout_err"].values()),
                     bit_reproducible=repro_all)
-        dfwd["kernel_ms"], dfwd["kernel_wall_ms"] = time_ms(
-            torch, lambda q_, k_, v_, *_: fused_attention_forward(
-                q_, k_, v_, n_head, scale, causal, rate, True, DROPOUT_SEED), dsets)
-        dfwd["plain_ms"], dfwd["plain_wall_ms"] = time_ms(
-            torch, lambda q_, k_, v_, *_: fused_attention_forward_plain(
-                q_, k_, v_, n_head, scale, causal, True, rate, DROPOUT_SEED), dsets, iters=5)
-        dfwd["library_ms"], dfwd["library_wall_ms"] = time_ms(
-            torch, lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
-                heads(q_), heads(k_), heads(v_), dropout_p=rate, is_causal=causal, scale=scale),
-            dsets)
-        dbwd["kernel_ms"], dbwd["kernel_wall_ms"] = time_ms(
-            torch, lambda *a: fused_attention_backward(*a, n_head, scale, causal, rate,
-                                                       DROPOUT_SEED), dsets, iters=10)
-        dbwd["plain_ms"], dbwd["plain_wall_ms"] = time_ms(
-            torch, lambda *a: fused_attention_backward_plain(*a, n_head, scale, causal, rate,
-                                                             DROPOUT_SEED), dsets, iters=5)
+        time_into(dfwd, "kernel", torch,
+                  lambda q_, k_, v_, *_: fused_attention_forward(
+                      q_, k_, v_, n_head, scale, causal, rate, True, DROPOUT_SEED), dsets)
+        time_into(dfwd, "plain", torch,
+                  lambda q_, k_, v_, *_: fused_attention_forward_plain(
+                      q_, k_, v_, n_head, scale, causal, True, rate, DROPOUT_SEED), dsets, iters=5)
+        time_into(dfwd, "library", torch,
+                  lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
+                      heads(q_), heads(k_), heads(v_), dropout_p=rate, is_causal=causal,
+                      scale=scale), dsets)
+        time_into(dbwd, "kernel", torch,
+                  lambda *a: fused_attention_backward(
+                      *a, n_head, scale, causal, rate, DROPOUT_SEED), dsets, iters=10)
+        time_into(dbwd, "plain", torch,
+                  lambda *a: fused_attention_backward_plain(
+                      *a, n_head, scale, causal, rate, DROPOUT_SEED), dsets, iters=5)
         lib_sets = []
         for q_, k_, v_, _, _, dy_ in dsets:
             leaves = tuple(heads(z).detach().requires_grad_() for z in (q_, k_, v_))
             lib_sets.append((F.scaled_dot_product_attention(
                 *leaves, dropout_p=rate, is_causal=causal, scale=scale), leaves, heads(dy_)))
-        dbwd["library_ms"], dbwd["library_wall_ms"] = time_ms(
-            torch, lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_,
-                                                               retain_graph=True),
-            lib_sets, iters=10)
+        time_into(dbwd, "library", torch,
+                  lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_, retain_graph=True),
+                  lib_sets, iters=10)
+        if tc:
+            time_into(dfwd, "fma_kernel", torch,
+                      lambda q_, k_, v_, *_: fma_forward(
+                          torch, q_, k_, v_, n_head, scale, causal, rate, True, DROPOUT_SEED),
+                      dsets)
+            time_into(dbwd, "fma_kernel", torch,
+                      lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
+                      dsets, iters=10)
         del lib_sets, dsets
         emit(dfwd)
         emit(dbwd)
@@ -809,11 +928,11 @@ def check_fused_adamw(torch, dev):
                  weight_decay=0.01, with_bf16_copy=True, bytes=n_bytes,
                  max_abs_err=max(c["max_abs_err"] for c in cases), tol=tol)
     timed["bound_ms"], timed["bound_by"] = bound(n_bytes, 15 * n, "float32")
-    timed["kernel_ms"], timed["kernel_wall_ms"] = time_ms(
-        torch, lambda g_, p, m, v, c: fused_adamw_step(g_, p, m, v, *scal, wd=0.01, copy=c), sets)
-    timed["plain_ms"], timed["plain_wall_ms"] = time_ms(
-        torch, lambda g_, p, m, v, c: fused_adamw_step_plain(g_, p, m, v, *scal, wd=0.01, copy=c),
-        sets)
+    time_into(timed, "kernel", torch,
+              lambda g_, p, m, v, c: fused_adamw_step(g_, p, m, v, *scal, wd=0.01, copy=c), sets)
+    time_into(timed, "plain", torch,
+              lambda g_, p, m, v, c: fused_adamw_step_plain(g_, p, m, v, *scal, wd=0.01, copy=c),
+              sets)
     # the library's fused AdamW takes f32 gradients and writes no bf16 copy
     opts = []
     for g_, p, _, _, _ in sets:
@@ -821,7 +940,7 @@ def check_fused_adamw(torch, dev):
         param.grad = g_.float()
         opts.append((torch.optim.AdamW([param], lr=lr, betas=(0.9, 0.95), eps=1e-8,
                                        weight_decay=0.01, fused=True),))
-    timed["library_ms"], timed["library_wall_ms"] = time_ms(torch, lambda o: o.step(), opts)
+    time_into(timed, "library", torch, lambda o: o.step(), opts)
     del opts, sets
     emit(timed)
     return timed
@@ -859,14 +978,23 @@ def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
             plain = run(steps)
         finally:
             tfm.decode_attention_int8 = saved
+        windows = []
+        for _ in range(4):  # host-clock step time over windows of 16 steps
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(16)
+            torch.cuda.synchronize()
+            windows.append((time.perf_counter() - t0) / 16 * 1e3)
         prof = profile_device_time(torch, lambda: run(16))
     diff = (kernel - plain).abs()
-    step_ms = kernel_s / steps * 1e3
+    step_ms = spread(windows)["median"]
     busy_ms = prof["device_busy_ms"] and prof["device_busy_ms"] / 16
     res = dict(phase="decode", config=P6C18, kv_cache_dtype="int8", dtype="bfloat16",
                batch=batch, steps=steps, max_logit_diff=diff.max().item(),
                mean_logit_diff=diff.mean().item(), logit_std=plain.std().item(), tol=tol,
-               kernel_path_s=kernel_s, step_ms=step_ms, device_busy_ms_per_step=busy_ms,
+               kernel_path_s=kernel_s, step_ms=step_ms,
+               step_ms_spread=dict(spread(windows), steps_per_window=16),
+               device_busy_ms_per_step=busy_ms,
                device_idle_share=busy_ms and 1.0 - busy_ms / step_ms,
                device_ops_per_step=prof["device_ops"] / 16, top_kernels=prof["top"])
     emit(res)
@@ -923,23 +1051,27 @@ def wrappers():
             "strided_conv3x3_down": strided_conv3x3_down}
 
 
-DROPOUT_ROWS = {"fused_attention_forward": "fused_attention_forward_dropout",
-                "fused_attention_backward": "fused_attention_backward_dropout"}
+ATTENTION = ("fused_attention_forward", "fused_attention_backward")
 
 
 def reset_launches():
     for fn in wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "dropout_launches"):
-            fn.dropout_launches = 0
+        for attr in ("launches", "tc_launches", "fma_launches", "dropout_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def read_launches():
-    """Launches per wrapper since `reset_launches`; the attention wrappers'
-    launches that drew a dropout mask are also listed on their own."""
+    """Launches per kernel since `reset_launches`. The attention wrappers
+    have two kernel families: `<name>` counts the FMA family's launches,
+    `<name>_tc` the tensor-core family's, and `<name>_dropout` those of
+    both that drew a dropout mask."""
     counts = {name: fn.launches for name, fn in wrappers().items()}
-    for name, row in DROPOUT_ROWS.items():
-        counts[row] = wrappers()[name].dropout_launches
+    for name in ATTENTION:
+        fn = wrappers()[name]
+        counts[name] = fn.fma_launches
+        counts[f"{name}_tc"] = fn.tc_launches
+        counts[f"{name}_dropout"] = fn.dropout_launches
     return counts
 
 
@@ -972,7 +1104,7 @@ def plain_encode_path():
          vq.nearest_codes, vq.nearest_codes_with_stats) = saved
 
 
-def encode(torch, model, dev, card, batch=8, reps=3):
+def encode(torch, model, dev, card, batch=8, reps=5):
     """Full-width p6c18 first stage (f32) on a seeded batch: `encode_to_z`
     and `forward` through the kernels and through the plain versions."""
     fs = model.first_stage_model
@@ -987,11 +1119,13 @@ def encode(torch, model, dev, card, batch=8, reps=3):
         quant, streams = model.encode_to_z(x)
         torch.cuda.synchronize()
         launches = read_launches()
-        t0 = time.perf_counter()
+        times = []
         for _ in range(reps):
+            t0 = time.perf_counter()
             model.encode_to_z(x)
-        torch.cuda.synchronize()
-        encode_s = (time.perf_counter() - t0) / reps
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        encode_s = spread(times)["median"]
         prof = profile_device_time(torch, lambda: model.encode_to_z(x))
 
         _, _, info, grain, _, ent = fs.encode(x)
@@ -1037,7 +1171,8 @@ def encode(torch, model, dev, card, batch=8, reps=3):
                round_trip_max_abs_diff=round_trip, stream_lengths={
                    k: int((v != model.permuter.content_pad_code).sum()) for k, v in streams.items()
                    if k.endswith("content")},
-               launches=launches, encode_s=encode_s, images_per_s=batch / encode_s,
+               launches=launches, encode_s=encode_s, encode_s_spread=spread(times),
+               images_per_s=batch / encode_s,
                device_busy_ms=busy_ms, device_idle_share=busy_ms and 1.0 - busy_ms / encode_ms,
                device_ops=prof["device_ops"], top_kernels=prof["top"], card=card)
     emit(res)
@@ -1089,7 +1224,7 @@ def set_dropout(gpt, embd, resid, attn=None):
             mod.attn_pdrop = attn
 
 
-def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
+def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
     """Stage-2 training at full p6c18 width and depth on cached codes."""
     from dynamicvectorquantization_torch.config.yaml_config import load_config
     from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
@@ -1204,17 +1339,24 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
     # ones from the trainer's own generator (re-seeded per step, as the loop runs it);
     # before them the same steps with attn_pdrop 0, the configuration timed before
     # in-kernel dropout existed, from the same state
-    def timed(n):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pending = [trainer.train_step(batches[i % len(batches)])["train_loss"] for i in range(n)]
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / n, [float(v) for v in pending]
+    def timed(n, windows=3):
+        """Host-clock ms per step over `windows` windows of `n` steps (the
+        host runs ahead inside a window, as in training), and the losses."""
+        per_step, losses_ = [], []
+        for _ in range(windows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pending = [trainer.train_step(batches[i % len(batches)])["train_loss"]
+                       for i in range(n)]
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0) / n * 1e3)
+            losses_ += [float(v) for v in pending]
+        return dict(spread(per_step), steps_per_window=n), losses_
 
     restore(start)
     set_dropout(gpt, embd_pdrop, resid_pdrop, 0.0)
     trainer.train_step(batches[0])  # warm-up step
-    step_s_rate0, _ = timed(timed_steps)
+    step_rate0, _ = timed(timed_steps)
     prof0 = profile_device_time(torch, lambda: trainer.train_step(batches[0]), n_top=4)
 
     restore(start)
@@ -1226,26 +1368,32 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=6):
     losses.append(float(trainer.train_step(batches[1])["train_loss"]))
     step_launches = read_launches()
     torch.cuda.reset_peak_memory_stats()
-    step_s, more = timed(timed_steps)
+    step, more = timed(timed_steps)
     losses += more
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile_device_time(
         torch, lambda: trainer.train_step(batches[0]), n_top=12)
     layers = gpt.position_layer + gpt.content_layer
-    expected = {"fused_attention_forward": layers, "fused_attention_backward": layers,
+    # bf16 at hd 128: every attention launch on the tensor-core family
+    expected = {"fused_attention_forward_tc": layers, "fused_attention_backward_tc": layers,
+                "fused_attention_forward_dropout": layers,
+                "fused_attention_backward_dropout": layers,
+                "fused_attention_forward": 0, "fused_attention_backward": 0,
                 "layernorm_forward": 2 * layers + 2, "layernorm_backward": 2 * layers + 2,
                 "fused_adamw": len(trainer.params)}
-    step_ms = step_s * 1e3
+    step_ms = step["median"]
     busy_ms = prof["device_busy_ms"]
     res = dict(phase="train", step="timed", config=P6C18, attn_pdrop=attn_pdrop,
-               step_ms_attn_pdrop_0=step_s_rate0 * 1e3,
+               step_ms_attn_pdrop_0=step_rate0["median"], step_ms_spread_attn_pdrop_0=step_rate0,
                device_busy_ms_attn_pdrop_0=prof0["device_busy_ms"], embd_pdrop=embd_pdrop,
                resid_pdrop=resid_pdrop, dtype="bfloat16 over f32 masters", batch=batch,
                seq_len=t_len, stream_caps=TRAIN_CAPS, images=n_images, real_tokens=tokens,
                layers=layers, params=n_params, parameter_leaves=len(trainer.params), lr=lr,
-               load_s=load_s, encode_dataset_s=encode_s, encode_launches=encode_launches,
+               load_s=spread([load_s]), encode_dataset_s=spread([encode_s]),
+               encode_launches=encode_launches,
                losses=losses, launches_per_step=step_launches, expected_launches=expected,
-               timed_steps=timed_steps, step_ms=step_ms, images_per_s=batch / step_s,
+               timed_steps=timed_steps, step_ms=step_ms, step_ms_spread=step,
+               images_per_s=batch / step_ms * 1e3,
                device_busy_ms=busy_ms, device_idle_share=busy_ms and 1.0 - busy_ms / step_ms,
                device_ops=prof["device_ops"], top_kernels=prof["top"],
                peak_memory_gb=peak_gb, card=card)
@@ -1354,10 +1502,13 @@ def train1(torch, dev, card, batch=8, timed_steps=3):
     torch.cuda.synchronize()
     step_launches, ema_updates_per_step = read_launches(), len(updates)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    all_logs += [trainer.train_step(x, gen) for _ in range(timed_steps)]
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / timed_steps
+    times = []
+    for _ in range(timed_steps):  # a stage-1 step is device-bound: a sync per step costs little
+        t0 = time.perf_counter()
+        all_logs.append(trainer.train_step(x, gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    step_s = spread(times)["median"]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile_device_time(
         torch, lambda: trainer.train_step(x, gen), n_top=14,
@@ -1393,14 +1544,16 @@ def train1(torch, dev, card, batch=8, timed_steps=3):
                params_autoencoder=sum(p.numel() for p in trainer.ae_params.values()),
                params_discriminator=sum(p.numel() for p in trainer.disc_params.values()),
                params_lpips=sum(p.numel() for p in loss.perceptual_loss.parameters()),
-               load_s=load_s, steps_run=steps_run, logs_first=logs[0], logs_last=logs[-1],
+               load_s=spread([load_s]), steps_run=steps_run, logs_first=logs[0],
+               logs_last=logs[-1],
                aeloss=[step["train_aeloss"] for step in logs],
                d_weight=[step["train_d_weight"] for step in logs],
                launches_per_step=step_launches, expected_launches=expected,
                ema_updates_per_step=ema_updates_per_step, eval_step=val,
                eval_launches={k: v for k, v in eval_launches.items() if v},
                max_abs_update=moved, lpips_frozen=lpips_frozen, timed_steps=timed_steps,
-               step_ms=step_ms, images_per_s=batch / step_s, device_busy_ms=busy_ms,
+               step_ms=step_ms, step_ms_spread=spread([t * 1e3 for t in times]),
+               images_per_s=batch / step_s, device_busy_ms=busy_ms,
                device_idle_share=busy_ms and 1.0 - busy_ms / step_ms,
                device_ops=prof["device_ops"], top_kernels=prof["top"],
                device_ms_by_kernel_group=prof["groups"], peak_memory_gb=peak_gb, card=card)
@@ -1409,13 +1562,13 @@ def train1(torch, dev, card, batch=8, timed_steps=3):
     # LPIPS to the reconstruction; the discriminator's own objective to its parameters
     def event_ms(fn, n=3):
         fn()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        marks[0].record()
+        for m in marks[1:]:
             fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / n
+            m.record()
+        marks[-1].synchronize()
+        return spread([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
 
     xr = (0.9 * x).requires_grad_()
     disc_leaves = list(trainer.disc_params.values())
@@ -1535,12 +1688,15 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
                train_loss=losses, val=[{k: v for k, v in r.items() if k.startswith("val_")}
                                        for r in val_rows],
                lr=[r["lr"] for r in train_rows], checkpoints_kept=ckpts, checkpoint_gb=ckpt_gb,
-               image_grids=images, launches=launches, whole_run_s=whole_s,
-               seconds_per_epoch={k: v / 2 for k, v in buckets["buckets"].items()},
-               loop_wall_s=buckets["wall_seconds"], device_wait_s=buckets["device_wait_seconds"],
+               image_grids=images, launches=launches, whole_run_s=spread([whole_s]),
+               # one run: each bucket is one sum over its two epochs (n = 1)
+               seconds_per_epoch={k: spread([v / 2]) for k, v in buckets["buckets"].items()},
+               loop_wall_s=spread([buckets["wall_seconds"]]),
+               device_wait_s=spread([buckets["device_wait_seconds"]]),
                encode_share=buckets["buckets"].get("encode", 0.0) / buckets["wall_seconds"],
-               checkpoint_s_per_save=buckets["buckets"]["checkpoint"] / 2,
-               peak_memory_gb=peak_gb, stopped_after_epoch_1_at=first_steps, resume_run_s=resume_s,
+               checkpoint_s_per_save=spread([buckets["buckets"]["checkpoint"] / 2]),
+               peak_memory_gb=peak_gb, stopped_after_epoch_1_at=first_steps,
+               resume_run_s=spread([resume_s]),
                final_val_whole=val_rows[-1][val_key],
                final_val_resumed=parts_rows[-1].get(val_key), state_sha256_whole=whole_hash,
                state_sha256_resumed=resumed_hash, resumed_rows_equal=rows_equal, card=card)
@@ -1576,8 +1732,9 @@ def fit(torch, card):
     # the first step of each epoch of the whole run
     return fit_through_cli(
         torch, card, "fit", P6C18, overrides, 4, lambda t: t.masters, "val_loss",
-        ("vq_nearest", "patch_entropy", "fused_attention_forward", "fused_attention_backward",
-         "layernorm_forward", "layernorm_backward", "fused_adamw", "strided_conv3x3_down"),
+        ("vq_nearest", "patch_entropy", "fused_attention_forward", "fused_attention_forward_tc",
+         "fused_attention_backward_tc", "layernorm_forward", "layernorm_backward", "fused_adamw",
+         "strided_conv3x3_down"),
         gb_needed=12, grids=8)
 
 
@@ -1609,28 +1766,39 @@ def serve(torch, model, card):
     from dynamicvectorquantization_torch.serve import BatchingSampler
 
     requests = [(1, 101), (2, 102), (4, 103)]
+    walls = []
     with BatchingSampler(model, max_batch=8, max_wait_ms=200.0) as engine:
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
-        futures = [engine.submit(n, seed=s) for n, s in requests]
-        images = [f.result(timeout=900) for f in futures]
-        wall = time.perf_counter() - t0
-        launches = read_launches()
-        batches, stats = engine.batches_run, list(engine.batch_stats)
+        for round_ in range(2):  # the same requests twice: a repeat count for the wall time
+            torch.cuda.synchronize()
+            if round_ == 0:
+                reset_launches()
+            t0 = time.perf_counter()
+            futures = [engine.submit(n, seed=s) for n, s in requests]
+            images = [f.result(timeout=900) for f in futures]
+            walls.append(time.perf_counter() - t0)
+            if round_ == 0:
+                launches = read_launches()
+                batches = engine.batches_run
+        stats = list(engine.batch_stats)
     n_images = sum(n for n, _ in requests)
+    wall = spread(walls)["median"]
     res = dict(phase="serve", config=P6C18, kv_cache_dtype="int8", max_batch=8,
                requests=[n for n, _ in requests], shapes=[list(x.shape) for x in images],
                batches=batches, batch_stats=stats, launches=launches, wall_s=wall,
-               s_per_batch=wall / batches, images_per_s=n_images / wall, card=card)
+               wall_s_spread=spread(walls), s_per_batch=wall / batches,
+               images_per_s=n_images / wall, card=card)
     emit(res)
     for (n, _), img in zip(requests, images):
         require(img.shape == (n, 256, 256, 3), f"image shape {img.shape} for {n} images")
         require(bool(np.isfinite(img).all()), "non-finite image values")
     layers = model.transformer.position_layer + model.transformer.content_layer
-    require(launches["decode_attention_int8"] >= layers * sum(st["ar_steps"] for st in stats),
+    require(launches["decode_attention_int8"] >= layers * sum(
+        st["ar_steps"] for st in stats[:batches]),
             "decode_attention_int8 was not launched on every decode step")
-    require(launches["fused_attention_forward"] == 4 * batches,
+    # the decoder's four AttnBlocks (f32: the FMA family); the StackGPT decodes one
+    # token at a time through decode_attention_int8, so no tensor-core launch
+    require(launches["fused_attention_forward"] == 4 * batches
+            and launches["fused_attention_forward_tc"] == 0,
             "fused_attention_forward was not launched by every decoder AttnBlock")
     return res
 
@@ -1656,7 +1824,8 @@ def main():
 
     t0 = time.perf_counter()
     cuda_lib.lib()
-    emit(dict(phase="build", seconds=time.perf_counter() - t0, nvcc_flags=cuda_lib.NVCC_FLAGS))
+    emit(dict(phase="build", seconds=spread([time.perf_counter() - t0]),
+              nvcc_flags=cuda_lib.NVCC_FLAGS))
 
     decode_cases = check_decode_attention(torch, dev)
     attn_cases, attn_drop_cases = check_fused_attention(torch, dev)
@@ -1673,7 +1842,7 @@ def main():
     t0 = time.perf_counter()
     model, _ = load_model_and_variables(P6C18, seed=0, kv_cache_dtype="int8", device=dev)
     model.transformer.to(torch.bfloat16)
-    emit(dict(phase="load", config=P6C18, seed=0, seconds=time.perf_counter() - t0,
+    emit(dict(phase="load", config=P6C18, seed=0, seconds=spread([time.perf_counter() - t0]),
               params=sum(p.numel() for p in model.parameters())))
     encoded = encode(torch, model, dev, card)
     teacher_forced_decode(torch, model, dev)
@@ -1693,66 +1862,70 @@ def main():
     conv = dict(conv_cases[0], shape=[c["shape"] for c in conv_cases],
                 max_abs_err=max(c["max_abs_err"] for c in conv_cases),
                 bound_by="/".join(sorted({c["bound_by"] for c in conv_cases})),
+                kernel_ms_spread=[c["kernel_ms_spread"] for c in conv_cases],
                 **{key: sum(c[key] for c in conv_cases)
                    for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")})
-    attn_hd512 = {k: attn_cases[2][k] for k in ("shape", "max_abs_err", "kernel_ms", "plain_ms",
-                                                "bound_ms", "library_ms")}
-    attn_train = {k: attn_train_cases[0][k] for k in (
-        "shape", "dtype", "with_lse", "max_abs_err", "lse_err", "kernel_ms", "plain_ms",
-        "library_ms", "bound_ms")}
     paths = {"serve": served["launches"], "encode": encoded["launches"], "train_step": per_step,
              "train1_step": per_step1, "fit": fitted, "fit1": fitted1}
 
     def launched(name):
-        """Launches of a row on each driven path; the attention rows count
-        their rate-0 launches, the `_dropout` rows those that drew a mask."""
-        out = {}
-        for path, counts in paths.items():
-            n = counts[name] - counts.get(DROPOUT_ROWS.get(name), 0)
-            if n:
-                out[path] = n
-        return out
+        """Launches of a row on each driven path (for the attention rows: of
+        that kernel family, every rate)."""
+        return {path: counts[name] for path, counts in paths.items() if counts[name]}
 
     def pick(case, *keys):
-        return {k: case[k] for k in keys}
+        return {k: case[k] for k in keys if k in case}
 
-    drop_keys = ("shape", "dtype", "causal", "rate", "max_abs_err", "dropout_err", "tol",
-                 "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    timed_keys = ("shape", "dtype", "causal", "family", "rate", "max_abs_err", "dropout_err",
+                  "tol", "kernel_ms", "kernel_ms_spread", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by", "fma_kernel_ms", "fma_kernel_ms_spread", "bit_reproducible",
+                  "gflop")
     attn_src = "dynamicvectorquantization_tpu/ops/attention_pallas.py"
+    # the attention cases: forward (a) f32 hd 256, t808 bf16 (tensor cores), (b) f32 hd 512,
+    # (a) in bf16; with lse (c) bf16 (tensor cores), f32 batch 2, hd 64, hd 256, hd 512,
+    # hd 256 bf16; each also at rate 0.1 (the `_drop` lists)
+    fwd_a, fwd_t808, fwd_b, fwd_a16 = attn_cases
+    dfwd_a, dfwd_t808, dfwd_b, dfwd_a16 = attn_drop_cases
+    fwd_c, fwd_c32, fwd_64, fwd_256, fwd_512, fwd_256b = attn_train_cases
+    dfwd_c = attn_train_drop_cases[0]
+    bwd_c, bwd_c32, bwd_64, bwd_256, bwd_512, bwd_256b = attn_bwd_cases
+    dbwd_c, dbwd_c32, dbwd_64, dbwd_256, dbwd_512, dbwd_256b = attn_bwd_drop_cases
     kernels = []
     for name, src, replaces, main, extra in (
             ("decode_attention_int8", "decode_attention_int8.cu",
              "dynamicvectorquantization_tpu/ops/kv_int8.py:92", decode_cases[-1], {}),
-            ("fused_attention_forward", "fused_attention.cu", f"{attn_src}:82", attn_cases[0],
-             {"encoder_hd512": attn_hd512, "train_with_lse": attn_train}),
-            # the same kernel source at rate 0.1, at the stage-2 training shape (with lse);
-            # library_ms: scaled_dot_product_attention with dropout_p
-            ("fused_attention_forward_dropout", "fused_attention.cu", f"{attn_src}:82",
-             attn_train_drop_cases[0],
-             {"rate": attn_train_drop_cases[0]["rate"],
-              "dropout_err": attn_train_drop_cases[0]["dropout_err"],
-              "rate0_ms_same_shape": attn_train_cases[0]["kernel_ms"],
-              "extra": {n_: pick(c, *drop_keys) for n_, c in (
-                  ("hd256_f32", attn_drop_cases[0]), ("hd128_bf16_t808", attn_drop_cases[1]),
-                  ("hd512_f32", attn_drop_cases[2]))}}),
-            ("fused_attention_backward", "fused_attention_bwd.cu", f"{attn_src}:108",
-             attn_bwd_cases[0],
-             {"bound_ms_f32_fma": attn_bwd_cases[0]["bound_ms_f32_fma"],
-              "bit_reproducible": attn_bwd_cases[0]["bit_reproducible"],
-              "extra": {name: {k: c[k] for k in (
-                  "shape", "dtype", "causal", "max_abs_err", "tol", "bit_reproducible", "gflop",
-                  "kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                  for name, c in (("hd256", attn_bwd_cases[3]), ("hd512", attn_bwd_cases[4]))}}),
-            ("fused_attention_backward_dropout", "fused_attention_bwd.cu", f"{attn_src}:108",
-             attn_bwd_drop_cases[0],
-             {"rate": attn_bwd_drop_cases[0]["rate"],
-              "dropout_err": attn_bwd_drop_cases[0]["dropout_err"],
-              "bit_reproducible": attn_bwd_drop_cases[0]["bit_reproducible"],
-              "rate0_ms_same_shape": attn_bwd_cases[0]["kernel_ms"],
-              "extra": {n_: pick(c, *drop_keys, "bit_reproducible") for n_, c in (
-                  ("hd128_f32_b2", attn_bwd_drop_cases[1]), ("hd64_t300", attn_bwd_drop_cases[2]),
-                  ("hd256", attn_bwd_drop_cases[3]), ("hd512", attn_bwd_drop_cases[4]))}}),
-            ("layernorm_forward", "layernorm.cu",
+            # the FMA family: f32 at every head dim (the DQ-VAE's AttnBlocks), bf16 at
+            # hd 16, 32, 256, 512; main: the decoder's 32x32 AttnBlock
+            ("fused_attention_forward", "fused_attention.cu", f"{attn_src}:82", fwd_a,
+             {"family": "FMA", "extra": {n_: pick(c, *timed_keys) for n_, c in (
+                 ("a_rate0.1", dfwd_a), ("b_hd512_f32", fwd_b), ("b_hd512_f32_rate0.1", dfwd_b),
+                 ("a_bf16_hd256", fwd_a16), ("a_bf16_hd256_rate0.1", dfwd_a16),
+                 ("c_f32_b2_with_lse", fwd_c32))}}),
+            # the tensor-core family: bf16 at hd 64 / 128; main: the stage-2 training
+            # shape (c) at the shipped rate 0.1, with lse
+            ("fused_attention_forward_tc", "fused_attention_tc.cu", f"{attn_src}:82", dfwd_c,
+             {"family": "tensor cores", "rate": dfwd_c["rate"],
+              "dropout_err": dfwd_c["dropout_err"], "fma_kernel_ms": dfwd_c["fma_kernel_ms"],
+              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+                  ("c_rate0", fwd_c), ("t808_no_lse", fwd_t808),
+                  ("t808_no_lse_rate0.1", dfwd_t808))}}),
+            ("fused_attention_backward", "fused_attention_bwd.cu", f"{attn_src}:108", bwd_256,
+             {"family": "FMA", "bit_reproducible": bwd_256["bit_reproducible"],
+              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+                  ("a_hd256_rate0.1", dbwd_256), ("b_hd512", bwd_512),
+                  ("b_hd512_rate0.1", dbwd_512), ("hd256_bf16", bwd_256b),
+                  ("hd256_bf16_rate0.1", dbwd_256b), ("c_f32_b2", bwd_c32),
+                  ("c_f32_b2_rate0.1", dbwd_c32), ("hd64_t300", bwd_64),
+                  ("hd64_t300_rate0.1", dbwd_64))}}),
+            ("fused_attention_backward_tc", "fused_attention_bwd_tc.cu", f"{attn_src}:108",
+             dbwd_c,
+             {"family": "tensor cores", "rate": dbwd_c["rate"],
+              "dropout_err": dbwd_c["dropout_err"],
+              "bit_reproducible": dbwd_c["bit_reproducible"],
+              "fma_kernel_ms": dbwd_c["fma_kernel_ms"],
+              "bound_ms_f32_fma": dbwd_c["bound_ms_f32_fma"],
+              "extra": {"c_rate0": pick(bwd_c, *timed_keys)}}),
+        ("layernorm_forward", "layernorm.cu",
              "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:46", ln_fwd_cases[0], {}),
             ("layernorm_backward", "layernorm.cu",
              "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:56", ln_bwd_cases[0],
@@ -1775,8 +1948,9 @@ def main():
             name=name, route="cuda", source=f"dynamicvectorquantization_torch/csrc/{src}",
             replaces=replaces, launches=sum(launches.values()), launches_by_path=launches,
             max_abs_err=main["max_abs_err"], tol=main["tol"], ms=main["kernel_ms"],
-            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-            library_ms=main["library_ms"], shape=main["shape"], card=card, **extra))
+            ms_spread=main["kernel_ms_spread"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main.get("library_ms"), shape=main["shape"], card=card, **extra))
         require(kernels[-1]["launches"] > 0, f"{name} was launched on no driven path")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

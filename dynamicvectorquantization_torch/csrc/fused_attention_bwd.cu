@@ -53,6 +53,7 @@
 // key tiles have unequal work and no balancing.
 #include <math.h>
 
+#include "attention_delta.cuh"
 #include "common.cuh"
 
 namespace {
@@ -162,20 +163,6 @@ __device__ __forceinline__ void score_tile(const Tiles<HD, TILE>& s, int q0, int
       }
     }
   }
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-attention_delta_kernel(const T* __restrict__ y, const T* __restrict__ dy,
-                       float* __restrict__ delta, int batch, int t_len, int n_head) {
-  const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5, lane = threadIdx.x & 31;
-  if (warp >= batch * t_len * n_head) return;
-  const int h = warp % n_head, bt = warp / n_head;  // bt = b * t_len + t
-  const size_t off = (size_t)bt * n_head * HD + (size_t)h * HD;
-  float acc = 0.f;
-  for (int d = lane; d < HD; d += 32) acc += dqvq::to_f32(y[off + d]) * dqvq::to_f32(dy[off + d]);
-  acc = dqvq::warp_sum(acc);
-  if (lane == 0) delta[((size_t)(bt / t_len) * n_head + h) * t_len + bt % t_len] = acc;
 }
 
 template <typename T, int HD, int TILE, bool DROP>
@@ -322,7 +309,7 @@ cudaError_t launch_drop(const void* q, const void* k, const void* v, const void*
 
   const long long warps = (long long)batch * t_len * n_head;
   const int delta_blocks = (int)((warps * 32 + kThreads - 1) / kThreads);
-  attention_delta_kernel<T, HD><<<delta_blocks, kThreads, 0, stream>>>(
+  dqvq::attention_delta_kernel<T, HD><<<delta_blocks, kThreads, 0, stream>>>(
       (const T*)y, (const T*)dy, delta, batch, t_len, n_head);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -8,9 +8,12 @@ taps. Inputs lie in [-1, 1] and are shifted and scaled by fixed constants.
 
 Weights: the lin heads ship with this package (`assets/lpips/vgg_lin.npz`,
 HWIO, converted to OIHW at load). The pretrained torchvision VGG16 backbone
-is not in the repository; without it the backbone holds seeded random
-features, as in the JAX package: a usable training gradient, not the
-published metric. Module names follow the reference's LPIPS
+is not in the repository: `load_weights` reads it (and, if wanted, other lin
+heads) from a file the user gives, which `Stage1Trainer.init_state` takes as
+`lpips_vgg_path` / `lpips_lin_path` or from `DQVQ_LPIPS_VGG` /
+`DQVQ_LPIPS_LIN`, as the JAX trainer does. Without it the backbone holds
+seeded random features, as in the JAX package: a usable training gradient,
+not the published metric. Module names follow the reference's LPIPS
 (`net.slice{1..5}.{torchvision feature index}`, `lin{i}.model.1`,
 `scaling_layer.{shift,scale}`), so a reference checkpoint's
 `loss.perceptual_loss.*` entries load. The module is frozen: no optimizer
@@ -98,14 +101,47 @@ class LPIPS(nn.Module):
         self.requires_grad_(False)
 
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator):
+    def init_weights(self, generator: torch.Generator, vgg_path=None, lin_path=None):
         """Seeded random backbone (normal convs of variance 1 / fan-in, zero
-        biases) and the bundled lin heads."""
+        biases) and the bundled lin heads; then, where given, the backbone
+        and the lin heads read from files (`load_weights`)."""
         for conv in self.net.convs():
             fan_in = conv.weight[0].numel()
             conv.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
             conv.bias.zero_()
         self.load_state_dict(load_bundled_lin_heads(), strict=False)
+        self.load_weights(vgg_path, lin_path)
+
+    @torch.no_grad()
+    def load_weights(self, vgg_path=None, lin_path=None):
+        """The VGG16 backbone from a torchvision `vgg16` state dict file
+        (`features.{i}.weight` / `.bias`; the classifier is ignored) and the
+        lin heads from the reference's LPIPS file (`lin{i}.model.1.weight`).
+        Either may be None; every tensor the module takes must be in a given
+        file."""
+        from ..utils.model_loading import load_torch_state_dict
+
+        if vgg_path:
+            sd = load_torch_state_dict(vgg_path)
+            picked = {}
+            for slice_name, sl in self.net.named_children():
+                for idx, mod in sl.named_children():
+                    if isinstance(mod, nn.Conv2d):
+                        for leaf in ("weight", "bias"):
+                            picked[f"net.{slice_name}.{idx}.{leaf}"] = sd.get(
+                                f"features.{idx}.{leaf}")
+            missing = sorted(k for k, v in picked.items() if v is None)
+            if missing:
+                raise KeyError(f"{vgg_path!r} is not a torchvision vgg16 state dict: it lacks "
+                               f"{len(missing)} conv tensors, e.g. {missing[:3]}")
+            self.load_state_dict(picked, strict=False)
+        if lin_path:
+            sd = load_torch_state_dict(lin_path)
+            want = [f"lin{i}.model.1.weight" for i in range(len(TAP_CHANNELS))]
+            missing = [k for k in want if k not in sd]
+            if missing:
+                raise KeyError(f"{lin_path!r} lacks the LPIPS lin heads {missing}")
+            self.load_state_dict({k: sd[k] for k in want}, strict=False)
 
     def forward(self, input, target):
         """(B, 3, H, W) images in [-1, 1] -> (B, 1, 1, 1)."""

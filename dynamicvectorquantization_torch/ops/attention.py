@@ -2,15 +2,23 @@
 backward.
 
 Counterpart of `dynamicvectorquantization_tpu/ops/attention_pallas.py`
-(`fused_causal_attention` and its VJP). `fused_attention_forward` launches
-the CUDA kernel `csrc/fused_attention.cu` for CUDA tensors and runs its plain
-version, `fused_attention_forward_plain`, for CPU tensors;
-`fused_attention_backward` does the same with `csrc/fused_attention_bwd.cu`
-and `fused_attention_backward_plain`. `fused_causal_attention` is the
-`torch.autograd.Function` over the two: the forward also returns each row's
-log-sum-exp of the scaled scores, the Function saves q, k, v, y and it, and
-the backward rebuilds the probabilities from them tile by tile. There is no
-fallback: a CUDA tensor a kernel cannot take raises.
+(`fused_causal_attention` and its VJP). `fused_attention_forward` launches a
+CUDA kernel for CUDA tensors and runs its plain version,
+`fused_attention_forward_plain`, for CPU tensors; `fused_attention_backward`
+does the same with `fused_attention_backward_plain`. Each has two kernel
+families, chosen by dtype and head dim: bf16 at hd 64 and 128 (the StackGPT's
+heads in stage-2 training) runs on the tensor cores
+(`csrc/fused_attention_tc.cu`, `csrc/fused_attention_bwd_tc.cu`), everything
+else (f32 at every head dim, so the DQ-VAE's AttnBlocks; bf16 at hd 16, 32,
+256, 512) on the FMA units (`csrc/fused_attention.cu`,
+`csrc/fused_attention_bwd.cu`). The tensor-core family rounds where the TPU
+kernel rounds: the probabilities to bf16 before P V, and D and dS before
+their products; the bf16 plain versions make the same roundings.
+`fused_causal_attention` is the `torch.autograd.Function` over the two: the
+forward also returns each row's log-sum-exp of the scaled scores, the
+Function saves q, k, v, y and it, and the backward rebuilds the
+probabilities from them tile by tile. There is no fallback: a CUDA tensor a
+kernel cannot take raises.
 
 Attention-probability dropout (`rate > 0`) runs inside both kernels, as in
 the TPU kernels: Y = (P o M / keep) V with the softmax denominator summed
@@ -34,6 +42,7 @@ from . import cuda_lib
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORWARD_HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 _BACKWARD_HEAD_DIMS = _FORWARD_HEAD_DIMS
+_TC_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core family
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -140,8 +149,10 @@ def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False
                                   return_lse=False, rate=0.0, seed=None):
     """Plain PyTorch version: the same math as the TPU kernel (f32 scores,
     max-subtracted exp, the denominator summed before the dropout mask,
-    normalisation after P V), computed in f32. With `return_lse` also the
-    rows' log-sum-exp (of the undropped scores), (B, H, T) f32."""
+    normalisation after P V), computed in f32; for bf16 inputs the
+    probabilities are rounded to bf16 before P V, as the TPU kernel and the
+    tensor-core kernel round them. With `return_lse` also the rows'
+    log-sum-exp (of the undropped scores), (B, H, T) f32."""
     b, t, d = q.shape
     if scale is None:
         scale = 1.0 / float(d // n_head) ** 0.5
@@ -150,9 +161,19 @@ def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     keep = _keep_scale(q, n_head, rate, seed)
-    if keep is not None:
-        p = p * keep
-    y = (torch.matmul(p, _heads(v, n_head)) / l).transpose(1, 2).reshape(b, t, d).to(q.dtype)
+    if q.dtype == torch.bfloat16:
+        # the TPU kernel's rounding: the kept, unnormalised probabilities to
+        # bf16 before P V (`p.astype(v.dtype)`), 1 / keep after it
+        if keep is not None:
+            p = torch.where(keep > 0, p, 0.0)
+        y = torch.matmul(p.to(torch.bfloat16).float(), _heads(v, n_head)) / l
+        if keep is not None:
+            y = y * (1.0 / (1.0 - rate))
+    else:
+        if keep is not None:
+            p = p * keep
+        y = torch.matmul(p, _heads(v, n_head)) / l
+    y = y.transpose(1, 2).reshape(b, t, d).to(q.dtype)
     if return_lse:
         return y, (m + torch.log(l))[..., 0]
     return y
@@ -163,7 +184,8 @@ def fused_attention_backward_plain(q, k, v, y, lse, dy, n_head: int, scale=None,
     """Plain PyTorch version of the backward, in f32: P = exp(S scale - lse),
     delta = rowsum(dY * Y), D = P * M / keep, dV = D^T dY, dP = (dY V^T) * M /
     keep, dS = P * (dP - delta), dQ = dS K scale, dK = dS^T Q scale (M = 1,
-    keep = 1 at rate 0); outputs in q's dtype."""
+    keep = 1 at rate 0); outputs in q's dtype. For bf16 inputs D and dS are
+    rounded to bf16 before their products, where the TPU kernel rounds."""
     b, t, d = q.shape
     if scale is None:
         scale = 1.0 / float(d // n_head) ** 0.5
@@ -175,8 +197,13 @@ def fused_attention_backward_plain(q, k, v, y, lse, dy, n_head: int, scale=None,
     dropped = p
     if keep is not None:
         dropped, dp = p * keep, dp * keep
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:  # the TPU kernel's `dropped.astype(dy.dtype)`
+        dropped = dropped.to(torch.bfloat16).float()
     dv = torch.matmul(dropped.transpose(-1, -2), dyh)
     ds = p * (dp - delta)
+    if bf16:  # `ds.astype(k.dtype)`
+        ds = ds.to(torch.bfloat16).float()
     dq = torch.matmul(ds, _heads(k, n_head)) * scale
     dk = torch.matmul(ds.transpose(-1, -2), _heads(q, n_head)) * scale
     return tuple(z.transpose(1, 2).reshape(b, t, d).to(q.dtype) for z in (dq, dk, dv))
@@ -200,6 +227,26 @@ def _check(name, tensors, n_head, head_dims):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def _tensor_cores(tensors, n_head) -> bool:
+    """Whether a call goes to the tensor-core family: bf16 at hd 64 or 128.
+    Its tiles are copied 16 bytes at a time, so it raises on a tensor that
+    does not start on a 16-byte boundary instead of taking the FMA family."""
+    q = tensors[0]
+    if q.dtype != torch.bfloat16 or q.shape[2] // n_head not in _TC_HEAD_DIMS:
+        return False
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("fused attention: bf16 tensors at hd 64 / 128 must start on a "
+                         "16-byte boundary")
+    return True
+
+
+def _count(wrapper, tc, rate):
+    wrapper.launches += 1
+    wrapper.tc_launches += tc
+    wrapper.fma_launches += not tc
+    wrapper.dropout_launches += rate > 0.0
+
+
 def _dropout_args(rate, seed):
     rate = float(rate)
     dropout_threshold(rate)  # validates the rate
@@ -215,8 +262,9 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
     docstring); q/k/v: (B, T, D), D = n_head * hd with hd in {16, 32, 64, 128,
     256, 512}; f32 or bf16. Returns (B, T, D) in q's dtype, and with
     `return_lse` also the rows' log-sum-exp (B, H, T) f32.
-    `fused_attention_forward.launches` counts kernel launches, and
-    `.dropout_launches` those of them at `rate > 0`."""
+    `fused_attention_forward.launches` counts kernel launches,
+    `.tc_launches` / `.fma_launches` those of each family and
+    `.dropout_launches` those at `rate > 0`."""
     rate, seed = _dropout_args(rate, seed)
     tensors = (q, k, v)
     if all(x.device.type == "cpu" for x in tensors):
@@ -229,19 +277,25 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
     out = torch.empty_like(q)
     lse = (torch.empty((b, n_head, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    err = cuda_lib.lib().dqvq_fused_attention_forward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if return_lse else None, b, t, d, n_head,
-        float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate, seed,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lse_ptr = lse.data_ptr() if return_lse else None
+    tc = _tensor_cores(tensors + (out,), n_head)
+    if tc:
+        err = cuda_lib.lib().dqvq_fused_attention_forward_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
+            float(scale), int(bool(causal)), rate, seed, stream)
+    else:
+        err = cuda_lib.lib().dqvq_fused_attention_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
+            float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate, seed, stream)
     cuda_lib.check(err, "fused_attention_forward")
-    fused_attention_forward.launches += 1
-    fused_attention_forward.dropout_launches += rate > 0.0
+    _count(fused_attention_forward, tc, rate)
     return (out, lse) if return_lse else out
 
 
 fused_attention_forward.launches = 0
+fused_attention_forward.tc_launches = 0  # those of `launches` on the tensor-core family
+fused_attention_forward.fma_launches = 0  # those on the FMA family
 fused_attention_forward.dropout_launches = 0  # those of `launches` that drew a mask
 
 
@@ -250,7 +304,8 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
     """(dq, dk, dv) in q's dtype from the forward's inputs, its output y, its
     log-sum-exp and its dropout `rate` and `seed`; hd as in the forward.
     `fused_attention_backward.launches` counts launches (delta, dK/dV and dQ
-    passes are one launch of the wrapper)."""
+    passes are one launch of the wrapper), split by family and rate as the
+    forward's."""
     rate, seed = _dropout_args(rate, seed)
     tensors = (q, k, v, y, dy)
     if all(x.device.type == "cpu" for x in (*tensors, lse)):
@@ -266,19 +321,25 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
         scale = 1.0 / float(d // n_head) ** 0.5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     delta = torch.empty_like(lse)
-    err = cuda_lib.lib().dqvq_fused_attention_backward(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, d, n_head,
-        float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate, seed,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tc = _tensor_cores(tensors + (dq, dk, dv), n_head)
+    if tc:
+        err = cuda_lib.lib().dqvq_fused_attention_backward_tc(
+            *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
+    else:
+        err = cuda_lib.lib().dqvq_fused_attention_backward(
+            *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate,
+            seed, stream)
     cuda_lib.check(err, "fused_attention_backward")
-    fused_attention_backward.launches += 1
-    fused_attention_backward.dropout_launches += rate > 0.0
+    _count(fused_attention_backward, tc, rate)
     return dq, dk, dv
 
 
 fused_attention_backward.launches = 0
+fused_attention_backward.tc_launches = 0
+fused_attention_backward.fma_launches = 0
 fused_attention_backward.dropout_launches = 0
 
 

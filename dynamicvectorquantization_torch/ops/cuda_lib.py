@@ -40,6 +40,8 @@ SIGNATURES = {
     "dqvq_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "dqvq_fused_attention_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
     "dqvq_fused_attention_backward": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
+    "dqvq_fused_attention_forward_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _D, _U, _P),
+    "dqvq_fused_attention_backward_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_layernorm_forward": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
     "dqvq_fused_adamw": (_P,) * 5 + (_L,) + (_F,) * 9 + (_I, _P),

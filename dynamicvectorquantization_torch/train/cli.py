@@ -14,10 +14,14 @@
     (to `--max_epochs`, which the command line gives again; the LR schedule
     spans `--max_epochs`, so a run meant to be continued exactly is ended
     with `--stop_epoch`, not with a smaller `--max_epochs`);
-  * `--device` (default: the CUDA card; `cpu` runs the plain versions).
+  * `--device` (default: the CUDA card; `cpu` runs the plain versions);
+  * `--profile_steps N`: a `torch.profiler` trace of the first N optimizer
+    steps in `<logdir>/profile/`;
+  * any other `--flag` the parser does not know is an error.
 
 Training over several devices and `--steps_per_dispatch > 1` are not ported:
-those flags raise and name their ROADMAP.md item.
+those flags raise and name their ROADMAP.md item (`--pp_microbatches` only
+with `--pp`).
 """
 from __future__ import annotations
 
@@ -66,6 +70,11 @@ def get_parser():
     p.add_argument("--tp", type=int, default=1, help="not ported")
     p.add_argument("--sp", type=int, default=1, help="not ported")
     p.add_argument("--pp", type=int, default=1, help="not ported")
+    p.add_argument("--pp_microbatches", type=int, default=None,
+                   help="pipeline microbatches; needs --pp, which is not ported")
+    p.add_argument("--profile_steps", type=int, default=0,
+                   help="write a torch.profiler trace of the first N optimizer steps into "
+                        "<logdir>/profile (0: off)")
     return p
 
 
@@ -99,7 +108,13 @@ def main(argv=None):
     from .loop import Trainer
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    opt, unknown = get_parser().parse_known_args(argv)
+    parser = get_parser()
+    opt, unknown = parser.parse_known_args(argv)
+    dropped = [u for u in unknown if "=" not in u or u.startswith("-")]
+    if dropped:  # only key.path=value overrides pass through; nothing is dropped in silence
+        parser.error(f"unrecognized arguments: {' '.join(dropped)}")
+    if opt.pp_microbatches is not None and opt.pp <= 1:
+        parser.error("--pp_microbatches needs --pp > 1")
 
     base_configs = list(opt.base)
     if opt.resume:
@@ -112,7 +127,7 @@ def main(argv=None):
         name = opt.name or (os.path.splitext(os.path.basename(base_configs[0]))[0]
                             if base_configs else "run")
         logdir = os.path.join(opt.logdir, f"{name}-{now}")
-    config = load_config(base_configs, [u for u in unknown if "=" in u])
+    config = load_config(base_configs, unknown)
 
     os.makedirs(os.path.join(logdir, "configs"), exist_ok=True)
     with open(os.path.join(logdir, "configs", "merged-project.yaml"), "w") as f:
@@ -128,7 +143,8 @@ def main(argv=None):
         steps_per_dispatch=opt.steps_per_dispatch, cached_codes=opt.cached_codes,
         devices=opt.devices, opt_sharding=opt.activate_ddp_share, fsdp=opt.activate_fsdp,
         tp=opt.tp, sp=opt.sp, pp=opt.pp, logtype=opt.logtype, log_every=opt.log_every,
-        image_log_frequency=opt.image_log_every, stop_epoch=opt.stop_epoch)
+        image_log_frequency=opt.image_log_every, stop_epoch=opt.stop_epoch,
+        profile_steps=opt.profile_steps)
     with torch.device(device):
         model = instantiate_from_config(config["model"])
     data = instantiate_from_config(config["data"])

@@ -18,6 +18,10 @@ A resumed run repeats the uninterrupted one: data order and augmentation are
 functions of (seed, epoch, batch, example), dropout of (seed, step,
 microbatch, layer), and a checkpoint holds the whole trainer state.
 
+Stage-2 validation and image grids run on the trainer's f32 masters, as the
+JAX loop's run on `state.params`. `profile_steps` writes a `torch.profiler`
+trace of a fresh run's first steps into `<logdir>/profile/`.
+
 What the JAX loop does over a device mesh is not ported: `devices > 1`,
 `opt_sharding` (ZeRO-1), `fsdp`, `tp` / `sp` / `pp` and `steps_per_dispatch >
 1` raise and name their ROADMAP.md item. Checkpoints are written
@@ -38,12 +42,12 @@ from ..data.pipeline import device_prefetch
 from ..utils.checkpoint import CheckpointManager
 from ..utils.device import resolve_device
 from ..utils.logging import ImageLogger, MetricLogger, draw_grain_map_color
-from ..utils.model_loading import load_into, load_torch_state_dict
+from ..utils.model_loading import load_first_stage
 from .stage1 import Stage1Trainer
 from .stage2 import Stage2Trainer
 
-MULTI_GPU_ITEM = "ROADMAP.md 3c, 'Multi-GPU training (DDP, ZeRO-1, FSDP, tp / sp / pp)'"
-DISPATCH_ITEM = "ROADMAP.md 3c, '`steps_per_dispatch` as a CUDA graph of the step'"
+MULTI_GPU_ITEM = "ROADMAP.md item 10.3, Multi-GPU: DDP, ZeRO-1, FSDP, tp / sp / pp"
+DISPATCH_ITEM = "ROADMAP.md item 10.2, steps_per_dispatch as a CUDA graph of the step"
 
 
 def _is_stage2(model) -> bool:
@@ -126,7 +130,7 @@ class Trainer:
                  cached_codes: str = "auto", devices: int = 1, opt_sharding: bool = False,
                  fsdp: bool = False, tp: int = 1, sp: int = 1, pp: int = 1,
                  logtype: str = "csv", init_weights: bool = True,
-                 stop_epoch: Optional[int] = None):
+                 stop_epoch: Optional[int] = None, profile_steps: int = 0):
         if devices not in (-1, 0, 1, None) or opt_sharding or fsdp or max(tp, sp, pp) > 1:
             raise NotImplementedError(
                 f"training over several devices is not ported (see {MULTI_GPU_ITEM})")
@@ -154,6 +158,10 @@ class Trainer:
         # still laid out for `max_epochs`: a job with a time limit that a
         # later `resume` continues exactly
         self.stop_epoch = stop_epoch
+        # a torch.profiler trace of the first `profile_steps` optimizer steps
+        # of a fresh run into <logdir>/profile, as the JAX loop's jax.profiler
+        self.profile_steps = int(profile_steps or 0)
+        self._profiler = None
         os.makedirs(logdir, exist_ok=True)
         self.metrics = MetricLogger(logdir, logtype=logtype)
         self.images = ImageLogger(logdir, batch_frequency=image_log_frequency)
@@ -188,6 +196,30 @@ class Trainer:
             print(f"[preempt:{reason}] emergency checkpoint saved at step {step}")
         except Exception as e:  # never mask the shutdown on a save failure
             print(f"[preempt:{reason}] emergency save FAILED: {e}")
+
+    def _maybe_profile(self, global_step: int, end: bool = False):
+        """Start the trace before step 0 of a fresh run; stop it and write
+        `<logdir>/profile/trace.json` once `profile_steps` steps are done (or
+        the run ends first)."""
+        if not self.profile_steps:
+            return
+        if self._profiler is None and global_step == 0 and not end:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._profiler = profile(activities=acts)
+            self._profiler.start()
+        elif self._profiler is not None and (end or global_step >= self.profile_steps):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profiler.stop()
+            out = os.path.join(self.logdir, "profile")
+            os.makedirs(out, exist_ok=True)
+            self._profiler.export_chrome_trace(os.path.join(out, "trace.json"))
+            self._profiler = None
+            print(f"profiler trace written to {out}")
 
     def _write_buckets(self, buckets, wall, gs):
         """Host-loop attribution -> <logdir>/loop_buckets.json. "device_wait"
@@ -254,12 +286,15 @@ class Trainer:
                     bi += 1
                     if self.max_steps_per_epoch and bi >= self.max_steps_per_epoch:
                         break
+                    self._maybe_profile(gs)
                     t_d = time.perf_counter()
                     logs = step_fn(x)
                     _add(buckets, "dispatch", t_d)
                     gs += 1
                     lagged.flush()
+                    self._maybe_profile(gs)
                     if guard.should_stop:
+                        self._maybe_profile(gs, end=True)
                         self._emergency_save(mngr, gs, state_fn(), guard.reason)
                         return trainer
                     if bi % self.log_every == 0:
@@ -284,6 +319,7 @@ class Trainer:
                 _add(buckets, "checkpoint", t_c)
                 print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()),
                       flush=True)
+        self._maybe_profile(gs, end=True)
         self._write_buckets(buckets, time.perf_counter() - t_fit, gs)
         return trainer
 
@@ -407,7 +443,8 @@ class Trainer:
 
         def log_images(x, gs, epoch, bi):
             x_img = vis["x"] if use_cached else (x if self.accum == 1 else x[0])
-            self._log_stage2_images(model, x_img, "train", gs, epoch, bi)
+            with trainer.master_weights():
+                self._log_stage2_images(model, x_img, "train", gs, epoch, bi)
 
         def batch_size_of(x):
             leaf = next(iter(x.values())) if isinstance(x, dict) else x
@@ -456,22 +493,12 @@ class Trainer:
 
     def _log_stage2_images(self, model, x, split, gs, epoch, bi):
         """Sample grids during stage-2 training, from a generator seeded
-        with the global step (apart from the training streams)."""
+        with the global step (apart from the training streams); the caller
+        puts the f32 masters in place, as the JAX loop samples with
+        `state.params`."""
         imgs = model.log_images(x, generator=self._generator(gs))
         self.images.log(imgs, split, gs, epoch, bi)
 
     def _validate_stage2(self, model, data, trainer):
         return self._mean_over(data.val_dataloader(seed=self.seed), model.first_stage_key,
                                trainer.eval_step)
-
-
-def load_first_stage(fs_model, path: str):
-    """Stage-1 weights for a frozen first stage from its config `ckpt_path`:
-    a reference torch `.ckpt` / `.pth` / `.pt`, or the `checkpoints/`
-    directory of a stage-1 run of this package (its newest step): the stage-1
-    -> stage-2 handoff."""
-    if os.path.isdir(path):
-        sd = CheckpointManager(path).restore()["trainer"]["model"]
-    else:
-        sd = load_torch_state_dict(path)
-    load_into(fs_model, sd)

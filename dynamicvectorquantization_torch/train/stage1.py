@@ -34,6 +34,8 @@ and data loading live in `train/loop.py`.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 
@@ -155,13 +157,21 @@ class Stage1Trainer:
         self.epoch = int(state["epoch"])
         self.generator.set_state(state["generator"].cpu())
 
-    def init_state(self, generator: torch.Generator = None):
+    def init_state(self, generator: torch.Generator = None, lpips_vgg_path=None,
+                   lpips_lin_path=None):
         """A fresh training state: with a generator, seeded random weights
         (`model.init_weights`: the LPIPS backbone random, its lin heads the
         bundled ones); in any case zero moments, step 0, epoch 0. Without a
-        generator the model keeps the weights it was given."""
+        generator the model keeps the weights it was given. The LPIPS VGG16
+        backbone (a torchvision `vgg16` state dict) and lin heads are read
+        from `lpips_vgg_path` / `lpips_lin_path`, or else from the files that
+        `DQVQ_LPIPS_VGG` / `DQVQ_LPIPS_LIN` name, as the JAX trainer reads
+        them."""
         if generator is not None:
             self.model.init_weights(generator)
+        self.loss.perceptual_loss.load_weights(
+            lpips_vgg_path or os.environ.get("DQVQ_LPIPS_VGG"),
+            lpips_lin_path or os.environ.get("DQVQ_LPIPS_LIN"))
         self.ae_opt.reset()
         self.disc_opt.reset()
         self.step = 0

@@ -17,7 +17,10 @@ With
 copy; autograd differentiates with respect to that copy (bf16 gradients), and
 the fused AdamW kernel reads them, updates the f32 masters and writes the
 next working copy in the same pass. With f32 the module's parameters are the
-masters. The first stage always encodes in f32 (its bf16 mode is not ported).
+masters. Validation (`eval_step`) and the loop's image grids run on the f32
+masters, as the JAX trainer evaluates and samples with `state.params`
+(`master_weights`). The first stage always encodes in f32 (its bf16 mode is
+not ported).
 
 Dropout is a function of (base seed, optimizer step, microbatch, layer) and
 of nothing else, as the JAX loop folds the global step into a constant base
@@ -32,6 +35,8 @@ The epoch loop, checkpoints and data loading live in `train/loop.py`; the
 parallel trainers are not ported (ROADMAP.md).
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -208,9 +213,30 @@ class Stage2Trainer:
                                  else xs[i], generator) for i in range(k)]
         return {key: torch.stack([s[key] for s in steps]) for key in steps[0]}
 
+    @contextlib.contextmanager
+    def master_weights(self):
+        """For its duration the transformer computes with the f32 masters:
+        each parameter's data points at its master, and back to the bf16
+        working copy after. No second model is allocated; under f32 the
+        parameters are the masters already."""
+        if not self.mixed:
+            yield
+            return
+        working = {k: p.data for k, p in self.params.items()}
+        try:
+            for k, p in self.params.items():
+                p.data = self.masters[k]
+            yield
+        finally:
+            for k, p in self.params.items():
+                p.data = working[k]
+
     @torch.no_grad()
     def eval_step(self, x):
-        total, out = self._losses(self._to_device(x), False, None)
+        """The validation losses of `x`, computed with the f32 masters (the
+        monitored `val_loss` ranks the checkpoints)."""
+        with self.master_weights():
+            total, out = self._losses(self._to_device(x), False, None)
         return {"val_loss": total.float(), **{f"val_{k}": out[k].float() for k in _LOSS_KEYS}}
 
     @torch.no_grad()

@@ -5,7 +5,8 @@ One `torch.save` file per saved step, `step_<step>.pt`, written to a
 temporary name and renamed into place, so a reader never sees a partial
 file. With a monitored metric the manager keeps the `save_top_k` steps with
 the SMALLEST metric plus the newest step (so a resume never rewinds past a
-bad epoch); without one, the newest `save_top_k`. The metrics of the kept
+bad epoch); a step saved without that metric ranks last. Without a monitor,
+the newest `save_top_k`. The metrics of the kept
 steps live in `index.json` beside the files.
 """
 from __future__ import annotations
@@ -49,7 +50,10 @@ class CheckpointManager:
     def _keep(self, steps):
         if not self.monitor:
             return set(steps[-self.save_top_k:]) if self.save_top_k > 0 else set()
-        best = sorted(steps, key=lambda s: (self.metrics[s].get(self.monitor, 0.0), -s))
+        # a step saved without the monitored metric (an emergency save) ranks
+        # after every measured one: it is kept while it is the newest
+        best = sorted(steps, key=lambda s: (self.monitor not in self.metrics[s],
+                                            self.metrics[s].get(self.monitor, 0.0), -s))
         return set(best[:max(self.save_top_k, 0)]) | {steps[-1]}
 
     def save(self, step: int, state: dict, metrics: Optional[dict] = None):

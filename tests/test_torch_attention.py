@@ -444,3 +444,148 @@ def test_cuda_kernel_mask_equals_dropout_keep_mask(cuda_device, hd, t):
                                     rate, seed=seed)
         got = y.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
         assert torch.equal(got, mask[..., c0:c0 + n])
+
+
+def _bf16_from(arrays):
+    """numpy f32 arrays rounded to bf16, as torch tensors and as jnp arrays."""
+    import jax.numpy as jnp
+
+    tensors = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    return tensors, [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in tensors]
+
+
+@pytest.mark.parametrize("t", [256, 300])
+@pytest.mark.parametrize("n_head", [1, 2])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_plain_matches_jax_pallas_interpret_in_bf16(t, n_head, causal):
+    """The bf16 plain versions round where the TPU kernel rounds (P before P
+    V; D and dS before their products). The forward agrees with the Pallas
+    kernel run in bf16 to one bf16 ulp of the value (2^-7 relative, plus 2^-9
+    absolute where one probability's rounding flips). The gradients agree to
+    that plus 2^-6 absolute: each side is up to ~0.01 off the f32 result of
+    the same bf16 inputs (dS = P (dP - delta) cancels before it is rounded to
+    bf16 and summed over up to 300 keys; delta comes from the bf16 output
+    here and from the f32 probabilities there), in its own places."""
+    import jax
+    import jax.numpy as jnp
+
+    from dynamicvectorquantization_tpu.ops.attention_pallas import (
+        fused_causal_attention as jax_attention,
+    )
+
+    arrays = _qkv(40, 2, t, 128) + [np.random.default_rng(41).normal(size=(2, t, 128))
+                                     .astype(np.float32)]
+    (tq, tk, tv, tdy), (jq, jk, jv, jdy) = _bf16_from(arrays)
+    y_ref, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, 0, n_head, 0.0, None, True,
+                                                       causal), jq, jk, jv)
+    grads_ref = vjp(jdy)
+    y, lse = fused_attention_forward(tq, tk, tv, n_head, causal=causal, return_lse=True)
+    assert y.dtype == torch.bfloat16
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(y_ref.astype(jnp.float32)),
+                               atol=2.0 ** -9, rtol=2.0 ** -7)
+    out = fused_attention_backward(tq, tk, tv, y, lse, tdy, n_head, causal=causal)
+    for got, want in zip(out, grads_ref):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                                   atol=2.0 ** -6, rtol=2.0 ** -7)
+
+
+def test_f32_plain_is_untouched_by_the_bf16_roundings():
+    """The f32 plain versions keep every probability in f32: their result
+    differs from the same inputs' bf16 path (which rounds P, D and dS)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).float() for a in _qkv(42, 1, 96, 128))
+    dy = torch.from_numpy(_qkv(43, 1, 96, 128)[0])
+    y32, lse32 = fused_attention_forward_plain(q, k, v, 2, causal=True, return_lse=True)
+    s = torch.matmul(q.view(1, 96, 2, 64).transpose(1, 2),
+                     k.view(1, 96, 2, 64).transpose(1, 2).transpose(-1, -2)) / 8.0
+    s = torch.where(torch.ones(96, 96, dtype=torch.bool).tril(), s, float("-inf"))
+    want = torch.matmul(torch.softmax(s, -1), v.view(1, 96, 2, 64).transpose(1, 2))
+    torch.testing.assert_close(y32, want.transpose(1, 2).reshape(1, 96, 128), atol=2e-6, rtol=0)
+    y16 = fused_attention_forward_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), 2,
+                                        causal=True).float()
+    assert not torch.equal(y16, y32.bfloat16().float())  # P rounded before P V
+    g32 = fused_attention_backward_plain(q, k, v, y32, lse32, dy, 2, causal=True)
+    torch.testing.assert_close(g32[2], torch.matmul(
+        torch.softmax(s, -1).transpose(-1, -2), dy.view(1, 96, 2, 64).transpose(1, 2))
+        .transpose(1, 2).reshape(1, 96, 128), atol=2e-6, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [64, 100, 300, 805])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_tensor_core_family_matches_plain(cuda_device, hd, t, causal, rate):
+    """bf16 at hd 64 / 128 runs on the tensor cores; it and the bf16 plain
+    versions round at the same places and differ in the order of summation:
+    one bf16 ulp of the value plus 2e-2, as every bf16 attention comparison.
+    The backward is bit-reproducible (no atomics)."""
+    b, n_head, seed = 2, 2, 987654321
+    shape = (b, t, n_head * hd)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16) for a in _qkv(50, *shape))
+    dy = torch.from_numpy(_qkv(51, *shape)[0]).to(cuda_device, torch.bfloat16)
+    before = (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches)
+    y, lse = fused_attention_forward(q, k, v, n_head, None, causal, rate, True, seed)
+    out = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal, rate, seed)
+    again = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal, rate, seed)
+    torch.cuda.synchronize()
+    assert (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches) == (
+        before[0] + 1, before[1] + 2)
+    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, None, causal, True, rate, seed)
+    ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, None, causal, rate,
+                                         seed)
+    tol = dict(atol=2e-2, rtol=2.0 ** -7)
+    torch.testing.assert_close(y.float(), y_ref.float(), **tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    for a, r in zip(out, ref):
+        torch.testing.assert_close(a.float(), r.float(), **tol)
+    assert all(torch.equal(a, r) for a, r in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,t", [(64, 300), (128, 805)])
+def test_cuda_tensor_core_masks_equal_dropout_keep_mask(cuda_device, hd, t):
+    """Uniform probabilities and unit-vector V rows (exact in bf16): output
+    column c of row r is nonzero iff probability (r, c) was kept, and dV with
+    dY = V's unit vectors shows the backward's mask transposed."""
+    b, n_head, rate, seed = 2, 2, 0.3, 78
+    q = torch.zeros((b, t, n_head * hd), device=cuda_device, dtype=torch.bfloat16)
+    mask = dropout_keep_mask(seed, b, n_head, t, rate, cuda_device)
+    before = fused_attention_forward.tc_launches
+    for c0 in range(0, t, hd):
+        n = min(hd, t - c0)
+        v = torch.zeros((b, t, n_head, hd), device=cuda_device, dtype=torch.bfloat16)
+        v[:, c0 + torch.arange(n), :, torch.arange(n)] = 1.0
+        v = v.reshape(b, t, -1).contiguous()
+        y, lse = fused_attention_forward(q, q, v, n_head, None, False, rate, True, seed)
+        got = y.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+        assert torch.equal(got, mask[..., c0:c0 + n])
+        _, _, dv = fused_attention_backward(q, q, v, y, lse, v, n_head, None, False, rate, seed)
+        got = dv.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+        assert torch.equal(got, mask[..., c0:c0 + n, :].transpose(-1, -2))
+    assert fused_attention_forward.tc_launches > before
+
+
+@pytest.mark.cuda
+def test_cuda_each_family_counts_only_its_own_shapes(cuda_device):
+    """bf16 at hd 64 / 128 -> tensor cores; f32 at any hd and bf16 at hd 16,
+    32, 256, 512 -> FMA units."""
+    cases = [(torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+             (torch.float32, 64, False), (torch.float32, 128, False),
+             (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
+             (torch.bfloat16, 256, False), (torch.bfloat16, 512, False)]
+    for dtype, hd, tc in cases:
+        q, k, v, dy = (torch.randn((1, 70, 2 * hd), device=cuda_device).to(dtype)
+                       for _ in range(4))
+        fwd = (fused_attention_forward.tc_launches, fused_attention_forward.fma_launches)
+        bwd = (fused_attention_backward.tc_launches, fused_attention_backward.fma_launches)
+        y, lse = fused_attention_forward(q, k, v, 2, causal=True, return_lse=True)
+        fused_attention_backward(q, k, v, y, lse, dy, 2, causal=True)
+        want = (1, 0) if tc else (0, 1)
+        assert (fused_attention_forward.tc_launches - fwd[0],
+                fused_attention_forward.fma_launches - fwd[1]) == want, (dtype, hd)
+        assert (fused_attention_backward.tc_launches - bwd[0],
+                fused_attention_backward.fma_launches - bwd[1]) == want, (dtype, hd)
+    misaligned = torch.zeros(1 + 70 * 128, device=cuda_device, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_attention_forward(*(misaligned.view(1, 70, 128),) * 3, 2)

@@ -185,8 +185,13 @@ def test_data_targets_resolve_by_their_tail():
     assert resolve_target("data.imagenet.ImageNetValidation").endswith("ImageNetValidation")
     for bad in ("data.faceshq.FFHQTrain", f"{other}.data.datasets.FFHQTrain",
                 f"{other}.nn.stackgpt.StackGPT"):
-        with pytest.raises(KeyError, match="Slices to port, in order"):
+        with pytest.raises(KeyError, match="ROADMAP.md") as err:
             resolve_target(bad)
+        assert "Slices to port" in str(err.value)
+    # the heading the error names stands in ROADMAP.md
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "ROADMAP.md")) as f:
+        assert "Slices to port" in f.read()
 
 
 def test_data_module_from_the_smoke_config_yields_the_jax_packages_batches():

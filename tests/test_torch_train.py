@@ -327,6 +327,29 @@ def test_eval_step_matches_jax(state_dict, jax_run, streams):
         np.testing.assert_allclose(float(val[key]), want, atol=1e-5, rtol=0, err_msg=key)
 
 
+def test_bf16_eval_step_runs_on_the_f32_masters(state_dict, jax_run, streams):
+    """The JAX trainer evaluates with its f32 `state.params` whatever its
+    compute dtype; under `compute_dtype: bfloat16` the port's `eval_step`
+    does too (the masters put in place of the bf16 working copy for the
+    call): it equals the f32 trainer's on the same weights (the same f32
+    arithmetic: atol 1e-6) and the JAX `eval_step` (atol 1e-5, as above), and
+    the working copy is bf16 again after it."""
+    sd = dict(state_dict)
+    sd.update({f"transformer.{k}": t for k, t in jax_run["steps"][2]["params"].items()})
+    t16, t32 = _trainer(sd, compute_dtype="bfloat16"), _trainer(sd)
+    v16, v32 = t16.eval_step(streams[0]), t32.eval_step(streams[0])
+    for key in v32:
+        np.testing.assert_allclose(float(v16[key]), float(v32[key]), atol=1e-6, rtol=0,
+                                   err_msg=key)
+    for key, want in jax_run["val"].items():
+        np.testing.assert_allclose(float(v16[key]), want, atol=1e-5, rtol=0, err_msg=key)
+    assert all(p.dtype == torch.bfloat16 for p in t16.params.values())
+    with t16.master_weights():  # the image grids' context: the masters themselves, no copy
+        assert all(p.data_ptr() == t16.masters[k].data_ptr() for k, p in t16.params.items())
+    assert all(torch.equal(p.data, t16.masters[k].to(torch.bfloat16))
+               for k, p in t16.params.items())
+
+
 def test_accum_two_equals_the_mean_gradient(state_dict, streams):
     single = _trainer(state_dict)
     parts = [single.compute_grads(z) for z in streams]
