@@ -28,6 +28,13 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch's .to(bfloat16)
 }
 
+// x rounded to T and widened back: the identity for f32, one bf16 rounding
+// for bf16 (where the TPU kernels cast an f32 intermediate to the input type)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));

@@ -27,7 +27,13 @@
 // an online softmax (running max m, denominator l and output accumulator in
 // registers). Scores never reach device memory. Shared tiles hold f32 (bf16
 // inputs are widened once on load) with rows padded by one word so that the
-// column walks of Q K^T are free of bank conflicts. 256 threads; each owns
+// column walks of Q K^T are free of bank conflicts. For bf16 the
+// probabilities are rounded to bf16 before P V, where the TPU kernel rounds
+// them, and relative to the row's final max, as the TPU kernel forms them
+// over its whole (T, T) block: a first pass over the key tiles finds that
+// max (a third T x T x hd product), so the bf16 instantiation is two-pass
+// where the f32 one keeps the online softmax. The denominator sums the
+// unrounded probabilities. 256 threads; each owns
 // BQ/16 query rows (ty + 16 i) and, for the output, hd/16 columns (tx + 16 j).
 // Causal blocks stop at their last query row.
 //
@@ -41,6 +47,8 @@
 #include <float.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -51,6 +59,49 @@ constexpr int kThreads = 256;
 template <int HD, int BQ, int BK>
 constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
+}
+
+// The masked, scaled scores of this thread's RI query rows (ty + 16 i) and CJ
+// key columns (tx + 16 j) of the key tile at k0, from the Q and K tiles in
+// shared memory.
+template <int HD, int BQ, int BK>
+__device__ __forceinline__ void tile_scores(const float* sQ, const float* sK,
+                                            float (&s)[BQ / 16][BK / 16], int q0, int k0,
+                                            int t_len, float scale, int causal, int tx, int ty) {
+  constexpr int QS = HD + 1, RI = BQ / 16, CJ = BK / 16;
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; ++d) {
+    float qv[RI], kv[CJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) qv[i] = sQ[(ty + 16 * i) * QS + d];
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) kv[j] = sK[(tx + 16 * j) * QS + d];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < CJ; ++j) {
+      const int col = k0 + tx + 16 * j;
+      const float val = s[i][j] * scale;
+      s[i][j] = col >= t_len || (causal && col > row) ? -INFINITY : val;
+    }
+  }
+}
+
+// the largest of a row's scores over its 16 threads, lanes tx = 0..15 of one half-warp
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
 }
 
 template <typename T, int HD, int BQ, int BK, bool DROP>
@@ -64,6 +115,12 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int RI = BQ / 16;  // query rows per thread
   constexpr int CJ = BK / 16;  // key columns per thread (scores)
   constexpr int DJ = HD / 16;  // output columns per thread
+  // bf16: the probabilities are rounded relative to the row's final max, as
+  // the TPU kernel forms them over its whole (T, T) block, so a first pass
+  // over the key tiles finds that max (an online max would round
+  // exp(s - running max), which a later rescale does not turn into the same
+  // bf16 value); f32 rounds nothing and keeps the one-pass online softmax
+  constexpr bool kTwoPass = !std::is_same<T, float>::value;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * QS;
@@ -94,6 +151,25 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int k_end = causal ? min(t_len, q0 + BQ) : t_len;
+  float s[RI][CJ];
+  if (kTwoPass) {
+    for (int k0 = 0; k0 < k_end; k0 += BK) {
+      __syncthreads();  // the previous tile's sK reads are done
+      for (int idx = tid; idx < BK * HD; idx += kThreads) {
+        const int rr = idx / HD, d = idx % HD, t = k0 + rr;
+        sK[rr * QS + d] = t < t_len ? dqvq::to_f32(k[base + (size_t)t * d_model + d]) : 0.f;
+      }
+      __syncthreads();
+      tile_scores<HD, BQ, BK>(sQ, sK, s, q0, k0, t_len, scale, causal, tx, ty);
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) mx = fmaxf(mx, s[i][j]);
+        m[i] = fmaxf(m[i], row_max(mx));
+      }
+    }
+  }
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile's sK / sV / sP reads are done
     for (int idx = tid; idx < BK * HD; idx += kThreads) {
@@ -104,52 +180,32 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sV[rr * HD + d] = in ? dqvq::to_f32(v[off]) : 0.f;
     }
     __syncthreads();
-
-    float s[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[RI], kv[CJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) qv[i] = sQ[(ty + 16 * i) * QS + d];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) kv[j] = sK[(tx + 16 * j) * QS + d];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+    tile_scores<HD, BQ, BK>(sQ, sK, s, q0, k0, t_len, scale, causal, tx, ty);
 
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int row = q0 + ty + 16 * i;
       float mx = -INFINITY;
+      if (!kTwoPass) {
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int col = k0 + tx + 16 * j;
-        float val = s[i][j] * scale;
-        if (col >= t_len || (causal && col > row)) val = -INFINITY;
-        s[i][j] = val;
-        mx = fmaxf(mx, val);
+        for (int j = 0; j < CJ; ++j) mx = fmaxf(mx, s[i][j]);
+        mx = row_max(mx);
       }
-      // the 16 threads sharing a row are lanes tx = 0..15 of one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
+      // two passes: the max is final from the start and alpha is 1
+      const float m_new = kTwoPass ? m[i] : fmaxf(m[i], mx);
       const float m_use = m_new == -INFINITY ? 0.f : m_new;  // fully masked so far
       const float alpha = expf(m[i] - m_use);
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
         const float p = expf(s[i][j] - m_use);
-        rs += p;  // the denominator sums the undropped probabilities
+        rs += p;  // the denominator sums the undropped probabilities, unrounded
         bool kept = true;
         if (DROP && p != 0.f)
           kept = dqvq::dropout_keep(drop, b * gridDim.y + h, row, k0 + tx + 16 * j);
-        sP[(ty + 16 * i) * PS + tx + 16 * j] = kept ? p : 0.f;
+        // bf16: the kept, unnormalised probability rounded to bf16 before P V,
+        // where the TPU kernel rounds it (`p.astype(v.dtype)`)
+        sP[(ty + 16 * i) * PS + tx + 16 * j] = kept ? dqvq::round_to<T>(p) : 0.f;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);

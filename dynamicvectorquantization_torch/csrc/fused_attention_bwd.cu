@@ -34,8 +34,9 @@
 // dQ gets its own pass instead of float atomics from pass 2, so every
 // output element is summed by one thread in a fixed order: the result is
 // bit-reproducible from run to run. The price is that S and dP are formed
-// twice. Shared tiles hold f32 (bf16 widened on load) with rows padded by one
-// word, so both the column walks of the T x T products and the row walks of
+// twice. Shared tiles hold f32 (bf16 widened on load; the D and dS tiles
+// rounded to bf16 for bf16 inputs) with rows padded by one word, so both
+// the column walks of the T x T products and the row walks of
 // the accumulating products are free of bank conflicts. 256 threads as a
 // 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j.
 //
@@ -112,8 +113,10 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ lse,
 // The TILE x TILE tile of P = exp(S * scale - lse) and dS = P * (dP - delta),
 // S = Q K^T and dP = dY V^T, masked to the sequence and the causal triangle.
 // With DROP, s.p holds D = P o M / keep (it feeds dV) and dP is masked and
-// scaled the same way before delta comes off.
-template <int HD, int TILE, bool DROP>
+// scaled the same way before delta comes off. For bf16 (T) D and dS are
+// rounded to bf16 before their products, where the TPU kernel rounds them
+// (`dropped.astype(dy.dtype)`, `ds.astype(k.dtype)`).
+template <typename T, int HD, int TILE, bool DROP>
 __device__ __forceinline__ void score_tile(const Tiles<HD, TILE>& s, int q0, int k0, int t_len,
                                            float scale, int causal, int tx, int ty, int bh,
                                            const dqvq::DropoutParams& drop) {
@@ -155,11 +158,12 @@ __device__ __forceinline__ void score_tile(const Tiles<HD, TILE>& s, int q0, int
       const float p = on ? expf(sc[i][j] * scale - lse) : 0.f;
       if (DROP) {
         const bool kept = p != 0.f && dqvq::dropout_keep(drop, bh, row, col);
-        s.p[rr * kPS + cc] = kept ? p * drop.inv_keep : 0.f;
-        s.ds[rr * kPS + cc] = p * ((kept ? dp[i][j] * drop.inv_keep : 0.f) - delta);
+        s.p[rr * kPS + cc] = dqvq::round_to<T>(kept ? p * drop.inv_keep : 0.f);
+        s.ds[rr * kPS + cc] =
+            dqvq::round_to<T>(p * ((kept ? dp[i][j] * drop.inv_keep : 0.f) - delta));
       } else {
-        s.p[rr * kPS + cc] = p;
-        s.ds[rr * kPS + cc] = p * (dp[i][j] - delta);
+        s.p[rr * kPS + cc] = dqvq::round_to<T>(p);
+        s.ds[rr * kPS + cc] = dqvq::round_to<T>(p * (dp[i][j] - delta));
       }
     }
   }
@@ -195,7 +199,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_pair<T, HD, TILE>(q, dy, s.q, s.dy, base, q0, t_len, d_model);
     load_rows<TILE>(lse, delta, s.lse, s.delta, row_base, q0, t_len);
     __syncthreads();
-    score_tile<HD, TILE, DROP>(s, q0, k0, t_len, scale, causal, tx, ty, b * gridDim.y + h, drop);
+    score_tile<T, HD, TILE, DROP>(s, q0, k0, t_len, scale, causal, tx, ty, b * gridDim.y + h, drop);
     __syncthreads();
     // dV += P^T dY, dK += dS^T Q: this thread's key rows ty + 16 i, columns tx + 16 j
 #pragma unroll 2
@@ -263,7 +267,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's reads are done
     load_pair<T, HD, TILE>(k, v, s.k, s.v, base, k0, t_len, d_model);
     __syncthreads();
-    score_tile<HD, TILE, DROP>(s, q0, k0, t_len, scale, causal, tx, ty, b * gridDim.y + h, drop);
+    score_tile<T, HD, TILE, DROP>(s, q0, k0, t_len, scale, causal, tx, ty, b * gridDim.y + h, drop);
     __syncthreads();
     // dQ += dS K: this thread's query rows ty + 16 i, columns tx + 16 j
 #pragma unroll 2

@@ -91,10 +91,16 @@ class Dualformer(nn.Module):
         self.first_stage_model.init_weights(generator)
 
     @torch.no_grad()
-    def encode_to_z(self, x):
+    def encode_to_z(self, x, first_stage=None):
         """Frozen stage-1 encode + permuter pack: (B, H, W, 3) NHWC images ->
-        (quant, the permuter's dict of six (B, L) streams)."""
-        quant, _, info, grain_indices, _, _ = self.first_stage_model.encode(x)
+        (quant, the permuter's dict of six (B, L) streams). `first_stage`
+        (the model's own when None) encodes, in its parameters' dtype: the
+        images are cast to it, so a first stage cast to bf16 (the stage-2
+        trainer's, under `compute_dtype: bfloat16`) encodes bf16 images, as
+        the JAX trainer casts both."""
+        fs = self.first_stage_model if first_stage is None else first_stage
+        x = x.to(fs.quant_conv.weight.dtype)
+        quant, _, info, grain_indices, _, _ = fs.encode(x)
         return quant, self.permuter.forward(info[2], grain_indices)
 
     def encode_to_c(self, batch: int, device=None):
@@ -109,10 +115,10 @@ class Dualformer(nn.Module):
         return self.first_stage_model.decode(quant)
 
     # ---------------------------------------------------------- training
-    def forward(self, x, train=False, generator=None, seed=None):
-        """Images (B, H, W, 3) -> the training losses (frozen encode, then
-        `forward_tokens`)."""
-        _, z = self.encode_to_z(x)
+    def forward(self, x, train=False, generator=None, seed=None, first_stage=None):
+        """Images (B, H, W, 3) -> the training losses (frozen encode by
+        `first_stage`, as `encode_to_z`, then `forward_tokens`)."""
+        _, z = self.encode_to_z(x, first_stage)
         return self.forward_tokens(z, train=train, generator=generator, seed=seed)
 
     def forward_tokens(self, z, train=False, generator=None, seed=None):

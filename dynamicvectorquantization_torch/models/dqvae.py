@@ -14,6 +14,15 @@ router target. Public layouts follow the JAX package: images and latents are
 NHWC. `loss` is the GAN objective built from `lossconfig` (None, or the
 `DummyLoss` placeholder inside a stage-2 model).
 
+`compute_dtype` ("bfloat16", as `DQVAENet.compute_dtype` in the JAX
+package) makes the encoder's and decoder's towers and the two 1x1 quant
+convs compute in bf16 while the parameters stay f32: every conv, GroupNorm
+(statistics in f32, QUIRKS #23), AttnBlock and Up/Downsample casts at use;
+the VQ searches f32 casts; the decoder's last norm and conv stay f32. A model
+whose parameters were cast to bf16 (`.to(torch.bfloat16)`, as the stage-2
+trainer casts its frozen first stage) computes in bf16 throughout, by the
+dtype promotion of `nn/blocks.py`. Other dtypes raise.
+
 The functions are differentiable; inference callers wrap them in
 `torch.no_grad()`. `train=True` makes the quantizer return the EMA
 statistics and update its buffers in place (`commit=False`: search and
@@ -26,6 +35,7 @@ import torch
 from torch import nn
 
 from ..config.registry import resolve_target
+from ..nn.blocks import Conv2d, as_dtype
 from ..ops.entropy import patch_entropy
 from ..utils.instantiate import instantiate_from_config
 
@@ -35,6 +45,13 @@ def is_entropy_router(encoderconfig) -> bool:
     return "FixedEntropyRouter" in resolve_target(router.get("target", ""))
 
 
+def _with_dtype(cfg, dtype):
+    """The tower's config with the compute dtype among its params."""
+    if dtype is None:
+        return cfg
+    return {**cfg, "params": {**(cfg.get("params") or {}), "dtype": dtype}}
+
+
 class DualGrainVQModel(nn.Module):
     def __init__(self, encoderconfig, decoderconfig, lossconfig, vqconfig, quant_before_dim,
                  quant_after_dim, quant_sample_temperature=0.0, ckpt_path=None, ignore_keys=(),
@@ -42,8 +59,7 @@ class DualGrainVQModel(nn.Module):
                  scheduler_type="linear-warmup_cosine-decay", entropy_patch_size=16,
                  image_size=256, compute_dtype=None):
         super().__init__()
-        if compute_dtype:
-            raise NotImplementedError("compute_dtype for the DQ-VAE is not ported")
+        self.compute_dtype = dtype = as_dtype(compute_dtype)
         self.ckpt_path = ckpt_path
         self.image_key = image_key
         self.monitor = monitor
@@ -54,12 +70,13 @@ class DualGrainVQModel(nn.Module):
         self.entropy_patch_size = entropy_patch_size
         self.quant_sample_temperature = quant_sample_temperature
         self.use_entropy = is_entropy_router(encoderconfig)
-        self.encoder = instantiate_from_config(encoderconfig)
-        self.decoder = instantiate_from_config(decoderconfig)
+        self.encoder = instantiate_from_config(_with_dtype(encoderconfig, dtype))
+        self.decoder = instantiate_from_config(_with_dtype(decoderconfig, dtype))
         self.quantize = instantiate_from_config(vqconfig)
-        self.quant_conv = nn.Conv2d(quant_before_dim, quant_after_dim, 1)
+        self.quant_conv = Conv2d(quant_before_dim, quant_after_dim, 1, compute_dtype=dtype)
         # applied to codebook entries (codebook_dim == quant_after_dim)
-        self.post_quant_conv = nn.Conv2d(quant_after_dim, quant_before_dim, 1)
+        self.post_quant_conv = Conv2d(quant_after_dim, quant_before_dim, 1,
+                                      compute_dtype=dtype)
         self.loss = instantiate_from_config(lossconfig)
 
     @torch.no_grad()

@@ -15,6 +15,11 @@ Reference state_dict names: `conv_in`, `down.{i}.{block|attn}.{j}`,
 `down.{i}.downsample.conv`, `mid_{coarse|fine}.{block_1,attn_1,block_2}`,
 `norm_out_{coarse|fine}`, `conv_out_{coarse|fine}`, `router.*`.
 
+`dtype` (None, or bf16 for the DQ-VAE's compute dtype) goes to every conv,
+norm, ResnetBlock, AttnBlock and Downsample of the stack and of both grain
+heads, `conv_out` included; the router has none (see `nn/blocks.py` for the
+dtype rules).
+
 Differentiable end to end; `train=True` is the training forward of a
 router that takes no gradient (`update_router: false`, the shipped
 fixed-entropy config). The router's Gumbel straight-through gate
@@ -27,7 +32,8 @@ import torch
 from torch import nn
 
 from ..utils.instantiate import instantiate_from_config
-from .blocks import AttnBlock, Downsample, Normalize, ResnetBlock, nonlinearity
+from .blocks import (AttnBlock, Conv2d, Downsample, Normalize, ResnetBlock, as_dtype,
+                     nonlinearity)
 
 
 def repeat2d(x, factor: int, h_dim: int, w_dim: int):
@@ -35,11 +41,11 @@ def repeat2d(x, factor: int, h_dim: int, w_dim: int):
     return x.repeat_interleave(factor, dim=h_dim).repeat_interleave(factor, dim=w_dim)
 
 
-def _mid(block_in: int, dropout: float) -> nn.Module:
+def _mid(block_in: int, dropout: float, dtype=None) -> nn.Module:
     mid = nn.Module()
-    mid.block_1 = ResnetBlock(block_in, dropout=dropout)
-    mid.attn_1 = AttnBlock(block_in)
-    mid.block_2 = ResnetBlock(block_in, dropout=dropout)
+    mid.block_1 = ResnetBlock(block_in, dropout=dropout, compute_dtype=dtype)
+    mid.attn_1 = AttnBlock(block_in, compute_dtype=dtype)
+    mid.block_2 = ResnetBlock(block_in, dropout=dropout, compute_dtype=dtype)
     return mid
 
 
@@ -47,8 +53,9 @@ class DualGrainEncoder(nn.Module):
     def __init__(self, ch=128, ch_mult=(1, 1, 2, 2, 4), num_res_blocks=2,
                  attn_resolutions=(16, 32), dropout=0.0, resamp_with_conv=True, in_channels=3,
                  resolution=256, z_channels=256, router_config=None, update_router=True,
-                 coarse_commit_weight=0.25, fine_commit_weight=1.0):
+                 coarse_commit_weight=0.25, fine_commit_weight=1.0, dtype=None):
         super().__init__()
+        dtype = as_dtype(dtype)
         self.resolution = resolution
         self.dropout = dropout
         self.update_router = update_router
@@ -56,7 +63,7 @@ class DualGrainEncoder(nn.Module):
         self.fine_commit_weight = fine_commit_weight
         self.num_resolutions = len(ch_mult)
         in_ch_mult = (1,) + tuple(ch_mult)
-        self.conv_in = nn.Conv2d(in_channels, ch, 3, padding=1)
+        self.conv_in = Conv2d(in_channels, ch, 3, padding=1, compute_dtype=dtype)
         curr_res = resolution
         levels = []
         for i_level in range(self.num_resolutions):
@@ -66,24 +73,25 @@ class DualGrainEncoder(nn.Module):
             block_in = ch * in_ch_mult[i_level]
             block_out = ch * ch_mult[i_level]
             for _ in range(num_res_blocks):
-                level.block.append(ResnetBlock(block_in, block_out, dropout=dropout))
+                level.block.append(ResnetBlock(block_in, block_out, dropout=dropout,
+                                               compute_dtype=dtype))
                 block_in = block_out
                 if curr_res in attn_resolutions:
-                    level.attn.append(AttnBlock(block_in))
+                    level.attn.append(AttnBlock(block_in, compute_dtype=dtype))
             if i_level != self.num_resolutions - 1:
-                level.downsample = Downsample(block_in, resamp_with_conv)
+                level.downsample = Downsample(block_in, resamp_with_conv, compute_dtype=dtype)
                 curr_res //= 2
             levels.append(level)
         self.down = nn.ModuleList(levels)
 
         block_in = ch * ch_mult[-1]
         block_in_fine = block_in // (ch_mult[-1] // ch_mult[-2])
-        self.mid_coarse = _mid(block_in, dropout)
-        self.norm_out_coarse = Normalize(block_in)
-        self.conv_out_coarse = nn.Conv2d(block_in, z_channels, 3, padding=1)
-        self.mid_fine = _mid(block_in_fine, dropout)
-        self.norm_out_fine = Normalize(block_in_fine)
-        self.conv_out_fine = nn.Conv2d(block_in_fine, z_channels, 3, padding=1)
+        self.mid_coarse = _mid(block_in, dropout, dtype)
+        self.norm_out_coarse = Normalize(block_in, dtype)
+        self.conv_out_coarse = Conv2d(block_in, z_channels, 3, padding=1, compute_dtype=dtype)
+        self.mid_fine = _mid(block_in_fine, dropout, dtype)
+        self.norm_out_fine = Normalize(block_in_fine, dtype)
+        self.conv_out_fine = Conv2d(block_in_fine, z_channels, 3, padding=1, compute_dtype=dtype)
         self.router = instantiate_from_config(router_config)
 
     def down_stack(self, x):

@@ -3,6 +3,11 @@ NCHW (counterpart of `dynamicvectorquantization_tpu/nn/fourier.py`).
 
 Module nesting follows the reference state_dict: `lff.ffm.conv` for the
 Fourier features, `row_embed` / `col_embed` for the learned tables.
+
+As in the JAX modules, the coordinate grid is f32 and the Fourier conv
+computes in the promoted dtype of the grid and its weight (f32 even with a
+bf16 weight); the learned tables are summed in their own dtype and added to
+x in the promoted one.
 """
 from __future__ import annotations
 
@@ -10,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from .blocks import Conv2d
 
 
 def coord_grid(h: int, w: int, device=None, dtype=torch.float32):
@@ -32,7 +39,7 @@ class FourierPositionEmbedding(nn.Module):
         self.coord_size = coord_size
         self.lff = _Holder()
         self.lff.ffm = _Holder()
-        self.lff.ffm.conv = nn.Conv2d(2, hidden_size, 1)
+        self.lff.ffm.conv = Conv2d(2, hidden_size, 1)
 
     @torch.no_grad()
     def init_weights(self, generator):
@@ -42,7 +49,7 @@ class FourierPositionEmbedding(nn.Module):
 
     def forward(self, x):
         conv = self.lff.ffm.conv
-        coords = coord_grid(self.coord_size, self.coord_size, x.device, conv.weight.dtype)
+        coords = coord_grid(self.coord_size, self.coord_size, x.device)
         return x + torch.sin(conv(coords))
 
 

@@ -8,7 +8,10 @@
     `str(int(100 - ratio * 100))`) or given directly as `threshold`.
 
 Feature maps come in NCHW; the gate goes out NHWC, (B, Hc, Wc, 2), grain 0
-coarse, as in the JAX package. Reference state_dict names: `gate` (Linear)
+coarse, as in the JAX package. The routers have no dtype of their own: the
+feature router computes in the promoted dtype of the features and its
+parameters (f32 parameters take bf16 features to f32, as flax promotes
+them), and the entropy router compares the f32 entropy. Reference state_dict names: `gate` (Linear)
 or `gate.0` / `gate.2` (Sequential), `feature_norm_{fine,coarse}`.
 
 The configs' `json_path` (`scripts/tools/thresholds/...`) is not in the
@@ -23,6 +26,8 @@ import os
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .blocks import GroupNorm
 
 THRESHOLDS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                               "assets", "thresholds")
@@ -46,7 +51,7 @@ def _maybe_norm(normalization_type: str, channels: int):
         return None
     if "group" in normalization_type:
         groups = int(normalization_type.split("-")[-1])
-        return nn.GroupNorm(groups, channels, eps=1e-6, affine=True)
+        return GroupNorm(groups, channels, eps=1e-6)
     raise NotImplementedError(normalization_type)
 
 
@@ -69,6 +74,8 @@ class DualGrainFeatureRouter(nn.Module):
             h_fine = self.feature_norm_fine(h_fine)
             h_coarse = self.feature_norm_coarse(h_coarse)
         feats = torch.cat([h_coarse, F.avg_pool2d(h_fine, 2, 2)], dim=1)
+        weight = next(self.gate.parameters())
+        feats = feats.to(torch.promote_types(feats.dtype, weight.dtype))
         return self.gate(feats.permute(0, 2, 3, 1))  # (B, Hc, Wc, 2)
 
 

@@ -10,10 +10,11 @@ families, chosen by dtype and head dim: bf16 at hd 64 and 128 (the StackGPT's
 heads in stage-2 training) runs on the tensor cores
 (`csrc/fused_attention_tc.cu`, `csrc/fused_attention_bwd_tc.cu`), everything
 else (f32 at every head dim, so the DQ-VAE's AttnBlocks; bf16 at hd 16, 32,
-256, 512) on the FMA units (`csrc/fused_attention.cu`,
-`csrc/fused_attention_bwd.cu`). The tensor-core family rounds where the TPU
-kernel rounds: the probabilities to bf16 before P V, and D and dS before
-their products; the bf16 plain versions make the same roundings.
+256, 512: the DQ-VAE's AttnBlocks in bf16) on the FMA units
+(`csrc/fused_attention.cu`, `csrc/fused_attention_bwd.cu`). In bf16 both
+families round where the TPU kernel rounds: the probabilities to bf16 before
+P V, and D and dS before their products; the bf16 plain versions make the
+same roundings.
 `fused_causal_attention` is the `torch.autograd.Function` over the two: the
 forward also returns each row's log-sum-exp of the scaled scores, the
 Function saves q, k, v, y and it, and the backward rebuilds the

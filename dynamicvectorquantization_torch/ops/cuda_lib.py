@@ -47,8 +47,8 @@ SIGNATURES = {
     "dqvq_fused_adamw": (_P,) * 5 + (_L,) + (_F,) * 9 + (_I, _P),
     "dqvq_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dqvq_vq_nearest_train": (_P,) * 7 + (_I, _I, _I, _P),
-    "dqvq_patch_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
-    "dqvq_strided_conv_down": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "dqvq_patch_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "dqvq_strided_conv_down": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

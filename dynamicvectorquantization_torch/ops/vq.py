@@ -12,7 +12,13 @@ codebook refresh and the restart of unused codes from permuted input rows.
 `csrc/vq_nearest.cu` for CUDA tensors and run `nearest_codes_plain` /
 `nearest_codes_with_stats_plain` for CPU tensors; `use_pallas=False` selects
 the plain version explicitly. Scores are |c|^2 - 2 x.c in f32 (no |x|^2
-term, no TF32: QUIRKS #9); argmin ties go to the lowest index. The search
+term, no TF32: QUIRKS #9); argmin ties go to the lowest index. bf16 rows or
+a bf16 codebook (the DQ-VAE in bf16) are searched as their f32 casts, and
+the codes, the gathered rows and the statistics are those of the casts, as
+the JAX package's TPU route casts both to f32 before its kernel. (On the
+CPU the JAX package's XLA route scores a bf16 row against a bf16 codebook in
+bf16, which picks other codes at some near-ties; the port follows the
+kernel.) The search
 and the statistics are piecewise constant in x and the codebook, so they
 carry no gradient (the JAX package declares the same with a `custom_vjp` of
 zeros): x is detached before either.
@@ -35,10 +41,16 @@ from . import cuda_lib
 
 def nearest_codes_plain(x, codebook):
     """Plain PyTorch version. x: (N, D), codebook: (K, D) (no padding row)
-    -> (idx (N,) int64, the codebook rows (N, D))."""
+    -> (idx (N,) int64, the codebook rows (N, D)), in f32."""
+    x, codebook = x.float(), codebook.float()
     scores = (codebook * codebook).sum(dim=1)[None, :] - 2.0 * torch.matmul(x, codebook.t())
     idx = torch.argmin(scores, dim=1)
     return idx, codebook[idx]
+
+
+def _as_f32(t):
+    """bf16 as its f32 cast; other dtypes as they are, for the kernels' checks."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def _kernel_shapes(name, x, codebook):
@@ -57,11 +69,12 @@ def _kernel_shapes(name, x, codebook):
 
 
 def nearest_codes(x, codebook, use_pallas=None):
-    """Nearest codebook row per row of x: (N, D) f32, (K, D) f32 ->
-    (idx (N,) int64, quantized (N, D)). `nearest_codes.launches` counts
-    kernel launches."""
+    """Nearest codebook row per row of x: (N, D), (K, D), f32 or bf16 (searched
+    as f32) -> (idx (N,) int64, quantized (N, D) f32). `nearest_codes.launches`
+    counts kernel launches."""
     if use_pallas is False or (x.device.type == "cpu" and codebook.device.type == "cpu"):
         return nearest_codes_plain(x, codebook)
+    x, codebook = _as_f32(x), _as_f32(codebook)
     n, k, d = _kernel_shapes("nearest_codes", x, codebook)
     x = x.contiguous()
     codebook = codebook.contiguous()
@@ -82,7 +95,8 @@ nearest_codes.launches = 0
 def nearest_codes_with_stats_plain(x, codebook):
     """Plain PyTorch version. x: (N, D), codebook: (K, D) -> (idx (N,) int64,
     the codebook rows (N, D), embed_sum (K, D) = per-code sums of the rows of
-    x, cluster_size (K,) = per-code row counts as f32)."""
+    x, cluster_size (K,) = per-code row counts), in f32."""
+    x, codebook = x.float(), codebook.float()
     idx, xq = nearest_codes_plain(x, codebook)
     k = codebook.shape[0]
     embed_sum = torch.zeros_like(codebook).index_add_(0, idx, x)
@@ -91,13 +105,15 @@ def nearest_codes_with_stats_plain(x, codebook):
 
 
 def nearest_codes_with_stats(x, codebook, use_pallas=None):
-    """`nearest_codes` plus the EMA statistics: (N, D) f32, (K, D) f32 ->
-    (idx (N,) int64, quantized (N, D), embed_sum (K, D), cluster_size (K,)).
+    """`nearest_codes` plus the EMA statistics: (N, D), (K, D), f32 or bf16
+    (as f32) -> (idx (N,) int64, quantized (N, D), embed_sum (K, D),
+    cluster_size (K,)), f32.
     On CUDA one call runs the search, the row gather and the segmented sum
     (deterministic: no atomics) of `csrc/vq_nearest.cu`.
     `nearest_codes_with_stats.launches` counts those calls."""
     if use_pallas is False or (x.device.type == "cpu" and codebook.device.type == "cpu"):
         return nearest_codes_with_stats_plain(x, codebook)
+    x, codebook = _as_f32(x), _as_f32(codebook)
     n, k, d = _kernel_shapes("nearest_codes_with_stats", x, codebook)
     x = x.contiguous()
     codebook = codebook.contiguous()
@@ -162,7 +178,9 @@ class VectorQuantizeEMA(nn.Module):
         after this batch was quantized with the codebook from before the
         update; `generator` draws the restart candidates; `commit=False`
         skips the update. Returns (x_q, loss, (None, None, code)) as the
-        reference does."""
+        reference does. bf16 features (the DQ-VAE in bf16) are searched as
+        f32; x_q, the straight-through output, and the loss are f32, as the
+        JAX module's dtype promotion makes them."""
         d = x.shape[-1]
         flat = x.detach().reshape(-1, d)
         codebook = self.codebook.weight[:-1]

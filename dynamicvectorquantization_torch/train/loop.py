@@ -415,6 +415,7 @@ class Trainer:
             state = mngr.restore(map_location=self.device)
             trainer.load_state_dict(state["trainer"])
             model.first_stage_model.load_state_dict(state["first_stage"])
+            trainer.refresh_first_stage()
             print(f"Resumed from checkpoint step {mngr.latest()}")
 
         def validate():
@@ -460,13 +461,15 @@ class Trainer:
 
     @torch.no_grad()
     def _encode_epoch_codes(self, model, trainer, train_loader, epoch):
-        """Cached-codes pre-encode: one pass of the frozen first stage over
-        this epoch's (augmented) batches, giving one permuter-stream dict per
-        batch. The streams are held on the host as int16 when every token id
-        fits (the largest is 1026 at the shipped geometry, ~5 KB an image),
-        else int32. Returns (the list of stream dicts, the first batch's
-        first 4 images for the image logger). The host copy of a batch is
-        made after the next batch's encode is queued."""
+        """Cached-codes pre-encode: one pass of the trainer's training encode
+        (`Stage2Trainer.encode`: the frozen first stage in the trainer's
+        compute dtype, the JAX loop's `make_encode_fn`) over this epoch's
+        (augmented) batches, giving one permuter-stream dict per batch. The
+        streams are held on the host as int16 when every token id fits (the
+        largest is 1026 at the shipped geometry, ~5 KB an image), else int32.
+        Returns (the list of stream dicts, the first batch's first 4 images
+        for the image logger). The host copy of a batch is made after the
+        next batch's encode is queued."""
         max_id = max(model.vocab_size, model.fine_position_size,
                      model.coarse_position_pad_code, model.coarse_position_eos_code,
                      model.content_pad_code, model.content_eos_code,
@@ -481,7 +484,7 @@ class Trainer:
             if self.max_steps_per_epoch and bi >= self.max_steps_per_epoch:
                 break
             x = batch[model.first_stage_key].float()
-            z = model.encode_to_z(x)[1]
+            z = trainer.encode(x)
             if vis is None:
                 vis = x[:4].clone()
             if pending is not None:

@@ -19,8 +19,18 @@ the fused AdamW kernel reads them, updates the f32 masters and writes the
 next working copy in the same pass. With f32 the module's parameters are the
 masters. Validation (`eval_step`) and the loop's image grids run on the f32
 masters, as the JAX trainer evaluates and samples with `state.params`
-(`master_weights`). The first stage always encodes in f32 (its bf16 mode is
-not ported).
+(`master_weights`).
+
+The first stage is frozen. Under bf16 the trainer encodes with its own bf16
+copy of it, `frozen_first_stage`, every floating parameter and buffer (the
+codebook and the EMA buffers included) cast to bf16, as the JAX trainer's
+`_cast_tree` casts every f32 leaf, and with the images cast to bf16: the
+cached-codes pre-encode (`encode`, `encode_dataset`, the loop's per-epoch
+encode) and the inline encode of `compute_grads` alike. `eval_step` encodes
+with the model's f32 first stage, as the JAX trainer evaluates with the
+uncast variables. Checkpoints save the f32 first stage; whoever loads new
+weights into it calls `refresh_first_stage` to rebuild the copy. Under f32
+`frozen_first_stage` is the model's own first stage.
 
 Dropout is a function of (base seed, optimizer step, microbatch, layer) and
 of nothing else, as the JAX loop folds the global step into a constant base
@@ -37,6 +47,7 @@ parallel trainers are not ported (ROADMAP.md).
 from __future__ import annotations
 
 import contextlib
+import copy
 
 import numpy as np
 import torch
@@ -50,6 +61,12 @@ from .schedules import warmup_cosine
 B1, B2, EPS = 0.9, 0.95, 1e-8
 _LOSS_KEYS = ("content_loss", "position_loss", "coarse_position_loss", "fine_position_loss")
 _ELEMENTWISE = 0xE1E  # stream tag of the embedding / residual dropout generator
+
+
+def cast_copy(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """A frozen copy of `module` with every floating parameter and buffer
+    cast to `dtype`, as the JAX trainer's `_cast_tree` casts every f32 leaf."""
+    return copy.deepcopy(module).to(dtype).requires_grad_(False)
 
 
 def decayed_parameter_names(module: nn.Module):
@@ -96,6 +113,13 @@ class Stage2Trainer:
         self.epoch = 0
         self.base_seed = int(seed)
         self.generator = torch.Generator(device=self.device)
+        self.refresh_first_stage()
+
+    def refresh_first_stage(self):
+        """(Re)build `frozen_first_stage` from the model's first stage: a bf16
+        copy under bf16, the module itself under f32."""
+        fs = self.model.first_stage_model
+        self.frozen_first_stage = cast_copy(fs) if self.mixed else fs
 
     # ------------------------------------------------------------- state
     def state_dict(self):
@@ -135,11 +159,12 @@ class Stage2Trainer:
             return {k: torch.as_tensor(v).to(self.device) for k, v in x.items()}
         return torch.as_tensor(x).to(self.device)
 
-    def _losses(self, x, train, generator, seed=None):
+    def _losses(self, x, train, generator, seed=None, first_stage=None):
         if isinstance(x, dict):  # cached permuter streams
             out = self.model.forward_tokens(x, train=train, generator=generator, seed=seed)
         else:
-            out = self.model(x.float(), train=train, generator=generator, seed=seed)
+            out = self.model(x, train=train, generator=generator, seed=seed,
+                             first_stage=first_stage)
         return self.model.loss(out), out
 
     def compute_grads(self, x, generator=None):
@@ -166,7 +191,8 @@ class Stage2Trainer:
         sums, log_sums = None, None
         for i, xi in enumerate(micro):
             total, out = self._losses(xi, True, generator,
-                                      attention_seed(self.base_seed, self.count, i))
+                                      attention_seed(self.base_seed, self.count, i),
+                                      self.frozen_first_stage)
             g = torch.autograd.grad(total, params)
             logs = {"total": total.detach().float(),
                     **{k: out[k].detach().float() for k in _LOSS_KEYS}}
@@ -233,22 +259,29 @@ class Stage2Trainer:
 
     @torch.no_grad()
     def eval_step(self, x):
-        """The validation losses of `x`, computed with the f32 masters (the
-        monitored `val_loss` ranks the checkpoints)."""
+        """The validation losses of `x`, computed with the f32 masters and
+        encoded by the f32 first stage (the monitored `val_loss` ranks the
+        checkpoints)."""
         with self.master_weights():
             total, out = self._losses(self._to_device(x), False, None)
         return {"val_loss": total.float(), **{f"val_{k}": out[k].float() for k in _LOSS_KEYS}}
 
     @torch.no_grad()
+    def encode(self, x):
+        """The training encode (the JAX trainer's `make_encode_fn`): images
+        (B, H, W, 3) on the trainer's device -> the permuter streams, by
+        `frozen_first_stage` in its dtype."""
+        return self.model.encode_to_z(x, self.frozen_first_stage)[1]
+
+    @torch.no_grad()
     def encode_dataset(self, images, batch: int = 64):
         """Images (N, H, W, 3) -> the permuter streams as a dict of (N, L)
-        numpy int arrays, encoded once by the frozen first stage; usable as
-        the `x` of `train_step` / `eval_step`."""
+        numpy int arrays, encoded once by `encode`; usable as the `x` of
+        `train_step` / `eval_step`."""
         outs = []
         for i in range(0, len(images), batch):
-            x = torch.as_tensor(np.asarray(images[i:i + batch])).to(self.device).float()
-            _, z = self.model.encode_to_z(x)
-            outs.append(z)
+            outs.append(self.encode(torch.as_tensor(np.asarray(images[i:i + batch]))
+                                    .to(self.device)))
         # gather after every batch is enqueued, so the host copies do not
         # serialise the encodes
         return {k: np.concatenate([o[k].cpu().numpy() for o in outs], axis=0) for k in outs[0]}

@@ -364,9 +364,22 @@ def test_cuda_downsample_kernel_matches_plain(cuda_device, shape, k):
 
 @pytest.mark.cuda
 def test_cuda_downsample_rejects_what_the_kernel_cannot_take(cuda_device):
+    """bf16 is the kernel's own dtype now (a bf16 case of the kernel against
+    its plain version); float16, mixed dtypes and channels-last still raise."""
     x = torch.zeros((1, 8, 8, 8), device=cuda_device)
     w, b = torch.zeros((8, 8, 3, 3), device=cuda_device), torch.zeros(8, device=cuda_device)
+    r = np.random.default_rng(13)
+    x16, w16, b16 = (torch.from_numpy(r.normal(size=tuple(t.shape)).astype(np.float32))
+                     .to(cuda_device, torch.bfloat16) for t in (x, w, b))
+    before = strided_conv3x3_down.bf16_launches
+    out = strided_conv3x3_down(x16, w16, b16)
+    torch.cuda.synchronize()
+    assert strided_conv3x3_down.bf16_launches == before + 1 and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), strided_conv3x3_down_plain(x16, w16, b16).float(),
+                               atol=2e-2, rtol=2.0 ** -7)  # one bf16 rounding each
     with pytest.raises(TypeError):
-        strided_conv3x3_down(x.to(torch.bfloat16), w.to(torch.bfloat16), b.to(torch.bfloat16))
+        strided_conv3x3_down(x.half(), w.half(), b.half())
+    with pytest.raises(TypeError):
+        strided_conv3x3_down(x16, w, b)
     with pytest.raises(ValueError):
         strided_conv3x3_down(x.to(memory_format=torch.channels_last), w, b)

@@ -90,8 +90,16 @@ def test_cuda_kernel_matches_plain(cuda_device, shape, patch_size, bin_range):
 
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
+    """bf16 images are the kernel's now (a bf16 case against the plain
+    version); float16 still raises."""
     x = torch.from_numpy(_images(4, (1, 32, 32, 3))).to(cuda_device)
+    x16 = x.to(torch.bfloat16)
+    before = patch_entropy.bf16_launches
+    out = patch_entropy(x16)
+    torch.cuda.synchronize()
+    assert patch_entropy.bf16_launches == before + 1
+    torch.testing.assert_close(out, patch_entropy_plain(x16), atol=ATOL, rtol=0)
     with pytest.raises(TypeError):
-        patch_entropy(x.to(torch.bfloat16))
+        patch_entropy(x.half())
     with pytest.raises(ValueError):
         patch_entropy(x, num_bins=64)

@@ -123,5 +123,13 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     x, cb = (torch.from_numpy(a).to(cuda_device) for a in _x_cb(4, 16, 8, 30))
     with pytest.raises(ValueError):
         nearest_codes(x, cb)  # D % 4 != 0
+    # bf16 rows and codebooks are searched as their f32 casts; float16 raises
+    x16, cb16 = x[:, :28].to(torch.bfloat16), cb[:, :28].to(torch.bfloat16)
+    before = nearest_codes.launches
+    idx, xq = nearest_codes(x16, cb16)
+    torch.cuda.synchronize()
+    assert nearest_codes.launches == before + 1
+    ref, ref_xq = nearest_codes_plain(x16, cb16)
+    assert torch.equal(idx, ref) and torch.equal(xq, ref_xq)
     with pytest.raises(TypeError):
-        nearest_codes(x[:, :28].to(torch.bfloat16), cb[:, :28].to(torch.bfloat16))
+        nearest_codes(x[:, :28].half(), cb[:, :28].half())
