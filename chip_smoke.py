@@ -6,16 +6,18 @@ builds the kernels from `dynamicvectorquantization_torch/csrc/` at first use.
     python3 chip_smoke.py
 
 Phases, each printed as one JSON line (any failure exits non-zero):
-  1. card      name and power limit (nvidia-smi), TF32 off for f32 phases
+  1. card      name and power limit (nvidia-smi), TF32 off for f32 phases;
+     build     the kernels, with ptxas's registers and spills for each
   2. kernels   each CUDA kernel against its plain-PyTorch version at the
                shapes of the encode, serving and training paths: error vs the stated
                tolerance, kernel / plain / library times (device time from a
                profiler trace, and wall time from CUDA events; inputs rotated
                through more than the 50 MB L2 cache), and the bound from bytes
                or operations at the H100's peak rates; the downsample and the
-               patch entropy in f32 and in bf16, the FMA attention family in bf16
-               at hd 256 / 512 held to the plain version's roundings (the share
-               of differing outputs, beside that of the unrounded math)
+               patch entropy in f32 and in bf16, the tensor-core attention family
+               in bf16 (hd 128 causal, hd 256 / 512) held to the plain version's
+               roundings (the share of differing outputs, beside that of the
+               unrounded math), with the FMA family's bf16 time beside it
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
                through the kernels and through the plain versions (streams,
@@ -25,8 +27,9 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                just after (patch entropy 1, strided conv 4, attention 6, VQ 1);
                then the same batch through the first stage cast to bf16 as the
                stage-2 trainer casts it (time, busy share, launches: entropy 1,
-               strided conv 4, attention 6, VQ 1, all in bf16 but the VQ's f32
-               search; grain cells and codes equal to the f32 encode's, printed)
+               strided conv 4, attention 6 on the tensor cores, VQ 1, all in bf16
+               but the VQ's f32 search; grain cells and codes equal to the f32
+               encode's, printed)
   4. decode    full-width p6c18 StackGPT with int8 KV caches, seeded random
                weights, bf16, batch 8: 64 teacher-forced steps through the
                kernel path vs the plain path, max logit difference; then a
@@ -39,7 +42,8 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                caps, T = 805),
                bf16 over f32 masters, batch 8: 16 seeded images encoded by
                `Stage2Trainer.encode_dataset` (its bf16 first stage: the bf16
-               downsample and entropy launches asserted); one `train_step` through the
+               downsample and entropy launches and its attention on the tensor
+               cores asserted); one `train_step` through the
                kernels against one through the plain versions from the same
                state and the same dropout masks (losses, gradients,
                parameters); then timed steps with all three shipped dropouts
@@ -54,7 +58,8 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                gradients); then timed steps, launch counters per step, a
                torch.profiler trace of one step, peak memory, one `eval_step`;
                then all of it again with `compute_dtype=bfloat16` (bf16 towers
-               over f32 parameters, the bf16 downsample launched)
+               over f32 parameters, the bf16 downsample launched, the AttnBlocks
+               on the tensor-core family)
   8. fit       the port's training command line (`train/cli.py` `main`), called
                in-process on the shipped p6c18 config at full width and depth
                with only data and run-length overrides (synthetic 256^2 images,
@@ -91,9 +96,9 @@ TRAIN_T = 160 + 1 + 644 + 1 - 1
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp of the reference value
 DROPOUT_RATES = (0.1, 0.5)  # checked against the plain versions; timed at the first
 DROPOUT_SEED = 0x5EED5EED5EED
-# the FMA attention family in bf16 (hd 256 / 512) rounds P, D and dS where the plain
-# version does: outputs may differ from its in summation order only, while the same
-# math without those roundings differs in about 40 % of them (F9)
+# both attention families in bf16 round P (relative to the row's final max), D and dS
+# where the plain version does: outputs may differ from its in summation order only,
+# while the same math without those roundings differs in about 40 % of them (F9, F10)
 F9_MISMATCH_SHARE = 0.05
 
 
@@ -218,9 +223,9 @@ def check_decode_attention(torch, dev):
 
 def fma_forward(torch, q, k, v, n_head, scale, causal, rate=0.0, return_lse=False, seed=0):
     """The FMA family's forward entry called directly, at shapes the wrapper
-    sends to the tensor cores (bf16, hd 64 / 128): the time before this
-    family was replaced there, for comparison in the same call. Launches
-    are not counted."""
+    sends to the tensor cores (bf16, hd 64 / 128 / 256 / 512): the time
+    before this family was replaced there, for comparison in the same call.
+    Launches are not counted."""
     from dynamicvectorquantization_torch.ops import cuda_lib
 
     b, t, d = q.shape
@@ -251,6 +256,22 @@ def fma_backward(torch, q, k, v, y, lse, dy, n_head, scale, causal, rate=0.0, se
     return dq, dk, dv
 
 
+def rounded_forward_f64(torch, q, k, v, n_head, scale, causal):
+    """The bf16 plain version's math (P rounded to bf16 against the row's
+    final max) with every product and sum in f64: the yardstick for how far
+    each family's and the plain version's summation moves the bf16 output."""
+    b, t, d = q.shape
+    hd = d // n_head
+    qh, kh, vh = (z.double().view(b, t, n_head, hd).transpose(1, 2) for z in (q, k, v))
+    s = qh @ kh.transpose(-1, -2) * scale
+    if causal:
+        keep = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    y = (p.to(torch.bfloat16).double() @ vh) / p.sum(-1, keepdim=True)
+    return y.transpose(1, 2).reshape(b, t, d).to(q.dtype)
+
+
 def tensor_core_shape(torch, dtype, hd):
     """Whether the attention wrappers send this dtype and head dim to the
     tensor-core family."""
@@ -267,10 +288,10 @@ def check_fused_attention(torch, dev):
 
     cases, dropout_cases = [], []
     # DQ-VAE AttnBlock at 32x32 (decoder and encoder; f32, one head), a
-    # StackGPT-like causal bf16 shape (808 tokens, 8 heads: the tensor-core
-    # family, with the FMA family's time beside it), the encoder's AttnBlock
-    # at 16x16 (one head of 512 channels), and the first shape in bf16 (the
-    # FMA family's bf16 instantiation at hd 256 and 512: the bf16 DQ-VAE's AttnBlocks)
+    # StackGPT-like causal bf16 shape (808 tokens, 8 heads), the encoder's
+    # AttnBlock at 16x16 (one head of 512 channels), and the first and third
+    # shapes in bf16 (the bf16 DQ-VAE's AttnBlocks); every bf16 shape on the
+    # tensor-core family, with the FMA family's time beside it
     for (b, t, d), n_head, causal, dtype, tol in (
             ((8, 1024, 256), 1, False, torch.float32, 1e-4),
             ((8, 808, 1024), 8, True, torch.bfloat16, 2e-2),
@@ -306,17 +327,22 @@ def check_fused_attention(torch, dev):
                     n_head=n_head, causal=causal, dtype=dname,
                     family="tensor cores" if tc else "FMA", max_abs_err=err, tol=tol,
                     bound_ms=bms, bound_by=by)
-        if dtype == torch.bfloat16:  # F9: rounded where the plain version rounds
+        if dtype == torch.bfloat16:  # F9, F10: rounded where the plain version rounds
             unrounded = fused_attention_forward_plain(*(z.float() for z in sets[0]), n_head,
                                                       scale, causal).to(dtype)
             case.update(mismatch_share=mismatch_share(out, ref),
-                        unrounded_mismatch_share=mismatch_share(unrounded, ref))
-            if not tc:  # held for the FMA family; the tensor-core family's is read only
-                case["mismatch_tol"] = F9_MISMATCH_SHARE
+                        unrounded_mismatch_share=mismatch_share(unrounded, ref),
+                        mismatch_tol=F9_MISMATCH_SHARE)
             del unrounded
         if tc:  # the FMA family at the same shape: the time before the tensor cores took it
-            case["fma_max_abs_err"] = (fma_forward(torch, *sets[0], n_head, scale, causal).float()
-                                       - ref.float()).abs().max().item()
+            fma_out = fma_forward(torch, *sets[0], n_head, scale, causal)
+            case["fma_max_abs_err"] = (fma_out.float() - ref.float()).abs().max().item()
+            # each against the same roundings summed in f64 (printed, not held)
+            exact = rounded_forward_f64(torch, *sets[0], n_head, scale, causal)
+            case["f64_mismatch_share"] = {"kernel": mismatch_share(out, exact),
+                                          "fma_kernel": mismatch_share(fma_out, exact),
+                                          "plain": mismatch_share(ref, exact)}
+            del fma_out, exact
             time_into(case, "fma_kernel", torch,
                       lambda *a: fma_forward(torch, *a, n_head, scale, causal), sets)
         time_into(case, "kernel", torch,
@@ -326,9 +352,9 @@ def check_fused_attention(torch, dev):
         time_into(case, "library", torch, lib, sets)
         emit(case)
         require(err <= tol, f"fused_attention_forward disagrees at {case['shape']}: {err}")
-        require(tc or case.get("mismatch_share", 0.0) <= F9_MISMATCH_SHARE
+        require(case.get("mismatch_share", 0.0) <= F9_MISMATCH_SHARE
                 < case.get("unrounded_mismatch_share", 1.0),
-                f"the FMA family's bf16 forward does not round as the plain version: {case}")
+                f"the bf16 forward does not round as the plain version: {case}")
         cases.append(case)
 
         # the same shape with dropout on the probabilities: the same tolerance;
@@ -370,8 +396,8 @@ def check_attention_dropout(torch, dev):
     """What the dropout masks are, apart from agreeing with the plain version:
     per tile family of the forward and backward kernels (FMA family in f32:
     hd 64 / 128: 64-row tiles; hd 256: 64- and 32-row; hd 512: 32- and
-    16-row; tensor-core family in bf16 at hd 64 / 128, where unit vectors and
-    uniform probabilities are exact) the mask recovered
+    16-row; tensor-core family in bf16 at hd 64 / 128 / 256 / 512, where unit
+    vectors and uniform probabilities are exact) the mask recovered
     from the kernel equals `dropout_keep_mask` bit for bit (uniform
     probabilities, V rows that are unit vectors: output column c of row r is
     nonzero iff probability (r, c) was kept; dV likewise for the backward's
@@ -386,7 +412,8 @@ def check_attention_dropout(torch, dev):
     tc_before = (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches)
     for hd, t, dtype in ((64, 300, torch.float32), (128, 805, torch.float32),
                          (256, 300, torch.float32), (512, 300, torch.float32),
-                         (64, 300, torch.bfloat16), (128, 805, torch.bfloat16)):
+                         (64, 300, torch.bfloat16), (128, 805, torch.bfloat16),
+                         (256, 300, torch.bfloat16), (512, 300, torch.bfloat16)):
         for rate in DROPOUT_RATES:
             seed = DROPOUT_SEED + hd
             mask = dropout_keep_mask(seed, b, n_head, t, rate, dev)
@@ -430,7 +457,7 @@ def check_attention_dropout(torch, dev):
     emit(res)
     require(all(f["forward_mask_equal"] and f["backward_mask_equal"] for f in families),
             f"a kernel's dropout mask differs from dropout_keep_mask: {families}")
-    probes = 2 * sum(-(-t // hd) for hd, t in ((64, 300), (128, 805)))  # two rates
+    probes = 2 * sum(-(-t // hd) for hd, t in ((64, 300), (128, 805), (256, 300), (512, 300)))
     require(tc_probes == (probes, probes),
             f"the bf16 probes did not all run on the tensor cores: {tc_probes}, expected "
             f"{(probes, probes)}")
@@ -759,9 +786,8 @@ def check_attention_backward(torch, dev):
     fwd_cases, bwd_cases, drop_fwd_cases, drop_bwd_cases = [], [], [], []
     # the stage-2 training shape in bf16; the same in f32 at batch 2; one non-causal head,
     # ragged tiles; the DQ-VAE's conv AttnBlocks in stage-1 training: one non-causal f32
-    # head of 256 channels over 32 x 32 positions, and of 512 over 16 x 16
-    # (the first on the tensor cores, with the FMA family's times beside it; the FMA
-    # family's bf16 instantiation at hd 256 last)
+    # head of 256 channels over 32 x 32 positions, and of 512 over 16 x 16, in f32 and
+    # in bf16 (every bf16 shape on the tensor cores, with the FMA family's times beside it)
     for (b, t, d), n_head, causal, dtype in (
             ((8, TRAIN_T, 1024), 8, True, torch.bfloat16),
             ((2, TRAIN_T, 1024), 8, True, torch.float32),
@@ -798,7 +824,7 @@ def check_attention_backward(torch, dev):
         errs, oks = zip(*(close(o, r, atol, rtol) for o, r in zip(out, ref)))
         reproducible = all(torch.equal(a_, b_) for a_, b_ in zip(out, again))
         f9 = {}
-        if dtype == torch.bfloat16:  # F9: D and dS rounded as the plain version
+        if dtype == torch.bfloat16:  # F9, F10: P, D and dS rounded as the plain version
             qf, kf, vf, dyf = (z.float() for z in (q, k, v, dy))
             yf, lsef = fused_attention_forward_plain(qf, kf, vf, n_head, scale, causal, True)
             unrounded = fused_attention_backward_plain(qf, kf, vf, yf, lsef, dyf, n_head, scale,
@@ -806,9 +832,8 @@ def check_attention_backward(torch, dev):
             f9 = dict(mismatch_share=max(mismatch_share(o, r) for o, r in zip(out, ref)),
                       unrounded_mismatch_share=min(mismatch_share(u.to(dtype), r)
                                                    for u, r in zip(unrounded, ref)),
-                      forward_mismatch_share=mismatch_share(y, y_ref))
-            if not tc:  # held for the FMA family; the tensor-core family's is read only
-                f9["mismatch_tol"] = F9_MISMATCH_SHARE
+                      forward_mismatch_share=mismatch_share(y, y_ref),
+                      mismatch_tol=F9_MISMATCH_SHARE)
             del qf, kf, vf, dyf, yf, lsef, unrounded
         pairs = t * (t + 1) // 2 if causal else t * t
         fwd = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
@@ -867,9 +892,9 @@ def check_attention_backward(torch, dev):
                                  f"{fwd['shape']}: y {err_y} lse {err_lse}")
         require(all(oks), f"fused_attention_backward disagrees at {bwd['shape']} {dname}: {errs}")
         require(reproducible, "fused_attention_backward is not bit-reproducible")
-        require(tc or not f9 or max(f9["mismatch_share"], f9["forward_mismatch_share"])
+        require(not f9 or max(f9["mismatch_share"], f9["forward_mismatch_share"])
                 <= F9_MISMATCH_SHARE < f9["unrounded_mismatch_share"],
-                f"the FMA family's bf16 backward does not round as the plain version: {f9}")
+                f"the bf16 backward does not round as the plain version: {f9}")
         fwd_cases.append(fwd)
         bwd_cases.append(bwd)
 
@@ -1296,7 +1321,10 @@ def encode_bf16(torch, model, dev, card, x, grain32, code32, reps=5):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         encode_s = spread(times)["median"]
-        prof = profile_device_time(torch, lambda: model.encode_to_z(x, fs16), n_top=10)
+        prof = profile_device_time(
+            torch, lambda: model.encode_to_z(x, fs16), n_top=10,
+            groups={"fused_attention_forward_tc": "fused_attention_fwd_tc",
+                    "strided_conv3x3_down_bf16": "strided_conv_down"})
         _, _, info, grain, _, ent = fs16.encode(x.to(torch.bfloat16))
     same_grain = grain == grain32
     cells = same_grain.repeat_interleave(2, 1).repeat_interleave(2, 2)
@@ -1309,14 +1337,15 @@ def encode_bf16(torch, model, dev, card, x, grain32, code32, reps=5):
                launches=launches, encode_s=encode_s, encode_s_spread=spread(times),
                images_per_s=batch / encode_s, device_busy_ms=busy_ms,
                device_idle_share=busy_ms and 1.0 - busy_ms / (encode_s * 1e3),
-               device_ops=prof["device_ops"], top_kernels=prof["top"], card=card)
+               device_ops=prof["device_ops"], top_kernels=prof["top"],
+               device_ms_by_kernel_group=prof["groups"], card=card)
     emit(res)
     require(quant.shape[0] == batch and bool(torch.isfinite(quant).all())
             and all(int(v.shape[0]) == batch for v in streams.values()),
             "bf16 encode output of the wrong shape or not finite")
     for name, want in (("vq_nearest", 1), ("patch_entropy_bf16", 1), ("patch_entropy", 0),
                        ("strided_conv3x3_down_bf16", 4), ("strided_conv3x3_down", 0),
-                       ("fused_attention_forward", 6), ("fused_attention_forward_tc", 0)):
+                       ("fused_attention_forward_tc", 6), ("fused_attention_forward", 0)):
         require(launches[name] == want,
                 f"{name} launched {launches[name]} times per bf16 encode, expected {want}")
     return res
@@ -1386,9 +1415,12 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
     encode_s = time.perf_counter() - t0
     encode_launches = read_launches()
     n_batches = n_images // batch
-    # the cached-codes pre-encode runs the bf16 copy of the first stage (F4)
+    # the cached-codes pre-encode runs the bf16 copy of the first stage (F4), its six
+    # AttnBlocks on the tensor cores
     for name, want in (("strided_conv3x3_down_bf16", 4 * n_batches), ("strided_conv3x3_down", 0),
-                       ("patch_entropy_bf16", n_batches), ("patch_entropy", 0)):
+                       ("patch_entropy_bf16", n_batches), ("patch_entropy", 0),
+                       ("fused_attention_forward_tc", 6 * n_batches),
+                       ("fused_attention_forward", 0)):
         require(encode_launches[name] == want,
                 f"{name} launched {encode_launches[name]} times by encode_dataset, expected {want}")
     del images
@@ -1696,7 +1728,7 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     prof = profile_device_time(
         torch, lambda: trainer.train_step(x, gen), n_top=14,
-        groups={"fused_attention_forward": "fused_attention_fwd_kernel",
+        groups={"fused_attention_forward": "fused_attention_fwd_",
                 "fused_attention_backward": "attention_bwd_", "attention_delta": "attention_delta",
                 "strided_conv3x3_down": "strided_conv_down", "vq_nearest_train": "vq_",
                 "patch_entropy": "patch_entropy", "fft_convolutions": "fft",
@@ -1719,12 +1751,13 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
                        if k.startswith("loss.perceptual_loss."))
     logs = [{k: float(v) for k, v in step.items()} for step in all_logs]
     # entropy on the f32 images either way; the Downsample convs in the towers' dtype;
-    # the AttnBlocks (hd 256 / 512) on the FMA family in both dtypes
+    # the AttnBlocks (hd 256 / 512) on the FMA family in f32, on the tensor cores in bf16
     conv = "strided_conv3x3_down_bf16" if bf16 else "strided_conv3x3_down"
+    family, other = ("_tc", "") if bf16 else ("", "_tc")
     expected = {"vq_nearest_train": 2, "vq_nearest": 0, "patch_entropy": 2,
-                "patch_entropy_bf16": 0, conv: 8, "fused_attention_forward": 2 * n_attn,
-                "fused_attention_backward": n_attn, "fused_attention_forward_tc": 0,
-                "fused_attention_backward_tc": 0}
+                "patch_entropy_bf16": 0, conv: 8, f"fused_attention_forward{family}": 2 * n_attn,
+                f"fused_attention_backward{family}": n_attn, f"fused_attention_forward{other}": 0,
+                f"fused_attention_backward{other}": 0}
     step_ms = step_s * 1e3
     busy_ms = prof["device_busy_ms"]
     res = dict(phase="train1", step="timed", config=STAGE1, dtype=dname, batch=batch, lr=lr,
@@ -2013,7 +2046,7 @@ def main():
     t0 = time.perf_counter()
     cuda_lib.lib()
     emit(dict(phase="build", seconds=spread([time.perf_counter() - t0]),
-              nvcc_flags=cuda_lib.NVCC_FLAGS))
+              nvcc_flags=cuda_lib.NVCC_FLAGS, ptxas=cuda_lib.resource_usage()))
 
     decode_cases = check_decode_attention(torch, dev)
     attn_cases, attn_drop_cases = check_fused_attention(torch, dev)
@@ -2079,8 +2112,10 @@ def main():
     timed_keys = ("shape", "dtype", "causal", "family", "rate", "max_abs_err", "dropout_err",
                   "tol", "kernel_ms", "kernel_ms_spread", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "fma_kernel_ms", "fma_kernel_ms_spread", "bit_reproducible",
-                  "gflop", "mismatch_share", "unrounded_mismatch_share", "mismatch_tol")
+                  "gflop", "mismatch_share", "unrounded_mismatch_share", "mismatch_tol",
+                  "forward_mismatch_share", "fma_max_abs_err", "f64_mismatch_share")
     attn_src = "dynamicvectorquantization_tpu/ops/attention_pallas.py"
+    src_dir = "dynamicvectorquantization_torch/csrc"
     # the attention cases: forward (a) f32 hd 256, t808 bf16 (tensor cores), (b) f32 hd 512,
     # (a) and (b) in bf16; with lse (c) bf16 (tensor cores), f32 batch 2, hd 64, hd 256,
     # hd 512, hd 256 and hd 512 bf16; each also at rate 0.1 (the `_drop` lists)
@@ -2095,38 +2130,44 @@ def main():
             ("decode_attention_int8", "decode_attention_int8.cu",
              "dynamicvectorquantization_tpu/ops/kv_int8.py:92", decode_cases[-1], {}),
             # the FMA family: f32 at every head dim (the DQ-VAE's AttnBlocks), bf16 at
-            # hd 16, 32, 256, 512; main: the decoder's 32x32 AttnBlock
+            # hd 16, 32; main: the decoder's 32x32 AttnBlock
             ("fused_attention_forward", "fused_attention.cu", f"{attn_src}:82", fwd_a,
              {"family": "FMA", "extra": {n_: pick(c, *timed_keys) for n_, c in (
                  ("a_rate0.1", dfwd_a), ("b_hd512_f32", fwd_b), ("b_hd512_f32_rate0.1", dfwd_b),
-                 ("a_bf16_hd256", fwd_a16), ("a_bf16_hd256_rate0.1", dfwd_a16),
-                 ("b_bf16_hd512", fwd_b16), ("b_bf16_hd512_rate0.1", dfwd_b16),
                  ("c_f32_b2_with_lse", fwd_c32))}}),
-            # the tensor-core family: bf16 at hd 64 / 128; main: the stage-2 training
-            # shape (c) at the shipped rate 0.1, with lse
+            # the tensor-core family: bf16 at hd 64 / 128 (this file) and 256 / 512
+            # (fused_attention_tc_wide.cu, through this file's entry point); main: the
+            # stage-2 training shape (c) at the shipped rate 0.1, with lse; the FMA
+            # family's bf16 time beside each case (fma_kernel_ms)
             ("fused_attention_forward_tc", "fused_attention_tc.cu", f"{attn_src}:82", dfwd_c,
              {"family": "tensor cores", "rate": dfwd_c["rate"],
+              "wide_source": f"{src_dir}/fused_attention_tc_wide.cu",
               "dropout_err": dfwd_c["dropout_err"], "fma_kernel_ms": dfwd_c["fma_kernel_ms"],
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                   ("c_rate0", fwd_c), ("t808_no_lse", fwd_t808),
-                  ("t808_no_lse_rate0.1", dfwd_t808))}}),
+                  ("t808_no_lse_rate0.1", dfwd_t808),
+                  ("a_bf16_hd256", fwd_a16), ("a_bf16_hd256_rate0.1", dfwd_a16),
+                  ("b_bf16_hd512", fwd_b16), ("b_bf16_hd512_rate0.1", dfwd_b16),
+                  ("a_bf16_hd256_with_lse", fwd_256b), ("b_bf16_hd512_with_lse", fwd_512b))}}),
             ("fused_attention_backward", "fused_attention_bwd.cu", f"{attn_src}:108", bwd_256,
              {"family": "FMA", "bit_reproducible": bwd_256["bit_reproducible"],
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                   ("a_hd256_rate0.1", dbwd_256), ("b_hd512", bwd_512),
-                  ("b_hd512_rate0.1", dbwd_512), ("hd256_bf16", bwd_256b),
-                  ("hd256_bf16_rate0.1", dbwd_256b), ("hd512_bf16", bwd_512b),
-                  ("hd512_bf16_rate0.1", dbwd_512b), ("c_f32_b2", bwd_c32),
+                  ("b_hd512_rate0.1", dbwd_512), ("c_f32_b2", bwd_c32),
                   ("c_f32_b2_rate0.1", dbwd_c32), ("hd64_t300", bwd_64),
                   ("hd64_t300_rate0.1", dbwd_64))}}),
             ("fused_attention_backward_tc", "fused_attention_bwd_tc.cu", f"{attn_src}:108",
              dbwd_c,
              {"family": "tensor cores", "rate": dbwd_c["rate"],
+              "wide_source": f"{src_dir}/fused_attention_bwd_tc_wide.cu",
               "dropout_err": dbwd_c["dropout_err"],
               "bit_reproducible": dbwd_c["bit_reproducible"],
               "fma_kernel_ms": dbwd_c["fma_kernel_ms"],
               "bound_ms_f32_fma": dbwd_c["bound_ms_f32_fma"],
-              "extra": {"c_rate0": pick(bwd_c, *timed_keys)}}),
+              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+                  ("c_rate0", bwd_c), ("a_bf16_hd256", bwd_256b),
+                  ("a_bf16_hd256_rate0.1", dbwd_256b), ("b_bf16_hd512", bwd_512b),
+                  ("b_bf16_hd512_rate0.1", dbwd_512b))}}),
         ("layernorm_forward", "layernorm.cu",
              "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:46", ln_fwd_cases[0], {}),
             ("layernorm_backward", "layernorm.cu",
@@ -2157,7 +2198,7 @@ def main():
               "per_level": conv16["per_level"]})):
         launches = launched(name)
         kernels.append(dict(
-            name=name, route="cuda", source=f"dynamicvectorquantization_torch/csrc/{src}",
+            name=name, route="cuda", source=f"{src_dir}/{src}",
             replaces=replaces, launches=sum(launches.values()), launches_by_path=launches,
             max_abs_err=main["max_abs_err"], tol=main["tol"], ms=main["kernel_ms"],
             ms_spread=main["kernel_ms_spread"], plain_ms=main["plain_ms"],

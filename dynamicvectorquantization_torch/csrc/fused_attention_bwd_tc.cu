@@ -1,8 +1,9 @@
-// Fused attention backward on the tensor cores, for bf16 inputs at head dims
-// 64 and 128: dQ, dK, dV of softmax(Q K^T * scale) V on (B, T, D) tensors
-// with heads carved from D, causal or not, with the forward's
-// attention-probability dropout. fused_attention_bwd.cu keeps f32 at every
-// head dim and bf16 at hd 16, 32, 256 and 512, on the FMA units.
+// Fused attention backward on the tensor cores, for bf16 inputs: dQ, dK, dV
+// of softmax(Q K^T * scale) V on (B, T, D) tensors with heads carved from D,
+// causal or not, with the forward's attention-probability dropout.
+// fused_attention_bwd.cu keeps f32 at every head dim and bf16 at hd 16 and 32,
+// on the FMA units. This file holds head dims 64 and 128; its entry point
+// sends 256 and 512 to fused_attention_bwd_tc_wide.cu.
 //
 // Replaces: dynamicvectorquantization_tpu/ops/attention_pallas.py
 // `_bwd_kernel` (reached through `_fused_bwd`, the VJP of
@@ -63,13 +64,7 @@ constexpr size_t smem_bytes() {
 template <int HD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, size_t base,
                                           int r0, int t_len, int d_model) {
-  constexpr int LD = HD + 8, CH = HD / 8;
-  for (int idx = threadIdx.x; idx < kTile * CH; idx += kThreads) {
-    const int rr = idx / CH, c = idx % CH, t = r0 + rr;
-    const bool in = t < t_len;
-    dqvq::tc::cp_async16(dst + rr * LD + c * 8, src + base + (size_t)(in ? t : 0) * d_model + c * 8,
-                         in);
-  }
+  dqvq::tc::load_rows<HD, kTile, kThreads>(dst, src, base, r0, t_len, d_model);
 }
 
 // rows [r0, r0 + 64) of one (batch, head) row of lse and delta
@@ -407,7 +402,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* y
 }  // namespace
 
 // q, k, v, y, dy, dq, dk, dv: (batch, t_len, d_model) contiguous bf16,
-// 16-byte aligned, d_model / n_head in {64, 128}; lse: (batch, n_head, t_len)
+// 16-byte aligned, d_model / n_head in {64, 128, 256, 512}; lse: (batch, n_head, t_len)
 // f32 from the forward; delta: f32 workspace of the same shape. rate and
 // seed: the forward's. Returns a cudaError_t.
 extern "C" int dqvq_fused_attention_backward_tc(const void* q, const void* k, const void* v,
@@ -430,6 +425,11 @@ extern "C" int dqvq_fused_attention_backward_tc(const void* q, const void* k, co
     case 128:
       return launch_hd<128>(q, k, v, y, dy, l, dl, dq, dk, dv, batch, t_len, d_model, n_head,
                             scale, causal, drop, s);
+    case 256:
+    case 512:
+      return dqvq::tc::fused_attention_backward_wide(q, k, v, y, dy, l, dl, dq, dk, dv, batch,
+                                                     t_len, d_model, n_head, scale, causal, drop,
+                                                     s);
     default:
       return cudaErrorInvalidValue;
   }

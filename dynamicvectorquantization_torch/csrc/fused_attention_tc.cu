@@ -1,22 +1,24 @@
-// Fused attention forward on the tensor cores, for bf16 inputs at head dims
-// 64 and 128: softmax(Q K^T * scale) V on (B, T, D) inputs with heads carved
-// from D, causal or not, with attention-probability dropout and the rows'
-// log-sum-exp, as fused_attention.cu computes them (which keeps f32 at every
-// head dim and bf16 at hd 16, 32, 256 and 512, on the FMA units).
+// Fused attention forward on the tensor cores, for bf16 inputs: softmax(Q
+// K^T * scale) V on (B, T, D) inputs with heads carved from D, causal or not,
+// with attention-probability dropout and the rows' log-sum-exp, as
+// fused_attention.cu computes them (which keeps f32 at every head dim and bf16
+// at hd 16 and 32, on the FMA units). This file holds head dims 64 and 128;
+// its entry point sends 256 and 512 to fused_attention_tc_wide.cu.
 //
 // Replaces: dynamicvectorquantization_tpu/ops/attention_pallas.py
 // `_fwd_kernel` (reached through `_fused_fwd` / `fused_causal_attention`).
 // That kernel takes both products in bf16 with f32 accumulation and rounds
 // the (dropped, unnormalised) probabilities to the value dtype before P V
-// (`p.astype(v.dtype)`); this kernel rounds at the same place, so it computes
+// (`p.astype(v.dtype)`), relative to the row's max over its whole (T, T)
+// block; this kernel rounds the same values at the same place, so it computes
 // what the TPU kernel computes, the order of summation aside. The keep mask
 // is the one of common.cuh (`dropout_keep`), bit for bit.
 //
 // What bounds it on an H100: at the stage-2 training shape (B = 8, T = 805,
 // 8 heads of 128, causal) Q, K, V and Y are 52.8 MB, 0.016 ms at 3.35 TB/s,
 // against 10.6 GFLOP, 0.011 ms at the bf16 tensor-core peak: bytes, by a
-// little; the dropout's integer work (Philox4x32-10, one call per four
-// probabilities) comes on top of the products.
+// little; the first pass's Q K^T (5.3 GFLOP more) and the dropout's integer
+// work (Philox4x32-10, one call per four probabilities) come on top.
 //
 // Design: one block of four warps per (64-row query tile, batch * head); each
 // warp owns 16 query rows. The Q tile and a ring of two K/V tiles of 64 rows
@@ -24,12 +26,19 @@
 // of bank conflicts), filled by cp.async: the next K/V tile loads while the
 // current one is multiplied. S = Q K^T and O += P V run as mma.m16n8k16 with
 // f32 accumulators in registers (Q's fragments stay in registers for the
-// whole walk); the online softmax runs on S's accumulator fragments, P is
-// rounded to bf16 in registers and fed to P V as its A operand. The
-// denominator sums the undropped f32 probabilities; the dropout keep bits
-// come from one Philox call per four probabilities, shared between the two
-// lanes of a pair (tc.cuh `keep_bits_rows`). Causal blocks stop at their last
-// query row and are launched heaviest first.
+// whole walk). Two passes over the key tiles: the first forms S from the K
+// tiles alone for each row's final max; the second forms S again and P =
+// exp(S - max) on S's accumulator fragments, with the max final from the
+// start, so nothing is rescaled afterwards (an online softmax would round
+// exp(S - running max), which no later rescale by a factor that is not a
+// power of two turns into the plain version's bf16 value). P is rounded to
+// bf16 in registers and fed to P V as its A operand. The denominator sums the
+// undropped, unrounded f32 probabilities; the dropout keep bits come from one
+// Philox call per four probabilities, shared between the two lanes of a pair
+// (tc.cuh `keep_bits_rows`). Causal blocks stop at their last query row and
+// are launched heaviest first. ptxas (`chip_smoke.py`'s build line): 170
+// registers at hd 128, 238 with dropout, no spills; at hd 64 (no caller on
+// the main path) 96 / 128 registers with 16 / 4 bytes of spill stores.
 //
 // Why mma.sync and not wgmma: wgmma needs its shared-memory operands in the
 // core-matrix layouts its descriptors name and its register A operand in its
@@ -53,18 +62,34 @@ constexpr size_t smem_bytes() {
   return sizeof(bf16) * (size_t)(kBQ + 4 * kBK) * (HD + 8);
 }
 
-// rows [r0, r0 + 64) of one head of a (B, T, D) bf16 tensor into a padded
-// tile, asynchronously; rows past the sequence are zero-filled
+// rows [r0, r0 + 64) of one head of a (B, T, D) bf16 tensor into a padded tile
 template <int HD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, size_t base,
                                           int r0, int t_len, int d_model) {
-  constexpr int LD = HD + 8, CH = HD / 8;
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += kThreads) {
-    const int rr = idx / CH, c = idx % CH, t = r0 + rr;
-    const bool in = t < t_len;
-    dqvq::tc::cp_async16(dst + rr * LD + c * 8, src + base + (size_t)(in ? t : 0) * d_model + c * 8,
-                         in);
-  }
+  dqvq::tc::load_rows<HD, 64, kThreads>(dst, src, base, r0, t_len, d_model);
+}
+
+// S = Q K^T for this warp's 16 query rows (Q's fragments qf) against the 64
+// keys of the K tile tK at k0, in log2 units, -inf past the sequence and,
+// causal, above the diagonal: rows row0 (s[.][0..1]) and row1 (s[.][2..3])
+template <int HD>
+__device__ __forceinline__ void tile_scores(float (&s)[kBK / 8][4], const unsigned (&qf)[HD / 16][4],
+                                            const bf16* tK, int k0, int row0, int row1, int t_len,
+                                            float scale_log2, int causal) {
+  using namespace dqvq::tc;
+  constexpr int LD = HD + 8, KS = HD / 16, NT = kBK / 8;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) mma_rows<NT>(s, qf[kk], tK, LD, 0, kk * 16);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + j * 8 + 2 * t4 + (e & 1), row = e < 2 ? row0 : row1;
+      s[j][e] = col >= t_len || (causal && col > row) ? -INFINITY : s[j][e] * scale_log2;
+    }
 }
 
 template <int HD, bool DROP>
@@ -88,16 +113,49 @@ fused_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict
 
   const int k_end = causal ? min(t_len, q0 + kBQ) : t_len;
   const int n_tiles = (k_end + kBK - 1) / kBK;
+  unsigned qf[KS][4];
+  float s[NT][4];
+
+  // pass 1: each row's final max of the scaled scores (log2 units), K tiles only
   load_tile<HD>(sQ, q, base, q0, t_len, d_model);
+  load_tile<HD>(sK, k, base, 0, t_len, d_model);
+  cp_async_commit();
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int it = 0; it < n_tiles; ++it) {
+    const int cur = it & 1, k0 = it * kBK;
+    if (it + 1 < n_tiles) load_tile<HD>(sK + (cur ^ 1) * kBK * LD, k, base, k0 + kBK, t_len, d_model);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        load_a(qf[kk], sQ, LD, warp * 16, kk * 16);
+    }
+    tile_scores<HD>(s, qf, sK + cur * kBK * LD, k0, row0, row1, t_len, scale_log2, causal);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+    m_use[r] = m[r] == -INFINITY ? 0.f : m[r];  // a row with no key
+  }
+
+  // pass 2: P = exp2(s - m) against the final max, so no rescale: P is rounded
+  // to bf16 where the TPU kernel and the plain version round it (F10)
   load_tile<HD>(sK, k, base, 0, t_len, d_model);
   load_tile<HD>(sV, v, base, 0, t_len, d_model);
   cp_async_commit();
-
-  unsigned qf[KS][4];
   float o[HD / 8][4];
 #pragma unroll
   for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m in log2 units
+  float l[2] = {0.f, 0.f};
 
   for (int it = 0; it < n_tiles; ++it) {
     const int cur = it & 1, k0 = it * kBK;
@@ -108,53 +166,8 @@ fused_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-    }
-    const bf16* tK = sK + cur * kBK * LD;
     const bf16* tV = sV + cur * kBK * LD;
-
-    // S = Q K^T: this warp's 16 rows x 64 keys, eight 8-column accumulator tiles
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        unsigned r[4];
-        ldmatrix_x4(r, tK + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-        mma(s[2 * np], qf[kk], r[0], r[1]);
-        mma(s[2 * np + 1], qf[kk], r[2], r[3]);
-      }
-    }
-
-    // online softmax on the fragments: rows row0 (s[.][0..1]) and row1 (s[.][2..3])
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t4 + (e & 1), row = e < 2 ? row0 : row1;
-        float val = s[j][e] * scale_log2;
-        if (col >= t_len || (causal && col > row)) val = -INFINITY;
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    float alpha[2], m_use[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      m_use[r] = m_new == -INFINITY ? 0.f : m_new;  // fully masked so far
-      alpha[r] = exp2f(m[r] - m_use[r]);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
+    tile_scores<HD>(s, qf, sK + cur * kBK * LD, k0, row0, row1, t_len, scale_log2, causal);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       unsigned keep = 0xfu;
@@ -166,27 +179,13 @@ fused_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict
         s[j][e] = (keep >> e) & 1u ? p : 0.f;
       }
     }
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
 
     // O += P V: P rounded to bf16 in registers (the TPU kernel's p.astype(v.dtype))
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       unsigned a[4];
       to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dp = 0; dp < HD / 16; ++dp) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, tV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dp * 16 +
-                                 (lane >> 4) * 8);
-        mma(o[2 * dp], a, r[0], r[1]);
-        mma(o[2 * dp + 1], a, r[2], r[3]);
-      }
+      mma_cols<HD / 8>(o, a, tV, LD, kk * 16, 0);
     }
     __syncthreads();  // every warp is done with this buffer before it is refilled
   }
@@ -242,7 +241,7 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, fl
 }  // namespace
 
 // q, k, v, out: (batch, t_len, d_model) contiguous bf16, 16-byte aligned,
-// heads carved from d_model with d_model / n_head in {64, 128}. lse: null, or
+// heads carved from d_model with d_model / n_head in {64, 128, 256, 512}. lse: null, or
 // (batch, n_head, t_len) f32 for each row's log-sum-exp of the scaled scores.
 // rate in [0, 1) and seed as in fused_attention.cu. Returns a cudaError_t.
 extern "C" int dqvq_fused_attention_forward_tc(const void* q, const void* k, const void* v,
@@ -264,6 +263,10 @@ extern "C" int dqvq_fused_attention_forward_tc(const void* q, const void* k, con
     case 128:
       return launch_hd<128>(q, k, v, out, l, batch, t_len, d_model, n_head, scale_log2, causal,
                             drop, s);
+    case 256:
+    case 512:
+      return dqvq::tc::fused_attention_forward_wide(q, k, v, out, l, batch, t_len, d_model,
+                                                    n_head, scale_log2, causal, drop, s);
     default:
       return cudaErrorInvalidValue;
   }

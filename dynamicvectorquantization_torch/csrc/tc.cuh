@@ -1,5 +1,5 @@
 // Tensor-core building blocks shared by the bf16 attention kernels
-// (fused_attention_tc.cu, fused_attention_bwd_tc.cu): asynchronous global ->
+// (fused_attention_tc{,_wide}.cu, fused_attention_bwd_tc{,_wide}.cu): asynchronous global ->
 // shared copies (cp.async), ldmatrix, the m16n8k16 bf16 mma with f32
 // accumulators, and the dropout keep bits of a whole accumulator fragment
 // from one Philox call per four elements.
@@ -53,6 +53,13 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// two 8 x 8 bf16 matrices; lanes 0 .. 15 give the row addresses (the others' are ignored)
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_u32(p)));
 }
 
@@ -143,6 +150,84 @@ __device__ __forceinline__ unsigned keep_bits_cols(const DropoutParams& dp, int 
   }
   return bits;
 }
+
+// The A operand of a product: rows row0 .. row0 + 15 and columns k0 .. k0 + 15
+// of a row-major bf16 tile in shared memory with `ld` elements a row.
+__device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* tile, int ld, int row0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * ld + k0 + (lane >> 4) * 8);
+}
+
+// d[j] += a B_j for NT 8-column tiles B_j whose column n is ROW n0 + 8 j + n of
+// a row-major tile (columns k0 .. k0 + 15 of it are B_j's 16 rows): the
+// product with the tile's rows transposed, as S = Q K^T takes K.
+template <int NT>
+__device__ __forceinline__ void mma_rows(float (&d)[NT][4], const unsigned (&a)[4],
+                                         const bf16* tile, int ld, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  if constexpr (NT % 2 == 0) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      unsigned r[4];
+      ldmatrix_x4(r, tile + (n0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 +
+                         ((lane >> 3) & 1) * 8);
+      mma(d[2 * np], a, r[0], r[1]);
+      mma(d[2 * np + 1], a, r[2], r[3]);
+    }
+  } else {
+    static_assert(NT == 1, "an odd number of tiles other than one");
+    unsigned r[2];
+    ldmatrix_x2(r, tile + (n0 + (lane & 7)) * ld + k0 + ((lane >> 3) & 1) * 8);
+    mma(d[0], a, r[0], r[1]);
+  }
+}
+
+// d[j] += a B_j for NT (even) 8-column tiles B_j = rows k0 .. k0 + 15 and
+// columns n0 + 8 j .. n0 + 8 j + 7 of a row-major tile, as P V takes V.
+template <int NT>
+__device__ __forceinline__ void mma_cols(float (&d)[NT][4], const unsigned (&a)[4],
+                                         const bf16* tile, int ld, int k0, int n0) {
+  static_assert(NT % 2 == 0, "columns come in pairs of 8-column tiles");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int dp = 0; dp < NT / 2; ++dp) {
+    unsigned r[4];
+    ldmatrix_x4_trans(r, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + dp * 16 +
+                             (lane >> 4) * 8);
+    mma(d[2 * dp], a, r[0], r[1]);
+    mma(d[2 * dp + 1], a, r[2], r[3]);
+  }
+}
+
+// rows [r0, r0 + ROWS) of one head (HD columns from `base`) of a (B, T, D)
+// bf16 tensor into a tile with HD + 8 elements a row, asynchronously, by
+// THREADS threads; rows past the sequence are zero-filled
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src, size_t base,
+                                          int r0, int t_len, int d_model) {
+  constexpr int LD = HD + 8, CH = HD / 8;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
+    const int rr = idx / CH, c = idx % CH, t = r0 + rr;
+    const bool in = t < t_len;
+    cp_async16(dst + rr * LD + c * 8, src + base + (size_t)(in ? t : 0) * d_model + c * 8, in);
+  }
+}
+
+// Head dims 256 and 512 (fused_attention_tc_wide.cu, fused_attention_bwd_tc_wide.cu),
+// reached through the C entry points of fused_attention_tc.cu and
+// fused_attention_bwd_tc.cu; arguments as theirs, the head dim from d_model / n_head.
+cudaError_t fused_attention_forward_wide(const void* q, const void* k, const void* v, void* out,
+                                         float* lse, int batch, int t_len, int d_model,
+                                         int n_head, float scale_log2, int causal,
+                                         const DropoutParams& drop, cudaStream_t stream);
+cudaError_t fused_attention_backward_wide(const void* q, const void* k, const void* v,
+                                          const void* y, const void* dy, const float* lse,
+                                          float* delta, void* dq, void* dk, void* dv, int batch,
+                                          int t_len, int d_model, int n_head, float scale,
+                                          int causal, const DropoutParams& drop,
+                                          cudaStream_t stream);
 
 }  // namespace tc
 }  // namespace dqvq

@@ -6,15 +6,17 @@ Counterpart of `dynamicvectorquantization_tpu/ops/attention_pallas.py`
 CUDA kernel for CUDA tensors and runs its plain version,
 `fused_attention_forward_plain`, for CPU tensors; `fused_attention_backward`
 does the same with `fused_attention_backward_plain`. Each has two kernel
-families, chosen by dtype and head dim: bf16 at hd 64 and 128 (the StackGPT's
-heads in stage-2 training) runs on the tensor cores
-(`csrc/fused_attention_tc.cu`, `csrc/fused_attention_bwd_tc.cu`), everything
-else (f32 at every head dim, so the DQ-VAE's AttnBlocks; bf16 at hd 16, 32,
-256, 512: the DQ-VAE's AttnBlocks in bf16) on the FMA units
-(`csrc/fused_attention.cu`, `csrc/fused_attention_bwd.cu`). In bf16 both
-families round where the TPU kernel rounds: the probabilities to bf16 before
-P V, and D and dS before their products; the bf16 plain versions make the
-same roundings.
+families, chosen by dtype and head dim: bf16 at hd 64, 128, 256 and 512 runs
+on the tensor cores (hd 64 / 128, the StackGPT's heads in stage-2 training:
+`csrc/fused_attention_tc.cu`, `csrc/fused_attention_bwd_tc.cu`; hd 256 / 512,
+the DQ-VAE's AttnBlocks in bf16: `csrc/fused_attention_tc_wide.cu`,
+`csrc/fused_attention_bwd_tc_wide.cu`, through the same entry points),
+everything else (f32 at every head dim, so the DQ-VAE's AttnBlocks in f32;
+bf16 at hd 16 and 32) on the FMA units (`csrc/fused_attention.cu`,
+`csrc/fused_attention_bwd.cu`). In bf16 both families round where the TPU
+kernel rounds: the probabilities to bf16 before P V, relative to the row's
+final max (so the bf16 forwards are two-pass), and D and dS before their
+products; the bf16 plain versions make the same roundings.
 `fused_causal_attention` is the `torch.autograd.Function` over the two: the
 forward also returns each row's log-sum-exp of the scaled scores, the
 Function saves q, k, v, y and it, and the backward rebuilds the
@@ -43,7 +45,7 @@ from . import cuda_lib
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORWARD_HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 _BACKWARD_HEAD_DIMS = _FORWARD_HEAD_DIMS
-_TC_HEAD_DIMS = (64, 128)  # bf16 head dims of the tensor-core family
+_TC_HEAD_DIMS = (64, 128, 256, 512)  # bf16 head dims of the tensor-core family
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -229,14 +231,16 @@ def _check(name, tensors, n_head, head_dims):
 
 
 def _tensor_cores(tensors, n_head) -> bool:
-    """Whether a call goes to the tensor-core family: bf16 at hd 64 or 128.
-    Its tiles are copied 16 bytes at a time, so it raises on a tensor that
-    does not start on a 16-byte boundary instead of taking the FMA family."""
+    """Whether a call goes to the tensor-core family: bf16 at hd 64, 128, 256
+    or 512. Its tiles are copied 16 bytes at a time, so it raises on a tensor
+    that does not start on a 16-byte boundary instead of taking the FMA
+    family."""
     q = tensors[0]
-    if q.dtype != torch.bfloat16 or q.shape[2] // n_head not in _TC_HEAD_DIMS:
+    hd = q.shape[2] // n_head
+    if q.dtype != torch.bfloat16 or hd not in _TC_HEAD_DIMS:
         return False
     if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError("fused attention: bf16 tensors at hd 64 / 128 must start on a "
+        raise ValueError(f"fused attention: bf16 tensors at hd {hd} must start on a "
                          "16-byte boundary")
     return True
 

@@ -3,7 +3,9 @@
 The sources in `../csrc/*.cu` expose plain C entry points. At first use each
 source is compiled by its own `nvcc` process (all started together) for
 `sm_90a`, the objects are linked into one shared library under the repo's
-`build/` directory, and the library is loaded with `ctypes`. The library's
+`build/` directory, and the library is loaded with `ctypes`. ptxas's report
+of each kernel's registers and spills is kept beside the library
+(`resource_usage`). The library's
 file name carries a hash of the sources and flags, so an edited source is
 rebuilt and never mixed with a stale build; a finished build is moved into
 place atomically, so concurrent first uses in several processes are safe.
@@ -16,6 +18,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -28,6 +31,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+PTXAS_FLAGS = ("-Xptxas", "-v")  # the report only: the code is the same without it
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,7 +73,7 @@ def _sources():
 
 
 def _fingerprint() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + PTXAS_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC_DIR, "*"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -89,12 +93,13 @@ def build() -> str:
         procs = []
         for src in _sources():
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            cmd = [nvcc, *NVCC_FLAGS, *PTXAS_FLAGS, "-c", src, "-o", obj]
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
+        failed, logs = [], []
         for src, _, proc in procs:
             log, _ = proc.communicate()
+            logs.append(log)
             if proc.returncode:
                 print(f"[nvcc {os.path.basename(src)}]\n{log}", flush=True)
                 failed.append(os.path.basename(src))
@@ -103,8 +108,45 @@ def build() -> str:
         tmp_so = os.path.join(tmp, "lib.so")
         subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp_so,
                         *(o for _, o, _ in procs)], check=True)
+        tmp_log = os.path.join(tmp, "ptxas.txt")
+        with open(tmp_log, "w") as f:
+            f.write("".join(logs))
+        os.replace(tmp_log, out + ".ptxas.txt")
         os.replace(tmp_so, out)
     return out
+
+
+def resource_usage() -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} for every kernel
+    of the built library, from ptxas's report (`-Xptxas -v`) kept beside it;
+    names demangled where `c++filt` exists, cut before the argument list."""
+    with open(build() + ".ptxas.txt") as f:
+        report = f.read()
+    usage, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name in usage:
+            usage[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in usage:
+            usage[name]["registers"] = int(m.group(1))
+    names = list(usage)
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+        if len(out) == len(names):
+            usage = {_short(d): usage[n] for n, d in zip(names, out)}
+    return usage
+
+
+def _short(demangled: str) -> str:
+    name = demangled.replace("(anonymous namespace)::", "").replace("dqvq::", "")
+    return name.split("(")[0].removeprefix("void ")
 
 
 def lib():

@@ -510,13 +510,39 @@ def test_f32_plain_is_untouched_by_the_bf16_roundings():
         .transpose(1, 2).reshape(1, 96, 128), atol=2e-6, rtol=0)
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_family_by_dtype_and_head_dim(dtype, hd):
+    """The family a call takes is decided from dtype and head dim before any
+    launch, so CPU tensors show it: bf16 at hd 64, 128, 256 and 512 -> the
+    tensor cores; f32 at every head dim and bf16 at hd 16 / 32 -> the FMA
+    units."""
+    from dynamicvectorquantization_torch.ops.attention import _tensor_cores
+
+    x = torch.zeros((2, 8, 2 * hd), dtype=dtype)
+    assert x.data_ptr() % 16 == 0
+    assert _tensor_cores((x, x, x), 2) == (dtype == torch.bfloat16 and hd >= 64)
+
+
+def test_misaligned_bf16_at_hd_256_raises_instead_of_taking_the_fma_family():
+    """No fallback: a bf16 tensor at a tensor-core head dim that does not
+    start on a 16-byte boundary is refused, not sent to the FMA family."""
+    from dynamicvectorquantization_torch.ops.attention import _tensor_cores
+
+    aligned = torch.zeros((1, 8, 256), dtype=torch.bfloat16)
+    misaligned = torch.zeros(1 + 8 * 256, dtype=torch.bfloat16)[1:].view(1, 8, 256)
+    assert misaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match="hd 256 must start on a 16-byte boundary"):
+        _tensor_cores((aligned, aligned, misaligned), 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", [64, 100, 300, 805])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256, 512])
 def test_cuda_tensor_core_family_matches_plain(cuda_device, hd, t, causal, rate):
-    """bf16 at hd 64 / 128 runs on the tensor cores; it and the bf16 plain
+    """bf16 at hd 64 / 128 / 256 / 512 runs on the tensor cores; it and the bf16 plain
     versions round at the same places and differ in the order of summation:
     one bf16 ulp of the value plus 2e-2, as every bf16 attention comparison.
     The backward is bit-reproducible (no atomics)."""
@@ -543,7 +569,7 @@ def test_cuda_tensor_core_family_matches_plain(cuda_device, hd, t, causal, rate)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd,t", [(64, 300), (128, 805)])
+@pytest.mark.parametrize("hd,t", [(64, 300), (128, 805), (256, 300), (512, 300)])
 def test_cuda_tensor_core_masks_equal_dropout_keep_mask(cuda_device, hd, t):
     """Uniform probabilities and unit-vector V rows (exact in bf16): output
     column c of row r is nonzero iff probability (r, c) was kept, and dV with
@@ -568,12 +594,13 @@ def test_cuda_tensor_core_masks_equal_dropout_keep_mask(cuda_device, hd, t):
 
 @pytest.mark.cuda
 def test_cuda_each_family_counts_only_its_own_shapes(cuda_device):
-    """bf16 at hd 64 / 128 -> tensor cores; f32 at any hd and bf16 at hd 16,
-    32, 256, 512 -> FMA units."""
+    """bf16 at hd 64, 128, 256, 512 -> tensor cores; f32 at any hd and bf16
+    at hd 16, 32 -> FMA units."""
     cases = [(torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
              (torch.float32, 64, False), (torch.float32, 128, False),
              (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
-             (torch.bfloat16, 256, False), (torch.bfloat16, 512, False)]
+             (torch.bfloat16, 256, True), (torch.bfloat16, 512, True),
+             (torch.float32, 256, False), (torch.float32, 512, False)]
     for dtype, hd, tc in cases:
         q, k, v, dy = (torch.randn((1, 70, 2 * hd), device=cuda_device).to(dtype)
                        for _ in range(4))

@@ -15,10 +15,11 @@ against the JAX package:
   * the VQ search on bf16 rows and codebooks: the f32 casts', exactly.
 
 On a CUDA card: #10, #3 and the VQ search in bf16 against their plain
-versions, and the FMA attention family (#4, #5) in bf16 at hd 256 / 512, the
-DQ-VAE's AttnBlocks, which rounds P, D and dS to bf16 where the plain
-versions and the TPU kernel round them: its outputs may differ from the
-plain version's in the order of summation only, so at most 5 % of them
+versions, and the tensor-core attention family (#4, #5) in bf16 at hd 256 /
+512, the DQ-VAE's AttnBlocks, and at hd 128 causal, the StackGPT's heads,
+which rounds P (relative to the row's final max), D and dS to bf16 where the
+plain versions and the TPU kernel round them: its outputs may differ from
+the plain version's in the order of summation only, so at most 5 % of them
 differ, where the plain math without those roundings differs in about 40 %.
 
 JAX is imported inside the tests, so the CUDA cases also run where only
@@ -244,12 +245,18 @@ def _mismatch_share(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 1024, 256), (8, 256, 512)])
-def test_cuda_fma_attention_rounds_where_the_tpu_kernel_rounds(cuda_device, shape):
-    """F9: the FMA family in bf16 (hd 256, 512: one non-causal head) against
-    the bf16 plain version, which rounds P, D and dS; the same plain math
-    without those roundings (the f32 plain version on the f32 casts) fails
-    the same bound."""
+@pytest.mark.parametrize("shape,n_head,causal", [
+    ((8, 1024, 256), 1, False),  # (a) the decoder's 32x32 AttnBlock, hd 256
+    ((8, 256, 512), 1, False),  # (b) the encoder's 16x16 AttnBlock, hd 512
+    ((8, 808, 1024), 8, True),  # the StackGPT's heads, hd 128 (F10)
+])
+def test_cuda_tensor_core_attention_rounds_where_the_tpu_kernel_rounds(cuda_device, shape,
+                                                                        n_head, causal):
+    """F9 / F10: the tensor-core family in bf16 (hd 256 / 512, the DQ-VAE's
+    AttnBlocks; hd 128 causal, the StackGPT's) against the bf16 plain
+    version, which rounds P (relative to the row's final max), D and dS; the
+    same plain math without those roundings (the f32 plain version on the
+    f32 casts) fails the same bound."""
     from dynamicvectorquantization_torch.ops.attention import (
         fused_attention_backward,
         fused_attention_backward_plain,
@@ -260,17 +267,18 @@ def test_cuda_fma_attention_rounds_where_the_tpu_kernel_rounds(cuda_device, shap
     g = torch.Generator(device=cuda_device).manual_seed(9)
     q, k, v, dy = (torch.randn(shape, generator=g, device=cuda_device).to(BF16)
                    for _ in range(4))
-    before = fused_attention_forward.fma_launches
-    y, lse = fused_attention_forward(q, k, v, 1, None, False, return_lse=True)
-    grads = fused_attention_backward(q, k, v, y, lse, dy, 1, None, False)
+    before = (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches)
+    y, lse = fused_attention_forward(q, k, v, n_head, None, causal, return_lse=True)
+    grads = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal)
     torch.cuda.synchronize()
-    assert fused_attention_forward.fma_launches == before + 1
-    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, 1, None, False, True)
-    ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, 1, None, False)
-    y_un, lse_un = fused_attention_forward_plain(q.float(), k.float(), v.float(), 1, None, False,
-                                                 True)
+    assert (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches) == (
+        before[0] + 1, before[1] + 1)
+    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, None, causal, True)
+    ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, None, causal)
+    y_un, lse_un = fused_attention_forward_plain(q.float(), k.float(), v.float(), n_head, None,
+                                                 causal, True)
     ref_un = fused_attention_backward_plain(q.float(), k.float(), v.float(), y_un, lse_un,
-                                            dy.float(), 1, None, False)
+                                            dy.float(), n_head, None, causal)
     assert _mismatch_share(y, y_ref) <= F9_MISMATCH_SHARE < _mismatch_share(y_un.to(BF16), y_ref)
     for got, want, unrounded in zip(grads, ref, ref_un):
         assert _mismatch_share(got, want) <= F9_MISMATCH_SHARE < _mismatch_share(
