@@ -14,10 +14,16 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                profiler trace, and wall time from CUDA events; inputs rotated
                through more than the 50 MB L2 cache), and the bound from bytes
                or operations at the H100's peak rates; the downsample and the
-               patch entropy in f32 and in bf16, the tensor-core attention family
-               in bf16 (hd 128 causal, hd 256 / 512) held to the plain version's
-               roundings (the share of differing outputs, beside that of the
-               unrounded math), with the FMA family's bf16 time beside it
+               patch entropy in f32 and in bf16 (the bf16 downsample on the
+               tensor cores: every output within one bf16 ulp of the plain
+               version's, at most 1 % differing, the share of outputs summed
+               again in the plain order and the FMA kernel's time beside it),
+               the tensor-core
+               attention family in bf16 (hd 128 causal,
+               hd 256 / 512) held to the plain version's roundings (the share of
+               differing outputs, beside that of the unrounded math), with the
+               FMA family's bf16 time beside it, and the f32 backward at hd 256 /
+               512 (register-blocked) with the square-tile kernel's time beside it
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
                through the kernels and through the plain versions (streams,
@@ -241,7 +247,9 @@ def fma_forward(torch, q, k, v, n_head, scale, causal, rate=0.0, return_lse=Fals
 
 
 def fma_backward(torch, q, k, v, y, lse, dy, n_head, scale, causal, rate=0.0, seed=0):
-    """The FMA family's backward entry called directly (see `fma_forward`)."""
+    """The FMA family's backward entry called directly (see `fma_forward`): its
+    square-tile kernels at every head dim, at hd 256 / 512 in f32 the route
+    that the register-blocked kernel replaced."""
     from dynamicvectorquantization_torch.ops import cuda_lib
 
     b, t, d = q.shape
@@ -278,6 +286,14 @@ def tensor_core_shape(torch, dtype, hd):
     from dynamicvectorquantization_torch.ops.attention import _TC_HEAD_DIMS
 
     return dtype == torch.bfloat16 and hd in _TC_HEAD_DIMS
+
+
+def wide_f32_shape(torch, dtype, hd):
+    """Whether the backward runs the register-blocked f32 kernel
+    (`csrc/fused_attention_bwd_wide.cu`) at this dtype and head dim."""
+    from dynamicvectorquantization_torch.ops.attention import _WIDE_F32_HEAD_DIMS
+
+    return dtype == torch.float32 and hd in _WIDE_F32_HEAD_DIMS
 
 
 def check_fused_attention(torch, dev):
@@ -634,11 +650,75 @@ def check_patch_entropy(torch, dev):
     return cases
 
 
+def fma_strided_conv(torch, x, w, bias):
+    """The FMA kernel's entry (`csrc/strided_conv_down.cu`) called directly on
+    bf16 inputs the wrapper sends to the tensor cores: the time before the
+    tensor-core kernel replaced it, for comparison in the same call. Launches
+    are not counted."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+
+    b, c, h, w_ = x.shape
+    k = w.shape[0]
+    out = torch.empty((b, k, (h - 2) // 2 + 1, (w_ - 2) // 2 + 1), dtype=x.dtype, device=x.device)
+    err = cuda_lib.lib().dqvq_strided_conv_down(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w_, k,
+        1 if x.dtype == torch.bfloat16 else 0, torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "fma_strided_conv")
+    return out
+
+
+def tc_strided_conv_without_second_pass(torch, x, w, bias):
+    """The tensor-core kernel's entry (`csrc/strided_conv_down_tc.cu`) called
+    directly with a cancellation threshold of 0, so it lists nothing and sums
+    no output again: what the one-ulp rule's second pass costs, for
+    comparison in the same call. Launches are not counted."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+    from dynamicvectorquantization_torch.ops.downsample import pack_weight
+
+    b, c, h, w_ = x.shape
+    k = w.shape[0]
+    packed, sq = pack_weight(w)
+    out = torch.empty((b, k, (h - 2) // 2 + 1, (w_ - 2) // 2 + 1), dtype=x.dtype, device=x.device)
+    err = cuda_lib.lib().dqvq_strided_conv_down_tc(
+        x.data_ptr(), packed.data_ptr(), sq.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h,
+        w_, k, 0.0, torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "tc_strided_conv_without_second_pass")
+    return out
+
+
+def one_rounding(torch, out, ref):
+    """How far a bf16 downsample `out` lies from the plain version's `ref`, in
+    bf16 ulps of the larger magnitude (`max_ulps`, `beyond_one_ulp` outputs);
+    `ok` when every output is within one ulp."""
+    out, ref = out.float(), ref.float()
+    big = torch.maximum(out.abs(), ref.abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big)[1] - 8)
+    ulps = (out - ref).abs() / ulp
+    return dict(max_ulps=ulps.max().item(), beyond_one_ulp=int((ulps > 1).sum()),
+                ok=bool((ulps <= 1).all()))
+
+
+def cancelling_share(torch, x, w, out):
+    """The share of outputs that the tensor-core kernel sums again in the
+    plain version's order: |y| < CANCELLATION * ||w_k|| ||x window||."""
+    import torch.nn.functional as F
+
+    from dynamicvectorquantization_torch.ops.downsample import CANCELLATION, pack_weight_plain
+
+    window = F.conv2d(F.pad(x.float() ** 2, (0, 1, 0, 1)),
+                      torch.ones((1, x.shape[1], 3, 3), device=x.device), stride=2)
+    sq = pack_weight_plain(w)[1]
+    return (out.float().abs() < CANCELLATION * (sq[None, :, None, None] * window).sqrt()
+            ).float().mean().item()
+
+
 def check_strided_conv(torch, dev):
     """Kernel #10 at the encoder's four Downsample convs (batch 8, 256^2
-    input) in f32 and in bf16 (the TPU kernel's own dtype: f32 sums of the
-    bf16 products and the bf16 bias, one rounding); returns the f32 and the
-    bf16 cases."""
+    input) in f32 (FMA kernel, held to 1e-4) and in bf16 (the TPU kernel's own
+    dtype: f32 sums of the bf16 products and the bf16 bias, one rounding; the
+    tensor-core kernel, held to the plain version's rounding: every output
+    within one bf16 ulp, at most 1 % of them differing at all, with the FMA
+    kernel's time beside it); returns the f32 and the bf16 cases."""
     import torch.nn.functional as F
 
     from dynamicvectorquantization_torch.ops.downsample import (
@@ -647,10 +727,8 @@ def check_strided_conv(torch, dev):
     by_dtype = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
+        bf16 = dtype == torch.bfloat16
         elem = torch.finfo(dtype).bits // 8
-        # f32 sums of 9 C <= 2304 products (|y| < ~5) in another order; bf16: that,
-        # then one rounding of the same sum on each side (one ulp apart at most)
-        atol, rtol = tolerances(dname, 1e-4)
         g = torch.Generator(device=dev).manual_seed(5)
         cases = []
         for b, c, hw in ((8, 128, 256), (8, 128, 128), (8, 256, 64), (8, 256, 32)):
@@ -659,19 +737,43 @@ def check_strided_conv(torch, dev):
             bias = ((torch.rand((c,), generator=g, device=dev) * 2 - 1) / (9 * c) ** 0.5).to(dtype)
             sets = [(torch.randn((b, c, hw, hw), generator=g, device=dev).to(dtype), w, bias)
                     for _ in range(n_sets(elem * b * c * hw * hw))]
+            tc_before = strided_conv3x3_down.tc_launches
             out = strided_conv3x3_down(*sets[0])
             ref = strided_conv3x3_down_plain(*sets[0])
             torch.cuda.synchronize()
-            err, ok = close(out, ref, atol, rtol)
+            tc = strided_conv3x3_down.tc_launches - tc_before
             ho = hw // 2
             bms, by = bound(elem * (b * c * hw * hw + c * c * 9 + c + b * c * ho * ho),
                             2 * 9 * c * c * ho * ho * b, dname)
             case = dict(phase="kernels", kernel="strided_conv3x3_down", shape=[b, c, hw, hw],
-                        out_channels=c, dtype=dname, max_abs_err=err, tol=f"{atol} + {rtol} |ref|",
+                        out_channels=c, dtype=dname, route="tensor cores" if tc else "FMA",
+                        max_abs_err=(out.float() - ref.float()).abs().max().item(),
                         mismatch_share=mismatch_share(out, ref), bound_ms=bms, bound_by=by)
-            time_into(case, "kernel", torch, strided_conv3x3_down, sets, iters=10,
-                      only="strided_conv_down")
+            if bf16:
+                # both sum in f32 and round once: equal, or a rounding that falls the other
+                # way; cuDNN's bf16 convolution and the FMA kernel measured the same way
+                # beside it, and the share of outputs summed again in the plain order
+                rounding = one_rounding(torch, out, ref)
+                library = one_rounding(torch, F.conv2d(F.pad(sets[0][0], (0, 1, 0, 1)), w, bias,
+                                                       stride=2), ref)
+                fma = one_rounding(torch, fma_strided_conv(torch, *sets[0]), ref)
+                case.update({k: v for k, v in rounding.items() if k != "ok"},
+                            library_rounding=library, fma_rounding=fma,
+                            cancelling_share=cancelling_share(torch, sets[0][0], w, out),
+                            mismatch_tol=0.01, tol="1 bf16 ulp; mismatch_share <= 0.01")
+                ok = rounding["ok"] and case["mismatch_share"] <= 0.01 and tc == 1
+            else:
+                # f32 sums of 9 C <= 2304 products (|y| < ~5) in another order
+                case["tol"] = 1e-4
+                ok = case["max_abs_err"] <= 1e-4 and tc == 0
+            # everything a call launches: in bf16 also the weight pack (`pack_weight`)
+            time_into(case, "kernel", torch, strided_conv3x3_down, sets, iters=10)
             time_into(case, "plain", torch, strided_conv3x3_down_plain, sets, iters=10)
+            if bf16:
+                time_into(case, "fma_kernel", torch, lambda *a: fma_strided_conv(torch, *a), sets,
+                          iters=10)
+                time_into(case, "no_second_pass", torch,
+                          lambda *a: tc_strided_conv_without_second_pass(torch, *a), sets, iters=10)
             padded = [(F.pad(x, (0, 1, 0, 1)), w_, b_) for x, w_, b_ in sets]
             del sets
             # cuDNN's convolution in the same dtype (bf16: on the tensor cores)
@@ -679,7 +781,7 @@ def check_strided_conv(torch, dev):
                       padded, iters=10)
             del padded
             emit(case)
-            require(ok, f"strided_conv3x3_down disagrees at {case['shape']} {dname}: {err}")
+            require(ok, f"strided_conv3x3_down disagrees at {case['shape']} {dname}: {case}")
             cases.append(case)
         by_dtype[dname] = cases
     return by_dtype["float32"], by_dtype["bfloat16"]
@@ -810,6 +912,7 @@ def check_attention_backward(torch, dev):
             sets.append((q, k, v, y, lse, dy))
         q, k, v, y, lse, dy = sets[0]
         tc = tensor_core_shape(torch, dtype, hd)
+        wide = wide_f32_shape(torch, dtype, hd)
         family = "tensor cores" if tc else "FMA"
         before = fused_attention_backward.tc_launches
         y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, True)
@@ -865,7 +968,8 @@ def check_attention_backward(torch, dev):
         flops = 10 * b * n_head * pairs * hd
         n_bytes = 8 * b * t * d * elem + 4 * b * n_head * t
         bwd = dict(phase="kernels", kernel="fused_attention_backward", shape=[b, t, d],
-                   n_head=n_head, causal=causal, dtype=dname, family=family, max_abs_err=max(errs),
+                   n_head=n_head, causal=causal, dtype=dname, family=family,
+                   max_abs_err=max(errs),
                    dq_err=errs[0], dk_err=errs[1], dv_err=errs[2], tol=f"{atol} + {rtol} |ref|",
                    bit_reproducible=reproducible, gflop=flops / 1e9,
                    bound_ms_f32_fma=bound(n_bytes, flops, "float32")[0], **f9)
@@ -886,6 +990,10 @@ def check_attention_backward(torch, dev):
         if tc:
             time_into(bwd, "fma_kernel", torch,
                       lambda *a: fma_backward(torch, *a, n_head, scale, causal), sets, iters=10)
+        if wide:  # the square-tile kernel it replaced
+            time_into(bwd, "before", torch,
+                      lambda *a: fma_backward(torch, *a, n_head, scale, causal),
+                      sets, iters=10)
         del lib_sets
         emit(bwd)
         require(ok_y and ok_lse, f"fused_attention_forward with lse disagrees at "
@@ -963,6 +1071,10 @@ def check_attention_backward(torch, dev):
                           torch, q_, k_, v_, n_head, scale, causal, rate, True, DROPOUT_SEED),
                       dsets)
             time_into(dbwd, "fma_kernel", torch,
+                      lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
+                      dsets, iters=10)
+        if wide:
+            time_into(dbwd, "before", torch,
                       lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
                       dsets, iters=10)
         del lib_sets, dsets
@@ -1164,7 +1276,8 @@ def read_launches():
     `<name>_tc` the tensor-core family's, and `<name>_dropout` those of
     both that drew a dropout mask. The downsample and entropy wrappers have
     two instantiations: `<name>` counts the f32 launches, `<name>_bf16` the
-    bf16 ones."""
+    bf16 ones; `strided_conv3x3_down_tc` counts those of the bf16 launches
+    that ran the tensor-core kernel."""
     counts = {name: fn.launches for name, fn in wrappers().items()}
     for name in ATTENTION:
         fn = wrappers()[name]
@@ -1175,6 +1288,7 @@ def read_launches():
         fn = wrappers()[name]
         counts[name] = fn.launches - fn.bf16_launches
         counts[f"{name}_bf16"] = fn.bf16_launches
+    counts["strided_conv3x3_down_tc"] = wrappers()["strided_conv3x3_down"].tc_launches
     return counts
 
 
@@ -1291,7 +1405,7 @@ def encode(torch, model, dev, card, batch=8, reps=5):
             f"reconstruction kernel vs plain with equal streams: {rec_diff}")
     require(round_trip <= rec_tol, f"decode_to_img(encode_to_z) vs forward: {round_trip}")
     for name, want in (("vq_nearest", 1), ("patch_entropy", 1), ("strided_conv3x3_down", 4),
-                       ("fused_attention_forward", 6)):
+                       ("strided_conv3x3_down_tc", 0), ("fused_attention_forward", 6)):
         require(launches[name] == want,
                 f"{name} launched {launches[name]} times per encode, expected {want}")
     return res, x, grain, code
@@ -1344,8 +1458,9 @@ def encode_bf16(torch, model, dev, card, x, grain32, code32, reps=5):
             and all(int(v.shape[0]) == batch for v in streams.values()),
             "bf16 encode output of the wrong shape or not finite")
     for name, want in (("vq_nearest", 1), ("patch_entropy_bf16", 1), ("patch_entropy", 0),
-                       ("strided_conv3x3_down_bf16", 4), ("strided_conv3x3_down", 0),
-                       ("fused_attention_forward_tc", 6), ("fused_attention_forward", 0)):
+                       ("strided_conv3x3_down_bf16", 4), ("strided_conv3x3_down_tc", 4),
+                       ("strided_conv3x3_down", 0), ("fused_attention_forward_tc", 6),
+                       ("fused_attention_forward", 0)):
         require(launches[name] == want,
                 f"{name} launched {launches[name]} times per bf16 encode, expected {want}")
     return res
@@ -1417,7 +1532,8 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
     n_batches = n_images // batch
     # the cached-codes pre-encode runs the bf16 copy of the first stage (F4), its six
     # AttnBlocks on the tensor cores
-    for name, want in (("strided_conv3x3_down_bf16", 4 * n_batches), ("strided_conv3x3_down", 0),
+    for name, want in (("strided_conv3x3_down_bf16", 4 * n_batches),
+                       ("strided_conv3x3_down_tc", 4 * n_batches), ("strided_conv3x3_down", 0),
                        ("patch_entropy_bf16", n_batches), ("patch_entropy", 0),
                        ("fused_attention_forward_tc", 6 * n_batches),
                        ("fused_attention_forward", 0)):
@@ -1751,11 +1867,13 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
                        if k.startswith("loss.perceptual_loss."))
     logs = [{k: float(v) for k, v in step.items()} for step in all_logs]
     # entropy on the f32 images either way; the Downsample convs in the towers' dtype;
-    # the AttnBlocks (hd 256 / 512) on the FMA family in f32, on the tensor cores in bf16
+    # the AttnBlocks (hd 256 / 512) on the FMA family in f32, on the tensor cores in bf16;
+    # the bf16 Downsample convs on the tensor-core kernel
     conv = "strided_conv3x3_down_bf16" if bf16 else "strided_conv3x3_down"
     family, other = ("_tc", "") if bf16 else ("", "_tc")
     expected = {"vq_nearest_train": 2, "vq_nearest": 0, "patch_entropy": 2,
-                "patch_entropy_bf16": 0, conv: 8, f"fused_attention_forward{family}": 2 * n_attn,
+                "patch_entropy_bf16": 0, conv: 8, "strided_conv3x3_down_tc": 8 if bf16 else 0,
+                f"fused_attention_forward{family}": 2 * n_attn,
                 f"fused_attention_backward{family}": n_attn, f"fused_attention_forward{other}": 0,
                 f"fused_attention_backward{other}": 0}
     step_ms = step_s * 1e3
@@ -1955,7 +2073,8 @@ def fit(torch, card):
         torch, card, "fit", P6C18, overrides, 4, lambda t: t.masters, "val_loss",
         ("vq_nearest", "patch_entropy", "fused_attention_forward", "fused_attention_forward_tc",
          "fused_attention_backward_tc", "layernorm_forward", "layernorm_backward", "fused_adamw",
-         "strided_conv3x3_down", "strided_conv3x3_down_bf16", "patch_entropy_bf16"),
+         "strided_conv3x3_down", "strided_conv3x3_down_bf16", "strided_conv3x3_down_tc",
+         "patch_entropy_bf16"),
         gb_needed=12, grids=8)
 
 
@@ -2085,15 +2204,20 @@ def main():
 
     # the downsample lines sum the encoder's four levels (one encode batch)
     def levels(cases):
+        timed = [key for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms",
+                                 "fma_kernel_ms", "no_second_pass_ms") if key in cases[0]]
         return dict(cases[0], shape=[c["shape"] for c in cases],
                     max_abs_err=max(c["max_abs_err"] for c in cases),
                     mismatch_share=max(c["mismatch_share"] for c in cases),
                     bound_by="/".join(sorted({c["bound_by"] for c in cases})),
                     kernel_ms_spread=[c["kernel_ms_spread"] for c in cases],
                     per_level={str(c["shape"]): {k: c[k] for k in (
-                        "kernel_ms", "plain_ms", "library_ms", "bound_ms")} for c in cases},
-                    **{key: sum(c[key] for c in cases)
-                       for key in ("kernel_ms", "plain_ms", "bound_ms", "library_ms")})
+                        "route", "max_ulps", "beyond_one_ulp", "cancelling_share",
+                        "library_rounding", "fma_rounding", "mismatch_share", "kernel_ms",
+                        "plain_ms", "library_ms", "fma_kernel_ms", "no_second_pass_ms",
+                        "bound_ms") if k in c}
+                               for c in cases},
+                    **{key: sum(c[key] for c in cases) for key in timed})
 
     conv, conv16 = levels(conv_cases), levels(conv16_cases)
     paths = {"serve": served["launches"], "encode": encoded["launches"],
@@ -2113,7 +2237,8 @@ def main():
                   "tol", "kernel_ms", "kernel_ms_spread", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "fma_kernel_ms", "fma_kernel_ms_spread", "bit_reproducible",
                   "gflop", "mismatch_share", "unrounded_mismatch_share", "mismatch_tol",
-                  "forward_mismatch_share", "fma_max_abs_err", "f64_mismatch_share")
+                  "forward_mismatch_share", "fma_max_abs_err", "f64_mismatch_share",
+                  "before_ms", "before_ms_spread")
     attn_src = "dynamicvectorquantization_tpu/ops/attention_pallas.py"
     src_dir = "dynamicvectorquantization_torch/csrc"
     # the attention cases: forward (a) f32 hd 256, t808 bf16 (tensor cores), (b) f32 hd 512,
@@ -2149,8 +2274,13 @@ def main():
                   ("a_bf16_hd256", fwd_a16), ("a_bf16_hd256_rate0.1", dfwd_a16),
                   ("b_bf16_hd512", fwd_b16), ("b_bf16_hd512_rate0.1", dfwd_b16),
                   ("a_bf16_hd256_with_lse", fwd_256b), ("b_bf16_hd512_with_lse", fwd_512b))}}),
+            # f32 at hd 256 / 512 (main: (a)) runs the register-blocked kernel of
+            # fused_attention_bwd_wide.cu; before_ms: the
+            # square-tile kernel it replaced, in the same run
             ("fused_attention_backward", "fused_attention_bwd.cu", f"{attn_src}:108", bwd_256,
              {"family": "FMA", "bit_reproducible": bwd_256["bit_reproducible"],
+              "wide_source": f"{src_dir}/fused_attention_bwd_wide.cu",
+              "before_ms": bwd_256["before_ms"], "before_ms_spread": bwd_256["before_ms_spread"],
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                   ("a_hd256_rate0.1", dbwd_256), ("b_hd512", bwd_512),
                   ("b_hd512_rate0.1", dbwd_512), ("c_f32_b2", bwd_c32),
@@ -2191,10 +2321,19 @@ def main():
             ("strided_conv3x3_down", "strided_conv_down.cu",
              "dynamicvectorquantization_tpu/ops/downsample_pallas.py:45", conv,
              {"per_level": conv["per_level"]}),
-            # the TPU kernel's own dtype: bf16 in, f32 sums, one rounding
-            ("strided_conv3x3_down_bf16", "strided_conv_down.cu",
+            # the TPU kernel's own dtype: bf16 in, f32 sums, one rounding, on the tensor
+            # cores (C a multiple of 8; other C: the FMA kernel, `fma_source`, whose time
+            # at the same shapes is `fma_kernel_ms`)
+            ("strided_conv3x3_down_bf16", "strided_conv_down_tc.cu",
              "dynamicvectorquantization_tpu/ops/downsample_pallas.py:45", conv16,
              {"dtype": "bfloat16", "mismatch_share": conv16["mismatch_share"],
+              "max_ulps": max(c["max_ulps"] for c in conv16_cases),
+              "beyond_one_ulp": sum(c["beyond_one_ulp"] for c in conv16_cases),
+              "fma_source": f"{src_dir}/strided_conv_down.cu",
+              "fma_kernel_ms": conv16["fma_kernel_ms"],
+              # the same kernel with nothing summed again: the one-ulp rule's cost
+              "no_second_pass_ms": conv16["no_second_pass_ms"],
+              "tc_launches": sum(launched("strided_conv3x3_down_tc").values()),
               "per_level": conv16["per_level"]})):
         launches = launched(name)
         kernels.append(dict(

@@ -50,8 +50,12 @@
 //
 // Limits: hd in {16, 32, 64, 128, 256, 512}; FMA only (no wgmma), no TMA
 // pipelining; the small tiles of hd >= 256 load two shared words per FMA in
-// the T x T products and are bound by shared-memory bandwidth; the causal
-// key tiles have unequal work and no balancing.
+// the T x T products and are bound by shared-memory bandwidth, so the wrapper
+// (`ops/attention.py`) sends f32 at hd 256 / 512 to the register-blocked
+// kernel of fused_attention_bwd_wide.cu, and bf16 there to the tensor cores:
+// the square tiles at those head dims are the route the wide kernel
+// replaced, which chip_smoke.py times beside it. The causal key tiles have
+// unequal work and no balancing.
 #include <math.h>
 
 #include "attention_delta.cuh"

@@ -79,6 +79,22 @@ __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsig
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a b alone, with no accumulator input: the f32 sum of the 16 products of
+// one step, which the caller adds to its own f32 sum with FADD (round to
+// nearest). The tensor cores add the accumulator into a step's products with
+// less than round-to-nearest accuracy, so a sum chained through many steps
+// drifts from an FMA loop's further than fresh step sums do (strided_conv_
+// down_tc.cu's outputs against the plain version's, `PERF.md`).
+__device__ __forceinline__ void mma_fresh(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
+        "f"(0.f), "f"(0.f));
+}
+
 // two f32 -> one register of two bf16 (round to nearest even), lo in the low half
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

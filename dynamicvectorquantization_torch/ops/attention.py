@@ -13,7 +13,8 @@ the DQ-VAE's AttnBlocks in bf16: `csrc/fused_attention_tc_wide.cu`,
 `csrc/fused_attention_bwd_tc_wide.cu`, through the same entry points),
 everything else (f32 at every head dim, so the DQ-VAE's AttnBlocks in f32;
 bf16 at hd 16 and 32) on the FMA units (`csrc/fused_attention.cu`,
-`csrc/fused_attention_bwd.cu`). In bf16 both families round where the TPU
+`csrc/fused_attention_bwd.cu`; the f32 backward at hd 256 and 512 in the
+register-blocked `csrc/fused_attention_bwd_wide.cu`). In bf16 both families round where the TPU
 kernel rounds: the probabilities to bf16 before P V, relative to the row's
 final max (so the bf16 forwards are two-pass), and D and dS before their
 products; the bf16 plain versions make the same roundings.
@@ -46,6 +47,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORWARD_HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 _BACKWARD_HEAD_DIMS = _FORWARD_HEAD_DIMS
 _TC_HEAD_DIMS = (64, 128, 256, 512)  # bf16 head dims of the tensor-core family
+_WIDE_F32_HEAD_DIMS = (256, 512)  # f32 head dims of the register-blocked backward
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -245,6 +247,21 @@ def _tensor_cores(tensors, n_head) -> bool:
     return True
 
 
+def _wide_f32(tensors, n_head) -> bool:
+    """Whether a backward runs the register-blocked f32 kernel
+    (`csrc/fused_attention_bwd_wide.cu`): f32 at hd 256 or 512. It copies its
+    rows 16 bytes at a time, so it raises on a tensor that does not start on
+    a 16-byte boundary."""
+    q = tensors[0]
+    hd = q.shape[2] // n_head
+    if q.dtype != torch.float32 or hd not in _WIDE_F32_HEAD_DIMS:
+        return False
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"fused_attention_backward: f32 tensors at hd {hd} must start on a "
+                         "16-byte boundary")
+    return True
+
+
 def _count(wrapper, tc, rate):
     wrapper.launches += 1
     wrapper.tc_launches += tc
@@ -332,6 +349,9 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
     tc = _tensor_cores(tensors + (dq, dk, dv), n_head)
     if tc:
         err = cuda_lib.lib().dqvq_fused_attention_backward_tc(
+            *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
+    elif _wide_f32(tensors + (dq, dk, dv), n_head):
+        err = cuda_lib.lib().dqvq_fused_attention_backward_wide_f32(
             *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
     else:
         err = cuda_lib.lib().dqvq_fused_attention_backward(

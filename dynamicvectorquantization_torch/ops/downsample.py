@@ -2,15 +2,21 @@
 (0, 1), (0, 1), NCHW (counterpart of `dynamicvectorquantization_tpu/ops/
 downsample_pallas.py` `strided_conv3x3_down`).
 
-`strided_conv3x3_down` launches the CUDA kernel `csrc/strided_conv_down.cu`
-for CUDA tensors and runs `strided_conv3x3_down_plain` for CPU tensors. The
-kernel takes f32 (the f32 encoder: FMA units, no TF32) or bf16 (the DQ-VAE
-in bf16, the TPU kernel's own dtype), x, weight and bias all of one dtype; a
-CUDA tensor of another dtype raises. In bf16 it computes what the TPU kernel
-computes: the products of the bf16 inputs summed in f32, the bf16 bias added
-to that sum, one rounding to bf16 at the store. (The JAX package's XLA route
-rounds twice, after the convolution and after the bias add; the port
-follows the kernel.)
+`strided_conv3x3_down` launches a CUDA kernel for CUDA tensors and runs
+`strided_conv3x3_down_plain` for CPU tensors. x, weight and bias are all f32
+or all bf16; a CUDA tensor of another dtype raises. Two kernels, chosen by
+dtype and channel count (`uses_tensor_cores`):
+  * bf16 with C a multiple of 8 (every Downsample of the shipped configs):
+    `csrc/strided_conv_down_tc.cu`, an implicit GEMM on the tensor cores that
+    reads the weights packed by `pack_weight` (to [tap][K][C], with each
+    output channel's sum of squares), and sums the outputs whose terms cancel
+    (`CANCELLATION`) again in the FMA kernel's order, the plain version's;
+  * f32 (the f32 encoder: FMA units, no TF32), and bf16 with another C:
+    `csrc/strided_conv_down.cu`.
+In bf16 both compute what the TPU kernel computes: the products of the bf16
+inputs summed in f32, the bf16 bias added to that sum, one rounding to bf16
+at the store. (The JAX package's XLA route rounds twice, after the
+convolution and after the bias add; the port follows the kernel.)
 
 `strided_conv3x3_down` is differentiable. Its forward is the kernel; its
 backward is the library's convolution gradients on the padded input
@@ -41,6 +47,46 @@ def strided_conv3x3_down_plain(x, weight, bias):
     return F.conv2d(F.pad(x, (0, 1, 0, 1)), weight, bias, stride=2)
 
 
+# An output the tensor-core kernel sums to |y| < CANCELLATION * ||w_k|| ||x
+# window|| (a bound on S = sum |w x|) is summed again in the FMA kernel's order:
+# there an ulp of y may be less than what two f32 summation orders differ by.
+CANCELLATION = 2.0 ** -11
+
+
+def uses_tensor_cores(x) -> bool:
+    """Whether `strided_conv3x3_down` sends x to the tensor-core kernel: bf16
+    with C a multiple of 8 (its weight rows are copied 16 bytes at a time)."""
+    return x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
+
+
+def pack_weight_plain(weight):
+    """Plain version of the tensor-core kernel's weight pack: (K, C, 3, 3) ->
+    (9, K, C), tap 3 u + v major and the input channel innermost, the layout
+    the kernel reads its weights in; and each output channel's sum of squared
+    weights in f32."""
+    k, c = weight.shape[:2]
+    packed = weight.permute(2, 3, 0, 1).reshape(9, k, c).contiguous()
+    return packed, weight.float().square().sum(dim=(1, 2, 3))
+
+
+def pack_weight(weight):
+    """`pack_weight_plain` for CPU tensors; on the card the pack kernel of
+    `csrc/strided_conv_down_tc.cu` (bf16 weights)."""
+    if weight.device.type == "cpu":
+        return pack_weight_plain(weight)
+    if weight.dtype != torch.bfloat16 or weight.dim() != 4 or not weight.is_contiguous():
+        raise ValueError(f"pack_weight: contiguous bf16 (K, C, 3, 3) weights expected, got "
+                         f"{weight.dtype} {tuple(weight.shape)}")
+    k, c = weight.shape[:2]
+    packed = torch.empty((9, k, c), dtype=weight.dtype, device=weight.device)
+    sq = torch.empty((k,), dtype=torch.float32, device=weight.device)
+    err = cuda_lib.lib().dqvq_strided_conv_down_tc_pack(
+        weight.data_ptr(), packed.data_ptr(), sq.data_ptr(), c, k,
+        torch.cuda.current_stream(weight.device).cuda_stream)
+    cuda_lib.check(err, "pack_weight")
+    return packed, sq
+
+
 class _StridedConvDown(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias):
@@ -66,7 +112,8 @@ class _StridedConvDown(torch.autograd.Function):
 def strided_conv3x3_down(x, weight, bias):
     """(B, C, H, W) -> (B, K, (H - 2) // 2 + 1, (W - 2) // 2 + 1),
     differentiable. `strided_conv3x3_down.launches` counts kernel launches,
-    `.bf16_launches` those of them in bf16."""
+    `.bf16_launches` those of them in bf16, `.tc_launches` those on the
+    tensor cores."""
     if all(t.device.type == "cpu" for t in (x, weight, bias)):
         return strided_conv3x3_down_plain(x, weight, bias)
     return _StridedConvDown.apply(x, weight, bias)
@@ -90,14 +137,24 @@ def _launch(x, weight, bias):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("strided_conv3x3_down: inputs must be contiguous")
     out = torch.empty((b, k, (h - 2) // 2 + 1, (w - 2) // 2 + 1), dtype=x.dtype, device=x.device)
-    err = cuda_lib.lib().dqvq_strided_conv_down(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w, k,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tc = uses_tensor_cores(x)
+    if tc:
+        packed, sq = pack_weight(weight)
+        err = cuda_lib.lib().dqvq_strided_conv_down_tc(
+            x.data_ptr(), packed.data_ptr(), sq.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c,
+            h, w, k, CANCELLATION, stream)
+    else:
+        err = cuda_lib.lib().dqvq_strided_conv_down(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w, k,
+            _DTYPE_CODE[x.dtype], stream)
     cuda_lib.check(err, "strided_conv3x3_down")
     strided_conv3x3_down.launches += 1
     strided_conv3x3_down.bf16_launches += x.dtype == torch.bfloat16
+    strided_conv3x3_down.tc_launches += tc
     return out
 
 
 strided_conv3x3_down.launches = 0
 strided_conv3x3_down.bf16_launches = 0  # those of `launches` in bf16
+strided_conv3x3_down.tc_launches = 0  # those of `launches` on the tensor cores

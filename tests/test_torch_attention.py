@@ -3,7 +3,8 @@ ops/attention.py`): the plain forward against the JAX package's Pallas
 kernel `fused_causal_attention(..., interpret=True)` (f32, atol 2e-5), the
 plain backward and the autograd Function against `jax.grad` of the same (dq,
 dk, dv atol 5e-5), and, on a CUDA card, the CUDA kernels against the plain
-versions. Attention-probability dropout: the Philox4x32-10 generator against
+versions (among them the register-blocked f32 backward at hd 256 / 512, its
+outputs, reproducibility and dropout masks). Attention-probability dropout: the Philox4x32-10 generator against
 the published known-answer vectors and an independent Python-int
 implementation, the keep mask's statistics and layout, the plain forward and
 backward at rate 0.1 / 0.5 against `jax.grad` of the TPU kernel's own math
@@ -536,6 +537,32 @@ def test_misaligned_bf16_at_hd_256_raises_instead_of_taking_the_fma_family():
         _tensor_cores((aligned, aligned, misaligned), 1)
 
 
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_f32_backward_by_dtype_and_head_dim(dtype, hd):
+    """f32 at hd 256 / 512 -> the register-blocked backward
+    (`csrc/fused_attention_bwd_wide.cu`, counted with the FMA family); no
+    call is sent to both it and the tensor cores."""
+    from dynamicvectorquantization_torch.ops.attention import _tensor_cores, _wide_f32
+
+    x = torch.zeros((2, 8, 2 * hd), dtype=dtype)
+    wide = _wide_f32((x, x, x), 2)
+    assert wide == (dtype == torch.float32 and hd >= 256)
+    assert not (wide and _tensor_cores((x, x, x), 2))
+
+
+def test_misaligned_f32_at_hd_512_raises_instead_of_taking_another_kernel():
+    """No fallback: an f32 tensor at hd 256 / 512 that does not start on a
+    16-byte boundary is refused, not sent to the square-tile kernels."""
+    from dynamicvectorquantization_torch.ops.attention import _wide_f32
+
+    aligned = torch.zeros((1, 8, 512))
+    misaligned = torch.zeros(1 + 8 * 512)[1:].view(1, 8, 512)
+    assert misaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match="hd 512 must start on a 16-byte boundary"):
+        _wide_f32((aligned, misaligned, aligned), 1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 @pytest.mark.parametrize("causal", [True, False])
@@ -616,3 +643,52 @@ def test_cuda_each_family_counts_only_its_own_shapes(cuda_device):
     misaligned = torch.zeros(1 + 70 * 128, device=cuda_device, dtype=torch.bfloat16)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         fused_attention_forward(*(misaligned.view(1, 70, 128),) * 3, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hd,t", [(256, 300), (256, 1024), (512, 300), (512, 256)])
+def test_cuda_f32_wide_backward_matches_plain(cuda_device, hd, t, causal, rate):
+    """f32 at hd 256 / 512 runs the register-blocked backward on the FMA units
+    (`fma_launches`): within the f32 backward tolerance of the plain version
+    (f32 sums in another order), and bit-reproducible (no atomics)."""
+    b, n_head, seed = 2, 2 if hd == 256 else 1, 24680
+    shape = (b, t, n_head * hd)
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(60, *shape))
+    dy = torch.from_numpy(_qkv(61, *shape)[0]).to(cuda_device)
+    y, lse = fused_attention_forward(q, k, v, n_head, None, causal, rate, True, seed)
+    before = (fused_attention_backward.fma_launches, fused_attention_backward.tc_launches)
+    out = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal, rate, seed)
+    again = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal, rate, seed)
+    torch.cuda.synchronize()
+    assert (fused_attention_backward.fma_launches, fused_attention_backward.tc_launches) == (
+        before[0] + 2, before[1])
+    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, None, causal, True, rate, seed)
+    ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, None, causal, rate,
+                                         seed)
+    for a, r in zip(out, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+    assert all(torch.equal(a, r) for a, r in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,t", [(256, 300), (512, 300)])
+def test_cuda_f32_wide_backward_masks_equal_dropout_keep_mask(cuda_device, hd, t):
+    """Uniform probabilities and unit-vector rows as V and as dY: column c of
+    dV's key row r is nonzero iff the probability (query c0 + c, key r) was
+    kept, so dV shows the register-blocked backward's mask transposed."""
+    b, n_head, rate, seed = 2, 2, 0.3, 79
+    q = torch.zeros((b, t, n_head * hd), device=cuda_device)
+    mask = dropout_keep_mask(seed, b, n_head, t, rate, cuda_device)
+    before = fused_attention_backward.fma_launches
+    for c0 in range(0, t, hd):
+        n = min(hd, t - c0)
+        v = torch.zeros((b, t, n_head, hd), device=cuda_device)
+        v[:, c0 + torch.arange(n), :, torch.arange(n)] = 1.0
+        v = v.reshape(b, t, -1).contiguous()
+        y, lse = fused_attention_forward(q, q, v, n_head, None, False, rate, True, seed)
+        _, _, dv = fused_attention_backward(q, q, v, y, lse, v, n_head, None, False, rate, seed)
+        got = dv.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+        assert torch.equal(got, mask[..., c0:c0 + n, :].transpose(-1, -2))
+    assert fused_attention_backward.fma_launches > before

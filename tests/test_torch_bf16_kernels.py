@@ -6,17 +6,25 @@ against the JAX package:
     the smallest input that interpret mode takes: the kernel wants C % 128
     == 0 and H >= 32). Both sum the products of the bf16 inputs in f32 and
     round once, in another order: at least 99.5 % of the outputs equal, the
-    rest one bf16 ulp apart. The autograd Function's backward on bf16 inputs
-    equals autograd of the plain version's, up to bf16's rounding of the
-    gradient.
+    rest one bf16 ulp apart. The operands the tensor-core kernel reads (the
+    weights packed by `pack_weight`, the padded input unfolded tap by tap)
+    give the same outputs as an implicit GEMM in plain torch, against both;
+    where that GEMM's rounded output lies more than one ulp from the plain
+    version's, its terms cancel below the bound at which the kernel sums an
+    output again in the plain version's order (`CANCELLATION`); the route a
+    call takes is decided from dtype and channel count. The autograd Function's backward on bf16 inputs equals autograd of the plain
+    version's, up to bf16's rounding of the gradient.
   * kernel #3 (`ops/entropy.py`) on bf16 images: the gray image bit-equal to
     the JAX function's, jitted on the CPU as the JAX trainers run it, the
     entropy within 2e-6 (f32 sums in another order).
   * the VQ search on bf16 rows and codebooks: the f32 casts', exactly.
 
-On a CUDA card: #10, #3 and the VQ search in bf16 against their plain
-versions, and the tensor-core attention family (#4, #5) in bf16 at hd 256 /
-512, the DQ-VAE's AttnBlocks, and at hd 128 causal, the StackGPT's heads,
+On a CUDA card: #10 (its tensor-core kernel at the encoder's four levels and
+at ragged shapes that reach every tile configuration, its FMA kernel where C
+is not a multiple of 8: at least 99 % of the outputs equal, every one within
+one bf16 ulp; its weight pack equal to the plain one), #3 and the VQ search
+in bf16 against their plain versions, and the tensor-core attention family
+(#4, #5) in bf16 at hd 256 / 512, the DQ-VAE's AttnBlocks, and at hd 128 causal, the StackGPT's heads,
 which rounds P (relative to the row's final max), D and dS to bf16 where the
 plain versions and the TPU kernel round them: its outputs may differ from
 the plain version's in the order of summation only, so at most 5 % of them
@@ -28,10 +36,15 @@ PyTorch is installed: `python -m pytest --noconftest -m cuda tests/test_torch_*.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dynamicvectorquantization_torch.ops.downsample import (
+    CANCELLATION,
+    pack_weight,
+    pack_weight_plain,
     strided_conv3x3_down,
     strided_conv3x3_down_plain,
+    uses_tensor_cores,
 )
 from dynamicvectorquantization_torch.ops.entropy import (
     gray_image,
@@ -105,6 +118,109 @@ def test_downsample_bf16_plain_matches_the_tpu_kernel_in_interpret_mode():
     out = out.float()
     assert float((out == ref).float().mean()) >= 0.995
     assert float(_ulps_apart(out, ref).max()) <= 1.0
+
+
+def _implicit_gemm(x, packed, bias):
+    """The product the tensor-core kernel forms, in plain torch on its
+    operands: the padded input unfolded tap-major (row tap * C + c, one column
+    per output pixel) times the repacked weights (row k, column tap * C + c),
+    summed in f32, the bias added, one rounding to bf16 (an f32 sum in
+    another order than the plain version's)."""
+    b, c, h, w = x.shape
+    k = packed.shape[1]
+    ho, wo = (h - 2) // 2 + 1, (w - 2) // 2 + 1
+    cols = F.unfold(F.pad(x.float(), (0, 1, 0, 1)), 3, stride=2)  # row c * 9 + tap
+    cols = cols.view(b, c, 9, ho * wo).transpose(1, 2).reshape(b, 9 * c, ho * wo)
+    wmat = packed.float().transpose(0, 1).reshape(k, 9 * c)
+    return (wmat @ cols + bias.float()[:, None]).to(BF16).view(b, k, ho, wo)
+
+
+def _one_rounding_apart(out, ref, equal_share):
+    assert out.dtype == ref.dtype == BF16 and out.shape == ref.shape
+    out, ref = out.float(), ref.float()
+    assert float((out == ref).float().mean()) >= equal_share
+    assert float(_ulps_apart(out, ref).max()) <= 1.0
+
+
+def test_downsample_repacked_operands_give_the_tpu_kernel_and_the_plain_version():
+    """The layout the tensor-core kernel reads, held before any card time: an
+    implicit GEMM over the repacked weights equals the TPU kernel in
+    interpret mode and the plain version, up to one rounding of an f32 sum
+    taken in another order."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from dynamicvectorquantization_tpu.ops.downsample_pallas import _downsample_pallas
+
+    x, w, b = _conv_case(0, (2, 128, 32, 32), 128)
+    packed, sq = pack_weight_plain(w)
+    assert packed.shape == (9, 128, 128) and packed.is_contiguous() and sq.shape == (128,)
+    out = _implicit_gemm(x, packed, b)
+    with pltpu.force_tpu_interpret_mode():
+        ref = _downsample_pallas(
+            jnp.asarray(x.float().permute(0, 2, 3, 1).numpy()).astype(jnp.bfloat16),
+            jnp.asarray(w.float().permute(2, 3, 1, 0).numpy()), jnp.asarray(b.float().numpy()))
+    ref = torch.from_numpy(np.asarray(ref.astype(jnp.float32))).permute(0, 3, 1, 2).to(BF16)
+    _one_rounding_apart(out, ref, 0.995)
+    _one_rounding_apart(out, strided_conv3x3_down_plain(x, w, b), 0.995)
+
+
+@pytest.mark.parametrize("shape,k", [((2, 24, 33, 20), 40), ((1, 8, 17, 35), 130),
+                                     ((1, 16, 4, 3), 16)])
+def test_downsample_repacked_operands_at_ragged_shapes(shape, k):
+    """Tap 3 u + v, output channel k and input channel c of the packed
+    weights are w[k, c, u, v], and the squares' sums are each output
+    channel's; odd H / W, a C of 8 or 24 (a half chunk) and K past a tile
+    give the plain version's outputs through the implicit GEMM."""
+    x, w, b = _conv_case(7, shape, k)
+    packed, sq = pack_weight(w)
+    for u in range(3):
+        for v in range(3):
+            assert torch.equal(packed[3 * u + v], w[:, :, u, v])
+    assert torch.allclose(sq.double(), (w.double() ** 2).sum(dim=(1, 2, 3)), rtol=1e-6, atol=0)
+    _one_rounding_apart(_implicit_gemm(x, packed, b), strided_conv3x3_down_plain(x, w, b), 0.99)
+
+
+def _cancelling(x, w, y):
+    """Which outputs y the tensor-core kernel sums again in the plain
+    version's order: |y| < CANCELLATION * ||w_k|| ||x window||, the norms
+    from f32 sums of squares as the kernel takes them."""
+    c = x.shape[1]
+    window = F.conv2d(F.pad(x.float() ** 2, (0, 1, 0, 1)), torch.ones((1, c, 3, 3)), stride=2)
+    sq = pack_weight_plain(w)[1]
+    return y.float().abs() < CANCELLATION * (sq[None, :, None, None] * window).sqrt()
+
+
+@pytest.mark.parametrize("shape,k,seed", [((4, 128, 64, 64), 128, 4), ((1, 256, 16, 16), 64, 2),
+                                          ((2, 24, 33, 20), 40, 3)])
+def test_downsample_outputs_past_one_ulp_lie_below_the_cancellation_bound(shape, k, seed):
+    """Three sums of the same terms, each rounded once to bf16: the plain
+    version's f32 sum, the implicit GEMM's f32 sum in another order, and the
+    exact sum (f64). Where another lies more than one ulp from the plain
+    version's, the output is below the kernel's cancellation bound, which it
+    sums again in the plain version's order. The bound takes about 1 % of the
+    outputs, every zero output with nonzero terms, and none where the terms
+    are all zero."""
+    x, w, b = _conv_case(seed, shape, k)
+    ref = strided_conv3x3_down_plain(x, w, b).float()
+    out = _implicit_gemm(x, pack_weight_plain(w)[0], b)
+    exact = F.conv2d(F.pad(x.double(), (0, 1, 0, 1)), w.double(), b.double(), stride=2).to(BF16)
+    listed = _cancelling(x, w, out)
+    for other in (out, exact):
+        assert bool(listed[_ulps_apart(other.float(), ref) > 1].all())
+    assert 0.0 < float(listed.float().mean()) < 0.03
+    assert bool(_cancelling(x, w, torch.zeros_like(out)).all())
+    assert not bool(_cancelling(torch.zeros_like(x), w, out).any())
+
+
+@pytest.mark.parametrize("dtype,c,tc", [(BF16, 128, True), (BF16, 8, True), (BF16, 24, True),
+                                        (BF16, 12, False), (BF16, 3, False),
+                                        (torch.float32, 128, False)])
+def test_downsample_route_by_dtype_and_channels(dtype, c, tc):
+    """bf16 with C a multiple of 8 -> the tensor-core kernel; f32, and bf16
+    with another C -> the FMA kernel. Decided before any launch, so CPU
+    tensors show it."""
+    assert uses_tensor_cores(torch.zeros((1, c, 4, 4), dtype=dtype)) == tc
 
 
 def test_downsample_bf16_plain_rounds_once_where_the_xla_route_rounds_twice():
@@ -200,20 +316,46 @@ def test_vq_search_on_bf16_is_the_search_on_the_f32_casts():
 
 # ------------------------------------------------------------------- cuda
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 128, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64),
-                                   (8, 256, 32, 32), (2, 16, 33, 20)])
-def test_cuda_bf16_downsample_kernel_matches_plain(cuda_device, shape):
-    x, w, b = (t.to(cuda_device) for t in _conv_case(6, shape, shape[1]))
-    before = (strided_conv3x3_down.launches, strided_conv3x3_down.bf16_launches)
+@pytest.mark.parametrize("shape,k", [
+    # the encoder's four levels: 128-channel tiles of 8 x 16 pixels at the first three,
+    # 64-channel tiles of 2 x 16 pixels at the last
+    ((8, 128, 256, 256), 128), ((8, 128, 128, 128), 128), ((8, 256, 64, 64), 256),
+    ((8, 256, 32, 32), 256),
+    ((2, 16, 33, 20), 16),  # odd H, ragged tiles
+    ((1, 64, 300, 301), 72),  # batch 1, 8 x 16 tiles with ragged rows, columns and channels
+    ((1, 24, 18, 40), 40),  # batch 1, a half chunk of channels, K short of a tile
+    ((2, 8, 17, 35), 130),  # C = 8, odd H and W, K over three channel tiles
+    ((1, 12, 20, 21), 16),  # C not a multiple of 8: the FMA kernel
+    ((2, 3, 9, 9), 5),  # the same, C = 3
+])
+def test_cuda_bf16_downsample_kernel_matches_plain(cuda_device, shape, k):
+    x, w, b = (t.to(cuda_device) for t in _conv_case(6, shape, k))
+    tc = shape[1] % 8 == 0
+    before = (strided_conv3x3_down.launches, strided_conv3x3_down.bf16_launches,
+              strided_conv3x3_down.tc_launches)
     out = strided_conv3x3_down(x, w, b)
     torch.cuda.synchronize()
-    assert (strided_conv3x3_down.launches, strided_conv3x3_down.bf16_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert (strided_conv3x3_down.launches, strided_conv3x3_down.bf16_launches,
+            strided_conv3x3_down.tc_launches) == (before[0] + 1, before[1] + 1, before[2] + tc)
     ref = strided_conv3x3_down_plain(x, w, b)
     assert out.dtype == BF16
     # both round the f32 sum once: outputs equal or one ulp apart (summation order)
     assert float(_ulps_apart(out.float(), ref.float()).max()) <= 1.0
     assert float((out == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,c", [(128, 128), (256, 256), (130, 8), (3, 300)])
+def test_cuda_weight_pack_matches_plain(cuda_device, k, c):
+    w = _conv_case(8, (1, c, 2, 2), k)[1]
+    before = strided_conv3x3_down.launches
+    packed, sq = pack_weight(w.to(cuda_device))
+    torch.cuda.synchronize()
+    ref_packed, ref_sq = pack_weight_plain(w)
+    assert torch.equal(packed.cpu(), ref_packed)
+    # f32 sums of 9 C squares in another order
+    assert torch.allclose(sq.cpu(), ref_sq, rtol=1e-5, atol=0)
+    assert strided_conv3x3_down.launches == before
 
 
 @pytest.mark.cuda
