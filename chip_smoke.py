@@ -14,7 +14,9 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                profiler trace, and wall time from CUDA events; inputs rotated
                through more than the 50 MB L2 cache), and the bound from bytes
                or operations at the H100's peak rates; the downsample and the
-               patch entropy in f32 and in bf16 (the bf16 downsample on the
+               patch entropy in f32 and in bf16 (the f32 downsample on the
+               blocked f32 kernel, equal to the FMA kernel bit for bit, with
+               its time beside it; the bf16 downsample on the
                tensor cores: every output within one bf16 ulp of the plain
                version's, at most 1 % differing, the share of outputs summed
                again in the plain order and the FMA kernel's time beside it),
@@ -22,15 +24,17 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                attention family in bf16 (hd 128 causal,
                hd 256 / 512) held to the plain version's roundings (the share of
                differing outputs, beside that of the unrounded math), with the
-               FMA family's bf16 time beside it, and the f32 backward at hd 256 /
-               512 (register-blocked) with the square-tile kernel's time beside it
+               FMA family's bf16 time beside it, and the f32 forward and backward
+               at hd 256 / 512 (register-blocked) with the square-tile kernels'
+               times beside them
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
                through the kernels and through the plain versions (streams,
                grain cells, codes and reconstructions compared), the round trip
                through `decode_to_img`, timing with the device's busy share,
                and launch counters zeroed just before one `encode_to_z` and read
-               just after (patch entropy 1, strided conv 4, attention 6, VQ 1);
+               just after (patch entropy 1, strided conv 4 on the blocked f32
+               kernel, attention 6 on the register-blocked f32 kernel, VQ 1);
                then the same batch through the first stage cast to bf16 as the
                stage-2 trainer casts it (time, busy share, launches: entropy 1,
                strided conv 4, attention 6 on the tensor cores, VQ 1, all in bf16
@@ -228,10 +232,11 @@ def check_decode_attention(torch, dev):
 
 
 def fma_forward(torch, q, k, v, n_head, scale, causal, rate=0.0, return_lse=False, seed=0):
-    """The FMA family's forward entry called directly, at shapes the wrapper
-    sends to the tensor cores (bf16, hd 64 / 128 / 256 / 512): the time
-    before this family was replaced there, for comparison in the same call.
-    Launches are not counted."""
+    """The FMA family's square-tile forward entry (`csrc/fused_attention.cu`)
+    called directly, at shapes the wrapper sends to the tensor cores (bf16, hd
+    64 / 128 / 256 / 512) or to the register-blocked f32 kernel (f32, hd 256 /
+    512): the time before those replaced it there, for comparison in the same
+    call. Launches are not counted."""
     from dynamicvectorquantization_torch.ops import cuda_lib
 
     b, t, d = q.shape
@@ -289,8 +294,9 @@ def tensor_core_shape(torch, dtype, hd):
 
 
 def wide_f32_shape(torch, dtype, hd):
-    """Whether the backward runs the register-blocked f32 kernel
-    (`csrc/fused_attention_bwd_wide.cu`) at this dtype and head dim."""
+    """Whether the wrappers run the register-blocked f32 kernels
+    (`csrc/fused_attention_wide.cu`, `csrc/fused_attention_bwd_wide.cu`) at
+    this dtype and head dim."""
     from dynamicvectorquantization_torch.ops.attention import _WIDE_F32_HEAD_DIMS
 
     return dtype == torch.float32 and hd in _WIDE_F32_HEAD_DIMS
@@ -329,20 +335,27 @@ def check_fused_attention(torch, dev):
                                                   is_causal=causal, scale=scale)
 
         tc = tensor_core_shape(torch, dtype, hd)
-        before = fused_attention_forward.tc_launches
+        wide = wide_f32_shape(torch, dtype, hd)
+        before = (fused_attention_forward.tc_launches, fused_attention_forward.wide_f32_launches)
         out = fused_attention_forward(*sets[0], n_head, scale, causal)
+        again = fused_attention_forward(*sets[0], n_head, scale, causal)
         ref = fused_attention_forward_plain(*sets[0], n_head, scale, causal)
         torch.cuda.synchronize()
-        require(fused_attention_forward.tc_launches - before == int(tc),
-                f"fused_attention_forward took the wrong family at {dtype} hd {hd}")
+        require((fused_attention_forward.tc_launches - before[0],
+                 fused_attention_forward.wide_f32_launches - before[1])
+                == (2 * int(tc), 2 * int(wide)),
+                f"fused_attention_forward took the wrong kernel at {dtype} hd {hd}")
         err = (out.float() - ref.float()).abs().max().item()
         pairs = t * (t + 1) // 2 if causal else t * t
         dname = str(dtype).split(".")[-1]
         bms, by = bound(4 * b * t * d * elem, 4 * b * n_head * pairs * hd, dname)
         case = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
                     n_head=n_head, causal=causal, dtype=dname,
-                    family="tensor cores" if tc else "FMA", max_abs_err=err, tol=tol,
+                    family="tensor cores" if tc else "FMA",
+                    route="wide f32" if wide else "tensor cores" if tc else "square tiles",
+                    max_abs_err=err, tol=tol, bit_reproducible=bool(torch.equal(out, again)),
                     bound_ms=bms, bound_by=by)
+        del again
         if dtype == torch.bfloat16:  # F9, F10: rounded where the plain version rounds
             unrounded = fused_attention_forward_plain(*(z.float() for z in sets[0]), n_head,
                                                       scale, causal).to(dtype)
@@ -361,6 +374,12 @@ def check_fused_attention(torch, dev):
             del fma_out, exact
             time_into(case, "fma_kernel", torch,
                       lambda *a: fma_forward(torch, *a, n_head, scale, causal), sets)
+        if wide:  # the square-tile kernel it replaced, at the same shape
+            sq_out = fma_forward(torch, *sets[0], n_head, scale, causal)
+            case["square_tiles_max_abs_err"] = (sq_out - ref).abs().max().item()
+            del sq_out
+            time_into(case, "square_tiles", torch,
+                      lambda *a: fma_forward(torch, *a, n_head, scale, causal), sets)
         time_into(case, "kernel", torch,
                   lambda *a: fused_attention_forward(*a, n_head, scale, causal), sets)
         time_into(case, "plain", torch,
@@ -368,6 +387,8 @@ def check_fused_attention(torch, dev):
         time_into(case, "library", torch, lib, sets)
         emit(case)
         require(err <= tol, f"fused_attention_forward disagrees at {case['shape']}: {err}")
+        require(case["bit_reproducible"], f"fused_attention_forward is not bit-reproducible at "
+                                          f"{case['shape']} {dname}")
         require(case.get("mismatch_share", 0.0) <= F9_MISMATCH_SHARE
                 < case.get("unrounded_mismatch_share", 1.0),
                 f"the bf16 forward does not round as the plain version: {case}")
@@ -400,6 +421,10 @@ def check_fused_attention(torch, dev):
             time_into(drop, "fma_kernel", torch,
                       lambda *a: fma_forward(
                           torch, *a, n_head, scale, causal, rate, seed=DROPOUT_SEED), sets)
+        if wide:
+            time_into(drop, "square_tiles", torch,
+                      lambda *a: fma_forward(
+                          torch, *a, n_head, scale, causal, rate, seed=DROPOUT_SEED), sets)
         emit(drop)
         require(drop["max_abs_err"] <= tol,
                 f"fused_attention_forward with dropout disagrees at {case['shape']}: "
@@ -426,6 +451,8 @@ def check_attention_dropout(torch, dev):
     b, n_head = 2, 2
     families = []
     tc_before = (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches)
+    wide_before = (fused_attention_forward.wide_f32_launches,
+                   fused_attention_backward.wide_f32_launches)
     for hd, t, dtype in ((64, 300, torch.float32), (128, 805, torch.float32),
                          (256, 300, torch.float32), (512, 300, torch.float32),
                          (64, 300, torch.bfloat16), (128, 805, torch.bfloat16),
@@ -458,6 +485,8 @@ def check_attention_dropout(torch, dev):
                                  kept_share_sigmas=abs(kept - (1 - rate)) / sigma))
     tc_probes = (fused_attention_forward.tc_launches - tc_before[0],
                  fused_attention_backward.tc_launches - tc_before[1])
+    wide_probes = (fused_attention_forward.wide_f32_launches - wide_before[0],
+                   fused_attention_backward.wide_f32_launches - wide_before[1])
     g = torch.Generator(device=dev).manual_seed(14)
     q, k, v = (torch.randn((2, TRAIN_T, 1024), generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
@@ -465,7 +494,7 @@ def check_attention_dropout(torch, dev):
         return fused_attention_forward(q, k, v, 8, None, True, rate, seed=seed)
 
     res = dict(phase="kernels", kernel="attention_dropout_mask", families=families,
-               tensor_core_probe_launches=tc_probes,
+               tensor_core_probe_launches=tc_probes, wide_f32_probe_launches=wide_probes,
                same_seed_bit_identical=bool(torch.equal(run(5), run(5))),
                seeds_differ=not torch.equal(run(5), run(6)),
                rate0_ignores_seed=bool(torch.equal(run(5, 0.0), fused_attention_forward(
@@ -477,6 +506,10 @@ def check_attention_dropout(torch, dev):
     require(tc_probes == (probes, probes),
             f"the bf16 probes did not all run on the tensor cores: {tc_probes}, expected "
             f"{(probes, probes)}")
+    wide = 2 * sum(-(-t // hd) for hd, t in ((256, 300), (512, 300)))
+    require(wide_probes == (wide, wide),
+            f"the f32 probes at hd 256 / 512 did not all run the register-blocked kernels: "
+            f"{wide_probes}, expected {(wide, wide)}")
     require(all(f["kept_share_sigmas"] <= 3.0 for f in families),
             f"kept share off 1 - rate by more than 3 sigma: {families}")
     require(res["same_seed_bit_identical"] and res["seeds_differ"] and res["rate0_ignores_seed"],
@@ -652,9 +685,9 @@ def check_patch_entropy(torch, dev):
 
 def fma_strided_conv(torch, x, w, bias):
     """The FMA kernel's entry (`csrc/strided_conv_down.cu`) called directly on
-    bf16 inputs the wrapper sends to the tensor cores: the time before the
-    tensor-core kernel replaced it, for comparison in the same call. Launches
-    are not counted."""
+    inputs the wrapper sends to the tensor cores (bf16) or to the blocked f32
+    kernel (f32): the time before those replaced it, for comparison in the
+    same call. Launches are not counted."""
     from dynamicvectorquantization_torch.ops import cuda_lib
 
     b, c, h, w_ = x.shape
@@ -714,7 +747,8 @@ def cancelling_share(torch, x, w, out):
 
 def check_strided_conv(torch, dev):
     """Kernel #10 at the encoder's four Downsample convs (batch 8, 256^2
-    input) in f32 (FMA kernel, held to 1e-4) and in bf16 (the TPU kernel's own
+    input) in f32 (the blocked f32 kernel, held to 1e-4 and equal to the FMA
+    kernel bit for bit) and in bf16 (the TPU kernel's own
     dtype: f32 sums of the bf16 products and the bf16 bias, one rounding; the
     tensor-core kernel, held to the plain version's rounding: every output
     within one bf16 ulp, at most 1 % of them differing at all, with the FMA
@@ -737,16 +771,20 @@ def check_strided_conv(torch, dev):
             bias = ((torch.rand((c,), generator=g, device=dev) * 2 - 1) / (9 * c) ** 0.5).to(dtype)
             sets = [(torch.randn((b, c, hw, hw), generator=g, device=dev).to(dtype), w, bias)
                     for _ in range(n_sets(elem * b * c * hw * hw))]
-            tc_before = strided_conv3x3_down.tc_launches
+            before = (strided_conv3x3_down.tc_launches, strided_conv3x3_down.f32_blocked_launches)
             out = strided_conv3x3_down(*sets[0])
+            again = strided_conv3x3_down(*sets[0])
             ref = strided_conv3x3_down_plain(*sets[0])
             torch.cuda.synchronize()
-            tc = strided_conv3x3_down.tc_launches - tc_before
+            tc = (strided_conv3x3_down.tc_launches - before[0]) // 2
+            blocked = (strided_conv3x3_down.f32_blocked_launches - before[1]) // 2
             ho = hw // 2
             bms, by = bound(elem * (b * c * hw * hw + c * c * 9 + c + b * c * ho * ho),
                             2 * 9 * c * c * ho * ho * b, dname)
             case = dict(phase="kernels", kernel="strided_conv3x3_down", shape=[b, c, hw, hw],
-                        out_channels=c, dtype=dname, route="tensor cores" if tc else "FMA",
+                        out_channels=c, dtype=dname,
+                        route="tensor cores" if tc else "blocked f32" if blocked else "FMA",
+                        bit_reproducible=bool(torch.equal(out, again)),
                         max_abs_err=(out.float() - ref.float()).abs().max().item(),
                         mismatch_share=mismatch_share(out, ref), bound_ms=bms, bound_by=by)
             if bf16:
@@ -763,15 +801,21 @@ def check_strided_conv(torch, dev):
                             mismatch_tol=0.01, tol="1 bf16 ulp; mismatch_share <= 0.01")
                 ok = rounding["ok"] and case["mismatch_share"] <= 0.01 and tc == 1
             else:
-                # f32 sums of 9 C <= 2304 products (|y| < ~5) in another order
-                case["tol"] = 1e-4
-                ok = case["max_abs_err"] <= 1e-4 and tc == 0
+                # f32 sums of 9 C <= 2304 products (|y| < ~5) in another order; the blocked
+                # kernel sums in the FMA kernel's order, so their outputs are equal
+                case.update(tol=1e-4, equal_to_fma_kernel=bool(torch.equal(
+                    out, fma_strided_conv(torch, *sets[0]))))
+                ok = (case["max_abs_err"] <= 1e-4 and tc == 0 and blocked == 1
+                      and case["equal_to_fma_kernel"])
+            ok = ok and case["bit_reproducible"]
+            del again
             # everything a call launches: in bf16 also the weight pack (`pack_weight`)
             time_into(case, "kernel", torch, strided_conv3x3_down, sets, iters=10)
             time_into(case, "plain", torch, strided_conv3x3_down_plain, sets, iters=10)
+            # the FMA kernel at the same shapes: the kernel both routes replaced
+            time_into(case, "fma_kernel", torch, lambda *a: fma_strided_conv(torch, *a), sets,
+                      iters=10)
             if bf16:
-                time_into(case, "fma_kernel", torch, lambda *a: fma_strided_conv(torch, *a), sets,
-                          iters=10)
                 time_into(case, "no_second_pass", torch,
                           lambda *a: tc_strided_conv_without_second_pass(torch, *a), sets, iters=10)
             padded = [(F.pad(x, (0, 1, 0, 1)), w_, b_) for x, w_, b_ in sets]
@@ -914,14 +958,16 @@ def check_attention_backward(torch, dev):
         tc = tensor_core_shape(torch, dtype, hd)
         wide = wide_f32_shape(torch, dtype, hd)
         family = "tensor cores" if tc else "FMA"
-        before = fused_attention_backward.tc_launches
+        before = (fused_attention_backward.tc_launches, fused_attention_backward.wide_f32_launches)
         y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, True)
         out = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
         again = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
         ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, scale, causal)
         torch.cuda.synchronize()
-        require(fused_attention_backward.tc_launches - before == 2 * int(tc),
-                f"fused_attention_backward took the wrong family at {dtype} hd {hd}")
+        require((fused_attention_backward.tc_launches - before[0],
+                 fused_attention_backward.wide_f32_launches - before[1])
+                == (2 * int(tc), 2 * int(wide)),
+                f"fused_attention_backward took the wrong kernel at {dtype} hd {hd}")
         err_y, ok_y = close(y, y_ref, atol, rtol)
         err_lse, ok_lse = close(lse, lse_ref, 1e-4)  # f32 log of an f32 sum of T terms
         errs, oks = zip(*(close(o, r, atol, rtol) for o, r in zip(out, ref)))
@@ -940,7 +986,9 @@ def check_attention_backward(torch, dev):
             del qf, kf, vf, dyf, yf, lsef, unrounded
         pairs = t * (t + 1) // 2 if causal else t * t
         fwd = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
-                   n_head=n_head, causal=causal, dtype=dname, family=family, with_lse=True,
+                   n_head=n_head, causal=causal, dtype=dname, family=family,
+                   route="wide f32" if wide else "tensor cores" if tc else "square tiles",
+                   with_lse=True,
                    max_abs_err=err_y, lse_err=err_lse, tol=f"{atol} + {rtol} |ref|; lse 1e-4")
         fwd["bound_ms"], fwd["bound_by"] = bound(
             4 * b * t * d * elem + 4 * b * n_head * t, 4 * b * n_head * pairs * hd, dname)
@@ -959,6 +1007,10 @@ def check_attention_backward(torch, dev):
                       heads(q_), heads(k_), heads(v_), is_causal=causal, scale=scale), sets)
         if tc:
             time_into(fwd, "fma_kernel", torch,
+                      lambda q_, k_, v_, *_: fma_forward(
+                          torch, q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
+        if wide:  # the square-tile forward the register-blocked one replaced
+            time_into(fwd, "square_tiles", torch,
                       lambda q_, k_, v_, *_: fma_forward(
                           torch, q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
         emit(fwd)
@@ -1074,6 +1126,10 @@ def check_attention_backward(torch, dev):
                       lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
                       dsets, iters=10)
         if wide:
+            time_into(dfwd, "square_tiles", torch,
+                      lambda q_, k_, v_, *_: fma_forward(
+                          torch, q_, k_, v_, n_head, scale, causal, rate, True, DROPOUT_SEED),
+                      dsets)
             time_into(dbwd, "before", torch,
                       lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
                       dsets, iters=10)
@@ -1264,8 +1320,8 @@ BF16_SPLIT = ("strided_conv3x3_down", "patch_entropy")
 
 def reset_launches():
     for fn in wrappers().values():
-        for attr in ("launches", "tc_launches", "fma_launches", "dropout_launches",
-                     "bf16_launches"):
+        for attr in ("launches", "tc_launches", "fma_launches", "wide_f32_launches",
+                     "dropout_launches", "bf16_launches", "f32_blocked_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -1273,22 +1329,27 @@ def reset_launches():
 def read_launches():
     """Launches per kernel since `reset_launches`. The attention wrappers
     have two kernel families: `<name>` counts the FMA family's launches,
-    `<name>_tc` the tensor-core family's, and `<name>_dropout` those of
-    both that drew a dropout mask. The downsample and entropy wrappers have
+    `<name>_wide_f32` those of them on the register-blocked f32 kernel (hd 256
+    / 512), `<name>_tc` the tensor-core family's, and `<name>_dropout` those
+    of both that drew a dropout mask. The downsample and entropy wrappers have
     two instantiations: `<name>` counts the f32 launches, `<name>_bf16` the
     bf16 ones; `strided_conv3x3_down_tc` counts those of the bf16 launches
-    that ran the tensor-core kernel."""
+    that ran the tensor-core kernel, `strided_conv3x3_down_f32_blocked` those
+    of the f32 launches that ran the blocked f32 kernel."""
     counts = {name: fn.launches for name, fn in wrappers().items()}
     for name in ATTENTION:
         fn = wrappers()[name]
         counts[name] = fn.fma_launches
+        counts[f"{name}_wide_f32"] = fn.wide_f32_launches
         counts[f"{name}_tc"] = fn.tc_launches
         counts[f"{name}_dropout"] = fn.dropout_launches
     for name in BF16_SPLIT:
         fn = wrappers()[name]
         counts[name] = fn.launches - fn.bf16_launches
         counts[f"{name}_bf16"] = fn.bf16_launches
-    counts["strided_conv3x3_down_tc"] = wrappers()["strided_conv3x3_down"].tc_launches
+    conv = wrappers()["strided_conv3x3_down"]
+    counts["strided_conv3x3_down_tc"] = conv.tc_launches
+    counts["strided_conv3x3_down_f32_blocked"] = conv.f32_blocked_launches
     return counts
 
 
@@ -1405,7 +1466,8 @@ def encode(torch, model, dev, card, batch=8, reps=5):
             f"reconstruction kernel vs plain with equal streams: {rec_diff}")
     require(round_trip <= rec_tol, f"decode_to_img(encode_to_z) vs forward: {round_trip}")
     for name, want in (("vq_nearest", 1), ("patch_entropy", 1), ("strided_conv3x3_down", 4),
-                       ("strided_conv3x3_down_tc", 0), ("fused_attention_forward", 6)):
+                       ("strided_conv3x3_down_f32_blocked", 4), ("strided_conv3x3_down_tc", 0),
+                       ("fused_attention_forward", 6), ("fused_attention_forward_wide_f32", 6)):
         require(launches[name] == want,
                 f"{name} launched {launches[name]} times per encode, expected {want}")
     return res, x, grain, code
@@ -1871,11 +1933,15 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
     # the bf16 Downsample convs on the tensor-core kernel
     conv = "strided_conv3x3_down_bf16" if bf16 else "strided_conv3x3_down"
     family, other = ("_tc", "") if bf16 else ("", "_tc")
+    # the f32 ones on the blocked f32 downsample and the register-blocked attention kernels
     expected = {"vq_nearest_train": 2, "vq_nearest": 0, "patch_entropy": 2,
                 "patch_entropy_bf16": 0, conv: 8, "strided_conv3x3_down_tc": 8 if bf16 else 0,
+                "strided_conv3x3_down_f32_blocked": 0 if bf16 else 8,
                 f"fused_attention_forward{family}": 2 * n_attn,
                 f"fused_attention_backward{family}": n_attn, f"fused_attention_forward{other}": 0,
-                f"fused_attention_backward{other}": 0}
+                f"fused_attention_backward{other}": 0,
+                "fused_attention_forward_wide_f32": 0 if bf16 else 2 * n_attn,
+                "fused_attention_backward_wide_f32": 0 if bf16 else n_attn}
     step_ms = step_s * 1e3
     busy_ms = prof["device_busy_ms"]
     res = dict(phase="train1", step="timed", config=STAGE1, dtype=dname, batch=batch, lr=lr,
@@ -2074,7 +2140,8 @@ def fit(torch, card):
         ("vq_nearest", "patch_entropy", "fused_attention_forward", "fused_attention_forward_tc",
          "fused_attention_backward_tc", "layernorm_forward", "layernorm_backward", "fused_adamw",
          "strided_conv3x3_down", "strided_conv3x3_down_bf16", "strided_conv3x3_down_tc",
-         "patch_entropy_bf16"),
+         "patch_entropy_bf16", "fused_attention_forward_wide_f32",
+         "strided_conv3x3_down_f32_blocked"),
         gb_needed=12, grids=8)
 
 
@@ -2093,8 +2160,10 @@ def fit1(torch, card):
         return fit_through_cli(
             torch, card, "fit1", STAGE1, overrides, 2, lambda t: t.model.state_dict(),
             "val_rec_loss", ("vq_nearest_train", "vq_nearest", "patch_entropy",
-                             "strided_conv3x3_down", "fused_attention_forward",
-                             "fused_attention_backward"),
+                             "strided_conv3x3_down", "strided_conv3x3_down_f32_blocked",
+                             "fused_attention_forward", "fused_attention_backward",
+                             "fused_attention_forward_wide_f32",
+                             "fused_attention_backward_wide_f32"),
             gb_needed=4, grids=8)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
@@ -2164,8 +2233,15 @@ def main():
 
     t0 = time.perf_counter()
     cuda_lib.lib()
+    ptxas = cuda_lib.resource_usage()
     emit(dict(phase="build", seconds=spread([time.perf_counter() - t0]),
-              nvcc_flags=cuda_lib.NVCC_FLAGS, ptxas=cuda_lib.resource_usage()))
+              nvcc_flags=cuda_lib.NVCC_FLAGS, ptxas=ptxas))
+    # the register-blocked kernels hold their blocks in registers: none may spill
+    keys = ("attention_fwd_wide", "attention_bwd_wide", "strided_conv_down_f32")
+    blocked = {name: use for name, use in ptxas.items() if any(key in name for key in keys)}
+    require(len(blocked) >= 8 and all(not use.get("spill_stores") and not use.get("spill_loads")
+                                      for use in blocked.values()),
+            f"a register-blocked kernel spills or is missing from ptxas's report: {blocked}")
 
     decode_cases = check_decode_attention(torch, dev)
     attn_cases, attn_drop_cases = check_fused_attention(torch, dev)
@@ -2212,7 +2288,8 @@ def main():
                     bound_by="/".join(sorted({c["bound_by"] for c in cases})),
                     kernel_ms_spread=[c["kernel_ms_spread"] for c in cases],
                     per_level={str(c["shape"]): {k: c[k] for k in (
-                        "route", "max_ulps", "beyond_one_ulp", "cancelling_share",
+                        "route", "equal_to_fma_kernel", "max_ulps", "beyond_one_ulp",
+                        "cancelling_share",
                         "library_rounding", "fma_rounding", "mismatch_share", "kernel_ms",
                         "plain_ms", "library_ms", "fma_kernel_ms", "no_second_pass_ms",
                         "bound_ms") if k in c}
@@ -2238,7 +2315,8 @@ def main():
                   "bound_by", "fma_kernel_ms", "fma_kernel_ms_spread", "bit_reproducible",
                   "gflop", "mismatch_share", "unrounded_mismatch_share", "mismatch_tol",
                   "forward_mismatch_share", "fma_max_abs_err", "f64_mismatch_share",
-                  "before_ms", "before_ms_spread")
+                  "before_ms", "before_ms_spread", "route", "square_tiles_ms",
+                  "square_tiles_ms_spread", "square_tiles_max_abs_err", "lse_err")
     attn_src = "dynamicvectorquantization_tpu/ops/attention_pallas.py"
     src_dir = "dynamicvectorquantization_torch/csrc"
     # the attention cases: forward (a) f32 hd 256, t808 bf16 (tensor cores), (b) f32 hd 512,
@@ -2247,7 +2325,7 @@ def main():
     fwd_a, fwd_t808, fwd_b, fwd_a16, fwd_b16 = attn_cases
     dfwd_a, dfwd_t808, dfwd_b, dfwd_a16, dfwd_b16 = attn_drop_cases
     fwd_c, fwd_c32, fwd_64, fwd_256, fwd_512, fwd_256b, fwd_512b = attn_train_cases
-    dfwd_c = attn_train_drop_cases[0]
+    dfwd_c, _, _, _, dfwd_512, _, _ = attn_train_drop_cases
     bwd_c, bwd_c32, bwd_64, bwd_256, bwd_512, bwd_256b, bwd_512b = attn_bwd_cases
     dbwd_c, dbwd_c32, dbwd_64, dbwd_256, dbwd_512, dbwd_256b, dbwd_512b = attn_bwd_drop_cases
     kernels = []
@@ -2255,10 +2333,21 @@ def main():
             ("decode_attention_int8", "decode_attention_int8.cu",
              "dynamicvectorquantization_tpu/ops/kv_int8.py:92", decode_cases[-1], {}),
             # the FMA family: f32 at every head dim (the DQ-VAE's AttnBlocks), bf16 at
-            # hd 16, 32; main: the decoder's 32x32 AttnBlock
-            ("fused_attention_forward", "fused_attention.cu", f"{attn_src}:82", fwd_a,
-             {"family": "FMA", "extra": {n_: pick(c, *timed_keys) for n_, c in (
+            # hd 16, 32; main: the decoder's 32x32 AttnBlock, f32 at hd 256 / 512 on the
+            # register-blocked kernel of fused_attention_wide.cu (the other shapes on the
+            # square tiles of fused_attention.cu, whose time at the main shapes is
+            # square_tiles_ms)
+            ("fused_attention_forward", "fused_attention_wide.cu", f"{attn_src}:82", fwd_a,
+             {"family": "FMA", "kernel_route": fwd_a["route"],
+              "square_tiles_source": f"{src_dir}/fused_attention.cu",
+              "square_tiles_ms": fwd_a["square_tiles_ms"],
+              "square_tiles_ms_spread": fwd_a["square_tiles_ms_spread"],
+              "bit_reproducible": fwd_a["bit_reproducible"],
+              "wide_f32_launches": launched("fused_attention_forward_wide_f32"),
+              "extra": {n_: pick(c, *timed_keys) for n_, c in (
                  ("a_rate0.1", dfwd_a), ("b_hd512_f32", fwd_b), ("b_hd512_f32_rate0.1", dfwd_b),
+                 ("a_hd256_with_lse", fwd_256), ("b_hd512_with_lse", fwd_512),
+                 ("b_hd512_with_lse_rate0.1", dfwd_512),
                  ("c_f32_b2_with_lse", fwd_c32))}}),
             # the tensor-core family: bf16 at hd 64 / 128 (this file) and 256 / 512
             # (fused_attention_tc_wide.cu, through this file's entry point); main: the
@@ -2275,11 +2364,13 @@ def main():
                   ("b_bf16_hd512", fwd_b16), ("b_bf16_hd512_rate0.1", dfwd_b16),
                   ("a_bf16_hd256_with_lse", fwd_256b), ("b_bf16_hd512_with_lse", fwd_512b))}}),
             # f32 at hd 256 / 512 (main: (a)) runs the register-blocked kernel of
-            # fused_attention_bwd_wide.cu; before_ms: the
-            # square-tile kernel it replaced, in the same run
-            ("fused_attention_backward", "fused_attention_bwd.cu", f"{attn_src}:108", bwd_256,
+            # fused_attention_bwd_wide.cu, the other shapes the square tiles of
+            # fused_attention_bwd.cu; before_ms: the square tiles at the main shapes
+            ("fused_attention_backward", "fused_attention_bwd_wide.cu", f"{attn_src}:108",
+             bwd_256,
              {"family": "FMA", "bit_reproducible": bwd_256["bit_reproducible"],
-              "wide_source": f"{src_dir}/fused_attention_bwd_wide.cu",
+              "square_tiles_source": f"{src_dir}/fused_attention_bwd.cu",
+              "wide_f32_launches": launched("fused_attention_backward_wide_f32"),
               "before_ms": bwd_256["before_ms"], "before_ms_spread": bwd_256["before_ms_spread"],
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                   ("a_hd256_rate0.1", dbwd_256), ("b_hd512", bwd_512),
@@ -2318,9 +2409,17 @@ def main():
             ("patch_entropy_bf16", "patch_entropy.cu",
              "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy16_case,
              {"dtype": "bfloat16"}),
-            ("strided_conv3x3_down", "strided_conv_down.cu",
+            # f32 with C % 4 == 0 (every f32 Downsample): the blocked f32 kernel, weight
+            # pack included; other C: the FMA kernel (`fma_source`), timed at the same
+            # shapes (`fma_kernel_ms`) and equal to it bit for bit
+            ("strided_conv3x3_down", "strided_conv_down_f32.cu",
              "dynamicvectorquantization_tpu/ops/downsample_pallas.py:45", conv,
-             {"per_level": conv["per_level"]}),
+             {"fma_source": f"{src_dir}/strided_conv_down.cu",
+              "fma_kernel_ms": conv["fma_kernel_ms"],
+              "equal_to_fma_kernel": all(c["equal_to_fma_kernel"] for c in conv_cases),
+              "bit_reproducible": all(c["bit_reproducible"] for c in conv_cases),
+              "f32_blocked_launches": launched("strided_conv3x3_down_f32_blocked"),
+              "per_level": conv["per_level"]}),
             # the TPU kernel's own dtype: bf16 in, f32 sums, one rounding, on the tensor
             # cores (C a multiple of 8; other C: the FMA kernel, `fma_source`, whose time
             # at the same shapes is `fma_kernel_ms`)

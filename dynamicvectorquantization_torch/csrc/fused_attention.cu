@@ -42,8 +42,15 @@
 // channels), where 64-row tiles would need 411 KB of shared memory and 32-row
 // tiles need 201 KB.
 //
+// Shapes it still takes (`ops/attention.py` `_route`): f32 at hd 16 - 128 and
+// bf16 at hd 16 / 32. f32 at hd 256 / 512 runs the register-blocked
+// fused_attention_wide.cu, bf16 at hd 64 - 512 the tensor-core kernels;
+// `chip_smoke.py` still calls this entry at those shapes to time the route
+// they replaced.
+//
 // Known limits of this simple version: FMA only (no wgmma for bf16), one
-// block per SM at hd>=256 (214 / 201 KB of shared memory), no TMA pipelining.
+// block per SM at hd>=256 (214 / 201 KB of shared memory), no TMA pipelining;
+// one scalar of Q and of K a d in the score loop (about 2 FMAs a shared word).
 #include <float.h>
 #include <math.h>
 

@@ -49,11 +49,14 @@
 #include <math.h>
 
 #include "attention_delta.cuh"
-#include "tc.cuh"
+#include "f32_rows.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using dqvq::f32rows::dot4;
+using dqvq::f32rows::kThreads;
+using dqvq::f32rows::ld4;
+using dqvq::f32rows::load_rows;
 
 template <int HD>
 struct Geo {
@@ -78,19 +81,6 @@ struct Geo {
   static_assert(smem <= 232448, "tiles exceed a block's shared memory");
 };
 
-// rows [r0, r0 + n) of one head of a (B, T, D) f32 tensor, zero past t_len
-template <int HD>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, size_t base,
-                                          int r0, int n, int t_len, int d_model) {
-  constexpr int LD = HD + 4, CH = HD / 4;
-  for (int idx = threadIdx.x; idx < n * CH; idx += kThreads) {
-    const int rr = idx / CH, c = idx % CH, t = r0 + rr;
-    const bool in = t < t_len;
-    dqvq::tc::cp_async16(dst + rr * LD + c * 4,
-                         src + base + (size_t)(in ? t : 0) * d_model + c * 4, in);
-  }
-}
-
 __device__ __forceinline__ void load_stats(float* s_lse, float* s_delta,
                                            const float* __restrict__ lse,
                                            const float* __restrict__ delta, size_t row_base,
@@ -101,17 +91,6 @@ __device__ __forceinline__ void load_stats(float* s_lse, float* s_delta,
     dqvq::tc::cp_async4(s_lse + rr, lse + off, in);
     dqvq::tc::cp_async4(s_delta + rr, delta + off, in);
   }
-}
-
-__device__ __forceinline__ float dot4(float acc, const float4& a, const float4& b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
 }
 
 // DQ = false: the dK / dV pass (block rows are keys, out0 = dK, out1 = dV);

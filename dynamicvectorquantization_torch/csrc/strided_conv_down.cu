@@ -38,10 +38,16 @@
 // bf16 inputs are widened to f32 as they are copied to shared memory (the
 // tiles stay f32), so both types share one inner loop.
 //
-// Known limits of this simple version: FMA only (an implicit-GEMM form on
-// tensor cores is the later speed work, bf16 or 3xTF32 for f32 parity), no
-// double-buffered chunks, the input loads hit 2-way bank conflicts, and the
-// smallest level (16 x 16 outputs, 256 channels, batch 8) fills 64 blocks.
+// Shapes it still takes (`ops/downsample.py`): f32 with C not a multiple of 4
+// and bf16 with C not a multiple of 8. f32 with C % 4 == 0 runs the blocked
+// strided_conv_down_f32.cu (which sums in this kernel's order, so its outputs
+// equal these), bf16 with C % 8 == 0 the tensor-core strided_conv_down_tc.cu;
+// `chip_smoke.py` still calls this entry at those shapes to time the route
+// they replaced.
+//
+// Known limits of this simple version: FMA only, no double-buffered chunks,
+// the input loads hit 2-way bank conflicts, 8 x 4 accumulators a thread, and
+// the smallest level (16 x 16 outputs, 256 channels, batch 8) fills 64 blocks.
 #include "common.cuh"
 
 namespace {

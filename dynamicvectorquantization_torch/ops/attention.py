@@ -12,12 +12,14 @@ on the tensor cores (hd 64 / 128, the StackGPT's heads in stage-2 training:
 the DQ-VAE's AttnBlocks in bf16: `csrc/fused_attention_tc_wide.cu`,
 `csrc/fused_attention_bwd_tc_wide.cu`, through the same entry points),
 everything else (f32 at every head dim, so the DQ-VAE's AttnBlocks in f32;
-bf16 at hd 16 and 32) on the FMA units (`csrc/fused_attention.cu`,
-`csrc/fused_attention_bwd.cu`; the f32 backward at hd 256 and 512 in the
-register-blocked `csrc/fused_attention_bwd_wide.cu`). In bf16 both families round where the TPU
-kernel rounds: the probabilities to bf16 before P V, relative to the row's
-final max (so the bf16 forwards are two-pass), and D and dS before their
-products; the bf16 plain versions make the same roundings.
+bf16 at hd 16 and 32) on the FMA units: f32 at hd 256 and 512 in the
+register-blocked `csrc/fused_attention_wide.cu` and
+`csrc/fused_attention_bwd_wide.cu` (`_wide_f32`), the rest on the square
+tiles of `csrc/fused_attention.cu` and `csrc/fused_attention_bwd.cu`. In
+bf16 both families round where the TPU kernel rounds: the probabilities to
+bf16 before P V, relative to the row's final max (so the bf16 forwards are
+two-pass), and D and dS before their products; the bf16 plain versions make
+the same roundings.
 `fused_causal_attention` is the `torch.autograd.Function` over the two: the
 forward also returns each row's log-sum-exp of the scaled scores, the
 Function saves q, k, v, y and it, and the backward rebuilds the
@@ -47,7 +49,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FORWARD_HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 _BACKWARD_HEAD_DIMS = _FORWARD_HEAD_DIMS
 _TC_HEAD_DIMS = (64, 128, 256, 512)  # bf16 head dims of the tensor-core family
-_WIDE_F32_HEAD_DIMS = (256, 512)  # f32 head dims of the register-blocked backward
+_WIDE_F32_HEAD_DIMS = (256, 512)  # f32 head dims of the register-blocked kernels
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -247,25 +249,36 @@ def _tensor_cores(tensors, n_head) -> bool:
     return True
 
 
-def _wide_f32(tensors, n_head) -> bool:
-    """Whether a backward runs the register-blocked f32 kernel
-    (`csrc/fused_attention_bwd_wide.cu`): f32 at hd 256 or 512. It copies its
-    rows 16 bytes at a time, so it raises on a tensor that does not start on
-    a 16-byte boundary."""
+def _wide_f32(tensors, n_head, name="fused attention") -> bool:
+    """Whether a call runs the register-blocked f32 kernels
+    (`csrc/fused_attention_wide.cu`, `csrc/fused_attention_bwd_wide.cu`): f32
+    at hd 256 or 512. They copy their rows 16 bytes at a time, so this raises
+    on a tensor that does not start on a 16-byte boundary instead of sending
+    it to the square tiles."""
     q = tensors[0]
     hd = q.shape[2] // n_head
     if q.dtype != torch.float32 or hd not in _WIDE_F32_HEAD_DIMS:
         return False
     if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError(f"fused_attention_backward: f32 tensors at hd {hd} must start on a "
-                         "16-byte boundary")
+        raise ValueError(f"{name}: f32 tensors at hd {hd} must start on a 16-byte boundary")
     return True
 
 
-def _count(wrapper, tc, rate):
+def _route(tensors, n_head, name) -> str:
+    """The kernel a call runs: "tensor cores" (bf16 at hd 64 / 128 / 256 /
+    512), "wide f32" (f32 at hd 256 / 512, register-blocked) or "square tiles"
+    (the rest of the FMA family); raises where the first two take the dtype
+    and head dim but not the tensors' alignment."""
+    if _tensor_cores(tensors, n_head):
+        return "tensor cores"
+    return "wide f32" if _wide_f32(tensors, n_head, name) else "square tiles"
+
+
+def _count(wrapper, route, rate):
     wrapper.launches += 1
-    wrapper.tc_launches += tc
-    wrapper.fma_launches += not tc
+    wrapper.tc_launches += route == "tensor cores"
+    wrapper.fma_launches += route != "tensor cores"
+    wrapper.wide_f32_launches += route == "wide f32"
     wrapper.dropout_launches += rate > 0.0
 
 
@@ -285,8 +298,10 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
     256, 512}; f32 or bf16. Returns (B, T, D) in q's dtype, and with
     `return_lse` also the rows' log-sum-exp (B, H, T) f32.
     `fused_attention_forward.launches` counts kernel launches,
-    `.tc_launches` / `.fma_launches` those of each family and
-    `.dropout_launches` those at `rate > 0`."""
+    `.tc_launches` / `.fma_launches` those of each family,
+    `.wide_f32_launches` those of the FMA family's that ran the
+    register-blocked f32 kernel (hd 256 / 512) and `.dropout_launches` those
+    at `rate > 0`."""
     rate, seed = _dropout_args(rate, seed)
     tensors = (q, k, v)
     if all(x.device.type == "cpu" for x in tensors):
@@ -301,9 +316,13 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
            if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lse_ptr = lse.data_ptr() if return_lse else None
-    tc = _tensor_cores(tensors + (out,), n_head)
-    if tc:
+    route = _route(tensors + (out,), n_head, "fused_attention_forward")
+    if route == "tensor cores":
         err = cuda_lib.lib().dqvq_fused_attention_forward_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
+            float(scale), int(bool(causal)), rate, seed, stream)
+    elif route == "wide f32":
+        err = cuda_lib.lib().dqvq_fused_attention_forward_wide_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
             float(scale), int(bool(causal)), rate, seed, stream)
     else:
@@ -311,13 +330,14 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
             float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate, seed, stream)
     cuda_lib.check(err, "fused_attention_forward")
-    _count(fused_attention_forward, tc, rate)
+    _count(fused_attention_forward, route, rate)
     return (out, lse) if return_lse else out
 
 
 fused_attention_forward.launches = 0
 fused_attention_forward.tc_launches = 0  # those of `launches` on the tensor-core family
 fused_attention_forward.fma_launches = 0  # those on the FMA family
+fused_attention_forward.wide_f32_launches = 0  # those of the FMA family's on the wide f32 kernel
 fused_attention_forward.dropout_launches = 0  # those of `launches` that drew a mask
 
 
@@ -346,11 +366,11 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    tc = _tensor_cores(tensors + (dq, dk, dv), n_head)
-    if tc:
+    route = _route(tensors + (dq, dk, dv), n_head, "fused_attention_backward")
+    if route == "tensor cores":
         err = cuda_lib.lib().dqvq_fused_attention_backward_tc(
             *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
-    elif _wide_f32(tensors + (dq, dk, dv), n_head):
+    elif route == "wide f32":
         err = cuda_lib.lib().dqvq_fused_attention_backward_wide_f32(
             *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
     else:
@@ -358,13 +378,14 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
             *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate,
             seed, stream)
     cuda_lib.check(err, "fused_attention_backward")
-    _count(fused_attention_backward, tc, rate)
+    _count(fused_attention_backward, route, rate)
     return dq, dk, dv
 
 
 fused_attention_backward.launches = 0
 fused_attention_backward.tc_launches = 0
 fused_attention_backward.fma_launches = 0
+fused_attention_backward.wide_f32_launches = 0
 fused_attention_backward.dropout_launches = 0
 
 

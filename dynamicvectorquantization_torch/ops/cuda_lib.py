@@ -46,6 +46,7 @@ SIGNATURES = {
     "dqvq_fused_attention_backward": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
     "dqvq_fused_attention_backward_wide_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_fused_attention_forward_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _D, _U, _P),
+    "dqvq_fused_attention_forward_wide_f32": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_fused_attention_backward_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_layernorm_forward": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
@@ -56,6 +57,8 @@ SIGNATURES = {
     "dqvq_strided_conv_down": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "dqvq_strided_conv_down_tc_pack": (_P, _P, _P, _I, _I, _P),
     "dqvq_strided_conv_down_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "dqvq_strided_conv_down_f32_pack": (_P, _P, _I, _I, _I, _P),
+    "dqvq_strided_conv_down_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

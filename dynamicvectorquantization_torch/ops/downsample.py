@@ -4,14 +4,18 @@ downsample_pallas.py` `strided_conv3x3_down`).
 
 `strided_conv3x3_down` launches a CUDA kernel for CUDA tensors and runs
 `strided_conv3x3_down_plain` for CPU tensors. x, weight and bias are all f32
-or all bf16; a CUDA tensor of another dtype raises. Two kernels, chosen by
-dtype and channel count (`uses_tensor_cores`):
+or all bf16; a CUDA tensor of another dtype raises. Three kernels, chosen by
+dtype and channel count (`uses_tensor_cores`, `uses_blocked_f32`):
   * bf16 with C a multiple of 8 (every Downsample of the shipped configs):
     `csrc/strided_conv_down_tc.cu`, an implicit GEMM on the tensor cores that
     reads the weights packed by `pack_weight` (to [tap][K][C], with each
     output channel's sum of squares), and sums the outputs whose terms cancel
     (`CANCELLATION`) again in the FMA kernel's order, the plain version's;
-  * f32 (the f32 encoder: FMA units, no TF32), and bf16 with another C:
+  * f32 with C a multiple of 4 (every f32 Downsample of the shipped configs:
+    the f32 encoder, FMA units, no TF32): `csrc/strided_conv_down_f32.cu`, a
+    blocked implicit GEMM that reads the weights packed by `pack_weight_f32`
+    (to [tap][C][K]) and sums each output in the FMA kernel's order;
+  * f32 with another C, and bf16 with C not a multiple of 8:
     `csrc/strided_conv_down.cu`.
 In bf16 both compute what the TPU kernel computes: the products of the bf16
 inputs summed in f32, the bf16 bias added to that sum, one rounding to bf16
@@ -57,6 +61,50 @@ def uses_tensor_cores(x) -> bool:
     """Whether `strided_conv3x3_down` sends x to the tensor-core kernel: bf16
     with C a multiple of 8 (its weight rows are copied 16 bytes at a time)."""
     return x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
+
+
+def uses_blocked_f32(x, weight) -> bool:
+    """Whether `strided_conv3x3_down` sends x to the blocked f32 kernel: f32
+    with C a multiple of 4. Its pack reads each output channel's 9 C weights
+    16 bytes at a time, so this raises on a weight tensor that does not start
+    on a 16-byte boundary instead of sending it to the FMA kernel."""
+    if x.dtype != torch.float32 or x.shape[1] % 4:
+        return False
+    if weight.data_ptr() % 16:
+        raise ValueError("strided_conv3x3_down: f32 weights with C % 4 == 0 must start on a "
+                         "16-byte boundary")
+    return True
+
+
+def pack_weight_f32_plain(weight):
+    """Plain version of the blocked f32 kernel's weight pack: (K, C, 3, 3) ->
+    (9, C, KP), tap 3 u + v major, the output channel innermost, KP = K
+    rounded up to a multiple of 4 with zeros past K."""
+    k, c = weight.shape[:2]
+    packed = weight.new_zeros((9, c, -(-k // 4) * 4))
+    packed[:, :, :k] = weight.permute(2, 3, 1, 0).reshape(9, c, k)
+    return packed
+
+
+def pack_weight_f32(weight):
+    """`pack_weight_f32_plain` for CPU tensors; on the card the pack kernel of
+    `csrc/strided_conv_down_f32.cu` (f32 weights, C a multiple of 4, on a
+    16-byte boundary)."""
+    if weight.device.type == "cpu":
+        return pack_weight_f32_plain(weight)
+    if (weight.dtype != torch.float32 or weight.dim() != 4 or not weight.is_contiguous()
+            or weight.shape[1] % 4 or weight.data_ptr() % 16):
+        raise ValueError(f"pack_weight_f32: contiguous f32 (K, C, 3, 3) weights with C % 4 == 0 "
+                         f"on a 16-byte boundary expected, got {weight.dtype} "
+                         f"{tuple(weight.shape)}")
+    k, c = weight.shape[:2]
+    kp = -(-k // 4) * 4
+    packed = torch.empty((9, c, kp), dtype=weight.dtype, device=weight.device)
+    err = cuda_lib.lib().dqvq_strided_conv_down_f32_pack(
+        weight.data_ptr(), packed.data_ptr(), c, k, kp,
+        torch.cuda.current_stream(weight.device).cuda_stream)
+    cuda_lib.check(err, "pack_weight_f32")
+    return packed
 
 
 def pack_weight_plain(weight):
@@ -113,7 +161,8 @@ def strided_conv3x3_down(x, weight, bias):
     """(B, C, H, W) -> (B, K, (H - 2) // 2 + 1, (W - 2) // 2 + 1),
     differentiable. `strided_conv3x3_down.launches` counts kernel launches,
     `.bf16_launches` those of them in bf16, `.tc_launches` those on the
-    tensor cores."""
+    tensor cores, `.f32_blocked_launches` those on the blocked f32 kernel
+    (each with its weight pack)."""
     if all(t.device.type == "cpu" for t in (x, weight, bias)):
         return strided_conv3x3_down_plain(x, weight, bias)
     return _StridedConvDown.apply(x, weight, bias)
@@ -139,11 +188,17 @@ def _launch(x, weight, bias):
     out = torch.empty((b, k, (h - 2) // 2 + 1, (w - 2) // 2 + 1), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     tc = uses_tensor_cores(x)
+    blocked = uses_blocked_f32(x, weight)
     if tc:
         packed, sq = pack_weight(weight)
         err = cuda_lib.lib().dqvq_strided_conv_down_tc(
             x.data_ptr(), packed.data_ptr(), sq.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c,
             h, w, k, CANCELLATION, stream)
+    elif blocked:
+        packed = pack_weight_f32(weight)
+        err = cuda_lib.lib().dqvq_strided_conv_down_f32(
+            x.data_ptr(), packed.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w, k,
+            packed.shape[2], stream)
     else:
         err = cuda_lib.lib().dqvq_strided_conv_down(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w, k,
@@ -152,9 +207,11 @@ def _launch(x, weight, bias):
     strided_conv3x3_down.launches += 1
     strided_conv3x3_down.bf16_launches += x.dtype == torch.bfloat16
     strided_conv3x3_down.tc_launches += tc
+    strided_conv3x3_down.f32_blocked_launches += blocked
     return out
 
 
 strided_conv3x3_down.launches = 0
 strided_conv3x3_down.bf16_launches = 0  # those of `launches` in bf16
 strided_conv3x3_down.tc_launches = 0  # those of `launches` on the tensor cores
+strided_conv3x3_down.f32_blocked_launches = 0  # those on the blocked f32 kernel

@@ -692,3 +692,106 @@ def test_cuda_f32_wide_backward_masks_equal_dropout_keep_mask(cuda_device, hd, t
         got = dv.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
         assert torch.equal(got, mask[..., c0:c0 + n, :].transpose(-1, -2))
     assert fused_attention_backward.fma_launches > before
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_by_dtype_and_head_dim(dtype, hd):
+    """Both wrappers pick their kernel by `_route`: bf16 at hd 64 - 512 ->
+    the tensor cores; f32 at hd 256 / 512 -> the register-blocked f32
+    kernels (forward and backward); the rest -> the square tiles."""
+    from dynamicvectorquantization_torch.ops.attention import _route
+
+    x = torch.zeros((2, 8, 2 * hd), dtype=dtype)
+    if dtype == torch.bfloat16 and hd >= 64:
+        want = "tensor cores"
+    elif dtype == torch.float32 and hd >= 256:
+        want = "wide f32"
+    else:
+        want = "square tiles"
+    assert _route((x, x, x, x), 2, "fused_attention_forward") == want
+
+
+@pytest.mark.parametrize("hd", [256, 512])
+def test_misaligned_f32_forward_output_raises_instead_of_taking_the_square_tiles(hd):
+    """No fallback: the forward's f32 output (or any input) at hd 256 / 512 off
+    a 16-byte boundary is refused, naming the forward."""
+    from dynamicvectorquantization_torch.ops.attention import _route
+
+    aligned = torch.zeros((1, 8, hd))
+    misaligned = torch.zeros(1 + 8 * hd)[1:].view(1, 8, hd)
+    assert misaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match=f"fused_attention_forward: f32 tensors at hd {hd} "
+                                         "must start on a 16-byte boundary"):
+        _route((aligned, aligned, aligned, misaligned), 1, "fused_attention_forward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t", [64, 100, 300, 1024])
+@pytest.mark.parametrize("hd", [256, 512])
+def test_cuda_f32_wide_forward_matches_plain(cuda_device, hd, t, causal, rate):
+    """f32 at hd 256 / 512 runs the register-blocked forward
+    (`wide_f32_launches`, counted in the FMA family): output and lse within
+    the f32 forward tolerance of the plain version (f32 sums in another
+    order), and bit-reproducible (no atomics)."""
+    b, n_head, seed = 2, 2 if hd == 256 else 1, 13579
+    shape = (b, t, n_head * hd)
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(62, *shape))
+    before = (fused_attention_forward.wide_f32_launches, fused_attention_forward.fma_launches,
+              fused_attention_forward.tc_launches)
+    y, lse = fused_attention_forward(q, k, v, n_head, None, causal, rate, True, seed)
+    y2, lse2 = fused_attention_forward(q, k, v, n_head, None, causal, rate, True, seed)
+    torch.cuda.synchronize()
+    assert (fused_attention_forward.wide_f32_launches, fused_attention_forward.fma_launches,
+            fused_attention_forward.tc_launches) == (before[0] + 2, before[1] + 2, before[2])
+    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, None, causal, True, rate, seed)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=0)
+    assert torch.equal(y, y2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,t", [(256, 300), (512, 300), (512, 64)])
+def test_cuda_f32_wide_forward_masks_equal_dropout_keep_mask(cuda_device, hd, t):
+    """Uniform probabilities and unit-vector V rows: output column c of row r
+    of the register-blocked forward is nonzero iff probability (r, c) was
+    kept."""
+    b, n_head, rate, seed = 2, 2, 0.3, 81
+    q = torch.zeros((b, t, n_head * hd), device=cuda_device)
+    mask = dropout_keep_mask(seed, b, n_head, t, rate, cuda_device)
+    before = fused_attention_forward.wide_f32_launches
+    for c0 in range(0, t, hd):
+        n = min(hd, t - c0)
+        v = torch.zeros((b, t, n_head, hd), device=cuda_device)
+        v[:, c0 + torch.arange(n), :, torch.arange(n)] = 1.0
+        y = fused_attention_forward(q, q, v.reshape(b, t, -1).contiguous(), n_head, None, False,
+                                    rate, seed=seed)
+        got = y.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+        assert torch.equal(got, mask[..., c0:c0 + n])
+    assert fused_attention_forward.wide_f32_launches == before + -(-t // hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,t,rate", [(256, 1024, 0.0), (512, 256, 0.1)])
+def test_cuda_autograd_through_the_wide_f32_forward_and_backward(cuda_device, hd, t, rate):
+    """`fused_causal_attention` on f32 at hd 256 / 512: one launch of each
+    register-blocked kernel, and its gradients within the f32 backward
+    tolerance of autograd through the plain forward."""
+    b, seed = 2, 97531
+    arrays = _qkv(63, b, t, hd)
+    leaves = [torch.from_numpy(a).to(cuda_device).requires_grad_() for a in arrays]
+    ref_leaves = [torch.from_numpy(a).to(cuda_device).requires_grad_() for a in arrays]
+    dy = torch.from_numpy(_qkv(64, b, t, hd)[0]).to(cuda_device)
+    before = (fused_attention_forward.wide_f32_launches, fused_attention_backward.wide_f32_launches)
+    y = fused_causal_attention(*leaves, 1, None, False, rate, seed)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (fused_attention_forward.wide_f32_launches,
+            fused_attention_backward.wide_f32_launches) == (before[0] + 1, before[1] + 1)
+    y_ref = fused_attention_forward_plain(*ref_leaves, 1, None, False, False, rate, seed)
+    ref = torch.autograd.grad(y_ref, ref_leaves, dy)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    for a, r in zip(grads, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0)

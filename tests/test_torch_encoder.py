@@ -383,3 +383,133 @@ def test_cuda_downsample_rejects_what_the_kernel_cannot_take(cuda_device):
         strided_conv3x3_down(x16, w, b)
     with pytest.raises(ValueError):
         strided_conv3x3_down(x.to(memory_format=torch.channels_last), w, b)
+
+
+# ------------------------------------------------- the blocked f32 Downsample
+@pytest.mark.parametrize("dtype,c,blocked", [(torch.float32, 128, True), (torch.float32, 256, True),
+                                             (torch.float32, 4, True), (torch.float32, 12, True),
+                                             (torch.float32, 6, False), (torch.float32, 3, False),
+                                             (torch.bfloat16, 128, False)])
+def test_downsample_f32_route_by_dtype_and_channels(dtype, c, blocked):
+    """f32 with C a multiple of 4 -> the blocked f32 kernel; f32 with another
+    C -> the FMA kernel; bf16 never. Decided before any launch, so CPU
+    tensors show it."""
+    from dynamicvectorquantization_torch.ops.downsample import uses_blocked_f32
+
+    x = torch.zeros((1, c, 4, 4), dtype=dtype)
+    w = torch.zeros((8, c, 3, 3), dtype=dtype)
+    assert uses_blocked_f32(x, w) == blocked
+
+
+def test_misaligned_f32_weights_raise_instead_of_taking_the_fma_kernel():
+    """No fallback: f32 weights with C % 4 == 0 off a 16-byte boundary are
+    refused, not sent to the FMA kernel."""
+    from dynamicvectorquantization_torch.ops.downsample import uses_blocked_f32
+
+    k, c = 8, 12
+    misaligned = torch.zeros(1 + k * c * 9)[1:].view(k, c, 3, 3)
+    assert misaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match="must start on a 16-byte boundary"):
+        uses_blocked_f32(torch.zeros((1, c, 4, 4)), misaligned)
+
+
+@pytest.mark.parametrize("k,c", [(5, 4), (24, 12), (128, 128)])
+def test_f32_weight_pack_plain_is_a_reindexing(k, c):
+    """`pack_weight_f32_plain`: packed[3 u + v, c, k] = w[k, c, u, v], zeros
+    past K up to the next multiple of 4."""
+    from dynamicvectorquantization_torch.ops.downsample import pack_weight_f32_plain
+
+    w = torch.from_numpy(np.random.default_rng(k).normal(size=(k, c, 3, 3)).astype(np.float32))
+    packed = pack_weight_f32_plain(w)
+    kp = -(-k // 4) * 4
+    assert packed.shape == (9, c, kp) and packed.dtype == torch.float32
+    for u in range(3):
+        for v in range(3):
+            for ci in range(c):
+                assert torch.equal(packed[3 * u + v, ci, :k], w[:, ci, u, v])
+    assert not bool(packed[:, :, k:].any())
+
+
+@pytest.mark.parametrize("shape,k", [((2, 8, 17, 33), 5), ((1, 12, 20, 36), 24)])
+def test_deinterleaved_taps_with_the_packed_weights_give_the_plain_version(shape, k):
+    """The blocked f32 kernel's operands: the padded input split by column
+    parity (output pixel j reads even column j, odd column j and even column
+    j + 1) and the packed weights, summed over channels and taps, give the
+    plain version (f32 sums in another order)."""
+    from dynamicvectorquantization_torch.ops.downsample import pack_weight_f32_plain
+
+    (x, w, b), _ = _downsample_case(shape, k)
+    x, w, b = x.detach(), w.detach(), b.detach()
+    ho, wo = (shape[2] - 2) // 2 + 1, (shape[3] - 2) // 2 + 1
+    padded = torch.nn.functional.pad(x, (0, 1, 0, 1))
+    even, odd = padded[..., 0::2], padded[..., 1::2]
+    packed = pack_weight_f32_plain(w)[:, :, :k]
+    out = b[None, :, None, None].expand(shape[0], k, ho, wo).clone()
+    for u in range(3):
+        rows = slice(u, u + 2 * ho - 1, 2)
+        for v, cols in ((0, even[..., rows, :wo]), (1, odd[..., rows, :wo]),
+                        (2, even[..., rows, 1:wo + 1])):
+            out += torch.einsum("bchw,ck->bkhw", cols, packed[3 * u + v])
+    torch.testing.assert_close(out, strided_conv3x3_down_plain(x, w, b), atol=1e-5, rtol=0)
+
+
+def _fma_kernel(x, w, b):
+    """The FMA kernel's entry (`csrc/strided_conv_down.cu`) called directly:
+    the blocked kernel sums in its order."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+
+    n, c, h, w_ = x.shape
+    k = w.shape[0]
+    out = torch.empty((n, k, (h - 2) // 2 + 1, (w_ - 2) // 2 + 1), device=x.device)
+    err = cuda_lib.lib().dqvq_strided_conv_down(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), n, c, h, w_, k, 0,
+        torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "fma kernel")
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((8, 128, 256, 256), 128), ((8, 128, 128, 128), 128),
+                                     ((8, 256, 64, 64), 256), ((8, 256, 32, 32), 256),
+                                     ((2, 12, 33, 20), 5), ((1, 4, 9, 8), 24),
+                                     ((2, 20, 18, 40), 130), ((3, 16, 34, 2), 64)])
+def test_cuda_f32_blocked_downsample_matches_plain(cuda_device, shape, k):
+    """f32 with C % 4 == 0 runs the blocked kernel (`f32_blocked_launches`):
+    within 1e-4 of the plain version (cuDNN's f32 convolution, TF32 off) at
+    the encoder's four levels and at ragged H, W and K, equal to the FMA
+    kernel bit for bit (the same summation order), and the same twice."""
+    (x, w, b), _ = _downsample_case(shape, k, cuda_device)
+    x, w, b = x.detach(), w.detach(), b.detach()
+    before = (strided_conv3x3_down.launches, strided_conv3x3_down.f32_blocked_launches)
+    out = strided_conv3x3_down(x, w, b)
+    again = strided_conv3x3_down(x, w, b)
+    torch.cuda.synchronize()
+    assert (strided_conv3x3_down.launches, strided_conv3x3_down.f32_blocked_launches) == (
+        before[0] + 2, before[1] + 2)
+    torch.testing.assert_close(out, strided_conv3x3_down_plain(x, w, b), atol=1e-4, rtol=0)
+    assert torch.equal(out, _fma_kernel(x, w, b)) and torch.equal(out, again)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_pack_and_routes(cuda_device):
+    """The pack kernel equals its plain version; f32 with C % 4 != 0 stays on
+    the FMA kernel; misaligned f32 weights raise."""
+    from dynamicvectorquantization_torch.ops.downsample import (
+        pack_weight_f32,
+        pack_weight_f32_plain,
+    )
+
+    for k, c in ((5, 4), (130, 20), (256, 256)):
+        w = torch.randn((k, c, 3, 3), device=cuda_device)
+        assert torch.equal(pack_weight_f32(w), pack_weight_f32_plain(w))
+    (x, w, b), _ = _downsample_case((2, 6, 17, 20), 8, cuda_device)
+    before = (strided_conv3x3_down.launches, strided_conv3x3_down.f32_blocked_launches)
+    out = strided_conv3x3_down(x.detach(), w.detach(), b.detach())
+    torch.cuda.synchronize()
+    assert (strided_conv3x3_down.launches, strided_conv3x3_down.f32_blocked_launches) == (
+        before[0] + 1, before[1])
+    torch.testing.assert_close(out, strided_conv3x3_down_plain(x, w, b), atol=1e-4, rtol=0)
+    w = torch.zeros(1 + 8 * 8 * 9, device=cuda_device)[1:].view(8, 8, 3, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        strided_conv3x3_down(torch.zeros((1, 8, 8, 8), device=cuda_device), w,
+                             torch.zeros(8, device=cuda_device))
