@@ -7,6 +7,8 @@ builds the kernels from `dynamicvectorquantization_torch/csrc/` at first use.
 
 Phases, each printed as one JSON line (any failure exits non-zero):
   1. card      name and power limit (nvidia-smi), TF32 off for f32 phases;
+               device busy time in every phase is the union of the profiler
+               trace's intervals, the idle share that of the traced window
      build     the kernels, with ptxas's registers and spills for each
   2. kernels   each CUDA kernel against its plain-PyTorch version at the
                shapes of the encode, serving and training paths: error vs the stated
@@ -24,9 +26,14 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                attention family in bf16 (hd 128 causal,
                hd 256 / 512) held to the plain version's roundings (the share of
                differing outputs, beside that of the unrounded math), with the
-               FMA family's bf16 time beside it, and the f32 forward and backward
+               FMA family's bf16 time beside it, the f32 forward and backward
                at hd 256 / 512 (register-blocked) with the square-tile kernels'
-               times beside them
+               times beside them, and both nearest-code searches (3xTF32 on the
+               tensor cores) with codes equal to the FMA search's bit for bit,
+               the rows they rescored, the fast scores' distance from their
+               bound, the FMA search's time beside them, and adversarial sets
+               (duplicate codes, codes one ulp apart, rows midway between two
+               codes, the 1/K init codebook, one code owning every row)
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
                through the kernels and through the plain versions (streams,
@@ -97,7 +104,8 @@ import time
 P6C18 = "configs/stage2/uncond_imagenet_p6c18.yml"
 STAGE1 = "configs/stage1/dqvae-entropy-dual-r05_imagenet.yml"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores; bf16 dense
+# f32 without tensor cores; bf16 and TF32 dense on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 L2_BYTES = 50 * 2 ** 20
 # the training campaign's stream caps at fine ratio 0.5 (160 coarse + 644 fine
 # tokens and the two SOS prefixes, less the shifted-off last token)
@@ -525,6 +533,110 @@ def near_tie_bound(x_norm, c_norm_a, c_norm_b, d):
     return 2 * d * u * (2 * x_norm * (c_norm_a + c_norm_b) + c_norm_a ** 2 + c_norm_b ** 2)
 
 
+def fma_nearest(torch, x, cb, scores=False):
+    """The FMA search's entry (`csrc/vq_nearest.cu`), the exact order the
+    tensor-core search rescores in, called directly: its codes (int32) and,
+    with `scores`, every (row, code) score. Launches are not counted."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+
+    n, d = x.shape
+    k = cb.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    out = torch.empty((n, k), device=x.device) if scores else None
+    err = cuda_lib.lib().dqvq_vq_nearest_fma(
+        x.data_ptr(), cb.data_ptr(), (cb * cb).sum(1).data_ptr(), idx.data_ptr(),
+        out.data_ptr() if scores else None, n, k, d, torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "fma_nearest")
+    return idx, out
+
+
+def margin_use(torch, x, cb):
+    """The largest |fast - FMA-order| score over every (row, code) pair,
+    divided by the row's error bound e_r, from the search kernel's test entry
+    (`dqvq_vq_nearest_tc_scores`): <= 1 where the bound holds."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+
+    n, d = x.shape
+    k = cb.shape[0]
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    fast = torch.empty((n, k), device=x.device)
+    margin = torch.empty(n, device=x.device)
+    ws = torch.empty(cuda_lib.lib().dqvq_vq_workspace_bytes(n, k, d, 0), dtype=torch.uint8,
+                     device=x.device)
+    err = cuda_lib.lib().dqvq_vq_nearest_tc_scores(
+        x.data_ptr(), cb.data_ptr(), (cb * cb).sum(1).data_ptr(), idx.data_ptr(),
+        fast.data_ptr(), margin.data_ptr(), ws.data_ptr(), n, k, d,
+        torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "margin_use")
+    exact = fma_nearest(torch, x, cb, scores=True)[1]
+    return float(((fast - exact).abs() / margin[:, None]).max())
+
+
+def vq_bound(n, k, d, extra_adds=0):
+    """The least time for the search: the smaller of the products at the f32
+    FMA rate and as three TF32 products at the dense TF32 rate (the larger of
+    that and the bytes), with `extra_adds` f32 adds on top."""
+    n_bytes = 4 * (n * d + k * d + k + n)
+    ops_ms = min(2 * n * k * d / PEAK_FLOPS["float32"], 3 * 2 * n * k * d / PEAK_FLOPS["tf32"])
+    ops_ms = (ops_ms + extra_adds / PEAK_FLOPS["float32"]) * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations, 3xTF32")
+
+
+def vq_sets(torch, dev, n, k, d, g):
+    """The adversarial sets of the nearest-code checks: {name: (x, codebook)}."""
+    cb = torch.randn((k, d), generator=g, device=dev)
+    x = torch.randn((n, d), generator=g, device=dev)
+    dup = cb.clone()
+    dup[1::2] = dup[0::2][: k // 2]  # every odd code repeats the even one before it
+    ulp = cb.clone()  # every odd code one f32 ulp above the even one in every element
+    ulp[1::2] = torch.nextafter(ulp[0::2][: k // 2], torch.full_like(ulp[0::2][: k // 2], 1e30))
+    pair = torch.randint(0, k // 2, (n,), generator=g, device=dev) * 2
+    mid = 0.5 * (cb[pair] + cb[pair + 1])  # each row midway between two codes
+    init = (torch.rand((k, d), generator=g, device=dev) * 2 - 1) / k  # the shipped init
+    owner = cb[3:4] + 0.01 * torch.randn((n, d), generator=g, device=dev)
+    return {"duplicate_codes": (x, dup), "codes_one_ulp_apart": (x, ulp),
+            "rows_equidistant_from_two_codes": (mid, cb),
+            "init_codebook_uniform_1_over_k": (x, init), "one_code_owns_every_row": (owner, cb)}
+
+
+def check_vq_adversarial(torch, dev, sum_tol):
+    """Both searches on the adversarial sets at the encoder's shape and at a
+    small one: codes equal to the FMA search's bit for bit, the fast scores
+    within their bound, the statistics exact (counts) or within `sum_tol` of
+    the largest sum, every output bit-reproducible."""
+    from dynamicvectorquantization_torch.ops.vq import nearest_codes, nearest_codes_with_stats
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    cases = []
+    for n, k, d in ((8 * 32 * 32, 1024, 256), (300, 100, 36)):
+        for name, (x, cb) in vq_sets(torch, dev, n, k, d, g).items():
+            ref = fma_nearest(torch, x, cb)[0].long()
+            idx, xq = nearest_codes(x, cb)
+            rescored = int(nearest_codes.last_rescored)
+            idx2, xq2, esum, csize = nearest_codes_with_stats(x, cb)
+            again = nearest_codes_with_stats(x, cb)
+            ref_sum = torch.zeros_like(cb).index_add_(0, ref, x)
+            case = dict(set=name, shape=[n, k, d], rescored_rows=rescored,
+                        equal_to_fma_kernel=bool(torch.equal(idx, ref) and torch.equal(idx2, ref)),
+                        xq_is_codebook_row=bool(torch.equal(xq, cb[idx])
+                                                and torch.equal(xq2, cb[idx2])),
+                        cluster_size_exact=bool(torch.equal(
+                            csize, torch.bincount(ref, minlength=k).float())),
+                        embed_sum_rel_err=float((esum - ref_sum).abs().max()
+                                                / ref_sum.abs().max()),
+                        bit_reproducible=bool(torch.equal(idx, nearest_codes(x, cb)[0])) and all(
+                            torch.equal(a_, b_) for a_, b_ in zip((idx2, xq2, esum, csize), again)),
+                        margin_use=margin_use(torch, x, cb))
+            cases.append(case)
+            require(case["equal_to_fma_kernel"] and case["xq_is_codebook_row"]
+                    and case["cluster_size_exact"] and case["embed_sum_rel_err"] <= sum_tol
+                    and case["bit_reproducible"] and case["margin_use"] <= 1.0,
+                    f"nearest-code search on an adversarial set: {case}")
+    emit(dict(phase="kernels", kernel="vq_nearest (adversarial sets)", cases=cases))
+    return cases
+
+
 def check_vq_nearest(torch, dev):
     from dynamicvectorquantization_torch.ops.vq import nearest_codes, nearest_codes_plain
 
@@ -536,7 +648,9 @@ def check_vq_nearest(torch, dev):
              torch.randn((k, d), generator=g, device=dev)) for _ in range(n_sets(set_bytes))]
     x, cb = sets[0]
     idx, xq = nearest_codes(x, cb)
+    rescored = int(nearest_codes.last_rescored)
     ref, _ = nearest_codes_plain(x, cb)
+    fma = fma_nearest(torch, x, cb)[0].long()
     torch.cuda.synchronize()
     scores = (cb * cb).sum(1)[None] - 2.0 * (x @ cb.t())
     rows = torch.arange(n, device=dev)
@@ -549,20 +663,27 @@ def check_vq_nearest(torch, dev):
                 mismatched_rows=near_ties, mismatches_within_near_tie_bound=bool(
                     (gap[differ] <= tol[differ]).all()),
                 max_abs_err=float(gap[differ].max()) if near_ties else 0.0,
-                tol="score gap <= 2 D 2^-24 (2|x|(|ca|+|cb|) + |ca|^2 + |cb|^2) per row",
-                xq_is_codebook_row=bool(torch.equal(xq, cb[idx])))
-    bms, by = bound(4 * (n * d + k * d + k + n), 2 * n * k * d, "float32")
-    case.update(bound_ms=bms, bound_by=by)
+                tol="score gap <= 2 D 2^-24 (2|x|(|ca|+|cb|) + |ca|^2 + |cb|^2) per row; "
+                    "codes equal to the FMA search's",
+                xq_is_codebook_row=bool(torch.equal(xq, cb[idx])),
+                equal_to_fma_kernel=bool(torch.equal(idx, fma)),
+                rescored_rows={"rows": rescored, "share": rescored / n},
+                margin_use=margin_use(torch, x, cb))
+    case["bound_ms"], case["bound_by"] = vq_bound(n, k, d)
+    case["bound_ms_f32_fma"] = 2 * n * k * d / PEAK_FLOPS["float32"] * 1e3
 
     def lib(x, cb, cb_norm):  # two PyTorch calls: the score product and its argmin
         return torch.addmm(cb_norm, x, cb.t(), alpha=-2).argmin(1)
 
     time_into(case, "kernel", torch, nearest_codes, sets, only="vq_nearest")
+    time_into(case, "fma_kernel", torch, lambda x, cb: fma_nearest(torch, x, cb), sets,
+              only="vq_nearest")
     time_into(case, "plain", torch, nearest_codes_plain, sets)
     time_into(case, "library", torch, lib, [(x, cb, (cb * cb).sum(1)) for x, cb in sets])
     emit(case)
-    require(case["mismatches_within_near_tie_bound"] and case["xq_is_codebook_row"],
-            f"vq_nearest disagrees beyond f32 near-ties: {case}")
+    require(case["mismatches_within_near_tie_bound"] and case["xq_is_codebook_row"]
+            and case["equal_to_fma_kernel"] and case["margin_use"] <= 1.0,
+            f"vq_nearest disagrees beyond f32 near-ties or with the FMA search: {case}")
     return case
 
 
@@ -584,8 +705,10 @@ def check_vq_train(torch, dev):
 
     def compare(x, cb):
         idx, xq, esum, csize = nearest_codes_with_stats(x, cb)
+        rescored = int(nearest_codes_with_stats.last_rescored)
         again = nearest_codes_with_stats(x, cb)
         ref_idx = nearest_codes_with_stats_plain(x, cb)[0]
+        fma = fma_nearest(torch, x, cb)[0].long()
         torch.cuda.synchronize()
         scores = (cb * cb).sum(1)[None] - 2.0 * (x @ cb.t())
         rows = torch.arange(x.shape[0], device=dev)
@@ -599,6 +722,8 @@ def check_vq_train(torch, dev):
         ref_size = torch.bincount(idx, minlength=cb.shape[0]).float()
         return dict(shape=[x.shape[0], cb.shape[0], x.shape[1]], mismatched_rows=int(differ.sum()),
                     mismatches_within_near_tie_bound=within,
+                    equal_to_fma_kernel=bool(torch.equal(idx, fma)),
+                    rescored_rows={"rows": rescored, "share": rescored / x.shape[0]},
                     xq_is_codebook_row=bool(torch.equal(xq, cb[idx])),
                     embed_sum_rel_err=float((esum - ref_sum).abs().max() / ref_sum.abs().max()),
                     cluster_size_exact=bool(torch.equal(csize, ref_size)),
@@ -609,8 +734,8 @@ def check_vq_train(torch, dev):
     n = 8 * 32 * 32  # the encoder's 32x32 latents at batch 8
     sets = [clustered(n) for _ in range(n_sets(4 * (2 * n * d + 2 * k * d)))]
     case = dict(phase="kernels", kernel="vq_nearest_train", dtype="float32", **compare(*sets[0]),
-                tol=f"codes: f32 near-tie bound; xq, cluster_size exact; embed_sum {sum_tol} "
-                    "of the largest sum")
+                tol=f"codes: f32 near-tie bound and equal to the FMA search's; xq, cluster_size "
+                    f"exact; embed_sum {sum_tol} of the largest sum")
     case["max_abs_err"] = case["embed_sum_rel_err"]
     x_small = torch.randn((100, d), generator=g, device=dev)  # fewer rows than codes
     x_odd, cb_odd = (torch.randn((1237, 36), generator=g, device=dev),
@@ -618,23 +743,35 @@ def check_vq_train(torch, dev):
     case["other_shapes"] = [compare(x_small, sets[0][1]), compare(x_odd, cb_odd)]
     # each input read once (x, codebook, |c|^2), each output written once
     # (idx, xq, embed_sum, cluster_size); the search's 2 N K D and the N D adds
-    case["bound_ms"], case["bound_by"] = bound(
-        4 * (2 * n * d + 2 * k * d + 2 * k + n), 2 * n * k * d + n * d, "float32")
+    n_bytes = 4 * (2 * n * d + 2 * k * d + 2 * k + n)
+    ops_ms, _ = vq_bound(n, k, d, extra_adds=n * d)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    case["bound_ms"], case["bound_by"] = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                                          else (ops_ms, "operations, 3xTF32"))
 
-    def lib(x, cb, cb_norm):  # six PyTorch calls: scores, argmin, gather, zeros + index_add_, bincount
+    # PyTorch calls: scores, argmin, gather, zeros + index_add_ for the sums and for the
+    # counts (not bincount, which waits on the host for its length: the trace of the
+    # calls could then not be split per call)
+    def lib(x, cb, cb_norm):
         idx = torch.addmm(cb_norm, x, cb.t(), alpha=-2).argmin(1)
         return (idx, cb.index_select(0, idx), torch.zeros_like(cb).index_add_(0, idx, x),
-                torch.bincount(idx, minlength=cb.shape[0]))
+                torch.zeros(cb.shape[0], dtype=x.dtype, device=x.device).index_add_(
+                    0, idx, torch.ones_like(idx, dtype=x.dtype)))
 
     time_into(case, "kernel", torch, nearest_codes_with_stats, sets, only="vq_")
     time_into(case, "stats_kernel", torch, nearest_codes_with_stats, sets, only="vq_stats")
+    # the FMA search alone (the statistics kernel it ran with is gone)
+    time_into(case, "fma_kernel", torch, lambda x, cb: fma_nearest(torch, x, cb), sets,
+              only="vq_nearest")
     time_into(case, "plain", torch, nearest_codes_with_stats_plain, sets)
     time_into(case, "library", torch, lib, [(x, cb, (cb * cb).sum(1)) for x, cb in sets])
-    emit(case)
+    case["adversarial"] = check_vq_adversarial(torch, dev, sum_tol)
+    emit({key: v for key, v in case.items() if key != "adversarial"})
     for c in (case, *case["other_shapes"]):
         require(c["mismatches_within_near_tie_bound"] and c["xq_is_codebook_row"]
                 and c["cluster_size_exact"] and c["embed_sum_rel_err"] <= sum_tol
-                and c["bit_reproducible"], f"vq_nearest_train disagrees: {c}")
+                and c["bit_reproducible"] and c["equal_to_fma_kernel"],
+                f"vq_nearest_train disagrees: {c}")
     require(case["empty_clusters"] > 0 and case["largest_cluster"] > 10 * n // k,
             "the check's clusters should be uneven, with some empty")
     return case
@@ -1258,7 +1395,10 @@ def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
                kernel_path_s=kernel_s, step_ms=step_ms,
                step_ms_spread=dict(spread(windows), steps_per_window=16),
                device_busy_ms_per_step=busy_ms,
-               device_idle_share=busy_ms and 1.0 - busy_ms / step_ms,
+               device_idle_share=prof["device_idle_share"],
+               device_idle_share_vs_step_ms=busy_ms and 1.0 - busy_ms / step_ms,
+               device_time_summed_ms_per_step=prof["device_time_summed_ms"] / 16,
+               device_window_ms_per_step=prof["device_window_ms"] / 16,
                device_ops_per_step=prof["device_ops"] / 16, top_kernels=prof["top"])
     emit(res)
     require(bool(torch.isfinite(kernel).all()), "non-finite logits on the kernel path")
@@ -1267,11 +1407,20 @@ def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
 
 
 def profile_device_time(torch, fn, n_top=8, groups=None):
-    """Device busy time of one call of `fn` from a torch.profiler trace, and
-    the `n_top` kernels that take most of it (ms summed over the call); with
-    `groups` ({label: part of a kernel name}) also the ms of each group."""
+    """Device busy time of one call of `fn` from a torch.profiler trace: the
+    union of the device's intervals (`device_busy_ms`, overlapping kernels
+    and copies counted once), their plain sum beside it
+    (`device_time_summed_ms`), the traced window from the first interval's
+    start to the last one's end (`device_window_ms`), the share of that
+    window the device was idle (`device_idle_share`: busy and window from the
+    same traced call, since every traced kernel runs a little longer than an
+    untraced one), and the `n_top` kernels that take most of the summed time
+    (ms summed per name over the call); with `groups` ({label: part of a
+    kernel name}) also the summed ms of each group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from dynamicvectorquantization_torch.utils.device_time import busy_union_ms, window_ms
 
     fn()  # warm-up outside the trace
     torch.cuda.synchronize()
@@ -1279,17 +1428,20 @@ def profile_device_time(torch, fn, n_top=8, groups=None):
         fn()
         torch.cuda.synchronize()
     by_name = {}
-    launches = 0
+    intervals = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            launches += 1
+            intervals.append((e.time_range.start / 1e3, e.time_range.end / 1e3))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
-    busy = sum(by_name.values())
+    busy, window = busy_union_ms(intervals), window_ms(intervals)
+    require(busy <= window + 1e-9, f"busy {busy} ms outside the traced window {window} ms")
     grouped = {label: sum(ms for name, ms in by_name.items() if part in name)
                for label, part in (groups or {}).items()}
     return {"device_busy_ms": busy if busy > 0 else None,  # None: the trace held no device time
-            "device_ops": launches, "top": [[name[:80], ms] for name, ms in top],
+            "device_time_summed_ms": sum(by_name.values()), "device_window_ms": window,
+            "device_idle_share": 1.0 - busy / window if busy > 0 else None,
+            "device_ops": len(intervals), "top": [[name[:80], ms] for name, ms in top],
             "groups": grouped}
 
 
@@ -1382,6 +1534,16 @@ def plain_encode_path():
          vq.nearest_codes, vq.nearest_codes_with_stats) = saved
 
 
+def rescored_share(quant):
+    """Rows the last `nearest_codes` call rescored in the FMA order, and
+    their share of its rows (those of `quant`, (B, H, W, D))."""
+    from dynamicvectorquantization_torch.ops.vq import nearest_codes
+
+    rows = quant.numel() // quant.shape[-1]
+    rescored = int(nearest_codes.last_rescored)
+    return {"rows": rescored, "share": rescored / rows}
+
+
 def encode(torch, model, dev, card, batch=8, reps=5):
     """Full-width p6c18 first stage (f32) on a seeded batch: `encode_to_z`
     and `forward` through the kernels and through the plain versions."""
@@ -1397,6 +1559,7 @@ def encode(torch, model, dev, card, batch=8, reps=5):
         quant, streams = model.encode_to_z(x)
         torch.cuda.synchronize()
         launches = read_launches()
+        rescored = rescored_share(quant)
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -1449,9 +1612,12 @@ def encode(torch, model, dev, card, batch=8, reps=5):
                round_trip_max_abs_diff=round_trip, stream_lengths={
                    k: int((v != model.permuter.content_pad_code).sum()) for k, v in streams.items()
                    if k.endswith("content")},
-               launches=launches, encode_s=encode_s, encode_s_spread=spread(times),
-               images_per_s=batch / encode_s,
-               device_busy_ms=busy_ms, device_idle_share=busy_ms and 1.0 - busy_ms / encode_ms,
+               launches=launches, vq_rescored_rows=rescored, encode_s=encode_s,
+               encode_s_spread=spread(times), images_per_s=batch / encode_s,
+               device_busy_ms=busy_ms, device_idle_share=prof["device_idle_share"],
+               device_idle_share_vs_step_ms=busy_ms and 1.0 - busy_ms / encode_ms,
+               device_time_summed_ms=prof["device_time_summed_ms"],
+               device_window_ms=prof["device_window_ms"],
                device_ops=prof["device_ops"], top_kernels=prof["top"], card=card)
     emit(res)
     hw = model.permuter.fine_hw
@@ -1490,6 +1656,7 @@ def encode_bf16(torch, model, dev, card, x, grain32, code32, reps=5):
         quant, streams = model.encode_to_z(x, fs16)
         torch.cuda.synchronize()
         launches = read_launches()
+        rescored = rescored_share(quant)
         times = []
         for _ in range(reps):
             t0 = time.perf_counter()
@@ -1509,10 +1676,13 @@ def encode_bf16(torch, model, dev, card, x, grain32, code32, reps=5):
                "trainer casts it)", batch=batch, fine_share=grain.float().mean().item(),
                grain_cells_equal_f32=same_grain.float().mean().item(),
                codes_equal_f32_in_equal_grain_cells=(info[2] == code32)[cells].float().mean()
-               .item(), quant_dtype=str(quant.dtype),
-               launches=launches, encode_s=encode_s, encode_s_spread=spread(times),
+               .item(), quant_dtype=str(quant.dtype), launches=launches,
+               vq_rescored_rows=rescored, encode_s=encode_s, encode_s_spread=spread(times),
                images_per_s=batch / encode_s, device_busy_ms=busy_ms,
-               device_idle_share=busy_ms and 1.0 - busy_ms / (encode_s * 1e3),
+               device_idle_share=prof["device_idle_share"],
+               device_idle_share_vs_step_ms=busy_ms and 1.0 - busy_ms / (encode_s * 1e3),
+               device_time_summed_ms=prof["device_time_summed_ms"],
+               device_window_ms=prof["device_window_ms"],
                device_ops=prof["device_ops"], top_kernels=prof["top"],
                device_ms_by_kernel_group=prof["groups"], card=card)
     emit(res)
@@ -1738,7 +1908,10 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
                losses=losses, launches_per_step=step_launches, expected_launches=expected,
                timed_steps=timed_steps, step_ms=step_ms, step_ms_spread=step,
                images_per_s=batch / step_ms * 1e3,
-               device_busy_ms=busy_ms, device_idle_share=busy_ms and 1.0 - busy_ms / step_ms,
+               device_busy_ms=busy_ms, device_idle_share=prof["device_idle_share"],
+               device_idle_share_vs_step_ms=busy_ms and 1.0 - busy_ms / step_ms,
+               device_time_summed_ms=prof["device_time_summed_ms"],
+               device_window_ms=prof["device_window_ms"],
                device_ops=prof["device_ops"], top_kernels=prof["top"],
                peak_memory_gb=peak_gb, card=card)
     emit(res)
@@ -1888,7 +2061,21 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
     ema_update = model.quantize._ema_update
     model.quantize._ema_update = lambda *a, **k: (updates.append(1), ema_update(*a, **k))[1]
     gen = torch.Generator(device=dev).manual_seed(13)
-    all_logs = [trainer.train_step(x, gen)]  # warm-up step
+    # the warm-up step records the rows each of its two searches rescored
+    import dynamicvectorquantization_torch.ops.vq as vq
+    quantize, searched = model.quantize.forward, []
+
+    def recording(h, *args, **kwargs):
+        out = quantize(h, *args, **kwargs)
+        searched.append((vq.nearest_codes_with_stats.last_rescored, h.numel() // h.shape[-1]))
+        return out
+
+    model.quantize.forward = recording
+    try:
+        all_logs = [trainer.train_step(x, gen)]  # warm-up step
+    finally:
+        del model.quantize.forward
+    vq_rescored = [{"rows": int(r), "share": int(r) / rows} for r, rows in searched]
     torch.cuda.synchronize()
     reset_launches()
     del updates[:]
@@ -1917,6 +2104,7 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
     reset_launches()
     val = {k: float(v) for k, v in trainer.eval_step(x).items()}
     eval_launches = read_launches()
+    eval_rescored = int(vq.nearest_codes.last_rescored)
     model.quantize._ema_update = ema_update
     after = model.state_dict()
     moved = {name: max((after[k] - start[k]).abs().max().item() for k in after
@@ -1956,10 +2144,14 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
                launches_per_step=step_launches, expected_launches=expected,
                ema_updates_per_step=ema_updates_per_step, eval_step=val,
                eval_launches={k: v for k, v in eval_launches.items() if v},
+               vq_rescored_rows_per_call=vq_rescored, eval_vq_rescored_rows=eval_rescored,
                max_abs_update=moved, lpips_frozen=lpips_frozen, timed_steps=timed_steps,
                step_ms=step_ms, step_ms_spread=spread([t * 1e3 for t in times]),
                images_per_s=batch / step_s, device_busy_ms=busy_ms,
-               device_idle_share=busy_ms and 1.0 - busy_ms / step_ms,
+               device_idle_share=prof["device_idle_share"],
+               device_idle_share_vs_step_ms=busy_ms and 1.0 - busy_ms / step_ms,
+               device_time_summed_ms=prof["device_time_summed_ms"],
+               device_window_ms=prof["device_window_ms"],
                device_ops=prof["device_ops"], top_kernels=prof["top"],
                device_ms_by_kernel_group=prof["groups"], peak_memory_gb=peak_gb, card=card)
 
@@ -2236,10 +2428,12 @@ def main():
     ptxas = cuda_lib.resource_usage()
     emit(dict(phase="build", seconds=spread([time.perf_counter() - t0]),
               nvcc_flags=cuda_lib.NVCC_FLAGS, ptxas=ptxas))
-    # the register-blocked kernels hold their blocks in registers: none may spill
-    keys = ("attention_fwd_wide", "attention_bwd_wide", "strided_conv_down_f32")
+    # the register-blocked kernels (and the tensor-core nearest-code search) hold their
+    # blocks in registers: none may spill
+    keys = ("attention_fwd_wide", "attention_bwd_wide", "strided_conv_down_f32",
+            "vq_nearest_tc")
     blocked = {name: use for name, use in ptxas.items() if any(key in name for key in keys)}
-    require(len(blocked) >= 8 and all(not use.get("spill_stores") and not use.get("spill_loads")
+    require(len(blocked) >= 10 and all(not use.get("spill_stores") and not use.get("spill_loads")
                                       for use in blocked.values()),
             f"a register-blocked kernel spills or is missing from ptxas's report: {blocked}")
 
@@ -2396,13 +2590,24 @@ def main():
              {"bit_reproducible": ln_bwd_cases[0]["bit_reproducible"]}),
             ("fused_adamw", "fused_adamw.cu",
              "dynamicvectorquantization_tpu/ops/fused_adamw.py:39", adamw_case, {}),
-            ("vq_nearest", "vq_nearest.cu", "dynamicvectorquantization_tpu/ops/vq_pallas.py:42",
-             vq_case, {"mismatched_rows": vq_case["mismatched_rows"]}),
-            ("vq_nearest_train", "vq_nearest.cu",
+            # 3xTF32 on the tensor cores, near-tie rows rescored in the FMA search's order
+            # (`fma_source`, timed at the same shapes: `fma_kernel_ms`), so the codes
+            # equal its own; the adversarial sets' results under vq_nearest_train
+            ("vq_nearest", "vq_nearest_tc.cu",
+             "dynamicvectorquantization_tpu/ops/vq_pallas.py:42", vq_case,
+             {k: vq_case[k] for k in ("mismatched_rows", "equal_to_fma_kernel", "rescored_rows",
+                                      "margin_use", "fma_kernel_ms", "fma_kernel_ms_spread",
+                                      "bound_ms_f32_fma")}
+             | {"fma_source": f"{src_dir}/vq_nearest.cu"}),
+            ("vq_nearest_train", "vq_nearest_tc.cu",
              "dynamicvectorquantization_tpu/ops/vq_pallas.py:57", vq_train_case,
-             {k: vq_train_case[k] for k in ("mismatched_rows", "bit_reproducible",
-                                            "stats_kernel_ms", "largest_cluster",
-                                            "empty_clusters")}),
+             {k: vq_train_case[k] for k in ("mismatched_rows", "equal_to_fma_kernel",
+                                            "rescored_rows", "bit_reproducible",
+                                            "stats_kernel_ms", "fma_kernel_ms",
+                                            "fma_kernel_ms_spread", "largest_cluster",
+                                            "empty_clusters", "adversarial")}
+             | {"stats_source": f"{src_dir}/vq_stats.cu",
+                "fma_source": f"{src_dir}/vq_nearest.cu"}),
             ("patch_entropy", "patch_entropy.cu",
              "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy_case, {}),
             # bf16 images: the gray image rounded as the JAX package rounds it

@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the bf16 attention kernels
-// (fused_attention_tc{,_wide}.cu, fused_attention_bwd_tc{,_wide}.cu): asynchronous global ->
-// shared copies (cp.async), ldmatrix, the m16n8k16 bf16 mma with f32
-// accumulators, and the dropout keep bits of a whole accumulator fragment
+// (fused_attention_tc{,_wide}.cu, fused_attention_bwd_tc{,_wide}.cu), the bf16
+// downsample and the TF32 nearest-code search: asynchronous global ->
+// shared copies (cp.async), ldmatrix, the m16n8k16 bf16 and m16n8k8 TF32 mma
+// with f32 accumulators, and the dropout keep bits of a whole accumulator fragment
 // from one Philox call per four elements.
 //
 // Fragment layout of mma.m16n8k16 (PTX ISA), lane = 4 g + t (g = lane / 4,
@@ -93,6 +94,45 @@ __device__ __forceinline__ void mma_fresh(float (&d)[4], const unsigned (&a)[4],
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
         "f"(0.f), "f"(0.f));
+}
+
+// TF32 (the nearest-code search, vq_nearest_tc.cu). An f32 rounded to TF32
+// (10 explicit mantissa bits, nearest, ties away from zero, as
+// `cvt.rna.tf32.f32`, which compiles to a longer sequence that also guards
+// NaN): half of the 13 dropped bits added to the magnitude, then cleared. Its
+// low 13 bits are zero, so the tensor cores, which ignore those bits, take
+// it exactly. Finite values and infinities round as cvt.rna does; a NaN may
+// come out as any value (a NaN row's norm is NaN, and the search rescores it).
+__device__ __forceinline__ float to_tf32(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xffffe000u);
+}
+
+// x = hi + lo + r, hi and lo TF32, |x - hi| <= 2^-11 |x|, |r| <= 2^-22 |x|
+// (x - hi is exact in f32; lo is its TF32 rounding)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  const float h = to_tf32(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(to_tf32(x - h));
+}
+
+// four 8 x 4 f32 (TF32) matrices: as ldmatrix_x4 on b16 pairs, lane 4 g + t
+// receives word t of row g of each matrix, which is the m16n8k8 TF32 layout
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b: a 16 x 8 (row), b 8 x 8 (col), TF32 in, f32 accumulate. Fragments
+// (lane = 4 g + t): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+// b0 (k = t, n = g), b1 (k = t + 4, n = g); d as the bf16 mma's accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // two f32 -> one register of two bf16 (round to nearest even), lo in the low half

@@ -39,7 +39,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 _U = ctypes.c_ulonglong
-# entry point -> argtypes; every entry returns a cudaError_t as int
+# entry point -> argtypes; every entry returns a cudaError_t as int, but those
+# in RESTYPES
 SIGNATURES = {
     "dqvq_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "dqvq_fused_attention_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
@@ -51,8 +52,11 @@ SIGNATURES = {
     "dqvq_layernorm_forward": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
     "dqvq_fused_adamw": (_P,) * 5 + (_L,) + (_F,) * 9 + (_I, _P),
-    "dqvq_vq_nearest": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "dqvq_vq_nearest_train": (_P,) * 7 + (_I, _I, _I, _P),
+    "dqvq_vq_nearest": (_P,) * 7 + (_I, _I, _I, _P),
+    "dqvq_vq_nearest_train": (_P,) * 9 + (_I, _I, _I, _P),
+    "dqvq_vq_nearest_fma": (_P,) * 5 + (_I, _I, _I, _P),
+    "dqvq_vq_nearest_tc_scores": (_P,) * 7 + (_I, _I, _I, _P),
+    "dqvq_vq_workspace_bytes": (_I, _I, _I, _I),
     "dqvq_patch_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "dqvq_strided_conv_down": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "dqvq_strided_conv_down_tc_pack": (_P, _P, _P, _I, _I, _P),
@@ -60,6 +64,8 @@ SIGNATURES = {
     "dqvq_strided_conv_down_f32_pack": (_P, _P, _I, _I, _I, _P),
     "dqvq_strided_conv_down_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
+
+RESTYPES = {"dqvq_vq_workspace_bytes": _L}
 
 _lock = threading.Lock()
 _lib = None
@@ -164,7 +170,7 @@ def lib():
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _lib = handle
         return _lib
 

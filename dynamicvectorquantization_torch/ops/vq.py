@@ -9,10 +9,14 @@ with `train=True`, the EMA cluster statistics with the Laplace-smoothed
 codebook refresh and the restart of unused codes from permuted input rows.
 
 `nearest_codes` and `nearest_codes_with_stats` launch the CUDA kernels of
-`csrc/vq_nearest.cu` for CUDA tensors and run `nearest_codes_plain` /
-`nearest_codes_with_stats_plain` for CPU tensors; `use_pallas=False` selects
-the plain version explicitly. Scores are |c|^2 - 2 x.c in f32 (no |x|^2
-term, no TF32: QUIRKS #9); argmin ties go to the lowest index. bf16 rows or
+`csrc/vq_nearest_tc.cu` (and `csrc/vq_stats.cu`) for CUDA tensors and run
+`nearest_codes_plain` / `nearest_codes_with_stats_plain` for CPU tensors;
+`use_pallas=False` selects the plain version explicitly. Scores are |c|^2 -
+2 x.c in f32 (no |x|^2 term); argmin ties go to the lowest index. The
+kernels search on the tensor cores with a 3xTF32 split and rescore the rows
+whose best two codes lie within the split's error bound in the f32 FMA order
+of `csrc/vq_nearest.cu`, so their codes are that FMA search's (a lone TF32
+product would misrank codes: QUIRKS #9). bf16 rows or
 a bf16 codebook (the DQ-VAE in bf16) are searched as their f32 casts, and
 the codes, the gathered rows and the statistics are those of the casts, as
 the JAX package's TPU route casts both to f32 before its kernel. (On the
@@ -53,7 +57,13 @@ def _as_f32(t):
     return t.float() if t.dtype == torch.bfloat16 else t
 
 
-def _kernel_shapes(name, x, codebook):
+# the kernels' limits (`csrc/vq_nearest_tc.cu`, `csrc/vq_stats.cu`)
+MAX_DIM = 304  # the search block's x tile (hi and lo) and codebook stages in shared memory
+MAX_ROWS = 1 << 21  # the rescore's prefix of the search blocks' counts in shared memory
+MAX_CODES_WITH_STATS = 1 << 14  # the statistics' per-code counts in shared memory
+
+
+def _kernel_shapes(name, x, codebook, stats=False):
     """(N, K, D) of inputs the CUDA kernels take; raises on any other."""
     if x.device != codebook.device or x.device.type != "cuda":
         raise ValueError(f"{name}: x and the codebook must be on one CUDA device")
@@ -63,33 +73,53 @@ def _kernel_shapes(name, x, codebook):
         raise ValueError(f"{name}: (N, D) and (K, D) expected, got "
                          f"{tuple(x.shape)}, {tuple(codebook.shape)}")
     n, d = x.shape
-    if d % 4 or d > 424 or n == 0:
-        raise ValueError(f"{name}: the kernel takes D % 4 == 0 and D <= 424, got D={d}")
-    return n, codebook.shape[0], d
+    k = codebook.shape[0]
+    if d % 4 or d > MAX_DIM or not 0 < n <= MAX_ROWS or k == 0:
+        raise ValueError(f"{name}: the kernel takes D % 4 == 0, D <= {MAX_DIM}, "
+                         f"0 < N <= {MAX_ROWS} and K > 0, got N={n}, K={k}, D={d}")
+    if stats and k > MAX_CODES_WITH_STATS:
+        raise ValueError(f"{name}: the statistics take K <= {MAX_CODES_WITH_STATS}, got K={k}")
+    return n, k, d
+
+
+def _search_args(name, x, codebook, stats):
+    """Contiguous f32 inputs, |c|^2, the int32 codes, the workspace and the
+    rescored-row count for the kernels' C entries."""
+    x, codebook = _as_f32(x), _as_f32(codebook)
+    n, k, d = _kernel_shapes(name, x, codebook, stats)
+    x = x.contiguous()
+    codebook = codebook.contiguous()
+    cb_norm = (codebook * codebook).sum(dim=1)
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    workspace = torch.empty(cuda_lib.lib().dqvq_vq_workspace_bytes(n, k, d, int(stats)),
+                            dtype=torch.uint8, device=x.device)
+    rescored = torch.empty(1, dtype=torch.int32, device=x.device)
+    return x, codebook, cb_norm, idx, workspace, rescored, (n, k, d)
 
 
 def nearest_codes(x, codebook, use_pallas=None):
     """Nearest codebook row per row of x: (N, D), (K, D), f32 or bf16 (searched
     as f32) -> (idx (N,) int64, quantized (N, D) f32). `nearest_codes.launches`
-    counts kernel launches."""
+    counts kernel calls; `nearest_codes.last_rescored` is the last call's
+    number of rows rescored in the FMA order (a device int32, read by checks
+    only)."""
     if use_pallas is False or (x.device.type == "cpu" and codebook.device.type == "cpu"):
         return nearest_codes_plain(x, codebook)
-    x, codebook = _as_f32(x), _as_f32(codebook)
-    n, k, d = _kernel_shapes("nearest_codes", x, codebook)
-    x = x.contiguous()
-    codebook = codebook.contiguous()
-    cb_norm = (codebook * codebook).sum(dim=1)
-    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    x, codebook, cb_norm, idx, workspace, rescored, (n, k, d) = _search_args(
+        "nearest_codes", x, codebook, False)
     err = cuda_lib.lib().dqvq_vq_nearest(
-        x.data_ptr(), codebook.data_ptr(), cb_norm.data_ptr(), idx.data_ptr(), n, k, d,
+        x.data_ptr(), codebook.data_ptr(), cb_norm.data_ptr(), idx.data_ptr(), None,
+        workspace.data_ptr(), rescored.data_ptr(), n, k, d,
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(err, "nearest_codes")
     nearest_codes.launches += 1
+    nearest_codes.last_rescored = rescored
     idx = idx.long()
     return idx, codebook[idx]
 
 
 nearest_codes.launches = 0
+nearest_codes.last_rescored = None
 
 
 def nearest_codes_with_stats_plain(x, codebook):
@@ -108,30 +138,30 @@ def nearest_codes_with_stats(x, codebook, use_pallas=None):
     """`nearest_codes` plus the EMA statistics: (N, D), (K, D), f32 or bf16
     (as f32) -> (idx (N,) int64, quantized (N, D), embed_sum (K, D),
     cluster_size (K,)), f32.
-    On CUDA one call runs the search, the row gather and the segmented sum
-    (deterministic: no atomics) of `csrc/vq_nearest.cu`.
-    `nearest_codes_with_stats.launches` counts those calls."""
+    On CUDA one call runs the search with the row gather, and the statistics
+    as a stable sort by code summed in pieces of at most 64 rows
+    (deterministic: no float atomics) of `csrc/vq_nearest_tc.cu` and
+    `csrc/vq_stats.cu`. `nearest_codes_with_stats.launches` counts those
+    calls; `.last_rescored` as `nearest_codes`'."""
     if use_pallas is False or (x.device.type == "cpu" and codebook.device.type == "cpu"):
         return nearest_codes_with_stats_plain(x, codebook)
-    x, codebook = _as_f32(x), _as_f32(codebook)
-    n, k, d = _kernel_shapes("nearest_codes_with_stats", x, codebook)
-    x = x.contiguous()
-    codebook = codebook.contiguous()
-    cb_norm = (codebook * codebook).sum(dim=1)
-    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    x, codebook, cb_norm, idx, workspace, rescored, (n, k, d) = _search_args(
+        "nearest_codes_with_stats", x, codebook, True)
     xq = torch.empty_like(x)
     embed_sum = torch.empty_like(codebook)
     cluster_size = torch.empty(k, dtype=torch.float32, device=x.device)
     err = cuda_lib.lib().dqvq_vq_nearest_train(
         x.data_ptr(), codebook.data_ptr(), cb_norm.data_ptr(), idx.data_ptr(), xq.data_ptr(),
-        embed_sum.data_ptr(), cluster_size.data_ptr(), n, k, d,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        embed_sum.data_ptr(), cluster_size.data_ptr(), workspace.data_ptr(),
+        rescored.data_ptr(), n, k, d, torch.cuda.current_stream(x.device).cuda_stream)
     cuda_lib.check(err, "nearest_codes_with_stats")
     nearest_codes_with_stats.launches += 1
+    nearest_codes_with_stats.last_rescored = rescored
     return idx.long(), xq, embed_sum, cluster_size
 
 
 nearest_codes_with_stats.launches = 0
+nearest_codes_with_stats.last_rescored = None
 
 
 class _Codebook(nn.Module):

@@ -133,3 +133,65 @@ def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     assert torch.equal(idx, ref) and torch.equal(xq, ref_xq)
     with pytest.raises(TypeError):
         nearest_codes(x[:, :28].half(), cb[:, :28].half())
+
+
+def _fma_codes(x, cb):
+    """The FMA search (`csrc/vq_nearest.cu`), whose order the tensor-core
+    search rescores near-tie rows in, through its own C entry."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+
+    n, d = x.shape
+    idx = torch.empty(n, dtype=torch.int32, device=x.device)
+    err = cuda_lib.lib().dqvq_vq_nearest_fma(
+        x.data_ptr(), cb.data_ptr(), (cb * cb).sum(1).data_ptr(), idx.data_ptr(), None, n,
+        cb.shape[0], d, torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "dqvq_vq_nearest_fma")
+    return idx.long()
+
+
+def _adversarial(name, n, k, d, device):
+    g = torch.Generator(device=device).manual_seed(5)
+    cb = torch.randn((k, d), generator=g, device=device)
+    x = torch.randn((n, d), generator=g, device=device)
+    if name == "duplicate_codes":
+        cb[1::2] = cb[0::2][: k // 2].clone()
+    elif name == "codes_one_ulp_apart":
+        cb[1::2] = torch.nextafter(cb[0::2][: k // 2], torch.full_like(cb[1::2], 1e30))
+    elif name == "rows_equidistant_from_two_codes":
+        pair = torch.randint(0, k // 2, (n,), generator=g, device=device) * 2
+        x = 0.5 * (cb[pair] + cb[pair + 1])
+    elif name == "init_codebook":
+        cb = (torch.rand((k, d), generator=g, device=device) * 2 - 1) / k
+    elif name == "one_code_owns_every_row":
+        x = cb[3:4] + 0.01 * torch.randn((n, d), generator=g, device=device)
+    return x.contiguous(), cb.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k,d", [(300, 100, 36), (2048, 1024, 256)])
+@pytest.mark.parametrize("name", ["duplicate_codes", "codes_one_ulp_apart",
+                                  "rows_equidistant_from_two_codes", "init_codebook",
+                                  "one_code_owns_every_row"])
+def test_cuda_adversarial_sets_equal_the_fma_kernel(cuda_device, name, n, k, d):
+    x, cb = _adversarial(name, n, k, d, cuda_device)
+    before = nearest_codes.launches
+    idx, xq = nearest_codes(x, cb)
+    again, _ = nearest_codes(x, cb)
+    assert nearest_codes.launches == before + 2
+    assert torch.equal(idx, _fma_codes(x, cb))  # bit for bit, ties to the lowest index
+    assert torch.equal(idx, again)
+    assert torch.equal(xq, cb[idx])
+    if name in ("duplicate_codes", "rows_equidistant_from_two_codes"):
+        assert int(nearest_codes.last_rescored) > n // 2  # ties take the exact rescore
+
+
+@pytest.mark.cuda
+def test_cuda_search_limits(cuda_device):
+    from dynamicvectorquantization_torch.ops.vq import MAX_DIM
+
+    x, cb = (torch.from_numpy(a).to(cuda_device) for a in _x_cb(6, 64, 16, MAX_DIM + 4))
+    with pytest.raises(ValueError):
+        nearest_codes(x, cb)  # D past the search's shared memory
+    x, cb = x[:, :MAX_DIM].contiguous(), cb[:, :MAX_DIM].contiguous()
+    idx, _ = nearest_codes(x, cb)  # the largest D it takes
+    assert torch.equal(idx, _fma_codes(x, cb))

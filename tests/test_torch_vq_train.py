@@ -248,3 +248,34 @@ def test_cuda_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         nearest_codes_with_stats(torch.zeros((8, 30), device=cuda_device),
                                  torch.zeros((4, 30), device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8192, 333])
+def test_cuda_one_code_owns_every_row(cuda_device, n):
+    """The statistics' worst case: one code's rows summed in pieces, their
+    partial sums added in piece order; counts exact, sums to 1e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    cb = torch.randn((1024, 256), generator=g, device=cuda_device)
+    x = cb[7:8] + 0.01 * torch.randn((n, 256), generator=g, device=cuda_device)
+    before = nearest_codes_with_stats.launches
+    idx, xq, esum, csize = nearest_codes_with_stats(x, cb)
+    again = nearest_codes_with_stats(x, cb)
+    assert nearest_codes_with_stats.launches == before + 2
+    assert bool((idx == 7).all()) and torch.equal(xq, cb[idx])
+    ref = nearest_codes_with_stats_plain(x, cb)
+    assert torch.equal(csize, ref[3]) and float(csize[7]) == n
+    assert float((esum - ref[2]).abs().max()) <= 1e-5 * float(ref[2].abs().max())
+    assert bool((esum[torch.arange(1024, device=cuda_device) != 7] == 0).all())
+    for a, b in zip((idx, xq, esum, csize), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_statistics_limit(cuda_device):
+    from dynamicvectorquantization_torch.ops.vq import MAX_CODES_WITH_STATS
+
+    x = torch.zeros((8, 32), device=cuda_device)
+    with pytest.raises(ValueError):
+        nearest_codes_with_stats(x, torch.zeros((MAX_CODES_WITH_STATS + 1, 32),
+                                                device=cuda_device))
