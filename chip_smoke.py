@@ -33,7 +33,11 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                the rows they rescored, the fast scores' distance from their
                bound, the FMA search's time beside them, and adversarial sets
                (duplicate codes, codes one ulp apart, rows midway between two
-               codes, the 1/K init codebook, one code owning every row)
+               codes, the 1/K init codebook, one code owning every row); the
+               int8 decode attention at four cache indices and, kernel only,
+               every 128 positions to 1283 (two calls equal, the device-index
+               entry equal to the host-index one at each); the LayerNorm
+               backward's share of its bytes bound, launches and ptxas report
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
                through the kernels and through the plain versions (streams,
@@ -53,7 +57,9 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                torch.profiler trace of 16 steps for the device's busy time
   5. serve     BatchingSampler (p6c18, int8 caches, max_batch 8) answers 3
                concurrent requests of 1, 2 and 4 images; launch counters are
-               zeroed just before and read just after
+               zeroed just before and read just after; the decode kernel's
+               time over the indices the batch visited, estimated from the
+               sweep (and from the replaced kernel's recorded times)
   6. train     full-width, full-depth p6c18 StackGPT (the shipped config, its
                attn_pdrop 0.1 included, with the training campaign's stream
                caps, T = 805),
@@ -156,10 +162,13 @@ def time_ms(torch, fn, arg_sets, iters=20, only=None):
     durations of the CUDA kernels a call launched (only those whose name
     contains `only`, when given), from a torch.profiler (CUPTI) trace whose
     kernels are split into the calls in launch order (when every call
-    launches as many kernels; else the mean alone, n = 1). Wall ms: CUDA
+    launches as many kernels; else the mean alone, n = 1); a trace that
+    holds none of the calls' kernels is taken again, up to three traces in
+    all (`traces_taken` in the spread when more than one). Wall ms: CUDA
     events round each of the back-to-back calls, which include the host's
     launch overhead when that exceeds the kernels' time, and every op the
-    call launches."""
+    call launches. The device spread also carries the kernels each call
+    launched (`kernels_per_call`) where the trace split into the calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -172,21 +181,27 @@ def time_ms(torch, fn, arg_sets, iters=20, only=None):
         marks[i + 1].record()
     marks[-1].synchronize()
     wall = spread([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(*arg_sets[i % len(arg_sets)])
-        torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
-    if not any(only is None or only in e.name for e in kernels):
-        return None, wall  # the trace held no (matching) device time
+    for attempt in range(1, 4):  # a trace that lost every kernel of the calls is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*arg_sets[i % len(arg_sets)])
+            torch.cuda.synchronize()
+        kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        if any(only is None or only in e.name for e in kernels):
+            break
+    else:
+        return None, wall  # no trace held (matching) device time
     per = len(kernels) // iters
     if per * iters == len(kernels):
         device = spread([sum(e.time_range.elapsed_us() for e in kernels[i * per:(i + 1) * per]
                              if only is None or only in e.name) / 1e3 for i in range(iters)])
+        device["kernels_per_call"] = per
     else:
         device = spread([sum(e.time_range.elapsed_us() for e in kernels
                              if only is None or only in e.name) / 1e3 / iters])
+    if attempt > 1:
+        device["traces_taken"] = attempt
     return device, wall
 
 
@@ -205,7 +220,28 @@ def n_sets(bytes_per_set):
     return max(2, -(-2 * L2_BYTES // bytes_per_set))
 
 
+def interpolated_sum(points, indices):
+    """The sum over `indices` of the piecewise-linear interpolation of
+    {index: ms} (held flat past its ends)."""
+    xs = sorted(points)
+    total = 0.0
+    for i in indices:
+        if i <= xs[0]:
+            total += points[xs[0]]
+        elif i >= xs[-1]:
+            total += points[xs[-1]]
+        else:
+            hi = next(k for k, x in enumerate(xs) if x >= i)
+            x0, x1 = xs[hi - 1], xs[hi]
+            total += points[x0] + (points[x1] - points[x0]) * (i - x0) / (x1 - x0)
+    return total
+
+
 def check_decode_attention(torch, dev):
+    """The four recorded indices against the plain version (errors, kernel /
+    plain times, the device-index entry equal to the by-value one, two calls
+    equal), then a kernel-only sweep of cache_index every 128 positions (and
+    1283) with the same two equalities at each."""
     from dynamicvectorquantization_torch.ops.kv_int8 import (
         decode_attention_int8, decode_attention_int8_plain, quantize_kv)
 
@@ -219,24 +255,52 @@ def check_decode_attention(torch, dev):
         kq, ks = quantize_kv(torch.randn((b, h, t, hd), generator=g, device=dev) * 2)
         vq, vs = quantize_kv(torch.randn((b, h, t, hd), generator=g, device=dev))
         sets.append((q, kq, vq, ks, vs))
+
+    def equalities(idx):
+        out = decode_attention_int8(*sets[0], idx)
+        again = decode_attention_int8(*sets[0], idx)
+        on_device = decode_attention_int8(
+            *sets[0], torch.tensor(idx, dtype=torch.int32, device=dev))
+        torch.cuda.synchronize()
+        return out, bool(torch.equal(out, again)), bool(torch.equal(out, on_device))
+
+    def bound_at(idx):
+        n = idx + 1
+        return bound(2 * b * h * hd * 2 + 2 * b * h * n * (hd + 4), 4 * b * h * n * hd, "float32")
+
     cases = []
     for idx in (0, 255, 256, 1283):
-        out = decode_attention_int8(*sets[0], idx)
+        out, reproducible, device_equal = equalities(idx)
         ref = decode_attention_int8_plain(*sets[0], idx)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        n = idx + 1
-        bms, by = bound(2 * b * h * hd * 2 + 2 * b * h * n * (hd + 4), 4 * b * h * n * hd,
-                        "float32")
+        bms, by = bound_at(idx)
         case = dict(phase="kernels", kernel="decode_attention_int8", shape=[b, h, t, hd],
                     dtype="bfloat16", cache_index=idx, max_abs_err=err, tol=tol,
+                    bit_reproducible=reproducible, device_index_equal=device_equal,
                     library_ms=None, bound_ms=bms, bound_by=by)
         time_into(case, "kernel", torch, lambda *a: decode_attention_int8(*a, idx), sets)
         time_into(case, "plain", torch, lambda *a: decode_attention_int8_plain(*a, idx), sets)
+        case["bound_share"] = case["kernel_ms"] and bms / case["kernel_ms"]
         emit(case)
         require(err <= tol, f"decode_attention_int8 disagrees at cache_index {idx}: {err}")
+        require(reproducible and device_equal,
+                f"decode_attention_int8 at cache_index {idx}: two calls equal {reproducible}, "
+                f"device index equal to the host index {device_equal}")
         cases.append(case)
-    return cases
+    sweep = []
+    for idx in list(range(0, 1284, 128)) + [1283]:
+        _, reproducible, device_equal = equalities(idx)
+        point = dict(cache_index=idx, bit_reproducible=reproducible,
+                     device_index_equal=device_equal, bound_ms=bound_at(idx)[0])
+        time_into(point, "kernel", torch, lambda *a: decode_attention_int8(*a, idx), sets)
+        require(reproducible and device_equal,
+                f"decode_attention_int8 sweep at cache_index {idx}: two calls equal "
+                f"{reproducible}, device index equal to the host index {device_equal}")
+        sweep.append(point)
+    emit(dict(phase="kernels", kernel="decode_attention_int8_sweep", shape=[b, h, t, hd],
+              dtype="bfloat16", sweep=sweep))
+    return cases, sweep
 
 
 def fma_forward(torch, q, k, v, n_head, scale, causal, rate=0.0, return_lse=False, seed=0):
@@ -989,6 +1053,7 @@ def tolerances(dtype_name, atol_f32, atol_bf16=2e-2):
 def check_layernorm(torch, dev):
     import torch.nn.functional as F
 
+    from dynamicvectorquantization_torch.ops import cuda_lib
     from dynamicvectorquantization_torch.ops.layernorm import (
         fused_layernorm_plain, layernorm_backward, layernorm_backward_plain, layernorm_forward)
 
@@ -1032,12 +1097,22 @@ def check_layernorm(torch, dev):
         emit(fwd)
 
         bb, bby = bound(3 * rows * d * elem + d * elem + 8 * d, 16 * rows * d, "float32")
+        before = layernorm_backward.launches
+        layernorm_backward(x, gamma, dy, eps)
+        launches_per_call = layernorm_backward.launches - before
         bwd = dict(phase="kernels", kernel="layernorm_backward", shape=[b, t, d], dtype=dname,
                    max_abs_err=max(err_dx, err_dg, err_db), dx_err=err_dx, dgamma_err=err_dg,
                    dbeta_err=err_db, tol=f"dx {atol} + {rtol} |ref|; dgamma, dbeta {sum_tol}",
                    bit_reproducible=reproducible, bound_ms=bb, bound_by=bby)
         time_into(bwd, "kernel", torch, lambda x_, dy_: layernorm_backward(x_, gamma, dy_, eps),
                   sets)
+        # the share of the bytes bound reached; the wrapper's launches per call (its
+        # rows kernel and the reduction of the blocks' partial rows, `kernels_per_call`)
+        bwd["bound_share"] = bwd["kernel_ms"] and bb / bwd["kernel_ms"]
+        bwd["launches_per_call"] = launches_per_call
+        bwd["kernels_per_call"] = (bwd["kernel_ms_spread"] or {}).get("kernels_per_call")
+        bwd["ptxas"] = {name: use for name, use in cuda_lib.resource_usage().items()
+                        if "layernorm_bwd" in name}
         time_into(bwd, "plain", torch,
                   lambda x_, dy_: layernorm_backward_plain(x_, gamma, dy_, eps), sets)
         gl, bl = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
@@ -2383,7 +2458,8 @@ def serve(torch, model, card):
         stats = list(engine.batch_stats)
     n_images = sum(n for n, _ in requests)
     wall = spread(walls)["median"]
-    res = dict(phase="serve", config=P6C18, kv_cache_dtype="int8", max_batch=8,
+    layers = model.transformer.position_layer + model.transformer.content_layer
+    res = dict(phase="serve", config=P6C18, kv_cache_dtype="int8", max_batch=8, layers=layers,
                requests=[n for n, _ in requests], shapes=[list(x.shape) for x in images],
                batches=batches, batch_stats=stats, launches=launches, wall_s=wall,
                wall_s_spread=spread(walls), s_per_batch=wall / batches,
@@ -2392,7 +2468,6 @@ def serve(torch, model, card):
     for (n, _), img in zip(requests, images):
         require(img.shape == (n, 256, 256, 3), f"image shape {img.shape} for {n} images")
         require(bool(np.isfinite(img).all()), "non-finite image values")
-    layers = model.transformer.position_layer + model.transformer.content_layer
     require(launches["decode_attention_int8"] >= layers * sum(
         st["ar_steps"] for st in stats[:batches]),
             "decode_attention_int8 was not launched on every decode step")
@@ -2428,16 +2503,16 @@ def main():
     ptxas = cuda_lib.resource_usage()
     emit(dict(phase="build", seconds=spread([time.perf_counter() - t0]),
               nvcc_flags=cuda_lib.NVCC_FLAGS, ptxas=ptxas))
-    # the register-blocked kernels (and the tensor-core nearest-code search) hold their
-    # blocks in registers: none may spill
+    # the register-blocked kernels (and the tensor-core nearest-code search, the LayerNorm
+    # backward's rows, the int8 decode attention) hold their blocks in registers: none may spill
     keys = ("attention_fwd_wide", "attention_bwd_wide", "strided_conv_down_f32",
-            "vq_nearest_tc")
+            "vq_nearest_tc", "layernorm_bwd_rows", "decode_attention_int8")
     blocked = {name: use for name, use in ptxas.items() if any(key in name for key in keys)}
     require(len(blocked) >= 10 and all(not use.get("spill_stores") and not use.get("spill_loads")
                                       for use in blocked.values()),
             f"a register-blocked kernel spills or is missing from ptxas's report: {blocked}")
 
-    decode_cases = check_decode_attention(torch, dev)
+    decode_cases, decode_sweep = check_decode_attention(torch, dev)
     attn_cases, attn_drop_cases = check_fused_attention(torch, dev)
     check_attention_dropout(torch, dev)
     vq_case = check_vq_nearest(torch, dev)
@@ -2491,6 +2566,17 @@ def main():
                     **{key: sum(c[key] for c in cases) for key in timed})
 
     conv, conv16 = levels(conv_cases), levels(conv16_cases)
+    # #8 over the cache indices the served batch visited (its AR steps 0 .. ar_steps - 1:
+    # the coarse steps, the fine-phase entry, the fine steps), interpolated from the sweep
+    # and the four checked indices, times the layers: an estimate, not a measurement, so
+    # it has a line of its own and stays out of the kernels line
+    require(all(c["kernel_ms"] is not None for c in decode_cases + decode_sweep),
+            "decode_attention_int8: a timed index has no trace")
+    points = {c["cache_index"]: c["kernel_ms"] for c in decode_cases + decode_sweep}
+    visited = range(served["batch_stats"][0]["ar_steps"])
+    emit(dict(phase="serve_decode_estimate",
+              served_batch_est_ms=served["layers"] * interpolated_sum(points, visited),
+              served_batch_ar_steps=len(visited), layers=served["layers"]))
     paths = {"serve": served["launches"], "encode": encoded["launches"],
              "encode_bf16": encoded16["launches"], "train_step": per_step,
              "train1_step": per_step1, "train1_step_bf16": per_step1_bf16, "fit": fitted,
@@ -2524,8 +2610,21 @@ def main():
     dbwd_c, dbwd_c32, dbwd_64, dbwd_256, dbwd_512, dbwd_256b, dbwd_512b = attn_bwd_drop_cases
     kernels = []
     for name, src, replaces, main, extra in (
+            # main: cache_index 1283; the other checked indices and the sweep (every 128
+            # positions) beside it
             ("decode_attention_int8", "decode_attention_int8.cu",
-             "dynamicvectorquantization_tpu/ops/kv_int8.py:92", decode_cases[-1], {}),
+             "dynamicvectorquantization_tpu/ops/kv_int8.py:92", decode_cases[-1],
+             {"cache_index": decode_cases[-1]["cache_index"],
+              "bit_reproducible": all(c["bit_reproducible"] for c in decode_cases + decode_sweep),
+              "device_index_equal": all(c["device_index_equal"]
+                                        for c in decode_cases + decode_sweep),
+              "bound_share": decode_cases[-1]["bound_share"],
+              "by_index": {str(c["cache_index"]): pick(c, "kernel_ms", "plain_ms", "bound_ms",
+                                                       "max_abs_err")
+                           for c in decode_cases},
+              "sweep_ms": {str(c["cache_index"]): c["kernel_ms"] for c in decode_sweep},
+              "ptxas": {name: use for name, use in ptxas.items()
+                        if "decode_attention_int8" in name}}),
             # the FMA family: f32 at every head dim (the DQ-VAE's AttnBlocks), bf16 at
             # hd 16, 32; main: the decoder's 32x32 AttnBlock, f32 at hd 256 / 512 on the
             # register-blocked kernel of fused_attention_wide.cu (the other shapes on the
@@ -2585,9 +2684,14 @@ def main():
                   ("b_bf16_hd512_rate0.1", dbwd_512b))}}),
         ("layernorm_forward", "layernorm.cu",
              "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:46", ln_fwd_cases[0], {}),
-            ("layernorm_backward", "layernorm.cu",
+            # main: bf16, the stage-2 trainer's dtype; f32 beside it
+            ("layernorm_backward", "layernorm_bwd.cu",
              "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:56", ln_bwd_cases[0],
-             {"bit_reproducible": ln_bwd_cases[0]["bit_reproducible"]}),
+             {k: ln_bwd_cases[0][k] for k in ("bit_reproducible", "bound_share",
+                                              "launches_per_call", "kernels_per_call", "ptxas")}
+             | {"f32": pick(ln_bwd_cases[1], "kernel_ms", "kernel_ms_spread", "plain_ms",
+                            "library_ms", "bound_ms", "bound_share", "max_abs_err",
+                            "bit_reproducible")}),
             ("fused_adamw", "fused_adamw.cu",
              "dynamicvectorquantization_tpu/ops/fused_adamw.py:39", adamw_case, {}),
             # 3xTF32 on the tensor cores, near-tie rows rescored in the FMA search's order

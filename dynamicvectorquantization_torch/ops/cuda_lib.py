@@ -42,7 +42,8 @@ _U = ctypes.c_ulonglong
 # entry point -> argtypes; every entry returns a cudaError_t as int, but those
 # in RESTYPES
 SIGNATURES = {
-    "dqvq_decode_attention_int8": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "dqvq_decode_attention_int8": (_P,) * 6 + (_I, _I, _I, _I, _I, _F, _I, _P),
+    "dqvq_decode_attention_int8_device_index": (_P,) * 6 + (_I, _I, _I, _I, _P, _F, _I, _P),
     "dqvq_fused_attention_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
     "dqvq_fused_attention_backward": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
     "dqvq_fused_attention_backward_wide_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
@@ -51,6 +52,7 @@ SIGNATURES = {
     "dqvq_fused_attention_backward_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_layernorm_forward": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
+    "dqvq_layernorm_backward_occupancy": (_I, _I, _P, _P),
     "dqvq_fused_adamw": (_P,) * 5 + (_L,) + (_F,) * 9 + (_I, _P),
     "dqvq_vq_nearest": (_P,) * 7 + (_I, _I, _I, _P),
     "dqvq_vq_nearest_train": (_P,) * 9 + (_I, _I, _I, _P),

@@ -7,7 +7,9 @@ halving the bytes each decode step streams compared with bf16 caches.
 `decode_attention_int8` launches the CUDA kernel
 `csrc/decode_attention_int8.cu` for CUDA tensors and runs its plain version,
 `decode_attention_int8_plain`, for CPU tensors. There is no fallback: a CUDA
-tensor the kernel cannot take raises.
+tensor the kernel cannot take raises. `cache_index` is a host int or, as the
+TPU kernel's scalar-prefetched index, an int32 tensor the kernel reads on the
+device (a launch that stays valid as the index moves).
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from . import cuda_lib
 
-CHUNK = 256  # cache capacity granule and the kernel's chunk of positions
+CHUNK = 256  # cache capacity granule (the TPU kernel's chunk of positions)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -31,10 +33,30 @@ def quantize_kv(x, eps=1e-8):
     return q.to(torch.int8), s
 
 
-def decode_attention_int8_plain(q, k_i8, v_i8, k_s, v_s, cache_index: int):
+def _host_index(cache_index) -> int:
+    """`cache_index` as a Python int: an int, or a 0-d / one-element int32
+    tensor (read on the host)."""
+    if isinstance(cache_index, torch.Tensor):
+        _check_index_tensor(cache_index)
+        return int(cache_index.reshape(()).item())
+    return int(cache_index)
+
+
+def _check_index_tensor(idx):
+    if idx.dtype != torch.int32:
+        raise TypeError("decode_attention_int8: a cache_index tensor must be int32, "
+                        f"got {idx.dtype}")
+    if idx.numel() != 1:
+        raise ValueError("decode_attention_int8: a cache_index tensor must hold one element, "
+                         f"got shape {tuple(idx.shape)}")
+
+
+def decode_attention_int8_plain(q, k_i8, v_i8, k_s, v_s, cache_index):
     """Plain PyTorch version (the counterpart of
     `_decode_attention_int8_ref`): chunked online softmax over the filled
-    prefix with explicit dequantization, f32 accumulation."""
+    prefix with explicit dequantization, f32 accumulation. `cache_index`: an
+    int or a 0-d / one-element int32 tensor."""
+    cache_index = _host_index(cache_index)
     b, h, t, hd = k_i8.shape
     if t % CHUNK:
         raise ValueError(f"cache length {t} is not a multiple of {CHUNK}")
@@ -61,16 +83,18 @@ def decode_attention_int8_plain(q, k_i8, v_i8, k_s, v_s, cache_index: int):
     return (acc / l[..., None]).to(q.dtype)
 
 
-def decode_attention_int8(q, k_i8, v_i8, k_s, v_s, cache_index: int):
+def decode_attention_int8(q, k_i8, v_i8, k_s, v_s, cache_index):
     """Single-token decode attention over int8 caches.
 
     q: (B, H, 1, hd) f32 or bf16; k_i8/v_i8: (B, H, T, hd) int8;
-    k_s/v_s: (B, H, T) f32; cache_index: host int, the last valid position.
-    Returns (B, H, 1, hd) in q's dtype. `decode_attention_int8.launches`
-    counts kernel launches.
+    k_s/v_s: (B, H, T) f32; cache_index: the last valid position, a host int
+    or a 0-d / one-element int32 tensor on q's device (read there by the
+    kernel; outside [0, T) the output is NaN). Returns (B, H, 1, hd) in q's
+    dtype. `decode_attention_int8.launches` counts kernel launches.
     """
     tensors = (q, k_i8, v_i8, k_s, v_s)
-    if all(x.device.type == "cpu" for x in tensors):
+    on_device = isinstance(cache_index, torch.Tensor)
+    if all(x.device.type == "cpu" for x in tensors + ((cache_index,) if on_device else ())):
         return decode_attention_int8_plain(q, k_i8, v_i8, k_s, v_s, cache_index)
     if any(x.device != q.device for x in tensors) or q.device.type != "cuda":
         raise ValueError("decode_attention_int8: all inputs must be on one CUDA device")
@@ -87,16 +111,27 @@ def decode_attention_int8(q, k_i8, v_i8, k_s, v_s, cache_index: int):
                          f"{[tuple(x.shape) for x in tensors]}")
     if hd not in (16, 32, 64, 128, 256) or t % CHUNK:
         raise ValueError(f"decode_attention_int8: unsupported hd={hd} or T={t}")
-    if not 0 <= cache_index < t:
-        raise ValueError(f"decode_attention_int8: cache_index {cache_index} outside [0, {t})")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("decode_attention_int8: inputs must be contiguous")
+    if k_i8.data_ptr() % 16 or v_i8.data_ptr() % 16:
+        raise ValueError("decode_attention_int8: the caches must start on a 16-byte boundary")
+    if on_device:
+        _check_index_tensor(cache_index)
+        if cache_index.device != q.device:
+            raise ValueError("decode_attention_int8: a cache_index tensor must be on q's device "
+                             f"{q.device}, got {cache_index.device}")
+    elif not 0 <= cache_index < t:
+        raise ValueError(f"decode_attention_int8: cache_index {cache_index} outside [0, {t})")
     out = torch.empty_like(q)
-    err = cuda_lib.lib().dqvq_decode_attention_int8(
-        q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), k_s.data_ptr(), v_s.data_ptr(),
-        out.data_ptr(), b, h, t, hd, int(cache_index), 1.0 / float(hd) ** 0.5,
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    lib = cuda_lib.lib()
+    args = (q.data_ptr(), k_i8.data_ptr(), v_i8.data_ptr(), k_s.data_ptr(), v_s.data_ptr(),
+            out.data_ptr(), b, h, t, hd)
+    tail = (1.0 / float(hd) ** 0.5, _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if on_device:
+        err = lib.dqvq_decode_attention_int8_device_index(*args, cache_index.data_ptr(), *tail)
+    else:
+        err = lib.dqvq_decode_attention_int8(*args, int(cache_index), *tail)
     cuda_lib.check(err, "decode_attention_int8")
     decode_attention_int8.launches += 1
     return out

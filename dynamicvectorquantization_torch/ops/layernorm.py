@@ -7,19 +7,21 @@ recomputes mean and rstd, returns dx in x's dtype and dgamma / dbeta summed in
 f32 over all rows.
 
 `layernorm_forward` and `layernorm_backward` launch the CUDA kernels of
-`csrc/layernorm.cu` for CUDA tensors and run the plain versions below for CPU
-tensors; `fused_layernorm` is the `torch.autograd.Function` over the two.
-There is no fallback: a CUDA tensor the kernel cannot take raises.
+`csrc/layernorm.cu` (forward) and `csrc/layernorm_bwd.cu` (backward) for CUDA
+tensors and run the plain versions below for CPU tensors; `fused_layernorm` is
+the `torch.autograd.Function` over the two. There is no fallback: a CUDA
+tensor the kernel cannot take raises.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from . import cuda_lib
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ROWS_PER_BLOCK = 4  # kWarps of csrc/layernorm.cu
-_MAX_PARTIAL_BLOCKS = 528  # four blocks on each of the H100's 132 SMs
 MAX_DIM = 2048
 
 
@@ -89,16 +91,33 @@ def layernorm_forward(x, gamma, beta, eps: float = 1e-5):
 layernorm_forward.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _backward_occupancy(device: torch.device, d: int, dtype_code: int):
+    """(rows a block of the backward takes at once, blocks the card holds at
+    once) at width d on `device`, queried from CUDA once per (device, d,
+    dtype)."""
+    groups, per_sm = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = cuda_lib.lib().dqvq_layernorm_backward_occupancy(
+            d, dtype_code, ctypes.addressof(groups), ctypes.addressof(per_sm))
+    cuda_lib.check(err, "layernorm_backward occupancy")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return groups.value, sms * max(per_sm.value, 1)
+
+
 def layernorm_backward(x, gamma, dy, eps: float = 1e-5):
     """(dx in x's dtype, dgamma f32, dbeta f32) of `layernorm_forward`.
-    `layernorm_backward.launches` counts kernel launches (the per-block
-    partial sums and their reduction are one launch of the wrapper)."""
+    `layernorm_backward.launches` counts kernel launches (the rows kernel,
+    which leaves one partial row pair per block, and the reduction of those
+    rows are one launch of the wrapper)."""
     if all(t.device.type == "cpu" for t in (x, gamma, dy)):
         return layernorm_backward_plain(x, gamma, dy, eps)
     _check("layernorm_backward", x, (gamma,), (dy,))
     d = x.shape[-1]
     rows = x.numel() // d
-    n_partial = min(-(-rows // _ROWS_PER_BLOCK), _MAX_PARTIAL_BLOCKS)
+    # a persistent grid: as many blocks as the card holds, fewer where the rows are few
+    groups, fit = _backward_occupancy(x.device, d, _DTYPE_CODE[x.dtype])
+    n_partial = min(-(-rows // groups), fit)
     dx = torch.empty_like(x)
     dgamma = torch.empty(d, dtype=torch.float32, device=x.device)
     dbeta = torch.empty(d, dtype=torch.float32, device=x.device)
@@ -134,5 +153,6 @@ class _FusedLayerNorm(torch.autograd.Function):
 
 def fused_layernorm(x, gamma, beta, eps: float = 1e-5):
     """Differentiable LayerNorm over the last axis of a contiguous x; on CUDA
-    both directions are the kernels of `csrc/layernorm.cu`."""
+    both directions are the kernels of `csrc/layernorm.cu` and
+    `csrc/layernorm_bwd.cu`."""
     return _FusedLayerNorm.apply(x, gamma, beta, eps)

@@ -3,7 +3,9 @@ layernorm.py`, `nn/norm.py`): the plain versions and the autograd Function
 against the JAX package's Pallas kernels `fused_layernorm(..., interpret=True)`
 and their `jax.grad` (f32: y atol 1e-5; dx, dgamma, dbeta atol 1e-4, at row
 counts that are no multiple of the TPU kernel's 256-row block), and, on a CUDA
-card, the CUDA kernels against the plain versions.
+card, the CUDA kernels against the plain versions (D from 4 to 2048, one row
+to more rows than one pass of the backward's persistent grid, constant rows,
+both dtypes and both gamma dtypes; the backward bit-reproducible).
 
 JAX is imported inside the tests, so the CUDA cases also run where only
 PyTorch is installed: `python -m pytest --noconftest -m cuda tests/test_torch_*.py`.
@@ -105,13 +107,35 @@ def test_bf16_output_dtypes():
     torch.testing.assert_close(dx.float(), ref[0], atol=4e-2, rtol=0)  # one bf16 rounding, |dx| < 8
 
 
+def _constant_rows(x, dy, gamma):
+    """Every third row of x constant (variance 0), and dy, gamma on grids of
+    2^-4 so that the sums over those rows are exact in f32 in any order: their
+    dx is (dy g - mean(dy g)) rsqrt(eps), the same in every order of summation."""
+    x[::3] = 0.75
+    return np.round(dy * 16) / 16, np.round(gamma * 16) / 16
+
+
+# (shape, constant rows): one row; D = 4, 32, 1024, 2048; rows fewer than the
+# grid's blocks (21 at D = 1024); rows no multiple of a block's row groups;
+# bf16 rows of 8-byte vectors (D % 8 != 0); more rows than one pass of the
+# persistent grid covers ((8, 805, 1024), (1, 2050, 2048)); constant rows
+LN_CASES = [((8, 805, 1024), False), ((3, 101, 32), False), ((1, 2050, 2048), False),
+            ((5, 64), False), ((1, 4), False), ((37, 4), False), ((1, 1024), False),
+            ((3, 7, 1024), False), ((2, 3, 2048), False), ((300, 1028), False),
+            ((12, 1024), True), ((3, 5, 2048), True), ((40, 32), True)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,wdtype", [(torch.float32, torch.float32),
                                           (torch.bfloat16, torch.bfloat16),
-                                          (torch.bfloat16, torch.float32)])
-@pytest.mark.parametrize("shape", [(8, 805, 1024), (3, 101, 32), (1, 2050, 2048), (5, 64)])
-def test_cuda_kernels_match_plain(cuda_device, dtype, wdtype, shape):
-    x, gamma, beta, dy = (torch.from_numpy(a).to(cuda_device) for a in _inputs(5, shape))
+                                          (torch.bfloat16, torch.float32),
+                                          (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape,constant", LN_CASES)
+def test_cuda_kernels_match_plain(cuda_device, dtype, wdtype, shape, constant):
+    x, gamma, beta, dy = _inputs(5, shape)
+    if constant:
+        dy, gamma = _constant_rows(x.reshape(-1, shape[-1]), dy, gamma)
+    x, gamma, beta, dy = (torch.from_numpy(a).to(cuda_device) for a in (x, gamma, beta, dy))
     x, dy, gamma, beta = x.to(dtype), dy.to(dtype), gamma.to(wdtype), beta.to(wdtype)
     before = layernorm_forward.launches, layernorm_backward.launches
     y = layernorm_forward(x, gamma, beta)
