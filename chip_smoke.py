@@ -28,7 +28,13 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                differing outputs, beside that of the unrounded math), with the
                FMA family's bf16 time beside it, the f32 forward and backward
                at hd 256 / 512 (register-blocked) with the square-tile kernels'
-               times beside them, and both nearest-code searches (3xTF32 on the
+               times beside them, the f32 forward at hd 64 / 128 (3xTF32 on the
+               tensor cores; stage-2 validation's shape, 8 x 805 x 1024 causal,
+               and with lse at batch 2) with the square tiles' and SDPA's
+               times beside it, the patch entropy's windowed kernel with the
+               replaced one-block-per-patch kernel's time beside it and a
+               bound from the kernel values that are not +0 on its images, and
+               both nearest-code searches (3xTF32 on the
                tensor cores) with codes equal to the FMA search's bit for bit,
                the rows they rescored, the fast scores' distance from their
                bound, the FMA search's time beside them, and adversarial sets
@@ -91,7 +97,8 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                `--resume` for epoch 2; metric rows, falling loss, checkpoint
                files, the resumed run equal to the uninterrupted one bit for bit
                (final val_loss, a hash of the f32 masters), launch counters (the
-               pre-encode in bf16, validation in f32),
+               pre-encode in bf16, validation in f32 on the 3xTF32 forward, none
+               on the square tiles),
                seconds per epoch by `loop_buckets.json`
   9. fit1      the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
                8, two epochs of one step, resume)
@@ -365,6 +372,25 @@ def tensor_core_shape(torch, dtype, hd):
     return dtype == torch.bfloat16 and hd in _TC_HEAD_DIMS
 
 
+def f32_tc_shape(torch, dtype, hd):
+    """Whether the forward wrapper runs the 3xTF32 kernel
+    (`csrc/fused_attention_f32_tc.cu`) at this dtype and head dim."""
+    from dynamicvectorquantization_torch.ops.attention import _F32_TC_HEAD_DIMS
+
+    return dtype == torch.float32 and hd in _F32_TC_HEAD_DIMS
+
+
+def attention_bounds(torch, n_bytes, flops, dtype, f32tc):
+    """(bound ms, bound by, f32 FMA bound ms) of a forward: at the rate of the
+    input type (bf16: the tensor cores; f32: the FMA units), or, for the
+    3xTF32 kernel (`f32tc`), three TF32 products a product on the tensor
+    cores; and beside it at the f32 FMA rate."""
+    fma = bound(n_bytes, flops, "float32")[0]
+    if f32tc:
+        return (*bound(n_bytes, 3 * flops, "tf32"), fma)
+    return (*bound(n_bytes, flops, str(dtype).split(".")[-1]), fma)
+
+
 def wide_f32_shape(torch, dtype, hd):
     """Whether the wrappers run the register-blocked f32 kernels
     (`csrc/fused_attention_wide.cu`, `csrc/fused_attention_bwd_wide.cu`) at
@@ -383,15 +409,18 @@ def check_fused_attention(torch, dev):
     cases, dropout_cases = [], []
     # DQ-VAE AttnBlock at 32x32 (decoder and encoder; f32, one head), a
     # StackGPT-like causal bf16 shape (808 tokens, 8 heads), the encoder's
-    # AttnBlock at 16x16 (one head of 512 channels), and the first and third
-    # shapes in bf16 (the bf16 DQ-VAE's AttnBlocks); every bf16 shape on the
-    # tensor-core family, with the FMA family's time beside it
+    # AttnBlock at 16x16 (one head of 512 channels), the first and third
+    # shapes in bf16 (the bf16 DQ-VAE's AttnBlocks), and stage-2 validation on
+    # the f32 masters (805 tokens, 8 heads of 128, no lse: the 3xTF32 kernel);
+    # every bf16 shape on the tensor-core family, with the FMA family's time
+    # beside it, every f32 one with the square tiles' time beside it
     for (b, t, d), n_head, causal, dtype, tol in (
             ((8, 1024, 256), 1, False, torch.float32, 1e-4),
             ((8, 808, 1024), 8, True, torch.bfloat16, 2e-2),
             ((8, 256, 512), 1, False, torch.float32, 1e-4),
             ((8, 1024, 256), 1, False, torch.bfloat16, 2e-2),
-            ((8, 256, 512), 1, False, torch.bfloat16, 2e-2)):
+            ((8, 256, 512), 1, False, torch.bfloat16, 2e-2),
+            ((8, TRAIN_T, 1024), 8, True, torch.float32, 1e-4)):
         hd = d // n_head
         scale = hd ** -0.5
         g = torch.Generator(device=dev).manual_seed(1)
@@ -408,25 +437,30 @@ def check_fused_attention(torch, dev):
 
         tc = tensor_core_shape(torch, dtype, hd)
         wide = wide_f32_shape(torch, dtype, hd)
-        before = (fused_attention_forward.tc_launches, fused_attention_forward.wide_f32_launches)
+        f32tc = f32_tc_shape(torch, dtype, hd)
+        before = (fused_attention_forward.tc_launches, fused_attention_forward.wide_f32_launches,
+                  fused_attention_forward.f32_tc_launches)
         out = fused_attention_forward(*sets[0], n_head, scale, causal)
         again = fused_attention_forward(*sets[0], n_head, scale, causal)
         ref = fused_attention_forward_plain(*sets[0], n_head, scale, causal)
         torch.cuda.synchronize()
         require((fused_attention_forward.tc_launches - before[0],
-                 fused_attention_forward.wide_f32_launches - before[1])
-                == (2 * int(tc), 2 * int(wide)),
+                 fused_attention_forward.wide_f32_launches - before[1],
+                 fused_attention_forward.f32_tc_launches - before[2])
+                == (2 * int(tc), 2 * int(wide), 2 * int(f32tc)),
                 f"fused_attention_forward took the wrong kernel at {dtype} hd {hd}")
         err = (out.float() - ref.float()).abs().max().item()
         pairs = t * (t + 1) // 2 if causal else t * t
         dname = str(dtype).split(".")[-1]
-        bms, by = bound(4 * b * t * d * elem, 4 * b * n_head * pairs * hd, dname)
+        flops = 4 * b * n_head * pairs * hd
+        bms, by, bms_fma = attention_bounds(torch, 4 * b * t * d * elem, flops, dtype, f32tc)
+        route = ("wide f32" if wide else "tensor cores" if tc else "f32 tensor cores" if f32tc
+                 else "square tiles")
         case = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
                     n_head=n_head, causal=causal, dtype=dname,
-                    family="tensor cores" if tc else "FMA",
-                    route="wide f32" if wide else "tensor cores" if tc else "square tiles",
+                    family="tensor cores" if tc or f32tc else "FMA", route=route,
                     max_abs_err=err, tol=tol, bit_reproducible=bool(torch.equal(out, again)),
-                    bound_ms=bms, bound_by=by)
+                    gflop=flops / 1e9, bound_ms=bms, bound_by=by, bound_ms_f32_fma=bms_fma)
         del again
         if dtype == torch.bfloat16:  # F9, F10: rounded where the plain version rounds
             unrounded = fused_attention_forward_plain(*(z.float() for z in sets[0]), n_head,
@@ -446,7 +480,7 @@ def check_fused_attention(torch, dev):
             del fma_out, exact
             time_into(case, "fma_kernel", torch,
                       lambda *a: fma_forward(torch, *a, n_head, scale, causal), sets)
-        if wide:  # the square-tile kernel it replaced, at the same shape
+        if wide or f32tc:  # the square-tile kernel it replaced, at the same shape
             sq_out = fma_forward(torch, *sets[0], n_head, scale, causal)
             case["square_tiles_max_abs_err"] = (sq_out - ref).abs().max().item()
             del sq_out
@@ -493,7 +527,7 @@ def check_fused_attention(torch, dev):
             time_into(drop, "fma_kernel", torch,
                       lambda *a: fma_forward(
                           torch, *a, n_head, scale, causal, rate, seed=DROPOUT_SEED), sets)
-        if wide:
+        if wide or f32tc:
             time_into(drop, "square_tiles", torch,
                       lambda *a: fma_forward(
                           torch, *a, n_head, scale, causal, rate, seed=DROPOUT_SEED), sets)
@@ -507,9 +541,10 @@ def check_fused_attention(torch, dev):
 
 def check_attention_dropout(torch, dev):
     """What the dropout masks are, apart from agreeing with the plain version:
-    per tile family of the forward and backward kernels (FMA family in f32:
-    hd 64 / 128: 64-row tiles; hd 256: 64- and 32-row; hd 512: 32- and
-    16-row; tensor-core family in bf16 at hd 64 / 128 / 256 / 512, where unit
+    per tile family of the forward and backward kernels (f32 at hd 64 / 128:
+    the 3xTF32 forward's 64 x 32 tiles in its own key order and the square
+    tiles' 64-row backward; hd 256: 64- and 32-row; hd 512: 32- and 16-row;
+    tensor-core family in bf16 at hd 64 / 128 / 256 / 512, where unit
     vectors and uniform probabilities are exact) the mask recovered
     from the kernel equals `dropout_keep_mask` bit for bit (uniform
     probabilities, V rows that are unit vectors: output column c of row r is
@@ -525,6 +560,7 @@ def check_attention_dropout(torch, dev):
     tc_before = (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches)
     wide_before = (fused_attention_forward.wide_f32_launches,
                    fused_attention_backward.wide_f32_launches)
+    f32_tc_before = fused_attention_forward.f32_tc_launches
     for hd, t, dtype in ((64, 300, torch.float32), (128, 805, torch.float32),
                          (256, 300, torch.float32), (512, 300, torch.float32),
                          (64, 300, torch.bfloat16), (128, 805, torch.bfloat16),
@@ -552,13 +588,16 @@ def check_attention_dropout(torch, dev):
             sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
             families.append(dict(hd=hd, t=t, rate=rate, dtype=str(dtype).split(".")[-1],
                                  family="tensor cores" if tensor_core_shape(torch, dtype, hd)
-                                 else "FMA", forward_mask_equal=fwd_equal,
+                                 else "FMA", forward_route="f32 tensor cores"
+                                 if f32_tc_shape(torch, dtype, hd) else None,
+                                 forward_mask_equal=fwd_equal,
                                  backward_mask_equal=bwd_equal, kept_share=kept,
                                  kept_share_sigmas=abs(kept - (1 - rate)) / sigma))
     tc_probes = (fused_attention_forward.tc_launches - tc_before[0],
                  fused_attention_backward.tc_launches - tc_before[1])
     wide_probes = (fused_attention_forward.wide_f32_launches - wide_before[0],
                    fused_attention_backward.wide_f32_launches - wide_before[1])
+    f32_tc_probes = fused_attention_forward.f32_tc_launches - f32_tc_before
     g = torch.Generator(device=dev).manual_seed(14)
     q, k, v = (torch.randn((2, TRAIN_T, 1024), generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
@@ -567,6 +606,7 @@ def check_attention_dropout(torch, dev):
 
     res = dict(phase="kernels", kernel="attention_dropout_mask", families=families,
                tensor_core_probe_launches=tc_probes, wide_f32_probe_launches=wide_probes,
+               f32_tc_probe_launches=f32_tc_probes,
                same_seed_bit_identical=bool(torch.equal(run(5), run(5))),
                seeds_differ=not torch.equal(run(5), run(6)),
                rate0_ignores_seed=bool(torch.equal(run(5, 0.0), fused_attention_forward(
@@ -582,6 +622,10 @@ def check_attention_dropout(torch, dev):
     require(wide_probes == (wide, wide),
             f"the f32 probes at hd 256 / 512 did not all run the register-blocked kernels: "
             f"{wide_probes}, expected {(wide, wide)}")
+    f32_tc = 2 * sum(-(-t // hd) for hd, t in ((64, 300), (128, 805)))
+    require(f32_tc_probes == f32_tc,
+            f"the f32 forward probes at hd 64 / 128 did not all run the 3xTF32 kernel: "
+            f"{f32_tc_probes}, expected {f32_tc}")
     require(all(f["kept_share_sigmas"] <= 3.0 for f in families),
             f"kept share off 1 - rate by more than 3 sigma: {families}")
     require(res["same_seed_bit_identical"] and res["seeds_differ"] and res["rate0_ignores_seed"],
@@ -851,11 +895,56 @@ def smooth_and_noisy_images(torch, dev, g, b=8, size=256):
     return x.contiguous()
 
 
+def block_patch_entropy(torch, images, p=16, nb=32, sigma=0.01, bin_range=(-1.0, 1.0)):
+    """The replaced one-block-per-patch entropy kernel (`csrc/patch_entropy.cu`
+    `dqvq_patch_entropy_block`, a lane per bin over every pixel) called
+    directly: the time before the windowed kernel, for comparison in the same
+    call. Launches are not counted."""
+    from dynamicvectorquantization_torch.ops import cuda_lib
+
+    b, h, w, _ = images.shape
+    out = torch.empty((b, h // p, w // p), dtype=torch.float32, device=images.device)
+    err = cuda_lib.lib().dqvq_patch_entropy_block(
+        images.data_ptr(), out.data_ptr(), b, h, w, p, nb, float(bin_range[0]),
+        float(bin_range[1]), 1.0 / (nb - 1), 1.0 / sigma,
+        1 if images.dtype == torch.bfloat16 else 0, torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(err, "block_patch_entropy")
+    return out
+
+
+def kernel_value_counts(torch, images, nb=32, sigma=0.01, bin_range=(-1.0, 1.0)):
+    """(values not +0 in f32, values the windowed kernel evaluates, nonzero
+    values outside the kernel's windows) over every pixel and bin, with the
+    plain version's arithmetic (`patch_entropy_plain`) and the kernel's window
+    (`window_of`)."""
+    from dynamicvectorquantization_torch.ops.entropy import (
+        bin_centres, gray_image, window_half_width, window_of)
+
+    gray = gray_image(images).reshape(-1)
+    bins = bin_centres(nb, float(bin_range[0]), float(bin_range[1]), images.device)
+    j = torch.arange(nb, device=images.device, dtype=torch.float32)
+    half = window_half_width(nb, sigma, bin_range)
+    nonzero = evaluated = outside = 0
+    for chunk in gray.split(1 << 18):
+        r = (chunk[:, None] - bins) * (1.0 / sigma)
+        live = torch.exp(-0.5 * r * r) > 0
+        first, last = window_of(chunk, nb, bin_range, half)
+        inside = (j >= first[:, None]) & (j <= last[:, None])
+        nonzero += int(live.sum())
+        evaluated += int(inside.sum())
+        outside += int((live & ~inside).sum())
+    return nonzero, evaluated, outside
+
+
 def check_patch_entropy(torch, dev):
     """Kernel #3 on f32 images and on bf16 images (the first stage in bf16,
     whose gray image the kernel rounds as the JAX package does); returns the
-    two cases."""
-    from dynamicvectorquantization_torch.ops.entropy import patch_entropy, patch_entropy_plain
+    two cases. The bound counts the bytes (image read once, map written once)
+    and six f32 operations for each kernel value that is not +0 in f32 on
+    these images (the only ones the work needs); the replaced one-block-per-
+    patch kernel is timed beside it (`before_ms`)."""
+    from dynamicvectorquantization_torch.ops.entropy import (
+        patch_entropy, patch_entropy_plain, window_half_width)
 
     b, size, p, nb = 8, 256, 16, 32
     tol = 1e-5  # f32 sums of 256 kernel values and 32 p log p terms in another order
@@ -866,20 +955,37 @@ def check_patch_entropy(torch, dev):
         sets = [(smooth_and_noisy_images(torch, dev, g).to(dtype),)
                 for _ in range(n_sets(b * size * size * 3 * elem))]
         out = patch_entropy(*sets[0])
+        again = patch_entropy(*sets[0])
         ref = patch_entropy_plain(*sets[0])
+        before = block_patch_entropy(torch, *sets[0])
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
+        nonzero, evaluated, outside = kernel_value_counts(torch, *sets[0])
         n_exp = b * size * size * nb
-        # each kernel value: subtract, multiply, two multiplies, exp, add (6 f32 ops)
-        bms, by = bound(b * size * size * 3 * elem + b * (size // p) ** 2 * 4, 6 * n_exp,
-                        "float32")
+        # each nonzero kernel value: subtract, multiply, two multiplies, exp, add (6 f32 ops)
+        n_bytes = b * size * size * 3 * elem + b * (size // p) ** 2 * 4
+        bms, by = bound(n_bytes, 6 * nonzero, "float32")
         case = dict(phase="kernels", kernel="patch_entropy", shape=[b, size, size, 3], patch=p,
                     bins=nb, dtype=str(dtype).split(".")[-1], max_abs_err=err, tol=tol,
-                    bound_ms=bms, bound_by=by, exponentials=n_exp, library_ms=None)
+                    bit_reproducible=bool(torch.equal(out, again)),
+                    before_max_abs_err=(before - ref).abs().max().item(),
+                    bound_ms=bms, bound_by=by, bytes_bound_ms=bound(n_bytes, 0, "float32")[0],
+                    exponentials=n_exp, nonzero_kernel_values=nonzero,
+                    evaluated_kernel_values=evaluated, nonzero_outside_window=outside,
+                    window_half_width=window_half_width(nb, 0.01, (-1.0, 1.0)),
+                    all_values_bound_ms=bound(n_bytes, 6 * n_exp, "float32")[0],
+                    library_ms=None)
         time_into(case, "kernel", torch, patch_entropy, sets, only="patch_entropy")
+        time_into(case, "before", torch, lambda x: block_patch_entropy(torch, x), sets,
+                  only="patch_entropy")
         time_into(case, "plain", torch, patch_entropy_plain, sets)
+        case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
         emit(case)
         require(err <= tol, f"patch_entropy disagrees in {dtype}: {err}")
+        require(case["before_max_abs_err"] <= tol,
+                f"the replaced entropy kernel disagrees in {dtype}: {case['before_max_abs_err']}")
+        require(case["bit_reproducible"], f"patch_entropy is not bit-reproducible in {dtype}")
+        require(outside == 0, f"the window skips nonzero kernel values: {case}")
         cases.append(case)
     return cases
 
@@ -1145,7 +1251,9 @@ def check_attention_backward(torch, dev):
     # the stage-2 training shape in bf16; the same in f32 at batch 2; one non-causal head,
     # ragged tiles; the DQ-VAE's conv AttnBlocks in stage-1 training: one non-causal f32
     # head of 256 channels over 32 x 32 positions, and of 512 over 16 x 16, in f32 and
-    # in bf16 (every bf16 shape on the tensor cores, with the FMA family's times beside it)
+    # in bf16 (every bf16 shape on the tensor cores, with the FMA family's times beside it;
+    # the f32 forward at hd 64 / 128 on the 3xTF32 kernel, the square tiles' time beside it,
+    # and its lse feeding the square-tile backward)
     for (b, t, d), n_head, causal, dtype in (
             ((8, TRAIN_T, 1024), 8, True, torch.bfloat16),
             ((2, TRAIN_T, 1024), 8, True, torch.float32),
@@ -1169,6 +1277,7 @@ def check_attention_backward(torch, dev):
         q, k, v, y, lse, dy = sets[0]
         tc = tensor_core_shape(torch, dtype, hd)
         wide = wide_f32_shape(torch, dtype, hd)
+        f32tc = f32_tc_shape(torch, dtype, hd)
         family = "tensor cores" if tc else "FMA"
         before = (fused_attention_backward.tc_launches, fused_attention_backward.wide_f32_launches)
         y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, True)
@@ -1198,12 +1307,14 @@ def check_attention_backward(torch, dev):
             del qf, kf, vf, dyf, yf, lsef, unrounded
         pairs = t * (t + 1) // 2 if causal else t * t
         fwd = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
-                   n_head=n_head, causal=causal, dtype=dname, family=family,
-                   route="wide f32" if wide else "tensor cores" if tc else "square tiles",
-                   with_lse=True,
+                   n_head=n_head, causal=causal, dtype=dname,
+                   family="tensor cores" if tc or f32tc else "FMA",
+                   route=("wide f32" if wide else "tensor cores" if tc else "f32 tensor cores"
+                          if f32tc else "square tiles"), with_lse=True,
                    max_abs_err=err_y, lse_err=err_lse, tol=f"{atol} + {rtol} |ref|; lse 1e-4")
-        fwd["bound_ms"], fwd["bound_by"] = bound(
-            4 * b * t * d * elem + 4 * b * n_head * t, 4 * b * n_head * pairs * hd, dname)
+        fwd["bound_ms"], fwd["bound_by"], fwd["bound_ms_f32_fma"] = attention_bounds(
+            torch, 4 * b * t * d * elem + 4 * b * n_head * t, 4 * b * n_head * pairs * hd, dtype,
+            f32tc)
         time_into(fwd, "kernel", torch,
                   lambda q_, k_, v_, *_: fused_attention_forward(
                       q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
@@ -1221,7 +1332,7 @@ def check_attention_backward(torch, dev):
             time_into(fwd, "fma_kernel", torch,
                       lambda q_, k_, v_, *_: fma_forward(
                           torch, q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
-        if wide:  # the square-tile forward the register-blocked one replaced
+        if wide or f32tc:  # the square-tile forward the register-blocked / 3xTF32 one replaced
             time_into(fwd, "square_tiles", torch,
                       lambda q_, k_, v_, *_: fma_forward(
                           torch, q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
@@ -1337,11 +1448,12 @@ def check_attention_backward(torch, dev):
             time_into(dbwd, "fma_kernel", torch,
                       lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
                       dsets, iters=10)
-        if wide:
+        if wide or f32tc:
             time_into(dfwd, "square_tiles", torch,
                       lambda q_, k_, v_, *_: fma_forward(
                           torch, q_, k_, v_, n_head, scale, causal, rate, True, DROPOUT_SEED),
                       dsets)
+        if wide:
             time_into(dbwd, "before", torch,
                       lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
                       dsets, iters=10)
@@ -1548,7 +1660,8 @@ BF16_SPLIT = ("strided_conv3x3_down", "patch_entropy")
 def reset_launches():
     for fn in wrappers().values():
         for attr in ("launches", "tc_launches", "fma_launches", "wide_f32_launches",
-                     "dropout_launches", "bf16_launches", "f32_blocked_launches"):
+                     "f32_tc_launches", "dropout_launches", "bf16_launches",
+                     "f32_blocked_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -1557,8 +1670,10 @@ def read_launches():
     """Launches per kernel since `reset_launches`. The attention wrappers
     have two kernel families: `<name>` counts the FMA family's launches,
     `<name>_wide_f32` those of them on the register-blocked f32 kernel (hd 256
-    / 512), `<name>_tc` the tensor-core family's, and `<name>_dropout` those
-    of both that drew a dropout mask. The downsample and entropy wrappers have
+    / 512), `<name>_square_tiles` the rest of them, `<name>_tc` the bf16
+    tensor-core family's, and `<name>_dropout` those of every kernel that
+    drew a dropout mask; `fused_attention_forward_f32_tc` counts the 3xTF32
+    forward's (f32 at hd 64 / 128). The downsample and entropy wrappers have
     two instantiations: `<name>` counts the f32 launches, `<name>_bf16` the
     bf16 ones; `strided_conv3x3_down_tc` counts those of the bf16 launches
     that ran the tensor-core kernel, `strided_conv3x3_down_f32_blocked` those
@@ -1568,8 +1683,10 @@ def read_launches():
         fn = wrappers()[name]
         counts[name] = fn.fma_launches
         counts[f"{name}_wide_f32"] = fn.wide_f32_launches
+        counts[f"{name}_square_tiles"] = fn.fma_launches - fn.wide_f32_launches
         counts[f"{name}_tc"] = fn.tc_launches
         counts[f"{name}_dropout"] = fn.dropout_launches
+    counts["fused_attention_forward_f32_tc"] = wrappers()[ATTENTION[0]].f32_tc_launches
     for name in BF16_SPLIT:
         fn = wrappers()[name]
         counts[name] = fn.launches - fn.bf16_launches
@@ -2288,7 +2405,7 @@ def _sha256(torch, tensors):
 
 
 def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, state_of, val_key,
-                    expect_launched, gb_needed, grids):
+                    expect_launched, gb_needed, grids, expect_not_launched=()):
     """Three runs of the port's training command line on `config` at full
     width and depth, in-process: (A) two epochs in one run, logging image
     grids; (B) the same stopped after epoch 1; (C) `--resume` of B for epoch
@@ -2388,6 +2505,8 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
                             f"{res['final_val_whole']} vs {res['final_val_resumed']}")
     for name in expect_launched:
         require(launches[name] > 0, f"{phase}: {name} was not launched")
+    for name in expect_not_launched:
+        require(launches[name] == 0, f"{phase}: {name} was launched {launches[name]} times")
     return res
 
 
@@ -2408,8 +2527,8 @@ def fit(torch, card):
          "fused_attention_backward_tc", "layernorm_forward", "layernorm_backward", "fused_adamw",
          "strided_conv3x3_down", "strided_conv3x3_down_bf16", "strided_conv3x3_down_tc",
          "patch_entropy_bf16", "fused_attention_forward_wide_f32",
-         "strided_conv3x3_down_f32_blocked"),
-        gb_needed=12, grids=8)
+         "strided_conv3x3_down_f32_blocked", "fused_attention_forward_f32_tc"),
+        gb_needed=12, grids=8, expect_not_launched=("fused_attention_forward_square_tiles",))
 
 
 def fit1(torch, card):
@@ -2506,7 +2625,8 @@ def main():
     # the register-blocked kernels (and the tensor-core nearest-code search, the LayerNorm
     # backward's rows, the int8 decode attention) hold their blocks in registers: none may spill
     keys = ("attention_fwd_wide", "attention_bwd_wide", "strided_conv_down_f32",
-            "vq_nearest_tc", "layernorm_bwd_rows", "decode_attention_int8")
+            "vq_nearest_tc", "layernorm_bwd_rows", "decode_attention_int8",
+            "attention_fwd_f32_tc")
     blocked = {name: use for name, use in ptxas.items() if any(key in name for key in keys)}
     require(len(blocked) >= 10 and all(not use.get("spill_stores") and not use.get("spill_loads")
                                       for use in blocked.values()),
@@ -2596,16 +2716,21 @@ def main():
                   "gflop", "mismatch_share", "unrounded_mismatch_share", "mismatch_tol",
                   "forward_mismatch_share", "fma_max_abs_err", "f64_mismatch_share",
                   "before_ms", "before_ms_spread", "route", "square_tiles_ms",
-                  "square_tiles_ms_spread", "square_tiles_max_abs_err", "lse_err")
+                  "square_tiles_ms_spread", "square_tiles_max_abs_err", "lse_err",
+                  "bound_ms_f32_fma", "with_lse")
+    entropy_keys = ("before_ms", "before_ms_spread", "bound_share", "bytes_bound_ms",
+                    "all_values_bound_ms", "exponentials", "nonzero_kernel_values",
+                    "evaluated_kernel_values", "window_half_width", "bit_reproducible")
     attn_src = "dynamicvectorquantization_tpu/ops/attention_pallas.py"
     src_dir = "dynamicvectorquantization_torch/csrc"
     # the attention cases: forward (a) f32 hd 256, t808 bf16 (tensor cores), (b) f32 hd 512,
-    # (a) and (b) in bf16; with lse (c) bf16 (tensor cores), f32 batch 2, hd 64, hd 256,
-    # hd 512, hd 256 and hd 512 bf16; each also at rate 0.1 (the `_drop` lists)
-    fwd_a, fwd_t808, fwd_b, fwd_a16, fwd_b16 = attn_cases
-    dfwd_a, dfwd_t808, dfwd_b, dfwd_a16, dfwd_b16 = attn_drop_cases
+    # (a) and (b) in bf16, stage-2 validation in f32 (3xTF32); with lse (c) bf16 (tensor
+    # cores), f32 batch 2 (3xTF32), hd 64 (3xTF32), hd 256, hd 512, hd 256 and hd 512 bf16;
+    # each also at rate 0.1 (the `_drop` lists)
+    fwd_a, fwd_t808, fwd_b, fwd_a16, fwd_b16, fwd_val = attn_cases
+    dfwd_a, dfwd_t808, dfwd_b, dfwd_a16, dfwd_b16, dfwd_val = attn_drop_cases
     fwd_c, fwd_c32, fwd_64, fwd_256, fwd_512, fwd_256b, fwd_512b = attn_train_cases
-    dfwd_c, _, _, _, dfwd_512, _, _ = attn_train_drop_cases
+    dfwd_c, dfwd_c32, dfwd_64, _, dfwd_512, _, _ = attn_train_drop_cases
     bwd_c, bwd_c32, bwd_64, bwd_256, bwd_512, bwd_256b, bwd_512b = attn_bwd_cases
     dbwd_c, dbwd_c32, dbwd_64, dbwd_256, dbwd_512, dbwd_256b, dbwd_512b = attn_bwd_drop_cases
     kernels = []
@@ -2640,8 +2765,23 @@ def main():
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                  ("a_rate0.1", dfwd_a), ("b_hd512_f32", fwd_b), ("b_hd512_f32_rate0.1", dfwd_b),
                  ("a_hd256_with_lse", fwd_256), ("b_hd512_with_lse", fwd_512),
-                 ("b_hd512_with_lse_rate0.1", dfwd_512),
-                 ("c_f32_b2_with_lse", fwd_c32))}}),
+                 ("b_hd512_with_lse_rate0.1", dfwd_512))}}),
+            # f32 at hd 64 / 128 (the StackGPT's f32 masters: every stage-2 validation
+            # batch; f32 stage-2 training), 3xTF32 on the tensor cores; main: the validation
+            # shape; the square tiles of fused_attention.cu it replaced timed beside each case
+            ("fused_attention_forward_f32_tc", "fused_attention_f32_tc.cu", f"{attn_src}:82",
+             fwd_val,
+             {"family": "tensor cores", "kernel_route": fwd_val["route"],
+              "square_tiles_source": f"{src_dir}/fused_attention.cu",
+              "square_tiles_ms": fwd_val["square_tiles_ms"],
+              "square_tiles_ms_spread": fwd_val["square_tiles_ms_spread"],
+              "bound_ms_f32_fma": fwd_val["bound_ms_f32_fma"], "gflop": fwd_val["gflop"],
+              "bit_reproducible": fwd_val["bit_reproducible"],
+              "library_ms_spread": fwd_val["library_ms_spread"],
+              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+                  ("validation_rate0.1", dfwd_val), ("c_f32_b2_with_lse", fwd_c32),
+                  ("c_f32_b2_with_lse_rate0.1", dfwd_c32), ("hd64_t300_with_lse", fwd_64),
+                  ("hd64_t300_with_lse_rate0.1", dfwd_64))}}),
             # the tensor-core family: bf16 at hd 64 / 128 (this file) and 256 / 512
             # (fused_attention_tc_wide.cu, through this file's entry point); main: the
             # stage-2 training shape (c) at the shipped rate 0.1, with lse; the FMA
@@ -2712,12 +2852,15 @@ def main():
                                             "empty_clusters", "adversarial")}
              | {"stats_source": f"{src_dir}/vq_stats.cu",
                 "fma_source": f"{src_dir}/vq_nearest.cu"}),
+            # a warp per patch over windows of bins; before_ms: the replaced one-block-per-
+            # patch design at the same inputs; the bound counts the nonzero kernel values
             ("patch_entropy", "patch_entropy.cu",
-             "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy_case, {}),
+             "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy_case,
+             pick(entropy_case, *entropy_keys)),
             # bf16 images: the gray image rounded as the JAX package rounds it
             ("patch_entropy_bf16", "patch_entropy.cu",
              "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy16_case,
-             {"dtype": "bfloat16"}),
+             pick(entropy16_case, *entropy_keys) | {"dtype": "bfloat16"}),
             # f32 with C % 4 == 0 (every f32 Downsample): the blocked f32 kernel, weight
             # pack included; other C: the FMA kernel (`fma_source`), timed at the same
             # shapes (`fma_kernel_ms`) and equal to it bit for bit

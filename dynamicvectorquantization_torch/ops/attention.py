@@ -5,17 +5,21 @@ Counterpart of `dynamicvectorquantization_tpu/ops/attention_pallas.py`
 (`fused_causal_attention` and its VJP). `fused_attention_forward` launches a
 CUDA kernel for CUDA tensors and runs its plain version,
 `fused_attention_forward_plain`, for CPU tensors; `fused_attention_backward`
-does the same with `fused_attention_backward_plain`. Each has two kernel
-families, chosen by dtype and head dim: bf16 at hd 64, 128, 256 and 512 runs
+does the same with `fused_attention_backward_plain`. The kernel a call runs is
+chosen by dtype and head dim (`_route`). bf16 at hd 64, 128, 256 and 512 runs
 on the tensor cores (hd 64 / 128, the StackGPT's heads in stage-2 training:
 `csrc/fused_attention_tc.cu`, `csrc/fused_attention_bwd_tc.cu`; hd 256 / 512,
 the DQ-VAE's AttnBlocks in bf16: `csrc/fused_attention_tc_wide.cu`,
-`csrc/fused_attention_bwd_tc_wide.cu`, through the same entry points),
-everything else (f32 at every head dim, so the DQ-VAE's AttnBlocks in f32;
-bf16 at hd 16 and 32) on the FMA units: f32 at hd 256 and 512 in the
-register-blocked `csrc/fused_attention_wide.cu` and
-`csrc/fused_attention_bwd_wide.cu` (`_wide_f32`), the rest on the square
-tiles of `csrc/fused_attention.cu` and `csrc/fused_attention_bwd.cu`. In
+`csrc/fused_attention_bwd_tc_wide.cu`, through the same entry points). The
+f32 forward at hd 64 and 128 (the StackGPT's f32 masters in stage-2
+validation) runs on the tensor cores as three TF32 products a product
+(`csrc/fused_attention_f32_tc.cu`, f32 accuracy). Everything else (f32 at hd
+256 / 512, so the DQ-VAE's AttnBlocks in f32; the f32 backward at hd 16 -
+128; the f32 forward at hd 16 / 32; bf16 at hd 16 and 32) runs on the FMA
+units: f32 at hd 256 and 512 in the register-blocked
+`csrc/fused_attention_wide.cu` and `csrc/fused_attention_bwd_wide.cu`
+(`_wide_f32`), the rest on the square tiles of `csrc/fused_attention.cu` and
+`csrc/fused_attention_bwd.cu`. In
 bf16 both families round where the TPU kernel rounds: the probabilities to
 bf16 before P V, relative to the row's final max (so the bf16 forwards are
 two-pass), and D and dS before their products; the bf16 plain versions make
@@ -50,6 +54,7 @@ _FORWARD_HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 _BACKWARD_HEAD_DIMS = _FORWARD_HEAD_DIMS
 _TC_HEAD_DIMS = (64, 128, 256, 512)  # bf16 head dims of the tensor-core family
 _WIDE_F32_HEAD_DIMS = (256, 512)  # f32 head dims of the register-blocked kernels
+_F32_TC_HEAD_DIMS = (64, 128)  # f32 head dims of the 3xTF32 forward
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -249,36 +254,49 @@ def _tensor_cores(tensors, n_head) -> bool:
     return True
 
 
-def _wide_f32(tensors, n_head, name="fused attention") -> bool:
-    """Whether a call runs the register-blocked f32 kernels
-    (`csrc/fused_attention_wide.cu`, `csrc/fused_attention_bwd_wide.cu`): f32
-    at hd 256 or 512. They copy their rows 16 bytes at a time, so this raises
-    on a tensor that does not start on a 16-byte boundary instead of sending
-    it to the square tiles."""
+def _f32_kernel(tensors, n_head, name, head_dims) -> bool:
+    """Whether an f32 call at one of `head_dims` takes a kernel that copies
+    its rows 16 bytes at a time; raises on a tensor that does not start on a
+    16-byte boundary instead of sending it to the square tiles."""
     q = tensors[0]
     hd = q.shape[2] // n_head
-    if q.dtype != torch.float32 or hd not in _WIDE_F32_HEAD_DIMS:
+    if q.dtype != torch.float32 or hd not in head_dims:
         return False
     if any(x.data_ptr() % 16 for x in tensors):
         raise ValueError(f"{name}: f32 tensors at hd {hd} must start on a 16-byte boundary")
     return True
 
 
-def _route(tensors, n_head, name) -> str:
+def _wide_f32(tensors, n_head, name="fused attention") -> bool:
+    """Whether a call runs the register-blocked f32 kernels
+    (`csrc/fused_attention_wide.cu`, `csrc/fused_attention_bwd_wide.cu`): f32
+    at hd 256 or 512 (`_f32_kernel`)."""
+    return _f32_kernel(tensors, n_head, name, _WIDE_F32_HEAD_DIMS)
+
+
+def _route(tensors, n_head, name, forward=True) -> str:
     """The kernel a call runs: "tensor cores" (bf16 at hd 64 / 128 / 256 /
-    512), "wide f32" (f32 at hd 256 / 512, register-blocked) or "square tiles"
-    (the rest of the FMA family); raises where the first two take the dtype
-    and head dim but not the tensors' alignment."""
+    512), "wide f32" (f32 at hd 256 / 512, register-blocked), for the forward
+    "f32 tensor cores" (f32 at hd 64 / 128, 3xTF32), or "square tiles" (the
+    rest of the FMA family, and the f32 backward at hd 64 / 128); raises where
+    a kernel other than the square tiles takes the dtype and head dim but not
+    the tensors' alignment."""
     if _tensor_cores(tensors, n_head):
         return "tensor cores"
-    return "wide f32" if _wide_f32(tensors, n_head, name) else "square tiles"
+    if _wide_f32(tensors, n_head, name):
+        return "wide f32"
+    if forward and _f32_kernel(tensors, n_head, name, _F32_TC_HEAD_DIMS):
+        return "f32 tensor cores"
+    return "square tiles"
 
 
 def _count(wrapper, route, rate):
     wrapper.launches += 1
     wrapper.tc_launches += route == "tensor cores"
-    wrapper.fma_launches += route != "tensor cores"
+    wrapper.fma_launches += route in ("wide f32", "square tiles")
     wrapper.wide_f32_launches += route == "wide f32"
+    if route == "f32 tensor cores":  # the forward's alone
+        wrapper.f32_tc_launches += 1
     wrapper.dropout_launches += rate > 0.0
 
 
@@ -298,10 +316,11 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
     256, 512}; f32 or bf16. Returns (B, T, D) in q's dtype, and with
     `return_lse` also the rows' log-sum-exp (B, H, T) f32.
     `fused_attention_forward.launches` counts kernel launches,
-    `.tc_launches` / `.fma_launches` those of each family,
-    `.wide_f32_launches` those of the FMA family's that ran the
-    register-blocked f32 kernel (hd 256 / 512) and `.dropout_launches` those
-    at `rate > 0`."""
+    `.tc_launches` those of the bf16 tensor-core family, `.fma_launches` those
+    of the FMA family, `.wide_f32_launches` those of the FMA family's that ran
+    the register-blocked f32 kernel (hd 256 / 512), `.f32_tc_launches` those
+    of the 3xTF32 kernel (f32 at hd 64 / 128, in neither family) and
+    `.dropout_launches` those at `rate > 0`."""
     rate, seed = _dropout_args(rate, seed)
     tensors = (q, k, v)
     if all(x.device.type == "cpu" for x in tensors):
@@ -325,6 +344,10 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
         err = cuda_lib.lib().dqvq_fused_attention_forward_wide_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
             float(scale), int(bool(causal)), rate, seed, stream)
+    elif route == "f32 tensor cores":
+        err = cuda_lib.lib().dqvq_fused_attention_forward_f32_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
+            float(scale), int(bool(causal)), rate, seed, stream)
     else:
         err = cuda_lib.lib().dqvq_fused_attention_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
@@ -338,6 +361,7 @@ fused_attention_forward.launches = 0
 fused_attention_forward.tc_launches = 0  # those of `launches` on the tensor-core family
 fused_attention_forward.fma_launches = 0  # those on the FMA family
 fused_attention_forward.wide_f32_launches = 0  # those of the FMA family's on the wide f32 kernel
+fused_attention_forward.f32_tc_launches = 0  # those on the 3xTF32 kernel (f32 hd 64 / 128)
 fused_attention_forward.dropout_launches = 0  # those of `launches` that drew a mask
 
 
@@ -366,7 +390,7 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    route = _route(tensors + (dq, dk, dv), n_head, "fused_attention_backward")
+    route = _route(tensors + (dq, dk, dv), n_head, "fused_attention_backward", forward=False)
     if route == "tensor cores":
         err = cuda_lib.lib().dqvq_fused_attention_backward_tc(
             *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)

@@ -48,6 +48,7 @@ SIGNATURES = {
     "dqvq_fused_attention_backward": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
     "dqvq_fused_attention_backward_wide_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_fused_attention_forward_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _D, _U, _P),
+    "dqvq_fused_attention_forward_f32_tc": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_fused_attention_forward_wide_f32": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_fused_attention_backward_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_layernorm_forward": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
@@ -59,7 +60,8 @@ SIGNATURES = {
     "dqvq_vq_nearest_fma": (_P,) * 5 + (_I, _I, _I, _P),
     "dqvq_vq_nearest_tc_scores": (_P,) * 7 + (_I, _I, _I, _P),
     "dqvq_vq_workspace_bytes": (_I, _I, _I, _I),
-    "dqvq_patch_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
+    "dqvq_patch_entropy": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P),
+    "dqvq_patch_entropy_block": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P),
     "dqvq_strided_conv_down": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "dqvq_strided_conv_down_tc_pack": (_P, _P, _P, _I, _I, _P),
     "dqvq_strided_conv_down_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),

@@ -622,22 +622,29 @@ def test_cuda_tensor_core_masks_equal_dropout_keep_mask(cuda_device, hd, t):
 @pytest.mark.cuda
 def test_cuda_each_family_counts_only_its_own_shapes(cuda_device):
     """bf16 at hd 64, 128, 256, 512 -> tensor cores; f32 at any hd and bf16
-    at hd 16, 32 -> FMA units."""
+    at hd 16, 32 -> FMA units, except the f32 forward at hd 64 / 128, which
+    runs the 3xTF32 kernel (`f32_tc_launches`, in neither family) while its
+    backward stays on the FMA units."""
     cases = [(torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
              (torch.float32, 64, False), (torch.float32, 128, False),
              (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
              (torch.bfloat16, 256, True), (torch.bfloat16, 512, True),
-             (torch.float32, 256, False), (torch.float32, 512, False)]
+             (torch.float32, 256, False), (torch.float32, 512, False),
+             (torch.float32, 16, False), (torch.float32, 32, False)]
     for dtype, hd, tc in cases:
         q, k, v, dy = (torch.randn((1, 70, 2 * hd), device=cuda_device).to(dtype)
                        for _ in range(4))
-        fwd = (fused_attention_forward.tc_launches, fused_attention_forward.fma_launches)
+        f32tc = dtype == torch.float32 and hd in (64, 128)
+        fwd = (fused_attention_forward.tc_launches, fused_attention_forward.fma_launches,
+               fused_attention_forward.f32_tc_launches)
         bwd = (fused_attention_backward.tc_launches, fused_attention_backward.fma_launches)
         y, lse = fused_attention_forward(q, k, v, 2, causal=True, return_lse=True)
         fused_attention_backward(q, k, v, y, lse, dy, 2, causal=True)
         want = (1, 0) if tc else (0, 1)
         assert (fused_attention_forward.tc_launches - fwd[0],
-                fused_attention_forward.fma_launches - fwd[1]) == want, (dtype, hd)
+                fused_attention_forward.fma_launches - fwd[1],
+                fused_attention_forward.f32_tc_launches - fwd[2]) == (
+            (0, 0, 1) if f32tc else (*want, 0)), (dtype, hd)
         assert (fused_attention_backward.tc_launches - bwd[0],
                 fused_attention_backward.fma_launches - bwd[1]) == want, (dtype, hd)
     misaligned = torch.zeros(1 + 70 * 128, device=cuda_device, dtype=torch.bfloat16)[1:]
@@ -697,9 +704,31 @@ def test_cuda_f32_wide_backward_masks_equal_dropout_keep_mask(cuda_device, hd, t
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_by_dtype_and_head_dim(dtype, hd):
-    """Both wrappers pick their kernel by `_route`: bf16 at hd 64 - 512 ->
-    the tensor cores; f32 at hd 256 / 512 -> the register-blocked f32
-    kernels (forward and backward); the rest -> the square tiles."""
+    """The forward picks its kernel by `_route`: bf16 at hd 64 - 512 -> the
+    tensor cores; f32 at hd 256 / 512 -> the register-blocked f32 kernel; f32
+    at hd 64 / 128 -> the 3xTF32 kernel (`csrc/fused_attention_f32_tc.cu`);
+    the rest (f32 and bf16 at hd 16 / 32) -> the square tiles."""
+    from dynamicvectorquantization_torch.ops.attention import _route
+
+    x = torch.zeros((2, 8, 2 * hd), dtype=dtype)
+    if dtype == torch.bfloat16 and hd >= 64:
+        want = "tensor cores"
+    elif dtype == torch.float32 and hd >= 256:
+        want = "wide f32"
+    elif dtype == torch.float32 and hd >= 64:
+        want = "f32 tensor cores"
+    else:
+        want = "square tiles"
+    assert _route((x, x, x, x), 2, "fused_attention_forward") == want
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_route_by_dtype_and_head_dim(dtype, hd):
+    """The backward's `_route` (forward=False): the f32 backward at hd 16 -
+    128 stays on the square tiles, which rebuild P from the 3xTF32 forward's
+    lse; bf16 at hd 64 - 512 -> the tensor cores, f32 at hd 256 / 512 -> the
+    register-blocked backward."""
     from dynamicvectorquantization_torch.ops.attention import _route
 
     x = torch.zeros((2, 8, 2 * hd), dtype=dtype)
@@ -709,7 +738,62 @@ def test_route_by_dtype_and_head_dim(dtype, hd):
         want = "wide f32"
     else:
         want = "square tiles"
-    assert _route((x, x, x, x), 2, "fused_attention_forward") == want
+    assert _route((x, x, x, x, x, x, x, x), 2, "fused_attention_backward", forward=False) == want
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_misaligned_f32_forward_at_hd_64_128_raises_instead_of_taking_the_square_tiles(hd):
+    """No fallback: an f32 input or output at hd 64 / 128 off a 16-byte
+    boundary is refused by the forward's route, naming the forward; the
+    backward's route takes it to the square tiles as before."""
+    from dynamicvectorquantization_torch.ops.attention import _route
+
+    aligned = torch.zeros((1, 8, 2 * hd))
+    misaligned = torch.zeros(1 + 8 * 2 * hd)[1:].view(1, 8, 2 * hd)
+    assert misaligned.data_ptr() % 16
+    with pytest.raises(ValueError, match=f"fused_attention_forward: f32 tensors at hd {hd} "
+                                         "must start on a 16-byte boundary"):
+        _route((aligned, misaligned, aligned, aligned), 2, "fused_attention_forward")
+    assert _route((aligned, misaligned, aligned, aligned), 2, "fused_attention_backward",
+                  forward=False) == "square tiles"
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_at_two_heads_of_128_with_lse_and_dropout_matches_the_jax_kernel(causal):
+    """The shape of the existing 1e-5 card test, 2 heads of 128 over T = 300:
+    at rate 0 the plain forward against the JAX package's Pallas kernel in
+    interpret mode (atol 2e-5) and its lse against the log-sum-exp of the
+    same scaled scores in JAX (atol 1e-5); at rate 0.1 against the Pallas
+    kernel's math with the port's keep mask (the Pallas kernel draws its mask
+    from the TPU's generator, which the port does not reproduce; atol 5e-5),
+    with the lse of the undropped scores."""
+    import jax
+    import jax.numpy as jnp
+
+    from dynamicvectorquantization_tpu.ops.attention_pallas import fused_causal_attention as jfa
+
+    b, t, d, n_head, rate, seed = 2, 300, 256, 2, 0.1, 97
+    q, k, v = _qkv(40, b, t, d)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref = np.asarray(jfa(jq, jk, jv, 0, n_head, 0.0, None, True, causal))
+    heads = lambda z: z.reshape(b, t, n_head, d // n_head).transpose(0, 2, 1, 3)  # noqa: E731
+    s = jnp.einsum("bhqd,bhkd->bhqk", heads(jq), heads(jk),
+                   precision=jax.lax.Precision.HIGHEST) / np.sqrt(d // n_head)
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((t, t), bool)), s, -jnp.inf)
+    lse_ref = np.asarray(jax.nn.logsumexp(s, axis=-1))
+
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    y, lse = fused_attention_forward(tq, tk, tv, n_head, causal=causal, return_lse=True)
+    np.testing.assert_allclose(y.numpy(), ref, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), lse_ref, atol=1e-5, rtol=0)
+
+    mask = dropout_keep_mask(seed, b, n_head, t, rate)
+    fn = _jnp_attention_with_mask(n_head, causal, rate, jnp.asarray(mask.numpy()))
+    yd, lsed = fused_attention_forward(tq, tk, tv, n_head, causal=causal, rate=rate,
+                                       return_lse=True, seed=seed)
+    np.testing.assert_allclose(yd.numpy(), np.asarray(fn(jq, jk, jv)), atol=5e-5, rtol=0)
+    assert torch.equal(lsed, lse)
 
 
 @pytest.mark.parametrize("hd", [256, 512])
@@ -793,5 +877,99 @@ def test_cuda_autograd_through_the_wide_f32_forward_and_backward(cuda_device, hd
     y_ref = fused_attention_forward_plain(*ref_leaves, 1, None, False, False, rate, seed)
     ref = torch.autograd.grad(y_ref, ref_leaves, dy)
     torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=0)
+    for a, r in zip(grads, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lse", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("shape,n_head,causal", [
+    ((2, 300, 256), 2, True),  # 2 heads of 128, ragged last tiles
+    ((2, 300, 256), 2, False),
+    ((2, 805, 1024), 8, True),  # the StackGPT's heads at T = 805, batch 2
+    ((2, 300, 128), 2, True),  # hd 64
+    ((3, 77, 64), 1, False),  # hd 64, one partial tile
+])
+def test_cuda_f32_tc_forward_matches_plain(cuda_device, shape, n_head, causal, rate, lse):
+    """f32 at hd 64 / 128 runs the 3xTF32 forward (`f32_tc_launches`, in
+    neither family): output within 1e-5 of the plain version (three TF32
+    products a product, each 8-deep step summed fresh and added in f32) and
+    lse within 1e-4, as the FMA kernels' f32 forwards."""
+    seed = 112233
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(70, *shape))
+    before = (fused_attention_forward.f32_tc_launches, fused_attention_forward.fma_launches,
+              fused_attention_forward.tc_launches)
+    out = fused_attention_forward(q, k, v, n_head, None, causal, rate, lse, seed)
+    torch.cuda.synchronize()
+    assert (fused_attention_forward.f32_tc_launches, fused_attention_forward.fma_launches,
+            fused_attention_forward.tc_launches) == (before[0] + 1, before[1], before[2])
+    ref = fused_attention_forward_plain(q, k, v, n_head, None, causal, lse, rate, seed)
+    if lse:
+        torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=0)
+        out, ref = out[0], ref[0]
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("hd,t", [(64, 300), (128, 805)])
+def test_cuda_f32_tc_forward_is_bit_reproducible(cuda_device, hd, t, rate):
+    """Two calls of the 3xTF32 forward give the same bits (no atomics; every
+    output summed by one thread in a fixed order), output and lse."""
+    b, n_head = 2, 2
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(71, b, t, n_head * hd))
+    y, lse = fused_attention_forward(q, k, v, n_head, None, True, rate, True, 445566)
+    y2, lse2 = fused_attention_forward(q, k, v, n_head, None, True, rate, True, 445566)
+    assert torch.equal(y, y2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,t", [(64, 300), (128, 805)])
+def test_cuda_f32_tc_forward_masks_equal_dropout_keep_mask(cuda_device, hd, t):
+    """Uniform probabilities and unit-vector V rows, causal: output column c
+    of row r of the 3xTF32 forward is nonzero iff probability (r, c) was kept
+    and c <= r, though the kernel takes each 8-key tile's keys in the order
+    0 4 1 5 2 6 3 7."""
+    b, n_head, rate, seed = 2, 2, 0.3, 82
+    q = torch.zeros((b, t, n_head * hd), device=cuda_device)
+    mask = dropout_keep_mask(seed, b, n_head, t, rate, cuda_device)
+    before = fused_attention_forward.f32_tc_launches
+    for c0 in range(0, t, hd):
+        n = min(hd, t - c0)
+        v = torch.zeros((b, t, n_head, hd), device=cuda_device)
+        v[:, c0 + torch.arange(n), :, torch.arange(n)] = 1.0
+        y = fused_attention_forward(q, q, v.reshape(b, t, -1).contiguous(), n_head, None, True,
+                                    rate, seed=seed)
+        got = y.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+        below = torch.ones((t, n), dtype=torch.bool, device=cuda_device).tril(-c0)  # key <= row
+        assert torch.equal(got, mask[..., c0:c0 + n] & below)
+    assert fused_attention_forward.f32_tc_launches == before + -(-t // hd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_cuda_autograd_through_the_f32_tc_forward_and_the_square_tile_backward(cuda_device,
+                                                                             rate):
+    """`fused_causal_attention` in f32 at hd 128 (the StackGPT's heads): the
+    3xTF32 forward and the square-tile backward, which rebuilds P from the
+    forward's lse, one launch each; gradients within the f32 backward
+    tolerance of autograd through the plain forward."""
+    b, t, d, n_head, seed = 2, 300, 256, 2, 67890
+    arrays = _qkv(72, b, t, d)
+    leaves = [torch.from_numpy(a).to(cuda_device).requires_grad_() for a in arrays]
+    ref_leaves = [torch.from_numpy(a).to(cuda_device).requires_grad_() for a in arrays]
+    dy = torch.from_numpy(_qkv(73, b, t, d)[0]).to(cuda_device)
+    before = (fused_attention_forward.f32_tc_launches, fused_attention_backward.fma_launches,
+              fused_attention_backward.wide_f32_launches)
+    y = fused_causal_attention(*leaves, n_head, None, True, rate, seed)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (fused_attention_forward.f32_tc_launches, fused_attention_backward.fma_launches,
+            fused_attention_backward.wide_f32_launches) == (before[0] + 1, before[1] + 1,
+                                                            before[2])
+    y_ref = fused_attention_forward_plain(*ref_leaves, n_head, None, True, False, rate, seed)
+    ref = torch.autograd.grad(y_ref, ref_leaves, dy)
+    torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=0)
     for a, r in zip(grads, ref):
         torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
