@@ -28,10 +28,13 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                differing outputs, beside that of the unrounded math), with the
                FMA family's bf16 time beside it, the f32 forward and backward
                at hd 256 / 512 (register-blocked) with the square-tile kernels'
-               times beside them, the f32 forward at hd 64 / 128 (3xTF32 on the
-               tensor cores; stage-2 validation's shape, 8 x 805 x 1024 causal,
-               and with lse at batch 2) with the square tiles' and SDPA's
-               times beside it, the patch entropy's windowed kernel with the
+               times beside them, the f32 forward and backward at hd 64 / 128
+               (3xTF32 on the tensor cores; stage-2 validation's shape, 8 x 805
+               x 1024 causal, for the forward, and with lse at batch 2 and 8,
+               the f32 stage-2 step's shape, for both) with the square tiles'
+               and SDPA's times beside them (the square-tile backward also held
+               to the plain version), the square tiles' own route at two f32
+               heads of 32, the patch entropy's windowed kernel with the
                replaced one-block-per-patch kernel's time beside it and a
                bound from the kernel values that are not +0 on its images, and
                both nearest-code searches (3xTF32 on the
@@ -77,7 +80,13 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                state and the same dropout masks (losses, gradients,
                parameters); then timed steps with all three shipped dropouts
                (and, for comparison, with attn_pdrop 0), launch counters per
-               step, a torch.profiler trace of one step, peak memory
+               step, a torch.profiler trace of one step, peak memory; then all
+               of it again in f32 (`compute_dtype` None, the JAX trainer's
+               default: f32 weights and activations, TF32 off) on the same
+               cached codes, with f32 limits that two controls of lower
+               precision (cuBLAS's TF32; a TF32 attention forward) must each
+               exceed, every attention launch on the 3xTF32 forward and
+               backward (24 + 24 a step), none on the square tiles
   7. train1    full-width, full-depth DQ-VAE + GAN of the shipped
                `dqvae-entropy-dual-r05_imagenet.yml` (f32, TF32 off, seeded random
                weights, random VGG16 backbone with the bundled LPIPS lin heads),
@@ -541,9 +550,10 @@ def check_fused_attention(torch, dev):
 
 def check_attention_dropout(torch, dev):
     """What the dropout masks are, apart from agreeing with the plain version:
-    per tile family of the forward and backward kernels (f32 at hd 64 / 128:
-    the 3xTF32 forward's 64 x 32 tiles in its own key order and the square
-    tiles' 64-row backward; hd 256: 64- and 32-row; hd 512: 32- and 16-row;
+    per tile family of the forward and backward kernels (f32 at hd 32: the
+    square tiles; f32 at hd 64 / 128: the 3xTF32 forward's and backward's
+    tiles in their own key and query order; hd 256: 64- and 32-row; hd 512:
+    32- and 16-row;
     tensor-core family in bf16 at hd 64 / 128 / 256 / 512, where unit
     vectors and uniform probabilities are exact) the mask recovered
     from the kernel equals `dropout_keep_mask` bit for bit (uniform
@@ -560,8 +570,12 @@ def check_attention_dropout(torch, dev):
     tc_before = (fused_attention_forward.tc_launches, fused_attention_backward.tc_launches)
     wide_before = (fused_attention_forward.wide_f32_launches,
                    fused_attention_backward.wide_f32_launches)
-    f32_tc_before = fused_attention_forward.f32_tc_launches
-    for hd, t, dtype in ((64, 300, torch.float32), (128, 805, torch.float32),
+    f32_tc_before = (fused_attention_forward.f32_tc_launches,
+                     fused_attention_backward.f32_tc_launches)
+    square_before = tuple(fn.fma_launches - fn.wide_f32_launches
+                          for fn in (fused_attention_forward, fused_attention_backward))
+    for hd, t, dtype in ((32, 300, torch.float32), (64, 300, torch.float32),
+                         (128, 805, torch.float32),
                          (256, 300, torch.float32), (512, 300, torch.float32),
                          (64, 300, torch.bfloat16), (128, 805, torch.bfloat16),
                          (256, 300, torch.bfloat16), (512, 300, torch.bfloat16)):
@@ -588,8 +602,9 @@ def check_attention_dropout(torch, dev):
             sigma = (rate * (1 - rate) / mask.numel()) ** 0.5
             families.append(dict(hd=hd, t=t, rate=rate, dtype=str(dtype).split(".")[-1],
                                  family="tensor cores" if tensor_core_shape(torch, dtype, hd)
-                                 else "FMA", forward_route="f32 tensor cores"
-                                 if f32_tc_shape(torch, dtype, hd) else None,
+                                 else "FMA", route="f32 tensor cores"
+                                 if f32_tc_shape(torch, dtype, hd) else "square tiles"
+                                 if hd < 64 else None,
                                  forward_mask_equal=fwd_equal,
                                  backward_mask_equal=bwd_equal, kept_share=kept,
                                  kept_share_sigmas=abs(kept - (1 - rate)) / sigma))
@@ -597,7 +612,10 @@ def check_attention_dropout(torch, dev):
                  fused_attention_backward.tc_launches - tc_before[1])
     wide_probes = (fused_attention_forward.wide_f32_launches - wide_before[0],
                    fused_attention_backward.wide_f32_launches - wide_before[1])
-    f32_tc_probes = fused_attention_forward.f32_tc_launches - f32_tc_before
+    f32_tc_probes = (fused_attention_forward.f32_tc_launches - f32_tc_before[0],
+                     fused_attention_backward.f32_tc_launches - f32_tc_before[1])
+    square_probes = tuple(fn.fma_launches - fn.wide_f32_launches - b_ for fn, b_ in zip(
+        (fused_attention_forward, fused_attention_backward), square_before))
     g = torch.Generator(device=dev).manual_seed(14)
     q, k, v = (torch.randn((2, TRAIN_T, 1024), generator=g, device=dev).to(torch.bfloat16)
                for _ in range(3))
@@ -606,7 +624,7 @@ def check_attention_dropout(torch, dev):
 
     res = dict(phase="kernels", kernel="attention_dropout_mask", families=families,
                tensor_core_probe_launches=tc_probes, wide_f32_probe_launches=wide_probes,
-               f32_tc_probe_launches=f32_tc_probes,
+               f32_tc_probe_launches=f32_tc_probes, square_tile_probe_launches=square_probes,
                same_seed_bit_identical=bool(torch.equal(run(5), run(5))),
                seeds_differ=not torch.equal(run(5), run(6)),
                rate0_ignores_seed=bool(torch.equal(run(5, 0.0), fused_attention_forward(
@@ -623,9 +641,13 @@ def check_attention_dropout(torch, dev):
             f"the f32 probes at hd 256 / 512 did not all run the register-blocked kernels: "
             f"{wide_probes}, expected {(wide, wide)}")
     f32_tc = 2 * sum(-(-t // hd) for hd, t in ((64, 300), (128, 805)))
-    require(f32_tc_probes == f32_tc,
-            f"the f32 forward probes at hd 64 / 128 did not all run the 3xTF32 kernel: "
-            f"{f32_tc_probes}, expected {f32_tc}")
+    require(f32_tc_probes == (f32_tc, f32_tc),
+            f"the f32 probes at hd 64 / 128 did not all run the 3xTF32 kernels: "
+            f"{f32_tc_probes}, expected {(f32_tc, f32_tc)}")
+    square = 2 * -(-300 // 32)
+    require(square_probes == (square, square),
+            f"the f32 probes at hd 32 did not all run the square tiles: {square_probes}, "
+            f"expected {(square, square)}")
     require(all(f["kept_share_sigmas"] <= 3.0 for f in families),
             f"kept share off 1 - rate by more than 3 sigma: {families}")
     require(res["same_seed_bit_identical"] and res["seeds_differ"] and res["rate0_ignores_seed"],
@@ -1248,16 +1270,19 @@ def check_attention_backward(torch, dev):
         fused_attention_forward_plain)
 
     fwd_cases, bwd_cases, drop_fwd_cases, drop_bwd_cases = [], [], [], []
-    # the stage-2 training shape in bf16; the same in f32 at batch 2; one non-causal head,
-    # ragged tiles; the DQ-VAE's conv AttnBlocks in stage-1 training: one non-causal f32
-    # head of 256 channels over 32 x 32 positions, and of 512 over 16 x 16, in f32 and
-    # in bf16 (every bf16 shape on the tensor cores, with the FMA family's times beside it;
-    # the f32 forward at hd 64 / 128 on the 3xTF32 kernel, the square tiles' time beside it,
-    # and its lse feeding the square-tile backward)
+    # the stage-2 training shape in bf16; the same in f32 at batch 2 and at batch 8 (the
+    # f32 stage-2 step's); one non-causal head of 64, ragged tiles; two non-causal f32
+    # heads of 32 (the square tiles' route); the DQ-VAE's conv AttnBlocks in stage-1
+    # training: one non-causal f32 head of 256 channels over 32 x 32 positions, and of 512
+    # over 16 x 16, in f32 and in bf16 (every bf16 shape on the tensor cores, with the FMA
+    # family's times beside it; f32 at hd 64 / 128 on the 3xTF32 forward and backward, the
+    # square tiles held to the same tolerance and timed beside them)
     for (b, t, d), n_head, causal, dtype in (
             ((8, TRAIN_T, 1024), 8, True, torch.bfloat16),
             ((2, TRAIN_T, 1024), 8, True, torch.float32),
+            ((8, TRAIN_T, 1024), 8, True, torch.float32),
             ((2, 300, 64), 1, False, torch.float32),
+            ((2, 300, 64), 2, False, torch.float32),
             ((8, 1024, 256), 1, False, torch.float32),
             ((8, 256, 512), 1, False, torch.float32),
             ((8, 1024, 256), 1, False, torch.bfloat16),
@@ -1278,21 +1303,35 @@ def check_attention_backward(torch, dev):
         tc = tensor_core_shape(torch, dtype, hd)
         wide = wide_f32_shape(torch, dtype, hd)
         f32tc = f32_tc_shape(torch, dtype, hd)
-        family = "tensor cores" if tc else "FMA"
-        before = (fused_attention_backward.tc_launches, fused_attention_backward.wide_f32_launches)
+        square = not (tc or wide or f32tc)
+        family = "tensor cores" if tc or f32tc else "FMA"
+        before = (fused_attention_backward.tc_launches, fused_attention_backward.wide_f32_launches,
+                  fused_attention_backward.f32_tc_launches, fused_attention_backward.fma_launches)
         y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, True)
         out = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
         again = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
         ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, scale, causal)
         torch.cuda.synchronize()
         require((fused_attention_backward.tc_launches - before[0],
-                 fused_attention_backward.wide_f32_launches - before[1])
-                == (2 * int(tc), 2 * int(wide)),
+                 fused_attention_backward.wide_f32_launches - before[1],
+                 fused_attention_backward.f32_tc_launches - before[2],
+                 fused_attention_backward.fma_launches - before[3] - 2 * int(wide))
+                == (2 * int(tc), 2 * int(wide), 2 * int(f32tc), 2 * int(square)),
                 f"fused_attention_backward took the wrong kernel at {dtype} hd {hd}")
         err_y, ok_y = close(y, y_ref, atol, rtol)
         err_lse, ok_lse = close(lse, lse_ref, 1e-4)  # f32 log of an f32 sum of T terms
         errs, oks = zip(*(close(o, r, atol, rtol) for o, r in zip(out, ref)))
         reproducible = all(torch.equal(a_, b_) for a_, b_ in zip(out, again))
+        sq = {}
+        if f32tc:  # the square tiles the 3xTF32 backward replaced, on the same inputs
+            sq_out = fma_backward(torch, q, k, v, y, lse, dy, n_head, scale, causal)
+            sq_again = fma_backward(torch, q, k, v, y, lse, dy, n_head, scale, causal)
+            torch.cuda.synchronize()
+            sq = dict(square_tiles_max_abs_err=max(close(o, r, atol, rtol)[0]
+                                                   for o, r in zip(sq_out, ref)),
+                      square_tiles_bit_reproducible=all(
+                          torch.equal(a_, b_) for a_, b_ in zip(sq_out, sq_again)))
+            del sq_out, sq_again
         f9 = {}
         if dtype == torch.bfloat16:  # F9, F10: P, D and dS rounded as the plain version
             qf, kf, vf, dyf = (z.float() for z in (q, k, v, dy))
@@ -1306,11 +1345,11 @@ def check_attention_backward(torch, dev):
                       mismatch_tol=F9_MISMATCH_SHARE)
             del qf, kf, vf, dyf, yf, lsef, unrounded
         pairs = t * (t + 1) // 2 if causal else t * t
+        route = ("wide f32" if wide else "tensor cores" if tc else "f32 tensor cores"
+                 if f32tc else "square tiles")
         fwd = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
                    n_head=n_head, causal=causal, dtype=dname,
-                   family="tensor cores" if tc or f32tc else "FMA",
-                   route=("wide f32" if wide else "tensor cores" if tc else "f32 tensor cores"
-                          if f32tc else "square tiles"), with_lse=True,
+                   family=family, route=route, with_lse=True,
                    max_abs_err=err_y, lse_err=err_lse, tol=f"{atol} + {rtol} |ref|; lse 1e-4")
         fwd["bound_ms"], fwd["bound_by"], fwd["bound_ms_f32_fma"] = attention_bounds(
             torch, 4 * b * t * d * elem + 4 * b * n_head * t, 4 * b * n_head * pairs * hd, dtype,
@@ -1338,17 +1377,18 @@ def check_attention_backward(torch, dev):
                           torch, q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
         emit(fwd)
         # five T x T x hd products over the unmasked pairs; the bound at the
-        # rate of the input type (bf16: tensor cores), and beside it at the
-        # f32 FMA rate the FMA family runs on
+        # rate of the input type (bf16: tensor cores; the 3xTF32 kernel: three
+        # TF32 products a product), and beside it at the f32 FMA rate the FMA
+        # family runs on
         flops = 10 * b * n_head * pairs * hd
         n_bytes = 8 * b * t * d * elem + 4 * b * n_head * t
         bwd = dict(phase="kernels", kernel="fused_attention_backward", shape=[b, t, d],
-                   n_head=n_head, causal=causal, dtype=dname, family=family,
+                   n_head=n_head, causal=causal, dtype=dname, family=family, route=route,
                    max_abs_err=max(errs),
                    dq_err=errs[0], dk_err=errs[1], dv_err=errs[2], tol=f"{atol} + {rtol} |ref|",
-                   bit_reproducible=reproducible, gflop=flops / 1e9,
-                   bound_ms_f32_fma=bound(n_bytes, flops, "float32")[0], **f9)
-        bwd["bound_ms"], bwd["bound_by"] = bound(n_bytes, flops, dname)
+                   bit_reproducible=reproducible, gflop=flops / 1e9, **f9, **sq)
+        bwd["bound_ms"], bwd["bound_by"], bwd["bound_ms_f32_fma"] = attention_bounds(
+            torch, n_bytes, flops, dtype, f32tc)
         time_into(bwd, "kernel", torch,
                   lambda *a: fused_attention_backward(*a, n_head, scale, causal), sets, iters=10)
         time_into(bwd, "plain", torch,
@@ -1369,12 +1409,20 @@ def check_attention_backward(torch, dev):
             time_into(bwd, "before", torch,
                       lambda *a: fma_backward(torch, *a, n_head, scale, causal),
                       sets, iters=10)
+        if f32tc:  # the square tiles the 3xTF32 backward replaced
+            time_into(bwd, "square_tiles", torch,
+                      lambda *a: fma_backward(torch, *a, n_head, scale, causal),
+                      sets, iters=10)
         del lib_sets
         emit(bwd)
         require(ok_y and ok_lse, f"fused_attention_forward with lse disagrees at "
                                  f"{fwd['shape']}: y {err_y} lse {err_lse}")
         require(all(oks), f"fused_attention_backward disagrees at {bwd['shape']} {dname}: {errs}")
         require(reproducible, "fused_attention_backward is not bit-reproducible")
+        require(not sq or (sq["square_tiles_max_abs_err"] <= atol
+                           and sq["square_tiles_bit_reproducible"]),
+                f"the square-tile backward disagrees or is not bit-reproducible at "
+                f"{bwd['shape']}: {sq}")
         require(not f9 or max(f9["mismatch_share"], f9["forward_mismatch_share"])
                 <= F9_MISMATCH_SHARE < f9["unrounded_mismatch_share"],
                 f"the bf16 backward does not round as the plain version: {f9}")
@@ -1385,6 +1433,8 @@ def check_attention_backward(torch, dev):
         # versions at the same tolerances, the backward twice; times at rate 0.1 beside
         # SDPA's with dropout_p (forward, and backward through autograd)
         dfwd, dbwd = dict(fwd, dropout_err={}), dict(bwd, dropout_err={})
+        if f32tc:
+            dbwd.update(square_tiles_dropout_err={}, square_tiles_bit_reproducible=True)
         ok_all, repro_all = True, True
         for rate in DROPOUT_RATES:
             yd, lsed = fused_attention_forward(q, k, v, n_head, scale, causal, rate, True,
@@ -1405,6 +1455,18 @@ def check_attention_backward(torch, dev):
             repro_all &= all(torch.equal(a_, b_) for a_, b_ in zip(out, again))
             dfwd["dropout_err"][str(rate)] = max(e_y, e_l)
             dbwd["dropout_err"][str(rate)] = max(e_g)
+            if f32tc:  # the square tiles on the same inputs, masks and tolerance
+                sq_out = fma_backward(torch, q, k, v, yd, lsed, dy, n_head, scale, causal, rate,
+                                      DROPOUT_SEED)
+                sq_again = fma_backward(torch, q, k, v, yd, lsed, dy, n_head, scale, causal,
+                                        rate, DROPOUT_SEED)
+                torch.cuda.synchronize()
+                e_sq, o_sq = zip(*(close(o, r, atol, rtol) for o, r in zip(sq_out, ref)))
+                dbwd["square_tiles_dropout_err"][str(rate)] = max(e_sq)
+                ok_all &= all(o_sq)
+                dbwd["square_tiles_bit_reproducible"] &= all(
+                    torch.equal(a_, b_) for a_, b_ in zip(sq_out, sq_again))
+                del sq_out, sq_again
             del yd, lsed, yd_ref, lsed_ref, out, again, ref
         rate = DROPOUT_RATES[0]
         dsets = []
@@ -1416,6 +1478,8 @@ def check_attention_backward(torch, dev):
         dfwd.update(rate=rate, max_abs_err=max(dfwd["dropout_err"].values()))
         dbwd.update(rate=rate, max_abs_err=max(dbwd["dropout_err"].values()),
                     bit_reproducible=repro_all)
+        if f32tc:
+            dbwd["square_tiles_max_abs_err"] = max(dbwd["square_tiles_dropout_err"].values())
         time_into(dfwd, "kernel", torch,
                   lambda q_, k_, v_, *_: fused_attention_forward(
                       q_, k_, v_, n_head, scale, causal, rate, True, DROPOUT_SEED), dsets)
@@ -1457,13 +1521,20 @@ def check_attention_backward(torch, dev):
             time_into(dbwd, "before", torch,
                       lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
                       dsets, iters=10)
+        if f32tc:
+            time_into(dbwd, "square_tiles", torch,
+                      lambda *a: fma_backward(torch, *a, n_head, scale, causal, rate, DROPOUT_SEED),
+                      dsets, iters=10)
         del lib_sets, dsets
         emit(dfwd)
         emit(dbwd)
         require(ok_all, f"attention with dropout disagrees with its plain version at "
                         f"{bwd['shape']} {dname}: forward {dfwd['dropout_err']} backward "
-                        f"{dbwd['dropout_err']}")
-        require(repro_all, "fused_attention_backward with dropout is not bit-reproducible")
+                        f"{dbwd['dropout_err']}, square tiles "
+                        f"{dbwd.get('square_tiles_dropout_err')}")
+        require(repro_all and dbwd.get("square_tiles_bit_reproducible", True),
+                "fused_attention_backward or the square tiles with dropout are not "
+                "bit-reproducible")
         drop_fwd_cases.append(dfwd)
         drop_bwd_cases.append(dbwd)
     return fwd_cases, bwd_cases, drop_fwd_cases, drop_bwd_cases
@@ -1672,8 +1743,8 @@ def read_launches():
     `<name>_wide_f32` those of them on the register-blocked f32 kernel (hd 256
     / 512), `<name>_square_tiles` the rest of them, `<name>_tc` the bf16
     tensor-core family's, and `<name>_dropout` those of every kernel that
-    drew a dropout mask; `fused_attention_forward_f32_tc` counts the 3xTF32
-    forward's (f32 at hd 64 / 128). The downsample and entropy wrappers have
+    drew a dropout mask; `<name>_f32_tc` counts the 3xTF32 kernel's (f32 at
+    hd 64 / 128, in neither family). The downsample and entropy wrappers have
     two instantiations: `<name>` counts the f32 launches, `<name>_bf16` the
     bf16 ones; `strided_conv3x3_down_tc` counts those of the bf16 launches
     that ran the tensor-core kernel, `strided_conv3x3_down_f32_blocked` those
@@ -1686,7 +1757,7 @@ def read_launches():
         counts[f"{name}_square_tiles"] = fn.fma_launches - fn.wide_f32_launches
         counts[f"{name}_tc"] = fn.tc_launches
         counts[f"{name}_dropout"] = fn.dropout_launches
-    counts["fused_attention_forward_f32_tc"] = wrappers()[ATTENTION[0]].f32_tc_launches
+        counts[f"{name}_f32_tc"] = fn.f32_tc_launches
     for name in BF16_SPLIT:
         fn = wrappers()[name]
         counts[name] = fn.launches - fn.bf16_launches
@@ -1891,19 +1962,38 @@ def encode_bf16(torch, model, dev, card, x, grain32, code32, reps=5):
 
 
 @contextlib.contextmanager
-def plain_train_path():
+def tf32_matmuls(torch):
+    """cuBLAS's and cuDNN's TF32 on inside the block (the script runs with it off)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def plain_train_path(tf32_attention=False):
     """The training path's kernel wrappers swapped for their plain versions
-    (differentiated by autograd), so the same step runs without the kernels."""
+    (differentiated by autograd), so the same step runs without the kernels;
+    with `tf32_attention` the attention forward's products run on cuBLAS's
+    TF32 (one TF32 product a product, the backward in f32), a control of
+    lower precision than f32."""
     import dynamicvectorquantization_torch.nn.norm as norm
     import dynamicvectorquantization_torch.nn.transformer as tfm
     import dynamicvectorquantization_torch.train.stage2 as stage2
+    import torch
     from dynamicvectorquantization_torch.ops.attention import fused_attention_forward_plain
     from dynamicvectorquantization_torch.ops.fused_adamw import fused_adamw_step_plain
 
     saved = (norm.fused_layernorm, tfm.fused_causal_attention, stage2.fused_adamw_step)
     norm.fused_layernorm = norm.fused_layernorm_plain
-    tfm.fused_causal_attention = lambda q, k, v, n_head, causal=True, rate=0.0, seed=None: \
-        fused_attention_forward_plain(q, k, v, n_head, None, causal, False, rate, seed)
+
+    def attention(q, k, v, n_head, causal=True, rate=0.0, seed=None):
+        with tf32_matmuls(torch) if tf32_attention else contextlib.nullcontext():
+            return fused_attention_forward_plain(q, k, v, n_head, None, causal, False, rate, seed)
+
+    tfm.fused_causal_attention = attention
     stage2.fused_adamw_step = fused_adamw_step_plain
     try:
         yield
@@ -1920,8 +2010,13 @@ def set_dropout(gpt, embd, resid, attn=None):
             mod.attn_pdrop = attn
 
 
-def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
-    """Stage-2 training at full p6c18 width and depth on cached codes."""
+def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="bfloat16",
+          streams=None):
+    """Stage-2 training at full p6c18 width and depth on cached codes: bf16
+    over f32 masters (the shipped yml's `compute_dtype`), or with
+    `compute_dtype` None, the JAX trainer's default, f32 throughout (f32
+    weights and activations, TF32 off, attention on the 3xTF32 kernels) on the
+    `streams` a bf16 run cached. Returns (the timed line, the cached streams)."""
     from dynamicvectorquantization_torch.config.yaml_config import load_config
     from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
     from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
@@ -1940,30 +2035,35 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
     model.init_weights(torch.Generator(device=dev).manual_seed(0))
     model.eval()
     trainer = Stage2Trainer(model, lr, warmup_steps=0, max_steps=10_000,
-                            compute_dtype="bfloat16", device=dev)
+                            compute_dtype=compute_dtype, device=dev)
+    bf16 = compute_dtype == "bfloat16"
+    dname = "bfloat16 over f32 masters" if bf16 else "float32"
     gpt = model.transformer
     load_s = time.perf_counter() - t0
 
-    g = torch.Generator(device=dev).manual_seed(6)
-    size = model.first_stage_model.encoder.resolution
-    images = torch.cat([smooth_and_noisy_images(torch, dev, g, b=batch, size=size)
-                        for _ in range(n_images // batch)])
-    t0 = time.perf_counter()
-    reset_launches()
-    streams = trainer.encode_dataset(images.cpu().numpy(), batch=batch)
-    encode_s = time.perf_counter() - t0
-    encode_launches = read_launches()
-    n_batches = n_images // batch
-    # the cached-codes pre-encode runs the bf16 copy of the first stage (F4), its six
-    # AttnBlocks on the tensor cores
-    for name, want in (("strided_conv3x3_down_bf16", 4 * n_batches),
-                       ("strided_conv3x3_down_tc", 4 * n_batches), ("strided_conv3x3_down", 0),
-                       ("patch_entropy_bf16", n_batches), ("patch_entropy", 0),
-                       ("fused_attention_forward_tc", 6 * n_batches),
-                       ("fused_attention_forward", 0)):
-        require(encode_launches[name] == want,
-                f"{name} launched {encode_launches[name]} times by encode_dataset, expected {want}")
-    del images
+    encode_s = encode_launches = None
+    if streams is None:
+        g = torch.Generator(device=dev).manual_seed(6)
+        size = model.first_stage_model.encoder.resolution
+        images = torch.cat([smooth_and_noisy_images(torch, dev, g, b=batch, size=size)
+                            for _ in range(n_images // batch)])
+        t0 = time.perf_counter()
+        reset_launches()
+        streams = trainer.encode_dataset(images.cpu().numpy(), batch=batch)
+        encode_s = spread([time.perf_counter() - t0])
+        encode_launches = read_launches()
+        n_batches = n_images // batch
+        # the cached-codes pre-encode runs the bf16 copy of the first stage (F4), its six
+        # AttnBlocks on the tensor cores
+        require(bf16, "the f32 run trains on the codes a bf16 run cached")
+        for name, want in (("strided_conv3x3_down_bf16", 4 * n_batches),
+                           ("strided_conv3x3_down_tc", 4 * n_batches),
+                           ("strided_conv3x3_down", 0), ("patch_entropy_bf16", n_batches),
+                           ("patch_entropy", 0), ("fused_attention_forward_tc", 6 * n_batches),
+                           ("fused_attention_forward", 0)):
+            require(encode_launches[name] == want, f"{name} launched {encode_launches[name]} "
+                                                   f"times by encode_dataset, expected {want}")
+        del images
     batches = [{k: v[i:i + batch] for k, v in streams.items()}
                for i in range(0, n_images, batch)]
     t_len = streams["coarse_content"].shape[1] + streams["fine_content"].shape[1] + 1
@@ -1994,7 +2094,11 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
                f"content_transformer.{gpt.content_layer - 1}.mlp.2.weight",
                f"content_transformer.{gpt.content_layer // 2}.ln2.bias", "content_head.1.weight"]
     results = {}
-    for path, ctx in (("kernel", contextlib.nullcontext()), ("plain", plain_train_path())):
+    paths = [("kernel", contextlib.nullcontext()), ("plain", plain_train_path())]
+    if not bf16:  # controls, each a step of lower precision than f32 (see the limits below)
+        paths += [("control_tf32_matmuls", tf32_matmuls(torch)),
+                  ("control_tf32_attention", plain_train_path(tf32_attention=True))]
+    for path, ctx in paths:
         restore(start)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2007,31 +2111,56 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
         results[path] = dict(logs={k: float(v) for k, v in logs.items()}, grads=kept,
                              after={k: v.clone() for k, v in trainer.masters.items()},
                              peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    kr, pr = results["kernel"], results["plain"]
-    loss_rel = max(abs(kr["logs"][k] - pr["logs"][k]) / abs(pr["logs"][k]) for k in pr["logs"])
-    grad_rel = {k: ((kr["grads"][k] - pr["grads"][k]).norm() / pr["grads"][k].norm()).item()
-                for k in watched}
+    pr = results["plain"]
     n_params = sum(v.numel() for v in trainer.masters.values())
-    delta_max = max((kr["after"][k] - pr["after"][k]).abs().max().item() for k in kr["after"])
-    delta_mean = sum((kr["after"][k] - pr["after"][k]).abs().sum().item()
-                     for k in kr["after"]) / n_params
+
+    def gaps(r):
+        """(loss max rel, {leaf: gradient rel-L2}, parameter max abs, parameter
+        mean abs) of a step's result against the plain step's."""
+        return (max(abs(r["logs"][k] - pr["logs"][k]) / abs(pr["logs"][k]) for k in pr["logs"]),
+                {k: ((r["grads"][k] - pr["grads"][k]).norm() / pr["grads"][k].norm()).item()
+                 for k in watched},
+                max((r["after"][k] - pr["after"][k]).abs().max().item() for k in r["after"]),
+                sum((r["after"][k] - pr["after"][k]).abs().sum().item()
+                    for k in r["after"]) / n_params)
+
+    kr = results["kernel"]
+    loss_rel, grad_rel, delta_max, delta_mean = gaps(kr)
     moved = max((kr["after"][k] - start[0][k]).abs().max().item() for k in kr["after"])
     pad_rows_frozen = all(torch.equal(kr["after"][k][row], start[0][k][row])
                           for k, row in trainer.pad_rows.items())
-    # bf16 activations differ by ~2^-8 relative per op between the two paths and
-    # 24 layers compound it; Adam's first update is lr * g / |g|, so a parameter
-    # differs by at most 2 lr (+ decay), and only where the noise flips g's sign
-    loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 2e-2, 0.1, 2.02 * lr, 0.1 * lr
+    # Adam's first update is lr * g / |g|, so a parameter differs by at most 2 lr
+    # (+ decay), and only where the noise flips g's sign. bf16 activations differ by
+    # ~2^-8 relative per op between the two paths and 24 layers compound it. In f32 the
+    # paths differ in summation order alone (the 3xTF32 attention keeps f32 accuracy;
+    # the LayerNorm and AdamW kernels sum in f32). The f32 limits sit between the
+    # kernel step's readings on the H100 (loss 6.7e-8 rel, gradients 1.1e-6 rel-L2,
+    # parameters max 0.32 lr / mean 1.9e-6 lr) and those of the closer of two controls,
+    # the plain step whose attention forward runs one TF32 product (7.9e-7, 9.9e-5,
+    # 1.97 lr / 8.4e-5 lr); the other, the kernel step with cuBLAS's TF32 on, lies
+    # further out. Each control must exceed one of them (PERF.md §6)
+    if bf16:
+        loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 2e-2, 0.1, 2.02 * lr, 0.1 * lr
+    else:
+        loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 3e-7, 1e-5, 1.0 * lr, 1e-5 * lr
+    controls = {}
+    for name in (k for k in results if k.startswith("control")):
+        c_loss, c_grad, c_max, c_mean = gaps(results[name])
+        controls[name] = dict(loss_max_rel_diff=c_loss, grad_rel_l2_diff=c_grad,
+                              param_max_abs_diff=c_max, param_mean_abs_diff=c_mean,
+                              exceeds_a_limit=c_loss > loss_tol or max(c_grad.values()) > grad_tol
+                              or c_max > delta_max_tol or c_mean > delta_mean_tol)
     compare = dict(phase="train", step="kernel_vs_plain", config=P6C18, attn_pdrop=attn_pdrop,
                    dropout="attention only (embedding and residual off)",
-                   dtype="bfloat16 over f32 masters", batch=batch, seq_len=t_len,
+                   dtype=dname, batch=batch, seq_len=t_len,
                    lr=lr, params=n_params, losses_kernel=kr["logs"], losses_plain=pr["logs"],
                    loss_max_rel_diff=loss_rel, loss_tol=loss_tol, grad_rel_l2_diff=grad_rel,
                    grad_tol=grad_tol, param_max_abs_diff=delta_max,
                    param_max_tol=delta_max_tol, param_mean_abs_diff=delta_mean,
                    param_mean_tol=delta_mean_tol, param_max_abs_update=moved,
-                   pad_rows_frozen=pad_rows_frozen, peak_memory_gb_kernel=kr["peak_gb"],
-                   peak_memory_gb_plain=pr["peak_gb"], card=card)
+                   pad_rows_frozen=pad_rows_frozen, controls=controls,
+                   peak_memory_gb_kernel=kr["peak_gb"], peak_memory_gb_plain=pr["peak_gb"],
+                   card=card)
     emit(compare)
     require(all(math.isfinite(v) for v in kr["logs"].values()), "non-finite training loss")
     require(loss_rel <= loss_tol, f"training losses kernel vs plain: {loss_rel}")
@@ -2039,6 +2168,8 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
     require(delta_max <= delta_max_tol and delta_mean <= delta_mean_tol,
             f"parameters after one step, kernel vs plain: max {delta_max} mean {delta_mean}")
     require(moved > 0 and pad_rows_frozen, "parameters did not move, or a pad row did")
+    require(all(c["exceeds_a_limit"] for c in controls.values()),
+            f"a control of lower precision than f32 passes the {dname} limits: {controls}")
     del results, kr, pr
 
     # (b) timed steps on the kernel path with all three shipped dropouts, the elementwise
@@ -2080,8 +2211,12 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
     prof = profile_device_time(
         torch, lambda: trainer.train_step(batches[0]), n_top=12)
     layers = gpt.position_layer + gpt.content_layer
-    # bf16 at hd 128: every attention launch on the tensor-core family
-    expected = {"fused_attention_forward_tc": layers, "fused_attention_backward_tc": layers,
+    # hd 128: every attention launch on the tensor-core family in bf16, on the 3xTF32
+    # kernels in f32; none on the square tiles
+    family, other = ("tc", "f32_tc") if bf16 else ("f32_tc", "tc")
+    expected = {f"fused_attention_forward_{family}": layers,
+                f"fused_attention_backward_{family}": layers,
+                f"fused_attention_forward_{other}": 0, f"fused_attention_backward_{other}": 0,
                 "fused_attention_forward_dropout": layers,
                 "fused_attention_backward_dropout": layers,
                 "fused_attention_forward": 0, "fused_attention_backward": 0,
@@ -2092,10 +2227,10 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
     res = dict(phase="train", step="timed", config=P6C18, attn_pdrop=attn_pdrop,
                step_ms_attn_pdrop_0=step_rate0["median"], step_ms_spread_attn_pdrop_0=step_rate0,
                device_busy_ms_attn_pdrop_0=prof0["device_busy_ms"], embd_pdrop=embd_pdrop,
-               resid_pdrop=resid_pdrop, dtype="bfloat16 over f32 masters", batch=batch,
+               resid_pdrop=resid_pdrop, dtype=dname, batch=batch,
                seq_len=t_len, stream_caps=TRAIN_CAPS, images=n_images, real_tokens=tokens,
                layers=layers, params=n_params, parameter_leaves=len(trainer.params), lr=lr,
-               load_s=spread([load_s]), encode_dataset_s=spread([encode_s]),
+               load_s=spread([load_s]), encode_dataset_s=encode_s,
                encode_launches=encode_launches,
                losses=losses, launches_per_step=step_launches, expected_launches=expected,
                timed_steps=timed_steps, step_ms=step_ms, step_ms_spread=step,
@@ -2111,8 +2246,9 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4):
     require(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
     for name, want in expected.items():
         require(step_launches[name] == want,
-                f"{name} launched {step_launches[name]} times per train step, expected {want}")
-    return res
+                f"{name} launched {step_launches[name]} times per {dname} train step, "
+                f"expected {want}")
+    return res, streams
 
 
 def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
@@ -2628,8 +2764,9 @@ def main():
             "vq_nearest_tc", "layernorm_bwd_rows", "decode_attention_int8",
             "attention_fwd_f32_tc")
     blocked = {name: use for name, use in ptxas.items() if any(key in name for key in keys)}
-    require(len(blocked) >= 10 and all(not use.get("spill_stores") and not use.get("spill_loads")
-                                      for use in blocked.values()),
+    require(len(blocked) >= 10 and all(any(key in name for name in blocked) for key in keys)
+            and all(not use.get("spill_stores") and not use.get("spill_loads")
+                    for use in blocked.values()),
             f"a register-blocked kernel spills or is missing from ptxas's report: {blocked}")
 
     decode_cases, decode_sweep = check_decode_attention(torch, dev)
@@ -2656,8 +2793,13 @@ def main():
     served = serve(torch, model, card)
     del model
     torch.cuda.empty_cache()
-    trained = train(torch, dev, card)
+    trained, streams = train(torch, dev, card)
     per_step = trained["launches_per_step"]
+    torch.cuda.empty_cache()
+    # the JAX trainer's default compute dtype: f32 throughout, on the same cached codes
+    per_step_f32 = train(torch, dev, card, compute_dtype=None,
+                         streams=streams)[0]["launches_per_step"]
+    del streams
     torch.cuda.empty_cache()
     per_step1 = train1(torch, dev, card)["launches_per_step"]
     torch.cuda.empty_cache()
@@ -2699,8 +2841,8 @@ def main():
               served_batch_ar_steps=len(visited), layers=served["layers"]))
     paths = {"serve": served["launches"], "encode": encoded["launches"],
              "encode_bf16": encoded16["launches"], "train_step": per_step,
-             "train1_step": per_step1, "train1_step_bf16": per_step1_bf16, "fit": fitted,
-             "fit1": fitted1}
+             "train_step_f32": per_step_f32, "train1_step": per_step1,
+             "train1_step_bf16": per_step1_bf16, "fit": fitted, "fit1": fitted1}
 
     def launched(name):
         """Launches of a row on each driven path (for the attention rows: of
@@ -2716,8 +2858,8 @@ def main():
                   "gflop", "mismatch_share", "unrounded_mismatch_share", "mismatch_tol",
                   "forward_mismatch_share", "fma_max_abs_err", "f64_mismatch_share",
                   "before_ms", "before_ms_spread", "route", "square_tiles_ms",
-                  "square_tiles_ms_spread", "square_tiles_max_abs_err", "lse_err",
-                  "bound_ms_f32_fma", "with_lse")
+                  "square_tiles_ms_spread", "square_tiles_max_abs_err", "square_tiles_dropout_err",
+                  "lse_err", "bound_ms_f32_fma", "with_lse")
     entropy_keys = ("before_ms", "before_ms_spread", "bound_share", "bytes_bound_ms",
                     "all_values_bound_ms", "exponentials", "nonzero_kernel_values",
                     "evaluated_kernel_values", "window_half_width", "bit_reproducible")
@@ -2725,14 +2867,17 @@ def main():
     src_dir = "dynamicvectorquantization_torch/csrc"
     # the attention cases: forward (a) f32 hd 256, t808 bf16 (tensor cores), (b) f32 hd 512,
     # (a) and (b) in bf16, stage-2 validation in f32 (3xTF32); with lse (c) bf16 (tensor
-    # cores), f32 batch 2 (3xTF32), hd 64 (3xTF32), hd 256, hd 512, hd 256 and hd 512 bf16;
-    # each also at rate 0.1 (the `_drop` lists)
+    # cores), f32 at batch 2 and at batch 8 (3xTF32), hd 64 (3xTF32), hd 32 (square tiles),
+    # hd 256, hd 512, hd 256 and hd 512 bf16; each also at rate 0.1 (the `_drop` lists)
     fwd_a, fwd_t808, fwd_b, fwd_a16, fwd_b16, fwd_val = attn_cases
     dfwd_a, dfwd_t808, dfwd_b, dfwd_a16, dfwd_b16, dfwd_val = attn_drop_cases
-    fwd_c, fwd_c32, fwd_64, fwd_256, fwd_512, fwd_256b, fwd_512b = attn_train_cases
-    dfwd_c, dfwd_c32, dfwd_64, _, dfwd_512, _, _ = attn_train_drop_cases
-    bwd_c, bwd_c32, bwd_64, bwd_256, bwd_512, bwd_256b, bwd_512b = attn_bwd_cases
-    dbwd_c, dbwd_c32, dbwd_64, dbwd_256, dbwd_512, dbwd_256b, dbwd_512b = attn_bwd_drop_cases
+    (fwd_c, fwd_c32, fwd_c32b8, fwd_64, fwd_32, fwd_256, fwd_512, fwd_256b,
+     fwd_512b) = attn_train_cases
+    dfwd_c, dfwd_c32, dfwd_c32b8, dfwd_64, dfwd_32, _, dfwd_512, _, _ = attn_train_drop_cases
+    (bwd_c, bwd_c32, bwd_c32b8, bwd_64, bwd_32, bwd_256, bwd_512, bwd_256b,
+     bwd_512b) = attn_bwd_cases
+    (dbwd_c, dbwd_c32, dbwd_c32b8, dbwd_64, dbwd_32, dbwd_256, dbwd_512, dbwd_256b,
+     dbwd_512b) = attn_bwd_drop_cases
     kernels = []
     for name, src, replaces, main, extra in (
             # main: cache_index 1283; the other checked indices and the sweep (every 128
@@ -2765,7 +2910,8 @@ def main():
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                  ("a_rate0.1", dfwd_a), ("b_hd512_f32", fwd_b), ("b_hd512_f32_rate0.1", dfwd_b),
                  ("a_hd256_with_lse", fwd_256), ("b_hd512_with_lse", fwd_512),
-                 ("b_hd512_with_lse_rate0.1", dfwd_512))}}),
+                 ("b_hd512_with_lse_rate0.1", dfwd_512), ("hd32_t300_with_lse", fwd_32),
+                 ("hd32_t300_with_lse_rate0.1", dfwd_32))}}),
             # f32 at hd 64 / 128 (the StackGPT's f32 masters: every stage-2 validation
             # batch; f32 stage-2 training), 3xTF32 on the tensor cores; main: the validation
             # shape; the square tiles of fused_attention.cu it replaced timed beside each case
@@ -2780,7 +2926,8 @@ def main():
               "library_ms_spread": fwd_val["library_ms_spread"],
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                   ("validation_rate0.1", dfwd_val), ("c_f32_b2_with_lse", fwd_c32),
-                  ("c_f32_b2_with_lse_rate0.1", dfwd_c32), ("hd64_t300_with_lse", fwd_64),
+                  ("c_f32_b2_with_lse_rate0.1", dfwd_c32), ("c_f32_b8_with_lse", fwd_c32b8),
+                  ("c_f32_b8_with_lse_rate0.1", dfwd_c32b8), ("hd64_t300_with_lse", fwd_64),
                   ("hd64_t300_with_lse_rate0.1", dfwd_64))}}),
             # the tensor-core family: bf16 at hd 64 / 128 (this file) and 256 / 512
             # (fused_attention_tc_wide.cu, through this file's entry point); main: the
@@ -2797,7 +2944,7 @@ def main():
                   ("b_bf16_hd512", fwd_b16), ("b_bf16_hd512_rate0.1", dfwd_b16),
                   ("a_bf16_hd256_with_lse", fwd_256b), ("b_bf16_hd512_with_lse", fwd_512b))}}),
             # f32 at hd 256 / 512 (main: (a)) runs the register-blocked kernel of
-            # fused_attention_bwd_wide.cu, the other shapes the square tiles of
+            # fused_attention_bwd_wide.cu, f32 and bf16 at hd 16 / 32 the square tiles of
             # fused_attention_bwd.cu; before_ms: the square tiles at the main shapes
             ("fused_attention_backward", "fused_attention_bwd_wide.cu", f"{attn_src}:108",
              bwd_256,
@@ -2807,7 +2954,30 @@ def main():
               "before_ms": bwd_256["before_ms"], "before_ms_spread": bwd_256["before_ms_spread"],
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                   ("a_hd256_rate0.1", dbwd_256), ("b_hd512", bwd_512),
-                  ("b_hd512_rate0.1", dbwd_512), ("c_f32_b2", bwd_c32),
+                  ("b_hd512_rate0.1", dbwd_512), ("hd32_t300", bwd_32),
+                  ("hd32_t300_rate0.1", dbwd_32))}}),
+            # f32 at hd 64 / 128 (the StackGPT's f32 masters: f32 stage-2 training), 3xTF32
+            # on the tensor cores; main: the f32 stage-2 step's shape at the shipped rate
+            # 0.1; the square tiles of fused_attention_bwd.cu it replaced held to the same
+            # tolerance and timed beside each case (square_tiles_max_abs_err, _ms)
+            ("fused_attention_backward_f32_tc", "fused_attention_bwd_f32_tc.cu",
+             f"{attn_src}:108", dbwd_c32b8,
+             {"family": "tensor cores", "kernel_route": dbwd_c32b8["route"],
+              "rate": dbwd_c32b8["rate"], "dropout_err": dbwd_c32b8["dropout_err"],
+              "square_tiles_source": f"{src_dir}/fused_attention_bwd.cu",
+              "square_tiles_ms": dbwd_c32b8["square_tiles_ms"],
+              "square_tiles_ms_spread": dbwd_c32b8["square_tiles_ms_spread"],
+              "square_tiles_max_abs_err": dbwd_c32b8["square_tiles_max_abs_err"],
+              "square_tiles_bit_reproducible": all(
+                  c["square_tiles_bit_reproducible"] for c in (
+                      bwd_c32b8, dbwd_c32b8, bwd_c32, dbwd_c32, bwd_64, dbwd_64)),
+              "bound_ms_f32_fma": dbwd_c32b8["bound_ms_f32_fma"], "gflop": dbwd_c32b8["gflop"],
+              "bit_reproducible": dbwd_c32b8["bit_reproducible"],
+              "library_ms_spread": dbwd_c32b8["library_ms_spread"],
+              "ptxas": {name: use for name, use in ptxas.items()
+                        if "attention_bwd_f32_tc" in name},
+              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+                  ("c_f32_b8_rate0", bwd_c32b8), ("c_f32_b2", bwd_c32),
                   ("c_f32_b2_rate0.1", dbwd_c32), ("hd64_t300", bwd_64),
                   ("hd64_t300_rate0.1", dbwd_64))}}),
             ("fused_attention_backward_tc", "fused_attention_bwd_tc.cu", f"{attn_src}:108",

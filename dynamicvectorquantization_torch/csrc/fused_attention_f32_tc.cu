@@ -56,7 +56,7 @@
 //   (ldmatrix's row addresses are permuted, which costs nothing): lane 4g + t
 //   then holds keys t and t + 4, its four scores are the A operand of P V as
 //   they stand (after the split), and V^T's fragments come from ldmatrix too.
-//   The dropout keep bits follow that order (`keep_bits_perm`): the four lanes
+//   The dropout keep bits follow that order (tc.cuh `keep_bits_perm`): the four lanes
 //   of a row group make one Philox call each (rows g / g + 8, keys 0-3 / 4-7)
 //   and exchange words in three shuffles, one call per four probabilities.
 // - Online softmax in log2 units (scores times scale * log2 e, exp2f), rows'
@@ -80,8 +80,10 @@ namespace {
 using dqvq::tc::cp_async16;
 using dqvq::tc::cp_async_commit;
 using dqvq::tc::cp_async_wait;
+using dqvq::tc::keep_bits_perm;
 using dqvq::tc::ldmatrix_x4;
-using dqvq::tc::mma_tf32;
+using dqvq::tc::mma3;
+using dqvq::tc::split_exact;
 using dqvq::tc::to_tf32;
 
 constexpr int kThreads = 256;  // eight warps of 16 query rows
@@ -109,15 +111,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
     const bool in = t < t_len;
     cp_async16(dst + rr * LD + c * 4, src + base + (size_t)(in ? t : 0) * d_model + c * 4, in);
   }
-}
-
-// x = hi + lo exactly, hi = x rounded to TF32; the tensor cores read lo's top
-// 19 bits (truncating it: |x - hi - lo_tf32| <= 2^-10 |lo| <= 2^-21 |x|, of
-// either sign, since lo's sign is x - hi's)
-__device__ __forceinline__ void split(float x, unsigned& hi, unsigned& lo) {
-  const float h = to_tf32(x);
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(x - h);
 }
 
 __device__ __forceinline__ void split_store(float x, float* hi, float* lo) {
@@ -151,45 +144,6 @@ __device__ __forceinline__ void split_tile(const float* sRawK, const float* sRaw
     split_store(vv.z, sVh + (d + 2) * kLDV + key, sVl + (d + 2) * kLDV + key);
     split_store(vv.w, sVh + (d + 3) * kLDV + key, sVl + (d + 3) * kLDV + key);
   }
-}
-
-__device__ __forceinline__ unsigned word(const uint4& w, int i) {
-  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
-}
-
-// Keep bits of one score tile in this file's key order: element e of lane 4g
-// + t is the probability of query row0 + g + 8 (e >> 1) and key col0 + t + 4
-// (e & 1), col0 a multiple of 8; bit e of the result for element e. The
-// words of (row, keys 4m .. 4m + 3) are one Philox call: lane t of a row group
-// makes call i = t (row g + 8 (i & 1), keys 4 (i >> 1) ..) and the four lanes
-// transpose the 4 x 4 words in three shuffles, since each needs word t of
-// every call. All 32 lanes must call.
-__device__ __forceinline__ unsigned keep_bits_perm(const dqvq::DropoutParams& dp, int bh,
-                                                   int row0, int col0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint4 w = dqvq::tc::philox_at(dp, bh, row0 + g + 8 * (t & 1), (col0 >> 2) + (t >> 1));
-  // x[m]: word t of call t ^ m, sent by lane t ^ m (lane bits 0-1 xor m)
-  const unsigned x0 = word(w, t);
-  const unsigned x1 = __shfl_xor_sync(0xffffffffu, word(w, t ^ 1), 1);
-  const unsigned x2 = __shfl_xor_sync(0xffffffffu, word(w, t ^ 2), 2);
-  const unsigned x3 = __shfl_xor_sync(0xffffffffu, word(w, t ^ 3), 3);
-  unsigned bits = 0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int m = (((e & 1) << 1) | (e >> 1)) ^ t;  // element e comes from call 2 (e & 1) + (e >> 1)
-    const unsigned x = m == 0 ? x0 : m == 1 ? x1 : m == 2 ? x2 : x3;
-    bits |= (unsigned)(x >= dp.threshold) << e;
-  }
-  return bits;
-}
-
-// d += a b as hi.lo + lo.hi + hi.hi, the small products first, on the tensor cores
-__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4], unsigned bh0, unsigned bh1,
-                                     unsigned bl0, unsigned bl1) {
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bh0, bh1);
 }
 
 // S over the head dim in kSChains chains of alternate 8-deep steps, added at the end
@@ -265,7 +219,7 @@ fused_attention_fwd_f32_tc_kernel(const float* __restrict__ q, const float* __re
       unsigned qr[4], ah[4], al[4];
       ldmatrix_x4(qr, qa + kk * 8);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) split(__uint_as_float(qr[e]), ah[e], al[e]);
+      for (int e = 0; e < 4; ++e) split_exact(__uint_as_float(qr[e]), ah[e], al[e]);
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         unsigned bh[4], bl[4];
@@ -329,10 +283,10 @@ fused_attention_fwd_f32_tc_kernel(const float* __restrict__ q, const float* __re
       }
       // the A operand of P V: (g, key t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4)
       unsigned ph[4], pl[4];
-      split(p[0], ph[0], pl[0]);
-      split(p[2], ph[1], pl[1]);
-      split(p[1], ph[2], pl[2]);
-      split(p[3], ph[3], pl[3]);
+      split_exact(p[0], ph[0], pl[0]);
+      split_exact(p[2], ph[1], pl[1]);
+      split_exact(p[1], ph[2], pl[2]);
+      split_exact(p[3], ph[3], pl[3]);
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         unsigned vh[4], vl[4];

@@ -207,6 +207,79 @@ __device__ __forceinline__ unsigned keep_bits_cols(const DropoutParams& dp, int 
   return bits;
 }
 
+// The 3xTF32 products of the f32 attention kernels (fused_attention_f32_tc.cu,
+// fused_attention_bwd_f32_tc.cu). x = hi + lo exactly, hi = x rounded to
+// TF32; the tensor cores read lo's top 19 bits (truncating it: |x - hi -
+// lo_tf32| <= 2^-10 |lo| <= 2^-21 |x|, of either sign, since lo's sign is x -
+// hi's)
+__device__ __forceinline__ void split_exact(float x, unsigned& hi, unsigned& lo) {
+  const float h = to_tf32(x);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(x - h);
+}
+
+// d += a b as hi.lo + lo.hi + hi.hi, the small products first, on the tensor cores
+__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4], unsigned bh0, unsigned bh1,
+                                     unsigned bl0, unsigned bl1) {
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// Keep bits of a score tile whose columns come in the order 0 4 1 5 2 6 3 7
+// (the f32 kernels' key order, so that an accumulator is the next product's
+// A operand as it stands): element e of lane 4g + t is the probability of
+// query row0 + g + 8 (e >> 1) and key col0 + t + 4 (e & 1), col0 a multiple
+// of 8; bit e of the result for element e. The words of (row, keys 4m .. 4m
+// + 3) are one Philox call: lane t of a row group makes call i = t (row g + 8
+// (i & 1), keys 4 (i >> 1) ..) and the four lanes transpose the 4 x 4 words
+// in three shuffles, since each needs word t of every call. All 32 lanes
+// must call.
+__device__ __forceinline__ unsigned keep_bits_perm(const DropoutParams& dp, int bh, int row0,
+                                                   int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint4 w = philox_at(dp, bh, row0 + g + 8 * (t & 1), (col0 >> 2) + (t >> 1));
+  // x[m]: word t of call t ^ m, sent by lane t ^ m (lane bits 0-1 xor m)
+  const unsigned x0 = word(w, t);
+  const unsigned x1 = __shfl_xor_sync(0xffffffffu, word(w, t ^ 1), 1);
+  const unsigned x2 = __shfl_xor_sync(0xffffffffu, word(w, t ^ 2), 2);
+  const unsigned x3 = __shfl_xor_sync(0xffffffffu, word(w, t ^ 3), 3);
+  unsigned bits = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int m = (((e & 1) << 1) | (e >> 1)) ^ t;  // element e comes from call 2 (e & 1) + (e >> 1)
+    const unsigned x = m == 0 ? x0 : m == 1 ? x1 : m == 2 ? x2 : x3;
+    bits |= (unsigned)(x >= dp.threshold) << e;
+  }
+  return bits;
+}
+
+// The transposed tile in that order, as the f32 dK / dV pass forms it: element
+// e of lane 4g + t is the probability of KEY key0 + g + 8 (e >> 1) (key0 a
+// multiple of 16) and QUERY q0 + t + 4 (e & 1) (q0 a multiple of 8). As in
+// `keep_bits_cols`, the four keys 4m .. 4m + 3 of one query share a call and
+// sit in lanes g = 4m .. 4m + 3 of one t; lane i = g % 4 makes call i (keys g,
+// g + 8 by i / 2, queries t, t + 4 by i % 2) and the four lanes transpose the
+// words in three shuffles.
+__device__ __forceinline__ unsigned keep_bits_cols_perm(const DropoutParams& dp, int bh,
+                                                        int key0, int q0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, i = g & 3;
+  const uint4 w = philox_at(dp, bh, q0 + t + 4 * (i & 1), ((key0 + g) >> 2) + 2 * (i >> 1));
+  const unsigned x0 = word(w, i);
+  const unsigned x1 = __shfl_xor_sync(0xffffffffu, word(w, i ^ 1), 4);
+  const unsigned x2 = __shfl_xor_sync(0xffffffffu, word(w, i ^ 2), 8);
+  const unsigned x3 = __shfl_xor_sync(0xffffffffu, word(w, i ^ 3), 12);
+  unsigned bits = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {  // element e comes from call e
+    const int m = e ^ i;
+    const unsigned x = m == 0 ? x0 : m == 1 ? x1 : m == 2 ? x2 : x3;
+    bits |= (unsigned)(x >= dp.threshold) << e;
+  }
+  return bits;
+}
+
 // The A operand of a product: rows row0 .. row0 + 15 and columns k0 .. k0 + 15
 // of a row-major bf16 tile in shared memory with `ld` elements a row.
 __device__ __forceinline__ void load_a(unsigned (&a)[4], const bf16* tile, int ld, int row0,

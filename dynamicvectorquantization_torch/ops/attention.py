@@ -10,13 +10,14 @@ chosen by dtype and head dim (`_route`). bf16 at hd 64, 128, 256 and 512 runs
 on the tensor cores (hd 64 / 128, the StackGPT's heads in stage-2 training:
 `csrc/fused_attention_tc.cu`, `csrc/fused_attention_bwd_tc.cu`; hd 256 / 512,
 the DQ-VAE's AttnBlocks in bf16: `csrc/fused_attention_tc_wide.cu`,
-`csrc/fused_attention_bwd_tc_wide.cu`, through the same entry points). The
-f32 forward at hd 64 and 128 (the StackGPT's f32 masters in stage-2
-validation) runs on the tensor cores as three TF32 products a product
-(`csrc/fused_attention_f32_tc.cu`, f32 accuracy). Everything else (f32 at hd
-256 / 512, so the DQ-VAE's AttnBlocks in f32; the f32 backward at hd 16 -
-128; the f32 forward at hd 16 / 32; bf16 at hd 16 and 32) runs on the FMA
-units: f32 at hd 256 and 512 in the register-blocked
+`csrc/fused_attention_bwd_tc_wide.cu`, through the same entry points). f32
+at hd 64 and 128 (the StackGPT's f32 masters: stage-2 validation, and
+training with `compute_dtype` float32) runs on the tensor cores as three TF32
+products a product, f32 accuracy: the forward in
+`csrc/fused_attention_f32_tc.cu`, the backward in
+`csrc/fused_attention_bwd_f32_tc.cu`. Everything else (f32 at hd 256 / 512,
+so the DQ-VAE's AttnBlocks in f32; f32 and bf16 at hd 16 and 32) runs on the
+FMA units: f32 at hd 256 and 512 in the register-blocked
 `csrc/fused_attention_wide.cu` and `csrc/fused_attention_bwd_wide.cu`
 (`_wide_f32`), the rest on the square tiles of `csrc/fused_attention.cu` and
 `csrc/fused_attention_bwd.cu`. In
@@ -54,7 +55,7 @@ _FORWARD_HEAD_DIMS = (16, 32, 64, 128, 256, 512)
 _BACKWARD_HEAD_DIMS = _FORWARD_HEAD_DIMS
 _TC_HEAD_DIMS = (64, 128, 256, 512)  # bf16 head dims of the tensor-core family
 _WIDE_F32_HEAD_DIMS = (256, 512)  # f32 head dims of the register-blocked kernels
-_F32_TC_HEAD_DIMS = (64, 128)  # f32 head dims of the 3xTF32 forward
+_F32_TC_HEAD_DIMS = (64, 128)  # f32 head dims of the 3xTF32 forward and backward
 _MASK32 = 0xFFFFFFFF
 _MASK64 = 0xFFFFFFFFFFFFFFFF
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -274,18 +275,18 @@ def _wide_f32(tensors, n_head, name="fused attention") -> bool:
     return _f32_kernel(tensors, n_head, name, _WIDE_F32_HEAD_DIMS)
 
 
-def _route(tensors, n_head, name, forward=True) -> str:
-    """The kernel a call runs: "tensor cores" (bf16 at hd 64 / 128 / 256 /
-    512), "wide f32" (f32 at hd 256 / 512, register-blocked), for the forward
-    "f32 tensor cores" (f32 at hd 64 / 128, 3xTF32), or "square tiles" (the
-    rest of the FMA family, and the f32 backward at hd 64 / 128); raises where
-    a kernel other than the square tiles takes the dtype and head dim but not
-    the tensors' alignment."""
+def _route(tensors, n_head, name) -> str:
+    """The kernel a call runs, forward or backward alike: "tensor cores" (bf16
+    at hd 64 / 128 / 256 / 512), "wide f32" (f32 at hd 256 / 512,
+    register-blocked), "f32 tensor cores" (f32 at hd 64 / 128, 3xTF32), or
+    "square tiles" (f32 and bf16 at hd 16 / 32); raises where a kernel other
+    than the square tiles takes the dtype and head dim but not the tensors'
+    alignment."""
     if _tensor_cores(tensors, n_head):
         return "tensor cores"
     if _wide_f32(tensors, n_head, name):
         return "wide f32"
-    if forward and _f32_kernel(tensors, n_head, name, _F32_TC_HEAD_DIMS):
+    if _f32_kernel(tensors, n_head, name, _F32_TC_HEAD_DIMS):
         return "f32 tensor cores"
     return "square tiles"
 
@@ -295,8 +296,7 @@ def _count(wrapper, route, rate):
     wrapper.tc_launches += route == "tensor cores"
     wrapper.fma_launches += route in ("wide f32", "square tiles")
     wrapper.wide_f32_launches += route == "wide f32"
-    if route == "f32 tensor cores":  # the forward's alone
-        wrapper.f32_tc_launches += 1
+    wrapper.f32_tc_launches += route == "f32 tensor cores"
     wrapper.dropout_launches += rate > 0.0
 
 
@@ -369,9 +369,9 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
                              rate=0.0, seed=None):
     """(dq, dk, dv) in q's dtype from the forward's inputs, its output y, its
     log-sum-exp and its dropout `rate` and `seed`; hd as in the forward.
-    `fused_attention_backward.launches` counts launches (delta, dK/dV and dQ
-    passes are one launch of the wrapper), split by family and rate as the
-    forward's."""
+    `fused_attention_backward.launches` counts launches (the delta kernel and
+    the dK/dV and dQ passes are one launch of the wrapper), split by family,
+    kernel and rate as the forward's."""
     rate, seed = _dropout_args(rate, seed)
     tensors = (q, k, v, y, dy)
     if all(x.device.type == "cpu" for x in (*tensors, lse)):
@@ -390,9 +390,12 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    route = _route(tensors + (dq, dk, dv), n_head, "fused_attention_backward", forward=False)
+    route = _route(tensors + (dq, dk, dv), n_head, "fused_attention_backward")
     if route == "tensor cores":
         err = cuda_lib.lib().dqvq_fused_attention_backward_tc(
+            *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
+    elif route == "f32 tensor cores":
+        err = cuda_lib.lib().dqvq_fused_attention_backward_f32_tc(
             *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
     elif route == "wide f32":
         err = cuda_lib.lib().dqvq_fused_attention_backward_wide_f32(
@@ -410,6 +413,7 @@ fused_attention_backward.launches = 0
 fused_attention_backward.tc_launches = 0
 fused_attention_backward.fma_launches = 0
 fused_attention_backward.wide_f32_launches = 0
+fused_attention_backward.f32_tc_launches = 0
 fused_attention_backward.dropout_launches = 0
 
 

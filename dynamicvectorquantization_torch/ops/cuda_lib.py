@@ -51,6 +51,7 @@ SIGNATURES = {
     "dqvq_fused_attention_forward_f32_tc": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_fused_attention_forward_wide_f32": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_fused_attention_backward_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
+    "dqvq_fused_attention_backward_f32_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
     "dqvq_layernorm_forward": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward_occupancy": (_I, _I, _P, _P),

@@ -272,6 +272,32 @@ def test_backward_matches_jax_grad_of_pallas_interpret(t, n_head, causal):
         np.testing.assert_allclose(got.numpy(), want, atol=5e-5, rtol=0)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n_head", [2, 4])
+def test_backward_at_heads_of_32_and_16_matches_jax_grad_of_pallas_interpret(n_head, causal):
+    """The square tiles' route, f32 at hd 32 / 16 (`chip_smoke.py` holds the
+    kernel to the plain version at two heads of 32 over T = 300): the plain
+    backward, fed the forward's lse, against the gradient of the JAX package's
+    Pallas kernel in interpret mode."""
+    import jax
+    import jax.numpy as jnp
+
+    from dynamicvectorquantization_tpu.ops.attention_pallas import (
+        fused_causal_attention as jax_attention,
+    )
+
+    q, k, v = _qkv(6, 2, 300, 64)
+    dy = np.random.default_rng(7).normal(size=q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_attention(a, b, c, 0, n_head, 0.0, None, True, causal),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    tq, tk, tv, tdy = (torch.from_numpy(a) for a in (q, k, v, dy))
+    y, lse = fused_attention_forward(tq, tk, tv, n_head, causal=causal, return_lse=True)
+    for out, want in zip(fused_attention_backward_plain(tq, tk, tv, y, lse, tdy, n_head,
+                                                        causal=causal), ref):
+        np.testing.assert_allclose(out.numpy(), want, atol=5e-5, rtol=0)
+
+
 def test_backward_plain_equals_autograd_of_plain_forward():
     q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(6, 2, 70, 64))
     dy = torch.from_numpy(np.random.default_rng(7).normal(size=(2, 70, 64)).astype(np.float32))
@@ -622,9 +648,8 @@ def test_cuda_tensor_core_masks_equal_dropout_keep_mask(cuda_device, hd, t):
 @pytest.mark.cuda
 def test_cuda_each_family_counts_only_its_own_shapes(cuda_device):
     """bf16 at hd 64, 128, 256, 512 -> tensor cores; f32 at any hd and bf16
-    at hd 16, 32 -> FMA units, except the f32 forward at hd 64 / 128, which
-    runs the 3xTF32 kernel (`f32_tc_launches`, in neither family) while its
-    backward stays on the FMA units."""
+    at hd 16, 32 -> FMA units, except f32 at hd 64 / 128, whose forward and
+    backward run the 3xTF32 kernels (`f32_tc_launches`, in neither family)."""
     cases = [(torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
              (torch.float32, 64, False), (torch.float32, 128, False),
              (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
@@ -637,16 +662,17 @@ def test_cuda_each_family_counts_only_its_own_shapes(cuda_device):
         f32tc = dtype == torch.float32 and hd in (64, 128)
         fwd = (fused_attention_forward.tc_launches, fused_attention_forward.fma_launches,
                fused_attention_forward.f32_tc_launches)
-        bwd = (fused_attention_backward.tc_launches, fused_attention_backward.fma_launches)
+        bwd = (fused_attention_backward.tc_launches, fused_attention_backward.fma_launches,
+               fused_attention_backward.f32_tc_launches)
         y, lse = fused_attention_forward(q, k, v, 2, causal=True, return_lse=True)
         fused_attention_backward(q, k, v, y, lse, dy, 2, causal=True)
-        want = (1, 0) if tc else (0, 1)
+        want = (0, 0, 1) if f32tc else (1, 0, 0) if tc else (0, 1, 0)
         assert (fused_attention_forward.tc_launches - fwd[0],
                 fused_attention_forward.fma_launches - fwd[1],
-                fused_attention_forward.f32_tc_launches - fwd[2]) == (
-            (0, 0, 1) if f32tc else (*want, 0)), (dtype, hd)
+                fused_attention_forward.f32_tc_launches - fwd[2]) == want, (dtype, hd)
         assert (fused_attention_backward.tc_launches - bwd[0],
-                fused_attention_backward.fma_launches - bwd[1]) == want, (dtype, hd)
+                fused_attention_backward.fma_launches - bwd[1],
+                fused_attention_backward.f32_tc_launches - bwd[2]) == want, (dtype, hd)
     misaligned = torch.zeros(1 + 70 * 128, device=cuda_device, dtype=torch.bfloat16)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         fused_attention_forward(*(misaligned.view(1, 70, 128),) * 3, 2)
@@ -725,10 +751,10 @@ def test_route_by_dtype_and_head_dim(dtype, hd):
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_backward_route_by_dtype_and_head_dim(dtype, hd):
-    """The backward's `_route` (forward=False): the f32 backward at hd 16 -
-    128 stays on the square tiles, which rebuild P from the 3xTF32 forward's
-    lse; bf16 at hd 64 - 512 -> the tensor cores, f32 at hd 256 / 512 -> the
-    register-blocked backward."""
+    """The backward's `_route`: bf16 at hd 64 - 512 -> the tensor cores, f32
+    at hd 256 / 512 -> the register-blocked backward, f32 at hd 64 / 128 ->
+    the 3xTF32 backward (`csrc/fused_attention_bwd_f32_tc.cu`), the rest (f32
+    and bf16 at hd 16 / 32) -> the square tiles."""
     from dynamicvectorquantization_torch.ops.attention import _route
 
     x = torch.zeros((2, 8, 2 * hd), dtype=dtype)
@@ -736,26 +762,39 @@ def test_backward_route_by_dtype_and_head_dim(dtype, hd):
         want = "tensor cores"
     elif dtype == torch.float32 and hd >= 256:
         want = "wide f32"
+    elif dtype == torch.float32 and hd >= 64:
+        want = "f32 tensor cores"
     else:
         want = "square tiles"
-    assert _route((x, x, x, x, x, x, x, x), 2, "fused_attention_backward", forward=False) == want
+    assert _route((x, x, x, x, x, x, x, x), 2, "fused_attention_backward") == want
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_and_backward_routes_agree(dtype, hd):
+    """Every (dtype, head dim) runs its forward and its backward on the same
+    kernel family: the backward of a forward is never left on another route."""
+    from dynamicvectorquantization_torch.ops.attention import _route
+
+    x = torch.zeros((2, 8, 2 * hd), dtype=dtype)
+    assert _route((x,) * 4, 2, "fused_attention_forward") == _route(
+        (x,) * 8, 2, "fused_attention_backward")
 
 
 @pytest.mark.parametrize("hd", [64, 128])
 def test_misaligned_f32_forward_at_hd_64_128_raises_instead_of_taking_the_square_tiles(hd):
     """No fallback: an f32 input or output at hd 64 / 128 off a 16-byte
-    boundary is refused by the forward's route, naming the forward; the
-    backward's route takes it to the square tiles as before."""
+    boundary is refused by the forward's route and by the backward's, each
+    naming its own wrapper."""
     from dynamicvectorquantization_torch.ops.attention import _route
 
     aligned = torch.zeros((1, 8, 2 * hd))
     misaligned = torch.zeros(1 + 8 * 2 * hd)[1:].view(1, 8, 2 * hd)
     assert misaligned.data_ptr() % 16
-    with pytest.raises(ValueError, match=f"fused_attention_forward: f32 tensors at hd {hd} "
-                                         "must start on a 16-byte boundary"):
-        _route((aligned, misaligned, aligned, aligned), 2, "fused_attention_forward")
-    assert _route((aligned, misaligned, aligned, aligned), 2, "fused_attention_backward",
-                  forward=False) == "square tiles"
+    for name, n in (("fused_attention_forward", 4), ("fused_attention_backward", 8)):
+        with pytest.raises(ValueError, match=f"{name}: f32 tensors at hd {hd} "
+                                             "must start on a 16-byte boundary"):
+            _route((aligned, misaligned) + (aligned,) * (n - 2), 2, name)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -949,27 +988,82 @@ def test_cuda_f32_tc_forward_masks_equal_dropout_keep_mask(cuda_device, hd, t):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_cuda_autograd_through_the_f32_tc_forward_and_the_square_tile_backward(cuda_device,
-                                                                             rate):
+def test_cuda_autograd_through_the_f32_tc_forward_and_backward(cuda_device, rate):
     """`fused_causal_attention` in f32 at hd 128 (the StackGPT's heads): the
-    3xTF32 forward and the square-tile backward, which rebuilds P from the
-    forward's lse, one launch each; gradients within the f32 backward
-    tolerance of autograd through the plain forward."""
+    3xTF32 forward and the 3xTF32 backward, which rebuilds P from the
+    forward's lse, one launch each and none on the FMA units; gradients
+    within the f32 backward tolerance of autograd through the plain forward."""
     b, t, d, n_head, seed = 2, 300, 256, 2, 67890
     arrays = _qkv(72, b, t, d)
     leaves = [torch.from_numpy(a).to(cuda_device).requires_grad_() for a in arrays]
     ref_leaves = [torch.from_numpy(a).to(cuda_device).requires_grad_() for a in arrays]
     dy = torch.from_numpy(_qkv(73, b, t, d)[0]).to(cuda_device)
-    before = (fused_attention_forward.f32_tc_launches, fused_attention_backward.fma_launches,
-              fused_attention_backward.wide_f32_launches)
+    before = (fused_attention_forward.f32_tc_launches, fused_attention_backward.f32_tc_launches,
+              fused_attention_backward.fma_launches)
     y = fused_causal_attention(*leaves, n_head, None, True, rate, seed)
     grads = torch.autograd.grad(y, leaves, dy)
     torch.cuda.synchronize()
-    assert (fused_attention_forward.f32_tc_launches, fused_attention_backward.fma_launches,
-            fused_attention_backward.wide_f32_launches) == (before[0] + 1, before[1] + 1,
-                                                            before[2])
+    assert (fused_attention_forward.f32_tc_launches, fused_attention_backward.f32_tc_launches,
+            fused_attention_backward.fma_launches) == (before[0] + 1, before[1] + 1, before[2])
     y_ref = fused_attention_forward_plain(*ref_leaves, n_head, None, True, False, rate, seed)
     ref = torch.autograd.grad(y_ref, ref_leaves, dy)
     torch.testing.assert_close(y, y_ref, atol=1e-5, rtol=0)
     for a, r in zip(grads, ref):
         torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+@pytest.mark.parametrize("shape,n_head,causal", [
+    ((2, 300, 256), 2, True),  # 2 heads of 128, ragged last tiles
+    ((2, 258, 256), 2, True),  # 257 + 1 tokens
+    ((8, 805, 1024), 8, True),  # the f32 stage-2 training shape
+    ((2, 300, 64), 1, False),  # hd 64, one non-causal head
+    ((3, 100, 128), 2, True),  # hd 64, every tile ragged
+])
+def test_cuda_f32_tc_backward_matches_plain(cuda_device, shape, n_head, causal, rate):
+    """f32 at hd 64 / 128 runs the 3xTF32 backward (`f32_tc_launches`, in
+    neither family), fed the 3xTF32 forward's lse: dq, dk, dv within 1e-4 of
+    the plain version (three TF32 products a product, each tile's sum started
+    afresh and added in f32), as every f32 backward; bit-reproducible."""
+    seed = 314159
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(90, *shape))
+    dy = torch.from_numpy(_qkv(91, *shape)[0]).to(cuda_device)
+    y, lse = fused_attention_forward(q, k, v, n_head, None, causal, rate, True, seed)
+    before = (fused_attention_backward.f32_tc_launches, fused_attention_backward.fma_launches,
+              fused_attention_backward.tc_launches)
+    out = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal, rate, seed)
+    again = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, causal, rate, seed)
+    torch.cuda.synchronize()
+    assert (fused_attention_backward.f32_tc_launches, fused_attention_backward.fma_launches,
+            fused_attention_backward.tc_launches) == (before[0] + 2, before[1], before[2])
+    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, None, causal, True, rate, seed)
+    ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, None, causal, rate,
+                                         seed)
+    for a, r in zip(out, ref):
+        torch.testing.assert_close(a, r, atol=1e-4, rtol=0)
+    assert all(torch.equal(a, r) for a, r in zip(out, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,t", [(64, 300), (128, 805)])
+def test_cuda_f32_tc_backward_masks_equal_dropout_keep_mask(cuda_device, hd, t):
+    """Uniform probabilities and unit-vector rows as V and as dY: column c of
+    dV's key row r is nonzero iff the probability (query c0 + c, key r) was
+    kept, so dV shows the 3xTF32 backward's mask transposed, though it takes
+    each 8-query tile in the order 0 4 1 5 2 6 3 7."""
+    b, n_head, rate, seed = 2, 2, 0.3, 83
+    q = torch.zeros((b, t, n_head * hd), device=cuda_device)
+    mask = dropout_keep_mask(seed, b, n_head, t, rate, cuda_device)
+    before = fused_attention_backward.f32_tc_launches
+    for c0 in range(0, t, hd):
+        n = min(hd, t - c0)
+        v = torch.zeros((b, t, n_head, hd), device=cuda_device)
+        v[:, c0 + torch.arange(n), :, torch.arange(n)] = 1.0
+        v = v.reshape(b, t, -1).contiguous()
+        y, lse = fused_attention_forward(q, q, v, n_head, None, False, rate, True, seed)
+        _, _, dv = fused_attention_backward(q, q, v, y, lse, v, n_head, None, False, rate, seed)
+        got = dv.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+        assert torch.equal(got, mask[..., c0:c0 + n, :].transpose(-1, -2))
+    assert fused_attention_backward.f32_tc_launches == before + -(-t // hd)
+

@@ -579,3 +579,39 @@ def test_cuda_train_step_goes_through_every_kernel():
     assert [w.launches - b for w, b in zip(wrappers, before)] == [
         2 * layers, 2 * layers, 2 * (2 * layers + 2), 2 * (2 * layers + 2), 2 * len(gpu.params)]
     np.testing.assert_allclose(got, want, atol=5e-2, rtol=0)  # bf16 activations, two devices
+
+
+@pytest.mark.cuda
+def test_cuda_f32_train_step_runs_the_3xtf32_attention():
+    """Two f32 steps (`compute_dtype` None, the JAX trainer's default, whose
+    CPU counterpart `test_trainer_two_steps_match_jax` holds to the JAX
+    trainer) at two heads of 64 on the card: every attention forward and
+    backward on the 3xTF32 kernels, none on the FMA units, and the losses
+    within f32 summation order of the same steps on the CPU (plain versions)."""
+    from dynamicvectorquantization_torch.ops.attention import (
+        fused_attention_backward,
+        fused_attention_forward,
+    )
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    overrides = dict(n_embd=128)  # 2 heads of 64
+    sd = {k: v.clone() for k, v in _port_model(**overrides).state_dict().items()}
+    cpu = _trainer(sd, transformer_overrides=overrides)
+    z = cpu.encode_dataset(_images(5, BATCH), batch=BATCH)
+    gpu = Stage2Trainer(_port_model(sd, **overrides), LR, warmup_steps=0, max_steps=MAX_STEPS,
+                        device="cuda")
+    counters = [(fused_attention_forward, "f32_tc_launches"),
+                (fused_attention_backward, "f32_tc_launches"),
+                (fused_attention_forward, "fma_launches"),
+                (fused_attention_backward, "fma_launches")]
+    before = [getattr(w, name) for w, name in counters]
+    got = [float(gpu.train_step(z)["train_loss"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = [float(cpu.train_step(z)["train_loss"]) for _ in range(2)]
+    layers = 4
+    assert [getattr(w, name) - b for (w, name), b in zip(counters, before)] == [
+        2 * layers, 2 * layers, 0, 0]
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)  # f32, two devices
