@@ -43,9 +43,10 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                bound, the FMA search's time beside them, and adversarial sets
                (duplicate codes, codes one ulp apart, rows midway between two
                codes, the 1/K init codebook, one code owning every row); the
-               int8 decode attention at four cache indices and, kernel only,
-               every 128 positions to 1283 (two calls equal, the device-index
-               entry equal to the host-index one at each); the LayerNorm
+               int8 decode attention at four cache indices with bf16 and with f32
+               queries and, kernel only, every 128 positions to 1283 (two calls
+               equal, the device-index entry equal to the host-index one at
+               each); the LayerNorm
                backward's share of its bytes bound, launches and ptxas report
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
@@ -69,6 +70,11 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                zeroed just before and read just after; the decode kernel's
                time over the indices the batch visited, estimated from the
                sweep (and from the replaced kernel's recorded times)
+     http      the HTTP front end (`serve/http.py`, `python -m
+               dynamicvectorquantization_torch.serve`) in-process over the same
+               model on 127.0.0.1, port 0, max_batch 2: the warm-up image, then
+               POST /generate of 2 images (PNGs decoded by a zlib reader here)
+               and GET /healthz; launches of the request
   6. train     full-width, full-depth p6c18 StackGPT (the shipped config, its
                attn_pdrop 0.1 included, with the training campaign's stream
                caps, T = 805),
@@ -86,7 +92,16 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                cached codes, with f32 limits that two controls of lower
                precision (cuBLAS's TF32; a TF32 attention forward) must each
                exceed, every attention launch on the 3xTF32 forward and
-               backward (24 + 24 a step), none on the square tiles
+               backward (24 + 24 a step), none on the square tiles; then all of
+               the bf16 run again for the class-conditional
+               `configs/stage2/class_imagenet_p6c18.yml` (phase `class_train`:
+               vocabulary 2026, position tables 1258 / 2026) on the same cached
+               codes with 16 seeded labels in [0, 1000)
+     class_sample  one of that model's `log_images` grids (the loop's free
+               `samples_from_scratch`) for 4 labels on its f32 masters with int8
+               caches (f32 queries through the decode kernel): wall time and AR
+               steps, every sampled token inside the class model's code /
+               position ranges
   7. train1    full-width, full-depth DQ-VAE + GAN of the shipped
                `dqvae-entropy-dual-r05_imagenet.yml` (f32, TF32 off, seeded random
                weights, random VGG16 backbone with the bundled LPIPS lin heads),
@@ -98,7 +113,13 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                then all of it again with `compute_dtype=bfloat16` (bf16 towers
                over f32 parameters, the bf16 downsample launched, the AttnBlocks
                on the tensor-core family)
-  8. fit       the port's training command line (`train/cli.py` `main`), called
+  8. sample_cli  `python -m dynamicvectorquantization_torch.sample.val`
+               (with grids) and `...sample.images` as subprocesses (this script
+               in `--launches-of` mode round each, to count their launches) on
+               the p6c18 yml with seeded f32 weights, int8 caches, one batch of
+               8: the pickle, the grid and the eight PNGs read back, seconds a
+               batch
+  9. fit       the port's training command line (`train/cli.py` `main`), called
                in-process on the shipped p6c18 config at full width and depth
                with only data and run-length overrides (synthetic 256^2 images,
                batch 8, 2 epochs of 4 steps, the train phase's stream caps): one
@@ -109,10 +130,10 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                pre-encode in bf16, validation in f32 on the 3xTF32 forward, none
                on the square tiles),
                seconds per epoch by `loop_buckets.json`
-  9. fit1      the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
+  10. fit1     the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
                8, two epochs of one step, resume)
- 10. kernels   one line listing every ported kernel, its launches on the
-               encode, serving, training and fit runs and its measured numbers
+ 11. kernels   one line listing every ported kernel, its launches on each
+               driven path and its measured numbers
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import contextlib
@@ -124,6 +145,7 @@ import sys
 import time
 
 P6C18 = "configs/stage2/uncond_imagenet_p6c18.yml"
+CLASS_P6C18 = "configs/stage2/class_imagenet_p6c18.yml"
 STAGE1 = "configs/stage1/dqvae-entropy-dual-r05_imagenet.yml"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 # f32 without tensor cores; bf16 and TF32 dense on the tensor cores
@@ -256,13 +278,18 @@ def interpolated_sum(points, indices):
 def check_decode_attention(torch, dev):
     """The four recorded indices against the plain version (errors, kernel /
     plain times, the device-index entry equal to the by-value one, two calls
-    equal), then a kernel-only sweep of cache_index every 128 positions (and
-    1283) with the same two equalities at each."""
+    equal), with bf16 queries (the bf16 transformer of the served model) and
+    with f32 queries (the f32 parameters of the sampling entry points and the
+    loop's image grids); then, bf16 only, a kernel-only sweep of cache_index
+    every 128 positions (and 1283) with the same two equalities at each.
+    Returns (the bf16 cases, the sweep, the f32 cases)."""
     from dynamicvectorquantization_torch.ops.kv_int8 import (
         decode_attention_int8, decode_attention_int8_plain, quantize_kv)
 
     b, h, t, hd = 8, 8, 1536, 128  # p6c18: batch 8, 8 heads, 1284 -> 1536 positions
-    tol = 1e-2  # bf16 output: one rounding of values |y| < 1 (ulp <= 2^-8)
+    # bf16 output: one rounding of values |y| < 1 (ulp <= 2^-8); f32: summation order
+    # only, as tests/test_torch_kv_int8.py
+    tols = {"bfloat16": 1e-2, "float32": 1e-5}
     g = torch.Generator(device=dev).manual_seed(0)
     set_bytes = 2 * b * h * t * (hd + 4)
     sets = []
@@ -272,7 +299,9 @@ def check_decode_attention(torch, dev):
         vq, vs = quantize_kv(torch.randn((b, h, t, hd), generator=g, device=dev))
         sets.append((q, kq, vq, ks, vs))
 
-    def equalities(idx):
+    sets_by_dtype = {"bfloat16": sets, "float32": [(s[0].float(),) + s[1:] for s in sets]}
+
+    def equalities(idx, sets=sets):
         out = decode_attention_int8(*sets[0], idx)
         again = decode_attention_int8(*sets[0], idx)
         on_device = decode_attention_int8(
@@ -280,30 +309,39 @@ def check_decode_attention(torch, dev):
         torch.cuda.synchronize()
         return out, bool(torch.equal(out, again)), bool(torch.equal(out, on_device))
 
-    def bound_at(idx):
+    def bound_at(idx, q_bytes=2):
+        """q read and the output written in the queries' dtype, the filled
+        prefix of both int8 caches and their f32 scales read once."""
         n = idx + 1
-        return bound(2 * b * h * hd * 2 + 2 * b * h * n * (hd + 4), 4 * b * h * n * hd, "float32")
+        return bound(2 * b * h * hd * q_bytes + 2 * b * h * n * (hd + 4), 4 * b * h * n * hd,
+                     "float32")
 
-    cases = []
-    for idx in (0, 255, 256, 1283):
-        out, reproducible, device_equal = equalities(idx)
-        ref = decode_attention_int8_plain(*sets[0], idx)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        bms, by = bound_at(idx)
-        case = dict(phase="kernels", kernel="decode_attention_int8", shape=[b, h, t, hd],
-                    dtype="bfloat16", cache_index=idx, max_abs_err=err, tol=tol,
-                    bit_reproducible=reproducible, device_index_equal=device_equal,
-                    library_ms=None, bound_ms=bms, bound_by=by)
-        time_into(case, "kernel", torch, lambda *a: decode_attention_int8(*a, idx), sets)
-        time_into(case, "plain", torch, lambda *a: decode_attention_int8_plain(*a, idx), sets)
-        case["bound_share"] = case["kernel_ms"] and bms / case["kernel_ms"]
-        emit(case)
-        require(err <= tol, f"decode_attention_int8 disagrees at cache_index {idx}: {err}")
-        require(reproducible and device_equal,
-                f"decode_attention_int8 at cache_index {idx}: two calls equal {reproducible}, "
-                f"device index equal to the host index {device_equal}")
-        cases.append(case)
+    cases = {}
+    for dtype, dsets in sets_by_dtype.items():
+        tol, cases[dtype] = tols[dtype], []
+        for idx in (0, 255, 256, 1283):
+            out, reproducible, device_equal = equalities(idx, dsets)
+            ref = decode_attention_int8_plain(*dsets[0], idx)
+            torch.cuda.synchronize()
+            require(out.dtype == getattr(torch, dtype), f"decode_attention_int8 gave {out.dtype}")
+            err = (out.float() - ref.float()).abs().max().item()
+            bms, by = bound_at(idx, dsets[0][0].element_size())
+            case = dict(phase="kernels", kernel="decode_attention_int8", shape=[b, h, t, hd],
+                        dtype=dtype, cache_index=idx, max_abs_err=err, tol=tol,
+                        bit_reproducible=reproducible, device_index_equal=device_equal,
+                        library_ms=None, bound_ms=bms, bound_by=by)
+            time_into(case, "kernel", torch, lambda *a: decode_attention_int8(*a, idx), dsets)
+            time_into(case, "plain", torch, lambda *a: decode_attention_int8_plain(*a, idx),
+                      dsets)
+            case["bound_share"] = case["kernel_ms"] and bms / case["kernel_ms"]
+            emit(case)
+            require(err <= tol, f"decode_attention_int8 ({dtype} queries) disagrees at "
+                                f"cache_index {idx}: {err}")
+            require(reproducible and device_equal,
+                    f"decode_attention_int8 ({dtype} queries) at cache_index {idx}: two calls "
+                    f"equal {reproducible}, device index equal to the host index {device_equal}")
+            cases[dtype].append(case)
+    del sets_by_dtype
     sweep = []
     for idx in list(range(0, 1284, 128)) + [1283]:
         _, reproducible, device_equal = equalities(idx)
@@ -316,7 +354,7 @@ def check_decode_attention(torch, dev):
         sweep.append(point)
     emit(dict(phase="kernels", kernel="decode_attention_int8_sweep", shape=[b, h, t, hd],
               dtype="bfloat16", sweep=sweep))
-    return cases, sweep
+    return cases["bfloat16"], sweep, cases["float32"]
 
 
 def fma_forward(torch, q, k, v, n_head, scale, causal, rate=0.0, return_lse=False, seed=0):
@@ -2011,20 +2049,26 @@ def set_dropout(gpt, embd, resid, attn=None):
 
 
 def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="bfloat16",
-          streams=None):
+          streams=None, config_path=P6C18, labels=None, kv_cache_dtype=None):
     """Stage-2 training at full p6c18 width and depth on cached codes: bf16
     over f32 masters (the shipped yml's `compute_dtype`), or with
     `compute_dtype` None, the JAX trainer's default, f32 throughout (f32
     weights and activations, TF32 off, attention on the 3xTF32 kernels) on the
-    `streams` a bf16 run cached. Returns (the timed line, the cached streams)."""
+    `streams` a bf16 run cached. With `labels` (one class label an image) the
+    class-conditional model of `config_path` trains on them beside the
+    streams (phase `class_train`); `kv_cache_dtype` is the model's sampling
+    caches'. Returns (the timed line, the cached streams, the trainer)."""
     from dynamicvectorquantization_torch.config.yaml_config import load_config
     from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
     from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
 
-    config = load_config([P6C18])
+    phase = "train" if labels is None else "class_train"
+    config = load_config([config_path])
     params = config["model"]["params"]
     tparams = params["transformer_config"]["params"]
     params["permuter_config"]["params"].update(TRAIN_CAPS)
+    if kv_cache_dtype:
+        tparams["kv_cache_dtype"] = kv_cache_dtype
     embd_pdrop, resid_pdrop = tparams["embd_pdrop"], tparams["resid_pdrop"]
     attn_pdrop = tparams["attn_pdrop"]  # as shipped: 0.1, drawn inside the attention kernels
     require(attn_pdrop > 0, "the shipped config trains with attention dropout")
@@ -2064,8 +2108,13 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
             require(encode_launches[name] == want, f"{name} launched {encode_launches[name]} "
                                                    f"times by encode_dataset, expected {want}")
         del images
-    batches = [{k: v[i:i + batch] for k, v in streams.items()}
+    batches = [({k: v[i:i + batch] for k, v in streams.items()},
+                None if labels is None else labels[i:i + batch])
                for i in range(0, n_images, batch)]
+
+    def train_step(i):
+        z, c = batches[i % len(batches)]
+        return trainer.train_step(z, c=c)
     t_len = streams["coarse_content"].shape[1] + streams["fine_content"].shape[1] + 1
     require(t_len == TRAIN_T, f"training sequence length {t_len}, expected {TRAIN_T}")
     pad = model.permuter.content_pad_code
@@ -2103,7 +2152,7 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         with ctx:
-            logs, grads = trainer.compute_grads(batches[0])
+            logs, grads = trainer.compute_grads(batches[0][0], c=batches[0][1])
             kept = {k: grads[k].float() for k in watched}
             trainer.apply_update(grads)
             del grads
@@ -2150,7 +2199,7 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
                               param_max_abs_diff=c_max, param_mean_abs_diff=c_mean,
                               exceeds_a_limit=c_loss > loss_tol or max(c_grad.values()) > grad_tol
                               or c_max > delta_max_tol or c_mean > delta_mean_tol)
-    compare = dict(phase="train", step="kernel_vs_plain", config=P6C18, attn_pdrop=attn_pdrop,
+    compare = dict(phase=phase, step="kernel_vs_plain", config=config_path, attn_pdrop=attn_pdrop,
                    dropout="attention only (embedding and residual off)",
                    dtype=dname, batch=batch, seq_len=t_len,
                    lr=lr, params=n_params, losses_kernel=kr["logs"], losses_plain=pr["logs"],
@@ -2183,8 +2232,7 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
         for _ in range(windows):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pending = [trainer.train_step(batches[i % len(batches)])["train_loss"]
-                       for i in range(n)]
+            pending = [train_step(i)["train_loss"] for i in range(n)]
             torch.cuda.synchronize()
             per_step.append((time.perf_counter() - t0) / n * 1e3)
             losses_ += [float(v) for v in pending]
@@ -2192,24 +2240,23 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
 
     restore(start)
     set_dropout(gpt, embd_pdrop, resid_pdrop, 0.0)
-    trainer.train_step(batches[0])  # warm-up step
+    train_step(0)  # warm-up step
     step_rate0, _ = timed(timed_steps)
-    prof0 = profile_device_time(torch, lambda: trainer.train_step(batches[0]), n_top=4)
+    prof0 = profile_device_time(torch, lambda: train_step(0), n_top=4)
 
     restore(start)
     del start
     set_dropout(gpt, embd_pdrop, resid_pdrop, attn_pdrop)
-    losses = [float(trainer.train_step(batches[0])["train_loss"])]  # warm-up step
+    losses = [float(train_step(0)["train_loss"])]  # warm-up step
     torch.cuda.synchronize()
     reset_launches()
-    losses.append(float(trainer.train_step(batches[1])["train_loss"]))
+    losses.append(float(train_step(1)["train_loss"]))
     step_launches = read_launches()
     torch.cuda.reset_peak_memory_stats()
     step, more = timed(timed_steps)
     losses += more
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    prof = profile_device_time(
-        torch, lambda: trainer.train_step(batches[0]), n_top=12)
+    prof = profile_device_time(torch, lambda: train_step(0), n_top=12)
     layers = gpt.position_layer + gpt.content_layer
     # hd 128: every attention launch on the tensor-core family in bf16, on the 3xTF32
     # kernels in f32; none on the square tiles
@@ -2224,11 +2271,13 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
                 "fused_adamw": len(trainer.params)}
     step_ms = step["median"]
     busy_ms = prof["device_busy_ms"]
-    res = dict(phase="train", step="timed", config=P6C18, attn_pdrop=attn_pdrop,
+    res = dict(phase=phase, step="timed", config=config_path, attn_pdrop=attn_pdrop,
                step_ms_attn_pdrop_0=step_rate0["median"], step_ms_spread_attn_pdrop_0=step_rate0,
                device_busy_ms_attn_pdrop_0=prof0["device_busy_ms"], embd_pdrop=embd_pdrop,
                resid_pdrop=resid_pdrop, dtype=dname, batch=batch,
                seq_len=t_len, stream_caps=TRAIN_CAPS, images=n_images, real_tokens=tokens,
+               labels=None if labels is None else labels.tolist(),
+               vocab_size=model.vocab_size, cond_stage_key=model.cond_stage_key,
                layers=layers, params=n_params, parameter_leaves=len(trainer.params), lr=lr,
                load_s=spread([load_s]), encode_dataset_s=encode_s,
                encode_launches=encode_launches,
@@ -2246,9 +2295,9 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
     require(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
     for name, want in expected.items():
         require(step_launches[name] == want,
-                f"{name} launched {step_launches[name]} times per {dname} train step, "
+                f"{name} launched {step_launches[name]} times per {dname} {phase} step, "
                 f"expected {want}")
-    return res, streams
+    return res, streams, trainer
 
 
 def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
@@ -2734,7 +2783,227 @@ def serve(torch, model, card):
     return res
 
 
+def class_sample(torch, trainer, card, labels):
+    """One of the class model's `log_images` grids (the training loop's
+    `samples_from_scratch`: free positions, top-k 300 / 100) for 4 `labels`,
+    on its f32 masters with int8 caches: the grid's wall time and AR steps,
+    the sampled streams held to the class model's vocabulary, and the
+    launches of the call. (The second grid, fixed fine positions, runs the
+    same kernels; it is left out for the script's time.)"""
+    import numpy as np
+
+    model, dev = trainer.model, trainer.device
+    with trainer.master_weights(), torch.inference_mode():
+        query_dtype = str(next(model.transformer.parameters()).dtype)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        c = model.encode_to_c(labels.to(dev))
+        toks = model.sample_from_scratch(*c, generator=torch.Generator(device=dev).manual_seed(17),
+                                         top_k=300, top_p=1.0, top_k_pos=100, top_p_pos=1.0,
+                                         fix_fine_position=False)
+        images = model.decode_to_img(*toks).float().cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    cc, fc, cp, fp = (t.cpu() for t in toks)
+    checks = dict(
+        content_in_codes_or_pad=all(bool((t <= model.content_pad_code).all()) for t in (cc, fc)),
+        fine_positions_at_most_eos=bool((fp <= model.fine_position_eos_code).all()),
+        coarse_positions_valid=bool(((cp < model.max_coarse_position_idx)
+                                     | (cp == model.coarse_position_eos_code)
+                                     | (cp == model.coarse_position_pad_code)).all()))
+    layers = model.transformer.position_layer + model.transformer.content_layer
+    ar_steps = model.last_ar_steps
+    res = dict(phase="class_sample", config=CLASS_P6C18, labels=labels.tolist(),
+               kv_cache_dtype="int8", weights="f32 masters", query_dtype=query_dtype,
+               grid="samples_from_scratch", top_k=300, top_k_pos=100, wall_s=spread([wall]),
+               ar_steps=ar_steps, coarse_tokens=int((cp < model.max_coarse_position_idx).sum()),
+               fine_tokens=int((fp < model.fine_position_pad_code).sum()), **checks,
+               launches=launches, shape=list(images.shape), card=card)
+    emit(res)
+    require(query_dtype == "torch.float32", f"sampled with {query_dtype} weights")
+    require(all(checks.values()), f"a sampled token outside its range: {checks}")
+    require(images.shape == (4, 256, 256, 3) and bool(np.isfinite(images).all()),
+            f"sampled images: shape {images.shape}, or non-finite values")
+    require(launches["decode_attention_int8"] >= layers * ar_steps,
+            f"decode_attention_int8 launched {launches['decode_attention_int8']} times over "
+            f"{ar_steps} AR steps of {layers} layers")
+    # the decoder's four AttnBlocks (f32: the FMA family)
+    require(launches["fused_attention_forward"] >= 4,
+            "fused_attention_forward was not launched by the decoder")
+    return res
+
+
+def read_png(data):
+    """(H, W, C) uint8 from the bytes of an 8-bit grey or RGB PNG whose rows
+    all use filter 0 (what `encode_png` writes), by the standard library."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        require(struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] == zlib.crc32(tag + body),
+                f"PNG chunk {tag!r}: bad CRC")
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        elif tag == b"IEND":
+            break
+        pos += 12 + n
+    w, h, depth, color, _, _, interlace = header
+    require(depth == 8 and color in (0, 2) and interlace == 0, f"PNG header {header}")
+    c = 3 if color == 2 else 1
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
+    require(not rows[:, 0].any(), "a PNG row filter other than 0")
+    return rows[:, 1:].reshape(h, w, c)
+
+
+def run_counting(argv):
+    """`chip_smoke.py --launches-of <module> <its arguments>`: run the module
+    as `python -m <module>` does, then print its kernels' launches as one
+    JSON line (how `sample_cli` counts the launches of its subprocesses)."""
+    import runpy
+
+    module, sys.argv = argv[0], argv
+    reset_launches()
+    code = 0
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as e:
+        code = e.code or 0
+    print(json.dumps({"launches": read_launches()}), flush=True)
+    return code
+
+
+def sample_cli(torch, card):
+    """Both file entry points, `python -m dynamicvectorquantization_torch.
+    sample.val` (with grids) and `...sample.images`, as subprocesses on the
+    unconditional p6c18 yml with seeded weights (f32), int8 caches, one batch
+    of 8: their files, each batch's seconds and their launches."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    root = os.path.join("build", "sample_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    for module, extra in (("val", ["--save_grids"]), ("images", [])):
+        cmd = [sys.executable, os.path.abspath(__file__), "--launches-of",
+               f"dynamicvectorquantization_torch.sample.{module}", "--yaml_path", P6C18,
+               "--save_path", os.path.join(root, module), "--batch_size", "8", "--sample_num",
+               "8", "--kv_cache_dtype", "int8", *extra]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        require(proc.returncode == 0 and len(lines) >= 2,
+                f"sample.{module} exited {proc.returncode}: {proc.stderr[-3000:]}")
+        summary, launches = json.loads(lines[-2]), json.loads(lines[-1])["launches"]
+        runs[module] = dict(rc=proc.returncode, process_s=spread([wall]),
+                            batch_s=spread(summary["batch_seconds"]), images=summary["images"],
+                            launches=launches)
+    numpys = os.path.join(root, "val", "numpys")
+    require(sorted(os.listdir(numpys)) == ["batch_00000.pkl"], f"val wrote {os.listdir(numpys)}")
+    with open(os.path.join(numpys, "batch_00000.pkl"), "rb") as f:
+        batch = pickle.load(f)
+    with open(os.path.join(root, "val", "grid_00000.png"), "rb") as f:
+        grid = read_png(f.read())
+    names = sorted(os.listdir(os.path.join(root, "images")))
+    pngs = []
+    for name in names:
+        with open(os.path.join(root, "images", name), "rb") as f:
+            pngs.append(read_png(f.read()))
+    layers = 24
+    res = dict(phase="sample_cli", config=P6C18, kv_cache_dtype="int8", weights="seeded, f32",
+               batch_size=8, sample_num=8, runs=runs, pickle=[list(batch.shape), str(batch.dtype)],
+               grid_shape=list(grid.shape), pngs=names, png_shapes=[list(p.shape) for p in pngs],
+               card=card)
+    emit(res)
+    shutil.rmtree(root, ignore_errors=True)
+    require(batch.dtype == np.uint8 and batch.shape == (8, 256, 256, 3),
+            f"val pickled {batch.dtype} {batch.shape}")
+    require(grid.shape == (2 * 258 - 2, 4 * 258 - 2, 3), f"grid PNG {grid.shape}")
+    require(names == [f"{i:06d}.png" for i in range(8)]
+            and all(p.shape == (256, 256, 3) for p in pngs), f"images wrote {names}")
+    for module, run in runs.items():
+        n = run["launches"]["decode_attention_int8"]
+        require(n >= layers and n % layers == 0,
+                f"sample.{module}: decode_attention_int8 launched {n} times")
+        require(run["launches"]["fused_attention_forward"] >= 4,
+                f"sample.{module}: the decoder's fused_attention_forward was not launched")
+    return res
+
+
+def http(torch, model, card):
+    """`python -m dynamicvectorquantization_torch.serve`'s server
+    (`serve/http.py` `make_server`) in-process over the loaded model, on
+    127.0.0.1 at a free port: the warm-up image, then `POST /generate` of 2
+    images and `GET /healthz`."""
+    import base64
+    import threading
+    import urllib.request
+
+    from dynamicvectorquantization_torch.serve import BatchingSampler
+    from dynamicvectorquantization_torch.serve.http import make_server
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # loopback only
+    with BatchingSampler(model, max_batch=2, max_wait_ms=50.0) as engine:
+        t0 = time.perf_counter()
+        engine.generate(1, seed=0)  # the warm-up the entry point runs before it listens
+        warmup_s = time.perf_counter() - t0
+        served = engine.images_served
+        server = make_server(engine, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            req = urllib.request.Request(url + "/generate",
+                                         data=json.dumps({"num_images": 2, "seed": 7}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with opener.open(req, timeout=900) as r:
+                status, body = r.status, json.loads(r.read())
+            request_s = time.perf_counter() - t0
+            launches = read_launches()
+            with opener.open(url + "/healthz", timeout=60) as r:
+                health_status, health = r.status, json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        stats = list(engine.batch_stats)
+    images = [read_png(base64.b64decode(b)) for b in body.get("images", [])]
+    layers = model.transformer.position_layer + model.transformer.content_layer
+    res = dict(phase="http", config=P6C18, kv_cache_dtype="int8", max_batch=2,
+               request={"num_images": 2, "seed": 7}, status=status, healthz=health,
+               healthz_status=health_status, warmup_s=spread([warmup_s]),
+               request_s=spread([request_s]), images_served_before=served,
+               batch_stats=stats, launches=launches, shapes=[list(i.shape) for i in images],
+               card=card)
+    emit(res)
+    require(status == 200 and health_status == 200 and health["ok"],
+            f"HTTP status {status} / {health_status}")
+    require(len(images) == 2 and all(i.shape == (256, 256, 3) for i in images),
+            f"POST /generate gave {[i.shape for i in images]}")
+    require(served == 1 and health["images_served"] == served + 2,
+            f"images_served {served} after the warm-up, {health['images_served']} after")
+    require(launches["decode_attention_int8"] >= layers * stats[-1]["ar_steps"],
+            "decode_attention_int8 was not launched on every decode step of the request")
+    return res
+
+
 def main():
+    if sys.argv[1:2] == ["--launches-of"]:
+        return run_counting(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -2769,7 +3038,7 @@ def main():
                     for use in blocked.values()),
             f"a register-blocked kernel spills or is missing from ptxas's report: {blocked}")
 
-    decode_cases, decode_sweep = check_decode_attention(torch, dev)
+    decode_cases, decode_sweep, decode_f32_cases = check_decode_attention(torch, dev)
     attn_cases, attn_drop_cases = check_fused_attention(torch, dev)
     check_attention_dropout(torch, dev)
     vq_case = check_vq_nearest(torch, dev)
@@ -2791,19 +3060,32 @@ def main():
     del x, grain32, code32
     teacher_forced_decode(torch, model, dev)
     served = serve(torch, model, card)
+    http_res = http(torch, model, card)
     del model
     torch.cuda.empty_cache()
-    trained, streams = train(torch, dev, card)
+    trained, streams = train(torch, dev, card)[:2]
     per_step = trained["launches_per_step"]
     torch.cuda.empty_cache()
     # the JAX trainer's default compute dtype: f32 throughout, on the same cached codes
     per_step_f32 = train(torch, dev, card, compute_dtype=None,
                          streams=streams)[0]["launches_per_step"]
-    del streams
+    torch.cuda.empty_cache()
+    # the class-conditional model on the same cached codes, with seeded labels beside them
+    labels = torch.randint(0, 1000, (len(streams["coarse_content"]),),
+                           generator=torch.Generator().manual_seed(15), dtype=torch.int32)
+    class_trained, _, class_trainer = train(torch, dev, card, streams=streams,
+                                            config_path=CLASS_P6C18, labels=labels,
+                                            kv_cache_dtype="int8")
+    del _
+    per_step_class = class_trained["launches_per_step"]
+    sampled = class_sample(torch, class_trainer, card, labels[:4])
+    del streams, class_trainer
     torch.cuda.empty_cache()
     per_step1 = train1(torch, dev, card)["launches_per_step"]
     torch.cuda.empty_cache()
     per_step1_bf16 = train1(torch, dev, card, compute_dtype="bfloat16")["launches_per_step"]
+    torch.cuda.empty_cache()
+    sampled_cli = sample_cli(torch, card)
     torch.cuda.empty_cache()
     fitted = fit(torch, card)["launches"]
     torch.cuda.empty_cache()
@@ -2832,7 +3114,8 @@ def main():
     # the coarse steps, the fine-phase entry, the fine steps), interpolated from the sweep
     # and the four checked indices, times the layers: an estimate, not a measurement, so
     # it has a line of its own and stays out of the kernels line
-    require(all(c["kernel_ms"] is not None for c in decode_cases + decode_sweep),
+    require(all(c["kernel_ms"] is not None
+                for c in decode_cases + decode_sweep + decode_f32_cases),
             "decode_attention_int8: a timed index has no trace")
     points = {c["cache_index"]: c["kernel_ms"] for c in decode_cases + decode_sweep}
     visited = range(served["batch_stats"][0]["ar_steps"])
@@ -2841,7 +3124,12 @@ def main():
               served_batch_ar_steps=len(visited), layers=served["layers"]))
     paths = {"serve": served["launches"], "encode": encoded["launches"],
              "encode_bf16": encoded16["launches"], "train_step": per_step,
-             "train_step_f32": per_step_f32, "train1_step": per_step1,
+             "train_step_f32": per_step_f32, "class_train_step": per_step_class,
+             "class_sample": sampled["launches"], "http": http_res["launches"],
+             "sample_cli": {name: sum(run["launches"][name]
+                                      for run in sampled_cli["runs"].values())
+                            for name in per_step},
+             "train1_step": per_step1,
              "train1_step_bf16": per_step1_bf16, "fit": fitted, "fit1": fitted1}
 
     def launched(name):
@@ -2885,14 +3173,22 @@ def main():
             ("decode_attention_int8", "decode_attention_int8.cu",
              "dynamicvectorquantization_tpu/ops/kv_int8.py:92", decode_cases[-1],
              {"cache_index": decode_cases[-1]["cache_index"],
-              "bit_reproducible": all(c["bit_reproducible"] for c in decode_cases + decode_sweep),
+              "bit_reproducible": all(c["bit_reproducible"]
+                                      for c in decode_cases + decode_sweep + decode_f32_cases),
               "device_index_equal": all(c["device_index_equal"]
-                                        for c in decode_cases + decode_sweep),
+                                        for c in decode_cases + decode_sweep + decode_f32_cases),
               "bound_share": decode_cases[-1]["bound_share"],
               "by_index": {str(c["cache_index"]): pick(c, "kernel_ms", "plain_ms", "bound_ms",
                                                        "max_abs_err")
                            for c in decode_cases},
               "sweep_ms": {str(c["cache_index"]): c["kernel_ms"] for c in decode_sweep},
+              # f32 queries (the f32 parameters of the sampling entry points and of the
+              # loop's image grids); main: cache_index 1283
+              "f32": pick(decode_f32_cases[-1], "kernel_ms", "kernel_ms_spread", "plain_ms",
+                          "bound_ms", "bound_by", "bound_share", "max_abs_err", "tol")
+              | {"by_index": {str(c["cache_index"]): pick(c, "kernel_ms", "plain_ms",
+                                                          "bound_ms", "max_abs_err")
+                              for c in decode_f32_cases}},
               "ptxas": {name: use for name, use in ptxas.items()
                         if "decode_attention_int8" in name}}),
             # the FMA family: f32 at every head dim (the DQ-VAE's AttnBlocks), bf16 at

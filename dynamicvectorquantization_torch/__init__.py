@@ -12,10 +12,16 @@ module's counterpart is easy to find:
             int8 KV decode attention, fused attention forward and backward,
             LayerNorm forward and backward, fused AdamW, patch entropy,
             strided downsample, nearest codes
-  models/   Dualformer (encode, training forward, sampling, decode), DQ-VAE,
-            permuter, label providers, sampling filters
-  train/    LR schedules and the stage-2 trainer
-  serve/    dynamic-batching sampler
+  models/   Dualformer (encode, training forward, sampling, decode) and the
+            class-conditional ClassCondDualformer, DQ-VAE, permuter, label
+            providers (SOS, class-aware), sampling filters
+  train/    LR schedules, both trainers, the epoch loop and its command line
+            (`python -m dynamicvectorquantization_torch.train`)
+  sample/   sampling entry points: pickled batches and grids for FID
+            (`python -m dynamicvectorquantization_torch.sample.val`), one PNG
+            per image (`...sample.images`)
+  serve/    dynamic-batching sampler and its HTTP front end
+            (`python -m dynamicvectorquantization_torch.serve`)
   utils/    instantiation, weight conversion, model loading, devices
   csrc/     CUDA C++ sources of the kernels (built at first use by nvcc)
 

@@ -1,9 +1,10 @@
 """Reference `target:` strings -> this package's torch classes.
 
 Counterpart of `dynamicvectorquantization_tpu/config/registry.py`, holding
-only the targets the ported slices (unconditional stage-2 training and
-sampling, the dual-grain DQ-VAE with its GAN loss, the data module with
-ImageNet and the synthetic datasets) instantiate. Paths inside this package
+only the targets the ported slices instantiate: the unconditional and the
+class-conditional stage-2 models (`Dualformer`, `ClassCondDualformer`) with
+their label providers, the dual-grain DQ-VAE with its GAN loss, the data
+module with ImageNet and the synthetic datasets. Paths inside this package
 pass through. A data target written as `<package>.data.datasets.<Name>` or
 `<package>.data.synthetic.<Name>` for ANY top-level package (the smoke
 configs name the JAX package's) resolves by its tail to this package's
@@ -16,6 +17,8 @@ _PKG = "dynamicvectorquantization_torch"
 
 TARGET_ALIASES = {
     "models.stage2_dynamic.dqtransformer_uncond_entropy.Dualformer": f"{_PKG}.models.dqtransformer.Dualformer",
+    "models.stage2_dynamic.dqtransformer_class2_entropy.Dualformer": f"{_PKG}.models.dqtransformer.ClassCondDualformer",
+    "models.stage2_dynamic.dqtransformer_class.Dualformer": f"{_PKG}.models.dqtransformer.ClassCondDualformer",
     "models.stage1_dynamic.dqvae_dual_entropy.DualGrainVQModel": f"{_PKG}.models.dqvae.DualGrainVQModel",
     "models.stage1_dynamic.dqvae_dual_feat.DualGrainVQModel": f"{_PKG}.models.dqvae.DualGrainVQModel",
     "modules.dynamic_modules.stackgpt.StackGPT": f"{_PKG}.nn.stackgpt.StackGPT",
@@ -26,6 +29,8 @@ TARGET_ALIASES = {
     "modules.dynamic_modules.Decoder.Decoder": f"{_PKG}.nn.decoder_positional.PositionalDecoder",
     "modules.dynamic_modules.permuter.DualGrainSeperatePermuter": f"{_PKG}.models.permuter.DualGrainSeparatePermuter",
     "modules.dynamic_modules.label_provider.PositionAwareSOSProvider": f"{_PKG}.models.label_providers.PositionAwareSOSProvider",
+    "modules.dynamic_modules.label_provider.ClassAwareSOSProvider": f"{_PKG}.models.label_providers.ClassAwareSOSProvider",
+    "modules.dynamic_modules.label_provider.ClassForContentOnlyPositionAwareSOSProvider": f"{_PKG}.models.label_providers.ClassForContentOnlyPositionAwareSOSProvider",
     "modules.vector_quantization.quantize2_mask.VectorQuantize2": f"{_PKG}.ops.vq.VectorQuantizeEMA",
     "modules.vector_quantization.quantize2.VectorQuantize2": f"{_PKG}.ops.vq.VectorQuantizeEMA",
     "modules.dynamic_modules.budget.BudgetConstraint_RatioMSE_DualGrain": f"{_PKG}.models.budget.BudgetConstraintRatioMSEDualGrain",
@@ -56,5 +61,5 @@ def resolve_target(target: str) -> str:
         return ".".join([_PKG, *parts[1:]])
     raise KeyError(
         f"target {target!r} is not ported to {_PKG} yet (see ROADMAP.md, "
-        "'Slices to port, in order')"
+        "'Slices to port, in order': items 7-11)"
     )

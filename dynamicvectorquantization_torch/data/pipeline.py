@@ -103,11 +103,13 @@ class PrefetchLoader:
 
 
 def to_device(batch, device):
-    """numpy leaves of a batch (a dict or an array) -> tensors on `device`;
-    on CUDA through pinned memory with a non-blocking copy. Other leaves
-    (lists of strings) pass through."""
+    """numpy leaves of a batch (a dict, a tuple or an array) -> tensors on
+    `device`; on CUDA through pinned memory with a non-blocking copy. Other
+    leaves (lists of strings) pass through."""
     if isinstance(batch, dict):
         return {k: to_device(v, device) for k, v in batch.items()}
+    if isinstance(batch, tuple):
+        return tuple(to_device(v, device) for v in batch)
     if not isinstance(batch, np.ndarray):
         return batch
     t = torch.from_numpy(np.ascontiguousarray(batch))

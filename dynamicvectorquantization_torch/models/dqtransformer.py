@@ -1,6 +1,14 @@
 """Dualformer — image encode to code streams, the stage-2 training forward
-and loss, unconditional KV-cached sampling, and decode (counterpart of
-`dynamicvectorquantization_tpu/models/dqtransformer.py`).
+and loss, KV-cached sampling, and decode (counterpart of
+`dynamicvectorquantization_tpu/models/dqtransformer.py`); and
+`ClassCondDualformer`, its class-conditional subclass.
+
+The condition `c` of `encode_to_c` is the batch size for an unconditional
+model; for a class model (B,) / (B, 1) integer labels, or a batch size
+meaning label 0 for every row (the JAX sampler, server and scripts condition
+on zeros). `forward`, `forward_tokens` and `log_images` take a class model's
+labels as `c` (None: the batch size). The label providers turn it into the
+six stream prefixes.
 
 Training: `forward` encodes images with the frozen first stage and hands the
 streams to `forward_tokens`, which prefixes them with the condition tokens,
@@ -43,15 +51,16 @@ class Dualformer(nn.Module):
     cond_is_class = False
 
     def __init__(self, transformer_config, first_stage_config, uncond_stage_config=None,
-                 cond_stage_config=None, permuter_config=None, content_loss_weight=1.0,
-                 position_loss_weight=1.0, activate_sos_for_fine_sequence=True,
+                 cond_stage_config=None, class_cond_stage_config=None, permuter_config=None,
+                 content_loss_weight=1.0, position_loss_weight=1.0,
+                 activate_sos_for_fine_sequence=True,
                  weight_decay=0.01, warmup_epochs=0, monitor=None, ckpt_path=None,
                  ignore_keys=(), compute_dtype=None, dropout_prng_impl="rbg"):
         super().__init__()
         if not activate_sos_for_fine_sequence:
             raise NotImplementedError(
                 "sample_from_scratch requires activate_sos_for_fine_sequence=True")
-        cond_cfg = uncond_stage_config or cond_stage_config
+        cond_cfg = uncond_stage_config or cond_stage_config or class_cond_stage_config
         self.transformer = instantiate_from_config(transformer_config)
         self.first_stage_model = instantiate_from_config(first_stage_config)
         self.permuter = instantiate_from_config(permuter_config)
@@ -63,7 +72,7 @@ class Dualformer(nn.Module):
         self.monitor = monitor
         self.compute_dtype = compute_dtype
         self.first_stage_key = "image"
-        self.cond_stage_key = "image"
+        self.cond_stage_key = "class_label" if self.cond_is_class else "image"
 
         tparams = transformer_config["params"]
         pparams = permuter_config["params"]
@@ -71,12 +80,13 @@ class Dualformer(nn.Module):
         self.activate_segment = tparams.get("segment_size", 0) > 0
         self.content_pad_code = pparams["content_pad_code"]
         self.content_eos_code = pparams["content_eos_code"]
-        self.content_sos_code = cparams.get("coarse_sos")
+        self.content_sos_code = cparams.get("coarse_sos", cparams.get("threshold_content"))
         self.coarse_position_pad_code = pparams["coarse_position_pad_code"]
         self.coarse_position_eos_code = pparams["coarse_position_eos_code"]
         self.fine_position_pad_code = pparams["fine_position_pad_code"]
         self.fine_position_eos_code = pparams["fine_position_eos_code"]
-        self.fine_position_sos_code = cparams.get("fine_pos_sos")
+        self.fine_position_sos_code = cparams.get("fine_pos_sos",
+                                                  cparams.get("threshold_fine_position"))
         self.hw1 = pparams["coarse_hw"]
         self.fine_hw = pparams["fine_hw"]
         self.hw2 = self.fine_hw // self.hw1
@@ -103,8 +113,10 @@ class Dualformer(nn.Module):
         quant, _, info, grain_indices, _, _ = fs.encode(x)
         return quant, self.permuter.forward(info[2], grain_indices)
 
-    def encode_to_c(self, batch: int, device=None):
-        return self.cond_stage_model.encode(batch, device)
+    def encode_to_c(self, c, device=None):
+        """The six (B, 1) stream prefixes of the condition `c` (see the
+        module note) on `device` (`c`'s own when it is a tensor)."""
+        return self.cond_stage_model.encode(c, device)
 
     @torch.no_grad()
     def decode_to_img(self, coarse_content, fine_content, coarse_position, fine_position):
@@ -115,20 +127,22 @@ class Dualformer(nn.Module):
         return self.first_stage_model.decode(quant)
 
     # ---------------------------------------------------------- training
-    def forward(self, x, train=False, generator=None, seed=None, first_stage=None):
-        """Images (B, H, W, 3) -> the training losses (frozen encode by
-        `first_stage`, as `encode_to_z`, then `forward_tokens`)."""
+    def forward(self, x, c=None, train=False, generator=None, seed=None, first_stage=None):
+        """Images (B, H, W, 3) and their condition `c` -> the training losses
+        (frozen encode by `first_stage`, as `encode_to_z`, then
+        `forward_tokens`)."""
         _, z = self.encode_to_z(x, first_stage)
-        return self.forward_tokens(z, train=train, generator=generator, seed=seed)
+        return self.forward_tokens(z, c, train=train, generator=generator, seed=seed)
 
-    def forward_tokens(self, z, train=False, generator=None, seed=None):
+    def forward_tokens(self, z, c=None, train=False, generator=None, seed=None):
         """The training losses from PRE-ENCODED permuter streams `z` (the dict
-        `encode_to_z` returns, (B, L) integer tensors on the model's device).
-        `generator` and the integer `seed` feed the dropouts when `train`."""
+        `encode_to_z` returns, (B, L) integer tensors on the model's device)
+        and the condition `c` (None: the batch size). `generator` and the
+        integer `seed` feed the dropouts when `train`."""
         z = {k: v.long() for k, v in z.items()}
         ref = z["coarse_content"]
         c_coarse, c_fine, c_pos_coarse, c_pos_fine, c_seg_coarse, c_seg_fine = \
-            self.encode_to_c(ref.shape[0], ref.device)
+            self.encode_to_c(ref.shape[0] if c is None else c, ref.device)
 
         def prefixed(c, key):
             return torch.cat([c, z[key]], dim=1)
@@ -152,14 +166,15 @@ class Dualformer(nn.Module):
                 + self.position_loss_weight * output["position_loss"])
 
     @torch.no_grad()
-    def log_images(self, x, generator=None, temperature=1.0, top_k=300, top_p=1.0,
+    def log_images(self, x, c=None, generator=None, temperature=1.0, top_k=300, top_p=1.0,
                    top_k_pos=100, top_p_pos=1.0):
         """The training loop's image grids from up to 4 images `x` (B, H, W,
-        3): samples with the fine positions fixed to the schedule, free
-        samples, the inputs and their reconstructions through the stage-2
-        path (encode, pack, unpack, decode). numpy arrays in [-1, 1]."""
+        3) and their condition `c` (a class model's labels): samples with the
+        fine positions fixed to the schedule, free samples, the inputs and
+        their reconstructions through the stage-2 path (encode, pack, unpack,
+        decode). numpy arrays in [-1, 1]."""
         x = x[:4].float()
-        c = self.encode_to_c(x.shape[0], x.device)
+        c = self.encode_to_c(x.shape[0] if c is None else c[:4], x.device)
         knobs = dict(generator=generator, temperature=temperature, top_k=top_k, top_p=top_p,
                      top_k_pos=top_k_pos, top_p_pos=top_p_pos)
         log = {}
@@ -329,3 +344,32 @@ class Dualformer(nn.Module):
 
         return (coarse_content[:, 1:], fine_content[:, 1:],
                 coarse_position[:, 1:], fine_position[:, 1:])
+
+
+class ClassCondDualformer(Dualformer):
+    """Class-conditional Dualformer (JAX `ClassCondDualformer`): the class
+    tokens (label + threshold, the top range of each vocabulary) replace the
+    SOS prefixes, and sampling bans the class ranges:
+
+      * content: pad and every index >= content_eos_code (eos and classes);
+      * fine position: already sampled, pad, and every index >
+        fine_position_eos_code (classes); eos stays allowed.
+    """
+
+    cond_is_class = True
+
+    def _content_mask(self, logits, done):
+        idx = torch.arange(logits.shape[-1], device=logits.device)
+        banned = idx >= self.content_eos_code
+        banned[self.content_pad_code] = True
+        live = torch.where(banned, NEG_INF, logits)
+        return torch.where(done[:, None], self._pad_only(logits, self.content_pad_code), live)
+
+    def _fine_position_mask(self, logits, pos_ban, done):
+        idx = torch.arange(logits.shape[-1], device=logits.device)
+        banned = pos_ban | (idx > self.fine_position_eos_code)
+        banned[:, self.fine_position_pad_code] = True
+        banned[:, self.fine_position_eos_code] = False
+        live = torch.where(banned, NEG_INF, logits)
+        return torch.where(done[:, None],
+                           self._pad_only(logits, self.fine_position_pad_code), live)

@@ -10,9 +10,9 @@ into an emergency checkpoint and a clean return.
 
 Stage 2 trains on cached codes by default: each epoch's batches go once
 through the frozen first stage (`_encode_epoch_codes`, int16 streams on the
-host) and the steps consume token streams. Metric rows are flushed one step
-late, when the next step is already queued, so logging adds no device sync to
-a step.
+host, a class model's int32 labels beside them) and the steps consume token
+streams. Metric rows are flushed one step late, when the next step is already
+queued, so logging adds no device sync to a step.
 
 A resumed run repeats the uninterrupted one: data order and augmentation are
 functions of (seed, epoch, batch, example), dropout of (seed, step,
@@ -172,7 +172,8 @@ class Trainer:
 
     def _group_microbatches(self, gen):
         """Pass-through at accum = 1, else groups of `accum` consecutive
-        items stacked on the host to (accum, B, ...)."""
+        items (arrays, or tuples of arrays) stacked on the host to (accum,
+        B, ...)."""
         if self.accum == 1:
             yield from gen
             return
@@ -180,8 +181,8 @@ class Trainer:
         for item in gen:
             buf.append(item)
             if len(buf) == self.accum:
-                if isinstance(item, dict):
-                    yield {k: np.stack([b[k] for b in buf]) for k in item}
+                if isinstance(item, tuple):
+                    yield tuple(np.stack(parts) for parts in zip(*buf))
                 else:
                     yield np.stack(buf)
                 buf = []
@@ -232,14 +233,15 @@ class Trainer:
         with open(os.path.join(self.logdir, "loop_buckets.json"), "w") as f:
             json.dump(out, f, indent=1)
 
-    def _mean_over(self, loader, key, eval_step):
-        """Mean of `eval_step`'s logs over the validation batches, summed on
-        the device with one host sync at the end."""
+    def _mean_over(self, loader, keys, eval_step):
+        """Mean of `eval_step`'s logs over the validation batches (called
+        with the batch's entries under `keys`), summed on the device with one
+        host sync at the end."""
         acc, n = None, 0
         for bi, batch in enumerate(device_prefetch(loader.epoch(0), self.device)):
             if self.max_steps_per_epoch and bi >= self.max_steps_per_epoch:
                 break
-            logs = eval_step(batch[key])
+            logs = eval_step(*(batch[k] for k in keys))
             acc = logs if acc is None else {k: acc[k] + v for k, v in logs.items()}
             n += 1
         if acc is None:
@@ -360,7 +362,7 @@ class Trainer:
             trainer.step, lambda x: x.shape[-4])
 
     def _validate_stage1(self, model, data, trainer):
-        return self._mean_over(data.val_dataloader(seed=self.seed), model.image_key,
+        return self._mean_over(data.val_dataloader(seed=self.seed), (model.image_key,),
                                trainer.eval_step)
 
     @torch.no_grad()
@@ -382,12 +384,13 @@ class Trainer:
             self.cached_codes == "auto" and self.accum == 1)
         if use_cached and self.accum != 1:
             raise ValueError("--cached_codes on requires accumulate_grad_batches=1")
-        # cached token streams carry image codes only; any other conditioning
-        # would silently train without its condition
-        if use_cached and model.cond_stage_key != "image":
+        # cached token streams carry image codes (and class labels) only; any
+        # other conditioning would silently train without its condition
+        labelled = model.cond_stage_key == "class_label"
+        if use_cached and model.cond_stage_key not in ("image", "class_label"):
             if self.cached_codes == "on":
                 raise ValueError(
-                    "--cached_codes on supports image conditioning only "
+                    "--cached_codes on supports image / class_label conditioning only "
                     f"(cond_stage_key={model.cond_stage_key!r})")
             print(f"cached_codes auto: OFF (cond_stage_key={model.cond_stage_key!r} needs "
                   "per-step conditioning)")
@@ -431,8 +434,8 @@ class Trainer:
 
         def epoch_inputs(epoch, buckets):
             if not use_cached:
-                batches = (b[model.first_stage_key]
-                           for b in train_loader.epoch(epoch))
+                batches = ((b[model.first_stage_key], b["class_label"]) if labelled
+                           else b[model.first_stage_key] for b in train_loader.epoch(epoch))
                 return device_prefetch(self._group_microbatches(batches), self.device,
                                        timings=buckets), {}
             t_enc = time.perf_counter()
@@ -443,65 +446,79 @@ class Trainer:
                     {"cache_encode_seconds": enc_secs})
 
         def log_images(x, gs, epoch, bi):
-            x_img = vis["x"] if use_cached else (x if self.accum == 1 else x[0])
+            if use_cached:
+                x_img, c = vis["x"]
+            else:
+                x_img, c = x if labelled else (x, None)
+                if self.accum > 1:
+                    x_img, c = x_img[0], None if c is None else c[0]
             with trainer.master_weights():
-                self._log_stage2_images(model, x_img, "train", gs, epoch, bi)
+                self._log_stage2_images(model, x_img, c, "train", gs, epoch, bi)
 
         def batch_size_of(x):
+            x = x[0] if labelled else x
             leaf = next(iter(x.values())) if isinstance(x, dict) else x
             return leaf.shape[1 if self.accum > 1 else 0]
+
+        def step(x):
+            return trainer.train_step(x[0], c=x[1]) if labelled else trainer.train_step(x)
 
         def state_fn():
             return {"stage": 2, "trainer": trainer.state_dict(),
                     "first_stage": model.first_stage_model.state_dict()}
 
         return self._run_epochs(trainer, mngr, state_fn, trainer.schedule, epoch_inputs,
-                                trainer.train_step, validate, log_images, trainer.count,
-                                batch_size_of)
+                                step, validate, log_images, trainer.count, batch_size_of)
 
     @torch.no_grad()
     def _encode_epoch_codes(self, model, trainer, train_loader, epoch):
         """Cached-codes pre-encode: one pass of the trainer's training encode
         (`Stage2Trainer.encode`: the frozen first stage in the trainer's
         compute dtype, the JAX loop's `make_encode_fn`) over this epoch's
-        (augmented) batches, giving one permuter-stream dict per batch. The
+        (augmented) batches, giving one permuter-stream dict per batch, with
+        a class model's labels beside it as (streams, int32 labels). The
         streams are held on the host as int16 when every token id fits (the
         largest is 1026 at the shipped geometry, ~5 KB an image), else int32.
-        Returns (the list of stream dicts, the first batch's first 4 images
-        for the image logger). The host copy of a batch is made after the
-        next batch's encode is queued."""
+        Returns (the list of batches, the first batch's first 4 images and
+        labels (None for an unconditional model) for the image logger). The
+        host copy of a batch is made after the next batch's encode is
+        queued."""
         max_id = max(model.vocab_size, model.fine_position_size,
                      model.coarse_position_pad_code, model.coarse_position_eos_code,
                      model.content_pad_code, model.content_eos_code,
                      model.content_sos_code or 0, model.fine_position_sos_code or 0)
         cache_dtype = np.int16 if max_id < 2 ** 15 else np.int32
+        labelled = model.cond_stage_key == "class_label"
         cached, vis, pending = [], None, None
 
-        def to_host(z):
-            return {k: v.cpu().numpy().astype(cache_dtype) for k, v in z.items()}
+        def to_host(z, c):
+            z = {k: v.cpu().numpy().astype(cache_dtype) for k, v in z.items()}
+            return (z, c.cpu().numpy().astype(np.int32)) if labelled else z
 
         for bi, batch in enumerate(device_prefetch(train_loader.epoch(epoch), self.device)):
             if self.max_steps_per_epoch and bi >= self.max_steps_per_epoch:
                 break
             x = batch[model.first_stage_key].float()
+            c = batch["class_label"] if labelled else None
             z = trainer.encode(x)
             if vis is None:
-                vis = x[:4].clone()
+                vis = (x[:4].clone(), None if c is None else c[:4].clone())
             if pending is not None:
-                cached.append(to_host(pending))
-            pending = z
+                cached.append(to_host(*pending))
+            pending = (z, c)
         if pending is not None:
-            cached.append(to_host(pending))
+            cached.append(to_host(*pending))
         return cached, vis
 
-    def _log_stage2_images(self, model, x, split, gs, epoch, bi):
-        """Sample grids during stage-2 training, from a generator seeded
-        with the global step (apart from the training streams); the caller
-        puts the f32 masters in place, as the JAX loop samples with
-        `state.params`."""
-        imgs = model.log_images(x, generator=self._generator(gs))
+    def _log_stage2_images(self, model, x, c, split, gs, epoch, bi):
+        """Sample grids during stage-2 training for the images `x` and their
+        labels `c` (None: unconditional), from a generator seeded with the
+        global step (apart from the training streams); the caller puts the
+        f32 masters in place, as the JAX loop samples with `state.params`."""
+        imgs = model.log_images(x, c, generator=self._generator(gs))
         self.images.log(imgs, split, gs, epoch, bi)
 
     def _validate_stage2(self, model, data, trainer):
-        return self._mean_over(data.val_dataloader(seed=self.seed), model.first_stage_key,
-                               trainer.eval_step)
+        keys = (model.first_stage_key,) + (
+            ("class_label",) if model.cond_stage_key == "class_label" else ())
+        return self._mean_over(data.val_dataloader(seed=self.seed), keys, trainer.eval_step)

@@ -159,38 +159,39 @@ class Stage2Trainer:
             return {k: torch.as_tensor(v).to(self.device) for k, v in x.items()}
         return torch.as_tensor(x).to(self.device)
 
-    def _losses(self, x, train, generator, seed=None, first_stage=None):
+    def _losses(self, x, c, train, generator, seed=None, first_stage=None):
         if isinstance(x, dict):  # cached permuter streams
-            out = self.model.forward_tokens(x, train=train, generator=generator, seed=seed)
+            out = self.model.forward_tokens(x, c, train=train, generator=generator, seed=seed)
         else:
-            out = self.model(x, train=train, generator=generator, seed=seed,
+            out = self.model(x, c, train=train, generator=generator, seed=seed,
                              first_stage=first_stage)
         return self.model.loss(out), out
 
-    def compute_grads(self, x, generator=None):
+    def compute_grads(self, x, generator=None, c=None):
         """(logs, grads): the losses of one training forward as 0-d f32
         tensors, and the gradient of the total with respect to every
         transformer parameter (pad rows zeroed), keyed by name. x: a dict of
-        (B, L) streams or (B, H, W, 3) images; with `accum > 1` the same with
-        a leading (accum,) axis, gradients accumulated in f32 and averaged.
-        Without a `generator` the trainer's own is used, re-seeded for this
-        step."""
+        (B, L) streams or (B, H, W, 3) images, `c` their (B,) class labels
+        (None: unconditional); with `accum > 1` the same with a leading
+        (accum,) axis, gradients accumulated in f32 and averaged. Without a
+        `generator` the trainer's own is used, re-seeded for this step."""
         x = self._to_device(x)
+        c = None if c is None else self._to_device(c)
         if generator is None:
             generator = self.generator
             generator.manual_seed(mix_seed(self.base_seed, self.count, _ELEMENTWISE) >> 1)
         names, params = zip(*self.params.items())
         if self.accum == 1:
-            micro = [x]
+            micro = [(x, c)]
         else:
             n = len(next(iter(x.values()))) if isinstance(x, dict) else len(x)
             if n != self.accum:
                 raise ValueError(f"expected {self.accum} microbatches, got {n}")
-            micro = [{k: v[i] for k, v in x.items()} if isinstance(x, dict) else x[i]
-                     for i in range(n)]
+            micro = [({k: v[i] for k, v in x.items()} if isinstance(x, dict) else x[i],
+                      None if c is None else c[i]) for i in range(n)]
         sums, log_sums = None, None
-        for i, xi in enumerate(micro):
-            total, out = self._losses(xi, True, generator,
+        for i, (xi, ci) in enumerate(micro):
+            total, out = self._losses(xi, ci, True, generator,
                                       attention_seed(self.base_seed, self.count, i),
                                       self.frozen_first_stage)
             g = torch.autograd.grad(total, params)
@@ -224,19 +225,20 @@ class Stage2Trainer:
                              copy=p.data if self.mixed else None)
         self.count += 1
 
-    def train_step(self, x, generator=None):
+    def train_step(self, x, generator=None, c=None):
         """One optimizer step; returns the logs (0-d tensors on the device)."""
-        logs, grads = self.compute_grads(x, generator)
+        logs, grads = self.compute_grads(x, generator, c)
         self.apply_update(grads)
         return logs
 
-    def train_steps(self, xs, generator=None):
-        """K full optimizer steps over xs with a leading (K,) axis; returns
-        the logs stacked per step."""
+    def train_steps(self, xs, generator=None, cs=None):
+        """K full optimizer steps over xs (and their labels `cs`) with a
+        leading (K,) axis; returns the logs stacked per step."""
         xs = self._to_device(xs)
         k = len(next(iter(xs.values()))) if isinstance(xs, dict) else len(xs)
         steps = [self.train_step({n: v[i] for n, v in xs.items()} if isinstance(xs, dict)
-                                 else xs[i], generator) for i in range(k)]
+                                 else xs[i], generator, None if cs is None else cs[i])
+                 for i in range(k)]
         return {key: torch.stack([s[key] for s in steps]) for key in steps[0]}
 
     @contextlib.contextmanager
@@ -258,12 +260,13 @@ class Stage2Trainer:
                 p.data = working[k]
 
     @torch.no_grad()
-    def eval_step(self, x):
-        """The validation losses of `x`, computed with the f32 masters and
-        encoded by the f32 first stage (the monitored `val_loss` ranks the
-        checkpoints)."""
+    def eval_step(self, x, c=None):
+        """The validation losses of `x` (and its labels `c`), computed with
+        the f32 masters and encoded by the f32 first stage (the monitored
+        `val_loss` ranks the checkpoints)."""
+        c = None if c is None else self._to_device(c)
         with self.master_weights():
-            total, out = self._losses(self._to_device(x), False, None)
+            total, out = self._losses(self._to_device(x), c, False, None)
         return {"val_loss": total.float(), **{f"val_{k}": out[k].float() for k in _LOSS_KEYS}}
 
     @torch.no_grad()
