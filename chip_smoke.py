@@ -64,17 +64,30 @@ Phases, each printed as one JSON line (any failure exits non-zero):
   4. decode    full-width p6c18 StackGPT with int8 KV caches, seeded random
                weights, bf16, batch 8: 64 teacher-forced steps through the
                kernel path vs the plain path, max logit difference; then a
-               torch.profiler trace of 16 steps for the device's busy time
+               torch.profiler trace of 16 steps for the device's busy time;
+               then the same 64 steps as replays of a CUDA graph of
+               `STEPS_PER_READ` masked steps with a device index (logits equal
+               to the eager device-index run's bit for bit; step ms, busy,
+               idle share, capture seconds, graph pool bytes)
   5. serve     BatchingSampler (p6c18, int8 caches, max_batch 8) answers 3
-               concurrent requests of 1, 2 and 4 images; launch counters are
-               zeroed just before and read just after; the decode kernel's
+               concurrent requests of 1, 2 and 4 images, 5 times: the first
+               batch captures the sampler's CUDA graphs, 3 are timed, the last
+               is traced (busy ms per AR step, idle share); launch counters
+               (counted through graph replays) are zeroed just before and read
+               just after the first and the second batch; the decode kernel's
                time over the indices the batch visited, estimated from the
                sweep (and from the replaced kernel's recorded times)
      http      the HTTP front end (`serve/http.py`, `python -m
                dynamicvectorquantization_torch.serve`) in-process over the same
-               model on 127.0.0.1, port 0, max_batch 2: the warm-up image, then
-               POST /generate of 2 images (PNGs decoded by a zlib reader here)
-               and GET /healthz; launches of the request
+               model on 127.0.0.1, port 0, max_batch 2: the warm-up image
+               (which captures the graphs before the server listens), then 4
+               POSTs of 2 images (3 timed, the last traced; PNGs decoded by a
+               zlib reader here) and GET /healthz; launches of the first POST
+     graph_vs_eager  the sampler's graphs against its eager loop (`eager=True`,
+               reached by no entry point) on the same model at 4 rows with int8
+               and with float caches: greedy and seeded sampled (top-k 300 /
+               100) tokens, AR steps and the generator's offset identical; the
+               int8 greedy tokens also against a read after every step
   6. train     full-width, full-depth p6c18 StackGPT (the shipped config, its
                attn_pdrop 0.1 included, with the training campaign's stream
                caps, T = 805),
@@ -99,9 +112,11 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                codes with 16 seeded labels in [0, 1000)
      class_sample  one of that model's `log_images` grids (the loop's free
                `samples_from_scratch`) for 4 labels on its f32 masters with int8
-               caches (f32 queries through the decode kernel): wall time and AR
-               steps, every sampled token inside the class model's code /
-               position ranges
+               caches (f32 queries through the decode kernel), 5 times (first:
+               captures, 3 timed, the last traced): wall time and AR steps,
+               every sampled token inside the class model's code / position
+               ranges, every grid equal to the first; then `graph_vs_eager` on
+               the masters
   7. train1    full-width, full-depth DQ-VAE + GAN of the shipped
                `dqvae-entropy-dual-r05_imagenet.yml` (f32, TF32 off, seeded random
                weights, random VGG16 backbone with the bundled LPIPS lin heads),
@@ -115,10 +130,12 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                on the tensor-core family)
   8. sample_cli  `python -m dynamicvectorquantization_torch.sample.val`
                (with grids) and `...sample.images` as subprocesses (this script
-               in `--launches-of` mode round each, to count their launches) on
-               the p6c18 yml with seeded f32 weights, int8 caches, one batch of
-               8: the pickle, the grid and the eight PNGs read back, seconds a
-               batch
+               in `--launches-of` mode round each, to count their launches and
+               time their sampling calls) on the p6c18 yml with seeded f32
+               weights, int8 caches: `sample.val` 5 batches of 8 (the first pays
+               the process's captures, 3 timed, the last traced),
+               `sample.images` one; the pickles, the grid and the eight PNGs
+               read back, seconds a batch
   9. fit       the port's training command line (`train/cli.py` `main`), called
                in-process on the shipped p6c18 config at full width and depth
                with only data and run-length overrides (synthetic 256^2 images,
@@ -132,8 +149,10 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                seconds per epoch by `loop_buckets.json`
   10. fit1     the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
                8, two epochs of one step, resume)
- 11. kernels   one line listing every ported kernel, its launches on each
-               driven path and its measured numbers
+ 11. script    the script's seconds
+     kernels   one line listing every ported kernel, its launches on each
+               driven path (counted through graph replays) and its measured
+               numbers
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import contextlib
@@ -1643,25 +1662,22 @@ def check_fused_adamw(torch, dev):
 
 
 def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
-    """Kernel path vs plain path on the same full-width bf16 model."""
+    """Kernel path vs plain path on the same full-width bf16 model (eager,
+    host indices); then the same steps as replays of a CUDA graph of
+    `STEPS_PER_READ` masked steps with a device index, whose logits must
+    equal the same steps run eagerly with the device index bit for bit
+    (`utils/sample_wall.py` `graph_decode`), timed beside the eager step."""
     import dynamicvectorquantization_torch.nn.transformer as tfm
+    from dynamicvectorquantization_torch.models.dqtransformer import STEPS_PER_READ
     from dynamicvectorquantization_torch.ops.kv_int8 import decode_attention_int8_plain
+    from dynamicvectorquantization_torch.utils import sample_wall as sw
 
     gpt = model.transformer
     tol = 0.1  # bf16 activations: ~2^-8 relative per op over 24 layers; logit std ~0.6
-    g = torch.Generator(device=dev).manual_seed(2)
-    tokens = torch.randint(0, 1024, (3, batch, steps + 1), generator=g, device=dev)
+    tokens = sw.teacher_forced_tokens(torch, dev, batch, steps)
 
     def run(n):
-        pos_cache, content_cache = gpt.make_caches(batch, 1284, torch.bfloat16, dev)
-        logits = []
-        for i in range(n):
-            seg = torch.zeros(batch, dtype=torch.long, device=dev)
-            x = gpt.embed_input_token(tokens[0, :, i], tokens[1, :, i] % 256, seg, i, False)
-            hidden, pl = gpt.position_step(x, pos_cache, i)
-            cl = gpt.content_step(hidden, tokens[2, :, i + 1] % 256, False, content_cache, i)
-            logits.append(torch.cat([pl, cl], dim=-1).float())
-        return torch.stack(logits)
+        return sw.teacher_forced_eager(torch, gpt, tokens, n)
 
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -1682,6 +1698,7 @@ def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
             torch.cuda.synchronize()
             windows.append((time.perf_counter() - t0) / 16 * 1e3)
         prof = profile_device_time(torch, lambda: run(16))
+        graph = sw.graph_decode(torch, gpt, tokens, STEPS_PER_READ, kernel)[0]
     diff = (kernel - plain).abs()
     step_ms = spread(windows)["median"]
     busy_ms = prof["device_busy_ms"] and prof["device_busy_ms"] / 16
@@ -1695,10 +1712,13 @@ def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
                device_idle_share_vs_step_ms=busy_ms and 1.0 - busy_ms / step_ms,
                device_time_summed_ms_per_step=prof["device_time_summed_ms"] / 16,
                device_window_ms_per_step=prof["device_window_ms"] / 16,
-               device_ops_per_step=prof["device_ops"] / 16, top_kernels=prof["top"])
+               device_ops_per_step=prof["device_ops"] / 16, top_kernels=prof["top"],
+               graph_replay=graph)
     emit(res)
     require(bool(torch.isfinite(kernel).all()), "non-finite logits on the kernel path")
     require(res["max_logit_diff"] <= tol, f"kernel vs plain decode: {res['max_logit_diff']}")
+    require(graph["equal_to_eager_device_index"],
+            "the graph's logits differ from the eager device-index run's")
     return res
 
 
@@ -2740,98 +2760,206 @@ def fit1(torch, card):
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
-def serve(torch, model, card):
+def runner_numbers(torch, model):
+    """The model's graph runner: captures, host seconds capturing, replays,
+    and the bytes of its memory pool."""
+    from dynamicvectorquantization_torch.utils.sample_wall import runner_stats
+
+    numbers = runner_stats(torch, model)
+    require(numbers is not None, "the model sampled without a graph runner")
+    return numbers
+
+
+def sampling_numbers(calls, first, timed, traced):
+    """`SamplerCalls.summary` without the per-call rows."""
+    out = calls.summary(first, timed, traced)
+    out.pop("calls")
+    return out
+
+
+def serve(torch, model, card, reps=3):
+    """`BatchingSampler` (p6c18, int8 caches, bf16, max_batch 8) answers
+    requests of 1, 2 and 4 images (one batch) `reps + 2` times: the first
+    batch captures the sampler's graphs, `reps` are timed, the last is
+    traced (busy ms per AR step). Launches are counted over the first batch
+    and over the second (replays only)."""
     import numpy as np
 
     from dynamicvectorquantization_torch.serve import BatchingSampler
+    from dynamicvectorquantization_torch.utils.sample_wall import SamplerCalls
 
     requests = [(1, 101), (2, 102), (4, 103)]
-    walls = []
-    with BatchingSampler(model, max_batch=8, max_wait_ms=200.0) as engine:
-        for round_ in range(2):  # the same requests twice: a repeat count for the wall time
+    walls, launches = [], []
+    with SamplerCalls(torch) as calls, BatchingSampler(model, max_batch=8,
+                                                       max_wait_ms=200.0) as engine:
+        for round_ in range(reps + 2):
+            if round_ == reps + 1:
+                calls.trace_next()
             torch.cuda.synchronize()
-            if round_ == 0:
-                reset_launches()
+            reset_launches()
             t0 = time.perf_counter()
             futures = [engine.submit(n, seed=s) for n, s in requests]
             images = [f.result(timeout=900) for f in futures]
             walls.append(time.perf_counter() - t0)
-            if round_ == 0:
-                launches = read_launches()
-                batches = engine.batches_run
+            launches.append(read_launches())
         stats = list(engine.batch_stats)
+        batches = engine.batches_run
+        sampling = sampling_numbers(calls, 0, range(1, reps + 1), reps + 1)
     n_images = sum(n for n, _ in requests)
-    wall = spread(walls)["median"]
+    timed = walls[1:reps + 1]
+    wall = spread(timed)["median"]
     layers = model.transformer.position_layer + model.transformer.content_layer
     res = dict(phase="serve", config=P6C18, kv_cache_dtype="int8", max_batch=8, layers=layers,
                requests=[n for n, _ in requests], shapes=[list(x.shape) for x in images],
-               batches=batches, batch_stats=stats, launches=launches, wall_s=wall,
-               wall_s_spread=spread(walls), s_per_batch=wall / batches,
-               images_per_s=n_images / wall, card=card)
+               batches=batches, batch_stats=stats, launches=launches[0],
+               launches_replayed_batch=launches[1], wall_s=wall, wall_s_spread=spread(timed),
+               first_batch_s=walls[0], traced_batch_s=walls[-1], s_per_batch=wall,
+               images_per_s=n_images / wall, sampling=sampling,
+               graphs=runner_numbers(torch, model), card=card)
     emit(res)
     for (n, _), img in zip(requests, images):
         require(img.shape == (n, 256, 256, 3), f"image shape {img.shape} for {n} images")
         require(bool(np.isfinite(img).all()), "non-finite image values")
-    require(launches["decode_attention_int8"] >= layers * sum(
-        st["ar_steps"] for st in stats[:batches]),
-            "decode_attention_int8 was not launched on every decode step")
-    # the decoder's four AttnBlocks (f32: the FMA family); the StackGPT decodes one
-    # token at a time through decode_attention_int8, so no tensor-core launch
-    require(launches["fused_attention_forward"] == 4 * batches
-            and launches["fused_attention_forward_tc"] == 0,
-            "fused_attention_forward was not launched by every decoder AttnBlock")
+    require(batches == reps + 2, f"{batches} batches for {reps + 2} rounds of requests")
+    for i in (0, 1):  # the first batch (its eager first blocks, replays) and a replayed one
+        require(launches[i]["decode_attention_int8"] >= layers * stats[i]["ar_steps"],
+                "decode_attention_int8 was not launched on every decode step")
+        # the decoder's four AttnBlocks (f32: the FMA family); the StackGPT decodes one
+        # token at a time through decode_attention_int8, so no tensor-core launch
+        require(launches[i]["fused_attention_forward"] == 4
+                and launches[i]["fused_attention_forward_tc"] == 0,
+                "fused_attention_forward was not launched by every decoder AttnBlock")
     return res
 
 
-def class_sample(torch, trainer, card, labels):
+def graph_vs_eager(torch, model, c, name, host_loop=False, seed=31):
+    """The sampler's graphs against its eager loop on the card (`eager=True`,
+    the control no entry point reaches): the same seed and knobs, greedy and
+    sampled (top-k 300 / 100); tokens, AR steps and the generator's offset
+    afterwards must be identical. With `host_loop`, the greedy tokens of the
+    eager loop reading the loop condition after every step too."""
+    from dynamicvectorquantization_torch.models import dqtransformer as dq
+
+    dev = c[0].device
+
+    def run(eager, **knobs):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = model.sample_from_scratch(*c, generator=g, eager=eager, **knobs)
+        toks = [t.cpu() for t in toks]
+        return dict(tokens=toks, ar_steps=model.last_ar_steps, offset=g.get_offset(),
+                    s=time.perf_counter() - t0)
+
+    res = dict(phase="graph_vs_eager", model=name, rows=int(c[0].shape[0]), seed=seed,
+               kv_cache_dtype=model.transformer.kv_cache_dtype or "float",
+               dtype=str(next(model.transformer.parameters()).dtype))
+    with torch.inference_mode():
+        for mode, knobs in (("greedy", dict(sample=False)),
+                            ("sampled", dict(top_k=300, top_p=1.0, top_k_pos=100,
+                                             top_p_pos=1.0))):
+            graph, eager = run(False, **knobs), run(True, **knobs)
+            res[mode] = dict(
+                tokens_equal=all(torch.equal(a, b)
+                                 for a, b in zip(graph["tokens"], eager["tokens"])),
+                ar_steps=[graph["ar_steps"], eager["ar_steps"]],
+                generator_offset=[graph["offset"], eager["offset"]],
+                graph_s=graph["s"], eager_s=eager["s"])
+            if mode == "greedy" and host_loop:
+                k = dq.STEPS_PER_READ
+                dq.STEPS_PER_READ = 1
+                try:
+                    loop = run(True, **knobs)
+                finally:
+                    dq.STEPS_PER_READ = k
+                res[mode]["host_loop"] = dict(
+                    tokens_equal=all(torch.equal(a, b)
+                                     for a, b in zip(graph["tokens"], loop["tokens"])),
+                    ar_steps=loop["ar_steps"], s=loop["s"])
+    res["graphs"] = runner_numbers(torch, model)
+    emit(res)
+    for mode in ("greedy", "sampled"):
+        r = res[mode]
+        require(r["tokens_equal"] and r["ar_steps"][0] == r["ar_steps"][1]
+                and r["generator_offset"][0] == r["generator_offset"][1],
+                f"{name} {mode}: graph and eager sampling differ: {r}")
+    if host_loop:
+        require(res["greedy"]["host_loop"]["tokens_equal"]
+                and res["greedy"]["host_loop"]["ar_steps"] == res["greedy"]["ar_steps"][0],
+                f"{name}: greedy tokens differ from the host loop's")
+    return res
+
+
+def class_sample(torch, trainer, card, labels, reps=3):
     """One of the class model's `log_images` grids (the training loop's
     `samples_from_scratch`: free positions, top-k 300 / 100) for 4 `labels`,
-    on its f32 masters with int8 caches: the grid's wall time and AR steps,
-    the sampled streams held to the class model's vocabulary, and the
-    launches of the call. (The second grid, fixed fine positions, runs the
-    same kernels; it is left out for the script's time.)"""
+    on its f32 masters with int8 caches, `reps + 2` times with the same seed:
+    the first call captures the sampler's graphs (under the masters' storage:
+    new graphs beside the bf16 working copy's), `reps` are timed, the last is
+    traced. The sampled streams are held to the class model's vocabulary and
+    every call's to the first's; launches of the first and second grids. (The
+    second grid, fixed fine positions, runs the same kernels; it is left out
+    for the script's time.) Then graph vs eager on the same masters."""
     import numpy as np
 
+    from dynamicvectorquantization_torch.utils.sample_wall import SamplerCalls
+
     model, dev = trainer.model, trainer.device
+    walls, launches, streams = [], [], []
     with trainer.master_weights(), torch.inference_mode():
         query_dtype = str(next(model.transformer.parameters()).dtype)
-        torch.cuda.synchronize()
-        reset_launches()
-        t0 = time.perf_counter()
         c = model.encode_to_c(labels.to(dev))
-        toks = model.sample_from_scratch(*c, generator=torch.Generator(device=dev).manual_seed(17),
-                                         top_k=300, top_p=1.0, top_k_pos=100, top_p_pos=1.0,
-                                         fix_fine_position=False)
-        images = model.decode_to_img(*toks).float().cpu().numpy()
-        wall = time.perf_counter() - t0
-        launches = read_launches()
-    cc, fc, cp, fp = (t.cpu() for t in toks)
+        with SamplerCalls(torch) as calls:
+            for i in range(reps + 2):
+                if i == reps + 1:
+                    calls.trace_next()
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                toks = model.sample_from_scratch(
+                    *c, generator=torch.Generator(device=dev).manual_seed(17), top_k=300,
+                    top_p=1.0, top_k_pos=100, top_p_pos=1.0, fix_fine_position=False)
+                images = model.decode_to_img(*toks).float().cpu().numpy()
+                walls.append(time.perf_counter() - t0)
+                launches.append(read_launches())
+                streams.append([t.cpu() for t in toks])
+            sampling = sampling_numbers(calls, 0, range(1, reps + 1), reps + 1)
+        graphs = runner_numbers(torch, model)
+        versus = graph_vs_eager(torch, model, c, "class p6c18, f32 masters")
+    cc, fc, cp, fp = streams[0]
     checks = dict(
         content_in_codes_or_pad=all(bool((t <= model.content_pad_code).all()) for t in (cc, fc)),
         fine_positions_at_most_eos=bool((fp <= model.fine_position_eos_code).all()),
         coarse_positions_valid=bool(((cp < model.max_coarse_position_idx)
                                      | (cp == model.coarse_position_eos_code)
-                                     | (cp == model.coarse_position_pad_code)).all()))
+                                     | (cp == model.coarse_position_pad_code)).all()),
+        every_grid_equal=all(torch.equal(a, b) for s_ in streams[1:]
+                             for a, b in zip(s_, streams[0])))
     layers = model.transformer.position_layer + model.transformer.content_layer
-    ar_steps = model.last_ar_steps
+    ar_steps = sampling["first_call"]["ar_steps"]
+    timed = walls[1:reps + 1]
     res = dict(phase="class_sample", config=CLASS_P6C18, labels=labels.tolist(),
                kv_cache_dtype="int8", weights="f32 masters", query_dtype=query_dtype,
-               grid="samples_from_scratch", top_k=300, top_k_pos=100, wall_s=spread([wall]),
-               ar_steps=ar_steps, coarse_tokens=int((cp < model.max_coarse_position_idx).sum()),
+               grid="samples_from_scratch", top_k=300, top_k_pos=100,
+               wall_s=spread(timed)["median"], wall_s_spread=spread(timed),
+               first_grid_s=walls[0], traced_grid_s=walls[-1], ar_steps=ar_steps,
+               coarse_tokens=int((cp < model.max_coarse_position_idx).sum()),
                fine_tokens=int((fp < model.fine_position_pad_code).sum()), **checks,
-               launches=launches, shape=list(images.shape), card=card)
+               launches=launches[0], launches_replayed_grid=launches[1], sampling=sampling,
+               graphs=graphs, shape=list(images.shape), card=card)
     emit(res)
     require(query_dtype == "torch.float32", f"sampled with {query_dtype} weights")
-    require(all(checks.values()), f"a sampled token outside its range: {checks}")
+    require(all(checks.values()), f"a sampled token outside its range, or grids differ: {checks}")
     require(images.shape == (4, 256, 256, 3) and bool(np.isfinite(images).all()),
             f"sampled images: shape {images.shape}, or non-finite values")
-    require(launches["decode_attention_int8"] >= layers * ar_steps,
-            f"decode_attention_int8 launched {launches['decode_attention_int8']} times over "
-            f"{ar_steps} AR steps of {layers} layers")
-    # the decoder's four AttnBlocks (f32: the FMA family)
-    require(launches["fused_attention_forward"] >= 4,
-            "fused_attention_forward was not launched by the decoder")
-    return res
+    for i in (0, 1):
+        require(launches[i]["decode_attention_int8"] >= layers * ar_steps,
+                f"decode_attention_int8 launched {launches[i]['decode_attention_int8']} times "
+                f"over {ar_steps} AR steps of {layers} layers")
+        # the decoder's four AttnBlocks (f32: the FMA family)
+        require(launches[i]["fused_attention_forward"] >= 4,
+                "fused_attention_forward was not launched by the decoder")
+    return res, versus
 
 
 def read_png(data):
@@ -2865,27 +2993,42 @@ def read_png(data):
 
 
 def run_counting(argv):
-    """`chip_smoke.py --launches-of <module> <its arguments>`: run the module
-    as `python -m <module>` does, then print its kernels' launches as one
-    JSON line (how `sample_cli` counts the launches of its subprocesses)."""
+    """`chip_smoke.py --launches-of <module> [--trace-call N] <its arguments>`:
+    run the module as `python -m <module>` does, then print as one JSON line
+    its kernels' launches and each `sample_from_scratch` call's seconds, AR
+    steps and the process's graph captures so far (how `sample_cli` reads
+    its subprocesses); with `--trace-call N` the N-th sampling call (from 1)
+    runs under the profiler."""
     import runpy
 
-    module, sys.argv = argv[0], argv
+    import torch
+
+    from dynamicvectorquantization_torch.utils.sample_wall import SamplerCalls
+
+    module, argv = argv[0], argv[1:]
+    trace_at = None
+    if argv[:1] == ["--trace-call"]:
+        trace_at, argv = int(argv[1]), argv[2:]
+    sys.argv = [module, *argv]
     reset_launches()
     code = 0
-    try:
-        runpy.run_module(module, run_name="__main__", alter_sys=True)
-    except SystemExit as e:
-        code = e.code or 0
-    print(json.dumps({"launches": read_launches()}), flush=True)
+    with SamplerCalls(torch, trace_at) as calls:
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            code = e.code or 0
+    print(json.dumps({"launches": read_launches(), "sampling_calls": calls.calls}), flush=True)
     return code
 
 
-def sample_cli(torch, card):
+def sample_cli(torch, card, reps=3):
     """Both file entry points, `python -m dynamicvectorquantization_torch.
     sample.val` (with grids) and `...sample.images`, as subprocesses on the
-    unconditional p6c18 yml with seeded weights (f32), int8 caches, one batch
-    of 8: their files, each batch's seconds and their launches."""
+    unconditional p6c18 yml with seeded weights (f32), int8 caches, batches
+    of 8: `sample.val` runs `reps + 2` batches (the first pays the process's
+    graph captures, `reps` are timed, the last sampling call is traced),
+    `sample.images` one (a process's first batch). Their files, each batch's
+    seconds and AR steps, and their launches."""
     import pickle
     import shutil
 
@@ -2894,24 +3037,43 @@ def sample_cli(torch, card):
     root = os.path.join("build", "sample_cli")
     shutil.rmtree(root, ignore_errors=True)
     runs = {}
-    for module, extra in (("val", ["--save_grids"]), ("images", [])):
+    n_val = reps + 2
+    for module, n, extra in (("val", n_val, ["--save_grids"]), ("images", 1, [])):
+        trace = ["--trace-call", str(n)] if module == "val" else []
         cmd = [sys.executable, os.path.abspath(__file__), "--launches-of",
-               f"dynamicvectorquantization_torch.sample.{module}", "--yaml_path", P6C18,
+               f"dynamicvectorquantization_torch.sample.{module}", *trace, "--yaml_path", P6C18,
                "--save_path", os.path.join(root, module), "--batch_size", "8", "--sample_num",
-               "8", "--kv_cache_dtype", "int8", *extra]
+               str(8 * n), "--kv_cache_dtype", "int8", *extra]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         wall = time.perf_counter() - t0
         lines = proc.stdout.strip().splitlines()
         require(proc.returncode == 0 and len(lines) >= 2,
                 f"sample.{module} exited {proc.returncode}: {proc.stderr[-3000:]}")
-        summary, launches = json.loads(lines[-2]), json.loads(lines[-1])["launches"]
+        summary, counted = json.loads(lines[-2]), json.loads(lines[-1])
+        calls = counted["sampling_calls"]
+        require(len(calls) == n and summary["batches"] == n,
+                f"sample.{module}: {len(calls)} sampling calls, {summary['batches']} batches")
+        seconds = summary["batch_seconds"]
         runs[module] = dict(rc=proc.returncode, process_s=spread([wall]),
-                            batch_s=spread(summary["batch_seconds"]), images=summary["images"],
-                            launches=launches)
+                            first_batch_s=seconds[0], first_call=calls[0],
+                            ar_steps=[c["ar_steps"] for c in calls],
+                            images=summary["images"], launches=counted["launches"])
+        if module == "val":
+            timed = calls[1:reps + 1]
+            step_ms = [c["s"] / c["ar_steps"] * 1e3 for c in timed]
+            traced = calls[-1]
+            busy = traced["busy_ms"] / traced["ar_steps"]
+            runs[module].update(
+                batch_s=spread(seconds[1:reps + 1]), traced_batch_s=seconds[-1],
+                ar_step_ms=spread(step_ms)["median"], ar_step_ms_spread=spread(step_ms),
+                traced_call=traced, busy_ms_per_ar_step=busy,
+                device_idle_share=1.0 - traced["busy_ms"] / traced["window_ms"],
+                device_idle_share_vs_step_ms=1.0 - busy / spread(step_ms)["median"])
     numpys = os.path.join(root, "val", "numpys")
-    require(sorted(os.listdir(numpys)) == ["batch_00000.pkl"], f"val wrote {os.listdir(numpys)}")
-    with open(os.path.join(numpys, "batch_00000.pkl"), "rb") as f:
+    pickles = [f"batch_{i:05d}.pkl" for i in range(n_val)]
+    require(sorted(os.listdir(numpys)) == pickles, f"val wrote {os.listdir(numpys)}")
+    with open(os.path.join(numpys, pickles[0]), "rb") as f:
         batch = pickle.load(f)
     with open(os.path.join(root, "val", "grid_00000.png"), "rb") as f:
         grid = read_png(f.read())
@@ -2922,9 +3084,9 @@ def sample_cli(torch, card):
             pngs.append(read_png(f.read()))
     layers = 24
     res = dict(phase="sample_cli", config=P6C18, kv_cache_dtype="int8", weights="seeded, f32",
-               batch_size=8, sample_num=8, runs=runs, pickle=[list(batch.shape), str(batch.dtype)],
-               grid_shape=list(grid.shape), pngs=names, png_shapes=[list(p.shape) for p in pngs],
-               card=card)
+               batch_size=8, sample_num={"val": 8 * n_val, "images": 8}, runs=runs,
+               pickle=[list(batch.shape), str(batch.dtype)], grid_shape=list(grid.shape),
+               pngs=names, png_shapes=[list(p.shape) for p in pngs], card=card)
     emit(res)
     shutil.rmtree(root, ignore_errors=True)
     require(batch.dtype == np.uint8 and batch.shape == (8, 256, 256, 3),
@@ -2934,46 +3096,60 @@ def sample_cli(torch, card):
             and all(p.shape == (256, 256, 3) for p in pngs), f"images wrote {names}")
     for module, run in runs.items():
         n = run["launches"]["decode_attention_int8"]
-        require(n >= layers and n % layers == 0,
+        require(n >= layers * sum(run["ar_steps"]) and n % layers == 0,
                 f"sample.{module}: decode_attention_int8 launched {n} times")
         require(run["launches"]["fused_attention_forward"] >= 4,
                 f"sample.{module}: the decoder's fused_attention_forward was not launched")
     return res
 
 
-def http(torch, model, card):
+def http(torch, model, card, reps=3):
     """`python -m dynamicvectorquantization_torch.serve`'s server
     (`serve/http.py` `make_server`) in-process over the loaded model, on
-    127.0.0.1 at a free port: the warm-up image, then `POST /generate` of 2
-    images and `GET /healthz`."""
+    127.0.0.1 at a free port: the warm-up image (which captures the
+    sampler's graphs, before the server listens, as the entry point does),
+    then `reps + 1` POSTs of 2 images (the last traced) and `GET /healthz`;
+    launches of the first POST."""
     import base64
     import threading
     import urllib.request
 
     from dynamicvectorquantization_torch.serve import BatchingSampler
     from dynamicvectorquantization_torch.serve.http import make_server
+    from dynamicvectorquantization_torch.utils.sample_wall import SamplerCalls
 
     opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))  # loopback only
-    with BatchingSampler(model, max_batch=2, max_wait_ms=50.0) as engine:
+    captured_before = runner_numbers(torch, model)
+    walls = []
+    with SamplerCalls(torch) as calls, BatchingSampler(model, max_batch=2,
+                                                       max_wait_ms=50.0) as engine:
         t0 = time.perf_counter()
         engine.generate(1, seed=0)  # the warm-up the entry point runs before it listens
         warmup_s = time.perf_counter() - t0
+        graphs = runner_numbers(torch, model)
         served = engine.images_served
         server = make_server(engine, "127.0.0.1", 0)
         thread = threading.Thread(target=server.serve_forever, daemon=True)
         thread.start()
         url = f"http://127.0.0.1:{server.server_address[1]}"
         try:
-            torch.cuda.synchronize()
-            reset_launches()
-            t0 = time.perf_counter()
-            req = urllib.request.Request(url + "/generate",
-                                         data=json.dumps({"num_images": 2, "seed": 7}).encode(),
-                                         headers={"Content-Type": "application/json"})
-            with opener.open(req, timeout=900) as r:
-                status, body = r.status, json.loads(r.read())
-            request_s = time.perf_counter() - t0
-            launches = read_launches()
+            for i in range(reps + 1):
+                if i == reps:
+                    calls.trace_next()
+                torch.cuda.synchronize()
+                if i == 0:
+                    reset_launches()
+                t0 = time.perf_counter()
+                req = urllib.request.Request(
+                    url + "/generate", data=json.dumps({"num_images": 2, "seed": 7 + i}).encode(),
+                    headers={"Content-Type": "application/json"})
+                with opener.open(req, timeout=900) as r:
+                    status, body = r.status, json.loads(r.read())
+                walls.append(time.perf_counter() - t0)
+                require(status == 200, f"POST /generate: HTTP status {status}")
+                if i == 0:
+                    launches = read_launches()
+                    images = [read_png(base64.b64decode(b)) for b in body.get("images", [])]
             with opener.open(url + "/healthz", timeout=60) as r:
                 health_status, health = r.status, json.loads(r.read())
         finally:
@@ -2981,23 +3157,29 @@ def http(torch, model, card):
             server.server_close()
             thread.join()
         stats = list(engine.batch_stats)
-    images = [read_png(base64.b64decode(b)) for b in body.get("images", [])]
+        sampling = sampling_numbers(calls, 0, range(1, reps + 1), reps + 1)
     layers = model.transformer.position_layer + model.transformer.content_layer
+    timed = walls[:reps]
     res = dict(phase="http", config=P6C18, kv_cache_dtype="int8", max_batch=2,
-               request={"num_images": 2, "seed": 7}, status=status, healthz=health,
-               healthz_status=health_status, warmup_s=spread([warmup_s]),
-               request_s=spread([request_s]), images_served_before=served,
-               batch_stats=stats, launches=launches, shapes=[list(i.shape) for i in images],
-               card=card)
+               request={"num_images": 2, "seeds": [7 + i for i in range(reps + 1)]},
+               status=status, healthz=health, healthz_status=health_status,
+               warmup_s=spread([warmup_s]), request_s=spread(timed)["median"],
+               request_s_spread=spread(timed), traced_request_s=walls[-1],
+               images_served_before=served, batch_stats=stats, launches=launches,
+               shapes=[list(i.shape) for i in images], sampling=sampling,
+               warmup_captures=graphs["captures"] - captured_before["captures"],
+               warmup_capture_s=graphs["capture_s"] - captured_before["capture_s"],
+               captures_while_serving=runner_numbers(torch, model)["captures"]
+               - graphs["captures"], card=card)
     emit(res)
-    require(status == 200 and health_status == 200 and health["ok"],
-            f"HTTP status {status} / {health_status}")
+    require(health_status == 200 and health["ok"], f"GET /healthz: status {health_status}")
     require(len(images) == 2 and all(i.shape == (256, 256, 3) for i in images),
             f"POST /generate gave {[i.shape for i in images]}")
-    require(served == 1 and health["images_served"] == served + 2,
+    require(served == 1 and health["images_served"] == served + 2 * (reps + 1),
             f"images_served {served} after the warm-up, {health['images_served']} after")
-    require(launches["decode_attention_int8"] >= layers * stats[-1]["ar_steps"],
+    require(launches["decode_attention_int8"] >= layers * stats[1]["ar_steps"],
             "decode_attention_int8 was not launched on every decode step of the request")
+    require(res["captures_while_serving"] == 0, "the server captured graphs while it listened")
     return res
 
 
@@ -3009,6 +3191,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     from dynamicvectorquantization_torch.ops import cuda_lib
     from dynamicvectorquantization_torch.utils.model_loading import load_model_and_variables
@@ -3061,7 +3244,14 @@ def main():
     teacher_forced_decode(torch, model, dev)
     served = serve(torch, model, card)
     http_res = http(torch, model, card)
-    del model
+    # the sampler's graphs against its eager loop: the served bf16 model with its int8
+    # caches, then with float (bf16) caches
+    c4 = model.encode_to_c(4, dev)
+    graph_vs_eager(torch, model, c4, "p6c18, bf16, int8 caches", host_loop=True)
+    model.transformer.kv_cache_dtype = None
+    graph_vs_eager(torch, model, c4, "p6c18, bf16, float caches")
+    model.transformer.kv_cache_dtype = "int8"
+    del model, c4
     torch.cuda.empty_cache()
     trained, streams = train(torch, dev, card)[:2]
     per_step = trained["launches_per_step"]
@@ -3078,7 +3268,7 @@ def main():
                                             kv_cache_dtype="int8")
     del _
     per_step_class = class_trained["launches_per_step"]
-    sampled = class_sample(torch, class_trainer, card, labels[:4])
+    sampled = class_sample(torch, class_trainer, card, labels[:4])[0]
     del streams, class_trainer
     torch.cuda.empty_cache()
     per_step1 = train1(torch, dev, card)["launches_per_step"]
@@ -3361,6 +3551,7 @@ def main():
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main.get("library_ms"), shape=main["shape"], card=card, **extra))
         require(kernels[-1]["launches"] > 0, f"{name} was launched on no driven path")
+    emit(dict(phase="script", seconds=time.perf_counter() - t_script))
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

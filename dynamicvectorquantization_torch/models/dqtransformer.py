@@ -18,9 +18,18 @@ content and position losses. A cached-codes pipeline encodes once
 
 Sampling generates coarse (position, content) pairs until every row has
 emitted the coarse EOS, then fine pairs, each AR step feeding ONE token
-through each stack against its KV cache. The JAX package's
-`lax.while_loop`s become Python loops that stop when every row is done or at
-capacity. Ban masks, as in the reference:
+through each stack against its KV cache. Each of the JAX package's two
+`lax.while_loop(cond, body)`s becomes a loop of MASKED steps over static
+state (preallocated device tensors: the loop index, `done`, the ban mask,
+the token buffers, the caches): a step computes `body` and commits it only
+where `cond = (i < n_max) & ~all(done)` holds, so a step past the end
+changes no result (it still draws from the generator). The host runs
+`STEPS_PER_READ` steps, then reads `cond` once; the loop index reaches the
+caches and kernel #8 as a device int32. On a CUDA device each block of
+`STEPS_PER_READ` steps is a replay of a captured CUDA graph
+(`models/graphs.py`); on the CPU the same steps run eagerly. The one other
+host read of a call is the coarse length, where the fine phase starts. Ban
+masks, as in the reference:
 
   * coarse position: already sampled, pad, and every index >= hw1^2 - 1 are
     banned (the bottom-right coarse position can never be sampled — a
@@ -37,14 +46,24 @@ State_dict names follow the reference: `transformer.*`, `first_stage_model.*`.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
+from ..ops.kv_int8 import CHUNK
 from ..utils.instantiate import instantiate_from_config
+from . import graphs
 from .permuter import pack_masked
 from .sampling import sample_from_logits
 
 NEG_INF = -1e9
+# AR steps per host read of the loop condition (K): one CUDA graph replays K masked
+# steps. A phase runs up to K - 1 steps past its end (each about an AR step's device
+# time); a read costs a device-to-host round trip and a drained queue. On the H100 a
+# served batch took the same time at K = 4, 8, 16 and 32 within its spread, and its
+# first batch (the captures) least at 4 (PERF.md, `utils/sample_wall.py`).
+STEPS_PER_READ = 4
 
 
 class Dualformer(nn.Module):
@@ -189,30 +208,31 @@ class Dualformer(nn.Module):
         return {k: v.float().cpu().numpy() for k, v in log.items()}
 
     # ------------------------------------------------------------- masks
+    # Bans are comparisons with the vocabulary index, never element writes of a
+    # Python scalar: a CUDA graph cannot capture a host-to-device copy.
     def _content_mask(self, logits, done):
-        banned = torch.zeros(logits.shape[-1], dtype=torch.bool, device=logits.device)
-        banned[self.content_pad_code] = True
-        banned[self.content_eos_code] = True
+        idx = torch.arange(logits.shape[-1], device=logits.device)
+        banned = (idx == self.content_pad_code) | (idx == self.content_eos_code)
         if self.content_sos_code is not None:
-            banned[self.content_sos_code] = True
+            banned = banned | (idx == self.content_sos_code)
         live = torch.where(banned, NEG_INF, logits)
         return torch.where(done[:, None], self._pad_only(logits, self.content_pad_code), live)
 
     def _coarse_position_mask(self, logits, pos_ban, done):
         idx = torch.arange(logits.shape[-1], device=logits.device)
-        banned = pos_ban | (idx >= self.max_coarse_position_idx)
-        banned[:, self.coarse_position_pad_code] = True
-        banned[:, self.coarse_position_eos_code] = False  # keep eos
+        banned = ((pos_ban | (idx >= self.max_coarse_position_idx)
+                   | (idx == self.coarse_position_pad_code))
+                  & (idx != self.coarse_position_eos_code))  # keep eos
         live = torch.where(banned, NEG_INF, logits)
         return torch.where(done[:, None],
                            self._pad_only(logits, self.coarse_position_pad_code), live)
 
     def _fine_position_mask(self, logits, pos_ban, done):
-        banned = pos_ban.clone()
-        banned[:, self.fine_position_pad_code] = True
-        banned[:, self.fine_position_eos_code] = False
+        idx = torch.arange(logits.shape[-1], device=logits.device)
+        banned = (pos_ban | (idx == self.fine_position_pad_code)) & (
+            idx != self.fine_position_eos_code)
         if self.fine_position_sos_code is not None:
-            banned[:, self.fine_position_sos_code] = True
+            banned = banned | (idx == self.fine_position_sos_code)
         live = torch.where(banned, NEG_INF, logits)
         return torch.where(done[:, None],
                            self._pad_only(logits, self.fine_position_pad_code), live)
@@ -253,97 +273,195 @@ class Dualformer(nn.Module):
     def sample_from_scratch(self, c_coarse, c_fine, c_pos_coarse, c_pos_fine, c_seg_coarse,
                             c_seg_fine, generator=None, temperature=1.0, sample=True,
                             top_k=None, top_p=None, top_k_pos=None, top_p_pos=None,
-                            fix_fine_position=False):
+                            fix_fine_position=False, eager=False):
         """Coarse-to-fine AR generation with KV caches and static buffers.
 
         Inputs are the (B, 1) condition prefixes of `encode_to_c`. Returns
         (coarse_content, fine_content, coarse_position, fine_position) without
-        the prefix, shapes (B, coarse_max_len) / (B, fine_max_len)."""
+        the prefix, shapes (B, coarse_max_len) / (B, fine_max_len), on the
+        prefixes' device; `last_ar_steps` then reads the call's AR steps.
+
+        On a CUDA device the masked steps run as CUDA graph replays drawing
+        from the graphs' generator, which carries `generator`'s state (the
+        default generator's when None) through the call. `eager=True` runs
+        them eagerly there instead: only the control that `chip_smoke.py` and
+        the `cuda` tests hold the graphs against; no entry point passes it."""
         tf = self.transformer
         dev = c_coarse.device
         b = c_coarse.shape[0]
         nc, nf = self.permuter.coarse_max_len, self.permuter.fine_max_len
-        lc, lf = nc + 1, nf + 1
-        p = self.fine_position_size
         param_dtype = next(tf.parameters()).dtype
-        pos_cache, content_cache = tf.make_caches(b, lc + lf, param_dtype, dev)
-        ar = torch.arange(p, device=dev)
+        cache_kind = "int8" if tf.kv_cache_dtype == "int8" else param_dtype
+        runner = None if dev.type != "cuda" or eager else graphs.runner_for(self, dev)
+        if runner is None:
+            st = _SamplerState(self, b, param_dtype, dev)
+        else:  # the graphs' static state, one per shape, used by one call at a time
+            st = runner.state.get((b, cache_kind))
+            if st is None:
+                st = runner.state[(b, cache_kind)] = _SamplerState(self, b, param_dtype, dev)
+        knobs = (temperature, sample, top_k, top_p, top_k_pos, top_p_pos)
+        k = STEPS_PER_READ
+        key = (b, cache_kind, knobs, fix_fine_position, k, graphs.parameter_storage(tf))
+        chunks = st.pos_cache.layers[0][0].shape[2] // CHUNK
 
-        def draw(logits, k, top_p_):
-            return sample_from_logits(generator, logits, 1.0, k, top_p_, sample)
+        def run_phase(gen, fine, offset):
+            """Blocks of `k` masked steps until `cond` reads False.
+            `offset`: the phase's first cache index (a host int)."""
+            n_max = nf if fine else nc
+            done_steps = 0
+            while True:
+                # float caches read the chunks up to the block's last possible index
+                last = offset + min(done_steps + k - 1, n_max)
+                n_chunks = None if cache_kind == "int8" else min(chunks, last // CHUNK + 1)
 
-        coarse_content = torch.full((b, lc), self.content_pad_code, dtype=torch.long, device=dev)
-        coarse_position = torch.full((b, lc), self.coarse_position_pad_code, dtype=torch.long,
-                                     device=dev)
-        coarse_content[:, 0] = c_coarse[:, 0]
-        coarse_position[:, 0] = c_pos_coarse[:, 0]
-        seg0 = c_seg_coarse[:, 0] if self.activate_segment else None
-        seg1 = c_seg_fine[:, 0] if self.activate_segment else None
+                def block():
+                    for _ in range(k):
+                        self._masked_step(st, fine, n_chunks, gen, knobs, fix_fine_position)
+                    st.update_cond(fine, n_max)
 
-        # ---- coarse phase ----
-        pos_ban = ar[None, :] == c_pos_coarse[:, :1]
-        done = torch.zeros(b, dtype=torch.bool, device=dev)
-        i = 0
-        while i < nc and not bool(done.all()):
-            x = tf.embed_input_token(coarse_content[:, i], coarse_position[:, i], seg0, i, False)
-            hidden, pos_logits = tf.position_step(x, pos_cache, i)
-            pos_logits = self._coarse_position_mask(pos_logits / temperature, pos_ban, done)
-            new_pos = draw(pos_logits, top_k_pos, top_p_pos)
-            content_logits = tf.content_step(hidden, new_pos, False, content_cache, i)
-            done = done | (new_pos == self.coarse_position_eos_code)
-            content_logits = self._content_mask(content_logits / temperature, done)
-            new_content = draw(content_logits, top_k, top_p)
-            coarse_content[:, i + 1] = new_content
-            coarse_position[:, i + 1] = new_pos
-            pos_ban = pos_ban | (ar[None, :] == new_pos[:, None])
-            i += 1
-        coarse_len = i + 1
-        coarse_region_mask = pos_ban[:, : self.hw1 * self.hw1]
+                if runner is None:
+                    block()
+                else:
+                    runner.run(key + (fine, n_chunks), block)
+                done_steps += k
+                if not bool(st.cond):
+                    return
 
-        # ---- fine-phase entry: the last coarse token feeds both caches ----
-        fine_content = torch.full((b, lf), self.content_pad_code, dtype=torch.long, device=dev)
-        fine_position = torch.full((b, lf), self.fine_position_pad_code, dtype=torch.long,
-                                   device=dev)
-        fine_content[:, 0] = c_fine[:, 0]
-        fine_position[:, 0] = c_pos_fine[:, 0]
+        with (contextlib.nullcontext(generator) if runner is None
+              else runner.carry_generator(generator)) as gen:
+            st.reset(self, c_coarse, c_fine, c_pos_coarse, c_pos_fine, c_seg_coarse, c_seg_fine)
+            run_phase(gen, False, 0)
+            coarse_len = int(st.i) + 1
+            self._enter_fine_phase(st, coarse_len, fix_fine_position)
+            run_phase(gen, True, coarse_len)
+        self._ar_steps = st.i + 1 + st.j  # AR steps incl. the entry step, read when asked
+        return (st.coarse_content[:, 1:].clone(), st.fine_content[:, 1:].clone(),
+                st.coarse_position[:, 1:].clone(), st.fine_position[:, 1:].clone())
+
+    @property
+    def last_ar_steps(self) -> int:
+        """AR steps of the last `sample_from_scratch` call, the fine-phase
+        entry step included (a host read of its device counters)."""
+        return int(self._ar_steps)
+
+    def _masked_step(self, st, fine, n_chunks, generator, knobs, fix_fine_position):
+        """One iteration of the JAX sampler's `coarse_step` / `fine_step`,
+        committed only where `cond` holds (a frozen step rewrites its cache
+        row and the column past the last, with what they hold)."""
+        temperature, sample, top_k, top_p, top_k_pos, top_p_pos = knobs
+        tf = self.transformer
+        if fine:
+            i, n_max, content, position, seg = st.j, st.nf, st.fine_content, st.fine_position, st.seg1
+            index = st.coarse_len + st.j  # global token index
+        else:
+            i, n_max, content, position, seg = st.i, st.nc, st.coarse_content, st.coarse_position, st.seg0
+            index = st.i
+        col = i.reshape(1)
+        x = tf.embed_input_token(content.index_select(1, col)[:, 0],
+                                 position.index_select(1, col)[:, 0], seg, index, fine)
+        hidden, pos_logits = tf.position_step(x, st.pos_cache, index, n_chunks)
+        if fine and fix_fine_position:
+            new_pos = st.fine_schedule.index_select(1, col.clamp(max=n_max - 1))[:, 0]
+        else:
+            mask = self._fine_position_mask if fine else self._coarse_position_mask
+            pos_logits = mask(pos_logits / temperature, st.pos_ban, st.done)
+            new_pos = sample_from_logits(generator, pos_logits, 1.0, top_k_pos, top_p_pos, sample)
+        content_logits = tf.content_step(hidden, new_pos, fine, st.content_cache, index, n_chunks)
+        eos = self.fine_position_eos_code if fine else self.coarse_position_eos_code
+        done_after = st.done | (new_pos == eos)
+        content_logits = self._content_mask(content_logits / temperature, done_after)
+        new_content = sample_from_logits(generator, content_logits, 1.0, top_k, top_p, sample)
+
+        active = (i < n_max) & ~st.done.all()
+        out = (i + 1).clamp(max=n_max).reshape(1).long()  # in bounds when frozen at n_max
+        for buf, new in ((content, new_content), (position, new_pos)):
+            buf.index_copy_(1, out, torch.where(active, new, buf.index_select(1, out)[:, 0])[:, None])
+        st.pos_ban.copy_(torch.where(active, st.pos_ban | (st.ar[None, :] == new_pos[:, None]),
+                                     st.pos_ban))
+        st.done.copy_(torch.where(active, done_after, st.done))
+        i.add_(active.to(i.dtype))
+
+    def _enter_fine_phase(self, st, coarse_len, fix_fine_position):
+        """The fine-phase entry, outside any graph: the last coarse token feeds
+        both caches (its content step on the fine sos position; the logits
+        are unused, the fine sos is part of the conditioning prefix), then the
+        fine ban mask and, with `fix_fine_position`, the schedule."""
+        tf = self.transformer
         last = coarse_len - 1
-        x = tf.embed_input_token(coarse_content[:, last], coarse_position[:, last], seg0,
-                                 last, False)
-        hidden, _ = tf.position_step(x, pos_cache, last)
-        # logits unused: the fine sos is part of the conditioning prefix
-        tf.content_step(hidden, fine_position[:, 0], True, content_cache, last)
+        x = tf.embed_input_token(st.coarse_content[:, last], st.coarse_position[:, last],
+                                 st.seg0, st.i, False)
+        n_chunks = last // CHUNK + 1  # read by float caches
+        hidden, _ = tf.position_step(x, st.pos_cache, st.i, n_chunks)
+        tf.content_step(hidden, st.fine_position[:, 0], True, st.content_cache, st.i, n_chunks)
+        coarse_region_mask = st.pos_ban[:, : self.hw1 * self.hw1]
+        if fix_fine_position:
+            st.fine_schedule.copy_(self._remaining_fine_position_sequence(coarse_region_mask))
+        covered = self._coarse_covered_to_fine_positions(coarse_region_mask)
+        st.pos_ban.zero_()
+        st.pos_ban[:, : self.fine_hw * self.fine_hw] = covered
+        st.pos_ban |= st.ar[None, :] == st.c_pos_fine[:, None]
+        st.done.zero_()
+        st.coarse_len.copy_(st.i + 1)
 
-        fine_schedule = (self._remaining_fine_position_sequence(coarse_region_mask)
-                         if fix_fine_position else None)
-        pos_ban = torch.zeros((b, p), dtype=torch.bool, device=dev)
-        pos_ban[:, : self.fine_hw * self.fine_hw] = \
-            self._coarse_covered_to_fine_positions(coarse_region_mask)
-        pos_ban = pos_ban | (ar[None, :] == c_pos_fine[:, :1])
 
-        # ---- fine phase ----
-        done = torch.zeros(b, dtype=torch.bool, device=dev)
-        j = 0
-        while j < nf and not bool(done.all()):
-            g = coarse_len + j  # global token index
-            x = tf.embed_input_token(fine_content[:, j], fine_position[:, j], seg1, g, True)
-            hidden, pos_logits = tf.position_step(x, pos_cache, g)
-            if fix_fine_position:
-                new_pos = fine_schedule[:, j]
-            else:
-                pos_logits = self._fine_position_mask(pos_logits / temperature, pos_ban, done)
-                new_pos = draw(pos_logits, top_k_pos, top_p_pos)
-            content_logits = tf.content_step(hidden, new_pos, True, content_cache, g)
-            done = done | (new_pos == self.fine_position_eos_code)
-            content_logits = self._content_mask(content_logits / temperature, done)
-            new_content = draw(content_logits, top_k, top_p)
-            fine_content[:, j + 1] = new_content
-            fine_position[:, j + 1] = new_pos
-            pos_ban = pos_ban | (ar[None, :] == new_pos[:, None])
-            j += 1
-        self.last_ar_steps = coarse_len + j  # AR steps of the last call, incl. the entry step
+class _SamplerState:
+    """The sampler's loop state in preallocated tensors on one device: what
+    the masked steps (and the CUDA graphs of them) read and write in place.
+    `reset` refills it for a call, outside any graph."""
 
-        return (coarse_content[:, 1:], fine_content[:, 1:],
-                coarse_position[:, 1:], fine_position[:, 1:])
+    def __init__(self, model, b, param_dtype, dev):
+        tf = model.transformer
+        self.nc, self.nf = model.permuter.coarse_max_len, model.permuter.fine_max_len
+        self.pos_cache, self.content_cache = tf.make_caches(b, self.nc + self.nf + 2, param_dtype,
+                                                            dev)
+
+        def tokens(n):
+            return torch.empty((b, n), dtype=torch.long, device=dev)
+
+        self.coarse_content, self.coarse_position = tokens(self.nc + 1), tokens(self.nc + 1)
+        self.fine_content, self.fine_position = tokens(self.nf + 1), tokens(self.nf + 1)
+        self.fine_schedule = tokens(self.nf)
+
+        def counter():
+            return torch.zeros((), dtype=torch.int32, device=dev)
+
+        self.i, self.j, self.coarse_len = counter(), counter(), counter()  # coarse, fine index
+        self.cond = torch.zeros((), dtype=torch.bool, device=dev)
+        self.done = torch.zeros(b, dtype=torch.bool, device=dev)
+        self.ar = torch.arange(model.fine_position_size, device=dev)
+        self.pos_ban = torch.zeros((b, model.fine_position_size), dtype=torch.bool, device=dev)
+        self.c_pos_fine = torch.zeros(b, dtype=torch.long, device=dev)
+        self.seg0 = self.seg1 = None
+        if model.activate_segment:
+            self.seg0 = torch.zeros(b, dtype=torch.long, device=dev)
+            self.seg1 = torch.zeros(b, dtype=torch.long, device=dev)
+
+    def reset(self, model, c_coarse, c_fine, c_pos_coarse, c_pos_fine, c_seg_coarse,
+              c_seg_fine):
+        for layer in self.pos_cache.layers + self.content_cache.layers:
+            for t in layer[:2]:  # K, V
+                t.zero_()
+            for t in layer[2:]:  # int8 scales start at one, as the reference's
+                t.fill_(1.0)
+        for buf, pad, first in (
+                (self.coarse_content, model.content_pad_code, c_coarse),
+                (self.coarse_position, model.coarse_position_pad_code, c_pos_coarse),
+                (self.fine_content, model.content_pad_code, c_fine),
+                (self.fine_position, model.fine_position_pad_code, c_pos_fine)):
+            buf.fill_(pad)
+            buf[:, 0] = first[:, 0]
+        self.pos_ban.copy_(self.ar[None, :] == c_pos_coarse[:, :1])
+        self.c_pos_fine.copy_(c_pos_fine[:, 0])
+        if self.seg0 is not None:
+            self.seg0.copy_(c_seg_coarse[:, 0])
+            self.seg1.copy_(c_seg_fine[:, 0])
+        for t in (self.i, self.j, self.coarse_len, self.done):
+            t.zero_()
+
+    def update_cond(self, fine, n_max):
+        """cond of the running phase's `while_loop`, on the device."""
+        i = self.j if fine else self.i
+        self.cond.copy_((i < n_max) & ~self.done.all())
 
 
 class ClassCondDualformer(Dualformer):
@@ -360,16 +478,15 @@ class ClassCondDualformer(Dualformer):
 
     def _content_mask(self, logits, done):
         idx = torch.arange(logits.shape[-1], device=logits.device)
-        banned = idx >= self.content_eos_code
-        banned[self.content_pad_code] = True
+        banned = (idx >= self.content_eos_code) | (idx == self.content_pad_code)
         live = torch.where(banned, NEG_INF, logits)
         return torch.where(done[:, None], self._pad_only(logits, self.content_pad_code), live)
 
     def _fine_position_mask(self, logits, pos_ban, done):
         idx = torch.arange(logits.shape[-1], device=logits.device)
-        banned = pos_ban | (idx > self.fine_position_eos_code)
-        banned[:, self.fine_position_pad_code] = True
-        banned[:, self.fine_position_eos_code] = False
+        banned = ((pos_ban | (idx > self.fine_position_eos_code)
+                   | (idx == self.fine_position_pad_code))
+                  & (idx != self.fine_position_eos_code))
         live = torch.where(banned, NEG_INF, logits)
         return torch.where(done[:, None],
                            self._pad_only(logits, self.fine_position_pad_code), live)

@@ -187,26 +187,32 @@ class StackGPT(nn.Module):
             KVCache.create(self.content_layer, batch, self.n_head, max_len, hd, dtype, device),
         )
 
-    def embed_input_token(self, content_tok, pos_tok, seg_tok, index: int, is_fine: bool):
+    def embed_input_token(self, content_tok, pos_tok, seg_tok, index, is_fine: bool):
         """Position-transformer input for ONE token at global position
-        `index`: (B,) tokens -> (B, 1, D)."""
+        `index` (a host int, or a 0-d int tensor on the device, read there by
+        `index_select`): (B,) tokens -> (B, 1, D)."""
         pe = self.content_fine_pos_emb if is_fine else self.content_coarse_pos_emb
-        x = self.content_emb(content_tok) + pe(pos_tok) + self.pos_emb[0, index]
+        if isinstance(index, torch.Tensor):
+            pos = self.pos_emb[0].index_select(0, index.reshape(1))
+        else:
+            pos = self.pos_emb[0, index]
+        x = self.content_emb(content_tok) + pe(pos_tok) + pos
         if self.activate_segment and seg_tok is not None:
             x = x + self.seg_emb(seg_tok)
         return x[:, None, :]
 
-    def position_step(self, x, cache: KVCache, index: int):
+    def position_step(self, x, cache: KVCache, index, n_chunks=None):
         """One cached position-transformer step; x (B, 1, D) ->
-        (hidden (B, 1, D), position logits (B, P))."""
-        hidden = self.position_transformer(x, cache, index)
+        (hidden (B, 1, D), position logits (B, P)). `index`, `n_chunks`: see
+        `nn/transformer.py` `CausalSelfAttention.forward`."""
+        hidden = self.position_transformer(x, cache, index, n_chunks=n_chunks)
         return hidden, self.position_head(hidden[:, 0])
 
     def content_step(self, position_hidden, next_pos_tok, is_fine: bool, cache: KVCache,
-                     index: int):
+                     index, n_chunks=None):
         """One cached content-transformer step on hidden + emb(next position);
         returns content logits (B, V)."""
         pe = self.content_fine_pos_emb if is_fine else self.content_coarse_pos_emb
         x = position_hidden + pe(next_pos_tok)[:, None, :]
-        hidden = self.content_transformer(x, cache, index)
+        hidden = self.content_transformer(x, cache, index, n_chunks=n_chunks)
         return self.content_head(hidden[:, 0])

@@ -19,7 +19,13 @@ integers, so no device sync is added and two layers never share a mask.
 shipped unconditional config turns them on.
 
 Decode: caches are updated IN PLACE (the JAX package returns new cache
-arrays; here that would copy hundreds of MB per step).
+arrays; here that would copy hundreds of MB per step). `cache_index` is a
+host int or, as the JAX sampler's traced loop index, a 0-d int32 tensor on
+the caches' device: then the row is written by `index_copy_`, the int8
+kernel reads the index on the device, and the float path reads `n_chunks`
+chunks (a host int the caller gives) with the mask `pos <= cache_index`
+evaluated on the device, so a step launches the same work whatever the
+index (what a CUDA graph replays).
 
 Caches per layer: float `(k, v)`, each (B, H, T_max, hd); or int8
 `(k_i8, v_i8, k_scale, v_scale)` with f32 scales (B, H, T_max) that start
@@ -74,20 +80,31 @@ class KVCache:
         )
 
 
-def chunked_decode_attention(q, k_cache, v_cache, cache_index: int):
-    """Single-token decode attention over float caches, reading only the
-    chunks up to `cache_index`, with an online softmax (counterpart of
-    `_chunked_decode_attention`; the products run in the cache dtype and
-    accumulate in f32, as there). q: (B, H, 1, hd); caches (B, H, T, hd)."""
+def chunked_decode_attention(q, k_cache, v_cache, cache_index, n_chunks=None):
+    """Single-token decode attention over float caches with an online softmax
+    (counterpart of `_chunked_decode_attention`; the products run in the
+    cache dtype and accumulate in f32, as there). q: (B, H, 1, hd); caches
+    (B, H, T, hd). `cache_index`: the last valid position, a host int or a
+    0-d int tensor on q's device. `n_chunks` chunks of CHUNK positions are
+    read (default: those up to a host index; every chunk of the cache for a
+    tensor index); it must cover `cache_index`. A chunk past the index is
+    fully masked and leaves the sums bit for bit as they were (alpha = 1,
+    p = 0), so reading more chunks than the index needs is exact: this
+    replaces the JAX loop's traced `fori_loop` bound."""
     b, h, t, hd = k_cache.shape
     if t % CHUNK:
         raise ValueError(f"cache length {t} is not a multiple of {CHUNK}")
+    if n_chunks is None:
+        n_chunks = (t // CHUNK if isinstance(cache_index, torch.Tensor)
+                    else cache_index // CHUNK + 1)
+    if not 1 <= n_chunks <= t // CHUNK:
+        raise ValueError(f"n_chunks {n_chunks} outside [1, {t // CHUNK}]")
     scale = 1.0 / float(hd) ** 0.5
     neg = torch.finfo(torch.float32).min
     m = torch.full((b, h, 1), neg, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, 1, hd), dtype=torch.float32, device=q.device)
-    for start in range(0, (cache_index // CHUNK + 1) * CHUNK, CHUNK):
+    for start in range(0, n_chunks * CHUNK, CHUNK):
         sl = slice(start, start + CHUNK)
         k = k_cache[:, :, sl]
         v = v_cache[:, :, sl]
@@ -104,6 +121,15 @@ def chunked_decode_attention(q, k_cache, v_cache, cache_index: int):
     return (acc / l[..., None]).to(q.dtype)
 
 
+def write_row(cache, row, value):
+    """cache[:, :, row] = value[:, :, 0] in place; `row` a host int or a
+    (1,) int64 tensor on the cache's device (no host read)."""
+    if isinstance(row, torch.Tensor):
+        cache.index_copy_(2, row, value)
+    else:
+        cache.select(2, row).copy_(value.select(2, 0))
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
                  resid_pdrop: float = 0.0):
@@ -116,11 +142,14 @@ class CausalSelfAttention(nn.Module):
         self.value = nn.Linear(n_embd, n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
 
-    def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None):
+    def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None,
+                n_chunks=None):
         """Full sequence when `cache` is None: x (B, T, C), causal; `seed` is
         this layer's attention-dropout seed (needed when `train` and
         `attn_pdrop > 0`). Else a decode step: x (B, 1, C) against `cache`
-        (updated in place at `cache_index`, a host int)."""
+        (updated in place at `cache_index`, a host int or a 0-d int32 tensor
+        on the cache's device; `n_chunks`: the chunks a float cache reads,
+        see `chunked_decode_attention`)."""
         if cache is None:
             rate = float(self.attn_pdrop) if train else 0.0
             if rate > 0.0 and seed is None:
@@ -139,21 +168,20 @@ class CausalSelfAttention(nn.Module):
         q = heads(self.query(x))
         k = heads(self.key(x))
         v = heads(self.value(x))
-        idx = int(cache_index)
+        row = (cache_index.reshape(1).long() if isinstance(cache_index, torch.Tensor)
+               else cache_index)
         if len(cache) == 4:
             k_c, v_c, ks_c, vs_c = cache
             kq, ks = quantize_kv(k)
             vq, vs = quantize_kv(v)
-            k_c[:, :, idx] = kq[:, :, 0]
-            v_c[:, :, idx] = vq[:, :, 0]
-            ks_c[:, :, idx] = ks[:, :, 0]
-            vs_c[:, :, idx] = vs[:, :, 0]
-            y = decode_attention_int8(q.contiguous(), k_c, v_c, ks_c, vs_c, idx)
+            for dst, src in ((k_c, kq), (v_c, vq), (ks_c, ks), (vs_c, vs)):
+                write_row(dst, row, src)
+            y = decode_attention_int8(q.contiguous(), k_c, v_c, ks_c, vs_c, cache_index)
         else:
             k_c, v_c = cache
-            k_c[:, :, idx] = k[:, :, 0]
-            v_c[:, :, idx] = v[:, :, 0]
-            y = chunked_decode_attention(q, k_c, v_c, idx)
+            write_row(k_c, row, k)
+            write_row(v_c, row, v)
+            y = chunked_decode_attention(q, k_c, v_c, cache_index, n_chunks)
         return self.proj(y.transpose(1, 2).reshape(b, t, c))
 
 
@@ -168,8 +196,9 @@ class Block(nn.Module):
         self.mlp = nn.Sequential(
             nn.Linear(n_embd, 4 * n_embd), GELU(), nn.Linear(4 * n_embd, n_embd))
 
-    def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None):
-        x = x + self.attn(self.ln1(x), cache, cache_index, train, generator, seed)
+    def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None,
+                n_chunks=None):
+        x = x + self.attn(self.ln1(x), cache, cache_index, train, generator, seed, n_chunks)
         return x + dropout(self.mlp(self.ln2(x)), self.resid_pdrop, train, generator)
 
 
@@ -182,12 +211,13 @@ class TransformerStack(nn.ModuleList):
                          for _ in range(num_layers))
 
     def forward(self, x, cache: KVCache = None, cache_index=None, train=False, generator=None,
-                seed=None, first_layer: int = 0):
-        """Full sequence when `cache` is None, else one cached decode step.
+                seed=None, first_layer: int = 0, n_chunks=None):
+        """Full sequence when `cache` is None, else one cached decode step
+        (`cache_index`, `n_chunks`: see `CausalSelfAttention.forward`).
         `seed`: the training forward's attention-dropout seed; block i mixes
         `first_layer + i`, its index in the whole model, into it."""
         layers = cache.layers if cache is not None else [None] * len(self)
         for i, (block, layer_cache) in enumerate(zip(self, layers)):
             layer_seed = None if seed is None else mix_seed(seed, first_layer + i)
-            x = block(x, layer_cache, cache_index, train, generator, layer_seed)
+            x = block(x, layer_cache, cache_index, train, generator, layer_seed, n_chunks)
         return x

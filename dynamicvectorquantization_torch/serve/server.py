@@ -7,10 +7,12 @@ next batch), runs `sample_from_scratch` + `decode_to_img` once per batch at
 a fixed batch size (the tail is padded), and resolves each request's future
 with its (n, H, W, 3) float numpy images in [-1, 1]-ish NHWC.
 
-Randomness: one `torch.Generator` per batch, seeded from the first
-request's seed (or the batch counter when it has none) mixed with the seeds
-of the later requests, so a repeated request sequence gives the same images
-on the same device. It does not reproduce the JAX package's random bits.
+Randomness: one `torch.Generator` per engine, seeded before each batch from
+the first request's seed (or the batch counter when it has none) mixed with
+the seeds of the later requests, so a repeated request sequence gives the
+same images on the same device. It does not reproduce the JAX package's
+random bits. On CUDA the sampler's graphs carry its state through each batch
+(`models/graphs.py`); the first batch of each shape captures them.
 
 On CUDA the transformer runs in bf16 by default (as the JAX server does on
 the TPU); this converts the caller's model in place.
@@ -66,9 +68,10 @@ class BatchingSampler:
         self.batches_run = 0
         self.images_served = 0
         # per batch run: AR steps, and host seconds of sampling and of decoding
-        # (the sampler's loop waits on the device every step, so these split
-        # the batch's device time too)
+        # (the sampler reads its loop condition every few steps and the decode
+        # ends in a copy to the host, so these split the batch's device time too)
         self.batch_stats = []
+        self._generator = torch.Generator(device=self.device)
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -156,10 +159,10 @@ class BatchingSampler:
             if batch is None:
                 return
             try:
-                gen = torch.Generator(device=self.device)
-                gen.manual_seed(batch_seed([r.seed for r in batch], self.batches_run))
+                self._generator.manual_seed(batch_seed([r.seed for r in batch],
+                                                       self.batches_run))
                 with torch.inference_mode():
-                    imgs = self._sample(gen)
+                    imgs = self._sample(self._generator)
                 self.batches_run += 1
                 row = 0
                 for r in batch:

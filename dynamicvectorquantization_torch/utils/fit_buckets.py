@@ -3,11 +3,14 @@ on the card, for comparing two trees of the repository in one run.
 
 The shipped p6c18 config trains for 2 epochs of 4 steps on the synthetic
 256^2 images with the data, stream-cap and run-length overrides of
-`chip_smoke.py`'s `fit` phase, without image grids; validation runs after
-each epoch on the f32 masters. The package is imported from `--root`, so
+`chip_smoke.py`'s `fit` phase, without image grids unless
+`--image_log_every N` asks for them (the `image_log` bucket: the loop's
+`log_images`, two sampling calls on the f32 masters per grid); validation
+runs after each epoch on the f32 masters. The package is imported from `--root`, so
 the same script times another tree:
 
-    python dynamicvectorquantization_torch/utils/fit_buckets.py --root <tree> --label <name>
+    python dynamicvectorquantization_torch/utils/fit_buckets.py --root <tree> --label <name> \
+        [--image_log_every N]
 
 Prints one JSON line: the run's `loop_buckets.json` (seconds per bucket,
 summed over both epochs), the validation seconds per epoch, and the
@@ -40,6 +43,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=".", help="repository tree to import the port from")
     ap.add_argument("--label", default="")
+    ap.add_argument("--image_log_every", default="0", help="steps between image grids")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     # run as a script, sys.path[0] is this file's directory, whose logging.py
@@ -61,7 +65,7 @@ def main(argv=None) -> int:
     try:
         cli.main(["--base", P6C18, "--logdir", logdir, "--max_epochs", "2",
                   "--max_steps_per_epoch", "4", "--save_n", "1", "--log_every", "1", "--seed", "23",
-                  "--image_log_every", "0", "--name", "run", *overrides()])
+                  "--image_log_every", args.image_log_every, "--name", "run", *overrides()])
         torch.cuda.synchronize()
         (run,) = [d for d in os.listdir(logdir) if d.startswith("run")]
         with open(os.path.join(logdir, run, "loop_buckets.json")) as f:
