@@ -156,6 +156,7 @@ Phases, each printed as one JSON line (any failure exits non-zero):
 The last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1610,22 +1611,30 @@ def check_fused_adamw(torch, dev):
         for gdtype in (torch.bfloat16, torch.float32):
             for wd in (0.0, 0.01):
                 p0 = 0.02 * torch.randn(shape, generator=g, device=dev)
+                # the by-value entry, the plain version, the entry that reads lr, c1, c2
+                # from a device tensor (a captured step's)
                 state = [[p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0),
-                          torch.empty_like(p0, dtype=torch.bfloat16)] for _ in range(2)]
-                errs, copy_equal = [], True
+                          torch.empty_like(p0, dtype=torch.bfloat16)] for _ in range(3)]
+                errs, copy_equal, device_equal = [], True, True
                 for count in range(2):
                     grad = (1e-3 * torch.randn(shape, generator=g, device=dev)).to(gdtype)
                     scal = adamw_scalars(count, lr)
-                    for (p, m, v, c), fn in zip(state, (fused_adamw_step, fused_adamw_step_plain)):
-                        fn(grad, p, m, v, *scal, wd=wd, copy=c)
+                    on_device = (torch.tensor(scal, device=dev), None, None)
+                    for (p, m, v, c), fn, args in zip(
+                            state, (fused_adamw_step, fused_adamw_step_plain, fused_adamw_step),
+                            (scal, scal, on_device)):
+                        fn(grad, p, m, v, *args, wd=wd, copy=c)
                     torch.cuda.synchronize()
                     errs += [close(a_, b_, tol)[0] for a_, b_ in zip(state[0][:3], state[1][:3])]
                     copy_equal &= bool(torch.equal(state[0][3], state[0][0].to(torch.bfloat16)))
+                    device_equal &= all(torch.equal(a_, b_) for a_, b_ in zip(state[0], state[2]))
                 case = dict(phase="kernels", kernel="fused_adamw", shape=list(shape),
                             grad_dtype=str(gdtype).split(".")[-1], weight_decay=wd, steps=2,
-                            max_abs_err=max(errs), tol=tol, copy_bit_equal=copy_equal)
+                            max_abs_err=max(errs), tol=tol, copy_bit_equal=copy_equal,
+                            device_scalars_equal=device_equal)
                 cases.append(case)
-                require(max(errs) <= tol and copy_equal, f"fused_adamw disagrees: {case}")
+                require(max(errs) <= tol and copy_equal and device_equal,
+                        f"fused_adamw disagrees: {case}")
     emit(dict(phase="kernels", kernel="fused_adamw", cases=cases))
 
     # time the big leaf with a bf16 gradient and the bf16 copy, as a mixed-precision step runs it
@@ -1641,12 +1650,17 @@ def check_fused_adamw(torch, dev):
     scal = adamw_scalars(0, lr)
     timed = dict(phase="kernels", kernel="fused_adamw", shape=list(shape), grad_dtype="bfloat16",
                  weight_decay=0.01, with_bf16_copy=True, bytes=n_bytes,
-                 max_abs_err=max(c["max_abs_err"] for c in cases), tol=tol)
+                 max_abs_err=max(c["max_abs_err"] for c in cases), tol=tol,
+                 device_scalars_equal=all(c["device_scalars_equal"] for c in cases))
     timed["bound_ms"], timed["bound_by"] = bound(n_bytes, 15 * n, "float32")
     time_into(timed, "kernel", torch,
               lambda g_, p, m, v, c: fused_adamw_step(g_, p, m, v, *scal, wd=0.01, copy=c), sets)
     time_into(timed, "plain", torch,
               lambda g_, p, m, v, c: fused_adamw_step_plain(g_, p, m, v, *scal, wd=0.01, copy=c),
+              sets)
+    on_device = torch.tensor(scal, device=dev)
+    time_into(timed, "device_scalars", torch,
+              lambda g_, p, m, v, c: fused_adamw_step(g_, p, m, v, on_device, wd=0.01, copy=c),
               sets)
     # the library's fused AdamW takes f32 gradients and writes no bf16 copy
     opts = []
@@ -1659,6 +1673,57 @@ def check_fused_adamw(torch, dev):
     del opts, sets
     emit(timed)
     return timed
+
+
+def check_device_seeds(torch, dev):
+    """Each attention family's `_device_seed` C entries (the seed read from a
+    device int64, as a captured training step reads its seed table) against
+    its by-value entries, forward with lse and backward at rate 0.1, bit for
+    bit, at a shape of the path each family runs; the kept set of the
+    forward against `dropout_keep_mask`. Returns {family: equal}."""
+    from dynamicvectorquantization_torch.ops import attention as att
+
+    seed, rate = 2 ** 63 + 1717, 0.1
+    table = torch.tensor([seed - 2 ** 64], dtype=torch.int64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    # (family, dtype, (B, T, D), heads): stage 2's two hd-128 families at the step's shape,
+    # the DQ-VAE's hd 256 in both dtypes, the square tiles at two heads of 32
+    shapes = (("tensor cores", torch.bfloat16, (8, 805, 1024), 8),
+              ("f32 tensor cores", torch.float32, (8, 805, 1024), 8),
+              ("tensor cores wide", torch.bfloat16, (8, 1024, 256), 1),
+              ("wide f32", torch.float32, (8, 1024, 256), 1),
+              ("square tiles", torch.float32, (2, 300, 64), 2),
+              ("square tiles bf16", torch.bfloat16, (2, 300, 64), 2))
+    results = {}
+    for family, dtype, shape, n_head in shapes:
+        q, k, v, dy = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+        outs = []
+        for s_ in (seed, table[0]):
+            y, lse = att.fused_attention_forward(q, k, v, n_head, None, True, rate, True, s_)
+            outs.append((y, lse, *att.fused_attention_backward(q, k, v, y, lse, dy, n_head,
+                                                               rate=rate, seed=s_)))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(a, b) for a, b in zip(*outs))
+        # the kept set: zero scores (uniform probabilities), V rows unit vectors
+        b, t, d = shape
+        hd = d // n_head
+        n = min(hd, t)
+        unit = torch.zeros((b, t, n_head, hd), device=dev)
+        unit[:, torch.arange(n), :, torch.arange(n)] = 1.0
+        zero = torch.zeros_like(q)
+        y = att.fused_attention_forward(zero, zero, unit.reshape(shape).to(dtype).contiguous(),
+                                        n_head, None, False, rate, seed=table[0])
+        kept = y.view(b, t, n_head, hd).transpose(1, 2)[..., :n] > 0
+        mask_equal = bool(torch.equal(
+            kept, att.dropout_keep_mask(seed, b, n_head, t, rate, dev)[..., :n]))
+        results[family] = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                               n_head=n_head, route=att._route((q, k, v), n_head, "check"),
+                               device_seed_equal=equal, mask_equal=mask_equal)
+        del q, k, v, dy, outs, unit, zero, y
+    emit(dict(phase="kernels", kernel="attention_device_seed", rate=rate, cases=results))
+    require(all(r["device_seed_equal"] and r["mask_equal"] for r in results.values()),
+            f"an attention family's device-seed entry differs from its by-value entry: {results}")
+    return results
 
 
 def teacher_forced_decode(torch, model, dev, steps=64, batch=8):
@@ -1790,7 +1855,8 @@ def reset_launches():
     for fn in wrappers().values():
         for attr in ("launches", "tc_launches", "fma_launches", "wide_f32_launches",
                      "f32_tc_launches", "dropout_launches", "bf16_launches",
-                     "f32_blocked_launches"):
+                     "f32_blocked_launches", "device_seed_launches",
+                     "device_scalar_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -1802,7 +1868,9 @@ def read_launches():
     / 512), `<name>_square_tiles` the rest of them, `<name>_tc` the bf16
     tensor-core family's, and `<name>_dropout` those of every kernel that
     drew a dropout mask; `<name>_f32_tc` counts the 3xTF32 kernel's (f32 at
-    hd 64 / 128, in neither family). The downsample and entropy wrappers have
+    hd 64 / 128, in neither family), `<name>_device_seed` those of any family
+    that read their seed on the device (`fused_adamw_device_scalars`: the
+    AdamW launches that read lr, c1, c2 there). The downsample and entropy wrappers have
     two instantiations: `<name>` counts the f32 launches, `<name>_bf16` the
     bf16 ones; `strided_conv3x3_down_tc` counts those of the bf16 launches
     that ran the tensor-core kernel, `strided_conv3x3_down_f32_blocked` those
@@ -1816,6 +1884,8 @@ def read_launches():
         counts[f"{name}_tc"] = fn.tc_launches
         counts[f"{name}_dropout"] = fn.dropout_launches
         counts[f"{name}_f32_tc"] = fn.f32_tc_launches
+        counts[f"{name}_device_seed"] = fn.device_seed_launches
+    counts["fused_adamw_device_scalars"] = wrappers()["fused_adamw"].device_scalar_launches
     for name in BF16_SPLIT:
         fn = wrappers()[name]
         counts[name] = fn.launches - fn.bf16_launches
@@ -2069,7 +2139,8 @@ def set_dropout(gpt, embd, resid, attn=None):
 
 
 def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="bfloat16",
-          streams=None, config_path=P6C18, labels=None, kv_cache_dtype=None):
+          streams=None, config_path=P6C18, labels=None, kv_cache_dtype=None, compare=True,
+          rate0=True, phase=None):
     """Stage-2 training at full p6c18 width and depth on cached codes: bf16
     over f32 masters (the shipped yml's `compute_dtype`), or with
     `compute_dtype` None, the JAX trainer's default, f32 throughout (f32
@@ -2077,12 +2148,20 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
     `streams` a bf16 run cached. With `labels` (one class label an image) the
     class-conditional model of `config_path` trains on them beside the
     streams (phase `class_train`); `kv_cache_dtype` is the model's sampling
-    caches'. Returns (the timed line, the cached streams, the trainer)."""
+    caches'. Each timed step replays the trainer's CUDA graph of the step;
+    the same steps op by op (`eager=True`) are timed as the control, and the
+    masters, moments and logs after three graph steps must equal the
+    control's bit for bit. `compare` False leaves out (a), the step against
+    the plain versions (whose attention holds (B, H, T, T) f32 tensors);
+    `rate0` False the timing at attn_pdrop 0. Returns (the timed line, the
+    cached streams, the trainer)."""
     from dynamicvectorquantization_torch.config.yaml_config import load_config
     from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
     from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
 
-    phase = "train" if labels is None else "class_train"
+    from dynamicvectorquantization_torch.models.graphs import runners_of
+
+    phase = phase or ("train" if labels is None else "class_train")
     config = load_config([config_path])
     params = config["model"]["params"]
     tparams = params["transformer_config"]["params"]
@@ -2132,9 +2211,9 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
                 None if labels is None else labels[i:i + batch])
                for i in range(0, n_images, batch)]
 
-    def train_step(i):
+    def train_step(i, eager=False):
         z, c = batches[i % len(batches)]
-        return trainer.train_step(z, c=c)
+        return trainer.train_step(z, c=c, eager=eager)
     t_len = streams["coarse_content"].shape[1] + streams["fine_content"].shape[1] + 1
     require(t_len == TRAIN_T, f"training sequence length {t_len}, expected {TRAIN_T}")
     pad = model.permuter.content_pad_code
@@ -2158,116 +2237,130 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
 
     set_dropout(gpt, 0.0, 0.0)
     start = snapshot()
-    watched = ["content_emb.weight", "position_transformer.0.attn.query.weight",
-               "position_transformer.0.ln1.weight",
-               f"content_transformer.{gpt.content_layer - 1}.mlp.2.weight",
-               f"content_transformer.{gpt.content_layer // 2}.ln2.bias", "content_head.1.weight"]
-    results = {}
-    paths = [("kernel", contextlib.nullcontext()), ("plain", plain_train_path())]
-    if not bf16:  # controls, each a step of lower precision than f32 (see the limits below)
-        paths += [("control_tf32_matmuls", tf32_matmuls(torch)),
-                  ("control_tf32_attention", plain_train_path(tf32_attention=True))]
-    for path, ctx in paths:
-        restore(start)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with ctx:
-            logs, grads = trainer.compute_grads(batches[0][0], c=batches[0][1])
-            kept = {k: grads[k].float() for k in watched}
-            trainer.apply_update(grads)
-            del grads
-        torch.cuda.synchronize()
-        results[path] = dict(logs={k: float(v) for k, v in logs.items()}, grads=kept,
-                             after={k: v.clone() for k, v in trainer.masters.items()},
-                             peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    pr = results["plain"]
     n_params = sum(v.numel() for v in trainer.masters.values())
 
-    def gaps(r):
-        """(loss max rel, {leaf: gradient rel-L2}, parameter max abs, parameter
-        mean abs) of a step's result against the plain step's."""
-        return (max(abs(r["logs"][k] - pr["logs"][k]) / abs(pr["logs"][k]) for k in pr["logs"]),
-                {k: ((r["grads"][k] - pr["grads"][k]).norm() / pr["grads"][k].norm()).item()
-                 for k in watched},
-                max((r["after"][k] - pr["after"][k]).abs().max().item() for k in r["after"]),
-                sum((r["after"][k] - pr["after"][k]).abs().sum().item()
-                    for k in r["after"]) / n_params)
+    def compare_with_plain():
+        watched = ["content_emb.weight", "position_transformer.0.attn.query.weight",
+                   "position_transformer.0.ln1.weight",
+                   f"content_transformer.{gpt.content_layer - 1}.mlp.2.weight",
+                   f"content_transformer.{gpt.content_layer // 2}.ln2.bias",
+                   "content_head.1.weight"]
+        results = {}
+        paths = [("kernel", contextlib.nullcontext()), ("plain", plain_train_path())]
+        if not bf16:  # controls, each a step of lower precision than f32 (see the limits below)
+            paths += [("control_tf32_matmuls", tf32_matmuls(torch)),
+                      ("control_tf32_attention", plain_train_path(tf32_attention=True))]
+        for path, ctx in paths:
+            restore(start)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with ctx:
+                logs, grads = trainer.compute_grads(batches[0][0], c=batches[0][1])
+                kept = {k: grads[k].float() for k in watched}
+                trainer.apply_update(grads)
+                del grads
+            torch.cuda.synchronize()
+            results[path] = dict(logs={k: float(v) for k, v in logs.items()}, grads=kept,
+                                 after={k: v.clone() for k, v in trainer.masters.items()},
+                                 peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        pr = results["plain"]
 
-    kr = results["kernel"]
-    loss_rel, grad_rel, delta_max, delta_mean = gaps(kr)
-    moved = max((kr["after"][k] - start[0][k]).abs().max().item() for k in kr["after"])
-    pad_rows_frozen = all(torch.equal(kr["after"][k][row], start[0][k][row])
-                          for k, row in trainer.pad_rows.items())
-    # Adam's first update is lr * g / |g|, so a parameter differs by at most 2 lr
-    # (+ decay), and only where the noise flips g's sign. bf16 activations differ by
-    # ~2^-8 relative per op between the two paths and 24 layers compound it. In f32 the
-    # paths differ in summation order alone (the 3xTF32 attention keeps f32 accuracy;
-    # the LayerNorm and AdamW kernels sum in f32). The f32 limits sit between the
-    # kernel step's readings on the H100 (loss 6.7e-8 rel, gradients 1.1e-6 rel-L2,
-    # parameters max 0.32 lr / mean 1.9e-6 lr) and those of the closer of two controls,
-    # the plain step whose attention forward runs one TF32 product (7.9e-7, 9.9e-5,
-    # 1.97 lr / 8.4e-5 lr); the other, the kernel step with cuBLAS's TF32 on, lies
-    # further out. Each control must exceed one of them (PERF.md §6)
-    if bf16:
-        loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 2e-2, 0.1, 2.02 * lr, 0.1 * lr
-    else:
-        loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 3e-7, 1e-5, 1.0 * lr, 1e-5 * lr
-    controls = {}
-    for name in (k for k in results if k.startswith("control")):
-        c_loss, c_grad, c_max, c_mean = gaps(results[name])
-        controls[name] = dict(loss_max_rel_diff=c_loss, grad_rel_l2_diff=c_grad,
-                              param_max_abs_diff=c_max, param_mean_abs_diff=c_mean,
-                              exceeds_a_limit=c_loss > loss_tol or max(c_grad.values()) > grad_tol
-                              or c_max > delta_max_tol or c_mean > delta_mean_tol)
-    compare = dict(phase=phase, step="kernel_vs_plain", config=config_path, attn_pdrop=attn_pdrop,
-                   dropout="attention only (embedding and residual off)",
-                   dtype=dname, batch=batch, seq_len=t_len,
-                   lr=lr, params=n_params, losses_kernel=kr["logs"], losses_plain=pr["logs"],
-                   loss_max_rel_diff=loss_rel, loss_tol=loss_tol, grad_rel_l2_diff=grad_rel,
-                   grad_tol=grad_tol, param_max_abs_diff=delta_max,
-                   param_max_tol=delta_max_tol, param_mean_abs_diff=delta_mean,
-                   param_mean_tol=delta_mean_tol, param_max_abs_update=moved,
-                   pad_rows_frozen=pad_rows_frozen, controls=controls,
-                   peak_memory_gb_kernel=kr["peak_gb"], peak_memory_gb_plain=pr["peak_gb"],
-                   card=card)
-    emit(compare)
-    require(all(math.isfinite(v) for v in kr["logs"].values()), "non-finite training loss")
-    require(loss_rel <= loss_tol, f"training losses kernel vs plain: {loss_rel}")
-    require(max(grad_rel.values()) <= grad_tol, f"gradients kernel vs plain: {grad_rel}")
-    require(delta_max <= delta_max_tol and delta_mean <= delta_mean_tol,
-            f"parameters after one step, kernel vs plain: max {delta_max} mean {delta_mean}")
-    require(moved > 0 and pad_rows_frozen, "parameters did not move, or a pad row did")
-    require(all(c["exceeds_a_limit"] for c in controls.values()),
-            f"a control of lower precision than f32 passes the {dname} limits: {controls}")
-    del results, kr, pr
+        def gaps(r):
+            """(loss max rel, {leaf: gradient rel-L2}, parameter max abs, parameter
+            mean abs) of a step's result against the plain step's."""
+            return (max(abs(r["logs"][k] - pr["logs"][k]) / abs(pr["logs"][k]) for k in pr["logs"]),
+                    {k: ((r["grads"][k] - pr["grads"][k]).norm() / pr["grads"][k].norm()).item()
+                     for k in watched},
+                    max((r["after"][k] - pr["after"][k]).abs().max().item() for k in r["after"]),
+                    sum((r["after"][k] - pr["after"][k]).abs().sum().item()
+                        for k in r["after"]) / n_params)
+
+        kr = results["kernel"]
+        loss_rel, grad_rel, delta_max, delta_mean = gaps(kr)
+        moved = max((kr["after"][k] - start[0][k]).abs().max().item() for k in kr["after"])
+        pad_rows_frozen = all(torch.equal(kr["after"][k][row], start[0][k][row])
+                              for k, row in trainer.pad_rows.items())
+        # Adam's first update is lr * g / |g|, so a parameter differs by at most 2 lr
+        # (+ decay), and only where the noise flips g's sign. bf16 activations differ by
+        # ~2^-8 relative per op between the two paths and 24 layers compound it. In f32 the
+        # paths differ in summation order alone (the 3xTF32 attention keeps f32 accuracy;
+        # the LayerNorm and AdamW kernels sum in f32). The f32 limits sit between the
+        # kernel step's readings on the H100 (loss 6.7e-8 rel, gradients 1.1e-6 rel-L2,
+        # parameters max 0.32 lr / mean 1.9e-6 lr) and those of the closer of two controls,
+        # the plain step whose attention forward runs one TF32 product (7.9e-7, 9.9e-5,
+        # 1.97 lr / 8.4e-5 lr); the other, the kernel step with cuBLAS's TF32 on, lies
+        # further out. Each control must exceed one of them (PERF.md §6)
+        if bf16:
+            loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 2e-2, 0.1, 2.02 * lr, 0.1 * lr
+        else:
+            loss_tol, grad_tol, delta_max_tol, delta_mean_tol = 3e-7, 1e-5, 1.0 * lr, 1e-5 * lr
+        controls = {}
+        for name in (k for k in results if k.startswith("control")):
+            c_loss, c_grad, c_max, c_mean = gaps(results[name])
+            controls[name] = dict(loss_max_rel_diff=c_loss, grad_rel_l2_diff=c_grad,
+                                  param_max_abs_diff=c_max, param_mean_abs_diff=c_mean,
+                                  exceeds_a_limit=c_loss > loss_tol
+                                  or max(c_grad.values()) > grad_tol
+                                  or c_max > delta_max_tol or c_mean > delta_mean_tol)
+        line = dict(phase=phase, step="kernel_vs_plain", config=config_path,
+                    attn_pdrop=attn_pdrop,
+                    dropout="attention only (embedding and residual off)",
+                    dtype=dname, batch=batch, seq_len=t_len,
+                    lr=lr, params=n_params, losses_kernel=kr["logs"], losses_plain=pr["logs"],
+                    loss_max_rel_diff=loss_rel, loss_tol=loss_tol, grad_rel_l2_diff=grad_rel,
+                    grad_tol=grad_tol, param_max_abs_diff=delta_max,
+                    param_max_tol=delta_max_tol, param_mean_abs_diff=delta_mean,
+                    param_mean_tol=delta_mean_tol, param_max_abs_update=moved,
+                    pad_rows_frozen=pad_rows_frozen, controls=controls,
+                    peak_memory_gb_kernel=kr["peak_gb"], peak_memory_gb_plain=pr["peak_gb"],
+                    card=card)
+        emit(line)
+        require(all(math.isfinite(v) for v in kr["logs"].values()), "non-finite training loss")
+        require(loss_rel <= loss_tol, f"training losses kernel vs plain: {loss_rel}")
+        require(max(grad_rel.values()) <= grad_tol, f"gradients kernel vs plain: {grad_rel}")
+        require(delta_max <= delta_max_tol and delta_mean <= delta_mean_tol,
+                f"parameters after one step, kernel vs plain: max {delta_max} mean {delta_mean}")
+        require(moved > 0 and pad_rows_frozen, "parameters did not move, or a pad row did")
+        require(all(c["exceeds_a_limit"] for c in controls.values()),
+                f"a control of lower precision than f32 passes the {dname} limits: {controls}")
+        del results, kr, pr
+
+    if compare:
+        compare_with_plain()
 
     # (b) timed steps on the kernel path with all three shipped dropouts, the elementwise
     # ones from the trainer's own generator (re-seeded per step, as the loop runs it);
     # before them the same steps with attn_pdrop 0, the configuration timed before
     # in-kernel dropout existed, from the same state
-    def timed(n, windows=3):
+    def timed(n, windows=3, eager=False):
         """Host-clock ms per step over `windows` windows of `n` steps (the
         host runs ahead inside a window, as in training), and the losses."""
         per_step, losses_ = [], []
         for _ in range(windows):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            pending = [train_step(i)["train_loss"] for i in range(n)]
+            pending = [train_step(i, eager)["train_loss"] for i in range(n)]
             torch.cuda.synchronize()
             per_step.append((time.perf_counter() - t0) / n * 1e3)
             losses_ += [float(v) for v in pending]
         return dict(spread(per_step), steps_per_window=n), losses_
 
-    restore(start)
-    set_dropout(gpt, embd_pdrop, resid_pdrop, 0.0)
-    train_step(0)  # warm-up step
-    step_rate0, _ = timed(timed_steps)
-    prof0 = profile_device_time(torch, lambda: train_step(0), n_top=4)
+    step_rate0, prof0 = {"median": None}, {"device_busy_ms": None}
+    if rate0:
+        restore(start)
+        set_dropout(gpt, embd_pdrop, resid_pdrop, 0.0)
+        train_step(0)  # warm-up step (captures this configuration's graph)
+        step_rate0, _ = timed(timed_steps)
+        prof0 = profile_device_time(torch, lambda: train_step(0), n_top=4)
 
     restore(start)
-    del start
     set_dropout(gpt, embd_pdrop, resid_pdrop, attn_pdrop)
-    losses = [float(train_step(0)["train_loss"])]  # warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [float(train_step(0)["train_loss"])]  # warm-up step: eager on a side stream, capture
+    first_step_s = time.perf_counter() - t0
+    first_step_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.synchronize()
     reset_launches()
     losses.append(float(train_step(1)["train_loss"]))
@@ -2276,29 +2369,83 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
     step, more = timed(timed_steps)
     losses += more
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gb = torch.cuda.max_memory_reserved() / 2 ** 30
     prof = profile_device_time(torch, lambda: train_step(0), n_top=12)
+    (runner,) = runners_of(trainer).values()
+    graph = dict(captures=runner.captures, capture_s=runner.capture_s, replays=runner.replays,
+                 pool_bytes=runner.pool_bytes(), first_step_s=spread([first_step_s]),
+                 first_step_peak_memory_gb=first_step_peak_gb)
+    del runner
+
+    # (c) the graph against the eager control: three steps from the same state with the
+    # shipped dropouts, then masters, moments and logs compared bit for bit (the graph
+    # run's state held on the host meanwhile)
+    def three_steps(eager):
+        restore(start)
+        logs = [train_step(i, eager) for i in range(3)]
+        return ([{k: v.cpu() for k, v in lg.items()} for lg in logs],
+                {f"{part}.{k}": t.cpu() for part in ("masters", "m", "v")
+                 for k, t in getattr(trainer, part).items()})
+
+    graph_logs, graph_state = three_steps(False)
+    # the graphs and their pool go before the control runs (f32 at batch 30 cannot hold both)
+    runners_of(trainer).clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved_without_graph_gb = torch.cuda.memory_reserved() / 2 ** 30
+    eager_logs, eager_state = three_steps(True)
+    unequal = sorted(k for k, t in eager_state.items() if not torch.equal(t, graph_state[k]))
+    logs_equal = all(torch.equal(a[k], b[k]) for a, b in zip(graph_logs, eager_logs) for k in a)
+    del graph_state, eager_state
+
+    # (d) the eager control's own numbers (every op dispatched from Python, as before the
+    # graph)
+    restore(start)
+    del start
+    train_step(0, True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager_step, _ = timed(timed_steps, eager=True)
+    eager_peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    eager_prof = profile_device_time(torch, lambda: train_step(0, True), n_top=4)
+    eager = dict(step_ms=eager_step["median"], step_ms_spread=eager_step,
+                 device_busy_ms=eager_prof["device_busy_ms"],
+                 device_idle_share=eager_prof["device_idle_share"],
+                 device_idle_share_vs_step_ms=1.0 - eager_prof["device_busy_ms"]
+                 / eager_step["median"],
+                 device_window_ms=eager_prof["device_window_ms"],
+                 device_ops=eager_prof["device_ops"], peak_memory_gb=eager_peak_gb,
+                 reserved_before_gb=reserved_without_graph_gb,
+                 masters_moments_equal_to_graph=not unequal, logs_equal_to_graph=logs_equal,
+                 unequal_leaves=unequal[:8])
+
     layers = gpt.position_layer + gpt.content_layer
+    leaves = len(trainer.params)
     # hd 128: every attention launch on the tensor-core family in bf16, on the 3xTF32
-    # kernels in f32; none on the square tiles
+    # kernels in f32; none on the square tiles; every seed and every AdamW triple read on
+    # the device
     family, other = ("tc", "f32_tc") if bf16 else ("f32_tc", "tc")
     expected = {f"fused_attention_forward_{family}": layers,
                 f"fused_attention_backward_{family}": layers,
                 f"fused_attention_forward_{other}": 0, f"fused_attention_backward_{other}": 0,
                 "fused_attention_forward_dropout": layers,
                 "fused_attention_backward_dropout": layers,
+                "fused_attention_forward_device_seed": layers,
+                "fused_attention_backward_device_seed": layers,
                 "fused_attention_forward": 0, "fused_attention_backward": 0,
                 "layernorm_forward": 2 * layers + 2, "layernorm_backward": 2 * layers + 2,
-                "fused_adamw": len(trainer.params)}
+                "fused_adamw": leaves, "fused_adamw_device_scalars": leaves}
     step_ms = step["median"]
     busy_ms = prof["device_busy_ms"]
     res = dict(phase=phase, step="timed", config=config_path, attn_pdrop=attn_pdrop,
+               execution="CUDA graph replay of the whole step",
                step_ms_attn_pdrop_0=step_rate0["median"], step_ms_spread_attn_pdrop_0=step_rate0,
                device_busy_ms_attn_pdrop_0=prof0["device_busy_ms"], embd_pdrop=embd_pdrop,
                resid_pdrop=resid_pdrop, dtype=dname, batch=batch,
                seq_len=t_len, stream_caps=TRAIN_CAPS, images=n_images, real_tokens=tokens,
                labels=None if labels is None else labels.tolist(),
                vocab_size=model.vocab_size, cond_stage_key=model.cond_stage_key,
-               layers=layers, params=n_params, parameter_leaves=len(trainer.params), lr=lr,
+               layers=layers, params=n_params, parameter_leaves=leaves, lr=lr,
                load_s=spread([load_s]), encode_dataset_s=encode_s,
                encode_launches=encode_launches,
                losses=losses, launches_per_step=step_launches, expected_launches=expected,
@@ -2309,7 +2456,8 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
                device_time_summed_ms=prof["device_time_summed_ms"],
                device_window_ms=prof["device_window_ms"],
                device_ops=prof["device_ops"], top_kernels=prof["top"],
-               peak_memory_gb=peak_gb, card=card)
+               peak_memory_gb=peak_gb, peak_reserved_gb=reserved_gb, graph=graph,
+               eager_control=eager, card=card)
     emit(res)
     require(all(math.isfinite(v) for v in losses), f"non-finite training loss: {losses}")
     require(losses[-1] < losses[0], f"the training loss did not fall: {losses}")
@@ -2317,6 +2465,11 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
         require(step_launches[name] == want,
                 f"{name} launched {step_launches[name]} times per {dname} {phase} step, "
                 f"expected {want}")
+    require(not unequal and logs_equal,
+            f"{phase}: three graph steps differ from three eager steps: leaves {unequal[:8]}, "
+            f"logs equal {logs_equal}")
+    require(graph["replays"] > 0 and graph["captures"] == 1 + rate0,
+            f"{phase}: expected a captured graph for each dropout configuration: {graph}")
     return res, streams, trainer
 
 
@@ -2610,11 +2763,13 @@ def _sha256(torch, tensors):
 
 
 def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, state_of, val_key,
-                    expect_launched, gb_needed, grids, expect_not_launched=()):
+                    expect_launched, gb_needed, grids, expect_not_launched=(), k=1):
     """Three runs of the port's training command line on `config` at full
     width and depth, in-process: (A) two epochs in one run, logging image
     grids; (B) the same stopped after epoch 1; (C) `--resume` of B for epoch
-    2. C must end where A ended, bit for bit."""
+    2. C must end where A ended, bit for bit. `k`: the steps a dispatch the
+    command line's default (`--steps_per_dispatch` unset) gives, so the rows
+    fall at every k-th step."""
     import shutil
 
     from dynamicvectorquantization_torch.train import cli
@@ -2684,7 +2839,9 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
                lr=[r["lr"] for r in train_rows], checkpoints_kept=ckpts, checkpoint_gb=ckpt_gb,
                image_grids=images, launches=launches, whole_run_s=spread([whole_s]),
                # one run: each bucket is one sum over its two epochs (n = 1)
-               seconds_per_epoch={k: spread([v / 2]) for k, v in buckets["buckets"].items()},
+               seconds_per_epoch={b: spread([v / 2]) for b, v in buckets["buckets"].items()},
+               steps_per_dispatch=k,
+               dispatch_s_per_epoch=spread([buckets["buckets"]["dispatch"] / 2]),
                loop_wall_s=spread([buckets["wall_seconds"]]),
                device_wait_s=spread([buckets["device_wait_seconds"]]),
                encode_share=buckets["buckets"].get("encode", 0.0) / buckets["wall_seconds"],
@@ -2695,8 +2852,9 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
                final_val_resumed=parts_rows[-1].get(val_key), state_sha256_whole=whole_hash,
                state_sha256_resumed=resumed_hash, resumed_rows_equal=rows_equal, card=card)
     emit(res)
-    want_rows = [(i, "train") for i in range(1, steps_per_epoch + 1)] + [(steps_per_epoch, "val")] \
-        + [(i, "train") for i in range(steps_per_epoch + 1, n + 1)] + [(n, "val")]
+    want_rows = [(i, "train") for i in range(k, steps_per_epoch + 1, k)] \
+        + [(steps_per_epoch, "val")] \
+        + [(i, "train") for i in range(steps_per_epoch + k, n + 1, k)] + [(n, "val")]
     require(res["rows"] == want_rows, f"{phase}: metric rows {res['rows']}, expected {want_rows}")
     require(all(math.isfinite(v) for r in rows for k, v in r.items() if k.endswith("loss")),
             f"{phase}: a logged loss is not finite")
@@ -2716,7 +2874,10 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
 
 
 def fit(torch, card):
-    """Stage 2: the shipped p6c18 config, `attn_pdrop` 0.1 untouched."""
+    """Stage 2: the shipped p6c18 config, `attn_pdrop` 0.1 untouched; the
+    steps a dispatch the command line's default, the JAX loop's auto rule:
+    min(8, 4 steps an epoch) = 4 on cached codes, each step a graph
+    replay."""
     data = "data.params"
     synthetic = "dynamicvectorquantization_torch.data.datasets.SyntheticDataset"
     overrides = [f"{data}.batch_size=8", f"{data}.num_workers=4"]
@@ -2732,8 +2893,11 @@ def fit(torch, card):
          "fused_attention_backward_tc", "layernorm_forward", "layernorm_backward", "fused_adamw",
          "strided_conv3x3_down", "strided_conv3x3_down_bf16", "strided_conv3x3_down_tc",
          "patch_entropy_bf16", "fused_attention_forward_wide_f32",
-         "strided_conv3x3_down_f32_blocked", "fused_attention_forward_f32_tc"),
-        gb_needed=12, grids=8, expect_not_launched=("fused_attention_forward_square_tiles",))
+         "strided_conv3x3_down_f32_blocked", "fused_attention_forward_f32_tc",
+         "fused_attention_forward_device_seed", "fused_attention_backward_device_seed",
+         "fused_adamw_device_scalars"),
+        gb_needed=12, grids=8, expect_not_launched=("fused_attention_forward_square_tiles",),
+        k=4)
 
 
 def fit1(torch, card):
@@ -3232,6 +3396,7 @@ def main():
     attn_train_cases, attn_bwd_cases, attn_train_drop_cases, attn_bwd_drop_cases = \
         check_attention_backward(torch, dev)
     adamw_case = check_fused_adamw(torch, dev)
+    device_seeds = check_device_seeds(torch, dev)
 
     t0 = time.perf_counter()
     model, _ = load_model_and_variables(P6C18, seed=0, kv_cache_dtype="int8", device=dev)
@@ -3270,6 +3435,16 @@ def main():
     per_step_class = class_trained["launches_per_step"]
     sampled = class_sample(torch, class_trainer, card, labels[:4])[0]
     del streams, class_trainer
+    torch.cuda.empty_cache()
+    # the shipped ymls' batch 30: bf16 on 30 images of its own, then f32 on their codes; no
+    # plain-path comparison, no attn_pdrop 0 timing
+    b30 = dict(batch=30, n_images=30, compare=False, rate0=False)
+    trained_b30, streams30 = train(torch, dev, card, phase="train_b30", **b30)[:2]
+    per_step_b30 = trained_b30["launches_per_step"]
+    torch.cuda.empty_cache()
+    per_step_f32_b30 = train(torch, dev, card, compute_dtype=None, streams=streams30,
+                             phase="train_f32_b30", **b30)[0]["launches_per_step"]
+    del streams30
     torch.cuda.empty_cache()
     per_step1 = train1(torch, dev, card)["launches_per_step"]
     torch.cuda.empty_cache()
@@ -3315,6 +3490,7 @@ def main():
     paths = {"serve": served["launches"], "encode": encoded["launches"],
              "encode_bf16": encoded16["launches"], "train_step": per_step,
              "train_step_f32": per_step_f32, "class_train_step": per_step_class,
+             "train_step_b30": per_step_b30, "train_step_f32_b30": per_step_f32_b30,
              "class_sample": sampled["launches"], "http": http_res["launches"],
              "sample_cli": {name: sum(run["launches"][name]
                                       for run in sampled_cli["runs"].values())
@@ -3356,6 +3532,15 @@ def main():
      bwd_512b) = attn_bwd_cases
     (dbwd_c, dbwd_c32, dbwd_c32b8, dbwd_64, dbwd_32, dbwd_256, dbwd_512, dbwd_256b,
      dbwd_512b) = attn_bwd_drop_cases
+    # each row's device-seed entries against its by-value entries (`check_device_seeds`)
+    seeds_equal = {row: all(device_seeds[f]["device_seed_equal"] for f in families)
+                   for row, families in (
+                       ("fused_attention_forward", ("wide f32", "square tiles",
+                                                    "square tiles bf16")),
+                       ("fused_attention_forward_f32_tc", ("f32 tensor cores",)),
+                       ("fused_attention_forward_tc", ("tensor cores", "tensor cores wide")))}
+    for row in list(seeds_equal):
+        seeds_equal[row.replace("forward", "backward")] = seeds_equal[row]
     kernels = []
     for name, src, replaces, main, extra in (
             # main: cache_index 1283; the other checked indices and the sweep (every 128
@@ -3488,8 +3673,12 @@ def main():
              | {"f32": pick(ln_bwd_cases[1], "kernel_ms", "kernel_ms_spread", "plain_ms",
                             "library_ms", "bound_ms", "bound_share", "max_abs_err",
                             "bit_reproducible")}),
+            # lr, c1, c2 by value, or read from a device triple (a captured step's)
             ("fused_adamw", "fused_adamw.cu",
-             "dynamicvectorquantization_tpu/ops/fused_adamw.py:39", adamw_case, {}),
+             "dynamicvectorquantization_tpu/ops/fused_adamw.py:39", adamw_case,
+             pick(adamw_case, "device_scalars_equal", "device_scalars_ms",
+                  "device_scalars_ms_spread")
+             | {"device_scalar_launches": launched("fused_adamw_device_scalars")}),
             # 3xTF32 on the tensor cores, near-tie rows rescored in the FMA search's order
             # (`fma_source`, timed at the same shapes: `fma_kernel_ms`), so the codes
             # equal its own; the adversarial sets' results under vq_nearest_train
@@ -3543,6 +3732,10 @@ def main():
               "tc_launches": sum(launched("strided_conv3x3_down_tc").values()),
               "per_level": conv16["per_level"]})):
         launches = launched(name)
+        if name in seeds_equal:  # the attention rows: the device-seed entries, rate 0.1
+            wrapper = name.split("_tc")[0].split("_f32")[0]  # every family of the wrapper
+            extra = dict(extra, device_seed_equal=seeds_equal[name],
+                         wrapper_device_seed_launches=launched(f"{wrapper}_device_seed"))
         kernels.append(dict(
             name=name, route="cuda", source=f"{src_dir}/{src}",
             replaces=replaces, launches=sum(launches.values()), launches_by_path=launches,

@@ -72,11 +72,21 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
 // mask and nothing of it is stored. Counter (col / 4, row, bh, 0), key the
 // seed's two halves, word col % 4; kept iff the word >= threshold =
 // uint32(rate * 4294967295), the TPU kernel's rule.
+//
+// The seed comes by value, or from device memory (`seed_ptr` non-null: the
+// `_device_seed` C entries), as the TPU kernels read theirs from a device
+// array: a CUDA graph then replays one launch with a new seed at every step.
+// Each kernel reads it once, at entry (`load_seed`).
 struct DropoutParams {
   unsigned long long seed;
+  const unsigned long long* seed_ptr;
   unsigned int threshold;
   float inv_keep;  // 1 / (1 - rate)
 };
+
+__device__ __forceinline__ void load_seed(DropoutParams& dp) {
+  if (dp.seed_ptr != nullptr) dp.seed = *dp.seed_ptr;
+}
 
 __device__ __forceinline__ bool dropout_keep(const DropoutParams& dp, int bh, int row, int col) {
   const uint4 r = philox4x32_10(
@@ -87,9 +97,12 @@ __device__ __forceinline__ bool dropout_keep(const DropoutParams& dp, int bh, in
   return bits >= dp.threshold;
 }
 
-inline DropoutParams make_dropout_params(double rate, unsigned long long seed) {
+// seed_ptr: null (the seed is `seed`), or a device int64 holding the seed
+inline DropoutParams make_dropout_params(double rate, unsigned long long seed,
+                                         const void* seed_ptr = nullptr) {
   DropoutParams dp;
   dp.seed = seed;
+  dp.seed_ptr = static_cast<const unsigned long long*>(seed_ptr);
   dp.threshold = (unsigned int)(rate * 4294967295.0);
   dp.inv_keep = (float)(1.0 / (1.0 - rate));
   return dp;

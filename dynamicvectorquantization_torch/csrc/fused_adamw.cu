@@ -11,8 +11,11 @@
 //   m' = b1 m + (1 - b1) g          v' = b2 v + (1 - b2) g^2
 //   u  = (m' c1) / (sqrt(v' c2) + eps) + wd p        p' = p - lr u
 // with eps outside the root, decoupled weight decay multiplied by lr, and
-// c1 = 1 / (1 - b1^t), c2 = 1 / (1 - b2^t), lr passed as arguments (computed
-// on the host in f32, so no device value is read back). p, m, v are updated
+// c1 = 1 / (1 - b1^t), c2 = 1 / (1 - b2^t), lr computed on the host in f32 and
+// passed by value (`dqvq_fused_adamw`) or read from a device f32 triple
+// (`dqvq_fused_adamw_device_scalars`, once per block, as the TPU kernel reads
+// them from SMEM): a CUDA graph of the optimizer step then replays with the
+// step's own lr, c1, c2. p, m, v are updated
 // in place; the bf16 copy of p' is written in the same pass. A grid-stride
 // loop moves four elements per thread with 16-byte loads (8-byte for bf16);
 // a scalar loop takes the tail, and the whole leaf when a pointer is not
@@ -58,7 +61,15 @@ template <typename G>
 __global__ void __launch_bounds__(kThreads)
 fused_adamw_kernel(const G* __restrict__ g, float* __restrict__ p, float* __restrict__ m,
                    float* __restrict__ v, __nv_bfloat16* __restrict__ copy, long long n,
-                   long long n_vec, Hyper h) {
+                   long long n_vec, Hyper h, const float* __restrict__ scalars) {
+  if (scalars != nullptr) {  // lr, c1, c2 from the device
+    __shared__ float lr_c1_c2[3];
+    if (threadIdx.x < 3) lr_c1_c2[threadIdx.x] = scalars[threadIdx.x];
+    __syncthreads();
+    h.lr = lr_c1_c2[0];
+    h.c1 = lr_c1_c2[1];
+    h.c2 = lr_c1_c2[2];
+  }
   const long long stride = (long long)gridDim.x * kThreads;
   const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
   for (long long i = tid * 4; i < n_vec; i += stride * 4) {
@@ -95,7 +106,7 @@ bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 =
 
 template <typename G>
 cudaError_t launch(const void* g, void* p, void* m, void* v, void* copy, long long n, Hyper h,
-                   cudaStream_t stream) {
+                   const float* scalars, cudaStream_t stream) {
   const bool vec = aligned16(g) && aligned16(p) && aligned16(m) && aligned16(v) &&
                    (copy == nullptr || aligned16(copy));
   const long long n_vec = vec ? n / 4 * 4 : 0;
@@ -104,8 +115,20 @@ cudaError_t launch(const void* g, void* p, void* m, void* v, void* copy, long lo
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) blocks = 1;
   fused_adamw_kernel<G><<<(int)blocks, kThreads, 0, stream>>>(
-      (const G*)g, (float*)p, (float*)m, (float*)v, (__nv_bfloat16*)copy, n, n_vec, h);
+      (const G*)g, (float*)p, (float*)m, (float*)v, (__nv_bfloat16*)copy, n, n_vec, h, scalars);
   return cudaGetLastError();
+}
+
+int fused_adamw(const void* g, void* p, void* m, void* v, void* copy, long long n, float lr,
+                float c1, float c2, const float* scalars, float b1, float b2, float one_minus_b1,
+                float one_minus_b2, float eps, float wd, int gdtype, void* stream) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  const Hyper h{lr, c1, c2, b1, b2, one_minus_b1, one_minus_b2, eps, wd};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (gdtype == dqvq::kFloat32) return launch<float>(g, p, m, v, copy, n, h, scalars, s);
+  if (gdtype == dqvq::kBFloat16)
+    return launch<__nv_bfloat16>(g, p, m, v, copy, n, h, scalars, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -116,10 +139,16 @@ extern "C" int dqvq_fused_adamw(const void* g, void* p, void* m, void* v, void* 
                                 float lr, float c1, float c2, float b1, float b2,
                                 float one_minus_b1, float one_minus_b2, float eps, float wd,
                                 int gdtype, void* stream) {
-  if (n <= 0) return cudaErrorInvalidValue;
-  const Hyper h{lr, c1, c2, b1, b2, one_minus_b1, one_minus_b2, eps, wd};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gdtype == dqvq::kFloat32) return launch<float>(g, p, m, v, copy, n, h, s);
-  if (gdtype == dqvq::kBFloat16) return launch<__nv_bfloat16>(g, p, m, v, copy, n, h, s);
-  return cudaErrorInvalidValue;
+  return fused_adamw(g, p, m, v, copy, n, lr, c1, c2, nullptr, b1, b2, one_minus_b1,
+                     one_minus_b2, eps, wd, gdtype, stream);
+}
+
+// The same with lr, c1, c2 read on the device from `scalars` (three f32).
+extern "C" int dqvq_fused_adamw_device_scalars(const void* g, void* p, void* m, void* v,
+                                               void* copy, long long n, const void* scalars,
+                                               float b1, float b2, float one_minus_b1,
+                                               float one_minus_b2, float eps, float wd,
+                                               int gdtype, void* stream) {
+  return fused_adamw(g, p, m, v, copy, n, 0.f, 0.f, 0.f, static_cast<const float*>(scalars), b1,
+                     b2, one_minus_b1, one_minus_b2, eps, wd, gdtype, stream);
 }

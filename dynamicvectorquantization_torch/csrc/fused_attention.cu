@@ -117,6 +117,7 @@ fused_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            float* __restrict__ lse, int t_len, int d_model, float scale,
                            int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   constexpr int QS = HD + 1;  // padded row stride of Q and K tiles
   constexpr int PS = BK + 1;  // padded row stride of the probability tile
   constexpr int RI = BQ / 16;  // query rows per thread
@@ -303,14 +304,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 // scaled scores (training saves it for the backward). rate in [0, 1): the
 // share of probabilities dropped, drawn from `seed` (see common.cuh); at
 // rate 0 the seed is not read. Returns a cudaError_t.
-extern "C" int dqvq_fused_attention_forward(const void* q, const void* k, const void* v,
-                                            void* out, void* lse, int batch, int t_len,
-                                            int d_model, int n_head, float scale, int causal,
-                                            int dtype, double rate, unsigned long long seed,
-                                            void* stream) {
+static int dqvq_fused_attention_forward_impl(const void* q, const void* k, const void* v, void* out,
+    void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype,
+    double rate, unsigned long long seed, const void* seed_ptr, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == dqvq::kFloat32)
@@ -318,4 +317,22 @@ extern "C" int dqvq_fused_attention_forward(const void* q, const void* k, const 
   if (dtype == dqvq::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, out, l, batch, t_len, d_model, n_head, scale, causal, drop, s);
   return cudaErrorInvalidValue;
+}
+
+extern "C" int dqvq_fused_attention_forward(const void* q, const void* k, const void* v, void* out,
+    void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype,
+    double rate, unsigned long long seed, void* stream) {
+  return dqvq_fused_attention_forward_impl(
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, dtype, rate, seed, nullptr,
+      stream);
+}
+
+// The same with the dropout seed read on the device from `seed_ptr` (one
+// int64, read once by each block): what a CUDA graph replays with a new seed.
+extern "C" int dqvq_fused_attention_forward_device_seed(const void* q, const void* k, const void* v,
+    void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
+    int dtype, double rate, const void* seed_ptr, void* stream) {
+  return dqvq_fused_attention_forward_impl(
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, dtype, rate, 0, seed_ptr,
+      stream);
 }

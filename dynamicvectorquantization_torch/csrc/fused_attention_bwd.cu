@@ -180,6 +180,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           T* __restrict__ dk, T* __restrict__ dv, int t_len, int d_model,
                           float scale, int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   constexpr int QS = HD + 1, kTile = TILE, kPS = TILE + 1, kPer = TILE / 16;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -248,6 +249,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         T* __restrict__ dq, int t_len, int d_model, float scale, int causal,
                         dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   constexpr int QS = HD + 1, kTile = TILE, kPS = TILE + 1, kPer = TILE / 16;
   constexpr int DJ = HD / 16;
   extern __shared__ float smem[];
@@ -371,16 +373,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* y, c
 // lse: (batch, n_head, t_len) f32 from the forward; delta: f32 workspace of
 // the same shape. rate and seed: the forward's (see fused_attention.cu).
 // Returns a cudaError_t.
-extern "C" int dqvq_fused_attention_backward(const void* q, const void* k, const void* v,
-                                             const void* y, const void* dy, const void* lse,
-                                             void* delta, void* dq, void* dk, void* dv, int batch,
-                                             int t_len, int d_model, int n_head, float scale,
-                                             int causal, int dtype, double rate,
-                                             unsigned long long seed, void* stream) {
+static int dqvq_fused_attention_backward_impl(const void* q, const void* k, const void* v,
+    const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype, double rate,
+    unsigned long long seed, const void* seed_ptr, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -391,4 +391,24 @@ extern "C" int dqvq_fused_attention_backward(const void* q, const void* k, const
     return launch<__nv_bfloat16>(q, k, v, y, dy, l, dl, dq, dk, dv, batch, t_len, d_model, n_head,
                                  scale, causal, drop, s);
   return cudaErrorInvalidValue;
+}
+
+extern "C" int dqvq_fused_attention_backward(const void* q, const void* k, const void* v,
+    const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype, double rate,
+    unsigned long long seed, void* stream) {
+  return dqvq_fused_attention_backward_impl(
+      q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, dtype,
+      rate, seed, nullptr, stream);
+}
+
+// The same with the dropout seed read on the device from `seed_ptr` (one
+// int64, read once by each block): what a CUDA graph replays with a new seed.
+extern "C" int dqvq_fused_attention_backward_device_seed(const void* q, const void* k,
+    const void* v, const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype,
+    double rate, const void* seed_ptr, void* stream) {
+  return dqvq_fused_attention_backward_impl(
+      q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, dtype,
+      rate, 0, seed_ptr, stream);
 }

@@ -453,7 +453,8 @@ __device__ __forceinline__ void dq_block(const Args& a, float* smem, int q0, int
 // ranks 2 i take dK / dV of key tile i, odd ranks 2 i + 1 dQ of query tile
 // n_tiles - 1 - i, so under the causal mask the work falls with the rank.
 template <int HD, bool DROP>
-__global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_tc_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads, 1) attention_bwd_f32_tc_kernel(Args a) {
+  if (DROP) dqvq::load_seed(a.drop);
   extern __shared__ __align__(16) float smem[];
   const int n_bh = gridDim.x / (2 * a.n_tiles);
   const int rank = blockIdx.x / n_bh, bh = blockIdx.x % n_bh;
@@ -501,13 +502,10 @@ cudaError_t launch_hd(const Args& a, const float* y, float* delta, int batch,
 // aligned, d_model / n_head in {64, 128}; lse: (batch, n_head, t_len) f32 from
 // the forward; delta: f32 workspace of the same shape. rate and seed: the
 // forward's. Returns a cudaError_t.
-extern "C" int dqvq_fused_attention_backward_f32_tc(const void* q, const void* k, const void* v,
-                                                    const void* y, const void* dy,
-                                                    const void* lse, void* delta, void* dq,
-                                                    void* dk, void* dv, int batch, int t_len,
-                                                    int d_model, int n_head, float scale,
-                                                    int causal, double rate,
-                                                    unsigned long long seed, void* stream) {
+static int dqvq_fused_attention_backward_f32_tc_impl(const void* q, const void* k, const void* v,
+    const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    unsigned long long seed, const void* seed_ptr, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
@@ -528,7 +526,7 @@ extern "C" int dqvq_fused_attention_backward_f32_tc(const void* q, const void* k
   a.scale = scale;
   a.scale_log2 = (float)((double)scale * 1.4426950408889634);
   a.causal = causal;
-  a.drop = dqvq::make_dropout_params(rate, seed);
+  a.drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fy = static_cast<const float*>(y);
   float* fd = static_cast<float*>(delta);
@@ -540,4 +538,24 @@ extern "C" int dqvq_fused_attention_backward_f32_tc(const void* q, const void* k
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int dqvq_fused_attention_backward_f32_tc(const void* q, const void* k, const void* v,
+    const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    unsigned long long seed, void* stream) {
+  return dqvq_fused_attention_backward_f32_tc_impl(
+      q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, rate,
+      seed, nullptr, stream);
+}
+
+// The same with the dropout seed read on the device from `seed_ptr` (one
+// int64, read once by each block): what a CUDA graph replays with a new seed.
+extern "C" int dqvq_fused_attention_backward_f32_tc_device_seed(const void* q, const void* k,
+    const void* v, const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    const void* seed_ptr, void* stream) {
+  return dqvq_fused_attention_backward_f32_tc_impl(
+      q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, rate, 0,
+      seed_ptr, stream);
 }

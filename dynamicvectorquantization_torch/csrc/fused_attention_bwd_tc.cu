@@ -87,6 +87,7 @@ attention_bwd_dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len, int d_model,
                              float scale, float scale_log2, int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   using namespace dqvq::tc;
   constexpr int LD = HD + 8, KS = HD / 16, NC = kChunk / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -228,6 +229,7 @@ attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            bf16* __restrict__ dq, int t_len, int d_model, float scale,
                            float scale_log2, int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   using namespace dqvq::tc;
   constexpr int LD = HD + 8, KS = HD / 16, NC = kChunk / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -405,16 +407,14 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* y
 // 16-byte aligned, d_model / n_head in {64, 128, 256, 512}; lse: (batch, n_head, t_len)
 // f32 from the forward; delta: f32 workspace of the same shape. rate and
 // seed: the forward's. Returns a cudaError_t.
-extern "C" int dqvq_fused_attention_backward_tc(const void* q, const void* k, const void* v,
-                                                const void* y, const void* dy, const void* lse,
-                                                void* delta, void* dq, void* dk, void* dv,
-                                                int batch, int t_len, int d_model, int n_head,
-                                                float scale, int causal, double rate,
-                                                unsigned long long seed, void* stream) {
+static int dqvq_fused_attention_backward_tc_impl(const void* q, const void* k, const void* v,
+    const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    unsigned long long seed, const void* seed_ptr, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -433,4 +433,24 @@ extern "C" int dqvq_fused_attention_backward_tc(const void* q, const void* k, co
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int dqvq_fused_attention_backward_tc(const void* q, const void* k, const void* v,
+    const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    unsigned long long seed, void* stream) {
+  return dqvq_fused_attention_backward_tc_impl(
+      q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, rate,
+      seed, nullptr, stream);
+}
+
+// The same with the dropout seed read on the device from `seed_ptr` (one
+// int64, read once by each block): what a CUDA graph replays with a new seed.
+extern "C" int dqvq_fused_attention_backward_tc_device_seed(const void* q, const void* k,
+    const void* v, const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    const void* seed_ptr, void* stream) {
+  return dqvq_fused_attention_backward_tc_impl(
+      q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, rate, 0,
+      seed_ptr, stream);
 }

@@ -123,6 +123,7 @@ attention_bwd_dkdv_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __rest
                                   bf16* __restrict__ dk, bf16* __restrict__ dv, int t_len,
                                   int d_model, float scale, float scale_log2, int causal,
                                   dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   using namespace dqvq::tc;
   using F = KvTiles<HD>;
   constexpr int C = F::C, W = F::W, BKEY = F::BKEY, BQT = F::BQT, LD = F::LD, LDS = F::LDS;
@@ -254,6 +255,7 @@ attention_bwd_dq_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __restri
                                 const float* __restrict__ lse, const float* __restrict__ delta,
                                 bf16* __restrict__ dq, int t_len, int d_model, float scale,
                                 float scale_log2, int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   using namespace dqvq::tc;
   using F = QTiles<HD>;
   constexpr int C = F::C, BQ = F::BQ, BKT = F::BKT, LD = F::LD, LDS = F::LDS;

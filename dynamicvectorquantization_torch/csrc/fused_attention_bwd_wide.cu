@@ -102,6 +102,7 @@ attention_bwd_wide_kernel(const float* __restrict__ q, const float* __restrict__
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ out0, float* __restrict__ out1, int t_len,
                           int d_model, float scale, int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   using namespace dqvq::tc;
   using G = Geo<HD>;
   constexpr int R = G::R, J = G::J, LD = G::LD, LDT = G::LDT, CG = G::CG, EPT = G::EPT;
@@ -309,14 +310,14 @@ cudaError_t launch_hd(const float* q, const float* k, const float* v, const floa
 // 16-byte boundaries, d_model / n_head = 256 or 512; lse: (batch, n_head,
 // t_len) f32 from the forward; delta: f32 workspace of the same shape. rate
 // and seed: the forward's (see fused_attention.cu). Returns a cudaError_t.
-extern "C" int dqvq_fused_attention_backward_wide_f32(
-    const void* q, const void* k, const void* v, const void* y, const void* dy, const void* lse,
-    void* delta, void* dq, void* dk, void* dv, int batch, int t_len, int d_model, int n_head,
-    float scale, int causal, double rate, unsigned long long seed, void* stream) {
+static int dqvq_fused_attention_backward_wide_f32_impl(const void* q, const void* k, const void* v,
+    const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    unsigned long long seed, const void* seed_ptr, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -332,4 +333,24 @@ extern "C" int dqvq_fused_attention_backward_wide_f32(
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int dqvq_fused_attention_backward_wide_f32(const void* q, const void* k, const void* v,
+    const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
+    int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    unsigned long long seed, void* stream) {
+  return dqvq_fused_attention_backward_wide_f32_impl(
+      q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, rate,
+      seed, nullptr, stream);
+}
+
+// The same with the dropout seed read on the device from `seed_ptr` (one
+// int64, read once by each block): what a CUDA graph replays with a new seed.
+extern "C" int dqvq_fused_attention_backward_wide_f32_device_seed(const void* q, const void* k,
+    const void* v, const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk,
+    void* dv, int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
+    const void* seed_ptr, void* stream) {
+  return dqvq_fused_attention_backward_wide_f32_impl(
+      q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, rate, 0,
+      seed_ptr, stream);
 }

@@ -155,6 +155,7 @@ fused_attention_fwd_f32_tc_kernel(const float* __restrict__ q, const float* __re
                                   const float* __restrict__ v, float* __restrict__ out,
                                   float* __restrict__ lse, int t_len, int d_model,
                                   float scale_log2, int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   constexpr int LD = HD + 4, KS = HD / 8, NT = kBK / 8, DT = HD / 8;
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
@@ -359,15 +360,13 @@ cudaError_t launch_hd(const float* q, const float* k, const float* v, float* out
 // carved from d_model with d_model / n_head in {64, 128}. lse: null, or
 // (batch, n_head, t_len) f32 for each row's log-sum-exp of the scaled scores.
 // rate in [0, 1) and seed as in fused_attention.cu. Returns a cudaError_t.
-extern "C" int dqvq_fused_attention_forward_f32_tc(const void* q, const void* k, const void* v,
-                                                   void* out, void* lse, int batch, int t_len,
-                                                   int d_model, int n_head, float scale,
-                                                   int causal, double rate,
-                                                   unsigned long long seed, void* stream) {
+static int dqvq_fused_attention_forward_f32_tc_impl(const void* q, const void* k, const void* v,
+    void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
+    double rate, unsigned long long seed, const void* seed_ptr, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
   const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
@@ -383,4 +382,20 @@ extern "C" int dqvq_fused_attention_forward_f32_tc(const void* q, const void* k,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int dqvq_fused_attention_forward_f32_tc(const void* q, const void* k, const void* v,
+    void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
+    double rate, unsigned long long seed, void* stream) {
+  return dqvq_fused_attention_forward_f32_tc_impl(
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, seed, nullptr, stream);
+}
+
+// The same with the dropout seed read on the device from `seed_ptr` (one
+// int64, read once by each block): what a CUDA graph replays with a new seed.
+extern "C" int dqvq_fused_attention_forward_f32_tc_device_seed(const void* q, const void* k,
+    const void* v, void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale,
+    int causal, double rate, const void* seed_ptr, void* stream) {
+  return dqvq_fused_attention_forward_f32_tc_impl(
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, 0, seed_ptr, stream);
 }

@@ -98,6 +98,7 @@ fused_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict
                               const bf16* __restrict__ v, bf16* __restrict__ out,
                               float* __restrict__ lse, int t_len, int d_model, float scale_log2,
                               int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   using namespace dqvq::tc;
   constexpr int LD = HD + 8, KS = HD / 16, NT = kBK / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -244,15 +245,13 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, fl
 // heads carved from d_model with d_model / n_head in {64, 128, 256, 512}. lse: null, or
 // (batch, n_head, t_len) f32 for each row's log-sum-exp of the scaled scores.
 // rate in [0, 1) and seed as in fused_attention.cu. Returns a cudaError_t.
-extern "C" int dqvq_fused_attention_forward_tc(const void* q, const void* k, const void* v,
-                                               void* out, void* lse, int batch, int t_len,
-                                               int d_model, int n_head, float scale, int causal,
-                                               double rate, unsigned long long seed,
-                                               void* stream) {
+static int dqvq_fused_attention_forward_tc_impl(const void* q, const void* k, const void* v,
+    void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
+    double rate, unsigned long long seed, const void* seed_ptr, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
@@ -270,4 +269,20 @@ extern "C" int dqvq_fused_attention_forward_tc(const void* q, const void* k, con
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int dqvq_fused_attention_forward_tc(const void* q, const void* k, const void* v,
+    void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
+    double rate, unsigned long long seed, void* stream) {
+  return dqvq_fused_attention_forward_tc_impl(
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, seed, nullptr, stream);
+}
+
+// The same with the dropout seed read on the device from `seed_ptr` (one
+// int64, read once by each block): what a CUDA graph replays with a new seed.
+extern "C" int dqvq_fused_attention_forward_tc_device_seed(const void* q, const void* k,
+    const void* v, void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale,
+    int causal, double rate, const void* seed_ptr, void* stream) {
+  return dqvq_fused_attention_forward_tc_impl(
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, 0, seed_ptr, stream);
 }

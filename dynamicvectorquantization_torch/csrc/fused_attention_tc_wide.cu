@@ -115,6 +115,7 @@ fused_attention_fwd_tc_wide_kernel(const bf16* __restrict__ q, const bf16* __res
                                    const bf16* __restrict__ v, bf16* __restrict__ out,
                                    float* __restrict__ lse, int t_len, int d_model,
                                    float scale_log2, int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   using namespace dqvq::tc;
   using F = FwdTiles<HD>;
   constexpr int C = F::C, BQ = F::BQ, BK = F::BK, LD = F::LD, NT = F::NT, NT_O = 128 / 8;

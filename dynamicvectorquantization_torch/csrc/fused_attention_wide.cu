@@ -99,6 +99,7 @@ fused_attention_fwd_wide_kernel(const float* __restrict__ q, const float* __rest
                                 const float* __restrict__ v, float* __restrict__ out,
                                 float* __restrict__ lse, int t_len, int d_model, float scale,
                                 int causal, dqvq::DropoutParams drop) {
+  dqvq::load_seed(drop);
   using namespace dqvq::tc;
   using G = Geo<HD>;
   constexpr int R = G::R, J = G::J, SI = G::SI, SJ = G::SJ, AC = G::AC, LD = G::LD;
@@ -313,15 +314,13 @@ cudaError_t launch_hd(const float* q, const float* k, const float* v, float* out
 // receives each row's log-sum-exp of the scaled scores. rate and seed: as
 // dqvq_fused_attention_forward's (see fused_attention.cu). Returns a
 // cudaError_t.
-extern "C" int dqvq_fused_attention_forward_wide_f32(const void* q, const void* k, const void* v,
-                                                     void* out, void* lse, int batch, int t_len,
-                                                     int d_model, int n_head, float scale,
-                                                     int causal, double rate,
-                                                     unsigned long long seed, void* stream) {
+static int dqvq_fused_attention_forward_wide_f32_impl(const void* q, const void* k, const void* v,
+    void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
+    double rate, unsigned long long seed, const void* seed_ptr, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 || batch > 65535 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed);
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fq = static_cast<const float*>(q);
   const float* fk = static_cast<const float*>(k);
@@ -338,4 +337,20 @@ extern "C" int dqvq_fused_attention_forward_wide_f32(const void* q, const void* 
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+extern "C" int dqvq_fused_attention_forward_wide_f32(const void* q, const void* k, const void* v,
+    void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
+    double rate, unsigned long long seed, void* stream) {
+  return dqvq_fused_attention_forward_wide_f32_impl(
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, seed, nullptr, stream);
+}
+
+// The same with the dropout seed read on the device from `seed_ptr` (one
+// int64, read once by each block): what a CUDA graph replays with a new seed.
+extern "C" int dqvq_fused_attention_forward_wide_f32_device_seed(const void* q, const void* k,
+    const void* v, void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale,
+    int causal, double rate, const void* seed_ptr, void* stream) {
+  return dqvq_fused_attention_forward_wide_f32_impl(
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, 0, seed_ptr, stream);
 }

@@ -98,10 +98,13 @@ class GraphRunner:
         self.replays = 0
         self.lock = threading.Lock()
 
-    def run(self, key, fn):
+    def run(self, key, fn, release_cache=False):
         """Replay the graph of `key`; without one, run `fn` eagerly on the
         side stream (ordered after and before the caller's stream) and
-        capture it."""
+        capture it. `release_cache`: empty the caching allocator's free blocks
+        (`torch.cuda.empty_cache`) between the warm-up and the capture, so that
+        the graph's pool can take the memory the warm-up's intermediates held
+        (a training step's activations: without it they would be held twice)."""
         if key in self.graphs:
             self.replay(key)
             return
@@ -110,6 +113,9 @@ class GraphRunner:
         with torch.cuda.stream(self.stream):
             fn()
         caller.wait_stream(self.stream)
+        if release_cache:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
         self.capture(key, fn)
 
     def capture(self, key, fn):

@@ -14,7 +14,11 @@ backward, their plain versions on a CPU tensor. Residual dropout
 `train=True`) runs inside the attention kernels, forward and backward: each
 layer's mask comes from the integer `seed` of the training forward mixed with
 the layer's index in the model (`ops.attention.mix_seed`), both host
-integers, so no device sync is added and two layers never share a mask.
+integers, so no device sync is added and two layers never share a mask. The
+seed may instead be a table, an int64 tensor with one row per layer of the
+model holding those mixed seeds (`Stage2Trainer`'s captured step fills it on
+the host before each replay): layer i then hands its row to the kernels,
+which read it on the device.
 `attn_bias`, cross-attention and sequence parallelism are not ported; no
 shipped unconditional config turns them on.
 
@@ -215,9 +219,14 @@ class TransformerStack(nn.ModuleList):
         """Full sequence when `cache` is None, else one cached decode step
         (`cache_index`, `n_chunks`: see `CausalSelfAttention.forward`).
         `seed`: the training forward's attention-dropout seed; block i mixes
-        `first_layer + i`, its index in the whole model, into it."""
+        `first_layer + i`, its index in the whole model, into it. Or a seed
+        table (an int64 tensor, a row per layer of the model): block i takes
+        row `first_layer + i`."""
         layers = cache.layers if cache is not None else [None] * len(self)
         for i, (block, layer_cache) in enumerate(zip(self, layers)):
-            layer_seed = None if seed is None else mix_seed(seed, first_layer + i)
+            if isinstance(seed, torch.Tensor):
+                layer_seed = seed[first_layer + i]
+            else:
+                layer_seed = None if seed is None else mix_seed(seed, first_layer + i)
             x = block(x, layer_cache, cache_index, train, generator, layer_seed, n_chunks)
         return x

@@ -43,6 +43,11 @@ sizes, blocks and threads do not enter, so the forward, both backward passes
 and the plain version (`dropout_keep_mask`, the same Philox in torch integer
 ops) agree bit for bit. `attention_seed` derives a layer's seed on the host
 from (base seed, optimizer step, microbatch, layer), with no device sync.
+The seed is a Python int, or a one-element int64 tensor on q's device (its
+64 bits): a CUDA tensor goes to each kernel's `_device_seed` C entry, which
+reads it on the device, as the TPU kernels read theirs from a device array,
+so a CUDA graph replays the launch with whatever seed the tensor holds. The
+plain versions read a tensor seed on the host.
 """
 from __future__ import annotations
 
@@ -291,8 +296,9 @@ def _route(tensors, n_head, name) -> str:
     return "square tiles"
 
 
-def _count(wrapper, route, rate):
+def _count(wrapper, route, rate, seed):
     wrapper.launches += 1
+    wrapper.device_seed_launches += isinstance(seed, torch.Tensor)
     wrapper.tc_launches += route == "tensor cores"
     wrapper.fma_launches += route in ("wide f32", "square tiles")
     wrapper.wide_f32_launches += route == "wide f32"
@@ -300,28 +306,47 @@ def _count(wrapper, route, rate):
     wrapper.dropout_launches += rate > 0.0
 
 
-def _dropout_args(rate, seed):
+def _dropout_args(rate, seed, device):
+    """(rate, seed): the seed an int, or at rate > 0 a one-element int64
+    tensor on `device` left as it is (read on the device by a kernel, on the
+    host by a plain version)."""
     rate = float(rate)
     dropout_threshold(rate)  # validates the rate
-    if rate > 0.0 and seed is None:
+    if rate <= 0.0:
+        return rate, 0
+    if seed is None:
         raise ValueError("attention dropout (rate > 0) needs a seed")
-    return rate, (int(seed) & _MASK64 if rate > 0.0 else 0)
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1 or seed.device != device:
+            raise ValueError("a tensor seed is one int64 on the inputs' device, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+        return rate, seed
+    return rate, int(seed) & _MASK64
+
+
+def _entry(name, seed):
+    """The C entry `name`, or its `_device_seed` twin for a tensor seed, and
+    the seed argument it takes (the int, or the tensor's address)."""
+    if isinstance(seed, torch.Tensor):
+        return getattr(cuda_lib.lib(), name + "_device_seed"), seed.data_ptr()
+    return getattr(cuda_lib.lib(), name), seed
 
 
 def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate=0.0,
                             return_lse=False, seed=None):
     """softmax(Q K^T * scale) V per head, with dropout on the probabilities
-    when `rate > 0` (mask drawn from the integer `seed`, see the module
-    docstring); q/k/v: (B, T, D), D = n_head * hd with hd in {16, 32, 64, 128,
-    256, 512}; f32 or bf16. Returns (B, T, D) in q's dtype, and with
+    when `rate > 0` (mask drawn from `seed`, an int or a one-element int64
+    tensor on q's device, see the module docstring); q/k/v: (B, T, D), D =
+    n_head * hd with hd in {16, 32, 64, 128, 256, 512}; f32 or bf16. Returns (B, T, D) in q's dtype, and with
     `return_lse` also the rows' log-sum-exp (B, H, T) f32.
     `fused_attention_forward.launches` counts kernel launches,
     `.tc_launches` those of the bf16 tensor-core family, `.fma_launches` those
     of the FMA family, `.wide_f32_launches` those of the FMA family's that ran
     the register-blocked f32 kernel (hd 256 / 512), `.f32_tc_launches` those
     of the 3xTF32 kernel (f32 at hd 64 / 128, in neither family) and
-    `.dropout_launches` those at `rate > 0`."""
-    rate, seed = _dropout_args(rate, seed)
+    `.dropout_launches` those at `rate > 0`, `.device_seed_launches` those
+    whose seed a tensor held."""
+    rate, seed = _dropout_args(rate, seed, q.device)
     tensors = (q, k, v)
     if all(x.device.type == "cpu" for x in tensors):
         return fused_attention_forward_plain(q, k, v, n_head, scale, causal, return_lse,
@@ -336,24 +361,16 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lse_ptr = lse.data_ptr() if return_lse else None
     route = _route(tensors + (out,), n_head, "fused_attention_forward")
-    if route == "tensor cores":
-        err = cuda_lib.lib().dqvq_fused_attention_forward_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
-            float(scale), int(bool(causal)), rate, seed, stream)
-    elif route == "wide f32":
-        err = cuda_lib.lib().dqvq_fused_attention_forward_wide_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
-            float(scale), int(bool(causal)), rate, seed, stream)
-    elif route == "f32 tensor cores":
-        err = cuda_lib.lib().dqvq_fused_attention_forward_f32_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
-            float(scale), int(bool(causal)), rate, seed, stream)
-    else:
-        err = cuda_lib.lib().dqvq_fused_attention_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d, n_head,
-            float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate, seed, stream)
+    name, dtype = {"tensor cores": ("dqvq_fused_attention_forward_tc", ()),
+                   "wide f32": ("dqvq_fused_attention_forward_wide_f32", ()),
+                   "f32 tensor cores": ("dqvq_fused_attention_forward_f32_tc", ()),
+                   "square tiles": ("dqvq_fused_attention_forward", (_DTYPE_CODE[q.dtype],))
+                   }[route]
+    entry, seed_arg = _entry(name, seed)
+    err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d,
+                n_head, float(scale), int(bool(causal)), *dtype, rate, seed_arg, stream)
     cuda_lib.check(err, "fused_attention_forward")
-    _count(fused_attention_forward, route, rate)
+    _count(fused_attention_forward, route, rate, seed)
     return (out, lse) if return_lse else out
 
 
@@ -363,6 +380,7 @@ fused_attention_forward.fma_launches = 0  # those on the FMA family
 fused_attention_forward.wide_f32_launches = 0  # those of the FMA family's on the wide f32 kernel
 fused_attention_forward.f32_tc_launches = 0  # those on the 3xTF32 kernel (f32 hd 64 / 128)
 fused_attention_forward.dropout_launches = 0  # those of `launches` that drew a mask
+fused_attention_forward.device_seed_launches = 0  # those that read their seed on the device
 
 
 def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True,
@@ -372,7 +390,7 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
     `fused_attention_backward.launches` counts launches (the delta kernel and
     the dK/dV and dQ passes are one launch of the wrapper), split by family,
     kernel and rate as the forward's."""
-    rate, seed = _dropout_args(rate, seed)
+    rate, seed = _dropout_args(rate, seed, q.device)
     tensors = (q, k, v, y, dy)
     if all(x.device.type == "cpu" for x in (*tensors, lse)):
         return fused_attention_backward_plain(q, k, v, y, lse, dy, n_head, scale, causal,
@@ -391,21 +409,16 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     route = _route(tensors + (dq, dk, dv), n_head, "fused_attention_backward")
-    if route == "tensor cores":
-        err = cuda_lib.lib().dqvq_fused_attention_backward_tc(
-            *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
-    elif route == "f32 tensor cores":
-        err = cuda_lib.lib().dqvq_fused_attention_backward_f32_tc(
-            *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
-    elif route == "wide f32":
-        err = cuda_lib.lib().dqvq_fused_attention_backward_wide_f32(
-            *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), rate, seed, stream)
-    else:
-        err = cuda_lib.lib().dqvq_fused_attention_backward(
-            *ptrs, b, t, d, n_head, float(scale), int(bool(causal)), _DTYPE_CODE[q.dtype], rate,
-            seed, stream)
+    name, dtype = {"tensor cores": ("dqvq_fused_attention_backward_tc", ()),
+                   "f32 tensor cores": ("dqvq_fused_attention_backward_f32_tc", ()),
+                   "wide f32": ("dqvq_fused_attention_backward_wide_f32", ()),
+                   "square tiles": ("dqvq_fused_attention_backward", (_DTYPE_CODE[q.dtype],))
+                   }[route]
+    entry, seed_arg = _entry(name, seed)
+    err = entry(*ptrs, b, t, d, n_head, float(scale), int(bool(causal)), *dtype, rate, seed_arg,
+                stream)
     cuda_lib.check(err, "fused_attention_backward")
-    _count(fused_attention_backward, route, rate)
+    _count(fused_attention_backward, route, rate, seed)
     return dq, dk, dv
 
 
@@ -415,6 +428,7 @@ fused_attention_backward.fma_launches = 0
 fused_attention_backward.wide_f32_launches = 0
 fused_attention_backward.f32_tc_launches = 0
 fused_attention_backward.dropout_launches = 0
+fused_attention_backward.device_seed_launches = 0
 
 
 class _FusedCausalAttention(torch.autograd.Function):
@@ -439,8 +453,9 @@ def fused_causal_attention(q, k, v, n_head: int, scale=None, causal=True, rate=0
     projection outputs (no head transpose); on CUDA both directions are
     hand-written kernels. Where no gradient is asked for (`torch.no_grad()`,
     or inputs that need none) only the forward runs and no log-sum-exp is
-    kept. `rate > 0` drops attention probabilities with the mask of the
-    integer `seed` (required then); the backward redraws it."""
+    kept. `rate > 0` drops attention probabilities with the mask of `seed`
+    (an int or a one-element int64 tensor; required then); the backward
+    redraws it."""
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
         return fused_attention_forward(q, k, v, n_head, scale, causal, rate, seed=seed)
     return _FusedCausalAttention.apply(q, k, v, n_head, scale, causal, float(rate), seed)

@@ -56,6 +56,7 @@ SIGNATURES = {
     "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward_occupancy": (_I, _I, _P, _P),
     "dqvq_fused_adamw": (_P,) * 5 + (_L,) + (_F,) * 9 + (_I, _P),
+    "dqvq_fused_adamw_device_scalars": (_P,) * 5 + (_L, _P) + (_F,) * 6 + (_I, _P),
     "dqvq_vq_nearest": (_P,) * 7 + (_I, _I, _I, _P),
     "dqvq_vq_nearest_train": (_P,) * 9 + (_I, _I, _I, _P),
     "dqvq_vq_nearest_fma": (_P,) * 5 + (_I, _I, _I, _P),
@@ -69,6 +70,12 @@ SIGNATURES = {
     "dqvq_strided_conv_down_f32_pack": (_P, _P, _I, _I, _I, _P),
     "dqvq_strided_conv_down_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
+
+# each attention entry beside its `_device_seed` twin, which reads the seed
+# from a device int64 (the pointer in place of the by-value seed)
+SIGNATURES.update({
+    f"{name}_device_seed": args[:-2] + (_P, _P) for name, args in list(SIGNATURES.items())
+    if name.startswith("dqvq_fused_attention_")})
 
 RESTYPES = {"dqvq_vq_workspace_bytes": _L}
 

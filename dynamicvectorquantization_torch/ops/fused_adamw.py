@@ -14,6 +14,10 @@ sits outside the root; the decoupled weight decay is multiplied by lr.
 writes the bf16 working copy of p' in the same pass when given one. It
 launches the CUDA kernel `csrc/fused_adamw.cu` for CUDA tensors and runs the
 plain version, `fused_adamw_step_plain`, for CPU tensors; no fallback.
+`lr`, `c1`, `c2` are floats, or one (3,) f32 tensor on p's device passed as
+`lr` (with `c1`, `c2` None): the kernel then reads them on the device (C
+entry `dqvq_fused_adamw_device_scalars`), as the TPU kernel reads them from
+SMEM, so a CUDA graph of the optimizer step replays with each step's values.
 """
 from __future__ import annotations
 
@@ -37,10 +41,24 @@ def adamw_scalars(count: int, schedule, b1: float = 0.9, b2: float = 0.95):
     return float(np.float32(lr)), float(c1), float(c2)
 
 
+def _scalars(lr, c1, c2):
+    """(lr, c1, c2, the (3,) tensor or None) from three floats or a (3,) f32
+    tensor given as `lr`."""
+    if not isinstance(lr, torch.Tensor):
+        return lr, c1, c2, None
+    if c1 is not None or c2 is not None or lr.dtype != torch.float32 or lr.shape != (3,):
+        raise ValueError("fused_adamw_step: a tensor lr is the (3,) f32 triple (lr, c1, c2), "
+                         "with c1 = c2 = None")
+    return lr[0], lr[1], lr[2], lr.contiguous()
+
+
 @torch.no_grad()
-def fused_adamw_step_plain(g, p, m, v, lr, c1, c2, b1=0.9, b2=0.95, eps=1e-8, wd=0.0, copy=None):
+def fused_adamw_step_plain(g, p, m, v, lr, c1=None, c2=None, b1=0.9, b2=0.95, eps=1e-8, wd=0.0,
+                           copy=None):
     """Plain PyTorch version: the same arithmetic in f32, p / m / v (and
-    `copy`) written in place."""
+    `copy`) written in place; a (3,) tensor `lr` is the triple (lr, c1, c2),
+    each read as a 0-d f32 tensor."""
+    lr, c1, c2, _ = _scalars(lr, c1, c2)
     gf = g.float()
     m.copy_(b1 * m + (1.0 - b1) * gf)
     v.copy_(b2 * v + (1.0 - b2) * (gf * gf))
@@ -54,11 +72,14 @@ def fused_adamw_step_plain(g, p, m, v, lr, c1, c2, b1=0.9, b2=0.95, eps=1e-8, wd
 
 
 @torch.no_grad()
-def fused_adamw_step(g, p, m, v, lr, c1, c2, b1=0.9, b2=0.95, eps=1e-8, wd=0.0, copy=None):
+def fused_adamw_step(g, p, m, v, lr, c1=None, c2=None, b1=0.9, b2=0.95, eps=1e-8, wd=0.0,
+                     copy=None):
     """One AdamW update of the leaf p (f32) with gradient g (f32 or bf16) and
     moments m, v (f32), all of one shape, in place; `copy` (bf16, same shape)
-    receives p' when given. `fused_adamw_step.launches` counts kernel
-    launches."""
+    receives p' when given. `lr`, `c1`, `c2`: floats, or the (3,) f32 triple
+    on p's device as `lr`. `fused_adamw_step.launches` counts kernel
+    launches, `.device_scalar_launches` those that read the triple on the
+    device."""
     tensors = (g, p, m, v) + (() if copy is None else (copy,))
     if all(x.device.type == "cpu" for x in tensors):
         return fused_adamw_step_plain(g, p, m, v, lr, c1, c2, b1, b2, eps, wd, copy)
@@ -73,14 +94,22 @@ def fused_adamw_step(g, p, m, v, lr, c1, c2, b1=0.9, b2=0.95, eps=1e-8, wd=0.0, 
                          f"{[tuple(x.shape) for x in tensors]}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("fused_adamw_step: tensors must be contiguous")
-    err = cuda_lib.lib().dqvq_fused_adamw(
-        g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
-        None if copy is None else copy.data_ptr(), p.numel(), lr, c1, c2, b1, b2,
-        1.0 - b1, 1.0 - b2, eps, float(wd), _GRAD_CODE[g.dtype],
-        torch.cuda.current_stream(p.device).cuda_stream)
+    ptrs = (g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(),
+            None if copy is None else copy.data_ptr(), p.numel())
+    rest = (b1, b2, 1.0 - b1, 1.0 - b2, eps, float(wd), _GRAD_CODE[g.dtype],
+            torch.cuda.current_stream(p.device).cuda_stream)
+    lr, c1, c2, triple = _scalars(lr, c1, c2)
+    if triple is None:
+        err = cuda_lib.lib().dqvq_fused_adamw(*ptrs, lr, c1, c2, *rest)
+    else:
+        if triple.device != p.device:
+            raise ValueError("fused_adamw_step: the (lr, c1, c2) tensor must be on p's device")
+        err = cuda_lib.lib().dqvq_fused_adamw_device_scalars(*ptrs, triple.data_ptr(), *rest)
     cuda_lib.check(err, "fused_adamw_step")
     fused_adamw_step.launches += 1
+    fused_adamw_step.device_scalar_launches += triple is not None
     return p, m, v
 
 
 fused_adamw_step.launches = 0
+fused_adamw_step.device_scalar_launches = 0

@@ -19,9 +19,14 @@
     steps in `<logdir>/profile/`;
   * any other `--flag` the parser does not know is an error.
 
-Training over several devices and `--steps_per_dispatch > 1` are not ported:
-those flags raise and name their ROADMAP.md item (`--pp_microbatches` only
-with `--pp`).
+  * `--steps_per_dispatch K`: K optimizer steps a dispatch, the log and image
+    cadences in optimizer steps, a trailing incomplete group dropped; unset,
+    8 on the stage-2 cached-codes path (capped by the epoch's steps) and 1
+    elsewhere, as the JAX launcher. On the card each cached-codes step
+    replays a CUDA graph; on the CPU the same step runs eagerly.
+
+Training over several devices is not ported: those flags raise and name
+their ROADMAP.md item (`--pp_microbatches` only with `--pp`).
 """
 from __future__ import annotations
 
@@ -54,7 +59,8 @@ def get_parser():
     p.add_argument("--max_steps_per_epoch", type=int, default=None, help="cap steps (smoke runs)")
     p.add_argument("--accumulate_grad_batches", type=int, default=1)
     p.add_argument("--steps_per_dispatch", type=int, default=None,
-                   help="optimizer steps per dispatch; only 1 is ported")
+                   help="optimizer steps per dispatch (default: 8 on the stage-2 cached-codes "
+                        "path, capped by the epoch's steps; else 1)")
     p.add_argument("--cached_codes", choices=("auto", "on", "off"), default="auto",
                    help="stage-2 cached-codes training: pre-encode each epoch's batches "
                         "through the frozen first stage once, then train on token streams. "

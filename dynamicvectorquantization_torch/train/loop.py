@@ -1,12 +1,21 @@
 """Epoch training loop on one device (counterpart of
 `dynamicvectorquantization_tpu/train/loop.py` `Trainer`).
 
-Per step one `Stage2Trainer.train_step` / `Stage1Trainer.train_step`, periodic
-metric rows under the reference metric names, PNG image grids every
+Per dispatch `steps_per_dispatch` = K optimizer steps (`Stage2Trainer` /
+`Stage1Trainer` `train_step`, or `train_steps` over K inputs stacked on the
+host, as the JAX loop's `_group_steps`; a trailing incomplete group is
+dropped, as of `accum` microbatches), periodic metric rows under the
+reference metric names (the last step of a group), PNG image grids every
 `image_log_frequency` steps, a validation pass and a checkpoint each epoch
 (the `save_top_k` best by the model's monitored metric plus the newest),
 resume from the newest checkpoint, and a guard that turns SIGTERM / SIGUSR1
-into an emergency checkpoint and a clean return.
+into an emergency checkpoint and a clean return. The step budget and the log and image
+cadences count optimizer steps (`bi * K`), as the JAX loop's. K = None is
+the JAX loop's auto rule: `min(8, steps_per_epoch)` on the stage-2
+cached-codes path, else 1. On the card each cached-codes step is a CUDA
+graph replay (`train/stage2.py`); the inline-encode and stage-1 steps run
+eagerly, K of them a dispatch (stage 1 is device-bound: idle 0.023 of an
+f32 step).
 
 Stage 2 trains on cached codes by default: each epoch's batches go once
 through the frozen first stage (`_encode_epoch_codes`, int16 streams on the
@@ -23,9 +32,8 @@ JAX loop's run on `state.params`. `profile_steps` writes a `torch.profiler`
 trace of a fresh run's first steps into `<logdir>/profile/`.
 
 What the JAX loop does over a device mesh is not ported: `devices > 1`,
-`opt_sharding` (ZeRO-1), `fsdp`, `tp` / `sp` / `pp` and `steps_per_dispatch >
-1` raise and name their ROADMAP.md item. Checkpoints are written
-synchronously with `torch.save`.
+`opt_sharding` (ZeRO-1), `fsdp`, `tp` / `sp` / `pp` raise and name their
+ROADMAP.md item. Checkpoints are written synchronously with `torch.save`.
 """
 from __future__ import annotations
 
@@ -47,7 +55,6 @@ from .stage1 import Stage1Trainer
 from .stage2 import Stage2Trainer
 
 MULTI_GPU_ITEM = "ROADMAP.md item 10.3, Multi-GPU: DDP, ZeRO-1, FSDP, tp / sp / pp"
-DISPATCH_ITEM = "ROADMAP.md item 10.2, steps_per_dispatch as a CUDA graph of the step"
 
 
 def _is_stage2(model) -> bool:
@@ -56,6 +63,15 @@ def _is_stage2(model) -> bool:
 
 def _add(buckets, key, t0):
     buckets[key] = buckets.get(key, 0.0) + time.perf_counter() - t0
+
+
+def _last(x):
+    """The last entry along the leading (K,) axis of a stacked step input."""
+    if isinstance(x, dict):
+        return {k: _last(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_last(v) for v in x)
+    return x[-1]
 
 
 class PreemptionGuard:
@@ -134,9 +150,8 @@ class Trainer:
         if devices not in (-1, 0, 1, None) or opt_sharding or fsdp or max(tp, sp, pp) > 1:
             raise NotImplementedError(
                 f"training over several devices is not ported (see {MULTI_GPU_ITEM})")
-        if steps_per_dispatch not in (None, 1):
-            raise NotImplementedError(
-                f"steps_per_dispatch > 1 is not ported (see {DISPATCH_ITEM})")
+        if steps_per_dispatch is not None and int(steps_per_dispatch) < 1:
+            raise ValueError(f"steps_per_dispatch must be at least 1, got {steps_per_dispatch}")
         if cached_codes not in ("auto", "on", "off"):
             raise ValueError(f"cached_codes must be auto, on or off, got {cached_codes!r}")
         self.logdir = logdir
@@ -150,6 +165,11 @@ class Trainer:
         # each optimizer step consumes `accum` loader batches, stacked to
         # (accum, B, ...); a trailing incomplete group is dropped
         self.accum = int(accumulate_grad_batches)
+        # K optimizer steps per dispatch (`train_steps` over K stacked
+        # inputs); None = auto, resolved per fit as the JAX loop does: 8 on
+        # the stage-2 cached-codes path, capped by the epoch's steps, else 1
+        self._steps_per_dispatch_auto = steps_per_dispatch is None
+        self.steps_per_dispatch = 1 if steps_per_dispatch is None else int(steps_per_dispatch)
         self.cached_codes = cached_codes
         # False: train from the weights the model was given (tests carry a
         # state across from the JAX package this way)
@@ -170,22 +190,33 @@ class Trainer:
     def _generator(self, seed):
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
-    def _group_microbatches(self, gen):
-        """Pass-through at accum = 1, else groups of `accum` consecutive
-        items (arrays, or tuples of arrays) stacked on the host to (accum,
-        B, ...)."""
-        if self.accum == 1:
+    def _grouped(self, gen, n):
+        """Pass-through at n = 1, else groups of n consecutive items (arrays,
+        or tuples / dicts of arrays) stacked on the host to (n, ...): one
+        transfer a group; a trailing incomplete group is dropped. The loop
+        groups `accum` loader batches into an optimizer step's input, then
+        `steps_per_dispatch` of those into a dispatch's."""
+        if n == 1:
             yield from gen
             return
+
+        def stack(items):
+            if isinstance(items[0], dict):
+                return {key: stack([it[key] for it in items]) for key in items[0]}
+            if isinstance(items[0], tuple):
+                return tuple(stack(list(parts)) for parts in zip(*items))
+            return np.stack(items)
+
         buf = []
         for item in gen:
             buf.append(item)
-            if len(buf) == self.accum:
-                if isinstance(item, tuple):
-                    yield tuple(np.stack(parts) for parts in zip(*buf))
-                else:
-                    yield np.stack(buf)
+            if len(buf) == n:
+                yield stack(buf)
                 buf = []
+
+    def _step_inputs(self, gen):
+        """Loader items -> the inputs of one dispatch each."""
+        return self._grouped(self._grouped(gen, self.accum), self.steps_per_dispatch)
 
     def _ckpt_manager(self, monitor):
         return CheckpointManager(os.path.join(self.logdir, "checkpoints"), self.save_top_k,
@@ -266,7 +297,10 @@ class Trainer:
                     log_images, global_step, batch_size_of):
         """The epoch loop both stages share. `epoch_inputs(epoch, buckets)` ->
         (iterator of step inputs, extra columns for the epoch's first row);
-        `state_fn()` -> the checkpoint's content."""
+        `state_fn()` -> the checkpoint's content; `step_fn` takes one step
+        input, or K stacked ones (K = `steps_per_dispatch` > 1) and returns
+        their logs stacked."""
+        k = self.steps_per_dispatch
         gs = global_step
         buckets = {}
         t_fit = time.perf_counter()
@@ -286,26 +320,29 @@ class Trainer:
                         break
                     _add(buckets, "pull", t_p)
                     bi += 1
-                    if self.max_steps_per_epoch and bi >= self.max_steps_per_epoch:
+                    # the budget and the cadences count optimizer steps
+                    if self.max_steps_per_epoch and bi * k >= self.max_steps_per_epoch:
                         break
                     self._maybe_profile(gs)
                     t_d = time.perf_counter()
                     logs = step_fn(x)
                     _add(buckets, "dispatch", t_d)
-                    gs += 1
+                    gs += k
                     lagged.flush()
                     self._maybe_profile(gs)
                     if guard.should_stop:
                         self._maybe_profile(gs, end=True)
                         self._emergency_save(mngr, gs, state_fn(), guard.reason)
                         return trainer
-                    if bi % self.log_every == 0:
-                        ips = (self.accum * batch_size_of(x) * (bi + 1)
+                    x_last = x if k == 1 else _last(x)
+                    if (bi * k) % self.log_every < k:
+                        ips = (k * self.accum * batch_size_of(x_last) * (bi + 1)
                                / max(time.time() - t0, 1e-9))
-                        lagged.push(gs, logs, ips, first_row_extra if bi == 0 else {})
-                    if self.images.should_log(bi):
+                        lagged.push(gs, logs if k == 1 else _last(logs), ips,
+                                    first_row_extra if bi == 0 else {})
+                    if self.images.should_log(bi * k, k):
                         t_i = time.perf_counter()
-                        log_images(x, gs, epoch, bi)
+                        log_images(x_last, gs, epoch, bi)
                         _add(buckets, "image_log", t_i)
                 if hasattr(it, "close"):
                     it.close()  # stops the loader's thread when the epoch was capped
@@ -350,7 +387,7 @@ class Trainer:
 
         def epoch_inputs(epoch, buckets):
             batches = (b[model.image_key] for b in train_loader.epoch(epoch))
-            return device_prefetch(self._group_microbatches(batches), self.device,
+            return device_prefetch(self._step_inputs(batches), self.device,
                                    timings=buckets), {}
 
         def log_images(x, gs, epoch, bi):
@@ -358,8 +395,9 @@ class Trainer:
 
         return self._run_epochs(
             trainer, mngr, lambda: {"stage": 1, "trainer": trainer.state_dict()},
-            trainer.ae_opt.schedule, epoch_inputs, trainer.train_step, validate, log_images,
-            trainer.step, lambda x: x.shape[-4])
+            trainer.ae_opt.schedule, epoch_inputs,
+            trainer.train_step if self.steps_per_dispatch == 1 else trainer.train_steps,
+            validate, log_images, trainer.step, lambda x: x.shape[-4])
 
     def _validate_stage1(self, model, data, trainer):
         return self._mean_over(data.val_dataloader(seed=self.seed), (model.image_key,),
@@ -395,6 +433,10 @@ class Trainer:
             print(f"cached_codes auto: OFF (cond_stage_key={model.cond_stage_key!r} needs "
                   "per-step conditioning)")
             use_cached = False
+        if self._steps_per_dispatch_auto and use_cached:
+            # the JAX loop's auto rule: K = 8 on cached codes, capped by the
+            # epoch's step budget so a short epoch still fills a group
+            self.steps_per_dispatch = max(1, min(8, model.steps_per_epoch or 8))
 
         # weights before the trainer takes its f32 masters from them: the
         # first stage from its config's ckpt_path where that exists, else
@@ -436,13 +478,14 @@ class Trainer:
             if not use_cached:
                 batches = ((b[model.first_stage_key], b["class_label"]) if labelled
                            else b[model.first_stage_key] for b in train_loader.epoch(epoch))
-                return device_prefetch(self._group_microbatches(batches), self.device,
+                return device_prefetch(self._step_inputs(batches), self.device,
                                        timings=buckets), {}
             t_enc = time.perf_counter()
             cached, vis["x"] = self._encode_epoch_codes(model, trainer, train_loader, epoch)
             enc_secs = time.perf_counter() - t_enc
             buckets["encode"] = buckets.get("encode", 0.0) + enc_secs
-            return (device_prefetch(iter(cached), self.device, timings=buckets),
+            return (device_prefetch(self._step_inputs(iter(cached)), self.device,
+                                    timings=buckets),
                     {"cache_encode_seconds": enc_secs})
 
         def log_images(x, gs, epoch, bi):
@@ -460,8 +503,10 @@ class Trainer:
             leaf = next(iter(x.values())) if isinstance(x, dict) else x
             return leaf.shape[1 if self.accum > 1 else 0]
 
+        one = trainer.train_step if self.steps_per_dispatch == 1 else trainer.train_steps
+
         def step(x):
-            return trainer.train_step(x[0], c=x[1]) if labelled else trainer.train_step(x)
+            return one(x[0], None, x[1]) if labelled else one(x)
 
         def state_fn():
             return {"stage": 2, "trainer": trainer.state_dict(),

@@ -35,11 +35,31 @@ weights into it calls `refresh_first_stage` to rebuild the copy. Under f32
 Dropout is a function of (base seed, optimizer step, microbatch, layer) and
 of nothing else, as the JAX loop folds the global step into a constant base
 key: a run resumed from a checkpoint draws the masks the uninterrupted run
-would have drawn. The attention kernels get an integer seed per forward
-(`ops.attention.attention_seed`, mixed on the host: no device sync); the
-trainer's own `torch.Generator`, which feeds the embedding and residual
-dropouts, is re-seeded from the base seed at every step. A caller that
-passes its own generator keeps that generator's stream instead.
+would have drawn, whatever the number of steps per dispatch. The attention
+kernels get a seed per layer (`ops.attention.attention_seed`, mixed on the
+host: no device sync); the trainer's own `torch.Generator`, which feeds the
+embedding and residual dropouts, is re-seeded from the base seed at every
+step. A caller that passes its own generator keeps that generator's stream
+instead.
+
+The step on cached codes (dict streams, `accum == 1`), the JAX loop's
+compiled step: `_static_step` reads everything that changes between steps
+from preallocated tensors (`_StepState`: the batch's streams, a class
+model's labels, the table of the step's attention seeds, one per layer, and
+AdamW's (lr, c1, c2)) and writes its logs into a static slot. Before each
+step the host copies the step's inputs in (stream-ordered: the batch device
+to device, the seeds and scalars from pinned memory without blocking) and
+re-seeds the elementwise-dropout generator. On the CPU it runs eagerly; on
+CUDA it replays one CUDA graph of the whole step, forward, backward,
+pad-row zeroing and every AdamW launch (`models/graphs.py` `GraphRunner`;
+the key holds the batch's shapes and dtypes, the compute dtype, the dropout
+rates, the storage of the working copy and of the masters and moments), the
+first call of a key run eagerly on the runner's side stream and then
+captured. The same function runs both ways, so the CPU tests hold what the
+card replays; `eager=True` runs it without the graph (a control). A capture
+or replay that fails raises. The inline-encode step (images, or `accum >
+1`) stays eager, op by op, as the stage-1 step does: K steps a dispatch run
+as K such steps.
 
 The epoch loop, checkpoints and data loading live in `train/loop.py`; the
 parallel trainers are not ported (ROADMAP.md).
@@ -53,6 +73,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.graphs import parameter_storage, runner_for
+from ..nn.transformer import CausalSelfAttention
 from ..ops.attention import attention_seed, mix_seed
 from ..ops.fused_adamw import adamw_scalars, fused_adamw_step
 from ..utils.device import resolve_device
@@ -60,6 +82,7 @@ from .schedules import warmup_cosine
 
 B1, B2, EPS = 0.9, 0.95, 1e-8
 _LOSS_KEYS = ("content_loss", "position_loss", "coarse_position_loss", "fine_position_loss")
+_LOG_NAMES = ("train_loss",) + tuple(f"train_{k}" for k in _LOSS_KEYS)
 _ELEMENTWISE = 0xE1E  # stream tag of the embedding / residual dropout generator
 
 
@@ -75,6 +98,36 @@ def decayed_parameter_names(module: nn.Module):
     `weight` is also the leaf name of embeddings and LayerNorms."""
     return {f"{prefix}.weight" if prefix else "weight"
             for prefix, mod in module.named_modules() if isinstance(mod, nn.Linear)}
+
+
+def _signature(x, c):
+    """Names, shapes and dtypes of a step's streams and labels."""
+    return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(x.items())),
+            None if c is None else (tuple(c.shape), c.dtype))
+
+
+def _fill_from_host(dst, values):
+    """dst[:] = values (a list of numbers, or a numpy array), ordered on the
+    current stream: on CUDA from pinned memory without blocking the host (the
+    pinned block is not reused before the copy has run), so a graph replayed
+    next reads them."""
+    src = torch.from_numpy(np.ascontiguousarray(values))
+    if dst.device.type == "cuda":
+        dst.copy_(src.pin_memory(), non_blocking=True)
+    else:
+        dst.copy_(src)
+
+
+class _StepState:
+    """The static tensors of the cached-codes step: inputs the host fills
+    before each step and the logs it writes."""
+
+    def __init__(self, x, c, n_layers, device):
+        self.x = {k: torch.empty_like(v, device=device) for k, v in x.items()}
+        self.c = None if c is None else torch.empty_like(c, device=device)
+        self.seeds = torch.zeros(n_layers, dtype=torch.int64, device=device)
+        self.scalars = torch.zeros(3, dtype=torch.float32, device=device)  # lr, c1, c2
+        self.logs = torch.zeros(len(_LOG_NAMES), dtype=torch.float32, device=device)
 
 
 class Stage2Trainer:
@@ -113,6 +166,8 @@ class Stage2Trainer:
         self.epoch = 0
         self.base_seed = int(seed)
         self.generator = torch.Generator(device=self.device)
+        self.n_layers = sum(isinstance(m, CausalSelfAttention) for m in tf.modules())
+        self._step_states = {}  # batch signature -> _StepState
         self.refresh_first_stage()
 
     def refresh_first_stage(self):
@@ -215,29 +270,99 @@ class Stage2Trainer:
         return {"train_loss": log_sums["total"],
                 **{f"train_{k}": log_sums[k] for k in _LOSS_KEYS}}, grads
 
-    def apply_update(self, grads):
-        """One AdamW update of every parameter from `grads`."""
-        lr, c1, c2 = adamw_scalars(self.count, self.schedule, B1, B2)
+    def _update(self, grads, lr, c1=None, c2=None):
+        """AdamW over every parameter: lr, c1, c2 as floats, or as the (3,)
+        device tensor `lr` the kernels read on the device."""
         for name, p in self.params.items():
             wd = self.weight_decay if name in self.decayed else 0.0
             fused_adamw_step(grads[name].contiguous(), self.masters[name], self.m[name],
                              self.v[name], lr, c1, c2, B1, B2, EPS, wd,
                              copy=p.data if self.mixed else None)
+
+    def apply_update(self, grads):
+        """One AdamW update of every parameter from `grads`."""
+        self._update(grads, *adamw_scalars(self.count, self.schedule, B1, B2))
         self.count += 1
 
-    def train_step(self, x, generator=None, c=None):
-        """One optimizer step; returns the logs (0-d tensors on the device)."""
+    def seed_table(self):
+        """The attention-dropout seeds of the next step, one per layer of the
+        model, as `nn/transformer.py` mixes them from `attention_seed`
+        (microbatch 0), as int64 (their 64 bits)."""
+        seed = attention_seed(self.base_seed, self.count, 0)
+        return np.array([mix_seed(seed, i) for i in range(self.n_layers)],
+                        dtype=np.uint64).view(np.int64)
+
+    def _static_step(self, st: _StepState, generator):
+        """One optimizer step that reads its inputs from `st` and writes its
+        logs there: what a CUDA graph captures and replays."""
+        names, params = zip(*self.params.items())
+        total, out = self._losses(st.x, st.c, True, generator, st.seeds)
+        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        for name, pad in self.pad_rows.items():
+            grads[name][pad] = 0.0
+        st.logs.copy_(torch.stack([total.detach().float()]
+                                  + [out[k].detach().float() for k in _LOSS_KEYS]))
+        self._update(grads, st.scalars)
+
+    def _graph_key(self, st: _StepState):
+        """Everything a capture of `_static_step(st)` bakes in: the batch's
+        signature, the compute dtype, the dropout rates, the storage of the
+        working copy (a `master_weights` swap changes it) and of the masters
+        and moments."""
+        tf = self.model.transformer
+        rates = tuple(v for mod in tf.modules() for k, v in sorted(vars(mod).items())
+                      if k.endswith("_pdrop"))
+        state = tuple(t.data_ptr() for d in (self.masters, self.m, self.v) for t in d.values())
+        return ("stage2_step", _signature(st.x, st.c), self.mixed, rates,
+                parameter_storage(tf), state)
+
+    def _cached_step(self, x, generator, c, eager):
+        x = self._to_device(x)
+        c = None if c is None else self._to_device(c)
+        sig = _signature(x, c)
+        if sig not in self._step_states:
+            self._step_states[sig] = _StepState(x, c, self.n_layers, self.device)
+        st = self._step_states[sig]
+        for k, v in x.items():
+            st.x[k].copy_(v, non_blocking=True)
+        if c is not None:
+            st.c.copy_(c, non_blocking=True)
+        _fill_from_host(st.seeds, self.seed_table())
+        _fill_from_host(st.scalars, np.array(adamw_scalars(self.count, self.schedule, B1, B2),
+                                             dtype=np.float32))
+        if generator is None:
+            generator = self.generator
+            generator.manual_seed(mix_seed(self.base_seed, self.count, _ELEMENTWISE) >> 1)
+        if self.device.type == "cuda" and not eager:
+            runner = runner_for(self, self.device)
+            with runner.carry_generator(generator) as g:
+                runner.run(self._graph_key(st), lambda: self._static_step(st, g),
+                           release_cache=True)
+        else:
+            self._static_step(st, generator)
+        self.count += 1
+        # a copy: the slot is written again by the next step
+        return dict(zip(_LOG_NAMES, st.logs.clone().unbind()))
+
+    def train_step(self, x, generator=None, c=None, eager=False):
+        """One optimizer step; returns the logs (0-d tensors on the device).
+        Cached streams (a dict) at `accum == 1` take the static-state step,
+        on CUDA a CUDA graph replay (`eager=True`: the same step op by op, a
+        control); images or `accum > 1` the eager step."""
+        if isinstance(x, dict) and self.accum == 1:
+            return self._cached_step(x, generator, c, eager)
         logs, grads = self.compute_grads(x, generator, c)
         self.apply_update(grads)
         return logs
 
-    def train_steps(self, xs, generator=None, cs=None):
+    def train_steps(self, xs, generator=None, cs=None, eager=False):
         """K full optimizer steps over xs (and their labels `cs`) with a
-        leading (K,) axis; returns the logs stacked per step."""
+        leading (K,) axis, each a `train_step`; returns the logs stacked per
+        step."""
         xs = self._to_device(xs)
         k = len(next(iter(xs.values()))) if isinstance(xs, dict) else len(xs)
         steps = [self.train_step({n: v[i] for n, v in xs.items()} if isinstance(xs, dict)
-                                 else xs[i], generator, None if cs is None else cs[i])
+                                 else xs[i], generator, None if cs is None else cs[i], eager)
                  for i in range(k)]
         return {key: torch.stack([s[key] for s in steps]) for key in steps[0]}
 

@@ -86,7 +86,8 @@ def _port_fit(logdir, state_dict, cached_codes, **kw):
     model.min_learning_rate = cfg["model"]["min_learning_rate"]
     trainer = Trainer(logdir, max_epochs=1, seed=SEED, log_every=1, image_log_frequency=0,
                       save_top_k=1, device="cpu", max_steps_per_epoch=STEPS, resume=False,
-                      cached_codes=cached_codes, init_weights=False, **kw)
+                      cached_codes=cached_codes, init_weights=False,
+                      **{"steps_per_dispatch": 1, **kw})
     return trainer.fit(model, data), _rows(logdir)
 
 

@@ -90,7 +90,7 @@ def _port_fit(class_yml, logdir, state_dict, dropouts=False, **kw):
     model.min_learning_rate = cfg["model"]["min_learning_rate"]
     opts = dict(max_epochs=EPOCHS, seed=SEED, log_every=1, image_log_frequency=0, save_top_k=1,
                 device="cpu", max_steps_per_epoch=STEPS, resume=False, cached_codes="on",
-                init_weights=False)
+                init_weights=False, steps_per_dispatch=1)
     opts.update(kw)
     return Trainer(str(logdir), **opts).fit(model, data), _rows(logdir)
 

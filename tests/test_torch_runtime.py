@@ -42,7 +42,7 @@ STAGE1 = os.path.join(_REPO, "configs/smoke/dqvae-dual-entropy-tiny.yml")
 DROPOUTS = [f"model.params.transformer_config.params.{k}=0.1"
             for k in ("attn_pdrop", "resid_pdrop", "embd_pdrop")]
 COMMON = ["--device", "cpu", "--max_steps_per_epoch", "3", "--log_every", "1", "--save_n", "1",
-          "--image_log_every", "0"]
+          "--image_log_every", "0", "--steps_per_dispatch", "1"]
 
 
 def _rows(logdir):
@@ -177,7 +177,7 @@ def test_dotlist_overrides_and_yaml_round_trip():
 @pytest.mark.parametrize("flags,item", [
     (["--tp", "2"], "Multi-GPU"), (["--sp", "2"], "Multi-GPU"), (["--pp", "2"], "Multi-GPU"),
     (["--activate_ddp_share"], "Multi-GPU"), (["--activate_fsdp"], "Multi-GPU"),
-    (["--devices", "4"], "Multi-GPU"), (["--steps_per_dispatch", "8"], "CUDA graph"),
+    (["--devices", "4"], "Multi-GPU"),
 ])
 def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, flags, item):
     """The error names ROADMAP.md and the item's keyword, and the keyword
@@ -187,6 +187,19 @@ def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, flags, item)
     assert item in str(err.value)
     with open(os.path.join(_REPO, "ROADMAP.md")) as f:
         assert item in f.read(), item
+
+
+@pytest.mark.parametrize("base,epochs", [(STAGE2, 2), (STAGE1, 1)], ids=["stage2", "stage1"])
+def test_steps_per_dispatch_trains_and_logs_at_every_kth_step(tmp_path, base, epochs):
+    """`--steps_per_dispatch 2` at 4 steps an epoch: two dispatches an epoch,
+    a row at the last step of each (steps 2, 4, ...), the validation at the
+    epoch's end."""
+    step_obj = cli.main(["--base", base, "--logdir", str(tmp_path), "--max_epochs", str(epochs),
+                         *COMMON, "--max_steps_per_epoch", "4", "--steps_per_dispatch", "2"])
+    want = [(s, split) for e in range(epochs) for s, split in
+            ((4 * e + 2, "train"), (4 * e + 4, "train"), (4 * e + 4, "val"))]
+    assert [(r["step"], r["split"]) for r in _rows(_only_run(str(tmp_path)))] == want
+    assert (step_obj.count if base == STAGE2 else step_obj.step) == 4 * epochs
 
 
 @pytest.mark.parametrize("flags", [
@@ -303,7 +316,7 @@ def test_sigterm_saves_an_emergency_checkpoint_and_stops(tmp_path, capsys):
 
     def trainer():
         return Trainer(str(tmp_path), max_epochs=1, seed=1, log_every=1, image_log_frequency=0,
-                       save_top_k=1, device="cpu")
+                       save_top_k=1, device="cpu", steps_per_dispatch=1)
 
     model, data = build()
     loop = trainer()
