@@ -47,7 +47,11 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                queries and, kernel only, every 128 positions to 1283 (two calls
                equal, the device-index entry equal to the host-index one at
                each); the LayerNorm
-               backward's share of its bytes bound, launches and ptxas report
+               backward's share of its bytes bound, launches and ptxas report; the
+               triple-grain config's new shapes: the patch entropy at 32^2 patches,
+               the f32 downsample at 16^2 x 512 -> 8^2 (with the tiling the
+               kernel reports it launched),
+               the f32 attention forward and backward at (8, 64, 512)
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
                through the kernels and through the plain versions (streams,
@@ -80,9 +84,10 @@ Phases, each printed as one JSON line (any failure exits non-zero):
      http      the HTTP front end (`serve/http.py`, `python -m
                dynamicvectorquantization_torch.serve`) in-process over the same
                model on 127.0.0.1, port 0, max_batch 2: the warm-up image
-               (which captures the graphs before the server listens), then 4
-               POSTs of 2 images (3 timed, the last traced; PNGs decoded by a
-               zlib reader here) and GET /healthz; launches of the first POST
+               (which captures the graphs before the server listens), then 3
+               timed POSTs of 2 images (PNGs decoded by a zlib reader here; no
+               traced request: `serve` traces this sampler) and GET /healthz;
+               launches of the first POST
      graph_vs_eager  the sampler's graphs against its eager loop (`eager=True`,
                reached by no entry point) on the same model at 4 rows with int8
                and with float caches: greedy and seeded sampled (top-k 300 /
@@ -127,15 +132,30 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                torch.profiler trace of one step, peak memory, one `eval_step`;
                then all of it again with `compute_dtype=bfloat16` (bf16 towers
                over f32 parameters, the bf16 downsample launched, the AttnBlocks
-               on the tensor-core family)
+               on the tensor-core family); then, as `train1_dual_feat` and
+               `train1_triple`, the two other shipped stage-1 ymls
+               (`dqvae-dual-r-05_imagenet.yml`: the feature router's Gumbel gate;
+               `dqvae-triple-r-03-03_imagenet.yml`: triple grain) in f32 without
+               the plain-path step: timed steps, launches, the fine / median
+               ratios and budget loss, and one step taken twice from one state
+               (`load_state_dict` of a copy), bit-equal
+     encode_triple  the triple-grain yml's DQ-VAE at full width, f32, on the
+               encode batch: seconds, images/s, coarse / median / fine shares,
+               launches, grains and codes against the plain path
   8. sample_cli  `python -m dynamicvectorquantization_torch.sample.val`
                (with grids) and `...sample.images` as subprocesses (this script
                in `--launches-of` mode round each, to count their launches and
                time their sampling calls) on the p6c18 yml with seeded f32
                weights, int8 caches: `sample.val` 5 batches of 8 (the first pays
-               the process's captures, 3 timed, the last traced),
+               the process's captures, 4 timed; none traced),
                `sample.images` one; the pickles, the grid and the eight PNGs
                read back, seconds a batch
+     eval      the evaluation entry points as processes (`evaluate`): FID of
+               `sample.val`'s 40 images against 40 seeded images (seeded
+               InceptionV3 weights; and the proxy features), the first stage's
+               rFID, `codebook_usage`, `codebook_pca`, `parity_report` on
+               stand-ins with its `sample_fid` leg; seconds, values, variant,
+               the InceptionV3 forward's images/s, launches
   9. fit       the port's training command line (`train/cli.py` `main`), called
                in-process on the shipped p6c18 config at full width and depth
                with only data and run-length overrides (synthetic 256^2 images,
@@ -160,6 +180,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -167,6 +188,9 @@ import time
 P6C18 = "configs/stage2/uncond_imagenet_p6c18.yml"
 CLASS_P6C18 = "configs/stage2/class_imagenet_p6c18.yml"
 STAGE1 = "configs/stage1/dqvae-entropy-dual-r05_imagenet.yml"
+DUAL_FEAT = "configs/stage1/dqvae-dual-r-05_imagenet.yml"
+TRIPLE = "configs/stage1/dqvae-triple-r-03-03_imagenet.yml"
+EVAL_DUMP = os.path.abspath(os.path.join("build", "eval_dump"))  # sample_cli's pickles, for eval
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 # f32 without tensor cores; bf16 and TF32 dense on the tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
@@ -184,7 +208,13 @@ DROPOUT_SEED = 0x5EED5EED5EED
 F9_MISMATCH_SHARE = 0.05
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1018,26 +1048,30 @@ def kernel_value_counts(torch, images, nb=32, sigma=0.01, bin_range=(-1.0, 1.0))
 
 def check_patch_entropy(torch, dev):
     """Kernel #3 on f32 images and on bf16 images (the first stage in bf16,
-    whose gray image the kernel rounds as the JAX package does); returns the
-    two cases. The bound counts the bytes (image read once, map written once)
-    and six f32 operations for each kernel value that is not +0 in f32 on
-    these images (the only ones the work needs); the replaced one-block-per-
-    patch kernel is timed beside it (`before_ms`)."""
+    whose gray image the kernel rounds as the JAX package does) at 16^2
+    patches, and on f32 images at 32^2 patches (1,024 pixels a patch over the
+    same two warps: `TripleGrainFixedEntropyRouter`'s patches on a 256^2
+    triple-grain model); returns the three cases. The bound counts the bytes
+    (image read once, map written once) and six f32 operations for each
+    kernel value that is not +0 in f32 on these images (the only ones the work
+    needs); the replaced one-block-per-patch kernel is timed beside it
+    (`before_ms`)."""
     from dynamicvectorquantization_torch.ops.entropy import (
         patch_entropy, patch_entropy_plain, window_half_width)
 
-    b, size, p, nb = 8, 256, 16, 32
-    tol = 1e-5  # f32 sums of 256 kernel values and 32 p log p terms in another order
+    b, size, nb = 8, 256, 32
+    # f32 sums of 256 (1,024) kernel values and 32 p log p terms in another order
+    tol = 1e-5
     cases = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, p in ((torch.float32, 16), (torch.bfloat16, 16), (torch.float32, 32)):
         elem = torch.finfo(dtype).bits // 8
         g = torch.Generator(device=dev).manual_seed(4)
         sets = [(smooth_and_noisy_images(torch, dev, g).to(dtype),)
                 for _ in range(n_sets(b * size * size * 3 * elem))]
-        out = patch_entropy(*sets[0])
-        again = patch_entropy(*sets[0])
-        ref = patch_entropy_plain(*sets[0])
-        before = block_patch_entropy(torch, *sets[0])
+        out = patch_entropy(*sets[0], p)
+        again = patch_entropy(*sets[0], p)
+        ref = patch_entropy_plain(*sets[0], p)
+        before = block_patch_entropy(torch, *sets[0], p)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         nonzero, evaluated, outside = kernel_value_counts(torch, *sets[0])
@@ -1055,16 +1089,19 @@ def check_patch_entropy(torch, dev):
                     window_half_width=window_half_width(nb, 0.01, (-1.0, 1.0)),
                     all_values_bound_ms=bound(n_bytes, 6 * n_exp, "float32")[0],
                     library_ms=None)
-        time_into(case, "kernel", torch, patch_entropy, sets, only="patch_entropy")
-        time_into(case, "before", torch, lambda x: block_patch_entropy(torch, x), sets,
+        time_into(case, "kernel", torch, lambda x: patch_entropy(x, p), sets,
                   only="patch_entropy")
-        time_into(case, "plain", torch, patch_entropy_plain, sets)
+        time_into(case, "before", torch, lambda x: block_patch_entropy(torch, x, p), sets,
+                  only="patch_entropy")
+        time_into(case, "plain", torch, lambda x: patch_entropy_plain(x, p), sets)
         case["bound_share"] = case["bound_ms"] / case["kernel_ms"]
         emit(case)
-        require(err <= tol, f"patch_entropy disagrees in {dtype}: {err}")
+        require(err <= tol, f"patch_entropy disagrees in {dtype} at {p}^2: {err}")
         require(case["before_max_abs_err"] <= tol,
-                f"the replaced entropy kernel disagrees in {dtype}: {case['before_max_abs_err']}")
-        require(case["bit_reproducible"], f"patch_entropy is not bit-reproducible in {dtype}")
+                f"the replaced entropy kernel disagrees in {dtype} at {p}^2: "
+                f"{case['before_max_abs_err']}")
+        require(case["bit_reproducible"],
+                f"patch_entropy is not bit-reproducible in {dtype} at {p}^2")
         require(outside == 0, f"the window skips nonzero kernel values: {case}")
         cases.append(case)
     return cases
@@ -1139,7 +1176,10 @@ def check_strided_conv(torch, dev):
     dtype: f32 sums of the bf16 products and the bf16 bias, one rounding; the
     tensor-core kernel, held to the plain version's rounding: every output
     within one bf16 ulp, at most 1 % of them differing at all, with the FMA
-    kernel's time beside it); returns the f32 and the bf16 cases."""
+    kernel's time beside it); then in f32 at the triple-grain encoder's fifth
+    level, 16^2 x 512 -> 8^2, with the tiling the kernel reports it took
+    (`last_f32_tiling`). Returns the f32 and
+    the bf16 cases of the four levels, and the triple-grain case."""
     import torch.nn.functional as F
 
     from dynamicvectorquantization_torch.ops.downsample import (
@@ -1152,7 +1192,8 @@ def check_strided_conv(torch, dev):
         elem = torch.finfo(dtype).bits // 8
         g = torch.Generator(device=dev).manual_seed(5)
         cases = []
-        for b, c, hw in ((8, 128, 256), (8, 128, 128), (8, 256, 64), (8, 256, 32)):
+        for b, c, hw in ((8, 128, 256), (8, 128, 128), (8, 256, 64), (8, 256, 32),
+                         *(() if bf16 else ((8, 512, 16),))):
             w = ((torch.rand((c, c, 3, 3), generator=g, device=dev) * 2 - 1)
                  / (9 * c) ** 0.5).to(dtype)
             bias = ((torch.rand((c,), generator=g, device=dev) * 2 - 1) / (9 * c) ** 0.5).to(dtype)
@@ -1191,7 +1232,8 @@ def check_strided_conv(torch, dev):
                 # f32 sums of 9 C <= 2304 products (|y| < ~5) in another order; the blocked
                 # kernel sums in the FMA kernel's order, so their outputs are equal
                 case.update(tol=1e-4, equal_to_fma_kernel=bool(torch.equal(
-                    out, fma_strided_conv(torch, *sets[0]))))
+                    out, fma_strided_conv(torch, *sets[0]))),
+                    **strided_conv3x3_down.last_f32_tiling)
                 ok = (case["max_abs_err"] <= 1e-4 and tc == 0 and blocked == 1
                       and case["equal_to_fma_kernel"])
             ok = ok and case["bit_reproducible"]
@@ -1215,7 +1257,7 @@ def check_strided_conv(torch, dev):
             require(ok, f"strided_conv3x3_down disagrees at {case['shape']} {dname}: {case}")
             cases.append(case)
         by_dtype[dname] = cases
-    return by_dtype["float32"], by_dtype["bfloat16"]
+    return by_dtype["float32"][:4], by_dtype["bfloat16"], by_dtype["float32"][4]
 
 
 def close(out, ref, atol, rtol=0.0):
@@ -1334,7 +1376,8 @@ def check_attention_backward(torch, dev):
     # training: one non-causal f32 head of 256 channels over 32 x 32 positions, and of 512
     # over 16 x 16, in f32 and in bf16 (every bf16 shape on the tensor cores, with the FMA
     # family's times beside it; f32 at hd 64 / 128 on the 3xTF32 forward and backward, the
-    # square tiles held to the same tolerance and timed beside them)
+    # square tiles held to the same tolerance and timed beside them); last, the triple-grain
+    # encoder's coarse head: one f32 head of 512 over 8 x 8 positions (T below a row tile)
     for (b, t, d), n_head, causal, dtype in (
             ((8, TRAIN_T, 1024), 8, True, torch.bfloat16),
             ((2, TRAIN_T, 1024), 8, True, torch.float32),
@@ -1344,7 +1387,8 @@ def check_attention_backward(torch, dev):
             ((8, 1024, 256), 1, False, torch.float32),
             ((8, 256, 512), 1, False, torch.float32),
             ((8, 1024, 256), 1, False, torch.bfloat16),
-            ((8, 256, 512), 1, False, torch.bfloat16)):
+            ((8, 256, 512), 1, False, torch.bfloat16),
+            ((8, 64, 512), 1, False, torch.float32)):
         hd = d // n_head
         scale = hd ** -0.5
         dname = str(dtype).split(".")[-1]
@@ -1795,7 +1839,9 @@ def profile_device_time(torch, fn, n_top=8, groups=None):
     start to the last one's end (`device_window_ms`), the share of that
     window the device was idle (`device_idle_share`: busy and window from the
     same traced call, since every traced kernel runs a little longer than an
-    untraced one), and the `n_top` kernels that take most of the summed time
+    untraced one), the stream's time from before the call to after it by
+    CUDA events (`device_stream_ms`: a window much shorter than it means the
+    trace lost intervals), and the `n_top` kernels that take most of the summed time
     (ms summed per name over the call); with `groups` ({label: part of a
     kernel name}) also the summed ms of each group."""
     from torch.autograd import DeviceType
@@ -1805,8 +1851,11 @@ def profile_device_time(torch, fn, n_top=8, groups=None):
 
     fn()  # warm-up outside the trace
     torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
     by_name = {}
     intervals = []
@@ -1821,6 +1870,7 @@ def profile_device_time(torch, fn, n_top=8, groups=None):
                for label, part in (groups or {}).items()}
     return {"device_busy_ms": busy if busy > 0 else None,  # None: the trace held no device time
             "device_time_summed_ms": sum(by_name.values()), "device_window_ms": window,
+            "device_stream_ms": start.elapsed_time(end),
             "device_idle_share": 1.0 - busy / window if busy > 0 else None,
             "device_ops": len(intervals), "top": [[name[:80], ms] for name, ms in top],
             "groups": grouped}
@@ -1859,6 +1909,8 @@ def reset_launches():
                      "device_scalar_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
+        if hasattr(fn, "f32_tiling_launches"):
+            fn.f32_tiling_launches = dict.fromkeys(fn.f32_tiling_launches, 0)
 
 
 def read_launches():
@@ -1874,7 +1926,9 @@ def read_launches():
     two instantiations: `<name>` counts the f32 launches, `<name>_bf16` the
     bf16 ones; `strided_conv3x3_down_tc` counts those of the bf16 launches
     that ran the tensor-core kernel, `strided_conv3x3_down_f32_blocked` those
-    of the f32 launches that ran the blocked f32 kernel."""
+    of the f32 launches that ran the blocked f32 kernel, and
+    `strided_conv3x3_down_f32_{large,mid,small}` those of them by the tiling
+    the kernel reported."""
     counts = {name: fn.launches for name, fn in wrappers().items()}
     for name in ATTENTION:
         fn = wrappers()[name]
@@ -1893,6 +1947,8 @@ def read_launches():
     conv = wrappers()["strided_conv3x3_down"]
     counts["strided_conv3x3_down_tc"] = conv.tc_launches
     counts["strided_conv3x3_down_f32_blocked"] = conv.f32_blocked_launches
+    for tiling, n in conv.f32_tiling_launches.items():
+        counts[f"strided_conv3x3_down_f32_{tiling.lower()}"] = n
     return counts
 
 
@@ -2473,40 +2529,14 @@ def train(torch, dev, card, batch=8, n_images=16, timed_steps=4, compute_dtype="
     return res, streams, trainer
 
 
-def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
-    """Stage-1 (DQ-VAE + GAN) training of the shipped dual-grain config at
-    full width and depth, f32, or with `compute_dtype` "bfloat16" (the
-    DQ-VAE's bf16 compute mode, `model.params.compute_dtype=bfloat16` on the
-    command line: bf16 towers over f32 parameters)."""
-    from dynamicvectorquantization_torch.config.yaml_config import load_config
-    from dynamicvectorquantization_torch.nn.blocks import AttnBlock
-    from dynamicvectorquantization_torch.train.stage1 import B1, Stage1Trainer
-    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+def kernel_vs_plain_step(torch, dev, card, model, trainer, x, restore, config_path, phase,
+                         dname, batch, lr, bf16):
+    """`train1`'s comparison: one inference forward and one training step
+    through the kernels (twice) and through the plain versions, from the same
+    state and generator seed."""
+    from dynamicvectorquantization_torch.train.stage1 import B1
 
-    bf16 = compute_dtype == "bfloat16"
-    dname = "bfloat16 towers over f32 parameters" if bf16 else "float32"
-    overrides = ["model.params.compute_dtype=bfloat16"] if bf16 else []
-    config = load_config([STAGE1], overrides)["model"]
-    lr = config["base_learning_rate"] * batch  # the reference's base_learning_rate x batch
-    t0 = time.perf_counter()
-    with torch.device(dev):
-        model = instantiate_from_config(config)
-    trainer = Stage1Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev)
-    trainer.init_state(torch.Generator(device=dev).manual_seed(0))
-    load_s = time.perf_counter() - t0
-    loss = model.loss
-    n_attn = sum(isinstance(m, AttnBlock) for m in (*model.encoder.modules(),
-                                                     *model.decoder.modules()))
-    g = torch.Generator(device=dev).manual_seed(6)
-    x = smooth_and_noisy_images(torch, dev, g, b=batch, size=model.encoder.resolution)
     ema_names = ("weight", "cluster_size_ema", "embed_ema")
-
-    start = {k: v.clone() for k, v in model.state_dict().items()}
-
-    def restore():
-        model.load_state_dict(start)
-        trainer.init_state()
-
     # (0) one inference forward through each path, from the same state: where the two
     # paths part (the step below compares what follows from it)
     feats = {}
@@ -2581,7 +2611,7 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
                if bf16 else dict(feature_rel_l2_diff=1e-4, codes_differ_share=1e-3,
                                  rec_rel_l2_diff=1e-4))
     forward_diff["codes_differ_share"] = forward_diff["codes_differ"] / forward_diff["codes"]
-    compare = dict(phase="train1", step="kernel_vs_plain", config=STAGE1, dtype=dname,
+    compare = dict(phase=phase, step="kernel_vs_plain", config=config_path, dtype=dname,
                    batch=batch, lr=lr, logs_kernel=kr["logs"], logs_plain=pr["logs"],
                    log_max_rel_diff=max(log_rel.values()), log_tol=log_tol,
                    grad_rel_l2_diff=grad_rel, grad_tol=grad_tol,
@@ -2604,6 +2634,53 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
     require(restart_differs <= (4 if bf16 else 0) and max(ema_held.values()) <= ema_tol,
             f"EMA codebook kernel vs plain: {ema_err}, {restart_differs} restart decisions differ")
     del results, kr, pr
+
+
+
+def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None, config_path=STAGE1,
+           phase="train1", compare=True, resume=False):
+    """Stage-1 (DQ-VAE + GAN) training of a shipped stage-1 config (the
+    dual-grain entropy one unless `config_path` names another) at full width
+    and depth, f32, or with `compute_dtype` "bfloat16" (the DQ-VAE's bf16
+    compute mode, `model.params.compute_dtype=bfloat16` on the command line:
+    bf16 towers over f32 parameters). `compare`: first one step through the
+    kernels against one through the plain versions; `resume`: last, one step
+    taken twice from the same state (the second after `load_state_dict` of a
+    copy taken before the first), with cuDNN's deterministic algorithms, which
+    must agree bit for bit (logs, every parameter and buffer, the generator)."""
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+    from dynamicvectorquantization_torch.nn.blocks import AttnBlock, Downsample
+    from dynamicvectorquantization_torch.train.stage1 import Stage1Trainer
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    bf16 = compute_dtype == "bfloat16"
+    dname = "bfloat16 towers over f32 parameters" if bf16 else "float32"
+    overrides = ["model.params.compute_dtype=bfloat16"] if bf16 else []
+    config = load_config([config_path], overrides)["model"]
+    lr = config["base_learning_rate"] * batch  # the reference's base_learning_rate x batch
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = instantiate_from_config(config)
+    trainer = Stage1Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev)
+    trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+    load_s = time.perf_counter() - t0
+    loss = model.loss
+    n_attn = sum(isinstance(m, AttnBlock) for m in (*model.encoder.modules(),
+                                                     *model.decoder.modules()))
+    n_down = sum(isinstance(m, Downsample) and m.with_conv for m in model.encoder.modules())
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = smooth_and_noisy_images(torch, dev, g, b=batch, size=model.encoder.resolution)
+    ema_names = ("weight", "cluster_size_ema", "embed_ema")
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def restore():
+        model.load_state_dict(start)
+        trainer.init_state()
+
+    if compare:
+        kernel_vs_plain_step(torch, dev, card, model, trainer, x, restore, config_path, phase,
+                             dname, batch, lr, bf16)
 
     # (b) timed steps on the kernel path, (c) launches per step, (d) what moved
     restore()
@@ -2672,9 +2749,12 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
     conv = "strided_conv3x3_down_bf16" if bf16 else "strided_conv3x3_down"
     family, other = ("_tc", "") if bf16 else ("", "_tc")
     # the f32 ones on the blocked f32 downsample and the register-blocked attention kernels
-    expected = {"vq_nearest_train": 2, "vq_nearest": 0, "patch_entropy": 2,
-                "patch_entropy_bf16": 0, conv: 8, "strided_conv3x3_down_tc": 8 if bf16 else 0,
-                "strided_conv3x3_down_f32_blocked": 0 if bf16 else 8,
+    # (the entropy router's configs only; two forwards a step, each through every
+    # Downsample: 4 levels dual-grain, 5 triple-grain)
+    expected = {"vq_nearest_train": 2, "vq_nearest": 0,
+                "patch_entropy": 2 if model.use_entropy else 0, "patch_entropy_bf16": 0,
+                conv: 2 * n_down, "strided_conv3x3_down_tc": 2 * n_down if bf16 else 0,
+                "strided_conv3x3_down_f32_blocked": 0 if bf16 else 2 * n_down,
                 f"fused_attention_forward{family}": 2 * n_attn,
                 f"fused_attention_backward{family}": n_attn, f"fused_attention_forward{other}": 0,
                 f"fused_attention_backward{other}": 0,
@@ -2682,8 +2762,16 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
                 "fused_attention_backward_wide_f32": 0 if bf16 else n_attn}
     step_ms = step_s * 1e3
     busy_ms = prof["device_busy_ms"]
-    res = dict(phase="train1", step="timed", config=STAGE1, dtype=dname, batch=batch, lr=lr,
-               image=list(x.shape[1:]), attn_blocks=n_attn,
+    resumed = resume_one_step(torch, trainer, x) if resume else None
+    res = dict(phase=phase, step="timed", config=config_path, dtype=dname, batch=batch, lr=lr,
+               image=list(x.shape[1:]), attn_blocks=n_attn, downsamples=n_down,
+               grains=model.encoder.grains,
+               gumbel_gate=model.encoder.gumbel_shape(batch) is not None,
+               fine_ratio=[step["train_fine_ratio"] for step in logs],
+               median_ratio=[step["train_median_ratio"] for step in logs
+                             if "train_median_ratio" in step],
+               budget_loss=[step["train_budget_loss"] for step in logs],
+               resume_one_step=resumed,
                params_autoencoder=sum(p.numel() for p in trainer.ae_params.values()),
                params_discriminator=sum(p.numel() for p in trainer.disc_params.values()),
                params_lpips=sum(p.numel() for p in loss.perceptual_loss.parameters()),
@@ -2737,6 +2825,223 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None):
                 f"{name} launched {step_launches[name]} times per stage-1 step, expected {want}")
     require(eval_launches["vq_nearest"] == 1 and eval_launches["vq_nearest_train"] == 0
             and not updates, "eval_step should search without statistics or an EMA update")
+    require(not resume or resumed["bit_equal"], f"{phase}: the resumed step differs: {resumed}")
+    return res
+
+
+def resume_one_step(torch, trainer, x):
+    """One step taken twice from the same state, the second after
+    `load_state_dict` of a copy of the state taken before the first, with
+    cuDNN's deterministic algorithms: whether logs, parameters, buffers,
+    both optimizers' moments and the generator agree bit for bit."""
+    import copy
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        state = copy.deepcopy(trainer.state_dict())
+        runs = []
+        for _ in range(2):
+            logs = trainer.train_step(x)
+            after = copy.deepcopy(trainer.state_dict())
+            runs.append(({k: v.clone() for k, v in logs.items()}, after))
+            trainer.load_state_dict(copy.deepcopy(state))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (la, sa), (lb, sb) = runs
+    differ = [k for k in la if not torch.equal(la[k], lb[k])]
+    differ += [f"model.{k}" for k in sa["model"] if not torch.equal(sa["model"][k],
+                                                                    sb["model"][k])]
+    for opt in ("ae_opt", "disc_opt"):
+        differ += [f"{opt}.{part}.{k}" for part in ("m", "v") for k in sa[opt][part]
+                   if not torch.equal(sa[opt][part][k], sb[opt][part][k])]
+    differ += ["generator"] * (not torch.equal(sa["generator"], sb["generator"]))
+    return {"bit_equal": not differ, "differ": differ[:10], "step": sa["step"],
+            "compared": len(la) + len(sa["model"]) + 2 * sum(len(sa[o]["m"])
+                                                             for o in ("ae_opt", "disc_opt"))}
+
+
+def encode_triple(torch, dev, card, batch=8, reps=5):
+    """The shipped triple-grain yml's DQ-VAE (`TripleGrainEncoder`, F = 32 /
+    16 / 8, the feature router) at full width, f32, seeded weights, on the
+    encode cell's seeded batch: encode seconds and images/s, the coarse,
+    median and fine shares, the launches of one encode, a traced call; the
+    grain cells and codes against the plain path's."""
+    from dynamicvectorquantization_torch.nn.blocks import AttnBlock, Downsample
+    from dynamicvectorquantization_torch.utils.model_loading import load_first_stage_model
+
+    t0 = time.perf_counter()
+    model = load_first_stage_model(TRIPLE, device=dev)
+    load_s = time.perf_counter() - t0
+    n_attn = sum(isinstance(m, AttnBlock) for m in model.encoder.modules())
+    n_down = sum(isinstance(m, Downsample) and m.with_conv for m in model.encoder.modules())
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = smooth_and_noisy_images(torch, dev, g, b=batch, size=model.encoder.resolution)
+    feats = {}
+    hook = model.quant_conv.register_forward_hook(lambda m, i, o: feats.__setitem__("h", o))
+    with torch.inference_mode():
+        model.encode(x)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        quant, _, info, grain, gate, _ = model.encode(x)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        h_k = feats["h"]
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            model.encode(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        prof = profile_device_time(torch, lambda: model.encode(x))
+        dec = model.decode(quant)
+        with plain_encode_path():
+            _, _, info_p, grain_p, _, _ = model.encode(x)
+            h_p = feats["h"]
+    hook.remove()
+    encode_s = spread(times)["median"]
+    same = grain.eq(grain_p).repeat_interleave(4, 1).repeat_interleave(4, 2)
+    codes_differ = int(((info[2] != info_p[2]) & same).sum())
+    shares = {name: (grain == i).float().mean().item()
+              for i, name in enumerate(("coarse", "median", "fine"))}
+    busy_ms = prof["device_busy_ms"]
+    res = dict(phase="encode_triple", config=TRIPLE, dtype="float32", batch=batch,
+               image=list(x.shape[1:]), load_s=spread([load_s]), grain_shares=shares,
+               codes_per_image=int(quant.shape[1] * quant.shape[2]), attn_blocks=n_attn,
+               downsamples=n_down, gate_shape=list(gate.shape),
+               grain_cells_differ=int((grain != grain_p).sum()), codes_differ=codes_differ,
+               codes=info[2].numel(),
+               feature_rel_l2_diff=((h_k - h_p).norm() / h_p.norm()).item(),
+               launches=launches, encode_s=encode_s, encode_s_spread=spread(times),
+               images_per_s=batch / encode_s, device_busy_ms=busy_ms,
+               device_idle_share=prof["device_idle_share"],
+               device_idle_share_vs_step_ms=busy_ms and 1.0 - busy_ms / (encode_s * 1e3),
+               device_time_summed_ms=prof["device_time_summed_ms"],
+               device_window_ms=prof["device_window_ms"],
+               device_stream_ms=prof["device_stream_ms"], device_ops=prof["device_ops"],
+               top_kernels=prof["top"], card=card)
+    emit(res)
+    require(quant.shape == (batch, 32, 32, model.quantize.codebook_dim)
+            and bool(torch.isfinite(dec).all()) and dec.shape == x.shape,
+            "triple-grain encode of the wrong shape or not finite")
+    require(abs(sum(shares.values()) - 1.0) < 1e-6, f"grain shares {shares}")
+    require(res["feature_rel_l2_diff"] <= 1e-4 and res["grain_cells_differ"] <= 1
+            and codes_differ <= 1e-3 * res["codes"], f"triple encode kernel vs plain: {res}")
+    for name, want in (("vq_nearest", 1), ("patch_entropy", 0), ("strided_conv3x3_down", n_down),
+                       ("strided_conv3x3_down_f32_blocked", n_down),
+                       ("fused_attention_forward", n_attn),
+                       ("fused_attention_forward_wide_f32", n_attn)):
+        require(launches[name] == want,
+                f"{name} launched {launches[name]} times per triple encode, expected {want}")
+    return res
+
+
+def evaluate(torch, dev, card, n_images=40):
+    """The evaluation entry points as processes of `python -m
+    dynamicvectorquantization_torch.eval.<name>` (each through this script's
+    `--launches-of`, which counts its launches). Stand-ins: 40 seeded 256^2
+    images written as `.npy` files; seeded InceptionV3 weights in a file
+    (`DQVQ_INCEPTION_WEIGHTS`; `eval/inception.py` `seeded_state_dict`,
+    He-normal convolutions, so the features depend on the input); the p6c18
+    model of `sample_cli` (seed 0) written as a stage-2 checkpoint, and its
+    first stage as a reference-named `.ckpt`. Runs: FID between
+    `sample_cli`'s `sample.val` dump (`EVAL_DUMP`) and the images, with InceptionV3
+    and with the proxy features; the first stage's rFID over the images;
+    `codebook_usage` and `codebook_pca`; `parity_report` on the stand-ins
+    (`recon_tolerance` skipped: no reference repository; `sample_fid`
+    through a `sample.val` process of 8 images; the 1 % verdict off, as the
+    weights are random). Seconds, values, the extractor's variant, the
+    InceptionV3 forward's images/s, launches."""
+    import numpy as np
+
+    from dynamicvectorquantization_torch.data.synthetic import build_pool
+    from dynamicvectorquantization_torch.eval.inception import seeded_state_dict
+    from dynamicvectorquantization_torch.utils.model_loading import load_model_and_variables
+
+    root = os.path.abspath(os.path.join("build", "eval"))
+    shutil.rmtree(root, ignore_errors=True)
+    images = os.path.join(root, "images")
+    os.makedirs(images)
+    pool = build_pool(n_images, 256, seed=18)
+    for i in range(0, n_images, 8):
+        np.save(os.path.join(images, f"val_{i // 8:02d}.npy"), pool[i:i + 8])
+    inception = os.path.join(root, "inception_v3_seeded.pth")
+    torch.save(seeded_state_dict(0), inception)
+    t0 = time.perf_counter()
+    model, sd = load_model_and_variables(P6C18, seed=0, device=dev)
+    stage2, first_stage = os.path.join(root, "stage2.pt"), os.path.join(root, "first_stage.ckpt")
+    torch.save(sd, stage2)
+    torch.save({"state_dict": model.first_stage_model.state_dict()}, first_stage)
+    del model, sd
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    env = dict(os.environ, DQVQ_INCEPTION_WEIGHTS=inception)
+    runs = {}
+
+    def run(name, module, *args):
+        cmd = [sys.executable, os.path.abspath(__file__), "--launches-of",
+               f"dynamicvectorquantization_torch.eval.{module}", *args]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        require(proc.returncode == 0 and len(lines) >= 2,
+                f"eval.{module} ({name}) exited {proc.returncode}: {proc.stderr[-3000:]}")
+        counted = json.loads(lines[-1])
+        runs[name] = dict(process_s=wall, result=json.loads(lines[-2]),
+                          launches={k: v for k, v in counted["launches"].items() if v})
+        return runs[name]["result"]
+
+    stage1_args = ("--yaml_path", STAGE1, "--model_path", first_stage)
+    fid = run("fid", "compute_fid", "--a", EVAL_DUMP, "--b", images, "--batch_size", "40")
+    proxy = run("proxy_fid", "compute_fid", "--a", EVAL_DUMP, "--b", images, "--proxy_features")
+    rfid = run("rfid", "compute_fid", "--rfid", *stage1_args, "--b", images, "--batch_size", "8")
+    usage = run("codebook_usage", "codebook_usage", *stage1_args, "--batch_size", "8",
+                "--max_batches", "5")
+    png = os.path.join(root, "codebook_pca.png")
+    pca = run("codebook_pca", "codebook_pca", *stage1_args, "--out", png)
+    report_path = os.path.join(root, "parity_report.json")
+    parity = run("parity_report", "parity_report", "--yaml_path", STAGE1, "--ref_ckpt",
+                 first_stage, "--images", images, "--stage2_yaml", P6C18, "--stage2_ckpt", stage2,
+                 "--sample_num", "8", "--batch_size", "8",
+                 "--sample_dir", os.path.join(root, "samples"), "--rfid_rel_tol", "1e9",
+                 "--out", report_path)
+    with open(report_path) as f:
+        report = json.load(f)
+    with open(png, "rb") as f:
+        scatter = read_png(f.read())
+    res = dict(phase="eval", images=n_images, dump=EVAL_DUMP, setup_s=setup_s, runs=runs,
+               fid=fid["value_unrounded"], proxy_fid=proxy["value_unrounded"],
+               rfid=rfid["value_unrounded"], variant=fid["variant"],
+               inception_images_per_s={k: r["result"]["feature_images_per_s"]
+                                       for k, r in runs.items()
+                                       if "feature_images_per_s" in r["result"]},
+               codebook_usage_percent=usage["usage_percent"],
+               code_entropy_nats=usage["entropy_nats"],
+               pca_explained_variance=pca["explained_variance_2"],
+               parity={k: report[k] for k in ("verdict", "legs_ran", "legs_skipped", "variant")},
+               parity_legs={leg: {k: v for k, v in report[leg].items() if k != "ckpt"}
+                            for leg in ("ckpt_import", "rfid", "sample_fid")},
+               seconds=sum(r["process_s"] for r in runs.values()) + setup_s, card=card)
+    emit(res)
+    shutil.rmtree(root, ignore_errors=True)
+    require(all(math.isfinite(v) and v >= 0 for v in (res["fid"], res["proxy_fid"], res["rfid"])),
+            f"FID values {res['fid']}, {res['proxy_fid']}, {res['rfid']}")
+    require(fid["images"] == [n_images, n_images] and rfid["images"] == n_images,
+            f"FID over {fid['images']} / rFID over {rfid['images']} images")
+    require(0 < usage["usage_percent"] <= 100 and 0 < pca["explained_variance_2"] <= 1
+            and scatter.shape == (512, 512, 3), f"codebook tools: {usage}, {pca}")
+    require(report["verdict"] == "INCOMPLETE"
+            and report["legs_ran"] == ["ckpt_import", "rfid", "sample_fid"]
+            and list(report["legs_skipped"]) == ["recon_tolerance"]
+            and report["sample_fid"]["samples"] == 8, f"parity report: {res['parity']}")
+    for name in ("rfid", "codebook_usage"):  # the first stage's encode on the card
+        got = runs[name]["launches"]
+        require(all(got.get(k, 0) >= 5 for k in ("vq_nearest", "patch_entropy",
+                                                  "strided_conv3x3_down",
+                                                  "fused_attention_forward")),
+                f"eval.{name} launched {got}")
     return res
 
 
@@ -3157,12 +3462,11 @@ def read_png(data):
 
 
 def run_counting(argv):
-    """`chip_smoke.py --launches-of <module> [--trace-call N] <its arguments>`:
-    run the module as `python -m <module>` does, then print as one JSON line
-    its kernels' launches and each `sample_from_scratch` call's seconds, AR
-    steps and the process's graph captures so far (how `sample_cli` reads
-    its subprocesses); with `--trace-call N` the N-th sampling call (from 1)
-    runs under the profiler."""
+    """`chip_smoke.py --launches-of <module> <its arguments>`: run the module
+    as `python -m <module>` does, then print as one JSON line its kernels'
+    launches and each `sample_from_scratch` call's seconds, AR steps and the
+    process's graph captures so far (how `sample_cli` reads its
+    subprocesses)."""
     import runpy
 
     import torch
@@ -3170,13 +3474,10 @@ def run_counting(argv):
     from dynamicvectorquantization_torch.utils.sample_wall import SamplerCalls
 
     module, argv = argv[0], argv[1:]
-    trace_at = None
-    if argv[:1] == ["--trace-call"]:
-        trace_at, argv = int(argv[1]), argv[2:]
     sys.argv = [module, *argv]
     reset_launches()
     code = 0
-    with SamplerCalls(torch, trace_at) as calls:
+    with SamplerCalls(torch) as calls:
         try:
             runpy.run_module(module, run_name="__main__", alter_sys=True)
         except SystemExit as e:
@@ -3185,14 +3486,15 @@ def run_counting(argv):
     return code
 
 
-def sample_cli(torch, card, reps=3):
+def sample_cli(torch, card, reps=4):
     """Both file entry points, `python -m dynamicvectorquantization_torch.
     sample.val` (with grids) and `...sample.images`, as subprocesses on the
     unconditional p6c18 yml with seeded weights (f32), int8 caches, batches
-    of 8: `sample.val` runs `reps + 2` batches (the first pays the process's
-    graph captures, `reps` are timed, the last sampling call is traced),
-    `sample.images` one (a process's first batch). Their files, each batch's
-    seconds and AR steps, and their launches."""
+    of 8: `sample.val` runs `reps + 1` batches (the first pays the process's
+    graph captures, `reps` are timed; none is traced: `serve` traces the
+    sampler, and a traced call here took ~50 s to process), `sample.images` one (a process's first batch). Their files, each batch's
+    seconds and AR steps, and their launches. `sample.val`'s pickles are
+    moved to `EVAL_DUMP` for the `eval` phase."""
     import pickle
     import shutil
 
@@ -3201,11 +3503,10 @@ def sample_cli(torch, card, reps=3):
     root = os.path.join("build", "sample_cli")
     shutil.rmtree(root, ignore_errors=True)
     runs = {}
-    n_val = reps + 2
+    n_val = reps + 1
     for module, n, extra in (("val", n_val, ["--save_grids"]), ("images", 1, [])):
-        trace = ["--trace-call", str(n)] if module == "val" else []
         cmd = [sys.executable, os.path.abspath(__file__), "--launches-of",
-               f"dynamicvectorquantization_torch.sample.{module}", *trace, "--yaml_path", P6C18,
+               f"dynamicvectorquantization_torch.sample.{module}", "--yaml_path", P6C18,
                "--save_path", os.path.join(root, module), "--batch_size", "8", "--sample_num",
                str(8 * n), "--kv_cache_dtype", "int8", *extra]
         t0 = time.perf_counter()
@@ -3224,16 +3525,9 @@ def sample_cli(torch, card, reps=3):
                             ar_steps=[c["ar_steps"] for c in calls],
                             images=summary["images"], launches=counted["launches"])
         if module == "val":
-            timed = calls[1:reps + 1]
-            step_ms = [c["s"] / c["ar_steps"] * 1e3 for c in timed]
-            traced = calls[-1]
-            busy = traced["busy_ms"] / traced["ar_steps"]
-            runs[module].update(
-                batch_s=spread(seconds[1:reps + 1]), traced_batch_s=seconds[-1],
-                ar_step_ms=spread(step_ms)["median"], ar_step_ms_spread=spread(step_ms),
-                traced_call=traced, busy_ms_per_ar_step=busy,
-                device_idle_share=1.0 - traced["busy_ms"] / traced["window_ms"],
-                device_idle_share_vs_step_ms=1.0 - busy / spread(step_ms)["median"])
+            step_ms = [c["s"] / c["ar_steps"] * 1e3 for c in calls[1:]]
+            runs[module].update(batch_s=spread(seconds[1:]), ar_step_ms=spread(step_ms)["median"],
+                                ar_step_ms_spread=spread(step_ms))
     numpys = os.path.join(root, "val", "numpys")
     pickles = [f"batch_{i:05d}.pkl" for i in range(n_val)]
     require(sorted(os.listdir(numpys)) == pickles, f"val wrote {os.listdir(numpys)}")
@@ -3252,6 +3546,8 @@ def sample_cli(torch, card, reps=3):
                pickle=[list(batch.shape), str(batch.dtype)], grid_shape=list(grid.shape),
                pngs=names, png_shapes=[list(p.shape) for p in pngs], card=card)
     emit(res)
+    shutil.rmtree(EVAL_DUMP, ignore_errors=True)
+    shutil.move(numpys, EVAL_DUMP)
     shutil.rmtree(root, ignore_errors=True)
     require(batch.dtype == np.uint8 and batch.shape == (8, 256, 256, 3),
             f"val pickled {batch.dtype} {batch.shape}")
@@ -3272,8 +3568,8 @@ def http(torch, model, card, reps=3):
     (`serve/http.py` `make_server`) in-process over the loaded model, on
     127.0.0.1 at a free port: the warm-up image (which captures the
     sampler's graphs, before the server listens, as the entry point does),
-    then `reps + 1` POSTs of 2 images (the last traced) and `GET /healthz`;
-    launches of the first POST."""
+    then `reps` POSTs of 2 images and `GET /healthz`; launches of the first
+    POST. No request is traced: `serve` traces the same sampler."""
     import base64
     import threading
     import urllib.request
@@ -3297,9 +3593,7 @@ def http(torch, model, card, reps=3):
         thread.start()
         url = f"http://127.0.0.1:{server.server_address[1]}"
         try:
-            for i in range(reps + 1):
-                if i == reps:
-                    calls.trace_next()
+            for i in range(reps):
                 torch.cuda.synchronize()
                 if i == 0:
                     reset_launches()
@@ -3321,14 +3615,14 @@ def http(torch, model, card, reps=3):
             server.server_close()
             thread.join()
         stats = list(engine.batch_stats)
-        sampling = sampling_numbers(calls, 0, range(1, reps + 1), reps + 1)
+        sampling = sampling_numbers(calls, 0, range(1, reps + 1), None)
     layers = model.transformer.position_layer + model.transformer.content_layer
-    timed = walls[:reps]
+    timed = walls
     res = dict(phase="http", config=P6C18, kv_cache_dtype="int8", max_batch=2,
-               request={"num_images": 2, "seeds": [7 + i for i in range(reps + 1)]},
+               request={"num_images": 2, "seeds": [7 + i for i in range(reps)]},
                status=status, healthz=health, healthz_status=health_status,
                warmup_s=spread([warmup_s]), request_s=spread(timed)["median"],
-               request_s_spread=spread(timed), traced_request_s=walls[-1],
+               request_s_spread=spread(timed),
                images_served_before=served, batch_stats=stats, launches=launches,
                shapes=[list(i.shape) for i in images], sampling=sampling,
                warmup_captures=graphs["captures"] - captured_before["captures"],
@@ -3339,7 +3633,7 @@ def http(torch, model, card, reps=3):
     require(health_status == 200 and health["ok"], f"GET /healthz: status {health_status}")
     require(len(images) == 2 and all(i.shape == (256, 256, 3) for i in images),
             f"POST /generate gave {[i.shape for i in images]}")
-    require(served == 1 and health["images_served"] == served + 2 * (reps + 1),
+    require(served == 1 and health["images_served"] == served + 2 * reps,
             f"images_served {served} after the warm-up, {health['images_served']} after")
     require(launches["decode_attention_int8"] >= layers * stats[1]["ar_steps"],
             "decode_attention_int8 was not launched on every decode step of the request")
@@ -3390,8 +3684,8 @@ def main():
     check_attention_dropout(torch, dev)
     vq_case = check_vq_nearest(torch, dev)
     vq_train_case = check_vq_train(torch, dev)
-    entropy_case, entropy16_case = check_patch_entropy(torch, dev)
-    conv_cases, conv16_cases = check_strided_conv(torch, dev)
+    entropy_case, entropy16_case, entropy32_case = check_patch_entropy(torch, dev)
+    conv_cases, conv16_cases, conv_triple = check_strided_conv(torch, dev)
     ln_fwd_cases, ln_bwd_cases = check_layernorm(torch, dev)
     attn_train_cases, attn_bwd_cases, attn_train_drop_cases, attn_bwd_drop_cases = \
         check_attention_backward(torch, dev)
@@ -3450,7 +3744,20 @@ def main():
     torch.cuda.empty_cache()
     per_step1_bf16 = train1(torch, dev, card, compute_dtype="bfloat16")["launches_per_step"]
     torch.cuda.empty_cache()
+    # the two other shipped stage-1 ymls: the Gumbel-gated feature router, triple grain
+    per_step1_dual_feat = train1(torch, dev, card, config_path=DUAL_FEAT,
+                                 phase="train1_dual_feat", compare=False,
+                                 resume=True)["launches_per_step"]
+    torch.cuda.empty_cache()
+    per_step1_triple = train1(torch, dev, card, config_path=TRIPLE, phase="train1_triple",
+                              compare=False, resume=True)["launches_per_step"]
+    torch.cuda.empty_cache()
+    encoded_triple = encode_triple(torch, dev, card)["launches"]
+    torch.cuda.empty_cache()
     sampled_cli = sample_cli(torch, card)
+    torch.cuda.empty_cache()
+    evaluated = evaluate(torch, dev, card)
+    shutil.rmtree(EVAL_DUMP, ignore_errors=True)
     torch.cuda.empty_cache()
     fitted = fit(torch, card)["launches"]
     torch.cuda.empty_cache()
@@ -3496,7 +3803,11 @@ def main():
                                       for run in sampled_cli["runs"].values())
                             for name in per_step},
              "train1_step": per_step1,
-             "train1_step_bf16": per_step1_bf16, "fit": fitted, "fit1": fitted1}
+             "train1_step_bf16": per_step1_bf16, "train1_dual_feat_step": per_step1_dual_feat,
+             "train1_triple_step": per_step1_triple, "encode_triple": encoded_triple,
+             "eval": {name: sum(run["launches"].get(name, 0)
+                                for run in evaluated["runs"].values()) for name in per_step},
+             "fit": fitted, "fit1": fitted1}
 
     def launched(name):
         """Launches of a row on each driven path (for the attention rows: of
@@ -3526,12 +3837,13 @@ def main():
     fwd_a, fwd_t808, fwd_b, fwd_a16, fwd_b16, fwd_val = attn_cases
     dfwd_a, dfwd_t808, dfwd_b, dfwd_a16, dfwd_b16, dfwd_val = attn_drop_cases
     (fwd_c, fwd_c32, fwd_c32b8, fwd_64, fwd_32, fwd_256, fwd_512, fwd_256b,
-     fwd_512b) = attn_train_cases
-    dfwd_c, dfwd_c32, dfwd_c32b8, dfwd_64, dfwd_32, _, dfwd_512, _, _ = attn_train_drop_cases
+     fwd_512b, fwd_t8) = attn_train_cases
+    (dfwd_c, dfwd_c32, dfwd_c32b8, dfwd_64, dfwd_32, _, dfwd_512, _, _,
+     dfwd_t8) = attn_train_drop_cases
     (bwd_c, bwd_c32, bwd_c32b8, bwd_64, bwd_32, bwd_256, bwd_512, bwd_256b,
-     bwd_512b) = attn_bwd_cases
+     bwd_512b, bwd_t8) = attn_bwd_cases
     (dbwd_c, dbwd_c32, dbwd_c32b8, dbwd_64, dbwd_32, dbwd_256, dbwd_512, dbwd_256b,
-     dbwd_512b) = attn_bwd_drop_cases
+     dbwd_512b, dbwd_t8) = attn_bwd_drop_cases
     # each row's device-seed entries against its by-value entries (`check_device_seeds`)
     seeds_equal = {row: all(device_seeds[f]["device_seed_equal"] for f in families)
                    for row, families in (
@@ -3582,7 +3894,10 @@ def main():
                  ("a_rate0.1", dfwd_a), ("b_hd512_f32", fwd_b), ("b_hd512_f32_rate0.1", dfwd_b),
                  ("a_hd256_with_lse", fwd_256), ("b_hd512_with_lse", fwd_512),
                  ("b_hd512_with_lse_rate0.1", dfwd_512), ("hd32_t300_with_lse", fwd_32),
-                 ("hd32_t300_with_lse_rate0.1", dfwd_32))}}),
+                 ("hd32_t300_with_lse_rate0.1", dfwd_32),
+                 # the triple-grain coarse head's AttnBlock: (8, 64, 512), T below a row tile
+                 ("triple_coarse_t64_hd512_with_lse", fwd_t8),
+                 ("triple_coarse_t64_hd512_with_lse_rate0.1", dfwd_t8))}}),
             # f32 at hd 64 / 128 (the StackGPT's f32 masters: every stage-2 validation
             # batch; f32 stage-2 training), 3xTF32 on the tensor cores; main: the validation
             # shape; the square tiles of fused_attention.cu it replaced timed beside each case
@@ -3626,7 +3941,8 @@ def main():
               "extra": {n_: pick(c, *timed_keys) for n_, c in (
                   ("a_hd256_rate0.1", dbwd_256), ("b_hd512", bwd_512),
                   ("b_hd512_rate0.1", dbwd_512), ("hd32_t300", bwd_32),
-                  ("hd32_t300_rate0.1", dbwd_32))}}),
+                  ("hd32_t300_rate0.1", dbwd_32), ("triple_coarse_t64_hd512", bwd_t8),
+                  ("triple_coarse_t64_hd512_rate0.1", dbwd_t8))}}),
             # f32 at hd 64 / 128 (the StackGPT's f32 masters: f32 stage-2 training), 3xTF32
             # on the tensor cores; main: the f32 stage-2 step's shape at the shipped rate
             # 0.1; the square tiles of fused_attention_bwd.cu it replaced held to the same
@@ -3701,7 +4017,11 @@ def main():
             # patch design at the same inputs; the bound counts the nonzero kernel values
             ("patch_entropy", "patch_entropy.cu",
              "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy_case,
-             pick(entropy_case, *entropy_keys)),
+             pick(entropy_case, *entropy_keys)
+             # 32^2 patches (TripleGrainFixedEntropyRouter on a 256^2 triple-grain model)
+             | {"patch32": pick(entropy32_case, "shape", "patch", "kernel_ms",
+                                "kernel_ms_spread", "plain_ms", "bound_ms", "bound_by",
+                                "bound_share", "max_abs_err", "tol", *entropy_keys)}),
             # bf16 images: the gray image rounded as the JAX package rounds it
             ("patch_entropy_bf16", "patch_entropy.cu",
              "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy16_case,
@@ -3716,7 +4036,17 @@ def main():
               "equal_to_fma_kernel": all(c["equal_to_fma_kernel"] for c in conv_cases),
               "bit_reproducible": all(c["bit_reproducible"] for c in conv_cases),
               "f32_blocked_launches": launched("strided_conv3x3_down_f32_blocked"),
-              "per_level": conv["per_level"]}),
+              # by the tiling the kernel reported it launched
+              "f32_tiling_launches": {t: launched(f"strided_conv3x3_down_f32_{t}")
+                                      for t in ("large", "mid", "small")},
+              "per_level": conv["per_level"],
+              # the triple-grain encoder's fifth level, 16^2 x 512 -> 8^2, and the tiling
+              # the kernel reported (tile: output rows x columns x channels)
+              "triple_level": pick(conv_triple, "shape", "route", "tiling", "tile", "blocks",
+                                   "max_abs_err", "tol",
+                                   "equal_to_fma_kernel", "bit_reproducible", "kernel_ms",
+                                   "kernel_ms_spread", "plain_ms", "library_ms", "fma_kernel_ms",
+                                   "bound_ms", "bound_by")}),
             # the TPU kernel's own dtype: bf16 in, f32 sums, one rounding, on the tensor
             # cores (C a multiple of 8; other C: the FMA kernel, `fma_source`, whose time
             # at the same shapes is `fma_kernel_ms`)

@@ -3,7 +3,8 @@
 Counterpart of `dynamicvectorquantization_tpu/config/registry.py`, holding
 only the targets the ported slices instantiate: the unconditional and the
 class-conditional stage-2 models (`Dualformer`, `ClassCondDualformer`) with
-their label providers, the dual-grain DQ-VAE with its GAN loss, the data
+their label providers, the dual- and triple-grain DQ-VAEs with their routers,
+budget losses and GAN loss, the data
 module with ImageNet and the synthetic datasets. Paths inside this package
 pass through. A data target written as `<package>.data.datasets.<Name>` or
 `<package>.data.synthetic.<Name>` for ANY top-level package (the smoke
@@ -21,10 +22,14 @@ TARGET_ALIASES = {
     "models.stage2_dynamic.dqtransformer_class.Dualformer": f"{_PKG}.models.dqtransformer.ClassCondDualformer",
     "models.stage1_dynamic.dqvae_dual_entropy.DualGrainVQModel": f"{_PKG}.models.dqvae.DualGrainVQModel",
     "models.stage1_dynamic.dqvae_dual_feat.DualGrainVQModel": f"{_PKG}.models.dqvae.DualGrainVQModel",
+    "models.stage1_dynamic.dqvae_triple_feat.TripleGrainVQModel": f"{_PKG}.models.dqvae.TripleGrainVQModel",
     "modules.dynamic_modules.stackgpt.StackGPT": f"{_PKG}.nn.stackgpt.StackGPT",
     "modules.dynamic_modules.EncoderDual.DualGrainEncoder": f"{_PKG}.nn.encoder_dual.DualGrainEncoder",
+    "modules.dynamic_modules.EncoderTriple.TripleGrainEncoder": f"{_PKG}.nn.encoder_triple.TripleGrainEncoder",
     "modules.dynamic_modules.RouterDual.DualGrainFixedEntropyRouter": f"{_PKG}.nn.routers.DualGrainFixedEntropyRouter",
     "modules.dynamic_modules.RouterDual.DualGrainFeatureRouter": f"{_PKG}.nn.routers.DualGrainFeatureRouter",
+    "modules.dynamic_modules.RouterTriple.TripleGrainFeatureRouter": f"{_PKG}.nn.routers.TripleGrainFeatureRouter",
+    "modules.dynamic_modules.RouterTriple.TripleGrainFixedEntropyRouter": f"{_PKG}.nn.routers.TripleGrainFixedEntropyRouter",
     "modules.dynamic_modules.DecoderPositional.Decoder": f"{_PKG}.nn.decoder_positional.PositionalDecoder",
     "modules.dynamic_modules.Decoder.Decoder": f"{_PKG}.nn.decoder_positional.PositionalDecoder",
     "modules.dynamic_modules.permuter.DualGrainSeperatePermuter": f"{_PKG}.models.permuter.DualGrainSeparatePermuter",
@@ -34,6 +39,7 @@ TARGET_ALIASES = {
     "modules.vector_quantization.quantize2_mask.VectorQuantize2": f"{_PKG}.ops.vq.VectorQuantizeEMA",
     "modules.vector_quantization.quantize2.VectorQuantize2": f"{_PKG}.ops.vq.VectorQuantizeEMA",
     "modules.dynamic_modules.budget.BudgetConstraint_RatioMSE_DualGrain": f"{_PKG}.models.budget.BudgetConstraintRatioMSEDualGrain",
+    "modules.dynamic_modules.budget.BudgetConstraint_NormedSeperateRatioMSE_TripleGrain": f"{_PKG}.models.budget.BudgetConstraintNormedSeparateRatioMSETripleGrain",
     "modules.losses.vqperceptual_multidisc.VQLPIPSWithDiscriminator": f"{_PKG}.losses.vqperceptual.VQLPIPSWithDiscriminator",
     "modules.losses.vqperceptual.VQLPIPSWithDiscriminator": f"{_PKG}.losses.vqperceptual.VQLPIPSWithDiscriminator",
     "modules.losses.vqperceptual.DummyLoss": f"{_PKG}.losses.vqperceptual.DummyLoss",

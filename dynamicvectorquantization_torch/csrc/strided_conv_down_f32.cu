@@ -262,9 +262,17 @@ long long n_blocks(int b, int k_out, int ho, int wo) {
          ((k_out + G::BN - 1) / G::BN) * b;
 }
 
+// launches G's kernel; tiling[0..4] receives `id`, G's tile (output rows,
+// columns, channels) and the block count
 template <class G>
 cudaError_t launch(const float* x, const float* wp, const float* bias, float* y, int b, int c_in,
-                   int h, int w, int k_out, int kp, int ho, int wo, cudaStream_t stream) {
+                   int h, int w, int k_out, int kp, int ho, int wo, int id, int* tiling,
+                   cudaStream_t stream) {
+  tiling[0] = id;
+  tiling[1] = G::TH;
+  tiling[2] = TW;
+  tiling[3] = G::BN;
+  tiling[4] = (int)n_blocks<G>(b, k_out, ho, wo);
   auto kernel = strided_conv_down_f32_kernel<G>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::smem);
@@ -295,12 +303,15 @@ extern "C" int dqvq_strided_conv_down_f32_pack(const void* w, void* wp, int c_in
 // x: (b, c_in, h, w) NCHW f32; wp: dqvq_strided_conv_down_f32_pack's output
 // (on a 16-byte boundary); bias: (k_out,) f32; y: (b, k_out, ho, wo) f32 on a
 // 16-byte boundary with ho = (h - 2) / 2 + 1, wo = (w - 2) / 2 + 1; all
-// contiguous. Returns a cudaError_t.
+// contiguous. tiling: 5 ints that receive the tiling launched (0 Large, 1 Mid,
+// 2 Small), its tile (output rows, columns, channels) and its block count.
+// Returns a cudaError_t.
 extern "C" int dqvq_strided_conv_down_f32(const void* x, const void* wp, const void* bias,
                                           void* y, int b, int c_in, int h, int w, int k_out,
-                                          int kp, void* stream) {
+                                          int kp, int* tiling, void* stream) {
   if (b <= 0 || c_in <= 0 || k_out <= 0 || kp < k_out || kp % 4 != 0 || h < 2 || w < 2 ||
-      b > 65535 || reinterpret_cast<size_t>(wp) % 16 != 0 || reinterpret_cast<size_t>(y) % 16 != 0)
+      b > 65535 || tiling == nullptr || reinterpret_cast<size_t>(wp) % 16 != 0 ||
+      reinterpret_cast<size_t>(y) % 16 != 0)
     return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -314,8 +325,8 @@ extern "C" int dqvq_strided_conv_down_f32(const void* x, const void* wp, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the largest tiles that put a block on at least 9 / 10 of the SMs
   if (10 * n_blocks<Large>(b, k_out, ho, wo) >= 9LL * sms)
-    return launch<Large>(fx, fw, fb, fy, b, c_in, h, w, k_out, kp, ho, wo, s);
+    return launch<Large>(fx, fw, fb, fy, b, c_in, h, w, k_out, kp, ho, wo, 0, tiling, s);
   if (10 * n_blocks<Mid>(b, k_out, ho, wo) >= 9LL * sms)
-    return launch<Mid>(fx, fw, fb, fy, b, c_in, h, w, k_out, kp, ho, wo, s);
-  return launch<Small>(fx, fw, fb, fy, b, c_in, h, w, k_out, kp, ho, wo, s);
+    return launch<Mid>(fx, fw, fb, fy, b, c_in, h, w, k_out, kp, ho, wo, 1, tiling, s);
+  return launch<Small>(fx, fw, fb, fy, b, c_in, h, w, k_out, kp, ho, wo, 2, tiling, s);
 }

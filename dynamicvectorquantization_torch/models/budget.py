@@ -8,7 +8,12 @@ squared distance to the target.
 Reference quirk (QUIRKS #1): with `calculate_all=True` the reference returns
 `loss_budget_last + loss_budget_last`, dropping the direct-ratio term.
 Replicated by default; `fix_reference_bug=True` gives `loss_budget +
-loss_budget_last`. The triple-grain loss comes with the triple-grain encoder.
+loss_budget_last`.
+
+The triple-grain loss penalises two ratios separately: the median one (4
+codes a median cell, 1 otherwise, over the median grid's budget) and the
+fine one (16 codes a fine cell, 1 otherwise, over the fine grid's), the
+latter weighted by `gamma`.
 """
 from __future__ import annotations
 
@@ -35,3 +40,26 @@ class BudgetConstraintRatioMSEDualGrain:
                 return loss_budget + loss_last
             return loss_last + loss_last  # reference behaviour
         return loss_budget
+
+
+class BudgetConstraintNormedSeparateRatioMSETripleGrain:
+    def __init__(self, target_fine_ratio=0.0, target_median_ratio=0.0, gamma=1.0,
+                 min_grain_size=8, median_grain_size=16, max_grain_size=32):
+        if target_fine_ratio + target_median_ratio > 1.0:
+            raise ValueError("target_fine_ratio + target_median_ratio exceeds 1")
+        self.target_fine_ratio = target_fine_ratio
+        self.target_median_ratio = target_median_ratio
+        self.gamma = gamma
+        self.min_const = min_grain_size * min_grain_size
+        self.median_const = median_grain_size * median_grain_size - self.min_const
+        self.max_const = max_grain_size * max_grain_size - self.min_const
+
+    def __call__(self, gate):
+        """gate: (B, Hc, Wc, 3) NHWC, grain 0 coarse, 1 median, 2 fine."""
+        gate = gate.float()
+        g0, g1, g2 = gate[..., 0], gate[..., 1], gate[..., 2]
+        beta_median = (1.0 * g0 + 4.0 * g1 + 1.0 * g2).sum() / gate.shape[0] - self.min_const
+        loss_median = (beta_median / self.median_const - self.target_median_ratio) ** 2
+        beta_fine = (1.0 * g0 + 16.0 * g2 + 1.0 * g1).sum() / gate.shape[0] - self.min_const
+        loss_fine = self.gamma * (beta_fine / self.max_const - self.target_fine_ratio) ** 2
+        return loss_fine + loss_median

@@ -1,18 +1,21 @@
 """Stage-1 DQ-VAE (counterpart of
-`dynamicvectorquantization_tpu/models/dqvae.py` `DualGrainVQModel`).
+`dynamicvectorquantization_tpu/models/dqvae.py` `DualGrainVQModel` and
+`TripleGrainVQModel`).
 
   encode(x, train)  -> (quant, emb_loss, (None, None, code), grain_indices, gate, x_entropy)
   decode(q, train, return_pre_out) -> image (and the last conv's input)
   forward(x, train, return_pre_out) -> (dec, diff, grain_indices, gate, x_entropy)
   get_code_emb_with_depth(code) -> codebook embeddings
 
-Holds `encoder` (DualGrainEncoder), `quant_conv`, `quantize` (the codebook),
+Holds `encoder` (DualGrainEncoder, or TripleGrainEncoder in
+`TripleGrainVQModel`), `quant_conv`, `quantize` (the codebook),
 `post_quant_conv` and `decoder` (PositionalDecoder) under the reference
-state_dict names. Patch entropy is computed when the encoder's router is the
-fixed-entropy one (`use_entropy`), as the JAX package decides it from the
-router target. Public layouts follow the JAX package: images and latents are
-NHWC. `loss` is the GAN objective built from `lossconfig` (None, or the
-`DummyLoss` placeholder inside a stage-2 model).
+state_dict names; the encoder's merged map is read under the class's
+`feature_key` (`h_dual`, `h_triple`). Patch entropy is computed when the
+encoder's router is a fixed-entropy one (`use_entropy`), as the JAX package
+decides it from the router target. Public layouts follow the JAX package:
+images and latents are NHWC. `loss` is the GAN objective built from
+`lossconfig` (None, or the `DummyLoss` placeholder inside a stage-2 model).
 
 `compute_dtype` ("bfloat16", as `DQVAENet.compute_dtype` in the JAX
 package) makes the encoder's and decoder's towers and the two 1x1 quant
@@ -27,7 +30,10 @@ The functions are differentiable; inference callers wrap them in
 `torch.no_grad()`. `train=True` makes the quantizer return the EMA
 statistics and update its buffers in place (`commit=False`: search and
 statistics without the update; `generator` draws the restart candidates),
-the step `train/stage1.py` drives. The patch entropy carries no gradient.
+the step `train/stage1.py` drives. A training forward of a Gumbel-gated
+encoder takes its noise as `gumbel_noise` (shape
+`encoder.gumbel_shape(batch)`), or draws it from `generator`. The patch
+entropy carries no gradient.
 """
 from __future__ import annotations
 
@@ -53,6 +59,8 @@ def _with_dtype(cfg, dtype):
 
 
 class DualGrainVQModel(nn.Module):
+    feature_key = "h_dual"
+
     def __init__(self, encoderconfig, decoderconfig, lossconfig, vqconfig, quant_before_dim,
                  quant_after_dim, quant_sample_temperature=0.0, ckpt_path=None, ignore_keys=(),
                  image_key="image", monitor=None, warmup_epochs=0, loss_with_epoch=True,
@@ -101,18 +109,19 @@ class DualGrainVQModel(nn.Module):
                 mod.init_weights(generator)
         self.quantize.init_codebook(generator)
 
-    def encode(self, x, train=False, generator=None, commit=True):
+    def encode(self, x, train=False, generator=None, commit=True, gumbel_noise=None):
         """(B, H, W, 3) NHWC images in [-1, 1] -> (quant (B, Hf, Wf, D),
         emb_loss, (None, None, code (B, Hf, Wf)), grain_indices (B, Hc, Wc),
-        gate (B, Hc, Wc, 2), x_entropy (B, Hc, Wc) or None)."""
+        gate (B, Hc, Wc, n), x_entropy (B, Hc, Wc) or None)."""
         x_entropy = None
         if self.use_entropy:
             x_entropy = patch_entropy(x.detach(), self.entropy_patch_size)
         # contiguous NCHW: a permuted NHWC tensor would make the convs return
         # channels-last tensors, which the Downsample kernel does not take
-        h = self.encoder(x.permute(0, 3, 1, 2).contiguous(), x_entropy, train=train)
+        h = self.encoder(x.permute(0, 3, 1, 2).contiguous(), x_entropy, train=train,
+                         gumbel_noise=gumbel_noise, generator=generator)
         quant, emb_loss, info = self.quantize(
-            self.quant_conv(h["h_dual"]).permute(0, 2, 3, 1),
+            self.quant_conv(h[self.feature_key]).permute(0, 2, 3, 1),
             codebook_mask=h["codebook_mask"], temp=self.quant_sample_temperature,
             train=train, generator=generator, commit=commit)
         return quant, emb_loss, info, h["indices"], h["gate"], x_entropy
@@ -131,10 +140,18 @@ class DualGrainVQModel(nn.Module):
             return out[0].permute(0, 2, 3, 1), out[1]
         return out.permute(0, 2, 3, 1)
 
-    def forward(self, x, train=False, return_pre_out=False, generator=None, commit=True):
+    def forward(self, x, train=False, return_pre_out=False, generator=None, commit=True,
+                gumbel_noise=None):
         """Reconstruction: (dec, diff, grain_indices, gate, x_entropy); `dec`
         is (image, pre_out) with `return_pre_out`."""
         quant, diff, _, grain_indices, gate, x_entropy = self.encode(
-            x, train=train, generator=generator, commit=commit)
+            x, train=train, generator=generator, commit=commit, gumbel_noise=gumbel_noise)
         dec = self.decode(quant, train=train, return_pre_out=return_pre_out)
         return dec, diff, grain_indices, gate, x_entropy
+
+
+class TripleGrainVQModel(DualGrainVQModel):
+    """The triple-grain DQ-VAE (reference `dqvae_triple_feat.py`): the same
+    model over a `TripleGrainEncoder`."""
+
+    feature_key = "h_triple"

@@ -68,7 +68,7 @@ SIGNATURES = {
     "dqvq_strided_conv_down_tc_pack": (_P, _P, _P, _I, _I, _P),
     "dqvq_strided_conv_down_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "dqvq_strided_conv_down_f32_pack": (_P, _P, _I, _I, _I, _P),
-    "dqvq_strided_conv_down_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "dqvq_strided_conv_down_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
 }
 
 # each attention entry beside its `_device_seed` twin, which reads the seed

@@ -32,12 +32,15 @@ tensors autograd differentiates the plain version.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+F32_TILINGS = ("Large", "Mid", "Small")  # the blocked f32 kernel's tilings, by the id it reports
 
 
 def strided_conv3x3_down_plain(x, weight, bias):
@@ -162,7 +165,10 @@ def strided_conv3x3_down(x, weight, bias):
     differentiable. `strided_conv3x3_down.launches` counts kernel launches,
     `.bf16_launches` those of them in bf16, `.tc_launches` those on the
     tensor cores, `.f32_blocked_launches` those on the blocked f32 kernel
-    (each with its weight pack)."""
+    (each with its weight pack), `.f32_tiling_launches` those by the tiling
+    the blocked kernel reported, and `.last_f32_tiling` that report of its
+    latest launch (tiling, tile as output rows x columns x channels,
+    blocks)."""
     if all(t.device.type == "cpu" for t in (x, weight, bias)):
         return strided_conv3x3_down_plain(x, weight, bias)
     return _StridedConvDown.apply(x, weight, bias)
@@ -196,9 +202,10 @@ def _launch(x, weight, bias):
             h, w, k, CANCELLATION, stream)
     elif blocked:
         packed = pack_weight_f32(weight)
+        tiling = (ctypes.c_int * 5)()
         err = cuda_lib.lib().dqvq_strided_conv_down_f32(
             x.data_ptr(), packed.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w, k,
-            packed.shape[2], stream)
+            packed.shape[2], ctypes.addressof(tiling), stream)
     else:
         err = cuda_lib.lib().dqvq_strided_conv_down(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c, h, w, k,
@@ -208,6 +215,11 @@ def _launch(x, weight, bias):
     strided_conv3x3_down.bf16_launches += x.dtype == torch.bfloat16
     strided_conv3x3_down.tc_launches += tc
     strided_conv3x3_down.f32_blocked_launches += blocked
+    if blocked:
+        name = F32_TILINGS[tiling[0]]
+        strided_conv3x3_down.f32_tiling_launches[name] += 1
+        strided_conv3x3_down.last_f32_tiling = {"tiling": name, "tile": list(tiling[1:4]),
+                                                "blocks": tiling[4]}
     return out
 
 
@@ -215,3 +227,5 @@ strided_conv3x3_down.launches = 0
 strided_conv3x3_down.bf16_launches = 0  # those of `launches` in bf16
 strided_conv3x3_down.tc_launches = 0  # those of `launches` on the tensor cores
 strided_conv3x3_down.f32_blocked_launches = 0  # those on the blocked f32 kernel
+strided_conv3x3_down.f32_tiling_launches = dict.fromkeys(F32_TILINGS, 0)  # those by tiling
+strided_conv3x3_down.last_f32_tiling = None  # the blocked kernel's report of its latest launch

@@ -28,9 +28,19 @@ Adam is plain PyTorch (`torch._foreach_*`), with optax's arithmetic; the JAX
 trainer's `optax.adam` also runs outside any kernel. Logs keep the JAX
 names and come back as 0-d tensors on the device.
 
-Not ported (each raises where reached): `remat=True`, the Gumbel router gate
-(`update_router`), `disc_conditional`, ActNorm. The epoch loop, checkpoints
-and data loading live in `train/loop.py`.
+A Gumbel-gated encoder (the feature router with `update_router`, every
+triple-grain encoder) takes one noise tensor per microbatch, drawn on the
+images' device from the step's generator before the autoencoder pass and fed
+to it and to the discriminator pass's fresh forward alike (the JAX trainer
+reuses one key for both). The noise is thus a function of the generator's
+state at the step, which `state_dict()` carries, so a resumed run draws the
+same noise; it follows torch's generator, not JAX's PRNG. Triple-grain
+models log `train_fine_ratio` as the share of fine cells (grain 2) and
+`train_median_ratio` beside it, as the JAX trainer does.
+
+Not ported (each raises where reached): `remat=True`, `disc_conditional`,
+ActNorm. The epoch loop, checkpoints and data loading live in
+`train/loop.py`.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ import os
 import torch
 import torch.nn.functional as F
 
+from ..nn.encoder_dual import draw_gumbel
 from ..ops.fused_adamw import adamw_scalars
 from ..utils.device import resolve_device
 from .schedules import make_schedule
@@ -94,6 +105,15 @@ class _Adam:
         adam_update([self.params[k].data for k in names], [grads[k] for k in names],
                     [self.m[k] for k in names], [self.v[k] for k in names], lr, c1, c2)
         self.count += 1
+
+
+def grain_ratios(grain_indices, n_grains, split):
+    """`<split>_fine_ratio` (and `<split>_median_ratio` with three grains)."""
+    g = grain_indices
+    if n_grains == 3:
+        return {f"{split}_fine_ratio": (g == 2).float().mean(),
+                f"{split}_median_ratio": (g == 1).float().mean()}
+    return {f"{split}_fine_ratio": (g > 0).float().mean()}
 
 
 def _mean_of(dicts):
@@ -209,12 +229,17 @@ class Stage1Trainer:
             d_weight = d_weight.clamp(max=self.loss.disc_weight_max)
         return d_weight.detach()
 
-    def _ae_grads(self, x, gate_step, generator):
+    def _gumbel_noise(self, x, generator):
+        """The Gumbel noise of one microbatch's training forwards, or None."""
+        shape = self.model.encoder.gumbel_shape(x.shape[0])
+        return None if shape is None else draw_gumbel(shape, generator, x.device)
+
+    def _ae_grads(self, x, gate_step, generator, noise):
         """(logs, gradients of the autoencoder total by parameter name) of one
         microbatch; updates the EMA buffers and the BatchNorm statistics."""
         loss = self.loss
         (xrec, pre_out), qloss, grain_indices, gate, _ = self.model(
-            x, train=True, return_pre_out=True, generator=generator)
+            x, train=True, return_pre_out=True, generator=generator, gumbel_noise=noise)
         # before g_loss(train=True) moves the BatchNorm statistics this head reads
         d_weight = self._d_weight(x, pre_out)
         nll_loss, rec_loss, p_loss = loss.nll(x, xrec)
@@ -227,19 +252,20 @@ class Stage1Trainer:
         grads = torch.autograd.grad(total, [self.ae_params[k] for k in names], allow_unused=True)
         grads = {k: (torch.zeros_like(self.ae_params[k]) if g is None else g)
                  for k, g in zip(names, grads)}
-        logs = {"train_fine_ratio": (grain_indices > 0).float().mean(),
+        logs = {**grain_ratios(grain_indices, gate.shape[-1], "train"),
                 "train_aeloss": total, "train_rec_loss": rec_loss, "train_nll_loss": nll_loss,
                 "train_p_loss": p_loss, "train_quant_loss": qloss, "train_g_loss": g_loss,
                 "train_d_weight": d_weight, "train_disc_factor": x.new_tensor(disc_factor),
                 "train_budget_loss": budget}
         return {k: v.detach().float() for k, v in logs.items()}, grads
 
-    def _disc_grads(self, x, gate_step, generator):
+    def _disc_grads(self, x, gate_step, generator, noise):
         """(logs, discriminator gradients) of one microbatch, on a fresh
-        training forward of the updated autoencoder that leaves the EMA
-        buffers alone."""
+        training forward of the updated autoencoder (with the autoencoder
+        pass's Gumbel noise) that leaves the EMA buffers alone."""
         with torch.no_grad():
-            xrec = self.model(x, train=True, generator=generator, commit=False)[0]
+            xrec = self.model(x, train=True, generator=generator, commit=False,
+                              gumbel_noise=noise)[0]
         d, dlog = self.loss.d_loss(x, xrec, gate_step, train=True)
         names = list(self.disc_params)
         grads = torch.autograd.grad(d, [self.disc_params[k] for k in names])
@@ -251,15 +277,16 @@ class Stage1Trainer:
         3) NHWC images in [-1, 1], or (accum, B, H, W, 3) with `accum > 1`:
         gradients and logs are averaged over the microbatches, the EMA and
         BatchNorm statistics evolve per microbatch, each optimizer steps
-        once. `generator` draws the codebook's restart candidates (the
-        trainer's own when none is passed). Returns the logs."""
+        once. `generator` draws the Gumbel noise and the codebook's restart
+        candidates (the trainer's own when none is passed). Returns the logs."""
         if generator is None:
             generator = self.generator
         micro = self._microbatches(self._images(x))
+        noises = [self._gumbel_noise(xi, generator) for xi in micro]
         gate_step = self.epoch if self.loss_with_epoch else self.step
         logs = {}
         for opt, fn in ((self.ae_opt, self._ae_grads), (self.disc_opt, self._disc_grads)):
-            results = [fn(xi, gate_step, generator) for xi in micro]
+            results = [fn(xi, gate_step, generator, n) for xi, n in zip(micro, noises)]
             logs.update(_mean_of([r[0] for r in results]))
             opt.step(_mean_of([r[1] for r in results]))
         self.step += 1
@@ -274,7 +301,7 @@ class Stage1Trainer:
     @torch.no_grad()
     def eval_step(self, x):
         x = self._images(x)
-        xrec, qloss, grain_indices, _, _ = self.model(x)
+        xrec, qloss, grain_indices, gate, _ = self.model(x)
         nll_loss, rec_loss, p_loss = self.loss.nll(x, xrec)
         return {"val_rec_loss": rec_loss, "val_nll_loss": nll_loss, "val_p_loss": p_loss,
-                "val_quant_loss": qloss, "val_fine_ratio": (grain_indices > 0).float().mean()}
+                "val_quant_loss": qloss, **grain_ratios(grain_indices, gate.shape[-1], "val")}

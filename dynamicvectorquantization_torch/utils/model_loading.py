@@ -1,5 +1,7 @@
-"""Stage-2 model loading (counterpart of
-`dynamicvectorquantization_tpu/utils/model_loading.py`).
+"""Model loading (counterpart of
+`dynamicvectorquantization_tpu/utils/model_loading.py`): the stage-2 model
+(`load_model_and_variables`) and, for evaluation, a stage-1 config's DQ-VAE
+(`load_first_stage_model`).
 
 `model_path`:
   * None -> seeded random init (explicit `torch.Generator`), with the first
@@ -97,6 +99,28 @@ def load_first_stage(fs_model, path: str):
     directory of a stage-1 run of this package (its newest step): the stage-1
     -> stage-2 handoff. Raises where `path` cannot be read."""
     load_into(fs_model, first_stage_state_dict(path))
+
+
+DUMMY_LOSS = {"target": "modules.losses.vqperceptual.DummyLoss"}
+
+
+def load_first_stage_model(yaml_path, model_path=None, device=None):
+    """A stage-1 config's DQ-VAE for evaluation, on `device` (CUDA unless
+    the caller passes another device), in eval mode: its GAN loss replaced by
+    the `DummyLoss` placeholder (evaluation needs none), its weights from
+    `model_path` through `load_first_stage` (a reference torch file or a
+    stage-1 run's checkpoints) or, without one, seeded (seed 0, as the JAX
+    scripts' `PRNGKey(0)`)."""
+    device = resolve_device(device)
+    config = load_config([yaml_path])["model"]
+    config = {**config, "params": {**config["params"], "lossconfig": DUMMY_LOSS}}
+    with torch.device(device):
+        model = instantiate_from_config(config)
+    if model_path:
+        load_first_stage(model, model_path)
+    else:
+        model.init_weights(torch.Generator(device=device).manual_seed(0))
+    return model.eval()
 
 
 def stage2_state_dict(path: str) -> dict:

@@ -4,9 +4,11 @@ state_dicts.
 The port's modules carry the reference torch parameter names, so these are
 the inverses of the JAX package's `convert_stackgpt_state_dict`,
 `convert_dqvae_state_dict`, `convert_discriminator_state_dict` and
-`convert_lpips_weights` (`utils/torch_ckpt.py`) for the dual-grain DQ-VAE
-and its GAN loss, and `stage1_state_from_flax` for a whole stage-1 training
-state, written anew here: flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and
+`convert_lpips_weights` (`utils/torch_ckpt.py`) for the dual- and
+triple-grain DQ-VAEs (every router's `gate`, `gate_0` / `gate_2` and
+`feature_norm_{fine,median,coarse}`) and their GAN loss, and
+`stage1_state_from_flax` for a whole stage-1 training state, written anew
+here: flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and
 dense kernels (in, out) -> (out, in); `scale` -> `weight`; `embedding` ->
 `weight`; flax's `GroupNorm_0` wrapper level disappears.
 """
@@ -105,7 +107,7 @@ def _encoder_key(mods, tleaf, path) -> str:
         if kind == "downsample":
             return ".".join([f"encoder.down.{i}.downsample", *rest])
         return ".".join([f"encoder.down.{i}.{kind}.{j}", *rest])
-    if sub in ("head_coarse", "head_fine"):
+    if sub in ("head_coarse", "head_median", "head_fine"):
         grain = sub.split("_")[1]
         inner = mods[2]
         if inner in _MID:
@@ -116,14 +118,15 @@ def _encoder_key(mods, tleaf, path) -> str:
         name = mods[2]
         if name in ("gate_0", "gate_2"):
             return f"encoder.router.gate.{name[-1]}.{tleaf}"
-        return f"encoder.router.{name}.{tleaf}"  # gate, feature_norm_{fine,coarse}
+        return f"encoder.router.{name}.{tleaf}"  # gate, feature_norm_{fine,median,coarse}
     raise KeyError(f"unmapped encoder param {'/'.join(path)}")
 
 
 def dqvae_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
     """DQ-VAE flax variables `{"params", "ema"}` -> the port's
-    DualGrainVQModel state_dict (`encoder.*`, `quant_conv.*`, `decoder.*`,
-    `post_quant_conv.*`, `quantize.codebook.{weight,cluster_size_ema,embed_ema}`)."""
+    DualGrainVQModel / TripleGrainVQModel state_dict (`encoder.*`,
+    `quant_conv.*`, `decoder.*`, `post_quant_conv.*`,
+    `quantize.codebook.{weight,cluster_size_ema,embed_ema}`)."""
     sd = _dqvae_params_from_flax(variables.get("params", {}))
     ema = variables.get("ema", {}).get("quantize", {})
     for name, key in (("codebook", "weight"), ("cluster_size_ema", "cluster_size_ema"),

@@ -186,10 +186,23 @@ def test_dual_grain_encoder(dqvae_pair):
 
 
 def test_encoder_gumbel_gate_waits_for_training_slice():
+    """The Gumbel gate (train=True with update_router) is ported: it takes
+    the caller's noise, or draws it from the generator (held to JAX in
+    tests/test_torch_triple.py)."""
     cfg = load_config([DQVAE_TINY])["model"]["params"]["encoderconfig"]
     enc = DualGrainEncoder(**dict(cfg["params"], update_router=True))
-    with pytest.raises(NotImplementedError):
-        enc(torch.zeros(1, 3, 64, 64), torch.zeros(1, 4, 4), train=True)
+    assert enc.gumbel_shape(1) == (1, 4, 4, 2)
+    x = torch.zeros(1, 3, 64, 64, requires_grad=True)
+    noise = torch.tensor([5.0, 0.0]).expand(1, 4, 4, 2)  # coarse wins everywhere
+    out = enc(x, torch.ones(1, 4, 4) * 9.0, train=True, gumbel_noise=noise)
+    assert out["h_dual"].requires_grad and int(out["indices"].sum()) == 0
+    # the one-hot forward, up to (1 + s) - s rounding
+    torch.testing.assert_close(out["gate"].detach(), torch.tensor([1.0, 0.0]).expand(1, 4, 4, 2),
+                               atol=1e-6, rtol=0)
+    drawn = [enc(x, torch.ones(1, 4, 4), train=True,
+                 generator=torch.Generator().manual_seed(3))["gate"] for _ in range(2)]
+    assert torch.equal(drawn[0], drawn[1])
+    assert enc(x, torch.ones(1, 4, 4))["gate"].dtype == torch.int64  # inference: no gate
     # a router that takes no gradient trains; ResnetBlock dropout in training does not
     enc = DualGrainEncoder(**dict(cfg["params"], update_router=False))
     x = torch.zeros(1, 3, 64, 64, requires_grad=True)

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 `dynamicvectorquantization_torch` (and `chip_smoke.py`) loads neither JAX,
-flax, PyYAML, orbax, PIL nor the JAX package (PIL is imported only when an
-image file is opened); entry points refuse to drift to the CPU;
+flax, PyYAML, orbax, PIL, scipy, torchvision nor the JAX package (PIL is
+imported only when an image file is opened); entry points refuse to drift to the CPU;
 `chip_smoke.py` fails without a card and outside the repository."""
 import os
 import shutil
@@ -25,8 +25,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "orbax", "PIL",
-                                    "dynamicvectorquantization_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "orbax", "PIL", "scipy",
+                                    "torchvision", "dynamicvectorquantization_tpu"))
 print(len(names), bad)
 """
 

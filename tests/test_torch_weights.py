@@ -164,4 +164,4 @@ def test_unported_target_raises():
     assert resolve_target("modules.dynamic_modules.stackgpt.StackGPT").startswith(
         "dynamicvectorquantization_torch.")
     with pytest.raises(KeyError):
-        resolve_target("modules.dynamic_modules.EncoderTriple.TripleGrainEncoder")
+        resolve_target("modules.text_encoders.clip_text_encoder.CLIPTextEncoder")
