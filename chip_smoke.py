@@ -138,7 +138,20 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                `dqvae-triple-r-03-03_imagenet.yml`: triple grain) in f32 without
                the plain-path step: timed steps, launches, the fine / median
                ratios and budget loss, and one step taken twice from one state
-               (`load_state_dict` of a copy), bit-equal
+               (`load_state_dict` of a copy), bit-equal; all of these without
+               `remat`, as before it was ported
+     train1_remat  the first yml, f32, batch 8, cuDNN deterministic: one
+               step with `remat` against one without from one state and
+               generator seed, without and with ResnetBlock dropout 0.1 (a yml
+               override): bit-equal, else the largest difference per group
+               within `REMAT_TOL`; the remat step's launches (AttnBlock
+               forwards three a step: the recompute's); timed steps and peak
+               allocated / reserved memory with and without `remat`
+     train1_b30  the first yml at its own batch 30 with `remat` at its
+               default (on), f32 and bf16 towers: as `train1` without the
+               plain-path step (warm-up, launches asserted, 3 timed steps, a
+               traced step with each hand-written kernel's device ms a launch,
+               peak allocated / reserved memory)
      encode_triple  the triple-grain yml's DQ-VAE at full width, f32, on the
                encode batch: seconds, images/s, coarse / median / fine shares,
                launches, grains and codes against the plain path
@@ -168,7 +181,8 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                on the square tiles),
                seconds per epoch by `loop_buckets.json`
   10. fit1     the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
-               8, two epochs of one step, resume)
+               8, two epochs of two steps, resume), with `remat`, the trainer's
+               default on the card
  11. script    the script's seconds
      kernels   one line listing every ported kernel, its launches on each
                driven path (counted through graph replays) and its measured
@@ -1857,12 +1871,16 @@ def profile_device_time(torch, fn, n_top=8, groups=None):
         fn()
         end.record()
         torch.cuda.synchronize()
+    # the raw kineto events, as `utils/step_wall.py` reads them: `prof.events()` builds
+    # the profiler's tree of every host op first, which took most of a phase's time
+    # over a traced batch-30 f32 stage-1 step (~117,000 device ops)
     by_name = {}
     intervals = []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            intervals.append((e.time_range.start / 1e3, e.time_range.end / 1e3))
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            t0, t1 = e.start_ns() / 1e6, e.end_ns() / 1e6
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + (t1 - t0)
+            intervals.append((t0, t1))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
     busy, window = busy_union_ms(intervals), window_ms(intervals)
     require(busy <= window + 1e-9, f"busy {busy} ms outside the traced window {window} ms")
@@ -2638,16 +2656,18 @@ def kernel_vs_plain_step(torch, dev, card, model, trainer, x, restore, config_pa
 
 
 def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None, config_path=STAGE1,
-           phase="train1", compare=True, resume=False):
+           phase="train1", compare=True, resume=False, remat=False):
     """Stage-1 (DQ-VAE + GAN) training of a shipped stage-1 config (the
     dual-grain entropy one unless `config_path` names another) at full width
     and depth, f32, or with `compute_dtype` "bfloat16" (the DQ-VAE's bf16
     compute mode, `model.params.compute_dtype=bfloat16` on the command line:
-    bf16 towers over f32 parameters). `compare`: first one step through the
-    kernels against one through the plain versions; `resume`: last, one step
-    taken twice from the same state (the second after `load_state_dict` of a
-    copy taken before the first), with cuDNN's deterministic algorithms, which
-    must agree bit for bit (logs, every parameter and buffer, the generator)."""
+    bf16 towers over f32 parameters). `remat`: the trainer's option (False
+    here unless given; None is its default, on for the card). `compare`:
+    first one step through the kernels against one through the plain
+    versions; `resume`: last, one step taken twice from the same state (the
+    second after `load_state_dict` of a copy taken before the first), with
+    cuDNN's deterministic algorithms, which must agree bit for bit (logs,
+    every parameter and buffer, the generator)."""
     from dynamicvectorquantization_torch.config.yaml_config import load_config
     from dynamicvectorquantization_torch.nn.blocks import AttnBlock, Downsample
     from dynamicvectorquantization_torch.train.stage1 import Stage1Trainer
@@ -2661,7 +2681,7 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None, config_
     t0 = time.perf_counter()
     with torch.device(dev):
         model = instantiate_from_config(config)
-    trainer = Stage1Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev)
+    trainer = Stage1Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev, remat=remat)
     trainer.init_state(torch.Generator(device=dev).manual_seed(0))
     load_s = time.perf_counter() - t0
     loss = model.loss
@@ -2718,6 +2738,7 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None, config_
         times.append(time.perf_counter() - t0)
     step_s = spread(times)["median"]
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gb = torch.cuda.max_memory_reserved() / 2 ** 30
     prof = profile_device_time(
         torch, lambda: trainer.train_step(x, gen), n_top=14,
         groups={"fused_attention_forward": "fused_attention_fwd_",
@@ -2750,22 +2771,37 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None, config_
     family, other = ("_tc", "") if bf16 else ("", "_tc")
     # the f32 ones on the blocked f32 downsample and the register-blocked attention kernels
     # (the entropy router's configs only; two forwards a step, each through every
-    # Downsample: 4 levels dual-grain, 5 triple-grain)
+    # Downsample: 4 levels dual-grain, 5 triple-grain). Under remat the AttnBlocks run a
+    # third time, in the recompute; the Downsamples, the entropy and the search stay
+    # outside the checkpointed segments
+    fwd = 3 if trainer.remat else 2
     expected = {"vq_nearest_train": 2, "vq_nearest": 0,
                 "patch_entropy": 2 if model.use_entropy else 0, "patch_entropy_bf16": 0,
                 conv: 2 * n_down, "strided_conv3x3_down_tc": 2 * n_down if bf16 else 0,
                 "strided_conv3x3_down_f32_blocked": 0 if bf16 else 2 * n_down,
-                f"fused_attention_forward{family}": 2 * n_attn,
+                f"fused_attention_forward{family}": fwd * n_attn,
                 f"fused_attention_backward{family}": n_attn, f"fused_attention_forward{other}": 0,
                 f"fused_attention_backward{other}": 0,
-                "fused_attention_forward_wide_f32": 0 if bf16 else 2 * n_attn,
+                "fused_attention_forward_wide_f32": 0 if bf16 else fwd * n_attn,
                 "fused_attention_backward_wide_f32": 0 if bf16 else n_attn}
+    # device ms a launch of the five kernels of the step, from the traced step
+    groups = prof["groups"]
+    kernel_ms = {"vq_nearest_train": (groups["vq_nearest_train"], "vq_nearest_train"),
+                 "patch_entropy": (groups["patch_entropy"], "patch_entropy"),
+                 "fused_attention_forward": (groups["fused_attention_forward"],
+                                             f"fused_attention_forward{family}"),
+                 "fused_attention_backward": (groups["fused_attention_backward"]
+                                              + groups["attention_delta"],
+                                              f"fused_attention_backward{family}"),
+                 "strided_conv3x3_down": (groups["strided_conv3x3_down"], conv)}
+    kernel_ms_per_launch = {name: ms / step_launches[key] if step_launches[key] else None
+                            for name, (ms, key) in kernel_ms.items()}
     step_ms = step_s * 1e3
     busy_ms = prof["device_busy_ms"]
     resumed = resume_one_step(torch, trainer, x) if resume else None
     res = dict(phase=phase, step="timed", config=config_path, dtype=dname, batch=batch, lr=lr,
                image=list(x.shape[1:]), attn_blocks=n_attn, downsamples=n_down,
-               grains=model.encoder.grains,
+               grains=model.encoder.grains, remat=trainer.remat,
                gumbel_gate=model.encoder.gumbel_shape(batch) is not None,
                fine_ratio=[step["train_fine_ratio"] for step in logs],
                median_ratio=[step["train_median_ratio"] for step in logs
@@ -2791,7 +2827,9 @@ def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None, config_
                device_time_summed_ms=prof["device_time_summed_ms"],
                device_window_ms=prof["device_window_ms"],
                device_ops=prof["device_ops"], top_kernels=prof["top"],
-               device_ms_by_kernel_group=prof["groups"], peak_memory_gb=peak_gb, card=card)
+               device_ms_by_kernel_group=prof["groups"],
+               kernel_device_ms_per_launch=kernel_ms_per_launch, peak_memory_gb=peak_gb,
+               peak_reserved_gb=reserved_gb, card=card)
 
     # the loss side alone, forward and backward on this batch (CUDA events, 3 calls each):
     # LPIPS to the reconstruction; the discriminator's own objective to its parameters
@@ -2860,6 +2898,145 @@ def resume_one_step(torch, trainer, x):
     return {"bit_equal": not differ, "differ": differ[:10], "step": sa["step"],
             "compared": len(la) + len(sa["model"]) + 2 * sum(len(sa[o]["m"])
                                                              for o in ("ae_opt", "disc_opt"))}
+
+
+# remat against no remat on the card, where they are not bit-equal: logs relative, parameters
+# absolute in units of lr (Adam's first update is +-lr on every entry, so a gradient entry
+# whose sign differs moves its parameter by 2 lr), the rest relative to the largest entry
+REMAT_TOL = {"logs": 1e-5, "autoencoder": 2.02, "discriminator": 2.02, "codebook": 1e-5,
+             "batchnorm": 1e-5, "ae_opt": 1e-4, "disc_opt": 1e-4}
+
+
+def remat_differences(torch, a, b, lr):
+    """The largest difference per group between two (logs, trainer state,
+    generator state) of a step taken with and without remat."""
+    (la, sa, ga), (lb, sb, gb) = a, b
+
+    def rel(x, y):
+        return ((x.float() - y.float()).abs().max() / y.float().abs().max().clamp_min(1e-30)).item()
+
+    groups = {"logs": max(abs(float(la[k]) - float(lb[k])) / max(abs(float(lb[k])), 1e-6)
+                          for k in lb)}
+    ma, mb = sa["model"], sb["model"]
+    for name, keys in (
+            ("autoencoder", [k for k in mb if k.startswith(("encoder.", "decoder.", "quant_conv.",
+                                                           "post_quant_conv."))]),
+            ("discriminator", [k for k in mb if k.startswith("loss.discriminator.")
+                               and "running" not in k and mb[k].is_floating_point()]),
+            ("codebook", [k for k in mb if k.startswith("quantize.")]),
+            ("batchnorm", [k for k in mb if "running" in k])):
+        if name in ("autoencoder", "discriminator"):  # in units of lr
+            groups[name] = max((ma[k] - mb[k]).abs().max().item() for k in keys) / lr
+        else:
+            groups[name] = max(rel(ma[k], mb[k]) for k in keys)
+    for opt in ("ae_opt", "disc_opt"):
+        groups[opt] = max(rel(sa[opt][part][k], sb[opt][part][k])
+                          for part in ("m", "v") for k in sb[opt][part])
+    bit_equal = (all(torch.equal(la[k], lb[k]) for k in lb)
+                 and all(torch.equal(ma[k], mb[k]) for k in mb)
+                 and all(torch.equal(sa[o][p][k], sb[o][p][k]) for o in ("ae_opt", "disc_opt")
+                         for p in ("m", "v") for k in sb[o][p])
+                 and torch.equal(ga, gb))
+    return bit_equal, groups, torch.equal(ga, gb)
+
+
+def train1_remat(torch, dev, card, batch=8, timed_steps=3):
+    """`remat` against no `remat` on the shipped stage-1 yml (f32, batch 8,
+    cuDNN's deterministic algorithms): one step each way from one state and
+    one generator seed, without and with ResnetBlock dropout 0.1 (a yml
+    override), compared bit for bit, else per group against `REMAT_TOL`, the
+    launches of the remat step asserted; then timed steps each way with peak
+    allocated and reserved memory."""
+    import copy
+
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+    from dynamicvectorquantization_torch.nn.blocks import AttnBlock, Downsample
+    from dynamicvectorquantization_torch.train.stage1 import Stage1Trainer
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    pairs, timed = {}, {}
+    try:
+        for dropout in (0.0, 0.1):
+            overrides = [f"model.params.{tower}.params.dropout={dropout}"
+                         for tower in ("encoderconfig", "decoderconfig")] if dropout else []
+            config = load_config([STAGE1], overrides)["model"]
+            lr = config["base_learning_rate"] * batch
+            with torch.device(dev):
+                model = instantiate_from_config(config)
+            trainer = Stage1Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev,
+                                    remat=False)
+            trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+            n_attn = sum(isinstance(m, AttnBlock) for m in (*model.encoder.modules(),
+                                                             *model.decoder.modules()))
+            n_down = sum(isinstance(m, Downsample) and m.with_conv
+                         for m in model.encoder.modules())
+            x = smooth_and_noisy_images(torch, dev, torch.Generator(device=dev).manual_seed(6),
+                                        b=batch, size=model.encoder.resolution)
+            start = copy.deepcopy(trainer.state_dict())
+            runs, memory = {}, {}
+            for remat in (False, True):
+                trainer.load_state_dict(copy.deepcopy(start))
+                trainer.remat = remat
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                gen = torch.Generator(device=dev).manual_seed(11)
+                logs = trainer.train_step(x, gen)
+                torch.cuda.synchronize()
+                launches = read_launches()
+                runs[remat] = ({k: v.clone() for k, v in logs.items()},
+                               copy.deepcopy(trainer.state_dict()), gen.get_state())
+                memory[remat] = dict(peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                                     reserved_gb=torch.cuda.max_memory_reserved() / 2 ** 30)
+            bit_equal, diffs, gen_equal = remat_differences(torch, runs[True], runs[False], lr)
+            expected = {"vq_nearest_train": 2, "patch_entropy": 2,
+                        "strided_conv3x3_down_f32_blocked": 2 * n_down,
+                        "fused_attention_forward_wide_f32": 3 * n_attn,
+                        "fused_attention_backward_wide_f32": n_attn}
+            pairs[str(dropout)] = dict(bit_equal=bit_equal, generator_equal=gen_equal,
+                                       largest_difference=diffs, tol=REMAT_TOL,
+                                       first_step_memory=memory,
+                                       launches_remat_step=launches,
+                                       expected_launches=expected,
+                                       aeloss=float(runs[True][0]["train_aeloss"]))
+            require(gen_equal and (bit_equal or all(diffs[k] <= t for k, t in REMAT_TOL.items())),
+                    f"train1_remat dropout {dropout}: remat step vs step without it: {diffs}")
+            for name, want in expected.items():
+                require(launches[name] == want, f"train1_remat: {name} launched "
+                        f"{launches[name]} times in a remat step, expected {want}")
+            if dropout:
+                require(pairs["0.1"]["aeloss"] != pairs["0.0"]["aeloss"],
+                        "train1_remat: dropout 0.1 left the loss as it was")
+                continue
+            for remat in (True, False):  # timed, each after a step of its own
+                trainer.remat = remat
+                trainer.train_step(x)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for _ in range(timed_steps):
+                    t0 = time.perf_counter()
+                    trainer.train_step(x)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                timed["remat" if remat else "no_remat"] = dict(
+                    step_ms=spread(times)["median"], step_ms_spread=spread(times),
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    peak_reserved_gb=torch.cuda.max_memory_reserved() / 2 ** 30)
+            del trainer, model, start, runs
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    res = dict(phase="train1_remat", config=STAGE1, dtype="float32", batch=batch,
+               cudnn_deterministic=True, pairs=pairs, timed=timed,
+               remat_over_no_remat_step=timed["remat"]["step_ms"] / timed["no_remat"]["step_ms"],
+               card=card)
+    emit(res)
+    return res
 
 
 def encode_triple(torch, dev, card, batch=8, reps=5):
@@ -3101,6 +3278,7 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         whole_dir = _only_dir(root, "whole-")
         whole_hash = _sha256(torch, state_of(whole))
+        remat = getattr(whole, "remat", None)
         del whole
         rows = _rows(whole_dir)
         with open(os.path.join(whole_dir, "loop_buckets.json")) as f:
@@ -3155,6 +3333,7 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
                resume_run_s=spread([resume_s]),
                final_val_whole=val_rows[-1][val_key],
                final_val_resumed=parts_rows[-1].get(val_key), state_sha256_whole=whole_hash,
+               remat=remat,
                state_sha256_resumed=resumed_hash, resumed_rows_equal=rows_equal, card=card)
     emit(res)
     want_rows = [(i, "train") for i in range(k, steps_per_epoch + 1, k)] \
@@ -3206,9 +3385,10 @@ def fit(torch, card):
 
 
 def fit1(torch, card):
-    """Stage 1: the shipped dual-grain DQ-VAE + GAN config. cuDNN picks
-    deterministic convolution algorithms here, so that the resumed run can be
-    held to the uninterrupted one bit for bit."""
+    """Stage 1: the shipped dual-grain DQ-VAE + GAN config, with `remat` (the
+    trainer's default on the card). cuDNN picks deterministic convolution
+    algorithms here, so that the resumed run can be held to the uninterrupted
+    one bit for bit."""
     data = "data.params"
     synthetic = "dynamicvectorquantization_torch.data.synthetic.SyntheticImages"
     overrides = [f"{data}.batch_size=8", f"{data}.num_workers=4"]
@@ -3217,7 +3397,7 @@ def fit1(torch, card):
     saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
-        return fit_through_cli(
+        res = fit_through_cli(
             torch, card, "fit1", STAGE1, overrides, 2, lambda t: t.model.state_dict(),
             "val_rec_loss", ("vq_nearest_train", "vq_nearest", "patch_entropy",
                              "strided_conv3x3_down", "strided_conv3x3_down_f32_blocked",
@@ -3227,6 +3407,8 @@ def fit1(torch, card):
             gb_needed=4, grids=8)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    require(res["remat"] is True, "fit1: the command line's stage-1 trainer ran without remat")
+    return res
 
 
 def runner_numbers(torch, model):
@@ -3744,6 +3926,17 @@ def main():
     torch.cuda.empty_cache()
     per_step1_bf16 = train1(torch, dev, card, compute_dtype="bfloat16")["launches_per_step"]
     torch.cuda.empty_cache()
+    remat8 = train1_remat(torch, dev, card)
+    per_step1_remat = remat8["pairs"]["0.0"]["launches_remat_step"]
+    torch.cuda.empty_cache()
+    # the shipped ymls' own batch 30, remat at its default (on for the card)
+    per_step1_b30 = train1(torch, dev, card, batch=30, phase="train1_b30", compare=False,
+                           remat=None)["launches_per_step"]
+    torch.cuda.empty_cache()
+    per_step1_b30_bf16 = train1(torch, dev, card, batch=30, phase="train1_b30",
+                                compute_dtype="bfloat16", compare=False,
+                                remat=None)["launches_per_step"]
+    torch.cuda.empty_cache()
     # the two other shipped stage-1 ymls: the Gumbel-gated feature router, triple grain
     per_step1_dual_feat = train1(torch, dev, card, config_path=DUAL_FEAT,
                                  phase="train1_dual_feat", compare=False,
@@ -3805,6 +3998,8 @@ def main():
              "train1_step": per_step1,
              "train1_step_bf16": per_step1_bf16, "train1_dual_feat_step": per_step1_dual_feat,
              "train1_triple_step": per_step1_triple, "encode_triple": encoded_triple,
+             "train1_remat_step": per_step1_remat,
+             "train1_b30_step": per_step1_b30, "train1_b30_bf16_step": per_step1_b30_bf16,
              "eval": {name: sum(run["launches"].get(name, 0)
                                 for run in evaluated["runs"].values()) for name in per_step},
              "fit": fitted, "fit1": fitted1}

@@ -9,7 +9,11 @@ composed by `train/stage1.py`, which also forms the adaptive weight
 |d nll / dW| / (|d g / dW| + 1e-4) for the decoder's last conv kernel W.
 
 Images come in NHWC, the layout of the model's public functions, and are
-moved to NCHW for the two conv nets. `disc_conditional` is not ported.
+moved to NCHW for the two conv nets. A conditional discriminator
+(`disc_conditional`, its `input_nc` counting the condition's channels) takes
+`cond` (B, H, W, c) concatenated after the image's channels in `g_loss`,
+`nll_and_g` and `d_loss`, as the JAX module does; the stage-1 trainer, like
+the JAX one, passes none.
 """
 from __future__ import annotations
 
@@ -72,8 +76,7 @@ class VQLPIPSWithDiscriminator(nn.Module):
         super().__init__()
         if disc_loss not in _D_LOSSES:
             raise ValueError(f"disc_loss must be one of {sorted(_D_LOSSES)}, got {disc_loss!r}")
-        if disc_conditional:
-            raise NotImplementedError("disc_conditional is not ported (ROADMAP.md)")
+        self.disc_conditional = disc_conditional
         self.disc_start = disc_start
         self.codebook_weight = codebook_weight
         self.disc_factor = disc_factor
@@ -100,18 +103,24 @@ class VQLPIPSWithDiscriminator(nn.Module):
         rec_mean = rec.mean()
         return rec_mean, rec_mean, p_mean
 
-    def g_loss(self, reconstructions, train: bool = False):
-        return self._g_loss(self.discriminator(_nchw(reconstructions), train=train))
+    def _logits(self, images, cond, train):
+        if cond is not None:
+            images = torch.cat([images, cond], dim=-1)
+        return self.discriminator(_nchw(images), train=train)
 
-    def nll_and_g(self, inputs, reconstructions, train: bool = False):
+    def g_loss(self, reconstructions, cond=None, train: bool = False):
+        return self._g_loss(self._logits(reconstructions, cond, train))
+
+    def nll_and_g(self, inputs, reconstructions, cond=None, train: bool = False):
         """Both targets of the adaptive weight from one reconstruction."""
-        return self.nll(inputs, reconstructions)[0], self.g_loss(reconstructions, train=train)
+        return (self.nll(inputs, reconstructions)[0],
+                self.g_loss(reconstructions, cond, train=train))
 
-    def d_loss(self, inputs, reconstructions, global_step, train: bool = False):
+    def d_loss(self, inputs, reconstructions, global_step, cond=None, train: bool = False):
         """The discriminator objective on detached images: real first, then
         fake, which is the order the BatchNorm statistics see."""
-        logits_real = self.discriminator(_nchw(inputs.detach()), train=train)
-        logits_fake = self.discriminator(_nchw(reconstructions.detach()), train=train)
+        logits_real = self._logits(inputs.detach(), cond, train)
+        logits_fake = self._logits(reconstructions.detach(), cond, train)
         factor = adopt_weight(self.disc_factor, global_step, threshold=self.disc_start)
         d = factor * self._d_loss(logits_real, logits_fake)
         return d, {"disc_loss": d, "logits_real": logits_real.mean(),

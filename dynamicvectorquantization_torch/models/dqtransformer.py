@@ -13,8 +13,11 @@ six stream prefixes.
 Training: `forward` encodes images with the frozen first stage and hands the
 streams to `forward_tokens`, which prefixes them with the condition tokens,
 builds the shifted targets and runs `StackGPT.forward`; `loss` weighs the
-content and position losses. A cached-codes pipeline encodes once
-(`Stage2Trainer.encode_dataset`) and calls `forward_tokens` directly.
+content and position losses. With `activate_sos_for_fine_sequence=False`
+the fine streams go in without their prefix token, as in the JAX model, and
+`sample_from_scratch` raises, as the JAX sampler does. A cached-codes
+pipeline encodes once (`Stage2Trainer.encode_dataset`) and calls
+`forward_tokens` directly.
 
 Sampling generates coarse (position, content) pairs until every row has
 emitted the coarse EOS, then fine pairs, each AR step feeding ONE token
@@ -76,9 +79,6 @@ class Dualformer(nn.Module):
                  weight_decay=0.01, warmup_epochs=0, monitor=None, ckpt_path=None,
                  ignore_keys=(), compute_dtype=None, dropout_prng_impl="rbg"):
         super().__init__()
-        if not activate_sos_for_fine_sequence:
-            raise NotImplementedError(
-                "sample_from_scratch requires activate_sos_for_fine_sequence=True")
         cond_cfg = uncond_stage_config or cond_stage_config or class_cond_stage_config
         self.transformer = instantiate_from_config(transformer_config)
         self.first_stage_model = instantiate_from_config(first_stage_config)
@@ -86,6 +86,7 @@ class Dualformer(nn.Module):
         self.cond_stage_model = instantiate_from_config(cond_cfg)
         self.content_loss_weight = content_loss_weight
         self.position_loss_weight = position_loss_weight
+        self.activate_sos_for_fine_sequence = activate_sos_for_fine_sequence
         self.weight_decay = weight_decay
         self.warmup_epochs = warmup_epochs
         self.monitor = monitor
@@ -163,18 +164,20 @@ class Dualformer(nn.Module):
         c_coarse, c_fine, c_pos_coarse, c_pos_fine, c_seg_coarse, c_seg_fine = \
             self.encode_to_c(ref.shape[0] if c is None else c, ref.device)
 
-        def prefixed(c, key):
+        def prefixed(c, key, fine=False):
+            if fine and not self.activate_sos_for_fine_sequence:
+                return z[key]  # the fine sequence without its prefix token, as JAX builds it
             return torch.cat([c, z[key]], dim=1)
 
         coarse_content = prefixed(c_coarse, "coarse_content")
         coarse_position = prefixed(c_pos_coarse, "coarse_position")
-        fine_content = prefixed(c_fine, "fine_content")
-        fine_position = prefixed(c_pos_fine, "fine_position")
+        fine_content = prefixed(c_fine, "fine_content", True)
+        fine_position = prefixed(c_pos_fine, "fine_position", True)
         seg = self.activate_segment
         return self.transformer(
             coarse_content, fine_content, coarse_position, fine_position,
             coarse_seg=prefixed(c_seg_coarse, "coarse_segment") if seg else None,
-            fine_seg=prefixed(c_seg_fine, "fine_segment") if seg else None,
+            fine_seg=prefixed(c_seg_fine, "fine_segment", True) if seg else None,
             content_target=torch.cat([coarse_content, fine_content], dim=1)[:, 1:],
             coarse_position_target=coarse_position[:, 1:],
             fine_position_target=fine_position,
@@ -286,6 +289,10 @@ class Dualformer(nn.Module):
         default generator's when None) through the call. `eager=True` runs
         them eagerly there instead: only the control that `chip_smoke.py` and
         the `cuda` tests hold the graphs against; no entry point passes it."""
+        if not self.activate_sos_for_fine_sequence:
+            # the static buffers reserve slot 0 of the fine streams for the prefix token
+            raise NotImplementedError(
+                "sample_from_scratch requires activate_sos_for_fine_sequence=True")
         tf = self.transformer
         dev = c_coarse.device
         b = c_coarse.shape[0]

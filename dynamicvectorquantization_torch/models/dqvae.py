@@ -32,8 +32,12 @@ statistics and update its buffers in place (`commit=False`: search and
 statistics without the update; `generator` draws the restart candidates),
 the step `train/stage1.py` drives. A training forward of a Gumbel-gated
 encoder takes its noise as `gumbel_noise` (shape
-`encoder.gumbel_shape(batch)`), or draws it from `generator`. The patch
-entropy carries no gradient.
+`encoder.gumbel_shape(batch)`), or draws it from `generator`; a training
+forward of towers with ResnetBlock dropout takes one `DropoutMasks` for
+both (`dropout`), or draws its seed from `generator`. `remat` checkpoints
+the towers' blocks (`nn/blocks.py` `segment`); the patch entropy, the
+router and the quantizer, whose EMA update and restart draw must run once,
+stay outside every segment. The patch entropy carries no gradient.
 """
 from __future__ import annotations
 
@@ -41,7 +45,7 @@ import torch
 from torch import nn
 
 from ..config.registry import resolve_target
-from ..nn.blocks import Conv2d, as_dtype
+from ..nn.blocks import Conv2d, as_dtype, training_masks
 from ..ops.entropy import patch_entropy
 from ..utils.instantiate import instantiate_from_config
 
@@ -109,7 +113,13 @@ class DualGrainVQModel(nn.Module):
                 mod.init_weights(generator)
         self.quantize.init_codebook(generator)
 
-    def encode(self, x, train=False, generator=None, commit=True, gumbel_noise=None):
+    def dropout_masks(self, train, generator=None, dropout=None):
+        """The `DropoutMasks` a training forward's towers share, or None."""
+        rate = max(self.encoder.dropout, self.decoder.dropout)
+        return training_masks(dropout, rate, train, generator)
+
+    def encode(self, x, train=False, generator=None, commit=True, gumbel_noise=None,
+               dropout=None, remat=False):
         """(B, H, W, 3) NHWC images in [-1, 1] -> (quant (B, Hf, Wf, D),
         emb_loss, (None, None, code (B, Hf, Wf)), grain_indices (B, Hc, Wc),
         gate (B, Hc, Wc, n), x_entropy (B, Hc, Wc) or None)."""
@@ -119,7 +129,8 @@ class DualGrainVQModel(nn.Module):
         # contiguous NCHW: a permuted NHWC tensor would make the convs return
         # channels-last tensors, which the Downsample kernel does not take
         h = self.encoder(x.permute(0, 3, 1, 2).contiguous(), x_entropy, train=train,
-                         gumbel_noise=gumbel_noise, generator=generator)
+                         gumbel_noise=gumbel_noise, generator=generator,
+                         dropout=self.dropout_masks(train, generator, dropout), remat=remat)
         quant, emb_loss, info = self.quantize(
             self.quant_conv(h[self.feature_key]).permute(0, 2, 3, 1),
             codebook_mask=h["codebook_mask"], temp=self.quant_sample_temperature,
@@ -130,23 +141,32 @@ class DualGrainVQModel(nn.Module):
         """Codebook lookup, (B, H, W) codes -> (B, H, W, D) NHWC latents."""
         return self.quantize.get_codebook_entry(code)
 
-    def decode(self, quant, train=False, return_pre_out=False):
+    def decode(self, quant, train=False, return_pre_out=False, dropout=None, remat=False):
         """(B, H, W, D) NHWC latents -> (B, H', W', 3) NHWC image; with
         `return_pre_out` also the NCHW activation that feeds the decoder's
-        `conv_out`."""
+        `conv_out`. `dropout`: the training forward's `DropoutMasks` where
+        the decoder has dropout."""
         h = self.post_quant_conv(quant.permute(0, 3, 1, 2))
-        out = self.decoder(h, train=train, return_pre_out=return_pre_out)
+        out = self.decoder(h, train=train, return_pre_out=return_pre_out, dropout=dropout,
+                           remat=remat)
+        if self.decoder.give_pre_end:
+            return out.permute(0, 2, 3, 1)
         if return_pre_out:
             return out[0].permute(0, 2, 3, 1), out[1]
         return out.permute(0, 2, 3, 1)
 
     def forward(self, x, train=False, return_pre_out=False, generator=None, commit=True,
-                gumbel_noise=None):
+                gumbel_noise=None, dropout=None, remat=False):
         """Reconstruction: (dec, diff, grain_indices, gate, x_entropy); `dec`
-        is (image, pre_out) with `return_pre_out`."""
+        is (image, pre_out) with `return_pre_out`. `dropout`: the
+        `DropoutMasks` of a training forward with dropout (else drawn from
+        `generator`); `remat`: checkpoint the towers' blocks."""
+        dropout = self.dropout_masks(train, generator, dropout)
         quant, diff, _, grain_indices, gate, x_entropy = self.encode(
-            x, train=train, generator=generator, commit=commit, gumbel_noise=gumbel_noise)
-        dec = self.decode(quant, train=train, return_pre_out=return_pre_out)
+            x, train=train, generator=generator, commit=commit, gumbel_noise=gumbel_noise,
+            dropout=dropout, remat=remat)
+        dec = self.decode(quant, train=train, return_pre_out=return_pre_out, dropout=dropout,
+                          remat=remat)
         return dec, diff, grain_indices, gate, x_entropy
 
 

@@ -17,6 +17,21 @@ for CPU tensors; under `torch.no_grad()` only the forward kernel runs.
 space-to-depth variant (`s2d`) is a measured dead end there and is not
 ported.
 
+ResnetBlock dropout (in training only, where the caller passes `dropout`
+masks) zeroes with probability `rate` and scales the survivors by
+1 / (1 - rate), as flax's `nn.Dropout`. The masks follow torch's generator,
+not JAX's PRNG: `DropoutMasks` draws a block's mask from a generator seeded
+with the training forward's integer seed mixed with the block's key (a hash
+of its name in its tower, `key_dropout_blocks`), so one forward run again
+(remat's recompute, the stage-1 discriminator pass) sees the same masks, and
+a resumed run redraws them.
+
+`segment(remat, fn, *args)` runs one block under
+`torch.utils.checkpoint` (non-reentrant) when `remat` is set and autograd
+records: only the block's input is kept, and its forward runs again in the
+backward. The towers make each ResnetBlock, AttnBlock and Upsample one
+segment (see `train/stage1.py` for the choice).
+
 Dtypes follow flax's rules, as the JAX modules have them. A layer built with
 `compute_dtype` (the JAX modules' `dtype`, e.g. `torch.bfloat16` in the
 DQ-VAE's bf16 compute mode) casts its input and its parameters to that dtype
@@ -32,11 +47,14 @@ norms in f32 and round elsewhere.
 """
 from __future__ import annotations
 
+import zlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import fused_causal_attention
+from ..ops.attention import fused_causal_attention, mix_seed
 from ..ops.downsample import strided_conv3x3_down
 
 
@@ -142,6 +160,58 @@ class Downsample(nn.Module):
         return F.avg_pool2d(x, 2, 2)
 
 
+def segment(remat: bool, fn, *args):
+    """fn(*args); with `remat` (and autograd recording) under non-reentrant
+    activation checkpointing, so that only the inputs are kept for the
+    backward, which runs fn again."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+class DropoutMasks:
+    """The ResnetBlock dropout masks of one training forward: a block's keep
+    mask is `rand >= rate` drawn from a generator seeded with
+    `mix_seed(seed, block.dropout_key)`, so it depends on the forward's
+    integer seed and the block alone."""
+
+    def __init__(self, seed: int):
+        self.seed = int(seed)
+
+    @classmethod
+    def draw(cls, generator: torch.Generator):
+        """Masks under a seed drawn from `generator` (one int64 draw)."""
+        seed = torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device)
+        return cls(int(seed))
+
+    def keep(self, block, shape, device):
+        g = torch.Generator(device=device)
+        g.manual_seed(mix_seed(self.seed, block.dropout_key) >> 1)
+        return torch.rand(shape, generator=g, device=device) >= block.dropout_rate
+
+
+def training_masks(masks, rate: float, train: bool, generator=None):
+    """The masks a forward's ResnetBlocks use: None outside training or at
+    rate 0, else `masks`, or masks drawn from `generator`."""
+    if not train or rate <= 0.0:
+        return None
+    if masks is not None:
+        return masks
+    if generator is None:
+        raise ValueError("ResnetBlock dropout in training needs DropoutMasks or a "
+                         "torch.Generator")
+    return DropoutMasks.draw(generator)
+
+
+def key_dropout_blocks(tower: nn.Module):
+    """Key each ResnetBlock of `tower` by a hash of its name there (distinct
+    across the encoders and the decoder: `down.*` / `mid_<grain>.*` against
+    `mid.*` / `up.*`)."""
+    for name, mod in tower.named_modules():
+        if isinstance(mod, ResnetBlock):
+            mod.dropout_key = zlib.crc32(name.encode())
+
+
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels=None, conv_shortcut=False,
                  dropout=0.0, compute_dtype=None):
@@ -151,7 +221,8 @@ class ResnetBlock(nn.Module):
         self.norm1 = Normalize(in_channels, dt)
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=dt)
         self.norm2 = Normalize(out_channels, dt)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout_rate = float(dropout)
+        self.dropout_key = 0
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, compute_dtype=dt)
         if in_channels != out_channels:
             if conv_shortcut:
@@ -160,9 +231,14 @@ class ResnetBlock(nn.Module):
             else:
                 self.nin_shortcut = Conv2d(in_channels, out_channels, 1, compute_dtype=dt)
 
-    def forward(self, x):
+    def forward(self, x, masks=None):
+        """`masks`: `DropoutMasks` in a training forward with dropout, else None."""
         h = self.conv1(nonlinearity(self.norm1(x)))
-        h = self.conv2(self.dropout(nonlinearity(self.norm2(h))))
+        h = nonlinearity(self.norm2(h))
+        if masks is not None and self.dropout_rate > 0.0:
+            keep = masks.keep(self, h.shape, h.device)
+            h = torch.where(keep, h / (1.0 - self.dropout_rate), 0.0)
+        h = self.conv2(h)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         elif hasattr(self, "nin_shortcut"):

@@ -1,11 +1,15 @@
 """DQ-VAE decoder with position injection on the quantized latent, NCHW
 (counterpart of `dynamicvectorquantization_tpu/nn/decoder_positional.py`).
 
-Supported `position_type`: "fourier+learned" (the shipped configs) and
-"none"; the others come with a later slice. Reference state_dict names:
-`conv_in`, `mid.{block_1,attn_1,block_2}`, `up.{i}.block.{j}`,
-`up.{i}.attn.{j}`, `up.{i}.upsample.conv`, `norm_out`, `conv_out`,
-`position_bias_fourier.lff.ffm.conv`, `position_bias_learned.{row,col}_embed`.
+`position_type`: "fourier", "learned", "fourier+learned" (the shipped
+configs), "learned-relative" (one `window_size`^2 learned table added to
+every `window_size` x `window_size` window of the latent) and "none".
+Reference state_dict names: `conv_in`, `mid.{block_1,attn_1,block_2}`,
+`up.{i}.block.{j}`, `up.{i}.attn.{j}`, `up.{i}.upsample.conv`, `norm_out`,
+`conv_out`, `position_bias_fourier.lff.ffm.conv`,
+`position_bias_learned.{row,col}_embed` (window-sized for
+"learned-relative"). `give_pre_end` returns the up-stack's output, before
+`norm_out` and `conv_out`.
 
 `dtype` (None, or bf16 for the DQ-VAE's compute dtype) goes to `conv_in`,
 the mid and up blocks and the upsamples, as in the JAX module; the position
@@ -17,16 +21,21 @@ output are f32 (see `nn/blocks.py`).
 `conv_out` (`swish(norm_out(h))`): the stage-1 trainer takes the gradients of
 the reconstruction and generator losses with respect to `conv_out.weight`
 through `conv(pre_out.detach(), W)` for the adaptive discriminator weight,
-without running the decoder again. ResnetBlock dropout in training is not
-ported and raises.
+without running the decoder again. ResnetBlock dropout in training takes the
+caller's `dropout` masks (`nn/blocks.py` `DropoutMasks`). `remat` makes each
+ResnetBlock, AttnBlock and Upsample, and the last norm and swish, one
+checkpointed segment (`nn/blocks.py` `segment`).
 """
 from __future__ import annotations
 
 from torch import nn
 
 from .blocks import (AttnBlock, Conv2d, Normalize, ResnetBlock, Upsample, as_dtype,
-                     nonlinearity)
+                     key_dropout_blocks, nonlinearity, segment, training_masks)
 from .fourier import FourierPositionEmbedding, PositionEmbedding2DLearned
+
+
+POSITION_TYPES = ("fourier", "learned", "fourier+learned", "learned-relative", "none")
 
 
 class PositionalDecoder(nn.Module):
@@ -36,15 +45,17 @@ class PositionalDecoder(nn.Module):
                  position_type="fourier+learned", dtype=None):
         super().__init__()
         dtype = as_dtype(dtype)
-        if position_type not in ("fourier+learned", "none"):
-            raise NotImplementedError(f"position_type {position_type!r} is not ported yet")
-        if give_pre_end:
-            raise NotImplementedError("give_pre_end is not ported")
+        if position_type not in POSITION_TYPES:
+            raise NotImplementedError(f"position_type {position_type!r}")
         self.position_type = position_type
+        self.give_pre_end = give_pre_end
         self.dropout = dropout
-        if position_type == "fourier+learned":
+        self.window_size = window_size
+        if "fourier" in position_type:
             self.position_bias_fourier = FourierPositionEmbedding(latent_size, in_ch)
-            self.position_bias_learned = PositionEmbedding2DLearned(latent_size, in_ch)
+        if "learned" in position_type:
+            n = window_size if position_type == "learned-relative" else latent_size
+            self.position_bias_learned = PositionEmbedding2DLearned(n, in_ch)
 
         num_res = len(ch_mult)
         block_in = ch * ch_mult[-1]
@@ -74,22 +85,41 @@ class PositionalDecoder(nn.Module):
         self.up = nn.ModuleList(levels)
         self.norm_out = Normalize(block_in)
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
+        key_dropout_blocks(self)
 
-    def forward(self, h, train=False, return_pre_out=False):
-        if train and self.dropout > 0:
-            raise NotImplementedError("ResnetBlock dropout in training is not ported "
-                                      "(0.0 in every shipped stage-1 config)")
-        if self.position_type == "fourier+learned":
-            h = self.position_bias_learned(self.position_bias_fourier(h))
-        h = self.conv_in(h)
-        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+    def add_positions(self, h):
+        """The latent (B, C, H, W) with its position embeddings added."""
+        if "fourier" in self.position_type:
+            h = self.position_bias_fourier(h)
+        if self.position_type == "learned-relative":
+            b, c, hh, ww = h.shape
+            w = self.window_size
+            windows = h.reshape(b, c, hh // w, w, ww // w, w)
+            return self.position_bias_learned.add_to_windows(windows).reshape(b, c, hh, ww)
+        if "learned" in self.position_type:
+            h = self.position_bias_learned(h)
+        return h
+
+    def _head(self, h):
+        return nonlinearity(self.norm_out(h))
+
+    def forward(self, h, train=False, return_pre_out=False, dropout=None, remat=False):
+        """`dropout`: the `DropoutMasks` of a training forward when the
+        decoder has dropout; `remat` checkpoints the blocks."""
+        masks = training_masks(dropout, self.dropout, train)
+        h = self.conv_in(self.add_positions(h))
+        h = segment(remat, self.mid.block_1, h, masks)
+        h = segment(remat, self.mid.attn_1, h)
+        h = segment(remat, self.mid.block_2, h, masks)
         for level in reversed(self.up):
             for i_block, block in enumerate(level.block):
-                h = block(h)
+                h = segment(remat, block, h, masks)
                 if len(level.attn):
-                    h = level.attn[i_block](h)
+                    h = segment(remat, level.attn[i_block], h)
             if hasattr(level, "upsample"):
-                h = level.upsample(h)
-        h = nonlinearity(self.norm_out(h))
+                h = segment(remat, level.upsample, h)
+        if self.give_pre_end:
+            return h
+        h = segment(remat, self._head, h)
         out = self.conv_out(h)
         return (out, h) if return_pre_out else out

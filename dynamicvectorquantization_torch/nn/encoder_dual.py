@@ -29,7 +29,12 @@ the caller gives it (the stage-1 trainer draws it once per microbatch and
 feeds the same tensor to its autoencoder and discriminator passes, as the
 JAX trainer reuses one key), else drawn here from `generator` on the
 images' device. It follows torch's generator, not JAX's PRNG. ResnetBlock
-dropout in training is not ported and raises (ROADMAP.md).
+dropout in training takes the caller's `dropout` masks (`nn/blocks.py`
+`DropoutMasks`), else masks drawn from `generator`. `remat` makes each
+ResnetBlock and AttnBlock of the stack and the heads one checkpointed
+segment (`nn/blocks.py` `segment`); the Downsamples, whose kernel keeps only
+its input (the segment before it keeps that already), and the router run
+once.
 
 `GrainEncoder` holds what the dual- and triple-grain encoders share: the
 down-stack, the grain heads and the gate; `nn/encoder_triple.py` builds the
@@ -43,7 +48,7 @@ from torch import nn
 
 from ..utils.instantiate import instantiate_from_config
 from .blocks import (AttnBlock, Conv2d, Downsample, Normalize, ResnetBlock, as_dtype,
-                     nonlinearity)
+                     key_dropout_blocks, nonlinearity, segment, training_masks)
 
 
 def repeat2d(x, factor: int, h_dim: int, w_dim: int):
@@ -118,6 +123,7 @@ class GrainEncoder(nn.Module):
             setattr(self, f"conv_out_{grain}",
                     Conv2d(block_in, z_channels, 3, padding=1, compute_dtype=dtype))
         self.router = instantiate_from_config(router_config)
+        key_dropout_blocks(self)
 
     @property
     def coarse_resolution(self) -> int:
@@ -134,36 +140,36 @@ class GrainEncoder(nn.Module):
         r = self.coarse_resolution
         return (batch, r, r, len(self.grains))
 
-    def down_stack(self, x):
+    def down_stack(self, x, masks=None, remat=False):
         """The shared down-stack: {level: features after its blocks, before
         its downsample} and "final"."""
         h = self.conv_in(x)
         taps = {}
         for i_level, level in enumerate(self.down):
             for i_block, block in enumerate(level.block):
-                h = block(h)
+                h = segment(remat, block, h, masks)
                 if len(level.attn):
-                    h = level.attn[i_block](h)
+                    h = segment(remat, level.attn[i_block], h)
             taps[i_level] = h
             if hasattr(level, "downsample"):
                 h = level.downsample(h)
         taps["final"] = h
         return taps
 
-    def grain_features(self, x, train):
+    def grain_features(self, x, train, masks=None, generator=None, remat=False):
         """{grain: its head's output (B, z, H_g, W_g)}."""
         if x.shape[2] != self.resolution or x.shape[3] != self.resolution:
             raise ValueError(f"{type(self).__name__}: {self.resolution}^2 input expected, "
                              f"got {tuple(x.shape)}")
-        if train and self.dropout > 0:
-            raise NotImplementedError("ResnetBlock dropout in training is not ported "
-                                      "(0.0 in every shipped stage-1 config)")
-        taps = self.down_stack(x)
+        masks = training_masks(masks, self.dropout, train, generator)
+        taps = self.down_stack(x, masks, remat)
         out = {}
         for i, grain in enumerate(self.grains):
             h = taps["final" if i == 0 else self.num_resolutions - 1 - i]
             mid = getattr(self, f"mid_{grain}")
-            h = mid.block_2(mid.attn_1(mid.block_1(h)))
+            h = segment(remat, mid.block_1, h, masks)
+            h = segment(remat, mid.attn_1, h)
+            h = segment(remat, mid.block_2, h, masks)
             out[grain] = getattr(self, f"conv_out_{grain}")(
                 nonlinearity(getattr(self, f"norm_out_{grain}")(h)))
         return out
@@ -197,12 +203,15 @@ class DualGrainEncoder(GrainEncoder):
     def gumbel_in_training(self) -> bool:
         return bool(self.update_router)
 
-    def forward(self, x, x_entropy=None, train=False, gumbel_noise=None, generator=None):
+    def forward(self, x, x_entropy=None, train=False, gumbel_noise=None, generator=None,
+                dropout=None, remat=False):
         """x: (B, C, H, W) with H = W = resolution; x_entropy: (B, Hc, Wc) for
         the entropy router; `gumbel_noise` (B, Hc, Wc, 2) f32 or `generator`
-        for the Gumbel gate. Returns `h_dual` (B, z, Hf, Wf), `indices`
-        (B, Hc, Wc), `codebook_mask` (B, Hf, Wf, 1) and `gate` (B, Hc, Wc, 2)."""
-        feats = self.grain_features(x, train)
+        for the Gumbel gate; `dropout` masks (or `generator`) for ResnetBlock
+        dropout in training; `remat` checkpoints the blocks. Returns `h_dual`
+        (B, z, Hf, Wf), `indices` (B, Hc, Wc), `codebook_mask` (B, Hf, Wf, 1)
+        and `gate` (B, Hc, Wc, 2)."""
+        feats = self.grain_features(x, train, dropout, generator, remat)
         gate, gumbel = self.gate(feats, x_entropy, train, gumbel_noise, generator)
         indices = torch.argmax(gate, dim=-1)  # (B, Hc, Wc)
         coarse_rep = repeat2d(indices == 0, 2, 1, 2)  # (B, Hf, Wf)

@@ -13,7 +13,7 @@ Unlike the dual-grain encoder, every training forward gates through the
 straight-through Gumbel softmax (there is no `update_router` flag, JAX
 `nn/encoder_triple.py:4-8`), and scales the merged map by the gate's max.
 The noise comes as in `DualGrainEncoder`: `gumbel_noise`, else drawn from
-`generator` on the images' device.
+`generator` on the images' device; so do the dropout masks and `remat`.
 
 Reference state_dict names: those of the dual-grain encoder with a third
 head `mid_median`, `norm_out_median`, `conv_out_median`.
@@ -41,12 +41,14 @@ class TripleGrainEncoder(GrainEncoder):
     def gumbel_in_training(self) -> bool:
         return True
 
-    def forward(self, x, x_entropy=None, train=False, gumbel_noise=None, generator=None):
+    def forward(self, x, x_entropy=None, train=False, gumbel_noise=None, generator=None,
+                dropout=None, remat=False):
         """x: (B, C, H, W) with H = W = resolution; x_entropy: (B, Hc, Wc) for
         the entropy router; `gumbel_noise` (B, Hc, Wc, 3) f32 or `generator`
-        for the Gumbel gate. Returns `h_triple` (B, z, Hf, Wf), `indices`
-        (B, Hc, Wc), `codebook_mask` (B, Hf, Wf, 1) and `gate` (B, Hc, Wc, 3)."""
-        feats = self.grain_features(x, train)
+        for the Gumbel gate; `dropout` and `remat` as in `DualGrainEncoder`.
+        Returns `h_triple` (B, z, Hf, Wf), `indices` (B, Hc, Wc),
+        `codebook_mask` (B, Hf, Wf, 1) and `gate` (B, Hc, Wc, 3)."""
+        feats = self.grain_features(x, train, dropout, generator, remat)
         gate, gumbel = self.gate(feats, x_entropy, train, gumbel_noise, generator)
         indices = torch.argmax(gate, dim=-1)  # (B, Hc, Wc)
         rep = repeat2d(indices, 4, 1, 2)  # (B, Hf, Wf)

@@ -73,9 +73,16 @@ class PositionEmbedding2DLearned(nn.Module):
                                      device=w.device, dtype=w.dtype)
                 bad = w.abs() > 2.0
 
-    def forward(self, x):
-        h, w = x.shape[2], x.shape[3]
+    def table(self, h: int, w: int):
+        """(C, H, W): row_embed(i) + col_embed(j)."""
         row = self.row_embed.weight[:h]
         col = self.col_embed.weight[:w]
-        pos = row[:, None, :] + col[None, :, :]  # (H, W, C)
-        return x + pos.permute(2, 0, 1)[None]
+        return (row[:, None, :] + col[None, :, :]).permute(2, 0, 1)
+
+    def forward(self, x):
+        return x + self.table(x.shape[2], x.shape[3])[None]
+
+    def add_to_windows(self, x):
+        """x (B, C, n, w, n, w), windows of w x w: the same table added to each."""
+        w = x.shape[3]
+        return x + self.table(w, w)[None, :, None, :, None, :]

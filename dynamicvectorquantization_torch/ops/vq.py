@@ -271,3 +271,23 @@ class VectorQuantizeEMA(nn.Module):
     def get_codebook_entry(self, indices):
         """Embed code indices (the padding code K included): (B, ...) -> (B, ..., D)."""
         return self.codebook.weight[indices]
+
+    def get_soft_codes(self, x, temp: float = 1.0, stochastic: bool = False, generator=None):
+        """(softmax(-d^2 / temp) over the K codes (..., K), codes (...)) of
+        features x (..., D), with d^2 = |x|^2 + |c|^2 - 2 x.c against the
+        real codes; the code is the argmin of d^2, or with `stochastic` drawn
+        from the softmax with `generator` (JAX draws from its key, so the two
+        agree in distribution only). A plain product, as in the JAX module."""
+        codebook = self.codebook.weight[:-1]
+        flat = x.reshape(-1, x.shape[-1])
+        d2 = ((flat ** 2).sum(dim=1, keepdim=True) + (codebook ** 2).sum(dim=1)[None, :]
+              - 2.0 * flat @ codebook.t())
+        soft = torch.softmax(-d2 / temp, dim=-1)
+        if stochastic:
+            if generator is None:
+                raise ValueError("stochastic soft codes need a torch.Generator")
+            code = torch.multinomial(soft, 1, generator=generator)[:, 0]
+        else:
+            code = torch.argmin(d2, dim=-1)
+        return (soft.reshape(x.shape[:-1] + (self.codebook_size,)),
+                code.reshape(x.shape[:-1]))

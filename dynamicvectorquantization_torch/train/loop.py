@@ -369,7 +369,11 @@ class Trainer:
             min_learning_rate=getattr(model, "min_learning_rate", 0.0),
             warmup_steps=warmup_steps, max_steps=model.training_steps, accum=self.accum,
             device=self.device, seed=self.seed + 1)
-        trainer.init_state(self._generator(self.seed) if self.init_weights else None)
+        # the first training batch's first image sets a discriminator's ActNorm, as in JAX
+        batches = train_loader.epoch(0)
+        x0 = next(batches)[model.image_key][:1]
+        batches.close()
+        trainer.init_state(self._generator(self.seed) if self.init_weights else None, x0)
 
         mngr = self._ckpt_manager(model.monitor)
         if self.resume and mngr.latest() is not None:

@@ -38,9 +38,41 @@ same noise; it follows torch's generator, not JAX's PRNG. Triple-grain
 models log `train_fine_ratio` as the share of fine cells (grain 2) and
 `train_median_ratio` beside it, as the JAX trainer does.
 
-Not ported (each raises where reached): `remat=True`, `disc_conditional`,
-ActNorm. The epoch loop, checkpoints and data loading live in
-`train/loop.py`.
+ResnetBlock dropout (a tower's `dropout` > 0) takes one `DropoutMasks` per
+microbatch, whose seed is drawn from the step's generator after that
+microbatch's Gumbel noise, and is given to the autoencoder pass and the
+discriminator pass's fresh forward alike, as the JAX trainer reuses its
+"dropout" key; remat's recompute redraws the same masks from that seed. A
+model without dropout draws nothing more, so its streams are unchanged.
+
+`remat` (the JAX trainer's option): the autoencoder pass keeps only the
+input of each ResnetBlock, AttnBlock and Upsample (and of the decoder's last
+norm and swish) and runs them again in the backward (`nn/blocks.py`
+`segment`, non-reentrant `torch.utils.checkpoint`), as JAX's
+`dots_with_no_batch_dims_saveable` policy keeps no conv activation. One
+segment per block, not per level, because the recompute's own peak already
+dominates: on one H100 (`utils/stage1_memory.py`, the dual-grain entropy yml
+at batch 30 in f32) the autoencoder's backward starts from 16.9 GB kept
+(69.0 GB without `remat`) and rises 12.2 GB above it while it runs, as the
+recomputed forwards' convolutions allocate; a level's segment would rebuild
+all its blocks' activations at once on top of that. The Downsamples stay out
+(their kernel keeps only its input, which the segment before keeps already).
+The patch entropy, the router (its Gumbel noise fed in), the quantizer (its
+EMA update and restart draw), the decoder's last conv and the adaptive
+weight's head stay outside every segment, so the recompute updates no
+buffer, draws nothing from the generator and searches no codebook; a step
+with `remat` equals one without it. `remat=None` turns it on where the
+trainer's device is CUDA (the JAX trainer's rule for its accelerator) and
+off on the CPU. On the H100 it trades time for memory: batch 30 in f32 takes
+29.1 GB and 3.06 s a step with it, 71.8 GB and 2.18 s without; with bf16
+towers 19.4 GB and 0.92 s against 54.3 GB and 0.84 s.
+
+A `use_actnorm` discriminator's ActNorm layers are set from data in
+`init_state`: the `sample_batch` given (the loop passes the first training
+batch's first image, as the JAX loop does), else one zero image, which is
+what the JAX trainer initialises them from; their `initialized` flag and
+`loc` / `scale` are in the state dict. The epoch loop, checkpoints and data
+loading live in `train/loop.py`.
 """
 from __future__ import annotations
 
@@ -124,17 +156,19 @@ def _mean_of(dicts):
     return {k: sum(d[k] for d in dicts) * inv for k in dicts[0]}
 
 
+def resolve_remat(remat, device: torch.device) -> bool:
+    """`remat`, or where it is None: on for a CUDA device, off elsewhere."""
+    return device.type == "cuda" if remat is None else bool(remat)
+
+
 class Stage1Trainer:
     def __init__(self, model, learning_rate, min_learning_rate=0.0, warmup_steps=0,
-                 max_steps=1_000_000, scheduler_type=None, remat=False, accum=1, device=None,
+                 max_steps=1_000_000, scheduler_type=None, remat=None, accum=1, device=None,
                  seed=0):
-        if remat:
-            raise NotImplementedError(
-                "remat (activation checkpointing around a forward that updates the EMA "
-                "buffers) is not ported (ROADMAP.md)")
         if model.loss is None or not hasattr(model.loss, "discriminator"):
             raise ValueError("Stage1Trainer needs a model built with a GAN lossconfig")
         self.device = resolve_device(device)
+        self.remat = resolve_remat(remat, self.device)
         self.model = model.to(self.device).float()
         self.model.eval()  # train / eval behaviour is chosen per call, not by module mode
         self.loss = model.loss
@@ -177,18 +211,26 @@ class Stage1Trainer:
         self.epoch = int(state["epoch"])
         self.generator.set_state(state["generator"].cpu())
 
-    def init_state(self, generator: torch.Generator = None, lpips_vgg_path=None,
-                   lpips_lin_path=None):
+    def init_state(self, generator: torch.Generator = None, sample_batch=None,
+                   lpips_vgg_path=None, lpips_lin_path=None):
         """A fresh training state: with a generator, seeded random weights
         (`model.init_weights`: the LPIPS backbone random, its lin heads the
         bundled ones); in any case zero moments, step 0, epoch 0. Without a
-        generator the model keeps the weights it was given. The LPIPS VGG16
-        backbone (a torchvision `vgg16` state dict) and lin heads are read
-        from `lpips_vgg_path` / `lpips_lin_path`, or else from the files that
-        `DQVQ_LPIPS_VGG` / `DQVQ_LPIPS_LIN` name, as the JAX trainer reads
-        them."""
+        generator the model keeps the weights it was given. A discriminator's
+        ActNorm layers are set from `sample_batch` ((B, H, W, 3) NHWC images,
+        else one zero image) with fresh weights, or where they were never
+        set. The LPIPS VGG16 backbone (a torchvision `vgg16` state dict) and
+        lin heads are read from `lpips_vgg_path` / `lpips_lin_path`, or else
+        from the files that `DQVQ_LPIPS_VGG` / `DQVQ_LPIPS_LIN` name, as the
+        JAX trainer reads them."""
         if generator is not None:
             self.model.init_weights(generator)
+        disc = self.loss.discriminator
+        if disc.use_actnorm and (generator is not None or not disc.actnorm_initialized()):
+            size = self.model.image_size
+            x = (torch.zeros((1, size, size, 3), device=self.device) if sample_batch is None
+                 else self._images(sample_batch))
+            disc.init_actnorm(x.permute(0, 3, 1, 2).contiguous())
         self.loss.perceptual_loss.load_weights(
             lpips_vgg_path or os.environ.get("DQVQ_LPIPS_VGG"),
             lpips_lin_path or os.environ.get("DQVQ_LPIPS_LIN"))
@@ -234,12 +276,13 @@ class Stage1Trainer:
         shape = self.model.encoder.gumbel_shape(x.shape[0])
         return None if shape is None else draw_gumbel(shape, generator, x.device)
 
-    def _ae_grads(self, x, gate_step, generator, noise):
+    def _ae_grads(self, x, gate_step, generator, noise, masks):
         """(logs, gradients of the autoencoder total by parameter name) of one
         microbatch; updates the EMA buffers and the BatchNorm statistics."""
         loss = self.loss
         (xrec, pre_out), qloss, grain_indices, gate, _ = self.model(
-            x, train=True, return_pre_out=True, generator=generator, gumbel_noise=noise)
+            x, train=True, return_pre_out=True, generator=generator, gumbel_noise=noise,
+            dropout=masks, remat=self.remat)
         # before g_loss(train=True) moves the BatchNorm statistics this head reads
         d_weight = self._d_weight(x, pre_out)
         nll_loss, rec_loss, p_loss = loss.nll(x, xrec)
@@ -259,13 +302,14 @@ class Stage1Trainer:
                 "train_budget_loss": budget}
         return {k: v.detach().float() for k, v in logs.items()}, grads
 
-    def _disc_grads(self, x, gate_step, generator, noise):
+    def _disc_grads(self, x, gate_step, generator, noise, masks):
         """(logs, discriminator gradients) of one microbatch, on a fresh
         training forward of the updated autoencoder (with the autoencoder
-        pass's Gumbel noise) that leaves the EMA buffers alone."""
+        pass's Gumbel noise and dropout masks) that leaves the EMA buffers
+        alone."""
         with torch.no_grad():
             xrec = self.model(x, train=True, generator=generator, commit=False,
-                              gumbel_noise=noise)[0]
+                              gumbel_noise=noise, dropout=masks)[0]
         d, dlog = self.loss.d_loss(x, xrec, gate_step, train=True)
         names = list(self.disc_params)
         grads = torch.autograd.grad(d, [self.disc_params[k] for k in names])
@@ -277,16 +321,18 @@ class Stage1Trainer:
         3) NHWC images in [-1, 1], or (accum, B, H, W, 3) with `accum > 1`:
         gradients and logs are averaged over the microbatches, the EMA and
         BatchNorm statistics evolve per microbatch, each optimizer steps
-        once. `generator` draws the Gumbel noise and the codebook's restart
-        candidates (the trainer's own when none is passed). Returns the logs."""
+        once. `generator` draws the Gumbel noise, the dropout seeds and the
+        codebook's restart candidates (the trainer's own when none is
+        passed). Returns the logs."""
         if generator is None:
             generator = self.generator
         micro = self._microbatches(self._images(x))
-        noises = [self._gumbel_noise(xi, generator) for xi in micro]
+        draws = [(self._gumbel_noise(xi, generator), self.model.dropout_masks(True, generator))
+                 for xi in micro]
         gate_step = self.epoch if self.loss_with_epoch else self.step
         logs = {}
         for opt, fn in ((self.ae_opt, self._ae_grads), (self.disc_opt, self._disc_grads)):
-            results = [fn(xi, gate_step, generator, n) for xi, n in zip(micro, noises)]
+            results = [fn(xi, gate_step, generator, *d) for xi, d in zip(micro, draws)]
             logs.update(_mean_of([r[0] for r in results]))
             opt.step(_mean_of([r[1] for r in results]))
         self.step += 1

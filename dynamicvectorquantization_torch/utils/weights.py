@@ -197,22 +197,58 @@ def _disc_index(name: str) -> int:
     return 3 + 3 * (int(n) - 1)
 
 
+def _is_actnorm(leaves) -> bool:
+    return "loc" in leaves
+
+
 def discriminator_params_from_flax(params) -> Dict[str, torch.Tensor]:
     """NLayerDiscriminator flax params (or moments of that shape) ->
-    `main.{i}.{weight,bias}`."""
+    `main.{i}.{weight,bias}`, and an ActNorm's (C,) `loc` / `scale` as
+    (1, C, 1, 1) `main.{i}.{loc,scale}`."""
     n_layers = sum(1 for k in params if k.startswith("norm_"))
     sd = {}
     for path, v in _flatten(params).items():
-        tleaf, tv = _leaf(path[-1], v)
         index = 2 + 3 * n_layers if path[0] == "conv_out" else _disc_index(path[0])
+        if _is_actnorm(params[path[0]]):
+            sd[f"main.{index}.{path[-1]}"] = _tensor(v).reshape(1, -1, 1, 1)
+            continue
+        tleaf, tv = _leaf(path[-1], v)
         sd[f"main.{index}.{tleaf}"] = _tensor(tv)
     return sd
 
 
+def discriminator_params_to_flax(sd) -> dict:
+    """The inverse of `discriminator_params_from_flax`: a port
+    NLayerDiscriminator's `main.{i}.*` parameters (buffers are skipped) ->
+    its flax params tree, ActNorm's `loc` / `scale` as (C,)."""
+    n_layers = sum(1 for k in sd if k.endswith((".running_mean", ".loc")))
+    names = {0: "conv_0", 2 + 3 * n_layers: "conv_out"}
+    for n in range(1, n_layers + 1):
+        names[2 + 3 * (n - 1)], names[3 + 3 * (n - 1)] = f"conv_{n}", f"norm_{n}"
+    out: dict = {}
+    for key, v in sd.items():
+        _, index, leaf = key.split(".")
+        name, a = names[int(index)], np.asarray(v)
+        if leaf in ("running_mean", "running_var", "num_batches_tracked", "initialized"):
+            continue
+        if leaf in ("loc", "scale"):
+            out.setdefault(name, {})[leaf] = a.reshape(-1)
+        elif name.startswith("conv") and leaf == "weight":
+            out.setdefault(name, {})["kernel"] = np.transpose(a, (2, 3, 1, 0))  # OIHW -> HWIO
+        else:
+            out.setdefault(name, {})["scale" if leaf == "weight" else leaf] = a
+    return out
+
+
 def discriminator_state_dict_from_flax(params, batch_stats) -> Dict[str, torch.Tensor]:
     """Parameters plus the BatchNorm `batch_stats` (`mean`, `var`) as
-    `running_mean`, `running_var` (and a zero `num_batches_tracked`)."""
+    `running_mean`, `running_var` (and a zero `num_batches_tracked`); an
+    ActNorm, set from data when the JAX module was initialised, with its
+    `initialized` flag 1."""
     sd = discriminator_params_from_flax(params)
+    for name, leaves in params.items():
+        if _is_actnorm(leaves):
+            sd[f"main.{_disc_index(name)}.initialized"] = torch.ones((), dtype=torch.uint8)
     for name, stats in batch_stats.items():
         prefix = f"main.{_disc_index(name)}"
         sd[f"{prefix}.running_mean"] = _tensor(stats["mean"])

@@ -120,7 +120,8 @@ def test_fourier_and_learned_position_embeddings():
            _block_state_dict(params))
 
 
-@pytest.mark.parametrize("position_type", ["fourier+learned", "none"])
+@pytest.mark.parametrize("position_type",
+                         ["fourier+learned", "none", "fourier", "learned", "learned-relative"])
 def test_positional_decoder(position_type):
     from dynamicvectorquantization_tpu.nn import decoder_positional as jd
 

@@ -203,14 +203,21 @@ def test_encoder_gumbel_gate_waits_for_training_slice():
                  generator=torch.Generator().manual_seed(3))["gate"] for _ in range(2)]
     assert torch.equal(drawn[0], drawn[1])
     assert enc(x, torch.ones(1, 4, 4))["gate"].dtype == torch.int64  # inference: no gate
-    # a router that takes no gradient trains; ResnetBlock dropout in training does not
+    # a router that takes no gradient trains, and so does ResnetBlock dropout, whose
+    # masks come from the generator (held to JAX's masks in
+    # tests/test_torch_stage1_options.py); without masks or a generator it raises
     enc = DualGrainEncoder(**dict(cfg["params"], update_router=False))
     x = torch.zeros(1, 3, 64, 64, requires_grad=True)
     out = enc(x, torch.zeros(1, 4, 4), train=True)
     assert out["h_dual"].requires_grad
-    with pytest.raises(NotImplementedError):
-        DualGrainEncoder(**dict(cfg["params"], update_router=False, dropout=0.1))(
-            x, torch.zeros(1, 4, 4), train=True)
+    enc = DualGrainEncoder(**dict(cfg["params"], update_router=False, dropout=0.1))
+    x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+    masked = [enc(x, torch.zeros(1, 4, 4), train=True,
+                  generator=torch.Generator().manual_seed(s))["h_dual"] for s in (4, 4, 5)]
+    assert torch.equal(masked[0], masked[1]) and not torch.equal(masked[0], masked[2])
+    assert not torch.equal(masked[0], enc(x, torch.zeros(1, 4, 4))["h_dual"])
+    with pytest.raises(ValueError):
+        enc(x, torch.zeros(1, 4, 4), train=True)
 
 
 def test_dqvae_encode_and_forward(dqvae_pair):

@@ -192,11 +192,20 @@ def test_discriminator_init_and_unported_options():
     w = td.main[0].weight.detach()
     assert abs(float(w.std()) - 0.02) < 0.005 and float(td.main[0].bias.abs().max()) == 0.0
     assert torch.equal(td.main[3].weight, torch.ones(16))
-    with pytest.raises(NotImplementedError):
-        NLayerDiscriminator(use_actnorm=True)
-    with pytest.raises(NotImplementedError):
-        tl.VQLPIPSWithDiscriminator(disc_config=LOSS_CONFIG["params"]["disc_config"],
-                                    disc_conditional=True)
+    # ActNorm and the conditional discriminator are ported (held to JAX in
+    # tests/test_torch_stage1_options.py): ActNorm's convs take a bias and its
+    # loc / scale wait for data
+    ta = NLayerDiscriminator(ndf=8, n_layers=2, use_actnorm=True)
+    ta.init_weights(torch.Generator().manual_seed(0))
+    assert ta.main[2].bias is not None and not ta.actnorm_initialized()
+    ta.init_actnorm(torch.randn(1, 3, 32, 32, generator=torch.Generator().manual_seed(1)))
+    assert ta.actnorm_initialized() and not torch.equal(ta.main[3].scale, torch.ones(1, 16, 1, 1))
+    disc = dict(LOSS_CONFIG["params"]["disc_config"])
+    disc["params"] = dict(disc["params"], input_nc=4)
+    cond = tl.VQLPIPSWithDiscriminator(disc_config=disc, disc_conditional=True)
+    y = torch.zeros(2, 32, 32, 3)
+    with torch.no_grad():
+        assert cond.g_loss(y, torch.ones(2, 32, 32, 1)).shape == ()
 
 
 # ------------------------------------------------------------ budget, GAN

@@ -99,7 +99,7 @@ def _port_draw(pool_rows, noise_shape, generator, device):
     return (None if noise is None else torch.from_numpy(noise)), torch.from_numpy(perm)
 
 
-def _both(accum=1):
+def _both(accum=1, remat=False):
     """(JAX trainer, its initial state, the port's trainer in the same state)."""
     import jax
     import jax.numpy as jnp
@@ -108,10 +108,10 @@ def _both(accum=1):
     from dynamicvectorquantization_tpu.train.stage1 import Stage1Trainer as JTrainer
 
     jtrainer = JTrainer(JModel(**_config()), learning_rate=LR, warmup_steps=0, max_steps=100,
-                        remat=False, accum=accum)
+                        remat=remat, accum=accum)
     state = jax.device_get(jtrainer.init_state(jax.random.PRNGKey(1), jnp.asarray(_images(0))))
     trainer = Stage1Trainer(DualGrainVQModel(**_config()), LR, warmup_steps=0, max_steps=100,
-                            accum=accum, device="cpu")
+                            accum=accum, device="cpu", remat=remat)
     load_stage1_state(trainer, stage1_state_from_flax(state))
     trainer.model.quantize._draw_restart = _port_draw
     return jtrainer, state, trainer
@@ -372,9 +372,39 @@ def test_gate_step_follows_epoch_or_step():
     assert float(trainer.train_step(_images(7), g)["train_disc_factor"]) == 1.0
 
 
+def test_remat_step_matches_jax():
+    """One JAX `Stage1Trainer(remat=True)` step against the port's `remat`
+    step from one converted state, with the shared restart draw, at the
+    first step's tolerances (JAX's own tests hold its `remat` equal to no
+    `remat`; `tests/test_torch_remat.py` the port's, bit for bit)."""
+    jtrainer, state, trainer = _both(remat=True)
+    assert jtrainer.remat and trainer.remat
+    x = _images(1)
+    (jstate, jlogs), = _jax_steps(jtrainer, state, [x])
+    logs = trainer.train_step(x, torch.Generator().manual_seed(0))
+    for k, v in jlogs.items():
+        np.testing.assert_allclose(float(logs[k]), v, rtol=LOG_RTOL[0], atol=1e-6, err_msg=k)
+    ref, snap = stage1_state_from_flax(jstate), _snapshot(trainer)
+    largest = {}
+    for opt in ("ae_opt", "disc_opt"):
+        _assert_moments(snap[opt][1], ref[opt][1], MOMENT_REL[0], f"{opt} m")
+        _assert_moments(snap[opt][2], ref[opt][2], MOMENT_REL[0], f"{opt} v")
+        largest[opt] = max(float(t.abs().max()) for t in ref[opt][1].values())
+    for k, v in ref["state_dict"].items():
+        if k.startswith("quantize.") or "running" in k:
+            np.testing.assert_allclose(snap["state_dict"][k].numpy(), v.numpy(), atol=1e-5,
+                                       rtol=1e-5, err_msg=k)
+        elif k.startswith(("encoder.", "decoder.", "quant_conv.", "post_quant_conv.",
+                           "loss.discriminator.")) and "num_batches" not in k:
+            opt = "disc_opt" if k.startswith("loss.discriminator.") else "ae_opt"
+            tiny = ref[opt][1][k.removeprefix("loss.discriminator.")].abs() < 1e-4 * largest[opt]
+            diff = (snap["state_dict"][k] - v).abs()
+            if not tiny.all():
+                assert float(diff[~tiny].max()) <= PARAM_ATOL[0], k
+            assert float(diff.max()) <= 2.02 * LR, k
+
+
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        Stage1Trainer(DualGrainVQModel(**_config()), LR, remat=True, device="cpu")
     cfg = _config()
     cfg["lossconfig"] = None
     with pytest.raises(ValueError):

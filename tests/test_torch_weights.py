@@ -165,3 +165,60 @@ def test_unported_target_raises():
         "dynamicvectorquantization_torch.")
     with pytest.raises(KeyError):
         resolve_target("modules.text_encoders.clip_text_encoder.CLIPTextEncoder")
+
+
+def test_learned_relative_table_round_trips_through_jax_converter():
+    """The window-sized `position_bias_learned` table of a `learned-relative`
+    decoder: port -> the JAX package's converter -> the port, and the flax
+    tree has the JAX decoder's own paths and shapes."""
+    import jax
+
+    from dynamicvectorquantization_torch.nn.decoder_positional import PositionalDecoder
+    from dynamicvectorquantization_tpu.nn.decoder_positional import PositionalDecoder as JDecoder
+    from dynamicvectorquantization_tpu.utils.torch_ckpt import convert_dqvae_state_dict
+
+    cfg = dict(load_config([TINY])["model"]["params"]["first_stage_config"]["params"]
+               ["decoderconfig"]["params"], position_type="learned-relative")
+    dec = PositionalDecoder(**cfg)
+    dec.position_bias_learned.init_weights(torch.Generator().manual_seed(0))
+    assert tuple(dec.position_bias_learned.row_embed.weight.shape) == (cfg["window_size"],
+                                                                       cfg["in_ch"])
+    sd = {f"decoder.{k}": v.numpy() for k, v in dec.state_dict().items()}
+    flax_vars = convert_dqvae_state_dict(sd)
+    _assert_same(dqvae_state_dict_from_flax(flax_vars), sd)
+    jdec = JDecoder(**{k: tuple(v) if isinstance(v, list) else v for k, v in cfg.items()})
+    x = np.zeros((1, cfg["latent_size"], cfg["latent_size"], cfg["in_ch"]), np.float32)
+    jvars = jax.eval_shape(lambda: jdec.init(jax.random.PRNGKey(0), x))
+    assert _shapes(flax_vars["params"]["decoder"]) == _shapes(jvars["params"])
+
+
+def test_actnorm_loc_and_scale_round_trip():
+    """An ActNorm discriminator's `loc` / `scale`, flax (C,) <-> port
+    (1, C, 1, 1), both ways, with the JAX module's paths and shapes; the
+    converted state dict marks them set."""
+    import jax
+
+    from dynamicvectorquantization_torch.nn.discriminator import NLayerDiscriminator
+    from dynamicvectorquantization_torch.utils.weights import (
+        discriminator_params_to_flax,
+        discriminator_state_dict_from_flax,
+    )
+    from dynamicvectorquantization_tpu.nn.discriminator import NLayerDiscriminator as JDisc
+
+    disc = NLayerDiscriminator(ndf=8, n_layers=2, use_actnorm=True)
+    disc.init_weights(torch.Generator().manual_seed(0))
+    disc.init_actnorm(torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(1)))
+    sd = disc.state_dict()
+    tree = discriminator_params_to_flax(sd)
+    jvars = jax.eval_shape(lambda: JDisc(ndf=8, n_layers=2, use_actnorm=True).init(
+        jax.random.PRNGKey(0), np.zeros((1, 32, 32, 3), np.float32)))
+    assert _shapes(tree) == _shapes(jvars["params"])
+    back = discriminator_state_dict_from_flax(tree, {})
+    _assert_same({k: v.numpy() for k, v in back.items()}, {k: v.numpy() for k, v in sd.items()})
+    assert all(int(back[k]) == 1 for k in back if k.endswith("initialized"))
+    again = discriminator_params_to_flax(back)
+    for path, v in _shapes(tree).items():
+        a, b = tree, again
+        for p in path:
+            a, b = a[p], b[p]
+        np.testing.assert_array_equal(a, b, err_msg="/".join(path))
