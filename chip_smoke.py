@@ -166,7 +166,9 @@ Phases, each printed as one JSON line (any failure exits non-zero):
      eval      the evaluation entry points as processes (`evaluate`): FID of
                `sample.val`'s 40 images against 40 seeded images (seeded
                InceptionV3 weights; and the proxy features), the first stage's
-               rFID, `codebook_usage`, `codebook_pca`, `parity_report` on
+               rFID, and its rFID over the image fixtures (JPEG, PNG, CMYK,
+               grey files through the port's reader), `codebook_usage`,
+               `codebook_pca`, `parity_report` on
                stand-ins with its `sample_fid` leg; seconds, values, variant,
                the InceptionV3 forward's images/s, launches
   9. fit       the port's training command line (`train/cli.py` `main`), called
@@ -183,6 +185,21 @@ Phases, each printed as one JSON line (any failure exits non-zero):
   10. fit1     the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
                8, two epochs of two steps, resume), with `remat`, the trainer's
                default on the card
+     data_real  real image files, PIL blocked: the host libraries' build and
+               the JPEG decoder in use (libjpeg where it builds, else the port's
+               own), the committed fixtures (`tests/fixtures/images/`) read and
+               transformed by the port against `expected.json` (the JAX
+               package's arrays, bit for bit), one image's decode / resize ms,
+               `PrefetchLoader` images/s at 1 / 2 / 4 / 8 workers over an
+               ImageNet tree of 512 JPEG files and an FFHQ tree of 64 PNGs of
+               1024^2; the shipped stage-1 yml trained from the JPEG tree by the
+               command line at its batch 30 with 8 workers (f32, `remat`; 4
+               steps, each between two synchronises, the `pull` bucket against
+               the step, launches a step as `train1_b30`'s; validation on 2
+               batches); `calculate_entropy_thresholds` over the tree against
+               the plain entropy on the same batches (#3's launches), and
+               `visualize_dual_grain` of 16 files (its PNG read back by the
+               port)
  11. script    the script's seconds
      kernels   one line listing every ported kernel, its launches on each
                driven path (counted through graph replays) and its measured
@@ -205,6 +222,10 @@ STAGE1 = "configs/stage1/dqvae-entropy-dual-r05_imagenet.yml"
 DUAL_FEAT = "configs/stage1/dqvae-dual-r-05_imagenet.yml"
 TRIPLE = "configs/stage1/dqvae-triple-r-03-03_imagenet.yml"
 EVAL_DUMP = os.path.abspath(os.path.join("build", "eval_dump"))  # sample_cli's pickles, for eval
+# image files made from seeded arrays, with the JAX package's arrays in expected.json
+FIXTURES = os.path.join("tests", "fixtures", "images")
+FIXTURE_JPEGS = ("n01_rgb420_q90.JPEG", "rgb444_q85.jpg", "gray_q90.jpg", "progressive_q80.jpeg",
+                 "large_q75.jpg")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 # f32 without tensor cores; bf16 and TF32 dense on the tensor cores
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
@@ -3174,6 +3195,9 @@ def evaluate(torch, dev, card, n_images=40):
     fid = run("fid", "compute_fid", "--a", EVAL_DUMP, "--b", images, "--batch_size", "40")
     proxy = run("proxy_fid", "compute_fid", "--a", EVAL_DUMP, "--b", images, "--proxy_features")
     rfid = run("rfid", "compute_fid", "--rfid", *stage1_args, "--b", images, "--batch_size", "8")
+    # image files (JPEG, PNG, CMYK, grey) through the port's reader, no PIL
+    rfid_files = run("rfid_files", "compute_fid", "--rfid", *stage1_args, "--b", FIXTURES,
+                     "--batch_size", "8")
     usage = run("codebook_usage", "codebook_usage", *stage1_args, "--batch_size", "8",
                 "--max_batches", "5")
     png = os.path.join(root, "codebook_pca.png")
@@ -3190,7 +3214,8 @@ def evaluate(torch, dev, card, n_images=40):
         scatter = read_png(f.read())
     res = dict(phase="eval", images=n_images, dump=EVAL_DUMP, setup_s=setup_s, runs=runs,
                fid=fid["value_unrounded"], proxy_fid=proxy["value_unrounded"],
-               rfid=rfid["value_unrounded"], variant=fid["variant"],
+               rfid=rfid["value_unrounded"], rfid_files=rfid_files["value_unrounded"],
+               rfid_files_images=rfid_files["images"], variant=fid["variant"],
                inception_images_per_s={k: r["result"]["feature_images_per_s"]
                                        for k, r in runs.items()
                                        if "feature_images_per_s" in r["result"]},
@@ -3207,6 +3232,9 @@ def evaluate(torch, dev, card, n_images=40):
             f"FID values {res['fid']}, {res['proxy_fid']}, {res['rfid']}")
     require(fid["images"] == [n_images, n_images] and rfid["images"] == n_images,
             f"FID over {fid['images']} / rFID over {rfid['images']} images")
+    require(rfid_files["images"] == 9 and math.isfinite(rfid_files["value_unrounded"])
+            and runs["rfid_files"]["launches"].get("vq_nearest") == 2,  # batches of 8 and 1
+            f"rFID over the fixture files: {rfid_files}, {runs['rfid_files']['launches']}")
     require(0 < usage["usage_percent"] <= 100 and 0 < pca["explained_variance_2"] <= 1
             and scatter.shape == (512, 512, 3), f"codebook tools: {usage}, {pca}")
     require(report["verdict"] == "INCOMPLETE"
@@ -3823,6 +3851,329 @@ def http(torch, model, card, reps=3):
     return res
 
 
+def _digest(arr):
+    """sha256 and per-channel sums (float64) of an array, as
+    `tests/fixtures/images/make_fixtures.py` records them."""
+    import hashlib
+
+    import numpy as np
+
+    arr = np.ascontiguousarray(arr)
+    return (hashlib.sha256(arr.tobytes()).hexdigest(),
+            arr.reshape(-1, arr.shape[-1]).sum(0, dtype=np.float64).tolist())
+
+
+def check_fixtures():
+    """The port's decode and transforms of every committed fixture against
+    `expected.json` (the JAX package's arrays, made where PIL, libjpeg and
+    the JAX package are installed): equal hashes, else the largest
+    per-channel sum difference. Any mismatch fails: libjpeg and the port's
+    own decoder both give libjpeg's pixels."""
+    import numpy as np
+
+    from dynamicvectorquantization_torch.data import transforms as T
+    from dynamicvectorquantization_torch.data.image_io import read_image
+
+    with open(os.path.join(FIXTURES, "expected.json")) as f:
+        expected = json.load(f)
+    checked, mismatched, worst = 0, [], 0.0
+    for name, entry in sorted(expected["files"].items()):
+        for size in expected["sizes"]:
+            arr, mode = read_image(os.path.join(FIXTURES, name), min_side=size)
+            outs = {f"decoded_{size}": arr}
+            for t in expected["transforms"]:
+                outs[f"{t}_{size}"] = getattr(T, t)((arr, mode), size,
+                                                    np.random.default_rng(expected["seed"]))
+            for key, out in outs.items():
+                sha, sums = _digest(out)
+                want = entry[key]
+                checked += 1
+                if sha != want["sha256"] or (key.startswith("decoded") and mode != want["mode"]):
+                    diff = max(abs(a - b) for a, b in zip(sums, want["channel_sums"]))
+                    worst = max(worst, diff)
+                    mismatched.append(dict(file=name, key=key, mode=mode,
+                                           channel_sum_diff=diff))
+    return dict(files=len(expected["files"]), checked=checked, mismatched=mismatched,
+                largest_channel_sum_diff=worst, tolerance="equal sha256 (bit for bit)")
+
+
+def image_trees(root, n_train=512, n_val=64, n_ffhq=64, ffhq_side=1024):
+    """An ImageNet-layout tree of fixture copies (train: 4 synsets, `n_train`
+    files, the five RGB / grey JPEGs round robin with one CMYK JPEG and one
+    PNG named .JPEG in every 128; val: `n_val`) and an FFHQ-layout tree of
+    `n_ffhq` RGB PNGs of `ffhq_side`^2 written by `encode_png` from seeded
+    smooth images (8^2 noise, Pillow-bicubic upscaled)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from dynamicvectorquantization_torch import native
+    from dynamicvectorquantization_torch.utils.logging import encode_png
+
+    def source(i):
+        if i % 128 == 0:
+            return "cmyk_q90.jpg"
+        if i % 128 == 1:
+            return "png_named.JPEG"
+        return FIXTURE_JPEGS[i % len(FIXTURE_JPEGS)]
+
+    for split, n in (("train", n_train), ("val", n_val)):
+        for i in range(n):
+            d = os.path.join(root, "imagenet", split, f"n0{i % 4}")
+            os.makedirs(d, exist_ok=True)
+            shutil.copy(os.path.join(FIXTURES, source(i)), os.path.join(d, f"{split}_{i:05d}.JPEG"))
+    ffhq = os.path.join(root, "ffhq", "images")
+    os.makedirs(ffhq)
+
+    def write(i):
+        low = np.random.default_rng(i).integers(0, 256, size=(8, 8, 3), dtype=np.uint8)
+        with open(os.path.join(ffhq, f"{i:05d}.png"), "wb") as f:
+            f.write(encode_png(native.resample(low, ffhq_side, ffhq_side, native.BICUBIC)))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n_ffhq)))
+    return os.path.join(root, "imagenet"), os.path.join(root, "ffhq")
+
+
+def loader_rates(dataset, workers=(1, 2, 4, 8), epochs=3, batch=32):
+    """Images/s through `PrefetchLoader` over whole epochs, per worker count."""
+    from dynamicvectorquantization_torch.data.pipeline import PrefetchLoader
+
+    out = {}
+    for w in workers:
+        loader = PrefetchLoader(dataset, batch_size=batch, shuffle=True, num_workers=w, seed=0)
+        rates = []
+        for e in range(epochs):
+            t0 = time.perf_counter()
+            n = sum(len(b["image"]) for b in loader.epoch(e))
+            rates.append(n / (time.perf_counter() - t0))
+        out[str(w)] = spread(rates)
+    return out
+
+
+def _ms(fn, reps=30):
+    """Host milliseconds a call: the spread of `reps` calls after one."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return spread(times)
+
+
+@contextlib.contextmanager
+def timed_stage1_steps(torch, steps):
+    """Each `Stage1Trainer.train_step` between two synchronises: its wall
+    seconds and the kernel launches it made, appended to `steps`."""
+    from dynamicvectorquantization_torch.train.stage1 import Stage1Trainer
+
+    original = Stage1Trainer.train_step
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = read_launches()
+        t0 = time.perf_counter()
+        out = original(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        after = read_launches()
+        steps.append(dict(s=time.perf_counter() - t0,
+                          launches={k: after[k] - before[k] for k in after if after[k] - before[k]}))
+        return out
+
+    Stage1Trainer.train_step = timed
+    try:
+        yield
+    finally:
+        Stage1Trainer.train_step = original
+
+
+def data_real(torch, dev, card):
+    """Real image files on the card, without PIL: the host libraries' build,
+    the fixtures against `expected.json`, loader images/s over an ImageNet
+    tree of JPEGs and an FFHQ tree of 1024^2 PNGs at 1 / 2 / 4 / 8 workers,
+    the shipped stage-1 yml trained from the JPEG tree by the training
+    command line (`train/cli.py` `main` in-process, as `fit1`; the yml's
+    batch 30 and 8 workers, f32, `remat` by default; one epoch of 4 steps,
+    validation on 2 batches), and the entropy-threshold and grain-map tools
+    over the tree; with PIL blocked after the build line, whether or not the
+    machine has it."""
+    from dynamicvectorquantization_torch import native
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    native.lib("image_core")
+    decoder = native.decoder_name()  # libjpeg where it builds, else the port's own decoder
+    try:
+        libjpeg = native.jpeg_version()
+    except RuntimeError as e:
+        libjpeg = {"unavailable": str(e)[:600]}
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    build = dict(seconds=time.perf_counter() - t0, build_seconds=dict(native.build_seconds),
+                 decoder=decoder, backend=native.jpeg_backend(), libjpeg=libjpeg,
+                 cpu_count=os.cpu_count(), cpus_usable=len(os.sched_getaffinity(0)),
+                 pil_imports=pil, pil_blocked_in_phase=True, cxxflags=native.CXXFLAGS)
+    # the rest of the phase runs as on a machine without PIL: an import of it fails
+    saved_pil = {name: mod for name, mod in sys.modules.items() if name.split(".")[0] == "PIL"}
+    sys.modules["PIL"] = None
+    try:
+        return _data_real(torch, dev, card, t_phase, build)
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved_pil)
+
+
+def _data_real(torch, dev, card, t_phase, build):
+    """`data_real` after the build line, PIL blocked."""
+    import tempfile
+
+    from dynamicvectorquantization_torch.data import datasets
+    from dynamicvectorquantization_torch.data import transforms as T
+    from dynamicvectorquantization_torch.data.image_io import read_image
+    from dynamicvectorquantization_torch.data.pipeline import PrefetchLoader
+    from dynamicvectorquantization_torch.ops.entropy import patch_entropy_plain
+    from dynamicvectorquantization_torch.tools import (
+        calculate_entropy_thresholds as thresholds_tool,
+    )
+    from dynamicvectorquantization_torch.tools import visualize_dual_grain
+    from dynamicvectorquantization_torch.train import cli
+
+    t0 = time.perf_counter()
+    fixtures = check_fixtures()
+    fixtures["seconds"] = time.perf_counter() - t0
+    require(not fixtures["mismatched"],
+            f"data_real: the port's arrays differ from expected.json: {fixtures['mismatched']}")
+
+    res = dict(phase="data_real", build=build, fixtures=fixtures, card=card)
+    with tempfile.TemporaryDirectory(prefix="dqvq_data_real_") as root:
+        t0 = time.perf_counter()
+        imagenet, ffhq = image_trees(root)
+        res["trees"] = dict(seconds=time.perf_counter() - t0, imagenet_train=512,
+                            imagenet_val=64, ffhq_png_1024=64,
+                            ffhq_png_mb=sum(os.path.getsize(os.path.join(ffhq, "images", n))
+                                            for n in os.listdir(os.path.join(ffhq, "images")))
+                            / 2 ** 20)
+        # one core, one image: a 500x375 q 90 JPEG at ImageNet's size 256 (decoded at full
+        # size: 375 // 2 < 256), its resize to a 256 short side, a 1024^2 PNG of the FFHQ tree
+        jpeg_path = os.path.join(FIXTURES, FIXTURE_JPEGS[0])
+        png_path = os.path.join(ffhq, "images", "00000.png")
+        arr, mode = read_image(jpeg_path, min_side=256)
+        res["one_image_ms"] = {
+            "jpeg_500x375_decode": _ms(lambda: read_image(jpeg_path, min_side=256)),
+            "resize_375x500_to_256x341": _ms(lambda: T.resize((arr, mode), (341, 256))),
+            "png_1024_decode": _ms(lambda: read_image(png_path), reps=10)}
+        t0 = time.perf_counter()
+        res["loader_images_per_s"] = {
+            "imagenet_train_256": loader_rates(datasets.ImageNetTrain({"size": 256},
+                                                                      root=imagenet)),
+            "ffhq_train_256": loader_rates(datasets.FFHQTrain(size=256, root=ffhq))}
+        res["loader_seconds"] = time.perf_counter() - t0
+
+        # the shipped stage-1 yml from the JPEG tree through the command line
+        logdir = os.path.join(root, "logs")
+        steps = []
+        saved = os.environ.get("DQVQ_IMAGENET_ROOT")
+        os.environ["DQVQ_IMAGENET_ROOT"] = imagenet
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with timed_stage1_steps(torch, steps):
+                trainer = cli.main(["--base", STAGE1, "--logdir", logdir, "--name", "files",
+                                    "--max_epochs", "1", "--max_steps_per_epoch", "4",
+                                    "--log_every", "1", "--image_log_every", "0",
+                                    "--save_n", "1"])
+        finally:
+            if saved is None:
+                os.environ.pop("DQVQ_IMAGENET_ROOT")
+            else:
+                os.environ["DQVQ_IMAGENET_ROOT"] = saved
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+        remat = getattr(trainer, "remat", None)
+        del trainer
+        torch.cuda.empty_cache()
+        run_dir = _only_dir(logdir, "files-")
+        with open(os.path.join(run_dir, "loop_buckets.json")) as f:
+            buckets = json.load(f)
+        rows = _rows(run_dir)
+        step_s = [s["s"] for s in steps]
+        pull_s = buckets["buckets"].get("pull", 0.0)
+        res["stage1_files"] = dict(
+            config=STAGE1, batch=30, num_workers=8, dtype="float32", remat=remat,
+            steps=len(steps), first_step_ms=step_s[0] * 1e3,
+            step_ms=spread([s * 1e3 for s in step_s[1:]]),
+            images_per_s=30 / spread(step_s[1:])["median"],
+            pull_ms_per_step=pull_s / len(steps) * 1e3,
+            pull_share_of_step=pull_s / sum(step_s),
+            buckets_s=buckets["buckets"], run_s=run_s,
+            launches_per_step=steps[-1]["launches"],
+            launches_equal_every_step=all(s["launches"] == steps[0]["launches"] for s in steps),
+            launches=launches, val_rows=[r for r in rows if r["split"] == "val"],
+            train_losses=[r.get("train_aeloss", r.get("train_loss")) for r in rows
+                          if r["split"] == "train"],
+            peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+        # the tools over the tree: thresholds through the kernel, against the plain version
+        out_dir = os.path.join(root, "thresholds")
+        reset_launches()
+        t0 = time.perf_counter()
+        os.environ["DQVQ_IMAGENET_ROOT"] = imagenet
+        try:
+            thresholds_tool.main(["--dataset", "imagenet", "--out_dir", out_dir])
+            tool_launches = read_launches()["patch_entropy"]
+            tool_s = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "entropy_thresholds_imagenet_train_patch-16.json")) as f:
+                table = json.load(f)
+            ds = thresholds_tool.dataset_of("imagenet", "train", 256)
+            loader = PrefetchLoader(ds, batch_size=64, shuffle=False, num_workers=8)
+            plain = thresholds_tool.percentiles(thresholds_tool.entropy_values(
+                loader.epoch(0), 16, (-1.0, 1.0), dev, entropy_fn=patch_entropy_plain))
+            reset_launches()
+            t0 = time.perf_counter()
+            vis_dir = os.path.join(root, "grain_vis")
+            visualize_dual_grain.main(["--yaml_path", STAGE1, "--dataset", "imagenet",
+                                       "--num_images", "16", "--save_path", vis_dir])
+            vis_s = time.perf_counter() - t0
+            vis_launches = {k: v for k, v in read_launches().items() if v}
+            grid, grid_mode = read_image(os.path.join(vis_dir, "grain_overlay.png"))
+        finally:
+            os.environ.pop("DQVQ_IMAGENET_ROOT")
+        diffs = [abs(table[k] - plain[k]) for k in table]
+        res["tools"] = dict(
+            entropy_thresholds=dict(seconds=tool_s, images=512, batches=8,
+                                    patch_entropy_launches=tool_launches,
+                                    max_abs_diff_to_plain=max(diffs), tol=1e-5,
+                                    percentiles={k: table[k] for k in ("1", "25", "50", "75",
+                                                                       "99")}),
+            visualize_dual_grain=dict(seconds=vis_s, images=16, launches=vis_launches,
+                                      png_shape=list(grid.shape), png_mode=grid_mode))
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    run = res["stage1_files"]
+    require(run["steps"] == 4 and len(run["val_rows"]) == 1
+            and all(math.isfinite(v) for v in run["train_losses"]),
+            f"data_real: the stage-1 run from files: {run['steps']} steps, {run['val_rows']}")
+    want = {"vq_nearest_train": 2, "patch_entropy": 2, "strided_conv3x3_down": 8,
+            "fused_attention_forward": 30, "fused_attention_backward": 10}
+    require(run["launches_equal_every_step"] and run["remat"] is True
+            and all(run["launches_per_step"].get(k) == v for k, v in want.items()),
+            f"data_real: launches a step {run['launches_per_step']}, expected {want} (remat)")
+    tools = res["tools"]
+    require(tools["entropy_thresholds"]["patch_entropy_launches"] == 8
+            and tools["entropy_thresholds"]["max_abs_diff_to_plain"] <= 1e-5,
+            f"data_real: entropy thresholds {tools['entropy_thresholds']}")
+    require(tools["visualize_dual_grain"]["png_shape"] == [4 * 258 - 2, 4 * 258 - 2, 3]
+            and tools["visualize_dual_grain"]["launches"].get("vq_nearest") == 1,
+            f"data_real: visualize_dual_grain {tools['visualize_dual_grain']}")
+    return res
+
+
 def main():
     if sys.argv[1:2] == ["--launches-of"]:
         return run_counting(sys.argv[2:])
@@ -3955,6 +4306,8 @@ def main():
     fitted = fit(torch, card)["launches"]
     torch.cuda.empty_cache()
     fitted1 = fit1(torch, card)["launches"]
+    torch.cuda.empty_cache()
+    real = data_real(torch, dev, card)
 
     # the downsample lines sum the encoder's four levels (one encode batch)
     def levels(cases):
@@ -4002,7 +4355,13 @@ def main():
              "train1_b30_step": per_step1_b30, "train1_b30_bf16_step": per_step1_b30_bf16,
              "eval": {name: sum(run["launches"].get(name, 0)
                                 for run in evaluated["runs"].values()) for name in per_step},
-             "fit": fitted, "fit1": fitted1}
+             "fit": fitted, "fit1": fitted1,
+             # the stage-1 command line from JPEG files (4 steps, validation), then the tools
+             "data_real": {name: real["stage1_files"]["launches"][name]
+                           + (real["tools"]["entropy_thresholds"]["patch_entropy_launches"]
+                              if name == "patch_entropy" else 0)
+                           + real["tools"]["visualize_dual_grain"]["launches"].get(name, 0)
+                           for name in per_step}}
 
     def launched(name):
         """Launches of a row on each driven path (for the attention rows: of

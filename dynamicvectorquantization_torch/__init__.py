@@ -23,6 +23,13 @@ module's counterpart is easy to find:
   serve/    dynamic-batching sampler and its HTTP front end
             (`python -m dynamicvectorquantization_torch.serve`)
   utils/    instantiation, weight conversion, model loading, devices
+  data/     datasets (ImageNet, FFHQ, CelebA-HQ, FacesHQ, synthetic), the
+            image reader and Pillow-exact transforms, the prefetching loader
+  native/   the host image pipeline's C++ (Pillow's resampler, PNG
+            unfiltering, JPEG through libjpeg or the port's own decoder;
+            built at first use by g++)
+  tools/    offline tools: ImageNet preparation, entropy-threshold tables,
+            grain-map overlays
   csrc/     CUDA C++ sources of the kernels (built at first use by nvcc)
 
 Parameter names follow the reference torch modules, so a reference stage-2

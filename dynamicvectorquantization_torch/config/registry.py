@@ -5,9 +5,12 @@ only the targets the ported slices instantiate: the unconditional and the
 class-conditional stage-2 models (`Dualformer`, `ClassCondDualformer`) with
 their label providers, the dual- and triple-grain DQ-VAEs with their routers,
 budget losses and GAN loss, the data
-module with ImageNet and the synthetic datasets. Paths inside this package
-pass through. A data target written as `<package>.data.datasets.<Name>` or
-`<package>.data.synthetic.<Name>` for ANY top-level package (the smoke
+module with the ImageNet, face (FFHQ, CelebA-HQ, FacesHQ, LMDB FFHQ) and
+synthetic datasets, and the reference launcher's callback and logger
+entries (`SetupCallback`, `LightningShim`: the trainer does their work
+itself). Paths inside this package pass through. A data target written as
+`<package>.data.datasets.<Name>`, `<package>.data.synthetic.<Name>` or
+`<package>.data.ffhq_lmdb.<Name>` for ANY top-level package (the smoke
 configs name the JAX package's) resolves by its tail to this package's
 class of that name. Any other target raises, so a config that needs an
 unported module fails loudly instead of silently picking something else.
@@ -48,12 +51,25 @@ TARGET_ALIASES = {
     "data.imagenet.ImageNetTrain": f"{_PKG}.data.datasets.ImageNetTrain",
     "data.imagenet.ImageNetValidation": f"{_PKG}.data.datasets.ImageNetValidation",
     "data.synthetic.SyntheticImages": f"{_PKG}.data.synthetic.SyntheticImages",
+    **{f"data.faceshq.{name}": f"{_PKG}.data.datasets.{name}"
+       for name in ("FFHQTrain", "FFHQValidation", "CelebAHQTrain", "CelebAHQValidation",
+                    "FacesHQTrain", "FacesHQValidation")},
+    "data.ffhq_lmdb.FFHQ_LMDB": f"{_PKG}.data.ffhq_lmdb.FFHQ_LMDB",
+    # the reference launcher's callbacks and loggers: the trainer does their work
+    "utils.logger.SetupCallback": f"{_PKG}.utils.logging.SetupCallback",
+    **{f"pytorch_lightning.{name}": f"{_PKG}.utils.logging.LightningShim"
+       for name in ("callbacks.ModelCheckpoint", "callbacks.LearningRateMonitor",
+                    "callbacks.RichModelSummary", "loggers.TensorBoardLogger",
+                    "loggers.WandbLogger")},
 }
 # `<any package>.data.<module>.<Name>` -> this package's class, for these names
 _DATA_TAILS = {
     "data.datasets": ("DataModuleFromConfig", "ImageNetTrain", "ImageNetValidation",
-                      "SyntheticDataset", "FileListDataset"),
+                      "SyntheticDataset", "FileListDataset", "FFHQTrain", "FFHQValidation",
+                      "CelebAHQTrain", "CelebAHQValidation", "FacesHQTrain",
+                      "FacesHQValidation"),
     "data.synthetic": ("SyntheticImages",),
+    "data.ffhq_lmdb": ("FFHQ_LMDB",),
 }
 
 

@@ -6,11 +6,15 @@ dataset configs; each dataset's `__getitem__(i, rng)` returns
 `{"image": (H, W, 3) float32 in [-1, 1], "class_label": int, ...}`. Batches
 are NHWC numpy arrays assembled by `data/pipeline.py`.
 
-Ported: `FileListDataset`, ImageNet train / validation, `SyntheticDataset`
-(random images, equal to the JAX package's for an index) and the procedural
-`data.synthetic.SyntheticImages`. Files are opened with PIL, imported only
-when a file is opened; the native JPEG decoder, FFHQ / CelebA-HQ / FacesHQ
-and the LMDB reader are not ported (ROADMAP.md).
+`FileListDataset` reads a file with `data/image_io.py` `read_image` (the JAX
+package's libjpeg decode with DCT-domain downscale for `.jpg` / `.jpeg`,
+PNG without PIL, the rest by content) and applies the array transforms of
+`data/transforms.py`, so an example equals the JAX package's bit for bit for
+the same file, index and generator, with or without PIL installed. Datasets:
+ImageNet train / validation, FFHQ, CelebA-HQ, FacesHQ (their concatenation),
+`SyntheticDataset` (random images, equal to the JAX package's for an index)
+and the procedural `data.synthetic.SyntheticImages`; the LMDB-backed FFHQ is
+`data/ffhq_lmdb.py`.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import numpy as np
 from ..utils.instantiate import instantiate_from_config
 from . import paths as default_paths
 from . import transforms as T
+from .image_io import read_image
 
 
 class FileListDataset:
@@ -38,20 +43,28 @@ class FileListDataset:
         return len(self.files)
 
     def _open(self, path):
-        from PIL import Image
-
-        return Image.open(path)
+        """(array, mode); JPEGs decoded at the smallest DCT-domain scale that
+        keeps the short side at least `size`."""
+        return read_image(path, min_side=self.size)
 
     def __getitem__(self, i, rng: Optional[np.random.Generator] = None):
         rng = rng or np.random.default_rng()
-        with self._open(self.files[i]) as img:
-            image = self.transform(img, self.size, rng)
-        ex = {"image": image}
+        ex = {"image": self.transform(self._open(self.files[i]), self.size, rng)}
         if self.labels is not None:
             ex["class_label"] = np.int32(self.labels[i])
         if self.human_labels is not None:
             ex["human_label"] = self.human_labels[i]
         return ex
+
+
+def _list_images(root):
+    exts = {".jpg", ".jpeg", ".png", ".bmp", ".webp", ".JPEG", ".JPG", ".PNG"}
+    files = []
+    for dirpath, _, filenames in sorted(os.walk(root)):
+        for f in sorted(filenames):
+            if os.path.splitext(f)[1] in exts:
+                files.append(os.path.join(dirpath, f))
+    return files
 
 
 def _imagenet_split(root, split, size, train: bool):
@@ -104,6 +117,69 @@ class ImageNetTrain(_ImageNetSplit):
 
 class ImageNetValidation(_ImageNetSplit):
     split, train = "val", False
+
+
+class _FaceSplit(FileListDataset):
+    """`<root>/<split>/` if that directory exists, else every image under
+    `<root>`; labels 0."""
+    root_fn, split, transform_fn = None, None, None
+
+    def __init__(self, size=256, root=None, **kwargs):
+        root = root or type(self).root_fn()
+        split_dir = os.path.join(root, self.split)
+        files = _list_images(split_dir if os.path.isdir(split_dir) else root)
+        super().__init__(files, [0] * len(files), type(self).transform_fn, int(size))
+
+
+class FFHQTrain(_FaceSplit):
+    root_fn, split, transform_fn = default_paths.ffhq_root, "train", T.ffhq_train_transform
+
+
+class FFHQValidation(_FaceSplit):
+    root_fn, split, transform_fn = default_paths.ffhq_root, "val", T.ffhq_val_transform
+
+
+class CelebAHQTrain(_FaceSplit):
+    root_fn, split, transform_fn = default_paths.celebahq_root, "train", T.ffhq_train_transform
+
+
+class CelebAHQValidation(_FaceSplit):
+    root_fn, split, transform_fn = default_paths.celebahq_root, "val", T.ffhq_val_transform
+
+
+class _Concat:
+    """Concatenation of datasets (the reference's FacesHQ = CelebA-HQ +
+    FFHQ); empty datasets are left out unless all are empty."""
+
+    def __init__(self, *datasets):
+        self.datasets = [d for d in datasets if len(d) > 0] or list(datasets)
+        self._offsets = []
+        off = 0
+        for d in self.datasets:
+            self._offsets.append(off)
+            off += len(d)
+        self._len = off
+
+    def __len__(self):
+        return self._len
+
+    def __getitem__(self, i, rng=None):
+        for d, off in zip(reversed(self.datasets), reversed(self._offsets)):
+            if i >= off:
+                return d.__getitem__(i - off, rng=rng)
+        raise IndexError(i)
+
+
+class FacesHQTrain(_Concat):
+    """CelebA-HQ + FFHQ train."""
+
+    def __init__(self, size=256, **kwargs):
+        super().__init__(CelebAHQTrain(size=size), FFHQTrain(size=size))
+
+
+class FacesHQValidation(_Concat):
+    def __init__(self, size=256, **kwargs):
+        super().__init__(CelebAHQValidation(size=size), FFHQValidation(size=size))
 
 
 class SyntheticDataset:

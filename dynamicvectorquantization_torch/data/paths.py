@@ -7,3 +7,11 @@ import os
 
 def imagenet_root() -> str:
     return os.environ.get("DQVQ_IMAGENET_ROOT", "/data/imagenet")
+
+
+def ffhq_root() -> str:
+    return os.environ.get("DQVQ_FFHQ_ROOT", "/data/ffhq")
+
+
+def celebahq_root() -> str:
+    return os.environ.get("DQVQ_CELEBAHQ_ROOT", "/data/celebahq")

@@ -20,7 +20,11 @@ seconds, and with InceptionV3 the feature extractor's images/s (over its
 calls after the first).
 
 Dumps (`.pkl`, `.npy`; uint8 or float in [-1, 1]) are read with numpy and
-pickle alone; PIL is imported only to read an image folder. The model and the
+pickle alone; an image folder's files (`.png`, `.jpg`, `.jpeg`) with the
+port's reader (`data/image_io.py`: full size, by content, no PIL for JPEG and
+8-bit PNG), converted to RGB and resized with Pillow's bicubic filter
+(`native.resample`), as the JAX script's `Image.open(p).convert("RGB")
+.resize(..., BICUBIC)`, bit for bit. The model and the
 Inception forward run on the CUDA card unless `--device` names another one.
 """
 from __future__ import annotations
@@ -68,24 +72,31 @@ def iter_source(path, batch_size=32, limit=None, size=None):
                 yield chunk
         return
 
-    from PIL import Image
-
     imgs = sorted(p for p in glob.glob(os.path.join(path, "**", "*"), recursive=True)
                   if p.lower().endswith((".png", ".jpg", ".jpeg")))
     buf = []
     for p in imgs:
         if limit and n >= limit:
             break
-        im = Image.open(p).convert("RGB")
-        if size:
-            im = im.resize((size, size), Image.BICUBIC)
-        buf.append(_to_float(np.asarray(im, np.uint8)))
+        buf.append(_to_float(read_rgb(p, size)))
         n += 1
         if len(buf) == batch_size:
             yield np.stack(buf)
             buf = []
     if buf:
         yield np.stack(buf)
+
+
+def read_rgb(path, size=None):
+    """(H, W, 3) uint8 of an image file: `Image.open(path).convert("RGB")`,
+    then with `size` `.resize((size, size), Image.BICUBIC)`."""
+    from .. import native
+    from ..data.image_io import decode_image
+    from ..data.transforms import to_rgb
+
+    with open(path, "rb") as f:
+        rgb = to_rgb(decode_image(f.read(), path))
+    return native.resample(rgb, size, size, native.BICUBIC) if size else rgb
 
 
 def proxy_feature_fn(dim=256, seed=0):

@@ -1,0 +1,1087 @@
+// A baseline and progressive JPEG decoder that gives libjpeg-turbo's pixels
+// (JPEG_LIB_VERSION 62, the JAX package's decoder), for machines without
+// libjpeg. It needs no third-party header. It follows libjpeg's decode path:
+//   * Huffman entropy decoding, sequential (SOF0 / SOF1) and progressive
+//     (SOF2: DC first / refine, AC first / refine with EOB runs), restart
+//     intervals; the quantisation table latched at a component's first scan;
+//   * the accurate integer IDCT (jidctint.c, jpeg_idct_islow) and, with DCT
+//     scaling, the reduced-size ones (jidctred.c: 4x4, 2x2, 1x1), each
+//     clamped through libjpeg's post-IDCT range-limit table;
+//   * libjpeg's choice of each component's scaled block size (a chroma
+//     component is scaled up by the IDCT where the ratio allows, jdmaster.c),
+//     and its upsampling (jdsample.c): full size, fancy (triangle) h2v1, h1v2
+//     and h2v2 with the top and bottom rows replicated as context, plain
+//     replication where fancy does not apply (1/8 scale, 2 or fewer columns);
+//   * colour conversion (jdcolor.c): YCbCr -> RGB by libjpeg's fixed-point
+//     tables, grey -> RGB, RGB copy, YCCK -> CMYK, CMYK copy; the colour space
+//     from the JFIF / Adobe markers or the component ids
+//     (jdapimin.c default_decompress_parms).
+// Arithmetic coding, lossless JPEG and 12-bit samples are refused.
+//
+// Entries (extern "C"):
+//   dqvq_jpeg_port_header(buf, len, &h, &w, &components, msg, cap)
+//   dqvq_jpeg_port_decode(buf, len, denom, space, out, cap, &h, &w, msg, cap)
+//     space 0: RGB (3 bytes a pixel; fails for 4 components, as libjpeg's
+//     colour conversion does); 1: grey (1 component); 2: CMYK stored
+//     inverted (255 - v), as Pillow's "CMYK;I" raw mode stores it.
+//
+// Build: part of the image_core library (native/__init__.py).
+
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+namespace {
+
+constexpr int kMaxComponents = 4;
+
+const int kNaturalOrder[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};  // past the end: corrupt data
+
+struct JpegError : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+struct Huffman {
+  bool defined = false;
+  int maxcode[18];
+  int valoffset[18];
+  uint8_t huffval[256];
+  // 8-bit lookahead: (length << 8) | symbol, 0 where the code is longer
+  uint16_t look[256];
+};
+
+struct Component {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int dc_tbl = 0, ac_tbl = 0;
+  int width_in_blocks = 0, height_in_blocks = 0;  // blocks holding image samples
+  int blocks_w = 0, blocks_h = 0;                 // allocated (whole MCUs)
+  std::vector<int16_t> coef;                      // blocks_w * blocks_h * 64
+  uint16_t quant[64];                             // natural order, latched at first scan
+  bool quant_latched = false;
+  int dc_pred = 0;
+  int eob_run = 0;
+};
+
+class Decoder {
+ public:
+  Decoder(const uint8_t* data, long len) : d_(data), n_(len) {}
+
+  void read_header();
+  void decode_scans();
+  enum ColorSpace { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+  // the colour space of the data (jdapimin.c default_decompress_parms)
+  ColorSpace color_space() const;
+  // refuses an output `space` libjpeg has no conversion to, before any scan is read
+  void check_conversion(int space) const;
+  // output: (out_h, out_w, channels) for `space` at 1/denom
+  void output(int denom, int space, uint8_t* out, long cap, int* out_h, int* out_w);
+
+  int width = 0, height = 0, ncomp = 0;
+  bool progressive = false;
+  bool saw_jfif = false, saw_adobe = false;
+  int adobe_transform = 0;
+  Component comp[kMaxComponents];
+  int hmax = 1, vmax = 1;
+
+ private:
+  // ------------------------------------------------------------- markers
+  int byte() {
+    if (pos_ >= n_) throw JpegError("Premature end of JPEG file");
+    return d_[pos_++];
+  }
+  int word() {
+    int a = byte();
+    return (a << 8) | byte();
+  }
+  int next_marker() {
+    // skip to 0xFF, then past fill bytes
+    for (;;) {
+      int c = byte();
+      while (c != 0xFF) c = byte();
+      do c = byte(); while (c == 0xFF);
+      if (c != 0) return c;
+    }
+  }
+  void skip_segment() {
+    int len = word();
+    if (len < 2) throw JpegError("Bogus marker length");
+    pos_ += len - 2;
+    if (pos_ > n_) throw JpegError("Premature end of JPEG file");
+  }
+  void read_app(int marker);
+  void read_dqt();
+  void read_dht();
+  void read_sof(int marker);
+  void read_sos();
+  void read_dri() {
+    if (word() != 4) throw JpegError("Bogus DRI length");
+    restart_interval_ = word();
+  }
+
+  // ----------------------------------------------------------- bit reader
+  void reset_bits() {
+    bitbuf_ = 0;
+    bits_ = 0;
+    hit_marker_ = false;
+  }
+  void fill(int need) {
+    while (bits_ < need) {
+      int c = 0;
+      if (!hit_marker_ && pos_ < n_) {
+        c = d_[pos_];
+        if (c == 0xFF) {
+          int c2 = pos_ + 1 < n_ ? d_[pos_ + 1] : 0xD9;
+          if (c2 == 0) {
+            pos_ += 2;
+          } else {  // a marker: feed zeros from here on, as libjpeg does
+            hit_marker_ = true;
+            c = 0;
+          }
+        } else {
+          ++pos_;
+        }
+      }
+      bitbuf_ = (bitbuf_ << 8) | static_cast<uint32_t>(c);
+      bits_ += 8;
+    }
+  }
+  int get_bits(int n) {
+    if (n == 0) return 0;
+    fill(n);
+    bits_ -= n;
+    return static_cast<int>((bitbuf_ >> bits_) & ((1u << n) - 1));
+  }
+  int get_bit() { return get_bits(1); }
+  int decode_huff(const Huffman& t) {
+    fill(16);
+    const int peek = static_cast<int>((bitbuf_ >> (bits_ - 8)) & 0xFF);
+    const uint16_t e = t.look[peek];
+    if (e) {
+      bits_ -= e >> 8;
+      return e & 0xFF;
+    }
+    int l = 9;
+    int code = static_cast<int>((bitbuf_ >> (bits_ - 9)) & 0x1FF);
+    while (l <= 16 && code > t.maxcode[l]) {
+      ++l;
+      code = static_cast<int>((bitbuf_ >> (bits_ - l)) & ((1u << l) - 1));
+    }
+    if (l > 16) {  // corrupt data: libjpeg returns 0 and warns
+      bits_ -= 16;
+      return 0;
+    }
+    bits_ -= l;
+    return t.huffval[(code + t.valoffset[l]) & 0xFF];
+  }
+  static int extend(int r, int s) { return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r; }
+  void restart();
+
+  // --------------------------------------------------------------- scans
+  void decode_scan();
+  void decode_block_sequential(Component& c, int16_t* blk);
+  void decode_block_dc_first(Component& c, int16_t* blk);
+  void decode_block_dc_refine(int16_t* blk);
+  void decode_block_ac_first(Component& c, int16_t* blk);
+  void decode_block_ac_refine(Component& c, int16_t* blk);
+  void decode_block(Component& c, int16_t* blk);
+
+  const uint8_t* d_;
+  long n_;
+  long pos_ = 0;
+  uint32_t bitbuf_ = 0;
+  int bits_ = 0;
+  bool hit_marker_ = false;
+  int restart_interval_ = 0;
+  int next_restart_ = 0;
+  uint16_t qt_[4][64];
+  bool qt_defined_[4] = {false, false, false, false};
+  Huffman dc_[4], ac_[4];
+  bool frame_seen_ = false;
+  // the current scan
+  int scan_n_ = 0;
+  int scan_comp_[kMaxComponents];
+  int ss_ = 0, se_ = 63, ah_ = 0, al_ = 0;
+  int mcus_x_ = 0, mcus_y_ = 0;
+};
+
+void Decoder::read_app(int marker) {
+  int len = word();
+  if (len < 2) throw JpegError("Bogus marker length");
+  const long start = pos_, end = pos_ + len - 2;
+  if (end > n_) throw JpegError("Premature end of JPEG file");
+  const uint8_t* p = d_ + start;
+  const int n = len - 2;
+  if (marker == 0xE0 && n >= 14 && std::memcmp(p, "JFIF\0", 5) == 0) saw_jfif = true;
+  if (marker == 0xEE && n >= 12 && std::memcmp(p, "Adobe", 5) == 0) {
+    saw_adobe = true;
+    adobe_transform = p[11];
+  }
+  pos_ = end;
+}
+
+void Decoder::read_dqt() {
+  const int len = word();
+  const long end = pos_ + len - 2;
+  while (pos_ < end) {
+    int pq = byte();
+    int prec = pq >> 4, tq = pq & 15;
+    if (tq > 3) throw JpegError("Bogus DQT index");
+    for (int i = 0; i < 64; ++i) {
+      int v = prec ? word() : byte();
+      qt_[tq][kNaturalOrder[i]] = static_cast<uint16_t>(v);
+    }
+    qt_defined_[tq] = true;
+  }
+  if (pos_ != end) throw JpegError("Bogus DQT length");
+}
+
+void Decoder::read_dht() {
+  const int len = word();
+  const long end = pos_ + len - 2;
+  while (pos_ < end) {
+    int tc_th = byte();
+    int tc = tc_th >> 4, th = tc_th & 15;
+    if (th > 3 || tc > 1) throw JpegError("Bogus DHT index");
+    uint8_t bits[17];
+    int count = 0;
+    bits[0] = 0;
+    for (int i = 1; i <= 16; ++i) {
+      bits[i] = static_cast<uint8_t>(byte());
+      count += bits[i];
+    }
+    if (count > 256) throw JpegError("Bogus Huffman table definition");
+    Huffman& t = tc ? ac_[th] : dc_[th];
+    std::memset(t.huffval, 0, sizeof(t.huffval));
+    for (int i = 0; i < count; ++i) t.huffval[i] = static_cast<uint8_t>(byte());
+    // canonical codes (jdhuff.c jpeg_make_d_derived_tbl)
+    int huffsize[257], huffcode[257];
+    int p = 0;
+    for (int l = 1; l <= 16; ++l)
+      for (int i = 0; i < bits[l]; ++i) huffsize[p++] = l;
+    huffsize[p] = 0;
+    int code = 0, si = huffsize[0];
+    p = 0;
+    while (huffsize[p]) {
+      while (huffsize[p] == si) huffcode[p++] = code++;
+      if (code >= (1 << si)) throw JpegError("Bogus Huffman table definition");
+      code <<= 1;
+      ++si;
+    }
+    p = 0;
+    for (int l = 1; l <= 16; ++l) {
+      if (bits[l]) {
+        t.valoffset[l] = p - huffcode[p];
+        p += bits[l];
+        t.maxcode[l] = huffcode[p - 1];
+      } else {
+        t.maxcode[l] = -1;
+      }
+    }
+    t.valoffset[17] = 0;
+    t.maxcode[17] = 0x7FFFFFFF;
+    std::memset(t.look, 0, sizeof(t.look));
+    p = 0;
+    for (int l = 1; l <= 8; ++l) {
+      for (int i = 1; i <= bits[l]; ++i, ++p) {
+        int lookbits = huffcode[p] << (8 - l);
+        for (int ctr = 1 << (8 - l); ctr > 0; --ctr, ++lookbits)
+          t.look[lookbits] = static_cast<uint16_t>((l << 8) | t.huffval[p]);
+      }
+    }
+    t.defined = true;
+  }
+  if (pos_ != end) throw JpegError("Bogus DHT length");
+}
+
+void Decoder::read_sof(int marker) {
+  if (frame_seen_) throw JpegError("Invalid JPEG file structure: two SOF markers");
+  frame_seen_ = true;
+  progressive = marker == 0xC2;
+  int len = word();
+  int precision = byte();
+  height = word();
+  width = word();
+  ncomp = byte();
+  if (precision != 8) throw JpegError("Unsupported JPEG data precision " + std::to_string(precision));
+  if (len != 8 + 3 * ncomp || ncomp < 1 || ncomp > kMaxComponents)
+    throw JpegError("Bogus SOF marker length");
+  if (width <= 0 || height <= 0) throw JpegError("Empty JPEG image (DNL not supported)");
+  hmax = vmax = 1;
+  for (int i = 0; i < ncomp; ++i) {
+    Component& c = comp[i];
+    c.id = byte();
+    int hv = byte();
+    c.h = hv >> 4;
+    c.v = hv & 15;
+    c.tq = byte();
+    if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3)
+      throw JpegError("Bogus sampling factors");
+    hmax = c.h > hmax ? c.h : hmax;
+    vmax = c.v > vmax ? c.v : vmax;
+  }
+  mcus_x_ = (width + 8 * hmax - 1) / (8 * hmax);
+  mcus_y_ = (height + 8 * vmax - 1) / (8 * vmax);
+  for (int i = 0; i < ncomp; ++i) {
+    Component& c = comp[i];
+    c.width_in_blocks = static_cast<int>((static_cast<long>(width) * c.h + 8 * hmax - 1) / (8 * hmax));
+    c.height_in_blocks = static_cast<int>((static_cast<long>(height) * c.v + 8 * vmax - 1) / (8 * vmax));
+    c.blocks_w = mcus_x_ * c.h;
+    c.blocks_h = mcus_y_ * c.v;
+  }
+}
+
+void Decoder::read_header() {
+  if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) throw JpegError("Not a JPEG file: starts with " +
+                                                                std::to_string(n_ ? d_[0] : -1));
+  pos_ = 2;
+  for (;;) {
+    int m = next_marker();
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      read_sof(m);
+    } else if ((m >= 0xC3 && m <= 0xCF) && m != 0xC4 && m != 0xC8 && m != 0xCC) {
+      throw JpegError("Unsupported JPEG process: SOF type 0x" + std::to_string(m));
+    } else if (m == 0xC4) {
+      read_dht();
+    } else if (m == 0xDB) {
+      read_dqt();
+    } else if (m == 0xDD) {
+      read_dri();
+    } else if (m == 0xE0 || m == 0xEE) {
+      read_app(m);
+    } else if (m == 0xDA) {
+      if (!frame_seen_) throw JpegError("Improper call to JPEG library in state 201: SOS before SOF");
+      pos_ -= 2;  // decode_scans reads the SOS again
+      return;
+    } else if (m == 0xD9) {
+      throw JpegError("JPEG datastream contains no image");
+    } else if (m == 0xD8) {
+      throw JpegError("Invalid JPEG file structure: two SOI markers");
+    } else if (m >= 0xD0 && m <= 0xD7) {
+      // stray restart marker: ignore
+    } else {
+      skip_segment();
+    }
+  }
+}
+
+void Decoder::read_sos() {
+  int len = word();
+  scan_n_ = byte();
+  if (len != 6 + 2 * scan_n_ || scan_n_ < 1 || scan_n_ > kMaxComponents)
+    throw JpegError("Bogus SOS marker length");
+  for (int i = 0; i < scan_n_; ++i) {
+    int id = byte(), tables = byte();
+    int ci = -1;
+    for (int k = 0; k < ncomp; ++k)
+      if (comp[k].id == id) ci = k;
+    if (ci < 0) throw JpegError("Invalid component ID in SOS");
+    scan_comp_[i] = ci;
+    comp[ci].dc_tbl = tables >> 4;
+    comp[ci].ac_tbl = tables & 15;
+    if (comp[ci].dc_tbl > 3 || comp[ci].ac_tbl > 3) throw JpegError("Bogus Huffman table index");
+  }
+  ss_ = byte();
+  se_ = byte();
+  int a = byte();
+  ah_ = a >> 4;
+  al_ = a & 15;
+  if (!progressive) {
+    ss_ = 0;
+    se_ = 63;
+    ah_ = al_ = 0;
+  } else if (ss_ > se_ || se_ > 63 || al_ > 13 || (ss_ == 0 && se_ != 0) ||
+             (ss_ > 0 && scan_n_ != 1)) {
+    throw JpegError("Invalid progressive parameters");
+  }
+  for (int i = 0; i < scan_n_; ++i) {
+    Component& c = comp[scan_comp_[i]];
+    if (!c.quant_latched) {  // jdinput.c latch_quant_tables
+      if (!qt_defined_[c.tq]) throw JpegError("Quantization table 0x0" + std::to_string(c.tq) +
+                                              " was not defined");
+      std::memcpy(c.quant, qt_[c.tq], sizeof(c.quant));
+      c.quant_latched = true;
+    }
+    if (c.coef.empty()) c.coef.assign(static_cast<size_t>(c.blocks_w) * c.blocks_h * 64, 0);
+    const bool need_dc = ss_ == 0 && ah_ == 0;
+    const bool need_ac = se_ > 0 || !progressive;
+    if ((need_dc && !dc_[c.dc_tbl].defined) || (need_ac && !ac_[c.ac_tbl].defined))
+      throw JpegError("Huffman table 0x0" + std::to_string(need_dc ? c.dc_tbl : c.ac_tbl) +
+                      " was not defined");
+  }
+}
+
+void Decoder::restart() {
+  // jdhuff.c process_restart: discard the bits left, read the RSTn marker
+  reset_bits();
+  while (pos_ + 1 < n_ && !(d_[pos_] == 0xFF && d_[pos_ + 1] >= 0xD0 && d_[pos_ + 1] <= 0xD7)) {
+    if (d_[pos_] == 0xFF && d_[pos_ + 1] != 0 && d_[pos_ + 1] != 0xFF) break;  // another marker
+    ++pos_;
+  }
+  if (pos_ + 1 < n_ && d_[pos_] == 0xFF && d_[pos_ + 1] == 0xD0 + next_restart_) pos_ += 2;
+  next_restart_ = (next_restart_ + 1) & 7;
+  for (int i = 0; i < ncomp; ++i) {
+    comp[i].dc_pred = 0;
+    comp[i].eob_run = 0;
+  }
+}
+
+void Decoder::decode_block_sequential(Component& c, int16_t* blk) {
+  const Huffman& dc = dc_[c.dc_tbl];
+  const Huffman& ac = ac_[c.ac_tbl];
+  int s = decode_huff(dc);
+  if (s) s = extend(get_bits(s), s);
+  c.dc_pred += s;
+  blk[0] = static_cast<int16_t>(c.dc_pred);
+  for (int k = 1; k < 64; ++k) {
+    int rs = decode_huff(ac);
+    int r = rs >> 4;
+    s = rs & 15;
+    if (s) {
+      k += r;
+      blk[kNaturalOrder[k]] = static_cast<int16_t>(extend(get_bits(s), s));
+    } else {
+      if (r != 15) break;
+      k += 15;
+    }
+  }
+}
+
+void Decoder::decode_block_dc_first(Component& c, int16_t* blk) {
+  int s = decode_huff(dc_[c.dc_tbl]);
+  if (s) s = extend(get_bits(s), s);
+  c.dc_pred += s;
+  blk[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << al_);
+}
+
+void Decoder::decode_block_dc_refine(int16_t* blk) {
+  if (get_bit()) blk[0] = static_cast<int16_t>(blk[0] | (1 << al_));
+}
+
+void Decoder::decode_block_ac_first(Component& c, int16_t* blk) {
+  if (c.eob_run > 0) {
+    --c.eob_run;
+    return;
+  }
+  const Huffman& ac = ac_[c.ac_tbl];
+  for (int k = ss_; k <= se_; ++k) {
+    int rs = decode_huff(ac);
+    int r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      blk[kNaturalOrder[k]] =
+          static_cast<int16_t>(static_cast<unsigned>(extend(get_bits(s), s)) << al_);
+    } else {
+      if (r == 15) {
+        k += 15;
+      } else {
+        c.eob_run = 1 << r;
+        if (r) c.eob_run += get_bits(r);
+        --c.eob_run;
+        break;
+      }
+    }
+  }
+}
+
+void Decoder::decode_block_ac_refine(Component& c, int16_t* blk) {
+  const int p1 = 1 << al_;
+  const int m1 = -1 * (1 << al_);
+  const Huffman& ac = ac_[c.ac_tbl];
+  int k = ss_;
+  if (c.eob_run == 0) {
+    for (; k <= se_; ++k) {
+      int rs = decode_huff(ac);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        s = get_bit() ? p1 : m1;
+      } else if (r != 15) {
+        c.eob_run = 1 << r;
+        if (r) c.eob_run += get_bits(r);
+        break;
+      }
+      do {
+        int16_t* coef = blk + kNaturalOrder[k];
+        if (*coef != 0) {
+          if (get_bit() && (*coef & p1) == 0)
+            *coef = static_cast<int16_t>(*coef >= 0 ? *coef + p1 : *coef + m1);
+        } else {
+          if (--r < 0) break;
+        }
+        ++k;
+      } while (k <= se_);
+      if (s) blk[kNaturalOrder[k]] = static_cast<int16_t>(s);
+    }
+  }
+  if (c.eob_run > 0) {
+    for (; k <= se_; ++k) {
+      int16_t* coef = blk + kNaturalOrder[k];
+      if (*coef != 0 && get_bit() && (*coef & p1) == 0)
+        *coef = static_cast<int16_t>(*coef >= 0 ? *coef + p1 : *coef + m1);
+    }
+    --c.eob_run;
+  }
+}
+
+void Decoder::decode_block(Component& c, int16_t* blk) {
+  if (!progressive) {
+    decode_block_sequential(c, blk);
+  } else if (ss_ == 0) {
+    if (ah_ == 0)
+      decode_block_dc_first(c, blk);
+    else
+      decode_block_dc_refine(blk);
+  } else if (ah_ == 0) {
+    decode_block_ac_first(c, blk);
+  } else {
+    decode_block_ac_refine(c, blk);
+  }
+}
+
+void Decoder::decode_scan() {
+  reset_bits();
+  next_restart_ = 0;
+  for (int i = 0; i < ncomp; ++i) {
+    comp[i].dc_pred = 0;
+    comp[i].eob_run = 0;
+  }
+  int restarts_left = restart_interval_;
+  auto mcu_boundary = [&]() {
+    if (restart_interval_) {
+      if (restarts_left == 0) {
+        restart();
+        restarts_left = restart_interval_;
+      }
+      --restarts_left;
+    }
+  };
+  if (scan_n_ == 1) {  // non-interleaved: the component's own blocks in raster order
+    Component& c = comp[scan_comp_[0]];
+    for (int by = 0; by < c.height_in_blocks; ++by) {
+      for (int bx = 0; bx < c.width_in_blocks; ++bx) {
+        mcu_boundary();
+        decode_block(c, &c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64]);
+      }
+    }
+  } else {
+    for (int my = 0; my < mcus_y_; ++my) {
+      for (int mx = 0; mx < mcus_x_; ++mx) {
+        mcu_boundary();
+        for (int i = 0; i < scan_n_; ++i) {
+          Component& c = comp[scan_comp_[i]];
+          for (int y = 0; y < c.v; ++y)
+            for (int x = 0; x < c.h; ++x) {
+              const size_t bx = static_cast<size_t>(mx) * c.h + x;
+              const size_t by = static_cast<size_t>(my) * c.v + y;
+              decode_block(c, &c.coef[(by * c.blocks_w + bx) * 64]);
+            }
+        }
+      }
+    }
+  }
+  // to the next marker
+  while (pos_ + 1 < n_ && !(d_[pos_] == 0xFF && d_[pos_ + 1] != 0 &&
+                            !(d_[pos_ + 1] >= 0xD0 && d_[pos_ + 1] <= 0xD7)))
+    ++pos_;
+}
+
+void Decoder::decode_scans() {
+  for (;;) {
+    int m = next_marker();
+    if (m == 0xDA) {
+      read_sos();
+      decode_scan();
+    } else if (m == 0xD9) {
+      break;
+    } else if (m == 0xC4) {
+      read_dht();
+    } else if (m == 0xDB) {
+      read_dqt();
+    } else if (m == 0xDD) {
+      read_dri();
+    } else if (m >= 0xD0 && m <= 0xD7) {
+      // stray restart marker
+    } else if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+      throw JpegError("Invalid JPEG file structure: two SOF markers");
+    } else {
+      skip_segment();
+    }
+    if (pos_ >= n_) break;  // no EOI: libjpeg warns and ends the image
+  }
+  for (int i = 0; i < ncomp; ++i)
+    if (comp[i].coef.empty()) comp[i].coef.assign(static_cast<size_t>(comp[i].blocks_w) * comp[i].blocks_h * 64, 0);
+}
+
+// ------------------------------------------------------------------ IDCT
+using Jlong = int64_t;
+constexpr int kConstBits = 13, kPass1Bits = 2;
+constexpr int kRangeMask = 1023;
+inline Jlong fix(double x) { return static_cast<Jlong>(x * (1L << kConstBits) + 0.5); }
+inline Jlong descale(Jlong x, int n) { return (x + (static_cast<Jlong>(1) << (n - 1))) >> n; }
+
+struct RangeLimit {
+  // libjpeg's post-IDCT table (jdmaster.c prepare_range_limit_table),
+  // indexed by (value & 1023) with value centred on 0
+  uint8_t idct[1024];
+  RangeLimit() {
+    for (int k = 0; k < 1024; ++k) {
+      if (k < 128) idct[k] = static_cast<uint8_t>(k + 128);
+      else if (k < 512) idct[k] = 255;
+      else if (k < 896) idct[k] = 0;
+      else idct[k] = static_cast<uint8_t>(k - 896);
+    }
+  }
+};
+const RangeLimit kRange;
+
+inline uint8_t clamp255(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+  const Jlong F0_298 = fix(0.298631336), F0_390 = fix(0.390180644), F0_541 = fix(0.541196100),
+              F0_765 = fix(0.765366865), F0_899 = fix(0.899976223), F1_175 = fix(1.175875602),
+              F1_501 = fix(1.501321110), F1_847 = fix(1.847759065), F1_961 = fix(1.961570560),
+              F2_053 = fix(2.053119869), F2_562 = fix(2.562915447), F3_072 = fix(3.072711026);
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {
+    const int16_t* ip = in + c;
+    const uint16_t* qp = q + c;
+    int* wp = ws + c;
+    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
+      int dc = static_cast<int>(static_cast<Jlong>(ip[0]) * qp[0] * (1 << kPass1Bits));
+      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+      continue;
+    }
+    Jlong z2 = static_cast<Jlong>(ip[16]) * qp[16], z3 = static_cast<Jlong>(ip[48]) * qp[48];
+    Jlong z1 = (z2 + z3) * F0_541;
+    Jlong tmp2 = z1 + z3 * (-F1_847);
+    Jlong tmp3 = z1 + z2 * F0_765;
+    z2 = static_cast<Jlong>(ip[0]) * qp[0];
+    z3 = static_cast<Jlong>(ip[32]) * qp[32];
+    Jlong tmp0 = (z2 + z3) * (1 << kConstBits);
+    Jlong tmp1 = (z2 - z3) * (1 << kConstBits);
+    Jlong tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = static_cast<Jlong>(ip[56]) * qp[56];
+    tmp1 = static_cast<Jlong>(ip[40]) * qp[40];
+    tmp2 = static_cast<Jlong>(ip[24]) * qp[24];
+    tmp3 = static_cast<Jlong>(ip[8]) * qp[8];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    Jlong z4 = tmp1 + tmp3;
+    Jlong z5 = (z3 + z4) * F1_175;
+    tmp0 *= F0_298;
+    tmp1 *= F2_053;
+    tmp2 *= F3_072;
+    tmp3 *= F1_501;
+    z1 *= -F0_899;
+    z2 *= -F2_562;
+    z3 *= -F1_961;
+    z4 *= -F0_390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = kConstBits - kPass1Bits;
+    wp[0] = static_cast<int>(descale(tmp10 + tmp3, sh));
+    wp[56] = static_cast<int>(descale(tmp10 - tmp3, sh));
+    wp[8] = static_cast<int>(descale(tmp11 + tmp2, sh));
+    wp[48] = static_cast<int>(descale(tmp11 - tmp2, sh));
+    wp[16] = static_cast<int>(descale(tmp12 + tmp1, sh));
+    wp[40] = static_cast<int>(descale(tmp12 - tmp1, sh));
+    wp[24] = static_cast<int>(descale(tmp13 + tmp0, sh));
+    wp[32] = static_cast<int>(descale(tmp13 - tmp0, sh));
+  }
+  for (int r = 0; r < 8; ++r) {
+    const int* wp = ws + 8 * r;
+    uint8_t* op = out + static_cast<long>(r) * stride;
+    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
+      uint8_t v = kRange.idct[static_cast<int>(descale(wp[0], kPass1Bits + 3)) & kRangeMask];
+      std::memset(op, v, 8);
+      continue;
+    }
+    Jlong z2 = wp[2], z3 = wp[6];
+    Jlong z1 = (z2 + z3) * F0_541;
+    Jlong tmp2 = z1 + z3 * (-F1_847);
+    Jlong tmp3 = z1 + z2 * F0_765;
+    Jlong tmp0 = (static_cast<Jlong>(wp[0]) + wp[4]) * (1 << kConstBits);
+    Jlong tmp1 = (static_cast<Jlong>(wp[0]) - wp[4]) * (1 << kConstBits);
+    Jlong tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+    tmp0 = wp[7];
+    tmp1 = wp[5];
+    tmp2 = wp[3];
+    tmp3 = wp[1];
+    z1 = tmp0 + tmp3;
+    z2 = tmp1 + tmp2;
+    z3 = tmp0 + tmp2;
+    Jlong z4 = tmp1 + tmp3;
+    Jlong z5 = (z3 + z4) * F1_175;
+    tmp0 *= F0_298;
+    tmp1 *= F2_053;
+    tmp2 *= F3_072;
+    tmp3 *= F1_501;
+    z1 *= -F0_899;
+    z2 *= -F2_562;
+    z3 *= -F1_961;
+    z4 *= -F0_390;
+    z3 += z5;
+    z4 += z5;
+    tmp0 += z1 + z3;
+    tmp1 += z2 + z4;
+    tmp2 += z2 + z3;
+    tmp3 += z1 + z4;
+    const int sh = kConstBits + kPass1Bits + 3;
+    op[0] = kRange.idct[static_cast<int>(descale(tmp10 + tmp3, sh)) & kRangeMask];
+    op[7] = kRange.idct[static_cast<int>(descale(tmp10 - tmp3, sh)) & kRangeMask];
+    op[1] = kRange.idct[static_cast<int>(descale(tmp11 + tmp2, sh)) & kRangeMask];
+    op[6] = kRange.idct[static_cast<int>(descale(tmp11 - tmp2, sh)) & kRangeMask];
+    op[2] = kRange.idct[static_cast<int>(descale(tmp12 + tmp1, sh)) & kRangeMask];
+    op[5] = kRange.idct[static_cast<int>(descale(tmp12 - tmp1, sh)) & kRangeMask];
+    op[3] = kRange.idct[static_cast<int>(descale(tmp13 + tmp0, sh)) & kRangeMask];
+    op[4] = kRange.idct[static_cast<int>(descale(tmp13 - tmp0, sh)) & kRangeMask];
+  }
+}
+
+void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+  const Jlong F0_211 = fix(0.211164243), F0_509 = fix(0.509795579), F0_601 = fix(0.601344887),
+              F0_765 = fix(0.765366865), F0_899 = fix(0.899976223), F1_061 = fix(1.061594337),
+              F1_451 = fix(1.451774981), F1_847 = fix(1.847759065), F2_172 = fix(2.172734803),
+              F2_562 = fix(2.562915447);
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {
+    if (c == 4) continue;  // the second pass does not read column 4
+    const int16_t* ip = in + c;
+    const uint16_t* qp = q + c;
+    int* wp = ws + c;
+    if (!ip[8] && !ip[16] && !ip[24] && !ip[40] && !ip[48] && !ip[56]) {
+      int dc = static_cast<int>(static_cast<Jlong>(ip[0]) * qp[0] * (1 << kPass1Bits));
+      for (int r = 0; r < 4; ++r) wp[8 * r] = dc;
+      continue;
+    }
+    Jlong tmp0 = static_cast<Jlong>(ip[0]) * qp[0] * (static_cast<Jlong>(1) << (kConstBits + 1));
+    Jlong z2 = static_cast<Jlong>(ip[16]) * qp[16], z3 = static_cast<Jlong>(ip[48]) * qp[48];
+    Jlong tmp2 = z2 * F1_847 + z3 * (-F0_765);
+    Jlong tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    Jlong z1 = static_cast<Jlong>(ip[56]) * qp[56];
+    z2 = static_cast<Jlong>(ip[40]) * qp[40];
+    z3 = static_cast<Jlong>(ip[24]) * qp[24];
+    Jlong z4 = static_cast<Jlong>(ip[8]) * qp[8];
+    tmp0 = z1 * (-F0_211) + z2 * F1_451 + z3 * (-F2_172) + z4 * F1_061;
+    tmp2 = z1 * (-F0_509) + z2 * (-F0_601) + z3 * F0_899 + z4 * F2_562;
+    const int sh = kConstBits - kPass1Bits + 1;
+    wp[0] = static_cast<int>(descale(tmp10 + tmp2, sh));
+    wp[24] = static_cast<int>(descale(tmp10 - tmp2, sh));
+    wp[8] = static_cast<int>(descale(tmp12 + tmp0, sh));
+    wp[16] = static_cast<int>(descale(tmp12 - tmp0, sh));
+  }
+  for (int r = 0; r < 4; ++r) {
+    const int* wp = ws + 8 * r;
+    uint8_t* op = out + static_cast<long>(r) * stride;
+    if (!wp[1] && !wp[2] && !wp[3] && !wp[5] && !wp[6] && !wp[7]) {
+      uint8_t v = kRange.idct[static_cast<int>(descale(wp[0], kPass1Bits + 3)) & kRangeMask];
+      std::memset(op, v, 4);
+      continue;
+    }
+    Jlong tmp0 = static_cast<Jlong>(wp[0]) * (static_cast<Jlong>(1) << (kConstBits + 1));
+    Jlong tmp2 = static_cast<Jlong>(wp[2]) * F1_847 + static_cast<Jlong>(wp[6]) * (-F0_765);
+    Jlong tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
+    Jlong z1 = wp[7], z2 = wp[5], z3 = wp[3], z4 = wp[1];
+    tmp0 = z1 * (-F0_211) + z2 * F1_451 + z3 * (-F2_172) + z4 * F1_061;
+    tmp2 = z1 * (-F0_509) + z2 * (-F0_601) + z3 * F0_899 + z4 * F2_562;
+    const int sh = kConstBits + kPass1Bits + 3 + 1;
+    op[0] = kRange.idct[static_cast<int>(descale(tmp10 + tmp2, sh)) & kRangeMask];
+    op[3] = kRange.idct[static_cast<int>(descale(tmp10 - tmp2, sh)) & kRangeMask];
+    op[1] = kRange.idct[static_cast<int>(descale(tmp12 + tmp0, sh)) & kRangeMask];
+    op[2] = kRange.idct[static_cast<int>(descale(tmp12 - tmp0, sh)) & kRangeMask];
+  }
+}
+
+void idct_2x2(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+  const Jlong F0_720 = fix(0.720959822), F0_850 = fix(0.850430095), F1_272 = fix(1.272758580),
+              F3_624 = fix(3.624509785);
+  int ws[64];
+  for (int c = 0; c < 8; ++c) {
+    if (c == 2 || c == 4 || c == 6) continue;  // not read by the second pass
+    const int16_t* ip = in + c;
+    const uint16_t* qp = q + c;
+    int* wp = ws + c;
+    if (!ip[8] && !ip[24] && !ip[40] && !ip[56]) {
+      int dc = static_cast<int>(static_cast<Jlong>(ip[0]) * qp[0] * (1 << kPass1Bits));
+      wp[0] = wp[8] = dc;
+      continue;
+    }
+    Jlong tmp10 = static_cast<Jlong>(ip[0]) * qp[0] * (static_cast<Jlong>(1) << (kConstBits + 2));
+    Jlong tmp0 = static_cast<Jlong>(ip[56]) * qp[56] * (-F0_720);
+    tmp0 += static_cast<Jlong>(ip[40]) * qp[40] * F0_850;
+    tmp0 += static_cast<Jlong>(ip[24]) * qp[24] * (-F1_272);
+    tmp0 += static_cast<Jlong>(ip[8]) * qp[8] * F3_624;
+    const int sh = kConstBits - kPass1Bits + 2;
+    wp[0] = static_cast<int>(descale(tmp10 + tmp0, sh));
+    wp[8] = static_cast<int>(descale(tmp10 - tmp0, sh));
+  }
+  for (int r = 0; r < 2; ++r) {
+    const int* wp = ws + 8 * r;
+    uint8_t* op = out + static_cast<long>(r) * stride;
+    if (!wp[1] && !wp[3] && !wp[5] && !wp[7]) {
+      uint8_t v = kRange.idct[static_cast<int>(descale(wp[0], kPass1Bits + 3)) & kRangeMask];
+      op[0] = op[1] = v;
+      continue;
+    }
+    Jlong tmp10 = static_cast<Jlong>(wp[0]) * (static_cast<Jlong>(1) << (kConstBits + 2));
+    Jlong tmp0 = static_cast<Jlong>(wp[7]) * (-F0_720) + static_cast<Jlong>(wp[5]) * F0_850 +
+                 static_cast<Jlong>(wp[3]) * (-F1_272) + static_cast<Jlong>(wp[1]) * F3_624;
+    const int sh = kConstBits + kPass1Bits + 3 + 2;
+    op[0] = kRange.idct[static_cast<int>(descale(tmp10 + tmp0, sh)) & kRangeMask];
+    op[1] = kRange.idct[static_cast<int>(descale(tmp10 - tmp0, sh)) & kRangeMask];
+  }
+}
+
+void idct_1x1(const int16_t* in, const uint16_t* q, uint8_t* out, int) {
+  int dc = static_cast<int>(static_cast<Jlong>(in[0]) * q[0]);
+  dc = static_cast<int>(descale(dc, 3));
+  out[0] = kRange.idct[dc & kRangeMask];
+}
+
+// ------------------------------------------------------- colour tables
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  Jlong cr_g[256], cb_g[256];
+  YccTables() {
+    const int scalebits = 16;
+    const Jlong one_half = static_cast<Jlong>(1) << (scalebits - 1);
+    auto fx = [](double x) { return static_cast<Jlong>(x * (1L << 16) + 0.5); };
+    for (int i = 0, x = -128; i < 256; ++i, ++x) {
+      cr_r[i] = static_cast<int>((fx(1.40200) * x + one_half) >> scalebits);
+      cb_b[i] = static_cast<int>((fx(1.77200) * x + one_half) >> scalebits);
+      cr_g[i] = (-fx(0.71414)) * x;
+      cb_g[i] = (-fx(0.34414)) * x + one_half;
+    }
+  }
+};
+const YccTables kYcc;
+
+// A component's samples at output scale, after libjpeg's upsampling.
+struct Plane {
+  int w = 0, h = 0;
+  std::vector<uint8_t> px;
+  uint8_t at(int y, int x) const { return px[static_cast<size_t>(y) * w + x]; }
+};
+
+long div_up(long a, long b) { return (a + b - 1) / b; }
+
+Decoder::ColorSpace Decoder::color_space() const {
+  if (ncomp == 1) return kGray;
+  if (ncomp == 3) {
+    if (saw_jfif) return kYCbCr;
+    if (saw_adobe) return adobe_transform == 0 ? kRGB : kYCbCr;
+    if (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66) return kRGB;  // 'R' 'G' 'B'
+    return kYCbCr;
+  }
+  if (ncomp == 4) return saw_adobe ? (adobe_transform == 0 ? kCMYK : kYCCK) : kCMYK;
+  throw JpegError("Bogus number of components");
+}
+
+void Decoder::check_conversion(int space) const {
+  const ColorSpace cs = color_space();
+  if (space < 0 || space > 2 || (space == 0 && !(cs == kGray || cs == kYCbCr || cs == kRGB)) ||
+      (space == 1 && cs != kGray) || (space == 2 && !(cs == kCMYK || cs == kYCCK)))
+    throw JpegError("Unsupported color conversion request");
+}
+
+void Decoder::output(int denom, int space, uint8_t* out, long cap, int* out_h, int* out_w) {
+  if (denom != 1 && denom != 2 && denom != 4 && denom != 8) throw JpegError("Bogus scale");
+  check_conversion(space);
+  const ColorSpace cs = color_space();
+  const int channels = space == 0 ? 3 : (space == 1 ? 1 : 4);
+  const int ow = static_cast<int>(div_up(width, denom));
+  const int oh = static_cast<int>(div_up(height, denom));
+  if (static_cast<long>(ow) * oh * channels > cap) throw JpegError("output buffer too small");
+
+  // each component's IDCT size (jdmaster.c: chroma scaled up by the IDCT where it can)
+  const int smin = 8 / denom;
+  Plane up[kMaxComponents];
+  for (int ci = 0; ci < ncomp; ++ci) {
+    Component& c = comp[ci];
+    int s = smin;
+    while (s < 8 && (hmax * smin) % (c.h * s * 2) == 0 && (vmax * smin) % (c.v * s * 2) == 0)
+      s *= 2;
+    void (*idct)(const int16_t*, const uint16_t*, uint8_t*, int) =
+        s == 8 ? idct_islow : (s == 4 ? idct_4x4 : (s == 2 ? idct_2x2 : idct_1x1));
+    Plane p;
+    p.w = c.width_in_blocks * s;
+    p.h = c.height_in_blocks * s;
+    p.px.assign(static_cast<size_t>(p.w) * p.h, 0);
+    for (int by = 0; by < c.height_in_blocks; ++by)
+      for (int bx = 0; bx < c.width_in_blocks; ++bx)
+        idct(&c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64], c.quant,
+             &p.px[static_cast<size_t>(by) * s * p.w + static_cast<size_t>(bx) * s], p.w);
+    // upsampling (jdsample.c jinit_upsampler)
+    const int dw = static_cast<int>(div_up(static_cast<long>(width) * c.h * s, hmax * 8L));
+    const int dh = static_cast<int>(div_up(static_cast<long>(height) * c.v * s, vmax * 8L));
+    const int h_in = c.h * s / smin, v_in = c.v * s / smin;
+    const bool fancy_ok = smin > 1;
+    Plane& u = up[ci];
+    u.w = ow;
+    u.h = oh;
+    u.px.assign(static_cast<size_t>(ow) * oh, 0);
+    auto row_at = [&](int y) { return y < 0 ? 0 : (y >= dh ? dh - 1 : y); };
+    if (h_in == hmax && v_in == vmax) {
+      for (int y = 0; y < oh; ++y)
+        std::memcpy(&u.px[static_cast<size_t>(y) * ow], &p.px[static_cast<size_t>(y) * p.w], ow);
+    } else if (h_in * 2 == hmax && v_in == vmax && fancy_ok && dw > 2) {  // h2v1 fancy
+      std::vector<uint8_t> row(2 * static_cast<size_t>(dw));
+      for (int y = 0; y < oh; ++y) {
+        const uint8_t* in = &p.px[static_cast<size_t>(y) * p.w];
+        row[0] = in[0];
+        row[1] = static_cast<uint8_t>((in[0] * 3 + in[1] + 2) >> 2);
+        for (int x = 1; x < dw - 1; ++x) {
+          const int v3 = in[x] * 3;
+          row[2 * x] = static_cast<uint8_t>((v3 + in[x - 1] + 1) >> 2);
+          row[2 * x + 1] = static_cast<uint8_t>((v3 + in[x + 1] + 2) >> 2);
+        }
+        row[2 * dw - 2] = static_cast<uint8_t>((in[dw - 1] * 3 + in[dw - 2] + 1) >> 2);
+        row[2 * dw - 1] = in[dw - 1];
+        std::memcpy(&u.px[static_cast<size_t>(y) * ow], row.data(), ow);
+      }
+    } else if (h_in == hmax && v_in * 2 == vmax && fancy_ok) {  // h1v2 fancy
+      for (int y = 0; y < oh; ++y) {
+        const int yi = y / 2;
+        const bool below = y & 1;
+        const uint8_t* in0 = &p.px[static_cast<size_t>(row_at(yi)) * p.w];
+        const uint8_t* in1 = &p.px[static_cast<size_t>(row_at(below ? yi + 1 : yi - 1)) * p.w];
+        const int bias = below ? 2 : 1;
+        for (int x = 0; x < ow; ++x)
+          u.px[static_cast<size_t>(y) * ow + x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
+      }
+    } else if (h_in * 2 == hmax && v_in * 2 == vmax && fancy_ok && dw > 2) {  // h2v2 fancy
+      std::vector<uint8_t> row(2 * static_cast<size_t>(dw));
+      for (int y = 0; y < oh; ++y) {
+        const int yi = y / 2;
+        const bool below = y & 1;
+        const uint8_t* in0 = &p.px[static_cast<size_t>(row_at(yi)) * p.w];
+        const uint8_t* in1 = &p.px[static_cast<size_t>(row_at(below ? yi + 1 : yi - 1)) * p.w];
+        int thiscol = in0[0] * 3 + in1[0];
+        int nextcol = in0[1] * 3 + in1[1];
+        row[0] = static_cast<uint8_t>((thiscol * 4 + 8) >> 4);
+        row[1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
+        int lastcol = thiscol;
+        thiscol = nextcol;
+        for (int x = 1; x < dw - 1; ++x) {
+          nextcol = in0[x + 1] * 3 + in1[x + 1];
+          row[2 * x] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
+          row[2 * x + 1] = static_cast<uint8_t>((thiscol * 3 + nextcol + 7) >> 4);
+          lastcol = thiscol;
+          thiscol = nextcol;
+        }
+        row[2 * dw - 2] = static_cast<uint8_t>((thiscol * 3 + lastcol + 8) >> 4);
+        row[2 * dw - 1] = static_cast<uint8_t>((thiscol * 4 + 7) >> 4);
+        std::memcpy(&u.px[static_cast<size_t>(y) * ow], row.data(), ow);
+      }
+    } else if (hmax % h_in == 0 && vmax % v_in == 0) {  // replication
+      const int hx = hmax / h_in, vx = vmax / v_in;
+      for (int y = 0; y < oh; ++y) {
+        const uint8_t* in = &p.px[static_cast<size_t>(y / vx) * p.w];
+        for (int x = 0; x < ow; ++x) u.px[static_cast<size_t>(y) * ow + x] = in[x / hx];
+      }
+    } else {
+      throw JpegError("Fractional sampling not implemented yet");
+    }
+  }
+
+  // colour conversion (jdcolor.c)
+  for (int y = 0; y < oh; ++y) {
+    uint8_t* o = out + static_cast<size_t>(y) * ow * channels;
+    const uint8_t* c0 = &up[0].px[static_cast<size_t>(y) * ow];
+    if (space == 1) {
+      std::memcpy(o, c0, ow);
+      continue;
+    }
+    if (cs == kGray) {
+      for (int x = 0; x < ow; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = c0[x];
+      continue;
+    }
+    const uint8_t* c1 = &up[1].px[static_cast<size_t>(y) * ow];
+    const uint8_t* c2 = &up[2].px[static_cast<size_t>(y) * ow];
+    if (cs == kRGB) {
+      for (int x = 0; x < ow; ++x) {
+        o[3 * x] = c0[x];
+        o[3 * x + 1] = c1[x];
+        o[3 * x + 2] = c2[x];
+      }
+    } else if (cs == kYCbCr) {
+      for (int x = 0; x < ow; ++x) {
+        const int yy = c0[x], cb = c1[x], cr = c2[x];
+        o[3 * x] = clamp255(yy + kYcc.cr_r[cr]);
+        o[3 * x + 1] = clamp255(yy + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+        o[3 * x + 2] = clamp255(yy + kYcc.cb_b[cb]);
+      }
+    } else {
+      const uint8_t* c3 = &up[3].px[static_cast<size_t>(y) * ow];
+      for (int x = 0; x < ow; ++x) {
+        uint8_t cmyk[4];
+        if (cs == kCMYK) {
+          cmyk[0] = c0[x];
+          cmyk[1] = c1[x];
+          cmyk[2] = c2[x];
+        } else {  // YCCK -> CMYK
+          const int yy = c0[x], cb = c1[x], cr = c2[x];
+          cmyk[0] = clamp255(255 - (yy + kYcc.cr_r[cr]));
+          cmyk[1] = clamp255(255 - (yy + static_cast<int>((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+          cmyk[2] = clamp255(255 - (yy + kYcc.cb_b[cb]));
+        }
+        cmyk[3] = c3[x];
+        for (int k = 0; k < 4; ++k) o[4 * x + k] = static_cast<uint8_t>(255 - cmyk[k]);
+      }
+    }
+  }
+  *out_h = oh;
+  *out_w = ow;
+}
+
+void write_msg(char* msg, int cap, const char* what) {
+  if (msg && cap > 0) std::snprintf(msg, cap, "%s", what);
+}
+
+}  // namespace
+
+extern "C" {
+
+int dqvq_jpeg_port_header(const uint8_t* buf, long len, int* h, int* w, int* components,
+                          char* msg, int msg_cap) {
+  try {
+    Decoder dec(buf, len);
+    dec.read_header();
+    *h = dec.height;
+    *w = dec.width;
+    *components = dec.ncomp;
+    return 0;
+  } catch (const std::exception& e) {
+    write_msg(msg, msg_cap, e.what());
+    return -1;
+  }
+}
+
+int dqvq_jpeg_port_decode(const uint8_t* buf, long len, int denom, int space, uint8_t* out,
+                          long out_cap, int* out_h, int* out_w, char* msg, int msg_cap) {
+  try {
+    Decoder dec(buf, len);
+    dec.read_header();
+    dec.check_conversion(space);
+    dec.decode_scans();
+    dec.output(denom, space, out, out_cap, out_h, out_w);
+    return 0;
+  } catch (const std::exception& e) {
+    write_msg(msg, msg_cap, e.what());
+    return -1;
+  }
+}
+
+}  // extern "C"

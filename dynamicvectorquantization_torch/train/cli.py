@@ -70,7 +70,9 @@ def get_parser():
     p.add_argument("--image_log_every", type=int, default=50,
                    help="image-grid logging cadence in optimizer steps (stage-2 grids "
                         "SAMPLE; 0 turns them off)")
-    p.add_argument("--logtype", type=str, default="csv", help="metric sinks: csv only")
+    p.add_argument("--logtype", type=str, default="csv",
+                   help="metric sinks besides metrics.jsonl / .csv: tensorboard (<logdir>/tb), "
+                        "wandb (skipped where it is not installed), all (tensorboard)")
     p.add_argument("--activate_ddp_share", action="store_true", help="not ported")
     p.add_argument("--activate_fsdp", action="store_true", help="not ported")
     p.add_argument("--tp", type=int, default=1, help="not ported")

@@ -3,10 +3,16 @@
 
 `MetricLogger` appends one row per call to `<logdir>/metrics.jsonl` and
 `<logdir>/metrics.csv` with the JAX package's row keys (`step`, `split`,
-`time`, then the metric names). `ImageLogger` writes PNG grids to
+`time`, then the metric names), and with `logtype` naming them (or "all"
+for tensorboard) the JAX package's other sinks: tensorboard event files
+under `<logdir>/tb/` (`torch.utils.tensorboard.SummaryWriter`; it raises
+ImportError where `tensorboard` is absent, as the JAX sink does) and wandb
+(skipped with the JAX package's message where `wandb` is absent), both
+tagged `<split>/<name>`. `ImageLogger` writes PNG grids to
 `<logdir>/images/<split>/` under the same file names; the PNGs are encoded
-here with `zlib` + `struct`, so logging needs no imaging library. The
-tensorboard and wandb sinks are not ported and raise.
+here with `zlib` + `struct`, so logging needs no imaging library.
+`SetupCallback` and `LightningShim` keep the reference launcher's callback
+and logger entries instantiable (`config/registry.py`).
 """
 from __future__ import annotations
 
@@ -23,14 +29,24 @@ import numpy as np
 
 class MetricLogger:
     def __init__(self, logdir: str, logtype: str = "csv"):
-        if logtype != "csv":
-            raise NotImplementedError(
-                f"logtype {logtype!r}: only the csv / jsonl sink is ported (ROADMAP.md)")
         self.logdir = logdir
         os.makedirs(logdir, exist_ok=True)
         self.jsonl_path = os.path.join(logdir, "metrics.jsonl")
         self._csv_path = os.path.join(logdir, "metrics.csv")
         self._csv_keys = None
+        self._tb = self._wandb = None
+        if "tensorboard" in logtype or logtype == "all":
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._tb = SummaryWriter(os.path.join(logdir, "tb"))
+        if "wandb" in logtype:
+            try:
+                import wandb
+            except ImportError:
+                print("wandb not installed; skipping wandb sink")
+            else:
+                wandb.init(project=os.environ.get("WANDB_PROJECT", "dqvq-tpu"), dir=logdir)
+                self._wandb = wandb
 
     def log(self, step: int, metrics: Mapping[str, float], split: str = "train"):
         row = {"step": int(step), "split": split, "time": time.time()}
@@ -43,6 +59,17 @@ class MetricLogger:
                 self._csv_keys = list(row.keys())
                 writer.writerow(self._csv_keys)
             writer.writerow([row.get(k, "") for k in self._csv_keys])
+        if self._tb is not None:
+            for k, v in metrics.items():
+                self._tb.add_scalar(f"{split}/{k}", float(v), int(step))
+            self._tb.flush()  # rows are rare (every `log_every` steps); a reader sees each
+        if self._wandb is not None:
+            self._wandb.log({f"{split}/{k}": float(v) for k, v in metrics.items()},
+                            step=int(step))
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.close()
 
 
 def to_uint8(img):
@@ -81,6 +108,26 @@ def encode_png(image) -> bytes:
     header = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 0, 0, 0, 0)
     return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
             + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+class SetupCallback:
+    """Registry shim for the reference's `utils.logger.SetupCallback`: the
+    trainer's command line writes the merged config and argv itself
+    (`train/cli.py`); this keeps reference train-config blobs instantiable."""
+
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+
+class LightningShim:
+    """Accepts any arguments; stands in for the reference's pytorch_lightning
+    callbacks and loggers (ModelCheckpoint: the loop's top-k + newest
+    checkpoints; LearningRateMonitor: the per-step lr metric;
+    TensorBoardLogger / WandbLogger: `--logtype tensorboard` / `wandb`;
+    RichModelSummary: nothing)."""
+
+    def __init__(self, *args, **kwargs):
+        self.args, self.kwargs = args, kwargs
 
 
 class ImageLogger:

@@ -1,0 +1,135 @@
+"""Writes the image fixtures of this directory and their `expected.json`.
+
+    JAX_PLATFORMS=cpu python tests/fixtures/images/make_fixtures.py
+
+The files are encoded with PIL from seeded arrays (smooth fields with a
+little texture, so they compress as photographs do). `expected.json` holds,
+for each file, the sha256 and per-channel sums (float64) of what the JAX
+package makes of it: the decoded array of `FileListDataset._open` (its
+libjpeg decode with DCT-domain downscale, or PIL) and the outputs of
+`imagenet_train_transform`, `imagenet_val_transform`, `ffhq_train_transform`
+and `ffhq_val_transform`, at each size of `SIZES`, every random transform
+with a fresh `numpy.random.default_rng(SEED)`. `tests/test_torch_image_io.py`
+recomputes it (`expected_entries`) and holds the port to it; on the card,
+`chip_smoke.py`'s `data_real` phase holds the port to the file.
+
+Needs PIL and the JAX package (whose native JPEG library must build).
+"""
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SIZES = (256, 64)
+SEED = 0
+TRANSFORMS = ("imagenet_train_transform", "imagenet_val_transform", "ffhq_train_transform",
+              "ffhq_val_transform")
+
+
+def seeded_image(seed, h, w, channels=3, noise=6.0):
+    """(h, w, channels) uint8: a few low-frequency waves, two rectangles and
+    mild noise (standard deviation `noise`)."""
+    r = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    out = np.zeros((h, w, channels))
+    for c in range(channels):
+        for _ in range(4):
+            fy, fx = r.uniform(0.5, 6, size=2) / np.array([h, w])
+            out[..., c] += r.uniform(20, 50) * np.sin(2 * np.pi * (fy * y + fx * x)
+                                                      + r.uniform(0, 2 * np.pi))
+    for _ in range(2):
+        y0, x0 = r.integers(0, h // 2), r.integers(0, w // 2)
+        out[y0:y0 + h // 3, x0:x0 + w // 3] += r.uniform(-60, 60, size=channels)
+    out += 128 + r.normal(0, noise, size=out.shape)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def write_fixtures():
+    """name -> how it was written; the files land in this directory."""
+    from PIL import Image
+
+    def rgb(seed, h, w, noise=6.0):
+        return Image.fromarray(seeded_image(seed, h, w, noise=noise))
+
+    made = {}
+
+    def save(name, img, **kw):
+        img.save(os.path.join(HERE, name), **kw)
+        made[name] = f"{img.mode} {img.size[0]}x{img.size[1]} {kw}"
+
+    # ImageNet's typical file: 500 x 375, 4:2:0, quality 90
+    save("n01_rgb420_q90.JPEG", rgb(1, 375, 500), format="JPEG", quality=90, subsampling=2)
+    save("rgb444_q85.jpg", rgb(2, 240, 320), format="JPEG", quality=85, subsampling=0)
+    save("gray_q90.jpg", Image.fromarray(seeded_image(3, 400, 300, 1)[..., 0]), format="JPEG",
+         quality=90)
+    save("progressive_q80.jpeg", rgb(4, 300, 400), format="JPEG", quality=80, progressive=True)
+    # short side 544: DCT-domain downscale by 2 at size 256, by 8 at 64
+    save("large_q75.jpg", rgb(5, 544, 768), format="JPEG", quality=75)
+    # Adobe CMYK (Pillow writes the Adobe marker and inverted values)
+    save("cmyk_q90.jpg", Image.fromarray(seeded_image(6, 240, 320, 4, noise=2.0), "CMYK"),
+         format="JPEG", quality=90)
+    # ImageNet holds PNG files named .JPEG
+    # PNGs keep little noise, which PNG cannot compress
+    save("png_named.JPEG", rgb(7, 120, 180, noise=1.0), format="PNG")
+    save("rgb.png", rgb(8, 150, 220, noise=1.0), format="PNG")
+    save("gray.png", Image.fromarray(seeded_image(9, 300, 200, 1, noise=1.0)[..., 0]),
+         format="PNG")
+    return made
+
+
+def fixture_names():
+    return sorted(n for n in os.listdir(HERE) if not n.endswith((".py", ".json"))
+                  and not n.startswith("."))
+
+
+def digest(arr):
+    arr = np.ascontiguousarray(arr)
+    sums = arr.reshape(-1, arr.shape[-1] if arr.ndim == 3 else 1).sum(0, dtype=np.float64)
+    return {"shape": list(arr.shape), "dtype": str(arr.dtype),
+            "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+            "channel_sums": [float(s) for s in sums]}
+
+
+def expected_entries():
+    """{file: {"decoded_<size>": digest, "<transform>_<size>": digest}} from
+    the JAX package."""
+    from dynamicvectorquantization_tpu import native
+    from dynamicvectorquantization_tpu.data import transforms as JT
+    from dynamicvectorquantization_tpu.data.datasets import FileListDataset
+
+    if native.get_lib() is None:
+        raise RuntimeError("the JAX package's native JPEG library does not build here")
+    out = {}
+    for name in fixture_names():
+        entry = {}
+        for size in SIZES:
+            ds = FileListDataset([os.path.join(HERE, name)], size=size)
+            with ds._open(ds.files[0]) as img:
+                entry[f"decoded_{size}"] = dict(digest(np.asarray(img)), mode=img.mode)
+                for t in TRANSFORMS:
+                    entry[f"{t}_{size}"] = digest(
+                        getattr(JT, t)(img, size, np.random.default_rng(SEED)))
+        out[name] = entry
+    return out
+
+
+def main():
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    made = write_fixtures()
+    doc = {"seed": SEED, "sizes": list(SIZES), "transforms": list(TRANSFORMS),
+           "generator": f"numpy.random.default_rng({SEED}), fresh for each file, transform "
+                        "and size",
+           "made_with": made, "files": expected_entries()}
+    with open(os.path.join(HERE, "expected.json"), "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+    total = sum(os.path.getsize(os.path.join(HERE, n)) for n in fixture_names())
+    print(f"{len(made)} files, {total} bytes")
+
+
+if __name__ == "__main__":
+    main()

@@ -135,17 +135,22 @@ def _pil(seed, w, h):
 
 @pytest.mark.parametrize("w,h", [(90, 60), (50, 77), (64, 64), (40, 30)])
 def test_imagenet_transforms_equal_the_jax_packages(w, h):
+    """The port's transforms take (array, mode) and give what the JAX
+    package's give on the PIL image, bit for bit; the FFHQ ones too."""
     from dynamicvectorquantization_tpu.data import transforms as JT
 
     img = _pil(w * h, w, h)
+    ours = (np.asarray(img), "RGB")
     for seed in range(4):
-        a = T.imagenet_train_transform(img, 48, np.random.default_rng(seed))
-        b = JT.imagenet_train_transform(img, 48, np.random.default_rng(seed))
+        for name in ("imagenet_train_transform", "ffhq_train_transform"):
+            a = getattr(T, name)(ours, 48, np.random.default_rng(seed))
+            b = getattr(JT, name)(img, 48, np.random.default_rng(seed))
+            np.testing.assert_array_equal(a, b)
+    for name in ("imagenet_val_transform", "ffhq_val_transform"):
+        a, b = getattr(T, name)(ours, 48), getattr(JT, name)(img, 48)
         np.testing.assert_array_equal(a, b)
-    a, b = T.imagenet_val_transform(img, 48), JT.imagenet_val_transform(img, 48)
-    np.testing.assert_array_equal(a, b)
     assert a.shape == (48, 48, 3) and a.dtype == np.float32 and -1 <= a.min() <= a.max() <= 1
-    flips = {T.imagenet_train_transform(img, 48, np.random.default_rng(s)).tobytes()
+    flips = {T.imagenet_train_transform(ours, 48, np.random.default_rng(s)).tobytes()
              for s in range(8)}
     assert len(flips) > 1
 
@@ -173,6 +178,123 @@ def test_imagenet_datasets_read_a_directory_tree(tmp_path):
     assert a["class_label"] == b["class_label"]
 
 
+def _image_tree(root, fixtures):
+    """ImageNet layout (train / val, two synsets) of the committed fixtures,
+    and a face tree (train / val) of JPEGs and PNGs made in the test."""
+    import shutil
+
+    from PIL import Image
+
+    names = sorted(n for n in os.listdir(fixtures) if not n.endswith((".py", ".json")))
+    for split in ("train", "val"):
+        for i, name in enumerate(names):
+            d = root / "imagenet" / split / ("n01" if i % 2 else "n02")
+            d.mkdir(parents=True, exist_ok=True)
+            shutil.copy(os.path.join(fixtures, name), d / f"{split}_{name}")
+    r = np.random.default_rng(3)
+    for face in ("ffhq", "celebahq"):
+        for split in ("train", "val"):
+            d = root / face / split
+            d.mkdir(parents=True)
+            for j in range(3):
+                arr = r.integers(0, 256, size=(72 + 8 * j, 72 + 8 * j, 3), dtype=np.uint8)
+                ext = ".png" if j % 2 else ".jpg"
+                Image.fromarray(arr).save(d / f"{face}_{j}{ext}", quality=90)
+
+
+def test_datasets_over_image_files_equal_the_jax_packages(tmp_path, monkeypatch):
+    """ImageNet (the JPEG fixtures: DCT-domain downscale, CMYK, a PNG named
+    .JPEG, grey, progressive), FFHQ, CelebA-HQ and FacesHQ folders: every
+    example equals the JAX dataset's for the same index and generator, bit
+    for bit, and so do `PrefetchLoader`'s batches; also with PIL blocked."""
+    import sys
+
+    from dynamicvectorquantization_tpu.data import datasets as J
+
+    from dynamicvectorquantization_torch.data import datasets as D
+
+    _image_tree(tmp_path, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "fixtures", "images"))
+    monkeypatch.setenv("DQVQ_IMAGENET_ROOT", str(tmp_path / "imagenet"))
+    monkeypatch.setenv("DQVQ_FFHQ_ROOT", str(tmp_path / "ffhq"))
+    monkeypatch.setenv("DQVQ_CELEBAHQ_ROOT", str(tmp_path / "celebahq"))
+    pairs = []
+    for name, kw in (("ImageNetTrain", {"config": {"size": 64}}),
+                     ("ImageNetValidation", {"config": {"size": 64}}),
+                     ("FFHQTrain", {"size": 48}), ("FFHQValidation", {"size": 48}),
+                     ("CelebAHQTrain", {"size": 48}), ("CelebAHQValidation", {"size": 48}),
+                     ("FacesHQTrain", {"size": 48}), ("FacesHQValidation", {"size": 48})):
+        ours, theirs = getattr(D, name)(**kw), getattr(J, name)(**kw)
+        assert len(ours) == len(theirs) > 0, name
+        pairs.append((name, ours, theirs))
+    want = {}
+    for name, ours, theirs in pairs:
+        for i in range(len(ours)):
+            b = theirs.__getitem__(i, rng=np.random.default_rng(i))
+            want[name, i] = b
+            a = ours.__getitem__(i, rng=np.random.default_rng(i))
+            assert sorted(a) == sorted(b), name
+            np.testing.assert_array_equal(a["image"], b["image"], err_msg=f"{name}[{i}]")
+            assert a.get("class_label") == b.get("class_label")
+        loaders = [PrefetchLoader(ds, batch_size=2, shuffle=True, num_workers=3, seed=4)
+                   for ds in (ours, theirs)]
+        _assert_batches_equal(list(loaders[0].epoch(1)), list(loaders[1].epoch(1)))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for name, ours, _ in pairs:
+        for i in range(len(ours)):
+            np.testing.assert_array_equal(ours.__getitem__(i, rng=np.random.default_rng(i))[
+                "image"], want[name, i]["image"], err_msg=f"{name}[{i}] without PIL")
+
+
+def test_ffhq_lmdb_decodes_stored_images_as_the_jax_package(monkeypatch):
+    """`lmdb` is optional: its absence raises the JAX package's message, and a
+    stand-in module with the calls the dataset makes shows the stored bytes
+    decoded by content at full size, then the FFHQ transforms."""
+    import sys
+    import types
+
+    from PIL import Image
+
+    from dynamicvectorquantization_tpu.data.ffhq_lmdb import FFHQ_LMDB as JLMDB
+
+    from dynamicvectorquantization_torch.data.ffhq_lmdb import FFHQ_LMDB
+
+    monkeypatch.setitem(sys.modules, "lmdb", None)
+    with pytest.raises(ImportError, match="lmdb"):
+        FFHQ_LMDB("/nowhere")
+    r = np.random.default_rng(6)
+    store = {}
+    for j, fmt in enumerate(("PNG", "JPEG", "PNG")):
+        buf = io.BytesIO()
+        Image.fromarray(r.integers(0, 256, size=(60, 52, 3), dtype=np.uint8)).save(buf, fmt)
+        store[f"{j:05d}".encode()] = buf.getvalue()
+
+    class Txn:
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def cursor(self):
+            return iter(sorted(store.items()))
+
+        def get(self, key):
+            return store[key]
+
+    env = types.SimpleNamespace(begin=lambda write=False: Txn())
+    monkeypatch.setitem(sys.modules, "lmdb", types.SimpleNamespace(open=lambda *a, **k: env))
+    for train in (True, False):
+        ours, theirs = FFHQ_LMDB("db", size=32, train_transform=train), \
+            JLMDB("db", size=32, train_transform=train)
+        assert len(ours) == len(theirs) == 3
+        for i in range(3):
+            a = ours.__getitem__(i, rng=np.random.default_rng(i))
+            b = theirs.__getitem__(i, rng=np.random.default_rng(i))
+            np.testing.assert_array_equal(a["image"], b["image"])
+            assert a["class_label"] == b["class_label"] == 0
+
+
 def test_data_targets_resolve_by_their_tail():
     other = "dynamicvectorquantization_tpu"
     assert resolve_target(f"{other}.data.datasets.SyntheticDataset") == \
@@ -183,7 +305,14 @@ def test_data_targets_resolve_by_their_tail():
         f"{PKG}.data.datasets.DataModuleFromConfig"
     assert resolve_target("data.imagenet.ImageNetTrain") == f"{PKG}.data.datasets.ImageNetTrain"
     assert resolve_target("data.imagenet.ImageNetValidation").endswith("ImageNetValidation")
-    for bad in ("data.faceshq.FFHQTrain", f"{other}.data.datasets.FFHQTrain",
+    for name in ("FFHQTrain", "FFHQValidation", "CelebAHQTrain", "CelebAHQValidation",
+                 "FacesHQTrain", "FacesHQValidation"):
+        assert resolve_target(f"data.faceshq.{name}") == f"{PKG}.data.datasets.{name}"
+        assert resolve_target(f"{other}.data.datasets.{name}") == f"{PKG}.data.datasets.{name}"
+    assert resolve_target("data.ffhq_lmdb.FFHQ_LMDB") == f"{PKG}.data.ffhq_lmdb.FFHQ_LMDB"
+    assert resolve_target(f"{other}.data.ffhq_lmdb.FFHQ_LMDB") == \
+        f"{PKG}.data.ffhq_lmdb.FFHQ_LMDB"
+    for bad in ("models.stage1.vqgan.VQModel", f"{other}.data.datasets.CocoCaptions",
                 f"{other}.nn.stackgpt.StackGPT"):
         with pytest.raises(KeyError, match="ROADMAP.md") as err:
             resolve_target(bad)
@@ -272,6 +401,7 @@ def test_metric_logger_rows_have_the_jax_packages_keys(tmp_path):
             {k: v for k, v in b.items() if k != "time"}
     assert open(tmp_path / "a" / "metrics.csv").readline() == \
         open(tmp_path / "b" / "metrics.csv").readline()
-    for sink in ("tensorboard", "wandb", "all"):
-        with pytest.raises(NotImplementedError):
-            MetricLogger(str(tmp_path / "c"), logtype=sink)
+    # the other sinks: tensorboard event files under tb/, wandb skipped where absent
+    for sink in ("tensorboard", "all"):
+        MetricLogger(str(tmp_path / sink), logtype=sink).log(1, {"x": 1.0})
+        assert os.listdir(tmp_path / sink / "tb")

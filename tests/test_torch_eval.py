@@ -216,6 +216,35 @@ def test_compute_fid_on_pkl_dumps_prints_jax_value(tmp_path):
     assert ours["value"] > 1.0
 
 
+def test_image_folder_reader_equals_the_jax_scripts(tmp_path, monkeypatch):
+    """`iter_source` over an image folder (the JPEG / PNG fixtures, CMYK, a
+    PNG named .JPEG, grey, and palette / RGBA PNGs written here): the JAX
+    script's `Image.open(p).convert("RGB").resize(..., BICUBIC)` batches,
+    bit for bit, also with PIL blocked on the port's side."""
+    import shutil
+
+    from PIL import Image
+
+    fixtures = os.path.join(_REPO, "tests", "fixtures", "images")
+    for name in os.listdir(fixtures):
+        if not name.endswith((".py", ".json")):
+            shutil.copy(os.path.join(fixtures, name), tmp_path / name.lower())
+    r = np.random.default_rng(12)
+    pal = Image.fromarray(r.integers(0, 30, size=(50, 70), dtype=np.uint8), "P")
+    pal.putpalette(r.integers(0, 256, size=90, dtype=np.uint8).tobytes())
+    pal.save(tmp_path / "sub_palette.png")
+    Image.fromarray(r.integers(0, 256, size=(40, 60, 4), dtype=np.uint8)).save(
+        tmp_path / "sub_rgba.png")
+    theirs = list(_script("compute_fid").iter_source(str(tmp_path), 4, size=48))
+    ours = list(compute_fid.iter_source(str(tmp_path), 4, size=48))
+    assert [len(b) for b in ours] == [len(b) for b in theirs] == [4, 4, 3]
+    for a, b in zip(ours, theirs):
+        np.testing.assert_array_equal(a, b)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    for a, b in zip(compute_fid.iter_source(str(tmp_path), 4, size=48), theirs):
+        np.testing.assert_array_equal(a, b)
+
+
 # ------------------------------------------- the tiny DQ-VAE, shared weights
 @pytest.fixture(scope="module")
 def tiny_ckpt(tmp_path_factory):

@@ -228,7 +228,7 @@ def test_cli_needs_a_card_or_an_explicit_device(tmp_path):
     with pytest.raises(RuntimeError, match="cpu"):
         cli.main(["--base", STAGE2, "--logdir", str(tmp_path), "--max_epochs", "1"])
     with pytest.raises(NotImplementedError):
-        cli.main(["--base", STAGE2, "--logdir", str(tmp_path), "--logtype", "wandb", *COMMON])
+        cli.main(["--base", STAGE2, "--logdir", str(tmp_path), "--tp", "2", *COMMON])
 
 
 def _save(mngr, step, val):

@@ -204,6 +204,10 @@ def test_conditional_discriminator_losses_match_jax():
     import jax
     import jax.numpy as jnp
 
+    # The JAX loss imports its LPIPS module in `setup`, here inside `jax.jit(init)`; that
+    # module's constants are jnp arrays, which a first import inside a trace leaves as
+    # tracers for every later test of the process. Import it outside the trace.
+    import dynamicvectorquantization_tpu.nn.lpips  # noqa: F401
     from dynamicvectorquantization_tpu.utils.instantiate import instantiate_from_config as jinst
     from tests.test_torch_stage1_loss import LOSS_CONFIG, _perturbed
 
