@@ -90,9 +90,10 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                launches of the first POST
      graph_vs_eager  the sampler's graphs against its eager loop (`eager=True`,
                reached by no entry point) on the same model at 4 rows with int8
-               and with float caches: greedy and seeded sampled (top-k 300 /
-               100) tokens, AR steps and the generator's offset identical; the
-               int8 greedy tokens also against a read after every step
+               and with float caches: greedy tokens, and with int8 caches
+               seeded sampled (top-k 300 / 100) ones, AR steps and the
+               generator's offset identical; the int8 greedy tokens also
+               against a read after every step
   6. train     full-width, full-depth p6c18 StackGPT (the shipped config, its
                attn_pdrop 0.1 included, with the training campaign's stream
                caps, T = 805),
@@ -120,8 +121,8 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                caches (f32 queries through the decode kernel), 5 times (first:
                captures, 3 timed, the last traced): wall time and AR steps,
                every sampled token inside the class model's code / position
-               ranges, every grid equal to the first; then `graph_vs_eager` on
-               the masters
+               ranges, every grid equal to the first; then `graph_vs_eager`
+               (greedy) on the masters
   7. train1    full-width, full-depth DQ-VAE + GAN of the shipped
                `dqvae-entropy-dual-r05_imagenet.yml` (f32, TF32 off, seeded random
                weights, random VGG16 backbone with the bundled LPIPS lin heads),
@@ -163,7 +164,7 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                the process's captures, 4 timed; none traced),
                `sample.images` one; the pickles, the grid and the eight PNGs
                read back, seconds a batch
-     eval      the evaluation entry points as processes (`evaluate`): FID of
+     eval      the evaluation entry points in one process (`evaluate`): FID of
                `sample.val`'s 40 images against 40 seeded images (seeded
                InceptionV3 weights; and the proxy features), the first stage's
                rFID, and its rFID over the image fixtures (JPEG, PNG, CMYK,
@@ -190,7 +191,7 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                own), the committed fixtures (`tests/fixtures/images/`) read and
                transformed by the port against `expected.json` (the JAX
                package's arrays, bit for bit), one image's decode / resize ms,
-               `PrefetchLoader` images/s at 1 / 2 / 4 / 8 workers over an
+               `PrefetchLoader` images/s at 1 and 8 workers over an
                ImageNet tree of 512 JPEG files and an FFHQ tree of 64 PNGs of
                1024^2; the shipped stage-1 yml trained from the JPEG tree by the
                command line at its batch 30 with 8 workers (f32, `remat`; 4
@@ -200,6 +201,14 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                the plain entropy on the same batches (#3's launches), and
                `visualize_dual_grain` of 16 files (its PNG read back by the
                port)
+     campaign  the two campaign tools: the thresholds tool over the whole
+               committed train tree (`artifacts/campaign_r05/data`, 3,072
+               JPEGs) against the committed table (1e-6 + 1e-4 |ref|);
+               `tools.campaign_product --skip_data` at full width over 64 + 16
+               of its files, one epoch a stage, 8 samples, every leg a
+               process counted by `--launches-of`; `tools.convergence_campaign`
+               stage1 / stage2 / finalize, 4 steps each; each leg's kernels
+               asserted (`CAMPAIGN_KERNELS`), checkpoints deleted
  11. script    the script's seconds
      kernels   one line listing every ported kernel, its launches on each
                driven path (counted through graph replays) and its measured
@@ -241,6 +250,21 @@ DROPOUT_SEED = 0x5EED5EED5EED
 # where the plain version does: outputs may differ from its in summation order only,
 # while the same math without those roundings differs in about 40 % of them (F9, F10)
 F9_MISMATCH_SHARE = 0.05
+
+
+# the committed campaign data (3,072 + 256 JPEGs) and the JAX campaign's thresholds over it
+CAMPAIGN_DATA = os.path.join("artifacts", "campaign_r05", "data")
+CAMPAIGN_THRESHOLDS = os.path.join("artifacts", "campaign_r05", "thresholds",
+                                   "entropy_thresholds_imagenet_train_patch-16.json")
+LAUNCHES_FILE_ENV = "CHIP_SMOKE_LAUNCHES_FILE"
+# the kernels each campaign leg must launch: #3 in the tool, #2 / #4 / #5 / #10 in stage 1,
+# #4 / #5 / #6 / #7 / #9 in stage 2 (attention: any family)
+CAMPAIGN_KERNELS = {
+    "thresholds": ("patch_entropy",),
+    "stage1": ("vq_nearest_train", "fused_attention_forward", "fused_attention_backward",
+               "strided_conv3x3_down"),
+    "stage2": ("fused_attention_forward", "fused_attention_backward", "layernorm_forward",
+               "layernorm_backward", "fused_adamw")}
 
 
 _T0 = time.perf_counter()
@@ -3136,9 +3160,10 @@ def encode_triple(torch, dev, card, batch=8, reps=5):
 
 
 def evaluate(torch, dev, card, n_images=40):
-    """The evaluation entry points as processes of `python -m
-    dynamicvectorquantization_torch.eval.<name>` (each through this script's
-    `--launches-of`, which counts its launches). Stand-ins: 40 seeded 256^2
+    """The evaluation entry points as `python -m
+    dynamicvectorquantization_torch.eval.<name>` runs them, one after another
+    in one process (this script's `--launches-of ... --then ...`, which
+    counts each one's launches and seconds). Stand-ins: 40 seeded 256^2
     images written as `.npy` files; seeded InceptionV3 weights in a file
     (`DQVQ_INCEPTION_WEIGHTS`; `eval/inception.py` `seeded_state_dict`,
     He-normal convolutions, so the features depend on the input); the p6c18
@@ -3175,39 +3200,43 @@ def evaluate(torch, dev, card, n_images=40):
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t0
     env = dict(os.environ, DQVQ_INCEPTION_WEIGHTS=inception)
-    runs = {}
-
-    def run(name, module, *args):
-        cmd = [sys.executable, os.path.abspath(__file__), "--launches-of",
-               f"dynamicvectorquantization_torch.eval.{module}", *args]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600, env=env)
-        wall = time.perf_counter() - t0
-        lines = proc.stdout.strip().splitlines()
-        require(proc.returncode == 0 and len(lines) >= 2,
-                f"eval.{module} ({name}) exited {proc.returncode}: {proc.stderr[-3000:]}")
-        counted = json.loads(lines[-1])
-        runs[name] = dict(process_s=wall, result=json.loads(lines[-2]),
-                          launches={k: v for k, v in counted["launches"].items() if v})
-        return runs[name]["result"]
-
     stage1_args = ("--yaml_path", STAGE1, "--model_path", first_stage)
-    fid = run("fid", "compute_fid", "--a", EVAL_DUMP, "--b", images, "--batch_size", "40")
-    proxy = run("proxy_fid", "compute_fid", "--a", EVAL_DUMP, "--b", images, "--proxy_features")
-    rfid = run("rfid", "compute_fid", "--rfid", *stage1_args, "--b", images, "--batch_size", "8")
-    # image files (JPEG, PNG, CMYK, grey) through the port's reader, no PIL
-    rfid_files = run("rfid_files", "compute_fid", "--rfid", *stage1_args, "--b", FIXTURES,
-                     "--batch_size", "8")
-    usage = run("codebook_usage", "codebook_usage", *stage1_args, "--batch_size", "8",
-                "--max_batches", "5")
     png = os.path.join(root, "codebook_pca.png")
-    pca = run("codebook_pca", "codebook_pca", *stage1_args, "--out", png)
     report_path = os.path.join(root, "parity_report.json")
-    parity = run("parity_report", "parity_report", "--yaml_path", STAGE1, "--ref_ckpt",
-                 first_stage, "--images", images, "--stage2_yaml", P6C18, "--stage2_ckpt", stage2,
-                 "--sample_num", "8", "--batch_size", "8",
-                 "--sample_dir", os.path.join(root, "samples"), "--rfid_rel_tol", "1e9",
-                 "--out", report_path)
+    plan = [
+        ("fid", "compute_fid", ("--a", EVAL_DUMP, "--b", images, "--batch_size", "40")),
+        ("proxy_fid", "compute_fid", ("--a", EVAL_DUMP, "--b", images, "--proxy_features")),
+        ("rfid", "compute_fid", ("--rfid", *stage1_args, "--b", images, "--batch_size", "8")),
+        # image files (JPEG, arithmetic-coded JPEG, PNG, CMYK, grey) through the port's
+        # reader, no PIL
+        ("rfid_files", "compute_fid", ("--rfid", *stage1_args, "--b", FIXTURES,
+                                       "--batch_size", "8")),
+        ("codebook_usage", "codebook_usage", (*stage1_args, "--batch_size", "8",
+                                              "--max_batches", "5")),
+        ("codebook_pca", "codebook_pca", (*stage1_args, "--out", png)),
+        ("parity_report", "parity_report", (
+            "--yaml_path", STAGE1, "--ref_ckpt", first_stage, "--images", images,
+            "--stage2_yaml", P6C18, "--stage2_ckpt", stage2, "--sample_num", "8",
+            "--batch_size", "8", "--sample_dir", os.path.join(root, "samples"),
+            "--rfid_rel_tol", "1e9", "--out", report_path))]
+    # one process runs the seven entry points in turn (each as `python -m` runs it)
+    cmd = [sys.executable, os.path.abspath(__file__), "--launches-of"]
+    for i, (_, module, args) in enumerate(plan):
+        cmd += [THEN] * bool(i) + [f"dynamicvectorquantization_torch.eval.{module}", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, env=env)
+    process_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    marks = [i for i, line in enumerate(lines) if line.startswith('{"module": ')]
+    require(proc.returncode == 0 and len(marks) == len(plan),
+            f"eval exited {proc.returncode} after {len(marks)} entry points: "
+            f"{proc.stderr[-3000:]}")
+    runs = {}
+    for (name, _, _), i in zip(plan, marks):
+        counted = json.loads(lines[i])
+        runs[name] = dict(module_s=counted["seconds"], result=json.loads(lines[i - 1]),
+                          launches={k: v for k, v in counted["launches"].items() if v})
+    fid, proxy, rfid, rfid_files, usage, pca = (runs[name]["result"] for name, _, _ in plan[:6])
     with open(report_path) as f:
         report = json.load(f)
     with open(png, "rb") as f:
@@ -3225,15 +3254,15 @@ def evaluate(torch, dev, card, n_images=40):
                parity={k: report[k] for k in ("verdict", "legs_ran", "legs_skipped", "variant")},
                parity_legs={leg: {k: v for k, v in report[leg].items() if k != "ckpt"}
                             for leg in ("ckpt_import", "rfid", "sample_fid")},
-               seconds=sum(r["process_s"] for r in runs.values()) + setup_s, card=card)
+               process_s=process_s, seconds=process_s + setup_s, card=card)
     emit(res)
     shutil.rmtree(root, ignore_errors=True)
     require(all(math.isfinite(v) and v >= 0 for v in (res["fid"], res["proxy_fid"], res["rfid"])),
             f"FID values {res['fid']}, {res['proxy_fid']}, {res['rfid']}")
     require(fid["images"] == [n_images, n_images] and rfid["images"] == n_images,
             f"FID over {fid['images']} / rFID over {rfid['images']} images")
-    require(rfid_files["images"] == 9 and math.isfinite(rfid_files["value_unrounded"])
-            and runs["rfid_files"]["launches"].get("vq_nearest") == 2,  # batches of 8 and 1
+    require(rfid_files["images"] == 11 and math.isfinite(rfid_files["value_unrounded"])
+            and runs["rfid_files"]["launches"].get("vq_nearest") == 2,  # batches of 8 and 3
             f"rFID over the fixture files: {rfid_files}, {runs['rfid_files']['launches']}")
     require(0 < usage["usage_percent"] <= 100 and 0 < pca["explained_variance_2"] <= 1
             and scatter.shape == (512, 512, 3), f"codebook tools: {usage}, {pca}")
@@ -3511,12 +3540,14 @@ def serve(torch, model, card, reps=3):
     return res
 
 
-def graph_vs_eager(torch, model, c, name, host_loop=False, seed=31):
+def graph_vs_eager(torch, model, c, name, host_loop=False, seed=31,
+                   modes=("greedy", "sampled")):
     """The sampler's graphs against its eager loop on the card (`eager=True`,
     the control no entry point reaches): the same seed and knobs, greedy and
-    sampled (top-k 300 / 100); tokens, AR steps and the generator's offset
-    afterwards must be identical. With `host_loop`, the greedy tokens of the
-    eager loop reading the loop condition after every step too."""
+    sampled (top-k 300 / 100), or the `modes` given; tokens, AR steps and
+    the generator's offset afterwards must be identical. With `host_loop`,
+    the greedy tokens of the eager loop reading the loop condition after
+    every step too."""
     from dynamicvectorquantization_torch.models import dqtransformer as dq
 
     dev = c[0].device
@@ -3537,6 +3568,8 @@ def graph_vs_eager(torch, model, c, name, host_loop=False, seed=31):
         for mode, knobs in (("greedy", dict(sample=False)),
                             ("sampled", dict(top_k=300, top_p=1.0, top_k_pos=100,
                                              top_p_pos=1.0))):
+            if mode not in modes:
+                continue
             graph, eager = run(False, **knobs), run(True, **knobs)
             res[mode] = dict(
                 tokens_equal=all(torch.equal(a, b)
@@ -3557,7 +3590,7 @@ def graph_vs_eager(torch, model, c, name, host_loop=False, seed=31):
                     ar_steps=loop["ar_steps"], s=loop["s"])
     res["graphs"] = runner_numbers(torch, model)
     emit(res)
-    for mode in ("greedy", "sampled"):
+    for mode in modes:
         r = res[mode]
         require(r["tokens_equal"] and r["ar_steps"][0] == r["ar_steps"][1]
                 and r["generator_offset"][0] == r["generator_offset"][1],
@@ -3604,7 +3637,8 @@ def class_sample(torch, trainer, card, labels, reps=3):
                 streams.append([t.cpu() for t in toks])
             sampling = sampling_numbers(calls, 0, range(1, reps + 1), reps + 1)
         graphs = runner_numbers(torch, model)
-        versus = graph_vs_eager(torch, model, c, "class p6c18, f32 masters")
+        # the sampled mode's draws are held on the int8 serving model (a shared sampler)
+        versus = graph_vs_eager(torch, model, c, "class p6c18, f32 masters", modes=("greedy",))
     cc, fc, cp, fp = streams[0]
     checks = dict(
         content_in_codes_or_pad=all(bool((t <= model.content_pad_code).all()) for t in (cc, fc)),
@@ -3671,28 +3705,51 @@ def read_png(data):
     return rows[:, 1:].reshape(h, w, c)
 
 
+THEN = "--then"  # separates the modules of one `--launches-of` process
+
+
 def run_counting(argv):
-    """`chip_smoke.py --launches-of <module> <its arguments>`: run the module
-    as `python -m <module>` does, then print as one JSON line its kernels'
-    launches and each `sample_from_scratch` call's seconds, AR steps and the
-    process's graph captures so far (how `sample_cli` reads its
-    subprocesses)."""
+    """`chip_smoke.py --launches-of <module> <its arguments> [--then <module>
+    <its arguments> ...]`: run each module in turn in this one process as
+    `python -m <module>` does, and after each print as one JSON line its
+    kernels' launches, its seconds and each `sample_from_scratch` call's
+    seconds, AR steps and the process's graph captures so far (how
+    `sample_cli`, `eval` and `campaign` read their subprocesses). A module
+    that exits with another code than 0 ends the process with that code."""
     import runpy
 
     import torch
 
     from dynamicvectorquantization_torch.utils.sample_wall import SamplerCalls
 
-    module, argv = argv[0], argv[1:]
-    sys.argv = [module, *argv]
-    reset_launches()
+    groups, group = [], []
+    for arg in argv:
+        if arg == THEN:
+            groups.append(group)
+            group = []
+        else:
+            group.append(arg)
+    groups.append(group)
     code = 0
-    with SamplerCalls(torch) as calls:
-        try:
-            runpy.run_module(module, run_name="__main__", alter_sys=True)
-        except SystemExit as e:
-            code = e.code or 0
-    print(json.dumps({"launches": read_launches(), "sampling_calls": calls.calls}), flush=True)
+    for module, *args in groups:
+        sys.argv = [module, *args]
+        reset_launches()
+        t0 = time.perf_counter()
+        with SamplerCalls(torch) as calls:
+            try:
+                runpy.run_module(module, run_name="__main__", alter_sys=True)
+            except SystemExit as e:
+                code = e.code or 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        line = {"module": module, "seconds": time.perf_counter() - t0,
+                "launches": read_launches(), "sampling_calls": calls.calls}
+        if os.environ.get(LAUNCHES_FILE_ENV):  # the campaign phase's legs: one line a process
+            with open(os.environ[LAUNCHES_FILE_ENV], "a") as f:
+                f.write(json.dumps({"argv": args, **line}) + "\n")
+        print(json.dumps(line), flush=True)
+        if code:
+            break
     return code
 
 
@@ -3935,7 +3992,7 @@ def image_trees(root, n_train=512, n_val=64, n_ffhq=64, ffhq_side=1024):
     return os.path.join(root, "imagenet"), os.path.join(root, "ffhq")
 
 
-def loader_rates(dataset, workers=(1, 2, 4, 8), epochs=3, batch=32):
+def loader_rates(dataset, workers=(1, 8), epochs=2, batch=32):
     """Images/s through `PrefetchLoader` over whole epochs, per worker count."""
     from dynamicvectorquantization_torch.data.pipeline import PrefetchLoader
 
@@ -3991,7 +4048,7 @@ def timed_stage1_steps(torch, steps):
 def data_real(torch, dev, card):
     """Real image files on the card, without PIL: the host libraries' build,
     the fixtures against `expected.json`, loader images/s over an ImageNet
-    tree of JPEGs and an FFHQ tree of 1024^2 PNGs at 1 / 2 / 4 / 8 workers,
+    tree of JPEGs and an FFHQ tree of 1024^2 PNGs at 1 and 8 workers,
     the shipped stage-1 yml trained from the JPEG tree by the training
     command line (`train/cli.py` `main` in-process, as `fit1`; the yml's
     batch 30 and 8 workers, f32, `remat` by default; one epoch of 4 steps,
@@ -4047,6 +4104,11 @@ def _data_real(torch, dev, card, t_phase, build):
     fixtures["seconds"] = time.perf_counter() - t0
     require(not fixtures["mismatched"],
             f"data_real: the port's arrays differ from expected.json: {fixtures['mismatched']}")
+    # the arithmetic-coded fixtures (SOF9; SOF10 with restarts) are among them
+    with open(os.path.join(FIXTURES, "expected.json")) as f:
+        arith = sorted(n for n in json.load(f)["files"] if n.startswith("arith"))
+    require(len(arith) == 2, f"data_real: arithmetic fixtures {arith}")
+    fixtures["arithmetic_files"] = arith
 
     res = dict(phase="data_real", build=build, fixtures=fixtures, card=card)
     with tempfile.TemporaryDirectory(prefix="dqvq_data_real_") as root:
@@ -4174,6 +4236,173 @@ def _data_real(torch, dev, card, t_phase, build):
     return res
 
 
+def all_families(counts, name):
+    """A wrapper's launches in every kernel family (the attention rows count
+    the FMA family under `name`, the others beside it; downsample and entropy
+    their bf16 launches beside)."""
+    return sum(counts.get(f"{name}{suffix}", 0) for suffix in ("", "_tc", "_f32_tc", "_bf16"))
+
+
+def leg_of(line):
+    """The campaign leg a `--launches-of` line belongs to."""
+    if line["module"].endswith("calculate_entropy_thresholds"):
+        return "thresholds"
+    if line["module"].endswith(".train"):
+        return "stage1" if "s1" in line["argv"] else "stage2"
+    return line["module"].rsplit(".", 1)[-1]
+
+
+def check_leg(leg, counts):
+    missing = [k for k in CAMPAIGN_KERNELS.get(leg, ()) if not all_families(counts, k)]
+    require(not missing, f"campaign {leg}: no launch of {missing}")
+
+
+def campaign(torch, card):
+    """The two campaign tools on the card (the long campaign is a process of
+    its own, `tools.campaign_product` over the whole committed tree):
+
+      * the thresholds tool over the full committed train tree (3,072 JPEGs)
+        against the JAX campaign's committed table, every percentile within
+        1e-6 + 1e-4 |ref|;
+      * `tools.campaign_product --skip_data` at full width over a 64 + 16
+        file subtree, one epoch a stage, `--sample_num 8`, the thresholds
+        table of the whole tree reused, every other leg a process run
+        through `--launches-of` (the FID leg as it is): the summary's keys,
+        finite curves, the best val step retained;
+      * `tools.convergence_campaign` stage1 / stage2 / finalize in-process at
+        full width, 4 steps each over pools of 64 + 16;
+
+    each leg's kernel launches asserted (`CAMPAIGN_KERNELS`), the
+    checkpoints deleted after."""
+    import numpy as np
+
+    from dynamicvectorquantization_torch.tools import campaign_product as cp
+    from dynamicvectorquantization_torch.tools import convergence_campaign as cc
+
+    t_phase = time.perf_counter()
+    root = os.path.abspath(os.path.join("build", "campaign"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    launches_file = os.path.join(root, "launches.jsonl")
+    counting = [sys.executable, os.path.abspath(__file__), "--launches-of"]
+    env = {**os.environ, LAUNCHES_FILE_ENV: launches_file}
+
+    # 1. the thresholds tool over the whole committed train tree
+    t0 = time.perf_counter()
+    thresholds_tool = "dynamicvectorquantization_torch.tools.calculate_entropy_thresholds"
+    r = subprocess.run(counting + [thresholds_tool, "--dataset", "imagenet", "--split", "train",
+                                   "--out_dir", os.path.join(root, "thresholds")],
+                       env={**env, "DQVQ_IMAGENET_ROOT": os.path.abspath(CAMPAIGN_DATA)},
+                       capture_output=True, text=True)
+    require(r.returncode == 0, f"thresholds tool failed: {r.stderr[-2000:]}")
+    with open(os.path.join(root, "thresholds", os.path.basename(CAMPAIGN_THRESHOLDS))) as f:
+        got = json.load(f)
+    with open(CAMPAIGN_THRESHOLDS) as f:
+        ref = json.load(f)
+    excess = max(abs(got[k] - ref[k]) - (1e-6 + 1e-4 * abs(ref[k])) for k in ref)
+    worst = max(abs(got[k] - ref[k]) for k in ref)
+    require(got.keys() == ref.keys() and excess <= 0,
+            f"thresholds over the committed tree: largest |diff| {worst} beyond 1e-6 + 1e-4 |ref|")
+    tool = dict(seconds=time.perf_counter() - t0, files=json.loads(r.stdout.splitlines()[-2])
+                .get("images"), max_abs_diff=worst, tol="1e-6 + 1e-4 |ref|",
+                equal=all(got[k] == ref[k] for k in ref))
+    with open(launches_file) as f:
+        check_leg("thresholds", json.loads(f.readline())["launches"])
+    os.remove(launches_file)
+
+    # 2. campaign_product over a 64 + 16 file subtree, every leg counted
+    sub = os.path.join(root, "data")
+    for split, n in (("train", 64), ("val", 16)):
+        classes = sorted(os.listdir(os.path.join(CAMPAIGN_DATA, split)))
+        for i in range(n):
+            cls = classes[i % len(classes)]
+            name = sorted(os.listdir(os.path.join(CAMPAIGN_DATA, split, cls)))[i // len(classes)]
+            os.makedirs(os.path.join(sub, split, cls), exist_ok=True)
+            os.symlink(os.path.abspath(os.path.join(CAMPAIGN_DATA, split, cls, name)),
+                       os.path.join(sub, split, cls, name))
+    out = os.path.join(root, "product")
+    # the product's thresholds leg reuses the table of the whole tree made above (the
+    # tool's run and launches are checked there), as a re-run of a campaign reuses its own
+    os.makedirs(os.path.join(out, "thresholds"))
+    shutil.copy(os.path.join(root, "thresholds", os.path.basename(CAMPAIGN_THRESHOLDS)),
+                os.path.join(out, "thresholds", cp.THRESHOLDS_NAME))
+    saved_module, saved_env = cp._module, os.environ.get(LAUNCHES_FILE_ENV)
+    cp._module = lambda name: (saved_module(name) if name == "eval.compute_fid"
+                               else counting + [f"dynamicvectorquantization_torch.{name}"])
+    os.environ[LAUNCHES_FILE_ENV] = launches_file
+    t0 = time.perf_counter()
+    try:
+        require(cp.main(["--out", out, "--skip_data", "--data_root", sub, "--s1_epochs", "1",
+                         "--s2_epochs", "1", "--sample_num", "8"]) == 0, "campaign_product")
+    finally:
+        cp._module = saved_module
+        if saved_env is None:
+            os.environ.pop(LAUNCHES_FILE_ENV)
+        else:
+            os.environ[LAUNCHES_FILE_ENV] = saved_env
+    product_s = time.perf_counter() - t0
+    with open(os.path.join(out, "summary.json")) as f:
+        summary = json.load(f)
+    require(set(cp.SUMMARY_KEYS) <= set(summary), "campaign_product: summary keys")
+    curves = [r["val_rec_loss"] for r in summary["s1_val"]] + [
+        r["val_loss"] for r in summary["s2_val"]] + [
+        r["proxy_fid"] for r in summary["s2_sample_proxy_fid"]]
+    require(curves and all(np.isfinite(v) for v in curves) and summary["s2_best_val_retained"],
+            f"campaign_product: curves {curves}, retained {summary['s2_best_val_retained']}")
+    legs = {}
+    with open(launches_file) as f:
+        for line in map(json.loads, f):
+            leg = leg_of(line)
+            counts = legs.setdefault(leg, dict.fromkeys(line["launches"], 0))
+            for k, v in line["launches"].items():
+                counts[k] += v
+    for leg, counts in legs.items():
+        check_leg(leg, counts)
+    require({"stage1", "stage2", "val"} <= set(legs), f"campaign legs {list(legs)}")
+    shutil.rmtree(os.path.join(out, "logs"))  # GB of checkpoints
+
+    # 3. convergence_campaign, in-process
+    conv = os.path.join(root, "convergence")
+    # validation, grid and samples once, at the end (a cadence of 4 would repeat them there)
+    common = ["--steps", "4", "--dispatch", "4", "--pool", "64", "--val", "16", "--batch", "8",
+              "--log-every", "4", "--eval-every", "1000", "--grid-every", "1000", "--out", conv]
+    conv_legs = {}
+    for cmd, extra in (("stage1", []), ("stage2", ["--cached-codes", "--sample-every", "0"])):
+        reset_launches()
+        t0 = time.perf_counter()
+        require(cc.main([cmd, *common, *extra]) == 0, f"convergence {cmd}")
+        torch.cuda.synchronize()
+        counts = read_launches()
+        check_leg(cmd, counts)
+        conv_legs[cmd] = dict(seconds=time.perf_counter() - t0,
+                              launches={k: v for k, v in counts.items() if v})
+        torch.cuda.empty_cache()
+    bench = cc.finalize(conv)
+    rows = {k: v for k, v in bench["curves"].items() if v is not None}
+    require(len(rows) == 6 and all(np.isfinite(list(v.values())).all() for v in rows.values()),
+            f"convergence finalize: {bench['curves']}")
+    for png in ("stage1_grid_000004.png", "stage2_samples_000004.png"):
+        with open(os.path.join(conv, png), "rb") as f:
+            require(read_png(f.read()).ndim == 3, png)
+    os.remove(os.path.join(conv, "stage1_state.pt"))
+    total = {}
+    for counts in [*legs.values(), *(leg["launches"] for leg in conv_legs.values())]:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    res = dict(phase="campaign", card=card, thresholds=tool,
+               product=dict(seconds=product_s, leg_seconds=summary["leg_seconds"],
+                            s1_val=summary["s1_val"], s2_val=summary["s2_val"],
+                            proxy_fid=summary["s2_sample_proxy_fid"],
+                            s1_remat=summary.get("s1_remat"), curves=summary["curves"],
+                            launches={leg: {k: v for k, v in c.items() if v}
+                                      for leg, c in legs.items()}),
+               convergence=dict(conv_legs, curves=bench["curves"], plots=bench["plots"]),
+               seconds=time.perf_counter() - t_phase)
+    emit(res)
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(res, launches=total)
+
+
 def main():
     if sys.argv[1:2] == ["--launches-of"]:
         return run_counting(sys.argv[2:])
@@ -4189,12 +4418,16 @@ def main():
 
     card = card_line()
     print(card, flush=True)
+    # PyTorch's own defaults, which the entry points keep (the campaign's training legs)
+    tf32_defaults = dict(matmul=torch.backends.cuda.matmul.allow_tf32,
+                         cudnn=torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     emit(dict(phase="card", nvidia_smi=card, device=torch.cuda.get_device_name(0),
               count=torch.cuda.device_count(), torch=torch.__version__,
-              cuda=torch.version.cuda, tf32_matmul=False, tf32_cudnn=False))
+              cuda=torch.version.cuda, tf32_matmul=False, tf32_cudnn=False,
+              tf32_defaults=tf32_defaults))
 
     t0 = time.perf_counter()
     cuda_lib.lib()
@@ -4241,7 +4474,7 @@ def main():
     c4 = model.encode_to_c(4, dev)
     graph_vs_eager(torch, model, c4, "p6c18, bf16, int8 caches", host_loop=True)
     model.transformer.kv_cache_dtype = None
-    graph_vs_eager(torch, model, c4, "p6c18, bf16, float caches")
+    graph_vs_eager(torch, model, c4, "p6c18, bf16, float caches", modes=("greedy",))
     model.transformer.kv_cache_dtype = "int8"
     del model, c4
     torch.cuda.empty_cache()
@@ -4308,6 +4541,8 @@ def main():
     fitted1 = fit1(torch, card)["launches"]
     torch.cuda.empty_cache()
     real = data_real(torch, dev, card)
+    torch.cuda.empty_cache()
+    campaigned = campaign(torch, card)["launches"]
 
     # the downsample lines sum the encoder's four levels (one encode batch)
     def levels(cases):
@@ -4361,7 +4596,9 @@ def main():
                            + (real["tools"]["entropy_thresholds"]["patch_entropy_launches"]
                               if name == "patch_entropy" else 0)
                            + real["tools"]["visualize_dual_grain"]["launches"].get(name, 0)
-                           for name in per_step}}
+                           for name in per_step},
+             # the two campaign tools' legs: thresholds, both stages, sampling, convergence
+             "campaign": {name: campaigned.get(name, 0) for name in per_step}}
 
     def launched(name):
         """Launches of a row on each driven path (for the attention rows: of

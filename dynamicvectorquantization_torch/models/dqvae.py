@@ -46,6 +46,7 @@ from torch import nn
 
 from ..config.registry import resolve_target
 from ..nn.blocks import Conv2d, as_dtype, training_masks
+from ..nn.init import flax_default_
 from ..ops.entropy import patch_entropy
 from ..utils.instantiate import instantiate_from_config
 
@@ -93,18 +94,18 @@ class DualGrainVQModel(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        """Seeded random init (explicit generator): convs, linears and
-        GroupNorms as torch's defaults would draw them, position tables and
-        the codebook as the reference initialises them."""
+        """Seeded random init (explicit generator), drawn as the JAX package
+        draws it, since that package is the reference the port is held to:
+        every conv and linear (routers' gates included) with flax's defaults,
+        a lecun-normal kernel and a zero bias (`nn/init.py`); GroupNorm as
+        the identity; the Fourier features, position tables and codebook by
+        their own `init_weights`, as the JAX modules initialise them."""
         own = set(self.loss.modules()) if isinstance(self.loss, nn.Module) else set()
         for mod in self.modules():
             if mod in own:
                 continue  # LPIPS and the discriminator initialise themselves below
             if isinstance(mod, (nn.Conv2d, nn.Linear)):
-                fan_in = mod.weight[0].numel()
-                bound = fan_in ** -0.5
-                mod.weight.uniform_(-bound, bound, generator=generator)
-                mod.bias.uniform_(-bound, bound, generator=generator)
+                flax_default_(mod, generator)
             elif isinstance(mod, nn.GroupNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()

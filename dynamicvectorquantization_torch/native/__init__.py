@@ -60,6 +60,7 @@ SIGNATURES = {
         "dqvq_jpeg_port_header": (ctypes.c_char_p, _L, _IP, _IP, _IP, ctypes.c_char_p, _I),
         "dqvq_jpeg_port_decode": (ctypes.c_char_p, _L, _I, _I, _P, _L, _IP, _IP,
                                   ctypes.c_char_p, _I),
+        "dqvq_jpeg_port_coefficients": (ctypes.c_char_p, _L, _IP, _P, _L, ctypes.c_char_p, _I),
     },
     "jpeg": {
         "dqvq_decode_jpeg": (ctypes.c_char_p, _L, _I, _P, _L, _IP, _IP),
@@ -69,7 +70,7 @@ SIGNATURES = {
         "dqvq_jpeg_version": (_IP, _IP),
     },
 }
-RESTYPES = {"dqvq_jpeg_version": None}
+RESTYPES = {"dqvq_jpeg_version": None, "dqvq_jpeg_port_coefficients": ctypes.c_long}
 
 _lock = threading.Lock()
 _loaded: dict = {}  # library -> ctypes.CDLL, or the RuntimeError its build raised
@@ -188,6 +189,31 @@ def jpeg_header(data: bytes) -> tuple[int, int, int] | str:
                                                      ctypes.byref(w), ctypes.byref(comps), msg,
                                                      len(msg))
     return (h.value, w.value, comps.value) if rc == 0 else msg.value.decode(errors="replace")
+
+
+def jpeg_port_coefficients(data: bytes) -> list[np.ndarray]:
+    """The port decoder's quantised DCT coefficients of every component,
+    (block rows, block columns, 64) int16 in natural order (what libjpeg's
+    `jpeg_read_coefficients` gives). Raises ValueError with its message."""
+    header = jpeg_header(data)
+    if isinstance(header, str):
+        raise ValueError(header)
+    h, w, comps = header
+    out = np.empty((h // 8 + 8) * (w // 8 + 8) * 64 * comps * 16, np.int16)  # to 4x4 sampling
+    dims = (ctypes.c_int * 8)()
+    msg = ctypes.create_string_buffer(256)
+    n = lib("image_core").dqvq_jpeg_port_coefficients(data, len(data), dims, _ptr(out), out.size,
+                                                      msg, len(msg))
+    if n < 0:
+        raise ValueError(msg.value.decode(errors="replace"))
+    if n > out.size:
+        raise RuntimeError(f"{n} coefficients, room for {out.size}")
+    arrays, pos = [], 0
+    for i in range(comps):
+        rows, cols = dims[2 * i], dims[2 * i + 1]
+        arrays.append(out[pos:pos + rows * cols * 64].reshape(rows, cols, 64).copy())
+        pos += rows * cols * 64
+    return arrays
 
 
 def _decode(data, denom, space, channels, shape):

@@ -4,6 +4,12 @@
 //   * Huffman entropy decoding, sequential (SOF0 / SOF1) and progressive
 //     (SOF2: DC first / refine, AC first / refine with EOB runs), restart
 //     intervals; the quantisation table latched at a component's first scan;
+//   * arithmetic entropy decoding (jdarith.c), sequential (SOF9) and
+//     progressive (SOF10): the QM coder's registers, 64 DC and 256 AC
+//     statistics bins per table, the conditioning bounds of the DAC marker
+//     (L 0, U 1, Kx 5 without one), the bins and the DC context reset at
+//     every restart marker; a marker or the end of the data inside a scan
+//     supplies zeros, as libjpeg does;
 //   * the accurate integer IDCT (jidctint.c, jpeg_idct_islow) and, with DCT
 //     scaling, the reduced-size ones (jidctred.c: 4x4, 2x2, 1x1), each
 //     clamped through libjpeg's post-IDCT range-limit table;
@@ -16,7 +22,8 @@
 //     tables, grey -> RGB, RGB copy, YCCK -> CMYK, CMYK copy; the colour space
 //     from the JFIF / Adobe markers or the component ids
 //     (jdapimin.c default_decompress_parms).
-// Arithmetic coding, lossless JPEG and 12-bit samples are refused.
+// Lossless JPEG (SOF3, SOF11), the differential processes and 12-bit samples
+// are refused with libjpeg's messages.
 //
 // Entries (extern "C"):
 //   dqvq_jpeg_port_header(buf, len, &h, &w, &components, msg, cap)
@@ -24,6 +31,9 @@
 //     space 0: RGB (3 bytes a pixel; fails for 4 components, as libjpeg's
 //     colour conversion does); 1: grey (1 component); 2: CMYK stored
 //     inverted (255 - v), as Pillow's "CMYK;I" raw mode stores it.
+//   dqvq_jpeg_port_coefficients(buf, len, dims, out, cap, msg, cap) -> count
+//     every component's quantised coefficients, (rows, columns) of blocks in
+//     dims, 64 a block in natural order, as libjpeg's jpeg_read_coefficients.
 //
 // Build: part of the image_core library (native/__init__.py).
 
@@ -68,7 +78,62 @@ struct Component {
   bool quant_latched = false;
   int dc_pred = 0;
   int eob_run = 0;
+  int dc_context = 0;  // arithmetic coding: the DC statistics' conditioning offset
 };
+
+constexpr int kArithTables = 16;
+constexpr int kDcStatBins = 64, kAcStatBins = 256;
+
+// jaricom.c jpeg_aritab (ITU-T T.81 Table D.2): Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; the last entry is the fixed probability 0.5
+#define V(i, qe, nlps, nmps, sw) \
+  ((static_cast<int64_t>(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+const int64_t kAritab[114] = {
+    V(0, 0x5a1d, 1, 1, 1),      V(1, 0x2586, 14, 2, 0),     V(2, 0x1114, 16, 3, 0),
+    V(3, 0x080b, 18, 4, 0),     V(4, 0x03d8, 20, 5, 0),     V(5, 0x01da, 23, 6, 0),
+    V(6, 0x00e5, 25, 7, 0),     V(7, 0x006f, 28, 8, 0),     V(8, 0x0036, 30, 9, 0),
+    V(9, 0x001a, 33, 10, 0),    V(10, 0x000d, 35, 11, 0),   V(11, 0x0006, 9, 12, 0),
+    V(12, 0x0003, 10, 13, 0),   V(13, 0x0001, 12, 13, 0),   V(14, 0x5a7f, 15, 15, 1),
+    V(15, 0x3f25, 36, 16, 0),   V(16, 0x2cf2, 38, 17, 0),   V(17, 0x207c, 39, 18, 0),
+    V(18, 0x17b9, 40, 19, 0),   V(19, 0x1182, 42, 20, 0),   V(20, 0x0cef, 43, 21, 0),
+    V(21, 0x09a1, 45, 22, 0),   V(22, 0x072f, 46, 23, 0),   V(23, 0x055c, 48, 24, 0),
+    V(24, 0x0406, 49, 25, 0),   V(25, 0x0303, 51, 26, 0),   V(26, 0x0240, 52, 27, 0),
+    V(27, 0x01b1, 54, 28, 0),   V(28, 0x0144, 56, 29, 0),   V(29, 0x00f5, 57, 30, 0),
+    V(30, 0x00b7, 59, 31, 0),   V(31, 0x008a, 60, 32, 0),   V(32, 0x0068, 62, 33, 0),
+    V(33, 0x004e, 63, 34, 0),   V(34, 0x003b, 32, 35, 0),   V(35, 0x002c, 33, 9, 0),
+    V(36, 0x5ae1, 37, 37, 1),   V(37, 0x484c, 64, 38, 0),   V(38, 0x3a0d, 65, 39, 0),
+    V(39, 0x2ef1, 67, 40, 0),   V(40, 0x261f, 68, 41, 0),   V(41, 0x1f33, 69, 42, 0),
+    V(42, 0x19a8, 70, 43, 0),   V(43, 0x1518, 72, 44, 0),   V(44, 0x1177, 73, 45, 0),
+    V(45, 0x0e74, 74, 46, 0),   V(46, 0x0bfb, 75, 47, 0),   V(47, 0x09f8, 77, 48, 0),
+    V(48, 0x0861, 78, 49, 0),   V(49, 0x0706, 79, 50, 0),   V(50, 0x05cd, 48, 51, 0),
+    V(51, 0x04de, 50, 52, 0),   V(52, 0x040f, 50, 53, 0),   V(53, 0x0363, 51, 54, 0),
+    V(54, 0x02d4, 52, 55, 0),   V(55, 0x025c, 53, 56, 0),   V(56, 0x01f8, 54, 57, 0),
+    V(57, 0x01a4, 55, 58, 0),   V(58, 0x0160, 56, 59, 0),   V(59, 0x0125, 57, 60, 0),
+    V(60, 0x00f6, 58, 61, 0),   V(61, 0x00cb, 59, 62, 0),   V(62, 0x00ab, 61, 63, 0),
+    V(63, 0x008f, 61, 32, 0),   V(64, 0x5b12, 65, 65, 1),   V(65, 0x4d04, 80, 66, 0),
+    V(66, 0x412c, 81, 67, 0),   V(67, 0x37d8, 82, 68, 0),   V(68, 0x2fe8, 83, 69, 0),
+    V(69, 0x293c, 84, 70, 0),   V(70, 0x2379, 86, 71, 0),   V(71, 0x1edf, 87, 72, 0),
+    V(72, 0x1aa9, 87, 73, 0),   V(73, 0x174e, 72, 74, 0),   V(74, 0x1424, 72, 75, 0),
+    V(75, 0x119c, 74, 76, 0),   V(76, 0x0f6b, 74, 77, 0),   V(77, 0x0d51, 75, 78, 0),
+    V(78, 0x0bb6, 77, 79, 0),   V(79, 0x0a40, 77, 48, 0),   V(80, 0x5832, 80, 81, 1),
+    V(81, 0x4d1c, 88, 82, 0),   V(82, 0x438e, 89, 83, 0),   V(83, 0x3bdd, 90, 84, 0),
+    V(84, 0x34ee, 91, 85, 0),   V(85, 0x2eae, 92, 86, 0),   V(86, 0x299a, 93, 87, 0),
+    V(87, 0x2516, 86, 71, 0),   V(88, 0x5570, 88, 89, 1),   V(89, 0x4ca9, 95, 90, 0),
+    V(90, 0x44d9, 96, 91, 0),   V(91, 0x3e22, 97, 92, 0),   V(92, 0x3824, 99, 93, 0),
+    V(93, 0x32b4, 99, 94, 0),   V(94, 0x2e17, 93, 86, 0),   V(95, 0x56a8, 95, 96, 1),
+    V(96, 0x4f46, 101, 97, 0),  V(97, 0x47e5, 102, 98, 0),  V(98, 0x41cf, 103, 99, 0),
+    V(99, 0x3c3d, 104, 100, 0), V(100, 0x375e, 99, 93, 0),  V(101, 0x5231, 105, 102, 0),
+    V(102, 0x4c0f, 106, 103, 0), V(103, 0x4639, 107, 104, 0), V(104, 0x415e, 103, 99, 0),
+    V(105, 0x5627, 105, 106, 1), V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0),
+    V(108, 0x5597, 110, 109, 0), V(109, 0x504f, 111, 107, 0), V(110, 0x5a10, 110, 111, 1),
+    V(111, 0x5522, 112, 109, 0), V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0)};
+#undef V
+
+std::string hex2(int v) {
+  char buf[8];
+  std::snprintf(buf, sizeof(buf), "0x%02x", v);
+  return buf;
+}
 
 class Decoder {
  public:
@@ -86,6 +151,7 @@ class Decoder {
 
   int width = 0, height = 0, ncomp = 0;
   bool progressive = false;
+  bool arithmetic = false;
   bool saw_jfif = false, saw_adobe = false;
   int adobe_transform = 0;
   Component comp[kMaxComponents];
@@ -125,6 +191,7 @@ class Decoder {
     if (word() != 4) throw JpegError("Bogus DRI length");
     restart_interval_ = word();
   }
+  void read_dac();
 
   // ----------------------------------------------------------- bit reader
   void reset_bits() {
@@ -184,6 +251,18 @@ class Decoder {
   static int extend(int r, int s) { return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r; }
   void restart();
 
+  // ------------------------------------------ arithmetic decoder (jdarith.c)
+  int arith_byte();
+  int arith_decode(uint8_t* st);
+  void arith_reset_scan_stats();
+  int arith_dc_diff(Component& c);
+  int arith_ac_value(uint8_t* st, int k, int tbl);
+  void arith_block_sequential(Component& c, int16_t* blk);
+  void arith_block_dc_first(Component& c, int16_t* blk);
+  void arith_block_dc_refine(int16_t* blk);
+  void arith_block_ac_first(Component& c, int16_t* blk);
+  void arith_block_ac_refine(Component& c, int16_t* blk);
+
   // --------------------------------------------------------------- scans
   void decode_scan();
   void decode_block_sequential(Component& c, int16_t* blk);
@@ -205,6 +284,14 @@ class Decoder {
   bool qt_defined_[4] = {false, false, false, false};
   Huffman dc_[4], ac_[4];
   bool frame_seen_ = false;
+  // arithmetic coding: DAC conditioning (libjpeg's defaults at SOI), the
+  // statistics bins, the QM coder's registers (ct -1: a bad code, the rest of
+  // the restart interval decodes nothing)
+  uint8_t dac_l_[kArithTables], dac_u_[kArithTables], dac_k_[kArithTables];
+  uint8_t dc_stats_[kArithTables][kDcStatBins], ac_stats_[kArithTables][kAcStatBins];
+  uint8_t fixed_bin_[4] = {113, 0, 0, 0};
+  int64_t ar_c_ = 0, ar_a_ = 0;
+  int ar_ct_ = -16;
   // the current scan
   int scan_n_ = 0;
   int scan_comp_[kMaxComponents];
@@ -304,7 +391,8 @@ void Decoder::read_dht() {
 void Decoder::read_sof(int marker) {
   if (frame_seen_) throw JpegError("Invalid JPEG file structure: two SOF markers");
   frame_seen_ = true;
-  progressive = marker == 0xC2;
+  progressive = marker == 0xC2 || marker == 0xCA;
+  arithmetic = marker == 0xC9 || marker == 0xCA;
   int len = word();
   int precision = byte();
   height = word();
@@ -342,12 +430,20 @@ void Decoder::read_header() {
   if (n_ < 2 || d_[0] != 0xFF || d_[1] != 0xD8) throw JpegError("Not a JPEG file: starts with " +
                                                                 std::to_string(n_ ? d_[0] : -1));
   pos_ = 2;
+  for (int i = 0; i < kArithTables; ++i) {  // jdmarker.c get_soi
+    dac_l_[i] = 0;
+    dac_u_[i] = 1;
+    dac_k_[i] = 5;
+  }
   for (;;) {
     int m = next_marker();
-    if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+    if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
       read_sof(m);
-    } else if ((m >= 0xC3 && m <= 0xCF) && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-      throw JpegError("Unsupported JPEG process: SOF type 0x" + std::to_string(m));
+    } else if (m >= 0xC3 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
+      // lossless, differential, JPG: jdmarker.c JERR_SOF_UNSUPPORTED
+      throw JpegError("Unsupported JPEG process: SOF type " + hex2(m));
+    } else if (m == 0xCC) {
+      read_dac();
     } else if (m == 0xC4) {
       read_dht();
     } else if (m == 0xDB) {
@@ -386,7 +482,9 @@ void Decoder::read_sos() {
     scan_comp_[i] = ci;
     comp[ci].dc_tbl = tables >> 4;
     comp[ci].ac_tbl = tables & 15;
-    if (comp[ci].dc_tbl > 3 || comp[ci].ac_tbl > 3) throw JpegError("Bogus Huffman table index");
+    // arithmetic tables 0..15 need no definition (their bins start at zero)
+    if (!arithmetic && (comp[ci].dc_tbl > 3 || comp[ci].ac_tbl > 3))
+      throw JpegError("Bogus Huffman table index");
   }
   ss_ = byte();
   se_ = byte();
@@ -410,6 +508,7 @@ void Decoder::read_sos() {
       c.quant_latched = true;
     }
     if (c.coef.empty()) c.coef.assign(static_cast<size_t>(c.blocks_w) * c.blocks_h * 64, 0);
+    if (arithmetic) continue;
     const bool need_dc = ss_ == 0 && ah_ == 0;
     const bool need_ac = se_ > 0 || !progressive;
     if ((need_dc && !dc_[c.dc_tbl].defined) || (need_ac && !ac_[c.ac_tbl].defined))
@@ -431,6 +530,7 @@ void Decoder::restart() {
     comp[i].dc_pred = 0;
     comp[i].eob_run = 0;
   }
+  if (arithmetic) arith_reset_scan_stats();  // jdarith.c process_restart
 }
 
 void Decoder::decode_block_sequential(Component& c, int16_t* blk) {
@@ -531,6 +631,15 @@ void Decoder::decode_block_ac_refine(Component& c, int16_t* blk) {
 }
 
 void Decoder::decode_block(Component& c, int16_t* blk) {
+  if (arithmetic) {
+    if (!progressive)
+      arith_block_sequential(c, blk);
+    else if (ss_ == 0)
+      ah_ == 0 ? arith_block_dc_first(c, blk) : arith_block_dc_refine(blk);
+    else
+      ah_ == 0 ? arith_block_ac_first(c, blk) : arith_block_ac_refine(c, blk);
+    return;
+  }
   if (!progressive) {
     decode_block_sequential(c, blk);
   } else if (ss_ == 0) {
@@ -552,6 +661,7 @@ void Decoder::decode_scan() {
     comp[i].dc_pred = 0;
     comp[i].eob_run = 0;
   }
+  if (arithmetic) arith_reset_scan_stats();  // jdarith.c start_pass
   int restarts_left = restart_interval_;
   auto mcu_boundary = [&]() {
     if (restart_interval_) {
@@ -594,7 +704,13 @@ void Decoder::decode_scan() {
 
 void Decoder::decode_scans() {
   for (;;) {
-    int m = next_marker();
+    int m;
+    try {
+      m = next_marker();
+    } catch (const JpegError&) {
+      if (pos_ < n_) throw;
+      break;  // the data ends between markers: libjpeg's memory source reads an EOI there
+    }
     if (m == 0xDA) {
       read_sos();
       decode_scan();
@@ -606,9 +722,11 @@ void Decoder::decode_scans() {
       read_dqt();
     } else if (m == 0xDD) {
       read_dri();
+    } else if (m == 0xCC) {
+      read_dac();
     } else if (m >= 0xD0 && m <= 0xD7) {
       // stray restart marker
-    } else if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+    } else if (m == 0xC0 || m == 0xC1 || m == 0xC2 || m == 0xC9 || m == 0xCA) {
       throw JpegError("Invalid JPEG file structure: two SOF markers");
     } else {
       skip_segment();
@@ -617,6 +735,251 @@ void Decoder::decode_scans() {
   }
   for (int i = 0; i < ncomp; ++i)
     if (comp[i].coef.empty()) comp[i].coef.assign(static_cast<size_t>(comp[i].blocks_w) * comp[i].blocks_h * 64, 0);
+}
+
+// ------------------------------------------------- arithmetic decoding
+
+void Decoder::read_dac() {  // jdmarker.c get_dac
+  int len = word() - 2;
+  while (len > 0) {
+    int index = byte(), val = byte();
+    len -= 2;
+    if (index >= 2 * kArithTables) throw JpegError("Bogus DAC index " + std::to_string(index));
+    if (index >= kArithTables) {
+      dac_k_[index - kArithTables] = static_cast<uint8_t>(val);
+    } else {
+      dac_l_[index] = static_cast<uint8_t>(val & 0x0F);
+      dac_u_[index] = static_cast<uint8_t>(val >> 4);
+      if (dac_l_[index] > dac_u_[index]) throw JpegError("Bogus DAC value " + hex2(val));
+    }
+  }
+  if (len != 0) throw JpegError("Bogus marker length");
+}
+
+void Decoder::arith_reset_scan_stats() {
+  // the bins of the scan's tables and its DC predictions to zero, the coder
+  // to read two fresh bytes (start_pass / process_restart)
+  for (int i = 0; i < scan_n_; ++i) {
+    Component& c = comp[scan_comp_[i]];
+    if (!progressive || (ss_ == 0 && ah_ == 0)) {
+      std::memset(dc_stats_[c.dc_tbl], 0, kDcStatBins);
+      c.dc_pred = 0;
+      c.dc_context = 0;
+    }
+    if (!progressive || ss_ != 0) std::memset(ac_stats_[c.ac_tbl], 0, kAcStatBins);
+  }
+  ar_c_ = 0;
+  ar_a_ = 0;
+  ar_ct_ = -16;
+  hit_marker_ = false;
+}
+
+int Decoder::arith_byte() {
+  // a byte of the entropy-coded segment: 0xFF 0x00 is 0xFF; a marker (or the
+  // end of the data, where libjpeg's memory source inserts an EOI) gives
+  // zeros from there on and stays unread
+  if (hit_marker_) return 0;
+  if (pos_ >= n_) {
+    hit_marker_ = true;
+    return 0;
+  }
+  int data = d_[pos_++];
+  if (data != 0xFF) return data;
+  long p = pos_;
+  while (p < n_ && d_[p] == 0xFF) ++p;  // extra 0xFF bytes
+  if (p < n_ && d_[p] == 0) {
+    pos_ = p + 1;
+    return 0xFF;
+  }
+  pos_ = p - 1;  // at the marker's last 0xFF
+  hit_marker_ = true;
+  return 0;
+}
+
+int Decoder::arith_decode(uint8_t* st) {
+  // jdarith.c arith_decode: renormalisation and data input (T.81 D.2.6), then
+  // the decision and the probability estimate (D.2.4, D.2.5)
+  while (ar_a_ < 0x8000) {
+    if (--ar_ct_ < 0) {
+      ar_c_ = (ar_c_ << 8) | arith_byte();
+      if ((ar_ct_ += 8) < 0)
+        if (++ar_ct_ == 0) ar_a_ = 0x8000;  // two initial bytes read: A is 0x10000 below
+    }
+    ar_a_ <<= 1;
+  }
+  int sv = *st;
+  int64_t qe = kAritab[sv & 0x7F];
+  const int nl = static_cast<int>(qe & 0xFF);
+  qe >>= 8;
+  const int nm = static_cast<int>(qe & 0xFF);
+  qe >>= 8;
+  int64_t temp = ar_a_ - qe;
+  ar_a_ = temp;
+  temp <<= ar_ct_;
+  if (ar_c_ >= temp) {
+    ar_c_ -= temp;
+    if (ar_a_ < qe) {  // conditional LPS exchange
+      ar_a_ = qe;
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    } else {
+      ar_a_ = qe;
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    }
+  } else if (ar_a_ < 0x8000) {  // conditional MPS exchange
+    if (ar_a_ < qe) {
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+      sv ^= 0x80;
+    } else {
+      *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+    }
+  }
+  return sv >> 7;
+}
+
+int Decoder::arith_dc_diff(Component& c) {
+  // T.81 F.19, F.21-F.24: the DC difference, and the next context (F.1.4.4.1.2);
+  // a magnitude overflow sets ct to -1 and returns 0
+  uint8_t* stats = dc_stats_[c.dc_tbl];
+  uint8_t* st = stats + c.dc_context;
+  if (arith_decode(st) == 0) {
+    c.dc_context = 0;
+    return 0;
+  }
+  const int sign = arith_decode(st + 1);
+  st += 2 + sign;
+  int m = arith_decode(st);
+  if (m != 0) {
+    st = stats + 20;  // X1
+    while (arith_decode(st)) {
+      if ((m <<= 1) == 0x8000) {
+        ar_ct_ = -1;
+        return 0;
+      }
+      st += 1;
+    }
+  }
+  if (m < static_cast<int>((1L << dac_l_[c.dc_tbl]) >> 1))
+    c.dc_context = 0;
+  else if (m > static_cast<int>((1L << dac_u_[c.dc_tbl]) >> 1))
+    c.dc_context = 12 + sign * 4;
+  else
+    c.dc_context = 4 + sign * 4;
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+int Decoder::arith_ac_value(uint8_t* st, int k, int tbl) {
+  // F.21-F.24 for an AC coefficient known to be nonzero (`st` at its bins);
+  // 0 with ct -1 on a magnitude overflow
+  const int sign = arith_decode(fixed_bin_);
+  st += 2;
+  int m = arith_decode(st);
+  if (m != 0 && arith_decode(st)) {
+    m <<= 1;
+    st = ac_stats_[tbl] + (k <= dac_k_[tbl] ? 189 : 217);
+    while (arith_decode(st)) {
+      if ((m <<= 1) == 0x8000) {
+        ar_ct_ = -1;
+        return 0;
+      }
+      st += 1;
+    }
+  }
+  int v = m;
+  st += 14;
+  while (m >>= 1)
+    if (arith_decode(st)) v |= m;
+  v += 1;
+  return sign ? -v : v;
+}
+
+void Decoder::arith_block_sequential(Component& c, int16_t* blk) {
+  if (ar_ct_ == -1) return;
+  const int diff = arith_dc_diff(c);
+  if (ar_ct_ == -1) return;
+  c.dc_pred = (c.dc_pred + diff) & 0xFFFF;
+  blk[0] = static_cast<int16_t>(c.dc_pred);
+  const int tbl = c.ac_tbl;
+  for (int k = 1; k <= 63; ++k) {
+    uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+    if (arith_decode(st)) break;  // EOB
+    while (arith_decode(st + 1) == 0) {
+      st += 3;
+      if (++k > 63) {
+        ar_ct_ = -1;  // spectral overflow
+        return;
+      }
+    }
+    const int v = arith_ac_value(st, k, tbl);
+    if (ar_ct_ == -1) return;
+    blk[kNaturalOrder[k]] = static_cast<int16_t>(v);
+  }
+}
+
+void Decoder::arith_block_dc_first(Component& c, int16_t* blk) {
+  if (ar_ct_ == -1) return;
+  const int diff = arith_dc_diff(c);
+  if (ar_ct_ == -1) return;
+  c.dc_pred += diff;
+  blk[0] = static_cast<int16_t>(static_cast<unsigned>(c.dc_pred) << al_);
+}
+
+void Decoder::arith_block_dc_refine(int16_t* blk) {
+  if (arith_decode(fixed_bin_)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al_));
+}
+
+void Decoder::arith_block_ac_first(Component& c, int16_t* blk) {
+  if (ar_ct_ == -1) return;
+  const int tbl = c.ac_tbl;
+  for (int k = ss_; k <= se_; ++k) {
+    uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+    if (arith_decode(st)) break;  // EOB
+    while (arith_decode(st + 1) == 0) {
+      st += 3;
+      if (++k > se_) {
+        ar_ct_ = -1;
+        return;
+      }
+    }
+    const int v = arith_ac_value(st, k, tbl);
+    if (ar_ct_ == -1) return;
+    blk[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al_);
+  }
+}
+
+void Decoder::arith_block_ac_refine(Component& c, int16_t* blk) {
+  if (ar_ct_ == -1) return;
+  const int tbl = c.ac_tbl;
+  const int p1 = 1 << al_;
+  const int m1 = -1 * (1 << al_);
+  int kex = se_;  // the previous stage's end of block
+  for (; kex > 0; --kex)
+    if (blk[kNaturalOrder[kex]]) break;
+  for (int k = ss_; k <= se_; ++k) {
+    uint8_t* st = ac_stats_[tbl] + 3 * (k - 1);
+    if (k > kex && arith_decode(st)) break;  // EOB
+    for (;;) {
+      int16_t* coef = blk + kNaturalOrder[k];
+      if (*coef) {  // nonzero before: one correction bit
+        if (arith_decode(st + 2)) *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+        break;
+      }
+      if (arith_decode(st + 1)) {  // newly nonzero
+        *coef = static_cast<int16_t>(arith_decode(fixed_bin_) ? m1 : p1);
+        break;
+      }
+      st += 3;
+      if (++k > se_) {
+        ar_ct_ = -1;
+        return;
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------------ IDCT
@@ -1078,6 +1441,30 @@ int dqvq_jpeg_port_decode(const uint8_t* buf, long len, int denom, int space, ui
     dec.decode_scans();
     dec.output(denom, space, out, out_cap, out_h, out_w);
     return 0;
+  } catch (const std::exception& e) {
+    write_msg(msg, msg_cap, e.what());
+    return -1;
+  }
+}
+
+long dqvq_jpeg_port_coefficients(const uint8_t* buf, long len, int* dims, int16_t* out, long cap,
+                                 char* msg, int msg_cap) {
+  try {
+    Decoder dec(buf, len);
+    dec.read_header();
+    dec.decode_scans();
+    long n = 0;
+    for (int i = 0; i < dec.ncomp; ++i) {
+      const Component& c = dec.comp[i];
+      dims[2 * i] = c.height_in_blocks;
+      dims[2 * i + 1] = c.width_in_blocks;
+      for (int by = 0; by < c.height_in_blocks; ++by)
+        for (int bx = 0; bx < c.width_in_blocks; ++bx, n += 64)
+          if (n + 64 <= cap)
+            std::memcpy(out + n, &c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64],
+                        64 * sizeof(int16_t));
+    }
+    return n;
   } catch (const std::exception& e) {
     write_msg(msg, msg_cap, e.what());
     return -1;

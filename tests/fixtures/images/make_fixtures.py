@@ -3,7 +3,9 @@
     JAX_PLATFORMS=cpu python tests/fixtures/images/make_fixtures.py
 
 The files are encoded with PIL from seeded arrays (smooth fields with a
-little texture, so they compress as photographs do). `expected.json` holds,
+little texture, so they compress as photographs do); the two arithmetic-coded
+JPEGs by libjpeg's own encoder, built as `tests/test_torch_image_io.py`
+builds it. `expected.json` holds,
 for each file, the sha256 and per-channel sums (float64) of what the JAX
 package makes of it: the decoded array of `FileListDataset._open` (its
 libjpeg decode with DCT-domain downscale, or PIL) and the outputs of
@@ -13,7 +15,8 @@ with a fresh `numpy.random.default_rng(SEED)`. `tests/test_torch_image_io.py`
 recomputes it (`expected_entries`) and holds the port to it; on the card,
 `chip_smoke.py`'s `data_real` phase holds the port to the file.
 
-Needs PIL and the JAX package (whose native JPEG library must build).
+Needs PIL, the JAX package (whose native JPEG library must build) and libjpeg's
+headers.
 """
 import hashlib
 import json
@@ -77,6 +80,24 @@ def write_fixtures():
     save("rgb.png", rgb(8, 150, 220, noise=1.0), format="PNG")
     save("gray.png", Image.fromarray(seeded_image(9, 300, 200, 1, noise=1.0)[..., 0]),
          format="PNG")
+    # arithmetic coding (PIL cannot ask for it): libjpeg's own encoder, 4:2:0,
+    # sequential (SOF9) and progressive with a restart every 2 MCUs (SOF10)
+    import tempfile
+
+    from tests.test_torch_image_io import RGB, YCC, libjpeg_encoder
+
+    with tempfile.TemporaryDirectory() as tmp:
+        encode = libjpeg_encoder(tmp)
+        if encode is None:
+            raise RuntimeError("libjpeg's encoder does not build here")
+        for name, seed, (h, w), quality, progressive, restart in (
+                ("arith_q85.jpg", 10, (180, 240), 85, 0, 0),
+                ("arith_progressive_rst_q80.jpg", 11, (150, 200), 80, 1, 2)):
+            with open(os.path.join(HERE, name), "wb") as f:
+                f.write(encode(seeded_image(seed, h, w), YCC, RGB, (2, 1, 1), (2, 1, 1), quality,
+                               progressive, restart, arith=1))
+            made[name] = (f"RGB {w}x{h} libjpeg arith_code quality {quality} 4:2:0 progressive "
+                          f"{bool(progressive)} restart_interval {restart}")
     return made
 
 

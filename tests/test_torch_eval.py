@@ -237,7 +237,7 @@ def test_image_folder_reader_equals_the_jax_scripts(tmp_path, monkeypatch):
         tmp_path / "sub_rgba.png")
     theirs = list(_script("compute_fid").iter_source(str(tmp_path), 4, size=48))
     ours = list(compute_fid.iter_source(str(tmp_path), 4, size=48))
-    assert [len(b) for b in ours] == [len(b) for b in theirs] == [4, 4, 3]
+    assert [len(b) for b in ours] == [len(b) for b in theirs] == [4, 4, 4, 1]
     for a, b in zip(ours, theirs):
         np.testing.assert_array_equal(a, b)
     monkeypatch.setitem(sys.modules, "PIL", None)

@@ -315,7 +315,7 @@ def test_expected_json_is_current(expected):
     assert (expected["seed"], expected["sizes"], expected["transforms"]) == \
         (mf.SEED, list(mf.SIZES), list(mf.TRANSFORMS))
     sizes = [os.path.getsize(os.path.join(FIXTURES, n)) for n in mf.fixture_names()]
-    assert len(sizes) == 9 and sum(sizes) < 400_000
+    assert len(sizes) == 11 and sum(sizes) < 400_000
 
 
 def _digest(arr):
@@ -454,7 +454,7 @@ _ENCODER = r"""
 #include <jpeglib.h>
 extern "C" long encode(const uint8_t* px, int h, int w, int comps, int in_space, int space,
                        const int* hs, const int* vs, int quality, int progressive, int restart,
-                       uint8_t* out, long cap) {
+                       uint8_t* out, long cap, int arith, int dac) {
   jpeg_compress_struct c; jpeg_error_mgr e;
   c.err = jpeg_std_error(&e); jpeg_create_compress(&c);
   unsigned char* mem = nullptr; unsigned long size = 0; jpeg_mem_dest(&c, &mem, &size);
@@ -467,6 +467,10 @@ extern "C" long encode(const uint8_t* px, int h, int w, int comps, int in_space,
   jpeg_set_quality(&c, quality, TRUE);
   if (progressive) jpeg_simple_progression(&c);
   c.restart_interval = restart;
+  c.arith_code = arith ? TRUE : FALSE;
+  for (int i = 0; dac && i < NUM_ARITH_TBLS; ++i) {  // conditioning other than the defaults
+    c.arith_dc_L[i] = 1; c.arith_dc_U[i] = 3; c.arith_ac_K[i] = 2;
+  }
   jpeg_start_compress(&c, TRUE);
   while (c.next_scanline < c.image_height) {
     JSAMPROW row = (JSAMPROW)(px + (long)c.next_scanline * w * comps);
@@ -478,28 +482,87 @@ extern "C" long encode(const uint8_t* px, int h, int w, int comps, int in_space,
   free(mem);
   return n;
 }
+extern "C" long coefficients(const uint8_t* buf, long len, int16_t* out, long cap) {
+  jpeg_decompress_struct c; jpeg_error_mgr e;
+  c.err = jpeg_std_error(&e); jpeg_create_decompress(&c);
+  jpeg_mem_src(&c, buf, len); jpeg_read_header(&c, TRUE);
+  jvirt_barray_ptr* arrays = jpeg_read_coefficients(&c);
+  long n = 0;
+  for (int ci = 0; ci < c.num_components; ++ci) {
+    jpeg_component_info* comp = &c.comp_info[ci];
+    for (JDIMENSION by = 0; by < comp->height_in_blocks; ++by) {
+      JBLOCKARRAY row = c.mem->access_virt_barray((j_common_ptr)&c, arrays[ci], by, 1, FALSE);
+      for (JDIMENSION bx = 0; bx < comp->width_in_blocks; ++bx, n += 64)
+        for (int k = 0; n + 64 <= cap && k < 64; ++k) out[n + k] = row[0][bx][k];
+    }
+  }
+  jpeg_finish_decompress(&c); jpeg_destroy_decompress(&c);
+  return n;
+}
 """
 
 
-def test_port_jpeg_decoder_equals_libjpeg_on_other_colour_spaces_and_samplings(tmp_path):
-    """YCCK (Photoshop's CMYK), Adobe RGB, 4:1:1, 4:4:0 and chroma sampled
-    above luma, written by libjpeg's own encoder (built here; skipped where
-    libjpeg's headers are absent)."""
+def libjpeg_encoder(workdir):
+    """`encode(px, space, in_space, hs, vs, quality, progressive, restart,
+    arith=0, dac=0) -> bytes` through libjpeg's own encoder, built in
+    `workdir` from `_ENCODER`; None where libjpeg's headers are absent."""
     import ctypes
     import subprocess
 
-    src, so = tmp_path / "encode.cpp", tmp_path / "libencode.so"
-    src.write_text(_ENCODER)
-    proc = subprocess.run(["g++", "-O1", "-shared", "-fPIC", str(src), "-ljpeg", "-o", str(so)],
+    src, so = os.path.join(workdir, "encode.cpp"), os.path.join(workdir, "libencode.so")
+    with open(src, "w") as f:
+        f.write(_ENCODER)
+    proc = subprocess.run(["g++", "-O1", "-shared", "-fPIC", src, "-ljpeg", "-o", so],
                           capture_output=True, text=True, timeout=120)
     if proc.returncode:
-        pytest.skip(f"libjpeg's encoder does not build here: {proc.stderr[-300:]}")
-    enc = ctypes.CDLL(str(so))
+        return None
+    enc = ctypes.CDLL(so)
     p = ctypes.c_void_p
     enc.encode.restype = ctypes.c_long
     enc.encode.argtypes = (p, *(ctypes.c_int,) * 5, p, p, *(ctypes.c_int,) * 3, p,
-                           ctypes.c_long)
-    gray, rgb, ycc, cmyk, ycck = 1, 2, 3, 4, 5  # J_COLOR_SPACE
+                           ctypes.c_long, ctypes.c_int, ctypes.c_int)
+
+    def encode(px, space, in_space, hs, vs, quality, progressive, restart, arith=0, dac=0):
+        px = np.ascontiguousarray(px)
+        h, w = px.shape[:2]
+        comps = 1 if px.ndim == 2 else px.shape[2]
+        hs_a, vs_a = np.array(hs, np.int32), np.array(vs, np.int32)
+        out = np.empty(4_000_000, np.uint8)
+        n = enc.encode(px.ctypes.data_as(p), h, w, comps, in_space, space,
+                       hs_a.ctypes.data_as(p), vs_a.ctypes.data_as(p), quality, progressive,
+                       restart, out.ctypes.data_as(p), out.nbytes, arith, dac)
+        assert n > 0
+        return out[:n].tobytes()
+
+    enc.coefficients.restype = ctypes.c_long
+    enc.coefficients.argtypes = (ctypes.c_char_p, ctypes.c_long, p, ctypes.c_long)
+
+    def coefficients(data):
+        """libjpeg's quantised coefficients of every component, concatenated."""
+        out = np.empty(4_000_000, np.int16)
+        n = enc.coefficients(data, len(data), out.ctypes.data_as(p), out.size)
+        return out[:n]
+
+    encode.coefficients = coefficients
+    return encode
+
+
+@pytest.fixture(scope="module")
+def encoder(tmp_path_factory):
+    enc = libjpeg_encoder(str(tmp_path_factory.mktemp("libjpeg_encoder")))
+    if enc is None:
+        pytest.skip("libjpeg's encoder does not build here")
+    return enc
+
+
+GRAY, RGB, YCC, CMYK, YCCK = 1, 2, 3, 4, 5  # J_COLOR_SPACE
+
+
+def test_port_jpeg_decoder_equals_libjpeg_on_other_colour_spaces_and_samplings(encoder):
+    """YCCK (Photoshop's CMYK), Adobe RGB, 4:1:1, 4:4:0 and chroma sampled
+    above luma, written by libjpeg's own encoder (built here; skipped where
+    libjpeg's headers are absent)."""
+    gray, rgb, ycc, cmyk, ycck = GRAY, RGB, YCC, CMYK, YCCK
     r = np.random.default_rng(22)
     cases = [(ycck, cmyk, 4, (2, 1, 1, 2), (2, 1, 1, 2)), (ycck, cmyk, 4, (1, 1, 1, 1), (1,) * 4),
              (cmyk, cmyk, 4, (2, 1, 1, 1), (1,) * 4), (rgb, rgb, 3, (1, 1, 1), (1, 1, 1)),
@@ -508,14 +571,76 @@ def test_port_jpeg_decoder_equals_libjpeg_on_other_colour_spaces_and_samplings(t
              (gray, gray, 1, (1,), (1,))]
     for i, (space, in_space, comps, hs, vs) in enumerate(cases * 3):
         h, w = (int(v) for v in r.integers(1, 150, size=2))
-        px = np.ascontiguousarray(_photo(r, h, w, comps))
-        hs_a, vs_a = np.array(hs, np.int32), np.array(vs, np.int32)
-        out = np.empty(4_000_000, np.uint8)
-        n = enc.encode(px.ctypes.data_as(p), h, w, comps, in_space, space,
-                       hs_a.ctypes.data_as(p), vs_a.ctypes.data_as(p), int(r.integers(40, 98)),
-                       i % 2, int(i % 4 == 3) * 2, out.ctypes.data_as(p), out.nbytes)
-        assert n > 0
-        _both_backends(out[:n].tobytes())
+        px = _photo(r, h, w, comps)
+        _both_backends(encoder(px, space, in_space, hs, vs, int(r.integers(40, 98)), i % 2,
+                               int(i % 4 == 3) * 2))
+
+
+# arithmetic coding (SOF9 / SOF10): every layout, sequential and progressive,
+# with and without restart intervals, at every denominator and the full route
+ARITH_LAYOUTS = {"420": (YCC, RGB, 3, (2, 1, 1), (2, 1, 1)),
+                 "444": (YCC, RGB, 3, (1, 1, 1), (1, 1, 1)),
+                 "gray": (GRAY, GRAY, 1, (1,), (1,)),
+                 "cmyk": (CMYK, CMYK, 4, (1, 1, 1, 1), (1, 1, 1, 1)),
+                 "ycck": (YCCK, CMYK, 4, (2, 1, 1, 2), (2, 1, 1, 2))}
+
+
+@pytest.mark.parametrize("layout", sorted(ARITH_LAYOUTS))
+def test_port_jpeg_decoder_equals_libjpeg_on_arithmetic_files(encoder, layout):
+    space, in_space, comps, hs, vs = ARITH_LAYOUTS[layout]
+    r = np.random.default_rng(sorted(ARITH_LAYOUTS).index(layout) + 40)
+    for progressive in (0, 1):
+        for restart in (0, 1, 3):
+            h, w = (int(v) for v in r.integers(1, 130, size=2))
+            data = encoder(_photo(r, h, w, comps), space, in_space, hs, vs,
+                           int(r.integers(40, 98)), progressive, restart, arith=1,
+                           dac=int(restart == 3))
+            assert data[2:].find(b"\xff\xc9" if not progressive else b"\xff\xca") >= 0
+            _both_backends(data)
+
+
+@pytest.mark.parametrize("progressive", [0, 1])
+def test_port_jpeg_decoder_equals_libjpeg_on_a_truncated_arithmetic_file(encoder, progressive):
+    """The rest of a cut scan decodes from zero data, with a warning and no
+    error, as libjpeg's: the quantised coefficients equal
+    `jpeg_read_coefficients`'s at every cut. Pixels are held to libjpeg where
+    its output rests on those coefficients alone: the file cut in its last
+    part. Cut earlier, libjpeg's output differs from the coefficients' IDCT
+    in two ways the port does not follow, for Huffman files as for
+    arithmetic ones: block smoothing of a progressive image whose scans are
+    missing, and the SIMD IDCT's 16-bit products on the out-of-range
+    coefficients that zero data decodes to."""
+    r = np.random.default_rng(47 + progressive)
+    data = encoder(_photo(r, 96, 120, 3), YCC, RGB, (2, 1, 1), (2, 1, 1), 85, progressive, 0,
+                   arith=1)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(native, "_jpeg_backend", ["port"])
+    try:
+        for frac in (0.3, 0.6, 0.95):
+            cut = data[:int(len(data) * frac)]
+            np.testing.assert_array_equal(
+                np.concatenate([c.ravel() for c in native.jpeg_port_coefficients(cut)]),
+                encoder.coefficients(cut))
+    finally:
+        mp.undo()
+    _both_backends(data[:len(data) - 2])
+
+
+def test_lossless_arithmetic_process_is_refused_in_hex(encoder, tmp_path, monkeypatch):
+    """SOF11 (lossless, arithmetic): libjpeg's message, the marker in hex;
+    `read_image` names the file."""
+    data = bytearray(encoder(_photo(np.random.default_rng(48), 16, 16, 3), YCC, RGB, (1, 1, 1),
+                             (1, 1, 1), 85, 0, 0, arith=1))
+    data[data.index(b"\xff\xc9") + 1] = 0xCB
+    message = "Unsupported JPEG process: SOF type 0xcb"
+    for backend in ("libjpeg", "port"):
+        monkeypatch.setattr(native, "_jpeg_backend", [backend])
+        assert native.jpeg_header(bytes(data)) == message
+    path = tmp_path / "lossless.jpg"
+    path.write_bytes(bytes(data))
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(ImageReadError, match=f"{path}.*{message}"):
+        read_image(str(path))
 
 
 def test_fixtures_through_the_port_decoder(expected, monkeypatch):

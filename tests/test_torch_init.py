@@ -1,0 +1,121 @@
+"""The port's seeded DQ-VAE init draws what the JAX package's does.
+
+For the three stage-1 model classes (the dual-grain model with the
+fixed-entropy router, the dual-grain model with the Gumbel-gated feature
+router, the triple-grain model) at tiny widths, the JAX model is
+initialised, its parameters mapped onto the port's names by
+`utils/weights.py` `dqvae_state_dict_from_flax`, and the port's
+`init_weights` held to them per tensor: the same zero biases, standard
+deviations within 10 % (tensors of >= 1,000 entries), and every conv /
+linear kernel inside the +-2 sigma truncation of flax's `lecun_normal`.
+"""
+import math
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dynamicvectorquantization_torch.config.yaml_config import load_config
+from dynamicvectorquantization_torch.models.dqvae import DualGrainVQModel, TripleGrainVQModel
+from dynamicvectorquantization_torch.nn.init import _TRUNC_STD, lecun_normal_
+from dynamicvectorquantization_torch.utils.weights import dqvae_state_dict_from_flax
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = os.path.join(_REPO, "configs/smoke/dqvae-dual-entropy-tiny.yml")
+DUAL_TARGET = "models.stage1_dynamic.dqvae_dual_entropy.DualGrainVQModel"
+TRIPLE_TARGET = "models.stage1_dynamic.dqvae_triple_feat.TripleGrainVQModel"
+STD_REL = 0.10
+MIN_ENTRIES = 1000
+# tensors the JAX package draws with initializers of their own (not flax's defaults)
+_OWN_INIT = ("lff.ffm.conv", "row_embed", "col_embed", "quantize.")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _entropy_config():
+    cfg = dict(load_config([TINY])["model"]["params"])
+    cfg["lossconfig"] = None
+    return cfg
+
+
+def _configs():
+    from tests.test_torch_triple import dual_feat_config, triple_config
+
+    return {
+        "dual_entropy": (DUAL_TARGET, DualGrainVQModel, _entropy_config()),
+        "dual_feat": (DUAL_TARGET, DualGrainVQModel, dual_feat_config()),
+        "triple": (TRIPLE_TARGET, TripleGrainVQModel, triple_config()),
+    }
+
+
+@pytest.fixture(scope="module")
+def inits():
+    import jax
+
+    from dynamicvectorquantization_tpu.utils.instantiate import instantiate_from_config as jinst
+
+    out = {}
+    for name, (target, cls, cfg) in _configs().items():
+        jm = jinst({"target": target, "params": cfg})
+        jvars = jax.jit(jm.init)(jax.random.PRNGKey(0))  # one compile, not op by op
+        ref = {k: v.numpy() for k, v in dqvae_state_dict_from_flax(jax.device_get(jvars)).items()}
+        port = cls(**cfg)
+        port.init_weights(torch.Generator().manual_seed(0))
+        out[name] = (ref, {k: v.numpy() for k, v in port.state_dict().items()})
+    return out
+
+
+def _kernels(sd):
+    return [k for k, v in sd.items() if k.endswith(".weight") and v.ndim in (2, 4)
+            and not any(s in k for s in _OWN_INIT)]
+
+
+@pytest.mark.parametrize("name", ["dual_entropy", "dual_feat", "triple"])
+def test_biases_zero_where_jax_is_zero(inits, name):
+    ref, port = inits[name]
+    zeros = [k for k, v in ref.items() if k.endswith(".bias") and not np.any(v)]
+    assert len(zeros) > 10
+    nonzero = [k for k in zeros if np.any(port[k])]
+    assert not nonzero, nonzero
+
+
+@pytest.mark.parametrize("name", ["dual_entropy", "dual_feat", "triple"])
+def test_std_within_ten_percent_of_jax(inits, name):
+    ref, port = inits[name]
+    checked, off = 0, []
+    for k, v in ref.items():
+        if v.size < MIN_ENTRIES or not np.issubdtype(v.dtype, np.floating) or not v.std():
+            continue
+        checked += 1
+        ratio = port[k].std() / v.std()
+        if abs(ratio - 1.0) > STD_REL:
+            off.append((k, float(ratio)))
+    assert checked > 20
+    assert not off, off
+
+
+@pytest.mark.parametrize("name", ["dual_entropy", "dual_feat", "triple"])
+def test_kernels_inside_the_truncation(inits, name):
+    ref, port = inits[name]
+    keys = _kernels(ref)
+    assert sorted(keys) == sorted(_kernels(port)) and len(keys) > 20
+    if name != "dual_entropy":  # the feature routers' gates are flax Dense layers
+        assert any("router.gate" in k for k in keys)
+    for k in keys:
+        bound = 2.0 / math.sqrt(port[k][0].size) / _TRUNC_STD
+        assert np.abs(port[k]).max() <= bound * (1 + 1e-6), k
+        assert np.abs(ref[k]).max() <= bound * (1 + 1e-6), k
+
+
+def test_lecun_normal_moments():
+    w = torch.empty(512, 144)
+    lecun_normal_(w, torch.Generator().manual_seed(1))
+    assert abs(float(w.std()) * math.sqrt(144) - 1.0) < 0.01
+    assert float(w.abs().max()) <= 2.0 / 12.0 / _TRUNC_STD
