@@ -123,6 +123,23 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                every sampled token inside the class model's code / position
                ranges, every grid equal to the first; then `graph_vs_eager`
                (greedy) on the masters
+     ddp       the distributed path (`parallel/`) on the one card: a
+               process group of one rank over NCCL; the bf16 p6c18 cached-codes
+               step (batch 8, dropout 0, graph replays) one-process, DDP with
+               the collectives captured in the step's graph, ZeRO-1 and FSDP,
+               each after a capture step taking 4 steps whose logs, masters and
+               moments must equal the one-process steps' bit for bit, then 3
+               timed windows of 4 steps and one traced (busy, idle share, NCCL
+               kernels' ms, launches); the stage-1 yml at batch 8 in f32 (cuDNN
+               deterministic) one-process, DDP, ZeRO-1, FSDP: one step whose
+               logs, parameters, buffers, moments and generator must equal bit
+               for bit the one-process step's with the distributed BatchNorm
+               formula (two sums), itself held to the plain step by
+               `BN_FORMULA_TOL`, 2 timed steps; then two gloo ranks sharing the card
+               (`--ddp-rank` subprocesses, f32 p6c18, two steps on their halves
+               of global batches of 8) held to one process over the global
+               batches (`DDP_GLOO_TOL`), or a line saying gloo refused CUDA
+               tensors. No run on two cards: the machine has one
   7. train1    full-width, full-depth DQ-VAE + GAN of the shipped
                `dqvae-entropy-dual-r05_imagenet.yml` (f32, TF32 off, seeded random
                weights, random VGG16 backbone with the bundled LPIPS lin heads),
@@ -182,7 +199,10 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                (final val_loss, a hash of the f32 masters), launch counters (the
                pre-encode in bf16, validation in f32 on the 3xTF32 forward, none
                on the square tiles),
-               seconds per epoch by `loop_buckets.json`
+               seconds per epoch by `loop_buckets.json`; the `checkpoint`
+               bucket a save with the writer thread (the whole run) and
+               with the save on the training thread (the stopped run), and the
+               wait for the last write at the end of the fit
   10. fit1     the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
                8, two epochs of two steps, resume), with `remat`, the trainer's
                default on the card
@@ -190,7 +210,10 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                the JPEG decoder in use (libjpeg where it builds, else the port's
                own), the committed fixtures (`tests/fixtures/images/`) read and
                transformed by the port against `expected.json` (the JAX
-               package's arrays, bit for bit), one image's decode / resize ms,
+               package's arrays, bit for bit), four of them cut at 0.3, 0.6 and
+               0.95 of their length at every denominator against
+               `expected_cut.json` (PIL's libjpeg-turbo), one image's decode /
+               resize ms,
                `PrefetchLoader` images/s at 1 and 8 workers over an
                ImageNet tree of 512 JPEG files and an FFHQ tree of 64 PNGs of
                1024^2; the shipped stage-1 yml trained from the JPEG tree by the
@@ -3301,6 +3324,26 @@ def _sha256(torch, tensors):
     return h.hexdigest()
 
 
+def synchronous_save_s(torch, ckpt_dir):
+    """Seconds of one save as the loop made it before saves left the training
+    thread: the newest checkpoint under `ckpt_dir`, loaded onto the card, by
+    `torch.save` to a temporary name and a rename (the state's assembly, which
+    the loop's `checkpoint` bucket also holds, not counted)."""
+    name = max((n for n in os.listdir(ckpt_dir) if n.endswith(".pt")),
+               key=lambda n: int(n[len("step_"):-len(".pt")]))
+    state = torch.load(os.path.join(ckpt_dir, name), map_location="cuda", weights_only=True)
+    torch.cuda.synchronize()
+    final = os.path.join(ckpt_dir, "synchronous.pt")
+    t0 = time.perf_counter()
+    torch.save(state, final + ".tmp")
+    os.replace(final + ".tmp", final)
+    secs = time.perf_counter() - t0
+    os.remove(final)
+    del state
+    torch.cuda.empty_cache()
+    return secs
+
+
 def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, state_of, val_key,
                     expect_launched, gb_needed, grids, expect_not_launched=(), k=1):
     """Three runs of the port's training command line on `config` at full
@@ -3348,11 +3391,13 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
         shutil.rmtree(ckpt_dir)  # room for the second pair of runs
         torch.cuda.empty_cache()
 
-        first = cli.main([*base, "--name", "parts", "--stop_epoch", "1", "--image_log_every", "0"])
+        first = cli.main([*base, "--name", "parts", "--stop_epoch", "1",
+                          "--image_log_every", "0"])
         first_steps = [first.epoch, getattr(first, "count", getattr(first, "step", None))]
         del first
         torch.cuda.empty_cache()
         parts_dir = _only_dir(root, "parts-")
+        sync_save_s = synchronous_save_s(torch, os.path.join(parts_dir, "checkpoints"))
         t0 = time.perf_counter()
         resumed = cli.main(["--resume", parts_dir, *common, "--image_log_every", "0"])
         torch.cuda.synchronize()
@@ -3385,7 +3430,12 @@ def fit_through_cli(torch, card, phase, config, overrides, steps_per_epoch, stat
                loop_wall_s=spread([buckets["wall_seconds"]]),
                device_wait_s=spread([buckets["device_wait_seconds"]]),
                encode_share=buckets["buckets"].get("encode", 0.0) / buckets["wall_seconds"],
+               # saves off the training thread (two in the whole run; the first pays the
+               # pinned buffers' allocation), the wait for the last write at the fit's end,
+               # and one save of the stopped run's state on the training thread (before 10.1)
                checkpoint_s_per_save=spread([buckets["buckets"]["checkpoint"] / 2]),
+               checkpoint_wait_s=spread([buckets["buckets"].get("checkpoint_wait", 0.0)]),
+               checkpoint_s_synchronous_save=spread([sync_save_s]),
                peak_memory_gb=peak_gb, stopped_after_epoch_1_at=first_steps,
                resume_run_s=spread([resume_s]),
                final_val_whole=val_rows[-1][val_key],
@@ -3954,6 +4004,39 @@ def check_fixtures():
                 largest_channel_sum_diff=worst, tolerance="equal sha256 (bit for bit)")
 
 
+def check_cut_fixtures():
+    """F13: four committed JPEGs (baseline and progressive, Huffman and
+    arithmetic) cut short at 0.3, 0.6 and 0.95 of their length
+    (`make_fixtures.py` `CUT_FILES`, `CUT_FRACTIONS`), decoded at every
+    DCT-domain denominator, against `expected_cut.json` (the libjpeg-turbo
+    PIL bundles, through a memory source): equal digests, or refused by both."""
+    import importlib.util
+
+    from dynamicvectorquantization_torch import native
+
+    spec = importlib.util.spec_from_file_location("make_fixtures",
+                                                  os.path.join(FIXTURES, "make_fixtures.py"))
+    mf = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mf)
+    with open(os.path.join(FIXTURES, "expected_cut.json")) as f:
+        doc = json.load(f)
+
+    def decode(data, d):
+        header = native.jpeg_header(data)
+        if isinstance(header, str):
+            return None
+        h, w, _ = header
+        return native._decode(data, d, 0, 3, (-(-h // d), -(-w // d)))[0]
+
+    got = mf.expected_cut_entries(decode)
+    entries = [(k, d, v) for k, e in doc["files"].items() for d, v in e.items()]
+    return dict(files=len(mf.CUT_FILES), fractions=doc["fractions"], checked=len(entries),
+                refused=sum(v == "refused" for _, _, v in entries),
+                mismatched=[f"{k} 1/{d}" for k, d, v in entries if got[k][d] != v],
+                reference=f"libjpeg-turbo {doc['libjpeg_turbo']} (PIL's), memory source",
+                decoder=native.decoder_name())
+
+
 def image_trees(root, n_train=512, n_val=64, n_ffhq=64, ffhq_side=1024):
     """An ImageNet-layout tree of fixture copies (train: 4 synsets, `n_train`
     files, the five RGB / grey JPEGs round robin with one CMYK JPEG and one
@@ -4109,6 +4192,11 @@ def _data_real(torch, dev, card, t_phase, build):
         arith = sorted(n for n in json.load(f)["files"] if n.startswith("arith"))
     require(len(arith) == 2, f"data_real: arithmetic fixtures {arith}")
     fixtures["arithmetic_files"] = arith
+    t0 = time.perf_counter()
+    fixtures["cut"] = check_cut_fixtures()
+    fixtures["cut"]["seconds"] = time.perf_counter() - t0
+    require(not fixtures["cut"]["mismatched"],
+            f"data_real: cut JPEGs differ from expected_cut.json: {fixtures['cut']}")
 
     res = dict(phase="data_real", build=build, fixtures=fixtures, card=card)
     with tempfile.TemporaryDirectory(prefix="dqvq_data_real_") as root:
@@ -4403,9 +4491,357 @@ def campaign(torch, card):
     return dict(res, launches=total)
 
 
+# the distributed path at world size 1 against the one-process path, both stages bit for bit:
+# a sum over one rank is its value, a bf16 gradient's f32 copy is exact, a slice of a leaf
+# updates as the leaf, and stage 1's BatchNorm takes one formula (two sums) either way
+DDP_VARIANTS = (("plain", False, None), ("ddp", True, None), ("zero1", True, "zero1"),
+                ("fsdp", True, "fsdp"))
+# two gloo ranks sharing the card against one process over the global batch, f32, TF32 off:
+# losses relative; parameters after two Adam steps in units of lr (a gradient entry whose sign
+# the summation order flips moves its parameter by up to 2 lr a step), and on the mean
+DDP_GLOO_TOL = {"loss_rel": 1e-5, "param_max_lr": 4.04, "param_mean_lr": 1e-3}
+DDP_RANK = "--ddp-rank"
+
+
+def _p6c18_for_ddp(torch, dev):
+    """p6c18 at full width and depth with the training caps, seeded, dropout 0."""
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    config = load_config([P6C18])
+    config["model"]["params"]["permuter_config"]["params"].update(TRAIN_CAPS)
+    with torch.device(dev):
+        model = instantiate_from_config(config["model"])
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    set_dropout(model.transformer, 0.0, 0.0, 0.0)
+    return model.eval(), config["model"]["learning_rate"]
+
+
+def ddp_stage2(torch, dev, world, streams, batch=8, steps=4, windows=3):
+    """The bf16 cached-codes p6c18 step (graph replays) on the one-process
+    path and through the distributed path at world size 1 (DDP with the
+    collectives captured in the step's graph, ZeRO-1, FSDP): after a capture step, `steps` steps
+    (launches counted), their logs and the whole state (masters, moments)
+    compared with the one-process path's bit for bit; then `windows` timed
+    windows of `steps` steps and one traced window (busy, idle share, NCCL
+    kernels' time)."""
+    from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
+
+    model, lr = _p6c18_for_ddp(torch, dev)
+    start = {k: v.detach().clone() for k, v in model.transformer.state_dict().items()}
+    n = streams["coarse_content"].shape[0]
+    batches = [{k: v[i:i + batch] for k, v in streams.items()} for i in range(0, n, batch)]
+    out, ref = {}, None
+    for name, distributed, shard in DDP_VARIANTS:
+        model.transformer.float()
+        model.transformer.load_state_dict(start)
+        trainer = Stage2Trainer(model, lr, warmup_steps=0, max_steps=10_000,
+                                compute_dtype="bfloat16", device=dev,
+                                world=world if distributed else None, shard=shard)
+
+        def window(first):
+            return [trainer.train_step(batches[(first + i) % len(batches)]) for i in range(steps)]
+
+        trainer.train_step(batches[0])  # warm-up and capture
+        torch.cuda.synchronize()
+        reset_launches()
+        logs = window(1)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        state = trainer.state_dict()
+        got = dict(logs=[{k: float(v) for k, v in step.items()} for step in logs],
+                   state={part: {k: v.clone() for k, v in state[part].items()}
+                          for part in ("masters", "m", "v")})
+        del state
+        times = []
+        for _ in range(windows):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            window(1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / steps)
+        prof = profile_device_time(torch, lambda: window(1), n_top=6,
+                                   groups={"nccl": "nccl", "fused_adamw": "adamw"})
+        line = dict(step_ms=spread(times), launches_per_step={
+                        k: v // steps for k, v in launches.items()},
+                    device_busy_ms_per_step=(prof["device_busy_ms"] or 0.0) / steps,
+                    device_idle_share=prof["device_idle_share"],
+                    collective_ms_per_step=prof["groups"]["nccl"] / steps,
+                    adamw_ms_per_step=prof["groups"]["fused_adamw"] / steps,
+                    top=prof["top"], sharded_leaves=(len(trainer.buckets.sharded)
+                                                     if trainer.buckets else 0))
+        require(launches["fused_attention_forward_tc"] == 24 * steps
+                and launches["fused_attention_backward_tc"] == 24 * steps
+                and launches["fused_adamw"] == len(trainer.params) * steps,
+                f"ddp {name}: launches {launches}")
+        if ref is None:
+            ref = got
+            line["held_to"] = "itself"
+        else:
+            differ = [k for part in ("masters", "m", "v") for k in ref["state"][part]
+                      if not torch.equal(got["state"][part][k], ref["state"][part][k])]
+            line.update(bit_equal_to_plain=not differ and got["logs"] == ref["logs"],
+                        differ=differ[:5], logs_equal=got["logs"] == ref["logs"],
+                        max_param_diff=max(float((got["state"]["masters"][k]
+                                                  - ref["state"]["masters"][k]).abs().max())
+                                           for k in ref["state"]["masters"]))
+            require(line["bit_equal_to_plain"],
+                    f"ddp {name}: the world-1 step differs from the one-process step: {line}")
+            del got
+        out[name] = line
+        runner_free(trainer)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def runner_free(trainer):
+    """Drop a trainer's captured graphs (and their pool) before the next one."""
+    from dynamicvectorquantization_torch.models.graphs import runners_of
+
+    for runner in list(runners_of(trainer).values()):
+        runner.graphs.clear()
+
+
+@contextlib.contextmanager
+def _two_sum_batch_norm():
+    """Inside: the one-process BatchNorm takes the distributed path's formula
+    (`BatchNorm2d._global_batch`: two sums, which outside a `global_stats`
+    scope run over this process's rows) in place of `F.batch_norm`'s."""
+    import types
+
+    from dynamicvectorquantization_torch.nn.discriminator import BatchNorm2d
+
+    one_rank, batch_norm = types.SimpleNamespace(size=1), BatchNorm2d.forward
+
+    def forward(self, x, train=False):
+        return self._global_batch(x, one_rank) if train else batch_norm(self, x, train)
+
+    BatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm2d.forward = batch_norm
+
+
+# stage 1's one-process step (cuDNN's BatchNorm) against the same step with the distributed
+# path's two-sum BatchNorm: the formulas' f32 rounding alone, held on the losses and on the
+# statistics the step updates (relative to each buffer's largest entry); the parameters and
+# moments are reported (one Adam step moves an entry by up to 2 lr wherever rounding flips the
+# sign of a near-zero gradient), the formula itself held in f64 by
+# tests/test_torch_distributed.py::test_global_batchnorm_equals_batch_norm
+BN_FORMULA_TOL = {"logs": 1e-5, "codebook": 1e-5, "batchnorm": 1e-5}
+# (name, distributed, shard, two-sum BatchNorm in one process)
+STAGE1_VARIANTS = (("plain", False, None, False), ("plain_two_sums", False, None, True),
+                   ("ddp", True, None, False), ("zero1", True, "zero1", False),
+                   ("fsdp", True, "fsdp", False))
+
+
+def ddp_stage1(torch, dev, world, batch=8, timed_steps=2):
+    """The shipped stage-1 yml, f32, batch 8, `remat` off: one step from one
+    state (cuDNN's deterministic algorithms) on the one-process path, on the
+    one-process path with the distributed path's BatchNorm formula, and
+    through the distributed path at world size 1 (DDP, ZeRO-1, FSDP). Each
+    distributed step must equal the one-process step with the same formula
+    bit for bit, and that step the plain one within `BN_FORMULA_TOL`; then
+    timed steps (not of the formula's control)."""
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+    from dynamicvectorquantization_torch.train.stage1 import Stage1Trainer
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    config = load_config([STAGE1])["model"]
+    lr = config["base_learning_rate"] * batch
+    with torch.device(dev):
+        model = instantiate_from_config(config)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = smooth_and_noisy_images(torch, dev, g, b=batch, size=model.encoder.resolution)
+    start = None
+    out, got_of = {}, {}
+    for name, distributed, shard, two_sums in STAGE1_VARIANTS:
+        trainer = Stage1Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev,
+                                remat=False, world=world if distributed else None, shard=shard)
+        if start is None:
+            trainer.init_state(torch.Generator(device=dev).manual_seed(0))
+            start = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(start)
+            trainer.init_state()
+        reset_launches()
+        # cuDNN's deterministic algorithms: a convolution's backward sums in one order each time
+        saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            with _two_sum_batch_norm() if two_sums else contextlib.nullcontext():
+                logs = trainer.train_step(x, torch.Generator(device=dev).manual_seed(13))
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        launches = read_launches()
+        state = trainer.state_dict()
+        got_of[name] = ({k: v.clone() for k, v in logs.items()},
+                        {"model": {k: v.clone() for k, v in state["model"].items()},
+                         **{o: {p: {k: v.clone() for k, v in state[o][p].items()}
+                                for p in ("m", "v")} for o in ("ae_opt", "disc_opt")}},
+                        trainer.generator.get_state())
+        del state
+        require(launches["vq_nearest_train"] == 2 and launches["strided_conv3x3_down"] == 8,
+                f"ddp stage 1 {name}: launches {launches}")
+        line = dict(launches_per_step=launches)
+        if two_sums:  # the formulas' rounding: held on logs and statistics, the rest reported
+            _, groups, _ = remat_differences(torch, got_of[name], got_of["plain"], lr)
+            line.update(held_to="plain", differences=groups, tol=BN_FORMULA_TOL)
+            require(all(groups[k] <= BN_FORMULA_TOL[k] for k in BN_FORMULA_TOL),
+                    f"ddp stage 1: the two BatchNorm formulas differ beyond {BN_FORMULA_TOL}: "
+                    f"{groups}")
+        elif distributed:
+            bit_equal, groups, _ = remat_differences(torch, got_of[name],
+                                                     got_of["plain_two_sums"], lr)
+            line.update(held_to="plain_two_sums", bit_equal=bit_equal, differences=groups)
+            require(bit_equal, f"ddp stage 1 {name}: the world-1 step differs from the "
+                               f"one-process step with the same BatchNorm formula: {groups}")
+        if not two_sums:
+            times = []
+            trainer.train_step(x)  # warm-up: cuDNN's own algorithms again
+            for _ in range(timed_steps):
+                t0 = time.perf_counter()
+                trainer.train_step(x)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            line.update(step_ms=spread(times))
+        if name in ("plain", "ddp"):  # one traced step each: busy, idle share, collectives
+            prof = profile_device_time(torch, lambda: trainer.train_step(x), n_top=4,
+                                       groups={"nccl": "nccl"})
+            line.update(device_busy_ms=prof["device_busy_ms"],
+                        device_idle_share=prof["device_idle_share"],
+                        collective_ms=prof["groups"]["nccl"])
+        out[name] = line
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, got_of
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_rank(argv):
+    """`chip_smoke.py --ddp-rank <rank> <size> <init> <streams file> <out file>`:
+    one gloo rank on the card (two share it): p6c18 f32 (TF32 off, dropout 0)
+    takes two cached-codes steps on its rows of each global batch; rank 0
+    saves the logs and masters."""
+    import torch
+
+    from dynamicvectorquantization_torch.parallel import dist as pdist
+    from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
+
+    rank, size, init, streams_file, out_file = int(argv[0]), int(argv[1]), *argv[2:5]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = pdist.init_world("cuda", rank, size, init, backend="gloo")
+    try:
+        model, lr = _p6c18_for_ddp(torch, world.device)
+        trainer = Stage2Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=world.device,
+                                world=world)
+        batches = torch.load(streams_file, weights_only=False)
+        t0 = time.perf_counter()
+        logs = [{k: float(v) for k, v in trainer.train_step(
+            {k: v[world.rows(len(v))] for k, v in b.items()}).items()} for b in batches]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if world.is_main:
+            torch.save({"logs": logs, "masters": {k: v.cpu() for k, v in trainer.masters.items()},
+                        "seconds": secs}, out_file)
+    finally:
+        pdist.shutdown()
+    return 0
+
+
+def ddp_two_processes(torch, dev, streams, batch=8):
+    """(b): two gloo ranks sharing the card (`--ddp-rank` subprocesses) take
+    two f32 cached-codes steps at dropout 0; held to one process's steps over
+    the same global batches (`DDP_GLOO_TOL`)."""
+    from dynamicvectorquantization_torch.parallel import dist as pdist
+    from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
+
+    root = os.path.abspath(os.path.join("build", "ddp"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    batches = [{k: v[i:i + batch] for k, v in streams.items()} for i in (0, batch)]
+    streams_file, out_file = os.path.join(root, "streams.pt"), os.path.join(root, "rank0.pt")
+    torch.save(batches, streams_file)
+    init = f"tcp://127.0.0.1:{pdist.free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), DDP_RANK, str(r), "2",
+                               init, streams_file, out_file],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        model, lr = _p6c18_for_ddp(torch, dev)
+        one = Stage2Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev)
+        one_logs = [{k: float(v) for k, v in one.train_step(b).items()} for b in batches]
+        one_masters = {k: v.clone() for k, v in one.masters.items()}
+        del one, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    ranks_s = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    tail = [o[-2000:] for o in outs]
+    if codes != [0, 0]:
+        text = " ".join(tail)
+        if "gloo" in text.lower() and ("cuda" in text.lower() or "device" in text.lower()):
+            # gloo refused CUDA tensors: a line says so, and the phase goes on
+            res = dict(gloo_takes_cuda_tensors=False, exit_codes=codes, output_tail=tail)
+            shutil.rmtree(root, ignore_errors=True)
+            return res
+        require(False, f"ddp: the two gloo ranks failed: {codes} {tail}")
+    got = torch.load(out_file, weights_only=False)
+    shutil.rmtree(root, ignore_errors=True)
+    loss_rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got["logs"], one_logs) for k in b)
+    diffs = [(got["masters"][k].to(dev) - v).abs() for k, v in one_masters.items()]
+    n_params = sum(d.numel() for d in diffs)
+    param_max_lr = max(float(d.max()) for d in diffs) / lr
+    param_mean_lr = sum(float(d.sum()) for d in diffs) / n_params / lr
+    res = dict(gloo_takes_cuda_tensors=True, ranks=2, devices=1, global_batch=batch,
+               steps=len(batches), loss_max_rel_diff=loss_rel, param_max_diff_lr=param_max_lr,
+               param_mean_diff_lr=param_mean_lr, tol=DDP_GLOO_TOL, logs=got["logs"],
+               one_process_logs=one_logs, rank0_steps_s=got["seconds"], ranks_wall_s=ranks_s)
+    require(loss_rel <= DDP_GLOO_TOL["loss_rel"] and param_max_lr <= DDP_GLOO_TOL["param_max_lr"]
+            and param_mean_lr <= DDP_GLOO_TOL["param_mean_lr"],
+            f"ddp: two gloo ranks differ from one process beyond {DDP_GLOO_TOL}: {res}")
+    return res
+
+
+def ddp(torch, dev, card, streams):
+    """World size 1 over NCCL (stage 2 and stage 1, each variant held to
+    the one-process path), then two gloo ranks sharing the card."""
+    from dynamicvectorquantization_torch.parallel import dist as pdist
+
+    t_phase = time.perf_counter()
+    world = pdist.init_world("cuda", 0, 1, f"tcp://127.0.0.1:{pdist.free_port()}")
+    try:
+        s2 = ddp_stage2(torch, dev, world, streams)
+        s1 = ddp_stage1(torch, dev, world)
+    finally:
+        pdist.shutdown()
+    two = ddp_two_processes(torch, dev, streams)
+    line = dict(phase="ddp", world_size=1, backend="nccl", stage2_bf16_batch8=s2,
+                stage1_f32_batch8=s1, two_gloo_ranks_one_card=two,
+                two_card_run="none: the machine has one card",
+                seconds=spread([time.perf_counter() - t_phase]), card=card)
+    emit(line)
+    return line
+
+
 def main():
     if sys.argv[1:2] == ["--launches-of"]:
         return run_counting(sys.argv[2:])
+    if sys.argv[1:2] == [DDP_RANK]:
+        return ddp_rank(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -4480,6 +4916,8 @@ def main():
     torch.cuda.empty_cache()
     trained, streams = train(torch, dev, card)[:2]
     per_step = trained["launches_per_step"]
+    torch.cuda.empty_cache()
+    ddp_line = ddp(torch, dev, card, streams)
     torch.cuda.empty_cache()
     # the JAX trainer's default compute dtype: f32 throughout, on the same cached codes
     per_step_f32 = train(torch, dev, card, compute_dtype=None,
@@ -4591,6 +5029,9 @@ def main():
              "eval": {name: sum(run["launches"].get(name, 0)
                                 for run in evaluated["runs"].values()) for name in per_step},
              "fit": fitted, "fit1": fitted1,
+             # the distributed path at world size 1: the p6c18 bf16 step (DDP), stage 1 (DDP)
+             "ddp_train_step": ddp_line["stage2_bf16_batch8"]["ddp"]["launches_per_step"],
+             "ddp_train1_step": ddp_line["stage1_f32_batch8"]["ddp"]["launches_per_step"],
              # the stage-1 command line from JPEG files (4 steps, validation), then the tools
              "data_real": {name: real["stage1_files"]["launches"][name]
                            + (real["tools"]["entropy_thresholds"]["patch_entropy_launches"]

@@ -4,7 +4,11 @@
 `PrefetchLoader`: a thread pool decodes / augments ahead of the card, in the
 JAX package's index order and with its per-example generators
 (`default_rng((seed, epoch, batch index, example index))`), so both packages
-see the same batches. `device_prefetch` moves batches to the device ahead of
+see the same batches. Over several ranks `epoch(epoch, part=(rank, size))`
+keeps the global order and yields each global batch's rows of that rank
+only (contiguous, rank 0 first), each decoded with the generator it has in
+the global batch, so a rank reads and decodes its own share and no more.
+`device_prefetch` moves batches to the device ahead of
 their use: pinned host memory and non-blocking copies on a CUDA device, so
 the copy of batch N + 1 overlaps step N.
 """
@@ -52,10 +56,20 @@ class PrefetchLoader:
             np.random.default_rng(self.seed + epoch).shuffle(idx)
         return idx
 
-    def epoch(self, epoch=0):
+    def epoch(self, epoch=0, part=None):
+        """The batches of `epoch`; with `part` = (rank, size) that rank's
+        rows of each global batch (a batch `size` does not divide raises)."""
         order = self._index_order(epoch)
         last = len(order) - (self.batch_size - 1 if self.drop_last else 0)
         batches = [order[i:i + self.batch_size] for i in range(0, last, self.batch_size)]
+        if part is not None:
+            rank, size = part
+            for b in batches:
+                if len(b) % size:
+                    raise ValueError(f"a global batch of {len(b)} rows does not divide over "
+                                     f"{size} ranks")
+            batches = [b[rank * (len(b) // size):(rank + 1) * (len(b) // size)]
+                       for b in batches]
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

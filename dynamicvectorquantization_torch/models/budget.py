@@ -14,8 +14,14 @@ The triple-grain loss penalises two ratios separately: the median one (4
 codes a median cell, 1 otherwise, over the median grid's budget) and the
 fine one (16 codes a fine cell, 1 otherwise, over the fine grid's), the
 latter weighted by `gamma`.
+
+The expected code count is a mean over the batch: inside a
+`parallel.dist.global_stats` scope over the global batch (every rank's
+rows), as the JAX loss sees the global batch.
 """
 from __future__ import annotations
+
+from ..parallel.dist import global_mean
 
 
 class BudgetConstraintRatioMSEDualGrain:
@@ -31,7 +37,8 @@ class BudgetConstraintRatioMSEDualGrain:
     def __call__(self, gate):
         """gate: (B, Hc, Wc, 2) NHWC, grain 0 coarse (1 code), 1 fine (4 codes)."""
         gate = gate.float()
-        beta = (1.0 * gate[..., 0] + 4.0 * gate[..., 1]).sum() / gate.shape[0] - self.const
+        beta = global_mean((1.0 * gate[..., 0] + 4.0 * gate[..., 1]).sum() / gate.shape[0]) \
+            - self.const
         budget_ratio = beta / self.max_const
         loss_budget = self.gamma * (budget_ratio - self.target_ratio) ** 2
         if self.calculate_all:
@@ -58,8 +65,10 @@ class BudgetConstraintNormedSeparateRatioMSETripleGrain:
         """gate: (B, Hc, Wc, 3) NHWC, grain 0 coarse, 1 median, 2 fine."""
         gate = gate.float()
         g0, g1, g2 = gate[..., 0], gate[..., 1], gate[..., 2]
-        beta_median = (1.0 * g0 + 4.0 * g1 + 1.0 * g2).sum() / gate.shape[0] - self.min_const
+        beta_median = global_mean((1.0 * g0 + 4.0 * g1 + 1.0 * g2).sum() / gate.shape[0]) \
+            - self.min_const
         loss_median = (beta_median / self.median_const - self.target_median_ratio) ** 2
-        beta_fine = (1.0 * g0 + 16.0 * g2 + 1.0 * g1).sum() / gate.shape[0] - self.min_const
+        beta_fine = global_mean((1.0 * g0 + 16.0 * g2 + 1.0 * g1).sum() / gate.shape[0]) \
+            - self.min_const
         loss_fine = self.gamma * (beta_fine / self.max_const - self.target_fine_ratio) ** 2
         return loss_fine + loss_median

@@ -79,6 +79,11 @@ struct Component {
   int dc_pred = 0;
   int eob_run = 0;
   int dc_context = 0;  // arithmetic coding: the DC statistics' conditioning offset
+  // progression status by zigzag index (jdphuff.c / jdarith.c start_pass): the Al of the
+  // last scan that read the coefficient (-1: none yet), and its value before the last scan
+  // of this component that covered it
+  int coef_bits[64];
+  int prev_bits[64];
 };
 
 constexpr int kArithTables = 16;
@@ -160,8 +165,11 @@ class Decoder {
  private:
   // ------------------------------------------------------------- markers
   int byte() {
-    if (pos_ >= n_) throw JpegError("Premature end of JPEG file");
-    return d_[pos_++];
+    if (pos_ < n_) return d_[pos_++];
+    // past the end of the data after the header: a fake EOI marker, again and
+    // again, as libjpeg's memory source supplies (a cut marker segment reads it)
+    if (!fake_eoi_) throw JpegError("Premature end of JPEG file");
+    return (fake_phase_++ & 1) ? 0xD9 : 0xFF;
   }
   int word() {
     int a = byte();
@@ -180,7 +188,10 @@ class Decoder {
     int len = word();
     if (len < 2) throw JpegError("Bogus marker length");
     pos_ += len - 2;
-    if (pos_ > n_) throw JpegError("Premature end of JPEG file");
+    if (pos_ > n_) {
+      if (!fake_eoi_) throw JpegError("Premature end of JPEG file");
+      pos_ = n_;
+    }
   }
   void read_app(int marker);
   void read_dqt();
@@ -197,29 +208,36 @@ class Decoder {
   void reset_bits() {
     bitbuf_ = 0;
     bits_ = 0;
+    fake_bits_ = 0;
     hit_marker_ = false;
   }
   void fill(int need) {
     while (bits_ < need) {
       int c = 0;
+      bool fake = true;
       if (!hit_marker_ && pos_ < n_) {
         c = d_[pos_];
         if (c == 0xFF) {
           int c2 = pos_ + 1 < n_ ? d_[pos_ + 1] : 0xD9;
           if (c2 == 0) {
             pos_ += 2;
+            fake = false;
           } else {  // a marker: feed zeros from here on, as libjpeg does
             hit_marker_ = true;
             c = 0;
           }
         } else {
           ++pos_;
+          fake = false;
         }
       }
       bitbuf_ = (bitbuf_ << 8) | static_cast<uint32_t>(c);
       bits_ += 8;
+      if (fake) fake_bits_ += 8;
     }
   }
+  // whether decoding has read past the real data (the zeros are the newest bits)
+  bool past_data() const { return bits_ < fake_bits_; }
   int get_bits(int n) {
     if (n == 0) return 0;
     fill(n);
@@ -250,6 +268,8 @@ class Decoder {
   }
   static int extend(int r, int s) { return r < (1 << (s - 1)) ? r - (1 << s) + 1 : r; }
   void restart();
+  bool smoothing_ok(int (*cur)[10], int (*prev)[10]) const;
+  void smooth_row(const Component& c, int by, const int* bits, int16_t* blocks) const;
 
   // ------------------------------------------ arithmetic decoder (jdarith.c)
   int arith_byte();
@@ -275,6 +295,8 @@ class Decoder {
   const uint8_t* d_;
   long n_;
   long pos_ = 0;
+  bool fake_eoi_ = false;
+  int fake_phase_ = 0;
   uint32_t bitbuf_ = 0;
   int bits_ = 0;
   bool hit_marker_ = false;
@@ -292,6 +314,15 @@ class Decoder {
   uint8_t fixed_bin_[4] = {113, 0, 0, 0};
   int64_t ar_c_ = 0, ar_a_ = 0;
   int ar_ct_ = -16;
+  // Huffman data that ran out inside a scan: the rest of the segment is left
+  // as it is (jdhuff.c / jdphuff.c insufficient_data); zero bits fed past a
+  // marker or the end of the data, and whether decoding consumed one
+  int fake_bits_ = 0;
+  bool insufficient_ = false;
+  // scans read, and the last iMCU row that the latest scan started with data
+  // left (libjpeg-turbo's master->last_good_iMCU_row)
+  int scans_ = 0;
+  int last_good_imcu_ = 0;
   // the current scan
   int scan_n_ = 0;
   int scan_comp_[kMaxComponents];
@@ -314,10 +345,12 @@ void Decoder::read_app(int marker) {
   pos_ = end;
 }
 
+// The segment readers count the bytes left by the segment's length, as
+// jdmarker.c does, so a segment cut by the end of the data reads the fake EOI
+// bytes in place of the rest.
 void Decoder::read_dqt() {
-  const int len = word();
-  const long end = pos_ + len - 2;
-  while (pos_ < end) {
+  long left = word() - 2;
+  while (left > 0) {
     int pq = byte();
     int prec = pq >> 4, tq = pq & 15;
     if (tq > 3) throw JpegError("Bogus DQT index");
@@ -325,15 +358,15 @@ void Decoder::read_dqt() {
       int v = prec ? word() : byte();
       qt_[tq][kNaturalOrder[i]] = static_cast<uint16_t>(v);
     }
+    left -= prec ? 129 : 65;
     qt_defined_[tq] = true;
   }
-  if (pos_ != end) throw JpegError("Bogus DQT length");
+  if (left != 0) throw JpegError("Bogus DQT length");
 }
 
 void Decoder::read_dht() {
-  const int len = word();
-  const long end = pos_ + len - 2;
-  while (pos_ < end) {
+  long left = word() - 2;
+  while (left > 16) {
     int tc_th = byte();
     int tc = tc_th >> 4, th = tc_th & 15;
     if (th > 3 || tc > 1) throw JpegError("Bogus DHT index");
@@ -344,10 +377,12 @@ void Decoder::read_dht() {
       bits[i] = static_cast<uint8_t>(byte());
       count += bits[i];
     }
-    if (count > 256) throw JpegError("Bogus Huffman table definition");
+    left -= 17;
+    if (count > 256 || count > left) throw JpegError("Bogus Huffman table definition");
     Huffman& t = tc ? ac_[th] : dc_[th];
     std::memset(t.huffval, 0, sizeof(t.huffval));
     for (int i = 0; i < count; ++i) t.huffval[i] = static_cast<uint8_t>(byte());
+    left -= count;
     // canonical codes (jdhuff.c jpeg_make_d_derived_tbl)
     int huffsize[257], huffcode[257];
     int p = 0;
@@ -385,7 +420,7 @@ void Decoder::read_dht() {
     }
     t.defined = true;
   }
-  if (pos_ != end) throw JpegError("Bogus DHT length");
+  if (left != 0) throw JpegError("Bogus DHT length");
 }
 
 void Decoder::read_sof(int marker) {
@@ -414,6 +449,7 @@ void Decoder::read_sof(int marker) {
       throw JpegError("Bogus sampling factors");
     hmax = c.h > hmax ? c.h : hmax;
     vmax = c.v > vmax ? c.v : vmax;
+    for (int k = 0; k < 64; ++k) c.coef_bits[k] = c.prev_bits[k] = -1;
   }
   mcus_x_ = (width + 8 * hmax - 1) / (8 * hmax);
   mcus_y_ = (height + 8 * vmax - 1) / (8 * vmax);
@@ -499,6 +535,15 @@ void Decoder::read_sos() {
              (ss_ > 0 && scan_n_ != 1)) {
     throw JpegError("Invalid progressive parameters");
   }
+  ++scans_;
+  if (progressive) {  // jdphuff.c / jdarith.c start_pass: the progression status
+    for (int i = 0; i < scan_n_; ++i) {
+      Component& c = comp[scan_comp_[i]];
+      for (int k = ss_ < 1 ? ss_ : 1; k <= (se_ > 9 ? se_ : 9); ++k)
+        c.prev_bits[k] = scans_ > 1 ? c.coef_bits[k] : 0;
+      for (int k = ss_; k <= se_; ++k) c.coef_bits[k] = al_;
+    }
+  }
   for (int i = 0; i < scan_n_; ++i) {
     Component& c = comp[scan_comp_[i]];
     if (!c.quant_latched) {  // jdinput.c latch_quant_tables
@@ -524,7 +569,10 @@ void Decoder::restart() {
     if (d_[pos_] == 0xFF && d_[pos_ + 1] != 0 && d_[pos_ + 1] != 0xFF) break;  // another marker
     ++pos_;
   }
-  if (pos_ + 1 < n_ && d_[pos_] == 0xFF && d_[pos_ + 1] == 0xD0 + next_restart_) pos_ += 2;
+  if (pos_ + 1 < n_ && d_[pos_] == 0xFF && d_[pos_ + 1] == 0xD0 + next_restart_) {
+    pos_ += 2;
+    insufficient_ = false;  // a data segment follows (left set before any other marker)
+  }
   next_restart_ = (next_restart_ + 1) & 7;
   for (int i = 0; i < ncomp; ++i) {
     comp[i].dc_pred = 0;
@@ -662,7 +710,20 @@ void Decoder::decode_scan() {
     comp[i].eob_run = 0;
   }
   if (arithmetic) arith_reset_scan_stats();  // jdarith.c start_pass
+  insufficient_ = false;
   int restarts_left = restart_interval_;
+  // one MCU, unless the Huffman data already ran out in this segment (the
+  // arithmetic decoder reads zeros to the end instead, jdarith.c)
+  auto mcu = [&](auto&& blocks) {
+    if (insufficient_) return;
+    blocks();
+    if (!arithmetic && past_data()) insufficient_ = true;
+  };
+  // an iMCU row that starts with data left counts as good (libjpeg-turbo 3.1.3's
+  // rows past it are smoothed with the progression status before this scan)
+  auto row_start = [&](int imcu) {
+    if (!insufficient_) last_good_imcu_ = imcu;
+  };
   auto mcu_boundary = [&]() {
     if (restart_interval_) {
       if (restarts_left == 0) {
@@ -675,24 +736,28 @@ void Decoder::decode_scan() {
   if (scan_n_ == 1) {  // non-interleaved: the component's own blocks in raster order
     Component& c = comp[scan_comp_[0]];
     for (int by = 0; by < c.height_in_blocks; ++by) {
+      if (by % c.v == 0) row_start(by / c.v);
       for (int bx = 0; bx < c.width_in_blocks; ++bx) {
         mcu_boundary();
-        decode_block(c, &c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64]);
+        mcu([&] { decode_block(c, &c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64]); });
       }
     }
   } else {
     for (int my = 0; my < mcus_y_; ++my) {
+      row_start(my);
       for (int mx = 0; mx < mcus_x_; ++mx) {
         mcu_boundary();
-        for (int i = 0; i < scan_n_; ++i) {
-          Component& c = comp[scan_comp_[i]];
-          for (int y = 0; y < c.v; ++y)
-            for (int x = 0; x < c.h; ++x) {
-              const size_t bx = static_cast<size_t>(mx) * c.h + x;
-              const size_t by = static_cast<size_t>(my) * c.v + y;
-              decode_block(c, &c.coef[(by * c.blocks_w + bx) * 64]);
-            }
-        }
+        mcu([&] {
+          for (int i = 0; i < scan_n_; ++i) {
+            Component& c = comp[scan_comp_[i]];
+            for (int y = 0; y < c.v; ++y)
+              for (int x = 0; x < c.h; ++x) {
+                const size_t bx = static_cast<size_t>(mx) * c.h + x;
+                const size_t by = static_cast<size_t>(my) * c.v + y;
+                decode_block(c, &c.coef[(by * c.blocks_w + bx) * 64]);
+              }
+          }
+        });
       }
     }
   }
@@ -703,6 +768,7 @@ void Decoder::decode_scan() {
 }
 
 void Decoder::decode_scans() {
+  fake_eoi_ = true;
   for (;;) {
     int m;
     try {
@@ -735,6 +801,163 @@ void Decoder::decode_scans() {
   }
   for (int i = 0; i < ncomp; ++i)
     if (comp[i].coef.empty()) comp[i].coef.assign(static_cast<size_t>(comp[i].blocks_w) * comp[i].blocks_h * 64, 0);
+}
+
+// ---------------------------------------------------------- block smoothing
+// jdcoefct.c (libjpeg-turbo 2.1 and later; PIL 12.1.0 bundles 3.1.3):
+// a progressive image whose low AC coefficients are not all known to full
+// precision is output through decompress_smooth_data, which estimates the
+// coefficients AC01, AC10, AC20, AC11, AC02 (and, when only DC is known,
+// also AC03, AC12, AC21, AC30 and the DC itself) of each block that are
+// still zero from the DC values of its 5x5 neighbourhood.
+
+// zigzag k = 1..9 -> natural position, and the quantiser positions Q01 ... Q30
+constexpr int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// smoothing_ok: every component scanned with a quantiser whose DC and first nine
+// AC entries are nonzero, and some of those AC coefficients not known exactly;
+// latches the progression status (cur) and, for rows the last scan did not
+// complete with real data, the status before it (prev)
+bool Decoder::smoothing_ok(int (*cur)[10], int (*prev)[10]) const {
+  if (!progressive) return false;
+  bool useful = false;
+  for (int ci = 0; ci < ncomp; ++ci) {
+    const Component& c = comp[ci];
+    if (!c.quant_latched) return false;
+    for (int k = 0; k < 10; ++k)
+      if (c.quant[kSmoothPos[k]] == 0) return false;
+    if (c.coef_bits[0] < 0) return false;
+    cur[ci][0] = c.coef_bits[0];
+    for (int k = 1; k < 10; ++k) {
+      prev[ci][k] = scans_ > 1 ? c.prev_bits[k] : -1;
+      cur[ci][k] = c.coef_bits[k];
+      if (c.coef_bits[k] != 0) useful = true;
+    }
+  }
+  return useful;
+}
+
+// the prediction of one coefficient from `num` = Q00 * (the DC kernel's sum),
+// with the coefficient's quantiser q, limited to what its Al bits can hold
+inline int16_t predict(long long num, long long q, int al) {
+  int pred;
+  if (num >= 0) {
+    pred = static_cast<int>(((q << 7) + num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = static_cast<int>(((q << 7) - num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return static_cast<int16_t>(pred);
+}
+
+// the blocks of component block row `by`, smoothed, into `out` (64 a block)
+void Decoder::smooth_row(const Component& c, int by, const int* bits, int16_t* out) const {
+  const int total = mcus_y_, last = total - 1;
+  const int imcu = by / c.v, block_row = by % c.v;
+  // decompress_smooth_data counts the block rows of the last iMCU row as that
+  // row's own (height_in_blocks % v) in both of these
+  int block_rows = c.v;
+  if (imcu >= last && c.height_in_blocks % c.v) block_rows = c.height_in_blocks % c.v;
+  const int image_block_rows = block_rows * total;
+  const int image_block_row = imcu * block_rows + block_row;
+  auto row = [&](int y) { return &c.coef[static_cast<size_t>(y) * c.blocks_w * 64]; };
+  const int16_t* cur = row(by);
+  const int16_t* prev = image_block_row > 0 ? row(by - 1) : cur;
+  const int16_t* prev2 = image_block_row > 1 ? row(by - 2) : prev;
+  const int16_t* next = image_block_row < image_block_rows - 1 ? row(by + 1) : cur;
+  const int16_t* next2 = image_block_row < image_block_rows - 2 ? row(by + 2) : next;
+  const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 && bits[4] == -1 &&
+                         bits[5] == -1 && bits[6] == -1 && bits[7] == -1 && bits[8] == -1 &&
+                         bits[9] == -1;
+  const long long Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8], Q20 = c.quant[16],
+                  Q11 = c.quant[9], Q02 = c.quant[2], Q03 = c.quant[3], Q12 = c.quant[10],
+                  Q21 = c.quant[17], Q30 = c.quant[24];
+  // the 5x5 DC values, DC01..DC25 row by row, in sliding registers
+  int d[26];
+  for (int k = 1; k <= 5; ++k) d[k] = prev2[0];
+  for (int k = 6; k <= 10; ++k) d[k] = prev[0];
+  for (int k = 11; k <= 15; ++k) d[k] = cur[0];
+  for (int k = 16; k <= 20; ++k) d[k] = next[0];
+  for (int k = 21; k <= 25; ++k) d[k] = next2[0];
+  const int last_col = c.width_in_blocks - 1;
+  const int16_t* rows[5] = {prev2, prev, cur, next, next2};
+  for (int bx = 0; bx <= last_col; ++bx) {
+    int16_t* ws = out + static_cast<size_t>(bx) * 64;
+    std::memcpy(ws, cur + static_cast<size_t>(bx) * 64, 64 * sizeof(int16_t));
+    if (bx == 0 && bx < last_col)
+      for (int r = 0; r < 5; ++r) d[5 * r + 4] = rows[r][(bx + 1) * 64];
+    if (bx + 1 < last_col)
+      for (int r = 0; r < 5; ++r) d[5 * r + 5] = rows[r][(bx + 2) * 64];
+    int al;
+    long long num;
+    if ((al = bits[1]) != 0 && ws[1] == 0) {  // AC01
+      num = Q00 * (change_dc
+                       ? (-d[1] - d[2] + d[4] + d[5] - 3 * d[6] + 13 * d[7] - 13 * d[9] +
+                          3 * d[10] - 3 * d[11] + 38 * d[12] - 38 * d[14] + 3 * d[15] -
+                          3 * d[16] + 13 * d[17] - 13 * d[19] + 3 * d[20] - d[21] - d[22] +
+                          d[24] + d[25])
+                       : (-7 * d[11] + 50 * d[12] - 50 * d[14] + 7 * d[15]));
+      ws[1] = predict(num, Q01, al);
+    }
+    if ((al = bits[2]) != 0 && ws[8] == 0) {  // AC10
+      num = Q00 * (change_dc
+                       ? (-d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] - d[5] - d[6] + 13 * d[7] +
+                          38 * d[8] + 13 * d[9] - d[10] + d[16] - 13 * d[17] - 38 * d[18] -
+                          13 * d[19] + d[20] + d[21] + 3 * d[22] + 3 * d[23] + 3 * d[24] + d[25])
+                       : (-7 * d[3] + 50 * d[8] - 50 * d[18] + 7 * d[23]));
+      ws[8] = predict(num, Q10, al);
+    }
+    if ((al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+      num = Q00 * (change_dc
+                       ? (d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] - 5 * d[12] - 14 * d[13] -
+                          5 * d[14] + 2 * d[17] + 7 * d[18] + 2 * d[19] + d[23])
+                       : (-d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] - d[23]));
+      ws[16] = predict(num, Q20, al);
+    }
+    if ((al = bits[4]) != 0 && ws[9] == 0) {  // AC11
+      num = Q00 * (change_dc
+                       ? (-d[1] + d[5] + 9 * d[7] - 9 * d[9] - 9 * d[17] + 9 * d[19] + d[21] -
+                          d[25])
+                       : (d[10] + d[16] - 10 * d[17] + 10 * d[19] - d[2] - d[20] + d[22] -
+                          d[24] + d[4] - d[6] + 10 * d[7] - 10 * d[9]));
+      ws[9] = predict(num, Q11, al);
+    }
+    if ((al = bits[5]) != 0 && ws[2] == 0) {  // AC02
+      num = Q00 * (change_dc
+                       ? (2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] + 7 * d[12] - 14 * d[13] +
+                          7 * d[14] + d[15] + 2 * d[17] - 5 * d[18] + 2 * d[19])
+                       : (-d[11] + 13 * d[12] - 24 * d[13] + 13 * d[14] - d[15]));
+      ws[2] = predict(num, Q02, al);
+    }
+    if (change_dc) {
+      if ((al = bits[6]) != 0 && ws[3] == 0) {  // AC03
+        num = Q00 * (d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] - d[19]);
+        ws[3] = predict(num, Q03, al);
+      }
+      if ((al = bits[7]) != 0 && ws[10] == 0) {  // AC12
+        num = Q00 * (d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] - d[19]);
+        ws[10] = predict(num, Q12, al);
+      }
+      if ((al = bits[8]) != 0 && ws[17] == 0) {  // AC21
+        num = Q00 * (d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] - d[19]);
+        ws[17] = predict(num, Q21, al);
+      }
+      if ((al = bits[9]) != 0 && ws[24] == 0) {  // AC30
+        num = Q00 * (d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] - d[19]);
+        ws[24] = predict(num, Q30, al);
+      }
+      // the DC itself, a 5x5 kernel summing to 256 (no Al limit)
+      num = Q00 * (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] - 2 * d[5] - 6 * d[6] + 6 * d[7] +
+                   42 * d[8] + 6 * d[9] - 6 * d[10] - 8 * d[11] + 42 * d[12] + 152 * d[13] +
+                   42 * d[14] - 8 * d[15] - 6 * d[16] + 6 * d[17] + 42 * d[18] + 6 * d[19] -
+                   6 * d[20] - 2 * d[21] - 6 * d[22] - 8 * d[23] - 6 * d[24] - 2 * d[25]);
+      ws[0] = predict(num, Q00, 0);
+    }
+    for (int r = 0; r < 5; ++r)  // the registers move one column on
+      for (int k = 1; k <= 4; ++k) d[5 * r + k] = d[5 * r + k + 1];
+  }
 }
 
 // ------------------------------------------------- arithmetic decoding
@@ -1006,204 +1229,177 @@ const RangeLimit kRange;
 
 inline uint8_t clamp255(int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
+// The 8x8, 4x4 and 2x2 IDCTs follow libjpeg-turbo's x86 SIMD ones
+// (jidctint-avx2.asm / -sse2.asm, jidctred-sse2.asm), which the JAX route's
+// libjpeg-turbo runs, down to their integer widths: the dequantisation is a
+// 16-bit product (pmullw), some sums are 16-bit (paddw), the products are
+// pairs summed in 32 bits (pmaddwd) and added with 32-bit wrap (paddd), the
+// first pass is stored saturated to int16 (packssdw; the 2x2 keeps it in 32
+// bits), and the output is
+// saturated to [-128, 127] and centred (packsswb, paddb 128). Where no value
+// leaves its range this is jidctint.c / jidctred.c bit for bit; only corrupt
+// data (a cut file's zeros) reaches the wraps and saturations. The 1x1 IDCT
+// has no SIMD version: C, with the range-limit table.
+inline int16_t deq(int16_t coef, uint16_t q) {
+  return static_cast<int16_t>(static_cast<uint16_t>(static_cast<int32_t>(coef) * q));
+}
+inline int16_t add16(int a, int b) { return static_cast<int16_t>(static_cast<uint16_t>(a + b)); }
+inline int16_t sat16(int32_t v) {
+  return static_cast<int16_t>(v > 32767 ? 32767 : (v < -32768 ? -32768 : v));
+}
+inline int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+inline int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+// pmaddwd: two int16 products summed (exact in 32 bits)
+inline int32_t madd(int16_t a, int ca, int16_t b, int cb) {
+  return static_cast<int32_t>(a) * ca + static_cast<int32_t>(b) * cb;
+}
+// psrad after adding the rounding constant (paddd)
+inline int32_t descale32(int32_t x, int n) { return add32(x, 1 << (n - 1)) >> n; }
+// packssdw, packsswb, paddb CENTERJSAMP
+inline uint8_t out8(int32_t v) {
+  int s = sat16(v);
+  s = s > 127 ? 127 : (s < -128 ? -128 : s);
+  return static_cast<uint8_t>(s + 128);
+}
+inline int32_t widen_shift(int16_t v, int n) { return static_cast<int32_t>(v) * (1 << n); }
+
+// one 8-point islow IDCT of `in` (the SIMD order of operations), before descaling
+void islow_1d(const int16_t* in, int32_t* out) {
+  const int F0_298 = static_cast<int>(fix(0.298631336)), F0_390 = static_cast<int>(fix(0.390180644)),
+            F0_541 = static_cast<int>(fix(0.541196100)), F0_765 = static_cast<int>(fix(0.765366865)),
+            F0_899 = static_cast<int>(fix(0.899976223)), F1_175 = static_cast<int>(fix(1.175875602)),
+            F1_501 = static_cast<int>(fix(1.501321110)), F1_847 = static_cast<int>(fix(1.847759065)),
+            F1_961 = static_cast<int>(fix(1.961570560)), F2_053 = static_cast<int>(fix(2.053119869)),
+            F2_562 = static_cast<int>(fix(2.562915447)), F3_072 = static_cast<int>(fix(3.072711026));
+  // even part
+  const int32_t tmp3 = madd(in[2], F0_541 + F0_765, in[6], F0_541);
+  const int32_t tmp2 = madd(in[2], F0_541, in[6], F0_541 - F1_847);
+  const int32_t tmp0 = widen_shift(add16(in[0], in[4]), kConstBits);
+  const int32_t tmp1 = widen_shift(add16(in[0], -in[4]), kConstBits);
+  const int32_t tmp10 = add32(tmp0, tmp3), tmp13 = sub32(tmp0, tmp3);
+  const int32_t tmp11 = add32(tmp1, tmp2), tmp12 = sub32(tmp1, tmp2);
+  // odd part: t0..t3 = in7, in5, in3, in1
+  const int16_t z3 = add16(in[7], in[3]), z4 = add16(in[5], in[1]);
+  const int32_t Z3 = madd(z3, F1_175 - F1_961, z4, F1_175);
+  const int32_t Z4 = madd(z3, F1_175, z4, F1_175 - F0_390);
+  const int32_t T0 = add32(madd(in[7], F0_298 - F0_899, in[1], -F0_899), Z3);
+  const int32_t T3 = add32(madd(in[7], -F0_899, in[1], F1_501 - F0_899), Z4);
+  const int32_t T1 = add32(madd(in[5], F2_053 - F2_562, in[3], -F2_562), Z4);
+  const int32_t T2 = add32(madd(in[5], -F2_562, in[3], F3_072 - F2_562), Z3);
+  out[0] = add32(tmp10, T3);
+  out[7] = sub32(tmp10, T3);
+  out[1] = add32(tmp11, T2);
+  out[6] = sub32(tmp11, T2);
+  out[2] = add32(tmp12, T1);
+  out[5] = sub32(tmp12, T1);
+  out[3] = add32(tmp13, T0);
+  out[4] = sub32(tmp13, T0);
+}
+
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
-  const Jlong F0_298 = fix(0.298631336), F0_390 = fix(0.390180644), F0_541 = fix(0.541196100),
-              F0_765 = fix(0.765366865), F0_899 = fix(0.899976223), F1_175 = fix(1.175875602),
-              F1_501 = fix(1.501321110), F1_847 = fix(1.847759065), F1_961 = fix(1.961570560),
-              F2_053 = fix(2.053119869), F2_562 = fix(2.562915447), F3_072 = fix(3.072711026);
-  int ws[64];
+  int16_t ws[64];  // pass 1's int16 workspace, row-major
+  bool ac_zero = true;  // rows 1..7 of the whole block (the SIMD tests all columns at once)
+  for (int k = 8; k < 64 && ac_zero; ++k) ac_zero = in[k] == 0;
   for (int c = 0; c < 8; ++c) {
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[32] && !ip[40] && !ip[48] && !ip[56]) {
-      int dc = static_cast<int>(static_cast<Jlong>(ip[0]) * qp[0] * (1 << kPass1Bits));
-      for (int r = 0; r < 8; ++r) wp[8 * r] = dc;
+    if (ac_zero) {  // psllw: a 16-bit shift of the dequantised DC
+      const int16_t dc = static_cast<int16_t>(static_cast<uint16_t>(deq(in[c], q[c])) << kPass1Bits);
+      for (int r = 0; r < 8; ++r) ws[8 * r + c] = dc;
       continue;
     }
-    Jlong z2 = static_cast<Jlong>(ip[16]) * qp[16], z3 = static_cast<Jlong>(ip[48]) * qp[48];
-    Jlong z1 = (z2 + z3) * F0_541;
-    Jlong tmp2 = z1 + z3 * (-F1_847);
-    Jlong tmp3 = z1 + z2 * F0_765;
-    z2 = static_cast<Jlong>(ip[0]) * qp[0];
-    z3 = static_cast<Jlong>(ip[32]) * qp[32];
-    Jlong tmp0 = (z2 + z3) * (1 << kConstBits);
-    Jlong tmp1 = (z2 - z3) * (1 << kConstBits);
-    Jlong tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = static_cast<Jlong>(ip[56]) * qp[56];
-    tmp1 = static_cast<Jlong>(ip[40]) * qp[40];
-    tmp2 = static_cast<Jlong>(ip[24]) * qp[24];
-    tmp3 = static_cast<Jlong>(ip[8]) * qp[8];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    Jlong z4 = tmp1 + tmp3;
-    Jlong z5 = (z3 + z4) * F1_175;
-    tmp0 *= F0_298;
-    tmp1 *= F2_053;
-    tmp2 *= F3_072;
-    tmp3 *= F1_501;
-    z1 *= -F0_899;
-    z2 *= -F2_562;
-    z3 *= -F1_961;
-    z4 *= -F0_390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits - kPass1Bits;
-    wp[0] = static_cast<int>(descale(tmp10 + tmp3, sh));
-    wp[56] = static_cast<int>(descale(tmp10 - tmp3, sh));
-    wp[8] = static_cast<int>(descale(tmp11 + tmp2, sh));
-    wp[48] = static_cast<int>(descale(tmp11 - tmp2, sh));
-    wp[16] = static_cast<int>(descale(tmp12 + tmp1, sh));
-    wp[40] = static_cast<int>(descale(tmp12 - tmp1, sh));
-    wp[24] = static_cast<int>(descale(tmp13 + tmp0, sh));
-    wp[32] = static_cast<int>(descale(tmp13 - tmp0, sh));
+    int16_t col[8];
+    int32_t t[8];
+    for (int r = 0; r < 8; ++r) col[r] = deq(in[8 * r + c], q[8 * r + c]);
+    islow_1d(col, t);
+    for (int r = 0; r < 8; ++r) ws[8 * r + c] = sat16(descale32(t[r], kConstBits - kPass1Bits));
   }
   for (int r = 0; r < 8; ++r) {
-    const int* wp = ws + 8 * r;
+    int32_t t[8];
+    islow_1d(ws + 8 * r, t);
     uint8_t* op = out + static_cast<long>(r) * stride;
-    if (!wp[1] && !wp[2] && !wp[3] && !wp[4] && !wp[5] && !wp[6] && !wp[7]) {
-      uint8_t v = kRange.idct[static_cast<int>(descale(wp[0], kPass1Bits + 3)) & kRangeMask];
-      std::memset(op, v, 8);
-      continue;
-    }
-    Jlong z2 = wp[2], z3 = wp[6];
-    Jlong z1 = (z2 + z3) * F0_541;
-    Jlong tmp2 = z1 + z3 * (-F1_847);
-    Jlong tmp3 = z1 + z2 * F0_765;
-    Jlong tmp0 = (static_cast<Jlong>(wp[0]) + wp[4]) * (1 << kConstBits);
-    Jlong tmp1 = (static_cast<Jlong>(wp[0]) - wp[4]) * (1 << kConstBits);
-    Jlong tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-    tmp0 = wp[7];
-    tmp1 = wp[5];
-    tmp2 = wp[3];
-    tmp3 = wp[1];
-    z1 = tmp0 + tmp3;
-    z2 = tmp1 + tmp2;
-    z3 = tmp0 + tmp2;
-    Jlong z4 = tmp1 + tmp3;
-    Jlong z5 = (z3 + z4) * F1_175;
-    tmp0 *= F0_298;
-    tmp1 *= F2_053;
-    tmp2 *= F3_072;
-    tmp3 *= F1_501;
-    z1 *= -F0_899;
-    z2 *= -F2_562;
-    z3 *= -F1_961;
-    z4 *= -F0_390;
-    z3 += z5;
-    z4 += z5;
-    tmp0 += z1 + z3;
-    tmp1 += z2 + z4;
-    tmp2 += z2 + z3;
-    tmp3 += z1 + z4;
-    const int sh = kConstBits + kPass1Bits + 3;
-    op[0] = kRange.idct[static_cast<int>(descale(tmp10 + tmp3, sh)) & kRangeMask];
-    op[7] = kRange.idct[static_cast<int>(descale(tmp10 - tmp3, sh)) & kRangeMask];
-    op[1] = kRange.idct[static_cast<int>(descale(tmp11 + tmp2, sh)) & kRangeMask];
-    op[6] = kRange.idct[static_cast<int>(descale(tmp11 - tmp2, sh)) & kRangeMask];
-    op[2] = kRange.idct[static_cast<int>(descale(tmp12 + tmp1, sh)) & kRangeMask];
-    op[5] = kRange.idct[static_cast<int>(descale(tmp12 - tmp1, sh)) & kRangeMask];
-    op[3] = kRange.idct[static_cast<int>(descale(tmp13 + tmp0, sh)) & kRangeMask];
-    op[4] = kRange.idct[static_cast<int>(descale(tmp13 - tmp0, sh)) & kRangeMask];
+    for (int c = 0; c < 8; ++c) op[c] = out8(descale32(t[c], kConstBits + kPass1Bits + 3));
   }
+}
+
+// the 4-point IDCT of jidctred.c on in[0..7] (in[4] unused), before descaling
+void idct4_1d(const int16_t* in, int32_t* out) {
+  const int F0_211 = static_cast<int>(fix(0.211164243)), F0_509 = static_cast<int>(fix(0.509795579)),
+            F0_601 = static_cast<int>(fix(0.601344887)), F0_765 = static_cast<int>(fix(0.765366865)),
+            F0_899 = static_cast<int>(fix(0.899976223)), F1_061 = static_cast<int>(fix(1.061594337)),
+            F1_451 = static_cast<int>(fix(1.451774981)), F1_847 = static_cast<int>(fix(1.847759065)),
+            F2_172 = static_cast<int>(fix(2.172734803)), F2_562 = static_cast<int>(fix(2.562915447));
+  const int32_t tmp0 = widen_shift(in[0], kConstBits + 1);
+  const int32_t tmp2 = madd(in[2], F1_847, in[6], -F0_765);
+  const int32_t tmp10 = add32(tmp0, tmp2), tmp12 = sub32(tmp0, tmp2);
+  const int32_t o0 = add32(madd(in[7], -F0_211, in[5], F1_451), madd(in[3], -F2_172, in[1], F1_061));
+  const int32_t o2 = add32(madd(in[7], -F0_509, in[5], -F0_601), madd(in[3], F0_899, in[1], F2_562));
+  out[0] = add32(tmp10, o2);
+  out[3] = sub32(tmp10, o2);
+  out[1] = add32(tmp12, o0);
+  out[2] = sub32(tmp12, o0);
 }
 
 void idct_4x4(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
-  const Jlong F0_211 = fix(0.211164243), F0_509 = fix(0.509795579), F0_601 = fix(0.601344887),
-              F0_765 = fix(0.765366865), F0_899 = fix(0.899976223), F1_061 = fix(1.061594337),
-              F1_451 = fix(1.451774981), F1_847 = fix(1.847759065), F2_172 = fix(2.172734803),
-              F2_562 = fix(2.562915447);
-  int ws[64];
+  int16_t ws[32];  // 4 rows of 8 (column 4 unused)
+  bool ac_zero = true;  // rows 1, 2, 3, 5, 6, 7 (jidctred-sse2.asm's zero-column test)
+  for (int r = 1; r < 8 && ac_zero; ++r)
+    for (int c = 0; c < 8 && ac_zero && r != 4; ++c) ac_zero = in[8 * r + c] == 0;
   for (int c = 0; c < 8; ++c) {
-    if (c == 4) continue;  // the second pass does not read column 4
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (!ip[8] && !ip[16] && !ip[24] && !ip[40] && !ip[48] && !ip[56]) {
-      int dc = static_cast<int>(static_cast<Jlong>(ip[0]) * qp[0] * (1 << kPass1Bits));
-      for (int r = 0; r < 4; ++r) wp[8 * r] = dc;
+    if (c == 4) continue;
+    if (ac_zero) {
+      const int16_t dc = static_cast<int16_t>(static_cast<uint16_t>(deq(in[c], q[c])) << kPass1Bits);
+      for (int r = 0; r < 4; ++r) ws[8 * r + c] = dc;
       continue;
     }
-    Jlong tmp0 = static_cast<Jlong>(ip[0]) * qp[0] * (static_cast<Jlong>(1) << (kConstBits + 1));
-    Jlong z2 = static_cast<Jlong>(ip[16]) * qp[16], z3 = static_cast<Jlong>(ip[48]) * qp[48];
-    Jlong tmp2 = z2 * F1_847 + z3 * (-F0_765);
-    Jlong tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    Jlong z1 = static_cast<Jlong>(ip[56]) * qp[56];
-    z2 = static_cast<Jlong>(ip[40]) * qp[40];
-    z3 = static_cast<Jlong>(ip[24]) * qp[24];
-    Jlong z4 = static_cast<Jlong>(ip[8]) * qp[8];
-    tmp0 = z1 * (-F0_211) + z2 * F1_451 + z3 * (-F2_172) + z4 * F1_061;
-    tmp2 = z1 * (-F0_509) + z2 * (-F0_601) + z3 * F0_899 + z4 * F2_562;
-    const int sh = kConstBits - kPass1Bits + 1;
-    wp[0] = static_cast<int>(descale(tmp10 + tmp2, sh));
-    wp[24] = static_cast<int>(descale(tmp10 - tmp2, sh));
-    wp[8] = static_cast<int>(descale(tmp12 + tmp0, sh));
-    wp[16] = static_cast<int>(descale(tmp12 - tmp0, sh));
+    int16_t col[8];
+    int32_t t[4];
+    for (int r = 0; r < 8; ++r) col[r] = deq(in[8 * r + c], q[8 * r + c]);
+    idct4_1d(col, t);
+    for (int r = 0; r < 4; ++r) ws[8 * r + c] = sat16(descale32(t[r], kConstBits - kPass1Bits + 1));
   }
   for (int r = 0; r < 4; ++r) {
-    const int* wp = ws + 8 * r;
+    int32_t t[4];
+    idct4_1d(ws + 8 * r, t);
     uint8_t* op = out + static_cast<long>(r) * stride;
-    if (!wp[1] && !wp[2] && !wp[3] && !wp[5] && !wp[6] && !wp[7]) {
-      uint8_t v = kRange.idct[static_cast<int>(descale(wp[0], kPass1Bits + 3)) & kRangeMask];
-      std::memset(op, v, 4);
-      continue;
-    }
-    Jlong tmp0 = static_cast<Jlong>(wp[0]) * (static_cast<Jlong>(1) << (kConstBits + 1));
-    Jlong tmp2 = static_cast<Jlong>(wp[2]) * F1_847 + static_cast<Jlong>(wp[6]) * (-F0_765);
-    Jlong tmp10 = tmp0 + tmp2, tmp12 = tmp0 - tmp2;
-    Jlong z1 = wp[7], z2 = wp[5], z3 = wp[3], z4 = wp[1];
-    tmp0 = z1 * (-F0_211) + z2 * F1_451 + z3 * (-F2_172) + z4 * F1_061;
-    tmp2 = z1 * (-F0_509) + z2 * (-F0_601) + z3 * F0_899 + z4 * F2_562;
-    const int sh = kConstBits + kPass1Bits + 3 + 1;
-    op[0] = kRange.idct[static_cast<int>(descale(tmp10 + tmp2, sh)) & kRangeMask];
-    op[3] = kRange.idct[static_cast<int>(descale(tmp10 - tmp2, sh)) & kRangeMask];
-    op[1] = kRange.idct[static_cast<int>(descale(tmp12 + tmp0, sh)) & kRangeMask];
-    op[2] = kRange.idct[static_cast<int>(descale(tmp12 - tmp0, sh)) & kRangeMask];
+    for (int c = 0; c < 4; ++c) op[c] = out8(descale32(t[c], kConstBits + kPass1Bits + 3 + 1));
   }
 }
 
+inline int32_t mul32(int32_t a, int c) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) * static_cast<uint32_t>(c));
+}
+
+// the 2-point IDCT of jidctred.c on in[0], in[1], in[3], in[5], in[7], before
+// descaling, in 32-bit wrapping arithmetic: the 2x2 keeps its first pass in 32
+// bits (no int16 pack between the passes; seen on a cut file's DC of 16,595)
+void idct2_1d(const int32_t* in, int32_t* out) {
+  const int F0_720 = static_cast<int>(fix(0.720959822)), F0_850 = static_cast<int>(fix(0.850430095)),
+            F1_272 = static_cast<int>(fix(1.272758580)), F3_624 = static_cast<int>(fix(3.624509785));
+  const int32_t tmp10 = mul32(in[0], 1 << (kConstBits + 2));
+  const int32_t tmp0 = add32(add32(mul32(in[1], F3_624), mul32(in[3], -F1_272)),
+                             add32(mul32(in[5], F0_850), mul32(in[7], -F0_720)));
+  out[0] = add32(tmp10, tmp0);
+  out[1] = sub32(tmp10, tmp0);
+}
+
 void idct_2x2(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
-  const Jlong F0_720 = fix(0.720959822), F0_850 = fix(0.850430095), F1_272 = fix(1.272758580),
-              F3_624 = fix(3.624509785);
-  int ws[64];
+  int32_t ws[16];  // 2 rows of 8 (columns 2, 4, 6 unused)
   for (int c = 0; c < 8; ++c) {
-    if (c == 2 || c == 4 || c == 6) continue;  // not read by the second pass
-    const int16_t* ip = in + c;
-    const uint16_t* qp = q + c;
-    int* wp = ws + c;
-    if (!ip[8] && !ip[24] && !ip[40] && !ip[56]) {
-      int dc = static_cast<int>(static_cast<Jlong>(ip[0]) * qp[0] * (1 << kPass1Bits));
-      wp[0] = wp[8] = dc;
-      continue;
-    }
-    Jlong tmp10 = static_cast<Jlong>(ip[0]) * qp[0] * (static_cast<Jlong>(1) << (kConstBits + 2));
-    Jlong tmp0 = static_cast<Jlong>(ip[56]) * qp[56] * (-F0_720);
-    tmp0 += static_cast<Jlong>(ip[40]) * qp[40] * F0_850;
-    tmp0 += static_cast<Jlong>(ip[24]) * qp[24] * (-F1_272);
-    tmp0 += static_cast<Jlong>(ip[8]) * qp[8] * F3_624;
-    const int sh = kConstBits - kPass1Bits + 2;
-    wp[0] = static_cast<int>(descale(tmp10 + tmp0, sh));
-    wp[8] = static_cast<int>(descale(tmp10 - tmp0, sh));
+    if (c == 2 || c == 4 || c == 6) continue;
+    int32_t col[8];
+    int32_t t[2];
+    for (int r = 0; r < 8; ++r) col[r] = deq(in[8 * r + c], q[8 * r + c]);
+    idct2_1d(col, t);
+    for (int r = 0; r < 2; ++r) ws[8 * r + c] = descale32(t[r], kConstBits - kPass1Bits + 2);
   }
   for (int r = 0; r < 2; ++r) {
-    const int* wp = ws + 8 * r;
+    int32_t t[2];
+    idct2_1d(ws + 8 * r, t);
     uint8_t* op = out + static_cast<long>(r) * stride;
-    if (!wp[1] && !wp[3] && !wp[5] && !wp[7]) {
-      uint8_t v = kRange.idct[static_cast<int>(descale(wp[0], kPass1Bits + 3)) & kRangeMask];
-      op[0] = op[1] = v;
-      continue;
-    }
-    Jlong tmp10 = static_cast<Jlong>(wp[0]) * (static_cast<Jlong>(1) << (kConstBits + 2));
-    Jlong tmp0 = static_cast<Jlong>(wp[7]) * (-F0_720) + static_cast<Jlong>(wp[5]) * F0_850 +
-                 static_cast<Jlong>(wp[3]) * (-F1_272) + static_cast<Jlong>(wp[1]) * F3_624;
-    const int sh = kConstBits + kPass1Bits + 3 + 2;
-    op[0] = kRange.idct[static_cast<int>(descale(tmp10 + tmp0, sh)) & kRangeMask];
-    op[1] = kRange.idct[static_cast<int>(descale(tmp10 - tmp0, sh)) & kRangeMask];
+    for (int c = 0; c < 2; ++c) op[c] = out8(descale32(t[c], kConstBits + kPass1Bits + 3 + 2));
   }
 }
 
@@ -1268,6 +1464,8 @@ void Decoder::output(int denom, int space, uint8_t* out, long cap, int* out_h, i
   const int oh = static_cast<int>(div_up(height, denom));
   if (static_cast<long>(ow) * oh * channels > cap) throw JpegError("output buffer too small");
 
+  int cur_bits[kMaxComponents][10], prev_bits[kMaxComponents][10];
+  const bool smooth = smoothing_ok(cur_bits, prev_bits);
   // each component's IDCT size (jdmaster.c: chroma scaled up by the IDCT where it can)
   const int smin = 8 / denom;
   Plane up[kMaxComponents];
@@ -1282,10 +1480,18 @@ void Decoder::output(int denom, int space, uint8_t* out, long cap, int* out_h, i
     p.w = c.width_in_blocks * s;
     p.h = c.height_in_blocks * s;
     p.px.assign(static_cast<size_t>(p.w) * p.h, 0);
-    for (int by = 0; by < c.height_in_blocks; ++by)
+    std::vector<int16_t> smoothed(smooth ? static_cast<size_t>(c.width_in_blocks) * 64 : 0);
+    for (int by = 0; by < c.height_in_blocks; ++by) {
+      const int16_t* blocks = &c.coef[static_cast<size_t>(by) * c.blocks_w * 64];
+      if (smooth) {  // rows after the last scan's last good iMCU row: the status before it
+        smooth_row(c, by, by / c.v > last_good_imcu_ ? prev_bits[ci] : cur_bits[ci],
+                   smoothed.data());
+        blocks = smoothed.data();
+      }
       for (int bx = 0; bx < c.width_in_blocks; ++bx)
-        idct(&c.coef[(static_cast<size_t>(by) * c.blocks_w + bx) * 64], c.quant,
+        idct(blocks + static_cast<size_t>(bx) * 64, c.quant,
              &p.px[static_cast<size_t>(by) * s * p.w + static_cast<size_t>(bx) * s], p.w);
+    }
     // upsampling (jdsample.c jinit_upsampler)
     const int dw = static_cast<int>(div_up(static_cast<long>(width) * c.h * s, hmax * 8L));
     const int dh = static_cast<int>(div_up(static_cast<long>(height) * c.v * s, vmax * 8L));

@@ -15,7 +15,11 @@ mode: one training step runs the discriminator both ways.
 BatchNorm is held to the JAX package (flax `nn.BatchNorm`, momentum 0.9, eps
 1e-5): the running variance is updated with the *biased* batch variance,
 where `torch.nn.BatchNorm2d` uses the unbiased one (its momentum 0.1 is the
-same update). Normalisation itself is identical.
+same update). Normalisation itself is identical. Inside a
+`parallel.dist.global_stats` scope the training statistics are the global
+batch's (every rank's rows: mean and biased variance by two sums over the
+ranks, with their gradients), for the normalisation and the running
+statistics alike, as flax's BatchNorm sees the global batch under GSPMD.
 
 `ActNorm` (`use_actnorm: true`, in no shipped config) is the JAX module's
 per-channel affine (x + loc) * scale with its `reverse` and `logdet` paths.
@@ -32,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.dist import active, global_sum
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """`nn.BatchNorm2d` whose running variance takes the biased batch
@@ -41,12 +47,28 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not train:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        world = active()
+        if world is not None:
+            return self._global_batch(x, world)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_batch(self, x, world):
+        """Training BatchNorm over every rank's rows (two-pass statistics)."""
+        n = x.shape[0] * x.shape[2] * x.shape[3] * world.size
+        mean = global_sum(x.sum(dim=(0, 2, 3))) / n
+        xc = x - mean[None, :, None, None]
+        var = global_sum((xc * xc).sum(dim=(0, 2, 3))) / n
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked += 1
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return xc * scale[None, :, None, None] + self.bias[None, :, None, None]
 
 
 class ActNorm(nn.Module):
@@ -62,10 +84,19 @@ class ActNorm(nn.Module):
     @torch.no_grad()
     def initialize(self, x):
         """loc = -mean, scale = 1 / (std + 1e-6) of x's channels (the
-        Bessel-corrected std, as torch's `.std()` and the JAX module take it)."""
+        Bessel-corrected std, as torch's `.std()` and the JAX module take it);
+        inside a `global_stats` scope of every rank's rows of x."""
         flat = x.transpose(0, 1).reshape(x.shape[1], -1)
-        std = flat.std(dim=1, unbiased=flat.shape[1] > 1)
-        self.loc.copy_(-flat.mean(dim=1).view_as(self.loc))
+        world = active()
+        if world is None:
+            mean = flat.mean(dim=1)
+            std = flat.std(dim=1, unbiased=flat.shape[1] > 1)
+        else:
+            n = flat.shape[1] * world.size
+            mean = world.sum_(flat.sum(dim=1)) / n
+            ss = world.sum_(((flat - mean[:, None]) ** 2).sum(dim=1))
+            std = (ss / max(n - 1, 1)).sqrt()
+        self.loc.copy_(-mean.view_as(self.loc))
         self.scale.copy_((1.0 / (std + 1e-6)).view_as(self.scale))
         self.initialized.fill_(1)
 

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from .init import flax_default_
+
 # VGG16 feature config up to relu5_3; "M" = 2x2 maxpool
 VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512)
 TAP_CHANNELS = (64, 128, 256, 512, 512)
@@ -102,13 +104,12 @@ class LPIPS(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, vgg_path=None, lin_path=None):
-        """Seeded random backbone (normal convs of variance 1 / fan-in, zero
-        biases) and the bundled lin heads; then, where given, the backbone
-        and the lin heads read from files (`load_weights`)."""
+        """Seeded random backbone, each conv as the JAX package's flax
+        `nn.Conv` draws it (`nn/init.py` `flax_default_`: lecun-normal kernel,
+        zero bias), and the bundled lin heads; then, where given, the
+        backbone and the lin heads read from files (`load_weights`)."""
         for conv in self.net.convs():
-            fan_in = conv.weight[0].numel()
-            conv.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
-            conv.bias.zero_()
+            flax_default_(conv, generator)
         self.load_state_dict(load_bundled_lin_heads(), strict=False)
         self.load_weights(vgg_path, lin_path)
 

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..ops.kv_int8 import CHUNK
+from ..parallel.dist import global_count, world_size
 from .norm import LayerNorm
 from .transformer import KVCache, TransformerStack, dropout
 
@@ -31,12 +32,22 @@ from .transformer import KVCache, TransformerStack, dropout
 def cross_entropy_ignore(logits, targets, ignore_index: int):
     """Mean cross entropy over the positions whose target is not
     `ignore_index`, reduced in f32 whatever the logits' dtype; 0 when every
-    target is ignored (`F.cross_entropy` gives NaN there)."""
+    target is ignored (`F.cross_entropy` gives NaN there).
+
+    Inside a `parallel.dist.global_stats` scope of N ranks the denominator
+    is the count of valid targets of the GLOBAL batch, as the JAX function
+    divides under GSPMD: each rank returns N * (its sum) / (global count),
+    whose mean over the ranks is the global batch's loss (a mean of the
+    ranks' own means differs whenever their padding differs)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     ignored = targets == ignore_index
     nll = -logp.gather(-1, targets.masked_fill(ignored, 0)[..., None])[..., 0]
     keep = (~ignored).to(logp.dtype)
-    return (nll * keep).sum() / keep.sum().clamp(min=1.0)
+    total = (nll * keep).sum()
+    n = world_size()
+    if n > 1:
+        total = total * n
+    return total / global_count(keep.sum()).clamp(min=1.0)
 
 
 def lookup_few_rows(table: nn.Embedding, index):

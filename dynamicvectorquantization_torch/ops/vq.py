@@ -34,12 +34,21 @@ buffers in place: `codebook.weight` (K + 1, D), `codebook.cluster_size_ema`
 commit=False)` runs the training search and statistics and leaves the
 buffers as they were, for the trainer's discriminator pass, whose EMA
 update the reference discards.
+
+Over several ranks (inside a `parallel.dist.global_stats` scope) the EMA
+update is the global batch's, as the JAX module's is under GSPMD (QUIRKS
+#16): `embed_sum` and `cluster_size` are summed over the ranks, the restart
+pool is every rank's rows gathered in rank order (the global batch's rows,
+tiled and jittered when they are fewer than K), and the permutation comes
+from the caller's generator, which the trainer keeps identical on every
+rank, so every rank restarts the same codes from the same rows.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..parallel.dist import active, all_rows
 from . import cuda_lib
 
 
@@ -218,7 +227,12 @@ class VectorQuantizeEMA(nn.Module):
             idx, xq, embed_sum, cluster_size = nearest_codes_with_stats(
                 flat, codebook, self.use_pallas)
             if commit:
-                self._ema_update(flat, embed_sum, cluster_size, generator)
+                world = active()
+                if world is not None:  # one collective for both sums
+                    k = cluster_size.shape[0]
+                    both = world.sum_(torch.cat([embed_sum.reshape(-1), cluster_size]))
+                    embed_sum, cluster_size = both[:-k].view_as(embed_sum), both[-k:]
+                self._ema_update(all_rows(flat), embed_sum, cluster_size, generator)
         else:
             idx, xq = nearest_codes(flat, codebook, self.use_pallas)
         xq = xq.reshape(x.shape)

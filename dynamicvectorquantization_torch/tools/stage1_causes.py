@@ -1,0 +1,132 @@
+"""Tell apart the candidate causes of the campaign's stage-1 gap to the JAX
+runs: the campaign's stage-1 leg (`tools/campaign_product.py`, the JAX
+recipe: the shipped dual-grain entropy yml, f32, batch 8, 2 workers, K 4,
+seed 23, the schedule of 6 epochs) stopped after its first epoch (384 steps,
+`--stop_epoch 1`), run three ways, each a process of its own:
+
+  * `tf32_on`: as the campaign ran it (PyTorch's default keeps cuDNN's TF32
+    convolutions on);
+  * `tf32_off`: the same with `NVIDIA_TF32_OVERRIDE=0`, which turns TF32 off
+    in cuBLAS and cuDNN for the whole process;
+  * `lpips_seed2`: TF32 on, with the LPIPS VGG16 backbone read from a file
+    (`DQVQ_LPIPS_VGG`) drawn as flax's default from a second seed, so the
+    backbone is another draw of the same distribution;
+  * `lpips_jax`: TF32 on, with the JAX runs' own seeded backbone, read from
+    the file `--jax_vgg` names (written where the JAX package is installed by
+    `tests/fixtures/lpips/jax_campaign_vgg16.py`).
+
+Each leg reports the mean `train_p_loss` over its rows at steps 1-40 and
+`val_rec_loss` at step 384, beside the JAX runs' (r04 / r05, read from the
+committed `artifacts/campaign_r0{4,5}/stage1_metrics.jsonl` by the same
+function). Usage (the card; ~2.5 min a leg):
+
+    python -m dynamicvectorquantization_torch.tools.stage1_causes --out <dir> \\
+        [--legs tf32_on,tf32_off,lpips_seed2,lpips_jax --jax_vgg <file>] \
+        [--data_root artifacts/campaign_r05/data]
+
+writes `<dir>/causes.json` and prints it as its last line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+from .campaign_product import REPO, STAGE1_BASE, THRESHOLDS_NAME, read_metrics, run
+
+LEGS = ("tf32_on", "tf32_off", "lpips_seed2", "lpips_jax")
+EARLY_STEPS = 40
+JAX_RUNS = ("campaign_r04", "campaign_r05")
+
+
+def early_p_loss(rows, last_step=EARLY_STEPS):
+    """The mean `train_p_loss` of the train rows at steps 1..last_step."""
+    vals = [r["train_p_loss"] for r in rows if r["split"] == "train" and r["step"] <= last_step]
+    return sum(vals) / len(vals) if vals else None
+
+
+def first_val(rows, key="val_rec_loss"):
+    """(step, value) of the first validation row."""
+    val = [r for r in rows if r["split"] == "val"]
+    return (val[0]["step"], val[0][key]) if val else (None, None)
+
+
+def summarize(rows):
+    step, rec = first_val(rows)
+    return {"train_p_loss_steps_1_40": early_p_loss(rows), "val_step": step,
+            "val_rec_loss": rec}
+
+
+def write_vgg16(path, seed):
+    """A torchvision `vgg16` state dict of the 13 feature convs, drawn as
+    `nn/lpips.py` draws its seeded backbone (flax's lecun-normal, zero
+    bias), from `seed`."""
+    import torch
+
+    from ..nn.lpips import LPIPS
+
+    lp = LPIPS()
+    lp.init_weights(torch.Generator().manual_seed(seed))
+    sd = {}
+    for slice_ in lp.net.children():
+        for idx, mod in slice_.named_children():
+            if isinstance(mod, torch.nn.Conv2d):
+                sd[f"features.{idx}.weight"] = mod.weight.detach().clone()
+                sd[f"features.{idx}.bias"] = mod.bias.detach().clone()
+    torch.save(sd, path)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--out", required=True)
+    p.add_argument("--legs", default=",".join(LEGS[:3]))
+    p.add_argument("--jax_vgg", default=None, help="the JAX runs' backbone (leg lpips_jax)")
+    p.add_argument("--data_root", default="artifacts/campaign_r05/data")
+    p.add_argument("--thresholds", default=os.path.join("artifacts/campaign_r05/thresholds",
+                                                        THRESHOLDS_NAME))
+    p.add_argument("--device", default=None)
+    opt = p.parse_args(argv)
+    out = os.path.abspath(opt.out)
+    os.makedirs(out, exist_ok=True)
+    dev = ["--device", opt.device] if opt.device else []
+    base_env = {"DQVQ_IMAGENET_ROOT": os.path.abspath(opt.data_root)}
+    result = {"legs": {}, "jax": {}}
+    for name in JAX_RUNS:
+        with open(os.path.join(REPO, "artifacts", name, "stage1_metrics.jsonl")) as f:
+            result["jax"][name] = summarize([json.loads(line) for line in f])
+    for leg in opt.legs.split(","):
+        if leg not in LEGS:
+            raise SystemExit(f"unknown leg {leg!r}; legs: {', '.join(LEGS)}")
+        env = dict(base_env)
+        if leg == "tf32_off":
+            env["NVIDIA_TF32_OVERRIDE"] = "0"
+        if leg == "lpips_seed2":
+            vgg = os.path.join(out, "vgg16_seed2.pt")
+            write_vgg16(vgg, seed=2)
+            env["DQVQ_LPIPS_VGG"] = vgg
+        if leg == "lpips_jax":
+            if not opt.jax_vgg:
+                raise SystemExit("leg lpips_jax needs --jax_vgg")
+            env["DQVQ_LPIPS_VGG"] = os.path.abspath(opt.jax_vgg)
+        logroot = os.path.join(out, "logs")
+        t0 = time.time()
+        run([sys.executable, "-m", "dynamicvectorquantization_torch.train", "--base",
+             *STAGE1_BASE, "--max_epochs", "6", "--stop_epoch", "1", "--name", leg, "--logdir",
+             logroot, "--log_every", "8", "--steps_per_dispatch", "4", "--seed", "23",
+             "--image_log_every", "0", *dev,
+             "model.params.encoderconfig.params.router_config.params.json_path="
+             f"{os.path.abspath(opt.thresholds)}", "data.params.batch_size=8",
+             "data.params.num_workers=2"], env, leg, retries=0)
+        rundir = sorted(d for d in os.listdir(logroot) if d.startswith(f"{leg}-"))[-1]
+        result["legs"][leg] = {**summarize(read_metrics(os.path.join(logroot, rundir))),
+                               "seconds": time.time() - t0, "env": env}
+    with open(os.path.join(out, "causes.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

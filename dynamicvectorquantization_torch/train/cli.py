@@ -25,8 +25,18 @@
     elsewhere, as the JAX launcher. On the card each cached-codes step
     replays a CUDA graph; on the CPU the same step runs eagerly.
 
-Training over several devices is not ported: those flags raise and name
-their ROADMAP.md item (`--pp_microbatches` only with `--pp`).
+  * `--devices N` / `--gpus N` (default -1: every visible GPU, as the JAX
+    launcher's `--devices -1`; one process on the CPU): with N > 1 the
+    command spawns N workers, one per GPU (NCCL), or N gloo processes with
+    `--device cpu`; under `torchrun` (`RANK` / `WORLD_SIZE` set) each process
+    is one rank as launched. `data.params.batch_size` is the GLOBAL batch,
+    which N must divide; the LR rule counts the N devices.
+    `--activate_ddp_share` (ZeRO-1: the optimizer moments of large leaves
+    sharded over the ranks) and `--activate_fsdp` (also the f32 masters)
+    run over the ranks there are, one included.
+
+`--tp`, `--sp` and `--pp` raise and name their ROADMAP.md item
+(`--pp_microbatches` only with `--pp`).
 """
 from __future__ import annotations
 
@@ -43,8 +53,9 @@ def get_parser():
                    help="base config YAMLs, merged left-to-right")
     p.add_argument("-t", "--train", type=str, default="True")
     p.add_argument("--max_epochs", type=int, default=50)
-    p.add_argument("--devices", "--gpus", type=int, default=1,
-                   help="number of cards; only 1 (or -1 / 0: what is there) is ported")
+    p.add_argument("--devices", "--gpus", type=int, default=-1,
+                   help="number of devices, one process each (-1 / 0: every visible GPU; "
+                        "1 with --device cpu)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default the CUDA card, `cpu` for the plain versions")
     p.add_argument("--resume", type=str, default=None,
@@ -73,8 +84,10 @@ def get_parser():
     p.add_argument("--logtype", type=str, default="csv",
                    help="metric sinks besides metrics.jsonl / .csv: tensorboard (<logdir>/tb), "
                         "wandb (skipped where it is not installed), all (tensorboard)")
-    p.add_argument("--activate_ddp_share", action="store_true", help="not ported")
-    p.add_argument("--activate_fsdp", action="store_true", help="not ported")
+    p.add_argument("--activate_ddp_share", action="store_true",
+                   help="ZeRO-1: shard the optimizer moments of large leaves over the ranks")
+    p.add_argument("--activate_fsdp", action="store_true",
+                   help="FSDP: shard the moments and the f32 masters of large leaves")
     p.add_argument("--tp", type=int, default=1, help="not ported")
     p.add_argument("--sp", type=int, default=1, help="not ported")
     p.add_argument("--pp", type=int, default=1, help="not ported")
@@ -105,15 +118,48 @@ def set_learning_rate(model, config, accumulate_grad_batches: int, n_devices: in
     model.min_learning_rate = mcfg.get("min_learning_rate", 0.0)
 
 
-def main(argv=None):
-    """Run the trainer; returns the step object (`Stage2Trainer` or
-    `Stage1Trainer`) in its final state."""
+def device_count(devices: int, device) -> int:
+    """The ranks `--devices` asks for: -1 / 0 every visible GPU on the card
+    (the default device or "cuda"), else 1; N as given."""
     import torch
 
-    from ..config.yaml_config import dump_yaml, load_config
-    from ..utils.device import resolve_device
-    from ..utils.instantiate import instantiate_from_config
-    from .loop import Trainer
+    if devices not in (-1, 0, None):
+        return int(devices)
+    if device in (None, "cuda") and torch.cuda.is_available():
+        return max(torch.cuda.device_count(), 1)
+    return 1
+
+
+def _spawn(n: int, argv, logdir: str, device_type: str):
+    """N worker processes, one rank each, over a process group on this host."""
+    import torch.multiprocessing as mp
+
+    from ..parallel.dist import free_port
+
+    init = f"tcp://127.0.0.1:{free_port()}"
+    mp.spawn(_worker, args=(n, init, list(argv), logdir, device_type), nprocs=n, join=True)
+
+
+def _worker(rank, size, init_method, argv, logdir, device_type):
+    from ..parallel import dist
+
+    world = dist.init_world(device_type, rank, size, init_method)
+    try:
+        main(argv, world=world, logdir=logdir)
+    finally:
+        dist.shutdown()
+
+
+def main(argv=None, world=None, logdir=None):
+    """Run the trainer; returns the step object (`Stage2Trainer` or
+    `Stage1Trainer`) in its final state (None in a process that spawned
+    workers). `world`: this process's rank of a started process group
+    (`parallel.dist.init_world`); `logdir`: the run directory a spawning
+    parent chose."""
+    import torch
+
+    from ..parallel import dist
+    from .loop import MULTI_GPU_ITEM
 
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = get_parser()
@@ -123,39 +169,92 @@ def main(argv=None):
         parser.error(f"unrecognized arguments: {' '.join(dropped)}")
     if opt.pp_microbatches is not None and opt.pp <= 1:
         parser.error("--pp_microbatches needs --pp > 1")
+    if max(opt.tp, opt.sp, opt.pp) > 1:
+        raise NotImplementedError(
+            f"tensor, sequence and pipeline parallelism are not ported (see {MULTI_GPU_ITEM})")
+    device_type = torch.device(opt.device or "cuda").type
+    own_world = False
+    if world is None and dist.env_world_size() is not None:  # under torchrun
+        world, own_world = dist.init_world(device_type), True
+    n_devices = world.size if world is not None else device_count(opt.devices, opt.device)
+    if world is not None and opt.devices not in (-1, 0, world.size):
+        parser.error(f"--devices {opt.devices} but {world.size} ranks were launched")
 
+    if logdir is None and opt.resume:
+        logdir = opt.resume.rstrip("/")
+    elif logdir is None:
+        now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+        name = opt.name or (os.path.splitext(os.path.basename(opt.base[0]))[0]
+                            if opt.base else "run")
+        logdir = os.path.join(opt.logdir, f"{name}-{now}")
+        if world is not None and world.size > 1:  # rank 0's name for every rank
+            names = [logdir]
+            torch.distributed.broadcast_object_list(names, src=0)
+            logdir = names[0]
+    if world is None and n_devices > 1:
+        _write_snapshot(logdir, opt, argv, unknown)
+        return _spawn(n_devices, argv, logdir, device_type)
+    if world is None and (opt.activate_ddp_share or opt.activate_fsdp):
+        world = dist.init_world(device_type, 0, 1, f"tcp://127.0.0.1:{dist.free_port()}")
+        own_world = True
+    try:
+        return _train(opt, argv, unknown, logdir, world, n_devices)
+    finally:
+        if own_world:
+            dist.shutdown()
+
+
+def _base_configs(opt, logdir):
     base_configs = list(opt.base)
     if opt.resume:
-        logdir = opt.resume.rstrip("/")
         cfg_dir = os.path.join(logdir, "configs")
         base_configs = [os.path.join(cfg_dir, f) for f in sorted(os.listdir(cfg_dir))
                         if f.endswith((".yml", ".yaml"))] + base_configs
-    else:
-        now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
-        name = opt.name or (os.path.splitext(os.path.basename(base_configs[0]))[0]
-                            if base_configs else "run")
-        logdir = os.path.join(opt.logdir, f"{name}-{now}")
-    config = load_config(base_configs, unknown)
+    return base_configs
 
+
+def _write_snapshot(logdir, opt, argv, unknown):
+    """The merged config (`configs/merged-project.yaml`) and `argv.json`."""
+    from ..config.yaml_config import dump_yaml, load_config
+
+    config = load_config(_base_configs(opt, logdir), unknown)
     os.makedirs(os.path.join(logdir, "configs"), exist_ok=True)
     with open(os.path.join(logdir, "configs", "merged-project.yaml"), "w") as f:
         f.write(dump_yaml(config) + "\n")
     with open(os.path.join(logdir, "argv.json"), "w") as f:
         json.dump(["train"] + argv, f)
+    return config
 
-    device = resolve_device(opt.device)
+
+def _train(opt, argv, unknown, logdir, world, n_devices):
+    import torch
+
+    from ..config.yaml_config import load_config
+    from ..utils.device import resolve_device
+    from ..utils.instantiate import instantiate_from_config
+    from .loop import Trainer
+
+    if world is None or world.is_main:
+        config = _write_snapshot(logdir, opt, argv, unknown)
+    if world is not None:
+        world.barrier()  # the snapshot is on disk before the other ranks read it
+    if world is not None and not world.is_main:
+        config = load_config(_base_configs(opt, logdir), unknown)
+
+    device = resolve_device(opt.device) if world is None else world.device
     trainer = Trainer(
         logdir=logdir, max_epochs=opt.max_epochs, seed=opt.seed, save_top_k=opt.save_n,
         device=device, max_steps_per_epoch=opt.max_steps_per_epoch, resume=bool(opt.resume),
         accumulate_grad_batches=opt.accumulate_grad_batches,
         steps_per_dispatch=opt.steps_per_dispatch, cached_codes=opt.cached_codes,
-        devices=opt.devices, opt_sharding=opt.activate_ddp_share, fsdp=opt.activate_fsdp,
+        devices=n_devices, opt_sharding=opt.activate_ddp_share, fsdp=opt.activate_fsdp,
         tp=opt.tp, sp=opt.sp, pp=opt.pp, logtype=opt.logtype, log_every=opt.log_every,
         image_log_frequency=opt.image_log_every, stop_epoch=opt.stop_epoch,
-        profile_steps=opt.profile_steps)
+        profile_steps=opt.profile_steps, world=world)
     with torch.device(device):
         model = instantiate_from_config(config["model"])
     data = instantiate_from_config(config["data"])
-    set_learning_rate(model, config, opt.accumulate_grad_batches)
+    set_learning_rate(model, config, opt.accumulate_grad_batches, n_devices)
     do_train = str(opt.train).lower() not in ("false", "0", "no")
     return trainer.fit(model, data, eval_only=not do_train)
+

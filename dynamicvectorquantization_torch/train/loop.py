@@ -31,9 +31,20 @@ Stage-2 validation and image grids run on the trainer's f32 masters, as the
 JAX loop's run on `state.params`. `profile_steps` writes a `torch.profiler`
 trace of a fresh run's first steps into `<logdir>/profile/`.
 
-What the JAX loop does over a device mesh is not ported: `devices > 1`,
-`opt_sharding` (ZeRO-1), `fsdp`, `tp` / `sp` / `pp` raise and name their
-ROADMAP.md item. Checkpoints are written synchronously with `torch.save`.
+Over several ranks (`world`, a `parallel.dist.World`; `train/cli.py`
+starts the process group) the loop follows the JAX loop over its "dp" mesh:
+the loader's batch is the global batch and each rank reads, decodes (and
+pre-encodes) its own rows of it; the trainers average over the ranks
+(`opt_sharding` = ZeRO-1, `fsdp` shard the optimizer state); validation is
+the mean over the global batch; metrics, image grids and checkpoints are
+written by rank 0 (a checkpoint's state is gathered whole on every rank
+first); the preemption guard stops every rank at the same step. `tp` / `sp`
+/ `pp` raise and name their ROADMAP.md item.
+
+Checkpoints leave the training thread: the state is copied into host memory
+and one writer thread writes it (`utils/checkpoint.py`); the loop waits for
+the last write at the end of a fit and after an emergency save, in the
+`checkpoint_wait` bucket.
 """
 from __future__ import annotations
 
@@ -54,7 +65,7 @@ from ..utils.model_loading import load_first_stage
 from .stage1 import Stage1Trainer
 from .stage2 import Stage2Trainer
 
-MULTI_GPU_ITEM = "ROADMAP.md item 10.3, Multi-GPU: DDP, ZeRO-1, FSDP, tp / sp / pp"
+MULTI_GPU_ITEM = "ROADMAP.md item 10.4, Model parallelism: --tp / --sp / --pp"
 
 
 def _is_stage2(model) -> bool:
@@ -72,6 +83,13 @@ def _last(x):
     if isinstance(x, tuple):
         return tuple(_last(v) for v in x)
     return x[-1]
+
+
+class _NoMetrics:
+    """The metric sink of ranks other than 0."""
+
+    def log(self, *args, **kwargs):
+        pass
 
 
 class PreemptionGuard:
@@ -146,10 +164,18 @@ class Trainer:
                  cached_codes: str = "auto", devices: int = 1, opt_sharding: bool = False,
                  fsdp: bool = False, tp: int = 1, sp: int = 1, pp: int = 1,
                  logtype: str = "csv", init_weights: bool = True,
-                 stop_epoch: Optional[int] = None, profile_steps: int = 0):
-        if devices not in (-1, 0, 1, None) or opt_sharding or fsdp or max(tp, sp, pp) > 1:
+                 stop_epoch: Optional[int] = None, profile_steps: int = 0, world=None):
+        if max(tp, sp, pp) > 1:
             raise NotImplementedError(
-                f"training over several devices is not ported (see {MULTI_GPU_ITEM})")
+                f"tensor, sequence and pipeline parallelism are not ported (see {MULTI_GPU_ITEM})")
+        shard = "fsdp" if fsdp else "zero1" if opt_sharding else None
+        if world is None and (shard or (devices or 1) > 1):
+            raise ValueError("training over several devices or with a sharded optimizer state "
+                             "needs a process group: run train/cli.py (--devices N) or torchrun")
+        if world is not None and devices not in (-1, 0, None, world.size):
+            raise ValueError(f"devices={devices} does not match the world of {world.size} ranks")
+        self.world, self.shard = world, shard
+        self.is_main = world is None or world.is_main
         if steps_per_dispatch is not None and int(steps_per_dispatch) < 1:
             raise ValueError(f"steps_per_dispatch must be at least 1, got {steps_per_dispatch}")
         if cached_codes not in ("auto", "on", "off"):
@@ -159,7 +185,7 @@ class Trainer:
         self.seed = seed
         self.log_every = log_every
         self.save_top_k = save_top_k
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if world is None else world.device)
         self.max_steps_per_epoch = max_steps_per_epoch
         self.resume = resume
         # each optimizer step consumes `accum` loader batches, stacked to
@@ -183,7 +209,9 @@ class Trainer:
         self.profile_steps = int(profile_steps or 0)
         self._profiler = None
         os.makedirs(logdir, exist_ok=True)
-        self.metrics = MetricLogger(logdir, logtype=logtype)
+        # rank 0 writes the metrics and the image grids; the other ranks keep
+        # the cadence only
+        self.metrics = MetricLogger(logdir, logtype=logtype) if self.is_main else _NoMetrics()
         self.images = ImageLogger(logdir, batch_frequency=image_log_frequency)
 
     # ------------------------------------------------------------- helpers
@@ -214,6 +242,13 @@ class Trainer:
                 yield stack(buf)
                 buf = []
 
+    def _part(self):
+        return None if self.world is None else (self.world.rank, self.world.size)
+
+    def _trainer_kwargs(self):
+        return ({} if self.world is None else
+                {"world": self.world, "shard": self.shard})
+
     def _step_inputs(self, gen):
         """Loader items -> the inputs of one dispatch each."""
         return self._grouped(self._grouped(gen, self.accum), self.steps_per_dispatch)
@@ -222,9 +257,15 @@ class Trainer:
         return CheckpointManager(os.path.join(self.logdir, "checkpoints"), self.save_top_k,
                                  monitor)
 
+    def _save(self, mngr, step, state, metrics=None):
+        """Rank 0 hands the (gathered) state to the checkpoint writer."""
+        if self.is_main:
+            mngr.save(step, state, metrics=metrics)
+
     def _emergency_save(self, mngr, step, state, reason):
         try:
-            mngr.save(step, state)
+            self._save(mngr, step, state)
+            mngr.wait()
             print(f"[preempt:{reason}] emergency checkpoint saved at step {step}")
         except Exception as e:  # never mask the shutdown on a save failure
             print(f"[preempt:{reason}] emergency save FAILED: {e}")
@@ -233,7 +274,7 @@ class Trainer:
         """Start the trace before step 0 of a fresh run; stop it and write
         `<logdir>/profile/trace.json` once `profile_steps` steps are done (or
         the run ends first)."""
-        if not self.profile_steps:
+        if not self.profile_steps or not self.is_main:
             return
         if self._profiler is None and global_step == 0 and not end:
             from torch.profiler import ProfilerActivity, profile
@@ -257,6 +298,8 @@ class Trainer:
         """Host-loop attribution -> <logdir>/loop_buckets.json. "device_wait"
         is the wall time no measured host bucket accounts for: where the host
         waits for (or runs ahead of) the device."""
+        if not self.is_main:
+            return
         accounted = sum(v for k, v in buckets.items() if k != "transfer")  # part of "pull"
         out = {"wall_seconds": round(wall, 3), "global_step": gs,
                "buckets": {k: round(v, 3) for k, v in sorted(buckets.items())},
@@ -267,9 +310,10 @@ class Trainer:
     def _mean_over(self, loader, keys, eval_step):
         """Mean of `eval_step`'s logs over the validation batches (called
         with the batch's entries under `keys`), summed on the device with one
-        host sync at the end."""
+        host sync at the end; over several ranks the mean of the ranks'
+        means (equal shares of every global batch)."""
         acc, n = None, 0
-        for bi, batch in enumerate(device_prefetch(loader.epoch(0), self.device)):
+        for bi, batch in enumerate(device_prefetch(loader.epoch(0, self._part()), self.device)):
             if self.max_steps_per_epoch and bi >= self.max_steps_per_epoch:
                 break
             logs = eval_step(*(batch[k] for k in keys))
@@ -278,8 +322,10 @@ class Trainer:
         if acc is None:
             return {}
         keys = sorted(acc)
-        values = (torch.stack([acc[k].float() for k in keys]) / n).tolist()
-        return dict(zip(keys, values))
+        values = torch.stack([acc[k].float() for k in keys]) / n
+        if self.world is not None:
+            self.world.mean_(values)
+        return dict(zip(keys, values.tolist()))
 
     # ------------------------------------------------------------------ fit
     def fit(self, model, data, eval_only: bool = False):
@@ -330,13 +376,15 @@ class Trainer:
                     gs += k
                     lagged.flush()
                     self._maybe_profile(gs)
-                    if guard.should_stop:
+                    stop = (guard.should_stop if self.world is None
+                            else self.world.any(guard.should_stop))
+                    if stop:
                         self._maybe_profile(gs, end=True)
-                        self._emergency_save(mngr, gs, state_fn(), guard.reason)
+                        self._emergency_save(mngr, gs, state_fn(), guard.reason or "peer")
                         return trainer
                     x_last = x if k == 1 else _last(x)
                     if (bi * k) % self.log_every < k:
-                        ips = (k * self.accum * batch_size_of(x_last) * (bi + 1)
+                        ips = (k * self.accum * batch_size_of(x_last) * (bi + 1) * self._ranks()
                                / max(time.time() - t0, 1e-9))
                         lagged.push(gs, logs if k == 1 else _last(logs), ips,
                                     first_row_extra if bi == 0 else {})
@@ -354,13 +402,20 @@ class Trainer:
                 self.metrics.log(gs, val_metrics, "val")
                 _add(buckets, "validate", t_v)
                 t_c = time.perf_counter()
-                mngr.save(gs, state_fn(), metrics=val_metrics)
+                self._save(mngr, gs, state_fn(), metrics=val_metrics)
                 _add(buckets, "checkpoint", t_c)
-                print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()),
-                      flush=True)
+                if self.is_main:
+                    print(f"epoch {epoch}: "
+                          + " ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()), flush=True)
+        t_w = time.perf_counter()
+        mngr.wait()
+        _add(buckets, "checkpoint_wait", t_w)
         self._maybe_profile(gs, end=True)
         self._write_buckets(buckets, time.perf_counter() - t_fit, gs)
         return trainer
+
+    def _ranks(self) -> int:
+        return 1 if self.world is None else self.world.size
 
     # --------------------------------------------------------------- stage 1
     def _fit_stage1(self, model, data, train_loader, warmup_steps, eval_only=False):
@@ -368,17 +423,21 @@ class Trainer:
             model, learning_rate=model.learning_rate,
             min_learning_rate=getattr(model, "min_learning_rate", 0.0),
             warmup_steps=warmup_steps, max_steps=model.training_steps, accum=self.accum,
-            device=self.device, seed=self.seed + 1)
+            device=self.device, seed=self.seed + 1, **self._trainer_kwargs())
         # the first training batch's first image sets a discriminator's ActNorm, as in JAX
-        batches = train_loader.epoch(0)
+        # (rank 0 holds the global batch's first rows)
+        batches = train_loader.epoch(0, self._part())
         x0 = next(batches)[model.image_key][:1]
         batches.close()
+        if self.world is not None:
+            x0 = self.world.broadcast_(torch.as_tensor(x0).to(self.device)).cpu().numpy()
         trainer.init_state(self._generator(self.seed) if self.init_weights else None, x0)
 
         mngr = self._ckpt_manager(model.monitor)
         if self.resume and mngr.latest() is not None:
             trainer.load_state_dict(mngr.restore(map_location=self.device)["trainer"])
-            print(f"Resumed from checkpoint step {mngr.latest()}")
+            if self.is_main:
+                print(f"Resumed from checkpoint step {mngr.latest()}")
 
         def validate():
             return self._validate_stage1(model, data, trainer)
@@ -390,12 +449,14 @@ class Trainer:
             return trainer
 
         def epoch_inputs(epoch, buckets):
-            batches = (b[model.image_key] for b in train_loader.epoch(epoch))
+            batches = (b[model.image_key] for b in train_loader.epoch(epoch, self._part()))
             return device_prefetch(self._step_inputs(batches), self.device,
                                    timings=buckets), {}
 
         def log_images(x, gs, epoch, bi):
-            self._log_stage1_images(model, x if self.accum == 1 else x[0], "train", gs, epoch, bi)
+            if self.is_main:
+                self._log_stage1_images(model, x if self.accum == 1 else x[0], "train", gs,
+                                        epoch, bi)
 
         return self._run_epochs(
             trainer, mngr, lambda: {"stage": 1, "trainer": trainer.state_dict()},
@@ -457,7 +518,8 @@ class Trainer:
             model, learning_rate=model.learning_rate,
             min_learning_rate=getattr(model, "min_learning_rate", 0.0),
             warmup_steps=warmup_steps, max_steps=model.training_steps, accum=self.accum,
-            compute_dtype=model.compute_dtype, device=self.device, seed=self.seed + 1)
+            compute_dtype=model.compute_dtype, device=self.device, seed=self.seed + 1,
+            **self._trainer_kwargs())
 
         mngr = self._ckpt_manager(model.monitor)
         if self.resume and mngr.latest() is not None:
@@ -465,7 +527,8 @@ class Trainer:
             trainer.load_state_dict(state["trainer"])
             model.first_stage_model.load_state_dict(state["first_stage"])
             trainer.refresh_first_stage()
-            print(f"Resumed from checkpoint step {mngr.latest()}")
+            if self.is_main:
+                print(f"Resumed from checkpoint step {mngr.latest()}")
 
         def validate():
             return self._validate_stage2(model, data, trainer)
@@ -481,7 +544,8 @@ class Trainer:
         def epoch_inputs(epoch, buckets):
             if not use_cached:
                 batches = ((b[model.first_stage_key], b["class_label"]) if labelled
-                           else b[model.first_stage_key] for b in train_loader.epoch(epoch))
+                           else b[model.first_stage_key]
+                           for b in train_loader.epoch(epoch, self._part()))
                 return device_prefetch(self._step_inputs(batches), self.device,
                                        timings=buckets), {}
             t_enc = time.perf_counter()
@@ -499,8 +563,9 @@ class Trainer:
                 x_img, c = x if labelled else (x, None)
                 if self.accum > 1:
                     x_img, c = x_img[0], None if c is None else c[0]
-            with trainer.master_weights():
-                self._log_stage2_images(model, x_img, c, "train", gs, epoch, bi)
+            with trainer.master_weights():  # gathers FSDP's master slices on every rank
+                if self.is_main:
+                    self._log_stage2_images(model, x_img, c, "train", gs, epoch, bi)
 
         def batch_size_of(x):
             x = x[0] if labelled else x
@@ -544,7 +609,8 @@ class Trainer:
             z = {k: v.cpu().numpy().astype(cache_dtype) for k, v in z.items()}
             return (z, c.cpu().numpy().astype(np.int32)) if labelled else z
 
-        for bi, batch in enumerate(device_prefetch(train_loader.epoch(epoch), self.device)):
+        for bi, batch in enumerate(device_prefetch(train_loader.epoch(epoch, self._part()),
+                                                   self.device)):
             if self.max_steps_per_epoch and bi >= self.max_steps_per_epoch:
                 break
             x = batch[model.first_stage_key].float()

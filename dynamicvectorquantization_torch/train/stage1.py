@@ -73,6 +73,21 @@ batch's first image, as the JAX loop does), else one zero image, which is
 what the JAX trainer initialises them from; their `initialized` flag and
 `loc` / `scale` are in the state dict. The epoch loop, checkpoints and data
 loading live in `train/loop.py`.
+
+Over several ranks (`world`), each rank takes its rows of the global batch
+and the step follows the JAX step under GSPMD, which sees the global batch:
+both passes run inside `parallel.dist.global_stats` (the EMA sums and the
+restart pool, the discriminator's BatchNorm statistics, the budget loss's
+ratio are the global batch's); the adaptive weight takes the norms of the
+rank-averaged `conv_out` gradients; each optimizer steps on gradients and
+logs averaged over the ranks in flat buckets (`parallel/shard.py`), with
+`shard="zero1"` / `"fsdp"` on each rank's slices of the large leaves (the
+parameters are the f32 masters here, so the two are one scheme: moments
+sharded, parameters gathered after the update). The restart draw comes from
+the trainer's generator, identical on every rank; the Gumbel noise and the
+dropout seeds are drawn per rank from a generator seeded by (seed, step,
+rank), so each rank's draws are its own and a resume at the same world size
+repeats them.
 """
 from __future__ import annotations
 
@@ -82,11 +97,17 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.encoder_dual import draw_gumbel
+from ..ops.attention import mix_seed
 from ..ops.fused_adamw import adamw_scalars
+from ..parallel.dist import global_stats
+from ..parallel.shard import SHARD_MIN_ELEMENTS, GradBuckets
 from ..utils.device import resolve_device
 from .schedules import make_schedule
 
 B1, B2, EPS = 0.5, 0.9, 1e-8
+# logs each pass reduces with its gradients: at most the autoencoder's 11
+# (a triple-grain model's ratios) and the discriminator's 3
+_N_LOGS = {"ae": 11, "disc": 3}
 
 
 @torch.no_grad()
@@ -105,14 +126,26 @@ def adam_update(params, grads, m, v, lr, c1, c2):
 
 
 class _Adam:
-    """Adam(0.5, 0.9) state over named parameters."""
+    """Adam(0.5, 0.9) state over named parameters; with `buckets` (several
+    ranks) the gradients are averaged over the ranks before the step, and
+    the moments of sharded leaves are this rank's slices."""
 
-    def __init__(self, params: dict, schedule):
+    def __init__(self, params: dict, schedule, buckets: GradBuckets = None):
         self.params = params
         self.schedule = schedule
-        self.m = {k: torch.zeros_like(p) for k, p in params.items()}
-        self.v = {k: torch.zeros_like(p) for k, p in params.items()}
+        self.buckets = buckets
+        self.m = {k: torch.zeros(self._shape(k), device=p.device) for k, p in params.items()}
+        self.v = {k: torch.zeros(self._shape(k), device=p.device) for k, p in params.items()}
         self.count = 0
+
+    def _sharded(self, k) -> bool:
+        return self.buckets is not None and k in self.buckets.own
+
+    def _shape(self, k):
+        return (self.buckets.own_len(k),) if self._sharded(k) else self.params[k].shape
+
+    def _own(self, k, full):
+        return self.buckets.own_slice(full, k) if self._sharded(k) else full
 
     def reset(self):
         for k in self.params:
@@ -121,21 +154,36 @@ class _Adam:
         self.count = 0
 
     def state_dict(self):
-        return {"count": self.count, "m": dict(self.m), "v": dict(self.v)}
+        """Count and moments, sharded leaves gathered whole (every rank calls it)."""
+        out = {"count": self.count, "m": dict(self.m), "v": dict(self.v)}
+        if self.buckets is not None and self.buckets.sharded:
+            for key in ("m", "v"):
+                out[key].update(self.buckets.gathered({k: out[key][k]
+                                                       for k in self.buckets.sharded}))
+        return out
 
     def load(self, count, m, v):
         if set(m) != set(self.params) or set(v) != set(self.params):
             raise KeyError("optimizer state does not match the parameters")
         for k in self.params:
-            self.m[k].copy_(m[k])
-            self.v[k].copy_(v[k])
+            self.m[k].copy_(self._own(k, m[k].to(self.m[k].device)))
+            self.v[k].copy_(self._own(k, v[k].to(self.v[k].device)))
         self.count = int(count)
 
+    def reduce(self, grads, logs=None):
+        """(gradients, logs) averaged over the ranks; as given on one process."""
+        return (grads, logs) if self.buckets is None else self.buckets.reduce(grads, logs)
+
     def step(self, grads):
+        """One update from `reduce`d gradients; sharded leaves update their
+        slice, then every rank's slices are gathered into the parameters."""
         lr, c1, c2 = adamw_scalars(self.count, self.schedule, B1, B2)
-        names = list(self.params)
-        adam_update([self.params[k].data for k in names], [grads[k] for k in names],
+        names = [k for k in self.params if self.m[k].numel()]
+        adam_update([self._own(k, self.params[k].data) for k in names], [grads[k] for k in names],
                     [self.m[k] for k in names], [self.v[k] for k in names], lr, c1, c2)
+        if self.buckets is not None and self.buckets.sharded:
+            full = {k: self.params[k].data for k in self.buckets.sharded}
+            self.buckets.gather(full, {k: self._own(k, full[k]) for k in full})
         self.count += 1
 
 
@@ -164,10 +212,13 @@ def resolve_remat(remat, device: torch.device) -> bool:
 class Stage1Trainer:
     def __init__(self, model, learning_rate, min_learning_rate=0.0, warmup_steps=0,
                  max_steps=1_000_000, scheduler_type=None, remat=None, accum=1, device=None,
-                 seed=0):
+                 seed=0, world=None, shard=None, shard_min_elements=SHARD_MIN_ELEMENTS):
         if model.loss is None or not hasattr(model.loss, "discriminator"):
             raise ValueError("Stage1Trainer needs a model built with a GAN lossconfig")
-        self.device = resolve_device(device)
+        if shard is not None and world is None:
+            raise ValueError("sharding the optimizer state needs a world of ranks")
+        self.world, self.shard = world, shard
+        self.device = resolve_device(device if world is None else world.device)
         self.remat = resolve_remat(remat, self.device)
         self.model = model.to(self.device).float()
         self.model.eval()  # train / eval behaviour is chosen per call, not by module mode
@@ -187,12 +238,19 @@ class Stage1Trainer:
         for p in (*self.ae_params.values(), *self.disc_params.values()):
             p.requires_grad_(True)
         self.loss.perceptual_loss.requires_grad_(False)
-        self.ae_opt = _Adam(self.ae_params, schedule())
-        self.disc_opt = _Adam(self.disc_params, schedule())
+        buckets = {}
+        if world is not None:
+            for key, params in (("ae", self.ae_params), ("disc", self.disc_params)):
+                buckets[key] = GradBuckets({k: p.shape for k, p in params.items()}, world, shard,
+                                           shard_min_elements, self.device, _N_LOGS[key])
+        self.ae_opt = _Adam(self.ae_params, schedule(), buckets.get("ae"))
+        self.disc_opt = _Adam(self.disc_params, schedule(), buckets.get("disc"))
         self.step = 0
         self.epoch = 0
+        self.seed = int(seed)
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        self.generator.manual_seed(self.seed)
+        self._rank_generator = torch.Generator(device=self.device)
 
     # ------------------------------------------------------------- state
     def state_dict(self):
@@ -266,6 +324,9 @@ class Stage1Trainer:
         nll, g = self.loss.nll_and_g(x, xr.permute(0, 2, 3, 1))
         (g_nll,) = torch.autograd.grad(nll, conv_out.weight, retain_graph=True)
         (g_g,) = torch.autograd.grad(g, conv_out.weight)
+        if self.world is not None:  # the global batch's gradients, one collective
+            both = self.world.mean_(torch.stack([g_nll, g_g]))
+            g_nll, g_g = both[0], both[1]
         d_weight = (g_nll.norm() / (g_g.norm() + 1e-4)).clamp(0.0, 1e4) * self.loss.disc_weight
         if self.loss.disc_weight_max is not None:
             d_weight = d_weight.clamp(max=self.loss.disc_weight_max)
@@ -327,14 +388,26 @@ class Stage1Trainer:
         if generator is None:
             generator = self.generator
         micro = self._microbatches(self._images(x))
-        draws = [(self._gumbel_noise(xi, generator), self.model.dropout_masks(True, generator))
+        draw = generator
+        if self.world is not None and self.world.size > 1:  # per-rank draws
+            draw = self._rank_generator
+            draw.manual_seed(mix_seed(self.seed, self.step, self.world.rank) >> 1)
+        draws = [(self._gumbel_noise(xi, draw), self.model.dropout_masks(True, draw))
                  for xi in micro]
         gate_step = self.epoch if self.loss_with_epoch else self.step
         logs = {}
         for opt, fn in ((self.ae_opt, self._ae_grads), (self.disc_opt, self._disc_grads)):
-            results = [fn(xi, gate_step, generator, *d) for xi, d in zip(micro, draws)]
-            logs.update(_mean_of([r[0] for r in results]))
-            opt.step(_mean_of([r[1] for r in results]))
+            with global_stats(self.world):
+                results = [fn(xi, gate_step, generator, *d) for xi, d in zip(micro, draws)]
+            mean_logs = _mean_of([r[0] for r in results])
+            names = sorted(mean_logs)
+            grads, stacked = opt.reduce(_mean_of([r[1] for r in results]),
+                                        None if self.world is None
+                                        else torch.stack([mean_logs[k] for k in names]))
+            if stacked is not None:
+                mean_logs = dict(zip(names, stacked.clone().unbind()))
+            logs.update(mean_logs)
+            opt.step(grads)
         self.step += 1
         return logs
 

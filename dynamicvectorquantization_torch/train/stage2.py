@@ -61,8 +61,25 @@ or replay that fails raises. The inline-encode step (images, or `accum >
 1`) stays eager, op by op, as the stage-1 step does: K steps a dispatch run
 as K such steps.
 
-The epoch loop, checkpoints and data loading live in `train/loop.py`; the
-parallel trainers are not ported (ROADMAP.md).
+Over several ranks (`world`, a `parallel.dist.World`), each rank takes its
+rows of the global batch, and the step equals the one-process step over the
+global batch up to the order of the sums, as the JAX step under GSPMD does:
+the forward runs inside `global_stats` (the loss's denominator counts the
+global batch's valid targets), and the pad-frozen gradients and the logs
+are averaged over the ranks in flat buckets (`parallel/shard.py`) before
+the AdamW kernel runs. `shard="zero1"` keeps the moments of leaves of at
+least `shard_min_elements` elements as each rank's contiguous slice
+(gradients reduce-scattered to their owners, the kernel run on the slice,
+the updated leaves all-gathered); `shard="fsdp"` also keeps the f32 masters
+of those leaves as slices under bf16 (the full bf16 working copy is
+gathered; under f32 the masters are the working parameters, so FSDP is
+ZeRO-1 there). Elementwise updates of slices give the unsharded bits.
+On CUDA the cached-codes step captures the collectives with the step
+(NCCL); a gloo world runs it eagerly (gloo cannot be captured). Dropout draws
+are per rank: the rank is mixed into the attention seeds and the
+elementwise generator's seed.
+
+The epoch loop, checkpoints and data loading live in `train/loop.py`.
 """
 from __future__ import annotations
 
@@ -77,6 +94,8 @@ from ..models.graphs import parameter_storage, runner_for
 from ..nn.transformer import CausalSelfAttention
 from ..ops.attention import attention_seed, mix_seed
 from ..ops.fused_adamw import adamw_scalars, fused_adamw_step
+from ..parallel.dist import global_stats
+from ..parallel.shard import SHARD_MIN_ELEMENTS, GradBuckets
 from ..utils.device import resolve_device
 from .schedules import warmup_cosine
 
@@ -132,10 +151,14 @@ class _StepState:
 
 class Stage2Trainer:
     def __init__(self, model, learning_rate, min_learning_rate=0.0, warmup_steps=0,
-                 max_steps=1_000_000, accum=1, compute_dtype=None, device=None, seed=0):
+                 max_steps=1_000_000, accum=1, compute_dtype=None, device=None, seed=0,
+                 world=None, shard=None, shard_min_elements=SHARD_MIN_ELEMENTS):
         if compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
-        self.device = resolve_device(device)
+        if shard is not None and world is None:
+            raise ValueError("sharding the optimizer state needs a world of ranks")
+        self.world, self.shard = world, shard
+        self.device = resolve_device(device if world is None else world.device)
         self.model = model.to(self.device)
         self.accum = int(accum)
         if self.accum < 1:
@@ -160,8 +183,15 @@ class Stage2Trainer:
         else:
             tf.float()
             self.masters = {k: p.data for k, p in self.params.items()}
-        self.m = {k: torch.zeros_like(p) for k, p in self.masters.items()}
-        self.v = {k: torch.zeros_like(p) for k, p in self.masters.items()}
+        self.buckets = None
+        if world is not None:
+            self.buckets = GradBuckets({k: p.shape for k, p in self.params.items()}, world, shard,
+                                       shard_min_elements, self.device, len(_LOG_NAMES))
+            if shard == "fsdp" and self.mixed:  # sharded leaves keep their masters' slices
+                for k in self.buckets.sharded:
+                    self.masters[k] = self.buckets.own_slice(self.masters[k], k).clone()
+        self.m = {k: torch.zeros(self._moment_shape(k), device=self.device) for k in self.masters}
+        self.v = {k: torch.zeros(self._moment_shape(k), device=self.device) for k in self.masters}
         self.count = 0
         self.epoch = 0
         self.base_seed = int(seed)
@@ -177,10 +207,32 @@ class Stage2Trainer:
         self.frozen_first_stage = cast_copy(fs) if self.mixed else fs
 
     # ------------------------------------------------------------- state
+    def _sharded(self, name) -> bool:
+        return self.buckets is not None and name in self.buckets.own
+
+    def _moment_shape(self, name):
+        return (self.buckets.own_len(name),) if self._sharded(name) else self.params[name].shape
+
+    def _master_sharded(self, name) -> bool:
+        return self.shard == "fsdp" and self.mixed and self._sharded(name)
+
+    def _full(self, tensors: dict, sharded) -> dict:
+        """`tensors` with the leaves for which `sharded(name)` holds gathered
+        from every rank's slices (a collective: every rank calls it)."""
+        names = [k for k in tensors if sharded(k)]
+        return {**tensors, **(self.buckets.gathered({k: tensors[k] for k in names})
+                              if names else {})}
+
+    def _own(self, name, full):
+        return self.buckets.own_slice(full, name) if self._sharded(name) else full
+
     def state_dict(self):
         """The whole training state: f32 masters, both moments, the step
-        count, the epoch and the base seed of the dropout streams."""
-        return {"masters": dict(self.masters), "m": dict(self.m), "v": dict(self.v),
+        count, the epoch and the base seed of the dropout streams; sharded
+        leaves gathered whole from every rank (every rank calls it)."""
+        return {"masters": self._full(dict(self.masters), self._master_sharded),
+                "m": self._full(dict(self.m), self._sharded),
+                "v": self._full(dict(self.v), self._sharded),
                 "count": self.count, "epoch": self.epoch, "seed": self.base_seed}
 
     def load_state_dict(self, state):
@@ -191,9 +243,13 @@ class Stage2Trainer:
             raise KeyError("training state does not match the transformer's parameters")
         with torch.no_grad():
             for k, p in self.params.items():
-                self.masters[k].copy_(state["masters"][k])
+                full = state["masters"][k]
+                if self._master_sharded(k):
+                    self.masters[k].copy_(self._own(k, full.to(self.device)))
+                else:
+                    self.masters[k].copy_(full)
                 if self.mixed:
-                    p.copy_(self.masters[k])
+                    p.copy_(full)
         self.load_optimizer_state(state["count"], state["m"], state["v"])
         self.epoch = int(state["epoch"])
         self.base_seed = int(state["seed"])
@@ -204,8 +260,8 @@ class Stage2Trainer:
         if set(m) != set(self.masters) or set(v) != set(self.masters):
             raise KeyError("optimizer state does not match the transformer's parameters")
         for k in self.masters:
-            self.m[k].copy_(m[k])
-            self.v[k].copy_(v[k])
+            self.m[k].copy_(self._own(k, m[k].to(self.device)))
+            self.v[k].copy_(self._own(k, v[k].to(self.device)))
         self.count = int(count)
 
     # -------------------------------------------------------------- steps
@@ -233,8 +289,7 @@ class Stage2Trainer:
         x = self._to_device(x)
         c = None if c is None else self._to_device(c)
         if generator is None:
-            generator = self.generator
-            generator.manual_seed(mix_seed(self.base_seed, self.count, _ELEMENTWISE) >> 1)
+            generator = self._seeded_generator()
         names, params = zip(*self.params.items())
         if self.accum == 1:
             micro = [(x, c)]
@@ -246,10 +301,10 @@ class Stage2Trainer:
                       None if c is None else c[i]) for i in range(n)]
         sums, log_sums = None, None
         for i, (xi, ci) in enumerate(micro):
-            total, out = self._losses(xi, ci, True, generator,
-                                      attention_seed(self.base_seed, self.count, i),
-                                      self.frozen_first_stage)
-            g = torch.autograd.grad(total, params)
+            with global_stats(self.world):
+                total, out = self._losses(xi, ci, True, generator, self._seed(i),
+                                          self.frozen_first_stage)
+                g = torch.autograd.grad(total, params)
             logs = {"total": total.detach().float(),
                     **{k: out[k].detach().float() for k in _LOSS_KEYS}}
             if self.accum == 1:
@@ -270,25 +325,78 @@ class Stage2Trainer:
         return {"train_loss": log_sums["total"],
                 **{f"train_{k}": log_sums[k] for k in _LOSS_KEYS}}, grads
 
+    def _seed(self, microbatch):
+        """The attention seed of a training forward; the rank mixed in over
+        several ranks, so each rank draws its own masks."""
+        seed = attention_seed(self.base_seed, self.count, microbatch)
+        return seed if self.world is None or self.world.size == 1 else mix_seed(
+            seed, self.world.rank)
+
+    def _seeded_generator(self):
+        """The trainer's elementwise-dropout generator, re-seeded for this
+        step (and rank)."""
+        seed = mix_seed(self.base_seed, self.count, _ELEMENTWISE)
+        if self.world is not None and self.world.size > 1:
+            seed = mix_seed(seed, self.world.rank)
+        self.generator.manual_seed(seed >> 1)
+        return self.generator
+
     def _update(self, grads, lr, c1=None, c2=None):
         """AdamW over every parameter: lr, c1, c2 as floats, or as the (3,)
-        device tensor `lr` the kernels read on the device."""
+        device tensor `lr` the kernels read on the device. Over several ranks
+        `grads` are the averaged ones, a sharded leaf's its rank's slice: the
+        kernel updates that slice, then every rank's updated slices are
+        gathered into the full leaves."""
         for name, p in self.params.items():
             wd = self.weight_decay if name in self.decayed else 0.0
-            fused_adamw_step(grads[name].contiguous(), self.masters[name], self.m[name],
-                             self.v[name], lr, c1, c2, B1, B2, EPS, wd,
-                             copy=p.data if self.mixed else None)
+            if not self._sharded(name):
+                fused_adamw_step(grads[name].contiguous(), self.masters[name], self.m[name],
+                                 self.v[name], lr, c1, c2, B1, B2, EPS, wd,
+                                 copy=p.data if self.mixed else None)
+            elif self.buckets.own_len(name):
+                master = (self.masters[name] if self._master_sharded(name)
+                          else self._own(name, self.masters[name]))
+                fused_adamw_step(grads[name], master, self.m[name], self.v[name], lr, c1, c2,
+                                 B1, B2, EPS, wd,
+                                 copy=self._own(name, p.data) if self.mixed else None)
+        if self.buckets is not None and self.buckets.sharded:
+            self._gather_updated()
 
-    def apply_update(self, grads):
-        """One AdamW update of every parameter from `grads`."""
+    def _gather_updated(self):
+        """Every rank's updated slices into the full leaves: the bf16 working
+        copy under FSDP, the f32 masters (then their bf16 rounding) under
+        ZeRO-1, the f32 parameters under f32."""
+        b = self.buckets
+        if self.mixed and self.shard == "fsdp":
+            full = {k: self.params[k].data for k in b.sharded}
+        else:
+            full = {k: self.masters[k] for k in b.sharded}
+        b.gather(full, {k: b.own_slice(full[k], k) for k in b.sharded})
+        if self.mixed and self.shard != "fsdp":
+            torch._foreach_copy_([self.params[k].data for k in b.sharded],
+                                 [self.masters[k] for k in b.sharded])
+
+    def _reduce(self, grads, logs):
+        """(gradients, logs) averaged over the ranks (see `_update`)."""
+        if self.buckets is None:
+            return grads, logs
+        return self.buckets.reduce(grads, logs)
+
+    def apply_update(self, grads, logs=None):
+        """One AdamW update of every parameter from `grads` (this rank's:
+        over several ranks they and the stacked `logs` are averaged first);
+        returns the logs as they were applied."""
+        grads, logs = self._reduce(grads, logs)
         self._update(grads, *adamw_scalars(self.count, self.schedule, B1, B2))
         self.count += 1
+        return logs
 
     def seed_table(self):
         """The attention-dropout seeds of the next step, one per layer of the
         model, as `nn/transformer.py` mixes them from `attention_seed`
-        (microbatch 0), as int64 (their 64 bits)."""
-        seed = attention_seed(self.base_seed, self.count, 0)
+        (microbatch 0; the rank mixed in over several ranks), as int64 (their
+        64 bits)."""
+        seed = self._seed(0)
         return np.array([mix_seed(seed, i) for i in range(self.n_layers)],
                         dtype=np.uint64).view(np.int64)
 
@@ -296,12 +404,14 @@ class Stage2Trainer:
         """One optimizer step that reads its inputs from `st` and writes its
         logs there: what a CUDA graph captures and replays."""
         names, params = zip(*self.params.items())
-        total, out = self._losses(st.x, st.c, True, generator, st.seeds)
-        grads = dict(zip(names, torch.autograd.grad(total, params)))
+        with global_stats(self.world):
+            total, out = self._losses(st.x, st.c, True, generator, st.seeds)
+            grads = dict(zip(names, torch.autograd.grad(total, params)))
         for name, pad in self.pad_rows.items():
             grads[name][pad] = 0.0
-        st.logs.copy_(torch.stack([total.detach().float()]
-                                  + [out[k].detach().float() for k in _LOSS_KEYS]))
+        logs = torch.stack([total.detach().float()] + [out[k].detach().float() for k in _LOSS_KEYS])
+        grads, logs = self._reduce(grads, logs)
+        st.logs.copy_(logs)
         self._update(grads, st.scalars)
 
     def _graph_key(self, st: _StepState):
@@ -331,9 +441,10 @@ class Stage2Trainer:
         _fill_from_host(st.scalars, np.array(adamw_scalars(self.count, self.schedule, B1, B2),
                                              dtype=np.float32))
         if generator is None:
-            generator = self.generator
-            generator.manual_seed(mix_seed(self.base_seed, self.count, _ELEMENTWISE) >> 1)
-        if self.device.type == "cuda" and not eager:
+            generator = self._seeded_generator()
+        graphs = self.device.type == "cuda" and not eager and (
+            self.world is None or self.world.backend == "nccl")
+        if graphs:
             runner = runner_for(self, self.device)
             with runner.carry_generator(generator) as g:
                 runner.run(self._graph_key(st), lambda: self._static_step(st, g),
@@ -352,8 +463,11 @@ class Stage2Trainer:
         if isinstance(x, dict) and self.accum == 1:
             return self._cached_step(x, generator, c, eager)
         logs, grads = self.compute_grads(x, generator, c)
-        self.apply_update(grads)
-        return logs
+        if self.world is None:
+            self.apply_update(grads)
+            return logs
+        stacked = self.apply_update(grads, torch.stack([logs[k] for k in _LOG_NAMES]))
+        return dict(zip(_LOG_NAMES, stacked.clone().unbind()))
 
     def train_steps(self, xs, generator=None, cs=None, eager=False):
         """K full optimizer steps over xs (and their labels `cs`) with a
@@ -376,9 +490,10 @@ class Stage2Trainer:
             yield
             return
         working = {k: p.data for k, p in self.params.items()}
+        masters = self._full(dict(self.masters), self._master_sharded)
         try:
             for k, p in self.params.items():
-                p.data = self.masters[k]
+                p.data = masters[k]
             yield
         finally:
             for k, p in self.params.items():
@@ -390,7 +505,7 @@ class Stage2Trainer:
         the f32 masters and encoded by the f32 first stage (the monitored
         `val_loss` ranks the checkpoints)."""
         c = None if c is None else self._to_device(c)
-        with self.master_weights():
+        with self.master_weights(), global_stats(self.world):
             total, out = self._losses(self._to_device(x), c, False, None)
         return {"val_loss": total.float(), **{f"val_{k}": out[k].float() for k in _LOSS_KEYS}}
 

@@ -15,6 +15,13 @@ with a fresh `numpy.random.default_rng(SEED)`. `tests/test_torch_image_io.py`
 recomputes it (`expected_entries`) and holds the port to it; on the card,
 `chip_smoke.py`'s `data_real` phase holds the port to the file.
 
+`expected_cut.json` holds what the libjpeg-turbo that PIL bundles (read
+through a memory source, `tests/test_torch_image_io.py` `pil_libjpeg_decoder`)
+makes of four of the JPEGs cut short at each of `CUT_FRACTIONS` of their
+length, at each DCT-domain denominator: the digest of the RGB array, or
+"refused". `--cut` writes that file alone (it needs PIL and libjpeg's headers,
+not the JAX package).
+
 Needs PIL, the JAX package (whose native JPEG library must build) and libjpeg's
 headers.
 """
@@ -137,9 +144,55 @@ def expected_entries():
     return out
 
 
+# JPEGs cut short: baseline and progressive, Huffman and arithmetic coding
+CUT_FILES = ("n01_rgb420_q90.JPEG", "progressive_q80.jpeg", "arith_q85.jpg",
+             "arith_progressive_rst_q80.jpg")
+CUT_FRACTIONS = (0.3, 0.6, 0.95)
+CUT_DENOMINATORS = (1, 2, 4, 8)
+
+
+def cut_short(data: bytes, fraction: float) -> bytes:
+    return data[:int(len(data) * fraction)]
+
+
+def expected_cut_entries(decode):
+    """{"<file>@<fraction>": {"<denominator>": digest, or "refused"}} of
+    `decode(data, denominator)` (an RGB array, or None) over the cut files."""
+    out = {}
+    for name in CUT_FILES:
+        with open(os.path.join(HERE, name), "rb") as f:
+            data = f.read()
+        for fraction in CUT_FRACTIONS:
+            entry = {}
+            for d in CUT_DENOMINATORS:
+                arr = decode(cut_short(data, fraction), d)
+                entry[str(d)] = "refused" if arr is None else digest(arr)
+            out[f"{name}@{fraction}"] = entry
+    return out
+
+
+def write_expected_cut():
+    import tempfile
+
+    from tests.test_torch_image_io import pil_libjpeg_decoder
+
+    with tempfile.TemporaryDirectory() as tmp:
+        decode = pil_libjpeg_decoder(tmp)
+        if decode is None:
+            raise RuntimeError("PIL's bundled libjpeg-turbo or libjpeg's headers are absent")
+        doc = {"libjpeg_turbo": decode.version, "fractions": list(CUT_FRACTIONS),
+               "denominators": list(CUT_DENOMINATORS), "files": expected_cut_entries(decode)}
+    with open(os.path.join(HERE, "expected_cut.json"), "w") as f:
+        json.dump(doc, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(HERE))))
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    if sys.argv[1:] == ["--cut"]:
+        write_expected_cut()
+        return
     made = write_fixtures()
     doc = {"seed": SEED, "sizes": list(SIZES), "transforms": list(TRANSFORMS),
            "generator": f"numpy.random.default_rng({SEED}), fresh for each file, transform "
@@ -148,6 +201,7 @@ def main():
     with open(os.path.join(HERE, "expected.json"), "w") as f:
         json.dump(doc, f, indent=1, sort_keys=True)
         f.write("\n")
+    write_expected_cut()
     total = sum(os.path.getsize(os.path.join(HERE, n)) for n in fixture_names())
     print(f"{len(made)} files, {total} bytes")
 

@@ -547,6 +547,77 @@ def libjpeg_encoder(workdir):
     return encode
 
 
+def pil_libjpeg_decoder(workdir):
+    """`decode(data, denominator) -> (H, W, 3) uint8 RGB, or None where it
+    refuses the data`: the libjpeg-turbo that PIL bundles (its wheel's
+    `pillow.libs/libjpeg-*.so*`; 3.1.3 with PIL 12.1.0) through a memory
+    source that supplies a fake EOI past the data, as the JAX package's
+    libjpeg route reads; `native/host_pipeline.cpp` built in `workdir`
+    against libjpeg's headers and that library. PIL's own reader cannot
+    stand in for it on cut arithmetic-coded files: it reads through a
+    suspending source, in which libjpeg's arithmetic decoder stops with an
+    error. None where PIL bundles no libjpeg or nothing builds."""
+    import ctypes
+    import glob
+    import subprocess
+
+    import PIL
+    import PIL.features
+
+    found = glob.glob(os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                                   "pillow.libs", "libjpeg-*.so*"))
+    if len(found) != 1:
+        return None
+    so = os.path.join(workdir, "libpil_jpeg.so")
+    src = os.path.join(_REPO, "dynamicvectorquantization_torch", "native", "host_pipeline.cpp")
+    proc = subprocess.run(["g++", "-O1", "-shared", "-fPIC", "-std=c++17", src, found[0],
+                           "-o", so, f"-Wl,-rpath,{os.path.dirname(found[0])}"],
+                          capture_output=True, text=True, timeout=120)
+    if proc.returncode:
+        return None
+    lib = ctypes.CDLL(so)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.dqvq_decode_jpeg.argtypes = (ctypes.c_char_p, ctypes.c_long, i, p, ctypes.c_long,
+                                     ctypes.POINTER(i), ctypes.POINTER(i))
+
+    def decode(data, denom):
+        header = native.jpeg_header(data)
+        if isinstance(header, str):
+            return None
+        h, w, _ = header
+        out = np.empty((-(-h // denom), -(-w // denom), 3), np.uint8)
+        rh, rw = i(), i()
+        rc = lib.dqvq_decode_jpeg(data, len(data), denom, out.ctypes.data_as(p), out.nbytes,
+                                  ctypes.byref(rh), ctypes.byref(rw))
+        return None if rc else out
+
+    decode.version = PIL.features.version_feature("libjpeg_turbo")
+    return decode
+
+
+@pytest.fixture(scope="module")
+def pil_libjpeg(tmp_path_factory):
+    decode = pil_libjpeg_decoder(str(tmp_path_factory.mktemp("pil_libjpeg")))
+    if decode is None:
+        pytest.skip("PIL bundles no libjpeg-turbo here, or libjpeg's headers are absent")
+    return decode
+
+
+def _port_rgb(data, denom, backend="port"):
+    """The port decoder's (or `backend`'s) RGB array at 1/denom, or None
+    where it refuses the data."""
+    header = native.jpeg_header(data)
+    if isinstance(header, str):
+        return None
+    h, w, _ = header
+    mp = pytest.MonkeyPatch()
+    mp.setattr(native, "_jpeg_backend", [backend])
+    try:
+        return native._decode(data, denom, 0, 3, (-(-h // denom), -(-w // denom)))[0]
+    finally:
+        mp.undo()
+
+
 @pytest.fixture(scope="module")
 def encoder(tmp_path_factory):
     enc = libjpeg_encoder(str(tmp_path_factory.mktemp("libjpeg_encoder")))
@@ -603,13 +674,9 @@ def test_port_jpeg_decoder_equals_libjpeg_on_arithmetic_files(encoder, layout):
 def test_port_jpeg_decoder_equals_libjpeg_on_a_truncated_arithmetic_file(encoder, progressive):
     """The rest of a cut scan decodes from zero data, with a warning and no
     error, as libjpeg's: the quantised coefficients equal
-    `jpeg_read_coefficients`'s at every cut. Pixels are held to libjpeg where
-    its output rests on those coefficients alone: the file cut in its last
-    part. Cut earlier, libjpeg's output differs from the coefficients' IDCT
-    in two ways the port does not follow, for Huffman files as for
-    arithmetic ones: block smoothing of a progressive image whose scans are
-    missing, and the SIMD IDCT's 16-bit products on the out-of-range
-    coefficients that zero data decodes to."""
+    `jpeg_read_coefficients`'s at every cut, and the file without its EOI
+    marker decodes to libjpeg's pixels. The pixels at every cut are held to
+    PIL's libjpeg-turbo by `test_cut_files_decode_to_pils_libjpeg_turbo`."""
     r = np.random.default_rng(47 + progressive)
     data = encoder(_photo(r, 96, 120, 3), YCC, RGB, (2, 1, 1), (2, 1, 1), 85, progressive, 0,
                    arith=1)
@@ -624,6 +691,82 @@ def test_port_jpeg_decoder_equals_libjpeg_on_a_truncated_arithmetic_file(encoder
     finally:
         mp.undo()
     _both_backends(data[:len(data) - 2])
+
+
+CUT_LAYOUTS = {"420": (YCC, RGB, 3, (2, 1, 1), (2, 1, 1)),
+               "422": (YCC, RGB, 3, (2, 1, 1), (1, 1, 1)), "gray": (GRAY, GRAY, 1, (1,), (1,))}
+
+
+@pytest.mark.parametrize("arith", [0, 1], ids=["huffman", "arithmetic"])
+@pytest.mark.parametrize("progressive", [0, 1], ids=["baseline", "progressive"])
+def test_cut_files_decode_to_pils_libjpeg_turbo(encoder, pil_libjpeg, arith, progressive,
+                                               monkeypatch):
+    """F13: files cut at 0.3, 0.6 and 0.95 of their length decode, at every
+    DCT-domain denominator, to the pixels of the libjpeg-turbo that PIL
+    bundles (or are refused where it refuses them): its block smoothing of a
+    progressive image whose later scans are missing (jdcoefct.c
+    decompress_smooth_data, with the progression status before the cut scan
+    past its last good iMCU row), the Huffman decoder leaving the rest of a
+    segment alone once its data ran out, and its x86 SIMD IDCTs' integer
+    widths on the out-of-range coefficients that zero data decodes to. For
+    Huffman files PIL's own reader gives the same pixels, except where its
+    suspending source stops the decode and leaves a blank image (a cut
+    progressive file with restart markers, here); for arithmetic ones it
+    cannot decode a cut file at all. Where the system libjpeg agrees with
+    PIL's, the port agrees with both; on cut progressive files they often
+    differ (another libjpeg-turbo version)."""
+    from PIL import Image, ImageFile
+
+    monkeypatch.setattr(ImageFile, "LOAD_TRUNCATED_IMAGES", True)
+    r = np.random.default_rng(70 + 2 * arith + progressive)
+    compared = refused = system_agrees = pil_reader_equal = 0
+    for layout, (space, in_space, comps, hs, vs) in sorted(CUT_LAYOUTS.items()):
+        for restart in (0, 2):
+            h, w = (int(v) for v in r.integers(64, 130, size=2))
+            px = _photo(r, h, w, comps)
+            data = encoder(px if comps > 1 else px[..., 0], space, in_space, hs, vs,
+                           int(r.integers(50, 95)), progressive, restart, arith=arith)
+            for fraction in (0.3, 0.6, 0.95):
+                cut = data[:int(len(data) * fraction)]
+                for d in (1, 2, 4, 8):
+                    want, got = pil_libjpeg(cut, d), _port_rgb(cut, d)
+                    if want is None:
+                        assert got is None, (layout, restart, fraction, d)
+                        refused += 1
+                        continue
+                    np.testing.assert_array_equal(
+                        got, want, err_msg=f"{layout} restart {restart} cut {fraction} 1/{d}")
+                    if not arith:
+                        im = Image.open(io.BytesIO(cut))
+                        im.draft("RGB", (max(w // d, 1), max(h // d, 1)))
+                        read = np.asarray(im.convert("RGB"))
+                        assert np.array_equal(read, want) or not read.any()
+                        pil_reader_equal += np.array_equal(read, want)
+                    theirs = _port_rgb(cut, d, "libjpeg")
+                    system_agrees += theirs is not None and np.array_equal(theirs, want)
+                    compared += 1
+    assert compared >= 60 and system_agrees >= compared // 4, (compared, refused,
+                                                               system_agrees)
+    assert arith or pil_reader_equal >= 0.9 * compared, (pil_reader_equal, compared)
+
+
+def test_expected_cut_json_is_current(pil_libjpeg):
+    mf = _make_fixtures()
+    with open(os.path.join(FIXTURES, "expected_cut.json")) as f:
+        doc = json.load(f)
+    assert doc["libjpeg_turbo"] == pil_libjpeg.version
+    assert doc["files"] == mf.expected_cut_entries(pil_libjpeg)
+
+
+def test_cut_fixtures_through_the_port_decoder():
+    """The port decoder against `expected_cut.json` (PIL's libjpeg-turbo), as
+    `chip_smoke.py`'s `data_real` phase checks it on the card."""
+    mf = _make_fixtures()
+    with open(os.path.join(FIXTURES, "expected_cut.json")) as f:
+        doc = json.load(f)
+    got = mf.expected_cut_entries(_port_rgb)
+    assert got == doc["files"]
+    assert sum(v == "refused" for e in got.values() for v in e.values()) < len(got)
 
 
 def test_lossless_arithmetic_process_is_refused_in_hex(encoder, tmp_path, monkeypatch):

@@ -119,3 +119,65 @@ def test_lecun_normal_moments():
     lecun_normal_(w, torch.Generator().manual_seed(1))
     assert abs(float(w.std()) * math.sqrt(144) - 1.0) < 0.01
     assert float(w.abs().max()) <= 2.0 / 12.0 / _TRUNC_STD
+
+
+@pytest.fixture(scope="module")
+def vgg_inits():
+    """One JAX init of the LPIPS VGG16 backbone (flax `nn.Conv` defaults) and
+    the port's seeded `LPIPS.init_weights`, as (kernel, bias) per conv, OIHW."""
+    import jax
+
+    from dynamicvectorquantization_torch.nn.lpips import LPIPS
+    from dynamicvectorquantization_tpu.nn.lpips import VGG16Features
+
+    jvars = jax.jit(VGG16Features().init)(jax.random.PRNGKey(0), np.zeros((1, 32, 32, 3),
+                                                                           np.float32))
+    params = jax.device_get(jvars)["params"]
+    ref = [(np.transpose(np.asarray(params[f"conv_{i}"]["kernel"]), (3, 2, 0, 1)),
+            np.asarray(params[f"conv_{i}"]["bias"])) for i in range(len(params))]
+    lp = LPIPS()
+    lp.init_weights(torch.Generator().manual_seed(0))
+    port = [(c.weight.numpy(), c.bias.numpy()) for c in lp.net.convs()]
+    return ref, port
+
+
+def test_lpips_backbone_moments_of_jax(vgg_inits):
+    ref, port = vgg_inits
+    assert len(ref) == len(port) == 13
+    for i, ((rw, rb), (pw, pb)) in enumerate(zip(ref, port)):
+        assert rw.shape == pw.shape, i
+        assert not np.any(rb) and not np.any(pb), i
+        ratio = pw.std() / rw.std()
+        assert abs(ratio - 1.0) <= STD_REL, (i, float(ratio))
+
+
+def test_lpips_backbone_inside_the_truncation(vgg_inits):
+    ref, port = vgg_inits
+    for i, ((rw, _), (pw, _)) in enumerate(zip(ref, port)):
+        bound = 2.0 / math.sqrt(pw[0].size) / _TRUNC_STD
+        assert np.abs(pw).max() <= bound * (1 + 1e-6), i
+        assert np.abs(rw).max() <= bound * (1 + 1e-6), i
+        # a plain normal of that variance would pass 2 sigma in ~4.6 % of entries
+        assert np.abs(pw).max() > 0.9 * bound, i
+
+
+def test_stage1_causes_reads_the_jax_runs_and_draws_a_second_backbone(tmp_path):
+    """`tools/stage1_causes.py`: the figures it sets beside its legs, read
+    from the committed r05 run, and the second backbone it hands to LPIPS
+    through `DQVQ_LPIPS_VGG` is the seeded draw of that seed."""
+    import json
+
+    from dynamicvectorquantization_torch.nn.lpips import LPIPS
+    from dynamicvectorquantization_torch.tools import stage1_causes
+
+    with open(os.path.join(_REPO, "artifacts/campaign_r05/stage1_metrics.jsonl")) as f:
+        out = stage1_causes.summarize([json.loads(line) for line in f])
+    assert out["val_step"] == 384 and abs(out["val_rec_loss"] - 0.2051) < 1e-4
+    assert abs(out["train_p_loss_steps_1_40"] - 0.1469) < 1e-4
+    path = str(tmp_path / "vgg16.pt")
+    stage1_causes.write_vgg16(path, seed=2)
+    drawn, read = LPIPS(), LPIPS()
+    drawn.init_weights(torch.Generator().manual_seed(2))
+    read.load_weights(path)
+    for a, b in zip(drawn.net.convs(), read.net.convs()):
+        assert torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)

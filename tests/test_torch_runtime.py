@@ -175,9 +175,8 @@ def test_dotlist_overrides_and_yaml_round_trip():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "Multi-GPU"), (["--sp", "2"], "Multi-GPU"), (["--pp", "2"], "Multi-GPU"),
-    (["--activate_ddp_share"], "Multi-GPU"), (["--activate_fsdp"], "Multi-GPU"),
-    (["--devices", "4"], "Multi-GPU"),
+    (["--tp", "2"], "Model parallelism"), (["--sp", "2"], "Model parallelism"),
+    (["--pp", "2"], "Model parallelism"),
 ])
 def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, flags, item):
     """The error names ROADMAP.md and the item's keyword, and the keyword
@@ -187,6 +186,40 @@ def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, flags, item)
     assert item in str(err.value)
     with open(os.path.join(_REPO, "ROADMAP.md")) as f:
         assert item in f.read(), item
+
+
+@pytest.mark.parametrize("flags,shard", [
+    (["--activate_ddp_share"], "zero1"), (["--activate_fsdp"], "fsdp"),
+])
+def test_sharding_flags_train_over_a_world_of_one(tmp_path, flags, shard):
+    """On one device the sharding flags start a one-rank process group (gloo
+    on the CPU) and train with the sharded optimizer state; the group is
+    gone after the run."""
+    import torch.distributed as tdist
+
+    step = cli.main(["--base", STAGE2, "--logdir", str(tmp_path), *COMMON, *flags,
+                     "--max_epochs", "1"])
+    assert step.shard == shard and step.world.size == 1 and step.buckets.mode == shard
+    assert step.count == 3 and not tdist.is_initialized()
+    assert [r["step"] for r in _rows(_only_run(tmp_path)) if r["split"] == "val"] == [3]
+
+
+def test_devices_spawn_one_worker_per_device(tmp_path, monkeypatch):
+    """`--devices 4` writes the run's snapshot once and spawns four workers
+    (one gloo rank each with --device cpu) into that run directory; the LR
+    rule counts the four devices."""
+    calls = []
+    monkeypatch.setattr(cli, "_spawn", lambda *a: calls.append(a))
+    assert cli.main(["--base", STAGE2, "--logdir", str(tmp_path), *COMMON,
+                     "--devices", "4"]) is None
+    (n, argv, logdir, device_type), = calls
+    assert n == 4 and device_type == "cpu" and "--devices" in argv
+    assert os.path.exists(os.path.join(logdir, "configs", "merged-project.yaml"))
+    model = type("M", (), {})()
+    cfg = load_config([STAGE2])
+    cfg["model"]["base_learning_rate"] = 1e-6
+    cli.set_learning_rate(model, cfg, 2, n)
+    assert model.learning_rate == pytest.approx(2 * 4 * cfg["data"]["params"]["batch_size"] * 1e-6)
 
 
 @pytest.mark.parametrize("base,epochs", [(STAGE2, 2), (STAGE1, 1)], ids=["stage2", "stage1"])
@@ -289,8 +322,9 @@ def test_a_failed_write_leaves_the_older_checkpoint_whole(tmp_path, monkeypatch)
         raise OSError("disk full")
 
     monkeypatch.setattr(torch, "save", broken)
+    _save(mngr, 2, 0.5)  # the writer thread fails; the error comes with the wait
     with pytest.raises(OSError):
-        _save(mngr, 2, 0.5)
+        mngr.wait()
     monkeypatch.undo()
     assert mngr.all_steps() == [1] and mngr.restore()["step"] == 1
 
