@@ -51,7 +51,13 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                triple-grain config's new shapes: the patch entropy at 32^2 patches,
                the f32 downsample at 16^2 x 512 -> 8^2 (with the tiling the
                kernel reports it launched),
-               the f32 attention forward and backward at (8, 64, 512)
+               the f32 attention forward and backward at (8, 64, 512); every
+               attention family's entries with a head offset (a tensor-parallel
+               rank's heads: `head0`, `n_head_total`), forward with lse and
+               backward at rate 0.1, seed by value and on the device, bit-equal
+               to the slice of the call over every head; the sp ring's tick,
+               the 3xTF32 family without the causal mask at hd 128 with lse
+               (8, 161, 1024), against its plain version with its bounds
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
                through the kernels and through the plain versions (streams,
@@ -74,9 +80,9 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                to the eager device-index run's bit for bit; step ms, busy,
                idle share, capture seconds, graph pool bytes)
   5. serve     BatchingSampler (p6c18, int8 caches, max_batch 8) answers 3
-               concurrent requests of 1, 2 and 4 images, 5 times: the first
-               batch captures the sampler's CUDA graphs, 3 are timed, the last
-               is traced (busy ms per AR step, idle share); launch counters
+               concurrent requests of 1, 2 and 4 images, 4 times: the first
+               batch captures the sampler's CUDA graphs, 3 are timed (no traced
+               batch: `utils/sample_wall.py` traces one); launch counters
                (counted through graph replays) are zeroed just before and read
                just after the first and the second batch; the decode kernel's
                time over the indices the batch visited, estimated from the
@@ -140,6 +146,17 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                of global batches of 8) held to one process over the global
                batches (`DDP_GLOO_TOL`), or a line saying gloo refused CUDA
                tensors. No run on two cards: the machine has one
+     model_parallel  `--tp 2`, `--pp 2` (2 microbatches, 9 content layers a
+               stage) and `--sp 5` (161 rows a rank) at p6c18 full width and
+               depth over the train phase's cached codes, two steps on global
+               batches of 8, as gloo ranks sharing the card (`--mp-rank`
+               subprocesses), each held to one process on the same batches
+               (`MP_TOL`), in f32 with TF32 off as `ddp`'s gloo ranks: tp with
+               the three dropouts at 0.1 (the head offset
+               gives it the one-process masks), pp and sp at 0 (their blocks
+               draw per rank); each rank's step seconds, peak memory, launches
+               of #4 / #5 / #6 / #7 / #9 a step and the bytes its collectives
+               were handed
   7. train1    full-width, full-depth DQ-VAE + GAN of the shipped
                `dqvae-entropy-dual-r05_imagenet.yml` (f32, TF32 off, seeded random
                weights, random VGG16 backbone with the bundled LPIPS lin heads),
@@ -503,7 +520,7 @@ def fma_forward(torch, q, k, v, n_head, scale, causal, rate=0.0, return_lse=Fals
     err = cuda_lib.lib().dqvq_fused_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if return_lse else None, b, t, d, n_head, float(scale), int(causal),
-        1 if q.dtype == torch.bfloat16 else 0, float(rate), int(seed) if rate else 0,
+        1 if q.dtype == torch.bfloat16 else 0, float(rate), int(seed) if rate else 0, n_head, 0,
         torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(err, "fma_forward")
     return (out, lse) if return_lse else out
@@ -522,7 +539,7 @@ def fma_backward(torch, q, k, v, y, lse, dy, n_head, scale, causal, rate=0.0, se
         q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(), dy.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, d, n_head,
         float(scale), int(causal), 1 if q.dtype == torch.bfloat16 else 0, float(rate),
-        int(seed) if rate else 0, torch.cuda.current_stream().cuda_stream)
+        int(seed) if rate else 0, n_head, 0, torch.cuda.current_stream().cuda_stream)
     cuda_lib.check(err, "fma_backward")
     return dq, dk, dv
 
@@ -3537,10 +3554,10 @@ def sampling_numbers(calls, first, timed, traced):
 
 def serve(torch, model, card, reps=3):
     """`BatchingSampler` (p6c18, int8 caches, bf16, max_batch 8) answers
-    requests of 1, 2 and 4 images (one batch) `reps + 2` times: the first
-    batch captures the sampler's graphs, `reps` are timed, the last is
-    traced (busy ms per AR step). Launches are counted over the first batch
-    and over the second (replays only)."""
+    requests of 1, 2 and 4 images (one batch) `reps + 1` times: the first
+    batch captures the sampler's graphs, `reps` are timed (no traced call:
+    `utils/sample_wall.py` traces one). Launches are counted over the first
+    batch and over the second (replays only)."""
     import numpy as np
 
     from dynamicvectorquantization_torch.serve import BatchingSampler
@@ -3550,9 +3567,7 @@ def serve(torch, model, card, reps=3):
     walls, launches = [], []
     with SamplerCalls(torch) as calls, BatchingSampler(model, max_batch=8,
                                                        max_wait_ms=200.0) as engine:
-        for round_ in range(reps + 2):
-            if round_ == reps + 1:
-                calls.trace_next()
+        for _ in range(reps + 1):
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
@@ -3562,7 +3577,7 @@ def serve(torch, model, card, reps=3):
             launches.append(read_launches())
         stats = list(engine.batch_stats)
         batches = engine.batches_run
-        sampling = sampling_numbers(calls, 0, range(1, reps + 1), reps + 1)
+        sampling = sampling_numbers(calls, 0, range(1, reps + 1), None)
     n_images = sum(n for n, _ in requests)
     timed = walls[1:reps + 1]
     wall = spread(timed)["median"]
@@ -3571,14 +3586,14 @@ def serve(torch, model, card, reps=3):
                requests=[n for n, _ in requests], shapes=[list(x.shape) for x in images],
                batches=batches, batch_stats=stats, launches=launches[0],
                launches_replayed_batch=launches[1], wall_s=wall, wall_s_spread=spread(timed),
-               first_batch_s=walls[0], traced_batch_s=walls[-1], s_per_batch=wall,
+               first_batch_s=walls[0], s_per_batch=wall,
                images_per_s=n_images / wall, sampling=sampling,
                graphs=runner_numbers(torch, model), card=card)
     emit(res)
     for (n, _), img in zip(requests, images):
         require(img.shape == (n, 256, 256, 3), f"image shape {img.shape} for {n} images")
         require(bool(np.isfinite(img).all()), "non-finite image values")
-    require(batches == reps + 2, f"{batches} batches for {reps + 2} rounds of requests")
+    require(batches == reps + 1, f"{batches} batches for {reps + 1} rounds of requests")
     for i in (0, 1):  # the first batch (its eager first blocks, replays) and a replayed one
         require(launches[i]["decode_attention_int8"] >= layers * stats[i]["ar_steps"],
                 "decode_attention_int8 was not launched on every decode step")
@@ -4837,11 +4852,392 @@ def ddp(torch, dev, card, streams):
     return line
 
 
+# ------------------------------------------------------------ model parallelism
+def check_head_offset(torch, dev):
+    """Each attention family's entries with a head offset (a tensor-parallel
+    rank's heads: `head0`, `n_head_total`), forward with lse and backward at
+    rate 0.1, the seed by value and on the device: bit-equal to the slice of
+    the call over every head; without the offset the same slice draws other
+    masks. Returns {family: result}."""
+    from dynamicvectorquantization_torch.ops import attention as att
+
+    seed, rate = 2 ** 62 + 99, 0.1
+    table = torch.tensor([seed], dtype=torch.int64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(23)
+    # (family, dtype, (B, T, D), heads, first local head, local heads): stage 2's hd 128 at
+    # the step's shape as tp 2's second rank runs it; two heads of the DQ-VAE's hd 256 and
+    # of 32 (the square tiles), one of them local
+    shapes = (("tensor cores", torch.bfloat16, (8, TRAIN_T, 1024), 8, 4, 4),
+              ("f32 tensor cores", torch.float32, (8, TRAIN_T, 1024), 8, 4, 4),
+              ("tensor cores wide", torch.bfloat16, (4, 1024, 512), 2, 1, 1),
+              ("wide f32", torch.float32, (4, 1024, 512), 2, 1, 1),
+              ("square tiles", torch.float32, (2, 300, 64), 2, 1, 1),
+              ("square tiles bf16", torch.bfloat16, (2, 300, 64), 2, 1, 1))
+    results = {}
+    for family, dtype, shape, n_head, head0, n in shapes:
+        q, k, v, dy = (torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4))
+        cols = slice(head0 * shape[2] // n_head, (head0 + n) * shape[2] // n_head)
+        part = [z[..., cols].contiguous() for z in (q, k, v, dy)]
+        equal = {}
+        for kind, s_ in (("by_value", seed), ("device_seed", table[0])):
+            y, lse = att.fused_attention_forward(q, k, v, n_head, None, True, rate, True, s_)
+            grads = att.fused_attention_backward(q, k, v, y, lse, dy, n_head, rate=rate, seed=s_)
+            y_p, lse_p = att.fused_attention_forward(*part[:3], n, None, True, rate, True, s_,
+                                                     head0=head0, n_head_total=n_head)
+            g_p = att.fused_attention_backward(*part[:3], y_p, lse_p, part[3], n, rate=rate,
+                                               seed=s_, head0=head0, n_head_total=n_head)
+            torch.cuda.synchronize()
+            equal[kind] = bool(torch.equal(y_p, y[..., cols])
+                               and torch.equal(lse_p, lse[:, head0:head0 + n])
+                               and all(torch.equal(a, b[..., cols]) for a, b in zip(g_p, grads)))
+            del y, lse, grads, g_p
+        unshifted = att.fused_attention_forward(*part[:3], n, None, True, rate, seed=seed)
+        results[family] = dict(shape=list(shape), dtype=str(dtype).split(".")[-1],
+                               n_head=n_head, head0=head0, local_heads=n,
+                               route=att._route((q, k, v), n_head, "check"), **equal,
+                               offset_changes_masks=not torch.equal(unshifted, y_p))
+        del q, k, v, dy, part, y_p, lse_p, unshifted
+    emit(dict(phase="kernels", kernel="attention_head_offset", rate=rate, cases=results))
+    require(all(r["by_value"] and r["device_seed"] and r["offset_changes_masks"]
+                for r in results.values()),
+            f"an attention family's head-offset entries differ from the full call: {results}")
+    return results
+
+
+def check_ring_ticks(torch, dev, sp=5):
+    """The sp ring's tick: the 3xTF32 family at hd 128 WITHOUT the causal
+    mask, with lse (an earlier rank's block; `parallel/ring_attention.py`),
+    at sp 5's rows of the p6c18 step (8, 161, 1024) in f32, forward and
+    backward against the plain versions, timed with their bounds and the one
+    PyTorch call (SDPA, f32)."""
+    import torch.nn.functional as F
+
+    from dynamicvectorquantization_torch.ops.attention import (
+        fused_attention_backward, fused_attention_backward_plain, fused_attention_forward,
+        fused_attention_forward_plain)
+
+    b, t, d, n_head, causal, dtype = 8, TRAIN_T // sp, 1024, 8, False, torch.float32
+    hd, elem = d // n_head, 4
+    scale = hd ** -0.5
+    g = torch.Generator(device=dev).manual_seed(29)
+    sets = []
+    for _ in range(n_sets(8 * b * t * d * elem)):
+        q, k, v, dy = (torch.randn((b, t, d), generator=g, device=dev) for _ in range(4))
+        y, lse = fused_attention_forward(q, k, v, n_head, scale, causal, return_lse=True)
+        sets.append((q, k, v, y, lse, dy))
+    q, k, v, y, lse, dy = sets[0]
+    before = (fused_attention_forward.f32_tc_launches, fused_attention_backward.f32_tc_launches)
+    y2, lse2 = fused_attention_forward(q, k, v, n_head, scale, causal, return_lse=True)
+    out = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
+    again = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, causal)
+    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, causal, True)
+    ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, scale, causal)
+    torch.cuda.synchronize()
+    require((fused_attention_forward.f32_tc_launches - before[0],
+             fused_attention_backward.f32_tc_launches - before[1]) == (1, 2),
+            "the ring tick did not run the 3xTF32 kernels")
+    pairs = t * t
+
+    def heads(z):
+        return z.view(b, t, n_head, hd).transpose(1, 2)
+
+    fwd = dict(phase="kernels", kernel="fused_attention_forward", shape=[b, t, d],
+               n_head=n_head, causal=causal, dtype="float32", family="tensor cores",
+               route="f32 tensor cores", with_lse=True, use="sp ring tick (earlier block)",
+               max_abs_err=(y - y_ref).abs().max().item(),
+               lse_err=(lse - lse_ref).abs().max().item(), tol="1e-4; lse 1e-4",
+               bit_reproducible=bool(torch.equal(y, y2) and torch.equal(lse, lse2)))
+    fwd["bound_ms"], fwd["bound_by"], fwd["bound_ms_f32_fma"] = attention_bounds(
+        torch, 4 * b * t * d * elem + 4 * b * n_head * t, 4 * b * n_head * pairs * hd, dtype,
+        True)
+    time_into(fwd, "kernel", torch, lambda q_, k_, v_, *_: fused_attention_forward(
+        q_, k_, v_, n_head, scale, causal, return_lse=True), sets)
+    time_into(fwd, "plain", torch, lambda q_, k_, v_, *_: fused_attention_forward_plain(
+        q_, k_, v_, n_head, scale, causal, True), sets, iters=10)
+    time_into(fwd, "library", torch, lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
+        heads(q_), heads(k_), heads(v_), is_causal=causal, scale=scale), sets)
+    emit(fwd)
+    flops = 10 * b * n_head * pairs * hd
+    errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+    bwd = dict(phase="kernels", kernel="fused_attention_backward", shape=[b, t, d],
+               n_head=n_head, causal=causal, dtype="float32", family="tensor cores",
+               route="f32 tensor cores", use="sp ring tick (earlier block)",
+               max_abs_err=max(errs), dq_err=errs[0], dk_err=errs[1], dv_err=errs[2],
+               tol="1e-4", bit_reproducible=all(torch.equal(a, b_) for a, b_ in zip(out, again)),
+               gflop=flops / 1e9)
+    bwd["bound_ms"], bwd["bound_by"], bwd["bound_ms_f32_fma"] = attention_bounds(
+        torch, 8 * b * t * d * elem + 4 * b * n_head * t, flops, dtype, True)
+    time_into(bwd, "kernel", torch,
+              lambda *a: fused_attention_backward(*a, n_head, scale, causal), sets, iters=10)
+    time_into(bwd, "plain", torch,
+              lambda *a: fused_attention_backward_plain(*a, n_head, scale, causal), sets,
+              iters=10)
+    lib_sets = []
+    for q_, k_, v_, _, _, dy_ in sets:
+        leaves = tuple(heads(z).detach().requires_grad_() for z in (q_, k_, v_))
+        lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=causal, scale=scale),
+                         leaves, heads(dy_)))
+    time_into(bwd, "library", torch,
+              lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_, retain_graph=True),
+              lib_sets, iters=10)
+    emit(bwd)
+    del sets, lib_sets, out, again, ref
+    require(fwd["max_abs_err"] <= 1e-4 and fwd["lse_err"] <= 1e-4 and bwd["max_abs_err"] <= 1e-4,
+            f"the non-causal 3xTF32 tick disagrees with the plain version: {fwd}, {bwd}")
+    require(fwd["bit_reproducible"] and bwd["bit_reproducible"],
+            "the non-causal 3xTF32 tick is not bit-reproducible")
+    return fwd, bwd
+
+
+MP_RANK = "--mp-rank"
+P2P_RANK = "--p2p-rank"
+# (axis, ranks sharing the card, trainer keywords, dropout, compute dtype): tp 2 with
+# the shipped dropouts (the head offset and the dp-rank streams give it the one-process
+# masks); pp 2 and sp 5 at dropout 0 (their blocks draw per rank, so with dropout they are
+# not the one-process step; sp also refuses attn_pdrop > 0). Held to one process in f32 with
+# TF32 off, as `ddp`'s two gloo ranks, whose `DDP_GLOO_TOL` is `MP_TOL`. Not in bf16: there a
+# tp rank rounds its row-split partial products to bf16 before the sum and sp's ring computes
+# attention in f32, which the one-process step does not, so a bf16 run stays outside that
+# tolerance by construction
+MP_CASES = (("tp", 2, {"tp": 2}, 0.1, "float32"),
+            ("pp", 2, {"pp": 2, "pp_microbatches": 2}, 0.0, "float32"),
+            ("sp", 5, {"sp": 5}, 0.0, "float32"))
+MP_TOL = DDP_GLOO_TOL
+MP_KERNELS = ("fused_attention_forward_tc", "fused_attention_backward_tc",
+              "fused_attention_forward_f32_tc", "fused_attention_backward_f32_tc",
+              "layernorm_forward", "layernorm_backward", "fused_adamw")
+
+
+def p2p_rank(argv):
+    """`chip_smoke.py --p2p-rank <rank> <size> <init>`: one ring hop of a small
+    CUDA tensor over gloo's own send / recv (no staging), printed as a JSON
+    line: whether this build of gloo takes CUDA tensors there."""
+    import torch
+    import torch.distributed as tdist
+
+    from dynamicvectorquantization_torch.parallel import dist as pdist
+
+    rank, size, init = int(argv[0]), int(argv[1]), argv[2]
+    world = pdist.init_world("cuda", rank, size, init, backend="gloo")
+    try:
+        t = torch.full((4,), float(rank), device=world.device)
+        out = torch.empty_like(t)
+        try:
+            for req in tdist.batch_isend_irecv([
+                    tdist.P2POp(tdist.isend, t, (rank + 1) % size),
+                    tdist.P2POp(tdist.irecv, out, (rank - 1) % size)]):
+                req.wait()
+            res = {"takes_cuda_tensors": bool(out[0].item() == (rank - 1) % size)}
+        except RuntimeError as e:  # the answer to the question, printed
+            res = {"takes_cuda_tensors": False, "error": f"{type(e).__name__}: {str(e)[:300]}"}
+        print(json.dumps(res), flush=True)
+    finally:
+        pdist.shutdown()
+    return 0
+
+
+def gloo_p2p_check(log_dir, timeout=60):
+    """Two `--p2p-rank` processes: does gloo send / receive CUDA tensors
+    itself? (The port stages its hops through pinned host memory either
+    way, `World.transport`.) A pair that does not finish in `timeout` s is
+    killed and reported as hanging."""
+    from dynamicvectorquantization_torch.parallel import dist as pdist
+
+    init = f"tcp://127.0.0.1:{pdist.free_port()}"
+    _, outs, ended = _run_ranks([[P2P_RANK, str(r), "2", init] for r in range(2)], log_dir,
+                                timeout)
+    if not ended:
+        return {"takes_cuda_tensors": False, "error": f"hung: killed after {timeout} s"}
+    ranks = []
+    for out in outs:
+        lines = [ln for ln in out.strip().splitlines() if ln.startswith("{")]
+        ranks.append(json.loads(lines[-1]) if lines else {"takes_cuda_tensors": False,
+                                                          "error": out[-300:]})
+    return {"takes_cuda_tensors": all(r["takes_cuda_tensors"] for r in ranks), "ranks": ranks}
+
+
+def _run_ranks(argvs, log_dir, timeout):
+    """Start one process per argv, its output to `<log_dir>/out<i>.log`;
+    (every process's output, whether all ended within `timeout` s). The ones
+    still running then are killed."""
+    paths = [os.path.join(log_dir, f"out{i}.log") for i in range(len(argvs))]
+    procs = []
+    for argv, path in zip(argvs, paths):
+        with open(path, "w") as f:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), *argv],
+                                          stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        ended = True
+    except subprocess.TimeoutExpired:
+        ended = False
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        for p in procs:
+            p.wait()
+    outs = []
+    for path in paths:
+        with open(path) as f:
+            outs.append(f.read())
+    return procs, outs, ended
+
+
+def mp_rank(argv):
+    """`chip_smoke.py --mp-rank <rank> <size> <init> <axis> <dropout> <compute dtype>
+    <streams file> <out dir>`: one gloo rank on the card (all share it): p6c18
+    takes the cached-codes steps of the `axis` run of `MP_CASES`; every rank
+    writes its step seconds, launches a step, peak memory and the bytes its
+    collectives were handed, rank 0 the logs and the whole masters."""
+    import torch
+
+    from dynamicvectorquantization_torch.parallel import dist as pdist
+    from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
+
+    rank, size, init, axis = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dropout, dtype, streams_file, out_dir = float(argv[4]), argv[5], argv[6], argv[7]
+    kw = next(c[2] for c in MP_CASES if c[0] == axis)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = pdist.init_world("cuda", rank, size, init, backend="gloo")
+    print(f"rank {rank}: joined", flush=True)
+    try:
+        model, lr = _p6c18_for_ddp(torch, world.device)
+        set_dropout(model.transformer, dropout, dropout, dropout)
+        trainer = Stage2Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=world.device,
+                                world=world, compute_dtype=None if dtype == "float32" else dtype,
+                                **kw)
+        batches = torch.load(streams_file, weights_only=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        logs, secs = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            out = trainer.train_step({k: v[trainer.dp_world.rows(len(v))] for k, v in b.items()},
+                                     eager=True)
+            logs.append({k: float(v) for k, v in out.items()})  # reads the step's end
+            secs.append(time.perf_counter() - t0)
+            print(f"rank {rank}: step {len(secs)} {secs[-1]:.3f} s", flush=True)
+        counts = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        moved = {"model_axis": dict(trainer.axis_world.moved),
+                 "dp": dict(trainer.dp_world.moved)}
+        masters = trainer.state_dict()["masters"]
+        info = dict(rank=rank, step_s=secs, peak_allocated_bytes=peak,
+                    launches_per_step={k: counts[k] / len(batches) for k in MP_KERNELS},
+                    moved_bytes_per_step={g: {op: n / len(batches) for op, n in m.items()}
+                                          for g, m in moved.items()},
+                    transport=trainer.axis_world.transport, tp_split_leaves=len(trainer.tp_dims))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+        if world.is_main:
+            torch.save({"logs": logs, "masters": {k: v.cpu() for k, v in masters.items()},
+                        "launches": counts}, os.path.join(out_dir, "rank0.pt"))
+    finally:
+        pdist.shutdown()
+    return 0
+
+
+def model_parallel(torch, dev, card, streams, batch=8):
+    """`--tp 2`, `--pp 2` (2 microbatches, 9 content layers a stage) and
+    `--sp 5` (161 rows a rank) at p6c18 full width and depth (`MP_CASES`),
+    two cached-codes steps over global batches of 8: gloo ranks sharing the
+    card (`--mp-rank` subprocesses), each run held to one process's steps on
+    the same batches (`MP_TOL`, the `ddp` phase's `DDP_GLOO_TOL`); first, whether gloo
+    sends CUDA tensors itself (`gloo_p2p_check`)."""
+    from dynamicvectorquantization_torch.parallel import dist as pdist
+    from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
+
+    t_phase = time.perf_counter()
+    root = os.path.abspath(os.path.join("build", "model_parallel"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    batches = [{k: v[i:i + batch] for k, v in streams.items()} for i in (0, batch)]
+    streams_file = os.path.join(root, "streams.pt")
+    torch.save(batches, streams_file)
+    p2p = gloo_p2p_check(root)
+    refs = {}
+    for dropout, dtype in sorted({c[3:] for c in MP_CASES}):
+        model, lr = _p6c18_for_ddp(torch, dev)
+        set_dropout(model.transformer, dropout, dropout, dropout)
+        one = Stage2Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev,
+                            compute_dtype=None if dtype == "float32" else dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        secs, logs = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            logs.append({k: float(v) for k, v in one.train_step(b, eager=True).items()})
+            secs.append(time.perf_counter() - t0)
+        refs[dropout, dtype] = (logs, {k: v.clone() for k, v in one.masters.items()}, secs, lr,
+                                torch.cuda.max_memory_allocated())
+        del one, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    runs = {}
+    for axis, n, kw, dropout, dtype in MP_CASES:
+        out_dir = os.path.join(root, f"{axis}_{dtype}")
+        os.makedirs(out_dir)
+        init = f"tcp://127.0.0.1:{pdist.free_port()}"
+        t0 = time.perf_counter()
+        procs, outs, ended = _run_ranks(
+            [[MP_RANK, str(r), str(n), init, axis, str(dropout), dtype, streams_file, out_dir]
+             for r in range(n)], out_dir, 300)
+        require(ended, f"model_parallel {axis} {dtype}: the ranks did not end in 300 s: "
+                       f"{[o[-1500:] for o in outs]}")
+        codes = [p.returncode for p in procs]
+        require(codes == [0] * n, f"model_parallel {axis}: ranks failed {codes} "
+                                  f"{[o[-1500:] for o in outs]}")
+        got = torch.load(os.path.join(out_dir, "rank0.pt"), weights_only=False)
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        logs, masters, one_secs, lr, one_peak = refs[dropout, dtype]
+        loss_rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got["logs"], logs) for k in b)
+        diffs = [(got["masters"][k].to(dev) - v).abs() for k, v in masters.items()]
+        n_params = sum(d_.numel() for d_ in diffs)
+        res = dict(ranks=n, devices=1, backend="gloo", **{k: v for k, v in kw.items()},
+                   dropout=dropout, compute_dtype=dtype, global_batch=batch, steps=len(batches),
+                   loss_max_rel_diff=loss_rel,
+                   param_max_diff_lr=max(float(d_.max()) for d_ in diffs) / lr,
+                   param_mean_diff_lr=sum(float(d_.sum()) for d_ in diffs) / n_params / lr,
+                   tol=MP_TOL, logs=got["logs"], one_process_logs=logs,
+                   one_process_step_s=one_secs, one_process_peak_bytes=one_peak,
+                   ranks_wall_s=time.perf_counter() - t0,
+                   step_s={r["rank"]: r["step_s"] for r in ranks},
+                   peak_allocated_bytes={r["rank"]: r["peak_allocated_bytes"] for r in ranks},
+                   launches_per_step={r["rank"]: r["launches_per_step"] for r in ranks},
+                   moved_bytes_per_step={r["rank"]: r["moved_bytes_per_step"] for r in ranks},
+                   transport=ranks[0]["transport"],
+                   tp_split_leaves=ranks[0]["tp_split_leaves"], launches=got["launches"])
+        runs[f"{axis}_{dtype}"] = res
+        del diffs, got
+        require(loss_rel <= MP_TOL["loss_rel"] and res["param_max_diff_lr"] <= MP_TOL[
+            "param_max_lr"] and res["param_mean_diff_lr"] <= MP_TOL["param_mean_lr"],
+                f"model_parallel {axis}: differs from one process beyond {MP_TOL}: "
+                f"{ {k: v for k, v in res.items() if k != 'launches'} }")
+    shutil.rmtree(root, ignore_errors=True)
+    line = dict(phase="model_parallel", config=P6C18, gloo_p2p=p2p,
+                runs={a: {k: v for k, v in r.items() if k != "launches"} for a, r in runs.items()},
+                two_card_run="none: the machine has one card",
+                seconds=spread([time.perf_counter() - t_phase]), card=card)
+    emit(line)
+    return runs
+
+
 def main():
     if sys.argv[1:2] == ["--launches-of"]:
         return run_counting(sys.argv[2:])
     if sys.argv[1:2] == [DDP_RANK]:
         return ddp_rank(sys.argv[2:])
+    if sys.argv[1:2] == [MP_RANK]:
+        return mp_rank(sys.argv[2:])
+    if sys.argv[1:2] == [P2P_RANK]:
+        return p2p_rank(sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -4893,6 +5289,8 @@ def main():
         check_attention_backward(torch, dev)
     adamw_case = check_fused_adamw(torch, dev)
     device_seeds = check_device_seeds(torch, dev)
+    head_offset = check_head_offset(torch, dev)
+    ring_fwd, ring_bwd = check_ring_ticks(torch, dev)
 
     t0 = time.perf_counter()
     model, _ = load_model_and_variables(P6C18, seed=0, kv_cache_dtype="int8", device=dev)
@@ -4918,6 +5316,8 @@ def main():
     per_step = trained["launches_per_step"]
     torch.cuda.empty_cache()
     ddp_line = ddp(torch, dev, card, streams)
+    torch.cuda.empty_cache()
+    mp_runs = model_parallel(torch, dev, card, streams)
     torch.cuda.empty_cache()
     # the JAX trainer's default compute dtype: f32 throughout, on the same cached codes
     per_step_f32 = train(torch, dev, card, compute_dtype=None,
@@ -5032,6 +5432,8 @@ def main():
              # the distributed path at world size 1: the p6c18 bf16 step (DDP), stage 1 (DDP)
              "ddp_train_step": ddp_line["stage2_bf16_batch8"]["ddp"]["launches_per_step"],
              "ddp_train1_step": ddp_line["stage1_f32_batch8"]["ddp"]["launches_per_step"],
+             # the model axes' two steps on rank 0 (gloo ranks sharing the card)
+             **{f"model_parallel_{name}": run["launches"] for name, run in mp_runs.items()},
              # the stage-1 command line from JPEG files (4 steps, validation), then the tools
              "data_real": {name: real["stage1_files"]["launches"][name]
                            + (real["tools"]["entropy_thresholds"]["patch_entropy_launches"]
@@ -5085,6 +5487,18 @@ def main():
                        ("fused_attention_forward_tc", ("tensor cores", "tensor cores wide")))}
     for row in list(seeds_equal):
         seeds_equal[row.replace("forward", "backward")] = seeds_equal[row]
+    # each row's entries with a head offset against the slice of the full call
+    offset_equal = {row: all(head_offset[f]["by_value"] and head_offset[f]["device_seed"]
+                             for f in families)
+                    for row, families in (
+                        ("fused_attention_forward", ("wide f32", "square tiles",
+                                                     "square tiles bf16")),
+                        ("fused_attention_forward_f32_tc", ("f32 tensor cores",)),
+                        ("fused_attention_forward_tc", ("tensor cores", "tensor cores wide")))}
+    for row in list(offset_equal):
+        offset_equal[row.replace("forward", "backward")] = offset_equal[row]
+    ring_ticks = {"fused_attention_forward_f32_tc": ring_fwd,
+                  "fused_attention_backward_f32_tc": ring_bwd}
     kernels = []
     for name, src, replaces, main, extra in (
             # main: cache_index 1283; the other checked indices and the sweep (every 128
@@ -5297,7 +5711,10 @@ def main():
         if name in seeds_equal:  # the attention rows: the device-seed entries, rate 0.1
             wrapper = name.split("_tc")[0].split("_f32")[0]  # every family of the wrapper
             extra = dict(extra, device_seed_equal=seeds_equal[name],
-                         wrapper_device_seed_launches=launched(f"{wrapper}_device_seed"))
+                         wrapper_device_seed_launches=launched(f"{wrapper}_device_seed"),
+                         head_offset_equal=offset_equal[name])
+        if name in ring_ticks:  # sp's ring tick: non-causal at hd 128 with lse
+            extra = dict(extra, sp_ring_tick_noncausal=pick(ring_ticks[name], *timed_keys))
         kernels.append(dict(
             name=name, route="cuda", source=f"{src_dir}/{src}",
             replaces=replaces, launches=sum(launches.values()), launches_by_path=launches,

@@ -306,10 +306,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 // rate 0 the seed is not read. Returns a cudaError_t.
 static int dqvq_fused_attention_forward_impl(const void* q, const void* k, const void* v, void* out,
     void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype,
-    double rate, unsigned long long seed, const void* seed_ptr, void* stream) {
+    double rate, unsigned long long seed, const void* seed_ptr,
+    int head_total, int head0, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
+  if (!dqvq::valid_heads(n_head, head_total, head0)) return cudaErrorInvalidValue;
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(
+      rate, seed, seed_ptr, n_head, head_total, head0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == dqvq::kFloat32)
@@ -319,20 +322,27 @@ static int dqvq_fused_attention_forward_impl(const void* q, const void* k, const
   return cudaErrorInvalidValue;
 }
 
+// head_total, head0: the call runs heads head0 .. head0 + n_head - 1 of a
+// model of head_total heads (a tensor-parallel rank's local heads), and the
+// dropout counters take each head's index in the model (common.cuh
+// `dropout_bh`) in place of the local batch * n_head + head, which a rank
+// holding another slice of the heads would share with rank 0: the masks are
+// the slice of a call over every head. head_total = n_head with head0 = 0
+// is the call without an offset, bit for bit.
 extern "C" int dqvq_fused_attention_forward(const void* q, const void* k, const void* v, void* out,
     void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype,
-    double rate, unsigned long long seed, void* stream) {
+    double rate, unsigned long long seed, int head_total, int head0, void* stream) {
   return dqvq_fused_attention_forward_impl(
       q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, dtype, rate, seed, nullptr,
-      stream);
+      head_total, head0, stream);
 }
 
 // The same with the dropout seed read on the device from `seed_ptr` (one
 // int64, read once by each block): what a CUDA graph replays with a new seed.
 extern "C" int dqvq_fused_attention_forward_device_seed(const void* q, const void* k, const void* v,
     void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
-    int dtype, double rate, const void* seed_ptr, void* stream) {
+    int dtype, double rate, const void* seed_ptr, int head_total, int head0, void* stream) {
   return dqvq_fused_attention_forward_impl(
       q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, dtype, rate, 0, seed_ptr,
-      stream);
+      head_total, head0, stream);
 }

@@ -376,11 +376,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* y, c
 static int dqvq_fused_attention_backward_impl(const void* q, const void* k, const void* v,
     const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
     int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype, double rate,
-    unsigned long long seed, const void* seed_ptr, void* stream) {
+    unsigned long long seed, const void* seed_ptr, int head_total, int head0, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
+  if (!dqvq::valid_heads(n_head, head_total, head0)) return cudaErrorInvalidValue;
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(
+      rate, seed, seed_ptr, n_head, head_total, head0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
@@ -393,13 +395,20 @@ static int dqvq_fused_attention_backward_impl(const void* q, const void* k, cons
   return cudaErrorInvalidValue;
 }
 
+// head_total, head0: the call runs heads head0 .. head0 + n_head - 1 of a
+// model of head_total heads (a tensor-parallel rank's local heads), and the
+// dropout counters take each head's index in the model (common.cuh
+// `dropout_bh`) in place of the local batch * n_head + head, which a rank
+// holding another slice of the heads would share with rank 0: the masks are
+// the slice of a call over every head. head_total = n_head with head0 = 0
+// is the call without an offset, bit for bit.
 extern "C" int dqvq_fused_attention_backward(const void* q, const void* k, const void* v,
     const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
     int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype, double rate,
-    unsigned long long seed, void* stream) {
+    unsigned long long seed, int head_total, int head0, void* stream) {
   return dqvq_fused_attention_backward_impl(
       q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, dtype,
-      rate, seed, nullptr, stream);
+      rate, seed, nullptr, head_total, head0, stream);
 }
 
 // The same with the dropout seed read on the device from `seed_ptr` (one
@@ -407,8 +416,8 @@ extern "C" int dqvq_fused_attention_backward(const void* q, const void* k, const
 extern "C" int dqvq_fused_attention_backward_device_seed(const void* q, const void* k,
     const void* v, const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int batch, int t_len, int d_model, int n_head, float scale, int causal, int dtype,
-    double rate, const void* seed_ptr, void* stream) {
+    double rate, const void* seed_ptr, int head_total, int head0, void* stream) {
   return dqvq_fused_attention_backward_impl(
       q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, dtype,
-      rate, 0, seed_ptr, stream);
+      rate, 0, seed_ptr, head_total, head0, stream);
 }

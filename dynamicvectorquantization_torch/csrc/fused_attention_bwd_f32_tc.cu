@@ -505,7 +505,7 @@ cudaError_t launch_hd(const Args& a, const float* y, float* delta, int batch,
 static int dqvq_fused_attention_backward_f32_tc_impl(const void* q, const void* k, const void* v,
     const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
     int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
-    unsigned long long seed, const void* seed_ptr, void* stream) {
+    unsigned long long seed, const void* seed_ptr, int head_total, int head0, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
@@ -526,7 +526,8 @@ static int dqvq_fused_attention_backward_f32_tc_impl(const void* q, const void* 
   a.scale = scale;
   a.scale_log2 = (float)((double)scale * 1.4426950408889634);
   a.causal = causal;
-  a.drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
+  if (!dqvq::valid_heads(n_head, head_total, head0)) return cudaErrorInvalidValue;
+  a.drop = dqvq::make_dropout_params(rate, seed, seed_ptr, n_head, head_total, head0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fy = static_cast<const float*>(y);
   float* fd = static_cast<float*>(delta);
@@ -540,13 +541,20 @@ static int dqvq_fused_attention_backward_f32_tc_impl(const void* q, const void* 
   }
 }
 
+// head_total, head0: the call runs heads head0 .. head0 + n_head - 1 of a
+// model of head_total heads (a tensor-parallel rank's local heads), and the
+// dropout counters take each head's index in the model (common.cuh
+// `dropout_bh`) in place of the local batch * n_head + head, which a rank
+// holding another slice of the heads would share with rank 0: the masks are
+// the slice of a call over every head. head_total = n_head with head0 = 0
+// is the call without an offset, bit for bit.
 extern "C" int dqvq_fused_attention_backward_f32_tc(const void* q, const void* k, const void* v,
     const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk, void* dv,
     int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
-    unsigned long long seed, void* stream) {
+    unsigned long long seed, int head_total, int head0, void* stream) {
   return dqvq_fused_attention_backward_f32_tc_impl(
       q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, rate,
-      seed, nullptr, stream);
+      seed, nullptr, head_total, head0, stream);
 }
 
 // The same with the dropout seed read on the device from `seed_ptr` (one
@@ -554,8 +562,8 @@ extern "C" int dqvq_fused_attention_backward_f32_tc(const void* q, const void* k
 extern "C" int dqvq_fused_attention_backward_f32_tc_device_seed(const void* q, const void* k,
     const void* v, const void* y, const void* dy, const void* lse, void* delta, void* dq, void* dk,
     void* dv, int batch, int t_len, int d_model, int n_head, float scale, int causal, double rate,
-    const void* seed_ptr, void* stream) {
+    const void* seed_ptr, int head_total, int head0, void* stream) {
   return dqvq_fused_attention_backward_f32_tc_impl(
       q, k, v, y, dy, lse, delta, dq, dk, dv, batch, t_len, d_model, n_head, scale, causal, rate, 0,
-      seed_ptr, stream);
+      seed_ptr, head_total, head0, stream);
 }

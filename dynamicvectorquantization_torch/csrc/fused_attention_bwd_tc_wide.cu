@@ -4,6 +4,10 @@
 // D) tensors with heads carved from D, causal or not, with the forward's
 // dropout mask redrawn.
 //
+// The dropout counters take each head's index in the model, as the entry
+// point's head_total / head0 give it (common.cuh `dropout_bh`; a call
+// without an offset keeps its bits).
+//
 // Replaces: dynamicvectorquantization_tpu/ops/attention_pallas.py
 // `_bwd_kernel` (reached through `_fused_bwd`). With the keep mask M and keep
 // = 1 - rate: P = exp(S scale - lse), D = P o M / keep, dV = D^T dY, dP = (dY

@@ -247,11 +247,14 @@ cudaError_t launch_hd(const void* q, const void* k, const void* v, void* out, fl
 // rate in [0, 1) and seed as in fused_attention.cu. Returns a cudaError_t.
 static int dqvq_fused_attention_forward_tc_impl(const void* q, const void* k, const void* v,
     void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
-    double rate, unsigned long long seed, const void* seed_ptr, void* stream) {
+    double rate, unsigned long long seed, const void* seed_ptr,
+    int head_total, int head0, void* stream) {
   if (n_head <= 0 || d_model % n_head != 0 || t_len <= 0 || batch <= 0 ||
       !(rate >= 0.0 && rate < 1.0))
     return cudaErrorInvalidValue;
-  const dqvq::DropoutParams drop = dqvq::make_dropout_params(rate, seed, seed_ptr);
+  if (!dqvq::valid_heads(n_head, head_total, head0)) return cudaErrorInvalidValue;
+  const dqvq::DropoutParams drop = dqvq::make_dropout_params(
+      rate, seed, seed_ptr, n_head, head_total, head0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const float scale_log2 = (float)((double)scale * 1.4426950408889634);
@@ -271,18 +274,27 @@ static int dqvq_fused_attention_forward_tc_impl(const void* q, const void* k, co
   }
 }
 
+// head_total, head0: the call runs heads head0 .. head0 + n_head - 1 of a
+// model of head_total heads (a tensor-parallel rank's local heads), and the
+// dropout counters take each head's index in the model (common.cuh
+// `dropout_bh`) in place of the local batch * n_head + head, which a rank
+// holding another slice of the heads would share with rank 0: the masks are
+// the slice of a call over every head. head_total = n_head with head0 = 0
+// is the call without an offset, bit for bit.
 extern "C" int dqvq_fused_attention_forward_tc(const void* q, const void* k, const void* v,
     void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale, int causal,
-    double rate, unsigned long long seed, void* stream) {
+    double rate, unsigned long long seed, int head_total, int head0, void* stream) {
   return dqvq_fused_attention_forward_tc_impl(
-      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, seed, nullptr, stream);
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, seed, nullptr,
+      head_total, head0, stream);
 }
 
 // The same with the dropout seed read on the device from `seed_ptr` (one
 // int64, read once by each block): what a CUDA graph replays with a new seed.
 extern "C" int dqvq_fused_attention_forward_tc_device_seed(const void* q, const void* k,
     const void* v, void* out, void* lse, int batch, int t_len, int d_model, int n_head, float scale,
-    int causal, double rate, const void* seed_ptr, void* stream) {
+    int causal, double rate, const void* seed_ptr, int head_total, int head0, void* stream) {
   return dqvq_fused_attention_forward_tc_impl(
-      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, 0, seed_ptr, stream);
+      q, k, v, out, lse, batch, t_len, d_model, n_head, scale, causal, rate, 0, seed_ptr,
+      head_total, head0, stream);
 }

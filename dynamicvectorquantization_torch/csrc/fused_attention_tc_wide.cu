@@ -6,6 +6,10 @@
 // causal or not, dropout in kernel with the mask of common.cuh, and the rows'
 // log-sum-exp.
 //
+// The dropout counters take each head's index in the model, as the entry
+// point's head_total / head0 give it (common.cuh `dropout_bh`; a call
+// without an offset keeps its bits).
+//
 // Replaces: dynamicvectorquantization_tpu/ops/attention_pallas.py
 // `_fwd_kernel` (reached through `_fused_fwd` / `fused_causal_attention`):
 // both products from bf16 operands with f32 accumulation, the kept,

@@ -155,7 +155,7 @@ __device__ __forceinline__ unsigned word(const uint4& w, int i) {
 }
 
 __device__ __forceinline__ uint4 philox_at(const DropoutParams& dp, int bh, int row, int col4) {
-  return philox4x32_10(make_uint4((unsigned)col4, (unsigned)row, (unsigned)bh, 0u),
+  return philox4x32_10(make_uint4((unsigned)col4, (unsigned)row, dropout_bh(dp, bh), 0u),
                        make_uint2((unsigned)dp.seed, (unsigned)(dp.seed >> 32)));
 }
 

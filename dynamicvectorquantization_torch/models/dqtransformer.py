@@ -81,6 +81,7 @@ class Dualformer(nn.Module):
         super().__init__()
         cond_cfg = uncond_stage_config or cond_stage_config or class_cond_stage_config
         self.transformer = instantiate_from_config(transformer_config)
+        self.transformer_train_forward = None  # a model axis's training forward, or None
         self.first_stage_model = instantiate_from_config(first_stage_config)
         self.permuter = instantiate_from_config(permuter_config)
         self.cond_stage_model = instantiate_from_config(cond_cfg)
@@ -174,7 +175,10 @@ class Dualformer(nn.Module):
         fine_content = prefixed(c_fine, "fine_content", True)
         fine_position = prefixed(c_pos_fine, "fine_position", True)
         seg = self.activate_segment
-        return self.transformer(
+        # the training forward of a model axis (`train/stage2.py`), else the
+        # StackGPT's own
+        forward = self.transformer_train_forward if train else None
+        return (forward or self.transformer)(
             coarse_content, fine_content, coarse_position, fine_position,
             coarse_seg=prefixed(c_seg_coarse, "coarse_segment") if seg else None,
             fine_seg=prefixed(c_seg_fine, "fine_segment", True) if seg else None,

@@ -19,8 +19,24 @@ seed may instead be a table, an int64 tensor with one row per layer of the
 model holding those mixed seeds (`Stage2Trainer`'s captured step fills it on
 the host before each replay): layer i then hands its row to the kernels,
 which read it on the device.
-`attn_bias`, cross-attention and sequence parallelism are not ported; no
-shipped unconditional config turns them on.
+`attn_bias` and cross-attention are not ported; no shipped unconditional
+config turns them on.
+
+Model parallelism (counterpart of the JAX blocks' `stage2_param_shardings`
+under GSPMD and `sequence_parallel_axis`): with `tp` set (a
+`parallel.dist.World`, by `parallel/mesh.py` `shard_stage2`) a block holds
+its tensor-parallel shards: `query`, `key`, `value` and `mlp.0` split by
+output (their rows), `proj` and `mlp.2` by input (their columns), whose
+biases stay whole and are added once after the sum. Attention runs the
+fused kernels on the rank's `n_head / tp` heads at the model's head dim,
+heads `rank * n_head / tp ..` of the model (the kernels' head offset, so
+the dropout masks are those of the whole model's heads), and the GELU on
+the rank's `4 n_embd / tp` columns. `copy_to_group` comes before the split
+Linears and `reduce_from_group` after the row-split ones, so everything
+outside them is replicated and equal on every rank. Inside a
+`parallel.ring_attention.sequence_parallel` scope the full-sequence path
+runs ring attention over the sp group on the rank's rows (no
+attention-probability dropout there, as in the JAX package).
 
 Decode: caches are updated IN PLACE (the JAX package returns new cache
 arrays; here that would copy hundreds of MB per step). `cache_index` is a
@@ -38,10 +54,13 @@ at ONE, as the reference's.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import fused_causal_attention, mix_seed
 from ..ops.kv_int8 import CHUNK, decode_attention_int8, quantize_kv
+from ..parallel.dist import copy_to_group, reduce_from_group
+from ..parallel.ring_attention import active_sequence_world, ring_attention
 from .activations import GELU
 from .norm import LayerNorm
 
@@ -145,6 +164,7 @@ class CausalSelfAttention(nn.Module):
         self.key = nn.Linear(n_embd, n_embd)
         self.value = nn.Linear(n_embd, n_embd)
         self.proj = nn.Linear(n_embd, n_embd)
+        self.tp = None  # the tensor-parallel group whose shards this module holds
 
     def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None,
                 n_chunks=None):
@@ -158,9 +178,30 @@ class CausalSelfAttention(nn.Module):
             rate = float(self.attn_pdrop) if train else 0.0
             if rate > 0.0 and seed is None:
                 raise ValueError("attn_pdrop > 0 in training needs the forward's integer seed")
-            y = fused_causal_attention(self.query(x), self.key(x), self.value(x), self.n_head,
-                                       causal=True, rate=rate, seed=seed)
-            return dropout(self.proj(y), self.resid_pdrop, train, generator)
+            sp = active_sequence_world()
+            if sp is not None and rate > 0.0:
+                raise ValueError("sequence-parallel training requires attn_pdrop == 0 "
+                                 "(ring attention has no attention-probability dropout)")
+            tp = self.tp
+            if tp is not None:
+                x = copy_to_group(x, tp)
+            n_head = self.n_head if tp is None else self.n_head // tp.size
+            q, k, v = self.query(x), self.key(x), self.value(x)
+            if sp is not None:
+                y = ring_attention(q, k, v, n_head, sp)
+            elif tp is None:
+                y = fused_causal_attention(q, k, v, n_head, causal=True, rate=rate, seed=seed)
+            else:  # the rank's heads, at their place in the model
+                y = fused_causal_attention(q, k, v, n_head, causal=True, rate=rate, seed=seed,
+                                           head0=tp.rank * n_head, n_head_total=self.n_head)
+            if tp is None:
+                y = self.proj(y)
+            else:
+                y = reduce_from_group(F.linear(y, self.proj.weight), tp) + self.proj.bias
+            return dropout(y, self.resid_pdrop, train, generator)
+        if self.tp is not None:
+            raise ValueError("KV-cached decode runs on whole weights: gather the "
+                             "tensor-parallel shards first (Stage2Trainer.master_weights)")
         b, t, c = x.shape
         if t != 1:
             raise ValueError(f"KV-cached decode takes one token per step, got {t}")
@@ -199,11 +240,19 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(n_embd, eps=1e-5)
         self.mlp = nn.Sequential(
             nn.Linear(n_embd, 4 * n_embd), GELU(), nn.Linear(4 * n_embd, n_embd))
+        self.tp = None  # the tensor-parallel group whose shards this block holds
+
+    def _mlp(self, h):
+        if self.tp is None:
+            return self.mlp(h)
+        fc, act, proj = self.mlp
+        h = act(fc(copy_to_group(h, self.tp)))
+        return reduce_from_group(F.linear(h, proj.weight), self.tp) + proj.bias
 
     def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None,
                 n_chunks=None):
         x = x + self.attn(self.ln1(x), cache, cache_index, train, generator, seed, n_chunks)
-        return x + dropout(self.mlp(self.ln2(x)), self.resid_pdrop, train, generator)
+        return x + dropout(self._mlp(self.ln2(x)), self.resid_pdrop, train, generator)
 
 
 class TransformerStack(nn.ModuleList):

@@ -38,7 +38,13 @@ it. The keep bit of a probability is a pure function of `(seed, batch, head,
 query row, key column)`: one Philox4x32-10 call with counter `(column // 4,
 row, batch * n_head + head, 0)` and the seed's two 32-bit halves as key
 gives four words, column `c` takes word `c % 4`, and the probability is kept
-iff the word >= uint32(rate * 4294967295), the TPU kernel's rule. Tile
+iff the word >= uint32(rate * 4294967295), the TPU kernel's rule. A call may
+run a slice of a model's heads, `n_head` of `n_head_total` from `head0` (a
+tensor-parallel rank's local heads): the counter's head is then the head's
+index in the model, `batch * n_head_total + head0 + head`, so the slice
+draws what a call over every head draws for those heads, as the JAX step
+under GSPMD draws one mask over the global tensor. `head0 = 0` with
+`n_head_total = n_head` (the default) is the call without an offset. Tile
 sizes, blocks and threads do not enter, so the forward, both backward passes
 and the plain version (`dropout_keep_mask`, the same Philox in torch integer
 ops) agree bit for bit. `attention_seed` derives a layer's seed on the host
@@ -99,14 +105,30 @@ def dropout_threshold(rate: float) -> int:
     return int(rate * 4294967295.0)
 
 
-def dropout_keep_mask(seed: int, b: int, n_head: int, t: int, rate: float, device=None):
+def _heads_of(n_head, head0, n_head_total):
+    """(head0, n_head_total) checked: `n_head` heads from `head0` inside a
+    model of `n_head_total` (None: `n_head`)."""
+    total = n_head if n_head_total is None else int(n_head_total)
+    head0 = int(head0)
+    if n_head <= 0 or head0 < 0 or head0 + n_head > total:
+        raise ValueError(f"heads {head0} .. {head0 + n_head - 1} do not lie in a model of "
+                         f"{total} heads")
+    return head0, total
+
+
+def dropout_keep_mask(seed: int, b: int, n_head: int, t: int, rate: float, device=None,
+                      head0: int = 0, n_head_total=None):
     """The keep mask both kernels draw, bool (B, H, T, T) [batch, head, query
-    row, key column], from the same Philox counters in torch integer ops."""
+    row, key column], from the same Philox counters in torch integer ops;
+    for heads `head0 ..` of a model of `n_head_total` heads, the rows of
+    those heads in the model's full mask (the module docstring)."""
+    head0, total = _heads_of(n_head, head0, n_head_total)
     groups = (t + 3) // 4
     i64 = dict(dtype=torch.int64, device=device)
     col4 = torch.arange(groups, **i64).view(1, 1, groups)
     row = torch.arange(t, **i64).view(1, t, 1)
-    bh = torch.arange(b * n_head, **i64).view(b * n_head, 1, 1)
+    bh = (torch.arange(b, **i64).view(b, 1) * total + head0
+          + torch.arange(n_head, **i64).view(1, n_head)).view(b * n_head, 1, 1)
     seed = int(seed) & _MASK64
     words = philox4x32_10((col4, row, bh, torch.zeros((), **i64)), (seed, seed >> 32))
     bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
@@ -153,24 +175,28 @@ def _scores(q, k, n_head, scale, causal):
     return s
 
 
-def _keep_scale(q, n_head, rate, seed):
+def _keep_scale(q, n_head, rate, seed, head0=0, n_head_total=None):
     """M / keep as f32 (B, H, T, T), or None at rate 0."""
     if rate <= 0.0:
         return None
     if seed is None:
         raise ValueError("attention dropout (rate > 0) needs a seed")
     b, t, _ = q.shape
-    return dropout_keep_mask(seed, b, n_head, t, rate, q.device).float() / (1.0 - rate)
+    return dropout_keep_mask(seed, b, n_head, t, rate, q.device, head0,
+                             n_head_total).float() / (1.0 - rate)
 
 
 def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False,
-                                  return_lse=False, rate=0.0, seed=None):
+                                  return_lse=False, rate=0.0, seed=None, head0=0,
+                                  n_head_total=None):
     """Plain PyTorch version: the same math as the TPU kernel (f32 scores,
     max-subtracted exp, the denominator summed before the dropout mask,
     normalisation after P V), computed in f32; for bf16 inputs the
     probabilities are rounded to bf16 before P V, as the TPU kernel and the
     tensor-core kernel round them. With `return_lse` also the rows'
-    log-sum-exp (of the undropped scores), (B, H, T) f32."""
+    log-sum-exp (of the undropped scores), (B, H, T) f32. `head0`,
+    `n_head_total`: the heads' place in the model, for the dropout mask (the
+    module docstring)."""
     b, t, d = q.shape
     if scale is None:
         scale = 1.0 / float(d // n_head) ** 0.5
@@ -178,7 +204,7 @@ def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    keep = _keep_scale(q, n_head, rate, seed)
+    keep = _keep_scale(q, n_head, rate, seed, head0, n_head_total)
     if q.dtype == torch.bfloat16:
         # the TPU kernel's rounding: the kept, unnormalised probabilities to
         # bf16 before P V (`p.astype(v.dtype)`), 1 / keep after it
@@ -198,7 +224,7 @@ def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False
 
 
 def fused_attention_backward_plain(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True,
-                                   rate=0.0, seed=None):
+                                   rate=0.0, seed=None, head0=0, n_head_total=None):
     """Plain PyTorch version of the backward, in f32: P = exp(S scale - lse),
     delta = rowsum(dY * Y), D = P * M / keep, dV = D^T dY, dP = (dY V^T) * M /
     keep, dS = P * (dP - delta), dQ = dS K scale, dK = dS^T Q scale (M = 1,
@@ -211,7 +237,7 @@ def fused_attention_backward_plain(q, k, v, y, lse, dy, n_head: int, scale=None,
     dyh = _heads(dy, n_head)
     delta = (dyh * _heads(y, n_head)).sum(dim=-1, keepdim=True)
     dp = torch.matmul(dyh, _heads(v, n_head).transpose(-1, -2))
-    keep = _keep_scale(q, n_head, rate, seed)
+    keep = _keep_scale(q, n_head, rate, seed, head0, n_head_total)
     dropped = p
     if keep is not None:
         dropped, dp = p * keep, dp * keep
@@ -333,11 +359,13 @@ def _entry(name, seed):
 
 
 def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate=0.0,
-                            return_lse=False, seed=None):
+                            return_lse=False, seed=None, head0=0, n_head_total=None):
     """softmax(Q K^T * scale) V per head, with dropout on the probabilities
     when `rate > 0` (mask drawn from `seed`, an int or a one-element int64
     tensor on q's device, see the module docstring); q/k/v: (B, T, D), D =
-    n_head * hd with hd in {16, 32, 64, 128, 256, 512}; f32 or bf16. Returns (B, T, D) in q's dtype, and with
+    n_head * hd with hd in {16, 32, 64, 128, 256, 512}; f32 or bf16; the
+    `n_head` heads are heads `head0 ..` of a model of `n_head_total` (the
+    dropout counters' heads, see the module docstring). Returns (B, T, D) in q's dtype, and with
     `return_lse` also the rows' log-sum-exp (B, H, T) f32.
     `fused_attention_forward.launches` counts kernel launches,
     `.tc_launches` those of the bf16 tensor-core family, `.fma_launches` those
@@ -347,10 +375,11 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
     `.dropout_launches` those at `rate > 0`, `.device_seed_launches` those
     whose seed a tensor held."""
     rate, seed = _dropout_args(rate, seed, q.device)
+    head0, total = _heads_of(n_head, head0, n_head_total)
     tensors = (q, k, v)
     if all(x.device.type == "cpu" for x in tensors):
         return fused_attention_forward_plain(q, k, v, n_head, scale, causal, return_lse,
-                                             rate, seed)
+                                             rate, seed, head0, total)
     _check("fused_attention_forward", tensors, n_head, _FORWARD_HEAD_DIMS)
     b, t, d = q.shape
     if scale is None:
@@ -368,7 +397,8 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
                    }[route]
     entry, seed_arg = _entry(name, seed)
     err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr, b, t, d,
-                n_head, float(scale), int(bool(causal)), *dtype, rate, seed_arg, stream)
+                n_head, float(scale), int(bool(causal)), *dtype, rate, seed_arg, total, head0,
+                stream)
     cuda_lib.check(err, "fused_attention_forward")
     _count(fused_attention_forward, route, rate, seed)
     return (out, lse) if return_lse else out
@@ -384,17 +414,19 @@ fused_attention_forward.device_seed_launches = 0  # those that read their seed o
 
 
 def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True,
-                             rate=0.0, seed=None):
+                             rate=0.0, seed=None, head0=0, n_head_total=None):
     """(dq, dk, dv) in q's dtype from the forward's inputs, its output y, its
-    log-sum-exp and its dropout `rate` and `seed`; hd as in the forward.
+    log-sum-exp and its dropout `rate`, `seed` and heads (`head0`,
+    `n_head_total`); hd as in the forward.
     `fused_attention_backward.launches` counts launches (the delta kernel and
     the dK/dV and dQ passes are one launch of the wrapper), split by family,
     kernel and rate as the forward's."""
     rate, seed = _dropout_args(rate, seed, q.device)
+    head0, total = _heads_of(n_head, head0, n_head_total)
     tensors = (q, k, v, y, dy)
     if all(x.device.type == "cpu" for x in (*tensors, lse)):
         return fused_attention_backward_plain(q, k, v, y, lse, dy, n_head, scale, causal,
-                                              rate, seed)
+                                              rate, seed, head0, total)
     _check("fused_attention_backward", tensors, n_head, _BACKWARD_HEAD_DIMS)
     b, t, d = q.shape
     if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (b, n_head, t)
@@ -416,7 +448,7 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
                    }[route]
     entry, seed_arg = _entry(name, seed)
     err = entry(*ptrs, b, t, d, n_head, float(scale), int(bool(causal)), *dtype, rate, seed_arg,
-                stream)
+                total, head0, stream)
     cuda_lib.check(err, "fused_attention_backward")
     _count(fused_attention_backward, route, rate, seed)
     return dq, dk, dv
@@ -433,10 +465,11 @@ fused_attention_backward.device_seed_launches = 0
 
 class _FusedCausalAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, n_head, scale, causal, rate, seed):
-        y, lse = fused_attention_forward(q, k, v, n_head, scale, causal, rate, True, seed)
+    def forward(ctx, q, k, v, n_head, scale, causal, rate, seed, head0, n_head_total):
+        y, lse = fused_attention_forward(q, k, v, n_head, scale, causal, rate, True, seed, head0,
+                                         n_head_total)
         ctx.save_for_backward(q, k, v, y, lse)
-        ctx.args = (n_head, scale, causal, rate, seed)
+        ctx.args = (n_head, scale, causal, rate, seed, head0, n_head_total)
         return y
 
     @staticmethod
@@ -445,17 +478,21 @@ class _FusedCausalAttention(torch.autograd.Function):
         # autograd often hands over a non-contiguous dy (a view of the
         # projection's input gradient): copy it, the kernel takes nothing else
         dq, dk, dv = fused_attention_backward(q, k, v, y, lse, dy.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def fused_causal_attention(q, k, v, n_head: int, scale=None, causal=True, rate=0.0, seed=None):
+def fused_causal_attention(q, k, v, n_head: int, scale=None, causal=True, rate=0.0, seed=None,
+                           head0=0, n_head_total=None):
     """Differentiable softmax(Q K^T * scale) V on contiguous (B, T, D)
     projection outputs (no head transpose); on CUDA both directions are
     hand-written kernels. Where no gradient is asked for (`torch.no_grad()`,
     or inputs that need none) only the forward runs and no log-sum-exp is
     kept. `rate > 0` drops attention probabilities with the mask of `seed`
     (an int or a one-element int64 tensor; required then); the backward
-    redraws it."""
+    redraws it. `head0`, `n_head_total`: the heads' place in the model (a
+    tensor-parallel rank's local heads), for the dropout counters."""
     if not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))):
-        return fused_attention_forward(q, k, v, n_head, scale, causal, rate, seed=seed)
-    return _FusedCausalAttention.apply(q, k, v, n_head, scale, causal, float(rate), seed)
+        return fused_attention_forward(q, k, v, n_head, scale, causal, rate, seed=seed,
+                                       head0=head0, n_head_total=n_head_total)
+    return _FusedCausalAttention.apply(q, k, v, n_head, scale, causal, float(rate), seed, head0,
+                                       n_head_total)

@@ -39,19 +39,21 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 _U = ctypes.c_ulonglong
+# the attention entries' last arguments: rate, seed, head_total, head0, stream
+_DROP = (_D, _U, _I, _I, _P)
 # entry point -> argtypes; every entry returns a cudaError_t as int, but those
 # in RESTYPES
 SIGNATURES = {
     "dqvq_decode_attention_int8": (_P,) * 6 + (_I, _I, _I, _I, _I, _F, _I, _P),
     "dqvq_decode_attention_int8_device_index": (_P,) * 6 + (_I, _I, _I, _I, _P, _F, _I, _P),
-    "dqvq_fused_attention_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
-    "dqvq_fused_attention_backward": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, _D, _U, _P),
-    "dqvq_fused_attention_backward_wide_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
-    "dqvq_fused_attention_forward_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _D, _U, _P),
-    "dqvq_fused_attention_forward_f32_tc": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
-    "dqvq_fused_attention_forward_wide_f32": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
-    "dqvq_fused_attention_backward_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
-    "dqvq_fused_attention_backward_f32_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _D, _U, _P),
+    "dqvq_fused_attention_forward": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, *_DROP),
+    "dqvq_fused_attention_backward": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, _I, *_DROP),
+    "dqvq_fused_attention_backward_wide_f32": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, *_DROP),
+    "dqvq_fused_attention_forward_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, *_DROP),
+    "dqvq_fused_attention_forward_f32_tc": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, *_DROP),
+    "dqvq_fused_attention_forward_wide_f32": (_P,) * 5 + (_I, _I, _I, _I, _F, _I, *_DROP),
+    "dqvq_fused_attention_backward_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, *_DROP),
+    "dqvq_fused_attention_backward_f32_tc": (_P,) * 10 + (_I, _I, _I, _I, _F, _I, *_DROP),
     "dqvq_layernorm_forward": (_P, _P, _P, _P, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward": (_P,) * 7 + (_I, _I, _I, _F, _I, _I, _P),
     "dqvq_layernorm_backward_occupancy": (_I, _I, _P, _P),
@@ -72,9 +74,10 @@ SIGNATURES = {
 }
 
 # each attention entry beside its `_device_seed` twin, which reads the seed
-# from a device int64 (the pointer in place of the by-value seed)
+# from a device int64 (the pointer in place of the by-value seed); both end
+# with (head_total, head0, stream)
 SIGNATURES.update({
-    f"{name}_device_seed": args[:-2] + (_P, _P) for name, args in list(SIGNATURES.items())
+    f"{name}_device_seed": args[:-4] + (_P,) + args[-3:] for name, args in list(SIGNATURES.items())
     if name.startswith("dqvq_fused_attention_")})
 
 RESTYPES = {"dqvq_vq_workspace_bytes": _L}

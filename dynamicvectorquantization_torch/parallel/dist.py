@@ -30,6 +30,29 @@ NCCL on CUDA, gloo on the CPU (or on CUDA tensors when asked, as the card
 runs two processes on one device). Host-side flags (the preemption guard)
 travel over a gloo group of their own, so reading them never waits for the
 device.
+
+A second axis (counterpart of `make_mesh_2d`, the stage-2 model axes):
+`split_world(world, n)` cuts the ranks into groups of n consecutive ranks
+inside one host, the model axis (tp, sp or pp), and the groups of the ranks
+at the same place of every model group, the dp axis; each is a `World` over
+its own process group (`ranks`: its members' global ranks), and a model
+axis that does not divide a host's ranks raises (`make_mesh_multihost`
+lays devices without regard to hosts). The model axis's own operations:
+
+  * `shift(t, step)`: rank r receives rank r - step's tensor, as `ppermute`
+    with `perm = [(i, (i + step) % n)]`; `ring_shift` is its differentiable
+    form, whose backward shifts the other way;
+  * `copy_to_group` (identity forward, all-reduce backward) and
+    `reduce_from_group` (all-reduce forward, identity backward), the two
+    Megatron conjugates around a column- and a row-split Linear;
+  * `gather_dim`: the group's tensors concatenated along a dim, whose
+    backward keeps this rank's part.
+
+Point to point goes through `batch_isend_irecv`. The backend table of
+PyTorch lists gloo's send / recv, all-gather and reduce-scatter for CPU
+tensors only, so under gloo a CUDA tensor takes those hops through pinned
+host memory (`World.transport`): that is gloo's transport, chosen by the
+backend, not a fallback; NCCL takes the device tensors.
 """
 from __future__ import annotations
 
@@ -63,15 +86,33 @@ def group_by_host(hosts) -> list:
 class World:
     """One rank of a data-parallel group (see the module docstring)."""
 
-    def __init__(self, rank: int, size: int, device, backend: str, hosts=None):
+    def __init__(self, rank: int, size: int, device, backend: str, hosts=None, group=None,
+                 ranks=None):
         self.rank, self.size = int(rank), int(size)
         self.device = torch.device(device)
         self.backend = backend
         self.hosts = tuple(hosts or ("localhost",) * self.size)
+        self.group = group  # None: the default process group
+        self.ranks = tuple(range(self.size) if ranks is None else ranks)  # members' global ranks
+        self.moved = {}  # bytes each collective of this world was handed, by operation
         self._host_group = None
 
     def __repr__(self):
         return f"World(rank={self.rank}, size={self.size}, {self.backend}, {self.device})"
+
+    @property
+    def transport(self) -> str:
+        """How point-to-point hops, all-gathers and reduce-scatters move this
+        world's tensors."""
+        if self.backend == "gloo" and self.device.type == "cuda":
+            return "gloo via pinned host memory"
+        return self.backend
+
+    def _staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def _count(self, op, t):
+        self.moved[op] = self.moved.get(op, 0) + t.numel() * t.element_size()
 
     @property
     def is_main(self) -> bool:
@@ -89,14 +130,19 @@ class World:
 
     # ------------------------------------------------------- collectives
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
-        _dist().all_reduce(t)
+        if self.backend == "gloo" and t.dtype == torch.bfloat16:  # summed in f32, rounded once
+            return t.copy_(self.sum_(t.float()))
+        self._count("all_reduce", t)
+        _dist().all_reduce(t, group=self.group)
         return t
 
     def mean_(self, t: torch.Tensor) -> torch.Tensor:
         return self.sum_(t).div_(self.size)
 
     def broadcast_(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        _dist().broadcast(t, src)
+        """t <- member `src`'s t (src: the rank inside this world)."""
+        self._count("broadcast", t)
+        _dist().broadcast(t, self.ranks[src], group=self.group)
         return t
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -108,14 +154,44 @@ class World:
         return out
 
     def all_gather_into(self, out: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
-        _dist().all_gather_into_tensor(out, part)
+        self._count("all_gather", part)
+        if self._staged():
+            host = _pinned(out)
+            _dist().all_gather_into_tensor(host, _pinned(part, copy=True), group=self.group)
+            return out.copy_(host)
+        _dist().all_gather_into_tensor(out, part, group=self.group)
         return out
 
     def reduce_scatter(self, out: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
         """out = this rank's part (its contiguous 1 / size) of the sum over
         ranks of `full`."""
-        _dist().reduce_scatter_tensor(out, full)
+        self._count("reduce_scatter", full)
+        if self._staged():
+            host = _pinned(out)
+            _dist().reduce_scatter_tensor(host, _pinned(full, copy=True), group=self.group)
+            return out.copy_(host)
+        _dist().reduce_scatter_tensor(out, full, group=self.group)
         return out
+
+    def shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """Every rank sends `t` to rank (r + step) % n and returns what rank
+        (r - step) % n sent (`ppermute` with `perm = [(i, (i + step) % n)]`);
+        one shape and dtype on every rank."""
+        t = t.contiguous()
+        if self.size == 1:
+            return t.clone()
+        dist = _dist()
+        self._count("shift", t)
+        staged = self._staged()
+        src = _pinned(t, copy=True) if staged else t
+        out = torch.empty_like(src)
+        ops = [dist.P2POp(dist.isend, src, self.ranks[(self.rank + step) % self.size],
+                          group=self.group),
+               dist.P2POp(dist.irecv, out, self.ranks[(self.rank - step) % self.size],
+                          group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return out.to(t.device) if staged else out
 
     def any(self, flag: bool) -> bool:
         """Whether any rank's host-side flag is set (over gloo: no device sync)."""
@@ -129,7 +205,38 @@ class World:
         return bool(t.item())
 
     def barrier(self):
-        _dist().barrier()
+        _dist().barrier(group=self.group)
+
+
+def _pinned(t: torch.Tensor, copy: bool = False) -> torch.Tensor:
+    """A pinned host tensor of `t`'s shape and dtype (holding `t` with `copy`)."""
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t) if copy else host
+
+
+def split_world(world: World, n: int):
+    """(dp world, model-axis world) of this rank: model groups of `n`
+    consecutive ranks inside each host (the inner axis, as `make_mesh_2d`
+    lays it), dp groups of the ranks at one place of every model group.
+    Every rank calls it (each group is made by every rank, in one order)."""
+    if n < 1 or world.size % n:
+        raise ValueError(f"a model axis of {n} does not divide {world.size} ranks")
+    model_groups = []
+    for ranks in world.host_groups():
+        if len(ranks) % n:
+            raise ValueError(f"a model axis of {n} does not divide the {len(ranks)} ranks of a "
+                             f"host ({ranks}): its groups stay inside one host")
+        model_groups += [ranks[i:i + n] for i in range(0, len(ranks), n)]
+    dp_groups = [tuple(g[j] for g in model_groups) for j in range(n)]
+    dist = _dist()
+    mine = {}
+    for kind, groups in (("model", model_groups), ("dp", dp_groups)):
+        for ranks in groups:
+            g = dist.new_group(list(ranks))
+            if world.rank in ranks:
+                mine[kind] = World(ranks.index(world.rank), len(ranks), world.device,
+                                   world.backend, [world.hosts[r] for r in ranks], g, ranks)
+    return mine["dp"], mine["model"]
 
 
 # ---------------------------------------------------------------- setup
@@ -206,6 +313,76 @@ class _SumOverRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.world.sum_(g.contiguous().clone()), None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, world):
+        ctx.world = world
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.world.sum_(g.contiguous().clone()), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, world):
+        return world.sum_(t.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, world, step):
+        ctx.world, ctx.step = world, step
+        return world.shift(t, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.world.shift(g, -ctx.step), None, None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, world, dim):
+        ctx.world, ctx.dim, ctx.n = world, dim, t.shape[dim]
+        return world.all_gather(t.movedim(dim, 0)).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r, n = ctx.world.rank, ctx.n
+        return g.narrow(ctx.dim, r * n, n), None, None
+
+
+def copy_to_group(t: torch.Tensor, world: World) -> torch.Tensor:
+    """Identity forward; the backward sums the gradient over `world` (before
+    a column-split Linear: every rank's slice of the output has its share of
+    the input's gradient)."""
+    return _CopyToGroup.apply(t, world)
+
+
+def reduce_from_group(t: torch.Tensor, world: World) -> torch.Tensor:
+    """Sum over `world` forward (after a row-split Linear); identity
+    backward (the sum's consumers are replicated, so each rank's gradient is
+    the whole one)."""
+    return _ReduceFromGroup.apply(t, world)
+
+
+def ring_shift(t: torch.Tensor, world: World, step: int = 1) -> torch.Tensor:
+    """`World.shift` with its gradient: the backward shifts the other way."""
+    return _RingShift.apply(t, world, step)
+
+
+def gather_dim(t: torch.Tensor, world: World, dim: int) -> torch.Tensor:
+    """The ranks' tensors concatenated along `dim` in rank order; the
+    backward hands each rank its part of the gradient (the consumers are
+    replicated over `world`)."""
+    return _GatherDim.apply(t, world, dim)
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:

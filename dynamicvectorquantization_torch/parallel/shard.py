@@ -25,6 +25,15 @@ flattened leaf, so every leaf of that size is sharded.
 
 Collectives: all-reduce, reduce-scatter and all-gather into one tensor,
 which NCCL and gloo both have.
+
+Under a model axis (`parallel/dist.py` `split_world`) the buckets run over
+the dp group, and `keep_whole` names the tensor-parallel shards, which
+ZeRO-1 / FSDP leave as they are (their moments stay tp-split, as the JAX
+loop's `tree_shardings_like`). Before the dp average, `AxisSum` sums the
+gradients that are partial over the model axis in one flat f32 all-reduce:
+every leaf under sp (each rank's rows' share), the pipelined layers under
+pp (each on its own stage); under tp each rank's gradients are already
+whole (the split leaves' shards, and the replicated leaves' equal copies).
 """
 from __future__ import annotations
 
@@ -38,7 +47,7 @@ SHARD_MIN_ELEMENTS = 65536
 
 class GradBuckets:
     def __init__(self, shapes: dict, world, mode=None, min_elements: int = SHARD_MIN_ELEMENTS,
-                 device=None, n_logs: int = 0):
+                 device=None, n_logs: int = 0, keep_whole=()):
         if mode not in MODES:
             raise ValueError(f"shard mode must be one of {MODES}, got {mode!r}")
         self.world, self.mode = world, mode
@@ -46,7 +55,9 @@ class GradBuckets:
         device = torch.device(device or world.device)
         self.shapes = {k: torch.Size(s) for k, s in shapes.items()}
         numel = {k: math.prod(s) for k, s in self.shapes.items()}
-        self.sharded = [k for k in shapes if mode is not None and numel[k] >= min_elements]
+        keep_whole = set(keep_whole)
+        self.sharded = [k for k in shapes if mode is not None and numel[k] >= min_elements
+                        and k not in keep_whole]
         shard_set = set(self.sharded)
         self.replicated = [k for k in shapes if k not in shard_set]
         # replicated bucket: leaves, then logs
@@ -165,3 +176,26 @@ class GradBuckets:
                 for k in self.sharded}
         self.gather(full, own)
         return full
+
+
+class AxisSum:
+    """The gradients of `names` summed over a model-axis group `world` in
+    one flat f32 all-reduce (see the module docstring)."""
+
+    def __init__(self, shapes: dict, names, world, device):
+        self.world = world
+        self.names = [k for k in shapes if k in set(names)]
+        numel = {k: math.prod(shapes[k]) for k in self.names}
+        self.buf = torch.zeros(sum(numel.values()), dtype=torch.float32, device=device)
+        self.views, off = {}, 0
+        for k in self.names:
+            self.views[k] = self.buf[off:off + numel[k]].view(shapes[k])
+            off += numel[k]
+
+    def __call__(self, grads: dict) -> dict:
+        """`grads` with the named ones replaced by their f32 sums."""
+        if not self.names:
+            return grads
+        torch._foreach_copy_([self.views[k] for k in self.names], [grads[k] for k in self.names])
+        self.world.sum_(self.buf)
+        return {**grads, **self.views}

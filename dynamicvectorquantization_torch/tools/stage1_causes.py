@@ -25,6 +25,16 @@ function). Usage (the card; ~2.5 min a leg):
         [--data_root artifacts/campaign_r05/data]
 
 writes `<dir>/causes.json` and prints it as its last line.
+
+    python -m dynamicvectorquantization_torch.tools.stage1_causes \
+        --compare <a stage-1 metrics.jsonl>
+
+holds a run's stage-1 train rows to r04 / r05 step by step: per metric, the
+first logged step whose value lies outside [min - d, max + d] of the two JAX
+runs' values at that step, d = max(|r04 - r05|, 10 % of their mean) (the
+rule of `PERF.md`'s campaign bands, applied per row), how many rows lie
+outside, and the three runs' means over the windows ending at 40, 384, 768,
+..., 2,304 steps; printed as one JSON line.
 """
 from __future__ import annotations
 
@@ -59,6 +69,42 @@ def summarize(rows):
             "val_rec_loss": rec}
 
 
+COMPARED = ("train_rec_loss", "train_p_loss", "train_quant_loss", "train_g_loss",
+            "train_d_weight", "train_disc_loss", "train_logits_real", "train_logits_fake",
+            "train_aeloss", "train_fine_ratio")
+WINDOWS = (40, 384, 768, 1152, 1536, 1920, 2304)
+
+
+def _train_rows(rows):
+    return {r["step"]: r for r in rows if r["split"] == "train"}
+
+
+def outside(value, a, b):
+    """Whether `value` lies outside the band of the JAX runs' `a`, `b`."""
+    d = max(abs(a - b), 0.1 * abs(a + b) / 2)
+    return value < min(a, b) - d or value > max(a, b) + d
+
+
+def compare(rows, jax_rows):
+    """{metric: {first_outside: [step, port, r04, r05] or None, n_outside,
+    n_rows, windows: {end: [port, r04, r05] means}}} over the steps that all
+    three runs logged."""
+    port, (a, b) = _train_rows(rows), (_train_rows(r) for r in jax_rows)
+    steps = sorted(set(port) & set(a) & set(b))
+    out = {}
+    for key in COMPARED:
+        trio = [(s, port[s][key], a[s][key], b[s][key]) for s in steps]
+        off = [t for t in trio if outside(*t[1:])]
+        windows = {}
+        for lo, hi in zip((0,) + WINDOWS, WINDOWS):
+            sel = [t[1:] for t in trio if lo < t[0] <= hi]
+            if sel:
+                windows[hi] = [sum(v[i] for v in sel) / len(sel) for i in range(3)]
+        out[key] = {"first_outside": list(off[0]) if off else None, "n_outside": len(off),
+                    "n_rows": len(trio), "windows": windows}
+    return out
+
+
 def write_vgg16(path, seed):
     """A torchvision `vgg16` state dict of the 13 feature convs, drawn as
     `nn/lpips.py` draws its seeded backbone (flax's lecun-normal, zero
@@ -80,14 +126,27 @@ def write_vgg16(path, seed):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--out", required=True)
+    p.add_argument("--out", default=None, help="the legs' directory (required to run legs)")
     p.add_argument("--legs", default=",".join(LEGS[:3]))
     p.add_argument("--jax_vgg", default=None, help="the JAX runs' backbone (leg lpips_jax)")
     p.add_argument("--data_root", default="artifacts/campaign_r05/data")
     p.add_argument("--thresholds", default=os.path.join("artifacts/campaign_r05/thresholds",
                                                         THRESHOLDS_NAME))
     p.add_argument("--device", default=None)
+    p.add_argument("--compare", default=None,
+                   help="a stage-1 metrics.jsonl to hold to r04 / r05 step by step (no leg runs)")
     opt = p.parse_args(argv)
+    if opt.compare:
+        jax_rows = []
+        for name in JAX_RUNS:
+            with open(os.path.join(REPO, "artifacts", name, "stage1_metrics.jsonl")) as f:
+                jax_rows.append([json.loads(line) for line in f])
+        with open(opt.compare) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        print(json.dumps(compare(rows, jax_rows)), flush=True)
+        return 0
+    if not opt.out:
+        p.error("--out is required to run legs")
     out = os.path.abspath(opt.out)
     os.makedirs(out, exist_ok=True)
     dev = ["--device", opt.device] if opt.device else []

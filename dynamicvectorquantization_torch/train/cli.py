@@ -35,8 +35,14 @@
     sharded over the ranks) and `--activate_fsdp` (also the f32 masters)
     run over the ranks there are, one included.
 
-`--tp`, `--sp` and `--pp` raise and name their ROADMAP.md item
-(`--pp_microbatches` only with `--pp`).
+  * `--tp N` / `--sp N` / `--pp N [--pp_microbatches M]` (stage 2 only; one
+    of them): the ranks split into groups of N consecutive ranks on one host
+    for the model axis and dp groups across them (`train/stage2.py`); N
+    must divide the ranks, with `--devices`, `torchrun` or alone. Refused as
+    the JAX launcher refuses them: two model axes, an axis that does not
+    divide the device count, the axes on stage 1, and `--pp_microbatches`
+    without `--pp`; `--sp N` also needs the sequence to divide N (at p6c18
+    T = 805, so `--sp 2` raises at the first step).
 """
 from __future__ import annotations
 
@@ -88,11 +94,18 @@ def get_parser():
                    help="ZeRO-1: shard the optimizer moments of large leaves over the ranks")
     p.add_argument("--activate_fsdp", action="store_true",
                    help="FSDP: shard the moments and the f32 masters of large leaves")
-    p.add_argument("--tp", type=int, default=1, help="not ported")
-    p.add_argument("--sp", type=int, default=1, help="not ported")
-    p.add_argument("--pp", type=int, default=1, help="not ported")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree for the stage-2 transformer ((dp, tp) split; "
+                        "composes with --activate_ddp_share / --activate_fsdp)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree for the stage-2 transformer ((dp, sp) split; "
+                        "ring attention: the sequence length must divide sp)")
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline-parallel degree for the stage-2 content stack ((dp, pp) "
+                        "split, GPipe microbatch schedule)")
     p.add_argument("--pp_microbatches", type=int, default=None,
-                   help="pipeline microbatches; needs --pp, which is not ported")
+                   help="GPipe microbatches per step under --pp (default 2; must divide the "
+                        "batch)")
     p.add_argument("--profile_steps", type=int, default=0,
                    help="write a torch.profiler trace of the first N optimizer steps into "
                         "<logdir>/profile (0: off)")
@@ -159,7 +172,7 @@ def main(argv=None, world=None, logdir=None):
     import torch
 
     from ..parallel import dist
-    from .loop import MULTI_GPU_ITEM
+    from .stage2 import model_axis
 
     argv = list(sys.argv[1:] if argv is None else argv)
     parser = get_parser()
@@ -169,9 +182,7 @@ def main(argv=None, world=None, logdir=None):
         parser.error(f"unrecognized arguments: {' '.join(dropped)}")
     if opt.pp_microbatches is not None and opt.pp <= 1:
         parser.error("--pp_microbatches needs --pp > 1")
-    if max(opt.tp, opt.sp, opt.pp) > 1:
-        raise NotImplementedError(
-            f"tensor, sequence and pipeline parallelism are not ported (see {MULTI_GPU_ITEM})")
+    axis = model_axis(opt.tp, opt.sp, opt.pp)
     device_type = torch.device(opt.device or "cuda").type
     own_world = False
     if world is None and dist.env_world_size() is not None:  # under torchrun
@@ -191,6 +202,8 @@ def main(argv=None, world=None, logdir=None):
             names = [logdir]
             torch.distributed.broadcast_object_list(names, src=0)
             logdir = names[0]
+    if axis is not None:
+        _check_axis(axis, opt, unknown, logdir, n_devices)
     if world is None and n_devices > 1:
         _write_snapshot(logdir, opt, argv, unknown)
         return _spawn(n_devices, argv, logdir, device_type)
@@ -202,6 +215,20 @@ def main(argv=None, world=None, logdir=None):
     finally:
         if own_world:
             dist.shutdown()
+
+
+def _check_axis(axis, opt, unknown, logdir, n_devices):
+    """The JAX launcher's refusals of a model axis before any rank starts:
+    stage 1, and an axis that does not divide the devices."""
+    from ..config.yaml_config import load_config
+    from .loop import STAGE1_AXES
+
+    params = load_config(_base_configs(opt, logdir), unknown)["model"].get("params", {})
+    if "transformer_config" not in params:
+        raise ValueError(STAGE1_AXES)
+    name, n = axis
+    if n_devices % n:
+        raise ValueError(f"--{name} {n} does not divide {n_devices} devices")
 
 
 def _base_configs(opt, logdir):
@@ -248,7 +275,8 @@ def _train(opt, argv, unknown, logdir, world, n_devices):
         accumulate_grad_batches=opt.accumulate_grad_batches,
         steps_per_dispatch=opt.steps_per_dispatch, cached_codes=opt.cached_codes,
         devices=n_devices, opt_sharding=opt.activate_ddp_share, fsdp=opt.activate_fsdp,
-        tp=opt.tp, sp=opt.sp, pp=opt.pp, logtype=opt.logtype, log_every=opt.log_every,
+        tp=opt.tp, sp=opt.sp, pp=opt.pp, pp_microbatches=opt.pp_microbatches or 2,
+        logtype=opt.logtype, log_every=opt.log_every,
         image_log_frequency=opt.image_log_every, stop_epoch=opt.stop_epoch,
         profile_steps=opt.profile_steps, world=world)
     with torch.device(device):

@@ -38,8 +38,11 @@ pre-encodes) its own rows of it; the trainers average over the ranks
 (`opt_sharding` = ZeRO-1, `fsdp` shard the optimizer state); validation is
 the mean over the global batch; metrics, image grids and checkpoints are
 written by rank 0 (a checkpoint's state is gathered whole on every rank
-first); the preemption guard stops every rank at the same step. `tp` / `sp`
-/ `pp` raise and name their ROADMAP.md item.
+first); the preemption guard stops every rank at the same step. `tp`, `sp`
+or `pp` > 1 (one of them; stage 2 only, as the JAX loop) trains the
+stage-2 transformer over a (dp, model axis) split of the ranks
+(`train/stage2.py`): the ranks of one model group read the same rows, and
+validation and the image grids run on the whole masters.
 
 Checkpoints leave the training thread: the state is copied into host memory
 and one writer thread writes it (`utils/checkpoint.py`); the loop waits for
@@ -63,9 +66,10 @@ from ..utils.device import resolve_device
 from ..utils.logging import ImageLogger, MetricLogger, draw_grain_map_color
 from ..utils.model_loading import load_first_stage
 from .stage1 import Stage1Trainer
-from .stage2 import Stage2Trainer
+from .stage2 import Stage2Trainer, model_axis
 
-MULTI_GPU_ITEM = "ROADMAP.md item 10.4, Model parallelism: --tp / --sp / --pp"
+STAGE1_AXES = ("--tp/--sp/--pp target the stage-2 transformer; stage-1 (conv DQ-VAE) scales "
+               "with dp / --activate_ddp_share / --activate_fsdp")
 
 
 def _is_stage2(model) -> bool:
@@ -163,18 +167,23 @@ class Trainer:
                  accumulate_grad_batches: int = 1, steps_per_dispatch: Optional[int] = None,
                  cached_codes: str = "auto", devices: int = 1, opt_sharding: bool = False,
                  fsdp: bool = False, tp: int = 1, sp: int = 1, pp: int = 1,
-                 logtype: str = "csv", init_weights: bool = True,
+                 pp_microbatches: int = 2, logtype: str = "csv", init_weights: bool = True,
                  stop_epoch: Optional[int] = None, profile_steps: int = 0, world=None):
-        if max(tp, sp, pp) > 1:
-            raise NotImplementedError(
-                f"tensor, sequence and pipeline parallelism are not ported (see {MULTI_GPU_ITEM})")
+        axis = model_axis(tp, sp, pp)
         shard = "fsdp" if fsdp else "zero1" if opt_sharding else None
-        if world is None and (shard or (devices or 1) > 1):
-            raise ValueError("training over several devices or with a sharded optimizer state "
-                             "needs a process group: run train/cli.py (--devices N) or torchrun")
+        if world is None and (shard or axis or (devices or 1) > 1):
+            raise ValueError("training over several devices, with a sharded optimizer state or "
+                             "a model axis needs a process group: run train/cli.py (--devices N) "
+                             "or torchrun")
         if world is not None and devices not in (-1, 0, None, world.size):
             raise ValueError(f"devices={devices} does not match the world of {world.size} ranks")
+        if axis is not None and world.size % axis[1]:
+            raise ValueError(f"--{axis[0]} {axis[1]} does not divide {world.size} devices")
         self.world, self.shard = world, shard
+        self.axes = {"tp": int(tp), "sp": int(sp), "pp": int(pp),
+                     "pp_microbatches": int(pp_microbatches)}
+        self.model_axis = axis
+        self.dp_world = world  # the dp group of a model-axis split (stage 2)
         self.is_main = world is None or world.is_main
         if steps_per_dispatch is not None and int(steps_per_dispatch) < 1:
             raise ValueError(f"steps_per_dispatch must be at least 1, got {steps_per_dispatch}")
@@ -243,7 +252,8 @@ class Trainer:
                 buf = []
 
     def _part(self):
-        return None if self.world is None else (self.world.rank, self.world.size)
+        dp = self.dp_world
+        return None if dp is None else (dp.rank, dp.size)
 
     def _trainer_kwargs(self):
         return ({} if self.world is None else
@@ -415,10 +425,13 @@ class Trainer:
         return trainer
 
     def _ranks(self) -> int:
-        return 1 if self.world is None else self.world.size
+        """The dp ranks, each with its own rows."""
+        return 1 if self.dp_world is None else self.dp_world.size
 
     # --------------------------------------------------------------- stage 1
     def _fit_stage1(self, model, data, train_loader, warmup_steps, eval_only=False):
+        if self.model_axis is not None:
+            raise ValueError(STAGE1_AXES)
         trainer = Stage1Trainer(
             model, learning_rate=model.learning_rate,
             min_learning_rate=getattr(model, "min_learning_rate", 0.0),
@@ -519,7 +532,8 @@ class Trainer:
             min_learning_rate=getattr(model, "min_learning_rate", 0.0),
             warmup_steps=warmup_steps, max_steps=model.training_steps, accum=self.accum,
             compute_dtype=model.compute_dtype, device=self.device, seed=self.seed + 1,
-            **self._trainer_kwargs())
+            **self._trainer_kwargs(), **(self.axes if self.model_axis else {}))
+        self.dp_world = trainer.dp_world
 
         mngr = self._ckpt_manager(model.monitor)
         if self.resume and mngr.latest() is not None:
@@ -636,4 +650,5 @@ class Trainer:
     def _validate_stage2(self, model, data, trainer):
         keys = (model.first_stage_key,) + (
             ("class_label",) if model.cond_stage_key == "class_label" else ())
-        return self._mean_over(data.val_dataloader(seed=self.seed), keys, trainer.eval_step)
+        with trainer.master_weights():  # one gather of the tp shards for every batch
+            return self._mean_over(data.val_dataloader(seed=self.seed), keys, trainer.eval_step)

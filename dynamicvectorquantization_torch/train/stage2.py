@@ -79,12 +79,42 @@ On CUDA the cached-codes step captures the collectives with the step
 are per rank: the rank is mixed into the attention seeds and the
 elementwise generator's seed.
 
+Model parallelism (`tp`, `sp` or `pp` > 1; one of them, over data
+parallelism; counterpart of the JAX loop's (dp, tp | sp | pp) mesh and
+`models/dqtransformer.py` `transformer_train_apply`): the world splits into
+a dp group and a model-axis group (`parallel/dist.py` `split_world`). The
+dp group plays the world's part above (rows, global statistics, gradient
+average, ZeRO-1 / FSDP slices); the dropout streams mix in the dp rank and
+never the model-axis rank, so replicated activations draw equal masks
+across a model group.
+
+  * tp: the blocks hold their shards (`parallel/mesh.py` `shard_stage2`),
+    and so do the masters and moments of the split leaves, which ZeRO-1 /
+    FSDP leave whole. The attention kernels run the rank's heads with the
+    head offset, so the tp step draws the one-process step's masks.
+  * sp / pp: the training forward is `parallel/stackgpt_sp.py` /
+    `stackgpt_pp.py` (installed as the model's `transformer_train_forward`),
+    the parameters stay whole on every rank, and the gradients that are
+    partial over the axis are summed over it first (`parallel/shard.py`
+    `AxisSum`). The blocks draw their dropout per sp / pp rank.
+
+AdamW stays the fused kernel (#9) on each rank's shard or slice: the JAX
+loop turns its fused AdamW off under tp because its Pallas call takes
+unsharded leaves, while #9 is elementwise, so a shard gives the bits the
+whole leaf would. A checkpoint holds whole leaves (`state_dict` gathers the
+tp shards); `load_state_dict` cuts a whole state to the rank's shards, so a
+`--tp 2` checkpoint loads in one process and back. On CUDA the tp step is
+captured as DDP's is (NCCL); the sp and pp steps and every gloo step run
+eagerly. Validation and the loop's image grids run on the whole f32
+masters (`master_weights` gathers the shards and runs the blocks dense).
+
 The epoch loop, checkpoints and data loading live in `train/loop.py`.
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 
 import numpy as np
 import torch
@@ -94,8 +124,11 @@ from ..models.graphs import parameter_storage, runner_for
 from ..nn.transformer import CausalSelfAttention
 from ..ops.attention import attention_seed, mix_seed
 from ..ops.fused_adamw import adamw_scalars, fused_adamw_step
-from ..parallel.dist import global_stats
-from ..parallel.shard import SHARD_MIN_ELEMENTS, GradBuckets
+from ..parallel import mesh
+from ..parallel.dist import global_stats, split_world
+from ..parallel.shard import SHARD_MIN_ELEMENTS, AxisSum, GradBuckets
+from ..parallel.stackgpt_pp import check_microbatches, stackgpt_forward_pp
+from ..parallel.stackgpt_sp import stackgpt_forward_sp
 from ..utils.device import resolve_device
 from .schedules import warmup_cosine
 
@@ -103,6 +136,17 @@ B1, B2, EPS = 0.9, 0.95, 1e-8
 _LOSS_KEYS = ("content_loss", "position_loss", "coarse_position_loss", "fine_position_loss")
 _LOG_NAMES = ("train_loss",) + tuple(f"train_{k}" for k in _LOSS_KEYS)
 _ELEMENTWISE = 0xE1E  # stream tag of the embedding / residual dropout generator
+AXES_EXCLUSIVE = ("--tp/--sp/--pp are mutually exclusive axes (supported matrix: "
+                  "dp x {tp|sp|pp} x {ZeRO-1|FSDP}; see docs/PARALLELISM.md)")
+
+
+def model_axis(tp=1, sp=1, pp=1):
+    """("tp" | "sp" | "pp", size) of the one model axis above 1, or None;
+    two raise, as the JAX launcher refuses them."""
+    axes = [(name, int(n)) for name, n in (("tp", tp), ("sp", sp), ("pp", pp)) if int(n) > 1]
+    if len(axes) > 1:
+        raise ValueError(AXES_EXCLUSIVE)
+    return axes[0] if axes else None
 
 
 def cast_copy(module: nn.Module, dtype=torch.bfloat16) -> nn.Module:
@@ -152,12 +196,22 @@ class _StepState:
 class Stage2Trainer:
     def __init__(self, model, learning_rate, min_learning_rate=0.0, warmup_steps=0,
                  max_steps=1_000_000, accum=1, compute_dtype=None, device=None, seed=0,
-                 world=None, shard=None, shard_min_elements=SHARD_MIN_ELEMENTS):
+                 world=None, shard=None, shard_min_elements=SHARD_MIN_ELEMENTS, tp=1, sp=1,
+                 pp=1, pp_microbatches=2):
         if compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype!r}")
         if shard is not None and world is None:
             raise ValueError("sharding the optimizer state needs a world of ranks")
+        axis = model_axis(tp, sp, pp)
+        if axis is not None and world is None:
+            raise ValueError(f"--{axis[0]} {axis[1]} needs a world of ranks")
         self.world, self.shard = world, shard
+        self.axis = None if axis is None else axis[0]
+        self.pp_microbatches = int(pp_microbatches)
+        # the dp group and the model-axis group (the dp group is the world
+        # without a model axis)
+        self.dp_world, self.axis_world = (world, None) if axis is None else split_world(
+            world, axis[1])
         self.device = resolve_device(device if world is None else world.device)
         self.model = model.to(self.device)
         self.accum = int(accum)
@@ -172,6 +226,12 @@ class Stage2Trainer:
         model.first_stage_model.requires_grad_(False)
         tf = model.transformer
         tf.requires_grad_(True)
+        # {name: dim} of the leaves held as tensor-parallel shards
+        self.tp_dims = mesh.shard_stage2(tf, self.axis_world) if self.axis == "tp" else {}
+        model.transformer_train_forward = (
+            functools.partial(stackgpt_forward_sp, tf, self.axis_world) if self.axis == "sp" else
+            functools.partial(stackgpt_forward_pp, tf, self.axis_world, self.pp_microbatches)
+            if self.axis == "pp" else None)
         self.params = dict(tf.named_parameters())
         self.decayed = decayed_parameter_names(tf) & set(self.params)
         self.pad_rows = {"content_emb.weight": tf.content_pad_code,
@@ -184,12 +244,20 @@ class Stage2Trainer:
             tf.float()
             self.masters = {k: p.data for k, p in self.params.items()}
         self.buckets = None
-        if world is not None:
-            self.buckets = GradBuckets({k: p.shape for k, p in self.params.items()}, world, shard,
-                                       shard_min_elements, self.device, len(_LOG_NAMES))
+        shapes = {k: p.shape for k, p in self.params.items()}
+        # no buckets where one dp rank has nothing to average or slice
+        if world is not None and (axis is None or self.dp_world.size > 1 or shard is not None):
+            self.buckets = GradBuckets(shapes, self.dp_world, shard, shard_min_elements,
+                                       self.device, len(_LOG_NAMES), keep_whole=self.tp_dims)
             if shard == "fsdp" and self.mixed:  # sharded leaves keep their masters' slices
                 for k in self.buckets.sharded:
                     self.masters[k] = self.buckets.own_slice(self.masters[k], k).clone()
+        self.axis_sum = None
+        if self.axis == "sp":
+            self.axis_sum = AxisSum(shapes, shapes, self.axis_world, self.device)
+        elif self.axis == "pp":
+            self.axis_sum = AxisSum(shapes, [k for k in shapes if k.startswith(
+                "content_transformer.")], self.axis_world, self.device)
         self.m = {k: torch.zeros(self._moment_shape(k), device=self.device) for k in self.masters}
         self.v = {k: torch.zeros(self._moment_shape(k), device=self.device) for k in self.masters}
         self.count = 0
@@ -198,6 +266,7 @@ class Stage2Trainer:
         self.generator = torch.Generator(device=self.device)
         self.n_layers = sum(isinstance(m, CausalSelfAttention) for m in tf.modules())
         self._step_states = {}  # batch signature -> _StepState
+        self._dense = 0  # depth of `master_weights` scopes
         self.refresh_first_stage()
 
     def refresh_first_stage(self):
@@ -226,13 +295,26 @@ class Stage2Trainer:
     def _own(self, name, full):
         return self.buckets.own_slice(full, name) if self._sharded(name) else full
 
+    def _whole(self, tensors: dict) -> dict:
+        """`tensors` with the tensor-parallel shards gathered whole (a
+        collective over the tp group)."""
+        return {k: mesh.gather(t, self.tp_dims[k], self.axis_world) if k in self.tp_dims else t
+                for k, t in tensors.items()}
+
+    def _tp_shard(self, name, full):
+        """The rank's tensor-parallel shard of a whole leaf (the leaf itself
+        when it is not split)."""
+        dim = self.tp_dims.get(name)
+        return full if dim is None else mesh.shard(full, dim, self.axis_world)
+
     def state_dict(self):
         """The whole training state: f32 masters, both moments, the step
         count, the epoch and the base seed of the dropout streams; sharded
-        leaves gathered whole from every rank (every rank calls it)."""
-        return {"masters": self._full(dict(self.masters), self._master_sharded),
-                "m": self._full(dict(self.m), self._sharded),
-                "v": self._full(dict(self.v), self._sharded),
+        leaves and tensor-parallel shards gathered whole from every rank
+        (every rank calls it)."""
+        return {"masters": self._whole(self._full(dict(self.masters), self._master_sharded)),
+                "m": self._whole(self._full(dict(self.m), self._sharded)),
+                "v": self._whole(self._full(dict(self.v), self._sharded)),
                 "count": self.count, "epoch": self.epoch, "seed": self.base_seed}
 
     def load_state_dict(self, state):
@@ -243,7 +325,7 @@ class Stage2Trainer:
             raise KeyError("training state does not match the transformer's parameters")
         with torch.no_grad():
             for k, p in self.params.items():
-                full = state["masters"][k]
+                full = self._tp_shard(k, state["masters"][k].to(self.device))
                 if self._master_sharded(k):
                     self.masters[k].copy_(self._own(k, full.to(self.device)))
                 else:
@@ -260,8 +342,8 @@ class Stage2Trainer:
         if set(m) != set(self.masters) or set(v) != set(self.masters):
             raise KeyError("optimizer state does not match the transformer's parameters")
         for k in self.masters:
-            self.m[k].copy_(self._own(k, m[k].to(self.device)))
-            self.v[k].copy_(self._own(k, v[k].to(self.device)))
+            self.m[k].copy_(self._own(k, self._tp_shard(k, m[k].to(self.device))))
+            self.v[k].copy_(self._own(k, self._tp_shard(k, v[k].to(self.device))))
         self.count = int(count)
 
     # -------------------------------------------------------------- steps
@@ -301,10 +383,11 @@ class Stage2Trainer:
                       None if c is None else c[i]) for i in range(n)]
         sums, log_sums = None, None
         for i, (xi, ci) in enumerate(micro):
-            with global_stats(self.world):
+            with global_stats(self.dp_world):
+                self._check_batch(xi)
                 total, out = self._losses(xi, ci, True, generator, self._seed(i),
                                           self.frozen_first_stage)
-                g = torch.autograd.grad(total, params)
+                g = self._grad(total, params)
             logs = {"total": total.detach().float(),
                     **{k: out[k].detach().float() for k in _LOSS_KEYS}}
             if self.accum == 1:
@@ -325,19 +408,35 @@ class Stage2Trainer:
         return {"train_loss": log_sums["total"],
                 **{f"train_{k}": log_sums[k] for k in _LOSS_KEYS}}, grads
 
+    def _grad(self, total, params):
+        """d total / d params; under pp another stage's layers get zeros."""
+        if self.axis != "pp":
+            return torch.autograd.grad(total, params)
+        g = torch.autograd.grad(total, params, allow_unused=True)
+        return [torch.zeros_like(p) if t is None else t for p, t in zip(params, g)]
+
+    def _check_batch(self, x):
+        """Under pp, JAX's conditions on the global batch and the microbatches."""
+        if self.axis == "pp":
+            leaf = next(iter(x.values())) if isinstance(x, dict) else x
+            dp = self.dp_world.size
+            check_microbatches(leaf.shape[0] * dp, self.pp_microbatches, dp)
+
     def _seed(self, microbatch):
-        """The attention seed of a training forward; the rank mixed in over
-        several ranks, so each rank draws its own masks."""
+        """The attention seed of a training forward; the dp rank mixed in
+        over several dp ranks, so each draws its own masks (the ranks of one
+        model group draw alike)."""
         seed = attention_seed(self.base_seed, self.count, microbatch)
-        return seed if self.world is None or self.world.size == 1 else mix_seed(
-            seed, self.world.rank)
+        dp = self.dp_world
+        return seed if dp is None or dp.size == 1 else mix_seed(seed, dp.rank)
 
     def _seeded_generator(self):
         """The trainer's elementwise-dropout generator, re-seeded for this
-        step (and rank)."""
+        step (and dp rank)."""
         seed = mix_seed(self.base_seed, self.count, _ELEMENTWISE)
-        if self.world is not None and self.world.size > 1:
-            seed = mix_seed(seed, self.world.rank)
+        dp = self.dp_world
+        if dp is not None and dp.size > 1:
+            seed = mix_seed(seed, dp.rank)
         self.generator.manual_seed(seed >> 1)
         return self.generator
 
@@ -377,7 +476,10 @@ class Stage2Trainer:
                                  [self.masters[k] for k in b.sharded])
 
     def _reduce(self, grads, logs):
-        """(gradients, logs) averaged over the ranks (see `_update`)."""
+        """(gradients, logs) summed over the model axis where partial, then
+        averaged over the dp ranks (see `_update`)."""
+        if self.axis_sum is not None:
+            grads = self.axis_sum(grads)
         if self.buckets is None:
             return grads, logs
         return self.buckets.reduce(grads, logs)
@@ -404,9 +506,13 @@ class Stage2Trainer:
         """One optimizer step that reads its inputs from `st` and writes its
         logs there: what a CUDA graph captures and replays."""
         names, params = zip(*self.params.items())
-        with global_stats(self.world):
-            total, out = self._losses(st.x, st.c, True, generator, st.seeds)
-            grads = dict(zip(names, torch.autograd.grad(total, params)))
+        # sp / pp run eagerly with the host seed (they mix in the rank and
+        # the microbatch on the host)
+        seeds = st.seeds if self.axis in (None, "tp") else self._seed(0)
+        with global_stats(self.dp_world):
+            self._check_batch(st.x)
+            total, out = self._losses(st.x, st.c, True, generator, seeds)
+            grads = dict(zip(names, self._grad(total, params)))
         for name, pad in self.pad_rows.items():
             grads[name][pad] = 0.0
         logs = torch.stack([total.detach().float()] + [out[k].detach().float() for k in _LOSS_KEYS])
@@ -442,7 +548,7 @@ class Stage2Trainer:
                                              dtype=np.float32))
         if generator is None:
             generator = self._seeded_generator()
-        graphs = self.device.type == "cuda" and not eager and (
+        graphs = self.device.type == "cuda" and not eager and self.axis in (None, "tp") and (
             self.world is None or self.world.backend == "nccl")
         if graphs:
             runner = runner_for(self, self.device)
@@ -485,19 +591,33 @@ class Stage2Trainer:
         """For its duration the transformer computes with the f32 masters:
         each parameter's data points at its master, and back to the bf16
         working copy after. No second model is allocated; under f32 the
-        parameters are the masters already."""
-        if not self.mixed:
-            yield
+        parameters are the masters already. Under tp the masters are
+        gathered whole and the blocks compute dense (the KV-cached sampler
+        runs on whole weights). Nested scopes are the outer one."""
+        if self._dense or not (self.mixed or self.tp_dims):
+            self._dense += 1
+            try:
+                yield
+            finally:
+                self._dense -= 1
             return
         working = {k: p.data for k, p in self.params.items()}
-        masters = self._full(dict(self.masters), self._master_sharded)
+        masters = self._full(dict(self.masters if self.mixed else working),
+                             self._master_sharded)
+        masters = self._whole(masters)
+        self._dense += 1
         try:
             for k, p in self.params.items():
                 p.data = masters[k]
+            if self.tp_dims:
+                mesh.set_tp_group(self.model.transformer, None)
             yield
         finally:
+            self._dense -= 1
             for k, p in self.params.items():
                 p.data = working[k]
+            if self.tp_dims:
+                mesh.set_tp_group(self.model.transformer, self.axis_world)
 
     @torch.no_grad()
     def eval_step(self, x, c=None):
@@ -505,7 +625,7 @@ class Stage2Trainer:
         the f32 masters and encoded by the f32 first stage (the monitored
         `val_loss` ranks the checkpoints)."""
         c = None if c is None else self._to_device(c)
-        with self.master_weights(), global_stats(self.world):
+        with self.master_weights(), global_stats(self.dp_world):
             total, out = self._losses(self._to_device(x), c, False, None)
         return {"val_loss": total.float(), **{f"val_{k}": out[k].float() for k in _LOSS_KEYS}}
 

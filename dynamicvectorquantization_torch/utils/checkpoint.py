@@ -17,6 +17,14 @@ returns; one writer thread waits for the event, writes the file, renames it
 and prunes. `save`, `restore`, `latest`, `all_steps` and `wait` first wait
 for a write in flight (and raise its error); the training loop calls `wait`
 at the end of a fit and after an emergency save.
+
+Over several ranks the state a rank hands in is already whole: the
+trainers' `state_dict` gathers ZeRO-1 / FSDP slices and tensor-parallel
+shards on every rank (a collective), and rank 0 alone saves, on this writer
+thread. So a file holds the leaves of the one-process model, as the JAX
+package's orbax checkpoints hold global arrays: a run written under `--tp 2`
+resumes at `--tp 2` bit for bit and loads in one process (the trainer cuts
+the whole leaves to its shards, `Stage2Trainer.load_state_dict`).
 """
 from __future__ import annotations
 

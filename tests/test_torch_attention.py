@@ -9,7 +9,12 @@ the published known-answer vectors and an independent Python-int
 implementation, the keep mask's statistics and layout, the plain forward and
 backward at rate 0.1 / 0.5 against `jax.grad` of the TPU kernel's own math
 written in `jnp` with the port's mask injected (atol 5e-5), and the JAX
-package's own dropout-semantics test mirrored.
+package's own dropout-semantics test mirrored. The head offset (a
+tensor-parallel rank's heads `head0 ..` of a model of `n_head_total`): the
+plain mask and the plain forward and backward of a slice of the heads equal
+the matching heads of the call over every head, bit for bit; on the card,
+every family's entries with an offset (seed by value and on the device)
+equal the slice of the full call.
 
 JAX is imported inside the tests, so the CUDA cases also run where only
 PyTorch is installed: `python -m pytest --noconftest -m cuda tests/test_torch_*.py`.
@@ -128,6 +133,42 @@ def test_dropout_keep_mask_statistics_and_layout(rate):
     assert torch.equal(dropout_keep_mask(77, b, h, 70, rate), mask[:, :, :70, :70])
     assert not torch.equal(dropout_keep_mask(78, b, h, t, rate), mask)
     assert dropout_keep_mask(2 ** 63 + 5, 1, 1, 9, rate).shape == (1, 1, 9, 9)  # 64-bit seeds
+
+
+@pytest.mark.parametrize("head0,n_local", [(0, 2), (2, 2), (6, 2), (1, 3)])
+def test_dropout_keep_mask_with_a_head_offset_is_the_slice_of_the_full_mask(head0, n_local):
+    full = dropout_keep_mask(99, 3, 8, 37, 0.25)
+    part = dropout_keep_mask(99, 3, n_local, 37, 0.25, head0=head0, n_head_total=8)
+    assert torch.equal(part, full[:, head0:head0 + n_local])
+    # an offset of 0 over every head is the call without one
+    assert torch.equal(dropout_keep_mask(99, 3, 8, 37, 0.25, head0=0, n_head_total=8), full)
+    with pytest.raises(ValueError, match="do not lie"):
+        dropout_keep_mask(99, 3, n_local, 37, 0.25, head0=8 - n_local + 1, n_head_total=8)
+
+
+def _head_slice(x, head0, n, hd):
+    return x[..., head0 * hd:(head0 + n) * hd].contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_attention_with_a_head_offset_equals_the_heads_of_the_full_call(dtype):
+    b, t, n_head, hd, rate, seed = 2, 40, 4, 16, 0.3, 4321
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in _qkv(40, b, t, n_head * hd))
+    dy = torch.from_numpy(_qkv(41, b, t, n_head * hd)[0]).to(dtype)
+    y, lse = fused_attention_forward(q, k, v, n_head, None, True, rate, True, seed)
+    grads = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, True, rate, seed)
+    head0, n = 2, 2
+    part = [_head_slice(z, head0, n, hd) for z in (q, k, v, y, dy)]
+    y_p, lse_p = fused_attention_forward(*part[:3], n, None, True, rate, True, seed,
+                                         head0=head0, n_head_total=n_head)
+    assert torch.equal(y_p, part[3]) and torch.equal(lse_p, lse[:, head0:head0 + n])
+    got = fused_attention_backward(*part[:3], y_p, lse_p, part[4], n, None, True, rate, seed,
+                                   head0=head0, n_head_total=n_head)
+    for g, full in zip(got, grads):
+        assert torch.equal(g, _head_slice(full, head0, n, hd))
+    # without the offset the slice draws rank 0's masks: another output
+    y_0 = fused_attention_forward(*part[:3], n, None, True, rate, seed=seed)
+    assert not torch.equal(y_0, y_p)
 
 
 def test_seed_mix_is_a_fixed_function_of_its_integers():
@@ -453,6 +494,38 @@ def test_cuda_dropout_kernels_match_plain(cuda_device, rate, shape, n_head, caus
     assert all(torch.equal(a, b) for a, b in zip(out, again))
     y2 = fused_attention_forward(q, k, v, n_head, None, causal, rate, seed=seed + 1)
     assert not torch.equal(y2, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd", [
+    (torch.float32, 16), (torch.float32, 128), (torch.float32, 256),  # square tiles, 3xTF32, wide
+    (torch.bfloat16, 32), (torch.bfloat16, 128), (torch.bfloat16, 512),  # square, tc, tc wide
+])
+@pytest.mark.parametrize("device_seed", [False, True])
+def test_cuda_head_offset_entries_equal_the_slice_of_the_full_call(cuda_device, dtype, hd,
+                                                                    device_seed):
+    """Every family, forward and backward, with dropout: heads 2 .. 3 of 4
+    run alone with the offset give the full call's outputs of those heads
+    bit for bit (log-sum-exp and dQ, dK, dV included)."""
+    b, t, n_head, rate = 2, 200, 4, 0.2
+    seed = 987654321
+    if device_seed:
+        seed = torch.tensor([seed], dtype=torch.int64, device=cuda_device)
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(42, b, t, n_head * hd))
+    dy = torch.from_numpy(_qkv(43, b, t, n_head * hd)[0]).to(cuda_device, dtype)
+    y, lse = fused_attention_forward(q, k, v, n_head, None, True, rate, True, seed)
+    grads = fused_attention_backward(q, k, v, y, lse, dy, n_head, None, True, rate, seed)
+    head0, n = 2, 2
+    part = [_head_slice(z, head0, n, hd) for z in (q, k, v, y, dy)]
+    y_p, lse_p = fused_attention_forward(*part[:3], n, None, True, rate, True, seed,
+                                         head0=head0, n_head_total=n_head)
+    got = fused_attention_backward(*part[:3], part[3], lse[:, head0:head0 + n].contiguous(),
+                                   part[4], n, None, True, rate, seed, head0=head0,
+                                   n_head_total=n_head)
+    torch.cuda.synchronize()
+    assert torch.equal(y_p, part[3]) and torch.equal(lse_p, lse[:, head0:head0 + n])
+    for g, full in zip(got, grads):
+        assert torch.equal(g, _head_slice(full, head0, n, hd))
 
 
 @pytest.mark.cuda

@@ -181,3 +181,28 @@ def test_stage1_causes_reads_the_jax_runs_and_draws_a_second_backbone(tmp_path):
     read.load_weights(path)
     for a, b in zip(drawn.net.convs(), read.net.convs()):
         assert torch.equal(a.weight, b.weight) and torch.equal(a.bias, b.bias)
+
+
+def test_stage1_causes_compares_a_run_with_the_jax_runs_row_by_row():
+    """`stage1_causes --compare`: the JAX run r05 held to r04 / r05 lies
+    inside the band at every row (its own value is an end of the band); a
+    copy with one row moved outside is found at that row, and the window
+    means are the rows' means."""
+    import json
+
+    from dynamicvectorquantization_torch.tools import stage1_causes
+
+    runs = []
+    for name in stage1_causes.JAX_RUNS:
+        with open(os.path.join(_REPO, "artifacts", name, "stage1_metrics.jsonl")) as f:
+            runs.append([json.loads(line) for line in f])
+    same = stage1_causes.compare(runs[1], runs)
+    assert all(v["first_outside"] is None and v["n_outside"] == 0 for v in same.values())
+    rows = [dict(r) for r in runs[1]]
+    moved = next(r for r in rows if r["split"] == "train" and r["step"] == 132)
+    moved["train_rec_loss"] = 10.0
+    got = stage1_causes.compare(rows, runs)["train_rec_loss"]
+    assert got["first_outside"][0] == 132 and got["n_outside"] == 1
+    train = [r for r in runs[1] if r["split"] == "train" and r["step"] <= 40]
+    mean = sum(r["train_rec_loss"] for r in train) / len(train)
+    assert abs(same["train_rec_loss"]["windows"][40][0] - mean) < 1e-12

@@ -174,18 +174,44 @@ def test_dotlist_overrides_and_yaml_round_trip():
             dump_yaml(bad)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "Model parallelism"), (["--sp", "2"], "Model parallelism"),
-    (["--pp", "2"], "Model parallelism"),
+def _sp_on_805():
+    """`--sp 2` where the sequence is p6c18's T = 805 (stream caps 160 / 644
+    and their prefixes), on a StackGPT of the tiny widths."""
+    from dynamicvectorquantization_torch.nn.stackgpt import StackGPT
+    from dynamicvectorquantization_torch.parallel.dist import World
+    from dynamicvectorquantization_torch.parallel.stackgpt_sp import stackgpt_forward_sp
+
+    sgpt = StackGPT(vocab_size=67, coarse_position_size=19, fine_position_size=67,
+                    block_size=1024, position_layer=1, content_layer=1, n_head=2, n_embd=32)
+    z = {n: torch.zeros((1, length), dtype=torch.long) for n, length in (
+        ("coarse_content", 161), ("fine_content", 645), ("coarse_position", 161),
+        ("fine_position", 645), ("coarse_seg", 161), ("fine_seg", 645))}
+    stackgpt_forward_sp(sgpt, World(0, 2, "cpu", "gloo"), **z)
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--base", STAGE2, "--tp", "2", "--sp", "2"], "mutually exclusive axes"),
+    (["--base", STAGE2, "--tp", "2"], "--tp 2 does not divide 1 devices"),
+    (["--base", STAGE1, "--tp", "2"], "target the stage-2 transformer"),
+    (["--base", STAGE2, "--pp_microbatches", "4"], "--pp_microbatches needs --pp"),
+    (None, "sequence length 805 must divide the sp axis (2)"),
 ])
-def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, flags, item):
-    """The error names ROADMAP.md and the item's keyword, and the keyword
-    stands in ROADMAP.md (whose wording the re-anchors rewrite)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as err:
-        cli.main(["--base", STAGE2, "--logdir", str(tmp_path), *COMMON, *flags])
-    assert item in str(err.value)
+def test_unported_flags_raise_and_name_their_roadmap_item(tmp_path, capsys, flags, message):
+    """The model-axis flags refuse what the JAX launcher and loop refuse,
+    with their messages: two model axes, an axis that does not divide the
+    devices, the axes on stage 1, `--pp_microbatches` without `--pp` (the
+    parser's error), and `--sp 2` on p6c18's sequence of 805 (raised at the
+    first forward). The registry's error names ROADMAP.md's heading, which
+    stands there."""
+    parser_error = flags is not None and "--pp_microbatches" in flags
+    with pytest.raises(SystemExit if parser_error else ValueError) as err:
+        if flags is None:
+            _sp_on_805()
+        else:
+            cli.main([*flags, "--logdir", str(tmp_path), *COMMON])
+    assert message in (capsys.readouterr().err if parser_error else str(err.value))
     with open(os.path.join(_REPO, "ROADMAP.md")) as f:
-        assert item in f.read(), item
+        assert "Slices to port" in f.read()
 
 
 @pytest.mark.parametrize("flags,shard", [
@@ -260,7 +286,7 @@ def test_cli_needs_a_card_or_an_explicit_device(tmp_path):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="cpu"):
         cli.main(["--base", STAGE2, "--logdir", str(tmp_path), "--max_epochs", "1"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="does not divide 1 devices"):
         cli.main(["--base", STAGE2, "--logdir", str(tmp_path), "--tp", "2", *COMMON])
 
 
