@@ -223,6 +223,14 @@ Phases, each printed as one JSON line (any failure exits non-zero):
   10. fit1     the same for stage 1 (`dqvae-entropy-dual-r05_imagenet.yml`, batch
                8, two epochs of two steps, resume), with `remat`, the trainer's
                default on the card
+     legacy_stage1  the fixed-length baselines (`legacy_stage1`): #1 / #2 at
+               the VQGAN's and the RQ-VAE's shapes (K 1,024 and 16,384) against
+               the plain version; VQGAN f16-1024 through the command line over
+               16 + 16 committed JPEGs with `disc_start` 0 (resume bit-equal),
+               then in-process (step ms, peak memory, busy / idle, launches
+               per step, codes -> decode against `forward`); one step for each
+               legacy quantizer; RQ-VAE 8x8x4 x 16,384, three steps (#2 8 a
+               step); each StyleGAN discriminator, one step at 256^2
      data_real  real image files, PIL blocked: the host libraries' build and
                the JPEG decoder in use (libjpeg where it builds, else the port's
                own), the committed fixtures (`tests/fixtures/images/`) read and
@@ -244,7 +252,7 @@ Phases, each printed as one JSON line (any failure exits non-zero):
      campaign  the two campaign tools: the thresholds tool over the whole
                committed train tree (`artifacts/campaign_r05/data`, 3,072
                JPEGs) against the committed table (1e-6 + 1e-4 |ref|);
-               `tools.campaign_product --skip_data` at full width over 64 + 16
+               `tools.campaign_product --skip_data` at full width over 32 + 8
                of its files, one epoch a stage, 8 samples, every leg a
                process counted by `--launches-of`; `tools.convergence_campaign`
                stage1 / stage2 / finalize, 4 steps each; each leg's kernels
@@ -332,6 +340,11 @@ def bound(n_bytes, n_flops, dtype):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def pick_keys(case, *keys):
+    """The entries of `case` under `keys` that it has."""
+    return {k: case[k] for k in keys if k in case}
 
 
 def spread(values):
@@ -954,10 +967,13 @@ def check_vq_adversarial(torch, dev, sum_tol):
     return cases
 
 
-def check_vq_nearest(torch, dev):
+def check_vq_nearest(torch, dev, n=8 * 32 * 32, k=1024, label=None):
+    """#1 against the plain version on N(0, 1) rows and codes, D 256; by
+    default at the encoder's 32x32 latents at batch 8, with `label` at a
+    fixed-length baseline's shape (`legacy_stage1`)."""
     from dynamicvectorquantization_torch.ops.vq import nearest_codes, nearest_codes_plain
 
-    n, k, d = 8 * 32 * 32, 1024, 256  # the encoder's 32x32 latents at batch 8
+    d = 256
     g = torch.Generator(device=dev).manual_seed(3)
     set_bytes = 4 * (n * d + k * d)
     # N(0, 1) codebook, not the 1/K init, so that near-ties are rare
@@ -977,6 +993,7 @@ def check_vq_nearest(torch, dev):
     differ = idx != ref
     near_ties = int(differ.sum())
     case = dict(phase="kernels", kernel="vq_nearest", shape=[n, k, d], dtype="float32",
+                **({} if label is None else dict(path="legacy_stage1", label=label)),
                 mismatched_rows=near_ties, mismatches_within_near_tie_bound=bool(
                     (gap[differ] <= tol[differ]).all()),
                 max_abs_err=float(gap[differ].max()) if near_ties else 0.0,
@@ -1004,16 +1021,20 @@ def check_vq_nearest(torch, dev):
     return case
 
 
-def check_vq_train(torch, dev):
+def check_vq_train(torch, dev, n=8 * 32 * 32, k=1024, label=None):
+    """#2 against the plain version on rows round uneven clusters, D 256; by
+    default at the encoder's 32x32 latents at batch 8 with two other shapes
+    and the adversarial sets, with `label` at a fixed-length baseline's shape
+    alone (`legacy_stage1`)."""
     from dynamicvectorquantization_torch.ops.vq import (
         nearest_codes_with_stats, nearest_codes_with_stats_plain)
 
-    k, d = 1024, 256
+    d = 256
     sum_tol = 1e-4  # relative to the largest sum: f32 additions of up to ~1,000 rows in another order
     g = torch.Generator(device=dev).manual_seed(12)
 
     def clustered(n):
-        """Rows scattered round 700 of the 1,024 codes with skewed weights, so
+        """Rows scattered round 700 of the K codes with skewed weights, so
         clusters are uneven and some stay empty, as on the encode path."""
         cb = torch.randn((k, d), generator=g, device=dev)
         weights = 1.0 / torch.arange(1, 701, device=dev, dtype=torch.float32)
@@ -1048,16 +1069,19 @@ def check_vq_train(torch, dev):
                     bit_reproducible=all(torch.equal(a_, b_)
                                          for a_, b_ in zip((idx, xq, esum, csize), again)))
 
-    n = 8 * 32 * 32  # the encoder's 32x32 latents at batch 8
     sets = [clustered(n) for _ in range(n_sets(4 * (2 * n * d + 2 * k * d)))]
-    case = dict(phase="kernels", kernel="vq_nearest_train", dtype="float32", **compare(*sets[0]),
+    case = dict(phase="kernels", kernel="vq_nearest_train", dtype="float32",
+                **({} if label is None else dict(path="legacy_stage1", label=label)),
+                **compare(*sets[0]),
                 tol=f"codes: f32 near-tie bound and equal to the FMA search's; xq, cluster_size "
                     f"exact; embed_sum {sum_tol} of the largest sum")
     case["max_abs_err"] = case["embed_sum_rel_err"]
-    x_small = torch.randn((100, d), generator=g, device=dev)  # fewer rows than codes
-    x_odd, cb_odd = (torch.randn((1237, 36), generator=g, device=dev),
-                     torch.randn((300, 36), generator=g, device=dev))
-    case["other_shapes"] = [compare(x_small, sets[0][1]), compare(x_odd, cb_odd)]
+    case["other_shapes"] = []
+    if label is None:
+        x_small = torch.randn((100, d), generator=g, device=dev)  # fewer rows than codes
+        x_odd, cb_odd = (torch.randn((1237, 36), generator=g, device=dev),
+                         torch.randn((300, 36), generator=g, device=dev))
+        case["other_shapes"] = [compare(x_small, sets[0][1]), compare(x_odd, cb_odd)]
     # each input read once (x, codebook, |c|^2), each output written once
     # (idx, xq, embed_sum, cluster_size); the search's 2 N K D and the N D adds
     n_bytes = 4 * (2 * n * d + 2 * k * d + 2 * k + n)
@@ -1082,7 +1106,8 @@ def check_vq_train(torch, dev):
               only="vq_nearest")
     time_into(case, "plain", torch, nearest_codes_with_stats_plain, sets)
     time_into(case, "library", torch, lib, [(x, cb, (cb * cb).sum(1)) for x, cb in sets])
-    case["adversarial"] = check_vq_adversarial(torch, dev, sum_tol)
+    if label is None:
+        case["adversarial"] = check_vq_adversarial(torch, dev, sum_tol)
     emit({key: v for key, v in case.items() if key != "adversarial"})
     for c in (case, *case["other_shapes"]):
         require(c["mismatches_within_near_tie_bound"] and c["xq_is_codebook_row"]
@@ -2074,9 +2099,8 @@ def plain_encode_path():
     blocks.strided_conv3x3_down = strided_conv3x3_down_plain
     blocks.fused_causal_attention = lambda q, k, v, n_head, scale=None, causal=True: \
         fused_attention_forward_plain(q, k, v, n_head, scale, causal)
-    vq.nearest_codes = lambda x, cb, use_pallas=None: vq.nearest_codes_plain(x, cb)
-    vq.nearest_codes_with_stats = lambda x, cb, use_pallas=None: \
-        vq.nearest_codes_with_stats_plain(x, cb)
+    vq.nearest_codes = vq.nearest_codes_plain
+    vq.nearest_codes_with_stats = vq.nearest_codes_with_stats_plain
     try:
         yield
     finally:
@@ -4090,7 +4114,7 @@ def image_trees(root, n_train=512, n_val=64, n_ffhq=64, ffhq_side=1024):
     return os.path.join(root, "imagenet"), os.path.join(root, "ffhq")
 
 
-def loader_rates(dataset, workers=(1, 8), epochs=2, batch=32):
+def loader_rates(dataset, workers=(1, 8), epochs=1, batch=32):
     """Images/s through `PrefetchLoader` over whole epochs, per worker count."""
     from dynamicvectorquantization_torch.data.pipeline import PrefetchLoader
 
@@ -4367,7 +4391,7 @@ def campaign(torch, card):
       * the thresholds tool over the full committed train tree (3,072 JPEGs)
         against the JAX campaign's committed table, every percentile within
         1e-6 + 1e-4 |ref|;
-      * `tools.campaign_product --skip_data` at full width over a 64 + 16
+      * `tools.campaign_product --skip_data` at full width over a 32 + 8
         file subtree, one epoch a stage, `--sample_num 8`, the thresholds
         table of the whole tree reused, every other leg a process run
         through `--launches-of` (the FID leg as it is): the summary's keys,
@@ -4413,9 +4437,9 @@ def campaign(torch, card):
         check_leg("thresholds", json.loads(f.readline())["launches"])
     os.remove(launches_file)
 
-    # 2. campaign_product over a 64 + 16 file subtree, every leg counted
+    # 2. campaign_product over a 32 + 8 file subtree (four steps a stage), every leg counted
     sub = os.path.join(root, "data")
-    for split, n in (("train", 64), ("val", 16)):
+    for split, n in (("train", 32), ("val", 8)):
         classes = sorted(os.listdir(os.path.join(CAMPAIGN_DATA, split)))
         for i in range(n):
             cls = classes[i % len(classes)]
@@ -5229,6 +5253,253 @@ def model_parallel(torch, dev, card, streams, batch=8):
     return runs
 
 
+# the fixed-length stage-1 baselines (ROADMAP 11.2, 11.4): the two full-width ymls inside the
+# port, and one full-width step for each legacy quantizer as the VQGAN's vqconfig
+VQGAN_YML = "dynamicvectorquantization_torch/configs/stage1/vqgan_imagenet_f16_1024.yml"
+RQVAE_YML = "dynamicvectorquantization_torch/configs/stage1/rqvae_imagenet_8x8x4.yml"
+_VQ = "modules.vector_quantization"
+LEGACY_QUANTIZERS = {
+    "VectorQuantizer2": (f"{_VQ}.quantize_vqgan.VectorQuantizer2",
+                         {"n_e": 1024, "e_dim": 256, "legacy": True, "unknown_index": "random",
+                          "sane_index_shape": True}),
+    "GumbelQuantize": (f"{_VQ}.quantize_vqgan.GumbelQuantize",
+                       {"num_hiddens": 256, "embedding_dim": 256, "n_embed": 1024}),
+    "EMAVectorQuantizer": (f"{_VQ}.quantize_vqgan.EMAVectorQuantizer",
+                           {"n_embed": 1024, "embedding_dim": 256}),
+    "MaskVectorQuantize": (f"{_VQ}.quantize_codebook_mask.MaskVectorQuantize",
+                           {"codebook_size": 1024, "codebook_dim": 256, "kmeans_init": True,
+                            "orthogonal_reg_weight": 1e-4}),
+    "LucidrainsVectorQuantize": (f"{_VQ}.quantize_lucidrains.VectorQuantize",
+                                 {"codebook_size": 1024, "dim": 256}),
+}
+# the StyleGAN discriminators as the VQGAN's disc_config, at their defaults for 256^2
+LEGACY_DISCS = {"StyleGAN2Discriminator": ("modules.discriminator.stylegan.Discriminator",
+                                           {"image_size": 256}),
+                "LucidrainsDiscriminator": ("modules.discriminator.stylegan_lucidrains."
+                                            "Discriminator", {})}
+LEGACY_SEARCH = ("vq_nearest", "vq_nearest_train")
+
+
+def _legacy_model(torch, dev, path, overrides=(), vq=None, disc=None):
+    """A fixed-length stage-1 model of `path` at full width on `dev`, its
+    vqconfig / disc_config replaced where given."""
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    config = load_config([path], list(overrides))["model"]
+    params = dict(config["params"])
+    if vq is not None:
+        params["vqconfig"] = {"target": vq[0], "params": vq[1]}
+    if disc is not None:
+        loss = params["lossconfig"]
+        params["lossconfig"] = {**loss, "params": {**loss["params"], "disc_config": {
+            "target": disc[0], "params": disc[1]}}}
+    with torch.device(dev):
+        model = instantiate_from_config({**config, "params": params})
+    # the reference's rule at batch 8, or the yml's fixed rate
+    lr = (config["base_learning_rate"] * 8 if "base_learning_rate" in config
+          else config["learning_rate"])
+    return model, lr
+
+
+def _legacy_steps(torch, dev, model, lr, x, steps, sample=None):
+    """`steps` f32 stage-1 steps of `model` from a seeded init (remat off):
+    per step seconds (after a synchronise) and launches; the peak memory."""
+    from dynamicvectorquantization_torch.train.stage1 import Stage1Trainer
+
+    trainer = Stage1Trainer(model, lr, warmup_steps=0, max_steps=10_000, device=dev, remat=False)
+    trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                       sample_batch=x[:1] if sample is None else sample)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for _ in range(steps):
+        before = read_launches()
+        t0 = time.perf_counter()
+        logs = trainer.train_step(x)
+        torch.cuda.synchronize()
+        after = read_launches()
+        out.append(dict(s=time.perf_counter() - t0,
+                        launches={k: after[k] - before[k] for k in after if after[k] > before[k]},
+                        logs={k: float(v) for k, v in logs.items()}))
+    require(all(math.isfinite(v) for s in out for v in s["logs"].values()),
+            "a legacy stage-1 step logged a value that is not finite")
+    return trainer, out, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def legacy_stage1(torch, dev, card):
+    """The fixed-length stage-1 baselines (`models/vqgan.py`) at full width,
+    f32, batch 8, TF32 off:
+
+      * #1 / #2 at their new shapes against the plain version: #1 at the
+        VQGAN's (N 2,048, K 1,024), #2 there and at the RQ-VAE's (N 512,
+        K 16,384 = the statistics kernel's `MAX_CODES_WITH_STATS`), D 256
+        (`check_vq_nearest` / `check_vq_train`); #4 / #5 at 16^2 x 512 and
+        8^2 x 512 and #10 at the VQGAN's four levels and the RQ-VAE's fifth
+        are the `kernels` phase's DQ-VAE cases, the same shapes;
+      * VQGAN f16-1024 (`vqgan_imagenet_f16_1024.yml`, `disc_start` 0 so
+        the discriminator path runs) through `train/cli.py` over 16 + 16 of
+        the committed campaign JPEGs: two epochs of two steps, then stopped
+        after one and resumed, bit-equal to the uninterrupted run
+        (`fit_through_cli`, cuDNN deterministic);
+      * in-process on the same yml: three timed steps (launches per step by
+        name, peak memory) and one traced (busy / idle); encode -> codes ->
+        `get_code_emb_with_depth` -> decode against `forward`'s
+        reconstruction;
+      * one step for each legacy quantizer as the VQGAN's vqconfig
+        (`LEGACY_QUANTIZERS`; VectorQuantizer2 with a remap file), #1 / #2
+        launched in each but GumbelQuantize's (no nearest-code search, in JAX
+        either: its code is the argmax of its logits);
+      * RQ-VAE 8x8x4 x 16,384 (`rqvae_imagenet_8x8x4.yml`): three steps, #2
+        launched 8 times a step (4 depths, the autoencoder and the
+        discriminator pass);
+      * one step for each StyleGAN discriminator at 256^2 as the VQGAN's
+        disc_config, at the discriminators' defaults, with its parameter count
+        and the step's peak memory.
+
+    Launch counters: zeroed before the command-line runs and after them, read
+    after the whole uninterrupted run and at the end; the kernel checks run
+    before, outside the counts."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    vq_cases = {f"{c['kernel']}:{c['label']}": c for c in (
+        check_vq_nearest(torch, dev, 2048, 1024, "vqgan_n2048_k1024"),
+        check_vq_train(torch, dev, 2048, 1024, "vqgan_n2048_k1024"),
+        check_vq_train(torch, dev, 512, 16384, "rqvae_n512_k16384"))}
+    torch.cuda.empty_cache()
+    root = os.path.abspath(os.path.join("build", "legacy_stage1"))
+    shutil.rmtree(root, ignore_errors=True)
+    # a 16 + 16 file subtree of the committed JPEGs (two train batches an epoch)
+    sub = os.path.join(root, "data")
+    for split, n in (("train", 16), ("val", 16)):
+        classes = sorted(os.listdir(os.path.join(CAMPAIGN_DATA, split)))
+        for i in range(n):
+            cls = classes[i % len(classes)]
+            name = sorted(os.listdir(os.path.join(CAMPAIGN_DATA, split, cls)))[i // len(classes)]
+            os.makedirs(os.path.join(sub, split, cls), exist_ok=True)
+            os.symlink(os.path.abspath(os.path.join(CAMPAIGN_DATA, split, cls, name)),
+                       os.path.join(sub, split, cls, name))
+    saved_root = os.environ.get("DQVQ_IMAGENET_ROOT")
+    os.environ["DQVQ_IMAGENET_ROOT"] = sub
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    try:
+        fitted = fit_through_cli(
+            torch, card, "legacy_vqgan_fit", VQGAN_YML,
+            ["model.params.lossconfig.params.disc_start=0", "data.params.batch_size=8",
+             "data.params.num_workers=2"], 2, lambda t: t.model.state_dict(), "val_rec_loss",
+            ("vq_nearest", "strided_conv3x3_down", "strided_conv3x3_down_f32_blocked",
+             "fused_attention_forward_wide_f32", "fused_attention_backward_wide_f32"),
+            gb_needed=5, grids=4, expect_not_launched=("patch_entropy", "vq_nearest_train"))
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        if saved_root is None:
+            os.environ.pop("DQVQ_IMAGENET_ROOT")
+        else:
+            os.environ["DQVQ_IMAGENET_ROOT"] = saved_root
+    cli_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    reset_launches()
+
+    # the VQGAN in-process: timed steps, a traced step, codes -> decode
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = smooth_and_noisy_images(torch, dev, g, b=8)
+    model, lr = _legacy_model(torch, dev, VQGAN_YML,
+                              ["model.params.lossconfig.params.disc_start=0"])
+    trainer, steps, peak = _legacy_steps(torch, dev, model, lr, x, 4)
+    traced = profile_device_time(torch, lambda: trainer.train_step(x), groups={
+        "attention": "fused_attention", "downsample": "strided_conv", "vq": "vq_nearest"})
+    with torch.no_grad():
+        dec, _, codes, gate, _ = model(x)
+        emb = model.get_code_emb_with_depth(codes)
+        rec = model.decode(emb)
+        roundtrip_err = float((rec - dec).abs().max())
+    vqgan = dict(params=sum(p.numel() for k, p in model.named_parameters()
+                            if not k.startswith("loss.")),
+                 disc_params=sum(p.numel() for p in model.loss.discriminator.parameters()),
+                 codes_shape=list(codes.shape), gate=gate,
+                 step_ms=spread([1e3 * s["s"] for s in steps[1:]]), first_step_s=steps[0]["s"],
+                 launches_per_step=steps[-1]["launches"], peak_memory_gb=peak,
+                 traced_step=traced, roundtrip_max_abs_err=roundtrip_err, roundtrip_tol=1e-4,
+                 fine_ratio_of_codes=steps[-1]["logs"].get("train_fine_ratio"),
+                 images_per_s=8 / (np.median([s["s"] for s in steps[1:]])))
+    require(codes.shape == (8, 16, 16) and roundtrip_err <= 1e-4,
+            f"VQGAN: codes -> decode differs from forward by {roundtrip_err}")
+    require(all(steps[-1]["launches"].get(k, 0) > 0 for k in (
+        "vq_nearest", "strided_conv3x3_down", "fused_attention_forward",
+        "fused_attention_backward")), f"VQGAN step launches: {steps[-1]['launches']}")
+    del trainer, model, dec, emb, rec
+    torch.cuda.empty_cache()
+
+    # one full-width step for each legacy quantizer
+    used = os.path.join(root, "used.npy")
+    np.save(used, np.sort(np.random.default_rng(24).choice(1024, 768, replace=False)))
+    quantizers = {}
+    for name, (target, params) in LEGACY_QUANTIZERS.items():
+        if name == "VectorQuantizer2":
+            params = dict(params, remap=used)
+        model, lr = _legacy_model(torch, dev, VQGAN_YML,
+                                  ["model.params.lossconfig.params.disc_start=0"],
+                                  vq=(target, params))
+        trainer, steps, peak = _legacy_steps(torch, dev, model, lr, x, 1, sample=x)
+        counts = steps[0]["launches"]
+        quantizers[name] = dict(step_s=steps[0]["s"], peak_memory_gb=peak, launches=counts,
+                                logs=steps[0]["logs"])
+        searched = sum(counts.get(k, 0) for k in LEGACY_SEARCH)
+        require(searched > 0 or name == "GumbelQuantize",
+                f"{name}: no nearest-code search launched in its step: {counts}")
+        del trainer, model
+        torch.cuda.empty_cache()
+
+    # RQ-VAE 8x8x4 x 16,384: three steps
+    model, lr = _legacy_model(torch, dev, RQVAE_YML)
+    trainer, steps, peak = _legacy_steps(torch, dev, model, lr, x, 3)
+    rqvae = dict(params=sum(p.numel() for k, p in model.named_parameters()
+                            if not k.startswith("loss.")),
+                 step_ms=spread([1e3 * s["s"] for s in steps[1:]]), first_step_s=steps[0]["s"],
+                 launches_per_step=steps[-1]["launches"], peak_memory_gb=peak, lr=lr,
+                 logs=steps[-1]["logs"])
+    require(all(s["launches"].get("vq_nearest_train", 0) == 8 for s in steps),
+            f"RQ-VAE: #2 launches per step {[s['launches'] for s in steps]}, expected 4 + 4")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # each StyleGAN discriminator as the VQGAN's disc_config, one step at 256^2
+    discs = {}
+    for name, disc in LEGACY_DISCS.items():
+        model, lr = _legacy_model(torch, dev, VQGAN_YML,
+                                  ["model.params.lossconfig.params.disc_start=0"], disc=disc)
+        trainer, steps, peak = _legacy_steps(torch, dev, model, lr, x, 1)
+        d = model.loss.discriminator
+        require(type(d).__name__ == name, f"disc_config built {type(d).__name__}")
+        discs[name] = dict(params=sum(p.numel() for p in d.parameters()), config=disc[1],
+                           step_s=steps[0]["s"], peak_memory_gb=peak,
+                           logs=steps[0]["logs"], launches=steps[0]["launches"])
+        del trainer, model, d
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    total = {k: v + fitted["launches"].get(k, 0) for k, v in launches.items()}
+    shutil.rmtree(root, ignore_errors=True)
+    res = dict(phase="legacy_stage1", card=card, dtype="float32", batch=8,
+               vqgan_cli=dict(seconds=cli_s, rows=fitted["rows"], val=fitted["val"],
+                              resumed_equal=fitted["final_val_whole"] == fitted["final_val_resumed"]
+                              and fitted["state_sha256_whole"] == fitted["state_sha256_resumed"],
+                              dispatch_s_per_epoch=fitted["dispatch_s_per_epoch"],
+                              peak_memory_gb=fitted["peak_memory_gb"],
+                              checkpoint_gb=fitted["checkpoint_gb"]),
+               vqgan=vqgan, quantizers=quantizers, rqvae=rqvae, stylegan_discs=discs,
+               kernel_checks={k: pick_keys(c, "shape", "max_abs_err", "kernel_ms", "plain_ms",
+                                           "library_ms", "bound_ms", "bound_by",
+                                           "equal_to_fma_kernel", "rescored_rows")
+                              for k, c in vq_cases.items()},
+               launches={k: v for k, v in total.items() if v},
+               seconds=time.perf_counter() - t_phase)
+    emit(res)
+    return dict(res, launches=total, vq_cases=vq_cases)
+
+
 def main():
     if sys.argv[1:2] == ["--launches-of"]:
         return run_counting(sys.argv[2:])
@@ -5378,6 +5649,8 @@ def main():
     torch.cuda.empty_cache()
     fitted1 = fit1(torch, card)["launches"]
     torch.cuda.empty_cache()
+    legacy = legacy_stage1(torch, dev, card)
+    torch.cuda.empty_cache()
     real = data_real(torch, dev, card)
     torch.cuda.empty_cache()
     campaigned = campaign(torch, card)["launches"]
@@ -5429,6 +5702,9 @@ def main():
              "eval": {name: sum(run["launches"].get(name, 0)
                                 for run in evaluated["runs"].values()) for name in per_step},
              "fit": fitted, "fit1": fitted1,
+             # the fixed-length baselines: the VQGAN's command-line run, its steps, each
+             # legacy quantizer's step, the RQ-VAE's, the StyleGAN discriminators'
+             "legacy_stage1": legacy["launches"],
              # the distributed path at world size 1: the p6c18 bf16 step (DDP), stage 1 (DDP)
              "ddp_train_step": ddp_line["stage2_bf16_batch8"]["ddp"]["launches_per_step"],
              "ddp_train1_step": ddp_line["stage1_f32_batch8"]["ddp"]["launches_per_step"],
@@ -5448,8 +5724,6 @@ def main():
         that kernel family, every rate)."""
         return {path: counts[name] for path, counts in paths.items() if counts[name]}
 
-    def pick(case, *keys):
-        return {k: case[k] for k in keys if k in case}
 
     timed_keys = ("shape", "dtype", "causal", "family", "rate", "max_abs_err", "dropout_err",
                   "tol", "kernel_ms", "kernel_ms_spread", "plain_ms", "library_ms", "bound_ms",
@@ -5511,15 +5785,15 @@ def main():
               "device_index_equal": all(c["device_index_equal"]
                                         for c in decode_cases + decode_sweep + decode_f32_cases),
               "bound_share": decode_cases[-1]["bound_share"],
-              "by_index": {str(c["cache_index"]): pick(c, "kernel_ms", "plain_ms", "bound_ms",
+              "by_index": {str(c["cache_index"]): pick_keys(c, "kernel_ms", "plain_ms", "bound_ms",
                                                        "max_abs_err")
                            for c in decode_cases},
               "sweep_ms": {str(c["cache_index"]): c["kernel_ms"] for c in decode_sweep},
               # f32 queries (the f32 parameters of the sampling entry points and of the
               # loop's image grids); main: cache_index 1283
-              "f32": pick(decode_f32_cases[-1], "kernel_ms", "kernel_ms_spread", "plain_ms",
+              "f32": pick_keys(decode_f32_cases[-1], "kernel_ms", "kernel_ms_spread", "plain_ms",
                           "bound_ms", "bound_by", "bound_share", "max_abs_err", "tol")
-              | {"by_index": {str(c["cache_index"]): pick(c, "kernel_ms", "plain_ms",
+              | {"by_index": {str(c["cache_index"]): pick_keys(c, "kernel_ms", "plain_ms",
                                                           "bound_ms", "max_abs_err")
                               for c in decode_f32_cases}},
               "ptxas": {name: use for name, use in ptxas.items()
@@ -5536,7 +5810,7 @@ def main():
               "square_tiles_ms_spread": fwd_a["square_tiles_ms_spread"],
               "bit_reproducible": fwd_a["bit_reproducible"],
               "wide_f32_launches": launched("fused_attention_forward_wide_f32"),
-              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+              "extra": {n_: pick_keys(c, *timed_keys) for n_, c in (
                  ("a_rate0.1", dfwd_a), ("b_hd512_f32", fwd_b), ("b_hd512_f32_rate0.1", dfwd_b),
                  ("a_hd256_with_lse", fwd_256), ("b_hd512_with_lse", fwd_512),
                  ("b_hd512_with_lse_rate0.1", dfwd_512), ("hd32_t300_with_lse", fwd_32),
@@ -5556,7 +5830,7 @@ def main():
               "bound_ms_f32_fma": fwd_val["bound_ms_f32_fma"], "gflop": fwd_val["gflop"],
               "bit_reproducible": fwd_val["bit_reproducible"],
               "library_ms_spread": fwd_val["library_ms_spread"],
-              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+              "extra": {n_: pick_keys(c, *timed_keys) for n_, c in (
                   ("validation_rate0.1", dfwd_val), ("c_f32_b2_with_lse", fwd_c32),
                   ("c_f32_b2_with_lse_rate0.1", dfwd_c32), ("c_f32_b8_with_lse", fwd_c32b8),
                   ("c_f32_b8_with_lse_rate0.1", dfwd_c32b8), ("hd64_t300_with_lse", fwd_64),
@@ -5569,7 +5843,7 @@ def main():
              {"family": "tensor cores", "rate": dfwd_c["rate"],
               "wide_source": f"{src_dir}/fused_attention_tc_wide.cu",
               "dropout_err": dfwd_c["dropout_err"], "fma_kernel_ms": dfwd_c["fma_kernel_ms"],
-              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+              "extra": {n_: pick_keys(c, *timed_keys) for n_, c in (
                   ("c_rate0", fwd_c), ("t808_no_lse", fwd_t808),
                   ("t808_no_lse_rate0.1", dfwd_t808),
                   ("a_bf16_hd256", fwd_a16), ("a_bf16_hd256_rate0.1", dfwd_a16),
@@ -5584,7 +5858,7 @@ def main():
               "square_tiles_source": f"{src_dir}/fused_attention_bwd.cu",
               "wide_f32_launches": launched("fused_attention_backward_wide_f32"),
               "before_ms": bwd_256["before_ms"], "before_ms_spread": bwd_256["before_ms_spread"],
-              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+              "extra": {n_: pick_keys(c, *timed_keys) for n_, c in (
                   ("a_hd256_rate0.1", dbwd_256), ("b_hd512", bwd_512),
                   ("b_hd512_rate0.1", dbwd_512), ("hd32_t300", bwd_32),
                   ("hd32_t300_rate0.1", dbwd_32), ("triple_coarse_t64_hd512", bwd_t8),
@@ -5609,7 +5883,7 @@ def main():
               "library_ms_spread": dbwd_c32b8["library_ms_spread"],
               "ptxas": {name: use for name, use in ptxas.items()
                         if "attention_bwd_f32_tc" in name},
-              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+              "extra": {n_: pick_keys(c, *timed_keys) for n_, c in (
                   ("c_f32_b8_rate0", bwd_c32b8), ("c_f32_b2", bwd_c32),
                   ("c_f32_b2_rate0.1", dbwd_c32), ("hd64_t300", bwd_64),
                   ("hd64_t300_rate0.1", dbwd_64))}}),
@@ -5621,7 +5895,7 @@ def main():
               "bit_reproducible": dbwd_c["bit_reproducible"],
               "fma_kernel_ms": dbwd_c["fma_kernel_ms"],
               "bound_ms_f32_fma": dbwd_c["bound_ms_f32_fma"],
-              "extra": {n_: pick(c, *timed_keys) for n_, c in (
+              "extra": {n_: pick_keys(c, *timed_keys) for n_, c in (
                   ("c_rate0", bwd_c), ("a_bf16_hd256", bwd_256b),
                   ("a_bf16_hd256_rate0.1", dbwd_256b), ("b_bf16_hd512", bwd_512b),
                   ("b_bf16_hd512_rate0.1", dbwd_512b))}}),
@@ -5632,13 +5906,13 @@ def main():
              "dynamicvectorquantization_tpu/ops/layernorm_pallas.py:56", ln_bwd_cases[0],
              {k: ln_bwd_cases[0][k] for k in ("bit_reproducible", "bound_share",
                                               "launches_per_call", "kernels_per_call", "ptxas")}
-             | {"f32": pick(ln_bwd_cases[1], "kernel_ms", "kernel_ms_spread", "plain_ms",
+             | {"f32": pick_keys(ln_bwd_cases[1], "kernel_ms", "kernel_ms_spread", "plain_ms",
                             "library_ms", "bound_ms", "bound_share", "max_abs_err",
                             "bit_reproducible")}),
             # lr, c1, c2 by value, or read from a device triple (a captured step's)
             ("fused_adamw", "fused_adamw.cu",
              "dynamicvectorquantization_tpu/ops/fused_adamw.py:39", adamw_case,
-             pick(adamw_case, "device_scalars_equal", "device_scalars_ms",
+             pick_keys(adamw_case, "device_scalars_equal", "device_scalars_ms",
                   "device_scalars_ms_spread")
              | {"device_scalar_launches": launched("fused_adamw_device_scalars")}),
             # 3xTF32 on the tensor cores, near-tie rows rescored in the FMA search's order
@@ -5663,15 +5937,15 @@ def main():
             # patch design at the same inputs; the bound counts the nonzero kernel values
             ("patch_entropy", "patch_entropy.cu",
              "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy_case,
-             pick(entropy_case, *entropy_keys)
+             pick_keys(entropy_case, *entropy_keys)
              # 32^2 patches (TripleGrainFixedEntropyRouter on a 256^2 triple-grain model)
-             | {"patch32": pick(entropy32_case, "shape", "patch", "kernel_ms",
+             | {"patch32": pick_keys(entropy32_case, "shape", "patch", "kernel_ms",
                                 "kernel_ms_spread", "plain_ms", "bound_ms", "bound_by",
                                 "bound_share", "max_abs_err", "tol", *entropy_keys)}),
             # bf16 images: the gray image rounded as the JAX package rounds it
             ("patch_entropy_bf16", "patch_entropy.cu",
              "dynamicvectorquantization_tpu/ops/entropy.py:118", entropy16_case,
-             pick(entropy16_case, *entropy_keys) | {"dtype": "bfloat16"}),
+             pick_keys(entropy16_case, *entropy_keys) | {"dtype": "bfloat16"}),
             # f32 with C % 4 == 0 (every f32 Downsample): the blocked f32 kernel, weight
             # pack included; other C: the FMA kernel (`fma_source`), timed at the same
             # shapes (`fma_kernel_ms`) and equal to it bit for bit
@@ -5688,7 +5962,7 @@ def main():
               "per_level": conv["per_level"],
               # the triple-grain encoder's fifth level, 16^2 x 512 -> 8^2, and the tiling
               # the kernel reported (tile: output rows x columns x channels)
-              "triple_level": pick(conv_triple, "shape", "route", "tiling", "tile", "blocks",
+              "triple_level": pick_keys(conv_triple, "shape", "route", "tiling", "tile", "blocks",
                                    "max_abs_err", "tol",
                                    "equal_to_fma_kernel", "bit_reproducible", "kernel_ms",
                                    "kernel_ms_spread", "plain_ms", "library_ms", "fma_kernel_ms",
@@ -5714,7 +5988,7 @@ def main():
                          wrapper_device_seed_launches=launched(f"{wrapper}_device_seed"),
                          head_offset_equal=offset_equal[name])
         if name in ring_ticks:  # sp's ring tick: non-causal at hd 128 with lse
-            extra = dict(extra, sp_ring_tick_noncausal=pick(ring_ticks[name], *timed_keys))
+            extra = dict(extra, sp_ring_tick_noncausal=pick_keys(ring_ticks[name], *timed_keys))
         kernels.append(dict(
             name=name, route="cuda", source=f"{src_dir}/{src}",
             replaces=replaces, launches=sum(launches.values()), launches_by_path=launches,
@@ -5722,6 +5996,13 @@ def main():
             ms_spread=main["kernel_ms_spread"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main.get("library_ms"), shape=main["shape"], card=card, **extra))
+        if name in ("vq_nearest", "vq_nearest_train"):  # the fixed-length baselines' shapes
+            kernels[-1]["legacy_stage1_shapes"] = {
+                label: pick_keys(c, "shape", "max_abs_err", "tol", "kernel_ms",
+                                 "kernel_ms_spread", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by", "equal_to_fma_kernel", "rescored_rows",
+                                 "fma_kernel_ms", "empty_clusters", "bit_reproducible")
+                for label, c in legacy["vq_cases"].items() if label.startswith(name + ":")}
         require(kernels[-1]["launches"] > 0, f"{name} was launched on no driven path")
     emit(dict(phase="script", seconds=time.perf_counter() - t_script))
     emit({"kernels": kernels})

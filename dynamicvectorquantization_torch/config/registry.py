@@ -4,7 +4,9 @@ Counterpart of `dynamicvectorquantization_tpu/config/registry.py`, holding
 only the targets the ported slices instantiate: the unconditional and the
 class-conditional stage-2 models (`Dualformer`, `ClassCondDualformer`) with
 their label providers, the dual- and triple-grain DQ-VAEs with their routers,
-budget losses and GAN loss, the data
+budget losses and GAN loss, the fixed-length stage-1 baselines (VQGAN,
+multi-VQ, RQ-VAE) with taming's codec, the legacy quantizers and the two
+StyleGAN discriminators, the data
 module with the ImageNet, face (FFHQ, CelebA-HQ, FacesHQ, LMDB FFHQ) and
 synthetic datasets, and the reference launcher's callback and logger
 entries (`SetupCallback`, `LightningShim`: the trainer does their work
@@ -47,6 +49,25 @@ TARGET_ALIASES = {
     "modules.losses.vqperceptual.VQLPIPSWithDiscriminator": f"{_PKG}.losses.vqperceptual.VQLPIPSWithDiscriminator",
     "modules.losses.vqperceptual.DummyLoss": f"{_PKG}.losses.vqperceptual.DummyLoss",
     "modules.discriminator.model.NLayerDiscriminator": f"{_PKG}.nn.discriminator.NLayerDiscriminator",
+    "modules.discriminator.stylegan.Discriminator": f"{_PKG}.nn.stylegan_discriminator.StyleGAN2Discriminator",
+    "modules.discriminator.stylegan_lucidrains.Discriminator": f"{_PKG}.nn.stylegan_discriminator.LucidrainsDiscriminator",
+    # the fixed-length stage-1 baselines and the legacy quantizers
+    "models.stage1.vqgan.VQModel": f"{_PKG}.models.vqgan.VQModel",
+    "models.stage1.vqgan_multivq.VQModel": f"{_PKG}.models.vqgan.MultiVQModel",
+    "models.stage1.rqvae.RQModel": f"{_PKG}.models.vqgan.RQModel",
+    "models.stage1.rqvae.VQModel": f"{_PKG}.models.vqgan.RQModel",
+    "modules.diffusionmodules.model.Encoder": f"{_PKG}.nn.vqgan_codec.VQGANEncoder",
+    "modules.diffusionmodules.model.Decoder": f"{_PKG}.nn.vqgan_codec.VQGANDecoder",
+    "modules.vector_quantization.quantize2_list.VectorQuantize2": f"{_PKG}.ops.vq.VectorQuantizeEMA",
+    "modules.vqvae.quantize2.VectorQuantize2": f"{_PKG}.ops.vq.VectorQuantizeEMA",
+    "modules.vector_quantization.quantize_codebook_mask.MaskVectorQuantize": f"{_PKG}.ops.quantizers.MaskVectorQuantize",
+    "modules.vector_quantization.quantize_vqgan.VectorQuantizer": f"{_PKG}.ops.quantizers.VectorQuantizer",
+    "modules.vector_quantization.quantize_vqgan.VectorQuantizer2": f"{_PKG}.ops.quantizers.VectorQuantizer2",
+    "modules.vector_quantization.quantize.VectorQuantizer": f"{_PKG}.ops.quantizers.VectorQuantizer",
+    "modules.vector_quantization.quantize_vqgan.GumbelQuantize": f"{_PKG}.ops.quantizers.GumbelQuantize",
+    "modules.vector_quantization.quantize_vqgan.EMAVectorQuantizer": f"{_PKG}.ops.quantizers.EMAVectorQuantizer",
+    "modules.vector_quantization.quantize_rqvae.RQBottleneck": f"{_PKG}.ops.quantizers.RQBottleneck",
+    "modules.vector_quantization.quantize_lucidrains.VectorQuantize": f"{_PKG}.ops.quantize_lucidrains.LucidrainsVectorQuantize",
     "data.build.DataModuleFromConfig": f"{_PKG}.data.datasets.DataModuleFromConfig",
     "data.imagenet.ImageNetTrain": f"{_PKG}.data.datasets.ImageNetTrain",
     "data.imagenet.ImageNetValidation": f"{_PKG}.data.datasets.ImageNetValidation",

@@ -127,6 +127,8 @@ class VQLPIPSWithDiscriminator(nn.Module):
                    "logits_fake": logits_fake.mean()}
 
     def budget(self, gate):
-        if self.budget_loss is None:
-            return gate.new_zeros((), dtype=torch.float32)
+        """The budget loss of the gate; 0 without a budget (or a gate: the
+        fixed-length models)."""
+        if self.budget_loss is None or gate is None:
+            return next(self.perceptual_loss.buffers()).new_zeros((), dtype=torch.float32)
         return self.budget_loss(gate)

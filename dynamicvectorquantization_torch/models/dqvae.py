@@ -119,6 +119,10 @@ class DualGrainVQModel(nn.Module):
         rate = max(self.encoder.dropout, self.decoder.dropout)
         return training_masks(dropout, rate, train, generator)
 
+    def gumbel_shape(self, batch: int):
+        """The shape of the Gumbel noise a training forward takes, or None."""
+        return self.encoder.gumbel_shape(batch)
+
     def encode(self, x, train=False, generator=None, commit=True, gumbel_noise=None,
                dropout=None, remat=False):
         """(B, H, W, 3) NHWC images in [-1, 1] -> (quant (B, Hf, Wf, D),

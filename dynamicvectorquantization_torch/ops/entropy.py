@@ -18,8 +18,9 @@ precision, so there the gray can differ in its last bits. The histogram and
 the entropy stay f32.
 
 `patch_entropy` launches the CUDA kernel `csrc/patch_entropy.cu` for CUDA
-tensors and runs `patch_entropy_plain` for CPU tensors; `use_pallas=False`
-selects the plain version explicitly. The kernel runs two warps per patch and
+tensors and runs `patch_entropy_plain` for CPU tensors: the device alone
+picks the route, and `use_pallas` (the JAX signature's) is ignored. The
+kernel runs two warps per patch and
 evaluates a pixel's kernel values exp(-0.5 r^2), r = (g - c_j) / sigma, only
 in a window of bins round its nearest bin: j0 = floor((g - lo) * inv_delta +
 1/2) with inv_delta = (num_bins - 1) / (hi - lo), bins j0 - W .. j0 + W,
@@ -123,7 +124,7 @@ def patch_entropy(images, patch_size=16, num_bins=32, sigma=0.01, bin_range=(-1.
     if c != 3 or h % patch_size or w % patch_size:
         raise ValueError(f"patch_entropy: RGB NHWC images with H, W divisible by "
                          f"{patch_size} expected, got {tuple(images.shape)}")
-    if use_pallas is False or images.device.type == "cpu":
+    if images.device.type == "cpu":
         return patch_entropy_plain(images, patch_size, num_bins, sigma, bin_range)
     if images.device.type != "cuda":
         raise ValueError(f"patch_entropy: CPU or CUDA tensors only, got {images.device}")

@@ -10,8 +10,9 @@ codebook refresh and the restart of unused codes from permuted input rows.
 
 `nearest_codes` and `nearest_codes_with_stats` launch the CUDA kernels of
 `csrc/vq_nearest_tc.cu` (and `csrc/vq_stats.cu`) for CUDA tensors and run
-`nearest_codes_plain` / `nearest_codes_with_stats_plain` for CPU tensors;
-`use_pallas=False` selects the plain version explicitly. Scores are |c|^2 -
+`nearest_codes_plain` / `nearest_codes_with_stats_plain` for CPU tensors:
+the tensors' device alone picks the route, and a quantizer's `use_pallas`
+(kept so that the JAX package's ymls load) is ignored. Scores are |c|^2 -
 2 x.c in f32 (no |x|^2 term); argmin ties go to the lowest index. The
 kernels search on the tensor cores with a 3xTF32 split and rescore the rows
 whose best two codes lie within the split's error bound in the f32 FMA order
@@ -106,13 +107,13 @@ def _search_args(name, x, codebook, stats):
     return x, codebook, cb_norm, idx, workspace, rescored, (n, k, d)
 
 
-def nearest_codes(x, codebook, use_pallas=None):
+def nearest_codes(x, codebook):
     """Nearest codebook row per row of x: (N, D), (K, D), f32 or bf16 (searched
     as f32) -> (idx (N,) int64, quantized (N, D) f32). `nearest_codes.launches`
     counts kernel calls; `nearest_codes.last_rescored` is the last call's
     number of rows rescored in the FMA order (a device int32, read by checks
     only)."""
-    if use_pallas is False or (x.device.type == "cpu" and codebook.device.type == "cpu"):
+    if x.device.type == "cpu" and codebook.device.type == "cpu":
         return nearest_codes_plain(x, codebook)
     x, codebook, cb_norm, idx, workspace, rescored, (n, k, d) = _search_args(
         "nearest_codes", x, codebook, False)
@@ -143,7 +144,7 @@ def nearest_codes_with_stats_plain(x, codebook):
     return idx, xq, embed_sum, cluster_size
 
 
-def nearest_codes_with_stats(x, codebook, use_pallas=None):
+def nearest_codes_with_stats(x, codebook):
     """`nearest_codes` plus the EMA statistics: (N, D), (K, D), f32 or bf16
     (as f32) -> (idx (N,) int64, quantized (N, D), embed_sum (K, D),
     cluster_size (K,)), f32.
@@ -152,7 +153,7 @@ def nearest_codes_with_stats(x, codebook, use_pallas=None):
     (deterministic: no float atomics) of `csrc/vq_nearest_tc.cu` and
     `csrc/vq_stats.cu`. `nearest_codes_with_stats.launches` counts those
     calls; `.last_rescored` as `nearest_codes`'."""
-    if use_pallas is False or (x.device.type == "cpu" and codebook.device.type == "cpu"):
+    if x.device.type == "cpu" and codebook.device.type == "cpu":
         return nearest_codes_with_stats_plain(x, codebook)
     x, codebook, cb_norm, idx, workspace, rescored, (n, k, d) = _search_args(
         "nearest_codes_with_stats", x, codebook, True)
@@ -193,7 +194,6 @@ class VectorQuantizeEMA(nn.Module):
         self.restart_unused_codes = restart_unused_codes
         self.ema = ema
         self.eps = eps
-        self.use_pallas = use_pallas
         self.codebook = _Codebook(codebook_size + 1, codebook_dim)
 
     @torch.no_grad()
@@ -224,8 +224,7 @@ class VectorQuantizeEMA(nn.Module):
         flat = x.detach().reshape(-1, d)
         codebook = self.codebook.weight[:-1]
         if train and self.ema:
-            idx, xq, embed_sum, cluster_size = nearest_codes_with_stats(
-                flat, codebook, self.use_pallas)
+            idx, xq, embed_sum, cluster_size = nearest_codes_with_stats(flat, codebook)
             if commit:
                 world = active()
                 if world is not None:  # one collective for both sums
@@ -234,7 +233,7 @@ class VectorQuantizeEMA(nn.Module):
                     embed_sum, cluster_size = both[:-k].view_as(embed_sum), both[-k:]
                 self._ema_update(all_rows(flat), embed_sum, cluster_size, generator)
         else:
-            idx, xq = nearest_codes(flat, codebook, self.use_pallas)
+            idx, xq = nearest_codes(flat, codebook)
         xq = xq.reshape(x.shape)
         err = (xq - x) ** 2
         if codebook_mask is not None:

@@ -13,7 +13,16 @@ seed 23, the schedule of 6 epochs) stopped after its first epoch (384 steps,
     backbone is another draw of the same distribution;
   * `lpips_jax`: TF32 on, with the JAX runs' own seeded backbone, read from
     the file `--jax_vgg` names (written where the JAX package is installed by
-    `tests/fixtures/lpips/jax_campaign_vgg16.py`).
+    `tests/fixtures/lpips/jax_campaign_vgg16.py`);
+  * `jax_init`: the whole campaign stage-1 leg (all six epochs, no
+    `--stop_epoch`) continued with `--resume` from a step-0 run directory
+    that holds the JAX runs' own initial stage-1 state. `--jax_init` names
+    either that run directory (written where the JAX package is installed by
+    `tests/fixtures/stage1/jax_campaign_init.py`) or a file of model tensors
+    (a state dict, whole or in part, written by the same script's `--carry`),
+    from which the leg first writes the step-0 run itself
+    (`write_initial_run`: the CLI's seeded init at `--seed` on this device,
+    those tensors put in place).
 
 Each leg reports the mean `train_p_loss` over its rows at steps 1-40 and
 `val_rec_loss` at step 384, beside the JAX runs' (r04 / r05, read from the
@@ -22,6 +31,7 @@ function). Usage (the card; ~2.5 min a leg):
 
     python -m dynamicvectorquantization_torch.tools.stage1_causes --out <dir> \\
         [--legs tf32_on,tf32_off,lpips_seed2,lpips_jax --jax_vgg <file>] \
+        [--legs jax_init --jax_init <run dir | tensors.pt>] \
         [--data_root artifacts/campaign_r05/data]
 
 writes `<dir>/causes.json` and prints it as its last line.
@@ -46,7 +56,7 @@ import time
 
 from .campaign_product import REPO, STAGE1_BASE, THRESHOLDS_NAME, read_metrics, run
 
-LEGS = ("tf32_on", "tf32_off", "lpips_seed2", "lpips_jax")
+LEGS = ("tf32_on", "tf32_off", "lpips_seed2", "lpips_jax", "jax_init")
 EARLY_STEPS = 40
 JAX_RUNS = ("campaign_r04", "campaign_r05")
 
@@ -124,11 +134,64 @@ def write_vgg16(path, seed):
     torch.save(sd, path)
 
 
+def write_initial_run(run_dir, base, overrides, seed, tensors=None, device=None):
+    """A run directory that `train.cli --resume` continues, holding the
+    configs snapshot and a checkpoint of step 0: the state the CLI's
+    stage-1 run starts from at `seed` on `device` (the seeded init,
+    ActNorm from the first training image, zero moments, as
+    `train/loop.py` `_fit_stage1` builds it) with the model tensors of
+    `tensors` (a state dict, whole or in part) put in place. The checkpoint
+    carries no generator state: the resumed trainer keeps its freshly
+    seeded one, as a run from scratch does at step 0. Returns the
+    checkpoint's path."""
+    import torch
+
+    from ..config.yaml_config import dump_yaml, load_config
+    from ..train.cli import set_learning_rate
+    from ..train.stage1 import Stage1Trainer
+    from ..utils.checkpoint import CheckpointManager
+    from ..utils.device import resolve_device
+    from ..utils.instantiate import instantiate_from_config
+
+    config = load_config(list(base), list(overrides))
+    os.makedirs(os.path.join(run_dir, "configs"), exist_ok=True)
+    with open(os.path.join(run_dir, "configs", "merged-project.yaml"), "w") as f:
+        f.write(dump_yaml(config) + "\n")
+    dev = resolve_device(device)
+    with torch.device(dev):
+        model = instantiate_from_config(config["model"])
+    data = instantiate_from_config(config["data"])
+    set_learning_rate(model, config, 1)
+    trainer = Stage1Trainer(model, model.learning_rate, device=dev, seed=seed + 1)
+    batches = data.train_dataloader(seed=seed).epoch(0)
+    x0 = next(batches)[model.image_key][:1]
+    batches.close()
+    trainer.init_state(torch.Generator(device=dev).manual_seed(int(seed)), x0)
+    tensors = dict(tensors or {})
+    own = model.state_dict()
+    unknown = sorted(set(tensors) - set(own))
+    if unknown:
+        raise KeyError(f"tensors the model does not hold: {unknown[:5]}")
+    with torch.no_grad():
+        for k, v in tensors.items():
+            if tuple(v.shape) != tuple(own[k].shape):
+                raise ValueError(f"{k}: shape {tuple(v.shape)}, the model's {tuple(own[k].shape)}")
+            own[k].copy_(v)
+    state = trainer.state_dict()
+    state.pop("generator")
+    mngr = CheckpointManager(os.path.join(run_dir, "checkpoints"), monitor=model.monitor)
+    path = mngr.save(0, {"stage": 1, "trainer": state})
+    mngr.wait()
+    return path
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=None, help="the legs' directory (required to run legs)")
     p.add_argument("--legs", default=",".join(LEGS[:3]))
     p.add_argument("--jax_vgg", default=None, help="the JAX runs' backbone (leg lpips_jax)")
+    p.add_argument("--jax_init", default=None,
+                   help="leg jax_init: a step-0 run directory, or a file of model tensors")
     p.add_argument("--data_root", default="artifacts/campaign_r05/data")
     p.add_argument("--thresholds", default=os.path.join("artifacts/campaign_r05/thresholds",
                                                         THRESHOLDS_NAME))
@@ -170,21 +233,54 @@ def main(argv=None):
                 raise SystemExit("leg lpips_jax needs --jax_vgg")
             env["DQVQ_LPIPS_VGG"] = os.path.abspath(opt.jax_vgg)
         logroot = os.path.join(out, "logs")
+        overrides = ["model.params.encoderconfig.params.router_config.params.json_path="
+                     f"{os.path.abspath(opt.thresholds)}", "data.params.batch_size=8",
+                     "data.params.num_workers=2"]
+        common = ["--max_epochs", "6", "--log_every", "8", "--steps_per_dispatch", "4",
+                  "--seed", "23", "--image_log_every", "0", *dev]
         t0 = time.time()
-        run([sys.executable, "-m", "dynamicvectorquantization_torch.train", "--base",
-             *STAGE1_BASE, "--max_epochs", "6", "--stop_epoch", "1", "--name", leg, "--logdir",
-             logroot, "--log_every", "8", "--steps_per_dispatch", "4", "--seed", "23",
-             "--image_log_every", "0", *dev,
-             "model.params.encoderconfig.params.router_config.params.json_path="
-             f"{os.path.abspath(opt.thresholds)}", "data.params.batch_size=8",
-             "data.params.num_workers=2"], env, leg, retries=0)
-        rundir = sorted(d for d in os.listdir(logroot) if d.startswith(f"{leg}-"))[-1]
-        result["legs"][leg] = {**summarize(read_metrics(os.path.join(logroot, rundir))),
-                               "seconds": time.time() - t0, "env": env}
+        if leg == "jax_init":
+            rundir = _jax_init_run(opt.jax_init, os.path.join(logroot, "jax_init-step0"),
+                                   overrides, opt.device, env)
+            run([sys.executable, "-m", "dynamicvectorquantization_torch.train", "--resume",
+                 rundir, *common, *overrides], env, leg, retries=0)
+        else:
+            run([sys.executable, "-m", "dynamicvectorquantization_torch.train", "--base",
+                 *STAGE1_BASE, "--stop_epoch", "1", "--name", leg, "--logdir", logroot, *common,
+                 *overrides], env, leg, retries=0)
+            rundir = os.path.join(logroot, sorted(d for d in os.listdir(logroot)
+                                                  if d.startswith(f"{leg}-"))[-1])
+        result["legs"][leg] = {**summarize(read_metrics(rundir)),
+                               "seconds": time.time() - t0, "env": env, "run": rundir}
     with open(os.path.join(out, "causes.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def _jax_init_run(source, step0_dir, overrides, device, env):
+    """The step-0 run directory of leg `jax_init`: `source` itself when it is
+    a run directory, else one written from the tensors in the file `source`
+    (with the leg's environment, which names the data)."""
+    if not source:
+        raise SystemExit("leg jax_init needs --jax_init")
+    source = os.path.abspath(source)
+    if os.path.isdir(source):
+        return source
+    import torch
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        write_initial_run(step0_dir, [os.path.join(REPO, STAGE1_BASE[0])], overrides, 23,
+                          torch.load(source, map_location="cpu", weights_only=True), device)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return step0_dir
 
 
 if __name__ == "__main__":

@@ -486,8 +486,9 @@ class Trainer:
         x = x[:4].float()
         xrec, _, grains, _, x_entropy = model(x)
         x_np = x.cpu().numpy()
-        imgs = {"inputs": x_np, "reconstructions": xrec.cpu().numpy(),
-                "grain_map": draw_grain_map_color(x_np, grains.cpu().numpy())}
+        imgs = {"inputs": x_np, "reconstructions": xrec.cpu().numpy()}
+        if getattr(model, "has_grains", True):  # a fixed-length model's slot holds its codes
+            imgs["grain_map"] = draw_grain_map_color(x_np, grains.cpu().numpy())
         if x_entropy is not None:
             e = x_entropy.cpu().numpy()
             e = (e - e.min()) / max(e.max() - e.min(), 1e-5)

@@ -67,6 +67,22 @@ off on the CPU. On the H100 it trades time for memory: batch 30 in f32 takes
 29.1 GB and 3.06 s a step with it, 71.8 GB and 2.18 s without; with bf16
 towers 19.4 GB and 0.92 s against 54.3 GB and 0.84 s.
 
+The discriminator pass's fresh forward draws from a copy of the step's
+generator in the state the autoencoder pass of its microbatch started from,
+so a quantizer that draws inside the forward (a codebook restart, Gumbel
+noise, a remap fill) draws what the autoencoder pass drew, as the JAX
+trainer gives both passes one key; the generator itself goes on from where
+the autoencoder passes left it. A DQ-VAE's discriminator pass draws nothing.
+An `RQBottleneck`'s depths update its codebook in sequence in that pass too,
+on buffers it puts back (`ops/quantizers.py`).
+
+Fixed-length models (`models/vqgan.py`) train through the same step: no
+gate, so no budget loss and no grain ratios beyond the JAX trainer's
+`train_fine_ratio` of their codes; a gradient-trained codebook is a
+parameter of the autoencoder's optimizer. `init_state` runs a model's
+`init_from_batch` on the sample batch after a seeded init (a
+`MaskVectorQuantize` codebook's kmeans, which flax's init runs).
+
 A `use_actnorm` discriminator's ActNorm layers are set from data in
 `init_state`: the `sample_batch` given (the loop passes the first training
 batch's first image, as the JAX loop does), else one zero image, which is
@@ -187,10 +203,14 @@ class _Adam:
         self.count += 1
 
 
-def grain_ratios(grain_indices, n_grains, split):
-    """`<split>_fine_ratio` (and `<split>_median_ratio` with three grains)."""
+def grain_ratios(grain_indices, gate, split):
+    """`<split>_fine_ratio` (and `<split>_median_ratio` with three grains);
+    for a fixed-length model (no gate) the share of code indices above 0,
+    as the JAX trainer logs it; none without indices."""
     g = grain_indices
-    if n_grains == 3:
+    if g is None:
+        return {}
+    if gate is not None and gate.shape[-1] == 3:
         return {f"{split}_fine_ratio": (g == 2).float().mean(),
                 f"{split}_median_ratio": (g == 1).float().mean()}
     return {f"{split}_fine_ratio": (g > 0).float().mean()}
@@ -267,7 +287,8 @@ class Stage1Trainer:
             opt.load(state[key]["count"], state[key]["m"], state[key]["v"])
         self.step = int(state["step"])
         self.epoch = int(state["epoch"])
-        self.generator.set_state(state["generator"].cpu())
+        if "generator" in state:  # a step-0 state written elsewhere keeps the seeded one
+            self.generator.set_state(state["generator"].cpu())
 
     def init_state(self, generator: torch.Generator = None, sample_batch=None,
                    lpips_vgg_path=None, lpips_lin_path=None):
@@ -284,10 +305,13 @@ class Stage1Trainer:
         if generator is not None:
             self.model.init_weights(generator)
         disc = self.loss.discriminator
-        if disc.use_actnorm and (generator is not None or not disc.actnorm_initialized()):
-            size = self.model.image_size
-            x = (torch.zeros((1, size, size, 3), device=self.device) if sample_batch is None
-                 else self._images(sample_batch))
+        size = self.model.image_size
+        x = (torch.zeros((1, size, size, 3), device=self.device) if sample_batch is None
+             else self._images(sample_batch))
+        if generator is not None and hasattr(self.model, "init_from_batch"):
+            self.model.init_from_batch(x, generator)
+        if getattr(disc, "use_actnorm", False) and (generator is not None
+                                                    or not disc.actnorm_initialized()):
             disc.init_actnorm(x.permute(0, 3, 1, 2).contiguous())
         self.loss.perceptual_loss.load_weights(
             lpips_vgg_path or os.environ.get("DQVQ_LPIPS_VGG"),
@@ -334,7 +358,7 @@ class Stage1Trainer:
 
     def _gumbel_noise(self, x, generator):
         """The Gumbel noise of one microbatch's training forwards, or None."""
-        shape = self.model.encoder.gumbel_shape(x.shape[0])
+        shape = self.model.gumbel_shape(x.shape[0])
         return None if shape is None else draw_gumbel(shape, generator, x.device)
 
     def _ae_grads(self, x, gate_step, generator, noise, masks):
@@ -356,7 +380,7 @@ class Stage1Trainer:
         grads = torch.autograd.grad(total, [self.ae_params[k] for k in names], allow_unused=True)
         grads = {k: (torch.zeros_like(self.ae_params[k]) if g is None else g)
                  for k, g in zip(names, grads)}
-        logs = {**grain_ratios(grain_indices, gate.shape[-1], "train"),
+        logs = {**grain_ratios(grain_indices, gate, "train"),
                 "train_aeloss": total, "train_rec_loss": rec_loss, "train_nll_loss": nll_loss,
                 "train_p_loss": p_loss, "train_quant_loss": qloss, "train_g_loss": g_loss,
                 "train_d_weight": d_weight, "train_disc_factor": x.new_tensor(disc_factor),
@@ -396,9 +420,18 @@ class Stage1Trainer:
                  for xi in micro]
         gate_step = self.epoch if self.loss_with_epoch else self.step
         logs = {}
+        starts = []  # the generator's state at each microbatch's autoencoder pass
         for opt, fn in ((self.ae_opt, self._ae_grads), (self.disc_opt, self._disc_grads)):
+            results = []
             with global_stats(self.world):
-                results = [fn(xi, gate_step, generator, *d) for xi, d in zip(micro, draws)]
+                for i, (xi, d) in enumerate(zip(micro, draws)):
+                    if fn == self._ae_grads:
+                        starts.append(generator.get_state())
+                        gen = generator
+                    else:  # the draws of the pass it repeats (see the module docstring)
+                        gen = torch.Generator(device=generator.device)
+                        gen.set_state(starts[i])
+                    results.append(fn(xi, gate_step, gen, *d))
             mean_logs = _mean_of([r[0] for r in results])
             names = sorted(mean_logs)
             grads, stacked = opt.reduce(_mean_of([r[1] for r in results]),
@@ -423,4 +456,4 @@ class Stage1Trainer:
         xrec, qloss, grain_indices, gate, _ = self.model(x)
         nll_loss, rec_loss, p_loss = self.loss.nll(x, xrec)
         return {"val_rec_loss": rec_loss, "val_nll_loss": nll_loss, "val_p_loss": p_loss,
-                "val_quant_loss": qloss, **grain_ratios(grain_indices, gate.shape[-1], "val")}
+                "val_quant_loss": qloss, **grain_ratios(grain_indices, gate, "val")}

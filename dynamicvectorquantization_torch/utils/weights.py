@@ -8,8 +8,11 @@ the inverses of the JAX package's `convert_stackgpt_state_dict`,
 triple-grain DQ-VAEs (every router's `gate`, `gate_0` / `gate_2` and
 `feature_norm_{fine,median,coarse}`) and their GAN loss, and
 `stage1_state_from_flax` for a whole stage-1 training state, written anew
-here: flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and
-dense kernels (in, out) -> (out, in); `scale` -> `weight`; `embedding` ->
+here; `vqgan_state_dict_from_flax` for the fixed-length baselines and the
+two StyleGAN discriminators' converters (the inverses of
+`convert_stylegan2_disc_state_dict` / `convert_lucidrains_disc_state_dict`):
+flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and dense
+kernels (in, out) -> (out, in); `scale` -> `weight`; `embedding` ->
 `weight`; flax's `GroupNorm_0` wrapper level disappears.
 """
 from __future__ import annotations
@@ -287,15 +290,166 @@ def adam_state_from_optax(opt_state, convert):
     return int(adam.count), convert(adam.mu), convert(adam.nu)
 
 
+_TOWER = re.compile(r"(down|up)_(\d+)_(block|attn|downsample|upsample)(?:_(\d+))?")
+# flax EMA / parameter leaves of the quantizers -> the port's buffer names
+_EMA_LEAF = {"codebook": "codebook.weight", "cluster_size_ema": "codebook.cluster_size_ema",
+             "embed_ema": "codebook.embed_ema"}
+
+
+def _vqgan_tower_key(tower, mods, tleaf, path) -> str:
+    sub = mods[0]
+    if sub in ("conv_in", "conv_out", "norm_out"):
+        return f"{tower}.{sub}.{tleaf}"
+    if sub in _MID:
+        return ".".join([f"{tower}.mid", _MID[sub], *mods[1:], tleaf])
+    m = _TOWER.fullmatch(sub)
+    if m is None:
+        raise KeyError(f"unmapped VQGAN {tower} param {'/'.join(path)}")
+    level, i, kind, j = m.groups()
+    head = f"{tower}.{level}.{i}.{kind}" + ("" if j is None else f".{j}")
+    return ".".join([head, *mods[1:], tleaf])
+
+
+def _quantizer_key(path, gumbel=False) -> str:
+    """The port name of a flax quantizer leaf (`path` below `quantize`)."""
+    if path[-1] == "embedding":  # a gradient-trained codebook parameter
+        owner = "embed" if gumbel and len(path) == 1 else "embedding"
+        return ".".join(["quantize", *path[:-1], owner, "weight"])
+    if path[-1] in _EMA_LEAF:
+        return ".".join(["quantize", *path[:-1], _EMA_LEAF[path[-1]]])
+    return ".".join(["quantize", *path])  # lucidrains' embed / embed_avg / cluster_size / initted
+
+
+def vqgan_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX `VQGANNet` variables `{"params", "ema"}` of a `VQModel`,
+    `MultiVQModel` or `RQModel` -> the port model's state_dict: `encoder.*`,
+    `decoder.*` (taming's names), `quant_conv.*`, `post_quant_conv.*` and the
+    quantizer's `quantize.*`: a gradient-trained codebook as
+    `quantize.embedding.weight` (GumbelQuantize: `quantize.proj.*`,
+    `quantize.embed.weight`), an EMA codebook as `quantize[.<inner |
+    codebook_shared | codebook_d>].codebook.{weight,cluster_size_ema,embed_ema}`,
+    lucidrains' buffers under their own names."""
+    params = variables.get("params", {})
+    gumbel = "proj" in params.get("quantize", {})
+    sd = {}
+    for path, v in _flatten(params).items():
+        mods = [m for m in path[:-1] if m != "GroupNorm_0"]
+        tleaf, tv = _leaf(path[-1], v)
+        root = path[0]
+        if root in ("quant_conv", "post_quant_conv"):
+            key = f"{root}.{tleaf}"
+        elif root in ("encoder", "decoder"):
+            key = _vqgan_tower_key(root, mods[1:], tleaf, path)
+        elif root == "quantize" and path[1] == "proj":
+            key = f"quantize.proj.{tleaf}"
+        elif root == "quantize":
+            key = _quantizer_key(path[1:], gumbel)
+        else:
+            raise KeyError(f"unmapped VQGAN param {'/'.join(path)}")
+        sd[key] = _tensor(tv)
+    for path, v in _flatten(variables.get("ema", {}).get("quantize", {})).items():
+        key = _quantizer_key(path)
+        sd[key] = (torch.from_numpy(np.array(v)) if np.asarray(v).dtype == np.bool_
+                   else _tensor(v))
+    return sd
+
+
+def _conv_or_dense(prefix, leaves) -> Dict[str, torch.Tensor]:
+    out = {}
+    for name, v in leaves.items():
+        tleaf, tv = _leaf(name, np.asarray(v))
+        out[f"{prefix}.{tleaf}"] = _tensor(tv)
+    return out
+
+
+_SG2_BLOCK = {"conv_res": "conv_res", "net_conv1": "net.0", "net_conv2": "net.2",
+              "down_conv": "downsample.1"}
+_SG2_ATTN = {"to_q": "0.fn.fn.to_q", "to_kv_dw": "0.fn.fn.to_kv.net.0",
+             "to_kv_pw": "0.fn.fn.to_kv.net.1", "to_out": "0.fn.fn.to_out"}
+_SG2_FF = {"attn_norm": "0.fn.norm", "ff_norm": "1.fn.norm", "ff_conv1": "1.fn.fn.0",
+           "ff_conv2": "1.fn.fn.2"}
+
+
+def stylegan2_disc_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """`StyleGAN2Discriminator` flax params -> the reference state_dict names
+    (the inverse of the JAX package's `convert_stylegan2_disc_state_dict`),
+    the Blur buffers `blocks.{i}.downsample.0.f` included; the dense head's
+    rows go from the NHWC flatten order (h, w, c) to torch's (c, h, w)."""
+    params = params.get("params", params)
+    sd = {}
+    for name, sub in params.items():
+        if name.startswith("blocks_"):
+            i = name.split("_")[1]
+            for part, leaves in sub.items():
+                sd.update(_conv_or_dense(f"blocks.{i}.{_SG2_BLOCK[part]}", leaves))
+            if "down_conv" in sub:
+                sd[f"blocks.{i}.downsample.0.f"] = torch.tensor([1.0, 2.0, 1.0])
+        elif name.startswith("attn_"):
+            i = name.split("_")[1]
+            for part, leaves in sub.items():
+                if part == "attn":
+                    for conv, cl in leaves.items():
+                        sd.update(_conv_or_dense(f"attn_blocks.{i}.{_SG2_ATTN[conv]}", cl))
+                elif part.endswith("_norm"):
+                    for leaf, v in leaves.items():
+                        sd[f"attn_blocks.{i}.{_SG2_FF[part]}.{leaf}"] = \
+                            _tensor(v).reshape(1, -1, 1, 1)
+                else:
+                    sd.update(_conv_or_dense(f"attn_blocks.{i}.{_SG2_FF[part]}", leaves))
+        elif name == "final_conv":
+            sd.update(_conv_or_dense("final_conv", sub))
+        elif name == "to_logit":
+            k = np.asarray(sub["kernel"])  # (4c, 1) in (h, w, c) order
+            c = k.shape[0] // 4
+            sd["to_logit.weight"] = _tensor(np.transpose(k.reshape(2, 2, c, 1),
+                                                         (3, 2, 0, 1)).reshape(1, 4 * c))
+            sd["to_logit.bias"] = _tensor(sub["bias"])
+        else:
+            raise KeyError(f"unmapped StyleGAN2 discriminator param {name}")
+    return sd
+
+
+def lucidrains_disc_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """`LucidrainsDiscriminator` flax params -> the reference state_dict
+    names (the inverse of `convert_lucidrains_disc_state_dict`)."""
+    params = params.get("params", params)
+    sd = {}
+    for name, sub in params.items():
+        if name == "layer0_cross_embed":
+            for conv, leaves in sub.items():
+                sd.update(_conv_or_dense(f"layers.0.0.convs.{conv.split('_')[1]}", leaves))
+            continue
+        m = re.fullmatch(r"layers_(\d+)_(conv|norm|res_groupnorm|res_project)", name)
+        if m is not None:
+            i, part = int(m.group(1)) + 1, m.group(2)
+            tail = {"conv": "0", "norm": "2", "res_groupnorm": "3.block.groupnorm",
+                    "res_project": "3.block.project"}[part]
+            sd.update(_conv_or_dense(f"layers.{i}.{tail}", sub))
+        elif name in ("logits_conv1", "logits_conv2"):
+            sd.update(_conv_or_dense(f"to_logits.{0 if name == 'logits_conv1' else 2}", sub))
+        else:
+            raise KeyError(f"unmapped lucidrains discriminator param {name}")
+    return sd
+
+
 def stage1_state_from_flax(state) -> dict:
     """A JAX `Stage1State` (read by attribute: `ae_params`, `ema`,
     `loss_params`, `loss_stats`, `ae_opt`, `disc_opt`, `step`, `epoch`) ->
     `{"state_dict", "ae_opt", "disc_opt", "step", "epoch"}`: the state_dict
-    of a port `DualGrainVQModel` built with the same GAN lossconfig (loads
+    of a port `DualGrainVQModel` (or, for a JAX `VQGANNet`, a `models/vqgan.py`
+    model) built with the same GAN lossconfig (loads
     with `strict=True` once the model's own constant LPIPS scaling buffers are
     added, as `load_stage1_state` does) and the two `(count, m, v)` Adam
     states for `Stage1Trainer.load_optimizer_state`."""
-    sd = dqvae_state_dict_from_flax({"params": state.ae_params, "ema": state.ema})
+    if "conv_in" in state.ae_params.get("encoder", {}):  # a fixed-length VQGANNet
+
+        def ae_params(tree):
+            return vqgan_state_dict_from_flax({"params": tree})
+
+        sd = vqgan_state_dict_from_flax({"params": state.ae_params, "ema": state.ema})
+    else:
+        ae_params = _dqvae_params_from_flax
+        sd = dqvae_state_dict_from_flax({"params": state.ae_params, "ema": state.ema})
     loss_params = state.loss_params
     for k, v in lpips_state_dict_from_flax(loss_params["perceptual_loss"]).items():
         sd[f"loss.perceptual_loss.{k}"] = v
@@ -303,7 +457,7 @@ def stage1_state_from_flax(state) -> dict:
     for k, v in discriminator_state_dict_from_flax(loss_params["discriminator"], stats).items():
         sd[f"loss.discriminator.{k}"] = v
     return {"state_dict": sd,
-            "ae_opt": adam_state_from_optax(state.ae_opt, _dqvae_params_from_flax),
+            "ae_opt": adam_state_from_optax(state.ae_opt, ae_params),
             "disc_opt": adam_state_from_optax(state.disc_opt, discriminator_params_from_flax),
             "step": int(state.step), "epoch": int(state.epoch)}
 
