@@ -163,7 +163,7 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                batch 8 of the encode phase's images: one `Stage1Trainer.train_step`
                through the kernels against one through the plain versions from
                the same state and generator seed (logs, EMA codebook, watched
-               gradients); then timed steps, launch counters per step, a
+               gradients); then 2 timed steps, launch counters per step, a
                torch.profiler trace of one step, peak memory, one `eval_step`;
                then all of it again with `compute_dtype=bfloat16` (bf16 towers
                over f32 parameters, the bf16 downsample launched, the AttnBlocks
@@ -184,7 +184,7 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                allocated / reserved memory with and without `remat`
      train1_b30  the first yml at its own batch 30 with `remat` at its
                default (on), f32 and bf16 towers: as `train1` without the
-               plain-path step (warm-up, launches asserted, 3 timed steps, a
+               plain-path step (warm-up, launches asserted, 2 timed steps, a
                traced step with each hand-written kernel's device ms a launch,
                peak allocated / reserved memory)
      encode_triple  the triple-grain yml's DQ-VAE at full width, f32, on the
@@ -231,6 +231,15 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                per step, codes -> decode against `forward`); one step for each
                legacy quantizer; RQ-VAE 8x8x4 x 16,384, three steps (#2 8 a
                step); each StyleGAN discriminator, one step at 256^2
+     legacy_stage2  the fixed-length stage-2 baselines (`legacy_stage2`): #4 /
+               #5 and #6 / #7 at the cin transformer's shapes, #1 at its
+               first stage's K 16,384, against the plain versions; taming's
+               class-conditional ImageNet transformer (48 x 1,536, 24 heads,
+               16,384 codes) from its yml with seeded weights over 4 committed
+               JPEGs: encode, forward + loss + backward against the plain
+               step, greedy sampling held to the teacher-forced argmax, a
+               top-k draw and decode; the RQ-Transformer: a step, one
+               sampled image, decode
      data_real  real image files, PIL blocked: the host libraries' build and
                the JPEG decoder in use (libjpeg where it builds, else the port's
                own), the committed fixtures (`tests/fixtures/images/`) read and
@@ -967,10 +976,10 @@ def check_vq_adversarial(torch, dev, sum_tol):
     return cases
 
 
-def check_vq_nearest(torch, dev, n=8 * 32 * 32, k=1024, label=None):
+def check_vq_nearest(torch, dev, n=8 * 32 * 32, k=1024, label=None, path="legacy_stage1"):
     """#1 against the plain version on N(0, 1) rows and codes, D 256; by
     default at the encoder's 32x32 latents at batch 8, with `label` at a
-    fixed-length baseline's shape (`legacy_stage1`)."""
+    fixed-length baseline's shape (phase `path`)."""
     from dynamicvectorquantization_torch.ops.vq import nearest_codes, nearest_codes_plain
 
     d = 256
@@ -993,7 +1002,7 @@ def check_vq_nearest(torch, dev, n=8 * 32 * 32, k=1024, label=None):
     differ = idx != ref
     near_ties = int(differ.sum())
     case = dict(phase="kernels", kernel="vq_nearest", shape=[n, k, d], dtype="float32",
-                **({} if label is None else dict(path="legacy_stage1", label=label)),
+                **({} if label is None else dict(path=path, label=label)),
                 mismatched_rows=near_ties, mismatches_within_near_tie_bound=bool(
                     (gap[differ] <= tol[differ]).all()),
                 max_abs_err=float(gap[differ].max()) if near_ties else 0.0,
@@ -2764,7 +2773,7 @@ def kernel_vs_plain_step(torch, dev, card, model, trainer, x, restore, config_pa
 
 
 
-def train1(torch, dev, card, batch=8, timed_steps=3, compute_dtype=None, config_path=STAGE1,
+def train1(torch, dev, card, batch=8, timed_steps=2, compute_dtype=None, config_path=STAGE1,
            phase="train1", compare=True, resume=False, remat=False):
     """Stage-1 (DQ-VAE + GAN) training of a shipped stage-1 config (the
     dual-grain entropy one unless `config_path` names another) at full width
@@ -3049,7 +3058,7 @@ def remat_differences(torch, a, b, lr):
     return bit_equal, groups, torch.equal(ga, gb)
 
 
-def train1_remat(torch, dev, card, batch=8, timed_steps=3):
+def train1_remat(torch, dev, card, batch=8, timed_steps=2):
     """`remat` against no `remat` on the shipped stage-1 yml (f32, batch 8,
     cuDNN's deterministic algorithms): one step each way from one state and
     one generator seed, without and with ResnetBlock dropout 0.1 (a yml
@@ -5499,6 +5508,359 @@ def legacy_stage1(torch, dev, card):
     emit(res)
     return dict(res, launches=total, vq_cases=vq_cases)
 
+# the fixed-length stage-2 baselines (ROADMAP 11.3): taming's class-conditional ImageNet
+# transformer at full width over the VQGAN f16-16384, and the RQ-Transformer over the RQ-VAE
+CIN_YML = "dynamicvectorquantization_torch/configs/stage2/vqgan_cin_transformer_f16_16384.yml"
+# the kernel step against the plain one on the same weights and codes: f32 throughout, the
+# attention on 3xTF32 against f32 products (TF32 off), 48 layers
+CIN_TOL = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4}
+
+
+def check_cin_kernels(torch, dev, b=4, t=256, d=1536, n_head=24):
+    """#4 / #5 (f32 at hd 64: the 3xTF32 kernels) and #6 / #7 (f32) at the
+    cin transformer's shapes, (4, 256, 1536) with 24 heads, causal, against
+    their plain versions on N(0, 1) inputs; kernel, plain and library times
+    (SDPA; `F.layer_norm`), bounds as the `kernels` phase counts them.
+    Tolerances: the `kernels` phase's f32 ones (attention 1e-4, lse 1e-4;
+    LayerNorm 1e-5, dgamma / dbeta 2e-3)."""
+    import torch.nn.functional as F
+
+    from dynamicvectorquantization_torch.ops.attention import (
+        fused_attention_backward, fused_attention_backward_plain, fused_attention_forward,
+        fused_attention_forward_plain)
+    from dynamicvectorquantization_torch.ops.layernorm import (
+        fused_layernorm_plain, layernorm_backward, layernorm_backward_plain, layernorm_forward)
+
+    hd, eps = d // n_head, 1e-5
+    scale = hd ** -0.5
+    g = torch.Generator(device=dev).manual_seed(25)
+    sets = []
+    for _ in range(n_sets(8 * b * t * d * 4)):
+        q, k, v, dy = (torch.randn((b, t, d), generator=g, device=dev) for _ in range(4))
+        y, lse = fused_attention_forward(q, k, v, n_head, scale, True, return_lse=True)
+        sets.append((q, k, v, y, lse, dy))
+    q, k, v, y, lse, dy = sets[0]
+    before = fused_attention_backward.f32_tc_launches
+    grads = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, True)
+    require(fused_attention_backward.f32_tc_launches == before + 1,
+            "cin attention: the backward did not take the 3xTF32 kernel")
+    y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, True, True)
+    ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, scale, True)
+    torch.cuda.synchronize()
+    err_y, ok_y = close(y, y_ref, 1e-4)
+    err_lse, ok_lse = close(lse, lse_ref, 1e-4)
+    errs, oks = zip(*(close(o, r, 1e-4) for o, r in zip(grads, ref)))
+    pairs = t * (t + 1) // 2
+    shape = dict(shape=[b, t, d], n_head=n_head, causal=True, dtype="float32",
+                 route="f32 tensor cores", path="legacy_stage2")
+    fwd = dict(phase="kernels", kernel="fused_attention_forward", **shape, with_lse=True,
+               max_abs_err=err_y, lse_err=err_lse, tol="1e-4; lse 1e-4")
+    fwd["bound_ms"], fwd["bound_by"], fwd["bound_ms_f32_fma"] = attention_bounds(
+        torch, 16 * b * t * d + 4 * b * n_head * t, 4 * b * n_head * pairs * hd,
+        torch.float32, True)
+
+    def heads(z):
+        return z.view(b, t, n_head, hd).transpose(1, 2)
+
+    time_into(fwd, "kernel", torch, lambda q_, k_, v_, *_: fused_attention_forward(
+        q_, k_, v_, n_head, scale, True, return_lse=True), sets)
+    time_into(fwd, "plain", torch, lambda q_, k_, v_, *_: fused_attention_forward_plain(
+        q_, k_, v_, n_head, scale, True, True), sets, iters=10)
+    time_into(fwd, "library", torch, lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
+        heads(q_), heads(k_), heads(v_), is_causal=True, scale=scale), sets)
+    emit(fwd)
+    bwd = dict(phase="kernels", kernel="fused_attention_backward", **shape,
+               max_abs_err=max(errs), dq_err=errs[0], dk_err=errs[1], dv_err=errs[2], tol="1e-4")
+    bwd["bound_ms"], bwd["bound_by"], bwd["bound_ms_f32_fma"] = attention_bounds(
+        torch, 32 * b * t * d + 4 * b * n_head * t, 10 * b * n_head * pairs * hd,
+        torch.float32, True)
+    time_into(bwd, "kernel", torch,
+              lambda *a: fused_attention_backward(*a, n_head, scale, True), sets, iters=10)
+    time_into(bwd, "plain", torch,
+              lambda *a: fused_attention_backward_plain(*a, n_head, scale, True), sets, iters=10)
+    lib_sets = []
+    for q_, k_, v_, _, _, dy_ in sets:
+        leaves = tuple(heads(z).detach().requires_grad_() for z in (q_, k_, v_))
+        lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale),
+                         leaves, heads(dy_)))
+    time_into(bwd, "library", torch,
+              lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_, retain_graph=True),
+              lib_sets, iters=10)
+    del lib_sets, sets
+    emit(bwd)
+    require(ok_y and ok_lse and all(oks),
+            f"cin attention disagrees with its plain version: {err_y} {err_lse} {errs}")
+
+    rows = b * t
+    gamma = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    beta = 0.1 * torch.randn(d, generator=g, device=dev)
+    ln_sets = [(torch.randn((b, t, d), generator=g, device=dev) * 1.5 + 0.3,
+                torch.randn((b, t, d), generator=g, device=dev))
+               for _ in range(n_sets(8 * rows * d))]
+    x, dy = ln_sets[0]
+    err_ln, ok_ln = close(layernorm_forward(x, gamma, beta, eps),
+                          fused_layernorm_plain(x, gamma, beta, eps), 1e-5)
+    ln_errs, ln_oks = zip(*(close(o, r, tol) for o, r, tol in zip(
+        layernorm_backward(x, gamma, dy, eps), layernorm_backward_plain(x, gamma, dy, eps),
+        (1e-5, 2e-3, 2e-3))))
+    shape = dict(shape=[b, t, d], dtype="float32", path="legacy_stage2")
+    lf = dict(phase="kernels", kernel="layernorm_forward", **shape, max_abs_err=err_ln,
+              tol="1e-5")
+    lf["bound_ms"], lf["bound_by"] = bound(8 * rows * d + 8 * d, 8 * rows * d, "float32")
+    time_into(lf, "kernel", torch, lambda x_, dy_: layernorm_forward(x_, gamma, beta, eps),
+              ln_sets)
+    time_into(lf, "plain", torch, lambda x_, dy_: fused_layernorm_plain(x_, gamma, beta, eps),
+              ln_sets)
+    time_into(lf, "library", torch, lambda x_, dy_: F.layer_norm(x_, (d,), gamma, beta, eps),
+              ln_sets)
+    emit(lf)
+    lb = dict(phase="kernels", kernel="layernorm_backward", **shape, max_abs_err=max(ln_errs),
+              dx_err=ln_errs[0], dgamma_err=ln_errs[1], dbeta_err=ln_errs[2],
+              tol="dx 1e-5; dgamma, dbeta 2e-3")
+    lb["bound_ms"], lb["bound_by"] = bound(12 * rows * d + 12 * d, 16 * rows * d, "float32")
+    time_into(lb, "kernel", torch, lambda x_, dy_: layernorm_backward(x_, gamma, dy_, eps),
+              ln_sets)
+    time_into(lb, "plain", torch, lambda x_, dy_: layernorm_backward_plain(x_, gamma, dy_, eps),
+              ln_sets)
+    gl, bl = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+    lib_sets = []
+    for x_, dy_ in ln_sets:
+        xl = x_.clone().requires_grad_()
+        lib_sets.append((F.layer_norm(xl, (d,), gl, bl, eps), xl, dy_))
+    time_into(lb, "library", torch,
+              lambda y_, xl, dy_: torch.autograd.grad(y_, (xl, gl, bl), dy_, retain_graph=True),
+              lib_sets)
+    del lib_sets, ln_sets
+    emit(lb)
+    require(ok_ln and all(ln_oks), f"cin LayerNorm disagrees: {err_ln} {ln_errs}")
+    return {"fused_attention_forward_f32_tc": fwd, "fused_attention_backward_f32_tc": bwd,
+            "layernorm_forward": lf, "layernorm_backward": lb}
+
+
+def _campaign_images(torch, dev, n):
+    """`n` committed campaign validation JPEGs (one a class) at 256^2, NHWC in
+    [-1, 1], and their class indices."""
+    import numpy as np
+
+    from dynamicvectorquantization_torch.data.image_io import read_image
+    from dynamicvectorquantization_torch.data.transforms import imagenet_val_transform
+
+    root = os.path.join(CAMPAIGN_DATA, "val")
+    classes = sorted(os.listdir(root))[:n]
+    arrays = []
+    for cls in classes:
+        name = sorted(os.listdir(os.path.join(root, cls)))[0]
+        img = read_image(os.path.join(root, cls, name))
+        arrays.append(imagenet_val_transform(img, 256))  # NHWC f32 in [-1, 1]
+    x = torch.from_numpy(np.stack(arrays)).to(dev)
+    return x, torch.tensor([int(c.split("_")[-1]) for c in classes], device=dev)
+
+
+def _grad_rel_l2(grads, ref):
+    num = sum(float(((grads[k] - ref[k]).double() ** 2).sum()) for k in ref)
+    den = sum(float((ref[k].double() ** 2).sum()) for k in ref)
+    return (num / den) ** 0.5
+
+
+def legacy_stage2(torch, dev, card, batch=4, timed=3):
+    """The fixed-length stage-2 baselines on the card, f32, TF32 off:
+
+      * #4 / #5 and #6 / #7 at the cin transformer's shapes (`check_cin_kernels`)
+        and #1 at its first stage's encode, N 1,024 (4 x 16^2), K 16,384, D 256
+        (`check_vq_nearest`), against the plain versions, outside the counts;
+      * taming's class-conditional ImageNet transformer (`CIN_YML`: 48 layers x
+        1,536, 24 heads, 16,384 codes, ~1.41 G parameters) from its yml with
+        seeded weights; 4 committed campaign JPEGs at 256^2 and their class
+        indices as labels; one forward + loss + backward through the plain
+        versions (`plain_train_path`), before the counts;
+      * the main path, counted: encode (#1, the VQGAN encoder's AttnBlock #4
+        and Downsamples #10), then forward + loss + backward through the
+        kernels 1 + `timed` times (loss and gradients held to the plain
+        step's, `CIN_TOL`), greedy sampling of 256 codes, each step a CUDA
+        graph replay (the tokens equal the argmax of a teacher-forced forward
+        over the sampled sequence, the JAX package's own check, and the eager
+        control's over 16 tokens), then `timed` greedy calls of 64 tokens
+        (ms an AR step; the eager control's beside it), one top-k draw of
+        256 codes (images/s) and `decode_to_img`;
+      * the RQ-Transformer trainer (the JAX class's defaults, 16,384 codes)
+        over the RQ-VAE yml's first stage (its GAN loss replaced by
+        `DummyLoss`): forward + loss + backward at batch 4, `sample_rq` of one
+        image (top-k 300, top-p 0.95), decode."""
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+    from dynamicvectorquantization_torch.nn.mingpt import sample_with_past
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    t_phase = time.perf_counter()
+    checks = check_cin_kernels(torch, dev)
+    vq_case = check_vq_nearest(torch, dev, batch * 256, 16384, "cin_n1024_k16384",
+                               path="legacy_stage2")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    config = load_config([CIN_YML])["model"]
+    with torch.device(dev):
+        model = instantiate_from_config(config)
+    model.init_weights(torch.Generator(device=dev).manual_seed(25))
+    gpt = model.transformer
+    build_s = time.perf_counter() - t0
+    x, labels = _campaign_images(torch, dev, batch)
+    params = list(gpt.parameters())
+
+    def step():
+        for p in params:
+            p.grad = None
+        logits, loss = model(x, labels)
+        loss.backward()
+        return logits, loss
+
+    with plain_train_path():
+        _, plain_loss = step()
+    plain_loss = float(plain_loss)
+    plain_grads = {k: p.grad for k, p in gpt.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()  # the main path from here
+    t0 = time.perf_counter()
+    _, codes = model.encode_to_z(x)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    encode_launches = {k: v for k, v in read_launches().items() if v}
+    step_s, step_launches = [], None
+    for i in range(1 + timed):
+        before = read_launches()
+        t0 = time.perf_counter()
+        logits, loss = step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        after = read_launches()
+        step_launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss_rel = abs(float(loss) - plain_loss) / abs(plain_loss)
+    grad_rel_l2 = _grad_rel_l2({k: p.grad for k, p in gpt.named_parameters()}, plain_grads)
+    del plain_grads, logits
+    for p in params:
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    c = model.encode_to_c(labels)
+    sample_s = []
+    with torch.no_grad():
+        t0 = time.perf_counter()  # the first call captures the step's graph
+        tokens = sample_with_past(gpt, c, 256, sample_logits=False)
+        torch.cuda.synchronize()
+        first_sample_s = time.perf_counter() - t0
+        for i in range(timed):  # AR steps timed over the first 64 tokens
+            t0 = time.perf_counter()
+            got = sample_with_past(gpt, c, 64, sample_logits=False)
+            torch.cuda.synchronize()
+            sample_s.append(time.perf_counter() - t0)
+            require(torch.equal(got, tokens[:, :64]),
+                    "cin greedy sampling differs between two calls")
+        forced, _ = gpt(torch.cat([c, tokens], dim=1)[:, :-1])
+        argmax = forced.argmax(-1)
+        mismatched = int((argmax != tokens).sum())
+        # the eager control over the first 16 tokens: its ms an AR step, and the same tokens
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = sample_with_past(gpt, c, 16, sample_logits=False, eager=True)
+        torch.cuda.synchronize()
+        eager_ms = 1e3 * (time.perf_counter() - t0) / 16
+        t0 = time.perf_counter()
+        drawn = sample_with_past(gpt, c, 256, torch.Generator(device=dev).manual_seed(5),
+                                 top_k=100)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        images = model.decode_to_img(drawn, (batch, 16, 16))
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0 - draw_s
+    require(torch.equal(eager, tokens[:, :16]),
+            "cin greedy tokens: the graph replays differ from the eager control")
+    require(mismatched == 0, f"cin greedy tokens differ from the teacher-forced argmax at "
+                             f"{mismatched} of {tokens.numel()} positions")
+    require(images.shape == (batch, 256, 256, 3) and bool(torch.isfinite(images).all()),
+            f"cin decode_to_img: {tuple(images.shape)}, finite {bool(torch.isfinite(images).all())}")
+    sample_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    cin = dict(params=sum(p.numel() for p in params), build_s=build_s, batch=batch,
+               codes_shape=list(codes.shape), labels=labels.tolist(), encode_s=encode_s,
+               encode_launches=encode_launches, loss=float(loss), plain_loss=plain_loss,
+               loss_rel=loss_rel, grad_rel_l2=grad_rel_l2, tol=CIN_TOL,
+               forward_backward_ms=spread([1e3 * s for s in step_s[1:]]),
+               first_forward_backward_s=step_s[0], launches_per_step=step_launches,
+               peak_memory_gb=step_peak,
+               greedy_ms_per_ar_step=spread([1e3 * s / 64 for s in sample_s]),
+               first_sample_s=first_sample_s, eager_ms_per_ar_step=eager_ms,
+               topk_draw_s=draw_s, images_per_s=batch / draw_s, decode_s=decode_s,
+               teacher_forced_mismatches=mismatched,
+               sample_peak_memory_gb=sample_peak)
+    require(loss_rel <= CIN_TOL["loss_rel"] and grad_rel_l2 <= CIN_TOL["grad_rel_l2"],
+            f"cin kernel step differs from the plain step: loss {loss_rel}, grads {grad_rel_l2}")
+    require(step_launches.get("fused_attention_forward_f32_tc") == 48
+            and step_launches.get("fused_attention_backward_f32_tc") == 48
+            and step_launches.get("layernorm_forward") == 97
+            and step_launches.get("layernorm_backward") == 97
+            and step_launches.get("vq_nearest") == 1,
+            f"cin step launches: {step_launches}")
+    del model, gpt, params, images, forced
+    torch.cuda.empty_cache()
+
+    # the RQ-Transformer over the RQ-VAE's codes
+    t0 = time.perf_counter()
+    first = load_config([RQVAE_YML])["model"]
+    first = {**first, "params": {**first["params"], "lossconfig": {
+        "target": "modules.losses.vqperceptual.DummyLoss"}}}
+    with torch.device(dev):
+        rq = instantiate_from_config({
+            "target": "models.stage2.uncond_rqtransformer.RQTransformerTrainer",
+            "params": {"transformer_config": {
+                "target": "dynamicvectorquantization_torch.nn.rq_transformer.RQTransformer",
+                "params": {"vocab_size": 16384}}, "first_stage_config": first}})
+    rq.init_weights(torch.Generator(device=dev).manual_seed(26))
+    torch.cuda.reset_peak_memory_stats()
+    rq_s = []
+    for i in range(1 + timed):
+        before = read_launches()
+        t1 = time.perf_counter()
+        for p in rq.transformer.parameters():
+            p.grad = None
+        rq_loss = rq(x, x)
+        rq_loss.backward()
+        torch.cuda.synchronize()
+        rq_s.append(time.perf_counter() - t1)
+        after = read_launches()
+        rq_launches = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        rq_codes = rq.sample((1, 8, 8, 4), x[:1], torch.Generator(device=dev).manual_seed(6))
+        rq_images = rq.decode_to_img(rq_codes)
+    torch.cuda.synchronize()
+    rq_line = dict(params=sum(p.numel() for p in rq.transformer.parameters()),
+                   loss=float(rq_loss), forward_backward_ms=spread([1e3 * s for s in rq_s[1:]]),
+                   first_forward_backward_s=rq_s[0], launches_per_step=rq_launches,
+                   sample_and_decode_s=time.perf_counter() - t1, sampled_shape=list(rq_codes.shape),
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   seconds=time.perf_counter() - t0)
+    require(math.isfinite(float(rq_loss)) and bool(torch.isfinite(rq_images).all())
+            and rq_images.shape == (1, 256, 256, 3) and int(rq_codes.max()) < 16384,
+            f"RQ-Transformer: loss {float(rq_loss)}, images {tuple(rq_images.shape)}")
+    require(rq_launches.get("vq_nearest", 0) == 4 and rq_launches.get("layernorm_forward", 0) > 0,
+            f"RQ-Transformer step launches: {rq_launches}")
+    del rq, rq_images
+    torch.cuda.empty_cache()
+    launches = read_launches()
+    res = dict(phase="legacy_stage2", card=card, dtype="float32", config=CIN_YML, cin=cin,
+               rq_transformer=rq_line, launches={k: v for k, v in launches.items() if v},
+               kernel_checks={k: pick_keys(c_, "shape", "max_abs_err", "tol", "kernel_ms",
+                                           "plain_ms", "library_ms", "bound_ms", "bound_by")
+                              for k, c_ in {**checks, "vq_nearest": vq_case}.items()},
+               seconds=time.perf_counter() - t_phase)
+    emit(res)
+    require(all(launches.get(k, 0) > 0 for k in (
+        "vq_nearest", "fused_attention_forward_f32_tc", "fused_attention_backward_f32_tc",
+        "layernorm_forward", "layernorm_backward", "strided_conv3x3_down")),
+        f"legacy_stage2: a kernel of the path was not launched: {launches}")
+    return dict(res, launches=launches, checks={**checks, "vq_nearest": vq_case})
+
 
 def main():
     if sys.argv[1:2] == ["--launches-of"]:
@@ -5607,7 +5969,7 @@ def main():
     torch.cuda.empty_cache()
     # the shipped ymls' batch 30: bf16 on 30 images of its own, then f32 on their codes; no
     # plain-path comparison, no attn_pdrop 0 timing
-    b30 = dict(batch=30, n_images=30, compare=False, rate0=False)
+    b30 = dict(batch=30, n_images=30, compare=False, rate0=False, timed_steps=2)
     trained_b30, streams30 = train(torch, dev, card, phase="train_b30", **b30)[:2]
     per_step_b30 = trained_b30["launches_per_step"]
     torch.cuda.empty_cache()
@@ -5650,6 +6012,8 @@ def main():
     fitted1 = fit1(torch, card)["launches"]
     torch.cuda.empty_cache()
     legacy = legacy_stage1(torch, dev, card)
+    torch.cuda.empty_cache()
+    legacy2 = legacy_stage2(torch, dev, card)
     torch.cuda.empty_cache()
     real = data_real(torch, dev, card)
     torch.cuda.empty_cache()
@@ -5705,6 +6069,8 @@ def main():
              # the fixed-length baselines: the VQGAN's command-line run, its steps, each
              # legacy quantizer's step, the RQ-VAE's, the StyleGAN discriminators'
              "legacy_stage1": legacy["launches"],
+             # the cin transformer's encode, steps, sampling and decode; the RQ-Transformer's
+             "legacy_stage2": legacy2["launches"],
              # the distributed path at world size 1: the p6c18 bf16 step (DDP), stage 1 (DDP)
              "ddp_train_step": ddp_line["stage2_bf16_batch8"]["ddp"]["launches_per_step"],
              "ddp_train1_step": ddp_line["stage1_f32_batch8"]["ddp"]["launches_per_step"],
@@ -6003,6 +6369,12 @@ def main():
                                  "bound_by", "equal_to_fma_kernel", "rescored_rows",
                                  "fma_kernel_ms", "empty_clusters", "bit_reproducible")
                 for label, c in legacy["vq_cases"].items() if label.startswith(name + ":")}
+        if name in legacy2["checks"]:  # the fixed-length stage-2 baselines' shapes
+            kernels[-1]["legacy_stage2_shape"] = pick_keys(
+                legacy2["checks"][name], "shape", "n_head", "route", "max_abs_err", "tol",
+                "kernel_ms", "kernel_ms_spread", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "bound_ms_f32_fma", "equal_to_fma_kernel", "rescored_rows",
+                "fma_kernel_ms")
         require(kernels[-1]["launches"] > 0, f"{name} was launched on no driven path")
     emit(dict(phase="script", seconds=time.perf_counter() - t_script))
     emit({"kernels": kernels})

@@ -6,7 +6,10 @@ class-conditional stage-2 models (`Dualformer`, `ClassCondDualformer`) with
 their label providers, the dual- and triple-grain DQ-VAEs with their routers,
 budget losses and GAN loss, the fixed-length stage-1 baselines (VQGAN,
 multi-VQ, RQ-VAE) with taming's codec, the legacy quantizers and the two
-StyleGAN discriminators, the data
+StyleGAN discriminators, the fixed-length stage-2 baselines (minGPT and its
+class- and text-conditional models, the RQ-Transformer) with their
+permuters and conditioners, the stacked / position-aware GPTs, the ViT
+codec, the attention decoder and the DDPM UNets, the data
 module with the ImageNet, face (FFHQ, CelebA-HQ, FacesHQ, LMDB FFHQ) and
 synthetic datasets, and the reference launcher's callback and logger
 entries (`SetupCallback`, `LightningShim`: the trainer does their work
@@ -68,6 +71,35 @@ TARGET_ALIASES = {
     "modules.vector_quantization.quantize_vqgan.EMAVectorQuantizer": f"{_PKG}.ops.quantizers.EMAVectorQuantizer",
     "modules.vector_quantization.quantize_rqvae.RQBottleneck": f"{_PKG}.ops.quantizers.RQBottleneck",
     "modules.vector_quantization.quantize_lucidrains.VectorQuantize": f"{_PKG}.ops.quantize_lucidrains.LucidrainsVectorQuantize",
+    # the fixed-length stage-2 baselines, their permuters and conditioners,
+    # and the legacy experimental modules
+    "modules.transformer.mingpt.GPT": f"{_PKG}.nn.mingpt.GPT",
+    "modules.transformer.mingpt_t2i.T2IGPT": f"{_PKG}.nn.mingpt.GPT",
+    "modules.transformer.stacked_mingpt.StackedPositionGPT": f"{_PKG}.nn.stacked_mingpt.StackedPositionGPT",
+    "modules.transformer.position_aware_mingpt.PositionAwareGPT": f"{_PKG}.nn.vit.PositionAwareGPT",
+    "modules.transformer.vit.VisionTransformerEncoder": f"{_PKG}.nn.vit.VisionTransformerEncoder",
+    "modules.transformer.vit.VisionTransformerDecoder": f"{_PKG}.nn.vit.VisionTransformerDecoder",
+    "models.stage2.uncond_transformer.UncondTransformer": f"{_PKG}.models.legacy_transformer.UncondTransformer",
+    "models.stage2.uncond_transformer.Net2NetTransformer": f"{_PKG}.models.legacy_transformer.UncondTransformer",
+    "models.stage2.class_transformer.ClassTransformer": f"{_PKG}.models.legacy_transformer.ClassTransformer",
+    "models.stage2.class_transformer.Net2NetTransformer": f"{_PKG}.models.legacy_transformer.ClassTransformer",
+    "models.stage2.text2image_transformer.Text2ImageTransformer": f"{_PKG}.models.legacy_transformer.Text2ImageTransformer",
+    "models.stage2.text2image_transformer2.Text2ImageTransformer": f"{_PKG}.models.legacy_transformer.Text2ImageTransformer2",
+    "models.stage2.uncond_rqtransformer.RQTransformerTrainer": f"{_PKG}.models.legacy_transformer.RQTransformerTrainer",
+    **{f"modules.transformer.permuter.{name}": f"{_PKG}.models.sequence_permuters.{name}"
+       for name in ("Identity", "Subsample", "ZCurve", "SpiralOut", "SpiralIn", "Random",
+                    "AlternateParsing")},
+    "utils.utils.SOSProvider": f"{_PKG}.models.legacy_transformer.SOSProvider",
+    "utils.utils.Labelator": f"{_PKG}.models.legacy_transformer.Labelator",
+    "modules.diffusionmodules.attn_model.AttnDecoder": f"{_PKG}.nn.attn_decoder.AttnDecoder",
+    "modules.diffusionmodules.attn_model.TokenReconstruction": f"{_PKG}.nn.attn_decoder.TokenReconstruction",
+    "modules.diffusionmodules.attn_model.SelfAttnBlock": f"{_PKG}.nn.attn_decoder.MaskedSelfAttnBlock",
+    "modules.diffusionmodules.attn_model.BiasedSelfAttnBlock": f"{_PKG}.nn.attn_decoder.MaskedSelfAttnBlock",
+    "modules.diffusionmodules.attn_model.ResnetBlock_kernel_1": f"{_PKG}.nn.attn_decoder.ResnetBlockK1",
+    **{f"modules.diffusionmodules.model.{name}": f"{_PKG}.nn.ddpm_unet.{port}"
+       for name, port in (("Model", "DDPMUNet"), ("VUNet", "VUNet"),
+                          ("SimpleDecoder", "SimpleDecoder"),
+                          ("UpsampleDecoder", "UpsampleDecoder"))},
     "data.build.DataModuleFromConfig": f"{_PKG}.data.datasets.DataModuleFromConfig",
     "data.imagenet.ImageNetTrain": f"{_PKG}.data.datasets.ImageNetTrain",
     "data.imagenet.ImageNetValidation": f"{_PKG}.data.datasets.ImageNetValidation",
@@ -104,5 +136,5 @@ def resolve_target(target: str) -> str:
         return ".".join([_PKG, *parts[1:]])
     raise KeyError(
         f"target {target!r} is not ported to {_PKG} yet (see ROADMAP.md, "
-        "'Slices to port, in order': items 7-11)"
+        "'Slices to port, in order', item 11)"
     )

@@ -24,7 +24,16 @@ seed 23, the schedule of 6 epochs) stopped after its first epoch (384 steps,
     (`write_initial_run`: the CLI's seeded init at `--seed` on this device,
     those tensors put in place).
 
-Each leg reports the mean `train_p_loss` over its rows at steps 1-40 and
+  * `cpu_pair`: the leg's first 384 steps on the CPU at a cut width from
+    the JAX package's initial state, step for step beside the JAX package's
+    own run (`tests/fixtures/stage1/jax_cpu_pair.py`, which writes the
+    state, the batches and its logs to `--pair`; the port reads them and
+    takes every restart draw from `restart_draw`, as that run does). It
+    writes `<out>/cpu_pair/metrics.jsonl` and holds it to the JAX run and to
+    the JAX control run with one parameter tensor nudged by one ulp
+    (`--pair_control`) by `pair_gaps` / `pair_decision`.
+
+Each leg except `cpu_pair` reports the mean `train_p_loss` over its rows at steps 1-40 and
 `val_rec_loss` at step 384, beside the JAX runs' (r04 / r05, read from the
 committed `artifacts/campaign_r0{4,5}/stage1_metrics.jsonl` by the same
 function). Usage (the card; ~2.5 min a leg):
@@ -35,6 +44,12 @@ function). Usage (the card; ~2.5 min a leg):
         [--data_root artifacts/campaign_r05/data]
 
 writes `<dir>/causes.json` and prints it as its last line.
+
+    python -m dynamicvectorquantization_torch.tools.stage1_causes --out <dir> \
+        --legs cpu_pair --pair <JAX run dir> --pair_control <JAX control dir>
+    python -m dynamicvectorquantization_torch.tools.stage1_causes \
+        --pair_compare <dir>/cpu_pair/metrics.jsonl --pair <JAX run dir> \
+        --pair_control <JAX control dir>
 
     python -m dynamicvectorquantization_torch.tools.stage1_causes \
         --compare <a stage-1 metrics.jsonl>
@@ -54,9 +69,11 @@ import os
 import sys
 import time
 
+import numpy as np
+
 from .campaign_product import REPO, STAGE1_BASE, THRESHOLDS_NAME, read_metrics, run
 
-LEGS = ("tf32_on", "tf32_off", "lpips_seed2", "lpips_jax", "jax_init")
+LEGS = ("tf32_on", "tf32_off", "lpips_seed2", "lpips_jax", "jax_init", "cpu_pair")
 EARLY_STEPS = 40
 JAX_RUNS = ("campaign_r04", "campaign_r05")
 
@@ -113,6 +130,152 @@ def compare(rows, jax_rows):
         out[key] = {"first_outside": list(off[0]) if off else None, "n_outside": len(off),
                     "n_rows": len(trio), "windows": windows}
     return out
+
+
+def restart_draw(step: int, pool_rows: int, noise_shape=None):
+    """(jitter in [0, 1) of `noise_shape` or None, a permutation of
+    `pool_rows`): the codebook restart's draw at `step` (from 1), which the
+    `cpu_pair` leg and the JAX run it is held to both take."""
+    rng = np.random.default_rng([23, step])
+    perm = rng.permutation(pool_rows)
+    noise = None if noise_shape is None else rng.random(noise_shape, dtype=np.float32)
+    return noise, perm
+
+
+# the one-step parity tolerances of tests/test_torch_stage1_train.py (logs at
+# its first and second step), held at steps 1 and 2-4
+PAIR_EARLY_RTOL = (1e-5, 2e-4, 2e-4, 2e-4)
+# logs the rule reads: every compared log but the quantisation loss, whose JAX
+# value is XLA's f32 mean of the 4-D commitment term, on the CPU ~1e-5 of its
+# value away from the f64 mean at these sizes (tests/test_torch_f14_pair.py;
+# the port's torch mean 1e-7): an offset of the log, not of the run
+PAIR_KEYS = tuple(k for k in COMPARED if k != "train_quant_loss")
+PAIR_ATOL = 1e-6
+PAIR_ENVELOPE = 10.0
+
+
+def pair_gaps(rows, ref_rows, keys=COMPARED):
+    """{step: the largest relative gap |a - b| / max(|b|, 1e-6) over `keys`}
+    of two runs' train rows, over the steps both logged."""
+    a, b = _train_rows(rows), _train_rows(ref_rows)
+    out = {}
+    for s in sorted(set(a) & set(b)):
+        out[s] = max(abs(a[s][k] - b[s][k]) / max(abs(b[s][k]), 1e-6) for k in keys
+                     if k in a[s] and k in b[s])
+    return out
+
+
+def pair_decision(port_rows, jax_rows, control_rows):
+    """The rule of F14's CPU leg, over `PAIR_KEYS`: the port's first four
+    steps within the parity tolerances of the JAX run's, and from step 5 on
+    the port's gap to the JAX run within `PAIR_ENVELOPE` times the control's
+    (a running maximum of each, so one quiet step of the control does not
+    decide).
+    {"early_ok", "first_outside": step or None, "verdict"}."""
+    a, b = _train_rows(port_rows), _train_rows(jax_rows)
+    early_ok = True
+    for s, rtol in enumerate(PAIR_EARLY_RTOL, start=1):
+        if s not in a or s not in b:
+            early_ok = False
+            continue
+        for k in PAIR_KEYS:
+            if abs(a[s][k] - b[s][k]) > PAIR_ATOL + rtol * abs(b[s][k]):
+                early_ok = False
+    port = pair_gaps(port_rows, jax_rows, PAIR_KEYS)
+    control = pair_gaps(control_rows, jax_rows, PAIR_KEYS)
+    first, run_p, run_c = None, 0.0, 0.0
+    for s in sorted(set(port) & set(control)):
+        run_p, run_c = max(run_p, port[s]), max(run_c, control[s])
+        if s > len(PAIR_EARLY_RTOL) and run_p > PAIR_ENVELOPE * run_c and first is None:
+            first = s
+    verdict = "draw difference" if early_ok and first is None else "fault located"
+    return {"early_ok": early_ok, "first_outside": first, "verdict": verdict}
+
+
+PAIR_REPORT_STEPS = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32, 64, 128, 192, 256, 320, 384)
+
+
+def pair_report(port_rows, jax_rows, control_rows):
+    """The decision (`pair_decision`), the gaps of the port and of the
+    control to the JAX run at `PAIR_REPORT_STEPS` over `PAIR_KEYS` and over
+    every compared log, the largest ratio of their running maxima after step
+    4, and each run's validation row."""
+    port, control = (pair_gaps(r, jax_rows, PAIR_KEYS) for r in (port_rows, control_rows))
+    port_all, control_all = (pair_gaps(r, jax_rows) for r in (port_rows, control_rows))
+    ratio, run_p, run_c = {}, 0.0, 0.0
+    for s in sorted(set(port) & set(control)):
+        run_p, run_c = max(run_p, port[s]), max(run_c, control[s])
+        ratio[s] = run_p / run_c if run_c else float("inf")
+    late = {s: r for s, r in ratio.items() if s > len(PAIR_EARLY_RTOL)}
+    worst = max(late, key=late.get) if late else None
+
+    def val(rows):
+        return next((r for r in rows if r["split"] == "val"), None)
+
+    return {"decision": pair_decision(port_rows, jax_rows, control_rows),
+            "gaps": {s: {"port": port[s], "control": control[s], "port_all_logs": port_all[s],
+                         "control_all_logs": control_all[s], "running_ratio": ratio[s]}
+                     for s in PAIR_REPORT_STEPS if s in port and s in control},
+            "worst_running_ratio_after_step_4": [worst, late.get(worst)],
+            "val": {"port": val(port_rows), "jax": val(jax_rows), "control": val(control_rows)}}
+
+
+def run_cpu_pair(pair_dir, out_dir):
+    """The port's half of the `cpu_pair` leg (the module docstring): returns
+    its rows, also written to `<out_dir>/metrics.jsonl`."""
+    import torch
+
+    from ..train.stage1 import Stage1Trainer
+    from ..utils.instantiate import instantiate_from_config
+    from ..utils.weights import load_stage1_state
+
+    with open(os.path.join(pair_dir, "config.json")) as f:
+        config = json.load(f)
+    batches = np.load(os.path.join(pair_dir, "batches.npy"), mmap_mode="r")
+    val = np.load(os.path.join(pair_dir, "val.npy"))
+    steps = batches.shape[0]
+    model = instantiate_from_config(config["model"])
+    trainer = Stage1Trainer(model, PAIR_LR, warmup_steps=PAIR_WARMUP, max_steps=PAIR_MAX_STEPS,
+                            device="cpu")
+    load_stage1_state(trainer, torch.load(os.path.join(pair_dir, "step0.pt"),
+                                          weights_only=False))
+    current = {}
+
+    def draw(pool_rows, noise_shape, generator, device):
+        noise, perm = restart_draw(current["step"], pool_rows, noise_shape)
+        return (None if noise is None else torch.from_numpy(noise)), torch.from_numpy(perm)
+
+    model.quantize._draw_restart = draw
+    os.makedirs(out_dir, exist_ok=True)
+    rows = []
+    with open(os.path.join(out_dir, "metrics.jsonl"), "w") as f:
+        t0 = time.time()
+        for i in range(steps):
+            current["step"] = i + 1
+            logs = trainer.train_step(torch.from_numpy(np.array(batches[i])),
+                                      torch.Generator().manual_seed(i))
+            rows.append({"step": i + 1, "split": "train",
+                         **{k: float(v) for k, v in logs.items()}})
+            f.write(json.dumps(rows[-1]) + "\n")
+            f.flush()
+            if (i + 1) % 32 == 0:
+                print(f"cpu_pair step {i + 1}: {time.time() - t0:.1f} s", flush=True)
+        with torch.no_grad():
+            outs = [trainer.eval_step(torch.from_numpy(x)) for x in val]
+        rows.append({"step": steps, "split": "val",
+                     **{k: float(np.mean([float(o[k]) for o in outs])) for k in outs[0]}})
+        f.write(json.dumps(rows[-1]) + "\n")
+    return rows
+
+
+# the campaign's stage-1 schedule: lr 8 x 4.5e-6, warm-up int(0.1 x 384)
+# steps, 6 epochs of 384 steps
+PAIR_LR, PAIR_WARMUP, PAIR_MAX_STEPS = 8 * 4.5e-6, 38, 2304
+
+
+def _read_rows(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
 
 
 def write_vgg16(path, seed):
@@ -192,6 +355,13 @@ def main(argv=None):
     p.add_argument("--jax_vgg", default=None, help="the JAX runs' backbone (leg lpips_jax)")
     p.add_argument("--jax_init", default=None,
                    help="leg jax_init: a step-0 run directory, or a file of model tensors")
+    p.add_argument("--pair", default=None,
+                   help="leg cpu_pair: the JAX run directory of tests/fixtures/stage1/jax_cpu_pair.py")
+    p.add_argument("--pair_control", default=None,
+                   help="leg cpu_pair: the JAX control run (one tensor nudged by one ulp)")
+    p.add_argument("--pair_compare", default=None,
+                   help="a cpu_pair metrics.jsonl: print `pair_report` against --pair and "
+                        "--pair_control (no leg runs)")
     p.add_argument("--data_root", default="artifacts/campaign_r05/data")
     p.add_argument("--thresholds", default=os.path.join("artifacts/campaign_r05/thresholds",
                                                         THRESHOLDS_NAME))
@@ -199,6 +369,12 @@ def main(argv=None):
     p.add_argument("--compare", default=None,
                    help="a stage-1 metrics.jsonl to hold to r04 / r05 step by step (no leg runs)")
     opt = p.parse_args(argv)
+    if opt.pair_compare:
+        rows = [_read_rows(path) for path in (
+            opt.pair_compare, os.path.join(opt.pair, "metrics.jsonl"),
+            os.path.join(opt.pair_control, "metrics.jsonl"))]
+        print(json.dumps(pair_report(*rows)), flush=True)
+        return 0
     if opt.compare:
         jax_rows = []
         for name in JAX_RUNS:
@@ -221,6 +397,9 @@ def main(argv=None):
     for leg in opt.legs.split(","):
         if leg not in LEGS:
             raise SystemExit(f"unknown leg {leg!r}; legs: {', '.join(LEGS)}")
+        if leg == "cpu_pair":
+            result["legs"][leg] = _cpu_pair_leg(opt, out)
+            continue
         env = dict(base_env)
         if leg == "tf32_off":
             env["NVIDIA_TF32_OVERRIDE"] = "0"
@@ -256,6 +435,21 @@ def main(argv=None):
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def _cpu_pair_leg(opt, out):
+    if not opt.pair:
+        raise SystemExit("leg cpu_pair needs --pair")
+    t0 = time.time()
+    rows = run_cpu_pair(opt.pair, os.path.join(out, "cpu_pair"))
+    result = {**summarize(rows), "seconds": time.time() - t0}
+    jax_rows = _read_rows(os.path.join(opt.pair, "metrics.jsonl"))
+    result["jax"] = summarize(jax_rows)
+    if opt.pair_control:
+        control = _read_rows(os.path.join(opt.pair_control, "metrics.jsonl"))
+        result["control"] = summarize(control)
+        result["decision"] = pair_decision(rows, jax_rows, control)
+    return result
 
 
 def _jax_init_run(source, step0_dir, overrides, device, env):

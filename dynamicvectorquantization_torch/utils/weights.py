@@ -472,3 +472,82 @@ def load_stage1_state(trainer, converted: dict):
     model.load_state_dict(sd, strict=True)
     trainer.load_optimizer_state(converted["ae_opt"], converted["disc_opt"])
     trainer.step, trainer.epoch = converted["step"], converted["epoch"]
+
+
+_HEAD = re.compile(r"(position|value)_head(_ln)?")
+_LEGACY_RENAMES = (
+    (re.compile(r"(down|up)_(\d+)_(block|attn)_(\d+)"), r"\1.\2.\3.\4"),
+    (re.compile(r"(down|up)_(\d+)_(downsample|upsample)"), r"\1.\2.\3"),
+    (re.compile(r"mid_(block_1|attn_1|block_2)"), r"mid.\1"),
+    (re.compile(r"temb_dense(\d)"), r"temb.dense.\1"),
+    (re.compile(r"model_(\d+)"), r"model.\1"),
+    (re.compile(r"res_(\d+)_(\d+)"), r"res_blocks.\1.\2"),
+    (re.compile(r"upsample_(\d+)"), r"upsample_blocks.\1"),
+    (re.compile(r"(attn|res|block)_(\d+)"), None),  # ModuleList children, below
+)
+
+
+def _legacy_module(mods) -> str:
+    """A flax module path of the legacy stage-2 family -> the port's."""
+    out, in_stack = [], False
+    for m in mods:
+        if m == "GroupNorm_0":
+            continue
+        if re.fullmatch(r"h_(\d+)", m):  # a TransformerStack block
+            out.append(m[2:])
+            in_stack = True
+            continue
+        if in_stack and m in ("mlp_fc", "mlp_proj"):
+            out.append("mlp.0" if m == "mlp_fc" else "mlp.2")
+            continue
+        head = _HEAD.fullmatch(m)
+        if head is not None:
+            out.append(f"{head.group(1)}_head.{0 if head.group(2) else 1}")
+            continue
+        for pattern, repl in _LEGACY_RENAMES:
+            hit = pattern.fullmatch(m)
+            if hit is None:
+                continue
+            if repl is None:  # attn_i / res_i (TokenReconstruction), block_i (ViT)
+                name = "blocks" if hit.group(1) == "block" else hit.group(1)
+                m = f"{name}.{hit.group(2)}"
+            else:
+                m = pattern.sub(repl, m)
+            break
+        out.append(m)
+    return ".".join(out)
+
+
+def legacy_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The flax params (or `{"params": ...}`) of a module of the legacy
+    stage-2 family -> the port module's state_dict: `GPT`, `RQTransformer`,
+    `StackedPositionGPT`, `PositionAwareGPT`, the ViT encoder / decoder,
+    `MaskedSelfAttnBlock` / `TokenReconstruction` / `AttnDecoder`, the DDPM
+    UNets. Stack blocks `h_{i}` -> `{i}` with `mlp_fc` / `mlp_proj` ->
+    `mlp.0` / `mlp.2`; the codec towers' `down_{i}_block_{j}` ->
+    `down.{i}.block.{j}` and the like; `(position|value)_head[_ln]` ->
+    `..._head.{1|0}`; leaves as `_leaf` (learned position tables as they
+    are)."""
+    params = params.get("params", params)
+    sd = {}
+    for path, v in _flatten(params).items():
+        if len(path) == 1 and path[0].startswith("pos_emb"):
+            sd[path[0]] = _tensor(v)
+            continue
+        tleaf, tv = _leaf(path[-1], v)
+        module = _legacy_module(path[:-1])
+        sd[f"{module}.{tleaf}" if module else tleaf] = _tensor(tv)
+    return sd
+
+
+def legacy_stage2_state_dict_from_flax(variables, model) -> Dict[str, torch.Tensor]:
+    """The JAX variables `{"transformer", "first_stage"}` of a legacy stage-2
+    model (`UncondTransformer` and its subclasses, `RQTransformerTrainer`)
+    -> the state_dict of the port `model` (its permuter's order buffers
+    are the model's own: the JAX permuters hold none)."""
+    sd = {f"transformer.{k}": v
+          for k, v in legacy_state_dict_from_flax(variables["transformer"]).items()}
+    sd.update({f"first_stage_model.{k}": v
+               for k, v in vqgan_state_dict_from_flax(variables["first_stage"]).items()})
+    sd.update({k: v for k, v in model.state_dict().items() if k.startswith("permuter.")})
+    return sd
