@@ -57,7 +57,11 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                backward at rate 0.1, seed by value and on the device, bit-equal
                to the slice of the call over every head; the sp ring's tick,
                the 3xTF32 family without the causal mask at hd 128 with lse
-               (8, 161, 1024), against its plain version with its bounds
+               (8, 161, 1024), against its plain version with its bounds; #4 /
+               #5 at hd 104 (taming's faces transformer, (4, 256, 1664), 16
+               heads) zero-padded to the 3xTF32 kernels' 128, and #4 at the
+               CLIP text tower's (8, 77, 512), against the plain versions with
+               SDPA's time and the real head dim's bound
   3. encode    full-width p6c18 first stage (f32), batch 8 of seeded 256^2
                images (half smooth, half noisy): `encode_to_z` and `forward`
                through the kernels and through the plain versions (streams,
@@ -98,8 +102,7 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                reached by no entry point) on the same model at 4 rows with int8
                and with float caches: greedy tokens, and with int8 caches
                seeded sampled (top-k 300 / 100) ones, AR steps and the
-               generator's offset identical; the int8 greedy tokens also
-               against a read after every step
+               generator's offset identical
   6. train     full-width, full-depth p6c18 StackGPT (the shipped config, its
                attn_pdrop 0.1 included, with the training campaign's stream
                caps, T = 805),
@@ -240,6 +243,20 @@ Phases, each printed as one JSON line (any failure exits non-zero):
                step, greedy sampling held to the teacher-forced argmax, a
                top-k draw and decode; the RQ-Transformer: a step, one
                sampled image, decode
+     t2i       text-to-image at full width: the p6c18 transformer with its first
+               stage as `T2IDualformer` over the CLIP ViT-B/32 text tower
+               (seeded, byte-level vocabulary), bf16 over f32 masters, batch 8
+               of seeded 256^2 images with 8 captions, both variants (captions
+               encoded and dropped; consumed by cross-attention): the text
+               tower's ms, one inline-encode step through the kernels against
+               the plain step (`T2I_TOL`), then counted steps (ms, peak memory,
+               launches a step asserted: #4 / #5 on the tensor cores, #4 3xTF32
+               in the tower, #6 / #7 with `ln_x`, #9 a leaf, #1 / #3 / #10 in
+               the encode), a traced step; `mask_pad_attention` on the cached
+               codes of the same images, three graph-replayed steps against
+               three eager ones, bit for bit (its masked route launches no #4 /
+               #5), a traced eager step, and one layer's masked route by parts
+               (the Philox keep mask, rate 0.1 and 0) beside #4 + #5
      data_real  real image files, PIL blocked: the host libraries' build and
                the JPEG decoder in use (libjpeg where it builds, else the port's
                own), the committed fixtures (`tests/fixtures/images/`) read and
@@ -2013,6 +2030,397 @@ def profile_device_time(torch, fn, n_top=8, groups=None):
             "groups": grouped}
 
 
+T2I_TARGET = "models.stage2_dynamic.dqtransformer_t2i.Dualformer"
+T2I_TEXT_ENCODER = {"target": "dynamicvectorquantization_torch.nn.text_encoders.NativeCLIPTextEncoder",
+                    "params": {"clip_name": "ViT-B/32", "seed": 26}}
+T2I_CAPTIONS = ("a photo of a red fox standing in fresh snow", "two dogs playing on a beach",
+                "a bowl of ramen with an egg", "an old stone bridge over a river at dawn",
+                "a close-up of a monarch butterfly", "city skyline at night, long exposure",
+                "a wooden sailboat", "three green apples on a white table")
+# the kernel step against the plain one on the same state, images and captions: bf16 over
+# f32 masters as the `train` phase (its losses 2e-2 rel, gradients 0.1 rel-L2)
+T2I_TOL = {"loss_rel": 2e-2, "grad_rel_l2": 0.1}
+# kernel-name parts summed in the `t2i` phase's traces (a kernel may fall in several):
+# "int64" the integer elementwise ops, which on the masked route are its Philox draw
+T2I_TRACE_GROUPS = {"int64": "long", "elementwise": "elementwise_kernel",
+                    "reduce": "reduce_kernel", "softmax": "softmax", "gemm": "gemm",
+                    "nvjet": "nvjet", "attention": "attention", "layernorm": "layernorm"}
+FACES_SHAPE = (4, 256, 1664, 16)  # taming's faces transformer: 1,664 over 16 heads (hd 104)
+CLIP_SHAPE = (8, 77, 512, 8)  # the CLIP ViT-B/32 text tower: 8 captions, 8 heads of 64
+
+
+def check_t2i_kernels(torch, dev):
+    """#4 / #5 at hd 104 (zero-padded per head to the 3xTF32 kernels' 128,
+    f32, causal, with lse) and #4 at the CLIP text tower's shape (f32, hd 64,
+    causal, no lse: the tower runs without gradient) against their plain
+    versions on N(0, 1) inputs; kernel (the wrapper's call, padding and cut
+    included), plain and SDPA times; bounds of the real head dim's work, as
+    the `kernels` phase counts them (the padded kernel moves and multiplies
+    128 / 104 of it). Tolerance: the f32 attention's 1e-4."""
+    import torch.nn.functional as F
+
+    from dynamicvectorquantization_torch.ops.attention import (
+        fused_attention_backward, fused_attention_backward_plain, fused_attention_forward,
+        fused_attention_forward_plain)
+
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(26)
+    for label, (b, t, d, n_head), backward in (("hd104_padded", FACES_SHAPE, True),
+                                               ("clip_text", CLIP_SHAPE, False)):
+        hd = d // n_head
+        scale = hd ** -0.5
+        sets = []
+        for _ in range(n_sets(8 * b * t * d * 4)):
+            q, k, v, dy = (torch.randn((b, t, d), generator=g, device=dev) for _ in range(4))
+            y, lse = fused_attention_forward(q, k, v, n_head, scale, True, return_lse=True)
+            sets.append((q, k, v, y, lse, dy))
+        q, k, v, y, lse, dy = sets[0]
+        padded = fused_attention_forward.padded_launches
+        y_ref, lse_ref = fused_attention_forward_plain(q, k, v, n_head, scale, True, True)
+        err_y, ok = close(y, y_ref, 1e-4)
+        err_lse, ok_lse = close(lse, lse_ref, 1e-4)
+        pairs = t * (t + 1) // 2
+        shape = dict(shape=[b, t, d], n_head=n_head, head_dim=hd, causal=True, dtype="float32",
+                     route="f32 tensor cores", path="t2i" if label == "clip_text" else "legacy_stage2")
+        fwd = dict(phase="kernels", kernel="fused_attention_forward", case=label, **shape,
+                   with_lse=backward, max_abs_err=err_y, lse_err=err_lse,
+                   tol="1e-4; lse 1e-4", padded_to=128 if hd == 104 else None)
+        fwd["bound_ms"], fwd["bound_by"], fwd["bound_ms_f32_fma"] = attention_bounds(
+            torch, 16 * b * t * d + 4 * b * n_head * t * backward, 4 * b * n_head * pairs * hd,
+            torch.float32, True)
+
+        def heads(z):
+            return z.view(b, t, n_head, hd).transpose(1, 2)
+
+        time_into(fwd, "kernel", torch, lambda q_, k_, v_, *_: fused_attention_forward(
+            q_, k_, v_, n_head, scale, True, return_lse=backward), sets)
+        time_into(fwd, "plain", torch, lambda q_, k_, v_, *_: fused_attention_forward_plain(
+            q_, k_, v_, n_head, scale, True, backward), sets, iters=10)
+        time_into(fwd, "library", torch, lambda q_, k_, v_, *_: F.scaled_dot_product_attention(
+            heads(q_), heads(k_), heads(v_), is_causal=True, scale=scale), sets)
+        fwd["padded_launches"] = fused_attention_forward.padded_launches - padded
+        emit(fwd)
+        out[f"fused_attention_forward_f32_tc:{label}"] = fwd
+        require(ok and ok_lse, f"{label} attention forward disagrees: {err_y} {err_lse}")
+        require((fwd["padded_launches"] > 0) == (hd == 104), f"{label}: padding {fwd}")
+        if not backward:
+            del sets
+            continue
+        grads = fused_attention_backward(q, k, v, y, lse, dy, n_head, scale, True)
+        ref = fused_attention_backward_plain(q, k, v, y_ref, lse_ref, dy, n_head, scale, True)
+        errs, oks = zip(*(close(o, r, 1e-4) for o, r in zip(grads, ref)))
+        bwd = dict(phase="kernels", kernel="fused_attention_backward", case=label, **shape,
+                   max_abs_err=max(errs), dq_err=errs[0], dk_err=errs[1], dv_err=errs[2],
+                   tol="1e-4", padded_to=128)
+        bwd["bound_ms"], bwd["bound_by"], bwd["bound_ms_f32_fma"] = attention_bounds(
+            torch, 32 * b * t * d + 4 * b * n_head * t, 10 * b * n_head * pairs * hd,
+            torch.float32, True)
+        time_into(bwd, "kernel", torch,
+                  lambda *a: fused_attention_backward(*a, n_head, scale, True), sets, iters=10)
+        time_into(bwd, "plain", torch,
+                  lambda *a: fused_attention_backward_plain(*a, n_head, scale, True), sets,
+                  iters=10)
+        lib_sets = []
+        for q_, k_, v_, _, _, dy_ in sets:
+            leaves = tuple(heads(z).detach().requires_grad_() for z in (q_, k_, v_))
+            lib_sets.append((F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                            scale=scale), leaves, heads(dy_)))
+        time_into(bwd, "library", torch,
+                  lambda y_, leaves, dy_: torch.autograd.grad(y_, leaves, dy_,
+                                                              retain_graph=True),
+                  lib_sets, iters=10)
+        del lib_sets, sets
+        emit(bwd)
+        out[f"fused_attention_backward_f32_tc:{label}"] = bwd
+        require(all(oks), f"{label} attention backward disagrees: {errs}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_text_tower():
+    """The CLIP text tower's attention swapped for its plain version."""
+    import dynamicvectorquantization_torch.nn.clip_text as clip_text
+    from dynamicvectorquantization_torch.ops.attention import fused_attention_forward_plain
+
+    saved = clip_text.fused_causal_attention
+    clip_text.fused_causal_attention = lambda q, k, v, n_head, causal=True: \
+        fused_attention_forward_plain(q, k, v, n_head, None, causal)
+    try:
+        yield
+    finally:
+        clip_text.fused_causal_attention = saved
+
+
+def _t2i_config(on, mask_pad=False):
+    """The shipped p6c18 yml with the train phase's stream caps: the T2I model
+    over it (`on`: the consuming variant; None: the plain Dualformer), with
+    `mask_pad_attention` as given."""
+    from dynamicvectorquantization_torch.config.yaml_config import load_config
+
+    config = load_config([P6C18])["model"]
+    params = config["params"]
+    params["permuter_config"]["params"].update(TRAIN_CAPS)
+    params["transformer_config"]["params"]["mask_pad_attention"] = mask_pad
+    if on is not None:
+        config["target"] = T2I_TARGET
+        params["text_encoder_config"] = T2I_TEXT_ENCODER
+        params["use_text_conditioning"] = on
+    return config
+
+
+def t2i(torch, dev, card, checks, batch=8, timed=2):
+    """Text-to-image at full width (the shipped p6c18 transformer, 6 + 18
+    layers x 1,024, with the train phase's stream caps, T = 805, and its first
+    stage; the CLIP ViT-B/32 text tower, 512 wide, 12 layers, 8 heads, 77
+    tokens, with the byte-level vocabulary; seeded weights), bf16 over f32
+    masters as shipped, batch 8 of seeded 256^2 images with 8 captions, in
+    both variants (captions encoded and dropped; consumed by cross-attention
+    in the 18 content blocks). Each: the text tower's ms for the 8 captions;
+    one inline-encode step (encode, forward, loss, backward) through the
+    kernels against the same step through the plain versions from one state
+    (`T2I_TOL`; elementwise dropouts 0, the attention dropout 0.1 drawn alike
+    on both paths); then the main path, counted: 1 + `timed` optimizer steps
+    (step ms, peak memory, launches a step by kernel), and one more traced
+    (`profile_device_time`, `T2I_TRACE_GROUPS`). Then `mask_pad_attention`
+    on the plain Dualformer over the same images' cached codes with the
+    shipped dropouts: three graph-replayed steps against three eager ones
+    from one state, logs and masters bit for bit; one eager step traced and
+    one layer's route by parts (`masked_route_parts`)."""
+    from dynamicvectorquantization_torch.models.graphs import runners_of
+    from dynamicvectorquantization_torch.ops.attention import masked_causal_attention
+    from dynamicvectorquantization_torch.train.stage2 import Stage2Trainer
+    from dynamicvectorquantization_torch.utils.instantiate import instantiate_from_config
+
+    t_phase = time.perf_counter()
+    x = smooth_and_noisy_images(torch, dev, torch.Generator(device=dev).manual_seed(27),
+                                b=batch)
+    captions = list(T2I_CAPTIONS[:batch])
+    lr = 4.5e-4
+
+    def build(config):
+        with torch.device(dev):
+            model = instantiate_from_config(config)
+        model.init_weights(torch.Generator(device=dev).manual_seed(0))
+        return model.eval(), Stage2Trainer(model.eval(), lr, warmup_steps=0, max_steps=10_000,
+                                           compute_dtype="bfloat16", device=dev)
+
+    def snapshot(trainer):
+        return {k: v.clone() for k, v in trainer.masters.items()}
+
+    def restore(trainer, masters):
+        for k in trainer.masters:
+            trainer.masters[k].copy_(masters[k])
+            trainer.params[k].data.copy_(masters[k])
+            trainer.m[k].zero_()
+            trainer.v[k].zero_()
+        trainer.count = 0
+
+    variants = {}
+    for name, on in (("dropped", False), ("consumed", True)):
+        t0 = time.perf_counter()
+        model, trainer = build(_t2i_config(on))
+        gpt = model.transformer
+        build_s = time.perf_counter() - t0
+        # the text tower alone: 8 captions, tokenizer included
+        text_s = []
+        for _ in range(4):
+            before = read_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            feats, mask = model.encode_text(captions, dev)
+            torch.cuda.synchronize()
+            text_s.append(time.perf_counter() - t0)
+            tower = {k: v - before[k] for k, v in read_launches().items() if v > before[k]}
+        require(tuple(feats.shape) == (batch, 77, 512) and bool(torch.isfinite(feats).all())
+                and tower == {"fused_attention_forward_f32_tc": 12},
+                f"t2i text tower: {tuple(feats.shape)}, launches {tower}")
+
+        set_dropout(gpt, 0.0, 0.0)  # the attention dropout stays, drawn alike on both paths
+        start = snapshot(trainer)
+        watched = ["content_emb.weight", "position_transformer.0.attn.query.weight",
+                   f"content_transformer.{gpt.content_layer - 1}.mlp.2.weight",
+                   "content_head.1.weight"]
+        if on:
+            watched += ["text_proj.weight", "content_transformer.0.xattn.key.weight",
+                        f"content_transformer.{gpt.content_layer - 1}.ln_x.weight"]
+        results = {}
+        for path in ("kernel", "plain"):
+            restore(trainer, start)
+            with contextlib.ExitStack() as stack:
+                if path == "plain":
+                    for ctx in (plain_train_path(), plain_encode_path(), plain_text_tower()):
+                        stack.enter_context(ctx)
+                logs, grads = trainer.compute_grads(x, c=captions)
+                results[path] = ({k: float(v) for k, v in logs.items()},
+                                 {k: grads[k].float() for k in watched})
+                del grads
+        (klogs, kgrads), (plogs, pgrads) = results["kernel"], results["plain"]
+        loss_rel = max(abs(klogs[k] - plogs[k]) / abs(plogs[k]) for k in plogs)
+        grad_rel = {k: float((kgrads[k] - pgrads[k]).norm() / pgrads[k].norm()) for k in watched}
+        del results, kgrads, pgrads
+        restore(trainer, start)
+        del start
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # the main path from here
+        step_s = []
+        for _ in range(1 + timed):
+            before = read_launches()
+            t0 = time.perf_counter()
+            logs = trainer.train_step(x, c=captions)
+            loss = float(logs["train_loss"])
+            step_s.append(time.perf_counter() - t0)
+            after = read_launches()
+            per_step = {k: after[k] - before[k] for k in after}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        blocks = gpt.position_layer + gpt.content_layer
+        want = {"fused_attention_forward_tc": blocks + 6,  # StackGPT, the bf16 encode's six
+                "fused_attention_backward_tc": blocks,
+                "fused_attention_forward_f32_tc": 12,  # the text tower
+                "layernorm_forward": 2 * blocks + 2 + on * gpt.content_layer,  # with ln_x
+                "layernorm_backward": 2 * blocks + 2 + on * gpt.content_layer,
+                "fused_adamw": len(trainer.params), "vq_nearest": 1, "patch_entropy_bf16": 1,
+                "strided_conv3x3_down_bf16": 4}
+        variants[name] = dict(
+            use_text_conditioning=on, build_s=build_s,
+            params=sum(p.numel() for p in trainer.params.values()), leaves=len(trainer.params),
+            text_tower_ms=spread([1e3 * s for s in text_s[1:]]), text_tower_launches=tower,
+            kernel_logs=klogs, plain_logs=plogs, loss_rel=loss_rel, grad_rel_l2=grad_rel,
+            tol=T2I_TOL, step_ms=spread([1e3 * s for s in step_s[1:]]),
+            first_step_s=step_s[0], last_loss=loss, peak_memory_gb=peak,
+            launches_per_step={k: v for k, v in per_step.items() if v})
+        require(math.isfinite(loss) and loss_rel <= T2I_TOL["loss_rel"]
+                and max(grad_rel.values()) <= T2I_TOL["grad_rel_l2"],
+                f"t2i {name}: the kernel step differs from the plain step: {loss_rel} {grad_rel}")
+        require(all(per_step.get(k) == v for k, v in want.items()),
+                f"t2i {name} launches a step: {per_step}, expected {want}")
+        variants[name]["launches"] = per_step
+        # where a step's time goes: two more steps, one of them traced
+        variants[name]["trace"] = profile_device_time(
+            torch, lambda: trainer.train_step(x, c=captions), n_top=10, groups=T2I_TRACE_GROUPS)
+        del model, trainer, gpt, feats, mask
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # mask_pad_attention: the captured step against the eager one
+    t0 = time.perf_counter()
+    model, trainer = build(_t2i_config(None, mask_pad=True))
+    z = trainer.encode_dataset(x.cpu().numpy(), batch=batch)
+    pad = model.transformer.content_pad_code
+    pads = int((z["fine_content"] == pad).sum() + (z["coarse_content"] == pad).sum())
+    start = snapshot(trainer)
+
+    def three(eager):
+        restore(trainer, start)
+        calls = masked_causal_attention.calls
+        before = read_launches()
+        s, logs = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logs.append({k: v.cpu() for k, v in trainer.train_step(z, eager=eager).items()})
+            s.append(time.perf_counter() - t1)
+        after = read_launches()
+        return (logs, {k: v.cpu() for k, v in trainer.masters.items()}, s,
+                masked_causal_attention.calls - calls, {k: after[k] - before[k] for k in after})
+
+    glogs, gstate, gs, gcalls, glaunch = three(False)
+    (runner,) = runners_of(trainer).values()
+    graph = dict(captures=runner.captures, replays=runner.replays,
+                 pool_bytes=runner.pool_bytes())
+    del runner
+    runners_of(trainer).clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    elogs, estate, es, ecalls, elaunch = three(True)
+    # where the masked step's time goes: one eager step traced, and one layer's route
+    masked_trace = profile_device_time(torch, lambda: trainer.train_step(z, eager=True),
+                                       n_top=10, groups=T2I_TRACE_GROUPS)
+    masked_layer = masked_route_parts(torch, dev, batch, model.transformer, pads // batch)
+    logs_equal = all(torch.equal(a[k], b[k]) for a, b in zip(glogs, elogs) for k in a)
+    unequal = sorted(k for k in estate if not torch.equal(estate[k], gstate[k]))
+    blocks = model.transformer.position_layer + model.transformer.content_layer
+    mask_pad = dict(pad_tokens=pads, graph_step_ms=spread([1e3 * s for s in gs[1:]]),
+                    first_graph_step_s=gs[0], eager_step_ms=spread([1e3 * s for s in es[1:]]),
+                    masked_route_calls=[gcalls, ecalls],
+                    launches={k: v for k, v in glaunch.items() if v},
+                    eager_launches={k: v for k, v in elaunch.items() if v}, graph=graph, logs_equal=logs_equal,
+                    unequal_masters=unequal[:5], losses=[float(lg["train_loss"]) for lg in glogs],
+                    eager_trace=masked_trace, one_layer=masked_layer,
+                    seconds=time.perf_counter() - t0)
+    del model, trainer, z, start, gstate, estate
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = dict(phase="t2i", card=card, config=P6C18, text_encoder=T2I_TEXT_ENCODER,
+               kernel_checks={k: pick_keys(c_, "shape", "n_head", "max_abs_err", "tol",
+                                           "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                                           "bound_by") for k, c_ in checks.items()},
+               batch=batch, dtype="bfloat16 over f32 masters", variants={
+                   k: {kk: vv for kk, vv in v.items() if kk != "launches"}
+                   for k, v in variants.items()},
+               mask_pad_attention=mask_pad, seconds=time.perf_counter() - t_phase)
+    emit(res)
+    require(logs_equal and not unequal and gcalls == ecalls == 3 * blocks,
+            f"mask_pad_attention: the graph step differs from the eager one: {mask_pad}")
+    require(glaunch.get("fused_attention_forward_tc", 0) == 0
+            and glaunch.get("layernorm_forward") == 3 * (2 * blocks + 2)
+            and glaunch.get("fused_adamw") == 3 * 395,
+            f"mask_pad_attention launches: {glaunch}")
+    return dict(res, launches={**{name: v["launches"] for name, v in variants.items()},
+                               "mask_pad_attention": glaunch}, checks=checks)
+
+
+def masked_route_parts(torch, dev, batch, gpt, n_pad):
+    """One layer of the `mask_pad_attention` step's masked route at its shape
+    (bf16 (B, T, 1,024) projections, T = 805, 8 heads of 128, a pad bias on
+    the last `n_pad` keys of every row, a device seed), by CUDA events over 5 calls: the
+    Philox keep mask alone (`dropout_keep_mask`), the route's forward and
+    backward at the shipped rate and at rate 0, and the kernels #4 + #5 at
+    the same shape and rate without the bias."""
+    from dynamicvectorquantization_torch.ops.attention import (
+        dropout_keep_mask, fused_attention_backward, fused_attention_forward,
+        masked_causal_attention)
+
+    t = 1 + TRAIN_CAPS["coarse_max_len"] + TRAIN_CAPS["fine_max_len"]
+    d, n_head = gpt.n_embd, gpt.n_head
+    rate = float(gpt.content_transformer[0].attn.attn_pdrop)
+    g = torch.Generator(device=dev).manual_seed(26)
+    q, k, v, dy = (torch.randn((batch, t, d), generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    bias = torch.zeros((batch, 1, 1, t), device=dev)
+    bias[..., t - n_pad:] = -1e9
+    seed = torch.tensor([26], dtype=torch.int64, device=dev)
+
+    def route(r):
+        qq, kk, vv = (a.detach().requires_grad_() for a in (q, k, v))
+        masked_causal_attention(qq, kk, vv, n_head, bias, rate=r, seed=seed).backward(dy)
+
+    def kernels():
+        y, lse = fused_attention_forward(q, k, v, n_head, None, True, rate, True, seed)
+        fused_attention_backward(q, k, v, y, lse, dy, n_head, rate=rate, seed=seed)
+
+    def event_ms(fn, n=5):
+        fn()
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        marks[0].record()
+        for i in range(n):
+            fn()
+            marks[i + 1].record()
+        marks[-1].synchronize()
+        return spread([a.elapsed_time(b) for a, b in zip(marks, marks[1:])])
+
+    calls = masked_causal_attention.calls
+    out = dict(shape=[batch, t, d], n_head=n_head, rate=rate,
+               keep_mask_ms=event_ms(lambda: dropout_keep_mask(seed, batch, n_head, t, rate,
+                                                                dev)),
+               route_fwd_bwd_ms=event_ms(lambda: route(rate)),
+               route_fwd_bwd_rate0_ms=event_ms(lambda: route(0.0)),
+               kernels_fwd_bwd_ms=event_ms(kernels))
+    masked_causal_attention.calls = calls  # a measurement, not the path
+    return out
+
+
 def wrappers():
     """name -> the wrapper whose `.launches` counts that kernel's launches."""
     from dynamicvectorquantization_torch.ops.attention import (
@@ -3638,16 +4046,11 @@ def serve(torch, model, card, reps=3):
     return res
 
 
-def graph_vs_eager(torch, model, c, name, host_loop=False, seed=31,
-                   modes=("greedy", "sampled")):
+def graph_vs_eager(torch, model, c, name, seed=31, modes=("greedy", "sampled")):
     """The sampler's graphs against its eager loop on the card (`eager=True`,
     the control no entry point reaches): the same seed and knobs, greedy and
     sampled (top-k 300 / 100), or the `modes` given; tokens, AR steps and
-    the generator's offset afterwards must be identical. With `host_loop`,
-    the greedy tokens of the eager loop reading the loop condition after
-    every step too."""
-    from dynamicvectorquantization_torch.models import dqtransformer as dq
-
+    the generator's offset afterwards must be identical."""
     dev = c[0].device
 
     def run(eager, **knobs):
@@ -3675,17 +4078,6 @@ def graph_vs_eager(torch, model, c, name, host_loop=False, seed=31,
                 ar_steps=[graph["ar_steps"], eager["ar_steps"]],
                 generator_offset=[graph["offset"], eager["offset"]],
                 graph_s=graph["s"], eager_s=eager["s"])
-            if mode == "greedy" and host_loop:
-                k = dq.STEPS_PER_READ
-                dq.STEPS_PER_READ = 1
-                try:
-                    loop = run(True, **knobs)
-                finally:
-                    dq.STEPS_PER_READ = k
-                res[mode]["host_loop"] = dict(
-                    tokens_equal=all(torch.equal(a, b)
-                                     for a, b in zip(graph["tokens"], loop["tokens"])),
-                    ar_steps=loop["ar_steps"], s=loop["s"])
     res["graphs"] = runner_numbers(torch, model)
     emit(res)
     for mode in modes:
@@ -3693,10 +4085,6 @@ def graph_vs_eager(torch, model, c, name, host_loop=False, seed=31,
         require(r["tokens_equal"] and r["ar_steps"][0] == r["ar_steps"][1]
                 and r["generator_offset"][0] == r["generator_offset"][1],
                 f"{name} {mode}: graph and eager sampling differ: {r}")
-    if host_loop:
-        require(res["greedy"]["host_loop"]["tokens_equal"]
-                and res["greedy"]["host_loop"]["ar_steps"] == res["greedy"]["ar_steps"][0],
-                f"{name}: greedy tokens differ from the host loop's")
     return res
 
 
@@ -5924,6 +6312,7 @@ def main():
     device_seeds = check_device_seeds(torch, dev)
     head_offset = check_head_offset(torch, dev)
     ring_fwd, ring_bwd = check_ring_ticks(torch, dev)
+    t2i_checks = check_t2i_kernels(torch, dev)
 
     t0 = time.perf_counter()
     model, _ = load_model_and_variables(P6C18, seed=0, kv_cache_dtype="int8", device=dev)
@@ -5939,7 +6328,7 @@ def main():
     # the sampler's graphs against its eager loop: the served bf16 model with its int8
     # caches, then with float (bf16) caches
     c4 = model.encode_to_c(4, dev)
-    graph_vs_eager(torch, model, c4, "p6c18, bf16, int8 caches", host_loop=True)
+    graph_vs_eager(torch, model, c4, "p6c18, bf16, int8 caches")
     model.transformer.kv_cache_dtype = None
     graph_vs_eager(torch, model, c4, "p6c18, bf16, float caches", modes=("greedy",))
     model.transformer.kv_cache_dtype = "int8"
@@ -6015,6 +6404,8 @@ def main():
     torch.cuda.empty_cache()
     legacy2 = legacy_stage2(torch, dev, card)
     torch.cuda.empty_cache()
+    t2i_res = t2i(torch, dev, card, t2i_checks)
+    torch.cuda.empty_cache()
     real = data_real(torch, dev, card)
     torch.cuda.empty_cache()
     campaigned = campaign(torch, card)["launches"]
@@ -6071,6 +6462,11 @@ def main():
              "legacy_stage1": legacy["launches"],
              # the cin transformer's encode, steps, sampling and decode; the RQ-Transformer's
              "legacy_stage2": legacy2["launches"],
+             # text-to-image, a step of each variant (inline encode, the text tower), and
+             # StackGPT's mask_pad_attention over three steps (its masked route: no #4 / #5)
+             **{f"t2i_{name}_step": counts for name, counts in t2i_res["launches"].items()
+                if name != "mask_pad_attention"},
+             "mask_pad_attention_steps": t2i_res["launches"]["mask_pad_attention"],
              # the distributed path at world size 1: the p6c18 bf16 step (DDP), stage 1 (DDP)
              "ddp_train_step": ddp_line["stage2_bf16_batch8"]["ddp"]["launches_per_step"],
              "ddp_train1_step": ddp_line["stage1_f32_batch8"]["ddp"]["launches_per_step"],
@@ -6375,6 +6771,13 @@ def main():
                 "kernel_ms", "kernel_ms_spread", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "bound_ms_f32_fma", "equal_to_fma_kernel", "rescored_rows",
                 "fma_kernel_ms")
+        for key, case in t2i_res["checks"].items():  # hd 104 padded; the CLIP text tower
+            row, label = key.split(":")
+            if row == name:
+                kernels[-1].setdefault("t2i_slice_shapes", {})[label] = pick_keys(
+                    case, "shape", "n_head", "head_dim", "padded_to", "padded_launches",
+                    "route", "max_abs_err", "tol", "kernel_ms", "kernel_ms_spread", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "bound_ms_f32_fma")
         require(kernels[-1]["launches"] > 0, f"{name} was launched on no driven path")
     emit(dict(phase="script", seconds=time.perf_counter() - t_script))
     emit({"kernels": kernels})

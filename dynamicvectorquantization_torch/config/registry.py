@@ -1,9 +1,10 @@
 """Reference `target:` strings -> this package's torch classes.
 
 Counterpart of `dynamicvectorquantization_tpu/config/registry.py`, holding
-only the targets the ported slices instantiate: the unconditional and the
-class-conditional stage-2 models (`Dualformer`, `ClassCondDualformer`) with
-their label providers, the dual- and triple-grain DQ-VAEs with their routers,
+every reference target of the JAX package's table: the unconditional,
+class-conditional and text-to-image stage-2 models (`Dualformer`,
+`ClassCondDualformer`, `T2IDualformer`) with their label providers, text
+encoders, CLIP text tower and tokenizer, the dual- and triple-grain DQ-VAEs with their routers,
 budget losses and GAN loss, the fixed-length stage-1 baselines (VQGAN,
 multi-VQ, RQ-VAE) with taming's codec, the legacy quantizers and the two
 StyleGAN discriminators, the fixed-length stage-2 baselines (minGPT and its
@@ -12,15 +13,20 @@ permuters and conditioners, the stacked / position-aware GPTs, the ViT
 codec, the attention decoder and the DDPM UNets, the data
 module with the ImageNet, face (FFHQ, CelebA-HQ, FacesHQ, LMDB FFHQ) and
 synthetic datasets, and the reference launcher's callback and logger
-entries (`SetupCallback`, `LightningShim`: the trainer does their work
-itself). Paths inside this package pass through. A data target written as
+entries (`SetupCallback`, `CaptionImageLogger` as `ImageLogger`,
+`LightningShim`: the trainer does their work itself). Paths inside this
+package pass through. A data target written as
 `<package>.data.datasets.<Name>`, `<package>.data.synthetic.<Name>` or
 `<package>.data.ffhq_lmdb.<Name>` for ANY top-level package (the smoke
 configs name the JAX package's) resolves by its tail to this package's
 class of that name. Any other target raises, so a config that needs an
-unported module fails loudly instead of silently picking something else.
+unported module fails loudly instead of silently picking something else;
+a dotted path into another package (the JAX package's own spellings) is
+refused too, naming this package's path of the same module to use.
 """
 from __future__ import annotations
+
+import importlib
 
 _PKG = "dynamicvectorquantization_torch"
 
@@ -28,6 +34,17 @@ TARGET_ALIASES = {
     "models.stage2_dynamic.dqtransformer_uncond_entropy.Dualformer": f"{_PKG}.models.dqtransformer.Dualformer",
     "models.stage2_dynamic.dqtransformer_class2_entropy.Dualformer": f"{_PKG}.models.dqtransformer.ClassCondDualformer",
     "models.stage2_dynamic.dqtransformer_class.Dualformer": f"{_PKG}.models.dqtransformer.ClassCondDualformer",
+    "models.stage2_dynamic.dqtransformer_t2i.Dualformer": f"{_PKG}.models.dqtransformer.T2IDualformer",
+    # text encoders and the CLIP text tower + tokenizer (text-to-image); the
+    # reference imports its vendored CLIP under two spellings, both resolve
+    "modules.text_encoders.clip_text_encoder.CLIPTextEncoder": f"{_PKG}.nn.text_encoders.CLIPTextEncoder",
+    "modules.text_encoders.bert_text_encoder.BERTTextEncoder": f"{_PKG}.nn.text_encoders.BERTTextEncoder",
+    **{f"{root}.clip_text_embedding.CLIPTextEmbedding": f"{_PKG}.nn.clip_text.CLIPTextEmbedding"
+       for root in ("modules.text_encoders.clip_text_encoder", "modules.clip_text_encoder")},
+    **{f"{root}.my_tokenizer.my_tokenize.Tokenize": f"{_PKG}.utils.clip_bpe.Tokenize"
+       for root in ("modules.text_encoders.clip_text_encoder", "modules.clip_text_encoder")},
+    **{f"{root}.clip.simple_tokenizer.SimpleTokenizer": f"{_PKG}.utils.clip_bpe.ClipBPETokenizer"
+       for root in ("modules.text_encoders.clip_text_encoder", "modules.clip_text_encoder")},
     "models.stage1_dynamic.dqvae_dual_entropy.DualGrainVQModel": f"{_PKG}.models.dqvae.DualGrainVQModel",
     "models.stage1_dynamic.dqvae_dual_feat.DualGrainVQModel": f"{_PKG}.models.dqvae.DualGrainVQModel",
     "models.stage1_dynamic.dqvae_triple_feat.TripleGrainVQModel": f"{_PKG}.models.dqvae.TripleGrainVQModel",
@@ -110,11 +127,14 @@ TARGET_ALIASES = {
     "data.ffhq_lmdb.FFHQ_LMDB": f"{_PKG}.data.ffhq_lmdb.FFHQ_LMDB",
     # the reference launcher's callbacks and loggers: the trainer does their work
     "utils.logger.SetupCallback": f"{_PKG}.utils.logging.SetupCallback",
+    "utils.logger.CaptionImageLogger": f"{_PKG}.utils.logging.ImageLogger",
     **{f"pytorch_lightning.{name}": f"{_PKG}.utils.logging.LightningShim"
        for name in ("callbacks.ModelCheckpoint", "callbacks.LearningRateMonitor",
                     "callbacks.RichModelSummary", "loggers.TensorBoardLogger",
                     "loggers.WandbLogger")},
 }
+# the top-level names of the reference repository's targets
+_REFERENCE_ROOTS = ("models", "modules", "utils", "data", "pytorch_lightning")
 # `<any package>.data.<module>.<Name>` -> this package's class, for these names
 _DATA_TAILS = {
     "data.datasets": ("DataModuleFromConfig", "ImageNetTrain", "ImageNetValidation",
@@ -134,7 +154,28 @@ def resolve_target(target: str) -> str:
     parts = target.split(".")
     if len(parts) == 4 and parts[3] in _DATA_TAILS.get(".".join(parts[1:3]), ()):
         return ".".join([_PKG, *parts[1:]])
+    if parts[0] not in _REFERENCE_ROOTS and len(parts) > 2:
+        raise KeyError(_foreign_path_message(target, parts))
     raise KeyError(
-        f"target {target!r} is not ported to {_PKG} yet (see ROADMAP.md, "
-        "'Slices to port, in order', item 11)"
+        f"target {target!r} is not ported to {_PKG} (see ROADMAP.md, "
+        "'Slices to port, in order')"
     )
+
+
+def _foreign_path_message(target, parts) -> str:
+    """The refusal of another package's own dotted path (the JAX package's
+    spellings): which reference target or path of this package names the
+    same module, where one does."""
+    here = ".".join([_PKG, *parts[1:]])
+    module, name = here.rsplit(".", 1)
+    try:
+        found = hasattr(importlib.import_module(module), name)
+    except ImportError:
+        found = False
+    refs = sorted(k for k, v in TARGET_ALIASES.items() if v == here)
+    use = (f"use the reference target {refs[0]!r} or this package's path {here!r}" if refs
+           else f"use this package's path {here!r}" if found
+           else "this package has no class of that path")
+    return (f"target {target!r} is a path into another package ({parts[0]!r}), which "
+            f"{_PKG} does not import: {use} (see ROADMAP.md, 'Slices to port, in order', "
+            "for what is not ported)")

@@ -45,6 +45,11 @@ At the fine-phase entry the last coarse token is fed to both caches, with
 semantics, QUIRKS #11). The KV-cache dtype follows the transformer's param
 dtype unless the transformer asks for int8 caches.
 
+`T2IDualformer`, the text-to-image subclass, takes a list of captions as
+`c`: its text encoder's features are computed and dropped (the reference),
+or consumed by the content transformer's cross-attention
+(`use_text_conditioning`); it samples without captions, as the JAX model.
+
 State_dict names follow the reference: `transformer.*`, `first_stage_model.*`.
 """
 from __future__ import annotations
@@ -155,11 +160,14 @@ class Dualformer(nn.Module):
         _, z = self.encode_to_z(x, first_stage)
         return self.forward_tokens(z, c, train=train, generator=generator, seed=seed)
 
-    def forward_tokens(self, z, c=None, train=False, generator=None, seed=None):
+    def forward_tokens(self, z, c=None, train=False, generator=None, seed=None,
+                       text_memory=None, text_mask=None):
         """The training losses from PRE-ENCODED permuter streams `z` (the dict
         `encode_to_z` returns, (B, L) integer tensors on the model's device)
         and the condition `c` (None: the batch size). `generator` and the
-        integer `seed` feed the dropouts when `train`."""
+        integer `seed` feed the dropouts when `train`. `text_memory`,
+        `text_mask`: caption features for a transformer that cross-attends
+        (`T2IDualformer`'s consuming variant)."""
         z = {k: v.long() for k, v in z.items()}
         ref = z["coarse_content"]
         c_coarse, c_fine, c_pos_coarse, c_pos_fine, c_seg_coarse, c_seg_fine = \
@@ -178,6 +186,8 @@ class Dualformer(nn.Module):
         # the training forward of a model axis (`train/stage2.py`), else the
         # StackGPT's own
         forward = self.transformer_train_forward if train else None
+        text = ({} if text_memory is None
+                else {"text_memory": text_memory, "text_mask": text_mask})
         return (forward or self.transformer)(
             coarse_content, fine_content, coarse_position, fine_position,
             coarse_seg=prefixed(c_seg_coarse, "coarse_segment") if seg else None,
@@ -185,7 +195,7 @@ class Dualformer(nn.Module):
             content_target=torch.cat([coarse_content, fine_content], dim=1)[:, 1:],
             coarse_position_target=coarse_position[:, 1:],
             fine_position_target=fine_position,
-            train=train, generator=generator, seed=seed)
+            train=train, generator=generator, seed=seed, **text)
 
     def loss(self, output):
         return (self.content_loss_weight * output["content_loss"]
@@ -473,6 +483,70 @@ class _SamplerState:
         """cond of the running phase's `while_loop`, on the device."""
         i = self.j if fine else self.i
         self.cond.copy_((i < n_max) & ~self.done.all())
+
+
+class T2IDualformer(Dualformer):
+    """Text-to-image variant (the JAX package's `T2IDualformer`, reference
+    `dqtransformer_t2i.py`); its condition `c` is a list of B captions.
+
+    Default (`use_text_conditioning=False`), the shipped reference: the text
+    encoder computes each caption's features and they are dropped (the
+    reference's StackGPT swallows them), so the model trains as the
+    unconditional one while paying for the text encode. With
+    `use_text_conditioning=True` the content transformer cross-attends to
+    the projected features (`cross_attend_content`, masked over caption
+    padding; `text_feature_dim` defaults to the encoder's `embed_dim`, 512
+    where it has none), so captions shift the logits. The extra parameters
+    exist only then: the default model's state_dict is the plain
+    `Dualformer`'s. The text encoder (`text_encoder_config`, else
+    `HashTextEncoder`) is not a submodule: it is frozen, holds no trained
+    state, and runs on the images' device.
+
+    Sampling is the inherited unconditional sampler, without captions, as
+    the JAX package samples this model; `StackGPT.content_step` takes
+    `text_memory` for a caller's own decode loop."""
+
+    def __init__(self, text_encoder_config=None, use_text_conditioning=False, **kwargs):
+        if text_encoder_config is None:
+            from ..nn.text_encoders import HashTextEncoder
+
+            text_encoder = HashTextEncoder()
+        else:
+            text_encoder = instantiate_from_config(text_encoder_config)
+        use_text_conditioning = bool(use_text_conditioning)
+        if use_text_conditioning:
+            tcfg = kwargs["transformer_config"]
+            tparams = {"text_feature_dim": getattr(text_encoder, "embed_dim", 512),
+                       **tcfg.get("params", {}), "cross_attend_content": True}
+            kwargs["transformer_config"] = {**tcfg, "params": tparams}
+        super().__init__(**kwargs)
+        self.use_text_conditioning = use_text_conditioning
+        self.cond_stage_key = "caption"
+        self.cond_stage_mask_key = "mask"
+        self.text_encoder = text_encoder
+
+    def encode_text(self, captions, device):
+        """(features (B, S, D), mask (B, S)) of the captions on `device`."""
+        return self.text_encoder.encode_text(list(captions), device=device)
+
+    def forward(self, x, c=None, train=False, generator=None, seed=None, first_stage=None):
+        """Images (B, H, W, 3) and their captions `c` -> the training losses;
+        the captions are encoded either way, and consumed under
+        `use_text_conditioning`."""
+        if c is None:
+            raise ValueError("T2IDualformer.forward needs the batch's captions")
+        text_memory, text_mask = self.encode_text(c, x.device)
+        if not self.use_text_conditioning:
+            del text_memory, text_mask  # computed and dropped, as the reference
+            return super().forward(x, None, train, generator, seed, first_stage)
+        _, z = self.encode_to_z(x, first_stage)
+        return self.forward_tokens(z, None, train=train, generator=generator, seed=seed,
+                                   text_memory=text_memory, text_mask=text_mask)
+
+    @torch.no_grad()
+    def log_images(self, x, c=None, generator=None, **knobs):
+        """As the unconditional model's: the samples take no caption."""
+        return super().log_images(x, None, generator, **knobs)
 
 
 class ClassCondDualformer(Dualformer):

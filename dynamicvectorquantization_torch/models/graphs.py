@@ -43,15 +43,18 @@ _RUNNERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def launch_counters():
-    """(wrapper, attribute) of every kernel launch counter of the port's ops."""
+    """(wrapper, attribute) of every kernel launch counter of the port's ops,
+    and of the masked attention route's call counter."""
     from ..ops import attention, downsample, entropy, fused_adamw, kv_int8, layernorm, vq
 
     fns = (kv_int8.decode_attention_int8, attention.fused_attention_forward,
            attention.fused_attention_backward, layernorm.layernorm_forward,
            layernorm.layernorm_backward, fused_adamw.fused_adamw_step, vq.nearest_codes,
            vq.nearest_codes_with_stats, entropy.patch_entropy, downsample.strided_conv3x3_down)
+    # and the calls of the masked attention route (torch ops, no kernel of its own)
     return [(fn, name) for fn in fns for name, value in vars(fn).items()
-            if name.endswith("launches") and isinstance(value, int)]
+            if name.endswith("launches") and isinstance(value, int)] + [
+        (attention.masked_causal_attention, "calls")]
 
 
 def parameter_storage(module):

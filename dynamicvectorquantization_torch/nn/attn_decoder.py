@@ -9,16 +9,23 @@ modules' (`conv_in`, `mid.res_in`, `mid.attn.{i}`, `mid.res.{i}`, the up
 path as the codec's `up.{i}.block.{j}` / `up.{i}.attn.{j}` /
 `up.{i}.upsample`, `norm_out`, `conv_out`).
 
-Evaluation forwards: dropout in training is not ported (no reference config
-sets it; an `AttnDecoder` built with `dropout > 0` raises in training mode).
+Dropout (`dropout > 0`, in training mode) zeroes the activations before
+each ResnetBlock's and `ResnetBlockK1`'s second convolution, as the JAX
+module's `nn.Dropout`: the masks are `nn/blocks.py` `DropoutMasks` under one
+seed drawn from the caller's `torch.Generator` (`forward(..., generator=)`),
+keyed by each block's name, so the same generator state draws the same
+masks; they follow torch's generator, not JAX's PRNG.
 
 `MaskedSelfAttnBlock` is one-head attention over the H*W positions with
-1x1 projections. Without a mask it is the fused attention, non-causal, as
-`AttnBlock` calls it: kernels #4 / #5 on a CUDA tensor (they take head dims
-up to 512, so a block wider than 512 channels raises there), the plain
-versions on a CPU tensor. With a mask the probabilities are multiplied by
-it after the softmax (and renormalised with `reweight`) in plain torch, as
-in the JAX module.
+1x1 projections. Without a mask and at up to 512 channels it is the fused
+attention, non-causal, as `AttnBlock` calls it: kernels #4 / #5 on a CUDA
+tensor, the plain versions on a CPU tensor. Wider than 512 channels (one
+head of hd > 512, which no kernel takes; the JAX class's defaults give
+1,024) it is chosen by shape, before any launch, to be the einsum of the
+JAX module, which runs no Pallas kernel there on any backend: the
+reference's route, not a kernel's fallback. With a mask the probabilities
+are multiplied by it after the softmax (and renormalised with `reweight`)
+in the same einsum, as in the JAX module.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import torch
 from torch import nn
 
 from ..ops.attention import fused_causal_attention
-from .blocks import AttnBlock, Conv2d, Normalize, ResnetBlock, Upsample, nonlinearity
+from .blocks import (AttnBlock, Conv2d, Normalize, ResnetBlock, Upsample, key_dropout_blocks,
+                     nonlinearity, training_masks)
 from .init import flax_defaults_
 
 
@@ -41,6 +49,8 @@ class ResnetBlockK1(nn.Module):
         self.norm1 = Normalize(in_channels)
         self.conv1 = Conv2d(in_channels, out_ch, kernel_size, padding=pad)
         self.norm2 = Normalize(out_ch)
+        self.dropout_rate = float(dropout)
+        self.dropout_key = 0
         self.conv2 = Conv2d(out_ch, out_ch, kernel_size, padding=pad)
         if in_channels != out_ch:
             if conv_shortcut:
@@ -48,14 +58,22 @@ class ResnetBlockK1(nn.Module):
             else:
                 self.nin_shortcut = Conv2d(in_channels, out_ch, 1)
 
-    def forward(self, x):
-        h = self.conv1(nonlinearity(self.norm1(x)))
-        h = self.conv2(nonlinearity(self.norm2(h)))
+    def forward(self, x, masks=None):
+        """`masks`: `DropoutMasks` in a training forward with dropout, else None."""
+        h = nonlinearity(self.norm2(self.conv1(nonlinearity(self.norm1(x)))))
+        if masks is not None and self.dropout_rate > 0.0:
+            keep = masks.keep(self, h.shape, h.device)
+            h = torch.where(keep, h / (1.0 - self.dropout_rate), 0.0)
+        h = self.conv2(h)
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         elif hasattr(self, "nin_shortcut"):
             x = self.nin_shortcut(x)
         return x + h
+
+
+# the widest single head the attention kernels take (hd 512)
+KERNEL_MAX_CHANNELS = 512
 
 
 class MaskedSelfAttnBlock(nn.Module):
@@ -79,13 +97,14 @@ class MaskedSelfAttnBlock(nn.Module):
             return z.flatten(2).transpose(1, 2).contiguous()
 
         q, k, v = tokens(self.q(h_)), tokens(self.k(h_)), tokens(self.v(h_))
-        if mask is None:
+        if mask is None and c <= KERNEL_MAX_CHANNELS:
             y = fused_causal_attention(q, k, v, n_head=1, scale=c ** -0.5, causal=False)
         else:
             att = torch.softmax(torch.einsum("bqc,bkc->bqk", q, k) * c ** -0.5, dim=2)
-            att = att * mask[:, None, :].to(att.dtype)
-            if self.reweight:
-                att = att / att.sum(dim=-1, keepdim=True)
+            if mask is not None:
+                att = att * mask[:, None, :].to(att.dtype)
+                if self.reweight:
+                    att = att / att.sum(dim=-1, keepdim=True)
             y = torch.einsum("bqk,bkc->bqc", att, v)
         return x + self.proj_out(y.transpose(1, 2).reshape(b, c, h, w))
 
@@ -110,15 +129,16 @@ class TokenReconstruction(nn.Module):
         self.res = nn.ModuleList(ResnetBlockK1(input_dim, dropout=dropout, kernel_size=inner_k)
                                  for _ in range(n_layer))
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, masks=None):
+        """`masks`: the ResnetBlocks' `DropoutMasks` in a training forward."""
         if mask is not None and self.mask_update_mode in ("square", "cube"):
             mask = mask + 0.02 * (1 - mask)
         original = mask
         gain = 1.0 / max(self.n_layer - 1, 1)
-        x = self.res_in(x)
+        x = self.res_in(x, masks)
         for i in range(self.n_layer):
             x = self.attn[i](x, mask if self.biased else None)
-            x = self.res[i](x)
+            x = self.res[i](x, masks)
             if mask is not None:
                 if self.mask_update_mode == "square":
                     mask = torch.sqrt(mask)
@@ -163,22 +183,23 @@ class AttnDecoder(nn.Module):
         self.up = nn.ModuleList(up)
         self.norm_out = Normalize(block_in)
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1)
+        self.dropout_rate = float(dropout)
+        key_dropout_blocks(self)
 
     def init_weights(self, generator: torch.Generator):
         """flax's defaults, as the JAX module draws them (`flax_defaults_`)."""
         flax_defaults_(self, generator)
 
-    def forward(self, z, mask=None):
-        """`mask` (B, h*w). An evaluation forward: dropout in training is not
-        ported (no reference config sets it), so a module built with
-        `dropout > 0` raises in training mode."""
-        if self.training and self.up[0].block[0].dropout_rate > 0.0:
-            raise NotImplementedError("AttnDecoder: dropout in training is not ported")
-        h = self.mid(self.conv_in(z), mask)
+    def forward(self, z, mask=None, generator=None, masks=None):
+        """`mask` (B, h*w). In training mode with `dropout > 0` the
+        ResnetBlocks drop under `masks` (`DropoutMasks`), or under masks
+        drawn from `generator` (see the module note)."""
+        masks = training_masks(masks, self.dropout_rate, self.training, generator)
+        h = self.mid(self.conv_in(z), mask, masks)
         for i_level in reversed(range(len(self.up))):
             level = self.up[i_level]
             for i_block, block in enumerate(level.block):
-                h = block(h)
+                h = block(h, masks)
                 if len(level.attn):
                     h = level.attn[i_block](h)
             if hasattr(level, "upsample"):

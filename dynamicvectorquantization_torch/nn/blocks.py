@@ -204,11 +204,11 @@ def training_masks(masks, rate: float, train: bool, generator=None):
 
 
 def key_dropout_blocks(tower: nn.Module):
-    """Key each ResnetBlock of `tower` by a hash of its name there (distinct
-    across the encoders and the decoder: `down.*` / `mid_<grain>.*` against
-    `mid.*` / `up.*`)."""
+    """Key each block of `tower` that drops (one with a `dropout_key`) by a
+    hash of its name there (distinct across the encoders and the decoder:
+    `down.*` / `mid_<grain>.*` against `mid.*` / `up.*`)."""
     for name, mod in tower.named_modules():
-        if isinstance(mod, ResnetBlock):
+        if hasattr(mod, "dropout_key"):  # ResnetBlock, and the attention decoder's ResnetBlockK1
             mod.dropout_key = zlib.crc32(name.encode())
 
 

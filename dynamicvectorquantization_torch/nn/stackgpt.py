@@ -15,6 +15,18 @@ loss is the mean of its coarse and fine halves. Pad rows of the embedding
 tables are ordinary random rows: the trainer freezes them by zeroing their
 gradient (`train/stage2.py`), as the reference's `padding_idx` does.
 
+`mask_pad_attention` adds -1e9 to the self-attention scores of the keys
+that are content pads, in both stacks (`pad_attention_bias`): the masked
+route of `nn/transformer.py`, torch ops, as the JAX package sends any
+attention bias to XLA. Under `--sp` / `--pp` it raises, as in JAX.
+
+Text conditioning (`cross_attend_content`, `T2IDualformer`'s consuming
+variant): the content transformer's blocks cross-attend (`ln_x`, `xattn`)
+to `text_proj(text_memory)`, caption features (B, S, `text_feature_dim`)
+masked by `text_mask` (B, S), in training (`forward`) and in one cached
+decode step (`content_step`). The extra parameters exist only when the
+flag is on, so the plain model's keys are unchanged.
+
 Decode: `position_step` / `content_step` run ONE token through a stack
 against its KV cache (updated in place).
 """
@@ -67,10 +79,8 @@ class StackGPT(nn.Module):
                  content_pad_code=1024, coarse_position_pad_code=256,
                  fine_position_pad_code=1024, activate_pad_ignore=True,
                  mask_pad_attention=False, use_flash_attention=False,
-                 kv_cache_dtype=None):
+                 kv_cache_dtype=None, cross_attend_content=False, text_feature_dim=512):
         super().__init__()
-        if mask_pad_attention:
-            raise NotImplementedError("mask_pad_attention is a training option; not ported")
         if kv_cache_dtype not in (None, "int8"):
             raise ValueError(f"kv_cache_dtype must be None or 'int8', got {kv_cache_dtype!r}")
         # use_flash_attention is accepted so the reference configs load
@@ -80,6 +90,9 @@ class StackGPT(nn.Module):
         self.coarse_position_pad_code = coarse_position_pad_code
         self.fine_position_pad_code = fine_position_pad_code
         self.activate_pad_ignore = activate_pad_ignore
+        self.mask_pad_attention = bool(mask_pad_attention)
+        self.cross_attend_content = bool(cross_attend_content)
+        self.text_feature_dim = int(text_feature_dim)
         self.n_head = n_head
         self.n_embd = n_embd
         self.position_layer = position_layer
@@ -95,7 +108,10 @@ class StackGPT(nn.Module):
         self.position_transformer = TransformerStack(position_layer, n_embd, n_head,
                                                      attn_pdrop, resid_pdrop)
         self.content_transformer = TransformerStack(content_layer, n_embd, n_head,
-                                                    attn_pdrop, resid_pdrop)
+                                                    attn_pdrop, resid_pdrop,
+                                                    cross_attend=self.cross_attend_content)
+        if self.cross_attend_content:
+            self.text_proj = nn.Linear(self.text_feature_dim, n_embd)
         self.position_head = nn.Sequential(
             LayerNorm(n_embd, eps=1e-5), nn.Linear(n_embd, fine_position_size, bias=False))
         self.content_head = nn.Sequential(
@@ -119,16 +135,20 @@ class StackGPT(nn.Module):
     def forward(self, coarse_content, fine_content, coarse_position, fine_position,
                 coarse_seg=None, fine_seg=None, content_target=None,
                 coarse_position_target=None, fine_position_target=None, train=False,
-                generator=None, seed=None):
+                generator=None, seed=None, text_memory=None, text_mask=None):
         """Training forward over (B, L) integer streams. Without targets:
         `{"position_logits", "content_logits"}`; with them the four losses of
         `losses_from_logits`. When `train`, `generator` feeds the embedding
-        and residual dropouts and the integer `seed` the attention dropout."""
+        and residual dropouts and the integer `seed` the attention dropout.
+        `text_memory` (B, S, text_feature_dim) and `text_mask` (B, S): the
+        captions' features, read under `cross_attend_content`."""
         x, shifted = self.embed_training_inputs(
             coarse_content, fine_content, coarse_position, fine_position, coarse_seg, fine_seg,
             train=train, generator=generator)
-        out = self.forward_from_embeddings(x, shifted, train=train, generator=generator,
-                                           seed=seed)
+        out = self.forward_from_embeddings(
+            x, shifted, train=train, generator=generator, seed=seed,
+            attn_bias=self.pad_attention_bias(coarse_content, fine_content),
+            text_memory=text_memory, text_mask=text_mask)
         if content_target is None:
             return out
         return self.losses_from_logits(
@@ -153,15 +173,33 @@ class StackGPT(nn.Module):
                              self.content_fine_pos_emb(fine_position)], dim=1)
         return x, shifted
 
+    def pad_attention_bias(self, coarse_content, fine_content):
+        """Under `mask_pad_attention` the (B, 1, 1, T) f32 self-attention bias,
+        -1e9 on the keys whose input content is the pad code; else None."""
+        if not self.mask_pad_attention:
+            return None
+        is_pad = torch.cat([coarse_content, fine_content], dim=1)[:, :-1] == self.content_pad_code
+        bias = torch.zeros(is_pad.shape, dtype=torch.float32, device=is_pad.device)
+        return bias.masked_fill_(is_pad, -1e9)[:, None, None, :]
+
+    def project_text(self, text_memory, dtype):
+        """The content transformer's cross-attention memory: `text_proj` of
+        the caption features in the model's dtype (None without them)."""
+        if not self.cross_attend_content or text_memory is None:
+            return None
+        return self.text_proj(text_memory.to(dtype))
+
     def forward_from_embeddings(self, x, shifted_position_embeddings, train=False,
-                                generator=None, seed=None):
+                                generator=None, seed=None, attn_bias=None, text_memory=None,
+                                text_mask=None):
         # layers count through both stacks (position 0.., then content), so
         # no two of them share an attention-dropout seed
         position_hidden = self.position_transformer(x, train=train, generator=generator,
-                                                    seed=seed)
+                                                    seed=seed, attn_bias=attn_bias)
         content_hidden = self.content_transformer(
             position_hidden + shifted_position_embeddings, train=train, generator=generator,
-            seed=seed, first_layer=self.position_layer)
+            seed=seed, first_layer=self.position_layer, attn_bias=attn_bias,
+            memory=self.project_text(text_memory, x.dtype), memory_mask=text_mask)
         return {"position_logits": self.position_head(position_hidden),
                 "content_logits": self.content_head(content_hidden)}
 
@@ -220,10 +258,14 @@ class StackGPT(nn.Module):
         return hidden, self.position_head(hidden[:, 0])
 
     def content_step(self, position_hidden, next_pos_tok, is_fine: bool, cache: KVCache,
-                     index, n_chunks=None):
+                     index, n_chunks=None, text_memory=None, text_mask=None):
         """One cached content-transformer step on hidden + emb(next position);
-        returns content logits (B, V)."""
+        returns content logits (B, V). `text_memory` / `text_mask`: caption
+        features for the cross-attention under `cross_attend_content`
+        (projected again each step: the memory is short)."""
         pe = self.content_fine_pos_emb if is_fine else self.content_coarse_pos_emb
         x = position_hidden + pe(next_pos_tok)[:, None, :]
-        hidden = self.content_transformer(x, cache, index, n_chunks=n_chunks)
+        hidden = self.content_transformer(x, cache, index, n_chunks=n_chunks,
+                                          memory=self.project_text(text_memory, x.dtype),
+                                          memory_mask=text_mask)
         return self.content_head(hidden[:, 0])

@@ -19,8 +19,17 @@ seed may instead be a table, an int64 tensor with one row per layer of the
 model holding those mixed seeds (`Stage2Trainer`'s captured step fills it on
 the host before each replay): layer i then hands its row to the kernels,
 which read it on the device.
-`attn_bias` and cross-attention are not ported; no shipped unconditional
-config turns them on.
+An additive `attn_bias` (StackGPT's `mask_pad_attention`: -1e9 on the keys
+that are content pads) sends the full-sequence attention to
+`ops.attention.masked_causal_attention`, torch ops differentiated by
+autograd, with the kernels' dropout mask drawn from the same seed (an int,
+or a seed-table row read on the device): the reference's route, since the
+JAX package sends any `attn_bias` to XLA and its Pallas kernel takes no
+mask. Calls without a bias stay on the kernels. `Block(cross_attend=True)`
+adds, after the self-attention, `ln_x` and `xattn`, a `CrossAttention` to a
+short external memory (the projected caption features of `T2IDualformer`'s
+consuming variant, at most 77 tokens), masked over the memory's padding to
+`finfo.min`: plain torch ops, as the JAX module is plain XLA.
 
 Model parallelism (counterpart of the JAX blocks' `stage2_param_shardings`
 under GSPMD and `sequence_parallel_axis`): with `tp` set (a
@@ -57,7 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_causal_attention, mix_seed
+from ..ops.attention import fused_causal_attention, masked_causal_attention, mix_seed
 from ..ops.kv_int8 import CHUNK, decode_attention_int8, quantize_kv
 from ..parallel.dist import copy_to_group, reduce_from_group
 from ..parallel.ring_attention import active_sequence_world, ring_attention
@@ -167,18 +176,21 @@ class CausalSelfAttention(nn.Module):
         self.tp = None  # the tensor-parallel group whose shards this module holds
 
     def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None,
-                n_chunks=None):
-        """Full sequence when `cache` is None: x (B, T, C), causal; `seed` is
-        this layer's attention-dropout seed (needed when `train` and
-        `attn_pdrop > 0`). Else a decode step: x (B, 1, C) against `cache`
-        (updated in place at `cache_index`, a host int or a 0-d int32 tensor
-        on the cache's device; `n_chunks`: the chunks a float cache reads,
-        see `chunked_decode_attention`)."""
+                n_chunks=None, attn_bias=None):
+        """Full sequence when `cache` is None: x (B, T, C), causal, plus the
+        additive `attn_bias` (B, 1, 1, T) where given (the masked route, see
+        the module note); `seed` is this layer's attention-dropout seed
+        (needed when `train` and `attn_pdrop > 0`). Else a decode step: x
+        (B, 1, C) against `cache` (updated in place at `cache_index`, a host
+        int or a 0-d int32 tensor on the cache's device; `n_chunks`: the
+        chunks a float cache reads, see `chunked_decode_attention`)."""
         if cache is None:
             rate = float(self.attn_pdrop) if train else 0.0
             if rate > 0.0 and seed is None:
                 raise ValueError("attn_pdrop > 0 in training needs the forward's integer seed")
             sp = active_sequence_world()
+            if sp is not None and attn_bias is not None:
+                raise ValueError("sequence-parallel attention does not support attn_bias")
             if sp is not None and rate > 0.0:
                 raise ValueError("sequence-parallel training requires attn_pdrop == 0 "
                                  "(ring attention has no attention-probability dropout)")
@@ -187,13 +199,17 @@ class CausalSelfAttention(nn.Module):
                 x = copy_to_group(x, tp)
             n_head = self.n_head if tp is None else self.n_head // tp.size
             q, k, v = self.query(x), self.key(x), self.value(x)
+            head0 = 0 if tp is None else tp.rank * n_head
             if sp is not None:
                 y = ring_attention(q, k, v, n_head, sp)
+            elif attn_bias is not None:
+                y = masked_causal_attention(q, k, v, n_head, attn_bias, rate, seed, head0=head0,
+                                            n_head_total=self.n_head)
             elif tp is None:
                 y = fused_causal_attention(q, k, v, n_head, causal=True, rate=rate, seed=seed)
             else:  # the rank's heads, at their place in the model
                 y = fused_causal_attention(q, k, v, n_head, causal=True, rate=rate, seed=seed,
-                                           head0=tp.rank * n_head, n_head_total=self.n_head)
+                                           head0=head0, n_head_total=self.n_head)
             if tp is None:
                 y = self.proj(y)
             else:
@@ -230,13 +246,48 @@ class CausalSelfAttention(nn.Module):
         return self.proj(y.transpose(1, 2).reshape(b, t, c))
 
 
+class CrossAttention(nn.Module):
+    """Queries from the token stream, keys and values from an external
+    memory (B, S, C), `memory_mask` (B, S) with 1 = valid; the scores of
+    masked slots are `finfo.min` before the softmax (f32), so a padded slot
+    adds nothing. Residual dropout after `proj`."""
+
+    def __init__(self, n_embd: int, n_head: int, resid_pdrop: float = 0.0):
+        super().__init__()
+        self.n_head = n_head
+        self.resid_pdrop = resid_pdrop
+        self.query = nn.Linear(n_embd, n_embd)
+        self.key = nn.Linear(n_embd, n_embd)
+        self.value = nn.Linear(n_embd, n_embd)
+        self.proj = nn.Linear(n_embd, n_embd)
+
+    def forward(self, x, memory, memory_mask=None, train=False, generator=None):
+        b, t, c = x.shape
+        hd = c // self.n_head
+
+        def heads(z):
+            return z.reshape(b, z.shape[1], self.n_head, hd).transpose(1, 2)
+
+        q, k, v = heads(self.query(x)), heads(self.key(memory)), heads(self.value(memory))
+        att = torch.matmul(q, k.transpose(-1, -2)) / float(hd) ** 0.5
+        if memory_mask is not None:
+            att = att.masked_fill(memory_mask[:, None, None, :] <= 0, torch.finfo(att.dtype).min)
+        att = torch.softmax(att.float(), dim=-1).to(v.dtype)
+        y = torch.matmul(att, v).transpose(1, 2).reshape(b, t, c)
+        return dropout(self.proj(y), self.resid_pdrop, train, generator)
+
+
 class Block(nn.Module):
     def __init__(self, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
-                 resid_pdrop: float = 0.0):
+                 resid_pdrop: float = 0.0, cross_attend: bool = False):
         super().__init__()
         self.resid_pdrop = resid_pdrop
+        self.cross_attend = cross_attend
         self.ln1 = LayerNorm(n_embd, eps=1e-5)
         self.attn = CausalSelfAttention(n_embd, n_head, attn_pdrop, resid_pdrop)
+        if cross_attend:  # parameters only when enabled: the plain model's keys are unchanged
+            self.ln_x = LayerNorm(n_embd, eps=1e-5)
+            self.xattn = CrossAttention(n_embd, n_head, resid_pdrop)
         self.ln2 = LayerNorm(n_embd, eps=1e-5)
         self.mlp = nn.Sequential(
             nn.Linear(n_embd, 4 * n_embd), GELU(), nn.Linear(4 * n_embd, n_embd))
@@ -250,8 +301,11 @@ class Block(nn.Module):
         return reduce_from_group(F.linear(h, proj.weight), self.tp) + proj.bias
 
     def forward(self, x, cache=None, cache_index=None, train=False, generator=None, seed=None,
-                n_chunks=None):
-        x = x + self.attn(self.ln1(x), cache, cache_index, train, generator, seed, n_chunks)
+                n_chunks=None, attn_bias=None, memory=None, memory_mask=None):
+        x = x + self.attn(self.ln1(x), cache, cache_index, train, generator, seed, n_chunks,
+                          attn_bias)
+        if self.cross_attend and memory is not None:
+            x = x + self.xattn(self.ln_x(x), memory, memory_mask, train, generator)
         return x + dropout(self._mlp(self.ln2(x)), self.resid_pdrop, train, generator)
 
 
@@ -259,14 +313,18 @@ class TransformerStack(nn.ModuleList):
     """N blocks; children are named `0..N-1` as in the reference."""
 
     def __init__(self, num_layers: int, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
-                 resid_pdrop: float = 0.0):
-        super().__init__(Block(n_embd, n_head, attn_pdrop, resid_pdrop)
+                 resid_pdrop: float = 0.0, cross_attend: bool = False):
+        super().__init__(Block(n_embd, n_head, attn_pdrop, resid_pdrop, cross_attend)
                          for _ in range(num_layers))
 
     def forward(self, x, cache: KVCache = None, cache_index=None, train=False, generator=None,
-                seed=None, first_layer: int = 0, n_chunks=None):
+                seed=None, first_layer: int = 0, n_chunks=None, attn_bias=None, memory=None,
+                memory_mask=None):
         """Full sequence when `cache` is None, else one cached decode step
         (`cache_index`, `n_chunks`: see `CausalSelfAttention.forward`).
+        `attn_bias`: the additive self-attention bias of every block (the
+        masked route); `memory`, `memory_mask`: what blocks built with
+        `cross_attend` attend to.
         `seed`: the training forward's attention-dropout seed; block i mixes
         `first_layer + i`, its index in the whole model, into it. Or a seed
         table (an int64 tensor, a row per layer of the model): block i takes
@@ -277,5 +335,6 @@ class TransformerStack(nn.ModuleList):
                 layer_seed = seed[first_layer + i]
             else:
                 layer_seed = None if seed is None else mix_seed(seed, first_layer + i)
-            x = block(x, layer_cache, cache_index, train, generator, layer_seed, n_chunks)
+            x = block(x, layer_cache, cache_index, train, generator, layer_seed, n_chunks,
+                      attn_bias, memory, memory_mask)
         return x

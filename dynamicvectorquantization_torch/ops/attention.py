@@ -25,6 +25,14 @@ bf16 both families round where the TPU kernel rounds: the probabilities to
 bf16 before P V, relative to the row's final max (so the bf16 forwards are
 two-pass), and D and dS before their products; the bf16 plain versions make
 the same roundings.
+A head dim no kernel takes below 512 (hd 104: taming's faces transformer,
+1,664 channels over 16 heads) is zero-padded per head to the next one a
+kernel takes (104 -> 128) with the real scale, and the output and the
+gradients are cut back (`.padded_launches`). This is exact: zero columns add
+nothing to Q K^T, so the lse is the same, the padded columns of dQ, dK and
+dV are zero, and the dropout mask depends on (b, h, row, col) alone. It is
+still the kernel's work, at 128 / 104 = 1.23x the bytes and operations of
+the real head dim. Above 512 a CUDA tensor raises.
 `fused_causal_attention` is the `torch.autograd.Function` over the two: the
 forward also returns each row's log-sum-exp of the scaled scores, the
 Function saves q, k, v, y and it, and the backward rebuilds the
@@ -86,10 +94,11 @@ def _mulhilo32(a: int, b):
 
 def philox4x32_10(counter, key):
     """Philox4x32-10 on int64 tensors holding 32-bit words: `counter` four
-    broadcastable tensors, `key` two Python ints. Returns the four output
-    words as int64 tensors in [0, 2^32)."""
+    broadcastable tensors, `key` two Python ints or two int64 tensors (read
+    on their device, never on the host). Returns the four output words as
+    int64 tensors in [0, 2^32)."""
     c0, c1, c2, c3 = counter
-    k0, k1 = (int(k) & _MASK32 for k in key)
+    k0, k1 = (k & _MASK32 if isinstance(k, torch.Tensor) else int(k) & _MASK32 for k in key)
     for _ in range(10):
         hi0, lo0 = _mulhilo32(_PHILOX_M0, c0)
         hi1, lo1 = _mulhilo32(_PHILOX_M1, c2)
@@ -116,12 +125,15 @@ def _heads_of(n_head, head0, n_head_total):
     return head0, total
 
 
-def dropout_keep_mask(seed: int, b: int, n_head: int, t: int, rate: float, device=None,
+def dropout_keep_mask(seed, b: int, n_head: int, t: int, rate: float, device=None,
                       head0: int = 0, n_head_total=None):
     """The keep mask both kernels draw, bool (B, H, T, T) [batch, head, query
     row, key column], from the same Philox counters in torch integer ops;
     for heads `head0 ..` of a model of `n_head_total` heads, the rows of
-    those heads in the model's full mask (the module docstring)."""
+    those heads in the model's full mask (the module docstring). `seed` is
+    an int, or a one-element int64 tensor on `device` whose 64 bits make the
+    key by device ops (no host read: a CUDA graph captures the draw and
+    replays it with whatever seed the tensor then holds)."""
     head0, total = _heads_of(n_head, head0, n_head_total)
     groups = (t + 3) // 4
     i64 = dict(dtype=torch.int64, device=device)
@@ -129,7 +141,10 @@ def dropout_keep_mask(seed: int, b: int, n_head: int, t: int, rate: float, devic
     row = torch.arange(t, **i64).view(1, t, 1)
     bh = (torch.arange(b, **i64).view(b, 1) * total + head0
           + torch.arange(n_head, **i64).view(1, n_head)).view(b * n_head, 1, 1)
-    seed = int(seed) & _MASK64
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(device=device, dtype=torch.int64).reshape(())
+    else:
+        seed = int(seed) & _MASK64
     words = philox4x32_10((col4, row, bh, torch.zeros((), **i64)), (seed, seed >> 32))
     bits = torch.stack(torch.broadcast_tensors(*words), dim=-1)
     bits = bits.reshape(b * n_head, t, 4 * groups)[..., :t]
@@ -188,7 +203,7 @@ def _keep_scale(q, n_head, rate, seed, head0=0, n_head_total=None):
 
 def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False,
                                   return_lse=False, rate=0.0, seed=None, head0=0,
-                                  n_head_total=None):
+                                  n_head_total=None, bias=None):
     """Plain PyTorch version: the same math as the TPU kernel (f32 scores,
     max-subtracted exp, the denominator summed before the dropout mask,
     normalisation after P V), computed in f32; for bf16 inputs the
@@ -196,12 +211,17 @@ def fused_attention_forward_plain(q, k, v, n_head: int, scale=None, causal=False
     tensor-core kernel round them. With `return_lse` also the rows'
     log-sum-exp (of the undropped scores), (B, H, T) f32. `head0`,
     `n_head_total`: the heads' place in the model, for the dropout mask (the
-    module docstring)."""
+    module docstring). `bias`, added to the scaled scores (broadcast to
+    (B, H, T, T)), is `masked_causal_attention`'s; the kernels take none.
+    Differentiable by autograd (the row max is held constant: the result
+    does not depend on it)."""
     b, t, d = q.shape
     if scale is None:
         scale = 1.0 / float(d // n_head) ** 0.5
     s = _scores(q, k, n_head, scale, causal)
-    m = s.amax(dim=-1, keepdim=True)
+    if bias is not None:
+        s = s + bias.float()
+    m = s.amax(dim=-1, keepdim=True).detach()
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     keep = _keep_scale(q, n_head, rate, seed, head0, n_head_total)
@@ -322,6 +342,37 @@ def _route(tensors, n_head, name) -> str:
     return "square tiles"
 
 
+def _padded_head_dim(q, n_head):
+    """The kernel head dim a call is zero-padded to, or None: a head dim the
+    kernels do not take (hd 104, taming's faces transformer: 1,664 over 16
+    heads) runs at the next one they take (128), with the real scale."""
+    d = q.shape[-1] if q.dim() == 3 else 0
+    if n_head <= 0 or d % n_head or d // n_head in _FORWARD_HEAD_DIMS:
+        return None
+    return next((h for h in _FORWARD_HEAD_DIMS if h > d // n_head), None)
+
+
+def _paddable(tensors) -> bool:
+    """Whether a call's inputs are ones the kernels would take but for the
+    head dim (else `_check` names what is wrong with them)."""
+    q = tensors[0]
+    return all(x.shape == q.shape and x.dtype == q.dtype and x.device == q.device
+               and x.is_contiguous() for x in tensors)
+
+
+def _pad_heads(z, n_head, hd_to):
+    """(B, T, H * hd) -> (B, T, H * hd_to), each head's columns followed by
+    zeros."""
+    b, t, d = z.shape
+    return torch.nn.functional.pad(z.reshape(b, t, n_head, d // n_head),
+                                   (0, hd_to - d // n_head)).reshape(b, t, n_head * hd_to)
+
+
+def _unpad_heads(z, n_head, hd):
+    b, t, d = z.shape
+    return z.reshape(b, t, n_head, d // n_head)[..., :hd].reshape(b, t, n_head * hd)
+
+
 def _count(wrapper, route, rate, seed):
     wrapper.launches += 1
     wrapper.device_seed_launches += isinstance(seed, torch.Tensor)
@@ -380,10 +431,21 @@ def fused_attention_forward(q, k, v, n_head: int, scale=None, causal=False, rate
     if all(x.device.type == "cpu" for x in tensors):
         return fused_attention_forward_plain(q, k, v, n_head, scale, causal, return_lse,
                                              rate, seed, head0, total)
-    _check("fused_attention_forward", tensors, n_head, _FORWARD_HEAD_DIMS)
     b, t, d = q.shape
     if scale is None:
         scale = 1.0 / float(d // n_head) ** 0.5
+    hd_to = _padded_head_dim(q, n_head)
+    if hd_to is not None and _paddable(tensors):
+        # zero columns add nothing to Q K^T (so nothing to the lse) and give
+        # zero output columns, cut off again; the mask depends on (b, h, row,
+        # col) only
+        out = fused_attention_forward(*(_pad_heads(x, n_head, hd_to) for x in tensors), n_head,
+                                      scale, causal, rate, return_lse, seed, head0, total)
+        fused_attention_forward.padded_launches += 1
+        if return_lse:
+            return _unpad_heads(out[0], n_head, d // n_head), out[1]
+        return _unpad_heads(out, n_head, d // n_head)
+    _check("fused_attention_forward", tensors, n_head, _FORWARD_HEAD_DIMS)
     out = torch.empty_like(q)
     lse = (torch.empty((b, n_head, t), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -411,6 +473,7 @@ fused_attention_forward.wide_f32_launches = 0  # those of the FMA family's on th
 fused_attention_forward.f32_tc_launches = 0  # those on the 3xTF32 kernel (f32 hd 64 / 128)
 fused_attention_forward.dropout_launches = 0  # those of `launches` that drew a mask
 fused_attention_forward.device_seed_launches = 0  # those that read their seed on the device
+fused_attention_forward.padded_launches = 0  # those at a head dim zero-padded to a kernel's
 
 
 def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causal=True,
@@ -427,8 +490,20 @@ def fused_attention_backward(q, k, v, y, lse, dy, n_head: int, scale=None, causa
     if all(x.device.type == "cpu" for x in (*tensors, lse)):
         return fused_attention_backward_plain(q, k, v, y, lse, dy, n_head, scale, causal,
                                               rate, seed, head0, total)
-    _check("fused_attention_backward", tensors, n_head, _BACKWARD_HEAD_DIMS)
     b, t, d = q.shape
+    hd_to = _padded_head_dim(q, n_head)
+    if hd_to is not None and _paddable(tensors):
+        # the padded columns of dQ, dK and dV are zero (they are products
+        # with zero columns of K, Q and dY), and delta = rowsum(dY * Y) and
+        # the lse are those of the real head dim
+        if scale is None:
+            scale = 1.0 / float(d // n_head) ** 0.5
+        grads = fused_attention_backward(*(_pad_heads(x, n_head, hd_to) for x in tensors[:4]),
+                                         lse, _pad_heads(dy, n_head, hd_to), n_head, scale,
+                                         causal, rate, seed, head0, total)
+        fused_attention_backward.padded_launches += 1
+        return tuple(_unpad_heads(g, n_head, d // n_head) for g in grads)
+    _check("fused_attention_backward", tensors, n_head, _BACKWARD_HEAD_DIMS)
     if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (b, n_head, t)
             or not lse.is_contiguous()):
         raise ValueError("fused_attention_backward: lse must be the forward's contiguous "
@@ -461,6 +536,7 @@ fused_attention_backward.wide_f32_launches = 0
 fused_attention_backward.f32_tc_launches = 0
 fused_attention_backward.dropout_launches = 0
 fused_attention_backward.device_seed_launches = 0
+fused_attention_backward.padded_launches = 0
 
 
 class _FusedCausalAttention(torch.autograd.Function):
@@ -496,3 +572,28 @@ def fused_causal_attention(q, k, v, n_head: int, scale=None, causal=True, rate=0
                                        head0=head0, n_head_total=n_head_total)
     return _FusedCausalAttention.apply(q, k, v, n_head, scale, causal, float(rate), seed, head0,
                                        n_head_total)
+
+
+def masked_causal_attention(q, k, v, n_head: int, bias, rate=0.0, seed=None, scale=None,
+                            head0=0, n_head_total=None):
+    """Causal softmax(Q K^T * scale + bias) V on (B, T, D) projections with an
+    additive `bias` (B, 1, 1, T) or (B, H, T, T): `StackGPT`'s
+    `mask_pad_attention` (-1e9 on the keys that are content pads). This is
+    the reference's route, not a kernel's: the JAX package sends every call
+    with an attention bias to XLA's einsum attention (its Pallas kernel, #4,
+    takes no mask), and here it is torch ops differentiated by autograd: the
+    arithmetic of `fused_attention_forward_plain` (f32 scores, the dropout
+    mask of the kernels' Philox counters, `dropout_keep_mask`), so at a zero
+    bias it is the kernels' plain version at the same seed. A tensor seed is
+    read on the device, so the route is captured in the stage-2 step's CUDA
+    graph. `head0`, `n_head_total`: the heads' place in the model, as for
+    the kernels. `masked_causal_attention.calls` counts calls (a CUDA graph's
+    replays add the calls its capture made, as for the kernels' launches)."""
+    rate, seed = _dropout_args(rate, seed, q.device)
+    head0, total = _heads_of(n_head, head0, n_head_total)
+    masked_causal_attention.calls += 1
+    return fused_attention_forward_plain(q, k, v, n_head, scale, True, False, rate, seed, head0,
+                                         total, bias=bias)
+
+
+masked_causal_attention.calls = 0

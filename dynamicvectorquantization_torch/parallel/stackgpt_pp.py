@@ -55,6 +55,8 @@ def stackgpt_forward_pp(sgpt, world, microbatches, coarse_content, fine_content,
     """`StackGPT.forward` (same arguments and outputs) with the content stack
     pipelined over the pp group `world` in `microbatches` microbatches of
     this rank's rows."""
+    if sgpt.mask_pad_attention:
+        raise ValueError("mask_pad_attention is not supported under pp")
     x, shifted = sgpt.embed_training_inputs(
         coarse_content, fine_content, coarse_position, fine_position, coarse_seg, fine_seg,
         train=train, generator=generator)

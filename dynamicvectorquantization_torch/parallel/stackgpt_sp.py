@@ -52,6 +52,8 @@ def stackgpt_forward_sp(sgpt, world, coarse_content, fine_content, coarse_positi
                         generator=None, seed=None):
     """`StackGPT.forward` (same arguments and outputs) with the block stacks
     sequence-sharded over the sp group `world`."""
+    if sgpt.mask_pad_attention:
+        raise ValueError("mask_pad_attention is not supported under sp")
     x, shifted = sgpt.embed_training_inputs(
         coarse_content, fine_content, coarse_position, fine_position, coarse_seg, fine_seg,
         train=train, generator=generator)

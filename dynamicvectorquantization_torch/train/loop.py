@@ -502,13 +502,16 @@ class Trainer:
         if use_cached and self.accum != 1:
             raise ValueError("--cached_codes on requires accumulate_grad_batches=1")
         # cached token streams carry image codes (and class labels) only; any
-        # other conditioning would silently train without its condition
+        # other conditioning (a text-to-image model's captions, consumed or
+        # not: its cond_stage_key is "caption") would silently train without
+        # its condition: refuse "on", downgrade "auto", as the JAX loop does
         labelled = model.cond_stage_key == "class_label"
         if use_cached and model.cond_stage_key not in ("image", "class_label"):
             if self.cached_codes == "on":
                 raise ValueError(
                     "--cached_codes on supports image / class_label conditioning only "
-                    f"(cond_stage_key={model.cond_stage_key!r})")
+                    f"(cond_stage_key={model.cond_stage_key!r}); text features are not "
+                    "cached alongside token streams")
             print(f"cached_codes auto: OFF (cond_stage_key={model.cond_stage_key!r} needs "
                   "per-step conditioning)")
             use_cached = False

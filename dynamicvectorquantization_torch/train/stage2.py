@@ -163,6 +163,12 @@ def decayed_parameter_names(module: nn.Module):
             for prefix, mod in module.named_modules() if isinstance(mod, nn.Linear)}
 
 
+def _is_text(c) -> bool:
+    """Whether a condition is captions (a list of strings, or of such lists
+    with `accum > 1`), which no tensor holds."""
+    return isinstance(c, (list, tuple)) and (not c or isinstance(c[0], (str, list, tuple)))
+
+
 def _signature(x, c):
     """Names, shapes and dtypes of a step's streams and labels."""
     return (tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(x.items())),
@@ -348,6 +354,8 @@ class Stage2Trainer:
 
     # -------------------------------------------------------------- steps
     def _to_device(self, x):
+        if _is_text(x):  # captions stay on the host: the model's text encoder reads them
+            return x
         if isinstance(x, dict):
             return {k: torch.as_tensor(v).to(self.device) for k, v in x.items()}
         return torch.as_tensor(x).to(self.device)

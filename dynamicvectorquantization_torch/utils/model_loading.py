@@ -20,7 +20,9 @@ resolver the training loop uses too: a torch file, or a stage-1 run's
 `checkpoints/` directory (newest step). A `ckpt_path` that exists but cannot
 be read raises; it never leaves seeded first-stage weights in silence (the
 JAX package's r04 bug, `utils/model_loading.py:21-23` there). Orbax
-checkpoints of the JAX package are not read here.
+checkpoints of the JAX package (which its loader reads) are not read here:
+one given raises, naming the converter `tools/orbax_to_pt.py`, whose output
+loads.
 """
 from __future__ import annotations
 
@@ -57,6 +59,25 @@ def load_into(module: torch.nn.Module, sd: dict, prefix: str = ""):
     module.load_state_dict(picked, strict=True)
 
 
+def is_orbax(path: str) -> bool:
+    """Whether `path` is an Orbax checkpoint of the JAX loop: a step directory
+    (`_METADATA`, or its `default/` item) or a root of numbered steps."""
+    if not os.path.isdir(path):
+        return False
+    if any(os.path.exists(os.path.join(path, *p, "_METADATA")) for p in ((), ("default",))):
+        return True
+    steps = [d for d in os.listdir(path) if d.isdigit()]
+    return bool(steps) and is_orbax(os.path.join(path, max(steps, key=int)))
+
+
+def refuse_orbax(path: str):
+    if is_orbax(path):
+        raise ValueError(
+            f"{path!r} is an Orbax checkpoint of the JAX package, which this package does not "
+            "read: convert it with `python -m dynamicvectorquantization_torch.tools.orbax_to_pt "
+            f"{path} --out <run dir>` and pass the run dir")
+
+
 def _checkpoint_dir(path: str):
     """The `checkpoints/` directory a path names (itself, or the one inside a
     run's logdir), or None."""
@@ -87,6 +108,7 @@ def first_stage_state_dict(path: str) -> dict:
     frozen first stage)."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"first-stage checkpoint {path!r} does not exist")
+    refuse_orbax(path)
     state = _trainer_state(path)
     if state is None:
         return load_torch_state_dict(path)
@@ -151,6 +173,7 @@ def load_model_and_variables(yaml_path, model_path=None, seed=0, kv_cache_dtype=
     if model_path:
         if not os.path.exists(model_path):
             raise FileNotFoundError(f"checkpoint {model_path!r} does not exist")
+        refuse_orbax(model_path)
         if not (os.path.isdir(model_path) or model_path.endswith(_TORCH_SUFFIXES)):
             raise ValueError(f"unsupported checkpoint {model_path!r}: expected a torch "
                              f"{'/'.join(_TORCH_SUFFIXES)} file or a trainer's checkpoints/ "

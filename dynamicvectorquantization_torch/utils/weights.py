@@ -2,7 +2,8 @@
 state_dicts.
 
 The port's modules carry the reference torch parameter names, so these are
-the inverses of the JAX package's `convert_stackgpt_state_dict`,
+the inverses of the JAX package's `convert_stackgpt_state_dict` (with the
+text-to-image cross-attention's `xattn`, `ln_x` and `text_proj`),
 `convert_dqvae_state_dict`, `convert_discriminator_state_dict` and
 `convert_lpips_weights` (`utils/torch_ckpt.py`) for the dual- and
 triple-grain DQ-VAEs (every router's `gate`, `gate_0` / `gate_2` and
@@ -13,7 +14,11 @@ two StyleGAN discriminators' converters (the inverses of
 `convert_stylegan2_disc_state_dict` / `convert_lucidrains_disc_state_dict`):
 flax `kernel`s become `weight`s with conv kernels HWIO -> OIHW and dense
 kernels (in, out) -> (out, in); `scale` -> `weight`; `embedding` ->
-`weight`; flax's `GroupNorm_0` wrapper level disappears.
+`weight`; flax's `GroupNorm_0` wrapper level disappears. The CLIP text
+tower has two: `clip_text_state_dict_from_flax` (the JAX tower's params)
+and `clip_text_state_dict_from_openai`, the port's copy of the JAX
+package's `convert_clip_text_state_dict` (an OpenAI CLIP file, read from
+`DQVQ_CLIP_WEIGHTS`).
 """
 from __future__ import annotations
 
@@ -60,15 +65,16 @@ def stackgpt_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
             sd["pos_emb"] = _tensor(v)
             continue
         tleaf, tv = _leaf(path[-1], v)
-        if root in ("content_emb", "content_coarse_pos_emb", "content_fine_pos_emb", "seg_emb"):
+        if root in ("content_emb", "content_coarse_pos_emb", "content_fine_pos_emb", "seg_emb",
+                    "text_proj"):
             key = f"{root}.{tleaf}"
         elif root in ("position_transformer", "content_transformer"):
             i = re.fullmatch(r"h_(\d+)", path[1]).group(1)
             mod = path[2]
-            if mod in ("ln1", "ln2"):
+            if mod in ("ln1", "ln2", "ln_x"):
                 key = f"{root}.{i}.{mod}.{tleaf}"
-            elif mod == "attn":
-                key = f"{root}.{i}.attn.{path[3]}.{tleaf}"
+            elif mod in ("attn", "xattn"):
+                key = f"{root}.{i}.{mod}.{path[3]}.{tleaf}"
             elif mod in ("mlp_fc", "mlp_proj"):
                 key = f"{root}.{i}.mlp.{0 if mod == 'mlp_fc' else 2}.{tleaf}"
             else:
@@ -79,6 +85,70 @@ def stackgpt_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
             key = f"{root}.1.{tleaf}"
         else:
             raise KeyError(f"unmapped StackGPT param {'/'.join(path)}")
+        sd[key] = _tensor(tv)
+    return sd
+
+
+def clip_text_state_dict_from_openai(sd, prefix: str = "", layers=None) -> Dict[str, torch.Tensor]:
+    """An OpenAI CLIP state_dict (or the reference `CLIPTextEmbedding`'s,
+    under `prefix`) -> the port's `nn.clip_text.CLIPTextTransformer`
+    state_dict: the text tower's entries, the visual tower and `logit_scale`
+    dropped, every value an f32 tensor (the port's copy of the JAX package's
+    `convert_clip_text_state_dict`, whose tree keeps these names). A block
+    index at or past `layers`, or an entry of no known name, raises."""
+    top = {"token_embedding.weight", "positional_embedding", "text_projection",
+           "ln_final.weight", "ln_final.bias"}
+    inner = {"attn.in_proj_weight", "attn.in_proj_bias", "attn.out_proj.weight",
+             "attn.out_proj.bias", "ln_1.weight", "ln_1.bias", "ln_2.weight", "ln_2.bias",
+             "mlp.c_fc.weight", "mlp.c_fc.bias", "mlp.c_proj.weight", "mlp.c_proj.bias"}
+    out = {}
+    for key, v in sd.items():
+        if not key.startswith(prefix):
+            continue
+        k = key[len(prefix):]
+        if k.startswith("visual.") or k == "logit_scale":
+            continue
+        m = re.fullmatch(r"transformer\.resblocks\.(\d+)\.(.+)", k)
+        if m is not None:
+            if layers is not None and int(m.group(1)) >= layers:
+                raise KeyError(f"resblock {m.group(1)} beyond configured {layers} layers")
+            if m.group(2) not in inner:
+                raise KeyError(f"unmapped clip key {key}")
+        elif k not in top:
+            raise KeyError(f"unmapped clip key {key}")
+        out[k] = _tensor(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def clip_text_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The JAX `CLIPTextTransformer`'s params (or `{"params": ...}`) -> the
+    port's state_dict (OpenAI names)."""
+    params = params.get("params", params)
+    sd = {}
+    for path, v in _flatten(params).items():
+        root = path[0]
+        if root in ("positional_embedding", "text_projection"):
+            sd[root] = _tensor(v)
+            continue
+        tleaf, tv = _leaf(path[-1], v)
+        if root == "token_embedding":
+            key = "token_embedding.weight"
+        elif root == "ln_final":
+            key = f"ln_final.{tleaf}"
+        elif root.startswith("resblock_"):
+            i, mod = root[len("resblock_"):], path[1]
+            if mod == "in_proj":
+                key = f"transformer.resblocks.{i}.attn.in_proj_{tleaf}"
+            elif mod == "out_proj":
+                key = f"transformer.resblocks.{i}.attn.out_proj.{tleaf}"
+            elif mod in ("c_fc", "c_proj"):
+                key = f"transformer.resblocks.{i}.mlp.{mod}.{tleaf}"
+            elif mod in ("ln_1", "ln_2"):
+                key = f"transformer.resblocks.{i}.{mod}.{tleaf}"
+            else:
+                raise KeyError(f"unmapped CLIP param {'/'.join(path)}")
+        else:
+            raise KeyError(f"unmapped CLIP param {'/'.join(path)}")
         sd[key] = _tensor(tv)
     return sd
 

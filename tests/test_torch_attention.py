@@ -458,8 +458,9 @@ def test_cuda_autograd_function_runs_both_kernels(cuda_device):
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_what_the_kernel_cannot_take(cuda_device):
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(3, 1, 64, 96))
-    with pytest.raises(ValueError):
-        fused_attention_forward(q, k, v, 1)  # hd = 96
+    wide = torch.zeros((1, 64, 1024), device=cuda_device)
+    with pytest.raises(ValueError):  # hd 1024: no kernel takes it, none to pad it to
+        fused_attention_forward(wide, wide, wide, 1)
     with pytest.raises(TypeError):
         fused_attention_forward(q.half(), k.half(), v.half(), 2)
     with pytest.raises(ValueError):

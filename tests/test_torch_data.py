@@ -312,7 +312,7 @@ def test_data_targets_resolve_by_their_tail():
     assert resolve_target("data.ffhq_lmdb.FFHQ_LMDB") == f"{PKG}.data.ffhq_lmdb.FFHQ_LMDB"
     assert resolve_target(f"{other}.data.ffhq_lmdb.FFHQ_LMDB") == \
         f"{PKG}.data.ffhq_lmdb.FFHQ_LMDB"
-    for bad in ("models.stage2_dynamic.dqtransformer_t2i.Dualformer",
+    for bad in ("modules.text_encoders.t5_text_encoder.T5TextEncoder",
                 f"{other}.data.datasets.CocoCaptions",
                 f"{other}.nn.stackgpt.StackGPT"):
         with pytest.raises(KeyError, match="ROADMAP.md") as err:

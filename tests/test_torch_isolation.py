@@ -2,8 +2,13 @@
 `dynamicvectorquantization_torch` (and `chip_smoke.py`) loads neither JAX,
 flax, PyYAML, orbax, PIL, scipy, torchvision nor the JAX package (PIL is
 imported only when an image file is opened); entry points refuse to drift to the CPU;
-`chip_smoke.py` fails without a card and outside the repository."""
+`chip_smoke.py` fails without a card and outside the repository. Modules
+imported only inside functions load none of the JAX stack either: the Orbax
+converter reads without JAX, and the `transformers` text encoders load
+neither TensorFlow nor Flax."""
+import json
 import os
+import runpy
 import shutil
 import subprocess
 import sys
@@ -70,6 +75,60 @@ def test_port_names_no_path_of_the_jax_package():
     assert found == []
     path = routers.threshold_path("configs/missing/entropy_thresholds_imagenet_train_patch-16.json")
     assert os.path.commonpath([path, pkg]) == pkg and os.path.exists(path)
+
+
+_JAX_STACK = ("jax", "jaxlib", "flax", "orbax", "tensorflow", "dynamicvectorquantization_tpu")
+_LOADED = f"""
+loaded = sorted({{m.split(".")[0] for m in sys.modules}} & set({_JAX_STACK!r}))
+print(json.dumps(loaded))
+"""
+
+
+def test_orbax_converter_reads_without_jax(tmp_path):
+    """What the converter imports when it reads (`restore_tree`, below
+    `tools.orbax_to_pt.main`) loads nothing of the JAX stack: an Orbax
+    checkpoint written here is read in a fresh process."""
+    import typing
+
+    import jax.numpy as jnp
+    import orbax.checkpoint as ocp
+
+    class State(typing.NamedTuple):
+        step: jnp.ndarray
+        params: dict
+        opt: tuple
+
+    params = {"dense": {"kernel": jnp.ones((2, 3))}, "blocks": [jnp.arange(4.0)]}
+    root = str(tmp_path / "checkpoints")
+    mngr = ocp.CheckpointManager(root, options=ocp.CheckpointManagerOptions(create=True))
+    mngr.save(7, args=ocp.args.StandardSave(State(jnp.int32(7), params, (params, None))))
+    mngr.wait_until_finished()
+    script = ("import json, sys\n"
+              "from dynamicvectorquantization_torch.tools import orbax_to_pt\n"
+              "tree = orbax_to_pt.restore_tree(sys.argv[1])\n"
+              "print(int(tree['step']), float(tree['opt'][0]['blocks'][0].sum()), tree['opt'][1])"
+              + _LOADED)
+    proc = _run(["-c", script, root], cwd=_REPO)
+    assert proc.returncode == 0, proc.stderr
+    read, loaded = proc.stdout.strip().splitlines()
+    assert read == "7 6.0 None" and json.loads(loaded) == [], proc.stdout
+
+
+def test_hf_text_encoders_load_no_jax(tmp_path):
+    """`CLIPTextEncoder` / `BERTTextEncoder` import `transformers` in their
+    constructors; that loads neither TensorFlow nor Flax, nor JAX with them."""
+    pytest.importorskip("transformers")
+    write = runpy.run_path(os.path.join(_REPO, "tests/fixtures/tiny_hf.py"))["write_tiny_hf_models"]
+    clip_dir, bert_dir = write(tmp_path)
+    script = ("import json, sys\n"
+              "from dynamicvectorquantization_torch.nn import text_encoders as enc\n"
+              "for cls, path in ((enc.CLIPTextEncoder, sys.argv[1]),"
+              " (enc.BERTTextEncoder, sys.argv[2])):\n"
+              "    cls(path).encode_text(['a red cat'], device='cpu')\n" + _LOADED)
+    env = {k: v for k, v in os.environ.items() if k not in ("USE_TF", "USE_FLAX")}
+    proc = _run(["-c", script, clip_dir, bert_dir], cwd=_REPO, env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [], proc.stdout
 
 
 def test_entry_points_need_cuda_or_an_explicit_device():

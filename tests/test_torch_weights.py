@@ -164,7 +164,7 @@ def test_unported_target_raises():
     assert resolve_target("modules.dynamic_modules.stackgpt.StackGPT").startswith(
         "dynamicvectorquantization_torch.")
     with pytest.raises(KeyError):
-        resolve_target("modules.text_encoders.clip_text_encoder.CLIPTextEncoder")
+        resolve_target("modules.text_encoders.t5_text_encoder.T5TextEncoder")
 
 
 def test_learned_relative_table_round_trips_through_jax_converter():
